@@ -1,0 +1,74 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled for Hopper (``sm_90a``) into ``tpu_vp9_torch/_build/lib<name>.so``
+and loaded with ``ctypes``; it is rebuilt when the source is newer than
+the library. The directory is listed in ``.gitignore``. The compiler's
+output (ptxas register and shared-memory report included) is kept beside
+the library as ``lib<name>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# name -> seconds nvcc took in this process (0.0 when the library was
+# already up to date)
+build_seconds: dict[str, float] = {}
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; "
+                           "the port's CUDA kernels cannot be built")
+    return path
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Load ``lib<name>.so``, compiling ``csrc/<name>.cu`` first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    src = os.path.join(CSRC, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    build_seconds[name] = 0.0
+    if not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                             capture_output=True, text=True)
+        build_seconds[name] = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, f"lib{name}.log"), "w") as fh:
+            fh.write(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent loader sees old or new
+    lib = ctypes.CDLL(so)
+    _loaded[name] = lib
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the last build of ``csrc/<name>.cu``."""
+    path = os.path.join(BUILD_DIR, f"lib{name}.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return fh.read()
