@@ -1,15 +1,20 @@
 """Public encoder API of the port: ``tpu_vp9.api.Vp9Encoder`` on a CUDA card.
 
 The lifecycle is the TPU package's (set_parameter -> init -> send_picture
--> get_packet -> get_recon -> flush/close); ``flush``, ``get_packet`` and
-``get_recon`` are inherited. This class takes a ``device`` and overrides
-``init`` and ``send_picture`` so that the low-delay host encode runs its
-full-pel motion search on that device through the port's CUDA kernel.
+-> get_packet -> get_recon -> flush/close); ``flush``, ``get_packet``,
+``get_recon`` and the realtime packet book-keeping are inherited. This
+class takes a ``device`` and overrides ``init`` and ``send_picture``:
+  - enc_mode 9 (CQP, tpu_realtime != 0, no hierarchical random access)
+    runs the realtime session of ``pipeline/realtime.py``, whose P-frame
+    step runs on that device;
+  - enc_mode <= 7 runs the low-delay host encode with its full-pel
+    motion search on that device.
 
 Routes not ported yet raise ``NotImplementedError`` (see ROADMAP.md):
-random access with hierarchical levels, enc_mode >= 8 (the device
-realtime step and the keyframe mode hints), speed control and
-multi-device meshes.
+random access with hierarchical levels, enc_mode 8, enc_mode 9 with
+``-rt 0`` (the keyframe mode hints), rate control or a geometry the
+realtime step does not take, speed control and multi-device meshes. No
+route falls back to another.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from tpu_vp9.bitstream.headers import (
 )
 from tpu_vp9.bitstream.tables import TxMode
 from tpu_vp9.codec.intra_frame import encode_keyframe
-from tpu_vp9.config import PredStructure
+from tpu_vp9.config import PredStructure, RateControlMode
 from tpu_vp9.pipeline.encoder import _apply_loop_filter, _make_refs
 from tpu_vp9.pipeline.picture_decision import SceneChangeDetector
 from tpu_vp9.pipeline.presets import derive_signals, qp_to_qindex
@@ -31,6 +36,8 @@ from tpu_vp9.pipeline.rate_control import RateControlState
 from tpu_vp9.utils.yuv import Frame420
 
 from tpu_vp9_torch.codec.inter_frame import encode_pframe
+from tpu_vp9_torch.pipeline.realtime import RtSession
+from tpu_vp9_torch.pipeline.tpu_encdec import make_geom
 from tpu_vp9_torch.utils.device import require_cuda
 
 Packet = _tpu_api.Packet
@@ -53,11 +60,14 @@ class Vp9Encoder(_tpu_api.Vp9Encoder):
                 "tpu_vp9_torch: random access with hierarchical levels "
                 "(gop.RaEncoder with device ME, ROADMAP.md Queue A) is not "
                 "ported yet; use pred_structure=LOW_DELAY_P")
-        if int(cfg.enc_mode) >= 8:
+        if int(cfg.enc_mode) == 8:
             raise NotImplementedError(
-                "tpu_vp9_torch: enc_mode >= 8 runs the device realtime step "
-                "and the tpu_intra keyframe hints, not ported yet "
-                "(ROADMAP.md Queue A); use enc_mode <= 7")
+                "tpu_vp9_torch: enc_mode 8 runs the realtime step with "
+                "rate tables, GOLDEN and the split16 descent, not ported "
+                "yet (ROADMAP.md Queue A item 4); use enc_mode 9 or <= 7")
+        realtime = int(cfg.enc_mode) == 9
+        if realtime:
+            self._check_realtime(cfg)
         if cfg.speed_control:
             raise NotImplementedError(
                 "tpu_vp9_torch: speed control is not ported yet "
@@ -84,13 +94,49 @@ class Vp9Encoder(_tpu_api.Vp9Encoder):
             else 0
         self._log2_tile_cols = min(max(log2, lo), hi)
         self._ra = self._ra_dev = self._rt = self._sc = None
+        if realtime:
+            self._rt = RtSession(
+                cfg.source_width, cfg.source_height, device=self.device,
+                intra_period=cfg.intra_period,
+                error_resilient=cfg.error_resilient,
+                frame_parallel_decoding=cfg.frame_parallel_decoding,
+                want_recon=cfg.recon_file is not None,
+                loop_filter=cfg.loop_filter, aq=int(cfg.tune) == 0)
         self._initialized = True
+
+    @staticmethod
+    def _check_realtime(cfg) -> None:
+        """Raise for an enc_mode 9 configuration the port cannot run."""
+        if cfg.tpu_realtime == 0:
+            raise NotImplementedError(
+                "tpu_vp9_torch: enc_mode 9 with tpu_realtime 0 (-rt 0) runs "
+                "the host encode with the tpu_intra keyframe hints, not "
+                "ported yet (ROADMAP.md Queue A item 10)")
+        if cfg.rate_control_mode != RateControlMode.CQP:
+            raise NotImplementedError(
+                "tpu_vp9_torch: the realtime session's rate control "
+                "(VBR/CBR) is not ported yet (ROADMAP.md Queue A item 6)")
+        try:
+            geom = make_geom(cfg.source_width, cfg.source_height)
+        except ValueError as exc:
+            raise NotImplementedError(
+                f"tpu_vp9_torch: the realtime step rejects "
+                f"{cfg.source_width}x{cfg.source_height} ({exc}); the host "
+                "route for it is not ported (ROADMAP.md Queue A item 5)"
+            ) from exc
+        if geom.strip:
+            raise NotImplementedError(
+                f"tpu_vp9_torch: {cfg.source_width}x{cfg.source_height} "
+                "needs the 16-pixel strip zone (mi_rows % 4 == 2), not "
+                "ported yet (ROADMAP.md Queue A item 5)")
 
     def send_picture(self, frame: Frame420, force_keyframe: bool = False):
         """Encode one picture; its packet is queued for ``get_packet``.
 
-        The low-delay host branch of ``tpu_vp9.api.Vp9Encoder.send_picture``
-        with the port's ``encode_pframe`` on ``self.device``.
+        The realtime and the low-delay host branches of
+        ``tpu_vp9.api.Vp9Encoder.send_picture``: the port's ``RtSession``
+        (enc_mode 9, one frame of latency), or the host encode with the
+        port's ``encode_pframe`` on ``self.device``.
         """
         if not self._initialized:
             raise RuntimeError("encoder not initialized")
@@ -105,6 +151,19 @@ class Vp9Encoder(_tpu_api.Vp9Encoder):
             cut = self._scd.is_scene_change(frame.y)
             if cut and not is_key and cfg.intra_period != -1:
                 is_key = True
+        if self._rt is not None:
+            if idx in self._qp_overrides:
+                qindex = qp_to_qindex(self._qp_overrides[idx])
+            else:
+                qindex = rc.frame_qindex(
+                    is_key,
+                    staticness=self._ld_kf_staticness(frame)
+                    if is_key else None)
+            for ef in self._rt.send(frame, qindex=qindex,
+                                    force_keyframe=is_key):
+                self._emit_rt(ef)
+            self._ld_prev_y = frame.y
+            return
         h, w = frame.y.shape
         er = cfg.error_resilient
         # 2-layer low-delay hierarchy: odd frames are non-reference and

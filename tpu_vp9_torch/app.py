@@ -6,7 +6,10 @@ plus ``-device`` (default ``cuda``). Multi-channel (``-nch``), GOP-parallel
 and multi-host runs are not ported yet and exit with an error, as does any
 configuration the port's encoder refuses.
 
-Usage:
+Usage (M9: the realtime P-frame step on the card; M7: the host encode
+with the full-pel search on the card):
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 9 \
+      -pred-struct 0 -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 7 \
       -pred-struct 0 -q 40
 """

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into ``tpu_vp9_torch/_build/lib<name>.so``
 and loaded with ``ctypes``; it is rebuilt when the source is newer than
-the library. The directory is listed in ``.gitignore``. The compiler's
+the library. ``build_all`` compiles several sources at once, one nvcc
+process each. The directory is listed in ``.gitignore``. The compiler's
 output (ptxas register and shared-memory report included) is kept beside
 the library as ``lib<name>.log``.
 """
@@ -40,27 +41,57 @@ def _nvcc() -> str:
     return path
 
 
+def _stale(name: str) -> bool:
+    src = os.path.join(CSRC, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu``; returns (process, tmp path, t0)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish(name: str, proc, tmp: str, t0: float) -> None:
+    out, err = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
+    with open(os.path.join(BUILD_DIR, f"lib{name}.log"), "w") as fh:
+        fh.write(out + err)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{err}")
+    # atomic: a concurrent loader sees the old library or the new one
+    os.replace(tmp, os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def build_all(names) -> None:
+    """Compile every stale ``csrc/<name>.cu`` of ``names`` at once, one
+    nvcc process per source, and wait for all of them."""
+    started = {name: _start(name) for name in names if _stale(name)}
+    for name in names:
+        build_seconds.setdefault(name, 0.0)
+    failed = []
+    for name, job in started.items():  # wait for every nvcc, then raise
+        try:
+            _finish(name, *job)
+        except RuntimeError as exc:
+            failed.append(str(exc))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Load ``lib<name>.so``, compiling ``csrc/<name>.cu`` first if needed."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC, f"{name}.cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    build_seconds[name] = 0.0
-    if not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                             capture_output=True, text=True)
-        build_seconds[name] = time.perf_counter() - t0
-        with open(os.path.join(BUILD_DIR, f"lib{name}.log"), "w") as fh:
-            fh.write(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader sees old or new
-    lib = ctypes.CDLL(so)
+    build_all([name])
+    lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
     _loaded[name] = lib
     return lib
 

@@ -2,8 +2,14 @@
 
   tpu_vp9/ops/pallas_kernels.py        here
   sad_full_search (_sad_search_kernel) sad_full_search (csrc/sad_search.cu)
-  block_energy                         not ported yet (ROADMAP.md, Queue B)
-  txq_cost                             not ported yet (ROADMAP.md, Queue B)
+  block_energy (_block_energy_kernel)  block_energy (csrc/block_energy.cu)
+  txq_cost                             not ported yet (ROADMAP.md, Queue B1)
+
+and one XLA stage of the realtime P-frame step, which the TPU package
+writes in jnp:
+
+  tpu_vp9/pipeline/tpu_encdec.py       here
+  _full_search_sse_mxu                 sse_map_search (csrc/sse_search.cu)
 
 Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
@@ -21,19 +27,54 @@ from tpu_vp9_torch.ops._build import load_library
 
 SAD_BLOCK_SIZES = (8, 16, 32, 64)
 SAD_MAX_RANGE = 32
+ENERGY_BLOCK_SIZES = (8, 16, 32, 64)
+SSE_BLOCK_SIZES = (8, 16, 32)
+SSE_SMEM_BYTES = 48 * 1024  # the kernel keeps src and area in shared memory
 
-_sad_fn = None
+# (library, C function, number of pointer args, number of int args); every
+# launcher ends with the stream pointer and returns cudaGetLastError()
+_LAUNCHERS = {
+    "sad_full_search": ("sad_search", "sad_full_search_launch", 5, 3),
+    "block_energy": ("block_energy", "block_energy_launch", 4, 2),
+    "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 5),
+}
+_fns: dict = {}
 
 
-def _sad_kernel():
-    global _sad_fn
-    if _sad_fn is None:
-        fn = load_library("sad_search").sad_full_search_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+def _kernel(name: str):
+    """The ctypes launcher of a kernel, building its library at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib, sym, n_ptr, n_int = _LAUNCHERS[name]
+        fn = getattr(load_library(lib), sym)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _sad_fn = fn
-    return _sad_fn
+        _fns[name] = fn
+    return fn
+
+
+def _launch(name: str, device, *args) -> None:
+    """Launch a kernel on the current stream of ``device``; raise if the
+    launch was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _device_kind(name: str, *tensors) -> str:
+    """'cpu' or 'cuda' for tensors that share one device; raise otherwise."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs on different devices "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return dev.type
 
 
 def _check_sad_args(src_blocks, regions, n: int, r: int) -> None:
@@ -53,9 +94,6 @@ def _check_sad_args(src_blocks, regions, n: int, r: int) -> None:
     if src_blocks.dtype != torch.uint8 or regions.dtype != torch.uint8:
         raise TypeError("sad_full_search: inputs must be uint8, got "
                         f"{src_blocks.dtype} and {regions.dtype}")
-    if src_blocks.device != regions.device:
-        raise ValueError("sad_full_search: inputs on different devices "
-                         f"({src_blocks.device}, {regions.device})")
 
 
 def sad_full_search_ref(src_blocks, regions, n: int, r: int):
@@ -93,28 +131,149 @@ def sad_full_search(src_blocks, regions, n: int, r: int):
     CPU inputs run ``sad_full_search_ref``.
     """
     _check_sad_args(src_blocks, regions, n, r)
-    if src_blocks.device.type == "cpu":
+    if _device_kind("sad_full_search", src_blocks, regions) == "cpu":
         return sad_full_search_ref(src_blocks, regions, n, r)
-    if src_blocks.device.type != "cuda":
-        raise ValueError("sad_full_search: unsupported device "
-                         f"{src_blocks.device}")
-    if not (src_blocks.is_contiguous() and regions.is_contiguous()):
-        raise ValueError("sad_full_search: inputs must be contiguous")
     b = src_blocks.shape[0]
     out = torch.empty((3, b), dtype=torch.int32, device=src_blocks.device)
     if b == 0:
         return out[0], out[1], out[2]
-    launch = _sad_kernel()
-    with torch.cuda.device(src_blocks.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(src_blocks.data_ptr(), regions.data_ptr(),
-                     out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                     b, n, r, stream)
-    if err != 0:
-        raise RuntimeError(f"sad_full_search: CUDA launch failed with error "
-                           f"{err}")
+    _launch("sad_full_search", src_blocks.device, src_blocks.data_ptr(),
+            regions.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), b, n, r)
     sad_full_search.launches += 1
     return out[0], out[1], out[2]
 
 
 sad_full_search.launches = 0
+
+
+def _check_energy_args(src_blocks, pred_blocks, n: int) -> None:
+    if n not in ENERGY_BLOCK_SIZES:
+        raise ValueError(f"block_energy: n={n} not in {ENERGY_BLOCK_SIZES}")
+    b = src_blocks.shape[0]
+    for t in (src_blocks, pred_blocks):
+        if tuple(t.shape) != (b, n, n):
+            raise ValueError(f"block_energy: input shape {tuple(t.shape)}, "
+                             f"want ({b}, {n}, {n})")
+        if t.dtype != torch.uint8:
+            raise TypeError(f"block_energy: inputs must be uint8, got "
+                            f"{t.dtype}")
+
+
+def block_energy_ref(src_blocks, pred_blocks, n: int):
+    """Plain PyTorch per-block (SSE, SAD) of src - pred, int32 (B,) each."""
+    d = src_blocks.to(torch.int32) - pred_blocks.to(torch.int32)
+    return ((d * d).sum(dim=(1, 2), dtype=torch.int32),
+            d.abs().sum(dim=(1, 2), dtype=torch.int32))
+
+
+def block_energy(src_blocks, pred_blocks, n: int):
+    """(SSE, SAD) of src - pred per block: the distortion kernel.
+
+    src_blocks, pred_blocks: (B, n, n) uint8, n in {8, 16, 32, 64}.
+    Returns (sse, sad) int32 tensors of shape (B,) on the inputs' device,
+    as ``tpu_vp9.ops.pallas_kernels.block_energy``. CUDA inputs run the
+    kernel of ``csrc/block_energy.cu``; CPU inputs run
+    ``block_energy_ref``.
+    """
+    _check_energy_args(src_blocks, pred_blocks, n)
+    if _device_kind("block_energy", src_blocks, pred_blocks) == "cpu":
+        return block_energy_ref(src_blocks, pred_blocks, n)
+    if src_blocks.data_ptr() % 16 or pred_blocks.data_ptr() % 16:
+        raise ValueError("block_energy: inputs must start on a 16-byte "
+                         "boundary")
+    b = src_blocks.shape[0]
+    out = torch.empty((2, b), dtype=torch.int32, device=src_blocks.device)
+    if b == 0:
+        return out[0], out[1]
+    _launch("block_energy", src_blocks.device, src_blocks.data_ptr(),
+            pred_blocks.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), b,
+            n)
+    block_energy.launches += 1
+    return out[0], out[1]
+
+
+block_energy.launches = 0
+
+
+def _check_sse_args(src_blocks, wins, n: int, r: int) -> None:
+    if n not in SSE_BLOCK_SIZES:
+        raise ValueError(f"sse_map_search: n={n} not in {SSE_BLOCK_SIZES}")
+    area = n + 2 * r
+    if r < 1 or 4 * (n * n + area * area) > SSE_SMEM_BYTES:
+        raise ValueError(f"sse_map_search: r={r} at n={n} outside the "
+                         f"kernel's {SSE_SMEM_BYTES}-byte shared memory")
+    b = src_blocks.shape[0]
+    sw = area + 8
+    if tuple(src_blocks.shape) != (b, n, n):
+        raise ValueError(f"sse_map_search: src_blocks shape "
+                         f"{tuple(src_blocks.shape)}, want ({b}, {n}, {n})")
+    if tuple(wins.shape) != (b, sw, sw):
+        raise ValueError(f"sse_map_search: wins shape {tuple(wins.shape)}, "
+                         f"want ({b}, {sw}, {sw})")
+    if src_blocks.dtype != wins.dtype or wins.dtype not in (torch.uint8,
+                                                            torch.int16):
+        raise TypeError("sse_map_search: inputs must both be uint8 or both "
+                        f"int16, got {src_blocks.dtype} and {wins.dtype}")
+
+
+def sse_map_search_ref(src_blocks, wins, n: int, r: int,
+                       want_map: bool = True):
+    """Plain PyTorch exhaustive full-pel SSE search.
+
+    Same contract as ``sse_map_search``. It computes the relative-SSE map
+    the way the TPU package does, sum(reg^2) - 2 * sum(src * reg) over the
+    search area ``wins[:, 4:4+w, 4:4+w]`` (w = n + 2r), and takes the
+    first minimum with ``torch.argmin``, which returns the first index of
+    the minimum.
+    """
+    b = src_blocks.shape[0]
+    d = 2 * r + 1
+    w = n + 2 * r
+    area = wins[:, 4:4 + w, 4:4 + w].to(torch.int32)
+    src = src_blocks.to(torch.int32)
+    rel = torch.empty((b, d, d), dtype=torch.int32, device=src.device)
+    for dy in range(d):
+        rows = area[:, dy:dy + n, :].unfold(2, n, 1)  # (B, n, D, n)
+        e2 = (rows * rows).sum(dim=(1, 3), dtype=torch.int32)
+        corr = (rows * src[:, :, None, :]).sum(dim=(1, 3), dtype=torch.int32)
+        rel[:, dy] = e2 - 2 * corr
+    idx = torch.argmin(rel.reshape(b, d * d), dim=1)
+    dy = (idx // d - r).to(torch.int32)
+    dx = (idx % d - r).to(torch.int32)
+    return dy, dx, (rel if want_map else None)
+
+
+def sse_map_search(src_blocks, wins, n: int, r: int, want_map: bool = True):
+    """Exhaustive +-r full-pel SSE search for B blocks at once.
+
+    src_blocks: (B, n, n); wins: (B, n+2r+8, n+2r+8) with the search area
+    at offset (4, 4), so displacement (0, 0) sits at (r+4, r+4). Both
+    uint8, or both int16 holding values in [0, 1020] (2x2 sums of pixels).
+    n in {8, 16, 32}; the area must fit the kernel's shared memory.
+    Returns (dy, dx, rel_map): the winner int32 (B,) in [-r, r], the first
+    minimum in dy-major order, and the (B, 2r+1, 2r+1) int32 relative-SSE
+    map (true SSE minus sum(src^2)), or None when ``want_map`` is False.
+    CUDA inputs run the kernel of ``csrc/sse_search.cu``; CPU inputs run
+    ``sse_map_search_ref``.
+    """
+    _check_sse_args(src_blocks, wins, n, r)
+    if _device_kind("sse_map_search", src_blocks, wins) == "cpu":
+        return sse_map_search_ref(src_blocks, wins, n, r, want_map)
+    b = src_blocks.shape[0]
+    d = 2 * r + 1
+    dev = src_blocks.device
+    out = torch.empty((2, b), dtype=torch.int32, device=dev)
+    rel = (torch.empty((b, d, d), dtype=torch.int32, device=dev)
+           if want_map else None)
+    if b == 0:
+        return out[0], out[1], rel
+    _launch("sse_map_search", dev, src_blocks.data_ptr(), wins.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(),
+            rel.data_ptr() if want_map else None, b, n, r, n + 2 * r + 8,
+            src_blocks.element_size())
+    sse_map_search.launches += 1
+    return out[0], out[1], rel
+
+
+sse_map_search.launches = 0

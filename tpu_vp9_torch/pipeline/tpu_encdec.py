@@ -1,0 +1,875 @@
+"""The realtime device P-frame step on torch: the M9 configuration.
+
+The counterpart of ``tpu_vp9/pipeline/tpu_encdec.py`` for a uniform 32x32
+grid with the LAST reference only (no GOLDEN, no entropy rate tables, no
+32-vs-16 split, no adaptive lambda): for every 32x32 block of the frame at
+once,
+
+    window extraction -> 2-level full-pel SSE search -> quarter-pel search
+    -> ZERO/NEW/PREV/LEFT/ABOVE decision -> exact 8-tap MC (Y/U/V)
+    -> float64 forward transform + quantizer -> exact integer recon
+    -> eob/skip -> exact VP9 loop filter -> border extension.
+
+The new reference planes stay on the step's device; the host receives the
+levels, eobs, MVs (and the recon when asked) and serializes them with the
+TPU package's native serializer.
+
+Every stage computes what the TPU package's stage computes, as plain
+functions on tensors of the caller's device, with two CUDA kernels: the
+full-pel search (``sse_map_search``) and the distortion
+(``block_energy``), both in ``ops/cuda_kernels.py``. Formulations that
+exist only to suit the TPU are not carried over: one-hot matmul gathers
+(``_oh_take_rows/_cols``) are plain indexing, float32 stand-ins for
+integer arithmetic are int32, and the scan-prefix level transfer is not
+ported (the step ships full int16 level planes). Indexing in torch does
+not clamp out-of-range starts the way ``lax.dynamic_slice`` does, so every
+slice here is either proven in range or checked.
+
+Geometries: width % 32 == 0 and mi_rows % 4 in {0, 3} (the 16-pixel strip
+of mi_rows % 4 == 2 is not ported yet; ``make_geom`` still describes it).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpu_vp9.bitstream import tables as T
+from tpu_vp9.utils.trace import span
+
+from tpu_vp9_torch.ops import txfm
+from tpu_vp9_torch.ops.cuda_kernels import block_energy, sse_map_search
+
+BORDER = 96  # matches tpu_vp9/ops/inter.py (host refs interop)
+WIN_R = 40  # full-pel reach of the static search windows
+CHROMA_WIN_R = 21  # chroma MC window reach: 40.75/2 pel rounded up
+HALF_R = 18  # half-res exhaustive reach (2*18 + 4 refine = +-40 full)
+REFINE_R = 4  # full-res refinement reach around the upscaled winner
+# candidate rate proxies in lambda units (zero, new-base, new-per-log2mvd,
+# prev/temporal, spatial left/above), as the TPU package's
+CAND_RATE_PROXY = (2.0, 10.0, 2.0, 6.0, 4.0)
+_Q3_OFFS = tuple(range(-6, 7, 2))  # quarter-pel reach, q3 units
+# largest |NEW - LEFT| mvd (q3, row + col): NEW MVs lie within
+# +-(8 * (WIN_R - REFINE_R) + 8 * REFINE_R + 6) and LEFT is one of them
+MVD_MAX = 4 * (8 * WIN_R + 6)
+FILTERS = T.subpel_filters(T.InterpFilter.EIGHTTAP)  # (16, 8) int
+
+
+@contextlib.contextmanager
+def _stage(name: str):
+    """A stage of the step: a host-clock span of ``tpu_vp9.utils.trace``
+    (enqueue time on a card) and a ``torch.profiler`` range, whose device
+    time a profile attributes to the stage."""
+    with span(name), torch.profiler.record_function(name):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# Geometry (copied from tpu_vp9/pipeline/tpu_encdec.py: that module imports
+# jax)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Geom:
+    """Static per-resolution geometry of the uniform device grid."""
+
+    width: int          # visible luma width (must be a multiple of 32)
+    height: int         # visible luma height
+    mi_rows: int
+    mi_cols: int
+    rows32: int         # 32-block rows in the main zone
+    cols32: int         # 32-block cols
+    strip: bool         # 16x16 bottom strip present (mi_rows % 4 == 2)
+    pad_w: int          # device plane width (multiple of 64)
+    pad_h: int          # device plane height (main zone + strip)
+
+    @property
+    def h_mi(self) -> int:
+        return self.mi_rows * 8
+
+    @property
+    def w_mi(self) -> int:
+        return self.mi_cols * 8
+
+    @property
+    def n_blocks32(self) -> int:
+        return self.rows32 * self.cols32
+
+    @property
+    def cols16(self) -> int:
+        return self.width // 16
+
+    @property
+    def strip_y(self) -> int:
+        return self.rows32 * 32
+
+
+def make_geom(width: int, height: int) -> Geom:
+    """Geometry for the device path, or raises if unsupported."""
+    if width % 32 != 0:
+        raise ValueError("device path requires width % 32 == 0")
+    mi_rows = (height + 7) >> 3
+    mi_cols = (width + 7) >> 3
+    rem = mi_rows % 4
+    if rem == 1:
+        raise ValueError("mi_rows % 4 == 1 unsupported by device path")
+    strip = rem == 2
+    rows32 = mi_rows // 4 + (1 if rem == 3 else 0)
+    # SB-aligned (64-multiple) plane dims, as the TPU package pads them
+    pad_h = (rows32 * 32 + (16 if strip else 0) + 63) // 64 * 64
+    pad_w = (width + 63) // 64 * 64
+    return Geom(width=width, height=height, mi_rows=mi_rows,
+                mi_cols=mi_cols, rows32=rows32, cols32=width // 32,
+                strip=strip, pad_w=pad_w, pad_h=pad_h)
+
+
+def pad_plane(plane: np.ndarray, ph: int, pw: int) -> np.ndarray:
+    """Edge-replicate a host plane to (ph, pw)."""
+    h, w = plane.shape
+    return np.pad(plane, ((0, ph - h), (0, pw - w)), mode="edge")
+
+
+def extend_borders_device(plane, crop_w: int, crop_h: int,
+                          border: int = BORDER):
+    """libvpx extend_frame semantics (tpu_vp9/ops/inter.py:109): the
+    visible crop replicated outward, to (H + 2 border, W + 2 border)."""
+    dev = plane.device
+    rows = torch.arange(-border, plane.shape[0] + border,
+                        device=dev).clamp(0, crop_h - 1)
+    cols = torch.arange(-border, plane.shape[1] + border,
+                        device=dev).clamp(0, crop_w - 1)
+    return plane.index_select(0, rows).index_select(1, cols)
+
+
+def _pad_edge(plane, h: int, w: int):
+    """Edge-replicate a device plane on the bottom and right to (h, w)."""
+    ph, pw = plane.shape
+    if pw < w:
+        plane = torch.cat([plane, plane[:, -1:].expand(ph, w - pw)], dim=1)
+    if ph < h:
+        plane = torch.cat([plane, plane[-1:].expand(h - ph, w)], dim=0)
+    return plane
+
+
+# ---------------------------------------------------------------------------
+# Blocks and windows
+# ---------------------------------------------------------------------------
+
+
+def _zone_positions(geom: Geom, device):
+    """(pos_y, pos_x) int32 plane-pixel positions of the 32-grid's blocks
+    in raster order, with the grid's (rows, cols)."""
+    rows, cols = geom.rows32, geom.cols32
+    ys = torch.arange(rows, dtype=torch.int32, device=device) * 32
+    xs = torch.arange(cols, dtype=torch.int32, device=device) * 32
+    return (ys[:, None].expand(rows, cols).reshape(-1),
+            xs[None, :].expand(rows, cols).reshape(-1), rows, cols)
+
+
+def _extract_blocks(plane, y0: int, rows: int, cols: int, n: int):
+    """(rows*n, cols*n) region at row y0 -> (rows*cols, n, n)."""
+    reg = plane[y0:y0 + rows * n, :cols * n]
+    if tuple(reg.shape) != (rows * n, cols * n):
+        raise ValueError(f"_extract_blocks: {rows}x{cols} blocks of {n} at "
+                         f"row {y0} leave the {tuple(plane.shape)} plane")
+    return reg.reshape(rows, n, cols, n).permute(0, 2, 1, 3).reshape(-1, n, n)
+
+
+def _scatter_blocks(blocks, rows: int, cols: int, n: int):
+    """(rows*cols, n, n) -> (rows*n, cols*n)."""
+    return blocks.reshape(rows, cols, n, n).permute(0, 2, 1, 3) \
+        .reshape(rows * n, cols * n)
+
+
+def window_bounds(ref_shape, n: int, rows: int, cols: int, y_base: int,
+                  r: int = WIN_R):
+    """(y0, x0, height, width) of the border-extended plane region that
+    the search windows of an n-grid zone read; raises if it leaves the
+    plane (torch slicing would cut it short, lax slicing would refuse)."""
+    sw = n + 2 * r + 8
+    y0 = y_base + BORDER - r - 4
+    x0 = BORDER - r - 4
+    hh = (rows - 1) * n + sw
+    ww = (cols - 1) * n + sw
+    if y0 < 0 or x0 < 0 or y0 + hh > ref_shape[0] or x0 + ww > ref_shape[1]:
+        raise ValueError(f"search windows of {rows}x{cols} blocks of {n} "
+                         f"(r={r}) leave the {tuple(ref_shape)} plane")
+    return y0, x0, hh, ww
+
+
+def _extract_search_windows(ref_padded, n: int, rows: int, cols: int,
+                            y_base: int, r: int = WIN_R):
+    """Static (B, SW, SW) uint8 search windows, SW = n + 2r + 8, whose
+    origin is the block's top-left minus (r + 4): the +-r full-pel search
+    plus the 8-tap subpel halo. Blocks in raster order."""
+    sw = n + 2 * r + 8
+    y0, x0, hh, ww = window_bounds(ref_padded.shape, n, rows, cols, y_base,
+                                   r)
+    region = ref_padded[y0:y0 + hh, x0:x0 + ww]
+    wins = region.unfold(0, sw, n).unfold(1, sw, n)  # (rows, cols, sw, sw)
+    return wins.reshape(rows * cols, sw, sw)
+
+
+def _take_windows(wins, ys, xs, m: int):
+    """out[b] = wins[b, ys[b]:ys[b]+m, xs[b]:xs[b]+m]; the starts must lie
+    in [0, SW - m] (every caller's do, by construction or by a clamp)."""
+    b = wins.shape[0]
+    ar = torch.arange(m, device=wins.device)
+    rows = ys.long()[:, None] + ar
+    cols = xs.long()[:, None] + ar
+    bi = torch.arange(b, device=wins.device)[:, None, None]
+    return wins[bi, rows[:, :, None], cols[:, None, :]]
+
+
+def _zero_sse(ref_padded, src_blocks, rows: int, cols: int, n: int):
+    """SSE of the ZERO-MV candidate of the n-grid at the plane's origin.
+
+    Zero MV is never moved by the UMV clamp and its subpel phase is the
+    identity tap, so the prediction is the co-located reference block."""
+    core = ref_padded[BORDER:, BORDER:]
+    blocks = _extract_blocks(core, 0, rows, cols, n)
+    return block_energy(src_blocks, blocks, n)[0]
+
+
+# ---------------------------------------------------------------------------
+# Motion search
+# ---------------------------------------------------------------------------
+
+
+def hier_search(src_blocks, wins, n: int):
+    """Two-level full-pel search: exhaustive +-HALF_R at 2x decimation
+    (2x2 sums), then exhaustive +-REFINE_R at full resolution around the
+    upscaled winner; both levels run ``sse_map_search``.
+
+    Returns (c_y, c_x, dyr, dxr, loc, ssem_h, src2_h):
+      c_y/c_x  int32 refine centre (upscaled half-res winner, clipped so
+               the refine window stays inside the search window)
+      dyr/dxr  int32 refine winner relative to the centre
+      loc      (B, n+2*REFINE_R+8, ...) uint8 refine windows whose origin
+               is block + centre - (REFINE_R+4)
+      ssem_h   (B, 2*HALF_R+1, ...) int32 half-res relative-SSE map
+      src2_h   (B,) int32 half-res sum(src_h^2)
+    """
+    b = src_blocks.shape[0]
+    nh = n // 2
+    sw = wins.shape[-1]
+    wh = wins.to(torch.int32).reshape(b, sw // 2, 2, sw // 2, 2) \
+        .sum(dim=(2, 4), dtype=torch.int32).to(torch.int16)
+    sh = src_blocks.to(torch.int32).reshape(b, nh, 2, nh, 2) \
+        .sum(dim=(2, 4), dtype=torch.int32)
+    dyh, dxh, ssem_h = sse_map_search(sh.to(torch.int16), wh, nh, HALF_R)
+    src2_h = (sh * sh).sum(dim=(1, 2), dtype=torch.int32)
+    reach = WIN_R - REFINE_R
+    c_y = (dyh * 2).clamp(-reach, reach)
+    c_x = (dxh * 2).clamp(-reach, reach)
+    loc = _take_windows(wins, c_y + reach, c_x + reach,
+                        n + 2 * REFINE_R + 8)
+    dyr, dxr, _ = sse_map_search(src_blocks, loc, n, REFINE_R,
+                                 want_map=False)
+    return c_y, c_x, dyr, dxr, loc, ssem_h, src2_h
+
+
+def _conv8(x, taps, axis: int, m: int):
+    """8-tap pass with static taps along ``axis`` (1 rows, 2 columns),
+    m outputs, libvpx rounding: clamp((acc + 64) >> 7, 0, 255); int32."""
+    acc = None
+    for k, t in enumerate(int(v) for v in taps):
+        if t == 0:
+            continue
+        term = x.narrow(axis, k, m) * t
+        acc = term if acc is None else acc + term
+    return ((acc + 64) >> 7).clamp(0, 255)
+
+
+def subpel_search_ref(wins, src_blocks, dy, dx, n: int, r: int):
+    """Exhaustive quarter-pel search around a full-pel winner (plain
+    version of the step's quarter-pel stage, ``_subpel_exhaustive``).
+
+    wins: (B, n+2r+8, ...) uint8 windows whose origin is the block minus
+    (r + 4); dy/dx: int32 full-pel winner in [-r, r]. Builds the 16 phase
+    planes (4 x-phases by 4 y-phases, H then V 8-tap with libvpx rounding)
+    in int32, and scores the 7x7 q3 offsets in +-6/8 pel by SSE, keeping
+    the first best in oy-major order (strict '<').
+    Returns (mv_r_q3, mv_c_q3, sse) int32, mv relative to the window's
+    centre.
+    """
+    loc = _take_windows(wins, dy + r, dx + r, n + 8).to(torch.int32)
+    src = src_blocks.to(torch.int32)
+    phases = (0, 4, 8, 12)
+    ih = {px: _conv8(loc, FILTERS[px], 2, n + 1) for px in phases}
+    planes = {(py, px): _conv8(ih[px], FILTERS[py], 1, n + 1)
+              for py in phases for px in phases}
+    best_sse = best_oy = best_ox = None
+    for oy in _Q3_OFFS:
+        qy = oy * 2
+        sy, py = (qy >> 4) + 1, qy & 15
+        for ox in _Q3_OFFS:
+            qx = ox * 2
+            sx, px = (qx >> 4) + 1, qx & 15
+            d = planes[(py, px)][:, sy:sy + n, sx:sx + n] - src
+            sse = (d * d).sum(dim=(1, 2), dtype=torch.int32)
+            if best_sse is None:
+                best_sse = sse
+                best_oy = torch.full_like(sse, oy)
+                best_ox = torch.full_like(sse, ox)
+            else:
+                better = sse < best_sse
+                best_sse = torch.where(better, sse, best_sse)
+                best_oy = torch.where(better, oy, best_oy)
+                best_ox = torch.where(better, ox, best_ox)
+    return dy * 8 + best_oy, dx * 8 + best_ox, best_sse
+
+
+# ---------------------------------------------------------------------------
+# Motion compensation (vpx_convolve8 semantics; parity: ops/inter.py)
+# ---------------------------------------------------------------------------
+
+
+def _clamp_mv_umv(mv_r, mv_c, mi_r, mi_c, bw: int, bh: int, ss: int,
+                  mi_rows: int, mi_cols: int):
+    """Vectorized clamp_mv_to_umv_border (vp9_reconinter.c:68).
+
+    mv in q3 luma units; returns plane-space q4 (row, col)."""
+    spel_left = (4 + bw) << 4
+    spel_right = spel_left - 16
+    spel_top = (4 + bh) << 4
+    spel_bottom = spel_top - 16
+    scale = 1 << (1 - ss)
+    mb_l = -(mi_c * 8) * 8
+    mb_r = ((mi_cols - (bw << ss) // 8) - mi_c) * 64
+    mb_t = -(mi_r * 8) * 8
+    mb_b = ((mi_rows - (bh << ss) // 8) - mi_r) * 64
+    row = torch.clamp(mv_r * scale, mb_t * scale - spel_top,
+                      mb_b * scale + spel_bottom)
+    col = torch.clamp(mv_c * scale, mb_l * scale - spel_left,
+                      mb_r * scale + spel_right)
+    return row, col
+
+
+def mc_predict_from_wins(wins, pos_y, pos_x, mv_r_q3, mv_c_q3, n_out: int,
+                         ss: int, mi_rows: int, mi_cols: int, filters,
+                         win_r: int):
+    """Exact MC prediction from per-block windows whose origin is the
+    block's top-left minus (win_r + 4).
+
+    Bit-identical to MC on the full border-extended plane while every
+    UMV-clamped mv stays within +-(win_r + 0.75) pel, which holds for the
+    realtime candidates (all derive from the +-WIN_R search). filters:
+    (16, 8) int32 tensor of 8-tap kernels by phase. Returns
+    (B, n_out, n_out) uint8.
+    """
+    mi_r = (pos_y << ss) // 8
+    mi_c = (pos_x << ss) // 8
+    row_q4, col_q4 = _clamp_mv_umv(mv_r_q3, mv_c_q3, mi_r, mi_c, n_out,
+                                   n_out, ss, mi_rows, mi_cols)
+    x_q4 = (pos_x << 4) + col_q4
+    y_q4 = (pos_y << 4) + row_q4
+    sw = wins.shape[-1]
+    ln = n_out + 7
+    s_y = ((y_q4 >> 4) - pos_y + win_r + 1).clamp(0, sw - ln)
+    s_x = ((x_q4 >> 4) - pos_x + win_r + 1).clamp(0, sw - ln)
+    loc = _take_windows(wins, s_y, s_x, ln).to(torch.int32)
+    fx = filters[(x_q4 & 15).long()]  # (B, 8)
+    fy = filters[(y_q4 & 15).long()]
+    acc = loc[:, :, 0:n_out] * fx[:, 0, None, None]
+    for k in range(1, 8):
+        acc = acc + loc[:, :, k:k + n_out] * fx[:, k, None, None]
+    inter = ((acc + 64) >> 7).clamp(0, 255)
+    acc = inter[:, 0:n_out, :] * fy[:, 0, None, None]
+    for k in range(1, 8):
+        acc = acc + inter[:, k:k + n_out, :] * fy[:, k, None, None]
+    return ((acc + 64) >> 7).clamp(0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Mode decision (rate-proxy branch; M9 has no entropy rate tables)
+# ---------------------------------------------------------------------------
+
+
+def new_bits_table(device):
+    """float32 ``rn0 + rnb * log2(1 + k)`` for integer mvd k in
+    [0, MVD_MAX], the NEWMV rate proxy, computed once on the host.
+
+    log2 is taken in float64 and rounded to float32 (correctly rounded
+    but for rare double roundings), then multiplied and added in float32
+    as separate operations. The same table serves the CPU and the card,
+    whose float32 log2 differ in the last bit for some k."""
+    k = np.arange(MVD_MAX + 1, dtype=np.float64)
+    lg = np.log2(1.0 + k).astype(np.float32)
+    _, rn0, rnb, _, _ = CAND_RATE_PROXY
+    bits = np.float32(rn0) + np.float32(rnb) * lg
+    return torch.from_numpy(bits.astype(np.float32)).to(device)
+
+
+def _ssem_gather(ssem, mv_r_q3, mv_c_q3, r: int, q3_shift: int):
+    """Relative SSE of q3 MVs at their nearest map entry; MVs outside the
+    map clamp to its edge (score only)."""
+    d = 2 * r + 1
+    half = 1 << (q3_shift - 1)
+    fy = ((mv_r_q3 + half) >> q3_shift).clamp(-r, r) + r
+    fx = ((mv_c_q3 + half) >> q3_shift).clamp(-r, r) + r
+    flat = ssem.reshape(ssem.shape[0], d * d)
+    return flat.gather(1, (fy * d + fx).long()[:, None])[:, 0]
+
+
+def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
+                      prev_mv, rows: int, cols: int, r_map: int,
+                      q3_shift: int, sse_scale: int, lam: int, new_bits):
+    """Pick the best MV among {ZERO, NEW, PREV, LEFT-new, ABOVE-new}.
+
+    ZERO and NEW carry exact SSEs; PREV/LEFT/ABOVE score at their rounded
+    entry of the search's SSE map (src2m restores the map's dropped
+    constant, sse_scale its decimation). Cost = SSE + lam * rate in
+    float32, the multiply and the add as separate operations; NEW's rate
+    is looked up in ``new_bits`` (``new_bits_table``) by its mvd against
+    the left NEW MV. ``torch.argmin`` returns the first minimum, as
+    ``jnp.argmin`` does.
+    Returns (mv_r, mv_c, best_cost).
+    """
+    b = new_r.shape[0]
+    nr2 = new_r.reshape(rows, cols)
+    nc2 = new_c.reshape(rows, cols)
+    left_r = F.pad(nr2[:, :-1], (1, 0)).reshape(-1)
+    left_c = F.pad(nc2[:, :-1], (1, 0)).reshape(-1)
+    above_r = F.pad(nr2[:-1, :], (0, 0, 1, 0)).reshape(-1)
+    above_c = F.pad(nc2[:-1, :], (0, 0, 1, 0)).reshape(-1)
+    prev_r, prev_c = prev_mv[:, 0], prev_mv[:, 1]
+    zero = torch.zeros_like(new_r)
+    cand_r = torch.stack([zero, new_r, prev_r, left_r, above_r])  # (5, B)
+    cand_c = torch.stack([zero, new_c, prev_c, left_c, above_c])
+
+    def score(mr, mc):
+        return (_ssem_gather(ssem, mr, mc, r_map, q3_shift) + src2m) \
+            * sse_scale
+
+    sads = torch.stack([sse_zero, sse_new, score(prev_r, prev_c),
+                        score(left_r, left_c), score(above_r, above_c)])
+    mvd = (new_r - left_r).abs() + (new_c - left_c).abs()
+    rz, _, _, rp, rs = CAND_RATE_PROXY
+    ones = torch.ones((b,), dtype=torch.float32, device=new_r.device)
+    rate = torch.stack([rz * ones, new_bits[mvd.long()], rp * ones,
+                        rs * ones, rs * ones])
+    costs = sads.to(torch.float32) + float(lam) * rate
+    best = torch.argmin(costs, dim=0)
+    ar = torch.arange(b, device=new_r.device)
+    return cand_r[best, ar], cand_c[best, ar], costs[best, ar]
+
+
+# ---------------------------------------------------------------------------
+# Transform / quant / recon (normative inverse path)
+# ---------------------------------------------------------------------------
+
+_SCAN_CACHE: dict = {}
+
+
+def _scan(n: int, device):
+    key = (n, str(device))
+    if key not in _SCAN_CACHE:
+        order = T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0]
+        _SCAN_CACHE[key] = torch.as_tensor(np.asarray(order, np.int64),
+                                           device=device)
+    return _SCAN_CACHE[key]
+
+
+def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
+    """Forward DCT + quantize + dequant + exact integer inverse add for
+    (B, n, n) uint8 blocks. Returns (levels int16, eob int32, recon uint8);
+    eob is one past the last nonzero level in scan order (0 if none)."""
+    resid = src_blocks.to(torch.int32) - pred_blocks.to(torch.int32)
+    levels = txfm.quantize(txfm.fwd_txfm2d(resid), dc_q, ac_q, n)
+    eob, recon = recon_from_levels(levels, pred_blocks, dc_q, ac_q, n)
+    return levels.to(torch.int16), eob, recon
+
+
+def recon_from_levels(levels, pred_blocks, dc_q: int, ac_q: int, n: int):
+    """(eob int32, recon uint8) of int32 (B, n, n) quantized levels: the
+    integer half of ``transform_recon``."""
+    recon = txfm.inv_txfm_add(txfm.dequantize(levels, dc_q, ac_q, n),
+                              pred_blocks, n)
+    b = levels.shape[0]
+    nz = levels.reshape(b, n * n)[:, _scan(n, levels.device)] != 0
+    pos = torch.arange(1, n * n + 1, dtype=torch.int32,
+                       device=levels.device)
+    eob = torch.where(nz, pos, 0).amax(dim=1)
+    return eob.to(torch.int32), recon
+
+
+# ---------------------------------------------------------------------------
+# Exact VP9 loop filter (parity: tpu_vp9/ops/loopfilter.py)
+# ---------------------------------------------------------------------------
+
+
+def _c8(x):
+    return x.clamp(-128, 127)
+
+
+def _rp2(x, n: int):
+    return (x + (1 << (n - 1))) >> n
+
+
+def _flat_sums(P, Q, n: int, shift: int):
+    """The n outputs on each side of the flat (n=3, 8-wide) or flat2
+    (n=7, 16-wide) filter: p_k' = RP2((k+1) p_n + p_k + sum_{j<n} p_j
+    + sum_{j<n-k} q_j, shift), and q_k' likewise (libvpx filter8 and
+    filter16, written as prefix sums)."""
+    k = torch.arange(1, n + 1, dtype=torch.int32, device=P.device)
+    k = k.view(n, *([1] * (P.dim() - 1)))
+    pc = P[:n].cumsum(0, dtype=torch.int32)
+    qc = Q[:n].cumsum(0, dtype=torch.int32)
+    return (_rp2(k * P[n] + P[:n] + pc[n - 1] + qc.flip(0), shift),
+            _rp2(k * Q[n] + Q[:n] + qc[n - 1] + pc.flip(0), shift))
+
+
+def _lf_mixed(P, Q, width, thresh: int, limit: int, blimit: int):
+    """One edge filter (``ops/loopfilter._filter_edge_mixed``).
+
+    P/Q: (taps, ...) int32 stacks, P[k] the k-th pixel before the edge and
+    Q[k] the k-th after, taps 8 (or 4: edge classes of width <= 8);
+    width: int32 tensor (0/4/8/16) broadcastable to P[0]; width 0 lanes
+    pass through unchanged. Returns new (P, Q) stacks of the 7 (or 3)
+    pixels on each side that the filter may change."""
+    dp = (P[1:4] - P[:3]).abs()  # |p1-p0|, |p2-p1|, |p3-p2|
+    dq = (Q[1:4] - Q[:3]).abs()
+    m = torch.maximum(dp.amax(0), dq.amax(0)) > limit
+    m = m | (((P[0] - Q[0]).abs() * 2 + (P[1] - Q[1]).abs() // 2) > blimit)
+    mask = (~m) & (width > 0)
+    hev = torch.maximum(dp[0], dq[0]) > thresh
+    ps1, ps0 = P[1] - 128, P[0] - 128
+    qs0, qs1 = Q[0] - 128, Q[1] - 128
+    f = torch.where(hev, _c8(ps1 - qs1), 0)
+    f = torch.where(mask, _c8(f + 3 * (qs0 - ps0)), 0)
+    f1 = _c8(f + 4) >> 3
+    f2 = _c8(f + 3) >> 3
+    fa = torch.where(hev, 0, (f1 + 1) >> 1)
+    p4 = torch.stack([_c8(ps0 + f2), _c8(ps1 + fa)]) + 128
+    q4 = torch.stack([_c8(qs0 - f1), _c8(qs1 - fa)]) + 128
+    flat = torch.maximum((P[1:4] - P[0]).abs().amax(0),
+                         (Q[1:4] - Q[0]).abs().amax(0)) <= 1
+    flat = flat & mask & (width >= 8)
+    s_p, s_q = _flat_sums(P, Q, 3, 3)
+    pout = torch.where(flat, s_p, torch.cat([p4, P[2:3].expand_as(p4[:1])]))
+    qout = torch.where(flat, s_q, torch.cat([q4, Q[2:3].expand_as(q4[:1])]))
+    if P.shape[0] < 8:  # taps-4 call sites never reach the 16-wide stage
+        return pout, qout
+    flat2 = torch.maximum((P[4:8] - P[0]).abs().amax(0),
+                          (Q[4:8] - Q[0]).abs().amax(0)) <= 1
+    flat2 = flat2 & flat & (width >= 16)
+    s_p, s_q = _flat_sums(P, Q, 7, 4)
+    keep = (4, *pout.shape[1:])
+    return (torch.where(flat2, s_p, torch.cat([pout, P[3:7].expand(keep)])),
+            torch.where(flat2, s_q, torch.cat([qout, Q[3:7].expand(keep)])))
+
+
+def _filter_seg(seg, axis: int, width, thresh, limit, blimit):
+    """Filter int32 ``seg`` in place across the edge in the middle of its
+    ``axis`` (length 2*taps: p side first)."""
+    taps = seg.shape[axis] // 2
+    s = seg.movedim(axis, 0)  # a view: writes through it land in seg
+    pout, qout = _lf_mixed(s[:taps].flip(0), s[taps:], width, thresh, limit,
+                           blimit)
+    n = pout.shape[0]
+    s[taps - n:taps] = pout.flip(0)  # every output is a new tensor
+    s[taps:taps + n] = qout
+
+
+def _lf_vert(plane, rows0: int, nrows: int, xs: np.ndarray, width,
+             thresh, limit, blimit):
+    """Filter vertical edges at columns xs over rows [rows0, rows0+nrows),
+    in place; the +-8 column windows of distinct edges must not overlap."""
+    if xs.size == 0 or nrows <= 0:
+        return
+    cols = torch.as_tensor(xs[:, None] + np.arange(-8, 8)[None, :],
+                           device=plane.device)  # (E, 16)
+    seg = plane[rows0:rows0 + nrows][:, cols].to(torch.int32)
+    _filter_seg(seg, 2, width, thresh, limit, blimit)
+    plane[rows0:rows0 + nrows, cols] = seg.to(torch.uint8)
+
+
+def _lf_horz(plane, ys: np.ndarray, width, thresh, limit, blimit):
+    """Filter horizontal edges at rows ys over all columns, in place
+    (width carries the per-column masking). The +-8 row windows must not
+    overlap and must lie inside the plane."""
+    if ys.size == 0:
+        return
+    if np.any(np.diff(ys) < 16) or ys[0] < 8 or ys[-1] + 8 > plane.shape[0]:
+        raise ValueError(f"horizontal edges {ys.tolist()} overlap or leave "
+                         f"the {plane.shape[0]}-row plane")
+    rows = torch.as_tensor(ys[:, None] + np.arange(-8, 8)[None, :],
+                           device=plane.device)  # (E, 16)
+    seg = plane[rows].to(torch.int32)  # (E, 16, W)
+    _filter_seg(seg, 1, width, thresh, limit, blimit)
+    plane[rows] = seg.to(torch.uint8)
+
+
+def _band_rows(bt, y0: int, nrows: int):
+    if y0 < 0 or y0 + nrows > bt.shape[0]:
+        raise ValueError(f"band rows [{y0}, {y0 + nrows}) leave the "
+                         f"{bt.shape[0]}-row band tensor")
+    return bt[y0:y0 + nrows]
+
+
+def _band_vert(bt, y0: int, nrows: int, width_rows, thresh, limit,
+               blimit):
+    """Boundary vertical edges of every band at once, in place.
+    bt: (H, nb, 16) int32 band tensor (band columns x_b-8..x_b+8)."""
+    _filter_seg(_band_rows(bt, y0, nrows), 2, width_rows, thresh, limit,
+                blimit)
+
+
+def _band_horz_multi(bt, y0p: int, dys, c0: int, widths, thresh, limit,
+                     blimit):
+    """Horizontal band edges at rows y0p + dy (pairwise disjoint +-8
+    windows) on one 8-column band half (c0 0: x_b-8..x_b, 8: x_b..x_b+8),
+    in place. bt is padded with 8 rows top and bottom; widths (D, nb, 1)
+    or broadcastable."""
+    lo = min(dys)
+    span = max(dys) - lo + 16
+    seg = _band_rows(bt, y0p + lo - 8, span)[:, :, c0:c0 + 8]
+    subs = torch.stack([seg[dy - lo:dy - lo + 16] for dy in dys])
+    _filter_seg(subs, 1, widths, thresh, limit, blimit)
+    for i, dy in enumerate(dys):
+        seg[dy - lo:dy - lo + 16] = subs[i]
+
+
+def _cols_away_from_boundaries(width_px: int, sb: int) -> np.ndarray:
+    """Columns >= 8px away from every interior SB-boundary column."""
+    cols = []
+    for x in range(width_px):
+        near = False
+        b = (x // sb) * sb
+        for bb in (b, b + sb):
+            if sb <= bb < width_px and bb - 8 <= x < bb + 8:
+                near = True
+        if not near:
+            cols.append(x)
+    return np.asarray(cols, np.int64)
+
+
+def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
+                       mblim: int):
+    """Exact VP9 loop filter for the uniform 32 grid (no strip, no split).
+
+    Ordering contract (bit-exact with libvpx; see ops/loopfilter.py:1):
+    SBs in raster order, per SB all vertical then all horizontal edges.
+    The order-preserving decomposition of the TPU package's
+    ``loop_filter_device``, whose read/write sets it proves disjoint:
+      1. interior vertical edges (>= 8px from SB-boundary columns);
+      2. horizontal edges on columns >= 8px from SB-boundary columns;
+      3. per SB row in order: on the 16px bands around each interior
+         SB-boundary column, the left halves' horizontal edges, the
+         boundary vertical edge, the right halves' horizontal edges.
+    Every edge is width 16 (tx32 luma, tx16 chroma). lvl/lim/mblim are
+    host ints (lvl 0 leaves the planes as they are). Returns new planes;
+    the inputs are not modified.
+    """
+    g = geom
+    if g.strip:
+        raise NotImplementedError("loop_filter_device: strip geometries "
+                                  "are not ported yet (ROADMAP.md Queue A "
+                                  "item 5)")
+    y, u, v = y.clone(), u.clone(), v.clone()
+    dev = y.device
+    thresh = lvl >> 4
+    h_mi, w_mi = g.h_mi, g.w_mi
+    h_mi_c, w_mi_c = h_mi >> 1, w_mi >> 1
+    w16 = 16 * int(lvl > 0)
+    w16_t = torch.tensor(w16, dtype=torch.int32, device=dev)
+    lf = (thresh, lim, mblim)
+
+    # ---- pass 1: interior vertical edges ----
+    xs_y = np.array([x for x in range(32, w_mi, 32) if x % 64], np.int64)
+    _lf_vert(y, 0, h_mi, xs_y, w16_t, *lf)
+    xs_c = np.array([x for x in range(16, w_mi_c, 16) if x % 32], np.int64)
+    _lf_vert(u, 0, h_mi_c, xs_c, w16_t, *lf)
+    _lf_vert(v, 0, h_mi_c, xs_c, w16_t, *lf)
+
+    # ---- pass 2: horizontal edges away from SB-boundary columns ----
+    # (the band columns, and pad columns past the visible width, are
+    # masked to width 0)
+    def col_widths(n_cols, width_px, sb):
+        mask = np.zeros((n_cols,), np.int32)
+        mask[_cols_away_from_boundaries(width_px, sb)] = w16
+        return torch.as_tensor(mask, device=dev)[None, :]
+
+    _lf_horz(y, np.arange(32, h_mi, 32, dtype=np.int64),
+             col_widths(y.shape[1], w_mi, 64), *lf)
+    ys_c = np.arange(16, h_mi_c, 16, dtype=np.int64)
+    w_c = col_widths(u.shape[1], w_mi_c, 32)
+    _lf_horz(u, ys_c, w_c, *lf)
+    _lf_horz(v, ys_c, w_c, *lf)
+
+    # ---- pass 3: SB-boundary bands, in parallel over bands, SB rows in
+    # order (bands are 64px apart, 32 for chroma, hence disjoint) ----
+    xs_b = np.arange(64, w_mi, 64, dtype=np.int64)
+    xcs_b = np.arange(32, w_mi_c, 32, dtype=np.int64)
+    if xs_b.size == 0:
+        return y, u, v
+    bcols_y = torch.as_tensor(xs_b[:, None] + np.arange(-8, 8)[None, :],
+                              device=dev)  # (nb, 16)
+    bcols_c = torch.as_tensor(xcs_b[:, None] + np.arange(-8, 8)[None, :],
+                              device=dev)
+    # band tensors padded 8 rows top and bottom; u and v side by side on
+    # the band axis (same edge geometry, one filter call for both)
+    bt_y = F.pad(y[:, bcols_y].to(torch.int32), (0, 0, 0, 0, 8, 8))
+    bt_c = F.pad(torch.cat([u[:, bcols_c], v[:, bcols_c]], dim=1)
+                 .to(torch.int32), (0, 0, 0, 0, 8, 8))
+    rowi = torch.arange(64, device=dev)[:, None]
+    rowi_c = torch.arange(32, device=dev)[:, None]
+
+    def h_widths(y0, dys, h):
+        return torch.tensor([w16 * (0 < y0 + dy < h) for dy in dys],
+                            dtype=torch.int32, device=dev)[:, None, None]
+
+    for r in range((h_mi + 63) // 64):
+        y0 = r * 64
+        dys_y = (0, 32)
+        wh = h_widths(y0, dys_y, h_mi)
+        _band_horz_multi(bt_y, y0 + 8, dys_y, 0, wh, *lf)
+        _band_vert(bt_y, y0 + 8, 64,
+                   torch.where(y0 + rowi < h_mi, w16_t, 0), *lf)
+        _band_horz_multi(bt_y, y0 + 8, dys_y, 8, wh, *lf)
+        y0c = r * 32
+        dys_c = (0, 16)
+        whc = h_widths(y0c, dys_c, h_mi_c)
+        _band_horz_multi(bt_c, y0c + 8, dys_c, 0, whc, *lf)
+        _band_vert(bt_c, y0c + 8, 32,
+                   torch.where(y0c + rowi_c < h_mi_c, w16_t, 0), *lf)
+        _band_horz_multi(bt_c, y0c + 8, dys_c, 8, whc, *lf)
+    nb = xcs_b.size
+    y[:, bcols_y] = bt_y[8:-8].to(torch.uint8)
+    u[:, bcols_c] = bt_c[8:-8, :nb].to(torch.uint8)
+    v[:, bcols_c] = bt_c[8:-8, nb:].to(torch.uint8)
+    return y, u, v
+
+
+# ---------------------------------------------------------------------------
+# The 32-grid zone and the P-frame step
+# ---------------------------------------------------------------------------
+
+
+def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
+                geom: Geom, dc_q: int, ac_q: int, lam: int, filters,
+                new_bits):
+    """MD + recon for the uniform 32-grid (the M9 subset of the TPU
+    package's ``encode_zone``: n=32, LAST only, rate proxies).
+
+    src planes: padded device planes; ref planes: border-extended
+    previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the previous
+    frame (the temporal candidate). Returns a dict with mv (B, 2 int16),
+    ref (B int8 zeros: LAST), skip, eob_y/u/v, lv_y/u/v (int16 blocks),
+    rec_y/u/v (unfiltered zone planes), dist_b, rate_b, dist, rate.
+    """
+    g = geom
+    n, nc = 32, 16
+    pos_y, pos_x, rows, cols = _zone_positions(g, src_y.device)
+    b = rows * cols
+    with _stage("step_search"):
+        src_blocks = _extract_blocks(src_y, 0, rows, cols, n)
+        wins = _extract_search_windows(ref_y, n, rows, cols, 0)
+        sse_zero = _zero_sse(ref_y, src_blocks, rows, cols, n)
+        c_y, c_x, dyr, dxr, loc, ssem, src2m = hier_search(src_blocks,
+                                                           wins, n)
+    with _stage("step_subpel"):
+        sub_r, sub_c, sse_new = subpel_search_ref(loc, src_blocks, dyr, dxr,
+                                                  n, REFINE_R)
+    with _stage("step_md"):
+        mv_r, mv_c, _ = _candidate_decide(
+            ssem, src2m, sse_zero, sse_new, c_y * 8 + sub_r,
+            c_x * 8 + sub_c, prev_mv, rows, cols, HALF_R, 4, 4, lam,
+            new_bits)
+    # window MC: every winner derives from the +-WIN_R search (or is ZERO
+    # or PREV, equally bounded)
+    with _stage("step_mc"):
+        wu = _extract_search_windows(ref_u, nc, rows, cols, 0,
+                                     r=CHROMA_WIN_R)
+        wv = _extract_search_windows(ref_v, nc, rows, cols, 0,
+                                     r=CHROMA_WIN_R)
+        mi = (g.mi_rows, g.mi_cols)
+        pred_y = mc_predict_from_wins(wins, pos_y, pos_x, mv_r, mv_c, n, 0,
+                                      *mi, filters, WIN_R)
+        pred_u = mc_predict_from_wins(wu, pos_y // 2, pos_x // 2, mv_r,
+                                      mv_c, nc, 1, *mi, filters,
+                                      CHROMA_WIN_R)
+        pred_v = mc_predict_from_wins(wv, pos_y // 2, pos_x // 2, mv_r,
+                                      mv_c, nc, 1, *mi, filters,
+                                      CHROMA_WIN_R)
+    with _stage("step_txfm"):
+        lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, dc_q, ac_q,
+                                             n)
+        src_ub = _extract_blocks(src_u, 0, rows, cols, nc)
+        src_vb = _extract_blocks(src_v, 0, rows, cols, nc)
+        lv_u, eob_u, rec_u = transform_recon(src_ub, pred_u, dc_q, ac_q, nc)
+        lv_v, eob_v, rec_v = transform_recon(src_vb, pred_v, dc_q, ac_q, nc)
+        skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
+        dist_b = block_energy(src_blocks, rec_y, n)[0]
+        rate_b = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
+                  + (lv_v != 0).sum(dim=(1, 2)))
+    return {
+        "mv": torch.stack([mv_r, mv_c], dim=-1).to(torch.int16),
+        "ref": torch.zeros((b,), dtype=torch.int8, device=src_y.device),
+        "skip": skip,
+        "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
+        "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v,
+        "rec_y": _scatter_blocks(rec_y, rows, cols, n),
+        "rec_u": _scatter_blocks(rec_u, rows, cols, nc),
+        "rec_v": _scatter_blocks(rec_v, rows, cols, nc),
+        "dist_b": dist_b, "rate_b": rate_b,
+        "dist": dist_b.sum(), "rate": rate_b.sum(),
+    }
+
+
+def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
+                geom: Geom, dc_q: int, ac_q: int, lam: int, lf_lvl: int,
+                lf_lim: int, lf_mblim: int, filters, new_bits):
+    """One device P-frame encode step (the M9 subset of the TPU package's
+    ``pframe_step``).
+
+    src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 device
+    tensors; ref planes: the border-extended previous reconstruction.
+    Returns (outputs dict, new border-extended (ref_y, ref_u, ref_v));
+    outputs hold the "m32" zone and the loop-filtered padded recon
+    planes "rec_y"/"rec_u"/"rec_v". The references are new tensors.
+    """
+    g = geom
+    if g.strip:
+        raise NotImplementedError("pframe_step: strip geometries are not "
+                                  "ported yet (ROADMAP.md Queue A item 5)")
+    out32 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
+                        prev_mv32, g, dc_q, ac_q, lam, filters, new_bits)
+    with _stage("step_loop_filter"):
+        # pad recon to the full device plane (the coded region is g.width)
+        rec_y = _pad_edge(out32["rec_y"], g.pad_h, g.pad_w)
+        rec_u = _pad_edge(out32["rec_u"], g.pad_h // 2, g.pad_w // 2)
+        rec_v = _pad_edge(out32["rec_v"], g.pad_h // 2, g.pad_w // 2)
+        rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g,
+                                                 lf_lvl, lf_lim, lf_mblim)
+    outs = {"m32": out32, "rec_y": rec_y, "rec_u": rec_u, "rec_v": rec_v}
+    cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
+    with _stage("step_borders"):
+        refs = (extend_borders_device(rec_y, g.width, g.height),
+                extend_borders_device(rec_u, cw, ch),
+                extend_borders_device(rec_v, cw, ch))
+    return outs, refs
+
+
+def make_pframe_step(geom: Geom, device):
+    """The step for one geometry on one device: ``step(src_y, src_u,
+    src_v, ref_y, ref_u, ref_v, prev_mv32, dc_q, ac_q, lam, lf_lvl,
+    lf_lim, lf_mblim)``, with the filter taps and the NEWMV rate table
+    uploaded once. It runs eagerly; there is nothing to compile."""
+    device = torch.device(device)
+    filters = torch.as_tensor(np.asarray(FILTERS, np.int32), device=device)
+    new_bits = new_bits_table(device)
+
+    def step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32, dc_q,
+             ac_q, lam, lf_lvl, lf_lim, lf_mblim):
+        return pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
+                           prev_mv32, geom, dc_q, ac_q, lam, lf_lvl,
+                           lf_lim, lf_mblim, filters, new_bits)
+
+    return step
