@@ -4,23 +4,34 @@
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card, the software, and the build of every kernel (one nvcc per
-     source, all started together);
-  2. kernels: every kernel of the port against its plain PyTorch version
-     on the card, bit for bit, at the shapes the 1080p paths give it, ties
-     and negative minima included; both timed with CUDA events;
-  3. M9 end to end: a 1920x1080 M9 low-delay CQP encode through the public
-     Vp9Encoder; per P-frame, block_energy and sse_map_search must each
-     launch twice; the stream must decode with tpu_vp9.decoder to the
-     encoder's own recon; fps, step time and the host-clock stage split;
-  4. M9 profile: three steady P-frames under torch.profiler, for the share
+     source, all started together) and of the native host library;
+  2. kernels: sad_full_search, block_energy and sse_map_search against
+     their plain PyTorch versions on the card, bit for bit, at the shapes
+     the 1080p paths give them (the M8 children's included), ties and
+     negative minima included; both timed with CUDA events;
+  3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (rate tables, the
+     GOLDEN anchor, the 32-against-16 descent) through the public
+     Vp9Encoder; per P-frame sse_map_search must launch 3 times and
+     block_energy 6 times; some parents must split; the stream must decode
+     with the port's decoder to the encoder's own recon across two GOLDEN
+     refreshes; fps, step time and the host-clock stage split. Inside the
+     same counted window txq_cost runs at its own entry point on every
+     P-frame's residual (source minus the previous frame's recon), at
+     n=32 and n=16;
+  4. txq_cost against its plain version on those residuals (B=2040 n=32,
+     B=8160 n=16), within the stated tolerance, flipped blocks counted;
+  5. M8 profile: three steady P-frames under torch.profiler, for the share
      of their time the device is busy and the top device operations;
-  5. M9 same bytes: the first frames again with device="cpu" (the plain
+  6. M8 same bytes: the first frames again with device="cpu" (the plain
      versions) must give identical packets;
-  6. M7 (the host encode with the device full-pel search): end to end,
-     profile and same bytes, as before, at a smaller depth.
+  7. M9 (the uniform 32 grid): end to end on the first frames of the same
+     clip, profile and same bytes, as before, at a smaller depth;
+  8. M7 (the host encode with the device full-pel search): end to end,
+     profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
-nonzero before printing any result. jax is blocked from being imported.
+nonzero before printing any result. jax and the JAX package tpu_vp9 are
+blocked from being imported: the port stands alone.
 """
 
 from __future__ import annotations
@@ -32,28 +43,66 @@ import sys
 import time
 
 
-class _NoJax:
-    """Import hook: the port must run where jax is absent."""
+class _PortOnly:
+    """Import hook: the port must run where jax is absent, and must not
+    reach into the JAX package."""
 
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if name in ("jax", "tpu_vp9") or name.startswith(
+                ("jax.", "jaxlib", "tpu_vp9.")):
             raise ImportError(f"chip_smoke: the port must not import {name}")
         return None
 
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _PortOnly())
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 WIDTH, HEIGHT, QP = 1920, 1080, 40
-M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 4, 3
-LIBS = ("sad_search", "block_energy", "sse_search")
+M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
+LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
-# the 33 whole block rows; the M9 step's 32-grid has 34 rows (the last
-# overhangs the picture by 8 pixels) of 60 blocks
+# the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
+# last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
+# quarter of them, so it has as many 16x16 children as 32x32 parents
 SAD_B, SAD_N, SAD_R = 33 * 60, 32, 16
 M9_B = 34 * 60
+# launches per P-frame of the M8 step: the half-res, refine and child
+# searches; ZERO SSE and recon distortion of the 32 zone, GOLDEN's ZERO
+# and previous-MV SSE, the children's ZERO SSE and recon distortion
+M8_SSE_LAUNCHES, M8_ENERGY_LAUNCHES = 3, 6
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s
+# and operations/s by the type of the operands.
+# INT8: sums of products of 8-bit integers, which the tensor cores take
+# (sse_map_search on uint8 pixels).
+# ALU: float32 work outside the tensor cores (txq_cost, whose function is
+# defined in float32), and integer work the tensor cores cannot take: the
+# half-res search's operands are sums of four pixels and need 10 bits, and
+# |a - b| (sad_full_search, block_energy's SAD) is no product. The data
+# sheet gives no other rate off the tensor cores.
+HBM_BYTES_PER_S, INT8_OPS_PER_S, ALU_OPS_PER_S = 3.35e12, 1979e12, 67e12
+# txq_cost's stated tolerance (ops/cuda_kernels.py:txq_cost)
+TXQ_RTOL, TXQ_ATOL, TXQ_BAND, TXQ_MAX_FLIPPED = 1e-4, 1e-3, 1e-3, 0.01
+
+
+def _bound(nbytes: float, ops: float, ops_per_s: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` (each input read once, each output written once) or
+    to do ``ops`` operations at the peak for their operands' type,
+    whichever is larger."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return 1000 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _sum_bounds(parts):
+    """Sum of (count, (ms, by)) bounds; bound_by is that of the larger
+    share."""
+    total = sum(c * ms for c, (ms, _) in parts)
+    by = {}
+    for c, (ms, kind) in parts:
+        by[kind] = by.get(kind, 0.0) + c * ms
+    return total, max(by, key=by.get)
 
 
 def _cuda_time_ms(fn, reps: int) -> float:
@@ -93,6 +142,28 @@ def _check(name, label, got, want):
     return err
 
 
+def _timed(name, label, kernel_fn, plain_fn, plain_reps, bound):
+    ms = _cuda_time_ms(kernel_fn, 50)
+    plain_ms = _cuda_time_ms(plain_fn, plain_reps)
+    print(f"kernel {name} {label}: {ms:.4f} ms (CUDA), plain "
+          f"{plain_ms:.4f} ms, median of CUDA-event times; bound "
+          f"{bound[0]:.5f} ms by {bound[1]}")
+    return ms, plain_ms
+
+
+def _entry(name, source, replaces, max_err, parts):
+    """One kernel's line of the JSON: ``parts`` is a list of (launches of
+    this shape per P-frame of the kernel's main path, ms, plain_ms, bound)
+    and the times are summed over one P-frame's launches. No single
+    PyTorch call computes any of these functions, so library_ms is null."""
+    bound_ms, bound_by = _sum_bounds([(c, b) for c, _, _, b in parts])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": max_err,
+            "ms": sum(c * ms for c, ms, _, _ in parts),
+            "plain_ms": sum(c * pm for c, _, pm, _ in parts),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def _sad_inputs(b, n, r, seed):
     rng = np.random.default_rng(seed)
     win = n + 2 * r
@@ -121,7 +192,7 @@ def sad_kernel_phase(dev):
         blocks, regions = _sad_inputs(512, n, r, seed=n + r)
         cases.append((f"random n={n} r={r}", n, r, blocks, regions))
     max_err = 0
-    timing = None
+    part = None
     for label, n, r, blocks, regions in cases:
         src = torch.from_numpy(blocks).to(dev)
         reg = torch.from_numpy(regions).to(dev)
@@ -133,28 +204,31 @@ def sad_kernel_phase(dev):
             if not (bool((got[0] == -r).all()) and bool((got[1] == -r).all())):
                 raise AssertionError("sad_full_search: tie did not go to "
                                      "(-r, -r)")
-        if timing is None:  # the main path's shape
-            ms = _cuda_time_ms(lambda: K.sad_full_search(src, reg, n, r), 50)
-            plain_ms = _cuda_time_ms(
-                lambda: K.sad_full_search_ref(src, reg, n, r), 5)
-            timing = (ms, plain_ms)
-            print(f"kernel sad_full_search B={SAD_B} n={n} r={r}: "
-                  f"{ms:.4f} ms (CUDA), plain {plain_ms:.4f} ms, "
-                  f"median of CUDA-event times")
-    return {"name": "sad_full_search", "route": "cuda",
-            "source": "tpu_vp9_torch/csrc/sad_search.cu",
-            "replaces": "tpu_vp9/ops/pallas_kernels.py:76",
-            "max_abs_err": max_err, "ms": timing[0], "plain_ms": timing[1]}
+        if part is None:  # the main path's shape
+            b, d = src.shape[0], 2 * r + 1
+            # reads blocks and regions, writes three int32 per block; two
+            # integer operations (|a - b|, add) per candidate pixel
+            bound = _bound(b * (n * n + (n + 2 * r) ** 2) + 12 * b,
+                           2 * b * d * d * n * n, ALU_OPS_PER_S)
+            ms, plain_ms = _timed(
+                "sad_full_search", f"B={b} n={n} r={r}",
+                lambda: K.sad_full_search(src, reg, n, r),
+                lambda: K.sad_full_search_ref(src, reg, n, r), 5, bound)
+            part = (1, ms, plain_ms, bound)
+    return _entry("sad_full_search", "tpu_vp9_torch/csrc/sad_search.cu",
+                  "tpu_vp9/ops/pallas_kernels.py:76", max_err, [part])
 
 
 def energy_kernel_phase(dev):
-    """block_energy (CUDA) against block_energy_ref at B=2040, n=32."""
+    """block_energy (CUDA) against block_energy_ref at B=2040, n=32 (the
+    32 zone) and n=16 (the M8 children)."""
     from tpu_vp9_torch.ops import cuda_kernels as K
 
     rng = np.random.default_rng(3)
     max_err = 0
-    for n in (32, 8, 16, 64):
-        b = M9_B if n == 32 else 256
+    parts = []
+    for n, per_frame in ((32, 4), (16, 2), (8, 0), (64, 0)):
+        b = M9_B if per_frame else 256
         src = rng.integers(0, 256, (b, n, n), dtype=np.uint8)
         pred = np.clip(src.astype(np.int32) + rng.integers(-40, 41, src.shape),
                        0, 255).astype(np.uint8)
@@ -166,21 +240,24 @@ def energy_kernel_phase(dev):
         max_err = max(max_err, _check(
             "block_energy", f"B={b} n={n}", K.block_energy(s, p, n),
             K.block_energy_ref(s, p, n)))
-        if n == 32:
-            ms = _cuda_time_ms(lambda: K.block_energy(s, p, 32), 50)
-            plain_ms = _cuda_time_ms(lambda: K.block_energy_ref(s, p, 32), 20)
-    print(f"kernel block_energy B={M9_B} n=32: {ms:.4f} ms (CUDA), plain "
-          f"{plain_ms:.4f} ms, median of CUDA-event times")
-    return {"name": "block_energy", "route": "cuda",
-            "source": "tpu_vp9_torch/csrc/block_energy.cu",
-            "replaces": "tpu_vp9/ops/pallas_kernels.py:118",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        if per_frame:
+            # reads both blocks, writes two int32 per block; subtract,
+            # square or abs, add, twice over per pixel
+            bound = _bound(2 * b * n * n + 8 * b, 5 * b * n * n,
+                           ALU_OPS_PER_S)
+            ms, plain_ms = _timed(
+                "block_energy", f"B={b} n={n}",
+                lambda: K.block_energy(s, p, n),
+                lambda: K.block_energy_ref(s, p, n), 20, bound)
+            parts.append((per_frame, ms, plain_ms, bound))
+    return _entry("block_energy", "tpu_vp9_torch/csrc/block_energy.cu",
+                  "tpu_vp9/ops/pallas_kernels.py:118", max_err, parts)
 
 
 def _sse_inputs(n, r, half, seed):
-    """Search inputs as the M9 step makes them: windows of n+2r+8 (2x2
-    sums of uint8 pixels at the half-res level, int16), with a planted
-    exact match in every other block (its minimum relative SSE is
+    """Search inputs as the step makes them: windows of n+2r+8 (2x2 sums
+    of uint8 pixels at the half-res level, int16), with a planted exact
+    match in every other block (its minimum relative SSE is
     -sum(src^2) < 0), block 1 constant (every candidate ties) and block 3
     constant but for one bright window pixel."""
     rng = np.random.default_rng(seed)
@@ -202,14 +279,16 @@ def _sse_inputs(n, r, half, seed):
 
 
 def sse_kernel_phase(dev):
-    """sse_map_search (CUDA) against sse_map_search_ref at both levels of
-    the M9 step's hierarchical search."""
+    """sse_map_search (CUDA) against sse_map_search_ref at the three
+    shapes of one M8 P-frame: both levels of the hierarchical search and
+    the children's +-8 search (B = 4 * K = 2040, with the map)."""
     from tpu_vp9_torch.ops import cuda_kernels as K
 
     max_err = 0
-    ms = plain_ms = 0.0
+    parts = []
     for label, n, r, half, want_map in (("half-res", 16, 18, True, True),
-                                        ("refine", 32, 4, False, False)):
+                                        ("refine", 32, 4, False, False),
+                                        ("children", 16, 8, False, True)):
         s_np, w_np = _sse_inputs(n, r, half, seed=n + r)
         s = torch.from_numpy(s_np).to(dev)
         w = torch.from_numpy(w_np).to(dev)
@@ -225,21 +304,112 @@ def sse_kernel_phase(dev):
                                  "minimum relative SSE is not negative")
         if not (int(got[0][1]) == -r and int(got[1][1]) == -r):
             raise AssertionError("sse_map_search: tie did not go to (-r, -r)")
-        k_ms = _cuda_time_ms(lambda: K.sse_map_search(s, w, n, r, want_map),
-                             50)
-        p_ms = _cuda_time_ms(
-            lambda: K.sse_map_search_ref(s, w, n, r, want_map), 5)
-        print(f"kernel sse_map_search {label} B={M9_B} n={n} r={r} "
-              f"map={want_map}: {k_ms:.4f} ms (CUDA), plain {p_ms:.4f} ms, "
-              "median of CUDA-event times")
-        ms += k_ms
-        plain_ms += p_ms
-    print(f"kernel sse_map_search both levels of one P-frame: {ms:.4f} ms "
-          f"(CUDA), plain {plain_ms:.4f} ms")
-    return {"name": "sse_map_search", "route": "cuda",
-            "source": "tpu_vp9_torch/csrc/sse_search.cu",
-            "replaces": "tpu_vp9/pipeline/tpu_encdec.py:406",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        d, sw = 2 * r + 1, n + 2 * r + 8
+        # reads blocks and windows, writes the winner and (if asked) the
+        # map; a multiply and an add per candidate pixel, at the tensor
+        # cores' 8-bit rate where the operands are pixels
+        bound = _bound(M9_B * ((n * n + sw * sw) * s.element_size() + 8
+                               + (4 * d * d if want_map else 0)),
+                       2 * M9_B * d * d * n * n,
+                       ALU_OPS_PER_S if half else INT8_OPS_PER_S)
+        ms, plain_ms = _timed(
+            "sse_map_search", f"{label} B={M9_B} n={n} r={r} map={want_map}",
+            lambda: K.sse_map_search(s, w, n, r, want_map),
+            lambda: K.sse_map_search_ref(s, w, n, r, want_map), 5, bound)
+        parts.append((1, ms, plain_ms, bound))
+    return _entry("sse_map_search", "tpu_vp9_torch/csrc/sse_search.cu",
+                  "tpu_vp9/pipeline/tpu_encdec.py:406", max_err, parts)
+
+
+def _residual_blocks(dev, frame, prev_recon, n):
+    """(B, n, n) float32 blocks of source minus the co-located previous
+    reconstruction, the picture edge-padded to whole 32-blocks (34 rows of
+    60 at 1080p): B=2040 at n=32, B=8160 at n=16."""
+    h = (HEIGHT + 31) // 32 * 32
+    d = (np.pad(frame.y, ((0, h - HEIGHT), (0, 0)), mode="edge")
+         .astype(np.float32)
+         - np.pad(prev_recon[0], ((0, h - HEIGHT), (0, 0)), mode="edge"))
+    t = torch.from_numpy(d).to(dev)
+    return t.reshape(h // n, n, WIDTH // n, n).permute(0, 2, 1, 3) \
+        .reshape(-1, n, n).contiguous()
+
+
+def _txq_exposed(resid, dc_q, ac_q, n):
+    """Blocks with a coefficient whose |c|/q + 0.38 lies within TXQ_BAND
+    of an integer, from float64 products of the float32 DCT matrix."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    d = torch.from_numpy(K.dct_matrix(n)).to(resid.device, torch.float64)
+    c = d @ resid.to(torch.float64) @ d.T
+    q = torch.full((n, n), float(ac_q), dtype=torch.float64,
+                   device=resid.device)
+    q[0, 0] = float(dc_q)
+    v = c.abs() / q + float(np.float32(K.TXQ_BIAS))
+    return ((v - v.round()).abs() < TXQ_BAND).flatten(1).any(dim=1)
+
+
+def txq_kernel_phase(dev, frames, recons):
+    """txq_cost (CUDA) against txq_cost_ref on residuals of the M8
+    encode's own frames, at B=2040 n=32 and B=8160 n=16, within the stated
+    tolerance: blocks none of whose coefficients sits within 1e-3 of a
+    rounding boundary agree within 1e-4 relative + 1e-3 absolute; the
+    blocks that disagree are counted and must stay under 1%."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+
+    qidx = qp_to_qindex(QP)
+    dc_q, ac_q = float(T.dc_quant(qidx)), float(T.ac_quant(qidx))
+    max_err = 0.0
+    parts = []
+    for n in (32, 16):
+        flipped = total = 0
+        for i in (1, len(frames) // 2, len(frames) - 1):
+            resid = _residual_blocks(dev, frames[i], recons[i - 1], n)
+            got = K.txq_cost(resid, dc_q, ac_q, n)
+            want = K.txq_cost_ref(resid, dc_q, ac_q, n)
+            torch.cuda.synchronize()
+            exposed = _txq_exposed(resid, dc_q, ac_q, n)
+            bad = torch.zeros_like(exposed)
+            for g, w in zip(got, want):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError("txq_cost: non-finite output")
+                err = (g.double() - w.double()).abs()
+                off = err > TXQ_ATOL + TXQ_RTOL * w.double().abs()
+                bad |= off
+                if bool((~off).any()):
+                    max_err = max(max_err, float(err[~off].max()))
+            if bool((bad & ~exposed).any()):
+                raise AssertionError(
+                    f"txq_cost n={n} frame {i}: a block with no coefficient "
+                    "near a rounding boundary is outside the tolerance")
+            flipped += int(bad.sum())
+            total += bad.numel()
+        print(f"kernel txq_cost [frames' residuals B={resid.shape[0]} n={n} "
+              f"q=({dc_q}, {ac_q})]: {flipped} of {total} blocks outside "
+              f"the tolerance (each with a coefficient within {TXQ_BAND} of "
+              f"a rounding boundary); max_abs_err of the others "
+              f"{max_err:.6f}")
+        if flipped >= TXQ_MAX_FLIPPED * total:
+            raise AssertionError(f"txq_cost n={n}: {flipped} of {total} "
+                                 "blocks flipped")
+        b = resid.shape[0]
+        # reads the residuals and the matrix, writes two floats per block;
+        # two n^3 products (a multiply and an add each) and about ten
+        # operations per coefficient for the quantizer and the sums
+        bound = _bound(4 * (b * n * n + n * n + 2 * b),
+                       b * (4 * n ** 3 + 10 * n * n), ALU_OPS_PER_S)
+        ms, plain_ms = _timed(
+            "txq_cost", f"B={b} n={n}",
+            lambda: K.txq_cost(resid, dc_q, ac_q, n),
+            lambda: K.txq_cost_ref(resid, dc_q, ac_q, n), 20, bound)
+        parts.append((1, ms, plain_ms, bound))
+    # an all-zero block costs nothing
+    zero = K.txq_cost(torch.zeros((4, 32, 32), device=dev), dc_q, ac_q, 32)
+    if float(zero[0].abs().max()) != 0.0 or float(zero[1].abs().max()) != 0.0:
+        raise AssertionError("txq_cost: a zero residual has a cost")
+    return _entry("txq_cost", "tpu_vp9_torch/csrc/txq_cost.cu",
+                  "tpu_vp9/ops/pallas_kernels.py:175", max_err, parts)
 
 
 def _psnr(a, b) -> float:
@@ -248,8 +418,10 @@ def _psnr(a, b) -> float:
 
 
 def _make_encoder(device, enc_mode):
-    from tpu_vp9.config import EncoderConfig, PredStructure, RateControlMode
     from tpu_vp9_torch.api import Vp9Encoder
+    from tpu_vp9_torch.config import (
+        EncoderConfig, PredStructure, RateControlMode,
+    )
 
     enc = Vp9Encoder(device=device)
     # recon_file keeps get_recon on the realtime path; nothing is written
@@ -280,7 +452,7 @@ def _encode(device, frames, enc_mode):
     """Encode frames one by one. Returns (packets, recons, per-send rows
     (index, seconds, {stage: seconds} from the tracer's spans), the
     encoder, seconds from the first P-frame's send to the end of flush)."""
-    from tpu_vp9.utils import trace
+    from tpu_vp9_torch.utils import trace
 
     enc = _make_encoder(device, enc_mode)
     got = _capture(enc)
@@ -307,10 +479,10 @@ def _encode(device, frames, enc_mode):
 
 
 def _decode_check(pkts, recons, frames):
-    """Decode the IVF with tpu_vp9.decoder; bit-exact to the recon; Y PSNR
-    per frame."""
-    from tpu_vp9.bitstream.ivf import write_ivf_frame, write_ivf_header
-    from tpu_vp9.decoder.decoder import decode_ivf
+    """Decode the IVF with the port's decoder; bit-exact to the recon; Y
+    PSNR per frame."""
+    from tpu_vp9_torch.bitstream.ivf import write_ivf_frame, write_ivf_header
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
 
     buf = io.BytesIO()
     write_ivf_header(buf, WIDTH, HEIGHT, 30, 1, len(pkts))
@@ -333,11 +505,21 @@ def _decode_check(pkts, recons, frames):
     return psnrs
 
 
-def _reset_counts():
+def _kernel_fns():
     from tpu_vp9_torch.ops import cuda_kernels as K
 
-    for fn in (K.sad_full_search, K.block_energy, K.sse_map_search):
+    return {"sad_full_search": K.sad_full_search,
+            "block_energy": K.block_energy,
+            "sse_map_search": K.sse_map_search, "txq_cost": K.txq_cost}
+
+
+def _reset_counts():
+    for fn in _kernel_fns().values():
         fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 def _stage_means(rows):
@@ -349,64 +531,105 @@ def _stage_means(rows):
                      sorted(stage_ms.items(), key=lambda kv: -kv[1]))
 
 
-def m9_end_to_end_phase(dev, frames):
-    from tpu_vp9.utils import trace
-    from tpu_vp9_torch.ops import cuda_kernels as K
-
-    trace.enable(True)
-    _reset_counts()
-    pkts, recons, rows, enc, p_seconds = _encode(dev, frames, 9)
-    counts = {"block_energy": K.block_energy.launches,
-              "sse_map_search": K.sse_map_search.launches,
-              "sad_full_search": K.sad_full_search.launches}
-    n_p = sum(not p.is_keyframe for p in pkts)
-    print(f"m9: {len(pkts)} frames ({n_p} P) at {WIDTH}x{HEIGHT} M9 "
-          f"low-delay CQP qp {QP}: launches {counts}")
-    if n_p == 0 or counts != {"block_energy": 2 * n_p,
-                              "sse_map_search": 2 * n_p,
-                              "sad_full_search": 0}:
-        raise AssertionError(f"per-P-frame launches {counts} != 2 "
-                             f"block_energy and 2 sse_map_search for {n_p} "
-                             "P-frames")
-    psnrs = _decode_check(pkts, recons, frames)
+def _stream_line(label, pkts, psnrs):
+    """Bytes per frame and Y PSNR over a stream (or its first frames)."""
     total = sum(len(p.data) for p in pkts)
     p_bytes = statistics.mean(len(p.data) for p in pkts if not p.is_keyframe)
-    print(f"m9: decode bit-exact to recon; Y PSNR mean "
-          f"{statistics.mean(psnrs):.3f} dB (P-frames "
-          f"{statistics.mean(psnrs[1:]):.3f}); {total / len(pkts):.1f} "
-          f"B/frame ({p_bytes:.1f} B per P-frame); keyframe send "
-          f"{rows[0][1] * 1000:.1f} ms; {n_p / p_seconds:.3f} fps over the "
-          f"P-frames (first P send to end of flush, {p_seconds:.3f} s)")
-    print("m9: per P-frame send (host clock, steady state): mean "
+    return (f"{label}: Y PSNR mean {statistics.mean(psnrs):.3f} dB "
+            f"(P-frames {statistics.mean(psnrs[1:]):.3f}); "
+            f"{total / len(pkts):.1f} B/frame ({p_bytes:.1f} B per P-frame) "
+            f"over {len(pkts)} frames")
+
+
+def realtime_end_to_end_phase(dev, frames, enc_mode):
+    """M8 or M9 end to end through the public Vp9Encoder, with the launch
+    counts of the run. For M8, txq_cost also runs inside the counted
+    window, at its own entry point, on every P-frame's residual."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.utils import trace
+
+    tag = f"m{enc_mode}"
+    trace.enable(True)
+    _reset_counts()
+    pkts, recons, rows, enc, p_seconds = _encode(dev, frames, enc_mode)
+    n_p = sum(not p.is_keyframe for p in pkts)
+    if enc_mode == 8:
+        qidx = qp_to_qindex(QP)
+        dc_q, ac_q = float(T.dc_quant(qidx)), float(T.ac_quant(qidx))
+        proxies = []
+        for i in range(1, len(frames)):
+            for n in (32, 16):
+                dist, rate = K.txq_cost(
+                    _residual_blocks(dev, frames[i], recons[i - 1], n),
+                    dc_q, ac_q, n)
+                proxies.append((i, n, float(dist.sum()), float(rate.sum())))
+        torch.cuda.synchronize()
+        i, n, dist, rate = proxies[-2]
+        print(f"m8: txq_cost on frame {i}'s residual against frame "
+              f"{i - 1}'s recon, n={n}: distortion {dist:.1f}, rate proxy "
+              f"{rate:.1f}; n=16: distortion {proxies[-1][2]:.1f}, rate "
+              f"proxy {proxies[-1][3]:.1f} (the coded frame took "
+              f"{len(pkts[i].data)} bytes)")
+        if not all(np.isfinite(v) for p in proxies for v in p[2:]):
+            raise AssertionError("txq_cost: non-finite proxy")
+    counts = _read_counts()
+    print(f"{tag}: {len(pkts)} frames ({n_p} P) at {WIDTH}x{HEIGHT} "
+          f"M{enc_mode} low-delay CQP qp {QP}: launches {counts}")
+    per_p = ({"sse_map_search": M8_SSE_LAUNCHES,
+              "block_energy": M8_ENERGY_LAUNCHES, "txq_cost": 2}
+             if enc_mode == 8 else
+             {"sse_map_search": 2, "block_energy": 2, "txq_cost": 0})
+    want = {"sad_full_search": 0, **{k: v * n_p for k, v in per_p.items()}}
+    if n_p == 0 or counts != want:
+        raise AssertionError(f"launches {counts} != {want} for {n_p} "
+                             "P-frames")
+    tally = enc._rt.tally
+    n_split, n_gold = tally["split32"], tally["golden32"]
+    if tally["p_frames"] != n_p:
+        raise AssertionError(f"the session tallied {tally['p_frames']} of "
+                             f"{n_p} P-frames")
+    print(f"{tag}: {n_split} parents split and {n_gold} blocks chose GOLDEN "
+          f"over {n_p} P-frames of {M9_B} 32x32 blocks")
+    if enc_mode == 8:
+        interval = enc._rt.golden_interval
+        if n_split == 0 or n_p <= interval:
+            raise AssertionError("m8: no parent split, or no GOLDEN refresh "
+                                 "inside the clip")
+        print(f"m8: GOLDEN refreshed {n_p // interval} times (every "
+              f"{interval} P-frames)")
+    psnrs = _decode_check(pkts, recons, frames)
+    print(_stream_line(f"{tag}: decode bit-exact to recon", pkts, psnrs))
+    if len(pkts) > M9_FRAMES:
+        print(_stream_line(f"{tag}: its first {M9_FRAMES} frames",
+                           pkts[:M9_FRAMES], psnrs[:M9_FRAMES]))
+    print(f"{tag}: keyframe send {rows[0][1] * 1000:.1f} ms; "
+          f"{n_p / p_seconds:.3f} fps over the P-frames (first P send to "
+          f"end of flush, {p_seconds:.3f} s)")
+    print(f"{tag}: per P-frame send (host clock, steady state): mean "
           f"{1000 * statistics.mean(r[1] for r in rows[2:]):.1f} ms; spans "
           + _stage_means(rows[2:]))
     trace.enable(False)
     step_ms = _step_time(enc._rt, frames[-1])
-    print(f"m9: device step alone {step_ms:.3f} ms per P-frame "
+    print(f"{tag}: device step alone {step_ms:.3f} ms per P-frame "
           f"({1000 / step_ms:.2f} steps/s; host clock over 10 steps, "
           "synchronized)")
-    return pkts, counts
+    return pkts, recons, counts
 
 
 def _step_time(sess, frame) -> float:
     """Mean host-clock time of the session's step over 10 steps that run
     on its own references, synchronized before and after."""
-    from tpu_vp9.bitstream import tables as T
-    from tpu_vp9.ops.loopfilter import pick_filter_level
-    from tpu_vp9.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
 
-    qidx = qp_to_qindex(QP)
     src = sess.stage(frame)
-    lvl = pick_filter_level(qidx, False)
-    args = (T.dc_quant(qidx), T.ac_quant(qidx),
-            max(1, (T.ac_quant(qidx) ** 2) >> 6), lvl,
-            int(sess._lim_tbl[lvl]), int(sess._mblim_tbl[lvl]))
-    refs, pm = sess._refs, sess._prev_mv32
-    outs, refs = sess._step(*src, *refs, pm, *args)  # warm-up
+    args = sess.step_args(qp_to_qindex(QP))
+    outs, refs = sess._step(*src, *sess._refs, *args)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
-        outs, refs = sess._step(*src, *refs, pm, *args)
+        outs, refs = sess._step(*src, *refs, *args)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 100
 
@@ -469,11 +692,11 @@ def _profile(dev, run, label):
               "calls (host clock under the profiler)")
 
 
-def m9_profile_phase(dev, frames):
+def realtime_profile_phase(dev, frames, enc_mode):
     """Key and two P-frames to warm up, then three P-frame sends (each
     issues its step and fetches and hands on the previous frame) under the
     profiler."""
-    enc = _make_encoder(dev, 9)
+    enc = _make_encoder(dev, enc_mode)
     for frame in frames[:3]:
         enc.send_picture(frame)
     torch.cuda.synchronize(dev)
@@ -482,7 +705,7 @@ def m9_profile_phase(dev, frames):
         for frame in frames[3:6]:
             enc.send_picture(frame)
 
-    _profile(dev, run, "m9 three 1080p P-frames")
+    _profile(dev, run, f"m{enc_mode} three 1080p P-frames")
     enc.flush()
 
 
@@ -493,18 +716,19 @@ def m7_profile_phase(dev, frames):
 
 
 def m7_end_to_end_phase(dev, frames):
-    from tpu_vp9.utils import trace
-    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.utils import trace
 
     trace.enable(True)
     _reset_counts()
     pkts, recons, rows, _, p_seconds = _encode(dev, frames, 7)
-    launches = K.sad_full_search.launches
+    counts = _read_counts()
     n_p = sum(not p.is_keyframe for p in pkts)
     print(f"m7: {len(pkts)} frames ({n_p} P) at {WIDTH}x{HEIGHT} M7 "
-          f"low-delay CQP qp {QP}: sad_full_search launches={launches}")
-    if n_p == 0 or launches != n_p:
-        raise AssertionError(f"kernel launches {launches} != P-frames {n_p}")
+          f"low-delay CQP qp {QP}: launches {counts}")
+    if n_p == 0 or counts != {"sad_full_search": n_p, "block_energy": 0,
+                              "sse_map_search": 0, "txq_cost": 0}:
+        raise AssertionError(f"launches {counts} != one sad_full_search for "
+                             f"each of {n_p} P-frames")
     psnrs = _decode_check(pkts, recons, frames)
     total = sum(len(p.data) for p in pkts)
     print(f"m7: decode bit-exact to recon; Y PSNR mean "
@@ -513,7 +737,7 @@ def m7_end_to_end_phase(dev, frames):
           f"mean {1000 * statistics.mean(r[1] for r in rows[1:]):.1f} ms; "
           "spans " + _stage_means(rows[1:]))
     trace.enable(False)
-    return pkts, launches
+    return pkts, counts
 
 
 def same_bytes_phase(label, frames, cuda_pkts, enc_mode):
@@ -530,11 +754,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from tpu_vp9 import native
+    from tpu_vp9_torch import native
     from tpu_vp9_torch.ops import _build
     from tpu_vp9_torch.utils.device import card_info
     from tpu_vp9_torch.utils.yuv import panning_frames
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_info()
     print(card)
@@ -548,23 +773,40 @@ def main() -> int:
           + ")")
     for name in LIBS:
         print(_build.build_log(name).strip())
-    print(f"native host library loaded: {native.get_lib() is not None}")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError("the native host library did not build: "
+                           f"{native.build_error}")
+    print(f"native host library built and loaded: "
+          f"{time.perf_counter() - t0:.2f} s")
 
     kernels = {k["name"]: k for k in (sad_kernel_phase(dev),
                                        energy_kernel_phase(dev),
                                        sse_kernel_phase(dev))}
-    frames = list(panning_frames(WIDTH, HEIGHT, M9_FRAMES, seed=1))
-    m9_pkts, counts = m9_end_to_end_phase(dev, frames)
-    for name in ("block_energy", "sse_map_search"):
-        kernels[name]["launches"] = counts[name]
-    m9_profile_phase(dev, frames)
-    same_bytes_phase("m9", frames, m9_pkts, 9)
+    frames = list(panning_frames(WIDTH, HEIGHT, M8_FRAMES, seed=1))
+    m8_pkts, m8_recons, m8_counts = realtime_end_to_end_phase(dev, frames, 8)
+    kernels["txq_cost"] = txq_kernel_phase(dev, frames, m8_recons)
+    # the counts of the M8 run. No encode path of either package calls
+    # txq_cost: its count is this script's own calls, two for each P-frame,
+    # made inside the counted window after the encode
+    for name in ("block_energy", "sse_map_search", "txq_cost"):
+        kernels[name]["launches"] = m8_counts[name]
+    realtime_profile_phase(dev, frames, 8)
+    same_bytes_phase("m8", frames, m8_pkts, 8)
+    m9_list = frames[:M9_FRAMES]
+    m9_pkts, _, _ = realtime_end_to_end_phase(dev, m9_list, 9)
+    realtime_profile_phase(dev, m9_list, 9)
+    same_bytes_phase("m9", m9_list, m9_pkts, 9)
     m7_frames = frames[:M7_FRAMES]
-    m7_pkts, launches = m7_end_to_end_phase(dev, m7_frames)
-    kernels["sad_full_search"]["launches"] = launches
+    m7_pkts, m7_counts = m7_end_to_end_phase(dev, m7_frames)
+    kernels["sad_full_search"]["launches"] = m7_counts["sad_full_search"]
     m7_profile_phase(dev, m7_frames)
     same_bytes_phase("m7", m7_frames, m7_pkts, 7)
+    if any(k["launches"] <= 0 for k in kernels.values()):
+        raise AssertionError("a kernel was not launched on its main path")
 
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -351,10 +351,10 @@ def test_quantizer_runs_in_float64_with_the_float32_bias():
     q = 10.0
     c = torch.tensor([[[(2 - P.txfm.QBIAS) * q]]], dtype=torch.float64)
     c = c.expand(1, 4, 4).clone()
-    lv = P.txfm.quantize(c, 10, 10, 4)
+    lv = P.txfm.quantize_f64(c, 10, 10, 4)
     assert int(lv[0, 0, 0]) == 2
     assert P.txfm.QBIAS == float(np.float32(0.38))
-    assert P.txfm.fwd_txfm2d(torch.zeros((1, 8, 8), dtype=torch.int32)) \
+    assert P.txfm.fwd_txfm2d_f64(torch.zeros((1, 8, 8), dtype=torch.int32)) \
         .dtype == torch.float64
 
 

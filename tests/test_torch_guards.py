@@ -1,5 +1,9 @@
-"""Guards of the port: no jax, no silent CPU fallback, refused routes."""
+"""Guards of the port: it imports neither jax nor the JAX package
+``tpu_vp9``, it has no silent CPU fallback, and it refuses the routes it
+has not ported."""
 
+import ast
+import glob
 import os
 import pkgutil
 import subprocess
@@ -10,26 +14,71 @@ import pytest
 import torch
 
 import tpu_vp9_torch
-from tpu_vp9.config import EncoderConfig, PredStructure, RateControlMode
-
 from tpu_vp9_torch import api as port_api
+from tpu_vp9_torch.config import (
+    EncoderConfig, PredStructure, RateControlMode, Tune,
+)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# an import hook that makes any import of jax fail
+# an import hook that makes any import of jax or of the JAX package fail
 _BLOCK_JAX = textwrap.dedent("""
     import sys
 
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is blocked in this process")
+            if name in ("jax", "tpu_vp9") or name.startswith(
+                    ("jax.", "jaxlib", "tpu_vp9.")):
+                raise ImportError(name + " is blocked in this process")
             return None
 
     sys.meta_path.insert(0, _NoJax())
+
+    def assert_clean():
+        bad = [k for k in sys.modules if k in ("jax", "tpu_vp9")
+               or k.startswith(("jax.", "jaxlib", "tpu_vp9."))]
+        assert not bad, bad
 """)
+
+PORT_FILES = sorted(
+    glob.glob(os.path.join(REPO, "tpu_vp9_torch", "**", "*.py"),
+              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _imported_roots(path):
+    """Top-level package names a file imports, at any depth of its AST
+    (function-level imports included)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+def test_ast_scan_covers_the_port():
+    names = {os.path.relpath(p, REPO) for p in PORT_FILES}
+    for must in ("chip_smoke.py", "tpu_vp9_torch/api.py",
+                 "tpu_vp9_torch/app.py", "tpu_vp9_torch/native.py",
+                 "tpu_vp9_torch/decoder/decoder.py",
+                 "tpu_vp9_torch/pipeline/realtime.py"):
+        assert must in names
+    assert len(names) > 40
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[os.path.relpath(p, REPO) for p in PORT_FILES])
+def test_no_import_of_jax_or_the_jax_package(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "tpu_vp9"}, roots
+    if path.endswith("chip_smoke.py"):
+        stdlib = set(sys.stdlib_module_names)
+        assert roots - stdlib <= {"numpy", "torch", "tpu_vp9_torch"}, roots
 
 
 def _run(code, env_extra=None, timeout=300):
@@ -47,17 +96,14 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("ops.cuda_kernels", "ops.txfm", "pipeline.tpu_encdec",
-              "pipeline.realtime", "app"):
+              "pipeline.realtime", "app", "native", "decoder.decoder",
+              "bitstream.tables", "codec.inter_frame"):
         assert f"tpu_vp9_torch.{m}" in mods
     code = _BLOCK_JAX + textwrap.dedent(f"""
         import importlib
         for m in {mods!r}:
             importlib.import_module(m)
-        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
-        # the TPU package's step and session import jax: never reused
-        for m in ("tpu_vp9.pipeline.realtime", "tpu_vp9.pipeline.tpu_encdec",
-                  "tpu_vp9.ops.pallas_kernels"):
-            assert m not in sys.modules, m
+        assert_clean()
         print("imported", len({mods!r}))
     """)
     res = _run(code)
@@ -66,12 +112,12 @@ def test_every_port_module_imports_without_jax():
 
 
 def test_port_encode_runs_without_jax():
-    """A 720p P-frame reaches the device search (on the CPU here) in a
-    process where jax cannot be imported."""
+    """A 720p M7 P-frame reaches the device search (on the CPU here) in a
+    process where neither jax nor tpu_vp9 can be imported."""
     code = _BLOCK_JAX + textwrap.dedent("""
         import torch
         torch.set_num_threads(1)
-        from tpu_vp9.config import EncoderConfig, PredStructure, RateControlMode
+        from tpu_vp9_torch.config import EncoderConfig, PredStructure
         from tpu_vp9_torch.api import Vp9Encoder
         from tpu_vp9_torch.codec import inter_frame
         from tpu_vp9_torch.utils.yuv import panning_frames
@@ -88,7 +134,7 @@ def test_port_encode_runs_without_jax():
             enc.send_picture(fr)
         enc.flush()
         assert len(calls) == 1
-        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        assert_clean()
         print("encoded", sum(len(enc.get_packet().data) for _ in range(2)))
     """)
     res = _run(code)
@@ -98,11 +144,12 @@ def test_port_encode_runs_without_jax():
 
 def test_port_m9_encode_runs_without_jax():
     """A 128x96 M9 encode through the public API runs the port's realtime
-    session on device="cpu" in a process where jax cannot be imported."""
+    session on device="cpu" in a process where neither jax nor tpu_vp9 can
+    be imported."""
     code = _BLOCK_JAX + textwrap.dedent("""
         import torch
         torch.set_num_threads(1)
-        from tpu_vp9.config import EncoderConfig, PredStructure, RateControlMode
+        from tpu_vp9_torch.config import EncoderConfig, PredStructure
         from tpu_vp9_torch.api import Vp9Encoder
         from tpu_vp9_torch.pipeline import realtime
         from tpu_vp9_torch.utils.yuv import panning_frames
@@ -119,7 +166,61 @@ def test_port_m9_encode_runs_without_jax():
         pkts = [enc.get_packet() for _ in range(3)]
         assert enc.get_packet() is None
         assert [p.is_keyframe for p in pkts] == [True, False, False]
-        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        assert_clean()
+        print("encoded", sum(len(p.data) for p in pkts))
+    """)
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "encoded" in res.stdout
+
+
+def test_port_m8_encode_runs_without_jax():
+    """A 128x96 M8 encode through the public API (rate tables, GOLDEN with
+    a refresh inside the clip, the split16 descent) runs on device="cpu"
+    in a process where neither jax nor tpu_vp9 can be imported, and
+    decodes with the port's decoder to the encoder's recon."""
+    code = _BLOCK_JAX + textwrap.dedent("""
+        import io
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from tpu_vp9_torch.api import Vp9Encoder
+        from tpu_vp9_torch.bitstream.ivf import (
+            write_ivf_frame, write_ivf_header)
+        from tpu_vp9_torch.config import EncoderConfig, PredStructure
+        from tpu_vp9_torch.decoder.decoder import decode_ivf
+        from tpu_vp9_torch.utils.yuv import panning_frames
+
+        enc = Vp9Encoder(device="cpu")
+        enc.set_parameter(EncoderConfig(
+            source_width=128, source_height=96, enc_mode=8, qp=40,
+            pred_structure=PredStructure.LOW_DELAY_P,
+            recon_file="unused.yuv"))
+        enc.init()
+        rt = enc._rt
+        assert rt.split16 and rt.golden and rt.golden_interval == 8
+        rt.golden_interval = 2
+        recons = []
+        emit = enc._emit
+        enc._emit = lambda p: (emit(p), recons.append(enc.get_recon()))
+        n = 5
+        for fr in panning_frames(128, 96, n, seed=3):
+            enc.send_picture(fr)
+        enc.flush()
+        pkts = [enc.get_packet() for _ in range(n)]
+        assert enc.get_packet() is None
+        assert [p.is_keyframe for p in pkts] == [True] + [False] * (n - 1)
+        buf = io.BytesIO()
+        write_ivf_header(buf, 128, 96, 30, 1, n)
+        for p in pkts:
+            write_ivf_frame(buf, p.data, p.pts)
+        buf.seek(0)
+        dec = list(decode_ivf(buf))
+        assert len(dec) == n
+        for (y, u, v, _), rec in zip(dec, recons):
+            for a, b in zip((y, u, v), rec):
+                assert np.array_equal(a, b)
+        assert_clean()
         print("encoded", sum(len(p.data) for p in pkts))
     """)
     res = _run(code)
@@ -144,7 +245,7 @@ def test_default_device_without_cuda_fails_loudly(monkeypatch):
 
 
 def test_app_without_cuda_fails_loudly(tmp_path):
-    from tpu_vp9.utils.yuv import synthetic_frames, write_y4m
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
     clip = tmp_path / "clip.y4m"
     with open(clip, "wb") as fh:
@@ -170,7 +271,13 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
-    dict(enc_mode=8),
+    dict(enc_mode=8, tune=Tune.SQ),
+    dict(enc_mode=8, tpu_realtime=0),
+    dict(enc_mode=8, rate_control_mode=RateControlMode.CBR,
+         target_bit_rate=200_000),
+    dict(enc_mode=8, source_height=112),
+    dict(enc_mode=8, source_width=112),
+    dict(enc_mode=8, tpu_mesh_shape=(1, 2)),
     dict(enc_mode=9, tpu_realtime=0),
     dict(enc_mode=9, rate_control_mode=RateControlMode.VBR,
          target_bit_rate=200_000),
@@ -179,7 +286,8 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS),
     dict(speed_control=True),
     dict(tpu_mesh_shape=(1, 2)),
-], ids=["random_access", "m8", "m9", "m9_vbr", "m9_strip",
+], ids=["random_access", "m8", "m8_rt0", "m8_cbr", "m8_strip",
+        "m8_width_not_32", "m8_mesh", "m9", "m9_vbr", "m9_strip",
         "m9_width_not_32", "m9_random_access", "speed_control", "mesh"])
 def test_unported_routes_raise(kw):
     enc = port_api.Vp9Encoder(device="cpu")
@@ -193,11 +301,13 @@ def test_unported_routes_raise(kw):
     (["-nch", "2"], "-nch"),
     (["-distributed", "localhost:1234,2,0"], "-distributed"),
     (["-enc-mode", "9", "-pred-struct", "0", "-rt", "0"], "tpu_realtime 0"),
-    (["-enc-mode", "8", "-pred-struct", "0"], "enc_mode 8"),
+    (["-enc-mode", "8", "-pred-struct", "0", "-tune", "0"], "tune SQ"),
+    (["-enc-mode", "8", "-pred-struct", "0", "-rc", "1"], "rate control"),
     ([], "random access"),
-], ids=["gop_parallel", "nch", "distributed", "m9", "m8", "default_ra"])
+], ids=["gop_parallel", "nch", "distributed", "m9", "m8", "m8_vbr",
+        "default_ra"])
 def test_app_refuses_unported_options(tmp_path, flags, why):
-    from tpu_vp9.utils.yuv import synthetic_frames, write_y4m
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
     clip = tmp_path / "clip.y4m"
     with open(clip, "wb") as fh:
@@ -213,8 +323,8 @@ def test_app_refuses_unported_options(tmp_path, flags, why):
 
 def test_app_encodes_m9_on_cpu_device(tmp_path):
     """The M9 CLI line, decoded back."""
-    from tpu_vp9.decoder.decoder import decode_ivf
-    from tpu_vp9.utils.yuv import synthetic_frames, write_y4m
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
     clip = tmp_path / "clip.y4m"
     out = tmp_path / "out.ivf"
@@ -232,9 +342,30 @@ def test_app_encodes_m9_on_cpu_device(tmp_path):
         assert len(list(decode_ivf(fh))) == 3
 
 
+def test_app_encodes_m8_on_cpu_device(tmp_path):
+    """The M8 CLI line, decoded back."""
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
+
+    clip = tmp_path / "clip.y4m"
+    out = tmp_path / "out.ivf"
+    with open(clip, "wb") as fh:
+        write_y4m(fh, synthetic_frames(128, 96, 4, motion=True))
+    res = subprocess.run(
+        [sys.executable, "-m", "tpu_vp9_torch.app", "-i", str(clip), "-b",
+         str(out), "-enc-mode", "8", "-pred-struct", "0", "-q", "40",
+         "-device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "SUMMARY: 4 frames" in res.stdout
+    with open(out, "rb") as fh:
+        assert len(list(decode_ivf(fh))) == 4
+
+
 def test_app_encodes_on_cpu_device(tmp_path):
-    from tpu_vp9.decoder.decoder import decode_ivf
-    from tpu_vp9.utils.yuv import synthetic_frames, write_y4m
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
     clip = tmp_path / "clip.y4m"
     out = tmp_path / "out.ivf"

@@ -111,8 +111,8 @@ def test_port_session_python_serializer_matches_native(monkeypatch, er):
 
 
 def test_port_session_refuses_unported_configurations():
-    for kw in (dict(split16=True), dict(golden=True),
-               dict(mesh_shape=(1, 2)), dict(rc=object())):
+    for kw in (dict(golden=True, aq=True), dict(mesh_shape=(1, 2)),
+               dict(rc=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortSession(128, 96, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="strip"):

@@ -3,10 +3,11 @@
   tpu_vp9/ops/pallas_kernels.py        here
   sad_full_search (_sad_search_kernel) sad_full_search (csrc/sad_search.cu)
   block_energy (_block_energy_kernel)  block_energy (csrc/block_energy.cu)
-  txq_cost                             not ported yet (ROADMAP.md, Queue B1)
+  txq_cost (_txq_cost_kernel)          txq_cost (csrc/txq_cost.cu)
 
-and one XLA stage of the realtime P-frame step, which the TPU package
-writes in jnp:
+so every function there that reaches ``pl.pallas_call`` has its
+counterpart here; and one XLA stage of the realtime P-frame step, which
+the JAX package writes in jnp:
 
   tpu_vp9/pipeline/tpu_encdec.py       here
   _full_search_sse_mxu                 sse_map_search (csrc/sse_search.cu)
@@ -20,7 +21,9 @@ launches the kernel or raises. Each wrapper counts its launches in its
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from tpu_vp9_torch.ops._build import load_library
@@ -30,13 +33,17 @@ SAD_MAX_RANGE = 32
 ENERGY_BLOCK_SIZES = (8, 16, 32, 64)
 SSE_BLOCK_SIZES = (8, 16, 32)
 SSE_SMEM_BYTES = 48 * 1024  # the kernel keeps src and area in shared memory
+TXQ_BLOCK_SIZES = (4, 8, 16, 32)
+TXQ_BIAS = 0.38  # the dead zone's rounding bias
 
-# (library, C function, number of pointer args, number of int args); every
-# launcher ends with the stream pointer and returns cudaGetLastError()
+# (library, C function, number of pointer args, of float args, of int
+# args), in the C function's argument order; every launcher ends with the
+# stream pointer and returns cudaGetLastError()
 _LAUNCHERS = {
-    "sad_full_search": ("sad_search", "sad_full_search_launch", 5, 3),
-    "block_energy": ("block_energy", "block_energy_launch", 4, 2),
-    "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 5),
+    "sad_full_search": ("sad_search", "sad_full_search_launch", 5, 0, 3),
+    "block_energy": ("block_energy", "block_energy_launch", 4, 0, 2),
+    "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 0, 5),
+    "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
 }
 _fns: dict = {}
 
@@ -45,10 +52,10 @@ def _kernel(name: str):
     """The ctypes launcher of a kernel, building its library at first use."""
     fn = _fns.get(name)
     if fn is None:
-        lib, sym, n_ptr, n_int = _LAUNCHERS[name]
+        lib, sym, n_ptr, n_float, n_int = _LAUNCHERS[name]
         fn = getattr(load_library(lib), sym)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float] * n_float
+                       + [ctypes.c_int] * n_int + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -277,3 +284,83 @@ def sse_map_search(src_blocks, wins, n: int, r: int, want_map: bool = True):
 
 
 sse_map_search.launches = 0
+
+
+def dct_matrix(n: int) -> np.ndarray:
+    """The orthonormal DCT-II matrix of ``txq_cost`` (not VP9's integer
+    transform), float32, computed in float64 as the JAX package's
+    ``_dct_matrix`` computes it."""
+    k = np.arange(n)
+    mat = np.cos(np.pi * (2 * k[None, :] + 1) * k[:, None] / (2 * n))
+    mat *= np.sqrt(2.0 / n)
+    mat[0] *= 1.0 / np.sqrt(2.0)
+    return mat.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_matrix_on(n: int, device: torch.device):
+    return torch.from_numpy(dct_matrix(n)).to(device)
+
+
+def _check_txq_args(resid_blocks, n: int) -> None:
+    if n not in TXQ_BLOCK_SIZES:
+        raise ValueError(f"txq_cost: n={n} not in {TXQ_BLOCK_SIZES}")
+    b = resid_blocks.shape[0]
+    if tuple(resid_blocks.shape) != (b, n, n):
+        raise ValueError(f"txq_cost: resid_blocks shape "
+                         f"{tuple(resid_blocks.shape)}, want ({b}, {n}, {n})")
+    if resid_blocks.dtype != torch.float32:
+        raise TypeError("txq_cost: resid_blocks must be float32, got "
+                        f"{resid_blocks.dtype}")
+
+
+def txq_cost_ref(resid_blocks, dc_q: float, ac_q: float, n: int):
+    """Plain PyTorch transform + quantizer cost proxy (``torch.matmul``
+    for the two products). Same contract as ``txq_cost``."""
+    dmat = _dct_matrix_on(n, resid_blocks.device)
+    coeffs = torch.matmul(torch.matmul(dmat, resid_blocks), dmat.T)
+    q = torch.full((n, n), float(ac_q), dtype=torch.float32,
+                   device=resid_blocks.device)
+    q[0, 0] = float(dc_q)
+    levels = torch.trunc(coeffs / q + torch.sign(coeffs) * TXQ_BIAS)
+    err = coeffs - levels * q
+    mags = levels.abs()
+    rate = torch.where(mags > 0, 1.5 + torch.log2(1.0 + mags), 0.0)
+    return (err * err).sum(dim=(1, 2)), rate.sum(dim=(1, 2))
+
+
+def txq_cost(resid_blocks, dc_q: float, ac_q: float, n: int):
+    """Transform + quantizer cost proxy per block: (distortion, rate).
+
+    resid_blocks: (B, n, n) float32, n in {4, 8, 16, 32}; dc_q, ac_q: the
+    quantizer steps of coefficient (0, 0) and of the others. Per block:
+    the orthonormal float DCT-II on both axes, the dead-zone quantizer
+    ``trunc(c / q + sign(c) * 0.38)``, distortion sum((c - level * q)^2)
+    and the rate proxy sum over nonzero levels of 1.5 + log2(1 + |level|).
+    Returns (dist, rate) float32 tensors of shape (B,) on the inputs'
+    device, as ``tpu_vp9.ops.pallas_kernels.txq_cost``. CUDA inputs run
+    the kernel of ``csrc/txq_cost.cu``; CPU inputs run ``txq_cost_ref``.
+
+    It is float throughout, so two implementations agree to a tolerance,
+    not to bits: 1e-4 relative plus 1e-3 absolute on both outputs for a
+    block none of whose coefficients has ``|c| / q + 0.38`` within 1e-3 of
+    an integer. Such a coefficient may land on either side of ``trunc``
+    when the products are summed in another order, which moves ``dist`` by
+    up to about q^2 and ``rate`` by 1.5 or more.
+    """
+    _check_txq_args(resid_blocks, n)
+    if _device_kind("txq_cost", resid_blocks) == "cpu":
+        return txq_cost_ref(resid_blocks, dc_q, ac_q, n)
+    b = resid_blocks.shape[0]
+    dev = resid_blocks.device
+    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out[0], out[1]
+    _launch("txq_cost", dev, resid_blocks.data_ptr(),
+            _dct_matrix_on(n, dev).data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), float(dc_q), float(ac_q), b, n)
+    txq_cost.launches += 1
+    return out[0], out[1]
+
+
+txq_cost.launches = 0

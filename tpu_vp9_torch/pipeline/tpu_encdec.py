@@ -1,20 +1,29 @@
-"""The realtime device P-frame step on torch: the M9 configuration.
+"""The realtime device P-frame step on torch: the M9 and M8 configurations.
 
-The counterpart of ``tpu_vp9/pipeline/tpu_encdec.py`` for a uniform 32x32
-grid with the LAST reference only (no GOLDEN, no entropy rate tables, no
-32-vs-16 split, no adaptive lambda): for every 32x32 block of the frame at
-once,
+The counterpart of ``tpu_vp9/pipeline/tpu_encdec.py`` for the 32x32 grid
+without a strip: for every 32x32 block of the frame at once,
 
     window extraction -> 2-level full-pel SSE search -> quarter-pel search
     -> ZERO/NEW/PREV/LEFT/ABOVE decision -> exact 8-tap MC (Y/U/V)
     -> float64 forward transform + quantizer -> exact integer recon
     -> eob/skip -> exact VP9 loop filter -> border extension.
 
+M9 runs that with the LAST reference and rate proxies. M8 adds, each
+behind its own argument of ``make_pframe_step``: candidate costs from the
+frame's entropy tables (``make_rate_tabs``, ``rates=``), the GOLDEN anchor
+(two more candidates per block and a per-block choice of MC windows,
+``gold=``), and the 32-against-4x16 descent (``split16``): the quarter of
+the parents with the largest distortion get their four 16x16 children
+searched +-8 inside the parent's window, encoded, and compared with the
+parent by cost; the loop filter then takes the per-parent split mask. The
+adaptive lambda (``aq``), the ALTREF reference and strip geometries are
+not ported.
+
 The new reference planes stay on the step's device; the host receives the
 levels, eobs, MVs (and the recon when asked) and serializes them with the
-TPU package's native serializer.
+native serializer.
 
-Every stage computes what the TPU package's stage computes, as plain
+Every stage computes what the JAX package's stage computes, as plain
 functions on tensors of the caller's device, with two CUDA kernels: the
 full-pel search (``sse_map_search``) and the distortion
 (``block_energy``), both in ``ops/cuda_kernels.py``. Formulations that
@@ -38,8 +47,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_vp9.bitstream import tables as T
-from tpu_vp9.utils.trace import span
+from tpu_vp9_torch.bitstream import tables as T
+from tpu_vp9_torch.utils.trace import span
 
 from tpu_vp9_torch.ops import txfm
 from tpu_vp9_torch.ops.cuda_kernels import block_energy, sse_map_search
@@ -49,6 +58,11 @@ WIN_R = 40  # full-pel reach of the static search windows
 CHROMA_WIN_R = 21  # chroma MC window reach: 40.75/2 pel rounded up
 HALF_R = 18  # half-res exhaustive reach (2*18 + 4 refine = +-40 full)
 REFINE_R = 4  # full-res refinement reach around the upscaled winner
+CHILD_R = 8  # 16-block refinement radius around the 32-parent's winner
+# extra syntax cost (in rate_b units) a 32->16 split pays: partition
+# symbol + 3 extra mode/skip/mv sets
+SPLIT_RATE_EXTRA = 4.0
+DESCEND_FRAC = 4  # the descent takes the B32 // DESCEND_FRAC worst parents
 # candidate rate proxies in lambda units (zero, new-base, new-per-log2mvd,
 # prev/temporal, spatial left/above), as the TPU package's
 CAND_RATE_PROXY = (2.0, 10.0, 2.0, 6.0, 4.0)
@@ -61,7 +75,7 @@ FILTERS = T.subpel_filters(T.InterpFilter.EIGHTTAP)  # (16, 8) int
 
 @contextlib.contextmanager
 def _stage(name: str):
-    """A stage of the step: a host-clock span of ``tpu_vp9.utils.trace``
+    """A stage of the step: a host-clock span of ``utils.trace``
     (enqueue time on a card) and a ``torch.profiler`` range, whose device
     time a profile attributes to the stage."""
     with span(name), torch.profiler.record_function(name):
@@ -69,8 +83,7 @@ def _stage(name: str):
 
 
 # ---------------------------------------------------------------------------
-# Geometry (copied from tpu_vp9/pipeline/tpu_encdec.py: that module imports
-# jax)
+# Geometry (as tpu_vp9/pipeline/tpu_encdec.py has it)
 # ---------------------------------------------------------------------------
 
 
@@ -120,7 +133,7 @@ def make_geom(width: int, height: int) -> Geom:
         raise ValueError("mi_rows % 4 == 1 unsupported by device path")
     strip = rem == 2
     rows32 = mi_rows // 4 + (1 if rem == 3 else 0)
-    # SB-aligned (64-multiple) plane dims, as the TPU package pads them
+    # SB-aligned (64-multiple) plane dims, as the JAX package pads them
     pad_h = (rows32 * 32 + (16 if strip else 0) + 63) // 64 * 64
     pad_w = (width + 63) // 64 * 64
     return Geom(width=width, height=height, mi_rows=mi_rows,
@@ -234,6 +247,35 @@ def _zero_sse(ref_padded, src_blocks, rows: int, cols: int, n: int):
     core = ref_padded[BORDER:, BORDER:]
     blocks = _extract_blocks(core, 0, rows, cols, n)
     return block_energy(src_blocks, blocks, n)[0]
+
+
+def _block_sq_sum(src_blocks):
+    """Per-block sum(src^2), int32."""
+    s = src_blocks.to(torch.int32)
+    return (s * s).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def _fullpel_sse(ref_padded, src_blocks, pos_y, pos_x, mv_r_q3, mv_c_q3,
+                 n: int):
+    """SSE at the rounded full-pel position (no interpolation): the score
+    of a candidate that has no search-map entry (GOLDEN's previous MV).
+
+    The MV gets no UMV clamp here, as in the JAX package, which relies
+    on ``lax.dynamic_slice``: a negative start wraps once (the dimension
+    is added to it, as in Python indexing) and the result is clamped so
+    that the slice stays inside the plane. The same is done to the starts
+    here, since torch indexing would raise or wrap."""
+    hh, ww = ref_padded.shape
+
+    def start(idx, size):
+        return torch.where(idx < 0, idx + size, idx).clamp(0, size - n)
+
+    y0 = start(BORDER + pos_y + ((mv_r_q3 + 4) >> 3), hh)
+    x0 = start(BORDER + pos_x + ((mv_c_q3 + 4) >> 3), ww)
+    ar = torch.arange(n, device=ref_padded.device)
+    rows = (y0.long()[:, None] + ar)[:, :, None]
+    cols = (x0.long()[:, None] + ar)[:, None, :]
+    return block_energy(src_blocks, ref_padded[rows, cols], n)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -353,9 +395,10 @@ def _clamp_mv_umv(mv_r, mv_c, mi_r, mi_c, bw: int, bh: int, ss: int,
 
 def mc_predict_from_wins(wins, pos_y, pos_x, mv_r_q3, mv_c_q3, n_out: int,
                          ss: int, mi_rows: int, mi_cols: int, filters,
-                         win_r: int):
+                         win_r: int, org_off_y=0, org_off_x=0):
     """Exact MC prediction from per-block windows whose origin is the
-    block's top-left minus (win_r + 4).
+    block's top-left minus (win_r + 4), minus ``org_off`` (a child block
+    that reads its parent's window passes its offset inside the parent).
 
     Bit-identical to MC on the full border-extended plane while every
     UMV-clamped mv stays within +-(win_r + 0.75) pel, which holds for the
@@ -371,8 +414,8 @@ def mc_predict_from_wins(wins, pos_y, pos_x, mv_r_q3, mv_c_q3, n_out: int,
     y_q4 = (pos_y << 4) + row_q4
     sw = wins.shape[-1]
     ln = n_out + 7
-    s_y = ((y_q4 >> 4) - pos_y + win_r + 1).clamp(0, sw - ln)
-    s_x = ((x_q4 >> 4) - pos_x + win_r + 1).clamp(0, sw - ln)
+    s_y = ((y_q4 >> 4) - pos_y + win_r + 1 + org_off_y).clamp(0, sw - ln)
+    s_x = ((x_q4 >> 4) - pos_x + win_r + 1 + org_off_x).clamp(0, sw - ln)
     loc = _take_windows(wins, s_y, s_x, ln).to(torch.int32)
     fx = filters[(x_q4 & 15).long()]  # (B, 8)
     fy = filters[(y_q4 & 15).long()]
@@ -387,8 +430,91 @@ def mc_predict_from_wins(wins, pos_y, pos_x, mv_r_q3, mv_c_q3, n_out: int,
 
 
 # ---------------------------------------------------------------------------
-# Mode decision (rate-proxy branch; M9 has no entropy rate tables)
+# Mode decision (rate proxies at M9, the frame's entropy tables at M8)
 # ---------------------------------------------------------------------------
+
+
+def make_rate_tabs(fc, qindex: int):
+    """Per-frame entropy-table rates for the step's mode decision (host,
+    numpy; ``tpu_vp9/pipeline/tpu_encdec.py:make_rate_tabs``).
+
+    Inter-mode tree costs (context-averaged), the nmv component cost LUTs
+    for NEWMV's mvd bits, the mv-joint tree and the single-ref signalling
+    bits, all in 1/256-bit units; the step combines them as
+    SSE + lam_bits * rate / 256."""
+    from tpu_vp9_torch.codec.rd_cost import (
+        MV_COST_MAX, PROB_COST, _mv_component_costs, tree_token_costs,
+    )
+
+    mode_cost = np.stack([
+        tree_token_costs("inter_mode_tree", fc.inter_mode_probs[c])
+        for c in range(7)]).mean(axis=0).astype(np.int32)  # (4,)
+    joint_cost = tree_token_costs("mv_joint_tree",
+                                  fc.nmv.joints).astype(np.int32)  # (4,)
+    nmv_row = _mv_component_costs(fc.nmv.comps[0]).astype(np.int32)
+    nmv_col = _mv_component_costs(fc.nmv.comps[1]).astype(np.int32)
+    # single-ref bits, context-averaged: LAST = p1-bit 0;
+    # GOLDEN = p1-bit 1 + p2-bit 0; ALTREF = p1-bit 1 + p2-bit 1
+    p1 = fc.single_ref_probs[:, 0].astype(np.int32)
+    p2 = fc.single_ref_probs[:, 1].astype(np.int32)
+    last_c = int(PROB_COST[p1].mean())
+    gold_c = int(PROB_COST[256 - p1].mean() + PROB_COST[p2].mean())
+    alt_c = int(PROB_COST[256 - p1].mean() + PROB_COST[256 - p2].mean())
+    ac_q = T.ac_quant(qindex)
+    lam_bits = max(1.0, 0.85 * (ac_q / 8.0) ** 2)
+    return {
+        "mode_cost": mode_cost,
+        "joint_cost": joint_cost,
+        "nmv_row": nmv_row,
+        "nmv_col": nmv_col,
+        "ref_cost": np.array([last_c, gold_c, alt_c], np.int32),
+        "lam_bits": np.float32(lam_bits),
+        "mv_cost_max": MV_COST_MAX,
+    }
+
+
+def upload_rate_tabs(tabs, device):
+    """The step's ``rates`` argument from ``make_rate_tabs``: the three
+    LUTs the step gathers from go to ``device``; the scalars it only
+    broadcasts stay host numbers (``lam_bits`` the float32 value)."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return {
+        "mode_cost": [int(v) for v in tabs["mode_cost"]],
+        "ref_cost": [int(v) for v in tabs["ref_cost"]],
+        "lam_bits": float(np.float32(tabs["lam_bits"])),
+        "mv_cost_max": int(tabs["mv_cost_max"]),
+        "joint_cost": dev(tabs["joint_cost"]),
+        "nmv_row": dev(tabs["nmv_row"]),
+        "nmv_col": dev(tabs["nmv_col"]),
+    }
+
+
+def _mvd_bits(rates, dr, dc):
+    """NEWMV's mvd cost in 1/256 bit against a predictor: the joint's tree
+    cost plus the two component LUTs, the components clipped to the LUTs'
+    reach."""
+    m = rates["mv_cost_max"]
+    j = 2 * (dr != 0).to(torch.int32) + (dc != 0).to(torch.int32)
+    return (rates["joint_cost"][j.long()]
+            + rates["nmv_row"][(dr.clamp(-m, m) + m).long()]
+            + rates["nmv_col"][(dc.clamp(-m, m) + m).long()])
+
+
+def _table_costs(sads, rate, lam_bits: float):
+    """SSE + lam_bits * rate / 256 in float32. The multiply, the divide
+    and the add are separate operations in the JAX package's order (a
+    fused multiply-add would round differently)."""
+    return sads.to(torch.float32) + lam_bits * rate.to(torch.float32) / 256.0
+
+
+def _first_min(costs, cands):
+    """Per column of (C, B) ``costs`` the first minimum (as ``jnp.argmin``)
+    and that row's entry of every (C, B) tensor in ``cands``."""
+    best = torch.argmin(costs, dim=0)
+    ar = torch.arange(costs.shape[1], device=costs.device)
+    return [c[best, ar] for c in cands], costs[best, ar], best
 
 
 def new_bits_table(device):
@@ -419,12 +545,16 @@ def _ssem_gather(ssem, mv_r_q3, mv_c_q3, r: int, q3_shift: int):
 
 def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
                       prev_mv, rows: int, cols: int, r_map: int,
-                      q3_shift: int, sse_scale: int, lam: int, new_bits):
+                      q3_shift: int, sse_scale: int, lam: int, new_bits,
+                      rates=None):
     """Pick the best MV among {ZERO, NEW, PREV, LEFT-new, ABOVE-new}.
 
     ZERO and NEW carry exact SSEs; PREV/LEFT/ABOVE score at their rounded
     entry of the search's SSE map (src2m restores the map's dropped
-    constant, sse_scale its decimation). Cost = SSE + lam * rate in
+    constant, sse_scale its decimation). With ``rates``
+    (``upload_rate_tabs``) the rate is the frame's entropy tables': the
+    mode tree's costs, and for NEW the mvd bits against the left NEW MV,
+    combined by ``_table_costs``. Without, cost = SSE + lam * rate in
     float32, the multiply and the add as separate operations; NEW's rate
     is looked up in ``new_bits`` (``new_bits_table``) by its mvd against
     the left NEW MV. ``torch.argmin`` returns the first minimum, as
@@ -449,15 +579,58 @@ def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
 
     sads = torch.stack([sse_zero, sse_new, score(prev_r, prev_c),
                         score(left_r, left_c), score(above_r, above_c)])
-    mvd = (new_r - left_r).abs() + (new_c - left_c).abs()
-    rz, _, _, rp, rs = CAND_RATE_PROXY
-    ones = torch.ones((b,), dtype=torch.float32, device=new_r.device)
-    rate = torch.stack([rz * ones, new_bits[mvd.long()], rp * ones,
-                        rs * ones, rs * ones])
-    costs = sads.to(torch.float32) + float(lam) * rate
-    best = torch.argmin(costs, dim=0)
-    ar = torch.arange(b, device=new_r.device)
-    return cand_r[best, ar], cand_c[best, ar], costs[best, ar]
+    if rates is not None:
+        mc = rates["mode_cost"]
+        ones = torch.ones((b,), dtype=torch.int32, device=new_r.device)
+        mvd_bits = _mvd_bits(rates, new_r - left_r, new_c - left_c)
+        rate = torch.stack([mc[2] * ones, mc[3] + mvd_bits, mc[0] * ones,
+                            mc[0] * ones, mc[0] * ones])
+        costs = _table_costs(sads, rate, rates["lam_bits"])
+    else:
+        mvd = (new_r - left_r).abs() + (new_c - left_c).abs()
+        rz, _, _, rp, rs = CAND_RATE_PROXY
+        ones = torch.ones((b,), dtype=torch.float32, device=new_r.device)
+        rate = torch.stack([rz * ones, new_bits[mvd.long()], rp * ones,
+                            rs * ones, rs * ones])
+        costs = sads.to(torch.float32) + float(lam) * rate
+    (mv_r, mv_c), cost, _ = _first_min(costs, (cand_r, cand_c))
+    return mv_r, mv_c, cost
+
+
+def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
+                   cols: int, n: int, lam: int, rates):
+    """The GOLDEN reference's best candidate per block: ZERO (exact SSE)
+    or the block's previous-frame MV (SSE at its rounded full-pel
+    position), first minimum. Returns (mv_r, mv_c, cost) without the
+    reference's own signalling cost."""
+    zero = torch.zeros_like(prev_mv[:, 0])
+    cand_r = torch.stack([zero, prev_mv[:, 0]])
+    cand_c = torch.stack([zero, prev_mv[:, 1]])
+    sses = torch.stack([
+        _zero_sse(gold_y, src_blocks, rows, cols, n),
+        _fullpel_sse(gold_y, src_blocks, pos_y, pos_x, prev_mv[:, 0],
+                     prev_mv[:, 1], n)])
+    if rates is not None:
+        mc = rates["mode_cost"]
+        g_rate = torch.tensor([[mc[2]], [mc[0]]], dtype=torch.int32,
+                              device=sses.device)
+        costs = _table_costs(sses, g_rate, rates["lam_bits"])
+    else:
+        rz, _, _, rp, _ = CAND_RATE_PROXY
+        costs = sses.to(torch.float32) + float(lam) * torch.tensor(
+            [[rz], [rp]], dtype=torch.float32, device=sses.device)
+    (mv_r, mv_c), cost, _ = _first_min(costs, (cand_r, cand_c))
+    return mv_r, mv_c, cost
+
+
+def _ref_extra(lam: int, rates):
+    """Signalling cost of choosing (LAST, GOLDEN) in cost units: two
+    float32 values, as host floats."""
+    if rates is not None:
+        lam_f = np.float32(rates["lam_bits"])
+        return [float(np.float32(c) * lam_f / np.float32(256.0))
+                for c in rates["ref_cost"][:2]]
+    return [0.0, float(np.float32(2.0) * np.float32(lam))]
 
 
 # ---------------------------------------------------------------------------
@@ -481,7 +654,7 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
     (B, n, n) uint8 blocks. Returns (levels int16, eob int32, recon uint8);
     eob is one past the last nonzero level in scan order (0 if none)."""
     resid = src_blocks.to(torch.int32) - pred_blocks.to(torch.int32)
-    levels = txfm.quantize(txfm.fwd_txfm2d(resid), dc_q, ac_q, n)
+    levels = txfm.quantize_f64(txfm.fwd_txfm2d_f64(resid), dc_q, ac_q, n)
     eob, recon = recon_from_levels(levels, pred_blocks, dc_q, ac_q, n)
     return levels.to(torch.int16), eob, recon
 
@@ -489,8 +662,10 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
 def recon_from_levels(levels, pred_blocks, dc_q: int, ac_q: int, n: int):
     """(eob int32, recon uint8) of int32 (B, n, n) quantized levels: the
     integer half of ``transform_recon``."""
-    recon = txfm.inv_txfm_add(txfm.dequantize(levels, dc_q, ac_q, n),
-                              pred_blocks, n)
+    ts = txfm.TX_SIZE[n]
+    recon = txfm.inv_txfm_add(
+        txfm.dequant_block(levels, dc_q, ac_q, ts, xp=torch), pred_blocks,
+        ts, T.TxType.DCT_DCT, xp=torch)
     b = levels.shape[0]
     nz = levels.reshape(b, n * n)[:, _scan(n, levels.device)] != 0
     pos = torch.arange(1, n * n + 1, dtype=torch.int32,
@@ -578,13 +753,19 @@ def _filter_seg(seg, axis: int, width, thresh, limit, blimit):
 
 
 def _lf_vert(plane, rows0: int, nrows: int, xs: np.ndarray, width,
-             thresh, limit, blimit):
+             thresh, limit, blimit, taps: int = 8):
     """Filter vertical edges at columns xs over rows [rows0, rows0+nrows),
-    in place; the +-8 column windows of distinct edges must not overlap."""
+    in place; the +-taps column windows of distinct edges must not
+    overlap (taps=4 for edge classes of width <= 8 that sit 8 pixels
+    apart). width: broadcastable to (nrows, E)."""
     if xs.size == 0 or nrows <= 0:
         return
-    cols = torch.as_tensor(xs[:, None] + np.arange(-8, 8)[None, :],
-                           device=plane.device)  # (E, 16)
+    if np.any(np.diff(xs) < 2 * taps) or xs[0] < taps \
+            or xs[-1] + taps > plane.shape[1]:
+        raise ValueError(f"vertical edges {xs.tolist()} overlap or leave "
+                         f"the {plane.shape[1]}-column plane")
+    cols = torch.as_tensor(xs[:, None] + np.arange(-taps, taps)[None, :],
+                           device=plane.device)  # (E, 2 taps)
     seg = plane[rows0:rows0 + nrows][:, cols].to(torch.int32)
     _filter_seg(seg, 2, width, thresh, limit, blimit)
     plane[rows0:rows0 + nrows, cols] = seg.to(torch.uint8)
@@ -651,21 +832,32 @@ def _cols_away_from_boundaries(width_px: int, sb: int) -> np.ndarray:
 
 
 def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
-                       mblim: int):
-    """Exact VP9 loop filter for the uniform 32 grid (no strip, no split).
+                       mblim: int, split32=None):
+    """Exact VP9 loop filter for the 32 grid without a strip.
 
     Ordering contract (bit-exact with libvpx; see ops/loopfilter.py:1):
     SBs in raster order, per SB all vertical then all horizontal edges.
-    The order-preserving decomposition of the TPU package's
+    The order-preserving decomposition of the JAX package's
     ``loop_filter_device``, whose read/write sets it proves disjoint:
       1. interior vertical edges (>= 8px from SB-boundary columns);
       2. horizontal edges on columns >= 8px from SB-boundary columns;
       3. per SB row in order: on the 16px bands around each interior
          SB-boundary column, the left halves' horizontal edges, the
          boundary vertical edge, the right halves' horizontal edges.
-    Every edge is width 16 (tx32 luma, tx16 chroma). lvl/lim/mblim are
-    host ints (lvl 0 leaves the planes as they are). Returns new planes;
-    the inputs are not modified.
+    Without ``split32`` every edge is width 16 (tx32 luma, tx16 chroma).
+
+    split32: optional (rows32, cols32) 0/1 tensor of 32-blocks coded as
+    four 16x16 blocks (tx16 luma, tx8 chroma). Width rules mirror the host
+    oracle (ops/loopfilter.py _edges_for_mi): luma gains 16-offset edges
+    (width 16) inside split blocks; chroma edges over split blocks are
+    width 8 on the full 8px grid, width 16 at 16px multiples otherwise.
+    The deciding block is the block at the edge position. Width-8 edges
+    write at most +-3 pixels, so they never meet the neighbouring
+    8-offset windows; on the bands the chroma horizontals 8 pixels apart
+    chain through overlapping windows and run one after the other.
+
+    lvl/lim/mblim are host ints (lvl 0 leaves the planes as they are).
+    Returns new planes; the inputs are not modified.
     """
     g = geom
     if g.strip:
@@ -678,30 +870,80 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
     h_mi, w_mi = g.h_mi, g.w_mi
     h_mi_c, w_mi_c = h_mi >> 1, w_mi >> 1
     w16 = 16 * int(lvl > 0)
+    w8 = 8 * int(lvl > 0)
     w16_t = torch.tensor(w16, dtype=torch.int32, device=dev)
     lf = (thresh, lim, mblim)
+    split = split32 is not None
+    if split:
+        split32 = split32.to(torch.int32)
+        # per-pixel-row expansions of the split mask
+        sp_y = split32.repeat_interleave(32, dim=0)[:h_mi]    # (h, cols32)
+        sp_c = split32.repeat_interleave(16, dim=0)[:h_mi_c]  # (hc, cols32)
+
+    def where8(sp):
+        """Width 8 where ``sp`` marks a split block, else 16."""
+        return torch.where(sp > 0, w8, w16).to(torch.int32)
 
     # ---- pass 1: interior vertical edges ----
     xs_y = np.array([x for x in range(32, w_mi, 32) if x % 64], np.int64)
     _lf_vert(y, 0, h_mi, xs_y, w16_t, *lf)
     xs_c = np.array([x for x in range(16, w_mi_c, 16) if x % 32], np.int64)
-    _lf_vert(u, 0, h_mi_c, xs_c, w16_t, *lf)
-    _lf_vert(v, 0, h_mi_c, xs_c, w16_t, *lf)
+    if not split:
+        _lf_vert(u, 0, h_mi_c, xs_c, w16_t, *lf)
+        _lf_vert(v, 0, h_mi_c, xs_c, w16_t, *lf)
+    else:
+        # luma 16-offset verticals: exist only inside split blocks
+        xs_y16 = np.array([x for x in range(16, w_mi, 16) if x % 32],
+                          np.int64)
+        _lf_vert(y, 0, h_mi, xs_y16, w16 * sp_y[:, xs_y16 // 32], *lf)
+        # chroma 8-offset verticals (split blocks only, tx8: width 8,
+        # narrow taps); raster puts each before the 16-multiple edge to
+        # its right, which its +-3 writes never reach
+        xs_c8 = np.array([x for x in range(8, w_mi_c, 8) if x % 16],
+                         np.int64)
+        w_c8 = w8 * sp_c[:, xs_c8 // 16]
+        # chroma 16-multiple (non-band) verticals: width 8 over split
+        # blocks
+        w_c16 = where8(sp_c[:, xs_c // 16])
+        for plane in (u, v):
+            _lf_vert(plane, 0, h_mi_c, xs_c8, w_c8, *lf, taps=4)
+            _lf_vert(plane, 0, h_mi_c, xs_c, w_c16, *lf)
 
     # ---- pass 2: horizontal edges away from SB-boundary columns ----
     # (the band columns, and pad columns past the visible width, are
     # masked to width 0)
-    def col_widths(n_cols, width_px, sb):
+    def col_mask(n_cols, width_px, sb):
         mask = np.zeros((n_cols,), np.int32)
-        mask[_cols_away_from_boundaries(width_px, sb)] = w16
+        mask[_cols_away_from_boundaries(width_px, sb)] = 1
         return torch.as_tensor(mask, device=dev)[None, :]
 
-    _lf_horz(y, np.arange(32, h_mi, 32, dtype=np.int64),
-             col_widths(y.shape[1], w_mi, 64), *lf)
+    mask_y = col_mask(y.shape[1], w_mi, 64)
+    mask_c = col_mask(u.shape[1], w_mi_c, 32)
+    _lf_horz(y, np.arange(32, h_mi, 32, dtype=np.int64), w16 * mask_y, *lf)
     ys_c = np.arange(16, h_mi_c, 16, dtype=np.int64)
-    w_c = col_widths(u.shape[1], w_mi_c, 32)
-    _lf_horz(u, ys_c, w_c, *lf)
-    _lf_horz(v, ys_c, w_c, *lf)
+    if not split:
+        _lf_horz(u, ys_c, w16 * mask_c, *lf)
+        _lf_horz(v, ys_c, w16 * mask_c, *lf)
+    else:
+        colblk_y = np.clip(np.arange(y.shape[1]) // 32, 0, g.cols32 - 1)
+        colblk_c = np.clip(np.arange(u.shape[1]) // 16, 0, g.cols32 - 1)
+        # luma 16-offset horizontals inside split blocks
+        ys_y16 = np.array([yy for yy in range(16, h_mi, 16) if yy % 32],
+                          np.int64)
+        if ys_y16.size:
+            _lf_horz(y, ys_y16,
+                     w16 * split32[ys_y16 // 32][:, colblk_y] * mask_y, *lf)
+        # chroma 8-offset horizontals (split blocks, width 8: +-3 writes
+        # leave the 16-multiple windows below untouched per row)
+        ys_c8 = np.array([yy for yy in range(8, h_mi_c, 8) if yy % 16],
+                         np.int64)
+        w_hc8 = (w8 * split32[ys_c8 // 16][:, colblk_c] * mask_c
+                 if ys_c8.size else None)
+        w_hc16 = (where8(split32[ys_c // 16][:, colblk_c]) * mask_c
+                  if ys_c.size else None)
+        for plane in (u, v):
+            _lf_horz(plane, ys_c8, w_hc8, *lf)
+            _lf_horz(plane, ys_c, w_hc16, *lf)
 
     # ---- pass 3: SB-boundary bands, in parallel over bands, SB rows in
     # order (bands are 64px apart, 32 for chroma, hence disjoint) ----
@@ -720,26 +962,67 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
                  .to(torch.int32), (0, 0, 0, 0, 8, 8))
     rowi = torch.arange(64, device=dev)[:, None]
     rowi_c = torch.arange(32, device=dev)[:, None]
+    # the 32-block columns that decide each band half's widths
+    lb_y, rb_y = xs_b // 32 - 1, xs_b // 32
+    lb_c, rb_c = xcs_b // 16 - 1, xcs_b // 16
+    n_sbr = (h_mi + 63) // 64
+    if split:
+        sp_pad = F.pad(split32, (0, 0, 0, 2 * n_sbr - split32.shape[0]))
+    for r in range(n_sbr):
+        y0, y0c = r * 64, r * 32
+        sp2 = sp_pad[2 * r:2 * r + 2] if split else None  # (2, cols32)
 
-    def h_widths(y0, dys, h):
-        return torch.tensor([w16 * (0 < y0 + dy < h) for dy in dys],
-                            dtype=torch.int32, device=dev)[:, None, None]
+        def widths(dys, half_cols, chroma: bool):
+            """(D, bands, 1) widths of the band h edges at y0 + dy on one
+            band half; ``half_cols`` are the 32-block columns that decide
+            them. Edges on the 32 grid (16 for chroma) always exist,
+            narrowed to 8 over a split chroma block; the others only
+            inside split blocks."""
+            base, hgt, unit = (y0c, h_mi_c, 16) if chroma else (y0, h_mi, 32)
+            oks = [int(0 < base + dy < hgt) for dy in dys]
+            if not split:
+                return torch.tensor([w16 * ok for ok in oks],
+                                    dtype=torch.int32,
+                                    device=dev)[:, None, None]
+            rows = []
+            for dy, ok in zip(dys, oks):
+                sp = sp2[dy // unit][half_cols]
+                if dy % unit:
+                    rows.append((w8 if chroma else w16) * ok * sp)
+                elif chroma:
+                    rows.append(where8(sp) * ok)
+                else:
+                    rows.append(torch.full_like(sp, w16 * ok))
+            ws = torch.stack(rows)
+            if chroma:  # u and v side by side on the band axis
+                ws = torch.cat([ws, ws], dim=1)
+            return ws[:, :, None]
 
-    for r in range((h_mi + 63) // 64):
-        y0 = r * 64
-        dys_y = (0, 32)
-        wh = h_widths(y0, dys_y, h_mi)
-        _band_horz_multi(bt_y, y0 + 8, dys_y, 0, wh, *lf)
+        # luma: all dys are 16+ apart, so their +-8 windows are disjoint
+        dys_y = (0, 16, 32, 48) if split else (0, 32)
+        _band_horz_multi(bt_y, y0 + 8, dys_y, 0,
+                         widths(dys_y, lb_y, False), *lf)
         _band_vert(bt_y, y0 + 8, 64,
                    torch.where(y0 + rowi < h_mi, w16_t, 0), *lf)
-        _band_horz_multi(bt_y, y0 + 8, dys_y, 8, wh, *lf)
-        y0c = r * 32
-        dys_c = (0, 16)
-        whc = h_widths(y0c, dys_c, h_mi_c)
-        _band_horz_multi(bt_c, y0c + 8, dys_c, 0, whc, *lf)
-        _band_vert(bt_c, y0c + 8, 32,
-                   torch.where(y0c + rowi_c < h_mi_c, w16_t, 0), *lf)
-        _band_horz_multi(bt_c, y0c + 8, dys_c, 8, whc, *lf)
+        _band_horz_multi(bt_y, y0 + 8, dys_y, 8,
+                         widths(dys_y, rb_y, False), *lf)
+        # chroma: the same structure at half scale
+        alive_c = y0c + rowi_c < h_mi_c
+        if not split:
+            wc = torch.where(alive_c, w16_t, 0)
+            groups = ((0, 16),)
+        else:
+            spc2 = sp2.repeat_interleave(16, dim=0)  # (32, cols32)
+            wc = torch.where(alive_c, where8(spc2[:, rb_c]), 0)
+            wc = torch.cat([wc, wc], dim=1)
+            groups = ((0,), (8,), (16,), (24,))
+        for dys_c in groups:
+            _band_horz_multi(bt_c, y0c + 8, dys_c, 0,
+                             widths(dys_c, lb_c, True), *lf)
+        _band_vert(bt_c, y0c + 8, 32, wc, *lf)
+        for dys_c in groups:
+            _band_horz_multi(bt_c, y0c + 8, dys_c, 8,
+                             widths(dys_c, rb_c, True), *lf)
     nb = xcs_b.size
     y[:, bcols_y] = bt_y[8:-8].to(torch.uint8)
     u[:, bcols_c] = bt_c[8:-8, :nb].to(torch.uint8)
@@ -748,21 +1031,27 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
 
 
 # ---------------------------------------------------------------------------
-# The 32-grid zone and the P-frame step
+# The 32-grid zone, the 16x16 children and the P-frame step
 # ---------------------------------------------------------------------------
 
 
 def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
                 geom: Geom, dc_q: int, ac_q: int, lam: int, filters,
-                new_bits):
-    """MD + recon for the uniform 32-grid (the M9 subset of the TPU
-    package's ``encode_zone``: n=32, LAST only, rate proxies).
+                new_bits, gold=None, rates=None, return_me: bool = False):
+    """MD + recon for the uniform 32-grid (the JAX package's
+    ``encode_zone`` at n=32 without ALTREF and without ``aq``).
 
     src planes: padded device planes; ref planes: border-extended
     previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the previous
-    frame (the temporal candidate). Returns a dict with mv (B, 2 int16),
-    ref (B int8 zeros: LAST), skip, eob_y/u/v, lv_y/u/v (int16 blocks),
-    rec_y/u/v (unfiltered zone planes), dist_b, rate_b, dist, rate.
+    frame (the temporal candidate). gold: optional (y, u, v)
+    border-extended GOLDEN planes: each block then chooses LAST or GOLDEN
+    (strict '<' against LAST) and is compensated from that reference's
+    windows. rates: ``upload_rate_tabs`` (entropy-table candidate costs)
+    or None (proxies). return_me: also return the search intermediates the
+    children refine ("wins", "dy", "dx", "wu", "wv").
+    Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN),
+    skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v (unfiltered zone
+    planes), dist_b, rate_b, dist, rate.
     """
     g = geom
     n, nc = 32, 16
@@ -778,10 +1067,21 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         sub_r, sub_c, sse_new = subpel_search_ref(loc, src_blocks, dyr, dxr,
                                                   n, REFINE_R)
     with _stage("step_md"):
-        mv_r, mv_c, _ = _candidate_decide(
+        mv_r, mv_c, cost_last = _candidate_decide(
             ssem, src2m, sse_zero, sse_new, c_y * 8 + sub_r,
             c_x * 8 + sub_c, prev_mv, rows, cols, HALF_R, 4, 4, lam,
-            new_bits)
+            new_bits, rates=rates)
+    ref_sel = torch.zeros((b,), dtype=torch.int8, device=src_y.device)
+    if gold is not None:
+        with _stage("step_golden"):
+            extra = _ref_extra(lam, rates)
+            g_mv_r, g_mv_c, g_cost = _golden_decide(
+                gold[0], src_blocks, pos_y, pos_x, prev_mv, rows, cols, n,
+                lam, rates)
+            use_gold = (g_cost + extra[1]) < (cost_last + extra[0])
+            ref_sel = use_gold.to(torch.int8)
+            mv_r = torch.where(use_gold, g_mv_r, mv_r)
+            mv_c = torch.where(use_gold, g_mv_c, mv_c)
     # window MC: every winner derives from the +-WIN_R search (or is ZERO
     # or PREV, equally bounded)
     with _stage("step_mc"):
@@ -789,8 +1089,17 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
                                      r=CHROMA_WIN_R)
         wv = _extract_search_windows(ref_v, nc, rows, cols, 0,
                                      r=CHROMA_WIN_R)
+        wy_mc = wins
+        if gold is not None:
+            msel = use_gold[:, None, None]
+            wy_mc = torch.where(msel, _extract_search_windows(
+                gold[0], n, rows, cols, 0), wins)
+            wu = torch.where(msel, _extract_search_windows(
+                gold[1], nc, rows, cols, 0, r=CHROMA_WIN_R), wu)
+            wv = torch.where(msel, _extract_search_windows(
+                gold[2], nc, rows, cols, 0, r=CHROMA_WIN_R), wv)
         mi = (g.mi_rows, g.mi_cols)
-        pred_y = mc_predict_from_wins(wins, pos_y, pos_x, mv_r, mv_c, n, 0,
+        pred_y = mc_predict_from_wins(wy_mc, pos_y, pos_x, mv_r, mv_c, n, 0,
                                       *mi, filters, WIN_R)
         pred_u = mc_predict_from_wins(wu, pos_y // 2, pos_x // 2, mv_r,
                                       mv_c, nc, 1, *mi, filters,
@@ -809,9 +1118,9 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         dist_b = block_energy(src_blocks, rec_y, n)[0]
         rate_b = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
                   + (lv_v != 0).sum(dim=(1, 2)))
-    return {
+    out = {
         "mv": torch.stack([mv_r, mv_c], dim=-1).to(torch.int16),
-        "ref": torch.zeros((b,), dtype=torch.int8, device=src_y.device),
+        "ref": ref_sel,
         "skip": skip,
         "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
         "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v,
@@ -821,34 +1130,244 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         "dist_b": dist_b, "rate_b": rate_b,
         "dist": dist_b.sum(), "rate": rate_b.sum(),
     }
+    if return_me:
+        # the search's windows (LAST's, even where GOLDEN won: GOLDEN
+        # parents are never descended) and the MC windows of the chroma
+        out.update(wins=wins, dy=c_y + dyr, dx=c_x + dxr, wu=wu, wv=wv)
+    return out
+
+
+def _merge4(blocks, k: int, n: int):
+    """(4K, n, n) children in k*4 + 2*i + j order -> (K, 2n, 2n)."""
+    return blocks.reshape(k, 2, 2, n, n).permute(0, 1, 3, 2, 4) \
+        .reshape(k, 2 * n, 2 * n)
+
+
+def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
+                           parent_mv, sel_idx, geom: Geom, dc_q: int,
+                           ac_q: int, lam: int, filters, new_bits,
+                           rates=None):
+    """Masked 32->16 descent: encode the four 16x16 children of the K
+    selected parents only (``tpu_vp9/pipeline/tpu_encdec.py:
+    encode_children_masked``).
+
+    parent_me: {"wins", "dy", "dx", "wu", "wv"} from the 32 zone: the
+    children search +-CHILD_R inside their parent's window (one 64x64
+    union slice per parent around its full-pel winner, clipped into the
+    window, and four 40x40 sub-slices of it) and are compensated straight
+    out of the parent's luma and chroma windows through per-child origin
+    offsets. parent_mv: (B32, 2) int32 final q3 MVs of the parents (the
+    PARENT candidate, scored at its entry of the child's SSE map).
+    sel_idx: (K,) raster parent indices. Candidates {ZERO, NEW, PARENT},
+    first minimum. Child order: k*4 + 2*i + j for parent sel_idx[k], child
+    row i, column j.
+    Returns per-child arrays (4K: mv, skip, eob_*, lv_*), sel_idx, and
+    per-parent dist4, rate4 and the merged recon blocks rec_y32, rec_u16,
+    rec_v16.
+    """
+    g = geom
+    dev = src_y.device
+    sel = sel_idx.long()
+    k = sel.shape[0]
+    cols32, rows32 = g.cols32, g.rows32
+    cols16 = cols32 * 2
+    pr = sel // cols32
+    pc = sel % cols32
+    with _stage("step_children"):
+        wk = parent_me["wins"][sel]                 # (K, SW, SW)
+        sw = wk.shape[-1]
+        s_y = (parent_me["dy"][sel] + 36).clamp(0, sw - 64)
+        s_x = (parent_me["dx"][sel] + 36).clamp(0, sw - 64)
+        union = _take_windows(wk, s_y, s_x, 64)     # (K, 64, 64)
+        base_y = (s_y - 32).repeat_interleave(4)    # map-centre displ.
+        base_x = (s_x - 32).repeat_interleave(4)
+        cw = torch.stack([union[:, 16 * i:16 * i + 40, 16 * j:16 * j + 40]
+                          for i in (0, 1) for j in (0, 1)], dim=1) \
+            .reshape(k * 4, 40, 40)
+
+        ii = torch.tensor([0, 0, 1, 1], device=dev)
+        jj = torch.tensor([0, 1, 0, 1], device=dev)
+        c_row = (2 * pr)[:, None] + ii[None]        # (K, 4)
+        c_col = (2 * pc)[:, None] + jj[None]
+        cidx = (c_row * cols16 + c_col).reshape(-1)  # (4K,)
+        csrc = _extract_blocks(src_y, 0, rows32 * 2, cols16, 16)[cidx]
+
+        ddy, ddx, ssem_c = sse_map_search(csrc, cw, 16, CHILD_R)
+        sub_r, sub_c, sse_new = subpel_search_ref(cw, csrc, ddy, ddx, 16,
+                                                  CHILD_R)
+        mv_new_r = base_y * 8 + sub_r
+        mv_new_c = base_x * 8 + sub_c
+        # exact ZERO SSE: the co-located reference block
+        cref = _extract_blocks(ref_y[BORDER:, BORDER:], 0, rows32 * 2,
+                               cols16, 16)[cidx]
+        sse_zero = block_energy(csrc, cref, 16)[0]
+        # PARENT candidate: the parent's final MV at its child-map entry
+        par_r = parent_mv[sel, 0].repeat_interleave(4)
+        par_c = parent_mv[sel, 1].repeat_interleave(4)
+        rch = CHILD_R
+        dch = 2 * rch + 1
+        fy = (((par_r + 4) >> 3) - base_y).clamp(-rch, rch) + rch
+        fx = (((par_c + 4) >> 3) - base_x).clamp(-rch, rch) + rch
+        sse_par = ssem_c.reshape(k * 4, dch * dch).gather(
+            1, (fy * dch + fx).long()[:, None])[:, 0] + _block_sq_sum(csrc)
+
+        zero = torch.zeros_like(mv_new_r)
+        cand_r = torch.stack([zero, mv_new_r, par_r])
+        cand_c = torch.stack([zero, mv_new_c, par_c])
+        sads = torch.stack([sse_zero, sse_new, sse_par])
+        if rates is not None:
+            mc = rates["mode_cost"]
+            ones = torch.ones_like(mv_new_r)
+            mvd_bits = _mvd_bits(rates, mv_new_r - par_r, mv_new_c - par_c)
+            rate = torch.stack([mc[2] * ones, mc[3] + mvd_bits,
+                                mc[0] * ones])
+            costs = _table_costs(sads, rate, rates["lam_bits"])
+        else:
+            rz, _, _, _, rs = CAND_RATE_PROXY
+            mvd = (mv_new_r - par_r).abs() + (mv_new_c - par_c).abs()
+            ones = torch.ones((k * 4,), dtype=torch.float32, device=dev)
+            rate = torch.stack([rz * ones, new_bits[mvd.long()],
+                                rs * ones])
+            costs = sads.to(torch.float32) + float(lam) * rate
+        (mv_r, mv_c), _, _ = _first_min(costs, (cand_r, cand_c))
+
+        # MC straight out of the parent windows (every child candidate is
+        # reachable there; org_off = the child's offset inside the parent)
+        pos_y = (c_row * 16).reshape(-1).to(torch.int32)
+        pos_x = (c_col * 16).reshape(-1).to(torch.int32)
+        off_y = (ii * 16).repeat(k).to(torch.int32)
+        off_x = (jj * 16).repeat(k).to(torch.int32)
+        mi = (g.mi_rows, g.mi_cols)
+        pred_y = mc_predict_from_wins(
+            wk.repeat_interleave(4, dim=0), pos_y, pos_x, mv_r, mv_c, 16, 0,
+            *mi, filters, WIN_R, org_off_y=off_y, org_off_x=off_x)
+        chroma = []
+        for key, plane in (("wu", src_u), ("wv", src_v)):
+            pred = mc_predict_from_wins(
+                parent_me[key][sel].repeat_interleave(4, dim=0), pos_y // 2,
+                pos_x // 2, mv_r, mv_c, 8, 1, *mi, filters, CHROMA_WIN_R,
+                org_off_y=off_y // 2, org_off_x=off_x // 2)
+            csrc_c = _extract_blocks(plane, 0, rows32 * 2, cols16, 8)[cidx]
+            chroma.append(transform_recon(csrc_c, pred, dc_q, ac_q, 8))
+        lv_y, eob_y, rec_y = transform_recon(csrc, pred_y, dc_q, ac_q, 16)
+        (lv_u, eob_u, rec_u), (lv_v, eob_v, rec_v) = chroma
+        skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
+        dist_c = block_energy(csrc, rec_y, 16)[0]
+        rate_c = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
+                  + (lv_v != 0).sum(dim=(1, 2)))
+    return {
+        "mv": torch.stack([mv_r, mv_c], dim=-1).to(torch.int16),
+        "skip": skip,
+        "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
+        "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v,
+        "sel_idx": sel_idx.to(torch.int32),
+        "dist4": dist_c.reshape(k, 4).sum(dim=1),
+        "rate4": rate_c.reshape(k, 4).sum(dim=1),
+        "rec_y32": _merge4(rec_y, k, 16),
+        "rec_u16": _merge4(rec_u, k, 8),
+        "rec_v16": _merge4(rec_v, k, 8),
+    }
+
+
+def descent_parents(score, k: int):
+    """Indices of the k largest entries of ``score``, the lower index
+    first among equals (what ``lax.top_k`` returns; ``torch.topk``
+    promises no order among ties, so this is a stable descending sort).
+    The -1 sentinels of GOLDEN parents and of the overhang row make ties
+    routine."""
+    return torch.sort(score, descending=True, stable=True)[1][:k]
+
+
+def split_decide(out32, out16, lam: int, geom: Geom):
+    """The 32-against-4x16 decision for the descended parents and the
+    recon merge (``tpu_vp9/pipeline/tpu_encdec.py:pframe_step``).
+
+    Costs are dist + lam * rate in float32 (rate in nonzero-level counts,
+    the split paying SPLIT_RATE_EXTRA more), strict '<' for the split.
+    Removes dist4, rate4 and the merged recon blocks from ``out16``.
+    Returns (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v)."""
+    g = geom
+    r32, c32, b32 = g.rows32, g.cols32, g.n_blocks32
+    sel = out16["sel_idx"].long()
+    d16 = out16.pop("dist4").to(torch.float32)
+    rt16 = out16.pop("rate4").to(torch.float32)
+    lam_f = float(lam)
+    cost32k = (out32["dist_b"][sel].to(torch.float32)
+               + lam_f * out32["rate_b"][sel].to(torch.float32))
+    cost16k = d16 + lam_f * (rt16 + SPLIT_RATE_EXTRA)
+    use16 = cost16k < cost32k  # (K,)
+    split32 = torch.zeros((b32,), dtype=torch.int32, device=sel.device)
+    split32[sel] = use16.to(torch.int32)
+
+    def merge(plane, rep, nb):
+        blocks = _extract_blocks(plane, 0, r32, c32, nb).clone()
+        blocks[sel] = torch.where(use16[:, None, None], rep, blocks[sel])
+        return _scatter_blocks(blocks, r32, c32, nb)
+
+    return (split32.reshape(r32, c32),
+            merge(out32["rec_y"], out16.pop("rec_y32"), 32),
+            merge(out32["rec_u"], out16.pop("rec_u16"), 16),
+            merge(out32["rec_v"], out16.pop("rec_v16"), 16))
 
 
 def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                 geom: Geom, dc_q: int, ac_q: int, lam: int, lf_lvl: int,
-                lf_lim: int, lf_mblim: int, filters, new_bits):
-    """One device P-frame encode step (the M9 subset of the TPU package's
-    ``pframe_step``).
+                lf_lim: int, lf_mblim: int, filters, new_bits,
+                split16: bool = False, gold=None, rates=None):
+    """One device P-frame encode step (the JAX package's ``pframe_step``
+    without a strip, ALTREF or ``aq``).
 
     src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 device
     tensors; ref planes: the border-extended previous reconstruction.
+    split16: descend the B32 // DESCEND_FRAC parents of the largest
+    distortion (GOLDEN parents and the overhang row never) and decide 32
+    against 4x16 for each. gold: optional GOLDEN planes. rates: optional
+    ``upload_rate_tabs``.
     Returns (outputs dict, new border-extended (ref_y, ref_u, ref_v));
-    outputs hold the "m32" zone and the loop-filtered padded recon
-    planes "rec_y"/"rec_u"/"rec_v". The references are new tensors.
+    outputs hold the "m32" zone, with split16 the children "m16f" and
+    "split32", and the loop-filtered padded recon planes
+    "rec_y"/"rec_u"/"rec_v". The references are new tensors.
     """
     g = geom
     if g.strip:
         raise NotImplementedError("pframe_step: strip geometries are not "
                                   "ported yet (ROADMAP.md Queue A item 5)")
     out32 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
-                        prev_mv32, g, dc_q, ac_q, lam, filters, new_bits)
+                        prev_mv32, g, dc_q, ac_q, lam, filters, new_bits,
+                        gold=gold, rates=rates, return_me=split16)
+    outs = {"m32": out32}
+    rec_y, rec_u, rec_v = out32["rec_y"], out32["rec_u"], out32["rec_v"]
+    split32 = None
+    if split16:
+        parent_me = {kk: out32.pop(kk)
+                     for kk in ("wins", "dy", "dx", "wu", "wv")}
+        with _stage("step_children"):
+            score = out32["dist_b"]
+            if gold is not None:
+                score = torch.where(out32["ref"] > 0, -1, score)
+            if g.mi_rows % 4 == 3:
+                score = score.clone()
+                score[-g.cols32:] = -1
+            sel_idx = descent_parents(score,
+                                      max(1, g.n_blocks32 // DESCEND_FRAC))
+        out16 = encode_children_masked(
+            src_y, src_u, src_v, ref_y, parent_me,
+            out32["mv"].to(torch.int32), sel_idx, g, dc_q, ac_q, lam,
+            filters, new_bits, rates=rates)
+        with _stage("step_children"):
+            split32, rec_y, rec_u, rec_v = split_decide(out32, out16, lam,
+                                                        g)
+        outs["m16f"] = out16
+        outs["split32"] = split32
     with _stage("step_loop_filter"):
         # pad recon to the full device plane (the coded region is g.width)
-        rec_y = _pad_edge(out32["rec_y"], g.pad_h, g.pad_w)
-        rec_u = _pad_edge(out32["rec_u"], g.pad_h // 2, g.pad_w // 2)
-        rec_v = _pad_edge(out32["rec_v"], g.pad_h // 2, g.pad_w // 2)
+        rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
+        rec_u = _pad_edge(rec_u, g.pad_h // 2, g.pad_w // 2)
+        rec_v = _pad_edge(rec_v, g.pad_h // 2, g.pad_w // 2)
         rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g,
-                                                 lf_lvl, lf_lim, lf_mblim)
-    outs = {"m32": out32, "rec_y": rec_y, "rec_u": rec_u, "rec_v": rec_v}
+                                                 lf_lvl, lf_lim, lf_mblim,
+                                                 split32=split32)
+    outs.update(rec_y=rec_y, rec_u=rec_u, rec_v=rec_v)
     cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
     with _stage("step_borders"):
         refs = (extend_borders_device(rec_y, g.width, g.height),
@@ -857,19 +1376,36 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     return outs, refs
 
 
-def make_pframe_step(geom: Geom, device):
-    """The step for one geometry on one device: ``step(src_y, src_u,
-    src_v, ref_y, ref_u, ref_v, prev_mv32, dc_q, ac_q, lam, lf_lvl,
-    lf_lim, lf_mblim)``, with the filter taps and the NEWMV rate table
-    uploaded once. It runs eagerly; there is nothing to compile."""
+def make_pframe_step(geom: Geom, device, split16: bool = False,
+                     golden: bool = False, with_rates: bool = False):
+    """The step for one geometry on one device, with the filter taps and
+    the NEWMV rate-proxy table uploaded once:
+
+        step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
+             [gold_y, gold_u, gold_v,]          # golden
+             prev_mv32, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim
+             [, rates])                          # golden or with_rates
+
+    ``rates`` is ``upload_rate_tabs(make_rate_tabs(fc, qindex), device)``;
+    as in the JAX package a GOLDEN step always takes them. It runs
+    eagerly; there is nothing to compile."""
     device = torch.device(device)
     filters = torch.as_tensor(np.asarray(FILTERS, np.int32), device=device)
     new_bits = new_bits_table(device)
+    with_rates = with_rates or golden
+    n_fixed = 13 + (3 if golden else 0) + (1 if with_rates else 0)
 
-    def step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32, dc_q,
-             ac_q, lam, lf_lvl, lf_lim, lf_mblim):
+    def step(src_y, src_u, src_v, ref_y, ref_u, ref_v, *rest):
+        if len(rest) + 6 != n_fixed:
+            raise TypeError(f"step takes {n_fixed} arguments, got "
+                            f"{len(rest) + 6}")
+        gold = tuple(rest[:3]) if golden else None
+        rest = rest[3:] if golden else rest
+        rates = rest[7] if with_rates else None
+        prev_mv32, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim = rest[:7]
         return pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                            prev_mv32, geom, dc_q, ac_q, lam, lf_lvl,
-                           lf_lim, lf_mblim, filters, new_bits)
+                           lf_lim, lf_mblim, filters, new_bits,
+                           split16=split16, gold=gold, rates=rates)
 
     return step
