@@ -5,16 +5,20 @@
 Phases, each of which raises on failure (nothing is caught):
   1. the card, the software, and the build of every kernel (one nvcc per
      source, all started together) and of the native host library;
-  2. kernels: sad_full_search, block_energy and sse_map_search against
-     their plain PyTorch versions on the card, bit for bit, at the shapes
-     the 1080p paths give them (the M8 children's included), ties and
-     negative minima included; both timed with CUDA events;
+  2. kernels: sad_full_search, block_energy (on blocks and positioned,
+     block_energy_at) and sse_map_search (one level, and both levels
+     fused, hier_search_fused) against their plain PyTorch versions on
+     the card, bit for bit, at the shapes the 1080p paths give them (the
+     M8 children's included), ties, negative minima and the largest
+     operands included; each timed per call with CUDA events and on the
+     host clock, and per launch with the profiler;
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (rate tables, the
      GOLDEN anchor, the 32-against-16 descent) through the public
-     Vp9Encoder; per P-frame sse_map_search must launch 3 times and
-     block_energy 6 times; some parents must split; the stream must decode
-     with the port's decoder to the encoder's own recon across two GOLDEN
-     refreshes; fps, step time and the host-clock stage split. Inside the
+     Vp9Encoder; per P-frame the search entry points must launch twice
+     (hier_search_fused, then sse_map_search for the children) and the
+     block_energy ones 5 times; some parents must split; the stream must
+     decode with the port's decoder to the encoder's own recon across two
+     GOLDEN refreshes; fps, step time and the host-clock stage split. Inside the
      same counted window txq_cost runs at its own entry point on every
      P-frame's residual (source minus the previous frame's recon), at
      n=32 and n=16;
@@ -32,6 +36,11 @@ Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
 nonzero before printing any result. jax and the JAX package tpu_vp9 are
 blocked from being imported: the port stands alone.
+
+    python3 chip_smoke.py --kernels
+
+stops after phase 2 (a short first run of a changed kernel) and prints
+neither JSON line.
 """
 
 from __future__ import annotations
@@ -68,10 +77,22 @@ LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost")
 # quarter of them, so it has as many 16x16 children as 32x32 parents
 SAD_B, SAD_N, SAD_R = 33 * 60, 32, 16
 M9_B = 34 * 60
-# launches per P-frame of the M8 step: the half-res, refine and child
-# searches; ZERO SSE and recon distortion of the 32 zone, GOLDEN's ZERO
-# and previous-MV SSE, the children's ZERO SSE and recon distortion
-M8_SSE_LAUNCHES, M8_ENERGY_LAUNCHES = 3, 6
+# launches per P-frame of the step, by wrapper. M8: the fused two-level
+# search of the 32 zone and the children's search; the recon distortion of
+# the 32 zone and of the children (block_energy); the 32 zone's ZERO SSE,
+# GOLDEN's ZERO and previous-MV SSE in one launch, and the children's ZERO
+# SSE (block_energy_at): 2 search and 5 energy launches. M9: the fused
+# search, ZERO SSE and recon distortion.
+M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
+               "block_energy": 2, "block_energy_at": 3, "txq_cost": 2}
+M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
+               "block_energy": 1, "block_energy_at": 1, "txq_cost": 0}
+# the wrappers that launch kernels of one source, by the kernel's name in
+# the JSON line
+ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
+                  "block_energy": ("block_energy", "block_energy_at"),
+                  "sse_map_search": ("sse_map_search", "hier_search_fused"),
+                  "txq_cost": ("txq_cost",)}
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s
 # and operations/s by the type of the operands.
 # INT8: sums of products of 8-bit integers, which the tensor cores take
@@ -142,26 +163,81 @@ def _check(name, label, got, want):
     return err
 
 
-def _timed(name, label, kernel_fn, plain_fn, plain_reps, bound):
+def _device_ms(fn, kernel_key: str, reps: int = 20):
+    """Device time per launch of the kernels whose name contains
+    ``kernel_key`` over ``reps`` calls of ``fn``, from torch.profiler; None
+    if the profiler recorded none in three tries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a profile now and then records no device event
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel_key in e.key
+                  and e.self_device_time_total > 0]
+        if events:
+            return (sum(e.self_device_time_total for e in events) / 1e3
+                    / sum(e.count for e in events))
+    return None
+
+
+def _host_ms(fn, reps: int = 1000) -> float:
+    """Host-clock time per call of the wrapper: ``reps`` calls back to
+    back without waiting for the device, then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1000 * host / reps
+
+
+def _timed(name, label, kernel_fn, plain_fn, plain_reps, bound, kernel_key,
+           count=1):
+    """One shape's part of a kernel's entry: (launches of this shape per
+    P-frame, label, call ms, plain ms, bound, device ms or None, host ms).
+    Call time is the median of CUDA-event times around one call, wrapper
+    included; device time is the kernel's own per launch (profiler); host
+    time is what the wrapper costs the host per call."""
     ms = _cuda_time_ms(kernel_fn, 50)
     plain_ms = _cuda_time_ms(plain_fn, plain_reps)
-    print(f"kernel {name} {label}: {ms:.4f} ms (CUDA), plain "
-          f"{plain_ms:.4f} ms, median of CUDA-event times; bound "
+    device_ms = _device_ms(kernel_fn, kernel_key)
+    host_ms = _host_ms(kernel_fn)
+    shown = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+    print(f"kernel {name} {label}: call {ms:.4f} ms (CUDA events, median), "
+          f"device {shown} per launch (profiler), host {host_ms:.4f} ms per "
+          f"call (1000 back to back); plain {plain_ms:.4f} ms; bound "
           f"{bound[0]:.5f} ms by {bound[1]}")
-    return ms, plain_ms
+    return (count, label, ms, plain_ms, bound, device_ms, host_ms)
 
 
 def _entry(name, source, replaces, max_err, parts):
-    """One kernel's line of the JSON: ``parts`` is a list of (launches of
-    this shape per P-frame of the kernel's main path, ms, plain_ms, bound)
-    and the times are summed over one P-frame's launches. No single
-    PyTorch call computes any of these functions, so library_ms is null."""
-    bound_ms, bound_by = _sum_bounds([(c, b) for c, _, _, b in parts])
+    """One kernel's line of the JSON from the parts ``_timed`` returns: the
+    times are summed over one P-frame's launches on the kernel's main
+    path. The bound is to be held against ``device_ms``; the path pays
+    ``ms``. No single PyTorch call computes any of these functions, so
+    library_ms is null."""
+    parts = [p for p in parts if p[0] > 0]
+    bound_ms, bound_by = _sum_bounds([(p[0], p[4]) for p in parts])
+    measured = all(p[5] is not None for p in parts)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_err,
-            "ms": sum(c * ms for c, ms, _, _ in parts),
-            "plain_ms": sum(c * pm for c, _, pm, _ in parts),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "ms": sum(p[0] * p[2] for p in parts),
+            "plain_ms": sum(p[0] * p[3] for p in parts),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": (sum(p[0] * p[5] for p in parts) if measured
+                          else None),
+            "host_ms": sum(p[0] * p[6] for p in parts),
+            "parts": [{"shape": p[1], "per_frame": p[0], "ms": p[2],
+                       "device_ms": p[5], "host_ms": p[6],
+                       "bound_ms": p[4][0]} for p in parts]}
 
 
 def _sad_inputs(b, n, r, seed):
@@ -210,24 +286,52 @@ def sad_kernel_phase(dev):
             # integer operations (|a - b|, add) per candidate pixel
             bound = _bound(b * (n * n + (n + 2 * r) ** 2) + 12 * b,
                            2 * b * d * d * n * n, ALU_OPS_PER_S)
-            ms, plain_ms = _timed(
+            part = _timed(
                 "sad_full_search", f"B={b} n={n} r={r}",
                 lambda: K.sad_full_search(src, reg, n, r),
-                lambda: K.sad_full_search_ref(src, reg, n, r), 5, bound)
-            part = (1, ms, plain_ms, bound)
+                lambda: K.sad_full_search_ref(src, reg, n, r), 5, bound,
+                "sad_search_kernel")
     return _entry("sad_full_search", "tpu_vp9_torch/csrc/sad_search.cu",
                   "tpu_vp9/ops/pallas_kernels.py:76", max_err, [part])
 
 
+def _energy_at_inputs(n, c, seed):
+    """A border-extended 1080p luma plane, source blocks and (c, B) starts
+    for B = 2040 blocks: the grid positions (set 0, as the ZERO candidate)
+    and seeded starts anywhere in the plane at any alignment (the others),
+    with blocks in all four corners and one copied out of the plane at an
+    odd start (zero energy)."""
+    rng = np.random.default_rng(seed)
+    hh, ww = 1088 + 192, WIDTH + 192
+    plane = rng.integers(0, 256, (hh, ww), dtype=np.uint8)
+    src = rng.integers(0, 256, (M9_B, n, n), dtype=np.uint8)
+    cols = WIDTH // n
+    idx = np.arange(M9_B)
+    y0 = np.empty((c, M9_B), np.int32)
+    x0 = np.empty((c, M9_B), np.int32)
+    y0[0] = np.minimum(96 + (idx // cols) * n, hh - n)
+    x0[0] = 96 + (idx % cols) * n
+    y0[1:] = rng.integers(0, hh - n + 1, (c - 1, M9_B))
+    x0[1:] = rng.integers(0, ww - n + 1, (c - 1, M9_B))
+    last = c - 1
+    for i, (y, x) in enumerate(((0, 0), (0, ww - n), (hh - n, 0),
+                                (hh - n, ww - n), (hh - n, ww - n - 1),
+                                (1, 1), (2, 3))):
+        y0[last, i], x0[last, i] = y, x
+    y0[last, 7], x0[last, 7] = 101, 203
+    src[7] = plane[101:101 + n, 203:203 + n]
+    return plane, src, y0, x0
+
+
 def energy_kernel_phase(dev):
-    """block_energy (CUDA) against block_energy_ref at B=2040, n=32 (the
-    32 zone) and n=16 (the M8 children)."""
+    """block_energy and block_energy_at (CUDA) against their plain
+    versions at B=2040, n=32 (the 32 zone) and n=16 (the M8 children)."""
     from tpu_vp9_torch.ops import cuda_kernels as K
 
     rng = np.random.default_rng(3)
     max_err = 0
     parts = []
-    for n, per_frame in ((32, 4), (16, 2), (8, 0), (64, 0)):
+    for n, per_frame in ((32, 1), (16, 1), (8, 0), (64, 0)):
         b = M9_B if per_frame else 256
         src = rng.integers(0, 256, (b, n, n), dtype=np.uint8)
         pred = np.clip(src.astype(np.int32) + rng.integers(-40, 41, src.shape),
@@ -245,11 +349,52 @@ def energy_kernel_phase(dev):
             # square or abs, add, twice over per pixel
             bound = _bound(2 * b * n * n + 8 * b, 5 * b * n * n,
                            ALU_OPS_PER_S)
-            ms, plain_ms = _timed(
-                "block_energy", f"B={b} n={n}",
+            parts.append(_timed(
+                "block_energy", f"blocks B={b} n={n}",
                 lambda: K.block_energy(s, p, n),
-                lambda: K.block_energy_ref(s, p, n), 20, bound)
-            parts.append((per_frame, ms, plain_ms, bound))
+                lambda: K.block_energy_ref(s, p, n), 20, bound,
+                "block_energy_kernel", per_frame))
+    # positioned: the 32 zone's ZERO (C=1), GOLDEN's ZERO and previous MV
+    # (C=2), the children's ZERO (n=16, C=1); other sizes checked only
+    K.CHECK_STARTS = True  # the checks below also run the starts' check
+    for n, c, per_frame in ((32, 1, 1), (32, 2, 1), (16, 1, 1), (16, 3, 0),
+                            (8, 2, 0), (64, 2, 0)):
+        plane_np, src_np, y0_np, x0_np = _energy_at_inputs(n, max(c, 2),
+                                                           seed=n + c)
+        plane = torch.from_numpy(plane_np).to(dev)
+        s = torch.from_numpy(src_np).to(dev)
+        # C=1 is timed on the grid (the ZERO candidate) and checked on the
+        # seeded starts as well
+        for rows in ([max(c, 2) - 1], [0]) if c == 1 else (list(range(c)),):
+            y0 = torch.from_numpy(y0_np[rows]).to(dev)
+            x0 = torch.from_numpy(x0_np[rows]).to(dev)
+            got = K.block_energy_at(s, plane, y0, x0, n)
+            max_err = max(max_err, _check(
+                "block_energy_at", f"B={M9_B} n={n} C={len(rows)} sets "
+                f"{rows}", got, K.block_energy_at_ref(s, plane, y0, x0, n)))
+            if rows[-1] != 0 and int(got[0][-1, 7]) != 0:
+                raise AssertionError("block_energy_at: the copied block has "
+                                     "energy")
+        # a view of a wider plane: the pitch is not the width
+        wide = torch.from_numpy(np.pad(plane_np, ((0, 0), (0, 20)))).to(dev)
+        view = wide[:, :plane_np.shape[1]]
+        max_err = max(max_err, _check(
+            "block_energy_at", f"n={n} C={y0.shape[0]} pitch "
+            f"{view.stride(0)} != width {view.shape[1]}",
+            K.block_energy_at(s, view, y0, x0, n), got))
+        if per_frame:
+            K.CHECK_STARTS = False  # as the step runs it
+            # reads the blocks once and each candidate's prediction, the
+            # starts, writes two int32 per candidate
+            bound = _bound(M9_B * n * n * (1 + c) + 16 * c * M9_B,
+                           5 * c * M9_B * n * n, ALU_OPS_PER_S)
+            parts.append(_timed(
+                "block_energy_at", f"positioned B={M9_B} n={n} C={c}",
+                lambda: K.block_energy_at(s, plane, y0, x0, n),
+                lambda: K.block_energy_at_ref(s, plane, y0, x0, n), 20,
+                bound, "block_energy_at_kernel", per_frame))
+            K.CHECK_STARTS = True
+    K.CHECK_STARTS = False
     return _entry("block_energy", "tpu_vp9_torch/csrc/block_energy.cu",
                   "tpu_vp9/ops/pallas_kernels.py:118", max_err, parts)
 
@@ -258,8 +403,11 @@ def _sse_inputs(n, r, half, seed):
     """Search inputs as the step makes them: windows of n+2r+8 (2x2 sums
     of uint8 pixels at the half-res level, int16), with a planted exact
     match in every other block (its minimum relative SSE is
-    -sum(src^2) < 0), block 1 constant (every candidate ties) and block 3
-    constant but for one bright window pixel."""
+    -sum(src^2) < 0), block 1 constant (every candidate ties), block 3
+    constant but for one bright window pixel, and the largest operands:
+    block 5 a window of the largest value against a zero source (the
+    largest sum(reg^2)), block 7 against a source of the largest value
+    (the largest cross term as well)."""
     rng = np.random.default_rng(seed)
     sw = n + 2 * r + 8
     k = 2 if half else 1
@@ -274,21 +422,117 @@ def _sse_inputs(n, r, half, seed):
     src[1], wins[1] = 40 * k * k, 40 * k * k
     src[3], wins[3] = 10, 10
     wins[3, 4 + r, 4 + r] = 200
+    top = 255 * k * k
+    src[5], wins[5] = 0, top
+    src[7], wins[7] = top, top
     dt = np.int16 if half else np.uint8
     return src.astype(dt), wins.astype(dt)
 
 
+def _hier_inputs(seed):
+    """(B, 32, 32) sources and (B, 120, 120) windows of the fused search,
+    B = 2040. Every fourth block is an exact copy of its window at a
+    seeded displacement within +-40 (at an even one the half-res minimum
+    is -sum(src_h^2) < 0); the others are such copies plus noise. Block 1
+    is constant (every candidate ties at both levels); blocks 2, 3, 6, 10
+    are planted at the four corners of the +-40 reach (the centre at its
+    clamp of +-36, the refine winner at +-4); block 5 is the largest
+    window against a zero source and block 7 against the largest source
+    (half-res operands of 1020). The windows are smooth, the corners' a
+    bowl."""
+    rng = np.random.default_rng(seed)
+    # smooth windows (a coarse random field, interpolated, and a little
+    # noise), so that the half-res level leads the refine to a planted
+    # match
+    coarse = torch.from_numpy(rng.uniform(0, 255, (M9_B, 1, 6, 6)))
+    field = torch.nn.functional.interpolate(
+        coarse, size=(120, 120), mode="bicubic", align_corners=True)
+    field = field[:, 0].numpy() + rng.integers(-3, 4, (M9_B, 120, 120))
+    wins = np.clip(field, 0, 255).astype(np.uint8)
+    src = np.empty((M9_B, 32, 32), np.uint8)
+    disp = rng.integers(-40, 41, (M9_B, 2))
+    disp[0] = (-12, 22)  # even: its half-res match is exact
+    corners = {2: (-40, -40), 3: (-40, 40), 6: (40, -40), 10: (40, 40)}
+    yy, xx = np.mgrid[0:120, 0:120]
+    for i, c in corners.items():
+        disp[i] = c
+        # a bowl: the SSE grows with the distance from the planted match,
+        # so the half-res level ends at its nearest corner
+        wins[i] = ((yy - 60) ** 2 + (xx - 60) ** 2) * 255 // 7200
+    for i in range(M9_B):
+        oy, ox = 44 + disp[i]
+        blk = wins[i, oy:oy + 32, ox:ox + 32]
+        if i % 4 and i not in corners:
+            blk = np.clip(blk.astype(np.int32) + rng.integers(-6, 7, (32, 32)),
+                          0, 255)
+        src[i] = blk
+    src[1], wins[1] = 77, 77
+    src[5], wins[5] = 0, 255
+    src[7], wins[7] = 255, 255
+    return src, wins, corners
+
+
+def hier_kernel_checks(dev):
+    """hier_search_fused (CUDA) against hier_search_ref, all seven
+    outputs; returns (max_abs_err, its part of the sse_map_search
+    entry)."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    src_np, wins_np, corners = _hier_inputs(seed=11)
+    s = torch.from_numpy(src_np).to(dev)
+    w = torch.from_numpy(wins_np).to(dev)
+    got = K.hier_search_fused(s, w, 32)
+    want = K.hier_search_ref(s, w, 32)
+    err = _check("hier_search_fused", f"B={M9_B} n=32 (c_y, c_x, dyr, dxr, "
+                 "loc, ssem_h, src2_h)", got, want)
+    c_y, c_x, dyr, dxr, _, ssem_h, src2_h = (t.cpu() for t in got)
+    if not (int(ssem_h[0].min()) == -int(src2_h[0]) < 0):
+        raise AssertionError("hier_search_fused: the planted block's "
+                             "half-res minimum is not -sum(src_h^2)")
+    if (int(c_y[1]), int(c_x[1]), int(dyr[1]), int(dxr[1])) != (-36, -36,
+                                                                -4, -4):
+        raise AssertionError("hier_search_fused: ties did not go to the "
+                             "first candidate of both levels")
+    for i, (dy, dx) in corners.items():
+        found = (int(c_y[i] + dyr[i]), int(c_x[i] + dxr[i]))
+        if found != (dy, dx) or abs(int(c_y[i])) != 36:
+            raise AssertionError(f"hier_search_fused: corner {dy, dx} found "
+                                 f"as {found} around centre "
+                                 f"{int(c_y[i]), int(c_x[i])}")
+    if int(ssem_h[5, 0, 0]) != 256 * 1020 ** 2 or \
+            int(ssem_h[7, 0, 0]) != -256 * 1020 ** 2:
+        raise AssertionError("hier_search_fused: the largest operands' map "
+                             "entries are wrong")
+    # least work: reads the source and the window once, writes the map,
+    # the refine window and five int32 per block; a multiply and an add
+    # per candidate pixel, the half-res level's (10-bit operands) at the
+    # rate off the tensor cores and the refine's (pixels) at the 8-bit
+    # tensor-core rate, here as operations at the former
+    ops = 2 * M9_B * (37 * 37 * 16 * 16
+                      + 9 * 9 * 32 * 32 * ALU_OPS_PER_S / INT8_OPS_PER_S)
+    bound = _bound(M9_B * (120 * 120 + 32 * 32 + 4 * 37 * 37 + 48 * 48 + 20),
+                   ops, ALU_OPS_PER_S)
+    part = _timed("hier_search_fused", f"fused B={M9_B} n=32",
+                  lambda: K.hier_search_fused(s, w, 32),
+                  lambda: K.hier_search_ref(s, w, 32), 3, bound,
+                  "hier_search_kernel", 1)
+    return err, part
+
+
 def sse_kernel_phase(dev):
-    """sse_map_search (CUDA) against sse_map_search_ref at the three
-    shapes of one M8 P-frame: both levels of the hierarchical search and
-    the children's +-8 search (B = 4 * K = 2040, with the map)."""
+    """sse_map_search (CUDA) against sse_map_search_ref at the shapes of
+    both levels of the hierarchical search and of the children's +-8
+    search (B = 4 * K = 2040, with the map), then both levels fused. One
+    M8 P-frame launches the fused kernel once and the children's search
+    once; the two levels on their own are timed beside them."""
     from tpu_vp9_torch.ops import cuda_kernels as K
 
     max_err = 0
     parts = []
-    for label, n, r, half, want_map in (("half-res", 16, 18, True, True),
-                                        ("refine", 32, 4, False, False),
-                                        ("children", 16, 8, False, True)):
+    for label, n, r, half, want_map, per_frame in (
+            ("half-res", 16, 18, True, True, 0),
+            ("refine", 32, 4, False, False, 0),
+            ("children", 16, 8, False, True, 1)):
         s_np, w_np = _sse_inputs(n, r, half, seed=n + r)
         s = torch.from_numpy(s_np).to(dev)
         w = torch.from_numpy(w_np).to(dev)
@@ -304,6 +548,11 @@ def sse_kernel_phase(dev):
                                  "minimum relative SSE is not negative")
         if not (int(got[0][1]) == -r and int(got[1][1]) == -r):
             raise AssertionError("sse_map_search: tie did not go to (-r, -r)")
+        top = int(w_np.max())
+        if int(rel[5, 0]) != n * n * top * top or \
+                int(rel[7, 0]) != -n * n * top * top:
+            raise AssertionError("sse_map_search: the largest operands' map "
+                                 "entries are wrong")
         d, sw = 2 * r + 1, n + 2 * r + 8
         # reads blocks and windows, writes the winner and (if asked) the
         # map; a multiply and an add per candidate pixel, at the tensor
@@ -312,13 +561,28 @@ def sse_kernel_phase(dev):
                                + (4 * d * d if want_map else 0)),
                        2 * M9_B * d * d * n * n,
                        ALU_OPS_PER_S if half else INT8_OPS_PER_S)
-        ms, plain_ms = _timed(
+        part = _timed(
             "sse_map_search", f"{label} B={M9_B} n={n} r={r} map={want_map}",
             lambda: K.sse_map_search(s, w, n, r, want_map),
-            lambda: K.sse_map_search_ref(s, w, n, r, want_map), 5, bound)
-        parts.append((1, ms, plain_ms, bound))
+            lambda: K.sse_map_search_ref(s, w, n, r, want_map), 5, bound,
+            "sse_search_kernel", per_frame)
+        parts.append(part)
+    # small shapes of the other strip width and block size, and B = 1
+    for n, r, b in ((8, 3, 1), (8, 12, 33), (32, 6, 17), (16, 4, 5)):
+        rng = np.random.default_rng(n * r)
+        sw = n + 2 * r + 8
+        s = torch.from_numpy(rng.integers(0, 256, (b, n, n),
+                                          dtype=np.uint8)).to(dev)
+        w = torch.from_numpy(rng.integers(0, 256, (b, sw, sw),
+                                          dtype=np.uint8)).to(dev)
+        max_err = max(max_err, _check(
+            "sse_map_search", f"random B={b} n={n} r={r} uint8",
+            K.sse_map_search(s, w, n, r), K.sse_map_search_ref(s, w, n, r)))
+    err, part = hier_kernel_checks(dev)
+    parts.insert(0, part)
     return _entry("sse_map_search", "tpu_vp9_torch/csrc/sse_search.cu",
-                  "tpu_vp9/pipeline/tpu_encdec.py:406", max_err, parts)
+                  "tpu_vp9/pipeline/tpu_encdec.py:406", max(max_err, err),
+                  parts)
 
 
 def _residual_blocks(dev, frame, prev_recon, n):
@@ -399,11 +663,11 @@ def txq_kernel_phase(dev, frames, recons):
         # operations per coefficient for the quantizer and the sums
         bound = _bound(4 * (b * n * n + n * n + 2 * b),
                        b * (4 * n ** 3 + 10 * n * n), ALU_OPS_PER_S)
-        ms, plain_ms = _timed(
+        parts.append(_timed(
             "txq_cost", f"B={b} n={n}",
             lambda: K.txq_cost(resid, dc_q, ac_q, n),
-            lambda: K.txq_cost_ref(resid, dc_q, ac_q, n), 20, bound)
-        parts.append((1, ms, plain_ms, bound))
+            lambda: K.txq_cost_ref(resid, dc_q, ac_q, n), 20, bound,
+            "txq_cost_kernel"))
     # an all-zero block costs nothing
     zero = K.txq_cost(torch.zeros((4, 32, 32), device=dev), dc_q, ac_q, 32)
     if float(zero[0].abs().max()) != 0.0 or float(zero[1].abs().max()) != 0.0:
@@ -510,7 +774,10 @@ def _kernel_fns():
 
     return {"sad_full_search": K.sad_full_search,
             "block_energy": K.block_energy,
-            "sse_map_search": K.sse_map_search, "txq_cost": K.txq_cost}
+            "block_energy_at": K.block_energy_at,
+            "sse_map_search": K.sse_map_search,
+            "hier_search_fused": K.hier_search_fused,
+            "txq_cost": K.txq_cost}
 
 
 def _reset_counts():
@@ -577,10 +844,7 @@ def realtime_end_to_end_phase(dev, frames, enc_mode):
     counts = _read_counts()
     print(f"{tag}: {len(pkts)} frames ({n_p} P) at {WIDTH}x{HEIGHT} "
           f"M{enc_mode} low-delay CQP qp {QP}: launches {counts}")
-    per_p = ({"sse_map_search": M8_SSE_LAUNCHES,
-              "block_energy": M8_ENERGY_LAUNCHES, "txq_cost": 2}
-             if enc_mode == 8 else
-             {"sse_map_search": 2, "block_energy": 2, "txq_cost": 0})
+    per_p = M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES
     want = {"sad_full_search": 0, **{k: v * n_p for k, v in per_p.items()}}
     if n_p == 0 or counts != want:
         raise AssertionError(f"launches {counts} != {want} for {n_p} "
@@ -678,7 +942,9 @@ def _profile(dev, run, label):
               f"{_short(e.key)}")
     for e in events:  # the hand kernels' own device time per launch
         if any(k in e.key for k in ("sad_search_kernel", "sse_search_kernel",
-                                    "block_energy_kernel")):
+                                    "hier_search_kernel",
+                                    "block_energy_kernel",
+                                    "block_energy_at_kernel")):
             print(f"  kernel {_short(e.key)}: "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms per "
                   f"launch (device) over {e.count} launches")
@@ -725,8 +991,8 @@ def m7_end_to_end_phase(dev, frames):
     n_p = sum(not p.is_keyframe for p in pkts)
     print(f"m7: {len(pkts)} frames ({n_p} P) at {WIDTH}x{HEIGHT} M7 "
           f"low-delay CQP qp {QP}: launches {counts}")
-    if n_p == 0 or counts != {"sad_full_search": n_p, "block_energy": 0,
-                              "sse_map_search": 0, "txq_cost": 0}:
+    if n_p == 0 or counts != {**dict.fromkeys(counts, 0),
+                              "sad_full_search": n_p}:
         raise AssertionError(f"launches {counts} != one sad_full_search for "
                              f"each of {n_p} P-frames")
     psnrs = _decode_check(pkts, recons, frames)
@@ -783,6 +1049,11 @@ def main() -> int:
     kernels = {k["name"]: k for k in (sad_kernel_phase(dev),
                                        energy_kernel_phase(dev),
                                        sse_kernel_phase(dev))}
+    if "--kernels" in sys.argv[1:]:
+        print(f"chip_smoke: the kernel phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--kernels: stopping "
+              "before the encodes)")
+        return 0
     frames = list(panning_frames(WIDTH, HEIGHT, M8_FRAMES, seed=1))
     m8_pkts, m8_recons, m8_counts = realtime_end_to_end_phase(dev, frames, 8)
     kernels["txq_cost"] = txq_kernel_phase(dev, frames, m8_recons)
@@ -790,7 +1061,8 @@ def main() -> int:
     # txq_cost: its count is this script's own calls, two for each P-frame,
     # made inside the counted window after the encode
     for name in ("block_energy", "sse_map_search", "txq_cost"):
-        kernels[name]["launches"] = m8_counts[name]
+        kernels[name]["launches"] = sum(m8_counts[w]
+                                        for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)
     same_bytes_phase("m8", frames, m8_pkts, 8)
     m9_list = frames[:M9_FRAMES]

@@ -11,6 +11,10 @@ the JAX package writes in jnp:
 
   tpu_vp9/pipeline/tpu_encdec.py       here
   _full_search_sse_mxu                 sse_map_search (csrc/sse_search.cu)
+  hier_search (both levels)            hier_search_fused (the same source)
+
+``block_energy_at`` is ``block_energy`` with the prediction read in place
+out of a plane at per-block starts, for several candidate sets at once.
 
 Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
@@ -32,9 +36,17 @@ SAD_BLOCK_SIZES = (8, 16, 32, 64)
 SAD_MAX_RANGE = 32
 ENERGY_BLOCK_SIZES = (8, 16, 32, 64)
 SSE_BLOCK_SIZES = (8, 16, 32)
-SSE_SMEM_BYTES = 48 * 1024  # the kernel keeps src and area in shared memory
+# dynamic shared memory one search level may use: the 48 KB a kernel has
+# without asking, less the kernel's static words (csrc/sse_search.cu)
+SSE_SMEM_BYTES = 48 * 1024 - 512
 TXQ_BLOCK_SIZES = (4, 8, 16, 32)
 TXQ_BIAS = 0.38  # the dead zone's rounding bias
+# the hierarchical search's reaches (pipeline/tpu_encdec.py has the same)
+WIN_R, HALF_R, REFINE_R = 40, 18, 4
+HIER_BLOCK_SIZES = (32,)  # the sizes hier_search_fused is built for
+# check block_energy_at's starts on the card as well (a device-to-host
+# sync per call; the CPU path always checks)
+CHECK_STARTS = False
 
 # (library, C function, number of pointer args, of float args, of int
 # args), in the C function's argument order; every launcher ends with the
@@ -42,7 +54,9 @@ TXQ_BIAS = 0.38  # the dead zone's rounding bias
 _LAUNCHERS = {
     "sad_full_search": ("sad_search", "sad_full_search_launch", 5, 0, 3),
     "block_energy": ("block_energy", "block_energy_launch", 4, 0, 2),
+    "block_energy_at": ("block_energy", "block_energy_at_launch", 6, 0, 4),
     "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 0, 5),
+    "hier_search_fused": ("sse_search", "hier_search_launch", 5, 0, 2),
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
 }
 _fns: dict = {}
@@ -50,23 +64,34 @@ _fns: dict = {}
 
 def _kernel(name: str):
     """The ctypes launcher of a kernel, building its library at first use."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib, sym, n_ptr, n_float, n_int = _LAUNCHERS[name]
-        fn = getattr(load_library(lib), sym)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float] * n_float
-                       + [ctypes.c_int] * n_int + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+    lib, sym, n_ptr, n_float, n_int = _LAUNCHERS[name]
+    fn = getattr(load_library(lib), sym)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float] * n_float
+                   + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _fns[name] = fn
     return fn
+
+
+# the current stream's handle without building a Stream object, where
+# this torch has the call (a few microseconds a launch)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _launch(name: str, device, *args) -> None:
     """Launch a kernel on the current stream of ``device``; raise if the
-    launch was refused."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(*args, stream)
+    launch was refused. The launcher is resolved once; the device is
+    switched to only where it is not the current one."""
+    fn = _fns.get(name) or _kernel(name)
+    idx = device.index
+    if idx is None or idx == torch.cuda.current_device():
+        if _raw_stream is not None and idx is not None:
+            err = fn(*args, _raw_stream(idx))
+        else:
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
@@ -74,14 +99,26 @@ def _launch(name: str, device, *args) -> None:
 def _device_kind(name: str, *tensors) -> str:
     """'cpu' or 'cuda' for tensors that share one device; raise otherwise."""
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: inputs on different devices "
-                         f"{[str(t.device) for t in tensors]}")
-    if dev.type not in ("cpu", "cuda"):
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on different devices "
+                             f"{[str(t.device) for t in tensors]}")
+    if dev.type == "cpu":
+        return "cpu"
+    if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    return dev.type
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return "cuda"
+
+
+def _want_blocks(what: str, t, b: int, h: int, w: int) -> None:
+    """Raise unless ``t`` ("kernel: argument" in ``what``) has shape
+    (b, h, w)."""
+    if t.dim() != 3 or t.shape[0] != b or t.shape[1] != h or t.shape[2] != w:
+        raise ValueError(f"{what} shape {tuple(t.shape)}, want "
+                         f"({b}, {h}, {w})")
 
 
 def _check_sad_args(src_blocks, regions, n: int, r: int) -> None:
@@ -92,12 +129,8 @@ def _check_sad_args(src_blocks, regions, n: int, r: int) -> None:
                          f"{SAD_MAX_RANGE}]")
     win = n + 2 * r
     b = src_blocks.shape[0]
-    if tuple(src_blocks.shape) != (b, n, n):
-        raise ValueError(f"sad_full_search: src_blocks shape "
-                         f"{tuple(src_blocks.shape)}, want ({b}, {n}, {n})")
-    if tuple(regions.shape) != (b, win, win):
-        raise ValueError(f"sad_full_search: regions shape "
-                         f"{tuple(regions.shape)}, want ({b}, {win}, {win})")
+    _want_blocks("sad_full_search: src_blocks", src_blocks, b, n, n)
+    _want_blocks("sad_full_search: regions", regions, b, win, win)
     if src_blocks.dtype != torch.uint8 or regions.dtype != torch.uint8:
         raise TypeError("sad_full_search: inputs must be uint8, got "
                         f"{src_blocks.dtype} and {regions.dtype}")
@@ -158,13 +191,11 @@ def _check_energy_args(src_blocks, pred_blocks, n: int) -> None:
     if n not in ENERGY_BLOCK_SIZES:
         raise ValueError(f"block_energy: n={n} not in {ENERGY_BLOCK_SIZES}")
     b = src_blocks.shape[0]
-    for t in (src_blocks, pred_blocks):
-        if tuple(t.shape) != (b, n, n):
-            raise ValueError(f"block_energy: input shape {tuple(t.shape)}, "
-                             f"want ({b}, {n}, {n})")
-        if t.dtype != torch.uint8:
-            raise TypeError(f"block_energy: inputs must be uint8, got "
-                            f"{t.dtype}")
+    _want_blocks("block_energy: src_blocks", src_blocks, b, n, n)
+    _want_blocks("block_energy: pred_blocks", pred_blocks, b, n, n)
+    if src_blocks.dtype != torch.uint8 or pred_blocks.dtype != torch.uint8:
+        raise TypeError(f"block_energy: inputs must be uint8, got "
+                        f"{src_blocks.dtype} and {pred_blocks.dtype}")
 
 
 def block_energy_ref(src_blocks, pred_blocks, n: int):
@@ -186,38 +217,133 @@ def block_energy(src_blocks, pred_blocks, n: int):
     _check_energy_args(src_blocks, pred_blocks, n)
     if _device_kind("block_energy", src_blocks, pred_blocks) == "cpu":
         return block_energy_ref(src_blocks, pred_blocks, n)
-    if src_blocks.data_ptr() % 16 or pred_blocks.data_ptr() % 16:
+    src_ptr, pred_ptr = src_blocks.data_ptr(), pred_blocks.data_ptr()
+    if src_ptr % 16 or pred_ptr % 16:
         raise ValueError("block_energy: inputs must start on a 16-byte "
                          "boundary")
     b = src_blocks.shape[0]
     out = torch.empty((2, b), dtype=torch.int32, device=src_blocks.device)
-    if b == 0:
-        return out[0], out[1]
-    _launch("block_energy", src_blocks.device, src_blocks.data_ptr(),
-            pred_blocks.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), b,
-            n)
-    block_energy.launches += 1
-    return out[0], out[1]
+    if b > 0:
+        out_ptr = out.data_ptr()
+        _launch("block_energy", src_blocks.device, src_ptr, pred_ptr,
+                out_ptr, out_ptr + 4 * b, b, n)
+        block_energy.launches += 1
+    return out.unbind(0)
 
 
 block_energy.launches = 0
 
 
+def _check_energy_at_args(src_blocks, plane, y0, x0, n: int) -> None:
+    if n not in ENERGY_BLOCK_SIZES:
+        raise ValueError(f"block_energy_at: n={n} not in "
+                         f"{ENERGY_BLOCK_SIZES}")
+    b = src_blocks.shape[0]
+    _want_blocks("block_energy_at: src_blocks", src_blocks, b, n, n)
+    if plane.dim() != 2 or plane.shape[0] < n or plane.shape[1] < n:
+        raise ValueError(f"block_energy_at: plane shape "
+                         f"{tuple(plane.shape)}, want two dimensions of at "
+                         f"least {n}")
+    if src_blocks.dtype != torch.uint8 or plane.dtype != torch.uint8:
+        raise TypeError(f"block_energy_at: src_blocks and plane must be "
+                        f"uint8, got {src_blocks.dtype} and {plane.dtype}")
+    if (y0.dim() != 2 or y0.shape[1] != b or y0.shape[0] < 1
+            or x0.shape != y0.shape):
+        raise ValueError(f"block_energy_at: starts of shape "
+                         f"{tuple(y0.shape)} and {tuple(x0.shape)}, want "
+                         f"(C, {b}) with C >= 1")
+    if y0.dtype != torch.int32 or x0.dtype != torch.int32:
+        raise TypeError(f"block_energy_at: starts must be int32, got "
+                        f"{y0.dtype} and {x0.dtype}")
+
+
+def _check_starts(plane, y0, x0, n: int) -> None:
+    """Raise unless every start keeps its n x n block inside the plane."""
+    if y0.numel() == 0:
+        return
+    hh, ww = plane.shape
+    if (int(y0.min()) < 0 or int(y0.max()) > hh - n or int(x0.min()) < 0
+            or int(x0.max()) > ww - n):
+        raise ValueError(f"block_energy_at: a {n}x{n} block leaves the "
+                         f"{hh}x{ww} plane")
+
+
+def block_energy_at_ref(src_blocks, plane, y0, x0, n: int):
+    """Plain PyTorch ``block_energy_at``: gather each candidate set's
+    blocks out of the plane, then ``block_energy_ref``. Returns (sse, sad)
+    int32 of shape (C, B)."""
+    ar = torch.arange(n, device=plane.device)
+    sses, sads = [], []
+    for ys, xs in zip(y0, x0):
+        rows = (ys.long()[:, None] + ar)[:, :, None]
+        cols = (xs.long()[:, None] + ar)[:, None, :]
+        sse, sad = block_energy_ref(src_blocks, plane[rows, cols], n)
+        sses.append(sse)
+        sads.append(sad)
+    return torch.stack(sses), torch.stack(sads)
+
+
+def block_energy_at(src_blocks, plane, y0, x0, n: int):
+    """(SSE, SAD) of src against predictions read in place out of a plane.
+
+    src_blocks: (B, n, n) uint8, n in {8, 16, 32, 64}; plane: (H, W) uint8
+    with unit column stride (any row pitch); y0, x0: (C, B) int32 starts:
+    candidate set c predicts block b by
+    ``plane[y0[c, b]:y0[c, b] + n, x0[c, b]:x0[c, b] + n]``. Starts are
+    taken as given and must keep the block inside the plane: CPU inputs
+    are checked, CUDA inputs only when ``CHECK_STARTS`` is set (the check
+    waits for the device). Returns (sse, sad) int32 of shape (C, B). CUDA
+    inputs run the positioned kernel of ``csrc/block_energy.cu``; CPU
+    inputs run ``block_energy_at_ref``.
+    """
+    _check_energy_at_args(src_blocks, plane, y0, x0, n)
+    if _device_kind("block_energy_at", src_blocks, y0, x0) == "cpu":
+        if plane.device.type != "cpu":
+            raise ValueError("block_energy_at: inputs on different devices")
+        _check_starts(plane, y0, x0, n)
+        return block_energy_at_ref(src_blocks, plane, y0, x0, n)
+    dev = src_blocks.device
+    if plane.device != dev:
+        raise ValueError("block_energy_at: inputs on different devices")
+    src_ptr, plane_ptr = src_blocks.data_ptr(), plane.data_ptr()
+    if plane.stride(1) != 1 or src_ptr % 16 or plane_ptr % 4:
+        raise ValueError("block_energy_at: src_blocks must start on a "
+                         "16-byte boundary, the plane on a 4-byte one with "
+                         "unit column stride")
+    if CHECK_STARTS:
+        _check_starts(plane, y0, x0, n)
+    c, b = y0.shape
+    out = torch.empty((2, c, b), dtype=torch.int32, device=dev)
+    if b > 0:
+        out_ptr = out.data_ptr()
+        _launch("block_energy_at", dev, src_ptr, plane_ptr, y0.data_ptr(),
+                x0.data_ptr(), out_ptr, out_ptr + 4 * c * b, b, c, n,
+                plane.stride(0))
+        block_energy_at.launches += 1
+    return out.unbind(0)
+
+
+block_energy_at.launches = 0
+
+
+def sse_level_smem(n: int, r: int) -> int:
+    """Bytes of dynamic shared memory one search level takes in
+    ``csrc/sse_search.cu``: the source and the area (odd pitch, 16 words
+    of pad) as float32, the row sums and the map as int32."""
+    w, d = n + 2 * r, 2 * r + 1
+    return 4 * (n * n + w * (w + 1) + 16 + w * d + d * d)
+
+
 def _check_sse_args(src_blocks, wins, n: int, r: int) -> None:
     if n not in SSE_BLOCK_SIZES:
         raise ValueError(f"sse_map_search: n={n} not in {SSE_BLOCK_SIZES}")
-    area = n + 2 * r
-    if r < 1 or 4 * (n * n + area * area) > SSE_SMEM_BYTES:
+    if r < 1 or sse_level_smem(n, r) > SSE_SMEM_BYTES:
         raise ValueError(f"sse_map_search: r={r} at n={n} outside the "
-                         f"kernel's {SSE_SMEM_BYTES}-byte shared memory")
+                         f"kernel's {SSE_SMEM_BYTES} bytes of shared memory")
     b = src_blocks.shape[0]
-    sw = area + 8
-    if tuple(src_blocks.shape) != (b, n, n):
-        raise ValueError(f"sse_map_search: src_blocks shape "
-                         f"{tuple(src_blocks.shape)}, want ({b}, {n}, {n})")
-    if tuple(wins.shape) != (b, sw, sw):
-        raise ValueError(f"sse_map_search: wins shape {tuple(wins.shape)}, "
-                         f"want ({b}, {sw}, {sw})")
+    sw = n + 2 * r + 8
+    _want_blocks("sse_map_search: src_blocks", src_blocks, b, n, n)
+    _want_blocks("sse_map_search: wins", wins, b, sw, sw)
     if src_blocks.dtype != wins.dtype or wins.dtype not in (torch.uint8,
                                                             torch.int16):
         raise TypeError("sse_map_search: inputs must both be uint8 or both "
@@ -273,17 +399,112 @@ def sse_map_search(src_blocks, wins, n: int, r: int, want_map: bool = True):
     out = torch.empty((2, b), dtype=torch.int32, device=dev)
     rel = (torch.empty((b, d, d), dtype=torch.int32, device=dev)
            if want_map else None)
-    if b == 0:
-        return out[0], out[1], rel
-    _launch("sse_map_search", dev, src_blocks.data_ptr(), wins.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(),
-            rel.data_ptr() if want_map else None, b, n, r, n + 2 * r + 8,
-            src_blocks.element_size())
-    sse_map_search.launches += 1
-    return out[0], out[1], rel
+    if b > 0:
+        out_ptr = out.data_ptr()
+        _launch("sse_map_search", dev, src_blocks.data_ptr(),
+                wins.data_ptr(), out_ptr, out_ptr + 4 * b,
+                rel.data_ptr() if want_map else None, b, n, r,
+                n + 2 * r + 8, src_blocks.element_size())
+        sse_map_search.launches += 1
+    dy, dx = out.unbind(0)
+    return dy, dx, rel
 
 
 sse_map_search.launches = 0
+
+
+def take_windows(wins, ys, xs, m: int):
+    """out[b] = wins[b, ys[b]:ys[b]+m, xs[b]:xs[b]+m]; the starts must lie
+    in [0, SW - m]."""
+    b = wins.shape[0]
+    ar = torch.arange(m, device=wins.device)
+    rows = ys.long()[:, None] + ar
+    cols = xs.long()[:, None] + ar
+    bi = torch.arange(b, device=wins.device)[:, None, None]
+    return wins[bi, rows[:, :, None], cols[:, None, :]]
+
+
+def _check_hier_args(src_blocks, wins, n: int) -> None:
+    if n % 2 or n < 2:
+        raise ValueError(f"hier_search: n={n} must be even")
+    b = src_blocks.shape[0]
+    sw = n + 2 * WIN_R + 8
+    _want_blocks("hier_search: src_blocks", src_blocks, b, n, n)
+    _want_blocks("hier_search: wins", wins, b, sw, sw)
+    if src_blocks.dtype != torch.uint8 or wins.dtype != torch.uint8:
+        raise TypeError("hier_search: inputs must be uint8, got "
+                        f"{src_blocks.dtype} and {wins.dtype}")
+
+
+def hier_search_ref(src_blocks, wins, n: int):
+    """Plain PyTorch two-level full-pel search: the 2x2 decimation,
+    ``sse_map_search_ref`` at +-HALF_R, the clamped and doubled centre,
+    the gathered refine windows and ``sse_map_search_ref`` at +-REFINE_R.
+    Same contract as ``hier_search_fused``."""
+    b = src_blocks.shape[0]
+    nh = n // 2
+    sw = wins.shape[-1]
+    wh = wins.to(torch.int32).reshape(b, sw // 2, 2, sw // 2, 2) \
+        .sum(dim=(2, 4), dtype=torch.int32).to(torch.int16)
+    sh = src_blocks.to(torch.int32).reshape(b, nh, 2, nh, 2) \
+        .sum(dim=(2, 4), dtype=torch.int32)
+    dyh, dxh, ssem_h = sse_map_search_ref(sh.to(torch.int16), wh, nh, HALF_R)
+    src2_h = (sh * sh).sum(dim=(1, 2), dtype=torch.int32)
+    reach = WIN_R - REFINE_R
+    c_y = (dyh * 2).clamp(-reach, reach)
+    c_x = (dxh * 2).clamp(-reach, reach)
+    loc = take_windows(wins, c_y + reach, c_x + reach, n + 2 * REFINE_R + 8)
+    dyr, dxr, _ = sse_map_search_ref(src_blocks, loc, n, REFINE_R,
+                                     want_map=False)
+    return c_y, c_x, dyr, dxr, loc, ssem_h, src2_h
+
+
+def hier_search_fused(src_blocks, wins, n: int):
+    """Two-level full-pel search of B blocks in one launch: exhaustive
+    +-HALF_R on 2x2 sums, then exhaustive +-REFINE_R at full resolution
+    around the doubled winner.
+
+    src_blocks: (B, n, n) uint8; wins: (B, n+2*WIN_R+8, ...) uint8 search
+    windows whose origin is the block minus (WIN_R + 4). Returns
+    (c_y, c_x, dyr, dxr, loc, ssem_h, src2_h):
+      c_y/c_x  int32 (B,) refine centre: twice the half-res winner,
+               clamped to +-(WIN_R - REFINE_R) so that the refine window
+               stays inside the search window
+      dyr/dxr  int32 (B,) refine winner relative to the centre
+      loc      (B, n+2*REFINE_R+8, ...) uint8 refine windows whose origin
+               is block + centre - (REFINE_R + 4)
+      ssem_h   (B, 2*HALF_R+1, ...) int32 half-res relative-SSE map
+      src2_h   (B,) int32 half-res sum(src_h^2)
+    Both winners are first minima in dy-major order. CUDA inputs (n = 32)
+    run the fused kernel of ``csrc/sse_search.cu``; CPU inputs run
+    ``hier_search_ref``.
+    """
+    _check_hier_args(src_blocks, wins, n)
+    if _device_kind("hier_search_fused", src_blocks, wins) == "cpu":
+        return hier_search_ref(src_blocks, wins, n)
+    if n not in HIER_BLOCK_SIZES:
+        raise ValueError(f"hier_search_fused: n={n} not in "
+                         f"{HIER_BLOCK_SIZES} on a CUDA device")
+    src_ptr, wins_ptr = src_blocks.data_ptr(), wins.data_ptr()
+    if src_ptr % 16 or wins_ptr % 16:
+        raise ValueError("hier_search_fused: inputs must start on a "
+                         "16-byte boundary")
+    b = src_blocks.shape[0]
+    dev = src_blocks.device
+    dh = 2 * HALF_R + 1
+    ln = n + 2 * REFINE_R + 8
+    out = torch.empty((5, b), dtype=torch.int32, device=dev)
+    loc = torch.empty((b, ln, ln), dtype=torch.uint8, device=dev)
+    ssem_h = torch.empty((b, dh, dh), dtype=torch.int32, device=dev)
+    if b > 0:
+        _launch("hier_search_fused", dev, src_ptr, wins_ptr, out.data_ptr(),
+                loc.data_ptr(), ssem_h.data_ptr(), b, n)
+        hier_search_fused.launches += 1
+    c_y, c_x, dyr, dxr, src2_h = out.unbind(0)
+    return c_y, c_x, dyr, dxr, loc, ssem_h, src2_h
+
+
+hier_search_fused.launches = 0
 
 
 def dct_matrix(n: int) -> np.ndarray:

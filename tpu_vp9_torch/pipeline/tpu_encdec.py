@@ -24,9 +24,12 @@ levels, eobs, MVs (and the recon when asked) and serializes them with the
 native serializer.
 
 Every stage computes what the JAX package's stage computes, as plain
-functions on tensors of the caller's device, with two CUDA kernels: the
-full-pel search (``sse_map_search``) and the distortion
-(``block_energy``), both in ``ops/cuda_kernels.py``. Formulations that
+functions on tensors of the caller's device, with two CUDA kernels in
+``ops/cuda_kernels.py``: the full-pel search (``hier_search_fused`` for
+both levels of the 32 zone in one launch, ``sse_map_search`` for the
+children) and the distortion (``block_energy`` on blocks,
+``block_energy_at`` on candidates read in place out of a reference
+plane). Formulations that
 exist only to suit the TPU are not carried over: one-hot matmul gathers
 (``_oh_take_rows/_cols``) are plain indexing, float32 stand-ins for
 integer arithmetic are int32, and the scan-prefix level transfer is not
@@ -41,6 +44,7 @@ of mi_rows % 4 == 2 is not ported yet; ``make_geom`` still describes it).
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,13 +55,13 @@ from tpu_vp9_torch.bitstream import tables as T
 from tpu_vp9_torch.utils.trace import span
 
 from tpu_vp9_torch.ops import txfm
-from tpu_vp9_torch.ops.cuda_kernels import block_energy, sse_map_search
+from tpu_vp9_torch.ops.cuda_kernels import (
+    HALF_R, REFINE_R, WIN_R, block_energy, block_energy_at,
+    hier_search_fused, sse_map_search, take_windows as _take_windows,
+)
 
 BORDER = 96  # matches tpu_vp9/ops/inter.py (host refs interop)
-WIN_R = 40  # full-pel reach of the static search windows
 CHROMA_WIN_R = 21  # chroma MC window reach: 40.75/2 pel rounded up
-HALF_R = 18  # half-res exhaustive reach (2*18 + 4 refine = +-40 full)
-REFINE_R = 4  # full-res refinement reach around the upscaled winner
 CHILD_R = 8  # 16-block refinement radius around the 32-parent's winner
 # extra syntax cost (in rate_b units) a 32->16 split pays: partition
 # symbol + 3 extra mode/skip/mv sets
@@ -228,25 +232,24 @@ def _extract_search_windows(ref_padded, n: int, rows: int, cols: int,
     return wins.reshape(rows * cols, sw, sw)
 
 
-def _take_windows(wins, ys, xs, m: int):
-    """out[b] = wins[b, ys[b]:ys[b]+m, xs[b]:xs[b]+m]; the starts must lie
-    in [0, SW - m] (every caller's do, by construction or by a clamp)."""
-    b = wins.shape[0]
-    ar = torch.arange(m, device=wins.device)
-    rows = ys.long()[:, None] + ar
-    cols = xs.long()[:, None] + ar
-    bi = torch.arange(b, device=wins.device)[:, None, None]
-    return wins[bi, rows[:, :, None], cols[:, None, :]]
+@functools.lru_cache(maxsize=None)
+def _grid_starts(rows: int, cols: int, n: int, device):
+    """(y0, x0) int32 (1, rows*cols): where the blocks of the n-grid at
+    the plane's origin start in a border-extended plane, raster order."""
+    ys = torch.arange(rows, dtype=torch.int32, device=device) * n + BORDER
+    xs = torch.arange(cols, dtype=torch.int32, device=device) * n + BORDER
+    return (ys[:, None].expand(rows, cols).reshape(1, -1).contiguous(),
+            xs[None, :].expand(rows, cols).reshape(1, -1).contiguous())
 
 
 def _zero_sse(ref_padded, src_blocks, rows: int, cols: int, n: int):
     """SSE of the ZERO-MV candidate of the n-grid at the plane's origin.
 
     Zero MV is never moved by the UMV clamp and its subpel phase is the
-    identity tap, so the prediction is the co-located reference block."""
-    core = ref_padded[BORDER:, BORDER:]
-    blocks = _extract_blocks(core, 0, rows, cols, n)
-    return block_energy(src_blocks, blocks, n)[0]
+    identity tap, so the prediction is the co-located reference block,
+    read in place."""
+    y0, x0 = _grid_starts(rows, cols, n, ref_padded.device)
+    return block_energy_at(src_blocks, ref_padded, y0, x0, n)[0][0]
 
 
 def _block_sq_sum(src_blocks):
@@ -255,27 +258,32 @@ def _block_sq_sum(src_blocks):
     return (s * s).sum(dim=(1, 2), dtype=torch.int32)
 
 
-def _fullpel_sse(ref_padded, src_blocks, pos_y, pos_x, mv_r_q3, mv_c_q3,
-                 n: int):
-    """SSE at the rounded full-pel position (no interpolation): the score
-    of a candidate that has no search-map entry (GOLDEN's previous MV).
+def _fullpel_starts(plane_shape, pos_y, pos_x, mv_r_q3, mv_c_q3, n: int):
+    """(y0, x0) int32 (B,): where the n x n block at the rounded full-pel
+    position of a q3 MV starts in a border-extended plane.
 
     The MV gets no UMV clamp here, as in the JAX package, which relies
     on ``lax.dynamic_slice``: a negative start wraps once (the dimension
     is added to it, as in Python indexing) and the result is clamped so
     that the slice stays inside the plane. The same is done to the starts
-    here, since torch indexing would raise or wrap."""
-    hh, ww = ref_padded.shape
+    here, since neither torch indexing nor the kernel would."""
+    hh, ww = plane_shape
 
     def start(idx, size):
         return torch.where(idx < 0, idx + size, idx).clamp(0, size - n)
 
-    y0 = start(BORDER + pos_y + ((mv_r_q3 + 4) >> 3), hh)
-    x0 = start(BORDER + pos_x + ((mv_c_q3 + 4) >> 3), ww)
-    ar = torch.arange(n, device=ref_padded.device)
-    rows = (y0.long()[:, None] + ar)[:, :, None]
-    cols = (x0.long()[:, None] + ar)[:, None, :]
-    return block_energy(src_blocks, ref_padded[rows, cols], n)[0]
+    return (start(BORDER + pos_y + ((mv_r_q3 + 4) >> 3), hh),
+            start(BORDER + pos_x + ((mv_c_q3 + 4) >> 3), ww))
+
+
+def _fullpel_sse(ref_padded, src_blocks, pos_y, pos_x, mv_r_q3, mv_c_q3,
+                 n: int):
+    """SSE at the rounded full-pel position (no interpolation): the score
+    of a candidate that has no search-map entry (GOLDEN's previous MV)."""
+    y0, x0 = _fullpel_starts(ref_padded.shape, pos_y, pos_x, mv_r_q3,
+                             mv_c_q3, n)
+    return block_energy_at(src_blocks, ref_padded, y0[None], x0[None],
+                           n)[0][0]
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +294,9 @@ def _fullpel_sse(ref_padded, src_blocks, pos_y, pos_x, mv_r_q3, mv_c_q3,
 def hier_search(src_blocks, wins, n: int):
     """Two-level full-pel search: exhaustive +-HALF_R at 2x decimation
     (2x2 sums), then exhaustive +-REFINE_R at full resolution around the
-    upscaled winner; both levels run ``sse_map_search``.
+    upscaled winner. On a card both levels, the decimation, the centre
+    and the refine windows are one launch of ``hier_search_fused``; on
+    the CPU its plain version composes them from ``sse_map_search_ref``.
 
     Returns (c_y, c_x, dyr, dxr, loc, ssem_h, src2_h):
       c_y/c_x  int32 refine centre (upscaled half-res winner, clipped so
@@ -297,23 +307,7 @@ def hier_search(src_blocks, wins, n: int):
       ssem_h   (B, 2*HALF_R+1, ...) int32 half-res relative-SSE map
       src2_h   (B,) int32 half-res sum(src_h^2)
     """
-    b = src_blocks.shape[0]
-    nh = n // 2
-    sw = wins.shape[-1]
-    wh = wins.to(torch.int32).reshape(b, sw // 2, 2, sw // 2, 2) \
-        .sum(dim=(2, 4), dtype=torch.int32).to(torch.int16)
-    sh = src_blocks.to(torch.int32).reshape(b, nh, 2, nh, 2) \
-        .sum(dim=(2, 4), dtype=torch.int32)
-    dyh, dxh, ssem_h = sse_map_search(sh.to(torch.int16), wh, nh, HALF_R)
-    src2_h = (sh * sh).sum(dim=(1, 2), dtype=torch.int32)
-    reach = WIN_R - REFINE_R
-    c_y = (dyh * 2).clamp(-reach, reach)
-    c_x = (dxh * 2).clamp(-reach, reach)
-    loc = _take_windows(wins, c_y + reach, c_x + reach,
-                        n + 2 * REFINE_R + 8)
-    dyr, dxr, _ = sse_map_search(src_blocks, loc, n, REFINE_R,
-                                 want_map=False)
-    return c_y, c_x, dyr, dxr, loc, ssem_h, src2_h
+    return hier_search_fused(src_blocks, wins, n)
 
 
 def _conv8(x, taps, axis: int, m: int):
@@ -606,10 +600,11 @@ def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
     zero = torch.zeros_like(prev_mv[:, 0])
     cand_r = torch.stack([zero, prev_mv[:, 0]])
     cand_c = torch.stack([zero, prev_mv[:, 1]])
-    sses = torch.stack([
-        _zero_sse(gold_y, src_blocks, rows, cols, n),
-        _fullpel_sse(gold_y, src_blocks, pos_y, pos_x, prev_mv[:, 0],
-                     prev_mv[:, 1], n)])
+    zy, zx = _grid_starts(rows, cols, n, gold_y.device)
+    py, px = _fullpel_starts(gold_y.shape, pos_y, pos_x, prev_mv[:, 0],
+                             prev_mv[:, 1], n)
+    sses = block_energy_at(src_blocks, gold_y, torch.cat([zy, py[None]]),
+                           torch.cat([zx, px[None]]), n)[0]  # both: (2, B)
     if rates is not None:
         mc = rates["mode_cost"]
         g_rate = torch.tensor([[mc[2]], [mc[0]]], dtype=torch.int32,
@@ -1197,10 +1192,11 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
                                                   CHILD_R)
         mv_new_r = base_y * 8 + sub_r
         mv_new_c = base_x * 8 + sub_c
-        # exact ZERO SSE: the co-located reference block
-        cref = _extract_blocks(ref_y[BORDER:, BORDER:], 0, rows32 * 2,
-                               cols16, 16)[cidx]
-        sse_zero = block_energy(csrc, cref, 16)[0]
+        # exact ZERO SSE: the co-located reference block, read in place
+        sse_zero = block_energy_at(
+            csrc, ref_y,
+            (c_row * 16 + BORDER).reshape(1, -1).to(torch.int32),
+            (c_col * 16 + BORDER).reshape(1, -1).to(torch.int32), 16)[0][0]
         # PARENT candidate: the parent's final MV at its child-map entry
         par_r = parent_mv[sel, 0].repeat_interleave(4)
         par_c = parent_mv[sel, 1].repeat_interleave(4)
