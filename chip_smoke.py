@@ -6,17 +6,23 @@ Phases, each of which raises on failure (nothing is caught):
   1. the card, the software, and the build of every kernel (one nvcc per
      source, all started together) and of the native host library;
   2. kernels: sad_full_search, block_energy (on blocks and positioned,
-     block_energy_at) and sse_map_search (one level, and both levels
-     fused, hier_search_fused) against their plain PyTorch versions on
-     the card, bit for bit, at the shapes the 1080p paths give them (the
-     M8 children's included), ties, negative minima and the largest
-     operands included; each timed per call with CUDA events and on the
-     host clock, and per launch with the profiler;
+     block_energy_at), sse_map_search (one level, and both levels
+     fused, hier_search_fused) and loop_filter against their plain PyTorch
+     versions on the card, bit for bit, at the shapes the 1080p paths give
+     them (the M8 children's included), ties, negative minima and the
+     largest operands included; loop_filter on made-up planes that reach
+     every class of the edge filter (the lanes of each class counted by
+     the plain version and printed), without a split mask, with a random
+     one and with all ones, at three levels, at small geometries, and on
+     the unfiltered recon, mask and level of a real M8 P-frame; txq_cost
+     on made-up residuals within its tolerance; each timed per call with
+     CUDA events and on the host clock, and per launch with the profiler;
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (rate tables, the
      GOLDEN anchor, the 32-against-16 descent) through the public
      Vp9Encoder; per P-frame the search entry points must launch twice
-     (hier_search_fused, then sse_map_search for the children) and the
-     block_energy ones 5 times; some parents must split; the stream must
+     (hier_search_fused, then sse_map_search for the children), the
+     block_energy ones 5 times and loop_filter once; some parents must
+     split; the stream must
      decode with the port's decoder to the encoder's own recon across two
      GOLDEN refreshes; fps, step time and the host-clock stage split. Inside the
      same counted window txq_cost runs at its own entry point on every
@@ -25,7 +31,9 @@ Phases, each of which raises on failure (nothing is caught):
   4. txq_cost against its plain version on those residuals (B=2040 n=32,
      B=8160 n=16), within the stated tolerance, flipped blocks counted;
   5. M8 profile: three steady P-frames under torch.profiler, for the share
-     of their time the device is busy and the top device operations;
+     of their time the device is busy, the top device operations, and
+     each stage's device time (its PyTorch ops' from the profiler's
+     ranges, plus its hand kernels', which the ranges leave out);
   6. M8 same bytes: the first frames again with device="cpu" (the plain
      versions) must give identical packets;
   7. M9 (the uniform 32 grid): end to end on the first frames of the same
@@ -39,12 +47,14 @@ blocked from being imported: the port stands alone.
 
     python3 chip_smoke.py --kernels
 
-stops after phase 2 (a short first run of a changed kernel) and prints
+stops after phase 2 (a short first run of a changed kernel; one keyframe
+and one P-frame are encoded for loop_filter's real input) and prints
 neither JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import statistics
@@ -70,7 +80,8 @@ import torch  # noqa: E402
 
 WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
-LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost")
+LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
+        "loop_filter")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -81,18 +92,37 @@ M9_B = 34 * 60
 # search of the 32 zone and the children's search; the recon distortion of
 # the 32 zone and of the children (block_energy); the 32 zone's ZERO SSE,
 # GOLDEN's ZERO and previous-MV SSE in one launch, and the children's ZERO
-# SSE (block_energy_at): 2 search and 5 energy launches. M9: the fused
-# search, ZERO SSE and recon distortion.
+# SSE (block_energy_at): 2 search and 5 energy launches; the loop filter of
+# all three planes, split mask included, is one launch. M9: the fused
+# search, ZERO SSE, recon distortion and the loop filter (no mask).
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
-               "block_energy": 2, "block_energy_at": 3, "txq_cost": 2}
+               "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
+               "loop_filter": 1}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
-               "block_energy": 1, "block_energy_at": 1, "txq_cost": 0}
+               "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
+               "loop_filter": 1}
 # the wrappers that launch kernels of one source, by the kernel's name in
 # the JSON line
 ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "block_energy": ("block_energy", "block_energy_at"),
                   "sse_map_search": ("sse_map_search", "hier_search_fused"),
-                  "txq_cost": ("txq_cost",)}
+                  "txq_cost": ("txq_cost",),
+                  "loop_filter": ("loop_filter",)}
+# each wrapper's kernel, by a part of its name in a profile
+WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
+                   "block_energy": "block_energy_kernel",
+                   "block_energy_at": "block_energy_at_kernel",
+                   "sse_map_search": "sse_search_kernel",
+                   "hier_search_fused": "hier_search_kernel",
+                   "txq_cost": "txq_cost_kernel",
+                   "loop_filter": "loop_filter_kernel"}
+# loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
+# geometries of the CPU tests (the last no wider than 64: no band), and
+# integer operations per filtered edge lane (an upper estimate: 16 loads,
+# the masks, filter16's sums and stores)
+LF_LEVELS = (0, 9, 50)
+LF_SMALL_DIMS = ((128, 128), (192, 120), (160, 96), (96, 64), (64, 64))
+LF_OPS_PER_LANE = 100
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s
 # and operations/s by the type of the operands.
 # INT8: sums of products of 8-bit integers, which the tensor cores take
@@ -612,6 +642,77 @@ def _txq_exposed(resid, dc_q, ac_q, n):
     return ((v - v.round()).abs() < TXQ_BAND).flatten(1).any(dim=1)
 
 
+def _txq_compare(resid, dc_q, ac_q, n):
+    """txq_cost against txq_cost_ref on one batch: (blocks outside the
+    tolerance, blocks, largest error of the others). Raises if a block
+    with no coefficient near a rounding boundary is outside."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    got = K.txq_cost(resid, dc_q, ac_q, n)
+    want = K.txq_cost_ref(resid, dc_q, ac_q, n)
+    torch.cuda.synchronize()
+    exposed = _txq_exposed(resid, dc_q, ac_q, n)
+    bad = torch.zeros_like(exposed)
+    max_err = 0.0
+    for g, w in zip(got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("txq_cost: non-finite output")
+        err = (g.double() - w.double()).abs()
+        off = err > TXQ_ATOL + TXQ_RTOL * w.double().abs()
+        bad |= off
+        if bool((~off).any()):
+            max_err = max(max_err, float(err[~off].max()))
+    if bool((bad & ~exposed).any()):
+        raise AssertionError(
+            f"txq_cost n={n}: a block with no coefficient near a rounding "
+            "boundary is outside the tolerance")
+    return int(bad.sum()), bad.numel(), max_err
+
+
+def _txq_bound(b, n):
+    # reads the residuals and the matrix, writes two floats per block;
+    # two n^3 products (a multiply and an add each) and about ten
+    # operations per coefficient for the quantizer and the sums
+    return _bound(4 * (b * n * n + n * n + 2 * b),
+                  b * (4 * n ** 3 + 10 * n * n), ALU_OPS_PER_S)
+
+
+def _txq_report(label, n, q, flipped, total, max_err):
+    print(f"kernel txq_cost [{label} n={n} q=({q[0]}, {q[1]})]: {flipped} "
+          f"of {total} blocks outside the tolerance (each with a "
+          f"coefficient within {TXQ_BAND} of a rounding boundary); "
+          f"max_abs_err of the others {max_err:.6f}")
+    if flipped >= TXQ_MAX_FLIPPED * total:
+        raise AssertionError(f"txq_cost n={n}: {flipped} of {total} "
+                             "blocks flipped")
+
+
+def txq_synthetic_phase(dev):
+    """txq_cost (CUDA) against txq_cost_ref on made-up residuals (a smooth
+    field plus noise, as a prediction error looks) at every block size,
+    with batch sizes that leave the last unit of the kernel partly empty;
+    the two main shapes timed."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    rng = np.random.default_rng(17)
+    q = (43.0, 52.0)
+    for n, b in ((32, M9_B), (16, 4 * M9_B), (32, 1), (32, 7), (16, 33),
+                 (8, 1001), (4, 4099)):
+        coarse = torch.from_numpy(rng.normal(0, 12, (b, 1, 3, 3)))
+        field = torch.nn.functional.interpolate(
+            coarse, size=(n, n), mode="bilinear", align_corners=True)[:, 0]
+        resid = (field.numpy() + rng.normal(0, 4, (b, n, n))).round()
+        resid = torch.from_numpy(resid.astype(np.float32)).to(dev)
+        flipped, total, max_err = _txq_compare(resid, *q, n)
+        _txq_report(f"made-up residuals B={b}", n, q, flipped, total,
+                    max_err)
+        if b >= M9_B:
+            _timed("txq_cost", f"made-up B={b} n={n}",
+                   lambda: K.txq_cost(resid, *q, n),
+                   lambda: K.txq_cost_ref(resid, *q, n), 20,
+                   _txq_bound(b, n), "txq_cost_kernel")
+
+
 def txq_kernel_phase(dev, frames, recons):
     """txq_cost (CUDA) against txq_cost_ref on residuals of the M8
     encode's own frames, at B=2040 n=32 and B=8160 n=16, within the stated
@@ -630,50 +731,193 @@ def txq_kernel_phase(dev, frames, recons):
         flipped = total = 0
         for i in (1, len(frames) // 2, len(frames) - 1):
             resid = _residual_blocks(dev, frames[i], recons[i - 1], n)
-            got = K.txq_cost(resid, dc_q, ac_q, n)
-            want = K.txq_cost_ref(resid, dc_q, ac_q, n)
-            torch.cuda.synchronize()
-            exposed = _txq_exposed(resid, dc_q, ac_q, n)
-            bad = torch.zeros_like(exposed)
-            for g, w in zip(got, want):
-                if not bool(torch.isfinite(g).all()):
-                    raise AssertionError("txq_cost: non-finite output")
-                err = (g.double() - w.double()).abs()
-                off = err > TXQ_ATOL + TXQ_RTOL * w.double().abs()
-                bad |= off
-                if bool((~off).any()):
-                    max_err = max(max_err, float(err[~off].max()))
-            if bool((bad & ~exposed).any()):
-                raise AssertionError(
-                    f"txq_cost n={n} frame {i}: a block with no coefficient "
-                    "near a rounding boundary is outside the tolerance")
-            flipped += int(bad.sum())
-            total += bad.numel()
-        print(f"kernel txq_cost [frames' residuals B={resid.shape[0]} n={n} "
-              f"q=({dc_q}, {ac_q})]: {flipped} of {total} blocks outside "
-              f"the tolerance (each with a coefficient within {TXQ_BAND} of "
-              f"a rounding boundary); max_abs_err of the others "
-              f"{max_err:.6f}")
-        if flipped >= TXQ_MAX_FLIPPED * total:
-            raise AssertionError(f"txq_cost n={n}: {flipped} of {total} "
-                                 "blocks flipped")
+            f, t, err = _txq_compare(resid, dc_q, ac_q, n)
+            flipped, total, max_err = flipped + f, total + t, max(max_err,
+                                                                  err)
         b = resid.shape[0]
-        # reads the residuals and the matrix, writes two floats per block;
-        # two n^3 products (a multiply and an add each) and about ten
-        # operations per coefficient for the quantizer and the sums
-        bound = _bound(4 * (b * n * n + n * n + 2 * b),
-                       b * (4 * n ** 3 + 10 * n * n), ALU_OPS_PER_S)
+        _txq_report(f"frames' residuals B={b}", n, (dc_q, ac_q), flipped,
+                    total, max_err)
         parts.append(_timed(
             "txq_cost", f"B={b} n={n}",
             lambda: K.txq_cost(resid, dc_q, ac_q, n),
-            lambda: K.txq_cost_ref(resid, dc_q, ac_q, n), 20, bound,
-            "txq_cost_kernel"))
+            lambda: K.txq_cost_ref(resid, dc_q, ac_q, n), 20,
+            _txq_bound(b, n), "txq_cost_kernel"))
     # an all-zero block costs nothing
     zero = K.txq_cost(torch.zeros((4, 32, 32), device=dev), dc_q, ac_q, 32)
     if float(zero[0].abs().max()) != 0.0 or float(zero[1].abs().max()) != 0.0:
         raise AssertionError("txq_cost: a zero residual has a cost")
     return _entry("txq_cost", "tpu_vp9_torch/csrc/txq_cost.cu",
                   "tpu_vp9/ops/pallas_kernels.py:175", max_err, parts)
+
+
+def _lf_planes(geom, rng):
+    """Padded (y, u, v) planes that reach every class of the edge filter:
+    32x32 patches (16x16 in chroma), each of one kind. Blocky: 8x8 blocks
+    of any level with a little noise (masked-out lanes at the large steps,
+    filter4 with and without high edge variance at the small ones);
+    gentle: levels within 3 of each other and noise of 0 or 1 (flat and
+    flat2); extremes: 8x8 blocks at 0 or 255 and small steps right at
+    them (the filters' clamps)."""
+    def plane(h, w, patch):
+        ph, pw = h // patch + 1, w // patch + 1
+        kind = np.kron(rng.integers(0, 3, (ph, pw)),
+                       np.ones((patch, patch), np.int64))[:h, :w]
+        bh, bw = h // 8 + 1, w // 8 + 1
+
+        def blocks(levels):
+            return np.kron(levels, np.ones((8, 8)))[:h, :w]
+
+        blocky = blocks(rng.integers(0, 256, (bh, bw))) \
+            + rng.normal(0, 2, (h, w))
+        base = np.kron(rng.integers(60, 200, (ph, pw)),
+                       np.ones((patch // 8, patch // 8), np.int64))
+        gentle = blocks(base[:bh, :bw] + rng.integers(0, 4, (bh, bw))) \
+            + rng.integers(0, 2, (h, w))
+        ends = blocks(rng.choice([0, 2, 5, 250, 253, 255], (bh, bw))) \
+            + rng.integers(-1, 2, (h, w))
+        out = np.where(kind == 0, blocky, np.where(kind == 1, gentle, ends))
+        return np.ascontiguousarray(np.clip(np.rint(out), 0, 255), np.uint8)
+
+    g = geom
+    return [plane(g.pad_h, g.pad_w, 32), plane(g.pad_h // 2, g.pad_w // 2, 16),
+            plane(g.pad_h // 2, g.pad_w // 2, 16)]
+
+
+def _lf_case(label, planes, geom, lvl, lim, mblim, split):
+    """loop_filter (CUDA) against loop_filter_ref on one input: all three
+    planes bit for bit, the inputs unchanged. Returns (max_abs_err, the
+    plain version's lanes per filter class)."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    before = [p.clone() for p in planes]
+    mask_before = None if split is None else split.clone()
+    got = K.loop_filter(*planes, geom, lvl, lim, mblim, split)
+    P.LF_CLASS_COUNTS = {}
+    want = P.loop_filter_ref(*planes, geom, lvl, lim, mblim, split)
+    counts, P.LF_CLASS_COUNTS = P.LF_CLASS_COUNTS, None
+    shown = ", ".join(f"{k} {counts.get(k, 0)}" for k in P.LF_CLASSES)
+    err = _check("loop_filter", f"{label} lvl={lvl} lim={lim} mblim={mblim}; "
+                 f"lanes: {shown}", got, want)
+    for a, b in zip(planes, before):
+        if not torch.equal(a, b):
+            raise AssertionError("loop_filter changed its input planes")
+    if split is not None and not torch.equal(split, mask_before):
+        raise AssertionError("loop_filter changed its split mask")
+    if lvl == 0 and not all(torch.equal(a, b) for a, b in zip(got, planes)):
+        raise AssertionError("loop_filter: lvl 0 is not a copy")
+    return err, counts
+
+
+def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
+    """Device time of loop_filter with every kind of CTA at work and with
+    each kind alone (the others return at once): which columns of the
+    picture the kernel's time is."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    shown = []
+    for name, bits in (("all", K.LF_ALL_PARTS), *K.LF_PARTS.items()):
+        ms = _device_ms(lambda: K.loop_filter(*planes, geom, lvl, lim, mblim,
+                                              split, parts=bits),
+                        "loop_filter_kernel")
+        shown.append(f"{name} " + ("not measured" if ms is None
+                                   else f"{ms:.4f} ms"))
+    print(f"kernel loop_filter on {label}, device time per launch by kind "
+          f"of CTA alone: {', '.join(shown)}")
+
+
+def _real_m8_lf_input(dev):
+    """The arguments of the loop filter of a real M8 P-frame: a keyframe
+    and one P-frame of the clip through the public encoder, the step's
+    call of ``loop_filter_device`` recorded."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    calls = []
+    real = P.loop_filter_device
+
+    def record(y, u, v, geom, lvl, lim, mblim, split32=None):
+        calls.append((y, u, v, geom, lvl, lim, mblim, split32))
+        return real(y, u, v, geom, lvl, lim, mblim, split32=split32)
+
+    P.loop_filter_device = record
+    enc = _make_encoder(dev, 8)
+    for frame in panning_frames(WIDTH, HEIGHT, 2, seed=1):
+        enc.send_picture(frame)
+    enc.flush()
+    P.loop_filter_device = real
+    torch.cuda.synchronize()
+    if len(calls) != 1 or calls[0][7] is None:
+        raise AssertionError(f"the M8 P-frame called the loop filter "
+                             f"{len(calls)} times, or without a mask")
+    return calls[0]
+
+
+def loop_filter_kernel_phase(dev):
+    """loop_filter (CUDA) against loop_filter_ref on the card."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.ops.loopfilter import sharpness_limits
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    lim_t, mblim_t = sharpness_limits(0)
+    rng = np.random.default_rng(5)
+    max_err = 0
+    seen = dict.fromkeys(P.LF_CLASSES, 0)
+    for dims in ((WIDTH, HEIGHT),) + LF_SMALL_DIMS:
+        g = P.make_geom(*dims)
+        planes = [torch.from_numpy(p).to(dev) for p in _lf_planes(g, rng)]
+        masks = {"no mask": None,
+                 "random mask": torch.from_numpy(rng.integers(
+                     0, 2, (g.rows32, g.cols32)).astype(np.int32)).to(dev),
+                 "all-ones mask": torch.ones((g.rows32, g.cols32),
+                                             dtype=torch.int32, device=dev)}
+        for name, mask in masks.items():
+            for lvl in LF_LEVELS:
+                err, counts = _lf_case(
+                    f"made-up {dims[0]}x{dims[1]}, {name}", planes, g, lvl,
+                    int(lim_t[lvl]), int(mblim_t[lvl]), mask)
+                max_err = max(max_err, err)
+                if dims == (WIDTH, HEIGHT):
+                    for k in seen:
+                        seen[k] += counts.get(k, 0)
+        if dims == (WIDTH, HEIGHT):
+            made_up = (planes, g, masks["random mask"])
+    if not all(seen.values()):
+        raise AssertionError(f"the made-up 1080p planes reach no lane of a "
+                             f"filter class: {seen}")
+    # the real thing: an M8 P-frame's unfiltered recon, mask and level
+    y, u, v, g, lvl, lim, mblim, split = _real_m8_lf_input(dev)
+    print(f"loop_filter: a real M8 P-frame's input: lvl={lvl} lim={lim} "
+          f"mblim={mblim}, {int(split.sum())} of {split.numel()} blocks "
+          "split")
+    err, counts = _lf_case("real M8 P-frame", (y, u, v), g, lvl, lim, mblim,
+                           split)
+    max_err = max(max_err, err)
+    err, counts9 = _lf_case("real M8 P-frame's planes, no mask", (y, u, v),
+                            g, lvl, lim, mblim, None)
+    max_err = max(max_err, err)
+    parts = []
+    nbytes = 2 * sum(t.numel() for t in (y, u, v))
+    for label, mask, cnt, per_frame in (
+            ("1080p split mask (M8)", split, counts, 1),
+            ("1080p no mask (M9)", None, counts9, 0)):
+        lanes = sum(cnt.values())
+        # every plane read once and written once, and the mask; the
+        # arithmetic of this input's edge lanes
+        bound = _bound(nbytes + (0 if mask is None else 4 * mask.numel()),
+                       LF_OPS_PER_LANE * lanes, ALU_OPS_PER_S)
+        parts.append(_timed(
+            "loop_filter", f"{label}, {lanes} edge lanes",
+            lambda: K.loop_filter(y, u, v, g, lvl, lim, mblim, mask),
+            lambda: P.loop_filter_ref(y, u, v, g, lvl, lim, mblim, mask), 2,
+            bound, "loop_filter_kernel", per_frame))
+    _lf_kinds_alone("the real M8 P-frame", (y, u, v), g, lvl, lim, mblim,
+                    split)
+    _lf_kinds_alone("the made-up planes, random mask", made_up[0],
+                    made_up[1], LF_LEVELS[-1], int(lim_t[LF_LEVELS[-1]]),
+                    int(mblim_t[LF_LEVELS[-1]]), made_up[2])
+    return _entry("loop_filter", "tpu_vp9_torch/csrc/loop_filter.cu",
+                  "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
 
 def _psnr(a, b) -> float:
@@ -777,7 +1021,8 @@ def _kernel_fns():
             "block_energy_at": K.block_energy_at,
             "sse_map_search": K.sse_map_search,
             "hier_search_fused": K.hier_search_fused,
-            "txq_cost": K.txq_cost}
+            "txq_cost": K.txq_cost,
+            "loop_filter": K.loop_filter}
 
 
 def _reset_counts():
@@ -906,16 +1151,44 @@ def _short(key: str) -> str:
     return key[:90]
 
 
+@contextlib.contextmanager
+def _count_stage_launches(acc):
+    """While active, every stage of the P-frame step adds its wrappers'
+    launches to ``acc[stage][wrapper]``."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    real = P._stage
+
+    @contextlib.contextmanager
+    def counting(name):
+        before = _read_counts()
+        with real(name):
+            yield
+        mine = acc.setdefault(name, {})
+        for k, v in _read_counts().items():
+            if v != before[k]:
+                mine[k] = mine.get(k, 0) + v - before[k]
+
+    P._stage = counting
+    yield
+    P._stage = real
+
+
 def _profile(dev, run, label):
     """Device-side records (kernels, copies) of ``run`` under
     torch.profiler, against its host-clock time; and the device time of
-    each ``step_*`` stage range of the P-frame step."""
+    each ``step_*`` stage range of the P-frame step. A range's device time
+    is that of its PyTorch ops: kernels launched through ctypes are not
+    attributed to it, so each stage's hand kernels are added from the
+    launches its wrappers counted and the kernels' own records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    stage_launches = {}
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            _count_stage_launches(stage_launches):
         tf = time.perf_counter()
         run()
         torch.cuda.synchronize(dev)
@@ -940,22 +1213,35 @@ def _profile(dev, run, label):
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<6} "
               f"{_short(e.key)}")
-    for e in events:  # the hand kernels' own device time per launch
-        if any(k in e.key for k in ("sad_search_kernel", "sse_search_kernel",
-                                    "hier_search_kernel",
-                                    "block_energy_kernel",
-                                    "block_energy_at_kernel")):
-            print(f"  kernel {_short(e.key)}: "
-                  f"{e.self_device_time_total / 1e3 / e.count:.4f} ms per "
-                  f"launch (device) over {e.count} launches")
-    # the host-side stage ranges: their device time is their kernels'
+    per_launch = {}  # wrapper -> its kernel's mean device ms per launch
+    for wrapper, key in WRAPPER_KERNELS.items():
+        mine = [e for e in events if key in e.key]
+        if mine:
+            per_launch[wrapper] = (
+                sum(e.self_device_time_total for e in mine) / 1e3
+                / sum(e.count for e in mine))
+            print(f"  kernel {key} ({wrapper}): {per_launch[wrapper]:.4f} "
+                  f"ms per launch (device) over "
+                  f"{sum(e.count for e in mine)} launches")
+    # the host-side stage ranges: the device time of their PyTorch ops,
+    # and of their hand kernels (launches counted by the wrappers, times
+    # the kernel's mean device time in this profile)
     stages = sorted((e for e in averages if e.key.startswith("step_")
                      and e.device_type == DeviceType.CPU),
                     key=lambda e: -e.cpu_time_total)
     for e in stages:
+        hand = stage_launches.get(e.key, {})
+        if all(w in per_launch for w in hand):
+            hand_ms = sum(n * per_launch[w] for w, n in hand.items())
+            shown = (f"{hand_ms:.3f} ms in hand kernels {hand}, "
+                     f"{(e.device_time_total / 1e3 + hand_ms):.3f} ms "
+                     "together" if hand else "no hand kernel")
+        else:
+            shown = f"hand kernels {hand} not in the profile: not measured"
         print(f"  stage {e.key}: host {e.cpu_time_total / 1e3:.3f} ms, "
-              f"device {e.device_time_total / 1e3:.3f} ms over {e.count} "
-              "calls (host clock under the profiler)")
+              f"device {e.device_time_total / 1e3:.3f} ms in PyTorch ops + "
+              f"{shown}, over {e.count} calls (host clock under the "
+              "profiler)")
 
 
 def realtime_profile_phase(dev, frames, enc_mode):
@@ -1048,7 +1334,9 @@ def main() -> int:
 
     kernels = {k["name"]: k for k in (sad_kernel_phase(dev),
                                        energy_kernel_phase(dev),
-                                       sse_kernel_phase(dev))}
+                                       sse_kernel_phase(dev),
+                                       loop_filter_kernel_phase(dev))}
+    txq_synthetic_phase(dev)
     if "--kernels" in sys.argv[1:]:
         print(f"chip_smoke: the kernel phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--kernels: stopping "
@@ -1060,7 +1348,7 @@ def main() -> int:
     # the counts of the M8 run. No encode path of either package calls
     # txq_cost: its count is this script's own calls, two for each P-frame,
     # made inside the counted window after the encode
-    for name in ("block_energy", "sse_map_search", "txq_cost"):
+    for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter"):
         kernels[name]["launches"] = sum(m8_counts[w]
                                         for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)

@@ -81,6 +81,110 @@ def test_no_import_of_jax_or_the_jax_package(path):
         assert roots - stdlib <= {"numpy", "torch", "tpu_vp9_torch"}, roots
 
 
+# ---------------------------------------------------------------------------
+# no fallback: a CUDA tensor reaches a kernel or an exception, never a plain
+# version
+# ---------------------------------------------------------------------------
+
+KERNELS_PY = os.path.join(REPO, "tpu_vp9_torch", "ops", "cuda_kernels.py")
+ENCDEC_PY = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_encdec.py")
+WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
+            "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter")
+
+
+def _functions(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    return {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+def _called(node):
+    """Names of the functions a node's body calls (plain names and
+    attributes alike)."""
+    names = set()
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            f = sub.func
+            names.add(f.id if isinstance(f, ast.Name) else
+                      f.attr if isinstance(f, ast.Attribute) else "")
+    return names
+
+
+def _ref_calls_outside_cpu_branches(fn):
+    """Calls of a plain version (``*_ref``) in ``fn`` that do not sit in
+    the body of an ``if`` whose test mentions "cpu"."""
+    guarded = set()
+    for sub in ast.walk(fn):
+        if isinstance(sub, ast.If) and "cpu" in ast.unparse(sub.test):
+            for stmt in sub.body:
+                guarded.update(id(n) for n in ast.walk(stmt))
+    return [ast.unparse(n) for n in ast.walk(fn)
+            if isinstance(n, ast.Call) and id(n) not in guarded
+            and ast.unparse(n.func).endswith("_ref")]
+
+
+def test_wrappers_cover_every_kernel_source():
+    """Every CUDA source has a launcher entry, every launcher entry a
+    wrapper of its name with a launch count, and the scan below covers
+    them all, the loop filter's included."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    sources = {os.path.basename(p)[:-3] for p in glob.glob(
+        os.path.join(REPO, "tpu_vp9_torch", "csrc", "*.cu"))}
+    assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
+    assert "loop_filter" in sources and len(sources) == 5
+    assert set(K._LAUNCHERS) == set(WRAPPERS)
+    fns = _functions(KERNELS_PY)
+    for name in WRAPPERS:
+        assert name in fns
+        assert isinstance(getattr(K, name).launches, int)
+        assert "_launch" in _called(fns[name]), name
+
+
+def test_kernel_module_catches_nothing():
+    """No ``try`` anywhere in the wrappers' module, nor in the step's
+    module: a failed launch or a refused argument propagates."""
+    for path in (KERNELS_PY, ENCDEC_PY):
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        assert not [n.lineno for n in ast.walk(tree)
+                    if isinstance(n, ast.Try)], path
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_takes_the_plain_version_only_for_cpu_tensors(name):
+    fn = _functions(KERNELS_PY)[name]
+    assert not _ref_calls_outside_cpu_branches(fn)
+    if name == "loop_filter":
+        # its plain version lives with the step; the wrapper never calls it
+        assert not [c for c in _called(fn) if c.endswith("_ref")]
+        with open(KERNELS_PY) as fh:
+            assert "import loop_filter_ref" not in fh.read()
+
+
+def test_loop_filter_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    """In the step's module ``loop_filter_ref`` is called from
+    ``loop_filter_device`` alone, inside the branch taken when every tensor
+    lies on the CPU; everything else goes to the kernel's wrapper, and the
+    step calls the dispatch, not the plain version."""
+    fns = _functions(ENCDEC_PY)
+    callers = [n for n, f in fns.items() if "loop_filter_ref" in _called(f)]
+    assert callers == ["loop_filter_device"]
+    disp = fns["loop_filter_device"]
+    assert not _ref_calls_outside_cpu_branches(disp)
+    branches = [n for n in ast.walk(disp) if isinstance(n, ast.If)
+                and "cpu" in ast.unparse(n.test)]
+    assert len(branches) == 1
+    test = ast.unparse(branches[0].test)
+    assert test.startswith("all(") and "device.type == 'cpu'" in test
+    assert not branches[0].orelse
+    last = disp.body[-1]
+    assert isinstance(last, ast.Return)
+    assert ast.unparse(last.value.func) == "loop_filter"
+    assert "loop_filter_device" in _called(fns["pframe_step"])
+    assert "loop_filter_ref" not in _called(fns["pframe_step"])
+
+
 def _run(code, env_extra=None, timeout=300):
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     env.update(env_extra or {})

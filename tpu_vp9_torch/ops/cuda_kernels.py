@@ -6,12 +6,13 @@
   txq_cost (_txq_cost_kernel)          txq_cost (csrc/txq_cost.cu)
 
 so every function there that reaches ``pl.pallas_call`` has its
-counterpart here; and one XLA stage of the realtime P-frame step, which
+counterpart here; and two XLA stages of the realtime P-frame step, which
 the JAX package writes in jnp:
 
   tpu_vp9/pipeline/tpu_encdec.py       here
   _full_search_sse_mxu                 sse_map_search (csrc/sse_search.cu)
   hier_search (both levels)            hier_search_fused (the same source)
+  loop_filter_device                   loop_filter (csrc/loop_filter.cu)
 
 ``block_energy_at`` is ``block_energy`` with the prediction read in place
 out of a plane at per-block starts, for several candidate sets at once.
@@ -20,6 +21,9 @@ Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
+``loop_filter`` alone takes CUDA tensors only: its plain version is the
+step's own ``pipeline/tpu_encdec.py:loop_filter_ref``, and the step's
+``loop_filter_device`` sends CPU tensors there and CUDA tensors here.
 """
 
 from __future__ import annotations
@@ -44,6 +48,14 @@ TXQ_BIAS = 0.38  # the dead zone's rounding bias
 # the hierarchical search's reaches (pipeline/tpu_encdec.py has the same)
 WIN_R, HALF_R, REFINE_R = 40, 18, 4
 HIER_BLOCK_SIZES = (32,)  # the sizes hier_search_fused is built for
+# dynamic shared memory a CTA of loop_filter may ask for (a Hopper SM's
+# most) and what it takes per luma row (csrc/loop_filter.cu keeps a
+# 16-column band of the whole height at a pitch of 20 bytes)
+LF_SMEM_BYTES, LF_BYTES_PER_ROW = 227 * 1024, 20
+# the kinds of CTA of loop_filter, as bits of its ``parts`` argument
+LF_PARTS = {"luma bands": 1, "chroma bands": 2, "chroma strips": 4,
+            "luma tiles": 8}
+LF_ALL_PARTS = 15
 # check block_energy_at's starts on the card as well (a device-to-host
 # sync per call; the CPU path always checks)
 CHECK_STARTS = False
@@ -58,6 +70,7 @@ _LAUNCHERS = {
     "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 0, 5),
     "hier_search_fused": ("sse_search", "hier_search_launch", 5, 0, 2),
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
+    "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 10),
 }
 _fns: dict = {}
 
@@ -574,6 +587,9 @@ def txq_cost(resid_blocks, dc_q: float, ac_q: float, n: int):
         return txq_cost_ref(resid_blocks, dc_q, ac_q, n)
     b = resid_blocks.shape[0]
     dev = resid_blocks.device
+    if resid_blocks.data_ptr() % 16:
+        raise ValueError("txq_cost: resid_blocks must start on a 16-byte "
+                         "boundary")
     out = torch.empty((2, b), dtype=torch.float32, device=dev)
     if b == 0:
         return out[0], out[1]
@@ -585,3 +601,90 @@ def txq_cost(resid_blocks, dc_q: float, ac_q: float, n: int):
 
 
 txq_cost.launches = 0
+
+
+def _check_lf_args(y, u, v, geom, lvl: int, lim: int, mblim: int,
+                   split32) -> None:
+    g = geom
+    if g.strip:
+        raise NotImplementedError("loop_filter: strip geometries are not "
+                                  "ported yet (ROADMAP.md Queue A item 5)")
+    if not 0 <= lvl <= 63:
+        raise ValueError(f"loop_filter: lvl={lvl} outside [0, 63]")
+    if lim < 0 or mblim < 0:
+        raise ValueError(f"loop_filter: negative limits ({lim}, {mblim})")
+    if (g.pad_h % 64 or g.pad_w % 64 or not 0 < g.h_mi <= g.pad_h
+            or g.h_mi > 32 * g.rows32
+            or not g.pad_w - 64 < g.w_mi <= g.pad_w):
+        raise ValueError(f"loop_filter: a {g.pad_h}x{g.pad_w} plane does "
+                         f"not pad a coded size of {g.h_mi}x{g.w_mi} to "
+                         "whole superblocks")
+    for name, t, shape in (("y", y, (g.pad_h, g.pad_w)),
+                           ("u", u, (g.pad_h // 2, g.pad_w // 2)),
+                           ("v", v, (g.pad_h // 2, g.pad_w // 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"loop_filter: plane {name} of shape "
+                             f"{tuple(t.shape)}, want {shape}")
+        if t.dtype != torch.uint8:
+            raise TypeError(f"loop_filter: plane {name} must be uint8, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"loop_filter: plane {name} must be contiguous")
+    if split32 is not None:
+        if tuple(split32.shape) != (g.rows32, g.cols32):
+            raise ValueError(f"loop_filter: split32 of shape "
+                             f"{tuple(split32.shape)}, want "
+                             f"({g.rows32}, {g.cols32})")
+        if split32.is_floating_point() or split32.is_complex():
+            raise TypeError("loop_filter: split32 must be an integer or "
+                            f"bool 0/1 mask, got {split32.dtype}")
+    if 2 * g.rows32 + 16 + g.pad_h * LF_BYTES_PER_ROW > LF_SMEM_BYTES:
+        raise ValueError(f"loop_filter: a plane of {g.pad_h} rows does not "
+                         f"fit the kernel's {LF_SMEM_BYTES} bytes of shared "
+                         "memory")
+
+
+def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
+                split32=None, parts: int = LF_ALL_PARTS):
+    """The exact VP9 loop filter of the 32 grid without a strip, on the
+    card, all three planes in one launch.
+
+    y: (pad_h, pad_w) uint8, u and v: (pad_h/2, pad_w/2) uint8, contiguous
+    CUDA tensors of one device; geom: the step's geometry (``strip``,
+    ``pad_h``, ``pad_w``, ``h_mi``, ``w_mi``, ``rows32``, ``cols32``);
+    lvl in [0, 63] (0 copies), lim and mblim: host ints; split32: optional
+    (rows32, cols32) 0/1 mask (integer or bool, contiguous, on the planes'
+    device) of the 32-blocks coded as four 16x16 blocks. Returns new (y, u, v) planes, bit for bit what
+    ``pipeline/tpu_encdec.py:loop_filter_ref`` returns; the inputs are not
+    modified. It runs the kernel of ``csrc/loop_filter.cu`` or raises: CPU
+    tensors go to ``loop_filter_ref`` through the step's
+    ``loop_filter_device``, not through here.
+
+    parts: for measurements only: the kinds of CTA (bits of ``LF_PARTS``)
+    that work; with fewer than all, the other kinds' columns of the
+    outputs are left unwritten.
+    """
+    lvl, lim, mblim = int(lvl), int(lim), int(mblim)
+    _check_lf_args(y, u, v, geom, lvl, lim, mblim, split32)
+    tensors = (y, u, v) if split32 is None else (y, u, v, split32)
+    if _device_kind("loop_filter", *tensors) != "cuda":
+        raise ValueError("loop_filter: the kernel takes CUDA tensors; CPU "
+                         "tensors go through loop_filter_device")
+    dev = y.device
+    if split32 is not None and split32.dtype != torch.int32:
+        split32 = split32.to(torch.int32)
+    if any(t.data_ptr() % 4 for t in (y, u, v)):
+        raise ValueError("loop_filter: planes must start on a 4-byte "
+                         "boundary")
+    g = geom
+    out = (torch.empty_like(y), torch.empty_like(u), torch.empty_like(v))
+    _launch("loop_filter", dev, y.data_ptr(), u.data_ptr(), v.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            None if split32 is None else split32.data_ptr(), g.pad_h,
+            g.pad_w, g.h_mi, g.w_mi, g.rows32, g.cols32, lvl, lim, mblim,
+            int(parts))
+    loop_filter.launches += 1
+    return out
+
+
+loop_filter.launches = 0

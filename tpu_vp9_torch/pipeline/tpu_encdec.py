@@ -24,12 +24,13 @@ levels, eobs, MVs (and the recon when asked) and serializes them with the
 native serializer.
 
 Every stage computes what the JAX package's stage computes, as plain
-functions on tensors of the caller's device, with two CUDA kernels in
+functions on tensors of the caller's device, with three CUDA kernels in
 ``ops/cuda_kernels.py``: the full-pel search (``hier_search_fused`` for
 both levels of the 32 zone in one launch, ``sse_map_search`` for the
-children) and the distortion (``block_energy`` on blocks,
+children), the distortion (``block_energy`` on blocks,
 ``block_energy_at`` on candidates read in place out of a reference
-plane). Formulations that
+plane) and the loop filter (``loop_filter``, all three planes in one
+launch; ``loop_filter_ref`` here is its plain version). Formulations that
 exist only to suit the TPU are not carried over: one-hot matmul gathers
 (``_oh_take_rows/_cols``) are plain indexing, float32 stand-ins for
 integer arithmetic are int32, and the scan-prefix level transfer is not
@@ -57,7 +58,8 @@ from tpu_vp9_torch.utils.trace import span
 from tpu_vp9_torch.ops import txfm
 from tpu_vp9_torch.ops.cuda_kernels import (
     HALF_R, REFINE_R, WIN_R, block_energy, block_energy_at,
-    hier_search_fused, sse_map_search, take_windows as _take_windows,
+    hier_search_fused, loop_filter, sse_map_search,
+    take_windows as _take_windows,
 )
 
 BORDER = 96  # matches tpu_vp9/ops/inter.py (host refs interop)
@@ -695,6 +697,22 @@ def _flat_sums(P, Q, n: int, shift: int):
             _rp2(k * Q[n] + Q[:n] + qc[n - 1] + pc.flip(0), shift))
 
 
+# Set to a dict to have ``_lf_mixed`` count the lanes of each filter class
+# it meets (a device-to-host sync per edge call: for coverage checks only)
+LF_CLASS_COUNTS = None
+LF_CLASSES = ("masked_out", "filter4_hev", "filter4", "flat", "flat2")
+
+
+def _count_lf_classes(width, mask, hev, flat, flat2) -> None:
+    """Add this call's lanes of a positive width to LF_CLASS_COUNTS."""
+    live = (width > 0).expand_as(mask)
+    four = mask & ~flat
+    for name, lanes in zip(LF_CLASSES, (
+            live & ~mask, four & hev, four & ~hev, flat & ~flat2, flat2)):
+        LF_CLASS_COUNTS[name] = (LF_CLASS_COUNTS.get(name, 0)
+                                 + int(lanes.sum()))
+
+
 def _lf_mixed(P, Q, width, thresh: int, limit: int, blimit: int):
     """One edge filter (``ops/loopfilter._filter_edge_mixed``).
 
@@ -725,10 +743,14 @@ def _lf_mixed(P, Q, width, thresh: int, limit: int, blimit: int):
     pout = torch.where(flat, s_p, torch.cat([p4, P[2:3].expand_as(p4[:1])]))
     qout = torch.where(flat, s_q, torch.cat([q4, Q[2:3].expand_as(q4[:1])]))
     if P.shape[0] < 8:  # taps-4 call sites never reach the 16-wide stage
+        if LF_CLASS_COUNTS is not None:
+            _count_lf_classes(width, mask, hev, flat, torch.zeros_like(flat))
         return pout, qout
     flat2 = torch.maximum((P[4:8] - P[0]).abs().amax(0),
                           (Q[4:8] - Q[0]).abs().amax(0)) <= 1
     flat2 = flat2 & flat & (width >= 16)
+    if LF_CLASS_COUNTS is not None:
+        _count_lf_classes(width, mask, hev, flat, flat2)
     s_p, s_q = _flat_sums(P, Q, 7, 4)
     keep = (4, *pout.shape[1:])
     return (torch.where(flat2, s_p, torch.cat([pout, P[3:7].expand(keep)])),
@@ -826,9 +848,11 @@ def _cols_away_from_boundaries(width_px: int, sb: int) -> np.ndarray:
     return np.asarray(cols, np.int64)
 
 
-def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
-                       mblim: int, split32=None):
-    """Exact VP9 loop filter for the 32 grid without a strip.
+def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
+                    mblim: int, split32=None):
+    """Exact VP9 loop filter for the 32 grid without a strip: the plain
+    version, in PyTorch ops on the planes' device, of the kernel behind
+    ``ops/cuda_kernels.py:loop_filter``.
 
     Ordering contract (bit-exact with libvpx; see ops/loopfilter.py:1):
     SBs in raster order, per SB all vertical then all horizontal edges.
@@ -1023,6 +1047,18 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
     u[:, bcols_c] = bt_c[8:-8, :nb].to(torch.uint8)
     v[:, bcols_c] = bt_c[8:-8, nb:].to(torch.uint8)
     return y, u, v
+
+
+def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
+                       mblim: int, split32=None):
+    """The step's loop filter (contract: ``loop_filter_ref``). Planes (and
+    mask) that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises. Both
+    refuse a strip geometry."""
+    tensors = (y, u, v) if split32 is None else (y, u, v, split32)
+    if all(t.device.type == "cpu" for t in tensors):
+        return loop_filter_ref(y, u, v, geom, lvl, lim, mblim, split32)
+    return loop_filter(y, u, v, geom, lvl, lim, mblim, split32)
 
 
 # ---------------------------------------------------------------------------
