@@ -7,24 +7,31 @@ Phases, each of which raises on failure (nothing is caught):
      source, all started together) and of the native host library;
   2. kernels: sad_full_search, block_energy (on blocks and positioned,
      block_energy_at), sse_map_search (one level, and both levels
-     fused, hier_search_fused) and loop_filter against their plain PyTorch
-     versions on the card, bit for bit, at the shapes the 1080p paths give
-     them (the M8 children's included), ties, negative minima and the
-     largest operands included; loop_filter on made-up planes that reach
-     every class of the edge filter (the lanes of each class counted by
-     the plain version and printed), without a split mask, with a random
-     one and with all ones, at three levels, at small geometries, and on
-     the unfiltered recon, mask and level of a real M8 P-frame; txq_cost
-     on made-up residuals within its tolerance; each timed per call with
-     CUDA events and on the host clock, and per launch with the profiler;
-  3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (rate tables, the
-     GOLDEN anchor, the 32-against-16 descent) through the public
-     Vp9Encoder; per P-frame the search entry points must launch twice
-     (hier_search_fused, then sse_map_search for the children), the
-     block_energy ones 5 times and loop_filter once; some parents must
-     split; the stream must
-     decode with the port's decoder to the encoder's own recon across two
-     GOLDEN refreshes; fps, step time and the host-clock stage split. Inside the
+     fused, hier_search_fused), kframe_wave and loop_filter against their
+     plain PyTorch versions on the card, bit for bit, at the shapes the
+     1080p paths give them (the M8 children's included), ties, negative
+     minima and the largest operands included; kframe_wave on the first
+     panning frame at four qindex values, on patches that make every intra
+     mode win (the blocks each mode won printed), on a constant frame whose
+     tied modes must all go to the first, on 0/255 blocks at qindex 0 (the
+     8191 level clip) and at small geometries, with its chain (93 times
+     its own one-block latency);
+     loop_filter on made-up planes that reach every class of the edge
+     filter (the lanes of each class counted by the plain version and
+     printed), without a split mask, with a random one and with all ones,
+     at three levels, at small geometries, and on the unfiltered recon,
+     mask and level of a real keyframe and a real M8 P-frame; txq_cost on
+     made-up residuals within its tolerance; each timed per call with CUDA
+     events and on the host clock, and per launch with the profiler;
+  3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
+     keyframe, rate tables, the GOLDEN anchor, the 32-against-16 descent)
+     through the public Vp9Encoder; the keyframe must launch kframe_wave
+     once per anti-diagonal (93) and loop_filter once; per P-frame the
+     search entry points must launch twice (hier_search_fused, then
+     sse_map_search for the children), the block_energy ones 5 times and
+     loop_filter once; some parents must split; the stream must decode with
+     the port's decoder to the encoder's own recon across two GOLDEN
+     refreshes; fps, step time and the host-clock stage split. Inside the
      same counted window txq_cost runs at its own entry point on every
      P-frame's residual (source minus the previous frame's recon), at
      n=32 and n=16;
@@ -34,11 +41,14 @@ Phases, each of which raises on failure (nothing is caught):
      of their time the device is busy, the top device operations, and
      each stage's device time (its PyTorch ops' from the profiler's
      ranges, plus its hand kernels', which the ranges leave out);
-  6. M8 same bytes: the first frames again with device="cpu" (the plain
+  6. keyframes: four 1080p device keyframes through RtSession, decoded,
+     with the send time split by the spans kf_device_step, kf_d2h_transfer
+     and kf_serialize, and one more under the profiler;
+  7. M8 same bytes: the first frames again with device="cpu" (the plain
      versions) must give identical packets;
-  7. M9 (the uniform 32 grid): end to end on the first frames of the same
+  8. M9 (the uniform 32 grid): end to end on the first frames of the same
      clip, profile and same bytes, as before, at a smaller depth;
-  8. M7 (the host encode with the device full-pel search): end to end,
+  9. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -81,7 +91,7 @@ import torch  # noqa: E402
 WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
-        "loop_filter")
+        "loop_filter", "kframe_wave")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -101,13 +111,18 @@ M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
                "loop_filter": 1}
+# launches per keyframe (M8 and M9 alike): one kframe_wave per
+# anti-diagonal of the 34 x 60 grid, and the loop filter of the three planes
+KF_DIAGONALS = 34 + 60 - 1
+KEY_LAUNCHES = {"kframe_wave": KF_DIAGONALS, "loop_filter": 1}
 # the wrappers that launch kernels of one source, by the kernel's name in
 # the JSON line
 ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "block_energy": ("block_energy", "block_energy_at"),
                   "sse_map_search": ("sse_map_search", "hier_search_fused"),
                   "txq_cost": ("txq_cost",),
-                  "loop_filter": ("loop_filter",)}
+                  "loop_filter": ("loop_filter",),
+                  "kframe_wave": ("kframe_wave",)}
 # each wrapper's kernel, by a part of its name in a profile
 WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "block_energy": "block_energy_kernel",
@@ -115,7 +130,8 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "sse_map_search": "sse_search_kernel",
                    "hier_search_fused": "hier_search_kernel",
                    "txq_cost": "txq_cost_kernel",
-                   "loop_filter": "loop_filter_kernel"}
+                   "loop_filter": "loop_filter_kernel",
+                   "kframe_wave": "kframe_wave_kernel"}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
 # geometries of the CPU tests (the last no wider than 64: no band), and
 # integer operations per filtered edge lane (an upper estimate: 16 loads,
@@ -133,6 +149,24 @@ LF_OPS_PER_LANE = 100
 # |a - b| (sad_full_search, block_energy's SAD) is no product. The data
 # sheet gives no other rate off the tensor cores.
 HBM_BYTES_PER_S, INT8_OPS_PER_S, ALU_OPS_PER_S = 3.35e12, 1979e12, 67e12
+# FP64: float64 work at the data sheet's highest float64 rate (its tensor
+# cores'; 34 TFLOP/s on the CUDA cores): kframe_wave's forward transform
+FP64_OPS_PER_S = 67e12
+# kframe_wave per 32x32 block and its two 16x16 chroma blocks: the float64
+# operations of the forward transform (two products a plane, a multiply and
+# an add per term) and an estimate of the integer ones: 8 a pixel for each
+# of the 10 luma predictions and its SSE, 8 a pixel for the chosen mode's
+# three planes, 10 a coefficient to quantize and dequantize, about 500 an
+# idct32 line (64) and 200 an idct16 line (64), 4 a pixel for the recon
+KF_FP64_OPS = 2 * (2 * 32 ** 3 + 2 * 2 * 16 ** 3)
+KF_INT_OPS = (8 * 10 * 1024 + 8 * 1536 + 10 * 1536 + 500 * 64 + 200 * 64
+              + 4 * 1536)
+# kframe_wave's phase: the quantizer indices (0: the 8191 level clip is
+# reached), the mode patches' size, and the small geometries of the CPU
+# tests (32x32: one block, one launch; its time is one block's latency)
+KF_QINDICES = (10, 100, 255)
+KF_SMALL_DIMS = ((128, 96), (160, 120), (96, 64), (64, 64), (192, 120),
+                 (32, 32))
 # txq_cost's stated tolerance (ops/cuda_kernels.py:txq_cost)
 TXQ_RTOL, TXQ_ATOL, TXQ_BAND, TXQ_MAX_FLIPPED = 1e-4, 1e-3, 1e-3, 0.01
 
@@ -750,6 +784,179 @@ def txq_kernel_phase(dev, frames, recons):
                   "tpu_vp9/ops/pallas_kernels.py:175", max_err, parts)
 
 
+def _kf_mode_frame(h, w, patch=96):
+    """A luma plane of ``patch``-pixel squares, each of a kind that one
+    intra mode predicts best: flat (DC), sinusoids along x (V), along y
+    (H) and along the six diagonal directions (D45, D135, D117, D153, D207,
+    D63), a ramp in x and y (TM), and noise."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    phases = (xx, yy, xx + yy, xx - yy, 2 * xx - yy, xx - 2 * yy,
+              xx + 2 * yy, 2 * xx + yy)
+    kinds = len(phases) + 3
+    kind = ((yy // patch) * (w // patch + 1) + xx // patch).astype(int) % kinds
+    noise = np.random.default_rng(7).integers(0, 256, (h, w))
+    out = np.where(kind == 0, 90.0, 0.0)
+    for i, t in enumerate(phases):
+        out = np.where(kind == i + 1, 128 + 90 * np.sin(2 * np.pi * t / 14),
+                       out)
+    out = np.where(kind == kinds - 2,
+                   40 + 1.3 * (xx % patch) + 0.9 * (yy % patch), out)
+    out = np.where(kind == kinds - 1, noise, out)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _kf_planes(y):
+    """Padded (y, u, v) planes from a padded luma plane: chroma subsampled
+    from it (v inverted)."""
+    u = np.ascontiguousarray(y[::2, ::2])
+    return [y, u, np.ascontiguousarray(255 - y[1::2, 1::2])]
+
+
+def _kf_case(dev, label, geom, planes, qidx, lam=None):
+    """kframe_wave (CUDA) against kframe_wave_ref on the card: modes,
+    levels, eobs and recon bit for bit. Prints the blocks each mode won and
+    the blocks whose levels differ from the plain version's; returns
+    (max_abs_err, blocks won by each mode, the kernel's outputs)."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    dc_q, ac_q = T.dc_quant(qidx), T.ac_quant(qidx)
+    lam = max(1, (ac_q ** 2) >> 6) if lam is None else lam
+    ts = [torch.from_numpy(p).to(dev) for p in planes]
+    got = K.kframe_wave(*ts, geom, dc_q, ac_q, lam)
+    want = P.kframe_wave_ref(*ts, geom, dc_q, ac_q, lam)
+    torch.cuda.synchronize()
+    b = got[0].numel()
+    differ = torch.zeros(b, dtype=torch.bool, device=dev)
+    for g_lv, w_lv in zip(got[1:4], want[1:4]):
+        differ |= (g_lv != w_lv).reshape(b, -1).any(dim=1)
+    won = torch.bincount(got[0].long(), minlength=10).tolist()
+    print(f"kframe_wave {label} {geom.width}x{geom.height} qindex {qidx} "
+          f"lam {lam}: blocks won by each mode (DC..TM) {won}; "
+          f"{int(differ.sum())} of {b} blocks with levels unlike the plain "
+          f"version's; largest |level| {int(got[1].abs().max())}")
+    err = _check("kframe_wave", f"{label} {geom.width}x{geom.height} qindex "
+                 f"{qidx}", got, want)
+    return err, won, got
+
+
+def kframe_kernel_phase(dev):
+    """kframe_wave (CUDA) against kframe_wave_ref on the card, bit for bit:
+    the first 1080p panning frame at the paths' qindex and at 10, 100 and
+    255; 1080p mode patches on which every mode wins somewhere; a constant
+    frame at lam 0 (modes tie: DC, the first, must win every block); 0/255
+    blocks at qindex 0 (levels reach the 8191 clip); the small geometries
+    of the CPU tests. Timed at 1080p: per keyframe (93 launches) with CUDA
+    events, the kernel's device time summed over the launches (profiler),
+    the host's, the plain version's; the bound; and, beside it, the chain:
+    93 times this kernel's own measured latency for one block (the device
+    time of the 32x32 geometry's single launch of one CTA), a figure of
+    this design, not a limit of the card."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    g = P.make_geom(WIDTH, HEIGHT)
+    if g.rows32 + g.cols32 - 1 != KF_DIAGONALS:
+        raise AssertionError("KF_DIAGONALS does not fit the 1080p grid")
+    qidx = qp_to_qindex(QP)
+    shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
+              (g.pad_h // 2, g.pad_w // 2))
+    frame = next(panning_frames(WIDTH, HEIGHT, 1, seed=1))
+    pan = [P.pad_plane(np.asarray(p), *shp)
+           for p, shp in zip((frame.y, frame.u, frame.v), shapes)]
+    max_err = 0
+    for q in (qidx, *KF_QINDICES):
+        max_err = max(max_err, _kf_case(dev, "panning frame", g, pan, q)[0])
+    for q in KF_QINDICES:
+        err, won, _ = _kf_case(dev, "mode patches", g,
+                               _kf_planes(_kf_mode_frame(g.pad_h, g.pad_w)), q)
+        max_err = max(max_err, err)
+        if not all(won):
+            raise AssertionError(f"kframe_wave: a mode won no block of the "
+                                 f"mode patches: {won}")
+    # a constant 128: every prediction with a neighbour is exact, so DC, V,
+    # H, TM and the diagonals tie at SSE 0 and, at lam 0, at cost 0
+    const = np.full((g.pad_h, g.pad_w), 128, np.uint8)
+    err, won, _ = _kf_case(dev, "constant 128", g, _kf_planes(const), qidx,
+                           lam=0)
+    max_err = max(max_err, err)
+    if won[0] != g.n_blocks32:
+        raise AssertionError(f"kframe_wave: tied modes did not all go to the "
+                             f"first, DC: {won}")
+    yy, xx = np.mgrid[0:g.pad_h, 0:g.pad_w]
+    ext = np.where((yy // 32 + xx // 32) % 2, 255, 0).astype(np.uint8)
+    err, _, got = _kf_case(dev, "0/255 blocks", g, _kf_planes(ext), 0)
+    max_err = max(max_err, err)
+    if int(got[1].abs().max()) != 8191:
+        raise AssertionError("kframe_wave: qindex 0 did not reach the level "
+                             "clip")
+    rng = np.random.default_rng(23)
+    for dims in KF_SMALL_DIMS:
+        gs = P.make_geom(*dims)
+        noise = rng.integers(0, 256, (gs.pad_h, gs.pad_w), dtype=np.uint8)
+        for label, y in (("noise", noise),
+                         ("mode patches",
+                          _kf_mode_frame(gs.pad_h, gs.pad_w, 32))):
+            for q in KF_QINDICES:
+                max_err = max(max_err, _kf_case(dev, label, gs, _kf_planes(y),
+                                                q)[0])
+    # timing on the panning frame at the paths' qindex
+    ts = [torch.from_numpy(p).to(dev) for p in pan]
+    dc_q, ac_q = T.dc_quant(qidx), T.ac_quant(qidx)
+    lam = max(1, (ac_q ** 2) >> 6)
+
+    def call():
+        return K.kframe_wave(*ts, g, dc_q, ac_q, lam)
+
+    ms = _cuda_time_ms(call, 20)
+    plain_ms = _cuda_time_ms(lambda: P.kframe_wave_ref(*ts, g, dc_q, ac_q,
+                                                       lam), 2)
+    per_launch = _device_ms(call, "kframe_wave_kernel", reps=5)
+    device_ms = None if per_launch is None else per_launch * KF_DIAGONALS
+    host_ms = _host_ms(call, reps=20)
+    g1 = P.make_geom(32, 32)
+    one = [torch.from_numpy(p).to(dev) for p in _kf_planes(
+        rng.integers(0, 256, (g1.pad_h, g1.pad_w), dtype=np.uint8))]
+    block_ms = _device_ms(lambda: K.kframe_wave(*one, g1, dc_q, ac_q, lam),
+                          "kframe_wave_kernel", reps=50)
+    chain_ms = None if block_ms is None else KF_DIAGONALS * block_ms
+    # reads the source planes once; writes the recon, the int16 levels, the
+    # modes and eobs; the float64 and integer operations of every block,
+    # the former at FP64_OPS_PER_S, here as operations at ALU_OPS_PER_S
+    nb = g.n_blocks32
+    nbytes = sum(t.numel() for t in ts) + nb * 1536 * 3 + 16 * nb
+    bound = _bound(nbytes, nb * (KF_FP64_OPS * ALU_OPS_PER_S / FP64_OPS_PER_S
+                                 + KF_INT_OPS), ALU_OPS_PER_S)
+
+    def shown(v, unit=" ms"):
+        return "not measured" if v is None else f"{v:.4f}{unit}"
+
+    print(f"kernel kframe_wave 1080p keyframe ({KF_DIAGONALS} launches): "
+          f"call {ms:.4f} ms (CUDA events, median); device "
+          f"{shown(device_ms)} summed over the launches ("
+          f"{shown(per_launch)} per launch, profiler); host {host_ms:.4f} ms "
+          f"per call; plain {plain_ms:.4f} ms; bound {bound[0]:.5f} ms by "
+          f"{bound[1]} ({nbytes / 1e6:.2f} MB, "
+          f"{nb * KF_FP64_OPS:.3g} float64 and {nb * KF_INT_OPS:.3g} integer "
+          f"operations); chain {shown(chain_ms)} ({KF_DIAGONALS} x this "
+          f"kernel's measured latency for one block, {shown(block_ms)}: the "
+          "32x32 geometry's single launch; not a bound)")
+    return {"name": "kframe_wave", "route": "cuda",
+            "source": "tpu_vp9_torch/csrc/kframe_wave.cu",
+            "replaces": "tpu_vp9/pipeline/tpu_encdec.py:2259",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "device_ms": device_ms, "host_ms": host_ms,
+            "chain_ms": chain_ms,
+            "parts": [{"shape": f"1080p keyframe, {KF_DIAGONALS} launches",
+                       "per_frame": 1, "ms": ms, "device_ms": device_ms,
+                       "host_ms": host_ms, "bound_ms": bound[0]}]}
+
+
 def _lf_planes(geom, rng):
     """Padded (y, u, v) planes that reach every class of the edge filter:
     32x32 patches (16x16 in chroma), each of one kind. Blocky: 8x8 blocks
@@ -827,9 +1034,9 @@ def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
 
 
 def _real_m8_lf_input(dev):
-    """The arguments of the loop filter of a real M8 P-frame: a keyframe
-    and one P-frame of the clip through the public encoder, the step's
-    call of ``loop_filter_device`` recorded."""
+    """The arguments of the loop filter of a real keyframe and of a real M8
+    P-frame: the first two frames of the clip through the public encoder,
+    the steps' calls of ``loop_filter_device`` recorded."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
 
@@ -847,10 +1054,11 @@ def _real_m8_lf_input(dev):
     enc.flush()
     P.loop_filter_device = real
     torch.cuda.synchronize()
-    if len(calls) != 1 or calls[0][7] is None:
-        raise AssertionError(f"the M8 P-frame called the loop filter "
-                             f"{len(calls)} times, or without a mask")
-    return calls[0]
+    if len(calls) != 2 or calls[0][7] is not None or calls[1][7] is None:
+        raise AssertionError(f"the keyframe and the M8 P-frame called the "
+                             f"loop filter {len(calls)} times, or the "
+                             "keyframe with a mask or the P-frame without")
+    return calls
 
 
 def loop_filter_kernel_phase(dev):
@@ -885,8 +1093,11 @@ def loop_filter_kernel_phase(dev):
     if not all(seen.values()):
         raise AssertionError(f"the made-up 1080p planes reach no lane of a "
                              f"filter class: {seen}")
-    # the real thing: an M8 P-frame's unfiltered recon, mask and level
-    y, u, v, g, lvl, lim, mblim, split = _real_m8_lf_input(dev)
+    # the real thing: a keyframe's and an M8 P-frame's unfiltered recon,
+    # (mask) and level
+    key_in, (y, u, v, g, lvl, lim, mblim, split) = _real_m8_lf_input(dev)
+    err, _ = _lf_case("real keyframe", key_in[:3], *key_in[3:])
+    max_err = max(max_err, err)
     print(f"loop_filter: a real M8 P-frame's input: lvl={lvl} lim={lim} "
           f"mblim={mblim}, {int(split.sum())} of {split.numel()} blocks "
           "split")
@@ -1022,7 +1233,8 @@ def _kernel_fns():
             "sse_map_search": K.sse_map_search,
             "hier_search_fused": K.hier_search_fused,
             "txq_cost": K.txq_cost,
-            "loop_filter": K.loop_filter}
+            "loop_filter": K.loop_filter,
+            "kframe_wave": K.kframe_wave}
 
 
 def _reset_counts():
@@ -1087,13 +1299,18 @@ def realtime_end_to_end_phase(dev, frames, enc_mode):
         if not all(np.isfinite(v) for p in proxies for v in p[2:]):
             raise AssertionError("txq_cost: non-finite proxy")
     counts = _read_counts()
-    print(f"{tag}: {len(pkts)} frames ({n_p} P) at {WIDTH}x{HEIGHT} "
-          f"M{enc_mode} low-delay CQP qp {QP}: launches {counts}")
+    n_k = len(pkts) - n_p
+    print(f"{tag}: {len(pkts)} frames ({n_k} key, {n_p} P) at "
+          f"{WIDTH}x{HEIGHT} M{enc_mode} low-delay CQP qp {QP}: launches "
+          f"{counts}")
     per_p = M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES
-    want = {"sad_full_search": 0, **{k: v * n_p for k, v in per_p.items()}}
-    if n_p == 0 or counts != want:
-        raise AssertionError(f"launches {counts} != {want} for {n_p} "
-                             "P-frames")
+    want = {"sad_full_search": 0, "kframe_wave": 0,
+            **{k: v * n_p for k, v in per_p.items()}}
+    for k, v in KEY_LAUNCHES.items():
+        want[k] += v * n_k
+    if n_p == 0 or n_k == 0 or counts != want:
+        raise AssertionError(f"launches {counts} != {want} for {n_k} "
+                             f"keyframes and {n_p} P-frames")
     tally = enc._rt.tally
     n_split, n_gold = tally["split32"], tally["golden32"]
     if tally["p_frames"] != n_p:
@@ -1261,6 +1478,60 @@ def realtime_profile_phase(dev, frames, enc_mode):
     enc.flush()
 
 
+def keyframe_phase(dev, frames):
+    """Four device keyframes at 1080p through the port's RtSession (M8's
+    flags, intra_period 0: every frame a keyframe), the first a warm-up:
+    launches, decode bit-exact to the recon, the send time and its split by
+    the spans kf_device_step (the step, synchronized), kf_d2h_transfer and
+    kf_serialize; then one more keyframe send under the profiler."""
+    from types import SimpleNamespace
+
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.pipeline.realtime import RtSession
+    from tpu_vp9_torch.utils import trace
+
+    qidx = qp_to_qindex(QP)
+    sess = RtSession(WIDTH, HEIGHT, device=dev, intra_period=0,
+                     want_recon=True, split16=True, golden=True)
+    trace.enable(True)
+    _reset_counts()
+    rows, efs = [], []
+    for idx, frame in enumerate(frames[:4]):
+        trace.reset()
+        tf = time.perf_counter()
+        efs += sess.send(frame, qindex=qidx)
+        torch.cuda.synchronize()
+        stages = {k: v["total_s"] for k, v in trace.summary().items()
+                  if k != "notices"}
+        rows.append((idx, time.perf_counter() - tf, stages))
+    counts = _read_counts()
+    trace.enable(False)
+    want = {**dict.fromkeys(counts, 0),
+            **{k: 4 * v for k, v in KEY_LAUNCHES.items()}}
+    print(f"keyframes: 4 device keyframes at {WIDTH}x{HEIGHT} qp {QP}: "
+          f"launches {counts}")
+    if counts != want or [e.is_keyframe for e in efs] != [True] * 4:
+        raise AssertionError(f"launches {counts} != {want}, or not four "
+                             "keyframes")
+    cw, ch = (WIDTH + 1) >> 1, (HEIGHT + 1) >> 1
+    recons = [[e.state.planes[p].recon[:h, :w] for p, (h, w) in
+               enumerate(((HEIGHT, WIDTH), (ch, cw), (ch, cw)))]
+              for e in efs]
+    psnrs = _decode_check([SimpleNamespace(data=e.payload, pts=e.pts)
+                           for e in efs], recons, frames[:4])
+    print(f"keyframes: decode bit-exact to recon; Y PSNR mean "
+          f"{statistics.mean(psnrs):.3f} dB; "
+          f"{statistics.mean(len(e.payload) for e in efs):.1f} B/keyframe")
+    print(f"keyframes: send {rows[0][1] * 1000:.1f} ms the first (warm-up), "
+          f"mean of the next three "
+          f"{1000 * statistics.mean(r[1] for r in rows[1:]):.1f} ms; spans "
+          + _stage_means(rows[1:]))
+    _profile(dev, lambda: sess.send(frames[4], qindex=qidx),
+             "one 1080p keyframe send")
+    sess.flush()
+    sess.close()
+
+
 def m7_profile_phase(dev, frames):
     enc = _make_encoder(dev, 7)
     enc.send_picture(frames[0])
@@ -1335,6 +1606,7 @@ def main() -> int:
     kernels = {k["name"]: k for k in (sad_kernel_phase(dev),
                                        energy_kernel_phase(dev),
                                        sse_kernel_phase(dev),
+                                       kframe_kernel_phase(dev),
                                        loop_filter_kernel_phase(dev))}
     txq_synthetic_phase(dev)
     if "--kernels" in sys.argv[1:]:
@@ -1348,10 +1620,12 @@ def main() -> int:
     # the counts of the M8 run. No encode path of either package calls
     # txq_cost: its count is this script's own calls, two for each P-frame,
     # made inside the counted window after the encode
-    for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter"):
+    for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter",
+                 "kframe_wave"):
         kernels[name]["launches"] = sum(m8_counts[w]
                                         for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)
+    keyframe_phase(dev, frames)
     same_bytes_phase("m8", frames, m8_pkts, 8)
     m9_list = frames[:M9_FRAMES]
     m9_pkts, _, _ = realtime_end_to_end_phase(dev, m9_list, 9)

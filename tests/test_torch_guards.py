@@ -89,7 +89,8 @@ def test_no_import_of_jax_or_the_jax_package(path):
 KERNELS_PY = os.path.join(REPO, "tpu_vp9_torch", "ops", "cuda_kernels.py")
 ENCDEC_PY = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_encdec.py")
 WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
-            "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter")
+            "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter",
+            "kframe_wave")
 
 
 def _functions(path):
@@ -132,7 +133,7 @@ def test_wrappers_cover_every_kernel_source():
     sources = {os.path.basename(p)[:-3] for p in glob.glob(
         os.path.join(REPO, "tpu_vp9_torch", "csrc", "*.cu"))}
     assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
-    assert "loop_filter" in sources and len(sources) == 5
+    assert {"loop_filter", "kframe_wave"} <= sources and len(sources) == 6
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -151,26 +152,35 @@ def test_kernel_module_catches_nothing():
                     if isinstance(n, ast.Try)], path
 
 
+# wrapper -> (the step's dispatch, the steps that must call the dispatch)
+STEP_DISPATCH = {"loop_filter": ("loop_filter_device",
+                                 ("pframe_step", "kframe_step")),
+                 "kframe_wave": ("kframe_wave_device", ("kframe_step",))}
+
+
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_takes_the_plain_version_only_for_cpu_tensors(name):
     fn = _functions(KERNELS_PY)[name]
     assert not _ref_calls_outside_cpu_branches(fn)
-    if name == "loop_filter":
+    if name in STEP_DISPATCH:
         # its plain version lives with the step; the wrapper never calls it
         assert not [c for c in _called(fn) if c.endswith("_ref")]
         with open(KERNELS_PY) as fh:
-            assert "import loop_filter_ref" not in fh.read()
+            text = fh.read()
+        assert f"import {name}_ref" not in text
+        assert "tpu_vp9_torch.pipeline" not in text
 
 
-def test_loop_filter_dispatch_has_no_route_from_cuda_to_the_plain_version():
-    """In the step's module ``loop_filter_ref`` is called from
-    ``loop_filter_device`` alone, inside the branch taken when every tensor
-    lies on the CPU; everything else goes to the kernel's wrapper, and the
-    step calls the dispatch, not the plain version."""
+def _check_step_dispatch(name):
+    """In the step's module ``<kernel>_ref`` is called from its dispatch
+    alone, inside the branch taken when every tensor lies on the CPU;
+    everything else goes to the kernel's wrapper, and the steps call the
+    dispatch, not the plain version."""
+    disp_name, steps = STEP_DISPATCH[name]
     fns = _functions(ENCDEC_PY)
-    callers = [n for n, f in fns.items() if "loop_filter_ref" in _called(f)]
-    assert callers == ["loop_filter_device"]
-    disp = fns["loop_filter_device"]
+    callers = [n for n, f in fns.items() if f"{name}_ref" in _called(f)]
+    assert callers == [disp_name]
+    disp = fns[disp_name]
     assert not _ref_calls_outside_cpu_branches(disp)
     branches = [n for n in ast.walk(disp) if isinstance(n, ast.If)
                 and "cpu" in ast.unparse(n.test)]
@@ -180,9 +190,80 @@ def test_loop_filter_dispatch_has_no_route_from_cuda_to_the_plain_version():
     assert not branches[0].orelse
     last = disp.body[-1]
     assert isinstance(last, ast.Return)
-    assert ast.unparse(last.value.func) == "loop_filter"
-    assert "loop_filter_device" in _called(fns["pframe_step"])
-    assert "loop_filter_ref" not in _called(fns["pframe_step"])
+    assert ast.unparse(last.value.func) == name
+    for step in steps:
+        assert disp_name in _called(fns[step]), step
+        assert f"{name}_ref" not in _called(fns[step]), step
+
+
+def test_loop_filter_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    _check_step_dispatch("loop_filter")
+
+
+def test_kframe_wave_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    _check_step_dispatch("kframe_wave")
+
+
+def test_kernel_sources_include_nothing_of_another_package():
+    """The CUDA sources include the toolkit's and the C++ library's headers
+    and the port's own shared headers only."""
+    allowed = {"<algorithm>", "<cstdint>", "<cuda_runtime.h>",
+               "<cuda_pipeline.h>", "<cuda_fp16.h>"}
+    csrc = os.path.join(REPO, "tpu_vp9_torch", "csrc")
+    own = {f'"{os.path.basename(p)}"'
+           for p in glob.glob(os.path.join(csrc, "*.cuh"))}
+    assert '"txfm_common.cuh"' in own
+    for path in glob.glob(os.path.join(csrc, "*.cu*")):
+        with open(path) as fh:
+            incs = {ln.split(None, 1)[1].strip() for ln in fh
+                    if ln.startswith("#include")}
+        assert incs <= allowed | own, (path, incs - allowed - own)
+
+
+def _fake_cuda_kframe_wave(monkeypatch, launch):
+    """kframe_wave on CPU planes made to look like CUDA ones: the device
+    check answers "cuda", ``_launch`` is ``launch``, and the plain version
+    raises if it is reached."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    def no_plain(*a, **k):
+        raise AssertionError("kframe_wave reached its plain version")
+
+    monkeypatch.setattr(K, "_device_kind", lambda name, *t: "cuda")
+    monkeypatch.setattr(K, "_launch", launch)
+    monkeypatch.setattr(P, "kframe_wave_ref", no_plain)
+    g = P.make_geom(160, 120)
+    planes = [torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8),
+              torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8),
+              torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)]
+    return K, g, planes
+
+
+def test_kframe_wave_on_cuda_launches_once_per_diagonal(monkeypatch):
+    calls = []
+    K, g, planes = _fake_cuda_kframe_wave(
+        monkeypatch, lambda name, dev, *args: calls.append((name, args)))
+    before = K.kframe_wave.launches
+    out = K.kframe_wave(*planes, g, 93, 112, 196)
+    n_diag = g.rows32 + g.cols32 - 1
+    assert [c[0] for c in calls] == ["kframe_wave"] * n_diag
+    assert K.kframe_wave.launches - before == n_diag
+    # the diagonal, its first block row and its block count, in order
+    got = [args[17:20] for _, args in calls]
+    assert got == [(d, *K.kf_diagonal(d, g.rows32, g.cols32))
+                   for d in range(n_diag)]
+    assert sum(a[2] for a in got) == g.n_blocks32
+    assert len(out) == 10
+
+
+def test_kframe_wave_on_cuda_raises_when_the_launch_fails(monkeypatch):
+    def refused(name, dev, *args):
+        raise RuntimeError(f"{name}: CUDA launch failed with error 9")
+
+    K, g, planes = _fake_cuda_kframe_wave(monkeypatch, refused)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.kframe_wave(*planes, g, 93, 112, 196)
 
 
 def _run(code, env_extra=None, timeout=300):

@@ -174,6 +174,8 @@ class Vp9Encoder:
                 "ported yet (ROADMAP.md Queue A item 5)")
 
     def close(self) -> None:
+        if self._rt is not None:
+            self._rt.close()
         self._initialized = False
         self._refs = None
 

@@ -2,16 +2,18 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into ``tpu_vp9_torch/_build/lib<name>.so``
-and loaded with ``ctypes``; it is rebuilt when the source is newer than
-the library. ``build_all`` compiles several sources at once, one nvcc
-process each. The directory is listed in ``.gitignore``. The compiler's
-output (ptxas register and shared-memory report included) is kept beside
-the library as ``lib<name>.log``.
+and loaded with ``ctypes``; it is rebuilt when the source, or any shared
+header ``csrc/*.cuh``, is newer than the library. ``build_all`` compiles
+several sources at once, one nvcc process each. The directory is listed
+in ``.gitignore``. The compiler's output (ptxas register and
+shared-memory report included) is kept beside the library as
+``lib<name>.log``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -42,9 +44,15 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
-    src = os.path.join(CSRC, f"{name}.cu")
+    """The library is missing or older than its source or than any shared
+    header of ``csrc/`` (a source may include any of them)."""
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+    if not os.path.exists(so):
+        return True
+    newest = max(os.path.getmtime(p) for p in
+                 [os.path.join(CSRC, f"{name}.cu"),
+                  *glob.glob(os.path.join(CSRC, "*.cuh"))])
+    return newest > os.path.getmtime(so)
 
 
 def _start(name: str):

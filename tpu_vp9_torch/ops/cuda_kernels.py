@@ -13,6 +13,7 @@ the JAX package writes in jnp:
   _full_search_sse_mxu                 sse_map_search (csrc/sse_search.cu)
   hier_search (both levels)            hier_search_fused (the same source)
   loop_filter_device                   loop_filter (csrc/loop_filter.cu)
+  kframe_step (the intra wavefront)    kframe_wave (csrc/kframe_wave.cu)
 
 ``block_energy_at`` is ``block_energy`` with the prediction read in place
 out of a plane at per-block starts, for several candidate sets at once.
@@ -21,9 +22,10 @@ Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
-``loop_filter`` alone takes CUDA tensors only: its plain version is the
-step's own ``pipeline/tpu_encdec.py:loop_filter_ref``, and the step's
-``loop_filter_device`` sends CPU tensors there and CUDA tensors here.
+``loop_filter`` and ``kframe_wave`` take CUDA tensors only: their plain
+versions are the steps' own ``pipeline/tpu_encdec.py:loop_filter_ref`` and
+``kframe_wave_ref``, and the steps' ``loop_filter_device`` and
+``kframe_wave_device`` send CPU tensors there and CUDA tensors here.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ _LAUNCHERS = {
     "hier_search_fused": ("sse_search", "hier_search_launch", 5, 0, 2),
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
     "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 10),
+    "kframe_wave": ("kframe_wave", "kframe_wave_launch", 13, 0, 10),
 }
 _fns: dict = {}
 
@@ -688,3 +691,152 @@ def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
 
 
 loop_filter.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The keyframe's intra wavefront (csrc/kframe_wave.cu)
+# ---------------------------------------------------------------------------
+
+# the keyframe's mode prior in lambda units, in IntraMode order (DC, V, H,
+# D45, D135, D117, D153, D207, D63, TM): DC, V, H and TM are cheaper in
+# the keyframe's mode trees
+KF_MODE_BIAS = (0, 1, 1, 3, 3, 3, 3, 3, 3, 1)
+# keeps a block's cost, sse + bias * lam, inside int32 (sse < 2^27)
+KF_MAX_LAM = 1 << 24
+KF_STRIP = ("strip geometries (mi_rows % 4 == 2: the bottom 16-pixel "
+            "strip's above-only modes, ADST at TX16) are not ported yet "
+            "(ROADMAP.md Queue A item 5)")
+
+
+def kf_diagonal(d: int, rows: int, cols: int):
+    """(first block row, number of blocks) of anti-diagonal ``d`` of a
+    rows x cols grid: the blocks (r, d - r) that lie in the grid."""
+    r0 = max(0, d - cols + 1)
+    return r0, min(rows - 1, d) - r0 + 1
+
+
+def _kf_dir_words(bs: int) -> np.ndarray:
+    """(8, bs*bs) int32: ``ops/intra.stacked_dir_maps(bs)`` packed one
+    word per mode and pixel: the three taps' indices into the reference
+    vector in bits 0-6, 7-13, 14-20, their weights in bits 21-23, 24-26,
+    27-29."""
+    from tpu_vp9_torch.ops.intra import stacked_dir_maps
+
+    idx, w = stacked_dir_maps(bs)  # (8, 3, bs, bs) each
+    idx = idx.reshape(8, 3, -1).astype(np.int64)
+    w = w.reshape(8, 3, -1).astype(np.int64)
+    if idx.max() >= 128 or w.max() >= 8 or idx.min() < 0 or w.min() < 0:
+        raise AssertionError("intra maps do not fit the packed words")
+    word = (idx[:, 0] | idx[:, 1] << 7 | idx[:, 2] << 14 | w[:, 0] << 21
+            | w[:, 1] << 24 | w[:, 2] << 27)
+    return word.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kf_tables_on(device: torch.device):
+    """The kernel's constant tables on ``device``: float64 (f_col32,
+    f_row_t32, f_col16, f_row_t16), the port's forward matrices (the
+    float32 ones widened), and int32 (dir32, dir16, iscan32, iscan16), the
+    packed directional maps and each raster place's place in the DCT_DCT
+    scan order."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import txfm
+
+    mats = []
+    for n in (32, 16):
+        mats += [m.astype(np.float64).reshape(-1) for m in
+                 txfm.fwd_matrices(txfm.TX_SIZE[n], T.TxType.DCT_DCT)]
+    tabs = [_kf_dir_words(32).reshape(-1), _kf_dir_words(16).reshape(-1)]
+    for n in (32, 16):
+        scan = np.asarray(T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0])
+        tabs.append(np.argsort(scan).astype(np.int32))
+    return (torch.from_numpy(np.concatenate(mats)).to(device),
+            torch.from_numpy(np.concatenate(tabs)).to(device))
+
+
+def check_kf_args(src_y, src_u, src_v, geom, dc_q: int, ac_q: int,
+                   lam: int) -> None:
+    g = geom
+    if g.strip:
+        raise NotImplementedError(f"kframe_wave: {KF_STRIP}")
+    for name, t, shape in (("src_y", src_y, (g.pad_h, g.pad_w)),
+                           ("src_u", src_u, (g.pad_h // 2, g.pad_w // 2)),
+                           ("src_v", src_v, (g.pad_h // 2, g.pad_w // 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"kframe_wave: {name} of shape "
+                             f"{tuple(t.shape)}, want {shape}")
+        if t.dtype != torch.uint8:
+            raise TypeError(f"kframe_wave: {name} must be uint8, got "
+                            f"{t.dtype}")
+    if g.rows32 * 32 > g.pad_h or g.cols32 * 32 > g.pad_w:
+        raise ValueError(f"kframe_wave: a {g.rows32}x{g.cols32} grid of "
+                         f"32-blocks does not fit a {g.pad_h}x{g.pad_w} "
+                         "plane")
+    if not (0 < dc_q < 1 << 16 and 0 < ac_q < 1 << 16):
+        raise ValueError(f"kframe_wave: quantizers ({dc_q}, {ac_q}) outside "
+                         "[1, 65535]")
+    if not 0 <= lam < KF_MAX_LAM:
+        raise ValueError(f"kframe_wave: lam={lam} outside [0, {KF_MAX_LAM})")
+
+
+def kf_outputs(geom, device):
+    """The wavefront's outputs, unfilled, on ``device``: mode int32 (B,),
+    [lv_y int16 (B, 32, 32), lv_u, lv_v (B, 16, 16)], eob int32 (3, B),
+    [rec_y uint8 (rows32*32, cols32*32), rec_u, rec_v (rows32*16,
+    cols32*16)]."""
+    rows, cols = geom.rows32, geom.cols32
+    b = rows * cols
+    mode = torch.empty(b, dtype=torch.int32, device=device)
+    lvs = [torch.empty((b, n, n), dtype=torch.int16, device=device)
+           for n in (32, 16, 16)]
+    eob = torch.empty((3, b), dtype=torch.int32, device=device)
+    recs = [torch.empty((rows * n, cols * n), dtype=torch.uint8,
+                        device=device) for n in (32, 16, 16)]
+    return mode, lvs, eob, recs
+
+
+def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int):
+    """The keyframe's closed-loop intra encode of the 32 grid.
+
+    src_y: (pad_h, pad_w), src_u and src_v: (pad_h/2, pad_w/2) uint8
+    padded source planes; geom: the step's geometry (no strip); dc_q, ac_q:
+    the quantizer steps; lam: the mode prior's lambda. Over the
+    anti-diagonals d = 0 .. rows32 + cols32 - 2 in order, every 32x32 block
+    (r, d - r): the 10 intra predictions from the recon of earlier
+    diagonals (127 above the frame, 129 left of it, above-right repeating
+    above[31], the left column clamped to the last visible row), the mode of
+    least ``sse + KF_MODE_BIAS[m] * lam`` (the first on a tie), then luma at
+    32 and both chroma planes at 16 with that mode: float64 forward DCT,
+    quantizer, exact integer inverse, recon and eob. Returns (mode int32
+    (B,), lv_y int16 (B, 32, 32), lv_u, lv_v int16 (B, 16, 16), eob_y, eob_u,
+    eob_v int32 (B,), rec_y uint8 (rows32*32, cols32*32), rec_u, rec_v
+    (rows32*16, cols32*16)), blocks in raster order, the recon unfiltered.
+
+    It runs the kernel of ``csrc/kframe_wave.cu``, one launch per
+    anti-diagonal on the current stream, or raises: CPU tensors go to the
+    plain version ``pipeline/tpu_encdec.py:kframe_wave_ref`` through the
+    step's ``kframe_wave_device``, not through here. The two agree bit for
+    bit unless a coefficient's ``|c| / q + 0.38`` lies within about 1e-12 of
+    an integer (the float64 forward transform sums in another order).
+    """
+    dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
+    check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
+    if _device_kind("kframe_wave", src_y, src_u, src_v) != "cuda":
+        raise ValueError("kframe_wave: the kernel takes CUDA tensors; CPU "
+                         "tensors go through kframe_wave_device")
+    g = geom
+    rows, cols = g.rows32, g.cols32
+    dev = src_y.device
+    mode, lvs, eob, recs = kf_outputs(g, dev)
+    mats, tabs = _kf_tables_on(dev)
+    ptrs = [t.data_ptr() for t in (src_y, src_u, src_v, *recs, mode, *lvs,
+                                   eob, mats, tabs)]
+    for d in range(rows + cols - 1):
+        r0, nb = kf_diagonal(d, rows, cols)
+        _launch("kframe_wave", dev, *ptrs, g.pad_w, g.height, rows, cols,
+                d, r0, nb, dc_q, ac_q, lam)
+        kframe_wave.launches += 1
+    return (mode, *lvs, *eob.unbind(0), *recs)
+
+
+kframe_wave.launches = 0

@@ -1,12 +1,15 @@
 """Realtime low-delay encode session on torch: the M9 and M8 configurations.
 
-The counterpart of ``tpu_vp9/pipeline/realtime.py:RtSession``. The
-keyframe is encoded by the host encoder and its reconstruction uploaded to
-``device`` (``upload_refs``); every P-frame then runs ``make_pframe_step``
-on the device, whose new reference planes stay there. Per frame the
-levels, eobs and MVs (and the recon when asked) come back to the host,
-where the native serializer writes the tile (the Python one when the
-native library is absent).
+The counterpart of ``tpu_vp9/pipeline/realtime.py:RtSession``. Every
+frame is encoded on ``device``: the keyframe by ``make_kframe_step`` (the
+intra wavefront, the loop filter and the border extension; its modes,
+levels and eobs come back to the host, where the Python serializer writes
+the tile with forward updates), every P-frame by ``make_pframe_step``. The
+reference planes stay on the device. Per P-frame the levels, eobs and MVs
+(and the recon when asked) come back to the host, where the native
+serializer writes the tile (the Python one when the native library is
+absent). ``_kstep = None`` switches the keyframe to the host encoder, whose
+recon is then uploaded (``upload_refs``), as the JAX session allows.
 
 M8 (``split16=True, golden=True``) adds the GOLDEN anchor (a second set of
 reference planes on the device, refreshed from the new reconstruction
@@ -22,10 +25,11 @@ The step for frame N is issued before frame N-1 is fetched and
 serialized, and serialization runs on a worker thread (CQP), as in the
 JAX package. On CUDA the fetch of frame N-1's outputs is a blocking copy
 that waits for frame N's step too; overlapping the two is later work.
+``flush`` drains the pipeline and leaves the session usable; ``close``
+stops the worker.
 
 Not ported yet, and refused with NotImplementedError: the adaptive lambda
-(``aq`` with GOLDEN, tune SQ), meshes, rate control, strip geometries, the
-device keyframe.
+(``aq`` with GOLDEN, tune SQ), meshes, rate control, strip geometries.
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ from tpu_vp9_torch.codec.intra_frame import (
 from tpu_vp9_torch.ops.loopfilter import pick_filter_level, sharpness_limits
 from tpu_vp9_torch.pipeline.encoder import EncodedFrame, _apply_loop_filter
 from tpu_vp9_torch.pipeline.tpu_encdec import (
-    Geom, extend_borders_device, make_geom, make_pframe_step,
-    make_rate_tabs, pad_plane, upload_rate_tabs,
+    Geom, extend_borders_device, make_geom, make_kframe_step,
+    make_pframe_step, make_rate_tabs, pad_plane, upload_rate_tabs,
 )
 from tpu_vp9_torch.utils.trace import span
 
@@ -59,6 +63,8 @@ LAST = int(RefFrame.LAST)
 _ZONE_KEYS = ("mv", "ref", "skip", "eob_y", "eob_u", "eob_v", "lv_y",
               "lv_u", "lv_v")
 _CHILD_KEYS = tuple(k for k in _ZONE_KEYS if k != "ref") + ("sel_idx",)
+_KEY_KEYS = ("mode", "skip", "eob_y", "eob_u", "eob_v", "lv_y", "lv_u",
+             "lv_v")
 
 
 def _leaf_grid_index(geom: Geom, mi_row: int, mi_col: int, bsize):
@@ -279,8 +285,8 @@ def _device_out_to_host(outs, geom: Geom, want_recon: bool):
 
 
 class RtSession:
-    """Streaming low-delay encoder session whose P-frame step runs on
-    ``device`` (the JAX package's ``RtSession`` with the host keyframe).
+    """Streaming low-delay encoder session whose keyframe and P-frame
+    steps run on ``device`` (the JAX package's ``RtSession``).
 
     Frame-context persistence is on by default (error_resilient=False):
     every frame is serialized against the inherited context, carries
@@ -329,6 +335,9 @@ class RtSession:
         self.golden_interval = golden_interval
         self._step = make_pframe_step(self.g, self.device, split16=split16,
                                       golden=golden)
+        # the device keyframe, as the JAX session always takes it; None
+        # selects the host encoder
+        self._kstep = make_kframe_step(self.g, self.device)
         self._lim_tbl, self._mblim_tbl = sharpness_limits(0)
         self._fc = [T.default_frame_context() for _ in range(4)]
         self._refs = None
@@ -469,12 +478,89 @@ class RtSession:
             host = _device_out_to_host(outs, self.g, self.want_recon)
         return self._finish_host(frame, idx, hdr, host, qidx)
 
+    def _encode_key_device(self, frame, idx, qidx):
+        """Keyframe on the device (``make_kframe_step``): its refs become
+        the LAST and GOLDEN references where they lie, and the host
+        serializes its modes, levels and eobs over the 32 grid."""
+        from tpu_vp9_torch.bitstream.tables import IntraMode, TxSize
+        from tpu_vp9_torch.codec.fwd_update import serialize_with_updates
+        from tpu_vp9_torch.codec.intra_frame import serialize_frame
+
+        g = self.g
+        # keyframes reset every context (setup_past_independence)
+        self._fc = [T.default_frame_context() for _ in range(4)]
+        lf_lvl = pick_filter_level(qidx, True) if self.loop_filter else 0
+        lam = max(1, (T.ac_quant(qidx) ** 2) >> 6)
+        with span("kf_device_step"):
+            outs, self._refs = self._kstep(
+                *self.stage(frame), T.dc_quant(qidx), T.ac_quant(qidx), lam,
+                lf_lvl, int(self._lim_tbl[lf_lvl]),
+                int(self._mblim_tbl[lf_lvl]))
+            if self.device.type == "cuda":
+                # the fetch waits for the step anyway; waiting here lets
+                # the two spans split the step from the copy
+                torch.cuda.synchronize(self.device)
+        if self.golden:
+            # a keyframe refreshes every DPB slot; the steps never write
+            # into their inputs, so the anchor can share the planes
+            self._gold = self._refs
+            self._since_gold = 0
+        self._prev_mv32 = torch.zeros_like(self._prev_mv32)
+        with span("kf_d2h_transfer"):
+            host = {k: outs["m32"][k].cpu().numpy() for k in _KEY_KEYS}
+            recs = ([outs[k].cpu().numpy() for k in ("rec_y", "rec_u",
+                                                     "rec_v")]
+                    if self.want_recon else None)
+        with span("kf_serialize"):
+            st = make_frame_state(frame, g.mi_rows, g.mi_cols)
+            events = walk_partition_fixed(g.mi_rows, g.mi_cols,
+                                          BlockSize.BLOCK_32X32, 0)
+            for ev, mi_row, mi_col, bsize, _ in events:
+                if ev != "leaf":
+                    continue
+                bi = (mi_row // 4) * g.cols32 + (mi_col // 4)
+                m = IntraMode(int(host["mode"][bi]))
+                st.mig.set_block(mi_row, mi_col, bsize, MI.ModeInfo(
+                    bsize=bsize, y_mode=m, uv_mode=m, tx_size=TxSize.TX_32X32,
+                    skip=bool(host["skip"][bi]), is_inter=False))
+                for p, (r, c) in enumerate(((mi_row * 2, mi_col * 2),
+                                            (mi_row, mi_col),
+                                            (mi_row, mi_col))):
+                    k = "yuv"[p]
+                    st.levels[(p, r, c)] = host[f"lv_{k}"][bi]
+                    st.eobs[(p, r, c)] = int(host[f"eob_{k}"][bi])
+            tile, updates, st.fc_final, st.counts = serialize_with_updates(
+                st, events, qidx, serialize_frame, None)
+            hdr = FrameHeader(width=self.w, height=self.h, is_keyframe=True,
+                              error_resilient=self.er, base_qindex=qidx,
+                              tx_mode=TxMode.ALLOW_32X32,
+                              refresh_frame_context=not self.er,
+                              frame_parallel_decoding_mode=self.fpdm)
+            hdr.loop_filter.filter_level = lf_lvl
+            # the device loop filter applies one level frame-wide: the
+            # intra ref delta (+1 scale step) is switched off
+            hdr.loop_filter.mode_ref_delta_enabled = False
+            payload = assemble_frame(hdr, tile, updates)
+        self._fc_update(st, hdr, True, None)
+        self._rates_fc = self._fc[0]
+        self._prev_snap = None
+        if recs is not None:
+            mi_h, mi_w = g.h_mi, g.w_mi
+            for pidx in range(3):
+                ss = 0 if pidx == 0 else 1
+                st.planes[pidx].recon[: mi_h >> ss, : mi_w >> ss] = \
+                    recs[pidx][: mi_h >> ss, : mi_w >> ss]
+        return EncodedFrame(payload=payload, is_keyframe=True,
+                            qindex=qidx, state=st, pts=idx)
+
     def _encode_key(self, frame, idx, qidx):
-        """Keyframe on the host encoder; its recon becomes the device
-        reference (and the GOLDEN anchor: a keyframe refreshes every DPB
-        slot)."""
+        """Keyframe on the device, or with ``_kstep = None`` on the host
+        encoder, whose recon becomes the device reference (and the GOLDEN
+        anchor: a keyframe refreshes every DPB slot)."""
         from tpu_vp9_torch.codec.intra_frame import encode_keyframe
 
+        if self._kstep is not None:
+            return self._encode_key_device(frame, idx, qidx)
         g = self.g
         # keyframes reset every context (setup_past_independence)
         self._fc = [T.default_frame_context() for _ in range(4)]
@@ -585,11 +671,14 @@ class RtSession:
         return out
 
     def flush(self):
-        """Drain the pipelined frames at end of stream and stop the
-        serialization worker (a later ``send`` of a P-frame raises)."""
+        """Drain the pipelined frames at end of stream; the session can
+        encode on after it, as the JAX session can."""
         out = self._drain_futs([])
         if self._pending is not None:
             out.append(self._finish(*self._pending))
             self._pending = None
-        self._ser_pool.shutdown()
         return out
+
+    def close(self):
+        """Stop the serialization worker; call after the last ``flush``."""
+        self._ser_pool.shutdown()

@@ -38,6 +38,12 @@ ported (the step ships full int16 level planes). Indexing in torch does
 not clamp out-of-range starts the way ``lax.dynamic_slice`` does, so every
 slice here is either proven in range or checked.
 
+The keyframe has its own step, ``make_kframe_step``: the closed-loop
+intra encode of the 32 grid by anti-diagonals (``kframe_wave``, a CUDA
+kernel, with its plain version ``kframe_wave_ref`` here; all 10 intra modes
+predicted by ``predict_intra_all``), then the same loop filter and border
+extension.
+
 Geometries: width % 32 == 0 and mi_rows % 4 in {0, 3} (the 16-pixel strip
 of mi_rows % 4 == 2 is not ported yet; ``make_geom`` still describes it).
 """
@@ -55,10 +61,11 @@ import torch.nn.functional as F
 from tpu_vp9_torch.bitstream import tables as T
 from tpu_vp9_torch.utils.trace import span
 
-from tpu_vp9_torch.ops import txfm
+from tpu_vp9_torch.ops import intra, txfm
 from tpu_vp9_torch.ops.cuda_kernels import (
-    HALF_R, REFINE_R, WIN_R, block_energy, block_energy_at,
-    hier_search_fused, loop_filter, sse_map_search,
+    HALF_R, KF_MODE_BIAS, KF_STRIP, REFINE_R, WIN_R, check_kf_args,
+    block_energy, block_energy_at, hier_search_fused, kf_diagonal,
+    kf_outputs, kframe_wave, loop_filter, sse_map_search,
     take_windows as _take_windows,
 )
 
@@ -1439,5 +1446,173 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
                            prev_mv32, geom, dc_q, ac_q, lam, lf_lvl,
                            lf_lim, lf_mblim, filters, new_bits,
                            split16=split16, gold=gold, rates=rates)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The device keyframe: the intra wavefront, the loop filter, the borders
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _intra_maps_on(bs: int, device):
+    idx, w = intra.stacked_dir_maps(bs)
+    return (torch.as_tensor(idx.astype(np.int64), device=device),
+            torch.as_tensor(w, dtype=torch.int32, device=device))
+
+
+def predict_intra_all(ref, have_above, have_left, bs: int):
+    """All 10 intra predictions of a batch of blocks, exact, as
+    ``ops/intra.py:predict_all_modes`` computes them: ref (B, 3*bs+1) int32
+    in that module's layout [left, above-left, above and above-right],
+    have_above and have_left (B,) bool. Returns (B, 10, bs, bs) int32 in
+    IntraMode order; the six diagonals, V and H from the module's index and
+    weight maps."""
+    idx, w = _intra_maps_on(bs, ref.device)
+    dirs = ((ref[:, idx] * w).sum(dim=2) + 2) >> 2  # (B, 8, bs, bs)
+    left, al = ref[:, :bs], ref[:, bs]
+    above = ref[:, bs + 1:2 * bs + 1]
+    sum_a, sum_l = above.sum(dim=1), left.sum(dim=1)
+    lg = bs.bit_length() - 1
+    dc = torch.where(
+        have_above & have_left, (sum_a + sum_l + bs) >> (lg + 1),
+        torch.where(have_above, (sum_a + (bs >> 1)) >> lg,
+                    torch.where(have_left, (sum_l + (bs >> 1)) >> lg, 128)))
+    tm = (left[:, :, None] + above[:, None, :] - al[:, None, None]) \
+        .clamp(0, 255)
+    b = ref.shape[0]
+    return torch.cat([dc[:, None, None, None].expand(b, 1, bs, bs), dirs,
+                      tm[:, None]], dim=1).to(torch.int32)
+
+
+def _kf_refs(rec, rr, cc, n: int, visible_h: int):
+    """(ref, have_above, have_left) of the blocks (rr, cc) of size n from
+    the recon plane ``rec`` (``ops/intra.py`` layout: left, above-left,
+    above, above-right). Above is 127 without a row above, left 129 without
+    a column to the left; above-right repeats above[n-1]; the left column
+    clamps to the last visible row (``visible_h``)."""
+    ha, hl = rr >= 1, cc >= 1
+    ar = torch.arange(n, device=rec.device)
+    ya = (rr * n - 1).clamp(min=0)
+    xl = (cc * n - 1).clamp(min=0)
+    above = rec[ya[:, None], (cc * n)[:, None] + ar].to(torch.int32)
+    above = torch.where(ha[:, None], above, 127)
+    lrow = rr[:, None] * n + torch.minimum(
+        ar[None, :], (visible_h - 1 - n * rr).clamp(min=0)[:, None])
+    left = rec[lrow, xl[:, None]].to(torch.int32)
+    left = torch.where(hl[:, None], left, 129)
+    al = rec[ya, xl].to(torch.int32)
+    al = torch.where(ha, torch.where(hl, al, 129), 127)
+    ref = torch.cat([left, al[:, None], above,
+                     above[:, -1:].expand(-1, n)], dim=1)
+    return ref, ha, hl
+
+
+def kframe_wave_ref(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
+                    lam: int):
+    """Plain PyTorch version of the kernel behind
+    ``ops/cuda_kernels.py:kframe_wave`` (same arguments and outputs): the
+    anti-diagonals in order, each diagonal's blocks as one batch whose
+    reference samples come from the recon planes that earlier diagonals
+    filled."""
+    g = geom
+    rows, cols = g.rows32, g.cols32
+    dev = src_y.device
+    mode, lvs, eob, recs = kf_outputs(g, dev)
+    vis = (g.height, (g.height + 1) >> 1, (g.height + 1) >> 1)
+    bias = torch.tensor(KF_MODE_BIAS, dtype=torch.int64, device=dev) * lam
+    for d in range(rows + cols - 1):
+        r0, nb = kf_diagonal(d, rows, cols)
+        rr = torch.arange(r0, r0 + nb, device=dev)
+        cc = d - rr
+        bi = rr * cols + cc
+        for p, (src, n) in enumerate(zip((src_y, src_u, src_v),
+                                         (32, 16, 16))):
+            ref, ha, hl = _kf_refs(recs[p], rr, cc, n, vis[p])
+            ar = torch.arange(n, device=dev)
+            ys = (rr * n)[:, None, None] + ar[None, :, None]
+            xs = (cc * n)[:, None, None] + ar[None, None, :]
+            blocks = src[ys, xs]
+            preds = predict_intra_all(ref, ha, hl, n)
+            if p == 0:
+                err = preds - blocks[:, None].to(torch.int32)
+                sse = (err * err).sum(dim=(2, 3))
+                # torch.argmin returns the first minimum
+                m = torch.argmin(sse + bias, dim=1)
+                mode[bi] = m.to(torch.int32)
+            pred = preds[torch.arange(nb, device=dev), m]
+            lv, e, rec = transform_recon(blocks, pred, dc_q, ac_q, n)
+            lvs[p][bi] = lv
+            eob[p][bi] = e
+            recs[p][ys, xs] = rec
+    return (mode, *lvs, *eob.unbind(0), *recs)
+
+
+def kframe_wave_device(src_y, src_u, src_v, geom: Geom, dc_q: int,
+                       ac_q: int, lam: int):
+    """The keyframe's intra wavefront (contract: ``kframe_wave_ref``).
+    Planes that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises. Both
+    refuse a strip geometry."""
+    if all(t.device.type == "cpu" for t in (src_y, src_u, src_v)):
+        dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
+        check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
+        return kframe_wave_ref(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
+    return kframe_wave(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
+
+
+def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
+                lam: int, lf_lvl: int, lf_lim: int, lf_mblim: int):
+    """The closed-loop intra keyframe encode on the device (the JAX
+    package's ``kframe_step`` without a strip).
+
+    src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 tensors.
+    The 32x32 blocks are encoded by anti-diagonals (``kframe_wave_device``:
+    a CUDA kernel for CUDA planes, its plain version for CPU planes), the
+    recon edge-padded to the device planes, loop filtered frame-wide at
+    ``lf_lvl`` and border-extended. Returns (outputs, new border-extended
+    (ref_y, ref_u, ref_v)); outputs hold "m32" (mode, skip, eob_y/u/v,
+    lv_y/u/v in raster block order) and the filtered planes
+    "rec_y"/"rec_u"/"rec_v".
+    """
+    g = geom
+    (mode, lv_y, lv_u, lv_v, eob_y, eob_u, eob_v, rec_y, rec_u,
+     rec_v) = kframe_wave_device(src_y, src_u, src_v, g, dc_q, ac_q, lam)
+    outs = {"m32": {
+        "mode": mode, "skip": (eob_y == 0) & (eob_u == 0) & (eob_v == 0),
+        "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
+        "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v}}
+    rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
+    rec_u = _pad_edge(rec_u, g.pad_h // 2, g.pad_w // 2)
+    rec_v = _pad_edge(rec_v, g.pad_h // 2, g.pad_w // 2)
+    rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g, lf_lvl,
+                                             lf_lim, lf_mblim)
+    outs.update(rec_y=rec_y, rec_u=rec_u, rec_v=rec_v)
+    cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
+    refs = (extend_borders_device(rec_y, g.width, g.height),
+            extend_borders_device(rec_u, cw, ch),
+            extend_borders_device(rec_v, cw, ch))
+    return outs, refs
+
+
+def make_kframe_step(geom: Geom, device):
+    """The keyframe step for one geometry on one device:
+
+        step(src_y, src_u, src_v, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim)
+
+    Refuses a strip geometry here, before any frame, and planes that do
+    not lie on ``device``'s kind of device."""
+    if geom.strip:
+        raise NotImplementedError(f"make_kframe_step: {KF_STRIP}")
+    kind = torch.device(device).type
+
+    def step(src_y, src_u, src_v, dc_q, ac_q, lam, lf_lvl, lf_lim,
+             lf_mblim):
+        if any(t.device.type != kind for t in (src_y, src_u, src_v)):
+            raise ValueError(f"the keyframe step for {kind} was given "
+                             "planes on another device")
+        return kframe_step(src_y, src_u, src_v, geom, dc_q, ac_q, lam,
+                           lf_lvl, lf_lim, lf_mblim)
 
     return step
