@@ -5,12 +5,22 @@
 Phases, each of which raises on failure (nothing is caught):
   1. the card, the software, and the build of every kernel (one nvcc per
      source, all started together) and of the native host library;
-  2. kernels: sad_full_search, block_energy (on blocks and positioned,
-     block_energy_at), sse_map_search (one level, and both levels
-     fused, hier_search_fused), kframe_wave and loop_filter against their
-     plain PyTorch versions on the card, bit for bit, at the shapes the
-     1080p paths give them (the M8 children's included), ties, negative
-     minima and the largest operands included; kframe_wave on the first
+  2. kernels: first a keyframe and an M8 P-frame of the clip through the
+     public encoder, the real inputs of the step's loop filter, transform
+     and quarter-pel calls recorded; then sad_full_search, block_energy
+     (on blocks and positioned, block_energy_at), sse_map_search (one
+     level, and both levels fused, hier_search_fused), subpel_search,
+     transform_recon, kframe_wave and loop_filter against their plain
+     PyTorch versions on the card, bit for bit, at the shapes the 1080p
+     paths give them (the M8 children's included), ties, negative minima
+     and the largest operands included; subpel_search on the zone's and
+     the children's real windows, on windows where all 49 offsets tie, at
+     the largest SSE, on 0/255 checkerboards and with winners at +-r;
+     transform_recon at its four path shapes on the step's real blocks,
+     on source against the previous recon, on +-255 and zero residuals
+     and on one nonzero level at each scan place, at four qindex values
+     (the 8191 level clip reached), its level flips counted; kframe_wave
+     on the first
      panning frame at four qindex values, on patches that make every intra
      mode win (the blocks each mode won printed), on a constant frame whose
      tied modes must all go to the first, on 0/255 blocks at qindex 0 (the
@@ -20,7 +30,7 @@ Phases, each of which raises on failure (nothing is caught):
      filter (the lanes of each class counted by the plain version and
      printed), without a split mask, with a random one and with all ones,
      at three levels, at small geometries, and on the unfiltered recon,
-     mask and level of a real keyframe and a real M8 P-frame; txq_cost on
+     mask and level of the real keyframe and M8 P-frame; txq_cost on
      made-up residuals within its tolerance; each timed per call with CUDA
      events and on the host clock, and per launch with the profiler;
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
@@ -28,10 +38,13 @@ Phases, each of which raises on failure (nothing is caught):
      through the public Vp9Encoder; the keyframe must launch kframe_wave
      once per anti-diagonal (93) and loop_filter once; per P-frame the
      search entry points must launch twice (hier_search_fused, then
-     sse_map_search for the children), the block_energy ones 5 times and
+     sse_map_search for the children), subpel_search twice,
+     transform_recon 6 times, the block_energy ones 5 times and
      loop_filter once; some parents must split; the stream must decode with
      the port's decoder to the encoder's own recon across two GOLDEN
-     refreshes; fps, step time and the host-clock stage split. Inside the
+     refreshes; fps, step time, the host-clock stage split and the send
+     split by the spans rt_device_step, rt_stage, rt_rate_args,
+     api_scene_cut, api_frame_qindex and rt_d2h_transfer. Inside the
      same counted window txq_cost runs at its own entry point on every
      P-frame's residual (source minus the previous frame's recon), at
      n=32 and n=16;
@@ -91,7 +104,7 @@ import torch  # noqa: E402
 WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
-        "loop_filter", "kframe_wave")
+        "loop_filter", "kframe_wave", "transform_recon", "subpel_search")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -102,15 +115,18 @@ M9_B = 34 * 60
 # search of the 32 zone and the children's search; the recon distortion of
 # the 32 zone and of the children (block_energy); the 32 zone's ZERO SSE,
 # GOLDEN's ZERO and previous-MV SSE in one launch, and the children's ZERO
-# SSE (block_energy_at): 2 search and 5 energy launches; the loop filter of
-# all three planes, split mask included, is one launch. M9: the fused
-# search, ZERO SSE, recon distortion and the loop filter (no mask).
+# SSE (block_energy_at): 2 search and 5 energy launches; the quarter-pel
+# search of the zone and of the children; the transform of the zone's Y32,
+# U16 and V16 and of the children's Y16, U8 and V8; the loop filter of all
+# three planes, split mask included, is one launch. M9: the fused search,
+# ZERO SSE, quarter-pel, the zone's three transforms, recon distortion and
+# the loop filter (no mask).
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
-               "loop_filter": 1}
+               "loop_filter": 1, "transform_recon": 6, "subpel_search": 2}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
-               "loop_filter": 1}
+               "loop_filter": 1, "transform_recon": 3, "subpel_search": 1}
 # launches per keyframe (M8 and M9 alike): one kframe_wave per
 # anti-diagonal of the 34 x 60 grid, and the loop filter of the three planes
 KF_DIAGONALS = 34 + 60 - 1
@@ -122,7 +138,9 @@ ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "sse_map_search": ("sse_map_search", "hier_search_fused"),
                   "txq_cost": ("txq_cost",),
                   "loop_filter": ("loop_filter",),
-                  "kframe_wave": ("kframe_wave",)}
+                  "kframe_wave": ("kframe_wave",),
+                  "transform_recon": ("transform_recon",),
+                  "subpel_search": ("subpel_search",)}
 # each wrapper's kernel, by a part of its name in a profile
 WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "block_energy": "block_energy_kernel",
@@ -131,7 +149,9 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "hier_search_fused": "hier_search_kernel",
                    "txq_cost": "txq_cost_kernel",
                    "loop_filter": "loop_filter_kernel",
-                   "kframe_wave": "kframe_wave_kernel"}
+                   "kframe_wave": "kframe_wave_kernel",
+                   "transform_recon": "transform_recon_kernel",
+                   "subpel_search": "subpel_search_kernel"}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
 # geometries of the CPU tests (the last no wider than 64: no band), and
 # integer operations per filtered edge lane (an upper estimate: 16 loads,
@@ -169,6 +189,30 @@ KF_SMALL_DIMS = ((128, 96), (160, 120), (96, 64), (64, 64), (192, 120),
                  (32, 32))
 # txq_cost's stated tolerance (ops/cuda_kernels.py:txq_cost)
 TXQ_RTOL, TXQ_ATOL, TXQ_BAND, TXQ_MAX_FLIPPED = 1e-4, 1e-3, 1e-3, 0.01
+# transform_recon: the qindex values of its phase (0: the 8191 level clip),
+# the one at which each scan place gets a lone nonzero level (LONE_LEVEL, 4
+# at DC), and the band around a rounding boundary where a level may differ
+# from the plain version's (the float64 products sum in another order)
+TR_QINDICES = (0, 10, 100, 255)
+TR_LONE_QINDEX, TR_LONE_LEVEL = 60, 20
+TR_FLIP_BAND = 1e-9
+# its path's calls per M8 P-frame, in the step's order: the zone's Y, U, V,
+# then the children's U, V, Y; and the shapes timed (label, the call's
+# index, its launches per P-frame): one launch of each distinct shape, the
+# zone's U standing for both its chroma planes and the children's U for
+# theirs
+TR_CALLS = ("zone Y", "zone U", "zone V", "children U", "children V",
+            "children Y")
+TR_TIMED = (("zone Y", 0, 1), ("zone U, V", 1, 2), ("children Y", 5, 1),
+            ("children U, V", 3, 2))
+# integer operations per block besides the float64 transform (an upper
+# estimate: the inverse's lines, about 500 an idct32 line, 200 an idct16
+# one and 60 an idct8 one, two passes; 16 a pixel for the residual,
+# quantizer, dequantizer, eob and recon)
+TR_INT_OPS = {32: 500 * 64 + 16 * 1024, 16: 200 * 32 + 16 * 256,
+              8: 60 * 16 + 16 * 64}
+# subpel_search's path calls per M8 P-frame: the zone's, then the children's
+SP_CALLS = ("zone n=32 r=4", "children n=16 r=8")
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float):
@@ -1033,36 +1077,61 @@ def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
           f"of CTA alone: {', '.join(shown)}")
 
 
-def _real_m8_lf_input(dev):
-    """The arguments of the loop filter of a real keyframe and of a real M8
-    P-frame: the first two frames of the clip through the public encoder,
-    the steps' calls of ``loop_filter_device`` recorded."""
+def _real_m8_inputs(dev):
+    """The real inputs of three stages of the steps: the first two frames
+    of the clip (a keyframe and an M8 P-frame) through the public encoder,
+    the steps' calls of ``loop_filter_device`` (keyframe and P-frame),
+    ``transform_recon`` and ``subpel_search`` (P-frame) recorded. Returns
+    ({"lf": [(y, u, v, geom, lvl, lim, mblim, split32)], "tr": [(src,
+    pred, dc_q, ac_q, n)], "sp": [(wins, src, dy, dx, n, r)]}, the two
+    frames, their recon)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
 
-    calls = []
-    real = P.loop_filter_device
+    calls = {"lf": [], "tr": [], "sp": []}
+    real_lf, real_tr, real_sp = (P.loop_filter_device, P.transform_recon,
+                                 P.subpel_search)
 
-    def record(y, u, v, geom, lvl, lim, mblim, split32=None):
-        calls.append((y, u, v, geom, lvl, lim, mblim, split32))
-        return real(y, u, v, geom, lvl, lim, mblim, split32=split32)
+    def record_lf(y, u, v, geom, lvl, lim, mblim, split32=None):
+        calls["lf"].append((y, u, v, geom, lvl, lim, mblim, split32))
+        return real_lf(y, u, v, geom, lvl, lim, mblim, split32=split32)
 
-    P.loop_filter_device = record
+    def record_tr(*args):
+        calls["tr"].append(args)
+        return real_tr(*args)
+
+    def record_sp(*args):
+        calls["sp"].append(args)
+        return real_sp(*args)
+
+    P.loop_filter_device = record_lf
+    P.transform_recon, P.subpel_search = record_tr, record_sp
     enc = _make_encoder(dev, 8)
-    for frame in panning_frames(WIDTH, HEIGHT, 2, seed=1):
+    got = _capture(enc)
+    frames = list(panning_frames(WIDTH, HEIGHT, 2, seed=1))
+    for frame in frames:
         enc.send_picture(frame)
     enc.flush()
-    P.loop_filter_device = real
+    P.loop_filter_device = real_lf
+    P.transform_recon, P.subpel_search = real_tr, real_sp
     torch.cuda.synchronize()
-    if len(calls) != 2 or calls[0][7] is not None or calls[1][7] is None:
+    lf = calls["lf"]
+    if len(lf) != 2 or lf[0][7] is not None or lf[1][7] is None:
         raise AssertionError(f"the keyframe and the M8 P-frame called the "
-                             f"loop filter {len(calls)} times, or the "
+                             f"loop filter {len(lf)} times, or the "
                              "keyframe with a mask or the P-frame without")
-    return calls
+    if ([c[4] for c in calls["tr"]] != [32, 16, 16, 8, 8, 16]
+            or [c[4:] for c in calls["sp"]] != [(32, 4), (16, 8)]):
+        raise AssertionError(
+            "the M8 P-frame's transform and quarter-pel calls were "
+            f"{[c[4] for c in calls['tr']]} and "
+            f"{[c[4:] for c in calls['sp']]}")
+    return calls, frames, [r for _, r in got]
 
 
-def loop_filter_kernel_phase(dev):
-    """loop_filter (CUDA) against loop_filter_ref on the card."""
+def loop_filter_kernel_phase(dev, lf_calls):
+    """loop_filter (CUDA) against loop_filter_ref on the card; lf_calls:
+    the real keyframe's and M8 P-frame's arguments (``_real_m8_inputs``)."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.ops.loopfilter import sharpness_limits
     from tpu_vp9_torch.pipeline import tpu_encdec as P
@@ -1095,7 +1164,7 @@ def loop_filter_kernel_phase(dev):
                              f"filter class: {seen}")
     # the real thing: a keyframe's and an M8 P-frame's unfiltered recon,
     # (mask) and level
-    key_in, (y, u, v, g, lvl, lim, mblim, split) = _real_m8_lf_input(dev)
+    key_in, (y, u, v, g, lvl, lim, mblim, split) = lf_calls
     err, _ = _lf_case("real keyframe", key_in[:3], *key_in[3:])
     max_err = max(max_err, err)
     print(f"loop_filter: a real M8 P-frame's input: lvl={lvl} lim={lim} "
@@ -1129,6 +1198,222 @@ def loop_filter_kernel_phase(dev):
                     int(mblim_t[LF_LEVELS[-1]]), made_up[2])
     return _entry("loop_filter", "tpu_vp9_torch/csrc/loop_filter.cu",
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
+
+
+def _tr_bound(b, n):
+    """transform_recon's bound for B blocks of n: reads src and pred,
+    writes int16 levels, recon and eob; the two forward products (a
+    multiply and an add per term, n^3 terms each per block) in float64 at
+    FP64_OPS_PER_S and the integer work, here as operations at
+    ALU_OPS_PER_S."""
+    return _bound(5 * b * n * n + 4 * b,
+                  b * (4 * n ** 3 * ALU_OPS_PER_S / FP64_OPS_PER_S
+                       + TR_INT_OPS[n]), ALU_OPS_PER_S)
+
+
+def _tr_case(label, src, pred, dc_q, ac_q, n):
+    """transform_recon (CUDA) against transform_recon_ref on one batch:
+    the level flips counted and printed, each allowed only where the plain
+    version's float64 |c| / q + 0.38 lies within TR_FLIP_BAND of an
+    integer; eob and recon bit-equal in every block whose levels are.
+    Returns (max_abs_err over all three outputs, the kernel's outputs)."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.ops import txfm
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    got = K.transform_recon(src, pred, dc_q, ac_q, n)
+    want = P.transform_recon_ref(src, pred, dc_q, ac_q, n)
+    torch.cuda.synchronize()
+    b = src.shape[0]
+    differ = got[0] != want[0]
+    flips = int(differ.sum())
+    same = ~differ.reshape(b, -1).any(dim=1)
+    if flips:
+        coef = txfm.fwd_txfm2d_f64(src.to(torch.int32) - pred.to(torch.int32))
+        q = torch.full((n, n), float(ac_q), dtype=torch.float64,
+                       device=src.device)
+        q[0, 0] = float(dc_q)
+        if n == 32:
+            q = q * 0.5
+        mag = (coef.abs() / q + txfm.QBIAS)[differ]
+        off = float((mag - mag.round()).abs().max())
+        if off >= TR_FLIP_BAND:
+            raise AssertionError(f"transform_recon [{label}]: a level flipped "
+                                 f"{off:.3g} from a rounding boundary")
+    for name, g, w in (("eob", got[1], want[1]), ("recon", got[2], want[2])):
+        if not torch.equal(g[same], w[same]):
+            raise AssertionError(f"transform_recon [{label}]: {name} differs "
+                                 "in a block whose levels are equal")
+    err = _max_err(got, want)
+    print(f"kernel transform_recon [{label} B={b} n={n} q=({dc_q}, {ac_q})]: "
+          f"{flips} level flips in {b - int(same.sum())} of {b} blocks; "
+          f"max_abs_err={err}; eob {int(got[1].min())}..{int(got[1].max())}, "
+          f"largest |level| {int(got[0].abs().max())}")
+    return err, got
+
+
+def _plane_blocks(plane, h, n, b, dev):
+    """The first b (n, n) blocks, raster order, of a host plane
+    edge-padded to h rows, on the card."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    t = torch.from_numpy(P.pad_plane(np.asarray(plane), h, plane.shape[1]))
+    return P._extract_blocks(t.to(dev), 0, h // n, plane.shape[1] // n,
+                             n)[:b].contiguous()
+
+
+def transform_kernel_phase(dev, real, frames, recons):
+    """transform_recon (CUDA) against transform_recon_ref on the card at
+    the four shapes of the M8 path at 1080p (B = 2040: the zone's luma at
+    32 and chroma at 16, the children's luma at 16 and chroma at 8): the
+    step's real blocks (``_real_m8_inputs``), the second frame's source
+    against the first frame's recon at four qindex values, +-255
+    residuals at the same four (the level clip reached at qindex 0), zero
+    residuals (eob 0), and blocks with one nonzero level at each scan place
+    (every eob value). Timed on the real blocks."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    rng = np.random.default_rng(29)
+    max_err = 0
+    for label, (src, pred, dc_q, ac_q, n) in zip(TR_CALLS, real):
+        max_err = max(max_err, _tr_case(f"M8 P-frame's {label}", src, pred,
+                                        dc_q, ac_q, n)[0])
+    # (label, plane index, n) of the path's four shapes
+    shapes = (("luma", 0, 32), ("chroma", 1, 16), ("luma", 0, 16),
+              ("chroma", 1, 8))
+    clip = False
+    for plane_name, p, n in shapes:
+        b = M9_B
+        h = (HEIGHT + 31) // 32 * 32 >> (1 if p else 0)
+        cur = frames[1]
+        src = _plane_blocks((cur.y, cur.u, cur.v)[p], h, n, b, dev)
+        prev = _plane_blocks(recons[0][p], h, n, b, dev)
+        ext = torch.from_numpy(rng.choice([0, 255], (b, n, n))
+                               .astype(np.uint8)).to(dev)
+        ext[0], ext[1] = 255, 0
+        for q in TR_QINDICES:
+            dc_q, ac_q = T.dc_quant(q), T.ac_quant(q)
+            max_err = max(max_err, _tr_case(
+                f"{plane_name} source against the previous recon", src, prev,
+                dc_q, ac_q, n)[0])
+            err, got = _tr_case("+-255 residuals", ext, 255 - ext, dc_q, ac_q,
+                                n)
+            max_err = max(max_err, err)
+            clip |= int(got[0].abs().max()) == 8191
+        dc_q, ac_q = T.dc_quant(TR_LONE_QINDEX), T.ac_quant(TR_LONE_QINDEX)
+        err, got = _tr_case("zero residuals", src, src.clone(), dc_q, ac_q, n)
+        max_err = max(max_err, err)
+        if int(got[1].abs().max()) or int(got[0].abs().max()):
+            raise AssertionError("transform_recon: a zero residual has levels")
+        # one lone level at each scan place: its recon is the source
+        nn = n * n
+        scan = torch.as_tensor(np.asarray(T.scan_order(
+            P.txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0]), device=dev)
+        levels = torch.zeros((nn, nn), dtype=torch.int32, device=dev)
+        levels[torch.arange(nn, device=dev), scan] = TR_LONE_LEVEL
+        levels[0, scan[0]] = 4
+        pred = torch.full((nn, n, n), 128, dtype=torch.uint8, device=dev)
+        lone = P.recon_from_levels(levels.reshape(nn, n, n), pred, dc_q, ac_q,
+                                   n)[1]
+        err, got = _tr_case("one level at each scan place", lone, pred, dc_q,
+                            ac_q, n)
+        max_err = max(max_err, err)
+        print(f"transform_recon n={n}: the lone levels reach "
+              f"{len(set(got[1].tolist()))} of {nn} eob values")
+    if not clip:
+        raise AssertionError("transform_recon: the 8191 level clip was not "
+                             "reached")
+    parts = []
+    for label, i, per_frame in TR_TIMED:
+        src, pred, dc_q, ac_q, n = real[i]
+        b = src.shape[0]
+        parts.append(_timed(
+            "transform_recon", f"{label} B={b} n={n}",
+            lambda: K.transform_recon(src, pred, dc_q, ac_q, n),
+            lambda: P.transform_recon_ref(src, pred, dc_q, ac_q, n), 5,
+            _tr_bound(b, n), "transform_recon_kernel", per_frame))
+    return _entry("transform_recon", "tpu_vp9_torch/csrc/transform_recon.cu",
+                  "tpu_vp9/pipeline/tpu_encdec.py:820", max_err, parts)
+
+
+def _sp_bound(b, n):
+    """subpel_search's bound for B blocks of n: reads each block's (n+8)^2
+    window, its source and two int32, writes three int32; 8-tap sums (a
+    multiply and an add a tap) for the 4 H planes of (n+8) x (n+1) and the
+    16 V planes of (n+1)^2, and a subtract, multiply and add per pixel of
+    the 49 SSEs, at ALU_OPS_PER_S."""
+    ops = (4 * (n + 8) * (n + 1) * 16 + 16 * (n + 1) ** 2 * 16
+           + 49 * n * n * 3)
+    return _bound(b * ((n + 8) ** 2 + n * n + 20), b * ops, ALU_OPS_PER_S)
+
+
+def subpel_kernel_phase(dev, real):
+    """subpel_search (CUDA) against subpel_search_ref on the card, bit for
+    bit, at the two shapes of the M8 path at 1080p: the zone's real refine
+    windows and winners from hier_search_fused and the children's real
+    windows (``_real_m8_inputs``); B = 2040 made-up batches of each shape:
+    random windows, winners at the corners of +-r, constant windows (all
+    49 offsets tie: (-6, -6) must win), a zero window against a source of
+    255 (the largest SSE, tied too) and 0/255 checkerboards. Timed on the
+    real inputs."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    rng = np.random.default_rng(31)
+    max_err = 0
+    for label, args in zip(SP_CALLS, real):
+        max_err = max(max_err, _check(
+            "subpel_search", f"M8 P-frame's {label}",
+            K.subpel_search(*args), P.subpel_search_ref(*args)))
+    for _, _, _, _, n, r in real:
+        b, sw = M9_B, n + 2 * r + 8
+
+        def on(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        d = on(rng.integers(-r, r + 1, (2, b)).astype(np.int32))
+        corner = on(np.array([[(-r, r)[i % 2] for i in range(b)],
+                              [(-r, r)[i // 2 % 2] for i in range(b)]],
+                             np.int32))
+        yy, xx = np.mgrid[0:sw, 0:sw]
+        cb = ((yy + xx) % 2 * 255).astype(np.uint8)
+        cases = (
+            ("random", rng.integers(0, 256, (b, sw, sw), dtype=np.uint8),
+             rng.integers(0, 256, (b, n, n), dtype=np.uint8), d, None),
+            ("winners at +-r", rng.integers(0, 256, (b, sw, sw),
+                                            dtype=np.uint8),
+             rng.integers(0, 256, (b, n, n), dtype=np.uint8), corner, None),
+            ("constant: all tie", np.full((b, sw, sw), 77, np.uint8),
+             np.full((b, n, n), 77, np.uint8), d, 0),
+            ("largest SSE: all tie", np.zeros((b, sw, sw), np.uint8),
+             np.full((b, n, n), 255, np.uint8), d, n * n * 255 * 255),
+            ("0/255 checkerboards", np.repeat(cb[None], b, axis=0),
+             np.repeat(255 - cb[None, :n, :n], b, axis=0), d, None))
+        for label, wins, src, dyx, tie_sse in cases:
+            args = (on(wins), on(src), dyx[0].contiguous(),
+                    dyx[1].contiguous(), n, r)
+            got = K.subpel_search(*args)
+            max_err = max(max_err, _check(
+                "subpel_search", f"{label} B={b} n={n} r={r}", got,
+                P.subpel_search_ref(*args)))
+            if tie_sse is not None and not (
+                    torch.equal(got[0], args[2] * 8 - 6)
+                    and torch.equal(got[1], args[3] * 8 - 6)
+                    and bool((got[2] == tie_sse).all())):
+                raise AssertionError(f"subpel_search: ties ({label}) did not "
+                                     "go to the first offset, (-6, -6)")
+    parts = []
+    for label, args in zip(SP_CALLS, real):
+        b, n = args[1].shape[0], args[4]
+        parts.append(_timed(
+            "subpel_search", f"{label} B={b}",
+            lambda: K.subpel_search(*args),
+            lambda: P.subpel_search_ref(*args), 5, _sp_bound(b, n),
+            "subpel_search_kernel", 1))
+    return _entry("subpel_search", "tpu_vp9_torch/csrc/subpel_search.cu",
+                  "tpu_vp9/pipeline/tpu_encdec.py:510", max_err, parts)
 
 
 def _psnr(a, b) -> float:
@@ -1234,7 +1519,9 @@ def _kernel_fns():
             "hier_search_fused": K.hier_search_fused,
             "txq_cost": K.txq_cost,
             "loop_filter": K.loop_filter,
-            "kframe_wave": K.kframe_wave}
+            "kframe_wave": K.kframe_wave,
+            "transform_recon": K.transform_recon,
+            "subpel_search": K.subpel_search}
 
 
 def _reset_counts():
@@ -1253,6 +1540,23 @@ def _stage_means(rows):
             stage_ms[name] = stage_ms.get(name, 0.0) + 1000 * s / len(rows)
     return ", ".join(f"{k} {v:.1f} ms" for k, v in
                      sorted(stage_ms.items(), key=lambda kv: -kv[1]))
+
+
+# the spans that divide a P-frame send on the calling thread (the native
+# serializer runs on the session's worker, beside them)
+SEND_SPANS = ("rt_device_step", "rt_stage", "rt_rate_args", "api_scene_cut",
+              "api_frame_qindex", "rt_d2h_transfer")
+
+
+def _send_split(rows):
+    """A P-frame send's mean host time split by SEND_SPANS, and what none
+    of them covers."""
+    send = 1000 * statistics.mean(r[1] for r in rows)
+    means = {k: 1000 * statistics.mean(r[2].get(k, 0.0) for r in rows)
+             for k in SEND_SPANS}
+    return (f"send {send:.1f} ms split (mean, host clock): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in means.items())
+            + f"; outside them {send - sum(means.values()):.1f} ms")
 
 
 def _stream_line(label, pkts, psnrs):
@@ -1336,6 +1640,7 @@ def realtime_end_to_end_phase(dev, frames, enc_mode):
     print(f"{tag}: per P-frame send (host clock, steady state): mean "
           f"{1000 * statistics.mean(r[1] for r in rows[2:]):.1f} ms; spans "
           + _stage_means(rows[2:]))
+    print(f"{tag}: " + _send_split(rows[2:]))
     trace.enable(False)
     step_ms = _step_time(enc._rt, frames[-1])
     print(f"{tag}: device step alone {step_ms:.3f} ms per P-frame "
@@ -1440,6 +1745,10 @@ def _profile(dev, run, label):
             print(f"  kernel {key} ({wrapper}): {per_launch[wrapper]:.4f} "
                   f"ms per launch (device) over "
                   f"{sum(e.count for e in mine)} launches")
+            if len(mine) > 1:  # instances of a template, by block size
+                for e in mine:
+                    print(f"    {e.self_device_time_total / 1e3 / e.count:.4f}"
+                          f" ms per launch over {e.count}: {_short(e.key)}")
     # the host-side stage ranges: the device time of their PyTorch ops,
     # and of their hand kernels (launches counted by the wrappers, times
     # the kernel's mean device time in this profile)
@@ -1603,11 +1912,13 @@ def main() -> int:
     print(f"native host library built and loaded: "
           f"{time.perf_counter() - t0:.2f} s")
 
-    kernels = {k["name"]: k for k in (sad_kernel_phase(dev),
-                                       energy_kernel_phase(dev),
-                                       sse_kernel_phase(dev),
-                                       kframe_kernel_phase(dev),
-                                       loop_filter_kernel_phase(dev))}
+    real, real_frames, real_recons = _real_m8_inputs(dev)
+    kernels = {k["name"]: k for k in (
+        sad_kernel_phase(dev), energy_kernel_phase(dev), sse_kernel_phase(dev),
+        subpel_kernel_phase(dev, real["sp"]),
+        transform_kernel_phase(dev, real["tr"], real_frames, real_recons),
+        kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]))}
+    del real, real_frames, real_recons
     txq_synthetic_phase(dev)
     if "--kernels" in sys.argv[1:]:
         print(f"chip_smoke: the kernel phases passed in "
@@ -1621,7 +1932,7 @@ def main() -> int:
     # txq_cost: its count is this script's own calls, two for each P-frame,
     # made inside the counted window after the encode
     for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter",
-                 "kframe_wave"):
+                 "kframe_wave", "transform_recon", "subpel_search"):
         kernels[name]["launches"] = sum(m8_counts[w]
                                         for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)

@@ -90,7 +90,7 @@ KERNELS_PY = os.path.join(REPO, "tpu_vp9_torch", "ops", "cuda_kernels.py")
 ENCDEC_PY = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_encdec.py")
 WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter",
-            "kframe_wave")
+            "kframe_wave", "transform_recon", "subpel_search")
 
 
 def _functions(path):
@@ -133,7 +133,8 @@ def test_wrappers_cover_every_kernel_source():
     sources = {os.path.basename(p)[:-3] for p in glob.glob(
         os.path.join(REPO, "tpu_vp9_torch", "csrc", "*.cu"))}
     assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
-    assert {"loop_filter", "kframe_wave"} <= sources and len(sources) == 6
+    assert {"loop_filter", "kframe_wave", "transform_recon",
+            "subpel_search"} <= sources and len(sources) == 8
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -152,10 +153,17 @@ def test_kernel_module_catches_nothing():
                     if isinstance(n, ast.Try)], path
 
 
-# wrapper -> (the step's dispatch, the steps that must call the dispatch)
-STEP_DISPATCH = {"loop_filter": ("loop_filter_device",
-                                 ("pframe_step", "kframe_step")),
-                 "kframe_wave": ("kframe_wave_device", ("kframe_step",))}
+# wrapper -> (the step's dispatch, the steps that must call the dispatch,
+# the other plain versions that call this plain version)
+STEP_DISPATCH = {
+    "loop_filter": ("loop_filter_device", ("pframe_step", "kframe_step"), ()),
+    "kframe_wave": ("kframe_wave_device", ("kframe_step",), ()),
+    "transform_recon": ("transform_recon",
+                        ("encode_zone", "encode_children_masked"),
+                        ("kframe_wave_ref",)),
+    "subpel_search": ("subpel_search",
+                      ("encode_zone", "encode_children_masked"), ()),
+}
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -173,13 +181,14 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors(name):
 
 def _check_step_dispatch(name):
     """In the step's module ``<kernel>_ref`` is called from its dispatch
-    alone, inside the branch taken when every tensor lies on the CPU;
-    everything else goes to the kernel's wrapper, and the steps call the
-    dispatch, not the plain version."""
-    disp_name, steps = STEP_DISPATCH[name]
+    alone (and from the plain versions named in STEP_DISPATCH), inside the
+    branch taken when every tensor lies on the CPU; everything else goes
+    to the kernel's wrapper, and the steps call the dispatch, not the
+    plain version."""
+    disp_name, steps, plain_callers = STEP_DISPATCH[name]
     fns = _functions(ENCDEC_PY)
     callers = [n for n, f in fns.items() if f"{name}_ref" in _called(f)]
-    assert callers == [disp_name]
+    assert sorted(callers) == sorted([disp_name, *plain_callers])
     disp = fns[disp_name]
     assert not _ref_calls_outside_cpu_branches(disp)
     branches = [n for n in ast.walk(disp) if isinstance(n, ast.If)
@@ -190,7 +199,7 @@ def _check_step_dispatch(name):
     assert not branches[0].orelse
     last = disp.body[-1]
     assert isinstance(last, ast.Return)
-    assert ast.unparse(last.value.func) == name
+    assert ast.unparse(last.value.func) in (name, f"cuda_kernels.{name}")
     for step in steps:
         assert disp_name in _called(fns[step]), step
         assert f"{name}_ref" not in _called(fns[step]), step
@@ -204,6 +213,32 @@ def test_kframe_wave_dispatch_has_no_route_from_cuda_to_the_plain_version():
     _check_step_dispatch("kframe_wave")
 
 
+def test_transform_recon_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    _check_step_dispatch("transform_recon")
+
+
+def test_subpel_search_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    _check_step_dispatch("subpel_search")
+
+
+def test_kframe_wave_ref_transforms_with_the_plain_version():
+    """The keyframe's plain version, which chip_smoke.py holds kframe_wave
+    against on the card, stays plain there: it calls transform_recon_ref,
+    not the step's dispatch (which would take the kernel)."""
+    called = _called(_functions(ENCDEC_PY)["kframe_wave_ref"])
+    assert "transform_recon_ref" in called
+    assert "transform_recon" not in called
+
+
+def test_kernel_module_imports_nothing_of_the_pipeline():
+    with open(KERNELS_PY) as fh:
+        tree = ast.parse(fh.read())
+    mods = [n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.module]
+    mods += [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    assert mods and not [m for m in mods if "pipeline" in m], mods
+
 def test_kernel_sources_include_nothing_of_another_package():
     """The CUDA sources include the toolkit's and the C++ library's headers
     and the port's own shared headers only."""
@@ -212,7 +247,7 @@ def test_kernel_sources_include_nothing_of_another_package():
     csrc = os.path.join(REPO, "tpu_vp9_torch", "csrc")
     own = {f'"{os.path.basename(p)}"'
            for p in glob.glob(os.path.join(csrc, "*.cuh"))}
-    assert '"txfm_common.cuh"' in own
+    assert {'"txfm_common.cuh"', '"convolve8.cuh"'} <= own
     for path in glob.glob(os.path.join(csrc, "*.cu*")):
         with open(path) as fh:
             incs = {ln.split(None, 1)[1].strip() for ln in fh
@@ -264,6 +299,81 @@ def test_kframe_wave_on_cuda_raises_when_the_launch_fails(monkeypatch):
     K, g, planes = _fake_cuda_kframe_wave(monkeypatch, refused)
     with pytest.raises(RuntimeError, match="launch failed"):
         K.kframe_wave(*planes, g, 93, 112, 196)
+
+
+def _meta_stage_inputs(name):
+    """Arguments of the step's dispatch ``name`` as tensors that do not lie
+    on the CPU (meta tensors: shapes and dtypes, no data), at the M8
+    zone's shape."""
+    from tpu_vp9_torch.bitstream import tables as T
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if name == "transform_recon":
+        return (meta((6, 32, 32), torch.uint8), meta((6, 32, 32), torch.uint8),
+                T.dc_quant(120), T.ac_quant(120), 32)
+    return (meta((6, 48, 48), torch.uint8), meta((6, 32, 32), torch.uint8),
+            meta((6,), torch.int32), meta((6,), torch.int32), 32, 4)
+
+
+def _fake_cuda_stage(monkeypatch, name, launch):
+    """The step's dispatch ``name`` with the wrappers' device check
+    answering "cuda", ``_launch`` replaced by ``launch`` and the plain
+    version raising if it is reached."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    def no_plain(*a, **k):
+        raise AssertionError(f"{name} reached its plain version")
+
+    monkeypatch.setattr(K, "_device_kind", lambda nm, *t: "cuda")
+    monkeypatch.setattr(K, "_launch", launch)
+    monkeypatch.setattr(P, f"{name}_ref", no_plain)
+    return K, getattr(P, name)
+
+
+@pytest.mark.parametrize("name", ["transform_recon", "subpel_search"])
+def test_stage_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
+                                                           name):
+    calls = []
+    K, dispatch = _fake_cuda_stage(
+        monkeypatch, name, lambda nm, dev, *args: calls.append((nm, args)))
+    args = _meta_stage_inputs(name)
+    before = getattr(K, name).launches
+    out = dispatch(*args)
+    assert [c[0] for c in calls] == [name]
+    assert getattr(K, name).launches - before == 1
+    assert len(out) == 3 and all(t.device.type == "meta" for t in out)
+    # the launcher's ints: blocks, then n and the quantizers, or n and r
+    want = ((6, 32, args[2], args[3]) if name == "transform_recon"
+            else (6, 32, 4))
+    assert calls[0][1][-len(want):] == want
+
+
+def test_stage_dispatch_raises_when_the_launch_fails(monkeypatch):
+    def refused(nm, dev, *args):
+        raise RuntimeError(f"{nm}: CUDA launch failed with error 9")
+
+    for name in ("transform_recon", "subpel_search"):
+        _, dispatch = _fake_cuda_stage(monkeypatch, name, refused)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dispatch(*_meta_stage_inputs(name))
+
+
+@pytest.mark.parametrize("name", ["transform_recon", "subpel_search"])
+def test_stage_wrapper_refuses_cpu_tensors(name):
+    """The wrappers launch or raise: CPU tensors reach the plain version
+    through the step's dispatch only."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    args = [t if not isinstance(t, torch.Tensor) else
+            torch.zeros(t.shape, dtype=t.dtype)
+            for t in _meta_stage_inputs(name)]
+    before = getattr(K, name).launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(K, name)(*args)
+    assert getattr(K, name).launches == before
 
 
 def _run(code, env_extra=None, timeout=300):

@@ -43,6 +43,7 @@ from tpu_vp9_torch.pipeline.rate_control import RateControlState
 from tpu_vp9_torch.pipeline.realtime import RtSession
 from tpu_vp9_torch.pipeline.tpu_encdec import make_geom
 from tpu_vp9_torch.utils.device import require_cuda
+from tpu_vp9_torch.utils.trace import span
 from tpu_vp9_torch.utils.yuv import Frame420
 
 
@@ -209,17 +210,19 @@ class Vp9Encoder:
         is_key = force_keyframe or idx == 0 or (
             cfg.intra_period >= 0 and idx % (cfg.intra_period + 1) == 0)
         if self._scd is not None:
-            cut = self._scd.is_scene_change(frame.y)
+            with span("api_scene_cut"):
+                cut = self._scd.is_scene_change(frame.y)
             if cut and not is_key and cfg.intra_period != -1:
                 is_key = True
         if self._rt is not None:
-            if idx in self._qp_overrides:
-                qindex = qp_to_qindex(self._qp_overrides[idx])
-            else:
-                qindex = rc.frame_qindex(
-                    is_key,
-                    staticness=self._ld_kf_staticness(frame)
-                    if is_key else None)
+            with span("api_frame_qindex"):
+                if idx in self._qp_overrides:
+                    qindex = qp_to_qindex(self._qp_overrides[idx])
+                else:
+                    qindex = rc.frame_qindex(
+                        is_key,
+                        staticness=self._ld_kf_staticness(frame)
+                        if is_key else None)
             for ef in self._rt.send(frame, qindex=qindex,
                                     force_keyframe=is_key):
                 self._emit_rt(ef)

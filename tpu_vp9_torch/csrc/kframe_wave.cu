@@ -323,7 +323,7 @@ __global__ void __launch_bounds__(kThreads)
     const int p = plane_of(i), n = p == 0 ? 32 : 16;
     const int q = i - pix_off(p), y = q / n, x = q % n;
     P.rec[p][(r * n + y) * (P.cols * n) + c * n + x] = txfm::recon_pixel(
-        s_pred[i], s_int[int_off(p) + y * (n + 1) + x]);
+        s_pred[i], s_int[int_off(p) + y * (n + 1) + x], n);
   }
 }
 

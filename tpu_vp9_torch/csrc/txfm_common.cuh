@@ -1,8 +1,8 @@
 // The port's transform pieces as __device__ functions, shared by the
-// kernels that encode blocks (csrc/kframe_wave.cu today; the P-frame step's
-// transform_recon next). Each is what tpu_vp9_torch/ops/txfm.py and
-// pipeline/tpu_encdec.py:transform_recon compute, for the DCT_DCT blocks of
-// the device steps:
+// kernels that encode blocks (csrc/kframe_wave.cu, the keyframe's, and
+// csrc/transform_recon.cu, the P-frame step's). Each is what
+// tpu_vp9_torch/ops/txfm.py and pipeline/tpu_encdec.py:transform_recon_ref
+// compute, for the DCT_DCT blocks of the device steps:
 //   - the forward transform in float64, X = F_col @ R @ F_row^T, on the
 //     port's float32 matrices widened (txfm.fwd_matrices): a coefficient
 //     differs from the plain version's (torch's float64 matmul) only in the
@@ -12,9 +12,11 @@
 //     so a level differs from the plain version's only where |c| / q + 0.38
 //     lies within about 1e-12 of an integer;
 //   - the dequantizer of txfm.dequant_block and the exact integer inverse of
-//     txfm.inv_txfm2d (the idct16/idct32 butterflies of libvpx, rows then
-//     columns, no rounding between the passes, then (x + 32) >> 6), in int32
-//     arithmetic that wraps as torch's int32 tensors do.
+//     txfm.inv_txfm2d (the idct8/idct16/idct32 butterflies of libvpx, rows
+//     then columns, no rounding between the passes, then (x + 16) >> 5 at
+//     n = 8 and (x + 32) >> 6 above), in int32 arithmetic that wraps as
+//     torch's int32 tensors do: products and sums of int wrap on the card
+//     (mul.lo and add of 32 bits), and >> of a negative int is arithmetic.
 // Each function works on one row, column or coefficient: the caller deals
 // the work to its threads.
 #pragma once
@@ -37,7 +39,6 @@ constexpr int kMaxLevel = (1 << 13) - 1;
 // the JAX package's dead-zone bias is float32 0.38; the float64 quantizer
 // adds that same value
 constexpr double kQBias = static_cast<double>(0.38f);
-constexpr int kFinalShift = 6;  // of the 16x16 and 32x32 inverses
 
 // dct_const_round_shift
 __device__ __forceinline__ int rs(int x) { return (x + 8192) >> 14; }
@@ -240,16 +241,20 @@ __device__ __forceinline__ void idct32(const int* x, int* o) {
   }
 }
 
-// One 1-D inverse of length N in place on x[0], x[stride], ...
+// One 1-D inverse of length N (8, 16 or 32) in place on x[0], x[stride],
+// ...
 template <int N>
 __device__ __forceinline__ void idct_line(int* x, int stride) {
+  static_assert(N == 8 || N == 16 || N == 32, "idct_line: N is 8, 16 or 32");
   int in[N], out[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) in[k] = x[k * stride];
-  if (N == 32) {
+  if constexpr (N == 32) {
     idct32(in, out);
-  } else {
+  } else if constexpr (N == 16) {
     idct16(in, out);
+  } else {
+    idct8(in, out);
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) x[k * stride] = out[k];
@@ -304,9 +309,11 @@ __device__ __forceinline__ int dequant(int level, int q, int n) {
   return level < 0 ? -mag : mag;
 }
 
-// The recon of one pixel from the inverse's output x and the prediction.
-__device__ __forceinline__ uint8_t recon_pixel(int pred, int x) {
-  const int v = pred + ((x + (1 << (kFinalShift - 1))) >> kFinalShift);
+// The recon of one pixel of an n x n block from the inverse's output x and
+// the prediction: the final shift is 5 at n = 8 and 6 at n = 16 and 32.
+__device__ __forceinline__ uint8_t recon_pixel(int pred, int x, int n) {
+  const int shift = n == 8 ? 5 : 6;
+  const int v = pred + ((x + (1 << (shift - 1))) >> shift);
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 

@@ -12,6 +12,9 @@ the JAX package writes in jnp:
   tpu_vp9/pipeline/tpu_encdec.py       here
   _full_search_sse_mxu                 sse_map_search (csrc/sse_search.cu)
   hier_search (both levels)            hier_search_fused (the same source)
+  _subpel_exhaustive                   subpel_search (csrc/subpel_search.cu)
+  transform_recon                      transform_recon
+                                       (csrc/transform_recon.cu)
   loop_filter_device                   loop_filter (csrc/loop_filter.cu)
   kframe_step (the intra wavefront)    kframe_wave (csrc/kframe_wave.cu)
 
@@ -22,10 +25,13 @@ Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
-``loop_filter`` and ``kframe_wave`` take CUDA tensors only: their plain
-versions are the steps' own ``pipeline/tpu_encdec.py:loop_filter_ref`` and
-``kframe_wave_ref``, and the steps' ``loop_filter_device`` and
-``kframe_wave_device`` send CPU tensors there and CUDA tensors here.
+``subpel_search``, ``transform_recon``, ``loop_filter`` and ``kframe_wave``
+take CUDA tensors only: their plain versions are the steps' own
+(``pipeline/tpu_encdec.py``: ``subpel_search_ref``, ``transform_recon_ref``,
+``loop_filter_ref``, ``kframe_wave_ref``), and the steps' dispatches
+(``subpel_search``, ``transform_recon``, ``loop_filter_device``,
+``kframe_wave_device``) send CPU tensors there and CUDA tensors here. This
+module imports nothing of ``pipeline``.
 """
 
 from __future__ import annotations
@@ -74,6 +80,9 @@ _LAUNCHERS = {
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
     "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 10),
     "kframe_wave": ("kframe_wave", "kframe_wave_launch", 13, 0, 10),
+    "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
+                        4),
+    "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
 }
 _fns: dict = {}
 
@@ -840,3 +849,155 @@ def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int):
 
 
 kframe_wave.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The P-frame step's transform stage (csrc/transform_recon.cu)
+# ---------------------------------------------------------------------------
+
+TXFM_BLOCK_SIZES = (8, 16, 32)
+# keeps |level| * q (levels clip at 8191) inside int32
+TXFM_MAX_Q = (1 << 16) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _txfm_tables_on(n: int, device: torch.device):
+    """The kernel's constant tables of block size n on ``device``: the
+    float64 forward matrices F_col and F_row^T (``txfm._fwd_matrices64``,
+    the float32 ones widened) and the int32 inverse DCT_DCT scan, each
+    raster place's place in ``T.scan_order``."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import txfm
+
+    f_col, f_row_t = txfm._fwd_matrices64(n, device)
+    scan = np.asarray(T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0])
+    iscan = torch.from_numpy(np.argsort(scan).astype(np.int32)).to(device)
+    return f_col.contiguous(), f_row_t.contiguous(), iscan
+
+
+def _check_txfm_args(src_blocks, pred_blocks, dc_q: int, ac_q: int,
+                     n: int) -> None:
+    if n not in TXFM_BLOCK_SIZES:
+        raise ValueError(f"transform_recon: n={n} not in {TXFM_BLOCK_SIZES}")
+    b = src_blocks.shape[0]
+    _want_blocks("transform_recon: src_blocks", src_blocks, b, n, n)
+    _want_blocks("transform_recon: pred_blocks", pred_blocks, b, n, n)
+    if src_blocks.dtype != torch.uint8 or pred_blocks.dtype != torch.uint8:
+        raise TypeError("transform_recon: blocks must be uint8, got "
+                        f"{src_blocks.dtype} and {pred_blocks.dtype}")
+    if not (0 < dc_q <= TXFM_MAX_Q and 0 < ac_q <= TXFM_MAX_Q):
+        raise ValueError(f"transform_recon: quantizers ({dc_q}, {ac_q}) "
+                         f"outside [1, {TXFM_MAX_Q}]")
+
+
+def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
+    """Forward DCT, quantizer, dequantizer, exact integer inverse, recon
+    and eob of B blocks at once, on the card.
+
+    src_blocks, pred_blocks: (B, n, n) uint8 contiguous CUDA tensors of
+    one device, n in {8, 16, 32}; dc_q, ac_q: the quantizer steps (host
+    ints in [1, 65535]). Returns (levels int16 (B, n, n), eob int32 (B,),
+    recon uint8 (B, n, n)): the DCT_DCT levels of the float64 forward
+    transform and the dead-zone quantizer, one past the last nonzero level
+    in scan order (0 if none), and the decoder's reconstruction. It runs
+    the kernel of ``csrc/transform_recon.cu`` or raises: CPU tensors go to
+    the plain version ``pipeline/tpu_encdec.py:transform_recon_ref``
+    through the step's ``transform_recon``, not through here. The two
+    agree bit for bit unless a coefficient's ``|c| / q + 0.38`` lies within
+    about 1e-12 of an integer (the float64 products sum in another order).
+    """
+    dc_q, ac_q = int(dc_q), int(ac_q)
+    _check_txfm_args(src_blocks, pred_blocks, dc_q, ac_q, n)
+    if _device_kind("transform_recon", src_blocks, pred_blocks) != "cuda":
+        raise ValueError("transform_recon: the kernel takes CUDA tensors; "
+                         "CPU tensors go through the step's transform_recon")
+    b = src_blocks.shape[0]
+    dev = src_blocks.device
+    levels = torch.empty((b, n, n), dtype=torch.int16, device=dev)
+    eob = torch.empty((b,), dtype=torch.int32, device=dev)
+    recon = torch.empty((b, n, n), dtype=torch.uint8, device=dev)
+    if b > 0:
+        f_col, f_row_t, iscan = _txfm_tables_on(n, dev)
+        _launch("transform_recon", dev, src_blocks.data_ptr(),
+                pred_blocks.data_ptr(), f_col.data_ptr(), f_row_t.data_ptr(),
+                iscan.data_ptr(), levels.data_ptr(), eob.data_ptr(),
+                recon.data_ptr(), b, n, dc_q, ac_q)
+        transform_recon.launches += 1
+    return levels, eob, recon
+
+
+transform_recon.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The P-frame step's quarter-pel search (csrc/subpel_search.cu)
+# ---------------------------------------------------------------------------
+
+SUBPEL_BLOCK_SIZES = (16, 32)  # the children's and the zone's
+SUBPEL_MAX_R = 64  # keeps a window's offsets well inside int32
+
+
+@functools.lru_cache(maxsize=None)
+def _subpel_taps_on(device: torch.device):
+    """The (16, 8) int32 EIGHTTAP filter table on ``device``."""
+    from tpu_vp9_torch.bitstream import tables as T
+
+    taps = np.asarray(T.subpel_filters(T.InterpFilter.EIGHTTAP), np.int32)
+    return torch.from_numpy(np.ascontiguousarray(taps)).to(device)
+
+
+def _check_subpel_args(wins, src_blocks, dy, dx, n: int, r: int) -> None:
+    if n not in SUBPEL_BLOCK_SIZES:
+        raise ValueError(f"subpel_search: n={n} not in {SUBPEL_BLOCK_SIZES}")
+    if not 0 <= r <= SUBPEL_MAX_R:
+        raise ValueError(f"subpel_search: r={r} outside [0, {SUBPEL_MAX_R}]")
+    b = src_blocks.shape[0]
+    sw = n + 2 * r + 8
+    _want_blocks("subpel_search: src_blocks", src_blocks, b, n, n)
+    _want_blocks("subpel_search: wins", wins, b, sw, sw)
+    if src_blocks.dtype != torch.uint8 or wins.dtype != torch.uint8:
+        raise TypeError("subpel_search: wins and src_blocks must be uint8, "
+                        f"got {wins.dtype} and {src_blocks.dtype}")
+    if tuple(dy.shape) != (b,) or tuple(dx.shape) != (b,):
+        raise ValueError(f"subpel_search: dy, dx of shapes "
+                         f"{tuple(dy.shape)}, {tuple(dx.shape)}, want ({b},)")
+    if dy.dtype != torch.int32 or dx.dtype != torch.int32:
+        raise TypeError(f"subpel_search: dy, dx must be int32, got "
+                        f"{dy.dtype} and {dx.dtype}")
+
+
+def subpel_search(wins, src_blocks, dy, dx, n: int, r: int):
+    """Exhaustive quarter-pel search of B blocks around their full-pel
+    winners, on the card.
+
+    wins: (B, n+2r+8, n+2r+8) uint8 windows whose origin is the block
+    minus (r + 4); src_blocks: (B, n, n) uint8; dy, dx: (B,) int32
+    full-pel winners in [-r, r] (taken as given: out-of-range values give
+    undefined results, not reads outside the window); all contiguous CUDA
+    tensors of one device; n in {16, 32}. Scores the 7 x 7 q3 offsets
+    in +-6/8 pel by SSE over 16 phase planes (8-tap H then V, libvpx
+    rounding) and keeps the first minimum in oy-major order. Returns
+    (mv_r_q3, mv_c_q3, sse) int32 (B,): dy * 8 + oy, dx * 8 + ox and that
+    offset's SSE, bit for bit what ``pipeline/tpu_encdec.py:
+    subpel_search_ref`` returns. It runs the kernel of
+    ``csrc/subpel_search.cu`` or raises: CPU tensors go to that plain
+    version through the step's ``subpel_search``, not through here.
+    """
+    _check_subpel_args(wins, src_blocks, dy, dx, n, r)
+    if _device_kind("subpel_search", wins, src_blocks, dy, dx) != "cuda":
+        raise ValueError("subpel_search: the kernel takes CUDA tensors; CPU "
+                         "tensors go through the step's subpel_search")
+    b = src_blocks.shape[0]
+    dev = src_blocks.device
+    out = torch.empty((3, b), dtype=torch.int32, device=dev)
+    if b > 0:
+        _launch("subpel_search", dev, wins.data_ptr(), src_blocks.data_ptr(),
+                dy.data_ptr(), dx.data_ptr(), _subpel_taps_on(dev).data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b, n,
+                r)
+        subpel_search.launches += 1
+    mv_r, mv_c, sse = out.unbind(0)
+    return mv_r, mv_c, sse
+
+
+subpel_search.launches = 0

@@ -371,14 +371,15 @@ class RtSession:
     def _rate_args(self, qidx: int):
         """The step's rate tables on the device, made from the frame
         context of the last join and cached by (its identity, qindex)."""
-        fc = self._rates_fc
-        key = (id(fc), qidx)
-        if self._rates_key != key:
-            self._rates_dev = upload_rate_tabs(make_rate_tabs(fc, qidx),
-                                               self.device)
-            self._rates_key = key
-            self._rates_held = fc  # keeps the id from being reused
-        return self._rates_dev
+        with span("rt_rate_args"):
+            fc = self._rates_fc
+            key = (id(fc), qidx)
+            if self._rates_key != key:
+                self._rates_dev = upload_rate_tabs(make_rate_tabs(fc, qidx),
+                                                   self.device)
+                self._rates_key = key
+                self._rates_held = fc  # keeps the id from being reused
+            return self._rates_dev
 
     # -- frame-context chain (matches the decoder's refresh rules) ------
     def _fc_update(self, st, hdr, is_key: bool, fc_base):
@@ -594,9 +595,11 @@ class RtSession:
         g = self.g
         shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
                   (g.pad_h // 2, g.pad_w // 2))
-        return tuple(
-            torch.from_numpy(pad_plane(np.asarray(p), *shp)).to(self.device)
-            for p, shp in zip((frame.y, frame.u, frame.v), shapes))
+        with span("rt_stage"):
+            return tuple(
+                torch.from_numpy(pad_plane(np.asarray(p), *shp))
+                .to(self.device)
+                for p, shp in zip((frame.y, frame.u, frame.v), shapes))
 
     def step_args(self, qidx: int):
         """The step's arguments after the source and reference planes for

@@ -24,13 +24,19 @@ levels, eobs, MVs (and the recon when asked) and serializes them with the
 native serializer.
 
 Every stage computes what the JAX package's stage computes, as plain
-functions on tensors of the caller's device, with three CUDA kernels in
+functions on tensors of the caller's device, with CUDA kernels in
 ``ops/cuda_kernels.py``: the full-pel search (``hier_search_fused`` for
 both levels of the 32 zone in one launch, ``sse_map_search`` for the
-children), the distortion (``block_energy`` on blocks,
-``block_energy_at`` on candidates read in place out of a reference
-plane) and the loop filter (``loop_filter``, all three planes in one
-launch; ``loop_filter_ref`` here is its plain version). Formulations that
+children), the quarter-pel search (``subpel_search``), the distortion
+(``block_energy`` on blocks, ``block_energy_at`` on candidates read in
+place out of a reference plane), the transform stage (``transform_recon``:
+forward DCT, quantizer, inverse, recon and eob) and the loop filter
+(``loop_filter``, all three planes in one launch). The plain versions of
+the last three kernels and of the quarter-pel search live here
+(``subpel_search_ref``, ``transform_recon_ref``, ``loop_filter_ref``), each
+reached through its dispatch (``subpel_search``, ``transform_recon``,
+``loop_filter_device``): CPU tensors take the plain version, CUDA tensors
+the kernel's wrapper, which launches or raises. Formulations that
 exist only to suit the TPU are not carried over: one-hot matmul gathers
 (``_oh_take_rows/_cols``) are plain indexing, float32 stand-ins for
 integer arithmetic are int32, and the scan-prefix level transfer is not
@@ -61,7 +67,7 @@ import torch.nn.functional as F
 from tpu_vp9_torch.bitstream import tables as T
 from tpu_vp9_torch.utils.trace import span
 
-from tpu_vp9_torch.ops import intra, txfm
+from tpu_vp9_torch.ops import cuda_kernels, intra, txfm
 from tpu_vp9_torch.ops.cuda_kernels import (
     HALF_R, KF_MODE_BIAS, KF_STRIP, REFINE_R, WIN_R, check_kf_args,
     block_energy, block_energy_at, hier_search_fused, kf_diagonal,
@@ -370,6 +376,15 @@ def subpel_search_ref(wins, src_blocks, dy, dx, n: int, r: int):
     return dy * 8 + best_oy, dx * 8 + best_ox, best_sse
 
 
+def subpel_search(wins, src_blocks, dy, dx, n: int, r: int):
+    """The step's quarter-pel search (contract: ``subpel_search_ref``).
+    Tensors that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises."""
+    if all(t.device.type == "cpu" for t in (wins, src_blocks, dy, dx)):
+        return subpel_search_ref(wins, src_blocks, dy, dx, n, r)
+    return cuda_kernels.subpel_search(wins, src_blocks, dy, dx, n, r)
+
+
 # ---------------------------------------------------------------------------
 # Motion compensation (vpx_convolve8 semantics; parity: ops/inter.py)
 # ---------------------------------------------------------------------------
@@ -653,19 +668,33 @@ def _scan(n: int, device):
     return _SCAN_CACHE[key]
 
 
-def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
+def transform_recon_ref(src_blocks, pred_blocks, dc_q: int, ac_q: int,
+                        n: int):
     """Forward DCT + quantize + dequant + exact integer inverse add for
-    (B, n, n) uint8 blocks. Returns (levels int16, eob int32, recon uint8);
-    eob is one past the last nonzero level in scan order (0 if none)."""
+    (B, n, n) blocks (plain version of the kernel behind
+    ``ops/cuda_kernels.py:transform_recon``). Returns (levels int16, eob
+    int32, recon uint8); eob is one past the last nonzero level in scan
+    order (0 if none)."""
     resid = src_blocks.to(torch.int32) - pred_blocks.to(torch.int32)
     levels = txfm.quantize_f64(txfm.fwd_txfm2d_f64(resid), dc_q, ac_q, n)
     eob, recon = recon_from_levels(levels, pred_blocks, dc_q, ac_q, n)
     return levels.to(torch.int16), eob, recon
 
 
+def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
+    """The step's transform stage (contract: ``transform_recon_ref``).
+    Blocks that both lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises (and
+    refuses blocks on two devices)."""
+    if all(t.device.type == "cpu" for t in (src_blocks, pred_blocks)):
+        return transform_recon_ref(src_blocks, pred_blocks, dc_q, ac_q, n)
+    return cuda_kernels.transform_recon(src_blocks, pred_blocks, dc_q, ac_q,
+                                        n)
+
+
 def recon_from_levels(levels, pred_blocks, dc_q: int, ac_q: int, n: int):
     """(eob int32, recon uint8) of int32 (B, n, n) quantized levels: the
-    integer half of ``transform_recon``."""
+    integer half of ``transform_recon_ref``."""
     ts = txfm.TX_SIZE[n]
     recon = txfm.inv_txfm_add(
         txfm.dequant_block(levels, dc_q, ac_q, ts, xp=torch), pred_blocks,
@@ -1102,8 +1131,8 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         c_y, c_x, dyr, dxr, loc, ssem, src2m = hier_search(src_blocks,
                                                            wins, n)
     with _stage("step_subpel"):
-        sub_r, sub_c, sse_new = subpel_search_ref(loc, src_blocks, dyr, dxr,
-                                                  n, REFINE_R)
+        sub_r, sub_c, sse_new = subpel_search(loc, src_blocks, dyr, dxr, n,
+                                              REFINE_R)
     with _stage("step_md"):
         mv_r, mv_c, cost_last = _candidate_decide(
             ssem, src2m, sse_zero, sse_new, c_y * 8 + sub_r,
@@ -1231,8 +1260,8 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
         csrc = _extract_blocks(src_y, 0, rows32 * 2, cols16, 16)[cidx]
 
         ddy, ddx, ssem_c = sse_map_search(csrc, cw, 16, CHILD_R)
-        sub_r, sub_c, sse_new = subpel_search_ref(cw, csrc, ddy, ddx, 16,
-                                                  CHILD_R)
+        sub_r, sub_c, sse_new = subpel_search(cw, csrc, ddy, ddx, 16,
+                                              CHILD_R)
         mv_new_r = base_y * 8 + sub_r
         mv_new_c = base_x * 8 + sub_c
         # exact ZERO SSE: the co-located reference block, read in place
@@ -1542,7 +1571,9 @@ def kframe_wave_ref(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
                 m = torch.argmin(sse + bias, dim=1)
                 mode[bi] = m.to(torch.int32)
             pred = preds[torch.arange(nb, device=dev), m]
-            lv, e, rec = transform_recon(blocks, pred, dc_q, ac_q, n)
+            # the plain transform: this whole function is the kernel's
+            # plain version, on any device
+            lv, e, rec = transform_recon_ref(blocks, pred, dc_q, ac_q, n)
             lvs[p][bi] = lv
             eob[p][bi] = e
             recs[p][ys, xs] = rec
