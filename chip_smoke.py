@@ -19,7 +19,10 @@ Phases, each of which raises on failure (nothing is caught):
      transform_recon at its four path shapes on the step's real blocks,
      on source against the previous recon, on +-255 and zero residuals
      and on one nonzero level at each scan place, at four qindex values
-     (the 8191 level clip reached), its level flips counted; kframe_wave
+     (the 8191 level clip reached), its level flips counted, after the
+     ptxas report of each of its template instances (registers, spills,
+     which fail the run, static shared memory) and its resident CTAs per
+     SM from the CUDA runtime's occupancy query; kframe_wave
      on the first
      panning frame at four qindex values, on patches that make every intra
      mode win (the blocks each mode won printed), on a constant frame whose
@@ -170,8 +173,10 @@ LF_OPS_PER_LANE = 100
 # sheet gives no other rate off the tensor cores.
 HBM_BYTES_PER_S, INT8_OPS_PER_S, ALU_OPS_PER_S = 3.35e12, 1979e12, 67e12
 # FP64: float64 work at the data sheet's highest float64 rate (its tensor
-# cores'; 34 TFLOP/s on the CUDA cores): kframe_wave's forward transform
-FP64_OPS_PER_S = 67e12
+# cores', where transform_recon's forward products run), and its rate on
+# the CUDA cores (kframe_wave's forward transform runs there; the bounds
+# are held against the former)
+FP64_OPS_PER_S, FP64_CORE_OPS_PER_S = 67e12, 34e12
 # kframe_wave per 32x32 block and its two 16x16 chroma blocks: the float64
 # operations of the forward transform (two products a plane, a multiply and
 # an add per term) and an estimate of the integer ones: 8 a pixel for each
@@ -1200,14 +1205,49 @@ def loop_filter_kernel_phase(dev, lf_calls):
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
 
-def _tr_bound(b, n):
+def _tr_resources(dev):
+    """Each transform_recon template instance's registers, spill bytes
+    and static shared memory from the ptxas report of its build
+    (``_build/libtransform_recon.log``), and its resident CTAs per SM and
+    dynamic shared memory from the CUDA runtime's occupancy query; printed,
+    and raised on if an instance spills."""
+    import re
+
+    from tpu_vp9_torch.ops import _build
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    log = _build.build_log("transform_recon")
+    found = {}
+    for m in re.finditer(
+            r"Compiling entry function '[^']*transform_recon_kernelILi(\d+)E"
+            r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+            r".*?Used (\d+) registers([^\n]*)", log, re.S):
+        smem = re.search(r"(\d+) bytes smem", m.group(5))
+        found[int(m.group(1))] = (int(m.group(4)), int(m.group(2)),
+                                  int(m.group(3)),
+                                  int(smem.group(1)) if smem else 0)
+    if sorted(found) != [8, 16, 32]:
+        raise AssertionError("transform_recon: the ptxas report has the "
+                             f"instances {sorted(found)}, want 8, 16, 32")
+    for n in (32, 16, 8):
+        regs, st, ld, smem = found[n]
+        ctas, dyn = K.transform_recon_occupancy(n, dev)
+        print(f"transform_recon n={n}: {regs} registers, spill stores {st} "
+              f"B, spill loads {ld} B, static shared memory {smem} B "
+              f"(ptxas); dynamic shared memory {dyn} B, {ctas} resident "
+              "CTAs of 128 threads per SM (occupancy query)")
+        if st or ld:
+            raise AssertionError(f"transform_recon n={n} spills registers")
+
+
+def _tr_bound(b, n, fp64_ops_per_s=FP64_OPS_PER_S):
     """transform_recon's bound for B blocks of n: reads src and pred,
     writes int16 levels, recon and eob; the two forward products (a
     multiply and an add per term, n^3 terms each per block) in float64 at
-    FP64_OPS_PER_S and the integer work, here as operations at
+    ``fp64_ops_per_s`` and the integer work, here as operations at
     ALU_OPS_PER_S."""
     return _bound(5 * b * n * n + 4 * b,
-                  b * (4 * n ** 3 * ALU_OPS_PER_S / FP64_OPS_PER_S
+                  b * (4 * n ** 3 * ALU_OPS_PER_S / fp64_ops_per_s
                        + TR_INT_OPS[n]), ALU_OPS_PER_S)
 
 
@@ -1275,6 +1315,7 @@ def transform_kernel_phase(dev, real, frames, recons):
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
+    _tr_resources(dev)
     rng = np.random.default_rng(29)
     max_err = 0
     for label, (src, pred, dc_q, ac_q, n) in zip(TR_CALLS, real):
@@ -1334,6 +1375,9 @@ def transform_kernel_phase(dev, real, frames, recons):
             lambda: K.transform_recon(src, pred, dc_q, ac_q, n),
             lambda: P.transform_recon_ref(src, pred, dc_q, ac_q, n), 5,
             _tr_bound(b, n), "transform_recon_kernel", per_frame))
+        print(f"kernel transform_recon {label} B={b} n={n}: bound with the "
+              "float64 products on the CUDA cores (34 TFLOP/s) "
+              f"{_tr_bound(b, n, FP64_CORE_OPS_PER_S)[0]:.5f} ms")
     return _entry("transform_recon", "tpu_vp9_torch/csrc/transform_recon.cu",
                   "tpu_vp9/pipeline/tpu_encdec.py:820", max_err, parts)
 

@@ -11,7 +11,16 @@ float32 and the port's float64, so a level may differ only where JAX's
 float32 ``|c| / q + 0.38`` lies within 1e-3 of an integer, by one, counted
 at the differing levels only; eob and recon are equal in every block whose
 levels are.
+
+Two premises of the CUDA kernel ``csrc/transform_recon.cu`` are held here
+too: its first forward product F_col @ R is exact in float64 in any order
+of summation, and its quantizer (``txfm_common.cuh:quantize_rcp``, a
+reciprocal multiply that falls back to the rounded quotient near a floor
+boundary), mirrored step for step in numpy, gives ``txfm.quantize_f64``'s
+levels bit for bit.
 """
+
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +33,7 @@ from tpu_vp9.ops import txfm as jtxfm
 from tpu_vp9.pipeline import tpu_encdec as J
 
 from tpu_vp9_torch.ops import cuda_kernels as K
+from tpu_vp9_torch.ops import txfm as ptxfm
 from tpu_vp9_torch.pipeline import tpu_encdec as P
 
 torch.set_num_threads(1)
@@ -174,3 +184,143 @@ def test_kernel_wrapper_refuses_bad_arguments(bad, err):
     with pytest.raises((ValueError, TypeError), match=err):
         K.transform_recon(src, pred, bad.get("dc_q", 40),
                           bad.get("ac_q", 48), n)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's premises
+# ---------------------------------------------------------------------------
+
+# F_col's float32 entries lie on a grid of 2^-23, 2^-24 and 2^-26 at n = 8,
+# 16 and 32; with |R| <= 255 every partial sum of F_col @ R is an integer
+# multiple of that grid step of at most 37, 39 and 41 bits
+F_COL_GRID = {8: 23, 16: 24, 32: 26}
+F_COL_BITS = {8: 37, 16: 39, 32: 41}
+
+
+@pytest.mark.parametrize("kind", ["random", "+-255"])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_first_forward_product_is_exact_in_any_order(n, kind):
+    """F_col @ R in float64 (torch's matmul, and a loop summing the terms
+    in reverse order) equals the int64 product of F_col scaled to integers,
+    scaled back, bit for bit."""
+    f_col = ptxfm._fwd_matrices64(n, torch.device("cpu"))[0].numpy()
+    scale = 2.0 ** F_COL_GRID[n]
+    f_int = f_col * scale
+    assert np.array_equal(f_int, np.round(f_int))
+    f_int = f_int.astype(np.int64)
+    assert int(np.abs(f_int).sum(axis=1).max()) * 255 < 2 ** F_COL_BITS[n]
+    rng = np.random.default_rng(100 + n)
+    if kind == "random":
+        r = rng.integers(-255, 256, (200, n, n))
+    else:
+        r = rng.choice([-255, 255], (200, n, n))
+    exact = (f_int @ r).astype(np.float64) / scale  # < 2^53: exact
+    got = torch.matmul(torch.from_numpy(f_col),
+                       torch.from_numpy(r).to(torch.float64)).numpy()
+    rev = np.zeros(r.shape)
+    for k in reversed(range(n)):
+        rev = rev + f_col[None, :, k, None] * r[:, None, k, :]
+    np.testing.assert_array_equal(got, exact)
+    np.testing.assert_array_equal(rev, exact)
+
+
+@pytest.mark.parametrize("n,shift", [(8, 5), (16, 6), (32, 6)])
+def test_row_matrix_is_the_column_matrix_transposed_and_scaled(n, shift):
+    """The kernel stages F_col alone and reads F_row^T as F_col^T / 2^shift
+    (both are the inverse's DCT matrix inverted, F_col scaled by the
+    inverse's final shift): the two are equal bit for bit."""
+    f_col, f_row_t = (m.numpy() for m in ptxfm._fwd_matrices64(
+        n, torch.device("cpu")))
+    np.testing.assert_array_equal(f_row_t, f_col.T * 2.0 ** -shift)
+
+
+def _fma_rn(x, y, z):
+    """x * y + z rounded once to float64 (the card's fma)."""
+    return float(Fraction(x) * Fraction(y) + Fraction(z))
+
+
+def _div_rn_from_rcp(a, qe, d):
+    """txfm_common.cuh:div_rn_from_rcp: of d and its two neighbours on
+    either side, the one whose fma residual a - t * qe is least in
+    magnitude (the first such, in the order -2, -1, +1, +2)."""
+    best, err = d, abs(_fma_rn(-d, qe, a))
+    bits = int(np.float64(d).view(np.int64))
+    for k in (-2, -1, 1, 2):
+        t = float(np.int64(bits + k).view(np.float64))
+        if not np.isfinite(t):
+            continue  # the card's comparison with a NaN residual is false
+        e = abs(_fma_rn(-t, qe, a))
+        if e < err:
+            best, err = t, e
+    return best
+
+
+def _quantize_rcp_mirror(coeffs, dc_q, ac_q, n):
+    """txfm_common.cuh:quantize_rcp on (B, n, n) float64 coefficients, step
+    for step in numpy float64 (each multiply and add rounded once, as the
+    kernel's __dmul_rn and __dadd_rn). Returns (int32 levels, how many
+    coefficients took the rounded quotient)."""
+    q = np.full((n, n), float(ac_q))
+    q[0, 0] = float(dc_q)
+    if n == 32:
+        q = q * 0.5
+    qe = np.broadcast_to(q, coeffs.shape)
+    a = np.abs(coeffs)
+    d = a * (1.0 / qe)
+    v = d + ptxfm.QBIAS
+    near = (v < 8192.0) & (np.abs(v - np.rint(v)) < 2.0 ** -20)
+    for idx in zip(*np.nonzero(near)):
+        v[idx] = _div_rn_from_rcp(a[idx], qe[idx], d[idx]) + ptxfm.QBIAS
+    levels = np.minimum(np.floor(v), ptxfm.MAX_LEVEL).astype(np.int32)
+    return np.where(coeffs < 0, -levels, levels), int(near.sum())
+
+
+QUANT_STEPS = {"small": (1, 2, 3, 4, 5, 7, 8, 9, 13, 16),
+               "path": (4, 8, 17, 52, 112, 305, 1336, 1828),
+               "large": (4096, 8191, 10000, 32768, 40001, 65534, 65535)}
+
+
+@pytest.mark.parametrize("steps", list(QUANT_STEPS))
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_reciprocal_quantizer_keeps_the_division_bits(n, steps):
+    """Coefficients within 1e-12 of every floor boundary |c| / q + 0.38 =
+    k (k up to the 8191 clip and past it) and a few ulps either side of
+    it, at each step q (halved at n = 32), signs mixed: the mirror of the
+    kernel's quantizer equals quantize_f64 everywhere, and the rounded
+    quotient was needed."""
+    rng = np.random.default_rng(7 * n + len(steps))
+    ks = np.concatenate([np.arange(0, 40), rng.integers(40, 8191, 60),
+                         np.arange(8186, 8196)]).astype(np.float64)
+    used = 0
+    for q in QUANT_STEPS[steps]:
+        qe = q * 0.5 if n == 32 else float(q)
+        bound = (ks - ptxfm.QBIAS) * qe
+        near = np.concatenate([
+            (ks - ptxfm.QBIAS + rng.uniform(-1e-12, 1e-12, ks.shape)) * qe,
+            *(np.nextafter(bound, np.inf * j) if j else bound
+              for j in (-1, 0, 1)),
+            bound * (1 + 4e-16), bound * (1 - 4e-16)])
+        near = np.abs(near) * rng.choice([-1.0, 1.0], near.shape)
+        pad = (-len(near)) % (n * n)
+        coeffs = np.concatenate([near, np.zeros(pad)]).reshape(-1, n, n)
+        got, fell_back = _quantize_rcp_mirror(coeffs, q, q, n)
+        want = ptxfm.quantize_f64(torch.from_numpy(coeffs), q, q, n).numpy()
+        np.testing.assert_array_equal(got, want)
+        used += fell_back
+    assert used > 0
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_reciprocal_quantizer_on_random_coefficients(n):
+    """Coefficients of every magnitude from 1e-6 to 1e6, DC and AC steps
+    apart: the mirror equals quantize_f64, the clip included."""
+    rng = np.random.default_rng(300 + n)
+    coeffs = (10.0 ** rng.uniform(-6, 6, (64, n, n))
+              * rng.choice([-1.0, 1.0], (64, n, n)))
+    top = []
+    for dc_q, ac_q in ((1, 1), (8, 9), (1336, 1828), (65535, 65535)):
+        got, _ = _quantize_rcp_mirror(coeffs, dc_q, ac_q, n)
+        want = ptxfm.quantize_f64(torch.from_numpy(coeffs), dc_q, ac_q, n)
+        np.testing.assert_array_equal(got, want.numpy())
+        top.append(int(np.abs(got).max()))
+    assert top[0] == ptxfm.MAX_LEVEL

@@ -6,19 +6,24 @@
 //   - the forward transform in float64, X = F_col @ R @ F_row^T, on the
 //     port's float32 matrices widened (txfm.fwd_matrices): a coefficient
 //     differs from the plain version's (torch's float64 matmul) only in the
-//     order of its sums, by about 1e-13 relative;
-//   - the quantizer of txfm.quantize_f64: floor(|c| / q + 0.38f) by a true
-//     float64 division, clipped to 8191, q halved at n = 32, sign restored;
-//     so a level differs from the plain version's only where |c| / q + 0.38
-//     lies within about 1e-12 of an integer;
+//     order of its sums, by about 1e-13 relative. fwd_cols and fwd_rows
+//     take one coefficient a thread on the CUDA cores (kframe_wave);
+//     fwd_strip_mma takes eight rows of a block a warp on the float64
+//     tensor cores (transform_recon);
+//   - the quantizer of txfm.quantize_f64: floor(|c| / q + 0.38f), clipped
+//     to 8191, q halved at n = 32, sign restored; quantize by a true
+//     float64 division, quantize_rcp by a reciprocal multiply that takes
+//     the rounded quotient wherever the floor could depend on it (the same
+//     levels); so a level differs from the plain version's only where
+//     |c| / q + 0.38 lies within about 1e-12 of an integer;
 //   - the dequantizer of txfm.dequant_block and the exact integer inverse of
 //     txfm.inv_txfm2d (the idct8/idct16/idct32 butterflies of libvpx, rows
 //     then columns, no rounding between the passes, then (x + 16) >> 5 at
 //     n = 8 and (x + 32) >> 6 above), in int32 arithmetic that wraps as
 //     torch's int32 tensors do: products and sums of int wrap on the card
 //     (mul.lo and add of 32 bits), and >> of a negative int is arithmetic.
-// Each function works on one row, column or coefficient: the caller deals
-// the work to its threads.
+// Each function works on one row, column or coefficient, or (fwd_strip_mma)
+// one warp's strip: the caller deals the work to its threads.
 #pragma once
 
 #include <cstdint>
@@ -241,14 +246,10 @@ __device__ __forceinline__ void idct32(const int* x, int* o) {
   }
 }
 
-// One 1-D inverse of length N (8, 16 or 32) in place on x[0], x[stride],
-// ...
+// The 1-D inverse of length N (8, 16 or 32): out = idctN(in).
 template <int N>
-__device__ __forceinline__ void idct_line(int* x, int stride) {
-  static_assert(N == 8 || N == 16 || N == 32, "idct_line: N is 8, 16 or 32");
-  int in[N], out[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) in[k] = x[k * stride];
+__device__ __forceinline__ void idct_n(const int* in, int* out) {
+  static_assert(N == 8 || N == 16 || N == 32, "idct_n: N is 8, 16 or 32");
   if constexpr (N == 32) {
     idct32(in, out);
   } else if constexpr (N == 16) {
@@ -256,6 +257,16 @@ __device__ __forceinline__ void idct_line(int* x, int stride) {
   } else {
     idct8(in, out);
   }
+}
+
+// One 1-D inverse of length N (8, 16 or 32) in place on x[0], x[stride],
+// ...
+template <int N>
+__device__ __forceinline__ void idct_line(int* x, int stride) {
+  int in[N], out[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) in[k] = x[k * stride];
+  idct_n<N>(in, out);
 #pragma unroll
   for (int k = 0; k < N; ++k) x[k * stride] = out[k];
 }
@@ -286,6 +297,94 @@ __device__ __forceinline__ double fwd_rows(const double* t,
   return acc;
 }
 
+// d += A @ B for one 8x8x4 tile on the float64 tensor cores (mma.sync
+// m8n8k4 .f64), a warp at a time. The PTX fragment layout, per lane:
+// a = A[lane >> 2][lane & 3], b = B[lane & 3][lane >> 2], and
+// (d0, d1) = D[lane >> 2][2 * (lane & 3) + {0, 1}]. A build of the
+// sources off the card (a stand-in header that defines TXFM_MMA_STANDIN)
+// supplies its own, with the same layout.
+#ifndef TXFM_MMA_STANDIN
+__device__ __forceinline__ void mma_f64_8x8x4(double& d0, double& d1,
+                                              double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+#endif
+
+// Where element (row, col) of an N x N float64 plane that the tensor cores
+// read lies in shared memory: row after row with no padding, each row's
+// columns permuted (an XOR of the column index), so that the operand
+// fragments of fwd_strip_mma meet no bank conflict. The residual R
+// (fwd_res_at) is read four rows by eight columns (a lane each), and keeps
+// four columns from a multiple of four together and in order; F_col
+// (fwd_mat_at) is read eight rows by four neighbouring columns and, as
+// F_row^T, eight rows by every other column.
+template <int N>
+__device__ __forceinline__ int fwd_res_at(int row, int col) {
+  const int swz = N == 8 ? 4 * ((row >> 1) & 1) : 4 * (row & 3);
+  return row * N + (col ^ swz);
+}
+template <int N>
+__device__ __forceinline__ int fwd_mat_at(int row, int col) {
+  const int swz = N == 8 ? 5 * ((row >> 1) & 1)
+                         : 5 * (row & 1) + 8 * ((row >> 1) & 1);
+  return row * N + (col ^ swz);
+}
+
+// Rows 8 s .. 8 s + 7 of X = F_col @ R @ F_row^T for one n x n block on
+// the tensor cores, by one warp; f_col (fwd_mat_at) and R (fwd_res_at) are
+// float64 planes in shared memory. F_row^T is F_col^T / 2^shift exactly
+// (shift 5 at n = 8, 6 above: both are the inverse's matrix inverted, one
+// scaled by the inverse's final shift), so the second product reads F_col
+// transposed and scales X by a power of two at the end, which changes no
+// bit. On return the lane holds x[J][e] = X[8 s + (lane >> 2)][8 J + 2
+// (lane & 3) + e]. T = F_col @ R is exact in any order (the products and
+// sums of the float32 matrices' values with 9-bit integers need at most 41
+// bits); only the second product's order differs from a plain matrix
+// product's. T's accumulator fragments (two neighbouring columns a lane)
+// are the second product's operand fragments as they stand: its terms are
+// taken in the order k = 8 K + 2 (lane & 3) + h, the B fragments to match.
+template <int N>
+__device__ __forceinline__ void fwd_strip_mma(const double* f_col,
+                                              const double* r, int s,
+                                              int lane, double (&x)[N / 8][2]) {
+  constexpr int kTiles = N / 8;
+  constexpr double kRowScale = N == 8 ? 1.0 / 32 : 1.0 / 64;
+  const int g = lane >> 2, c = lane & 3;
+  double t[kTiles][2];
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) t[j][0] = t[j][1] = 0.0;
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const double a = f_col[fwd_mat_at<N>(8 * s + g, 4 * k + c)];
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      mma_f64_8x8x4(t[j][0], t[j][1], a,
+                    r[fwd_res_at<N>(4 * k + c, 8 * j + g)]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) x[j][0] = x[j][1] = 0.0;
+#pragma unroll
+  for (int k = 0; k < kTiles; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        mma_f64_8x8x4(x[j][0], x[j][1], t[k][h],
+                      f_col[fwd_mat_at<N>(8 * j + g, 8 * k + 2 * c + h)]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    x[j][0] *= kRowScale;
+    x[j][1] *= kRowScale;
+  }
+}
+
 // The step of coefficient (i, j): dc_q at (0, 0), else ac_q.
 __device__ __forceinline__ int coef_q(int i, int j, int dc_q, int ac_q) {
   return (i == 0 && j == 0) ? dc_q : ac_q;
@@ -302,6 +401,51 @@ __device__ __forceinline__ int quantize(double c, int q, int n) {
   return c < 0.0 ? -level : level;
 }
 
+// a / qe rounded to nearest, for a >= 0 and qe an integer or half of one
+// (a quantizer step), from d = a * r, r = 1 / qe rounded (d is within
+// 2.0001 ulps of the quotient): of d and its two neighbours on either side,
+// the one whose residual a - t * qe (one fma each) is least in magnitude.
+// No quotient lies halfway between two doubles: such a quotient is an odd
+// 54-bit integer M times a power of two, and a = M qe would then have an
+// odd part of 54 bits or more, which no double holds. So the least
+// residual is the rounded quotient's. No division and no call.
+__device__ __forceinline__ double div_rn_from_rcp(double a, double qe,
+                                                  double d) {
+  double best = d, err = fabs(fma(-d, qe, a));
+  const long long bits = __double_as_longlong(d);
+#pragma unroll
+  for (int k = -2; k <= 2; ++k) {
+    if (k == 0) continue;
+    const double t = __longlong_as_double(bits + k);
+    const double e = fabs(fma(-t, qe, a));
+    if (e < err) {
+      best = t;
+      err = e;
+    }
+  }
+  return best;
+}
+
+// quantize(c, q, n) from q_eff (q, or q / 2 at n = 32) and its reciprocal
+// r = 1 / q_eff, without a division. |c| * r + 0.38f, each step rounded
+// once, lies within about 1e-11 of the exact |c| / q_eff + 0.38f below
+// 8192 (|c| * r is within 2.0001 ulps of |c| / q_eff, itself within half
+// an ulp of the rounded quotient), so it has the same floor unless it lies
+// within 2^-20 of an integer; there, and only there below the clip, the
+// rounded quotient decides (div_rn_from_rcp). At or above 8192 both clip
+// to kMaxLevel. The multiply and the add are kept unfused.
+__device__ __forceinline__ int quantize_rcp(double c, double qe, double r) {
+  const double a = fabs(c);
+  const double d = __dmul_rn(a, r);
+  double v = __dadd_rn(d, kQBias);
+  if (v < 8192.0 && fabs(v - rint(v)) < 0x1p-20) {
+    v = __dadd_rn(div_rn_from_rcp(a, qe, d), kQBias);
+  }
+  const int level = static_cast<int>(fmin(floor(v),
+                                          static_cast<double>(kMaxLevel)));
+  return c < 0.0 ? -level : level;
+}
+
 // Normative dequantization: |level| * q, >> 1 at n = 32, sign restored.
 __device__ __forceinline__ int dequant(int level, int q, int n) {
   int mag = (level < 0 ? -level : level) * q;
@@ -315,6 +459,22 @@ __device__ __forceinline__ uint8_t recon_pixel(int pred, int x, int n) {
   const int shift = n == 8 ? 5 : 6;
   const int v = pred + ((x + (1 << (shift - 1))) >> shift);
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// The column pass of the inverse and the recon in one: the 1-D inverse of
+// length N on x[0], x[stride], ..., then pixel k of the column, p[k *
+// pstride], from the prediction it holds to the recon (recon_pixel).
+template <int N>
+__device__ __forceinline__ void idct_col_recon(const int* x, int stride,
+                                               uint8_t* p, int pstride) {
+  int in[N], out[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) in[k] = x[k * stride];
+  idct_n<N>(in, out);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    p[k * pstride] = recon_pixel(p[k * pstride], out[k], N);
+  }
 }
 
 }  // namespace txfm

@@ -80,7 +80,7 @@ _LAUNCHERS = {
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
     "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 10),
     "kframe_wave": ("kframe_wave", "kframe_wave_launch", 13, 0, 10),
-    "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
+    "transform_recon": ("transform_recon", "transform_recon_launch", 7, 0,
                         4),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
 }
@@ -863,16 +863,18 @@ TXFM_MAX_Q = (1 << 16) - 1
 @functools.lru_cache(maxsize=None)
 def _txfm_tables_on(n: int, device: torch.device):
     """The kernel's constant tables of block size n on ``device``: the
-    float64 forward matrices F_col and F_row^T (``txfm._fwd_matrices64``,
-    the float32 ones widened) and the int32 inverse DCT_DCT scan, each
+    float64 forward column matrix F_col (``txfm._fwd_matrices64``, the
+    float32 one widened; the kernel reads F_row^T as F_col^T / 2^5 at n=8
+    and / 2^6 above, which ``tests/test_torch_transform_recon.py`` holds
+    to the row matrix bit for bit) and the int32 inverse DCT_DCT scan, each
     raster place's place in ``T.scan_order``."""
     from tpu_vp9_torch.bitstream import tables as T
     from tpu_vp9_torch.ops import txfm
 
-    f_col, f_row_t = txfm._fwd_matrices64(n, device)
+    f_col = txfm._fwd_matrices64(n, device)[0]
     scan = np.asarray(T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0])
     iscan = torch.from_numpy(np.argsort(scan).astype(np.int32)).to(device)
-    return f_col.contiguous(), f_row_t.contiguous(), iscan
+    return f_col.contiguous(), iscan
 
 
 def _check_txfm_args(src_blocks, pred_blocks, dc_q: int, ac_q: int,
@@ -917,16 +919,35 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
     eob = torch.empty((b,), dtype=torch.int32, device=dev)
     recon = torch.empty((b, n, n), dtype=torch.uint8, device=dev)
     if b > 0:
-        f_col, f_row_t, iscan = _txfm_tables_on(n, dev)
+        f_col, iscan = _txfm_tables_on(n, dev)
         _launch("transform_recon", dev, src_blocks.data_ptr(),
-                pred_blocks.data_ptr(), f_col.data_ptr(), f_row_t.data_ptr(),
-                iscan.data_ptr(), levels.data_ptr(), eob.data_ptr(),
-                recon.data_ptr(), b, n, dc_q, ac_q)
+                pred_blocks.data_ptr(), f_col.data_ptr(), iscan.data_ptr(),
+                levels.data_ptr(), eob.data_ptr(), recon.data_ptr(), b, n,
+                dc_q, ac_q)
         transform_recon.launches += 1
     return levels, eob, recon
 
 
 transform_recon.launches = 0
+
+
+def transform_recon_occupancy(n: int, device=None):
+    """(CTAs of the kernel of block size n an SM holds at once, the dynamic
+    shared memory each asks for in bytes) on ``device`` (the current CUDA
+    device if None), from the CUDA runtime's occupancy query."""
+    if n not in TXFM_BLOCK_SIZES:
+        raise ValueError(f"transform_recon: n={n} not in {TXFM_BLOCK_SIZES}")
+    fn = load_library("transform_recon").transform_recon_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(n, ctypes.byref(ctas), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"transform_recon: the occupancy query failed "
+                           f"with CUDA error {err}")
+    return ctas.value, smem.value
 
 
 # ---------------------------------------------------------------------------
