@@ -1205,39 +1205,39 @@ def loop_filter_kernel_phase(dev, lf_calls):
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
 
-def _tr_resources(dev):
-    """Each transform_recon template instance's registers, spill bytes
-    and static shared memory from the ptxas report of its build
-    (``_build/libtransform_recon.log``), and its resident CTAs per SM and
-    dynamic shared memory from the CUDA runtime's occupancy query; printed,
-    and raised on if an instance spills."""
+def _kernel_resources(dev, name, sizes, occupancy):
+    """Each template instance (block size n) of kernel ``name``: its
+    registers, spill bytes and static shared memory from the ptxas report
+    of its build (``_build/lib<name>.log``), and its resident CTAs per SM
+    and dynamic shared memory from the CUDA runtime's occupancy query
+    (``occupancy(n, dev)``); printed, and raised on if an instance
+    spills."""
     import re
 
     from tpu_vp9_torch.ops import _build
-    from tpu_vp9_torch.ops import cuda_kernels as K
 
-    log = _build.build_log("transform_recon")
+    log = _build.build_log(name)
     found = {}
     for m in re.finditer(
-            r"Compiling entry function '[^']*transform_recon_kernelILi(\d+)E"
+            r"Compiling entry function '[^']*" + name + r"_kernelILi(\d+)E"
             r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
             r".*?Used (\d+) registers([^\n]*)", log, re.S):
         smem = re.search(r"(\d+) bytes smem", m.group(5))
         found[int(m.group(1))] = (int(m.group(4)), int(m.group(2)),
                                   int(m.group(3)),
                                   int(smem.group(1)) if smem else 0)
-    if sorted(found) != [8, 16, 32]:
-        raise AssertionError("transform_recon: the ptxas report has the "
-                             f"instances {sorted(found)}, want 8, 16, 32")
-    for n in (32, 16, 8):
+    if sorted(found) != sorted(sizes):
+        raise AssertionError(f"{name}: the ptxas report has the instances "
+                             f"{sorted(found)}, want {sorted(sizes)}")
+    for n in sorted(sizes, reverse=True):
         regs, st, ld, smem = found[n]
-        ctas, dyn = K.transform_recon_occupancy(n, dev)
-        print(f"transform_recon n={n}: {regs} registers, spill stores {st} "
-              f"B, spill loads {ld} B, static shared memory {smem} B "
-              f"(ptxas); dynamic shared memory {dyn} B, {ctas} resident "
-              "CTAs of 128 threads per SM (occupancy query)")
+        ctas, dyn = occupancy(n, dev)
+        print(f"{name} n={n}: {regs} registers, spill stores {st} B, spill "
+              f"loads {ld} B, static shared memory {smem} B (ptxas); "
+              f"dynamic shared memory {dyn} B, {ctas} resident CTAs of 128 "
+              "threads per SM (occupancy query)")
         if st or ld:
-            raise AssertionError(f"transform_recon n={n} spills registers")
+            raise AssertionError(f"{name} n={n} spills registers")
 
 
 def _tr_bound(b, n, fp64_ops_per_s=FP64_OPS_PER_S):
@@ -1315,7 +1315,8 @@ def transform_kernel_phase(dev, real, frames, recons):
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    _tr_resources(dev)
+    _kernel_resources(dev, "transform_recon", K.TXFM_BLOCK_SIZES,
+                      K.transform_recon_occupancy)
     rng = np.random.default_rng(29)
     max_err = 0
     for label, (src, pred, dc_q, ac_q, n) in zip(TR_CALLS, real):
@@ -1393,61 +1394,73 @@ def _sp_bound(b, n):
     return _bound(b * ((n + 8) ** 2 + n * n + 20), b * ops, ALU_OPS_PER_S)
 
 
+def _sp_made_up(rng, dev, b, n, r):
+    """subpel_search's made-up cases of B blocks of n at reach r: (label,
+    wins, src, (dy, dx), the SSE every offset ties at or None)."""
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    sw = n + 2 * r + 8
+    d = on(rng.integers(-r, r + 1, (2, b)).astype(np.int32))
+    corner = on(np.array([[(-r, r)[i % 2] for i in range(b)],
+                          [(-r, r)[i // 2 % 2] for i in range(b)]], np.int32))
+    yy, xx = np.mgrid[0:sw, 0:sw]
+    cb = ((yy + xx) % 2 * 255).astype(np.uint8)
+    return (
+        ("random", rng.integers(0, 256, (b, sw, sw), dtype=np.uint8),
+         rng.integers(0, 256, (b, n, n), dtype=np.uint8), d, None),
+        ("winners at +-r", rng.integers(0, 256, (b, sw, sw), dtype=np.uint8),
+         rng.integers(0, 256, (b, n, n), dtype=np.uint8), corner, None),
+        ("constant: all tie", np.full((b, sw, sw), 77, np.uint8),
+         np.full((b, n, n), 77, np.uint8), d, 0),
+        ("largest SSE: all tie", np.zeros((b, sw, sw), np.uint8),
+         np.full((b, n, n), 255, np.uint8), d, n * n * 255 * 255),
+        ("0/255 checkerboards", np.repeat(cb[None], b, axis=0),
+         np.repeat(255 - cb[None, :n, :n], b, axis=0), d, None))
+
+
 def subpel_kernel_phase(dev, real):
     """subpel_search (CUDA) against subpel_search_ref on the card, bit for
     bit, at the two shapes of the M8 path at 1080p: the zone's real refine
     windows and winners from hier_search_fused and the children's real
-    windows (``_real_m8_inputs``); B = 2040 made-up batches of each shape:
-    random windows, winners at the corners of +-r, constant windows (all
-    49 offsets tie: (-6, -6) must win), a zero window against a source of
-    255 (the largest SSE, tied too) and 0/255 checkerboards. Timed on the
-    real inputs."""
+    windows (``_real_m8_inputs``); B = 2040 made-up batches of each shape
+    and of n=16 r=40 (the strip zone's reach): random windows, winners at
+    the corners of +-r, constant windows (all 49 offsets tie: (-6, -6) must
+    win), a zero window against a source of 255 (the largest SSE, tied too)
+    and 0/255 checkerboards; random batches of B = 2037 at n=16 (the last
+    CTA of four blocks ragged) and B = 7 at n=32. Each instance's
+    registers, spills and resident CTAs per SM printed. Timed on the real
+    inputs."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
+    _kernel_resources(dev, "subpel_search", K.SUBPEL_BLOCK_SIZES,
+                      K.subpel_search_occupancy)
     rng = np.random.default_rng(31)
     max_err = 0
     for label, args in zip(SP_CALLS, real):
         max_err = max(max_err, _check(
             "subpel_search", f"M8 P-frame's {label}",
             K.subpel_search(*args), P.subpel_search_ref(*args)))
-    for _, _, _, _, n, r in real:
-        b, sw = M9_B, n + 2 * r + 8
-
-        def on(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        d = on(rng.integers(-r, r + 1, (2, b)).astype(np.int32))
-        corner = on(np.array([[(-r, r)[i % 2] for i in range(b)],
-                              [(-r, r)[i // 2 % 2] for i in range(b)]],
-                             np.int32))
-        yy, xx = np.mgrid[0:sw, 0:sw]
-        cb = ((yy + xx) % 2 * 255).astype(np.uint8)
-        cases = (
-            ("random", rng.integers(0, 256, (b, sw, sw), dtype=np.uint8),
-             rng.integers(0, 256, (b, n, n), dtype=np.uint8), d, None),
-            ("winners at +-r", rng.integers(0, 256, (b, sw, sw),
-                                            dtype=np.uint8),
-             rng.integers(0, 256, (b, n, n), dtype=np.uint8), corner, None),
-            ("constant: all tie", np.full((b, sw, sw), 77, np.uint8),
-             np.full((b, n, n), 77, np.uint8), d, 0),
-            ("largest SSE: all tie", np.zeros((b, sw, sw), np.uint8),
-             np.full((b, n, n), 255, np.uint8), d, n * n * 255 * 255),
-            ("0/255 checkerboards", np.repeat(cb[None], b, axis=0),
-             np.repeat(255 - cb[None, :n, :n], b, axis=0), d, None))
-        for label, wins, src, dyx, tie_sse in cases:
-            args = (on(wins), on(src), dyx[0].contiguous(),
-                    dyx[1].contiguous(), n, r)
-            got = K.subpel_search(*args)
-            max_err = max(max_err, _check(
-                "subpel_search", f"{label} B={b} n={n} r={r}", got,
-                P.subpel_search_ref(*args)))
-            if tie_sse is not None and not (
-                    torch.equal(got[0], args[2] * 8 - 6)
-                    and torch.equal(got[1], args[3] * 8 - 6)
-                    and bool((got[2] == tie_sse).all())):
-                raise AssertionError(f"subpel_search: ties ({label}) did not "
-                                     "go to the first offset, (-6, -6)")
+    cases = [(M9_B, n, r, c) for n, r in
+             [a[4:] for a in real] + [(16, 40)]
+             for c in _sp_made_up(rng, dev, M9_B, n, r)]
+    cases += [(b, n, r, _sp_made_up(rng, dev, b, n, r)[0])
+              for b, n, r in ((2037, 16, 8), (7, 32, 4))]
+    for b, n, r, (label, wins, src, dyx, tie_sse) in cases:
+        args = (torch.from_numpy(wins).to(dev),
+                torch.from_numpy(src).to(dev), dyx[0].contiguous(),
+                dyx[1].contiguous(), n, r)
+        got = K.subpel_search(*args)
+        max_err = max(max_err, _check(
+            "subpel_search", f"{label} B={b} n={n} r={r}", got,
+            P.subpel_search_ref(*args)))
+        if tie_sse is not None and not (
+                torch.equal(got[0], args[2] * 8 - 6)
+                and torch.equal(got[1], args[3] * 8 - 6)
+                and bool((got[2] == tie_sse).all())):
+            raise AssertionError(f"subpel_search: ties ({label}) did not "
+                                 "go to the first offset, (-6, -6)")
     parts = []
     for label, args in zip(SP_CALLS, real):
         b, n = args[1].shape[0], args[4]

@@ -4,7 +4,11 @@
 // __syncthreads is a barrier of the CTA and __syncwarp one of the warp, and
 // a warp's shuffles and float64 mma (txfm::mma_f64_8x8x4, in the PTX
 // fragment layout of m8n8k4) go through an exchange area and a barrier of
-// the warp. Shared memory is one static buffer (the CTAs do not overlap).
+// the warp. The byte intrinsics (__byte_perm, __funnelshift_r,
+// __vabsdiffu4) and dp4a (conv8::dp4a_us, conv8::dp4a_uu) are written out
+// from their definitions in the PTX and CUDA manuals. Shared memory is one
+// static buffer (the CTAs do not overlap), filled with 0xA5 before each
+// CTA, so that a read of a place the CTA did not write shows.
 // Build with -std=c++20 (for std::barrier), -fwrapv (int32 arithmetic
 // wraps as on the card) and -ffp-contract=off (no fused multiply-add the
 // source did not write).
@@ -20,6 +24,7 @@
 #include <vector>
 
 #define TXFM_MMA_STANDIN 1
+#define CONV8_DP4A_STANDIN 1
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -85,14 +90,58 @@ inline void standin_warp_sync(int w) { standin_cta->warp[w]->arrive_and_wait(); 
 
 inline void __syncwarp() { standin_warp_sync(threadIdx.x / 32); }
 
-inline int __shfl_xor_sync(unsigned, int v, int off) {
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int off) {
+  static_assert(sizeof(T) == 4, "a 32-bit value");
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  standin_cta->xi[w][l] = v;
+  std::memcpy(&standin_cta->xi[w][l], &v, 4);
   standin_warp_sync(w);
-  const int r = standin_cta->xi[w][l ^ off];
+  T r;
+  std::memcpy(&r, &standin_cta->xi[w][l ^ off], 4);
   standin_warp_sync(w);
   return r;
 }
+
+// byte n of the result is byte ((s >> 4n) & 7) of y:x (x bytes 0-3)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t in = (static_cast<uint64_t>(y) << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) {
+    r |= static_cast<unsigned>((in >> (8 * ((s >> (4 * n)) & 7))) & 255)
+         << (8 * n);
+  }
+  return r;
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  const uint64_t in = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<unsigned>(in >> (shift & 31));
+}
+inline unsigned __vabsdiffu4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) {
+    const int d = static_cast<int>((a >> (8 * n)) & 255) -
+                  static_cast<int>((b >> (8 * n)) & 255);
+    r |= static_cast<unsigned>(d < 0 ? -d : d) << (8 * n);
+  }
+  return r;
+}
+
+namespace conv8 {
+// c + the products of the unsigned bytes of a and the signed bytes of b
+inline int dp4a_us(uint32_t a, uint32_t b, int c) {
+  for (int n = 0; n < 4; ++n) {
+    c += static_cast<int>((a >> (8 * n)) & 255) *
+         static_cast<int>(static_cast<int8_t>((b >> (8 * n)) & 255));
+  }
+  return c;
+}
+inline uint32_t dp4a_uu(uint32_t a, uint32_t b, uint32_t c) {
+  for (int n = 0; n < 4; ++n) {
+    c += ((a >> (8 * n)) & 255) * ((b >> (8 * n)) & 255);
+  }
+  return c;
+}
+}  // namespace conv8
 
 namespace txfm {
 // d += A @ B for an 8x8x4 tile, one lane's part: a = A[l >> 2][l & 3],
@@ -132,6 +181,7 @@ void standin_launch(int grid, int threads, F body) {
       cta.warp.push_back(std::make_unique<std::barrier<>>(32));
     }
     standin_cta = &cta;
+    std::memset(standin_smem, 0xA5, kStandinSmemBytes);
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t) {
       pool.emplace_back([&, t] {

@@ -166,7 +166,7 @@ class Vp9Encoder:
             raise NotImplementedError(
                 f"tpu_vp9_torch: the realtime step rejects "
                 f"{cfg.source_width}x{cfg.source_height} ({exc}); the host "
-                "route for it is not ported (ROADMAP.md Queue A item 5)"
+                "route for it is not ported (ROADMAP.md Queue A item 10)"
             ) from exc
         if geom.strip:
             raise NotImplementedError(

@@ -931,13 +931,14 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
 transform_recon.launches = 0
 
 
-def transform_recon_occupancy(n: int, device=None):
-    """(CTAs of the kernel of block size n an SM holds at once, the dynamic
-    shared memory each asks for in bytes) on ``device`` (the current CUDA
-    device if None), from the CUDA runtime's occupancy query."""
-    if n not in TXFM_BLOCK_SIZES:
-        raise ValueError(f"transform_recon: n={n} not in {TXFM_BLOCK_SIZES}")
-    fn = load_library("transform_recon").transform_recon_occupancy
+def _occupancy(name: str, sizes, n: int, device):
+    """(CTAs of kernel ``name``'s instance of block size n an SM holds at
+    once, the dynamic shared memory each asks for in bytes) on ``device``
+    (the current CUDA device if None), from the CUDA runtime's occupancy
+    query (the library's ``<name>_occupancy``)."""
+    if n not in sizes:
+        raise ValueError(f"{name}: n={n} not in {sizes}")
+    fn = getattr(load_library(name), f"{name}_occupancy")
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -945,9 +946,15 @@ def transform_recon_occupancy(n: int, device=None):
     with torch.cuda.device(device):
         err = fn(n, ctypes.byref(ctas), ctypes.byref(smem))
     if err != 0:
-        raise RuntimeError(f"transform_recon: the occupancy query failed "
-                           f"with CUDA error {err}")
+        raise RuntimeError(f"{name}: the occupancy query failed with CUDA "
+                           f"error {err}")
     return ctas.value, smem.value
+
+
+def transform_recon_occupancy(n: int, device=None):
+    """transform_recon's (resident CTAs per SM, dynamic shared memory in
+    bytes) at block size n (``_occupancy``)."""
+    return _occupancy("transform_recon", TXFM_BLOCK_SIZES, n, device)
 
 
 # ---------------------------------------------------------------------------
@@ -958,13 +965,28 @@ SUBPEL_BLOCK_SIZES = (16, 32)  # the children's and the zone's
 SUBPEL_MAX_R = 64  # keeps a window's offsets well inside int32
 
 
-@functools.lru_cache(maxsize=None)
-def _subpel_taps_on(device: torch.device):
-    """The (16, 8) int32 EIGHTTAP filter table on ``device``."""
+def _subpel_taps():
+    """The (16, 8) int32 EIGHTTAP filter table, checked for what the
+    kernel takes as given: phase 0 is the identity (it reads the pixel
+    under tap 3 and filters nothing) and the taps of the phases 4, 8 and 12
+    are signed bytes (it packs them four to a word for dp4a)."""
     from tpu_vp9_torch.bitstream import tables as T
 
     taps = np.asarray(T.subpel_filters(T.InterpFilter.EIGHTTAP), np.int32)
-    return torch.from_numpy(np.ascontiguousarray(taps)).to(device)
+    if taps.shape != (16, 8) or taps[0].tolist() != [0, 0, 0, 128, 0, 0,
+                                                     0, 0]:
+        raise ValueError("subpel_search: the EIGHTTAP table's phase 0 is "
+                         "not the identity")
+    if not np.all((taps[4::4] >= -128) & (taps[4::4] <= 127)):
+        raise ValueError("subpel_search: a tap of the phases 4, 8, 12 is "
+                         "no signed byte")
+    return np.ascontiguousarray(taps)
+
+
+@functools.lru_cache(maxsize=None)
+def _subpel_taps_on(device: torch.device):
+    """The (16, 8) int32 EIGHTTAP filter table on ``device``."""
+    return torch.from_numpy(_subpel_taps()).to(device)
 
 
 def _check_subpel_args(wins, src_blocks, dy, dx, n: int, r: int) -> None:
@@ -1022,3 +1044,9 @@ def subpel_search(wins, src_blocks, dy, dx, n: int, r: int):
 
 
 subpel_search.launches = 0
+
+
+def subpel_search_occupancy(n: int, device=None):
+    """subpel_search's (resident CTAs per SM, dynamic shared memory in
+    bytes) at block size n (``_occupancy``)."""
+    return _occupancy("subpel_search", SUBPEL_BLOCK_SIZES, n, device)
