@@ -27,8 +27,11 @@ Phases, each of which raises on failure (nothing is caught):
      panning frame at four qindex values, on patches that make every intra
      mode win (the blocks each mode won printed), on a constant frame whose
      tied modes must all go to the first, on 0/255 blocks at qindex 0 (the
-     8191 level clip) and at small geometries, with its chain (93 times
-     its own one-block latency);
+     8191 level clip) and at small geometries (a 1x1, a 1-row and a
+     1-column grid among them), after its ptxas report (registers, spills,
+     which fail the run) and its resident CTAs per SM, with its one-block
+     latency and the chain of 93 of them beside its device time per
+     keyframe;
      loop_filter on made-up planes that reach every class of the edge
      filter (the lanes of each class counted by the plain version and
      printed), without a split mask, with a random one and with all ones,
@@ -39,7 +42,7 @@ Phases, each of which raises on failure (nothing is caught):
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
      keyframe, rate tables, the GOLDEN anchor, the 32-against-16 descent)
      through the public Vp9Encoder; the keyframe must launch kframe_wave
-     once per anti-diagonal (93) and loop_filter once; per P-frame the
+     once (a CTA per block row) and loop_filter once; per P-frame the
      search entry points must launch twice (hier_search_fused, then
      sse_map_search for the children), subpel_search twice,
      transform_recon 6 times, the block_energy ones 5 times and
@@ -130,10 +133,11 @@ M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
                "loop_filter": 1, "transform_recon": 3, "subpel_search": 1}
-# launches per keyframe (M8 and M9 alike): one kframe_wave per
-# anti-diagonal of the 34 x 60 grid, and the loop filter of the three planes
+# launches per keyframe (M8 and M9 alike): one kframe_wave for the whole
+# 34 x 60 grid (its 93 anti-diagonals are its chain), and the loop filter
+# of the three planes
 KF_DIAGONALS = 34 + 60 - 1
-KEY_LAUNCHES = {"kframe_wave": KF_DIAGONALS, "loop_filter": 1}
+KEY_LAUNCHES = {"kframe_wave": 1, "loop_filter": 1}
 # the wrappers that launch kernels of one source, by the kernel's name in
 # the JSON line
 ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
@@ -173,9 +177,9 @@ LF_OPS_PER_LANE = 100
 # sheet gives no other rate off the tensor cores.
 HBM_BYTES_PER_S, INT8_OPS_PER_S, ALU_OPS_PER_S = 3.35e12, 1979e12, 67e12
 # FP64: float64 work at the data sheet's highest float64 rate (its tensor
-# cores', where transform_recon's forward products run), and its rate on
-# the CUDA cores (kframe_wave's forward transform runs there; the bounds
-# are held against the former)
+# cores', where the forward products of transform_recon and kframe_wave
+# run; the bounds are held against it), and its rate on the CUDA cores,
+# printed beside it
 FP64_OPS_PER_S, FP64_CORE_OPS_PER_S = 67e12, 34e12
 # kframe_wave per 32x32 block and its two 16x16 chroma blocks: the float64
 # operations of the forward transform (two products a plane, a multiply and
@@ -188,10 +192,11 @@ KF_INT_OPS = (8 * 10 * 1024 + 8 * 1536 + 10 * 1536 + 500 * 64 + 200 * 64
               + 4 * 1536)
 # kframe_wave's phase: the quantizer indices (0: the 8191 level clip is
 # reached), the mode patches' size, and the small geometries of the CPU
-# tests (32x32: one block, one launch; its time is one block's latency)
+# tests (128x32 one block row, 32x128 one block column, 32x32 one block:
+# its time is one block's latency)
 KF_QINDICES = (10, 100, 255)
 KF_SMALL_DIMS = ((128, 96), (160, 120), (96, 64), (64, 64), (192, 120),
-                 (32, 32))
+                 (128, 32), (32, 128), (32, 32))
 # txq_cost's stated tolerance (ops/cuda_kernels.py:txq_cost)
 TXQ_RTOL, TXQ_ATOL, TXQ_BAND, TXQ_MAX_FLIPPED = 1e-4, 1e-3, 1e-3, 0.01
 # transform_recon: the qindex values of its phase (0: the 8191 level clip),
@@ -896,18 +901,22 @@ def kframe_kernel_phase(dev):
     255; 1080p mode patches on which every mode wins somewhere; a constant
     frame at lam 0 (modes tie: DC, the first, must win every block); 0/255
     blocks at qindex 0 (levels reach the 8191 clip); the small geometries
-    of the CPU tests. Timed at 1080p: per keyframe (93 launches) with CUDA
-    events, the kernel's device time summed over the launches (profiler),
-    the host's, the plain version's; the bound; and, beside it, the chain:
-    93 times this kernel's own measured latency for one block (the device
-    time of the 32x32 geometry's single launch of one CTA), a figure of
-    this design, not a limit of the card."""
+    of the CPU tests (1-row and 1-column grids among them). Its registers,
+    spills and shared memory (ptxas) and resident CTAs per SM (occupancy
+    query) first. Timed at 1080p: per keyframe (one launch) with CUDA
+    events, the kernel's device time (profiler), the host's, the plain
+    version's; the bound; and, beside it, the chain: 93 times this
+    kernel's own measured latency for one block (the device time of the
+    32x32 geometry's launch of one CTA), a figure of this design, not a
+    limit of the card."""
     from tpu_vp9_torch.bitstream import tables as T
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.pipeline.presets import qp_to_qindex
     from tpu_vp9_torch.utils.yuv import panning_frames
 
+    _kernel_resources(dev, "kframe_wave", None,
+                      lambda n, d: K.kframe_wave_occupancy(d), threads=256)
     g = P.make_geom(WIDTH, HEIGHT)
     if g.rows32 + g.cols32 - 1 != KF_DIAGONALS:
         raise AssertionError("KF_DIAGONALS does not fit the 1080p grid")
@@ -958,50 +967,67 @@ def kframe_kernel_phase(dev):
     dc_q, ac_q = T.dc_quant(qidx), T.ac_quant(qidx)
     lam = max(1, (ac_q ** 2) >> 6)
 
+    # as the step calls it: the error word handed back, not read (a read
+    # would wait for the device); checked once after the timing
+    status = []
+
     def call():
-        return K.kframe_wave(*ts, g, dc_q, ac_q, lam)
+        return K.kframe_wave(*ts, g, dc_q, ac_q, lam, status)
 
     ms = _cuda_time_ms(call, 20)
     plain_ms = _cuda_time_ms(lambda: P.kframe_wave_ref(*ts, g, dc_q, ac_q,
                                                        lam), 2)
-    per_launch = _device_ms(call, "kframe_wave_kernel", reps=5)
-    device_ms = None if per_launch is None else per_launch * KF_DIAGONALS
+    device_ms = _device_ms(call, "kframe_wave_kernel", reps=20)
     host_ms = _host_ms(call, reps=20)
     g1 = P.make_geom(32, 32)
     one = [torch.from_numpy(p).to(dev) for p in _kf_planes(
         rng.integers(0, 256, (g1.pad_h, g1.pad_w), dtype=np.uint8))]
-    block_ms = _device_ms(lambda: K.kframe_wave(*one, g1, dc_q, ac_q, lam),
-                          "kframe_wave_kernel", reps=50)
+    block_ms = _device_ms(
+        lambda: K.kframe_wave(*one, g1, dc_q, ac_q, lam, status),
+        "kframe_wave_kernel", reps=50)
+    torch.cuda.synchronize()
+    for word in status:
+        K.kf_check_status(word)
     chain_ms = None if block_ms is None else KF_DIAGONALS * block_ms
     # reads the source planes once; writes the recon, the int16 levels, the
-    # modes and eobs; the float64 and integer operations of every block,
-    # the former at FP64_OPS_PER_S, here as operations at ALU_OPS_PER_S
+    # modes and eobs; the float64 operations of every block at
+    # FP64_OPS_PER_S (the tensor cores', where they run) and the integer
+    # ones, here as operations at ALU_OPS_PER_S; beside it the bound with
+    # the float64 work at the CUDA cores' rate
     nb = g.n_blocks32
     nbytes = sum(t.numel() for t in ts) + nb * 1536 * 3 + 16 * nb
-    bound = _bound(nbytes, nb * (KF_FP64_OPS * ALU_OPS_PER_S / FP64_OPS_PER_S
-                                 + KF_INT_OPS), ALU_OPS_PER_S)
+
+    def kf_bound(fp64_ops_per_s):
+        return _bound(nbytes, nb * (KF_FP64_OPS * ALU_OPS_PER_S
+                                    / fp64_ops_per_s + KF_INT_OPS),
+                      ALU_OPS_PER_S)
+
+    bound, core_bound = kf_bound(FP64_OPS_PER_S), kf_bound(
+        FP64_CORE_OPS_PER_S)
 
     def shown(v, unit=" ms"):
         return "not measured" if v is None else f"{v:.4f}{unit}"
 
-    print(f"kernel kframe_wave 1080p keyframe ({KF_DIAGONALS} launches): "
-          f"call {ms:.4f} ms (CUDA events, median); device "
-          f"{shown(device_ms)} summed over the launches ("
-          f"{shown(per_launch)} per launch, profiler); host {host_ms:.4f} ms "
-          f"per call; plain {plain_ms:.4f} ms; bound {bound[0]:.5f} ms by "
-          f"{bound[1]} ({nbytes / 1e6:.2f} MB, "
-          f"{nb * KF_FP64_OPS:.3g} float64 and {nb * KF_INT_OPS:.3g} integer "
-          f"operations); chain {shown(chain_ms)} ({KF_DIAGONALS} x this "
-          f"kernel's measured latency for one block, {shown(block_ms)}: the "
-          "32x32 geometry's single launch; not a bound)")
+    print(f"kernel kframe_wave 1080p keyframe (one launch): call "
+          f"{ms:.4f} ms (CUDA events, median); device {shown(device_ms)} "
+          f"(profiler); host {host_ms:.4f} ms per call; plain "
+          f"{plain_ms:.4f} ms; bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({nbytes / 1e6:.2f} MB, {nb * KF_FP64_OPS:.3g} float64 "
+          f"operations at {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s and "
+          f"{nb * KF_INT_OPS:.3g} integer ones; with the float64 work at the "
+          f"CUDA cores' {FP64_CORE_OPS_PER_S / 1e12:.0f} TFLOP/s "
+          f"{core_bound[0]:.5f} ms); one-block latency {shown(block_ms)} "
+          "(the 32x32 geometry's launch); chain "
+          f"{shown(chain_ms)} ({KF_DIAGONALS} x the one-block latency; not a "
+          "bound)")
     return {"name": "kframe_wave", "route": "cuda",
             "source": "tpu_vp9_torch/csrc/kframe_wave.cu",
             "replaces": "tpu_vp9/pipeline/tpu_encdec.py:2259",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "device_ms": device_ms, "host_ms": host_ms,
-            "chain_ms": chain_ms,
-            "parts": [{"shape": f"1080p keyframe, {KF_DIAGONALS} launches",
+            "block_ms": block_ms, "chain_ms": chain_ms,
+            "parts": [{"shape": "1080p keyframe, one launch",
                        "per_frame": 1, "ms": ms, "device_ms": device_ms,
                        "host_ms": host_ms, "bound_ms": bound[0]}]}
 
@@ -1205,13 +1231,14 @@ def loop_filter_kernel_phase(dev, lf_calls):
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
 
-def _kernel_resources(dev, name, sizes, occupancy):
-    """Each template instance (block size n) of kernel ``name``: its
-    registers, spill bytes and static shared memory from the ptxas report
-    of its build (``_build/lib<name>.log``), and its resident CTAs per SM
-    and dynamic shared memory from the CUDA runtime's occupancy query
-    (``occupancy(n, dev)``); printed, and raised on if an instance
-    spills."""
+def _kernel_resources(dev, name, sizes, occupancy, threads=128):
+    """Each template instance (block size n) of kernel ``name``, or with
+    ``sizes`` None its one kernel (n 0): its registers, spill bytes and
+    static shared memory from the ptxas report of its build
+    (``_build/lib<name>.log``), and its resident CTAs of ``threads``
+    threads per SM and dynamic shared memory from the CUDA runtime's
+    occupancy query (``occupancy(n, dev)``); printed, and raised on if an
+    instance spills."""
     import re
 
     from tpu_vp9_torch.ops import _build
@@ -1219,25 +1246,28 @@ def _kernel_resources(dev, name, sizes, occupancy):
     log = _build.build_log(name)
     found = {}
     for m in re.finditer(
-            r"Compiling entry function '[^']*" + name + r"_kernelILi(\d+)E"
+            r"Compiling entry function '[^']*" + name
+            + r"_kernel(?:ILi(\d+)E)?"
             r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
             r".*?Used (\d+) registers([^\n]*)", log, re.S):
         smem = re.search(r"(\d+) bytes smem", m.group(5))
-        found[int(m.group(1))] = (int(m.group(4)), int(m.group(2)),
-                                  int(m.group(3)),
-                                  int(smem.group(1)) if smem else 0)
-    if sorted(found) != sorted(sizes):
+        found[int(m.group(1) or 0)] = (int(m.group(4)), int(m.group(2)),
+                                       int(m.group(3)),
+                                       int(smem.group(1)) if smem else 0)
+    want = [0] if sizes is None else sorted(sizes)
+    if sorted(found) != want:
         raise AssertionError(f"{name}: the ptxas report has the instances "
-                             f"{sorted(found)}, want {sorted(sizes)}")
-    for n in sorted(sizes, reverse=True):
+                             f"{sorted(found)}, want {want}")
+    for n in sorted(want, reverse=True):
         regs, st, ld, smem = found[n]
         ctas, dyn = occupancy(n, dev)
-        print(f"{name} n={n}: {regs} registers, spill stores {st} B, spill "
+        label = name if sizes is None else f"{name} n={n}"
+        print(f"{label}: {regs} registers, spill stores {st} B, spill "
               f"loads {ld} B, static shared memory {smem} B (ptxas); "
-              f"dynamic shared memory {dyn} B, {ctas} resident CTAs of 128 "
-              "threads per SM (occupancy query)")
+              f"dynamic shared memory {dyn} B, {ctas} resident CTAs of "
+              f"{threads} threads per SM (occupancy query)")
         if st or ld:
-            raise AssertionError(f"{name} n={n} spills registers")
+            raise AssertionError(f"{label} spills registers")
 
 
 def _tr_bound(b, n, fp64_ops_per_s=FP64_OPS_PER_S):

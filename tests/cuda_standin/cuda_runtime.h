@@ -1,36 +1,48 @@
 // Stand-ins for the CUDA names a kernel of tpu_vp9_torch/csrc uses, so that
 // g++ can build its device code for the host and run it: every CUDA thread
-// of a CTA is a std::thread, the CTAs of a grid run one after another,
-// __syncthreads is a barrier of the CTA and __syncwarp one of the warp, and
-// a warp's shuffles and float64 mma (txfm::mma_f64_8x8x4, in the PTX
-// fragment layout of m8n8k4) go through an exchange area and a barrier of
-// the warp. The byte intrinsics (__byte_perm, __funnelshift_r,
-// __vabsdiffu4) and dp4a (conv8::dp4a_us, conv8::dp4a_uu) are written out
-// from their definitions in the PTX and CUDA manuals. Shared memory is one
-// static buffer (the CTAs do not overlap), filled with 0xA5 before each
-// CTA, so that a read of a place the CTA did not write shows.
+// of a CTA is a std::thread, __syncthreads is a barrier of the CTA and
+// __syncwarp one of the warp, and a warp's shuffles and float64 mma
+// (txfm::mma_f64_8x8x4, in the PTX fragment layout of m8n8k4) go through an
+// exchange area and a barrier of the warp. The byte intrinsics
+// (__byte_perm, __funnelshift_r, __vabsdiffu4) and dp4a (conv8::dp4a_us,
+// conv8::dp4a_uu) are written out from their definitions in the PTX and
+// CUDA manuals. standin_launch runs the CTAs of a grid one after another;
+// standin_launch_all runs them all at once (each with its own shared
+// buffer and exchange area), for a kernel whose CTAs wait on each other:
+// the relaxed loads and stores at the card's scope (KF_SYNC_STANDIN) and
+// atomicAdd are C++ atomics, __nanosleep a yield, bar_sync (bar.sync with
+// a barrier number) a barrier of that many threads of the CTA, and the
+// redux.sync reductions and the float64 mma of m16n8k16 go through the
+// warp's exchange area like the shuffles. Shared memory (standin_smem,
+// the running thread's CTA's buffer) is filled with 0xA5 before each CTA,
+// so that a read of a place the CTA did not write shows.
 // Build with -std=c++20 (for std::barrier), -fwrapv (int32 arithmetic
 // wraps as on the card) and -ffp-contract=off (no fused multiply-add the
 // source did not write).
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <cfenv>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
 #define TXFM_MMA_STANDIN 1
 #define CONV8_DP4A_STANDIN 1
+#define KF_SYNC_STANDIN 1
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __restrict__ __restrict
+#define __grid_constant__
 
 using std::fabs;
 using std::floor;
@@ -40,6 +52,7 @@ using std::max;
 using std::min;
 using std::rint;
 
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct uchar4 { unsigned char x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
@@ -59,6 +72,18 @@ inline double __dadd_rn(double a, double b) {
   volatile double r = a + b;
   return r;
 }
+// a + b rounded toward minus infinity
+inline double __dadd_rd(double a, double b) {
+  std::fesetround(FE_DOWNWARD);
+  volatile double r = a + b;
+  std::fesetround(FE_TONEAREST);
+  return r;
+}
+inline int __double2loint(double d) {
+  uint64_t v;
+  std::memcpy(&v, &d, 8);
+  return static_cast<int>(static_cast<uint32_t>(v));
+}
 inline long long __double_as_longlong(double d) {
   long long v;
   std::memcpy(&v, &d, 8);
@@ -75,20 +100,38 @@ inline thread_local StandinDim threadIdx, blockIdx;
 inline StandinDim gridDim;
 
 constexpr int kStandinSmemBytes = 1 << 17;
-alignas(16) inline unsigned char standin_smem[kStandinSmemBytes];
 
 struct StandinCta {
   std::unique_ptr<std::barrier<>> cta;
   std::vector<std::unique_ptr<std::barrier<>>> warp;
   double xa[32][32], xb[32][32];
+  double xa8[32][32][8], xb4[32][32][4];
   int xi[32][32];
+  alignas(16) unsigned char smem[kStandinSmemBytes];
+  // named barriers 1-15, each made at its first use with its count
+  std::unique_ptr<std::barrier<>> named[16];
+  std::mutex named_mu;
 };
-inline StandinCta* standin_cta;
+// the running thread's CTA and its shared memory
+inline thread_local StandinCta* standin_cta;
+inline thread_local unsigned char* standin_smem;
 
 inline void __syncthreads() { standin_cta->cta->arrive_and_wait(); }
 inline void standin_warp_sync(int w) { standin_cta->warp[w]->arrive_and_wait(); }
 
 inline void __syncwarp() { standin_warp_sync(threadIdx.x / 32); }
+
+// bar.sync id, count: a barrier of `count` threads of the CTA
+inline void bar_sync(int id, int count) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(standin_cta->named_mu);
+    auto& slot = standin_cta->named[id];
+    if (!slot) slot = std::make_unique<std::barrier<>>(count);
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
 
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int off) {
@@ -100,6 +143,73 @@ T __shfl_xor_sync(unsigned, T v, int off) {
   std::memcpy(&r, &standin_cta->xi[w][l ^ off], 4);
   standin_warp_sync(w);
   return r;
+}
+
+// redux.sync: the warp's sum, maximum or minimum of a 32-bit int
+template <class F>
+inline int standin_reduce(int v, F op) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  standin_cta->xi[w][l] = v;
+  standin_warp_sync(w);
+  int r = standin_cta->xi[w][0];
+  for (int k = 1; k < 32; ++k) r = op(r, standin_cta->xi[w][k]);
+  standin_warp_sync(w);
+  return r;
+}
+inline int __reduce_add_sync(unsigned, int v) {
+  return standin_reduce(v, [](int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+  });
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  return standin_reduce(v, [](int a, int b) { return a > b ? a : b; });
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  return standin_reduce(v, [](int a, int b) { return a < b ? a : b; });
+}
+
+inline bool __all_sync(unsigned, bool v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  standin_cta->xi[w][l] = v;
+  standin_warp_sync(w);
+  bool all = true;
+  for (int k = 0; k < 32; ++k) all = all && standin_cta->xi[w][k] != 0;
+  standin_warp_sync(w);
+  return all;
+}
+
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) == 4, "a 32-bit value");
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  std::memcpy(&standin_cta->xi[w][l], &v, 4);
+  standin_warp_sync(w);
+  T r;
+  std::memcpy(&r, &standin_cta->xi[w][src & 31], 4);
+  standin_warp_sync(w);
+  return r;
+}
+
+// the kernels' global-memory synchronisation, as C++ atomics
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline int ld_relaxed_gpu(const int* p) {
+  return std::atomic_ref<int>(*const_cast<int*>(p))
+      .load(std::memory_order_relaxed);
+}
+inline void st_relaxed_gpu(int* p, int v) {
+  std::atomic_ref<int>(*p).store(v, std::memory_order_relaxed);
+}
+inline unsigned long long ld_relaxed_gpu64(const unsigned long long* p) {
+  return std::atomic_ref<unsigned long long>(
+             *const_cast<unsigned long long*>(p))
+      .load(std::memory_order_relaxed);
+}
+inline void st_relaxed_gpu64(unsigned long long* p, unsigned long long v) {
+  std::atomic_ref<unsigned long long>(*p).store(v,
+                                                std::memory_order_relaxed);
 }
 
 // byte n of the result is byte ((s >> 4n) & 7) of y:x (x bytes 0-3)
@@ -163,11 +273,55 @@ inline void mma_f64_8x8x4(double& d0, double& d1, double a, double b) {
   }
   standin_warp_sync(w);
 }
+
+// d += A @ B for a 16x8x16 tile, one lane's part: g = l >> 2, t = l & 3,
+// a[i] = A[g + 8 (i & 1)][t + 4 (i >> 1)], b[i] = B[t + 4 i][g],
+// d[e] = D[g + 8 (e >> 1)][2 t + (e & 1)]; the 16 products summed in order
+inline void mma_f64_16x8x16(double (&d)[4], const double (&a)[8],
+                            const double (&b)[4]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  std::memcpy(standin_cta->xa8[w][l], a, sizeof(a));
+  std::memcpy(standin_cta->xb4[w][l], b, sizeof(b));
+  standin_warp_sync(w);
+  const int g = l >> 2, t = l & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    double acc = d[e];
+    for (int k = 0; k < 16; ++k) {
+      acc += standin_cta->xa8[w][4 * (row & 7) + (k & 3)]
+                             [(row >> 3) + 2 * (k >> 2)] *
+             standin_cta->xb4[w][4 * col + (k & 3)][k >> 2];
+    }
+    d[e] = acc;
+  }
+  standin_warp_sync(w);
+}
 }  // namespace txfm
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return 0; }
+
+// One CTA's threads, started: each sets its thread and block index and
+// its CTA, then runs body().
+template <class F>
+void standin_start(StandinCta& cta, int b, int threads, F& body,
+                   std::vector<std::thread>& pool) {
+  cta.cta = std::make_unique<std::barrier<>>(threads);
+  for (int w = 0; w < threads / 32; ++w) {
+    cta.warp.push_back(std::make_unique<std::barrier<>>(32));
+  }
+  std::memset(cta.smem, 0xA5, kStandinSmemBytes);
+  for (int t = 0; t < threads; ++t) {
+    pool.emplace_back([&cta, &body, b, t] {
+      threadIdx.x = t;
+      blockIdx.x = b;
+      standin_cta = &cta;
+      standin_smem = cta.smem;
+      body();
+    });
+  }
+}
 
 // Run body() as `grid` CTAs of `threads` threads (a multiple of 32, at
 // most 1024), one CTA after another.
@@ -175,21 +329,22 @@ template <class F>
 void standin_launch(int grid, int threads, F body) {
   gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
-    StandinCta cta;
-    cta.cta = std::make_unique<std::barrier<>>(threads);
-    for (int w = 0; w < threads / 32; ++w) {
-      cta.warp.push_back(std::make_unique<std::barrier<>>(32));
-    }
-    standin_cta = &cta;
-    std::memset(standin_smem, 0xA5, kStandinSmemBytes);
+    auto cta = std::make_unique<StandinCta>();
     std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t) {
-      pool.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        body();
-      });
-    }
+    standin_start(*cta, b, threads, body, pool);
     for (auto& th : pool) th.join();
   }
+}
+
+// Run body() as `grid` CTAs of `threads` threads, all at once.
+template <class F>
+void standin_launch_all(int grid, int threads, F body) {
+  gridDim.x = grid;
+  std::vector<std::unique_ptr<StandinCta>> ctas;
+  std::vector<std::thread> pool;
+  for (int b = 0; b < grid; ++b) {
+    ctas.push_back(std::make_unique<StandinCta>());
+    standin_start(*ctas.back(), b, threads, body, pool);
+  }
+  for (auto& th : pool) th.join();
 }

@@ -102,7 +102,8 @@ def test_every_port_module_is_accounted_for():
     own = {"__init__.py", "ops/__init__.py", "ops/_build.py",
            "ops/cuda_kernels.py", "pipeline/__init__.py",
            "pipeline/realtime.py", "pipeline/tpu_encdec.py",
-           "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py"}
+           "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py",
+           "utils/kf_phases.py"}
     found = set()
     root = os.path.join(REPO, "tpu_vp9_torch")
     for dirpath, _, files in os.walk(root):

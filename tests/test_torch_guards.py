@@ -276,20 +276,60 @@ def _fake_cuda_kframe_wave(monkeypatch, launch):
 
 
 def test_kframe_wave_on_cuda_launches_once_per_diagonal(monkeypatch):
+    """Every anti-diagonal of the grid in one launch: a keyframe is one
+    launch of a CTA per block row (the kernel walks the diagonals itself),
+    with its geometry, quantizers, lambda and poll limit, and with zeroed
+    scratch: the sync words (ticket, error word), then the edge words; the
+    status word it hands back is the scratch's error word."""
+    import ctypes
+
     calls = []
     K, g, planes = _fake_cuda_kframe_wave(
         monkeypatch, lambda name, dev, *args: calls.append((name, args)))
     before = K.kframe_wave.launches
-    out = K.kframe_wave(*planes, g, 93, 112, 196)
-    n_diag = g.rows32 + g.cols32 - 1
-    assert [c[0] for c in calls] == ["kframe_wave"] * n_diag
-    assert K.kframe_wave.launches - before == n_diag
-    # the diagonal, its first block row and its block count, in order
-    got = [args[17:20] for _, args in calls]
-    assert got == [(d, *K.kf_diagonal(d, g.rows32, g.cols32))
-                   for d in range(n_diag)]
-    assert sum(a[2] for a in got) == g.n_blocks32
+    status = []
+    out = K.kframe_wave(*planes, g, 93, 112, 196, status)
+    assert [c[0] for c in calls] == ["kframe_wave"]
+    assert K.kframe_wave.launches - before == 1
+    args = calls[0][1]
+    assert len(args) == 15 + 8
+    assert args[15:] == (g.pad_w, g.height, g.rows32, g.cols32, 93, 112,
+                         196, K.KF_MAX_POLLS)
+    ptrs = args[:15]
+    assert ptrs[:3] == tuple(p.data_ptr() for p in planes)
+    assert ptrs[3:6] == tuple(t.data_ptr() for t in out[7:10])
+    assert ptrs[6] == out[0].data_ptr()
+    assert ptrs[7:10] == tuple(t.data_ptr() for t in out[1:4])
+    mats, tabs = K._kf_tables_on(planes[0].device)
+    assert ptrs[11:13] == (mats.data_ptr(), tabs.data_ptr())
+    assert mats.numel() == 32 * 32 + 16 * 16
+    # the sync words, then rows x cols blocks of 16 edge words, all zero
+    assert ptrs[13] == ptrs[14] + 8
+    scratch = [ctypes.c_int64.from_address(ptrs[14] + 8 * i).value
+               for i in range(1 + 16 * g.n_blocks32)]
+    assert scratch == [0] * (1 + 16 * g.n_blocks32)
+    assert len(status) == 1 and status[0].data_ptr() == ptrs[14] + 4
     assert len(out) == 10
+    assert out[0].shape == (g.n_blocks32,)
+
+
+def test_kframe_wave_raises_when_the_error_word_is_set(monkeypatch):
+    """A block row that gave up waiting for the row above sets the error
+    word: the wrapper raises when it reads it, at once without a status
+    list, and kf_check_status does for a word handed back in one."""
+    import ctypes
+
+    def timed_out(name, dev, *args):
+        ctypes.c_int.from_address(args[14] + 4).value = 3  # block row 2
+
+    K, g, planes = _fake_cuda_kframe_wave(monkeypatch, timed_out)
+    with pytest.raises(RuntimeError, match="block row 2 gave up"):
+        K.kframe_wave(*planes, g, 93, 112, 196)
+    status = []
+    K.kframe_wave(*planes, g, 93, 112, 196, status)
+    with pytest.raises(RuntimeError, match="incomplete"):
+        K.kf_check_status(status[0])
+    K.kf_check_status(torch.zeros(1, dtype=torch.int32))
 
 
 def test_kframe_wave_on_cuda_raises_when_the_launch_fails(monkeypatch):
@@ -299,6 +339,20 @@ def test_kframe_wave_on_cuda_raises_when_the_launch_fails(monkeypatch):
     K, g, planes = _fake_cuda_kframe_wave(monkeypatch, refused)
     with pytest.raises(RuntimeError, match="launch failed"):
         K.kframe_wave(*planes, g, 93, 112, 196)
+
+
+def test_keyframe_fetch_checks_the_wave_error_word_first():
+    """The session's keyframe reads kframe_wave's error word (the step's
+    "kf_status") before it fetches the outputs, so a wave that gave up
+    never hands incomplete levels to the serializer."""
+    path = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "realtime.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+              and n.name == "_encode_key_device")
+    src = ast.unparse(fn)
+    check = src.index("kf_check_status(outs['kf_status']")
+    assert check < src.index("outs['m32'][k].cpu()")
 
 
 def _meta_stage_inputs(name):

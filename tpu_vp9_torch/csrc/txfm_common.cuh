@@ -135,24 +135,29 @@ __device__ __forceinline__ void idct16(const int* x, int* o) {
   }
 }
 
-__device__ __forceinline__ void idct32(const int* x, int* o) {
+// The odd half of idct32 from its odd inputs, x1[k] = x[2 k + 1]: the 16
+// values odd[k] that idct32 adds to and subtracts from its even half's
+// outputs e (idct16 of the even inputs): o[k] = e[k] + odd[15 - k],
+// o[31 - k] = e[k] - odd[15 - k].
+__device__ __forceinline__ void idct32_odd(const int* x1, int* odd) {
+  auto x = [x1](int i) { return x1[i >> 1]; };  // x(i): input i, i odd
   // stage 1: odd-half rotations
-  const int s16 = rs(x[1] * c31 - x[31] * c1);
-  const int s31 = rs(x[1] * c1 + x[31] * c31);
-  const int s17 = rs(x[17] * c15 - x[15] * c17);
-  const int s30 = rs(x[17] * c17 + x[15] * c15);
-  const int s18 = rs(x[9] * c23 - x[23] * c9);
-  const int s29 = rs(x[9] * c9 + x[23] * c23);
-  const int s19 = rs(x[25] * c7 - x[7] * c25);
-  const int s28 = rs(x[25] * c25 + x[7] * c7);
-  const int s20 = rs(x[5] * c27 - x[27] * c5);
-  const int s27 = rs(x[5] * c5 + x[27] * c27);
-  const int s21 = rs(x[21] * c11 - x[11] * c21);
-  const int s26 = rs(x[21] * c21 + x[11] * c11);
-  const int s22 = rs(x[13] * c19 - x[19] * c13);
-  const int s25 = rs(x[13] * c13 + x[19] * c19);
-  const int s23 = rs(x[29] * c3 - x[3] * c29);
-  const int s24 = rs(x[29] * c29 + x[3] * c3);
+  const int s16 = rs(x(1) * c31 - x(31) * c1);
+  const int s31 = rs(x(1) * c1 + x(31) * c31);
+  const int s17 = rs(x(17) * c15 - x(15) * c17);
+  const int s30 = rs(x(17) * c17 + x(15) * c15);
+  const int s18 = rs(x(9) * c23 - x(23) * c9);
+  const int s29 = rs(x(9) * c9 + x(23) * c23);
+  const int s19 = rs(x(25) * c7 - x(7) * c25);
+  const int s28 = rs(x(25) * c25 + x(7) * c7);
+  const int s20 = rs(x(5) * c27 - x(27) * c5);
+  const int s27 = rs(x(5) * c5 + x(27) * c27);
+  const int s21 = rs(x(21) * c11 - x(11) * c21);
+  const int s26 = rs(x(21) * c21 + x(11) * c11);
+  const int s22 = rs(x(13) * c19 - x(19) * c13);
+  const int s25 = rs(x(13) * c13 + x(19) * c19);
+  const int s23 = rs(x(29) * c3 - x(3) * c29);
+  const int s24 = rs(x(29) * c29 + x(3) * c3);
   // stage 2 (odd butterflies)
   const int t16 = s16 + s17;
   const int t17 = s16 - s17;
@@ -231,8 +236,17 @@ __device__ __forceinline__ void idct32(const int* x, int* o) {
   const int b25 = rs((a22 + a25) * c16);
   const int b23 = rs((-a23 + a24) * c16);
   const int b24 = rs((a23 + a24) * c16);
-  const int odd[16] = {a16, a17, a18, a19, b20, b21, b22, b23,
+  const int out[16] = {a16, a17, a18, a19, b20, b21, b22, b23,
                        b24, b25, b26, b27, a28, a29, a30, a31};
+#pragma unroll
+  for (int k = 0; k < 16; ++k) odd[k] = out[k];
+}
+
+__device__ __forceinline__ void idct32(const int* x, int* o) {
+  int x1[16], odd[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) x1[k] = x[2 * k + 1];
+  idct32_odd(x1, odd);
   // even half: idct16 of the even inputs
   int ein[16];
 #pragma unroll
@@ -310,6 +324,25 @@ __device__ __forceinline__ void mma_f64_8x8x4(double& d0, double& d1,
       "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
       : "+d"(d0), "+d"(d1)
       : "d"(a), "d"(b));
+}
+#endif
+
+// d += A @ B for one 16x8x16 tile (mma.sync m16n8k16 .f64, sm_90: twice
+// the float64 rate of m8n8k4 on an H100), a warp at a time. The PTX
+// fragment layout, per lane, g = lane >> 2, t = lane & 3:
+// a[i] = A[g + 8 (i & 1)][t + 4 (i >> 1)], b[i] = B[t + 4 i][g],
+// d[e] = D[g + 8 (e >> 1)][2 t + (e & 1)]. A stand-in header that defines
+// TXFM_MMA_STANDIN supplies its own, with the same layout.
+#ifndef TXFM_MMA_STANDIN
+__device__ __forceinline__ void mma_f64_16x8x16(double (&d)[4],
+                                                const double (&a)[8],
+                                                const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 #endif
 

@@ -79,7 +79,7 @@ _LAUNCHERS = {
     "hier_search_fused": ("sse_search", "hier_search_launch", 5, 0, 2),
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
     "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 10),
-    "kframe_wave": ("kframe_wave", "kframe_wave_launch", 13, 0, 10),
+    "kframe_wave": ("kframe_wave", "kframe_wave_launch", 15, 0, 8),
     "transform_recon": ("transform_recon", "transform_recon_launch", 7, 0,
                         4),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
@@ -712,6 +712,13 @@ loop_filter.launches = 0
 KF_MODE_BIAS = (0, 1, 1, 3, 3, 3, 3, 3, 3, 1)
 # keeps a block's cost, sse + bias * lam, inside int32 (sse < 2^27)
 KF_MAX_LAM = 1 << 24
+# a wait of one block row for the row above gives up after this many
+# polls (each a read of the L2 cache, with a 64 ns sleep every 32) and
+# sets the launch's error word
+KF_MAX_POLLS = 1 << 22
+# 64-bit words of a block's bottom recon rows in the kernel's edge buffer
+# (luma's 32 bytes, u's 16 and v's 16, four a word beside a tag)
+KF_EDGE_WORDS = 16
 KF_STRIP = ("strip geometries (mi_rows % 4 == 2: the bottom 16-pixel "
             "strip's above-only modes, ADST at TX16) are not ported yet "
             "(ROADMAP.md Queue A item 5)")
@@ -719,7 +726,8 @@ KF_STRIP = ("strip geometries (mi_rows % 4 == 2: the bottom 16-pixel "
 
 def kf_diagonal(d: int, rows: int, cols: int):
     """(first block row, number of blocks) of anti-diagonal ``d`` of a
-    rows x cols grid: the blocks (r, d - r) that lie in the grid."""
+    rows x cols grid: the blocks (r, d - r) that lie in the grid (the plain
+    version's batches)."""
     r0 = max(0, d - cols + 1)
     return r0, min(rows - 1, d) - r0 + 1
 
@@ -741,25 +749,51 @@ def _kf_dir_words(bs: int) -> np.ndarray:
     return word.astype(np.int32)
 
 
+# distinct packed words a directional mode has at most, at 32 and 16 (its
+# list is padded to this length)
+KF_UNIQ = {32: 96, 16: 48}
+
+
+def _kf_mode_lists(bs: int):
+    """The directional maps as lists: (8, KF_UNIQ[bs]) int32, each mode's
+    distinct packed words (``_kf_dir_words``), padded with 0 (weights 0),
+    and (bs*bs, 8) uint8, each pixel's index into its mode's list."""
+    words = _kf_dir_words(bs)
+    uniq = np.zeros((8, KF_UNIQ[bs]), np.int32)
+    idx = np.zeros((bs * bs, 8), np.uint8)
+    for m in range(8):
+        u, inv = np.unique(words[m], return_inverse=True)
+        if len(u) > KF_UNIQ[bs]:
+            raise AssertionError(f"{len(u)} distinct words of mode {m} at "
+                                 f"{bs}, want at most {KF_UNIQ[bs]}")
+        uniq[m, :len(u)] = u
+        idx[:, m] = inv
+    return uniq, idx
+
+
 @functools.lru_cache(maxsize=None)
 def _kf_tables_on(device: torch.device):
     """The kernel's constant tables on ``device``: float64 (f_col32,
-    f_row_t32, f_col16, f_row_t16), the port's forward matrices (the
-    float32 ones widened), and int32 (dir32, dir16, iscan32, iscan16), the
-    packed directional maps and each raster place's place in the DCT_DCT
-    scan order."""
+    f_col16), the port's forward column matrices (``txfm._fwd_matrices64``,
+    the float32 ones widened; the kernel reads F_row^T as F_col^T / 2^6,
+    which ``tests/test_torch_transform_recon.py`` holds to the row matrix
+    bit for bit), and int32 words: the directional maps as lists
+    (``_kf_mode_lists``: the words of 32, of 16, then the pixels' index
+    bytes of 32, of 16) and each raster place's place in the DCT_DCT scan
+    order (32, 16)."""
     from tpu_vp9_torch.bitstream import tables as T
     from tpu_vp9_torch.ops import txfm
 
-    mats = []
-    for n in (32, 16):
-        mats += [m.astype(np.float64).reshape(-1) for m in
-                 txfm.fwd_matrices(txfm.TX_SIZE[n], T.TxType.DCT_DCT)]
-    tabs = [_kf_dir_words(32).reshape(-1), _kf_dir_words(16).reshape(-1)]
+    cpu = torch.device("cpu")
+    mats = [txfm._fwd_matrices64(n, cpu)[0].reshape(-1) for n in (32, 16)]
+    lists = [_kf_mode_lists(n) for n in (32, 16)]
+    tabs = [u.reshape(-1) for u, _ in lists]
+    tabs += [np.ascontiguousarray(i).view(np.int32).reshape(-1)
+             for _, i in lists]
     for n in (32, 16):
         scan = np.asarray(T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0])
         tabs.append(np.argsort(scan).astype(np.int32))
-    return (torch.from_numpy(np.concatenate(mats)).to(device),
+    return (torch.cat(mats).to(device),
             torch.from_numpy(np.concatenate(tabs)).to(device))
 
 
@@ -804,29 +838,49 @@ def kf_outputs(geom, device):
     return mode, lvs, eob, recs
 
 
-def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int):
+def kf_check_status(word) -> None:
+    """Raise if a ``kframe_wave`` launch's error word (a one-element int32
+    tensor or array) is set: a block row's wait for the row above gave up,
+    and the keyframe's outputs are incomplete. Reading a CUDA tensor waits
+    for the launch."""
+    v = int(torch.as_tensor(word).reshape(-1)[0])
+    if v != 0:
+        raise RuntimeError(f"kframe_wave: block row {v - 1} gave up waiting "
+                           "for the row above; the keyframe's outputs are "
+                           "incomplete")
+
+
+def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int,
+                status=None):
     """The keyframe's closed-loop intra encode of the 32 grid.
 
     src_y: (pad_h, pad_w), src_u and src_v: (pad_h/2, pad_w/2) uint8
     padded source planes; geom: the step's geometry (no strip); dc_q, ac_q:
-    the quantizer steps; lam: the mode prior's lambda. Over the
-    anti-diagonals d = 0 .. rows32 + cols32 - 2 in order, every 32x32 block
-    (r, d - r): the 10 intra predictions from the recon of earlier
-    diagonals (127 above the frame, 129 left of it, above-right repeating
-    above[31], the left column clamped to the last visible row), the mode of
-    least ``sse + KF_MODE_BIAS[m] * lam`` (the first on a tie), then luma at
-    32 and both chroma planes at 16 with that mode: float64 forward DCT,
-    quantizer, exact integer inverse, recon and eob. Returns (mode int32
-    (B,), lv_y int16 (B, 32, 32), lv_u, lv_v int16 (B, 16, 16), eob_y, eob_u,
-    eob_v int32 (B,), rec_y uint8 (rows32*32, cols32*32), rec_u, rec_v
-    (rows32*16, cols32*16)), blocks in raster order, the recon unfiltered.
+    the quantizer steps; lam: the mode prior's lambda. Every 32x32 block
+    (r, c), after (r-1, c) and (r, c-1): the 10 intra predictions from
+    their recon (127 above the frame, 129 left of it, above-right repeating
+    above[31], the left column clamped to the last visible row), the mode
+    of least ``sse + KF_MODE_BIAS[m] * lam`` (the first on a tie), then luma
+    at 32 and both chroma planes at 16 with that mode: float64 forward
+    DCT, quantizer, exact integer inverse, recon and eob. Returns (mode
+    int32 (B,), lv_y int16 (B, 32, 32), lv_u, lv_v int16 (B, 16, 16),
+    eob_y, eob_u, eob_v int32 (B,), rec_y uint8 (rows32*32, cols32*32),
+    rec_u, rec_v (rows32*16, cols32*16)), blocks in raster order, the recon
+    unfiltered.
 
-    It runs the kernel of ``csrc/kframe_wave.cu``, one launch per
-    anti-diagonal on the current stream, or raises: CPU tensors go to the
+    It runs the kernel of ``csrc/kframe_wave.cu``, one launch on the
+    current stream (a CTA per block row), or raises: CPU tensors go to the
     plain version ``pipeline/tpu_encdec.py:kframe_wave_ref`` through the
     step's ``kframe_wave_device``, not through here. The two agree bit for
     bit unless a coefficient's ``|c| / q + 0.38`` lies within about 1e-12 of
     an integer (the float64 forward transform sums in another order).
+
+    The launch's error word is set if a block row gave up waiting for the
+    row above (``KF_MAX_POLLS``). With ``status`` None the wrapper reads it
+    at once (a wait for the device) and raises if it is set
+    (``kf_check_status``); otherwise it appends the word, a one-element
+    int32 CUDA tensor, to the list ``status`` and the caller checks it
+    with ``kf_check_status`` when it fetches the outputs.
     """
     dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
     check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
@@ -838,13 +892,21 @@ def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int):
     dev = src_y.device
     mode, lvs, eob, recs = kf_outputs(g, dev)
     mats, tabs = _kf_tables_on(dev)
+    # scratch, zeroed for every keyframe: the ticket and the error word
+    # (int32), then each block's bottom rows in tagged words
+    scratch = torch.zeros(1 + rows * cols * KF_EDGE_WORDS, dtype=torch.int64,
+                          device=dev)
     ptrs = [t.data_ptr() for t in (src_y, src_u, src_v, *recs, mode, *lvs,
                                    eob, mats, tabs)]
-    for d in range(rows + cols - 1):
-        r0, nb = kf_diagonal(d, rows, cols)
-        _launch("kframe_wave", dev, *ptrs, g.pad_w, g.height, rows, cols,
-                d, r0, nb, dc_q, ac_q, lam)
-        kframe_wave.launches += 1
+    _launch("kframe_wave", dev, *ptrs, scratch.data_ptr() + 8,
+            scratch.data_ptr(), g.pad_w, g.height, rows, cols, dc_q, ac_q,
+            lam, KF_MAX_POLLS)
+    kframe_wave.launches += 1
+    word = scratch.view(torch.int32)[1:2]
+    if status is None:
+        kf_check_status(word)
+    else:
+        status.append(word)
     return (mode, *lvs, *eob.unbind(0), *recs)
 
 
@@ -931,24 +993,34 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
 transform_recon.launches = 0
 
 
-def _occupancy(name: str, sizes, n: int, device):
+def _occupancy(name: str, sizes, n, device):
     """(CTAs of kernel ``name``'s instance of block size n an SM holds at
     once, the dynamic shared memory each asks for in bytes) on ``device``
     (the current CUDA device if None), from the CUDA runtime's occupancy
-    query (the library's ``<name>_occupancy``)."""
-    if n not in sizes:
-        raise ValueError(f"{name}: n={n} not in {sizes}")
+    query (the library's ``<name>_occupancy``); ``sizes`` None for a kernel
+    of one instance (n None)."""
     fn = getattr(load_library(name), f"{name}_occupancy")
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
+    ptrs = [ctypes.POINTER(ctypes.c_int)] * 2
+    if sizes is None:
+        fn.argtypes, args = ptrs, ()
+    else:
+        if n not in sizes:
+            raise ValueError(f"{name}: n={n} not in {sizes}")
+        fn.argtypes, args = [ctypes.c_int, *ptrs], (n,)
     fn.restype = ctypes.c_int
     ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = fn(n, ctypes.byref(ctas), ctypes.byref(smem))
+        err = fn(*args, ctypes.byref(ctas), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"{name}: the occupancy query failed with CUDA "
                            f"error {err}")
     return ctas.value, smem.value
+
+
+def kframe_wave_occupancy(device=None):
+    """(CTAs of 256 threads an SM holds at once, the dynamic shared memory
+    each asks for in bytes) of ``kframe_wave``'s kernel (``_occupancy``)."""
+    return _occupancy("kframe_wave", None, None, device)
 
 
 def transform_recon_occupancy(n: int, device=None):

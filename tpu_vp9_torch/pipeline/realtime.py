@@ -51,6 +51,7 @@ from tpu_vp9_torch.codec import mv as MV
 from tpu_vp9_torch.codec.intra_frame import (
     make_frame_state, walk_partition_fixed,
 )
+from tpu_vp9_torch.ops.cuda_kernels import kf_check_status
 from tpu_vp9_torch.ops.loopfilter import pick_filter_level, sharpness_limits
 from tpu_vp9_torch.pipeline.encoder import EncodedFrame, _apply_loop_filter
 from tpu_vp9_torch.pipeline.tpu_encdec import (
@@ -508,6 +509,8 @@ class RtSession:
             self._since_gold = 0
         self._prev_mv32 = torch.zeros_like(self._prev_mv32)
         with span("kf_d2h_transfer"):
+            # a wave that gave up waiting left its outputs incomplete
+            kf_check_status(outs["kf_status"].cpu())
             host = {k: outs["m32"][k].cpu().numpy() for k in _KEY_KEYS}
             recs = ([outs[k].cpu().numpy() for k in ("rec_y", "rec_u",
                                                      "rec_v")]

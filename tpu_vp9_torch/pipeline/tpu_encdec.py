@@ -45,10 +45,10 @@ not clamp out-of-range starts the way ``lax.dynamic_slice`` does, so every
 slice here is either proven in range or checked.
 
 The keyframe has its own step, ``make_kframe_step``: the closed-loop
-intra encode of the 32 grid by anti-diagonals (``kframe_wave``, a CUDA
-kernel, with its plain version ``kframe_wave_ref`` here; all 10 intra modes
-predicted by ``predict_intra_all``), then the same loop filter and border
-extension.
+intra encode of the 32 grid in wave order (``kframe_wave``, a CUDA kernel
+of one launch, a CTA per block row; its plain version ``kframe_wave_ref``
+here goes by anti-diagonals; all 10 intra modes predicted by
+``predict_intra_all``), then the same loop filter and border extension.
 
 Geometries: width % 32 == 0 and mi_rows % 4 in {0, 3} (the 16-pixel strip
 of mi_rows % 4 == 2 is not ported yet; ``make_geom`` still describes it).
@@ -1581,16 +1581,18 @@ def kframe_wave_ref(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
 
 
 def kframe_wave_device(src_y, src_u, src_v, geom: Geom, dc_q: int,
-                       ac_q: int, lam: int):
+                       ac_q: int, lam: int, status=None):
     """The keyframe's intra wavefront (contract: ``kframe_wave_ref``).
     Planes that all lie on the CPU take the plain version; anything else
-    goes to the CUDA kernel's wrapper, which launches or raises. Both
-    refuse a strip geometry."""
+    goes to the CUDA kernel's wrapper, which launches or raises, and which
+    appends its launch's error word to the list ``status`` if one is given
+    (``cuda_kernels.kframe_wave``; the plain version has none). Both refuse
+    a strip geometry."""
     if all(t.device.type == "cpu" for t in (src_y, src_u, src_v)):
         dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
         check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
         return kframe_wave_ref(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
-    return kframe_wave(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
+    return kframe_wave(src_y, src_u, src_v, geom, dc_q, ac_q, lam, status)
 
 
 def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
@@ -1599,21 +1601,27 @@ def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
     package's ``kframe_step`` without a strip).
 
     src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 tensors.
-    The 32x32 blocks are encoded by anti-diagonals (``kframe_wave_device``:
-    a CUDA kernel for CUDA planes, its plain version for CPU planes), the
+    The 32x32 blocks are encoded in wave order (``kframe_wave_device``: a
+    CUDA kernel for CUDA planes, its plain version for CPU planes), the
     recon edge-padded to the device planes, loop filtered frame-wide at
     ``lf_lvl`` and border-extended. Returns (outputs, new border-extended
     (ref_y, ref_u, ref_v)); outputs hold "m32" (mode, skip, eob_y/u/v,
-    lv_y/u/v in raster block order) and the filtered planes
-    "rec_y"/"rec_u"/"rec_v".
+    lv_y/u/v in raster block order), the filtered planes
+    "rec_y"/"rec_u"/"rec_v" and "kf_status", the kernel's error word (a
+    one-element int32 tensor, zero for the plain version), which whoever
+    fetches the outputs checks with ``cuda_kernels.kf_check_status``.
     """
     g = geom
+    status = []
     (mode, lv_y, lv_u, lv_v, eob_y, eob_u, eob_v, rec_y, rec_u,
-     rec_v) = kframe_wave_device(src_y, src_u, src_v, g, dc_q, ac_q, lam)
+     rec_v) = kframe_wave_device(src_y, src_u, src_v, g, dc_q, ac_q, lam,
+                                 status)
     outs = {"m32": {
         "mode": mode, "skip": (eob_y == 0) & (eob_u == 0) & (eob_v == 0),
         "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
-        "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v}}
+        "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v},
+        "kf_status": status[0] if status else torch.zeros(
+            1, dtype=torch.int32, device=mode.device)}
     rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
     rec_u = _pad_edge(rec_u, g.pad_h // 2, g.pad_w // 2)
     rec_v = _pad_edge(rec_v, g.pad_h // 2, g.pad_w // 2)
