@@ -35,8 +35,12 @@ Phases, each of which raises on failure (nothing is caught):
      loop_filter on made-up planes that reach every class of the edge
      filter (the lanes of each class counted by the plain version and
      printed), without a split mask, with a random one and with all ones,
-     at three levels, at small geometries, and on the unfiltered recon,
-     mask and level of the real keyframe and M8 P-frame; txq_cost on
+     at three levels, at small geometries, at geometries with the bottom
+     16-pixel strip (720p, 4K and three small ones, no mask; the lanes
+     of each class of the strip's own edges printed), and on the
+     unfiltered recon, mask and level of the real keyframe and M8
+     P-frame, timed at 1080p, 720p and 4K and by kind of CTA, after its
+     ptxas report and resident CTAs per SM; txq_cost on
      made-up residuals within its tolerance; each timed per call with CUDA
      events and on the host clock, and per launch with the profiler;
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
@@ -59,10 +63,13 @@ Phases, each of which raises on failure (nothing is caught):
   5. M8 profile: three steady P-frames under torch.profiler, for the share
      of their time the device is busy, the top device operations, and
      each stage's device time (its PyTorch ops' from the profiler's
-     ranges, plus its hand kernels', which the ranges leave out);
+     ranges, plus its hand kernels', which the ranges leave out); three
+     more if the profile lacks a hand kernel's record, and the phase
+     fails if that one lacks one too;
   6. keyframes: four 1080p device keyframes through RtSession, decoded,
      with the send time split by the spans kf_device_step, kf_d2h_transfer
-     and kf_serialize, and one more under the profiler;
+     and kf_serialize, and one more under the profiler (up to three, until
+     one holds the records of kframe_wave and loop_filter);
   7. M8 same bytes: the first frames again with device="cpu" (the plain
      versions) must give identical packets;
   8. M9 (the uniform 32 grid): end to end on the first frames of the same
@@ -166,6 +173,10 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
 LF_LEVELS = (0, 9, 50)
 LF_SMALL_DIMS = ((128, 128), (192, 120), (160, 96), (96, 64), (64, 64))
 LF_OPS_PER_LANE = 100
+# geometries with the bottom 16-pixel strip (mi_rows % 4 == 2, no mask):
+# 720p and 4K, where the kernel is also timed, and the CPU tests' own
+LF_STRIP_DIMS = ((1280, 720), (3840, 2160), (128, 112), (96, 80),
+                 (256, 176))
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s
 # and operations/s by the type of the operands.
 # INT8: sums of products of 8-bit integers, which the tensor cores take
@@ -223,6 +234,8 @@ TR_INT_OPS = {32: 500 * 64 + 16 * 1024, 16: 200 * 32 + 16 * 256,
               8: 60 * 16 + 16 * 64}
 # subpel_search's path calls per M8 P-frame: the zone's, then the children's
 SP_CALLS = ("zone n=32 r=4", "children n=16 r=8")
+# a profile's warm-up before the work it reports (_profile)
+WARM_SPINS, WARM_WAIT_S = 32, 0.05
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float):
@@ -1091,6 +1104,35 @@ def _lf_case(label, planes, geom, lvl, lim, mblim, split):
     return err, counts
 
 
+def _lf_strip_classes(planes, geom, lvl, lim, mblim):
+    """Lanes of each filter class of the strip's own edges (the luma and
+    chroma verticals of its rows, the chroma edge at its top), counted by
+    loop_filter_ref on the planes' device."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    g = geom
+    counts, junk = {}, {}
+    real_vert, real_horz = P._lf_vert, P._lf_horz
+
+    def vert(plane, rows0, nrows, xs, *args, **kw):
+        luma = plane.shape[0] == g.pad_h
+        P.LF_CLASS_COUNTS = (counts if rows0 >= g.strip_y >> (not luma)
+                             else junk)
+        real_vert(plane, rows0, nrows, xs, *args, **kw)
+
+    def horz(plane, ys, *args, **kw):
+        top = plane.shape[0] != g.pad_h and g.strip_y >> 1 in ys
+        P.LF_CLASS_COUNTS = counts if top else junk
+        real_horz(plane, ys, *args, **kw)
+
+    P._lf_vert, P._lf_horz = vert, horz
+    P.LF_CLASS_COUNTS = junk
+    P.loop_filter_ref(*planes, g, lvl, lim, mblim)
+    P._lf_vert, P._lf_horz = real_vert, real_horz
+    P.LF_CLASS_COUNTS = None
+    return counts
+
+
 def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
     """Device time of loop_filter with every kind of CTA at work and with
     each kind alone (the others return at once): which columns of the
@@ -1193,6 +1235,30 @@ def loop_filter_kernel_phase(dev, lf_calls):
     if not all(seen.values()):
         raise AssertionError(f"the made-up 1080p planes reach no lane of a "
                              f"filter class: {seen}")
+    # the strip geometries, without a mask (the step has none there): the
+    # lanes of each class that the strip's own edges reach
+    strip_planes = {}
+    for dims in LF_STRIP_DIMS:
+        g = P.make_geom(*dims)
+        planes = [torch.from_numpy(p).to(dev) for p in _lf_planes(g, rng)]
+        strip_seen = dict.fromkeys(P.LF_CLASSES, 0)
+        for lvl in LF_LEVELS:
+            lim, mblim = int(lim_t[lvl]), int(mblim_t[lvl])
+            err, _ = _lf_case(f"made-up {dims[0]}x{dims[1]} (strip rows "
+                              f"from {g.strip_y}), no mask", planes, g, lvl,
+                              lim, mblim, None)
+            max_err = max(max_err, err)
+            strip = _lf_strip_classes(planes, g, lvl, lim, mblim)
+            print(f"loop_filter: the strip's own edges at "
+                  f"{dims[0]}x{dims[1]} lvl={lvl}: " + ", ".join(
+                      f"{k} {strip.get(k, 0)}" for k in P.LF_CLASSES))
+            for k in strip_seen:
+                strip_seen[k] += strip.get(k, 0)
+        if dims[1] >= 720 and not all(strip_seen.values()):
+            raise AssertionError(f"the made-up {dims[0]}x{dims[1]} planes' "
+                                 f"strip reaches no lane of a filter class: "
+                                 f"{strip_seen}")
+        strip_planes[dims] = (planes, g)
     # the real thing: a keyframe's and an M8 P-frame's unfiltered recon,
     # (mask) and level
     key_in, (y, u, v, g, lvl, lim, mblim, split) = lf_calls
@@ -1222,11 +1288,32 @@ def loop_filter_kernel_phase(dev, lf_calls):
             lambda: K.loop_filter(y, u, v, g, lvl, lim, mblim, mask),
             lambda: P.loop_filter_ref(y, u, v, g, lvl, lim, mblim, mask), 2,
             bound, "loop_filter_kernel", per_frame))
+    # 720p and 4K (the strip, no mask), at the real P-frame's level
+    for dims in LF_STRIP_DIMS[:2]:
+        planes, gs = strip_planes[dims]
+        P.LF_CLASS_COUNTS = {}
+        P.loop_filter_ref(*planes, gs, lvl, lim, mblim)
+        lanes, P.LF_CLASS_COUNTS = sum(P.LF_CLASS_COUNTS.values()), None
+        bound = _bound(2 * sum(t.numel() for t in planes),
+                       LF_OPS_PER_LANE * lanes, ALU_OPS_PER_S)
+        _timed("loop_filter", f"made-up {dims[0]}x{dims[1]} (strip), no "
+               f"mask, lvl={lvl}, {lanes} edge lanes",
+               lambda: K.loop_filter(*planes, gs, lvl, lim, mblim),
+               lambda: P.loop_filter_ref(*planes, gs, lvl, lim, mblim), 2,
+               bound, "loop_filter_kernel", 0)
+        _lf_kinds_alone(f"made-up {dims[0]}x{dims[1]} (strip)", planes, gs,
+                        lvl, lim, mblim, None)
     _lf_kinds_alone("the real M8 P-frame", (y, u, v), g, lvl, lim, mblim,
                     split)
+    _lf_kinds_alone("the real M8 P-frame at lvl 0 (loads and stores only)",
+                    (y, u, v), g, 0, lim, mblim, split)
+    _lf_kinds_alone("the real M8 P-frame's planes, no mask", (y, u, v), g,
+                    lvl, lim, mblim, None)
     _lf_kinds_alone("the made-up planes, random mask", made_up[0],
                     made_up[1], LF_LEVELS[-1], int(lim_t[LF_LEVELS[-1]]),
                     int(mblim_t[LF_LEVELS[-1]]), made_up[2])
+    _kernel_resources(dev, "loop_filter", (0, 1), K.loop_filter_occupancy,
+                      threads=256)
     return _entry("loop_filter", "tpu_vp9_torch/csrc/loop_filter.cu",
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
@@ -1783,13 +1870,20 @@ def _count_stage_launches(acc):
     P._stage = real
 
 
-def _profile(dev, run, label):
+def _profile(dev, run, label, need=()):
     """Device-side records (kernels, copies) of ``run`` under
     torch.profiler, against its host-clock time; and the device time of
     each ``step_*`` stage range of the P-frame step. A range's device time
     is that of its PyTorch ops: kernels launched through ctypes are not
     attributed to it, so each stage's hand kernels are added from the
-    launches its wrappers counted and the kernels' own records."""
+    launches its wrappers counted and the kernels' own records. Returns
+    whether the profile holds a record of every wrapper's kernel in
+    ``need``. Inside the profile, before ``run``, the card runs
+    WARM_SPINS short spin kernels and the host waits WARM_WAIT_S: a
+    profile that starts with the work itself lost the work's first device
+    records (a keyframe send's uploads and its kframe_wave launch, after
+    the earlier phases of this script); the spins are left out of what is
+    reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1798,6 +1892,10 @@ def _profile(dev, run, label):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
             _count_stage_launches(stage_launches):
+        for _ in range(WARM_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize(dev)
+        time.sleep(WARM_WAIT_S)
         tf = time.perf_counter()
         run()
         torch.cuda.synchronize(dev)
@@ -1809,11 +1907,12 @@ def _profile(dev, run, label):
     events = [e for e in averages
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
-              and not e.key.startswith(("Activity Buffer", "step_"))]
+              and not e.key.startswith(("Activity Buffer", "step_"))
+              and "spin_kernel" not in e.key]
     if not events:
         print(f"profile {label}: the profiler recorded no device time "
               "(device busy share not measured)")
-        return
+        return False
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(f"profile {label}: device busy {busy_ms:.3f} ms of {wall_ms:.1f} "
@@ -1836,6 +1935,11 @@ def _profile(dev, run, label):
                 for e in mine:
                     print(f"    {e.self_device_time_total / 1e3 / e.count:.4f}"
                           f" ms per launch over {e.count}: {_short(e.key)}")
+    missing = [w for w in need if w not in per_launch]
+    if missing:
+        print(f"profile {label}: no record of the kernels of {missing}; "
+              "the profile is not used")
+        return False
     # the host-side stage ranges: the device time of their PyTorch ops,
     # and of their hand kernels (launches counted by the wrappers, times
     # the kernel's mean device time in this profile)
@@ -1855,22 +1959,39 @@ def _profile(dev, run, label):
               f"device {e.device_time_total / 1e3:.3f} ms in PyTorch ops + "
               f"{shown}, over {e.count} calls (host clock under the "
               "profiler)")
+    return True
+
+
+def _profile_until_complete(dev, runs, label, need):
+    """``_profile`` of each of ``runs`` in turn until one holds a record of
+    every kernel of ``need``; raises if none does."""
+    for k, run in enumerate(runs):
+        if _profile(dev, run, f"{label} (try {k + 1})", need):
+            return
+    raise AssertionError(f"{label}: {len(runs)} profiles, none with a "
+                         f"record of every kernel of {sorted(need)}")
 
 
 def realtime_profile_phase(dev, frames, enc_mode):
     """Key and two P-frames to warm up, then three P-frame sends (each
     issues its step and fetches and hands on the previous frame) under the
-    profiler."""
+    profiler, and three more if that profile lacks a hand kernel's
+    record."""
     enc = _make_encoder(dev, enc_mode)
     for frame in frames[:3]:
         enc.send_picture(frame)
     torch.cuda.synchronize(dev)
+    launches = M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES
+    need = [w for w, n in launches.items() if n and w != "txq_cost"]
 
-    def run():
-        for frame in frames[3:6]:
-            enc.send_picture(frame)
+    def run(first):
+        def sends():
+            for frame in frames[first:first + 3]:
+                enc.send_picture(frame)
+        return sends
 
-    _profile(dev, run, f"m{enc_mode} three 1080p P-frames")
+    _profile_until_complete(dev, [run(3), run(6)],
+                            f"m{enc_mode} three 1080p P-frames", need)
     enc.flush()
 
 
@@ -1922,8 +2043,9 @@ def keyframe_phase(dev, frames):
           f"mean of the next three "
           f"{1000 * statistics.mean(r[1] for r in rows[1:]):.1f} ms; spans "
           + _stage_means(rows[1:]))
-    _profile(dev, lambda: sess.send(frames[4], qindex=qidx),
-             "one 1080p keyframe send")
+    _profile_until_complete(
+        dev, [lambda f=f: sess.send(f, qindex=qidx) for f in frames[4:7]],
+        "one 1080p keyframe send", list(KEY_LAUNCHES))
     sess.flush()
     sess.close()
 

@@ -39,6 +39,7 @@
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __restrict__ __restrict

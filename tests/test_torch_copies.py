@@ -103,7 +103,7 @@ def test_every_port_module_is_accounted_for():
            "ops/cuda_kernels.py", "pipeline/__init__.py",
            "pipeline/realtime.py", "pipeline/tpu_encdec.py",
            "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py",
-           "utils/kf_phases.py"}
+           "utils/kf_phases.py", "utils/lf_phases.py"}
     found = set()
     root = os.path.join(REPO, "tpu_vp9_torch")
     for dirpath, _, files in os.walk(root):

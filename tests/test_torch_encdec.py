@@ -473,11 +473,20 @@ def test_loop_filter_matches_jax_and_host_oracle(dims):
 
 
 def test_loop_filter_refuses_strip_geometry():
+    """The loop filter takes a strip geometry without a split mask and
+    refuses one with a mask; the P-frame step still refuses a strip
+    geometry (ROADMAP.md Queue A item 5)."""
     g = P.make_geom(128, 112)
     y = torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8)
     c = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)
+    mask = torch.ones((g.rows32, g.cols32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="strip"):
+        P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
+    assert len(P.loop_filter_device(y, c, c, g, 10, 5, 20)) == 3
+    prev = torch.zeros((g.n_blocks32, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.loop_filter_device(y, c, c, g, 10, 5, 20)
+        P.make_pframe_step(g, "cpu")(y, c, c, y, c, c, prev, 40, 50, 39,
+                                     10, 5, 20)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's loop filter: its plain version ``loop_filter_ref`` against the
-JAX package's ``loop_filter_device`` with and without a split mask, the
-content that reaches every class of the edge filter, the dispatch between
+JAX package's ``loop_filter_device`` with and without a split mask and at
+geometries with the bottom 16-pixel strip, the content that reaches every
+class of the edge filter (in the strip's edges too), the dispatch between
 the plain version and the CUDA kernel's wrapper, and the wrapper's refusals.
 
 Inputs come from numpy seeds; JAX runs its Pallas-free loop filter on the
@@ -29,6 +30,8 @@ torch.set_num_threads(1)
 
 # the last is no wider than 64: one superblock column, no band
 DIMS = [(128, 128), (192, 120), (160, 96), (96, 64), (64, 64)]
+# geometries with the strip (mi_rows % 4 == 2), the third one tile column
+STRIP_DIMS = [(128, 112), (96, 80), (64, 48), (256, 176)]
 LEVELS = (0, 9, 50)  # copies; thresh 0; thresh 3
 LIM_T, MBLIM_T = sharpness_limits(0)
 
@@ -121,6 +124,97 @@ def test_loop_filter_ref_matches_jax(dims, mask_kind):
         elif dims[0] >= 128:  # the small pictures have few live edges
             assert any(not np.array_equal(a.numpy(), p)
                        for a, p in zip(got, planes))
+
+
+@pytest.mark.parametrize("dims", STRIP_DIMS,
+                         ids=[f"{w}x{h}" for w, h in STRIP_DIMS])
+def test_loop_filter_ref_matches_jax_with_the_strip(dims):
+    """At a strip geometry (no mask: the JAX step has none there),
+    ``loop_filter_ref`` equals the JAX ``loop_filter_device`` bit for bit
+    on all three planes at lvl 0, 9 and 50; the inputs stay as they
+    were."""
+    g = P.make_geom(*dims)
+    assert g.strip and g.h_mi == g.strip_y + 16
+    rng = np.random.default_rng(dims[0] * 1000 + dims[1])
+    planes = _planes(g, rng)
+    fn = _jax_lf(dims, False)
+    for lvl in LEVELS:
+        lim, mblim = int(LIM_T[lvl]), int(MBLIM_T[lvl])
+        want = fn(*[jnp.asarray(p) for p in planes], jnp.int32(lvl),
+                  jnp.int32(lim), jnp.int32(mblim))
+        ins = [_t(p) for p in planes]
+        got = P.loop_filter_ref(*ins, g, lvl, lim, mblim)
+        for k, (a, b, i, p) in enumerate(zip(got, want, ins, planes)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"plane {k} lvl {lvl}")
+            np.testing.assert_array_equal(i.numpy(), p)
+        if lvl:
+            assert not np.array_equal(got[1].numpy(), planes[1])
+
+
+def strip_class_counts(planes, g, lvl, lim, mblim):
+    """Lanes of each filter class of the strip's own edges (the luma and
+    chroma verticals of its rows, the chroma edge at its top), counted by
+    ``loop_filter_ref`` on (y, u, v) CPU tensors."""
+    counts, junk = {}, {}
+    real_vert, real_horz = P._lf_vert, P._lf_horz
+
+    def vert(plane, rows0, nrows, xs, *args, **kw):
+        luma = plane.shape[0] == g.pad_h
+        P.LF_CLASS_COUNTS = (counts if rows0 >= g.strip_y >> (not luma)
+                             else junk)
+        real_vert(plane, rows0, nrows, xs, *args, **kw)
+
+    def horz(plane, ys, *args, **kw):
+        top = plane.shape[0] != g.pad_h and g.strip_y >> 1 in ys
+        P.LF_CLASS_COUNTS = counts if top else junk
+        real_horz(plane, ys, *args, **kw)
+
+    P._lf_vert, P._lf_horz = vert, horz
+    try:
+        P.LF_CLASS_COUNTS = junk
+        P.loop_filter_ref(*planes, g, lvl, lim, mblim)
+    finally:
+        P._lf_vert, P._lf_horz = real_vert, real_horz
+        P.LF_CLASS_COUNTS = None
+    return counts
+
+
+@pytest.mark.parametrize("lvl", [9, 50])
+def test_content_reaches_every_filter_class_in_the_strip(lvl):
+    """The strip's own edges meet every class the strip allows: masked
+    out, filter4 with and without high edge variance, flat and (the luma
+    verticals, width 16) flat2."""
+    g = P.make_geom(256, 176)
+    rng = np.random.default_rng(11)
+    planes = [_t(p) for p in _planes(g, rng)]
+    lim, mblim = int(LIM_T[lvl]), int(MBLIM_T[lvl])
+    counts = strip_class_counts(planes, g, lvl, lim, mblim)
+    assert all(counts.get(k, 0) > 0 for k in P.LF_CLASSES), counts
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_a_strip_geometry_with_a_mask_is_refused(device):
+    """A split mask with a strip geometry raises ValueError, in the plain
+    version and through the dispatch on any device, as the JAX package's
+    ``loop_filter_device`` does."""
+    g = P.make_geom(128, 112)
+    y = torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8, device=device)
+    c = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8,
+                    device=device)
+    mask = torch.zeros((g.rows32, g.cols32), dtype=torch.int32,
+                       device=device)
+    with pytest.raises(ValueError, match="strip"):
+        P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
+    if device == "cpu":
+        with pytest.raises(ValueError, match="strip"):
+            P.loop_filter_ref(y, c, c, g, 10, 5, 20, split32=mask)
+        with pytest.raises(ValueError, match="16-strip"):
+            J.loop_filter_device(jnp.asarray(y.numpy()),
+                                 jnp.asarray(c.numpy()),
+                                 jnp.asarray(c.numpy()), J.make_geom(128, 112),
+                                 jnp.int32(10), jnp.int32(5), jnp.int32(20),
+                                 split32=jnp.asarray(mask.numpy()))
 
 
 @pytest.mark.parametrize("lvl", [9, 50])
@@ -257,12 +351,12 @@ def _bad_call(case):
     g, (y, u, v), mask = _small_inputs()
     lvl, lim, mblim = 20, 7, 50
     exc, match = ValueError, case
-    if case == "strip":
+    if case == "strip":  # with a mask
         g = P.make_geom(128, 112)
         y = torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8)
         u = v = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)
-        mask = None
-        exc, match = NotImplementedError, "ROADMAP.md Queue A item 5"
+        mask = torch.zeros((g.rows32, g.cols32), dtype=torch.int32)
+        match = "split mask with a strip geometry"
     elif case == "lvl below 0":
         lvl, match = -1, r"lvl=-1 outside \[0, 63\]"
     elif case == "lvl above 63":
@@ -286,11 +380,11 @@ def _bad_call(case):
         mask, exc, match = mask.float(), TypeError, "integer or bool"
     elif case == "geometry":
         g, match = dataclasses.replace(g, pad_h=g.pad_h + 32), "superblocks"
-    elif case == "too tall":
-        g = P.make_geom(64, 11648)
+    elif case == "too tall":  # taller than VP9 codes
+        g = P.make_geom(64, (1 << 16) + 24)
         y = torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8)
         u = v = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)
-        mask, match = None, "shared memory"
+        mask, match = None, "larger than VP9 codes"
     elif case == "cpu tensors":
         match = "CUDA tensors"
     elif case == "mixed devices":
@@ -319,19 +413,30 @@ def test_wrapper_refuses(case):
 
 
 def test_dispatch_refuses_strip_geometry_on_any_device():
+    """A strip geometry with a split mask: refused on any device; without
+    one the CPU takes it (the plain version) and another device goes to
+    the kernel's wrapper, which refuses a tensor that is not on a card."""
     g = P.make_geom(128, 112)
     for dev in ("cpu", "meta"):
         y = torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8, device=dev)
         c = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8,
                         device=dev)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.loop_filter_device(y, c, c, g, 10, 5, 20)
+        mask = torch.ones((g.rows32, g.cols32), dtype=torch.int32,
+                          device=dev)
+        with pytest.raises(ValueError, match="strip"):
+            P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
+        if dev == "cpu":
+            out = P.loop_filter_device(y, c, c, g, 10, 5, 20)
+            assert all(torch.equal(a, b) for a, b in zip(out, (y, c, c)))
+        else:
+            with pytest.raises(ValueError, match="device"):
+                P.loop_filter_device(y, c, c, g, 10, 5, 20)
 
 
 def test_launcher_table_names_the_loop_filter():
     lib, sym, n_ptr, n_float, n_int = K._LAUNCHERS["loop_filter"]
     assert (lib, sym) == ("loop_filter", "loop_filter_launch")
-    # y, u, v, three outputs and the mask; the geometry, the three filter
-    # parameters and the parts mask
-    assert (n_ptr, n_float, n_int) == (7, 0, 10)
+    # y, u, v, three outputs and the mask; the geometry (the strip's top
+    # among it), the three filter parameters and the parts mask
+    assert (n_ptr, n_float, n_int) == (7, 0, 11)
     assert K.LF_ALL_PARTS == sum(K.LF_PARTS.values())

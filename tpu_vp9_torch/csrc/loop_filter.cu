@@ -1,71 +1,135 @@
-// The exact VP9 loop filter of the realtime P-frame step, all three planes
-// in one launch.
+// The exact VP9 loop filter of the realtime steps, all three planes in one
+// launch.
 //
 // Replaces the XLA stage tpu_vp9/pipeline/tpu_encdec.py:loop_filter_device
 // (with _lf_mixed, _lf_vert_gather, _lf_horz_gather, _lf_horz_regular and
-// the _band_* helpers around it): the 32 grid without a strip, every edge of
-// width 16 (tx32 luma, tx16 chroma), and with a split mask the 16x16
-// children's edges (luma width 16 at the 16 offsets inside split blocks;
-// chroma width 8 on the 8 grid over split blocks). The filter's order is
-// libvpx's: superblocks in raster order, in each all vertical edges, then
-// all horizontal ones. The plain version beside the wrapper
-// (pipeline/tpu_encdec.py:loop_filter_ref) is held to it bit for bit.
+// the _band_* helpers around it): the 32 grid, every edge of width 16 (tx32
+// luma, tx16 chroma); with a split mask the 16x16 children's edges (luma
+// width 16 at the 16 offsets inside split blocks; chroma width 8 on the 8
+// grid over split blocks); and the bottom 16-pixel strip of a geometry with
+// mi_rows % 4 == 2 (its 16x16 blocks: luma verticals at the 16 offsets of
+// its rows, chroma edges of width 8 every 8 pixels of its rows and at its
+// top). The filter's order is libvpx's: superblocks in raster order, in each
+// all vertical edges, then all horizontal ones. The plain version beside
+// the wrapper (pipeline/tpu_encdec.py:loop_filter_ref) is held to it bit for
+// bit.
 //
 // What bounds it on an H100: neither bytes nor operations. A 1080p frame is
 // 3.1 MB in and 3.1 MB out (1.9 us at HBM speed) and under 1e8 integer
-// operations. What takes the time is latency: the order of the edges leaves
-// a few levels of dependent edge filters, each a run of byte loads from
-// shared memory, some hundred dependent integer operations and byte
-// stores, with a barrier between levels; and a column of the picture
-// (a band, a chroma strip) is one CTA's work from its load to its store.
+// operations. What takes the time is the order of the edges: a few levels
+// of dependent edge filters, each a run of byte loads from shared memory,
+// some hundred dependent integer operations and byte stores, with a
+// barrier between levels, in CTAs that share an SM's issue slots
+// (tpu_vp9_torch/utils/lf_phases.py prints each level's cycles). So every
+// CTA is short: a tile of one superblock row and one superblock column,
+// loaded, filtered in at most seven levels and stored; no CTA holds a
+// whole column, and none waits for another, so one launch does.
 //
-// The design, from the decomposition the JAX package proves:
-//   - columns fall into bands (the 16 columns around each interior
-//     superblock-boundary column: luma x = 64k-8 .. 64k+7, chroma 32k-8 ..
-//     32k+7) and the strips between them. No edge of a strip reads or
-//     writes a band column and the reverse, with one exception below. Every
-//     CTA reads its columns of the input planes into shared memory
-//     (asynchronous 4-byte copies, all of a thread's in flight), filters
-//     there as bytes, and writes its columns of the output planes: no CTA
-//     waits for another, so one launch does.
-//   - a luma strip is cut into tiles of 64 rows that start at rows = 8 mod
-//     16: horizontal windows are [16j-8, 16j+8), so a tile has no halo. In
-//     a tile: vertical edges (a thread per row and edge), a barrier,
-//     horizontal edges (a thread per column and edge).
-//   - a chroma strip keeps its whole height in one CTA, because with a
-//     split mask the width-8 horizontal edge at 16j+8 writes rows that the
-//     width-16 edge at 16j+16 reads: vertical edges, barrier, the 8-offset
-//     horizontals, barrier, the 16-multiples.
-//   - a band is one CTA. The JAX package and the plain version walk down
-//     its superblock rows one after the other; here all of them run at
-//     once, in six levels (four for luma), because the dependences between
-//     a band's edges reach no further than the next superblock row (see
-//     "the bands" below).
-//   - the exception: with a split mask the chroma width-8 vertical edges at
-//     x_b - 8 and x_b + 8 straddle band and strip (each writes three band
-//     columns). They read only unfiltered pixels of their row, so the band's
-//     CTA and the strip's CTA both compute them from the input, each on a
-//     window four columns wider than what it stores, and each stores its
-//     own columns.
-//   - an edge lane keeps its taps in registers: 4 a side for a width of 8,
-//     8 for 16; widths come from the split mask's two columns that a CTA can
-//     meet, which it keeps in shared memory as bytes.
-//   - rows >= h_mi and columns >= w_mi pass through; lvl 0 copies.
-// Shared-memory pitches are an odd number of words, so a warp whose lanes
-// take consecutive rows of one vertical edge hits 32 banks.
+// The tiles. With S the superblock's rows (64 luma, 32 chroma) and x_b = S k
+// the boundary columns, the columns fall into bands [x_b - 8, x_b + 8) and
+// the strips between them (the JAX package proves that no edge of a strip
+// reads or writes a band column and the reverse, but for the chroma width-8
+// verticals at x_b -+ 8, which read only unfiltered pixels of their row).
+// Tile (k, t) of a plane is band k (none for k = 0) and the strip to its
+// right: luma columns [64k - 8, 64k + 56), chroma [32k - 8, 32k + 24) (the
+// last tile to the plane's edge), and the rows [S t - 8, S t + S - 8) (the
+// first from 0, the last to the plane's end). A luma tile is one CTA; both
+// chroma planes' tiles (k, t) are one CTA. Each loads its rows and the
+// columns its edges read (luma [64k - 16, 64k + 64), chroma [32k - 16,
+// 32k + 32)) as 16-byte loads, filters in shared memory as bytes, and
+// stores the tile's own rows and columns as 16-byte (8 at the tile's two
+// 8-column ends) stores.
+//
+// The halos. An edge at row y touches rows [y - 8, y + 8) at width 16 and
+// [y - 4, y + 4) at width 8 (it reads them; it writes one fewer a side);
+// verticals touch their row only. A tile's rows start and end at S t - 8, so
+// every width-16 horizontal window lies inside one tile. Read and write sets
+// in libvpx's order then give:
+//   - luma: no halo. A band row is touched by the boundary vertical V of its
+//     superblock row and by one horizontal window a half, all inside the
+//     tile, and V's row needs nothing outside its row.
+//   - chroma without a split mask: no halo (the same argument; the strip's
+//     top edge at strip_y / 2, a multiple of 16, has a window of +-4).
+//   - chroma with a split mask: 20 rows above, 4 below. The right half's
+//     width-8 edge at 32r + 24 (a tile's first row) reads rows [32r + 20,
+//     32r + 28) after V on them; V at width 8 reads the left half's columns
+//     x_b - 4 .. x_b - 1 of rows 32r + 20 .. 32r + 23 after the left half's
+//     edge at 32r + 16, which at width 16 reads rows [32r + 8, 32r + 24)
+//     after the left edge at 32r + 8, which reads rows [32r + 4, 32r + 12)
+//     and nothing filtered before it but the width-8 vertical at x_b - 8: so
+//     rows from 32r + 4, 20 above the tile. At the tile's end, 32r' + 24,
+//     the edges at 32r' + 24 read 4 rows below, and V on those rows follows
+//     no horizontal edge of the next superblock row. An exhaustive check
+//     over the split masks of the blocks around a boundary finds 20 and 4
+//     the least that keep the stored rows exact.
+// A tile filters every edge whose read window lies inside its loaded rows
+// (one that leaves them would be filtered wrong and its rows are not the
+// tile's) and stores only its own rows.
+//
+// The levels, from libvpx's order within a band. A horizontal edge at S r
+// touches rows [S r - 8, S r + 8), the others rows [S r + 8, S r + S - 8),
+// and: a row of V(r) follows the left half's edges that touch it and
+// precedes the one of the next superblock row that does; of two horizontal
+// edges of one column only a width-8 edge at 16j + 8 (chroma, split blocks)
+// and the edge at 16j + 16 share pixels, the first first; the right half's
+// edges follow V on the rows they touch. Levels with a barrier between them
+// (HA: chroma edges at 16j + 8; HM: the other edges inside a superblock;
+// HT: the edge at its top; V rows by their place in it):
+//   chroma: 0. the verticals the band and strip compute from unfiltered
+//              pixels (x_b - 8, x_b + 8, x_b + 24) and x_b + 16 (after
+//              x_b + 8 in its row: a width-8 edge there over a split block
+//              writes three columns that a width-16 edge at x_b + 16 over
+//              the next, unsplit block reads)
+//           1. HA left, the strip's HA      2. HM left, V rows [24, 32),
+//                                              the strip's other edges
+//           3. HT left, V rows [8, 24)      4. V rows [0, 8)
+//           5. HA right                     6. HM and HT right
+//   luma:   1. the strip's verticals, HM left, V rows [56, 64)
+//           2. HT left, V rows [8, 56), the strip's horizontals
+//           3. V rows [0, 8)                4. the right half's edges
+// The kernel is built twice, with and without a mask (SPLIT). A tile with
+// no split block around it (its mask bytes, read into shared memory with
+// the load) starts no lane for an edge that cannot exist: a luma tile none
+// at the 16 offsets (but in the strip's rows); a chroma tile filters its
+// own rows only, without the halo, and skips levels 1 and 5, as without a
+// mask. CTAs of both kinds are one launch's grid, the chroma ones first.
+//
+// An edge lane keeps its taps in registers: 4 a side for a width of 8, 8
+// for 16; a lane of a vertical edge reads and writes its row's bytes one
+// by one (a form with 32-bit words and the masks' differences four bytes
+// at once was slower on an H100). Widths come from the mask's bytes. Rows
+// >= h_mi and columns >= w_mi pass through; lvl 0 copies. Shared-memory
+// pitches are an odd number of words, so a warp whose lanes take
+// consecutive rows of one vertical edge hits 32 banks.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE_ROWS = 64;                // luma strip tile height
-constexpr int PITCH_LUMA_BAND = 20;          // 16 columns
-constexpr int PITCH_LUMA_TILE = 68;          // up to 64 columns
-constexpr int PITCH_CHROMA_BAND = 28;        // 24 columns
-constexpr int PITCH_CHROMA_STRIP = 36;       // up to 32 columns
+// resident CTAs an SM must hold: ptxas keeps a thread within 64 registers
+// (the free choice, about 80, gives 3 and was slower; 48 spills around the
+// calls of edge_lane)
+constexpr int MIN_CTAS = 4;
+constexpr int LUMA_CHUNKS = 5;        // 80 loaded columns: 64 k - 16 ..
+constexpr int LUMA_PITCH = 84;
+constexpr int LUMA_ROWS = 72;         // the last tile: 64 t - 8 .. 64 t + 64
+constexpr int CHROMA_CHUNKS = 3;      // 48 loaded columns: 32 k - 16 ..
+constexpr int CHROMA_PITCH = 52;
+constexpr int CHROMA_TOP = 20;        // halo rows with a split mask
+constexpr int CHROMA_BOTTOM = 4;
+constexpr int CHROMA_OWN_ROWS = 40;   // the last tile: 32 t - 8 .. 32 t + 32
+constexpr int CHROMA_ROWS = 64;       // loaded, at most
+constexpr int CHROMA_PLANE_BYTES = CHROMA_ROWS * CHROMA_PITCH;
+constexpr int SPLIT_BYTES = 16;       // the mask's 4 x 4 blocks around a tile
+// dynamic shared memory of every CTA: the larger kind's tile (a luma tile
+// 6,048 bytes, the chroma pair 6,656) and the mask's bytes, whatever the
+// plane's size
+constexpr int SMEM_BYTES =
+    SPLIT_BYTES + (LUMA_ROWS * LUMA_PITCH > 2 * CHROMA_PLANE_BYTES
+                       ? LUMA_ROWS * LUMA_PITCH
+                       : 2 * CHROMA_PLANE_BYTES);
 
 struct Params {
   const uint8_t* in[3];
@@ -73,15 +137,13 @@ struct Params {
   const int* split;  // (rows32, cols32) 0/1, or null
   int pad_h, pad_w;  // luma plane; chroma planes are half in both
   int h_mi, w_mi;    // the coded luma size: nothing is filtered beyond it
+  int strip_y;       // luma row of the strip's top; pad_h without a strip
   int rows32, cols32;
   int on;            // lvl > 0
   int thresh, lim, blim;
-  int nb;            // bands of a plane (strips: nb + 1)
-  int tiles;         // tiles of a luma strip
-  int tile_off;      // the tile's offset in dynamic shared memory
-  int parts;         // which kinds of CTA work (bits: luma bands, chroma
-                     // bands, chroma strips, luma tiles); 15 but when a
-                     // measurement times one kind alone
+  int ncol, nrow;    // superblock columns and rows: tiles of a plane
+  int parts;         // which kinds of CTA work (bits: luma tiles, chroma
+                     // tiles); 3 but when a measurement times one alone
 };
 
 __device__ __forceinline__ int c8(int x) { return min(127, max(-128, x)); }
@@ -90,16 +152,20 @@ __device__ __forceinline__ int absdiff(int a, int b) { return abs(a - b); }
 
 // One lane of one edge, in place: q0 points at the first pixel after the
 // edge, pixel k before it is q0[-(k + 1) * stride], pixel k after it
-// q0[k * stride]. TAPS = 4 serves widths up to 8, TAPS = 8 all widths.
-// This is _lf_mixed of the plain version: the mask, filter4 with or
-// without high edge variance, filter8 where flat and width >= 8, filter16
-// where flat2 and width >= 16. A lane takes the shortest path its class
-// allows (the outer four taps are read only where filter16 can apply); a
-// form that computed all three filters beside the decisions and selected
-// at the end, to shorten the dependent path, was no faster on an H100.
-template <int TAPS>
-__device__ __forceinline__ void edge_lane(uint8_t* q0, int stride, int width,
-                                          const Params& P) {
+// q0[k * stride]. This is _lf_mixed of the plain version: the mask, filter4
+// with or without high edge variance, filter8 where flat and width >= 8,
+// filter16 where flat2 and width >= 16. A lane takes the shortest path its
+// class allows, and reads the outer four taps a side only where filter16
+// can apply: an edge of width 8 reads four a side. A form that computed
+// all three filters beside the decisions and selected at the end, to
+// shorten the dependent path, was no faster on an H100. The function is
+// not inlined: one copy serves its dozen and more call sites, so the
+// kernel's code stays within the SM's instruction cache (inlined at every
+// site it was slower, most of all with a mix of tiles with and without a
+// split block, whose levels run different code).
+__device__ __noinline__ void edge_lane(uint8_t* q0, int stride, int width,
+                                       const Params& P) {
+  constexpr int TAPS = 8;
   if (width == 0) return;
   int p[TAPS], q[TAPS];
 #pragma unroll
@@ -118,39 +184,37 @@ __device__ __forceinline__ void edge_lane(uint8_t* q0, int stride, int width,
                            max(dq0, absdiff(q[2], q[0]))),
                        max(absdiff(p[3], p[0]), absdiff(q[3], q[0])));
   if (width >= 8 && flat <= 1) {
-    if constexpr (TAPS == 8) {
-      int flat2 = 2;
-      if (width >= 16) {
+    int flat2 = 2;
+    if (width >= 16) {
 #pragma unroll
-        for (int k = 4; k < TAPS; ++k) {
-          p[k] = q0[-(k + 1) * stride];
-          q[k] = q0[k * stride];
-        }
-        flat2 = max(max(max(absdiff(p[4], p[0]), absdiff(q[4], q[0])),
-                        max(absdiff(p[5], p[0]), absdiff(q[5], q[0]))),
-                    max(max(absdiff(p[6], p[0]), absdiff(q[6], q[0])),
-                        max(absdiff(p[7], p[0]), absdiff(q[7], q[0]))));
+      for (int k = 4; k < TAPS; ++k) {
+        p[k] = q0[-(k + 1) * stride];
+        q[k] = q0[k * stride];
       }
-      if (flat2 <= 1) {
-        // filter16: p_i' = ((i+1) p7 + p_i + sum_{j<7} p_j
-        //                   + sum_{j<7-i} q_j + 8) >> 4, and q likewise
-        int pp[7], qp[7];  // prefix sums
-        pp[0] = p[0];
-        qp[0] = q[0];
+      flat2 = max(max(max(absdiff(p[4], p[0]), absdiff(q[4], q[0])),
+                      max(absdiff(p[5], p[0]), absdiff(q[5], q[0]))),
+                  max(max(absdiff(p[6], p[0]), absdiff(q[6], q[0])),
+                      max(absdiff(p[7], p[0]), absdiff(q[7], q[0]))));
+    }
+    if (flat2 <= 1) {
+      // filter16: p_i' = ((i+1) p7 + p_i + sum_{j<7} p_j
+      //                   + sum_{j<7-i} q_j + 8) >> 4, and q likewise
+      int pp[7], qp[7];  // prefix sums
+      pp[0] = p[0];
+      qp[0] = q[0];
 #pragma unroll
-        for (int k = 1; k < 7; ++k) {
-          pp[k] = pp[k - 1] + p[k];
-          qp[k] = qp[k - 1] + q[k];
-        }
-#pragma unroll
-        for (int i = 0; i < 7; ++i) {
-          q0[-(i + 1) * stride] = static_cast<uint8_t>(
-              ((i + 1) * p[TAPS - 1] + p[i] + pp[6] + qp[6 - i] + 8) >> 4);
-          q0[i * stride] = static_cast<uint8_t>(
-              ((i + 1) * q[TAPS - 1] + q[i] + qp[6] + pp[6 - i] + 8) >> 4);
-        }
-        return;
+      for (int k = 1; k < 7; ++k) {
+        pp[k] = pp[k - 1] + p[k];
+        qp[k] = qp[k - 1] + q[k];
       }
+#pragma unroll
+      for (int i = 0; i < 7; ++i) {
+        q0[-(i + 1) * stride] = static_cast<uint8_t>(
+            ((i + 1) * p[TAPS - 1] + p[i] + pp[6] + qp[6 - i] + 8) >> 4);
+        q0[i * stride] = static_cast<uint8_t>(
+            ((i + 1) * q[TAPS - 1] + q[i] + qp[6] + pp[6 - i] + 8) >> 4);
+      }
+      return;
     }
     // filter8, the same sums with three pixels a side
     const int ps = p[0] + p[1] + p[2], qs = q[0] + q[1] + q[2];
@@ -180,354 +244,401 @@ __device__ __forceinline__ void edge_lane(uint8_t* q0, int stride, int width,
   q0[1 * stride] = static_cast<uint8_t>(c8(qs1 - fa) + 128);
 }
 
-// One 4-byte asynchronous copy from global to shared memory.
-__device__ __forceinline__ void copy_word_async(uint8_t* dst,
-                                                const uint8_t* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
-               : "memory");
-}
+// A tile in shared memory: planes (one luma, or u and v) of the loaded rows
+// [r0, r1) and the columns from c0 (the chunks left of the plane, for the
+// first tile column, are not loaded), PITCH bytes a row, PLANE_BYTES a
+// plane.
+template <int PITCH, int PLANE_BYTES>
+struct Tile {
+  static constexpr int pitch = PITCH;
+  uint8_t* s;
+  int r0, r1, c0;
+  __device__ uint8_t* at(int pl, int y, int x) const {
+    return s + pl * PLANE_BYTES + (y - r0) * PITCH + (x - c0);
+  }
+  // the same buffer seen as rows [a, b) only
+  __device__ Tile rows(int a, int b) const {
+    return Tile{s + (a - r0) * PITCH, a, b, c0};
+  }
+};
 
-// Copy rows [r0, r0 + rows) x columns [c0, c1) of a plane (c0 and c1
-// multiples of 4) from global memory into a shared-memory tile whose first
-// column is plane column c0, as 4-byte asynchronous copies: a thread has
-// all of its words in flight at once. The caller waits (tile_arrived).
-__device__ __forceinline__ void load_tile(uint8_t* s, int pitch,
-                                          const uint8_t* g, int gpitch,
-                                          int r0, int rows, int c0, int c1) {
-  const int wpr = (c1 - c0) >> 2;
-  for (int i = threadIdx.x; i < rows * wpr; i += THREADS) {
-    const int r = i / wpr, w = i - r * wpr;
-    copy_word_async(s + r * pitch + 4 * w,
-                    g + static_cast<size_t>(r0 + r) * gpitch + c0 + 4 * w);
+// The tile's rows from global memory, CHUNKS 16-byte chunks a row of
+// PLANES planes of at most MAX_ROWS rows: every load of a thread is in
+// flight before it writes the first to shared memory (as 4-byte words, the
+// pitch being no multiple of 16). Rows start 16-byte aligned (pitches
+// pad_w and pad_w / 2, the wrapper checks the bases). Index arithmetic by
+// constants only.
+template <int PLANES, int CHUNKS, int MAX_ROWS, class TileT>
+__device__ __forceinline__ void load_tile(const TileT& T,
+                                          const uint8_t* const* g, int gw) {
+  constexpr int PER_PLANE = MAX_ROWS * CHUNKS, TOTAL = PLANES * PER_PLANE;
+  constexpr int N = (TOTAL + THREADS - 1) / THREADS;
+  uint4 v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int pl = i / PER_PLANE, r = i % PER_PLANE / CHUNKS;
+    const int x = T.c0 + 16 * (i % CHUNKS);
+    if (i < TOTAL && r < T.r1 - T.r0 && x >= 0 && x < gw)
+      v[j] = __ldg(reinterpret_cast<const uint4*>(
+          g[pl] + static_cast<size_t>(T.r0 + r) * gw + x));
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int pl = i / PER_PLANE, r = i % PER_PLANE / CHUNKS;
+    const int x = T.c0 + 16 * (i % CHUNKS);
+    if (i < TOTAL && r < T.r1 - T.r0 && x >= 0 && x < gw) {
+      uint32_t* d = reinterpret_cast<uint32_t*>(T.at(pl, T.r0 + r, x));
+      d[0] = v[j].x;
+      d[1] = v[j].y;
+      d[2] = v[j].z;
+      d[3] = v[j].w;
+    }
   }
 }
 
-// Wait for this thread's asynchronous copies, then for the CTA's.
-__device__ __forceinline__ void tile_arrived() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
-                   : "memory");
-  __syncthreads();
-}
-
-// Write rows x columns [c0, c1) of a tile (first column: plane column
-// col0) to global memory at row r0, as 32-bit words.
-__device__ __forceinline__ void store_tile(const uint8_t* s, int pitch,
-                                           int col0, uint8_t* g, int gpitch,
-                                           int r0, int rows, int c0, int c1) {
-  const int wpr = (c1 - c0) >> 2;
-  for (int i = threadIdx.x; i < rows * wpr; i += THREADS) {
-    const int r = i / wpr, w = i - r * wpr;
-    *reinterpret_cast<uint32_t*>(
-        g + static_cast<size_t>(r0 + r) * gpitch + c0 + 4 * w) =
-        *reinterpret_cast<const uint32_t*>(s + r * pitch + (c0 - col0) +
-                                           4 * w);
+// Rows [r0, r1) (at most MAX_ROWS) x columns [c_lo, c_hi) (multiples of 8)
+// of the tile to global memory: a 16-byte store per chunk of the tile's
+// CHUNKS that the range covers, 8 bytes where it covers half of one.
+template <int PLANES, int CHUNKS, int MAX_ROWS, class TileT>
+__device__ __forceinline__ void store_tile(const TileT& T, uint8_t* const* g,
+                                           int gw, int r0, int r1, int c_lo,
+                                           int c_hi) {
+  constexpr int PER_PLANE = MAX_ROWS * CHUNKS, TOTAL = PLANES * PER_PLANE;
+  for (int i = threadIdx.x; i < TOTAL; i += THREADS) {
+    const int pl = i / PER_PLANE, r = i % PER_PLANE / CHUNKS;
+    const int x = T.c0 + 16 * (i % CHUNKS);
+    if (r >= r1 - r0 || x + 16 <= c_lo || x >= c_hi) continue;
+    const uint32_t* s =
+        reinterpret_cast<const uint32_t*>(T.at(pl, r0 + r, x));
+    uint8_t* d = g[pl] + static_cast<size_t>(r0 + r) * gw + x;
+    if (x < c_lo) {
+      *reinterpret_cast<uint2*>(d + 8) = uint2{s[2], s[3]};
+    } else if (x + 16 > c_hi) {
+      *reinterpret_cast<uint2*>(d) = uint2{s[0], s[1]};
+    } else {
+      *reinterpret_cast<uint4*>(d) = uint4{s[0], s[1], s[2], s[3]};
+    }
   }
 }
 
-// The split mask's columns c and c + 1 as bytes sp[0][r], sp[1][r] (0 where
-// there is no mask or no such column).
+// The split mask's blocks (row0 + i, col0 + j), i, j < 4, as bytes (0
+// where there is no mask or no such block). Written before the barrier
+// that ends the tile's load.
 __device__ __forceinline__ void load_split(uint8_t* sp, const Params& P,
-                                           int c) {
-  for (int i = threadIdx.x; i < 2 * P.rows32; i += THREADS) {
-    const int half = i / P.rows32, r = i - half * P.rows32;
-    const int col = c + half;
-    sp[i] = (P.split != nullptr && col >= 0 && col < P.cols32 &&
-             P.split[r * P.cols32 + col] != 0)
-                ? 1
-                : 0;
+                                           int row0, int col0) {
+  if (threadIdx.x < SPLIT_BYTES) {
+    const int r = row0 + (threadIdx.x >> 2), c = col0 + (threadIdx.x & 3);
+    sp[threadIdx.x] = (P.split != nullptr && r >= 0 && r < P.rows32 &&
+                       c >= 0 && c < P.cols32 && P.split[r * P.cols32 + c])
+                          ? 1
+                          : 0;
   }
 }
 
-// ---- a tile of a luma strip: strip k, rows [64 t - 8, 64 t + 56) ----
-__device__ void luma_tile(const Params& P, uint8_t* smem, int k, int t) {
-  uint8_t* sp = smem;
-  uint8_t* s = smem + P.tile_off;
-  constexpr int pitch = PITCH_LUMA_TILE;
-  const int x_lo = k == 0 ? 0 : 64 * k + 8;
-  const int x_hi = k == P.nb ? P.pad_w : 64 * k + 56;
-  const int r_lo = max(0, t * TILE_ROWS - 8);
-  const int r_hi = min(P.pad_h, (t + 1) * TILE_ROWS - 8);
-  const int rows = r_hi - r_lo, cols = x_hi - x_lo;
-  load_split(sp, P, 2 * k);
-  load_tile(s, pitch, P.in[0], P.pad_w, r_lo, rows, x_lo, x_hi);
-  tile_arrived();
-  // vertical edges at 64k + 16, + 32, + 48: the middle one always, the
-  // others inside split blocks
-  for (int i = threadIdx.x; i < 3 * rows; i += THREADS) {
-    const int e = i / rows, r = i - e * rows;
-    const int y = r_lo + r, x = 64 * k + 16 * (e + 1);
-    if (y >= P.h_mi || x >= P.w_mi) continue;
-    const int width =
-        16 * P.on * (e == 1 ? 1 : sp[(e >> 1) * P.rows32 + (y >> 5)]);
-    edge_lane<8>(s + r * pitch + (x - x_lo), 1, width, P);
+struct Split {
+  const uint8_t* sp;
+  int row0, col0;
+  __device__ bool at(int r, int c) const {
+    return sp[4 * (r - row0) + (c - col0)] != 0;
   }
-  __syncthreads();
-  // horizontal edges at the multiples of 16 whose window the tile holds
-  const int y_first = ((r_lo + 8 + 15) >> 4) << 4;
-  const int n_edges = y_first + 8 > r_hi ? 0 : (r_hi - 8 - y_first) / 16 + 1;
-  for (int i = threadIdx.x; i < n_edges * cols; i += THREADS) {
-    const int e = i / cols, c = i - e * cols;
-    const int y = y_first + 16 * e, x = x_lo + c;
-    if (y >= P.h_mi || x >= P.w_mi) continue;
-    const int width =
-        16 * P.on *
-        ((y & 16) ? sp[((x >> 5) - 2 * k) * P.rows32 + (y >> 5)] : 1);
-    edge_lane<8>(s + (y - r_lo) * pitch + c, pitch, width, P);
-  }
-  __syncthreads();
-  store_tile(s, pitch, x_lo, P.out[0], P.pad_w, r_lo, rows, x_lo, x_hi);
+};
+
+// Widths of the edges, the plain version's rules (a block decides the
+// edges at its position). Luma: verticals at x % 16 == 0, horizontals at
+// y % 16 == 0; chroma: both every 8.
+__device__ __forceinline__ int luma_v_width(const Params& P, const Split& S,
+                                            int x, int y) {
+  if (x <= 0 || x >= P.w_mi || y >= P.h_mi) return 0;
+  if ((x & 31) == 0 || y >= P.strip_y || S.at(y >> 5, x >> 5))
+    return 16 * P.on;
+  return 0;
 }
 
-// ---- a chroma strip: plane pl, strip k, the whole height ----
-__device__ void chroma_strip(const Params& P, uint8_t* smem, int pl, int k) {
-  uint8_t* sp = smem;
-  uint8_t* s = smem + P.tile_off;
-  constexpr int pitch = PITCH_CHROMA_STRIP;
-  const int H = P.pad_h >> 1, W = P.pad_w >> 1;
-  const int hc = P.h_mi >> 1, wc = P.w_mi >> 1;
-  const bool last = k == P.nb;
-  const int s_lo = k == 0 ? 0 : 32 * k + 8;    // the columns it stores
-  const int s_hi = last ? W : 32 * k + 24;
-  const int w_lo = k == 0 ? 0 : 32 * k + 4;    // the columns it reads
-  const int w_hi = last ? W : 32 * k + 28;
-  const bool split = P.split != nullptr;
-  load_split(sp, P, 2 * k);
-  load_tile(s, pitch, P.in[pl], W, 0, H, w_lo, w_hi);
-  tile_arrived();
-  // vertical edges of a row, in raster order where they can meet: the
-  // width-8 edges at 32k + 8 and 32k + 24 (split blocks only), then the
-  // edge at 32k + 16
-  for (int y = threadIdx.x; y < hc; y += THREADS) {
-    uint8_t* row = s + y * pitch - w_lo;
-    const int s0 = sp[y >> 4], s1 = sp[P.rows32 + (y >> 4)];
-    if (split) {
-      if (32 * k + 8 < wc)
-        edge_lane<4>(row + 32 * k + 8, 1, 8 * P.on * s0, P);
-      if (32 * k + 24 < wc)
-        edge_lane<4>(row + 32 * k + 24, 1, 8 * P.on * s1, P);
+__device__ __forceinline__ int luma_h_width(const Params& P, const Split& S,
+                                            int y, int x) {
+  if (y <= 0 || y >= P.h_mi || x >= P.w_mi) return 0;
+  return ((y & 31) == 0 || S.at(y >> 5, x >> 5)) ? 16 * P.on : 0;
+}
+
+__device__ __forceinline__ int chroma_v_width(const Params& P,
+                                              const Split& S, int x, int y) {
+  if (x <= 0 || x >= (P.w_mi >> 1) || y >= (P.h_mi >> 1)) return 0;
+  const bool narrow = y >= (P.strip_y >> 1) || S.at(y >> 4, x >> 4);
+  if ((x & 15) == 0) return P.on * (narrow ? 8 : 16);
+  return narrow ? 8 * P.on : 0;
+}
+
+__device__ __forceinline__ int chroma_h_width(const Params& P,
+                                              const Split& S, int y, int x) {
+  if (y <= 0 || y >= (P.h_mi >> 1) || x >= (P.w_mi >> 1)) return 0;
+  const bool split = S.at(y >> 4, x >> 4);
+  if ((y & 15) == 0)
+    return P.on * ((split || y >= (P.strip_y >> 1)) ? 8 : 16);
+  return split ? 8 * P.on : 0;
+}
+
+// Lanes of a level are numbered across its groups, so that the groups
+// spread over the CTA's threads: a group of n lanes starts where the last
+// ended. Returns this thread's first lane of the group.
+__device__ __forceinline__ int first_lane(int& base, int n) {
+  const int i = (static_cast<int>(threadIdx.x) - base) & (THREADS - 1);
+  base += n;
+  return i;
+}
+
+// The horizontal edges at rows y0 + STEP e, e < NE, over columns [x0, x0 +
+// cols) of each of PLANES planes: a lane per edge, plane and COLS columns
+// (the usual width; a lane takes column c + COLS too where cols is more).
+// An edge whose read window [y - taps, y + taps) leaves the loaded rows is
+// not filtered.
+template <int PLANES, int NE, int STEP, int COLS, bool CHROMA, class TileT>
+__device__ __forceinline__ void h_group(const Params& P, const Split& Sp,
+                                        const TileT& T, int& base, int y0,
+                                        int x0, int cols) {
+  constexpr int N = PLANES * NE * COLS;
+  for (int i = first_lane(base, N); i < N; i += THREADS) {
+    const int e = i / COLS % NE, pl = i / (COLS * NE);
+    const int y = y0 + STEP * e;
+    for (int x = x0 + i % COLS; x < x0 + cols; x += COLS) {
+      const int w = CHROMA ? chroma_h_width(P, Sp, y, x)
+                           : luma_h_width(P, Sp, y, x);
+      const int taps = w > 8 ? 8 : 4;
+      if (w == 0 || y - taps < T.r0 || y + taps > T.r1) continue;
+      edge_lane(T.at(pl, y, x), T.pitch, w, P);
     }
-    if (32 * k + 16 < wc)
-      edge_lane<8>(row + 32 * k + 16, 1, P.on * (s1 ? 8 : 16), P);
+  }
+}
+
+// The boundary vertical edge at column x on the loaded rows y = S (sb0 +
+// q) + A + r, q < NSB, r < B - A, of each of PLANES planes.
+template <int PLANES, int S, int A, int B, int NSB, bool CHROMA, class TileT>
+__device__ __forceinline__ void v_group(const Params& P, const Split& Sp,
+                                        const TileT& T, int& base, int x,
+                                        int sb0) {
+  constexpr int R = B - A, N = PLANES * NSB * R;
+  for (int i = first_lane(base, N); i < N; i += THREADS) {
+    const int r = i % R, q = i / R % NSB, pl = i / (R * NSB);
+    const int y = S * (sb0 + q) + A + r;
+    if (y < T.r0 || y >= T.r1) continue;
+    const int w =
+        CHROMA ? chroma_v_width(P, Sp, x, y) : luma_v_width(P, Sp, x, y);
+    edge_lane(T.at(pl, y, x), 1, w, P);
+  }
+}
+
+using LumaTile = Tile<LUMA_PITCH, 0>;
+using ChromaTile = Tile<CHROMA_PITCH, CHROMA_PLANE_BYTES>;
+
+// A tile's place: superblock column k, row t; xb the band's boundary (k >
+// 0), [s_lo, c_hi) the strip's columns, [c_lo, c_hi) the stored ones.
+struct Place {
+  int k, t, xb, s_lo, c_lo, c_hi;
+};
+
+// Whether a split block lies among the mask's blocks (row0 + i, col0 + j),
+// i < rows, j < 3, around a tile: where none does, the tile's edges at the
+// 16 offsets (luma) and 8 offsets (chroma) do not exist outside the strip,
+// and its lanes for them are not started.
+__device__ __forceinline__ bool any_split(const Split& Sp, int rows) {
+  bool any = false;
+  for (int i = 0; i < rows; ++i)
+    any = any || Sp.sp[4 * i] || Sp.sp[4 * i + 1] || Sp.sp[4 * i + 2];
+  return any;
+}
+
+// ---- a luma tile: superblock column k, row t ----
+// ALL16: the tile's 16-offset edges may exist (a split block or the strip's
+// rows); without, only the 32 grid's lanes are started.
+template <bool ALL16>
+__device__ __forceinline__ void luma_levels(const Params& P, const Split& Sp,
+                                            const LumaTile& T,
+                                            const Place& L) {
+  constexpr int NV = ALL16 ? 3 : 1, STEP = ALL16 ? 16 : 32;
+  // 1. the strip's verticals at xb + 16, 32, 48; HM left; V rows [56, 64)
+  int base = 0;
+  constexpr int N1 = NV * LUMA_ROWS;
+  for (int i = first_lane(base, N1); i < N1; i += THREADS) {
+    const int e = ALL16 ? i / LUMA_ROWS : 1, y = T.r0 + i % LUMA_ROWS;
+    const int x = L.xb + 16 * (e + 1);
+    if (y < T.r1)
+      edge_lane(T.at(0, y, x), 1, luma_v_width(P, Sp, x, y), P);
+  }
+  if (L.k > 0) {
+    h_group<1, NV, STEP, 8, false>(P, Sp, T, base,
+                                   64 * L.t + (ALL16 ? 16 : 32), L.xb - 8, 8);
+    v_group<1, 64, 56, 64, 2, false>(P, Sp, T, base, L.xb, L.t - 1);
   }
   __syncthreads();
-  const int cols = s_hi - s_lo;
-  if (split) {
-    // horizontal edges at 16j + 8, width 8 over split blocks
-    const int n_a = (hc + 7) >> 4;
-    for (int i = threadIdx.x; i < n_a * cols; i += THREADS) {
-      const int e = i / cols, c = i - e * cols;
-      const int y = 16 * e + 8, x = s_lo + c;
-      if (x >= wc) continue;
-      const int width =
-          8 * P.on * sp[((x >> 4) - 2 * k) * P.rows32 + (y >> 4)];
-      edge_lane<4>(s + y * pitch + (x - w_lo), pitch, width, P);
-    }
+  // 2. HT left, V rows [8, 56), the strip's horizontals
+  base = 0;
+  if (L.k > 0) {
+    h_group<1, 1, 16, 8, false>(P, Sp, T, base, 64 * L.t, L.xb - 8, 8);
+    v_group<1, 64, 8, 56, 1, false>(P, Sp, T, base, L.xb, L.t);
+  }
+  h_group<1, 64 / STEP, STEP, 48, false>(P, Sp, T, base, 64 * L.t, L.s_lo,
+                                         L.c_hi - L.s_lo);
+  __syncthreads();
+  if (L.k > 0) {
+    base = 0;  // 3. V rows [0, 8)
+    v_group<1, 64, 0, 8, 1, false>(P, Sp, T, base, L.xb, L.t);
+    __syncthreads();
+    base = 0;  // 4. the right half's edges
+    h_group<1, 64 / STEP, STEP, 8, false>(P, Sp, T, base, 64 * L.t, L.xb, 8);
     __syncthreads();
   }
-  // horizontal edges at 16j: width 8 over a split block, else 16
-  const int n_b = (hc - 1) >> 4;
-  for (int i = threadIdx.x; i < n_b * cols; i += THREADS) {
-    const int e = i / cols, c = i - e * cols;
-    const int y = 16 * (e + 1), x = s_lo + c;
-    if (x >= wc) continue;
-    const int width =
-        P.on * (sp[((x >> 4) - 2 * k) * P.rows32 + (y >> 4)] ? 8 : 16);
-    edge_lane<8>(s + y * pitch + (x - w_lo), pitch, width, P);
-  }
-  __syncthreads();
-  store_tile(s, pitch, w_lo, P.out[pl], W, 0, H, s_lo, s_hi);
 }
 
-// ---- the bands ----
-//
-// A band's edges in libvpx's order, per superblock row r: the left half's
-// horizontal edges H_l(r), the boundary vertical edge V(r), the right
-// half's horizontal edges H_r(r). Written as that loop it is a chain of
-// 17 rows at 1080p, but the dependences are short. With S the superblock's
-// rows (64 luma, 32 chroma), a horizontal edge at S r touches rows
-// [S r - 8, S r + 8), the others rows [S r + 8, S r + S - 8), and:
-//   - a row of V(r) must follow the left-half edges that touch it and
-//     precede the one of the next superblock row that does (the edge at
-//     S (r + 1) touches this row's last 8 rows);
-//   - of two horizontal edges of one column, only a width-8 edge at 16j + 8
-//     (chroma, split blocks) and a width-16 edge at the next multiple of 16
-//     share pixels, and the first comes first;
-//   - the right half's edges follow V on the rows they touch.
-// So every superblock row runs at once, in six levels with a barrier
-// between them (HA: chroma edges at 16j + 8; HM: the other edges inside a
-// superblock; HT: the edge at its top; V rows by their place in it):
-//   1. HA left          2. HM left, V rows [S-8, S)
-//   3. HT left, V rows [8, S-8)             4. V rows [0, 8)
-//   5. HA right         6. HM and HT right
-// (luma has no HA: four levels).
-
-// One column of one horizontal band edge: half 0 is x_b-8..x_b-1, half 1
-// x_b..x_b+7; col_l is the tile's offset of column x_b-8.
-template <bool CHROMA>
-__device__ __forceinline__ void band_h_lane(const Params& P, uint8_t* s,
-                                            const uint8_t* sp, int pitch,
-                                            int col_l, int h, int half, int y,
-                                            int c) {
-  if (y <= 0 || y >= h) return;
-  uint8_t* q0 = s + y * pitch + col_l + 8 * half + c;
-  if constexpr (CHROMA) {
-    const int sv = sp[half * P.rows32 + (y >> 4)];
-    if (y & 8)
-      edge_lane<4>(q0, pitch, 8 * P.on * sv, P);
+__device__ __forceinline__ void luma_cta(const Params& P, uint8_t* smem,
+                                         int k, int t) {
+  const Place L{k, t, 64 * k, k == 0 ? 0 : 64 * k + 8,
+                k == 0 ? 0 : 64 * k - 8,
+                k == P.ncol - 1 ? P.pad_w : 64 * k + 56};
+  const LumaTile T{smem + SPLIT_BYTES, t == 0 ? 0 : 64 * t - 8,
+                   t == P.nrow - 1 ? P.pad_h : 64 * t + 56, L.xb - 16};
+  const Split Sp{smem, 2 * t - 1, 2 * k - 1};
+  load_split(smem, P, Sp.row0, Sp.col0);
+  load_tile<1, LUMA_CHUNKS, LUMA_ROWS>(T, P.in, P.pad_w);
+  __syncthreads();
+  if (P.on) {
+    if (T.r1 > P.strip_y || any_split(Sp, 3))
+      luma_levels<true>(P, Sp, T, L);
     else
-      edge_lane<8>(q0, pitch, P.on * (sv ? 8 : 16), P);
-  } else {
-    const int sv = (y & 16) ? sp[half * P.rows32 + (y >> 5)] : 1;
-    edge_lane<8>(q0, pitch, 16 * P.on * sv, P);
+      luma_levels<false>(P, Sp, T, L);
   }
+  store_tile<1, LUMA_CHUNKS, LUMA_ROWS>(T, P.out, P.pad_w, T.r0, T.r1,
+                                        L.c_lo, L.c_hi);
 }
 
-// The horizontal edges at S r + dy_of(j), j < nj, of every superblock row,
-// on one half: a lane per edge and column.
-template <bool CHROMA, class DyOf>
-__device__ __forceinline__ void band_h_level(const Params& P, uint8_t* s,
-                                             const uint8_t* sp, int pitch,
-                                             int col_l, int h, int half,
-                                             int nj, DyOf dy_of) {
-  constexpr int S = CHROMA ? 32 : 64;
-  const int n_sbr = (h + S - 1) / S;
-  for (int i = threadIdx.x; i < n_sbr * nj * 8; i += THREADS) {
-    const int c = i & 7, t = i >> 3;
-    const int r = t / nj, j = t - r * nj;
-    band_h_lane<CHROMA>(P, s, sp, pitch, col_l, h, half, S * r + dy_of(j), c);
-  }
-}
-
-// Rows [lo, hi) of every superblock row's boundary vertical edge: width 16,
-// or (chroma) 8 where the block to its right is split.
-template <bool CHROMA>
-__device__ __forceinline__ void band_v_level(const Params& P, uint8_t* s,
-                                             const uint8_t* sp, int pitch,
-                                             int col_l, int h, int lo,
-                                             int hi) {
-  constexpr int S = CHROMA ? 32 : 64;
-  const int n_sbr = (h + S - 1) / S, n = hi - lo;
-  for (int i = threadIdx.x; i < n_sbr * n; i += THREADS) {
-    const int r = i / n, y = S * r + lo + (i - r * n);
-    if (y >= h) continue;
-    const int width =
-        CHROMA ? P.on * (sp[P.rows32 + (y >> 4)] ? 8 : 16) : 16 * P.on;
-    edge_lane<8>(s + y * pitch + col_l + 8, 1, width, P);
-  }
-}
-
-template <bool CHROMA>
-__device__ __forceinline__ void band_levels(const Params& P, uint8_t* s,
-                                            const uint8_t* sp, int pitch,
-                                            int col_l, int h) {
-  constexpr int S = CHROMA ? 32 : 64;
-  // chroma HA: 8, 24; HM: 16, then HT: 0. Luma HM: 16, 32, 48, then HT: 0
-  auto ha = [](int j) { return 8 + 16 * j; };
-  auto hm_ht = [](int j) { return CHROMA ? 16 * (1 - j) : 16 * ((j + 1) & 3); };
-  auto ht = [](int) { return 0; };
-  constexpr int n_hm = CHROMA ? 1 : 3;
-  if constexpr (CHROMA) {
-    band_h_level<CHROMA>(P, s, sp, pitch, col_l, h, 0, 2, ha);
-    __syncthreads();
-  }
-  band_h_level<CHROMA>(P, s, sp, pitch, col_l, h, 0, n_hm, hm_ht);
-  band_v_level<CHROMA>(P, s, sp, pitch, col_l, h, S - 8, S);
-  __syncthreads();
-  band_h_level<CHROMA>(P, s, sp, pitch, col_l, h, 0, 1, ht);
-  band_v_level<CHROMA>(P, s, sp, pitch, col_l, h, 8, S - 8);
-  __syncthreads();
-  band_v_level<CHROMA>(P, s, sp, pitch, col_l, h, 0, 8);
-  __syncthreads();
-  if constexpr (CHROMA) {
-    band_h_level<CHROMA>(P, s, sp, pitch, col_l, h, 1, 2, ha);
-    __syncthreads();
-  }
-  band_h_level<CHROMA>(P, s, sp, pitch, col_l, h, 1, n_hm + 1, hm_ht);
-  __syncthreads();
-}
-
-// ---- a luma band around x_b = 64 k ----
-__device__ void luma_band(const Params& P, uint8_t* smem, int k) {
-  uint8_t* sp = smem;
-  uint8_t* s = smem + P.tile_off;
-  constexpr int pitch = PITCH_LUMA_BAND;
-  const int x0 = 64 * k - 8;
-  load_split(sp, P, 2 * k - 1);
-  load_tile(s, pitch, P.in[0], P.pad_w, 0, P.pad_h, x0, x0 + 16);
-  tile_arrived();
-  band_levels<false>(P, s, sp, pitch, 0, P.h_mi);
-  store_tile(s, pitch, x0, P.out[0], P.pad_w, 0, P.pad_h, x0, x0 + 16);
-}
-
-// ---- a chroma band around x_b = 32 k of plane pl ----
-__device__ void chroma_band(const Params& P, uint8_t* smem, int pl, int k) {
-  uint8_t* sp = smem;
-  uint8_t* s = smem + P.tile_off;
-  constexpr int pitch = PITCH_CHROMA_BAND;
-  const int H = P.pad_h >> 1, W = P.pad_w >> 1;
-  const int hc = P.h_mi >> 1;
-  const int xb = 32 * k, w_lo = xb - 12;
-  load_split(sp, P, 2 * k - 1);
-  load_tile(s, pitch, P.in[pl], W, 0, H, w_lo, xb + 12);
-  tile_arrived();
-  if (P.split != nullptr) {
-    // the width-8 vertical edges at x_b - 8 and x_b + 8, which write the
-    // band's outer three columns on each side, from unfiltered pixels
-    for (int i = threadIdx.x; i < 2 * hc; i += THREADS) {
-      const int e = i / hc, y = i - e * hc;
-      edge_lane<4>(s + y * pitch + (e ? 20 : 4), 1,
-                   8 * P.on * sp[e * P.rows32 + (y >> 4)], P);
+// ---- the chroma tiles of u and v: superblock column k, row t ----
+// SPLIT: a split block lies around the tile (the halo rows are loaded and
+// filtered, the chroma edges at 16j + 8 exist).
+template <int SPLIT>
+__device__ __forceinline__ void chroma_levels(const Params& P,
+                                              const Split& Sp,
+                                              const ChromaTile& T,
+                                              const Place& C) {
+  const int k = C.k, t = C.t, xb = C.xb;
+  // 0. the verticals at xb - 8, + 8, + 16, + 24, from unfiltered pixels but
+  //    the one at xb + 16: at width 16 it reads what the width-8 edge at xb
+  //    + 8 (of another block) wrote, so one lane does both. Without a split
+  //    block the edges at xb -+ 8 and xb + 24 exist in the strip's rows
+  //    only, where all four are of width 8 and disjoint: a lane a row.
+  int base = 0;
+  if (SPLIT) {
+    constexpr int N = 2 * 3 * CHROMA_ROWS;
+    for (int i = first_lane(base, N); i < N; i += THREADS) {
+      const int pl = i / (3 * CHROMA_ROWS), e = i / CHROMA_ROWS % 3;
+      const int y = T.r0 + i % CHROMA_ROWS, x = xb - 8 + 16 * e;
+      if (y >= T.r1) continue;
+      edge_lane(T.at(pl, y, x), 1, chroma_v_width(P, Sp, x, y), P);
+      if (e == 1)
+        edge_lane(T.at(pl, y, x + 8), 1, chroma_v_width(P, Sp, x + 8, y),
+                     P);
     }
+  } else {
+    constexpr int N = 2 * CHROMA_OWN_ROWS;
+    for (int i = first_lane(base, N); i < N; i += THREADS) {
+      const int pl = i / CHROMA_OWN_ROWS, y = T.r0 + i % CHROMA_OWN_ROWS;
+      if (y >= T.r1) continue;
+      if (y >= P.strip_y >> 1) {
+#pragma unroll
+        for (int x = xb - 8; x <= xb + 24; x += 16)
+          edge_lane(T.at(pl, y, x), 1, chroma_v_width(P, Sp, x, y), P);
+      }
+      edge_lane(T.at(pl, y, xb + 16), 1,
+                   chroma_v_width(P, Sp, xb + 16, y), P);
+    }
+  }
+  __syncthreads();
+  if (SPLIT) {
+    base = 0;  // 1. HA left, the strip's HA
+    if (k > 0)
+      h_group<2, 4, 16, 8, true>(P, Sp, T, base, 32 * t - 24, xb - 8, 8);
+    h_group<2, 4, 16, 16, true>(P, Sp, T, base, 32 * t - 24, C.s_lo,
+                                C.c_hi - C.s_lo);
     __syncthreads();
   }
-  band_levels<true>(P, s, sp, pitch, 4, hc);
-  store_tile(s, pitch, w_lo, P.out[pl], W, 0, H, xb - 8, xb + 8);
+  base = 0;  // 2. HM left, V rows [24, 32), the strip's edges at 16j
+  if (k > 0) {
+    h_group<2, 2, 32, 8, true>(P, Sp, T, base, 32 * t - 16, xb - 8, 8);
+    v_group<2, 32, 24, 32, 2, true>(P, Sp, T, base, xb, t - 1);
+  }
+  h_group<2, 3, 16, 16, true>(P, Sp, T, base, 32 * t - 16, C.s_lo,
+                              C.c_hi - C.s_lo);
+  __syncthreads();
+  if (k > 0) {
+    base = 0;  // 3. HT left, V rows [8, 24)
+    h_group<2, 1, 32, 8, true>(P, Sp, T, base, 32 * t, xb - 8, 8);
+    v_group<2, 32, 8, 24, 2, true>(P, Sp, T, base, xb, t - 1);
+    __syncthreads();
+    base = 0;  // 4. V rows [0, 8)
+    v_group<2, 32, 0, 8, 2, true>(P, Sp, T, base, xb, t - 1);
+    __syncthreads();
+    if (SPLIT) {
+      base = 0;  // 5. HA right
+      h_group<2, 4, 16, 8, true>(P, Sp, T, base, 32 * t - 24, xb, 8);
+      __syncthreads();
+    }
+    base = 0;  // 6. HM and HT right
+    h_group<2, 3, 16, 8, true>(P, Sp, T, base, 32 * t - 16, xb, 8);
+    __syncthreads();
+  }
 }
 
-// CTAs in the order of their length: the bands and the chroma strips (a
-// whole column each) first, then the luma tiles.
+template <int SPLIT>
+__device__ __forceinline__ void chroma_cta(const Params& P, uint8_t* smem,
+                                           int k, int t) {
+  const int H = P.pad_h >> 1, W = P.pad_w >> 1;
+  const Place C{k, t, 32 * k, k == 0 ? 0 : 32 * k + 8,
+                k == 0 ? 0 : 32 * k - 8, k == P.ncol - 1 ? W : 32 * k + 24};
+  const int own_lo = t == 0 ? 0 : 32 * t - 8;
+  const int own_hi = t == P.nrow - 1 ? H : 32 * t + 24;
+  const ChromaTile T{smem + SPLIT_BYTES,
+                     max(0, own_lo - (SPLIT ? CHROMA_TOP : 0)),
+                     min(H, own_hi + (SPLIT ? CHROMA_BOTTOM : 0)),
+                     C.xb - 16};
+  const Split Sp{smem, 2 * t - 2, 2 * k - 1};
+  load_split(smem, P, Sp.row0, Sp.col0);
+  load_tile<2, CHROMA_CHUNKS, CHROMA_ROWS>(T, P.in + 1, W);
+  __syncthreads();
+  if (P.on) {
+    // with no split block around the tile (block rows 2t - 2 .. 2t + 1),
+    // its own rows are filtered as without a mask: no halo is needed
+    if (SPLIT && any_split(Sp, 4))
+      chroma_levels<1>(P, Sp, T, C);
+    else
+      chroma_levels<0>(P, Sp, T.rows(own_lo, own_hi), C);
+  }
+  store_tile<2, CHROMA_CHUNKS, CHROMA_OWN_ROWS>(T, P.out + 1, W, own_lo,
+                                                own_hi, C.c_lo, C.c_hi);
+}
+
+// The chroma CTAs first (the longer), then the luma ones: one of each kind
+// per superblock column k and row t (parts: bit 0 the luma CTAs, bit 1 the
+// chroma ones). SPLIT: a split mask is given (the chroma halos and the
+// chroma edges at 16j + 8).
 // (__grid_constant__: the device functions take the parameters by
 // reference, which would otherwise copy them to each thread's stack)
-__global__ void __launch_bounds__(THREADS)
+template <int SPLIT>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 loop_filter_kernel(const __grid_constant__ Params P) {
   extern __shared__ __align__(16) uint8_t smem[];
-  int i = blockIdx.x;
-  if (i < P.nb) {
-    if (P.parts & 1) luma_band(P, smem, i + 1);
-    return;
+  const int n = P.ncol * P.nrow;
+  if (blockIdx.x < n) {
+    if (P.parts & 2)
+      chroma_cta<SPLIT>(P, smem, blockIdx.x % P.ncol, blockIdx.x / P.ncol);
+  } else if (P.parts & 1) {
+    const int i = blockIdx.x - n;
+    luma_cta(P, smem, i % P.ncol, i / P.ncol);
   }
-  i -= P.nb;
-  if (i < 2 * P.nb) {
-    if (P.parts & 2) chroma_band(P, smem, 1 + i / P.nb, i % P.nb + 1);
-    return;
-  }
-  i -= 2 * P.nb;
-  const int ns = P.nb + 1;
-  if (i < 2 * ns) {
-    if (P.parts & 4) chroma_strip(P, smem, 1 + i / ns, i % ns);
-    return;
-  }
-  i -= 2 * ns;
-  if (P.parts & 8) luma_tile(P, smem, i % ns, i / ns);
 }
 
-}  // namespace
-
-// y, u, v: uint8 planes of (pad_h, pad_w) and twice (pad_h / 2, pad_w / 2),
-// contiguous, on the device; out_*: planes of the same shapes that do not
-// overlap them; split: (rows32, cols32) int32 0/1 or null. The caller has
-// checked pad_w % 64 == 0, pad_h % 64 == 0, h_mi <= min(pad_h, 32 rows32),
-// w_mi <= pad_w with pad_w - w_mi < 64, 0 <= lvl <= 63. parts is 15; a
-// measurement passes fewer bits to time one kind of CTA alone (the others
-// return at once and their columns of the output stay unwritten). Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int loop_filter_launch(const void* y, const void* u,
-                                  const void* v, void* out_y, void* out_u,
-                                  void* out_v, const void* split, int pad_h,
-                                  int pad_w, int h_mi, int w_mi, int rows32,
-                                  int cols32, int lvl, int lim, int blim,
-                                  int parts, void* stream) {
+Params make_params(const void* y, const void* u, const void* v, void* out_y,
+                   void* out_u, void* out_v, const void* split, int pad_h,
+                   int pad_w, int h_mi, int w_mi, int strip_y, int rows32,
+                   int cols32, int lvl, int lim, int blim, int parts) {
   Params P;
   P.in[0] = static_cast<const uint8_t*>(y);
   P.in[1] = static_cast<const uint8_t*>(u);
@@ -540,29 +651,57 @@ extern "C" int loop_filter_launch(const void* y, const void* u,
   P.pad_w = pad_w;
   P.h_mi = h_mi;
   P.w_mi = w_mi;
+  P.strip_y = strip_y;
   P.rows32 = rows32;
   P.cols32 = cols32;
   P.on = lvl > 0 ? 1 : 0;
   P.thresh = lvl >> 4;
   P.lim = lim;
   P.blim = blim;
+  P.ncol = pad_w / 64;
+  P.nrow = pad_h / 64;
   P.parts = parts;
-  P.nb = pad_w / 64 - 1;
-  P.tiles = (pad_h + 8 + TILE_ROWS - 1) / TILE_ROWS;
-  P.tile_off = (2 * rows32 + 15) / 16 * 16;
-  const int tile_bytes =
-      std::max({pad_h * PITCH_LUMA_BAND, (pad_h / 2) * PITCH_CHROMA_STRIP,
-                (TILE_ROWS + 8) * PITCH_LUMA_TILE});
-  const int smem = P.tile_off + tile_bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        loop_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int ns = P.nb + 1;
-  const int grid = 3 * P.nb + 2 * ns + ns * P.tiles;
-  loop_filter_kernel<<<grid, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(P);
+  return P;
+}
+
+}  // namespace
+
+// y, u, v: uint8 planes of (pad_h, pad_w) and twice (pad_h / 2, pad_w / 2),
+// contiguous, on the device, starting on 16-byte boundaries; out_*: planes
+// of the same shapes and alignment that do not overlap them; split:
+// (rows32, cols32) int32 0/1 or null. The caller has checked pad_w % 64 ==
+// 0, pad_h % 64 == 0, h_mi <= min(pad_h, strip_y + 16), w_mi <= pad_w with
+// pad_w - w_mi < 64, strip_y == pad_h or (no mask) the strip's top,
+// 0 <= lvl <= 63. parts is 3; a measurement passes 1 (luma tiles) or 2
+// (chroma tiles) to time one kind of CTA alone (the others return at once
+// and their planes of the output stay unwritten). Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int loop_filter_launch(const void* y, const void* u,
+                                  const void* v, void* out_y, void* out_u,
+                                  void* out_v, const void* split, int pad_h,
+                                  int pad_w, int h_mi, int w_mi, int strip_y,
+                                  int rows32, int cols32, int lvl, int lim,
+                                  int blim, int parts, void* stream) {
+  const Params P = make_params(y, u, v, out_y, out_u, out_v, split, pad_h,
+                               pad_w, h_mi, w_mi, strip_y, rows32, cols32,
+                               lvl, lim, blim, parts);
+  const int grid = 2 * P.ncol * P.nrow;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split != nullptr)
+    loop_filter_kernel<1><<<grid, THREADS, SMEM_BYTES, st>>>(P);
+  else
+    loop_filter_kernel<0><<<grid, THREADS, SMEM_BYTES, st>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The CTAs of THREADS threads an SM holds at once, and the dynamic shared
+// memory each asks for, of the kernel with (split 1) or without a split
+// mask.
+extern "C" int loop_filter_occupancy(int split, int* ctas_per_sm,
+                                     int* smem) {
+  *smem = SMEM_BYTES;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm,
+      split ? loop_filter_kernel<1> : loop_filter_kernel<0>, THREADS,
+      SMEM_BYTES));
 }

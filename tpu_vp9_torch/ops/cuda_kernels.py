@@ -56,14 +56,14 @@ TXQ_BIAS = 0.38  # the dead zone's rounding bias
 # the hierarchical search's reaches (pipeline/tpu_encdec.py has the same)
 WIN_R, HALF_R, REFINE_R = 40, 18, 4
 HIER_BLOCK_SIZES = (32,)  # the sizes hier_search_fused is built for
-# dynamic shared memory a CTA of loop_filter may ask for (a Hopper SM's
-# most) and what it takes per luma row (csrc/loop_filter.cu keeps a
-# 16-column band of the whole height at a pitch of 20 bytes)
-LF_SMEM_BYTES, LF_BYTES_PER_ROW = 227 * 1024, 20
-# the kinds of CTA of loop_filter, as bits of its ``parts`` argument
-LF_PARTS = {"luma bands": 1, "chroma bands": 2, "chroma strips": 4,
-            "luma tiles": 8}
-LF_ALL_PARTS = 15
+# the kinds of CTA of loop_filter, as bits of its ``parts`` argument: a
+# luma tile (one superblock column and row of the luma plane), a chroma
+# tile (the same of u and v)
+LF_PARTS = {"luma tiles": 1, "chroma tiles": 2}
+LF_ALL_PARTS = 3
+# the largest frame side VP9 codes (16-bit size fields); the loop filter
+# refuses planes beyond it
+VP9_MAX_SIDE = 1 << 16
 # check block_energy_at's starts on the card as well (a device-to-host
 # sync per call; the CPU path always checks)
 CHECK_STARTS = False
@@ -78,7 +78,7 @@ _LAUNCHERS = {
     "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 0, 5),
     "hier_search_fused": ("sse_search", "hier_search_launch", 5, 0, 2),
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
-    "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 10),
+    "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 11),
     "kframe_wave": ("kframe_wave", "kframe_wave_launch", 15, 0, 8),
     "transform_recon": ("transform_recon", "transform_recon_launch", 7, 0,
                         4),
@@ -618,15 +618,19 @@ txq_cost.launches = 0
 def _check_lf_args(y, u, v, geom, lvl: int, lim: int, mblim: int,
                    split32) -> None:
     g = geom
-    if g.strip:
-        raise NotImplementedError("loop_filter: strip geometries are not "
-                                  "ported yet (ROADMAP.md Queue A item 5)")
+    if split32 is not None and g.strip:
+        raise ValueError("loop_filter: a split mask with a strip geometry "
+                         "(its blocks are 16x16 already)")
     if not 0 <= lvl <= 63:
         raise ValueError(f"loop_filter: lvl={lvl} outside [0, 63]")
     if lim < 0 or mblim < 0:
         raise ValueError(f"loop_filter: negative limits ({lim}, {mblim})")
+    if g.height > VP9_MAX_SIDE or g.width > VP9_MAX_SIDE:
+        raise ValueError(f"loop_filter: a {g.width}x{g.height} picture is "
+                         f"larger than VP9 codes ({VP9_MAX_SIDE} a side)")
+    rows = 32 * g.rows32 + (16 if g.strip else 0)
     if (g.pad_h % 64 or g.pad_w % 64 or not 0 < g.h_mi <= g.pad_h
-            or g.h_mi > 32 * g.rows32
+            or g.h_mi > rows or (g.strip and g.h_mi != rows)
             or not g.pad_w - 64 < g.w_mi <= g.pad_w):
         raise ValueError(f"loop_filter: a {g.pad_h}x{g.pad_w} plane does "
                          f"not pad a coded size of {g.h_mi}x{g.w_mi} to "
@@ -650,31 +654,29 @@ def _check_lf_args(y, u, v, geom, lvl: int, lim: int, mblim: int,
         if split32.is_floating_point() or split32.is_complex():
             raise TypeError("loop_filter: split32 must be an integer or "
                             f"bool 0/1 mask, got {split32.dtype}")
-    if 2 * g.rows32 + 16 + g.pad_h * LF_BYTES_PER_ROW > LF_SMEM_BYTES:
-        raise ValueError(f"loop_filter: a plane of {g.pad_h} rows does not "
-                         f"fit the kernel's {LF_SMEM_BYTES} bytes of shared "
-                         "memory")
 
 
 def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
                 split32=None, parts: int = LF_ALL_PARTS):
-    """The exact VP9 loop filter of the 32 grid without a strip, on the
-    card, all three planes in one launch.
+    """The exact VP9 loop filter of the 32 grid and its bottom strip, on
+    the card, all three planes in one launch.
 
     y: (pad_h, pad_w) uint8, u and v: (pad_h/2, pad_w/2) uint8, contiguous
-    CUDA tensors of one device; geom: the step's geometry (``strip``,
-    ``pad_h``, ``pad_w``, ``h_mi``, ``w_mi``, ``rows32``, ``cols32``);
-    lvl in [0, 63] (0 copies), lim and mblim: host ints; split32: optional
-    (rows32, cols32) 0/1 mask (integer or bool, contiguous, on the planes'
-    device) of the 32-blocks coded as four 16x16 blocks. Returns new (y, u, v) planes, bit for bit what
+    CUDA tensors of one device, each starting on a 16-byte boundary; geom:
+    the step's geometry (``strip``, ``strip_y``, ``pad_h``, ``pad_w``,
+    ``h_mi``, ``w_mi``, ``rows32``, ``cols32``); lvl in [0, 63] (0
+    copies), lim and mblim: host ints; split32: optional (rows32, cols32)
+    0/1 mask (integer or bool, contiguous, on the planes' device) of the
+    32-blocks coded as four 16x16 blocks, refused with a strip geometry.
+    Returns new (y, u, v) planes, bit for bit what
     ``pipeline/tpu_encdec.py:loop_filter_ref`` returns; the inputs are not
     modified. It runs the kernel of ``csrc/loop_filter.cu`` or raises: CPU
     tensors go to ``loop_filter_ref`` through the step's
     ``loop_filter_device``, not through here.
 
     parts: for measurements only: the kinds of CTA (bits of ``LF_PARTS``)
-    that work; with fewer than all, the other kinds' columns of the
-    outputs are left unwritten.
+    that work; with fewer than all, the other kinds' planes of the outputs
+    are left unwritten.
     """
     lvl, lim, mblim = int(lvl), int(lim), int(mblim)
     _check_lf_args(y, u, v, geom, lvl, lim, mblim, split32)
@@ -685,16 +687,16 @@ def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
     dev = y.device
     if split32 is not None and split32.dtype != torch.int32:
         split32 = split32.to(torch.int32)
-    if any(t.data_ptr() % 4 for t in (y, u, v)):
-        raise ValueError("loop_filter: planes must start on a 4-byte "
-                         "boundary")
     g = geom
     out = (torch.empty_like(y), torch.empty_like(u), torch.empty_like(v))
+    if any(t.data_ptr() % 16 for t in (y, u, v, *out)):
+        raise ValueError("loop_filter: planes must start on a 16-byte "
+                         "boundary")
     _launch("loop_filter", dev, y.data_ptr(), u.data_ptr(), v.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             None if split32 is None else split32.data_ptr(), g.pad_h,
-            g.pad_w, g.h_mi, g.w_mi, g.rows32, g.cols32, lvl, lim, mblim,
-            int(parts))
+            g.pad_w, g.h_mi, g.w_mi, g.strip_y if g.strip else g.pad_h,
+            g.rows32, g.cols32, lvl, lim, mblim, int(parts))
     loop_filter.launches += 1
     return out
 
@@ -1015,6 +1017,13 @@ def _occupancy(name: str, sizes, n, device):
         raise RuntimeError(f"{name}: the occupancy query failed with CUDA "
                            f"error {err}")
     return ctas.value, smem.value
+
+
+def loop_filter_occupancy(split: int, device=None):
+    """(CTAs of 256 threads an SM holds at once, the dynamic shared memory
+    each asks for in bytes) of ``loop_filter``'s kernel with (split 1) or
+    without (0) a split mask (``_occupancy``)."""
+    return _occupancy("loop_filter", (0, 1), split, device)
 
 
 def kframe_wave_occupancy(device=None):

@@ -886,9 +886,9 @@ def _cols_away_from_boundaries(width_px: int, sb: int) -> np.ndarray:
 
 def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
                     mblim: int, split32=None):
-    """Exact VP9 loop filter for the 32 grid without a strip: the plain
-    version, in PyTorch ops on the planes' device, of the kernel behind
-    ``ops/cuda_kernels.py:loop_filter``.
+    """Exact VP9 loop filter for the 32 grid and its bottom 16-pixel strip
+    (``geom.strip``): the plain version, in PyTorch ops on the planes'
+    device, of the kernel behind ``ops/cuda_kernels.py:loop_filter``.
 
     Ordering contract (bit-exact with libvpx; see ops/loopfilter.py:1):
     SBs in raster order, per SB all vertical then all horizontal edges.
@@ -911,22 +911,33 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
     8-offset windows; on the bands the chroma horizontals 8 pixels apart
     chain through overlapping windows and run one after the other.
 
+    The strip (rows from ``geom.strip_y``, its 16x16 blocks coded with
+    tx16 luma and tx8 chroma) adds, as the JAX package's
+    ``loop_filter_device`` does: luma verticals at the 16-offsets of its
+    rows (width 16); chroma verticals every 8 pixels of its rows (width 8,
+    the 16-multiples included) and, on the bands, a boundary vertical of
+    width 8; the chroma horizontal edge at ``strip_y / 2`` at width 8.
+    A split mask with a strip geometry raises ValueError, as it does
+    there.
+
     lvl/lim/mblim are host ints (lvl 0 leaves the planes as they are).
     Returns new planes; the inputs are not modified.
     """
     g = geom
-    if g.strip:
-        raise NotImplementedError("loop_filter_device: strip geometries "
-                                  "are not ported yet (ROADMAP.md Queue A "
-                                  "item 5)")
+    if split32 is not None and g.strip:
+        raise ValueError("loop_filter: a split mask with a strip geometry "
+                         "(its blocks are 16x16 already)")
     y, u, v = y.clone(), u.clone(), v.clone()
     dev = y.device
     thresh = lvl >> 4
     h_mi, w_mi = g.h_mi, g.w_mi
     h_mi_c, w_mi_c = h_mi >> 1, w_mi >> 1
+    strip_y, strip_yc = g.strip_y, g.strip_y >> 1
+    ch_rows = strip_yc if g.strip else h_mi_c  # chroma rows above a strip
     w16 = 16 * int(lvl > 0)
     w8 = 8 * int(lvl > 0)
     w16_t = torch.tensor(w16, dtype=torch.int32, device=dev)
+    w8_t = torch.tensor(w8, dtype=torch.int32, device=dev)
     lf = (thresh, lim, mblim)
     split = split32 is not None
     if split:
@@ -944,8 +955,8 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
     _lf_vert(y, 0, h_mi, xs_y, w16_t, *lf)
     xs_c = np.array([x for x in range(16, w_mi_c, 16) if x % 32], np.int64)
     if not split:
-        _lf_vert(u, 0, h_mi_c, xs_c, w16_t, *lf)
-        _lf_vert(v, 0, h_mi_c, xs_c, w16_t, *lf)
+        _lf_vert(u, 0, ch_rows, xs_c, w16_t, *lf)
+        _lf_vert(v, 0, ch_rows, xs_c, w16_t, *lf)
     else:
         # luma 16-offset verticals: exist only inside split blocks
         xs_y16 = np.array([x for x in range(16, w_mi, 16) if x % 32],
@@ -963,6 +974,17 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
         for plane in (u, v):
             _lf_vert(plane, 0, h_mi_c, xs_c8, w_c8, *lf, taps=4)
             _lf_vert(plane, 0, h_mi_c, xs_c, w_c16, *lf)
+    if g.strip:
+        # the strip's 16x16 blocks: luma 16-offset verticals; chroma
+        # verticals every 8 pixels but the band columns', width 8
+        xs_ys = np.array([x for x in range(16, w_mi, 16) if x % 32],
+                         np.int64)
+        _lf_vert(y, strip_y, h_mi - strip_y, xs_ys, w16_t, *lf)
+        xs_cs = np.array([x for x in range(8, w_mi_c, 8) if x % 32],
+                         np.int64)
+        for plane in (u, v):
+            _lf_vert(plane, strip_yc, h_mi_c - strip_yc, xs_cs, w8_t, *lf,
+                     taps=4)
 
     # ---- pass 2: horizontal edges away from SB-boundary columns ----
     # (the band columns, and pad columns past the visible width, are
@@ -975,7 +997,7 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
     mask_y = col_mask(y.shape[1], w_mi, 64)
     mask_c = col_mask(u.shape[1], w_mi_c, 32)
     _lf_horz(y, np.arange(32, h_mi, 32, dtype=np.int64), w16 * mask_y, *lf)
-    ys_c = np.arange(16, h_mi_c, 16, dtype=np.int64)
+    ys_c = np.arange(16, ch_rows, 16, dtype=np.int64)
     if not split:
         _lf_horz(u, ys_c, w16 * mask_c, *lf)
         _lf_horz(v, ys_c, w16 * mask_c, *lf)
@@ -999,6 +1021,10 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
         for plane in (u, v):
             _lf_horz(plane, ys_c8, w_hc8, *lf)
             _lf_horz(plane, ys_c, w_hc16, *lf)
+    if g.strip:  # the chroma edge at the strip's top: tx8, width 8
+        for plane in (u, v):
+            _lf_horz(plane, np.array([strip_yc], np.int64), w8 * mask_c,
+                     *lf)
 
     # ---- pass 3: SB-boundary bands, in parallel over bands, SB rows in
     # order (bands are 64px apart, 32 for chroma, hence disjoint) ----
@@ -1035,10 +1061,11 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
             inside split blocks."""
             base, hgt, unit = (y0c, h_mi_c, 16) if chroma else (y0, h_mi, 32)
             oks = [int(0 < base + dy < hgt) for dy in dys]
-            if not split:
-                return torch.tensor([w16 * ok for ok in oks],
-                                    dtype=torch.int32,
-                                    device=dev)[:, None, None]
+            if not split:  # width 8 at the chroma strip's top edge
+                return torch.tensor(
+                    [(w8 if chroma and g.strip and base + dy >= strip_yc
+                      else w16) * ok for dy, ok in zip(dys, oks)],
+                    dtype=torch.int32, device=dev)[:, None, None]
             rows = []
             for dy, ok in zip(dys, oks):
                 sp = sp2[dy // unit][half_cols]
@@ -1063,8 +1090,10 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
                          widths(dys_y, rb_y, False), *lf)
         # chroma: the same structure at half scale
         alive_c = y0c + rowi_c < h_mi_c
-        if not split:
-            wc = torch.where(alive_c, w16_t, 0)
+        if not split:  # the strip's rows are tx8: width 8
+            strip_rows = (y0c + rowi_c >= strip_yc) & g.strip
+            wc = torch.where(alive_c, torch.where(strip_rows, w8_t, w16_t),
+                             0)
             groups = ((0, 16),)
         else:
             spc2 = sp2.repeat_interleave(16, dim=0)  # (32, cols32)
@@ -1090,7 +1119,7 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
     """The step's loop filter (contract: ``loop_filter_ref``). Planes (and
     mask) that all lie on the CPU take the plain version; anything else
     goes to the CUDA kernel's wrapper, which launches or raises. Both
-    refuse a strip geometry."""
+    refuse a split mask with a strip geometry."""
     tensors = (y, u, v) if split32 is None else (y, u, v, split32)
     if all(t.device.type == "cpu" for t in tensors):
         return loop_filter_ref(y, u, v, geom, lvl, lim, mblim, split32)
