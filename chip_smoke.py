@@ -40,9 +40,18 @@ Phases, each of which raises on failure (nothing is caught):
      of each class of the strip's own edges printed), and on the
      unfiltered recon, mask and level of the real keyframe and M8
      P-frame, timed at 1080p, 720p and 4K and by kind of CTA, after its
-     ptxas report and resident CTAs per SM; txq_cost on
-     made-up residuals within its tolerance; each timed per call with CUDA
-     events and on the host clock, and per launch with the profiler;
+     ptxas report and resident CTAs per SM; the strip geometries' shapes
+     (a 720p keyframe and M8 P-frame through the public encoder first,
+     their strip calls recorded): sse_map_search at n=16 r=40 with its map
+     (its level opting in to more shared memory) for B=80 and B=240 and on
+     the real 720p strip, subpel_search at n=16 r=40 likewise,
+     transform_recon's ADST_DCT instance on the real keyframe strip's V and
+     D63 candidates and on 4K strip blocks at four qindex values, the
+     strip zone's transforms and SSEs on the real 720p P-frame, and
+     kframe_wave on the 720p and 4K 32 zones (every error word 0);
+     txq_cost on made-up residuals within its tolerance; each timed per
+     call with CUDA events and on the host clock, and per launch with the
+     profiler;
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
      keyframe, rate tables, the GOLDEN anchor, the 32-against-16 descent)
      through the public Vp9Encoder; the keyframe must launch kframe_wave
@@ -74,7 +83,15 @@ Phases, each of which raises on failure (nothing is caught):
      versions) must give identical packets;
   8. M9 (the uniform 32 grid): end to end on the first frames of the same
      clip, profile and same bytes, as before, at a smaller depth;
-  9. M7 (the host encode with the device full-pel search): end to end,
+  9. the strip geometries (mi_rows % 4 == 2) through the public encoder,
+     each with its launch counts per P-frame and per keyframe asserted
+     (the strip zone's search, quarter-pel search, transforms and SSEs;
+     the keyframe strip's five transforms and one block_energy), decode
+     bit-exact, fps, step time, send split, profile: 720p M8 and M9 on
+     panning_frames(1280, 720, 10), each also on the CPU for the first
+     CPU_FRAMES (identical packets), and 4K M8 on panning_frames(3840,
+     2160, 6);
+ 10. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -234,6 +251,33 @@ TR_INT_OPS = {32: 500 * 64 + 16 * 1024, 16: 200 * 32 + 16 * 256,
               8: 60 * 16 + 16 * 64}
 # subpel_search's path calls per M8 P-frame: the zone's, then the children's
 SP_CALLS = ("zone n=32 r=4", "children n=16 r=8")
+# the strip geometries (mi_rows % 4 == 2) run end to end, their frames,
+# and the blocks of their bottom strip (cols16): 720p has a 22 x 40 grid of
+# 32-blocks and a strip of 80 16x16 blocks at y = 704, 4K 67 x 120 and 240
+# at y = 2144
+STRIP_GEOMS = {"720p": (1280, 720), "4K": (3840, 2160)}
+STRIP_FRAMES = {"720p": 10, "4K": 6}
+STRIP_B = {"720p": 80, "4K": 240}
+# the strip zone's flat search reach (WIN_R)
+STRIP_R = 40
+# launches per P-frame at a strip geometry, where the descent is off: the
+# 32 zone as at 1080p (M8: ZERO, then GOLDEN's two sets, in block_energy_at)
+# and the strip zone's search (sse_map_search), quarter-pel search, ZERO
+# (and GOLDEN) SSE, three transforms and recon distortion
+M8_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
+                     "block_energy": 2, "block_energy_at": 4, "txq_cost": 0,
+                     "loop_filter": 1, "transform_recon": 6,
+                     "subpel_search": 2}
+M9_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
+                     "block_energy": 2, "block_energy_at": 2, "txq_cost": 0,
+                     "loop_filter": 1, "transform_recon": 6,
+                     "subpel_search": 2}
+# per keyframe at a strip geometry: the wave of the 32 zone, the strip's
+# three luma candidates (V and D63 ADST_DCT, D45 DCT_DCT) and two chroma
+# transforms, the candidates' recon SSE in one block_energy launch, and
+# the loop filter
+KEY_STRIP_LAUNCHES = {"kframe_wave": 1, "transform_recon": 5,
+                      "block_energy": 1, "loop_filter": 1}
 # a profile's warm-up before the work it reports (_profile)
 WARM_SPINS, WARM_WAIT_S = 32, 0.05
 
@@ -530,7 +574,7 @@ def energy_kernel_phase(dev):
                   "tpu_vp9/ops/pallas_kernels.py:118", max_err, parts)
 
 
-def _sse_inputs(n, r, half, seed):
+def _sse_inputs(n, r, half, seed, b=M9_B):
     """Search inputs as the step makes them: windows of n+2r+8 (2x2 sums
     of uint8 pixels at the half-res level, int16), with a planted exact
     match in every other block (its minimum relative SSE is
@@ -542,12 +586,12 @@ def _sse_inputs(n, r, half, seed):
     rng = np.random.default_rng(seed)
     sw = n + 2 * r + 8
     k = 2 if half else 1
-    wins = rng.integers(0, 256, (M9_B, sw * k, sw * k)).astype(np.int32)
-    src = rng.integers(0, 256, (M9_B, n * k, n * k)).astype(np.int32)
+    wins = rng.integers(0, 256, (b, sw * k, sw * k)).astype(np.int32)
+    src = rng.integers(0, 256, (b, n * k, n * k)).astype(np.int32)
     if half:
-        wins = wins.reshape(M9_B, sw, 2, sw, 2).sum(axis=(2, 4))
-        src = src.reshape(M9_B, n, 2, n, 2).sum(axis=(2, 4))
-    for i in range(0, M9_B, 2):
+        wins = wins.reshape(b, sw, 2, sw, 2).sum(axis=(2, 4))
+        src = src.reshape(b, n, 2, n, 2).sum(axis=(2, 4))
+    for i in range(0, b, 2):
         oy, ox = rng.integers(0, 2 * r + 1, 2)
         wins[i, 4 + oy:4 + oy + n, 4 + ox:4 + ox + n] = src[i]
     src[1], wins[1] = 40 * k * k, 40 * k * k
@@ -1318,43 +1362,62 @@ def loop_filter_kernel_phase(dev, lf_calls):
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
 
-def _kernel_resources(dev, name, sizes, occupancy, threads=128):
-    """Each template instance (block size n) of kernel ``name``, or with
-    ``sizes`` None its one kernel (n 0): its registers, spill bytes and
-    static shared memory from the ptxas report of its build
-    (``_build/lib<name>.log``), and its resident CTAs of ``threads``
-    threads per SM and dynamic shared memory from the CUDA runtime's
-    occupancy query (``occupancy(n, dev)``); printed, and raised on if an
-    instance spills."""
+def _ptxas_instances(name):
+    """The template instances of kernel ``name`` in the ptxas report of
+    its build (``_build/lib<name>.log``): {key: (registers, spill stores,
+    spill loads, static shared memory)}, the key an instance's integer
+    template arguments (one: that int; none: 0; several: their tuple),
+    led by its element type's letter where it has one (h uint8, s
+    int16)."""
     import re
 
     from tpu_vp9_torch.ops import _build
 
-    log = _build.build_log(name)
     found = {}
     for m in re.finditer(
-            r"Compiling entry function '[^']*" + name
-            + r"_kernel(?:ILi(\d+)E)?"
-            r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
-            r".*?Used (\d+) registers([^\n]*)", log, re.S):
+            r"Compiling entry function '[^']*" + name + r"_kernel([^']*)'"
+            r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+            r".*?Used (\d+) registers([^\n]*)", _build.build_log(name),
+            re.S):
+        args = m.group(1)
+        kind = re.match(r"I([hs])", args)
+        key = ((kind.group(1),) if kind else ()) + tuple(
+            int(v) for v in re.findall(r"Li(\d+)E", args))
+        key = key[0] if len(key) == 1 else (key or 0)
         smem = re.search(r"(\d+) bytes smem", m.group(5))
-        found[int(m.group(1) or 0)] = (int(m.group(4)), int(m.group(2)),
-                                       int(m.group(3)),
-                                       int(smem.group(1)) if smem else 0)
+        found[key] = (int(m.group(4)), int(m.group(2)), int(m.group(3)),
+                      int(smem.group(1)) if smem else 0)
+    return found
+
+
+def _print_resources(label, found_entry, ctas, dyn, threads):
+    regs, st, ld, smem = found_entry
+    print(f"{label}: {regs} registers, spill stores {st} B, spill "
+          f"loads {ld} B, static shared memory {smem} B (ptxas); "
+          f"dynamic shared memory {dyn} B, {ctas} resident CTAs of "
+          f"{threads} threads per SM (occupancy query)")
+    if st or ld:
+        raise AssertionError(f"{label} spills registers")
+
+
+def _kernel_resources(dev, name, sizes, occupancy, threads=128):
+    """Each template instance of kernel ``name`` (keyed as
+    ``_ptxas_instances`` keys them: block size n, or (n, transform type)),
+    or with ``sizes`` None its one kernel (key 0): its registers, spill
+    bytes and static shared memory from the ptxas report of its build, and
+    its resident CTAs of ``threads`` threads per SM and dynamic shared
+    memory from the CUDA runtime's occupancy query (``occupancy(key,
+    dev)``); printed, and raised on if an instance spills."""
+    found = _ptxas_instances(name)
     want = [0] if sizes is None else sorted(sizes)
     if sorted(found) != want:
         raise AssertionError(f"{name}: the ptxas report has the instances "
                              f"{sorted(found)}, want {want}")
-    for n in sorted(want, reverse=True):
-        regs, st, ld, smem = found[n]
-        ctas, dyn = occupancy(n, dev)
-        label = name if sizes is None else f"{name} n={n}"
-        print(f"{label}: {regs} registers, spill stores {st} B, spill "
-              f"loads {ld} B, static shared memory {smem} B (ptxas); "
-              f"dynamic shared memory {dyn} B, {ctas} resident CTAs of "
-              f"{threads} threads per SM (occupancy query)")
-        if st or ld:
-            raise AssertionError(f"{label} spills registers")
+    for key in sorted(want, reverse=True):
+        ctas, dyn = occupancy(key, dev)
+        label = (name if sizes is None else f"{name} n={key}"
+                 if isinstance(key, int) else f"{name} (n, type) {key}")
+        _print_resources(label, found[key], ctas, dyn, threads)
 
 
 def _tr_bound(b, n, fp64_ops_per_s=FP64_OPS_PER_S):
@@ -1368,8 +1431,9 @@ def _tr_bound(b, n, fp64_ops_per_s=FP64_OPS_PER_S):
                        + TR_INT_OPS[n]), ALU_OPS_PER_S)
 
 
-def _tr_case(label, src, pred, dc_q, ac_q, n):
-    """transform_recon (CUDA) against transform_recon_ref on one batch:
+def _tr_case(label, src, pred, dc_q, ac_q, n, tx_type=0):
+    """transform_recon (CUDA) against transform_recon_ref on one batch, of
+    transform type ``tx_type``:
     the level flips counted and printed, each allowed only where the plain
     version's float64 |c| / q + 0.38 lies within TR_FLIP_BAND of an
     integer; eob and recon bit-equal in every block whose levels are.
@@ -1378,15 +1442,16 @@ def _tr_case(label, src, pred, dc_q, ac_q, n):
     from tpu_vp9_torch.ops import txfm
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    got = K.transform_recon(src, pred, dc_q, ac_q, n)
-    want = P.transform_recon_ref(src, pred, dc_q, ac_q, n)
+    got = K.transform_recon(src, pred, dc_q, ac_q, n, tx_type)
+    want = P.transform_recon_ref(src, pred, dc_q, ac_q, n, tx_type)
     torch.cuda.synchronize()
     b = src.shape[0]
     differ = got[0] != want[0]
     flips = int(differ.sum())
     same = ~differ.reshape(b, -1).any(dim=1)
     if flips:
-        coef = txfm.fwd_txfm2d_f64(src.to(torch.int32) - pred.to(torch.int32))
+        coef = txfm.fwd_txfm2d_f64(src.to(torch.int32) - pred.to(torch.int32),
+                                   tx_type)
         q = torch.full((n, n), float(ac_q), dtype=torch.float64,
                        device=src.device)
         q[0, 0] = float(dc_q)
@@ -1402,7 +1467,8 @@ def _tr_case(label, src, pred, dc_q, ac_q, n):
             raise AssertionError(f"transform_recon [{label}]: {name} differs "
                                  "in a block whose levels are equal")
     err = _max_err(got, want)
-    print(f"kernel transform_recon [{label} B={b} n={n} q=({dc_q}, {ac_q})]: "
+    print(f"kernel transform_recon [{label} B={b} n={n} type {tx_type} "
+          f"q=({dc_q}, {ac_q})]: "
           f"{flips} level flips in {b - int(same.sum())} of {b} blocks; "
           f"max_abs_err={err}; eob {int(got[1].min())}..{int(got[1].max())}, "
           f"largest |level| {int(got[0].abs().max())}")
@@ -1432,8 +1498,9 @@ def transform_kernel_phase(dev, real, frames, recons):
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    _kernel_resources(dev, "transform_recon", K.TXFM_BLOCK_SIZES,
-                      K.transform_recon_occupancy)
+    _kernel_resources(dev, "transform_recon",
+                      [(n, t) for n, ts in K.TXFM_TYPES.items() for t in ts],
+                      lambda k, d: K.transform_recon_occupancy(k[0], d, k[1]))
     rng = np.random.default_rng(29)
     max_err = 0
     for label, (src, pred, dc_q, ac_q, n) in zip(TR_CALLS, real):
@@ -1590,12 +1657,370 @@ def subpel_kernel_phase(dev, real):
                   "tpu_vp9/pipeline/tpu_encdec.py:510", max_err, parts)
 
 
+def _part(p):
+    """A ``_timed`` part as the JSON line has it."""
+    count, label, ms, plain_ms, bound, device_ms, host_ms = p
+    return {"shape": label, "per_frame": count, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "host_ms": host_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def _cuda_time_once(fn) -> float:
+    """Device time of one call from CUDA events (for a plain version too
+    slow to repeat; it has run before, so it is warm)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _real_strip_inputs(dev):
+    """The real inputs of the strip's kernels: the first two frames of the
+    720p clip (a keyframe and an M8 P-frame) through the public encoder,
+    the strip zone's calls recorded: the P-frame's sse_map_search and
+    quarter-pel search at n=16 r=40, its other launches on the strip's 80
+    blocks (the transforms of Y at 16 and U, V at 8, the recon SSE, ZERO's
+    and GOLDEN's SSE read in place), and the keyframe strip's ADST_DCT
+    transforms (its V and D63 candidates). Returns {"sse", "sp": the
+    argument tuple; "adst", "tr", "be", "bea": lists of them}."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    w, h = STRIP_GEOMS["720p"]
+    names = {"sse": "sse_map_search", "sp": "subpel_search",
+             "tr": "transform_recon", "be": "block_energy",
+             "bea": "block_energy_at"}
+    calls = {k: [] for k in names}
+    real = {k: getattr(P, name) for k, name in names.items()}
+
+    def recorded(key, fn):
+        def call(*args):
+            calls[key].append(args)
+            return fn(*args)
+        return call
+
+    for k, name in names.items():
+        setattr(P, name, recorded(k, real[k]))
+    enc = _make_encoder(dev, 8, (w, h))
+    for frame in panning_frames(w, h, 2, seed=1):
+        enc.send_picture(frame)
+    enc.flush()
+    enc.close()
+    for k, name in names.items():
+        setattr(P, name, real[k])
+    torch.cuda.synchronize()
+    b = STRIP_B["720p"]
+    adst = int(T.TxType.ADST_DCT)
+    # the strip's calls are those of its 80 blocks (the 32 zone has 880)
+    strip = {k: [c for c in v if c[0].shape[0] == b] for k, v in calls.items()}
+    out = {"sse": [c for c in strip["sse"] if c[2:4] == (16, STRIP_R)],
+           "sp": [c for c in strip["sp"] if c[4:] == (16, STRIP_R)],
+           "adst": [c for c in strip["tr"]
+                    if len(c) == 6 and int(c[5]) == adst],
+           "tr": [c for c in strip["tr"] if len(c) == 5],
+           "be": strip["be"], "bea": strip["bea"]}
+    counts = {k: len(v) for k, v in out.items()}
+    # DCT_DCT transforms: the keyframe strip's chroma (2), then the
+    # P-frame strip's Y, U, V
+    if counts != {"sse": 1, "sp": 1, "adst": 2, "tr": 5, "be": 1, "bea": 2}:
+        raise AssertionError(f"the 720p keyframe and P-frame made these "
+                             f"calls on the strip's {b} blocks: {counts}")
+    out["sse"], out["sp"], out["tr"] = out["sse"][0], out["sp"][0], \
+        out["tr"][2:]
+    return out
+
+
+def _kf_bound(nbytes, nb, fp64_ops_per_s):
+    """kframe_wave's bound: ``nbytes`` moved, and nb blocks' float64
+    operations at ``fp64_ops_per_s`` and integer ones, as operations at
+    ALU_OPS_PER_S."""
+    return _bound(nbytes, nb * (KF_FP64_OPS * ALU_OPS_PER_S / fp64_ops_per_s
+                                + KF_INT_OPS), ALU_OPS_PER_S)
+
+
+def strip_kernel_phase(dev):
+    """The kernels at the strip geometries' shapes against their plain
+    versions on the card, bit for bit, each instance's resources printed:
+    sse_map_search at n=16 r=40 with its map (its level opts in to 95,684
+    bytes of shared memory) for B=80 and B=240 (made-up windows with a
+    planted match, ties and the largest operands) and on the real strip of
+    a 720p P-frame; subpel_search at n=16 r=40 on the same real windows
+    and made-up batches of both sizes (ties, corners, checkerboards);
+    transform_recon's ADST_DCT instance at n=16 on the real 720p keyframe
+    strip's V and D63 candidates, on 4K strip blocks against their V and
+    D63 predictions at TR_QINDICES, +-255 and zero residuals, one level at
+    each place of the ADST_DCT scan; the strip zone's other launches on
+    the real 720p P-frame (its DCT_DCT transforms of Y at 16 and U, V at
+    8, its recon SSE, ZERO's and GOLDEN's SSE read in place); kframe_wave
+    on the 720p and 4K 32 zones (a row of 120 blocks at 4K; every launch's
+    error word 0). Each timed at its strip shapes. Returns {kernel: [its
+    strip parts]}."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    n, r = 16, STRIP_R
+    d, sw = 2 * r + 1, n + 2 * r + 8
+    real = _real_strip_inputs(dev)
+    sse_real, sp_real, tr_real = real["sse"], real["sp"], real["adst"]
+    parts = {k: [] for k in ("sse_map_search", "subpel_search",
+                             "transform_recon", "kframe_wave",
+                             "block_energy")}
+    errs = dict.fromkeys(parts, 0)
+
+    # the strip zone's other launches, on the real 720p P-frame: its
+    # transforms (Y at 16, U and V at 8; DCT_DCT), the recon SSE, and
+    # ZERO's and GOLDEN's SSE read in place
+    for i, (src, pred, dq, aq, nn) in enumerate(real["tr"]):
+        err = _tr_case(f"720p P-frame's strip {'YUV'[i]}", src, pred, dq,
+                       aq, nn)[0]
+        errs["transform_recon"] = max(errs["transform_recon"], err)
+        if i < 2:  # Y, and U standing for both chroma planes
+            b = src.shape[0]
+            parts["transform_recon"].append(_timed(
+                "transform_recon", f"720p strip {'YU'[i]} B={b} n={nn}",
+                lambda: K.transform_recon(src, pred, dq, aq, nn),
+                lambda: P.transform_recon_ref(src, pred, dq, aq, nn), 5,
+                _tr_bound(b, nn), "transform_recon_kernel", 1 + i))
+    (src, rec, nn), = real["be"]
+    b = src.shape[0]
+    errs["block_energy"] = _check("block_energy", "720p P-frame's strip",
+                                  K.block_energy(src, rec, nn),
+                                  K.block_energy_ref(src, rec, nn))
+    parts["block_energy"].append(_timed(
+        "block_energy", f"720p strip recon B={b} n={nn}",
+        lambda: K.block_energy(src, rec, nn),
+        lambda: K.block_energy_ref(src, rec, nn), 20,
+        _bound(2 * b * nn * nn + 8 * b, 5 * b * nn * nn, ALU_OPS_PER_S),
+        "block_energy_kernel", 1))
+    for src, plane, y0, x0, nn in real["bea"]:
+        c, b = y0.shape
+        label = "ZERO" if c == 1 else "GOLDEN"
+        errs["block_energy"] = max(errs["block_energy"], _check(
+            "block_energy_at", f"720p P-frame's strip {label}",
+            K.block_energy_at(src, plane, y0, x0, nn),
+            K.block_energy_at_ref(src, plane, y0, x0, nn)))
+        parts["block_energy"].append(_timed(
+            "block_energy_at", f"720p strip {label} B={b} n={nn} C={c}",
+            lambda: K.block_energy_at(src, plane, y0, x0, nn),
+            lambda: K.block_energy_at_ref(src, plane, y0, x0, nn), 20,
+            _bound(b * nn * nn * (1 + c) + 16 * c * b, 5 * c * b * nn * nn,
+                   ALU_OPS_PER_S), "block_energy_at_kernel", 1))
+
+    # sse_map_search: the flat +-40 search of the strip
+    ctas, dyn, threads = K.sse_map_search_occupancy(n, r, dev)
+    _print_resources(f"sse_map_search uint8 n={n} r={r} (strips of 9)",
+                     _ptxas_instances("sse_search")[("h", n, 9)], ctas, dyn,
+                     threads)
+
+    def sse_bound(b):
+        # reads blocks and windows, writes the winner and the map; a
+        # multiply and an add per candidate pixel at the 8-bit rate
+        return _bound(b * (n * n + sw * sw + 8 + 4 * d * d),
+                      2 * b * d * d * n * n, INT8_OPS_PER_S)
+
+    for label, b in STRIP_B.items():
+        s_np, w_np = _sse_inputs(n, r, False, seed=b, b=b)
+        s = torch.from_numpy(s_np).to(dev)
+        w = torch.from_numpy(w_np).to(dev)
+        for with_map in (True, False):
+            got = K.sse_map_search(s, w, n, r, want_map=with_map)
+            errs["sse_map_search"] = max(errs["sse_map_search"], _check(
+                "sse_map_search", f"made-up B={b} n={n} r={r} map="
+                f"{with_map}", got, K.sse_map_search_ref(s, w, n, r,
+                                                         with_map)))
+        rel = K.sse_map_search_ref(s, w, n, r)[2].reshape(b, -1)
+        if not (bool((rel[0].min() < 0).item()) and int(got[0][1]) == -r
+                and int(got[1][1]) == -r and int(rel[5, 0]) == n * n * 255 ** 2
+                and int(rel[7, 0]) == -n * n * 255 ** 2):
+            raise AssertionError("sse_map_search n=16 r=40: the planted "
+                                 "match, the tie or the largest operands "
+                                 "came out wrong")
+        parts["sse_map_search"].append(_timed(
+            "sse_map_search", f"strip {label} made-up B={b} n={n} r={r} map",
+            lambda: K.sse_map_search(s, w, n, r),
+            lambda: K.sse_map_search_ref(s, w, n, r), 3, sse_bound(b),
+            "sse_search_kernel", 1))
+    errs["sse_map_search"] = max(errs["sse_map_search"], _check(
+        "sse_map_search", "the 720p P-frame's strip", K.sse_map_search(
+            *sse_real), K.sse_map_search_ref(*sse_real)))
+    parts["sse_map_search"].append(_timed(
+        "sse_map_search", f"strip 720p real P-frame B={STRIP_B['720p']} map",
+        lambda: K.sse_map_search(*sse_real),
+        lambda: K.sse_map_search_ref(*sse_real), 3,
+        sse_bound(STRIP_B["720p"]), "sse_search_kernel", 1))
+
+    # subpel_search on the strip's +-40 windows
+    _print_resources(f"subpel_search n={n}",
+                     _ptxas_instances("subpel_search")[n],
+                     *K.subpel_search_occupancy(n, dev), 128)
+    rng = np.random.default_rng(37)
+    errs["subpel_search"] = _check(
+        "subpel_search", "the 720p P-frame's strip", K.subpel_search(*sp_real),
+        P.subpel_search_ref(*sp_real))
+    for b in STRIP_B.values():
+        for label, wins, src, dyx, tie_sse in _sp_made_up(rng, dev, b, n, r):
+            args = (torch.from_numpy(wins).to(dev),
+                    torch.from_numpy(src).to(dev), dyx[0].contiguous(),
+                    dyx[1].contiguous(), n, r)
+            got = K.subpel_search(*args)
+            errs["subpel_search"] = max(errs["subpel_search"], _check(
+                "subpel_search", f"{label} B={b} n={n} r={r}", got,
+                P.subpel_search_ref(*args)))
+            if tie_sse is not None and not (
+                    torch.equal(got[0], args[2] * 8 - 6)
+                    and torch.equal(got[1], args[3] * 8 - 6)
+                    and bool((got[2] == tie_sse).all())):
+                raise AssertionError(f"subpel_search: ties ({label}) did "
+                                     "not go to the first offset")
+            if label == "random":
+                made_up = args
+        parts["subpel_search"].append(_timed(
+            "subpel_search", f"strip made-up B={b} n={n} r={r}",
+            lambda: K.subpel_search(*made_up),
+            lambda: P.subpel_search_ref(*made_up), 3, _sp_bound(b, n),
+            "subpel_search_kernel", 1))
+    parts["subpel_search"].append(_timed(
+        "subpel_search", f"strip 720p real P-frame B={STRIP_B['720p']}",
+        lambda: K.subpel_search(*sp_real),
+        lambda: P.subpel_search_ref(*sp_real), 3,
+        _sp_bound(STRIP_B["720p"], n), "subpel_search_kernel", 1))
+
+    # transform_recon's ADST_DCT instance
+    adst = int(T.TxType.ADST_DCT)
+    _print_resources("transform_recon n=16 ADST_DCT",
+                     _ptxas_instances("transform_recon")[(n, adst)],
+                     *K.transform_recon_occupancy(n, dev, adst), 128)
+    tr_err = 0
+    for (src, pred, dc_q, ac_q, nn, tt), mode in zip(tr_real, ("V", "D63")):
+        tr_err = max(tr_err, _tr_case(f"720p keyframe strip's {mode}", src,
+                                      pred, dc_q, ac_q, nn, tt)[0])
+    w4, h4 = STRIP_GEOMS["4K"]
+    g4 = P.make_geom(w4, h4)
+    frame = next(panning_frames(w4, h4, 1, seed=1))
+    y4 = torch.from_numpy(P.pad_plane(np.asarray(frame.y), g4.pad_h,
+                                      g4.pad_w)).to(dev)
+    src4 = P._extract_blocks(y4, g4.strip_y, 1, g4.cols16, n).contiguous()
+    preds = P._strip_intra_preds(y4, g4.strip_y, g4.cols16, n,
+                                 P.KF_STRIP_MODES)
+    b4 = src4.shape[0]
+    ext = torch.from_numpy(rng.choice([0, 255], (b4, n, n))
+                           .astype(np.uint8)).to(dev)
+    # (the 8191 level clip is out of reach at n=16: qindex 0's step is 4,
+    # not halved as at 32, so +-255 residuals give levels near 2,250)
+    for q in TR_QINDICES:
+        dc_q, ac_q = T.dc_quant(q), T.ac_quant(q)
+        for i, mode in ((0, "V"), (2, "D63")):
+            pred = preds[:, i].to(torch.uint8).contiguous()
+            tr_err = max(tr_err, _tr_case(
+                f"4K strip against its {mode} prediction", src4, pred, dc_q,
+                ac_q, n, adst)[0])
+        tr_err = max(tr_err, _tr_case("+-255 residuals", ext, 255 - ext, dc_q,
+                                      ac_q, n, adst)[0])
+    dc_q, ac_q = T.dc_quant(TR_LONE_QINDEX), T.ac_quant(TR_LONE_QINDEX)
+    err, got = _tr_case("zero residuals", src4, src4.clone(), dc_q, ac_q, n,
+                        adst)
+    tr_err = max(tr_err, err)
+    if int(got[1].abs().max()) or int(got[0].abs().max()):
+        raise AssertionError("transform_recon ADST_DCT: a zero residual has "
+                             "levels")
+    nn = n * n
+    scan = torch.as_tensor(np.asarray(T.scan_order(
+        P.txfm.TX_SIZE[n], T.TxType.ADST_DCT)[0]), device=dev)
+    levels = torch.zeros((nn, nn), dtype=torch.int32, device=dev)
+    levels[torch.arange(nn, device=dev), scan] = TR_LONE_LEVEL
+    levels[0, scan[0]] = 4
+    flat = torch.full((nn, n, n), 128, dtype=torch.uint8, device=dev)
+    lone = P.recon_from_levels(levels.reshape(nn, n, n), flat, dc_q, ac_q, n,
+                               adst)[1]
+    err, got = _tr_case("one level at each ADST_DCT scan place", lone, flat,
+                        dc_q, ac_q, n, adst)
+    tr_err = max(tr_err, err)
+    print(f"transform_recon ADST_DCT: the lone levels reach "
+          f"{len(set(got[1].tolist()))} of {nn} eob values")
+    errs["transform_recon"] = tr_err
+    qidx = qp_to_qindex(QP)
+    dc_q, ac_q = T.dc_quant(qidx), T.ac_quant(qidx)
+    pred4 = preds[:, 0].to(torch.uint8).contiguous()
+    for label, (src, pred, dq, aq) in (
+            ("720p real keyframe strip, V", tr_real[0][:4]),
+            ("4K strip against V", (src4, pred4, dc_q, ac_q))):
+        b = src.shape[0]
+        parts["transform_recon"].append(_timed(
+            "transform_recon", f"{label} B={b} n={n} ADST_DCT",
+            lambda: K.transform_recon(src, pred, dq, aq, n, adst),
+            lambda: P.transform_recon_ref(src, pred, dq, aq, n, adst), 5,
+            _tr_bound(b, n), "transform_recon_kernel", 2))
+
+    # kframe_wave on the strip geometries' 32 zones
+    _kernel_resources(dev, "kframe_wave", None,
+                      lambda k, dv: K.kframe_wave_occupancy(dv), threads=256)
+    kf_err = 0
+    lam = max(1, (ac_q ** 2) >> 6)
+    for label, (w, h) in STRIP_GEOMS.items():
+        g = P.make_geom(w, h)
+        frame = next(panning_frames(w, h, 1, seed=1))
+        shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
+                  (g.pad_h // 2, g.pad_w // 2))
+        pan = [P.pad_plane(np.asarray(p), *shp)
+               for p, shp in zip((frame.y, frame.u, frame.v), shapes)]
+        # the plain version of 4K's 186 diagonals takes seconds: two qindex
+        # values there, four at 720p
+        for q in (qidx, *KF_QINDICES) if label == "720p" else (qidx, 10):
+            kf_err = max(kf_err, _kf_case(dev, f"panning frame {label}", g,
+                                          pan, q)[0])
+        ts = [torch.from_numpy(p).to(dev) for p in pan]
+        status = []
+
+        def call():
+            return K.kframe_wave(*ts, g, dc_q, ac_q, lam, status)
+
+        ms = _cuda_time_ms(call, 10)
+        plain_ms = _cuda_time_once(lambda: P.kframe_wave_ref(
+            *ts, g, dc_q, ac_q, lam))
+        device_ms = _device_ms(call, "kframe_wave_kernel", reps=10)
+        host_ms = _host_ms(call, reps=10)
+        torch.cuda.synchronize()
+        for word in status:
+            K.kf_check_status(word)
+        nb = g.n_blocks32
+        nbytes = sum(t.numel() for t in ts) + nb * 1536 * 3 + 16 * nb
+        bound = _kf_bound(nbytes, nb, FP64_OPS_PER_S)
+        shown = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+        print(f"kernel kframe_wave {label} keyframe ({g.rows32} x {g.cols32} "
+              f"blocks, one launch): call {ms:.4f} ms (CUDA events, "
+              f"median); device {shown} (profiler); host {host_ms:.4f} ms "
+              f"per call; plain {plain_ms:.4f} ms (one call); bound "
+              f"{bound[0]:.5f} ms by {bound[1]}; {len(status)} launches, "
+              "every error word 0")
+        parts["kframe_wave"].append(
+            (1, f"{label} keyframe, one launch", ms, plain_ms, bound,
+             device_ms, host_ms))
+    errs["kframe_wave"] = kf_err
+    if any(errs.values()):
+        raise AssertionError(f"a strip shape disagrees: {errs}")
+    return {k: [_part(p) for p in v] for k, v in parts.items()}
+
+
 def _psnr(a, b) -> float:
     mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def _make_encoder(device, enc_mode):
+def _dims(frames):
+    """(width, height) of a clip."""
+    h, w = frames[0].y.shape
+    return w, h
+
+
+def _make_encoder(device, enc_mode, dims=(WIDTH, HEIGHT)):
     from tpu_vp9_torch.api import Vp9Encoder
     from tpu_vp9_torch.config import (
         EncoderConfig, PredStructure, RateControlMode,
@@ -1604,7 +2029,7 @@ def _make_encoder(device, enc_mode):
     enc = Vp9Encoder(device=device)
     # recon_file keeps get_recon on the realtime path; nothing is written
     enc.set_parameter(EncoderConfig(
-        source_width=WIDTH, source_height=HEIGHT, enc_mode=enc_mode,
+        source_width=dims[0], source_height=dims[1], enc_mode=enc_mode,
         pred_structure=PredStructure.LOW_DELAY_P,
         rate_control_mode=RateControlMode.CQP, qp=QP, frame_rate=30,
         recon_file="unused.yuv"))
@@ -1632,7 +2057,7 @@ def _encode(device, frames, enc_mode):
     encoder, seconds from the first P-frame's send to the end of flush)."""
     from tpu_vp9_torch.utils import trace
 
-    enc = _make_encoder(device, enc_mode)
+    enc = _make_encoder(device, enc_mode, _dims(frames))
     got = _capture(enc)
     rows = []
     t_p = None
@@ -1663,7 +2088,7 @@ def _decode_check(pkts, recons, frames):
     from tpu_vp9_torch.decoder.decoder import decode_ivf
 
     buf = io.BytesIO()
-    write_ivf_header(buf, WIDTH, HEIGHT, 30, 1, len(pkts))
+    write_ivf_header(buf, *_dims(frames), 30, 1, len(pkts))
     for p in pkts:
         write_ivf_frame(buf, p.data, p.pts)
     buf.seek(0)
@@ -1743,21 +2168,34 @@ def _stream_line(label, pkts, psnrs):
             f"over {len(pkts)} frames")
 
 
-def realtime_end_to_end_phase(dev, frames, enc_mode):
-    """M8 or M9 end to end through the public Vp9Encoder, with the launch
-    counts of the run. For M8, txq_cost also runs inside the counted
-    window, at its own entry point, on every P-frame's residual."""
+def _path_launches(geom, enc_mode):
+    """Launches per P-frame and per keyframe by wrapper, at ``geom``."""
+    if geom.strip:
+        return (M8_STRIP_LAUNCHES if enc_mode == 8 else M9_STRIP_LAUNCHES,
+                KEY_STRIP_LAUNCHES)
+    return M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES, KEY_LAUNCHES
+
+
+def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None):
+    """M8 or M9 end to end through the public Vp9Encoder at the clip's
+    size, with the launch counts of the run. For M8 at 1080p, txq_cost
+    also runs inside the counted window, at its own entry point, on every
+    P-frame's residual. At a strip geometry no parent may split (the
+    descent is off there)."""
     from tpu_vp9_torch.bitstream import tables as T
     from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.pipeline.presets import qp_to_qindex
     from tpu_vp9_torch.utils import trace
 
-    tag = f"m{enc_mode}"
+    tag = tag or f"m{enc_mode}"
+    width, height = _dims(frames)
+    geom = P.make_geom(width, height)
     trace.enable(True)
     _reset_counts()
     pkts, recons, rows, enc, p_seconds = _encode(dev, frames, enc_mode)
     n_p = sum(not p.is_keyframe for p in pkts)
-    if enc_mode == 8:
+    if enc_mode == 8 and not geom.strip:
         qidx = qp_to_qindex(QP)
         dc_q, ac_q = float(T.dc_quant(qidx)), float(T.ac_quant(qidx))
         proxies = []
@@ -1779,12 +2217,13 @@ def realtime_end_to_end_phase(dev, frames, enc_mode):
     counts = _read_counts()
     n_k = len(pkts) - n_p
     print(f"{tag}: {len(pkts)} frames ({n_k} key, {n_p} P) at "
-          f"{WIDTH}x{HEIGHT} M{enc_mode} low-delay CQP qp {QP}: launches "
+          f"{width}x{height} M{enc_mode} low-delay CQP qp {QP}: launches "
           f"{counts}")
-    per_p = M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES
+    per_p, per_key = _path_launches(geom, enc_mode)
+    print(f"{tag}: launches per P-frame {per_p}, per keyframe {per_key}")
     want = {"sad_full_search": 0, "kframe_wave": 0,
             **{k: v * n_p for k, v in per_p.items()}}
-    for k, v in KEY_LAUNCHES.items():
+    for k, v in per_key.items():
         want[k] += v * n_k
     if n_p == 0 or n_k == 0 or counts != want:
         raise AssertionError(f"launches {counts} != {want} for {n_k} "
@@ -1795,8 +2234,10 @@ def realtime_end_to_end_phase(dev, frames, enc_mode):
         raise AssertionError(f"the session tallied {tally['p_frames']} of "
                              f"{n_p} P-frames")
     print(f"{tag}: {n_split} parents split and {n_gold} blocks chose GOLDEN "
-          f"over {n_p} P-frames of {M9_B} 32x32 blocks")
-    if enc_mode == 8:
+          f"over {n_p} P-frames of {geom.n_blocks32} 32x32 blocks")
+    if geom.strip and n_split:
+        raise AssertionError(f"{tag}: a parent split at a strip geometry")
+    if enc_mode == 8 and not geom.strip:
         interval = enc._rt.golden_interval
         if n_split == 0 or n_p <= interval:
             raise AssertionError("m8: no parent split, or no GOLDEN refresh "
@@ -1972,27 +2413,30 @@ def _profile_until_complete(dev, runs, label, need):
                          f"record of every kernel of {sorted(need)}")
 
 
-def realtime_profile_phase(dev, frames, enc_mode):
-    """Key and two P-frames to warm up, then three P-frame sends (each
-    issues its step and fetches and hands on the previous frame) under the
-    profiler, and three more if that profile lacks a hand kernel's
-    record."""
-    enc = _make_encoder(dev, enc_mode)
-    for frame in frames[:3]:
+def realtime_profile_phase(dev, frames, enc_mode, per=3, label="1080p"):
+    """Key and ``per`` - 1 P-frames to warm up, then ``per`` P-frame sends
+    (each issues its step and fetches and hands on the previous frame)
+    under the profiler, and ``per`` more if that profile lacks a hand
+    kernel's record."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    enc = _make_encoder(dev, enc_mode, _dims(frames))
+    for frame in frames[:per]:
         enc.send_picture(frame)
     torch.cuda.synchronize(dev)
-    launches = M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES
+    launches = _path_launches(P.make_geom(*_dims(frames)), enc_mode)[0]
     need = [w for w, n in launches.items() if n and w != "txq_cost"]
 
     def run(first):
         def sends():
-            for frame in frames[first:first + 3]:
+            for frame in frames[first:first + per]:
                 enc.send_picture(frame)
         return sends
 
-    _profile_until_complete(dev, [run(3), run(6)],
-                            f"m{enc_mode} three 1080p P-frames", need)
+    _profile_until_complete(dev, [run(per), run(2 * per)],
+                            f"m{enc_mode} {per} {label} P-frames", need)
     enc.flush()
+    enc.close()
 
 
 def keyframe_phase(dev, frames):
@@ -2128,6 +2572,8 @@ def main() -> int:
         transform_kernel_phase(dev, real["tr"], real_frames, real_recons),
         kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]))}
     del real, real_frames, real_recons
+    for name, parts in strip_kernel_phase(dev).items():
+        kernels[name]["strip_parts"] = parts
     txq_synthetic_phase(dev)
     if "--kernels" in sys.argv[1:]:
         print(f"chip_smoke: the kernel phases passed in "
@@ -2148,9 +2594,28 @@ def main() -> int:
     keyframe_phase(dev, frames)
     same_bytes_phase("m8", frames, m8_pkts, 8)
     m9_list = frames[:M9_FRAMES]
-    m9_pkts, _, _ = realtime_end_to_end_phase(dev, m9_list, 9)
+    m9_pkts, _, m9_counts = realtime_end_to_end_phase(dev, m9_list, 9)
     realtime_profile_phase(dev, m9_list, 9)
     same_bytes_phase("m9", m9_list, m9_pkts, 9)
+    del m9_list, m8_pkts, m8_recons, m9_pkts
+    paths = {"1080p m8": m8_counts, "1080p m9": m9_counts}
+    # the strip geometries: 720p at M8 and M9, 4K at M8, each path's counts
+    # set to 0 just before it and read just after
+    for label, dims in STRIP_GEOMS.items():
+        sframes = list(panning_frames(*dims, STRIP_FRAMES[label], seed=1))
+        for mode in (8, 9) if label == "720p" else (8,):
+            tag = f"{label} m{mode}"
+            pkts, _, paths[tag] = realtime_end_to_end_phase(dev, sframes,
+                                                            mode, tag)
+            realtime_profile_phase(dev, sframes, mode,
+                                   3 if label == "720p" else 2, label)
+            if label == "720p":
+                same_bytes_phase(tag, sframes, pkts, mode)
+        del sframes, pkts
+    for name, k in kernels.items():
+        k["launches_by_path"] = {
+            path: sum(c[w] for w in ENTRY_WRAPPERS[name])
+            for path, c in paths.items()}
     m7_frames = frames[:M7_FRAMES]
     m7_pkts, m7_counts = m7_end_to_end_phase(dev, m7_frames)
     kernels["sad_full_search"]["launches"] = m7_counts["sad_full_search"]

@@ -16,6 +16,12 @@
 // warp's exchange area like the shuffles. Shared memory (standin_smem,
 // the running thread's CTA's buffer) is filled with 0xA5 before each CTA,
 // so that a read of a place the CTA did not write shows.
+// The runtime calls a launcher makes (cudaGetDevice, cudaDeviceGetAttribute,
+// cudaFuncSetAttribute, the occupancy query) answer from a few settable
+// globals (standin_device, standin_smem_optin, standin_set_attribute_error),
+// and standin_kernel_launch stands for a <<<grid, threads, smem>>> launch:
+// it refuses, as the runtime does, dynamic shared memory past 48 KB that
+// the kernel was not opted in to, and cudaGetLastError reports that.
 // Build with -std=c++20 (for std::barrier), -fwrapv (int32 arithmetic
 // wraps as on the card) and -ffp-contract=off (no fused multiply-add the
 // source did not write).
@@ -28,6 +34,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -54,6 +61,7 @@ using std::min;
 using std::rint;
 
 struct uint2 { unsigned x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 struct uchar4 { unsigned char x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
@@ -98,7 +106,13 @@ inline double __longlong_as_double(long long v) {
 
 struct StandinDim { unsigned x = 1, y = 1, z = 1; };
 inline thread_local StandinDim threadIdx, blockIdx;
-inline StandinDim gridDim;
+inline StandinDim gridDim, blockDim;
+
+inline unsigned __float_as_uint(float f) {
+  unsigned v;
+  std::memcpy(&v, &f, 4);
+  return v;
+}
 
 constexpr int kStandinSmemBytes = 1 << 17;
 
@@ -108,6 +122,7 @@ struct StandinCta {
   double xa[32][32], xb[32][32];
   double xa8[32][32][8], xb4[32][32][4];
   int xi[32][32];
+  unsigned long long xl[32][32];
   alignas(16) unsigned char smem[kStandinSmemBytes];
   // named barriers 1-15, each made at its first use with its count
   std::unique_ptr<std::barrier<>> named[16];
@@ -179,6 +194,20 @@ inline bool __all_sync(unsigned, bool v) {
   return all;
 }
 
+// lane l gets lane l + off's value, its own where l + off is past the warp
+template <class T>
+T __shfl_down_sync(unsigned, T v, int off) {
+  static_assert(sizeof(T) <= 8, "a value of at most 64 bits");
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  std::memcpy(&standin_cta->xl[w][l], &v, sizeof(T));
+  standin_warp_sync(w);
+  T r;
+  std::memcpy(&r, &standin_cta->xl[w][l + off < 32 ? l + off : l],
+              sizeof(T));
+  standin_warp_sync(w);
+  return r;
+}
+
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
   static_assert(sizeof(T) == 4, "a 32-bit value");
@@ -194,6 +223,9 @@ T __shfl_sync(unsigned, T v, int src) {
 // the kernels' global-memory synchronisation, as C++ atomics
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
 }
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 inline int ld_relaxed_gpu(const int* p) {
@@ -301,7 +333,57 @@ inline void mma_f64_16x8x16(double (&d)[4], const double (&a)[8],
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-inline cudaError_t cudaGetLastError() { return 0; }
+enum : int {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorInvalidDevice = 101,
+};
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+// the device a launcher finds current, its sharedMemPerBlockOptin (an
+// H100's 227 KB), what cudaFuncSetAttribute returns (0: it sets the
+// attribute) and how often it was called, each kernel's opted-in dynamic
+// shared memory, and the error the next cudaGetLastError reports
+inline int standin_device = 0;
+inline int standin_smem_optin = 227 * 1024;
+inline int standin_set_attribute_error = 0;
+inline int standin_set_attribute_calls = 0;
+inline std::map<const void*, int> standin_allowed_smem;
+inline cudaError_t standin_last_error = 0;
+
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = standin_last_error;
+  standin_last_error = 0;
+  return e;
+}
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = standin_device;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
+  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? standin_smem_optin
+                                                       : 132;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaFuncSetAttribute(F* kernel, cudaFuncAttribute, int bytes) {
+  ++standin_set_attribute_calls;
+  if (standin_set_attribute_error) return standin_set_attribute_error;
+  if (bytes > standin_smem_optin) return cudaErrorInvalidValue;
+  standin_allowed_smem[reinterpret_cast<const void*>(kernel)] = bytes;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* ctas, F*, int,
+                                                          size_t) {
+  *ctas = 1;
+  return cudaSuccess;
+}
 
 // One CTA's threads, started: each sets its thread and block index and
 // its CTA, then runs body().
@@ -329,6 +411,7 @@ void standin_start(StandinCta& cta, int b, int threads, F& body,
 template <class F>
 void standin_launch(int grid, int threads, F body) {
   gridDim.x = grid;
+  blockDim.x = threads;
   for (int b = 0; b < grid; ++b) {
     auto cta = std::make_unique<StandinCta>();
     std::vector<std::thread> pool;
@@ -341,6 +424,7 @@ void standin_launch(int grid, int threads, F body) {
 template <class F>
 void standin_launch_all(int grid, int threads, F body) {
   gridDim.x = grid;
+  blockDim.x = threads;
   std::vector<std::unique_ptr<StandinCta>> ctas;
   std::vector<std::thread> pool;
   for (int b = 0; b < grid; ++b) {
@@ -348,4 +432,23 @@ void standin_launch_all(int grid, int threads, F body) {
     standin_start(*ctas.back(), b, threads, body, pool);
   }
   for (auto& th : pool) th.join();
+}
+
+// kernel<<<grid, threads, smem>>>(...) with body() the kernel's call:
+// refused (the error for the next cudaGetLastError, nothing run) where
+// smem is past the 48 KB a kernel has without asking and past what the
+// kernel was opted in to; else standin_launch
+template <class K, class F>
+void standin_kernel_launch(K* kernel, int grid, int threads, size_t smem,
+                           F body) {
+  const auto it =
+      standin_allowed_smem.find(reinterpret_cast<const void*>(kernel));
+  const size_t allowed =
+      std::max<size_t>(48 * 1024, it == standin_allowed_smem.end()
+                                      ? 0 : static_cast<size_t>(it->second));
+  if (smem > allowed || smem > static_cast<size_t>(kStandinSmemBytes)) {
+    standin_last_error = cudaErrorInvalidValue;
+    return;
+  }
+  standin_launch(grid, threads, body);
 }

@@ -127,10 +127,12 @@ def test_sse_map_search_refuses_bad_inputs():
     with pytest.raises(TypeError, match="uint8 or both int16"):
         K.sse_map_search(src, torch.zeros((2, 60, 60), dtype=torch.uint8),
                          16, 18)
+    # +-64 at n=32 needs 256,324 bytes: past the 227 KB a CTA may opt in to
+    # (+-40, 117,316 bytes, fits since the strip zone's level opts in)
     with pytest.raises(ValueError, match="shared memory"):
         K.sse_map_search(torch.zeros((1, 32, 32), dtype=torch.uint8),
-                         torch.zeros((1, 120, 120), dtype=torch.uint8), 32,
-                         40)
+                         torch.zeros((1, 168, 168), dtype=torch.uint8), 32,
+                         64)
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +182,7 @@ def test_geometry_refusals_match_jax():
             J.make_geom(*wh)
         with pytest.raises(ValueError):
             P.make_geom(*wh)
-    assert P.make_geom(128, 112).strip  # refused later, by the session
+    assert P.make_geom(128, 112).strip  # taken, with the 16-pixel strip
 
 
 def test_1080p_is_the_overhang_geometry_and_windows_stay_inside():
@@ -474,8 +476,9 @@ def test_loop_filter_matches_jax_and_host_oracle(dims):
 
 def test_loop_filter_refuses_strip_geometry():
     """The loop filter takes a strip geometry without a split mask and
-    refuses one with a mask; the P-frame step still refuses a strip
-    geometry (ROADMAP.md Queue A item 5)."""
+    refuses one with a mask; so the P-frame step takes a strip geometry
+    (its bottom strip a zone of 16x16 blocks) and refuses the descent
+    there, as the JAX step does."""
     g = P.make_geom(128, 112)
     y = torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8)
     c = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)
@@ -484,9 +487,17 @@ def test_loop_filter_refuses_strip_geometry():
         P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
     assert len(P.loop_filter_device(y, c, c, g, 10, 5, 20)) == 3
     prev = torch.zeros((g.n_blocks32, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.make_pframe_step(g, "cpu")(y, c, c, y, c, c, prev, 40, 50, 39,
-                                     10, 5, 20)
+    prev16 = torch.zeros((g.cols16, 2), dtype=torch.int32)
+    refs = [P.extend_borders_device(p, g.width >> k, g.height >> k)
+            for k, p in ((0, y), (1, c), (1, c))]
+    outs, new = P.make_pframe_step(g, "cpu")(y, c, c, *refs, prev, prev16,
+                                             40, 50, 39, 10, 5, 20)
+    assert tuple(outs["m16"]["mv"].shape) == (g.cols16, 2)
+    assert tuple(outs["rec_y"].shape) == (g.pad_h, g.pad_w)
+    assert [tuple(t.shape) for t in new] == [tuple(t.shape) for t in refs]
+    with pytest.raises(ValueError, match="strip"):
+        P.make_pframe_step(g, "cpu", split16=True)(
+            y, c, c, *refs, prev, prev16, 40, 50, 39, 10, 5, 20)
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +532,8 @@ def test_pframe_step_matches_jax_step():
                            jnp.asarray(prev), jnp.zeros((1, 2), jnp.int32),
                            *[jnp.int32(v) for v in q])
     outs_p, new_p = P.make_pframe_step(gp, "cpu")(
-        *[_t(p) for p in src], *refs_p, _t(prev), *q)
+        *[_t(p) for p in src], *refs_p, _t(prev),
+        torch.zeros((1, 2), dtype=torch.int32), *q)
     zj, zp = outs_j["m32"], outs_p["m32"]
     for k in ("mv", "skip", "eob_y", "eob_u", "eob_v", "lv_y", "lv_u",
               "lv_v", "dist_b", "rate_b"):

@@ -624,25 +624,37 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
     dict(enc_mode=8, tpu_realtime=0),
     dict(enc_mode=8, rate_control_mode=RateControlMode.CBR,
          target_bit_rate=200_000),
-    dict(enc_mode=8, source_height=112),
     dict(enc_mode=8, source_width=112),
     dict(enc_mode=8, tpu_mesh_shape=(1, 2)),
     dict(enc_mode=9, tpu_realtime=0),
     dict(enc_mode=9, rate_control_mode=RateControlMode.VBR,
          target_bit_rate=200_000),
-    dict(enc_mode=9, source_height=112),
     dict(enc_mode=9, source_width=112),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS),
     dict(speed_control=True),
     dict(tpu_mesh_shape=(1, 2)),
-], ids=["random_access", "m8", "m8_rt0", "m8_cbr", "m8_strip",
-        "m8_width_not_32", "m8_mesh", "m9", "m9_vbr", "m9_strip",
-        "m9_width_not_32", "m9_random_access", "speed_control", "mesh"])
+], ids=["random_access", "m8", "m8_rt0", "m8_cbr", "m8_width_not_32",
+        "m8_mesh", "m9", "m9_vbr", "m9_width_not_32", "m9_random_access",
+        "speed_control", "mesh"])
 def test_unported_routes_raise(kw):
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         enc.init()
+
+
+@pytest.mark.parametrize("enc_mode", [8, 9], ids=["m8_strip", "m9_strip"])
+def test_strip_routes_are_taken(enc_mode):
+    """A strip geometry (128x112: mi_rows 14, mi_rows % 4 == 2), refused
+    until the strip zone was ported, now takes the realtime session, with
+    the descent off at M8 as in the JAX package."""
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(_slice_cfg(enc_mode=enc_mode, source_height=112))
+    enc.init()
+    assert enc._rt is not None and enc._rt.g.strip
+    assert not enc._rt.split16
+    assert enc._rt.golden == (enc_mode == 8)
+    enc.close()
 
 
 @pytest.mark.parametrize("flags,why", [

@@ -299,14 +299,17 @@ def test_hier_search_fused_refuses_bad_inputs():
 
 
 @pytest.mark.parametrize("n,r", [(16, 18), (32, 4), (16, 8), (8, 3),
-                                 (32, 12)])
+                                 (32, 12), (16, 40)])
 def test_sse_level_shapes_fit_the_kernel(n, r):
     """The shapes the step gives ``sse_map_search`` fit the shared memory
-    its kernel asks for, and the wrapper's limit is that formula."""
+    its kernel asks for, and the wrapper's limit is that formula: an
+    H100's 227 KB a CTA may opt in to, less the kernel's static words (the
+    strip zone's +-40 level of 16x16 blocks, 95,684 bytes, is past the 48
+    KB a kernel has without asking)."""
     w, d = n + 2 * r, 2 * r + 1
     need = K.sse_level_smem(n, r)
     assert need == 4 * (n * n + w * (w + 1) + 16 + w * d + d * d)
-    assert need <= K.SSE_SMEM_BYTES < 48 * 1024
+    assert need <= K.SSE_SMEM_BYTES < 227 * 1024
     src = torch.zeros((1, n, n), dtype=torch.uint8)
     wins = torch.zeros((1, w + 8, w + 8), dtype=torch.uint8)
     dy, dx, rel = K.sse_map_search(src, wins, n, r)

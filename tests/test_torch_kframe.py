@@ -212,16 +212,21 @@ def test_kframe_wave_on_cpu_is_the_plain_version():
 
 
 def test_kframe_strip_geometry_is_refused():
+    """A strip geometry, refused until the keyframe's strip was ported, is
+    taken now: the step encodes its 32 zone and its strip ("m16"); the
+    kernel's wrapper takes the geometry and refuses CPU planes as ever.
+    Only a geometry ``make_geom`` refuses is refused."""
     g = P.make_geom(128, 112)  # mi_rows 14: the 16-pixel strip
     assert g.strip
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        P.make_kframe_step(g, "cpu")
+    step = P.make_kframe_step(g, "cpu")
     planes = [torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8),
               torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8),
               torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)]
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        P.kframe_step(*planes, g, 93, 112, 196, 10, 5, 20)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    outs, refs = step(*planes, 93, 112, 196, 10, 5, 20)
+    assert tuple(outs["m16"]["mode"].shape) == (g.cols16,)
+    assert tuple(outs["m16"]["lv_y"].shape) == (g.cols16, 16, 16)
+    assert tuple(outs["rec_y"].shape) == (g.pad_h, g.pad_w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         K.kframe_wave(*planes, g, 93, 112, 196)
     # 176x144 has a strip too, but its width is no multiple of 32: the
     # geometry itself is refused first, in both packages

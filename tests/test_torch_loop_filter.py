@@ -329,14 +329,16 @@ def test_the_step_calls_the_dispatch_once(monkeypatch):
         return real(y, u, v, geom, lvl, lim, mblim, split32=split32)
 
     monkeypatch.setattr(P, "loop_filter_device", record)
-    P.make_pframe_step(g, "cpu")(*src, *refs, prev, 40, 50, 39, 10, 5, 20)
+    prev16 = torch.zeros((1, 2), dtype=torch.int32)
+    P.make_pframe_step(g, "cpu")(*src, *refs, prev, prev16, 40, 50, 39, 10,
+                                 5, 20)
     assert len(calls) == 1 and calls[0][:3] == (10, 5, 20)
     assert calls[0][3] is None
     from tpu_vp9_torch.bitstream import tables as T
     rates = P.upload_rate_tabs(
         P.make_rate_tabs(T.default_frame_context(), 100), "cpu")
     P.make_pframe_step(g, "cpu", split16=True, golden=True)(
-        *src, *refs, *refs, prev, 40, 50, 39, 10, 5, 20, rates)
+        *src, *refs, *refs, prev, prev16, 40, 50, 39, 10, 5, 20, rates)
     assert len(calls) == 2
     assert tuple(calls[1][3].shape) == (g.rows32, g.cols32)
 

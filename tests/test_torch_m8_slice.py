@@ -211,7 +211,8 @@ def test_m8_step_matches_jax_step(w, h, seed):
     pstep = P.make_pframe_step(g, "cpu", split16=True, golden=True)
     pouts, prefs = pstep(
         *(torch.from_numpy(a) for a in src + last + gold),
-        torch.from_numpy(prev), *scalars, P.upload_rate_tabs(tabs, "cpu"))
+        torch.from_numpy(prev), torch.zeros((1, 2), dtype=torch.int32),
+        *scalars, P.upload_rate_tabs(tabs, "cpu"))
 
     def eq(got, want, msg):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want),

@@ -330,25 +330,28 @@ def test_step_argument_forms():
     refs = [P.extend_borders_device(p, g.width >> (k > 0),
                                     g.height >> (k > 0))
             for k, p in enumerate(src)]
-    prev = torch.zeros((g.n_blocks32, 2), dtype=torch.int32)
+    # the 32 grid's previous MVs, and the strip's (a placeholder without
+    # a strip)
+    prev = (torch.zeros((g.n_blocks32, 2), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int32))
     scalars = (40, 50, 39, 10, 5, 20)
     rates = P.upload_rate_tabs(
         P.make_rate_tabs(T.default_frame_context(), 100), "cpu")
     plain = P.make_pframe_step(g, "cpu")
-    outs, new_refs = plain(*src, *refs, prev, *scalars)
+    outs, new_refs = plain(*src, *refs, *prev, *scalars)
     assert set(outs) == {"m32", "rec_y", "rec_u", "rec_v"}
     assert tuple(new_refs[0].shape) == tuple(refs[0].shape)
-    with pytest.raises(TypeError, match="13 arguments"):
-        plain(*src, *refs, prev, *scalars, rates)
-    tabled = P.make_pframe_step(g, "cpu", with_rates=True)
-    outs_t, _ = tabled(*src, *refs, prev, *scalars, rates)
-    assert outs_t["m32"]["mv"].shape == outs["m32"]["mv"].shape
     with pytest.raises(TypeError, match="14 arguments"):
-        tabled(*src, *refs, prev, *scalars)
+        plain(*src, *refs, *prev, *scalars, rates)
+    tabled = P.make_pframe_step(g, "cpu", with_rates=True)
+    outs_t, _ = tabled(*src, *refs, *prev, *scalars, rates)
+    assert outs_t["m32"]["mv"].shape == outs["m32"]["mv"].shape
+    with pytest.raises(TypeError, match="15 arguments"):
+        tabled(*src, *refs, *prev, *scalars)
     golden = P.make_pframe_step(g, "cpu", split16=True, golden=True)
-    with pytest.raises(TypeError, match="17 arguments"):
-        golden(*src, *refs, prev, *scalars, rates)
-    outs_g, _ = golden(*src, *refs, *refs, prev, *scalars, rates)
+    with pytest.raises(TypeError, match="18 arguments"):
+        golden(*src, *refs, *prev, *scalars, rates)
+    outs_g, _ = golden(*src, *refs, *refs, *prev, *scalars, rates)
     assert {"m16f", "split32"} <= set(outs_g)
     assert tuple(outs_g["split32"].shape) == (g.rows32, g.cols32)
     assert len(outs_g["m16f"]["sel_idx"]) == g.n_blocks32 // P.DESCEND_FRAC

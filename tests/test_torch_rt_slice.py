@@ -243,7 +243,9 @@ def test_port_session_refuses_unported_configurations():
                dict(rc=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortSession(128, 96, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="strip"):
-        PortSession(128, 112, device="cpu")
+    # a strip geometry is taken (the descent off, as in the JAX session)
+    strip = PortSession(128, 112, device="cpu", split16=True, golden=True)
+    assert strip.g.strip and not strip.split16
+    strip.close()
     with pytest.raises(ValueError):
         PortSession(100, 64, device="cpu")

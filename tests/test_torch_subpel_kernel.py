@@ -193,7 +193,24 @@ def test_standin_ragged_batch_writes_only_its_blocks(standin, b):
         assert bool((g[b:] == -12345).all())
 
 
-@pytest.mark.parametrize("n,r", SHAPES[:2], ids=SHAPE_IDS[:2])
+@pytest.mark.parametrize("kind", ["smooth", "corners"])
+def test_standin_strip_row_is_every_block_once(standin, kind):
+    """The strip zone's shape, n = 16 r = 40, over a ragged row of 10
+    blocks (three CTAs, the last with two idle warps) whose winners reach
+    all of +-40: each block's window is read at its own winner, and the
+    outputs past the batch keep their junk."""
+    n, r, b = 16, 40, 10
+    wins, src, dy, dx = _inputs(kind, n, r, b, seed=90 + len(kind))
+    got = _run(standin, wins, src, dy, dx, n, r, extra=2)
+    want = P.subpel_search_ref(wins, src, dy, dx, n, r)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:b], w)
+        assert bool((g[b:] == -12345).all())
+    if kind == "corners":
+        assert set(dy.tolist()) == set(dx.tolist()) == {-r, r}
+
+
+@pytest.mark.parametrize("n,r", SHAPES, ids=SHAPE_IDS)
 def test_standin_reads_unaligned_views(standin, n, r):
     """wins and src views that start 1 and 3 bytes into their storage: the
     kernel reads them a byte at a time."""

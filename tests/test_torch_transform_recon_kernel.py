@@ -3,7 +3,9 @@ CPU: g++ builds the kernel behind the stand-ins of
 ``tests/cuda_standin/cuda_runtime.h`` (a host thread per CUDA thread, the
 float64 mma in its PTX fragment layout), and each launch is held against
 the plain version ``pipeline/tpu_encdec.py:transform_recon_ref``, bit for
-bit. The stand-in mma sums its four products in order, so the second
+bit: every DCT_DCT instance, and the ADST_DCT one at n = 16 (the keyframe
+strip's V and D63 luma: both matrices staged, the ADST column pass, its own
+scan). The stand-in mma sums its four products in order, so the second
 forward product sums in another order than torch's matmul, as on the
 card; a level could then differ only within about 1e-12 of a rounding
 boundary, which these seeded inputs do not reach.
@@ -32,16 +34,17 @@ CSRC = os.path.join(REPO, "tpu_vp9_torch", "csrc")
 STANDIN = os.path.join(REPO, "tests", "cuda_standin")
 THREADS = 128  # the kernel's CTA
 
-# the launcher of the stand-in build: every instance of the kernel over a
-# given grid of CTAs
+ADST_DCT = int(T.TxType.ADST_DCT)
+# the launcher of the stand-in build: every instance of the kernel (block
+# size n, transform type tt) over a given grid of CTAs
 _DRIVER = """
 }  // namespace
 extern "C" int standin_run(const uint8_t* src, const uint8_t* pred,
-                           const double* f_col, const int* iscan,
-                           int16_t* levels, int* eob,
-                           uint8_t* recon, int nblk, int n, int dc_q,
-                           int ac_q, int vec, int grid) {
-  switch (n) {
+                           const double* f_col, const double* f_dct,
+                           const int* iscan, int16_t* levels, int* eob,
+                           uint8_t* recon, int nblk, int n, int tt,
+                           int dc_q, int ac_q, int vec, int grid) {
+  switch (n + 64 * tt) {
 %s
     default:
       return 1;
@@ -49,10 +52,11 @@ extern "C" int standin_run(const uint8_t* src, const uint8_t* pred,
   return 0;
 }
 """
-_CASE = """    case %(n)d:
+_CASE = """    case %(n)d + 64 * %(tt)d:
       standin_launch(grid, %(threads)d, [&] {
-        transform_recon_kernel<%(n)d>(src, pred, f_col, iscan, levels, eob,
-                                      recon, nblk, dc_q, ac_q, vec);
+        transform_recon_kernel<%(n)d, %(tt)d>(src, pred, f_col, f_dct, iscan,
+                                            levels, eob, recon, nblk, dc_q,
+                                            ac_q, vec);
       });
       break;"""
 
@@ -66,13 +70,13 @@ def standin(tmp_path_factory):
     assert gxx, "g++ builds the stand-in of the CUDA source"
     with open(os.path.join(CSRC, "transform_recon.cu")) as fh:
         src = fh.read()
-    cut = src.index("template <int N>\ncudaError_t prepare(")
+    cut = src.index("template <int N, int TT>\ncudaError_t prepare(")
     shared = "extern __shared__ __align__(16) unsigned char smem[];"
     assert src.count(shared) == 1
     body = src[:cut].replace(shared, "unsigned char* smem = standin_smem;")
     assert "namespace {" in body
-    cases = "\n".join(_CASE % {"n": n, "threads": THREADS}
-                      for n in K.TXFM_BLOCK_SIZES)
+    cases = "\n".join(_CASE % {"n": n, "tt": tt, "threads": THREADS}
+                      for n in K.TXFM_BLOCK_SIZES for tt in K.TXFM_TYPES[n])
     out = tmp_path_factory.mktemp("standin")
     cpp, lib = out / "transform_recon_standin.cpp", out / "libtr.so"
     cpp.write_text(body + _DRIVER % cases)
@@ -81,22 +85,23 @@ def standin(tmp_path_factory):
          "-fPIC", "-I", STANDIN, "-I", CSRC, "-o", str(lib), str(cpp),
          "-lpthread"], check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(lib)).standin_run
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     fn.restype = ctypes.c_int
     return fn
 
 
-def _run(fn, src, pred, dc_q, ac_q, n, grid, vec=True):
+def _run(fn, src, pred, dc_q, ac_q, n, grid, vec=True, tt=0):
     """One launch of the stand-in on CPU tensors; outputs start as junk so
     that a place the kernel does not write shows."""
     b = src.shape[0]
-    f_col, iscan = K._txfm_tables_on(n, torch.device("cpu"))
+    f_col, f_dct, iscan = K._txfm_tables_on(n, torch.device("cpu"), tt)
     levels = torch.full((b, n, n), 12345, dtype=torch.int16)
     eob = torch.full((b,), -7, dtype=torch.int32)
     recon = torch.full((b, n, n), 77, dtype=torch.uint8)
     assert fn(src.data_ptr(), pred.data_ptr(), f_col.data_ptr(),
-              iscan.data_ptr(), levels.data_ptr(), eob.data_ptr(),
-              recon.data_ptr(), b, n, dc_q, ac_q, int(vec), grid) == 0
+              f_dct.data_ptr(), iscan.data_ptr(), levels.data_ptr(),
+              eob.data_ptr(), recon.data_ptr(), b, n, tt, dc_q, ac_q,
+              int(vec), grid) == 0
     return levels, eob, recon
 
 
@@ -173,3 +178,37 @@ def test_standin_eob_at_every_scan_place(standin, n):
     got = _run(standin, src, pred, dc_q, ac_q, n, grid=3)
     _assert_same(got, P.transform_recon_ref(src, pred, dc_q, ac_q, n))
     assert len(set(got[1].tolist())) > len(places) // 2
+
+
+@pytest.mark.parametrize("qindex", [0, 100, 255])
+def test_standin_adst_dct_matches_plain_version(standin, qindex):
+    """The ADST_DCT instance at n = 16 on two CTAs, as the DCT cases run:
+    levels, eob in the type's scan and recon of the plain version."""
+    n = 16
+    src, pred = _blocks(n, 2 * (THREADS // n) + 3, seed=70 + qindex)
+    dc_q, ac_q = T.dc_quant(qindex), T.ac_quant(qindex)
+    got = _run(standin, src, pred, dc_q, ac_q, n, grid=2, tt=ADST_DCT)
+    _assert_same(got, P.transform_recon_ref(src, pred, dc_q, ac_q, n,
+                                            ADST_DCT))
+    # not the DCT_DCT instance's outputs: the type reaches the kernel
+    dct = P.transform_recon_ref(src, pred, dc_q, ac_q, n)
+    assert not torch.equal(got[0], dct[0])
+
+
+def test_standin_adst_dct_eob_at_every_scan_place(standin):
+    """One nonzero level at each place of the ADST_DCT scan (which is not
+    the DCT's): the levels, every eob value and the recon come back."""
+    n, nn = 16, 256
+    dc_q, ac_q = T.dc_quant(60), T.ac_quant(60)
+    scan = torch.as_tensor(np.asarray(T.scan_order(
+        P.txfm.TX_SIZE[n], T.TxType.ADST_DCT)[0]))
+    levels = torch.zeros((nn, nn), dtype=torch.int32)
+    levels[torch.arange(nn), scan] = 20
+    levels[0, scan[0]] = 4
+    pred = torch.full((nn, n, n), 128, dtype=torch.uint8)
+    src = P.recon_from_levels(levels.reshape(-1, n, n), pred, dc_q, ac_q, n,
+                              ADST_DCT)[1]
+    got = _run(standin, src, pred, dc_q, ac_q, n, grid=3, tt=ADST_DCT)
+    _assert_same(got, P.transform_recon_ref(src, pred, dc_q, ac_q, n,
+                                            ADST_DCT))
+    assert len(set(got[1].tolist())) > nn // 2

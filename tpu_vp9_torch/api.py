@@ -7,7 +7,9 @@ send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
     ``pipeline/realtime.py``, whose P-frame step runs on that device:
     enc_mode 9 on the uniform 32 grid with LAST only, enc_mode 8 with
     rate tables, the GOLDEN anchor and the 32-against-16 descent
-    (``RtSession(split16=True, golden=True)``);
+    (``RtSession(split16=True, golden=True)``); at a strip geometry
+    (mi_rows % 4 == 2: 720p, 4K) the steps add the bottom 16-pixel strip's
+    16x16 blocks and the descent is off, as in the JAX package;
   - enc_mode <= 7 runs the low-delay host encode with its full-pel
     motion search on that device.
 
@@ -15,8 +17,9 @@ Routes not ported yet raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: random access with hierarchical levels (the host and
 the device RA engines), enc_mode 8 at tune SQ (the adaptive lambda),
 enc_mode 8/9 with ``-rt 0`` (the keyframe mode hints), with rate control,
-or at a geometry the realtime step does not take, speed control and
-multi-device meshes. No route falls back to another.
+or at a geometry the realtime step does not take (width % 32 != 0,
+mi_rows % 4 == 1), speed control and multi-device meshes. No route falls
+back to another.
 """
 
 from __future__ import annotations
@@ -161,18 +164,13 @@ class Vp9Encoder:
                 "the adaptive lambda (aq), not ported yet (ROADMAP.md "
                 "Queue A item 6); use tune OQ")
         try:
-            geom = make_geom(cfg.source_width, cfg.source_height)
+            make_geom(cfg.source_width, cfg.source_height)
         except ValueError as exc:
             raise NotImplementedError(
                 f"tpu_vp9_torch: the realtime step rejects "
                 f"{cfg.source_width}x{cfg.source_height} ({exc}); the host "
                 "route for it is not ported (ROADMAP.md Queue A item 10)"
             ) from exc
-        if geom.strip:
-            raise NotImplementedError(
-                f"tpu_vp9_torch: {cfg.source_width}x{cfg.source_height} "
-                "needs the 16-pixel strip zone (mi_rows % 4 == 2), not "
-                "ported yet (ROADMAP.md Queue A item 5)")
 
     def close(self) -> None:
         if self._rt is not None:

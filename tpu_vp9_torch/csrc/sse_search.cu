@@ -19,6 +19,13 @@
 // motion compensation reads them), their rows are 8-byte aligned and one
 // block's window is one contiguous 14.4 KB read.
 //
+// The one-level entry also serves the strip zone of a strip geometry
+// (720p, 4K): its flat +-40 search of 16x16 blocks, whose level takes
+// 95,684 bytes of shared memory. A level past the 48 KB a kernel has
+// without asking opts its instance in to more (cudaFuncSetAttribute), up
+// to the device's sharedMemPerBlockOptin (227 KB on an H100), once per
+// device; smaller levels launch as they did.
+//
 // A window is (n+2r+8)^2 and its search area starts at offset (4, 4), so
 // displacement (0, 0) sits at (r+4, r+4). A level returns the first
 // minimum in dy-major order and the (D, D) int32 relative-SSE map
@@ -89,9 +96,13 @@ constexpr int kChunk = 8;      // columns between two looks at the sums
 constexpr int kPad = 16;       // readable floats after an area's last row
 constexpr float kMagic = 8388608.0f;       // 2^23
 constexpr uint32_t kMagicBits = 0x4B000000u;  // its bits
-// dynamic shared memory one level may ask for: the 48 KB a kernel has
-// without asking, less the kernel's static words
-constexpr size_t kLevelSmemMax = 48 * 1024 - 512;
+// the one-level kernel's static shared memory, rounded up: what the
+// device's limits leave for its dynamic shared memory is theirs less this
+constexpr size_t kStaticSmem = 512;
+// dynamic shared memory a level may ask for without opting in: the 48 KB
+// a kernel has without asking, less the static words
+constexpr size_t kLevelSmemDefault = 48 * 1024 - kStaticSmem;
+constexpr int kMaxDevices = 64;
 
 // Minimum of `key` over the CTA, returned to every thread. s_warp: 32
 // words of shared memory, free again on return.
@@ -360,44 +371,116 @@ size_t level_smem(int n, int r) {
                           + w * d + d * d);
 }
 
+// The dynamic shared memory a level may have on the current device: its
+// sharedMemPerBlockOptin less the static words, asked once per device.
+cudaError_t level_smem_limit(size_t* limit) {
+  static size_t limits[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (limits[dev] == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (static_cast<size_t>(optin) <= kStaticSmem)
+      return cudaErrorInvalidConfiguration;
+    limits[dev] = static_cast<size_t>(optin) - kStaticSmem;
+  }
+  *limit = limits[dev];
+  return cudaSuccess;
+}
+
+// Lets the instance launch with `bytes` of dynamic shared memory on the
+// current device: past the default, the attribute that allows it is set,
+// once per device and size (to the largest size asked so far).
 template <typename T, int N, int TX>
-void launch(const void* src, const void* wins, int32_t* dy, int32_t* dx,
-            int32_t* map, int b, int r, int sw, cudaStream_t stream) {
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed[kMaxDevices];
+  if (bytes <= kLevelSmemDefault) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev] < bytes) {
+    err = cudaFuncSetAttribute(sse_search_kernel<T, N, TX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    allowed[dev] = bytes;
+  }
+  return cudaSuccess;
+}
+
+// The CTA of a level: enough threads for one round of its tiles, at
+// least 128 and at most kThreads
+int level_threads(int d, int tx, int rg) {
+  int threads = (d * ((d + tx - 1) / tx) * rg + 31) / 32 * 32;
+  threads = threads < 128 ? 128 : threads;
+  return threads < kThreads ? threads : kThreads;
+}
+
+template <typename T, int N, int TX>
+cudaError_t launch(const void* src, const void* wins, int32_t* dy,
+                   int32_t* dx, int32_t* map, int b, int r, int sw,
+                   cudaStream_t stream) {
   const int d = 2 * r + 1;
   const int rg = pick_rg(N, d, TX);
-  int threads = (d * ((d + TX - 1) / TX) * rg + 31) / 32 * 32;
-  threads = threads < 128 ? 128 : threads;
-  threads = threads < kThreads ? threads : kThreads;
-  sse_search_kernel<T, N, TX><<<b, threads, level_smem(N, r), stream>>>(
+  const int threads = level_threads(d, TX, rg);
+  const size_t smem = level_smem(N, r);
+  const cudaError_t err = allow_smem<T, N, TX>(smem);
+  if (err != cudaSuccess) return err;
+  sse_search_kernel<T, N, TX><<<b, threads, smem, stream>>>(
       static_cast<const T*>(src), static_cast<const T*>(wins), r, sw, rg, dy,
       dx, map);
+  return cudaGetLastError();
+}
+
+// The resident CTAs per SM of the level (n, r) on the current device,
+// with its dynamic shared memory opted in as a launch would
+template <typename T, int N, int TX>
+cudaError_t level_occupancy(int r, int* ctas, int* smem, int* threads) {
+  const int d = 2 * r + 1;
+  *threads = level_threads(d, TX, pick_rg(N, d, TX));
+  *smem = static_cast<int>(level_smem(N, r));
+  const cudaError_t err = allow_smem<T, N, TX>(level_smem(N, r));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, sse_search_kernel<T, N, TX>, *threads, level_smem(N, r));
 }
 
 template <typename T, int N>
-void launch_tx(const void* src, const void* wins, int32_t* dy, int32_t* dx,
-               int32_t* map, int b, int r, int sw, cudaStream_t st) {
+cudaError_t launch_tx(const void* src, const void* wins, int32_t* dy,
+                      int32_t* dx, int32_t* map, int b, int r, int sw,
+                      cudaStream_t st) {
   // the strip width that overhangs the map's D columns the least
   const int d = 2 * r + 1;
   const int waste8 = (d + 7) / 8 * 8 - d;
   const int waste9 = (d + 8) / 9 * 9 - d;
   if (waste9 <= waste8)
-    launch<T, N, 9>(src, wins, dy, dx, map, b, r, sw, st);
-  else
-    launch<T, N, 8>(src, wins, dy, dx, map, b, r, sw, st);
+    return launch<T, N, 9>(src, wins, dy, dx, map, b, r, sw, st);
+  return launch<T, N, 8>(src, wins, dy, dx, map, b, r, sw, st);
 }
 
 template <typename T>
 int dispatch(const void* src, const void* wins, int32_t* dy, int32_t* dx,
              int32_t* map, int b, int n, int r, int sw, cudaStream_t st) {
-  if (r < 1 || level_smem(n, r) > kLevelSmemMax)
+  if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+  size_t limit = 0;
+  const cudaError_t err = level_smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (level_smem(n, r) > limit)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (n) {
-    case 8: launch_tx<T, 8>(src, wins, dy, dx, map, b, r, sw, st); break;
-    case 16: launch_tx<T, 16>(src, wins, dy, dx, map, b, r, sw, st); break;
-    case 32: launch_tx<T, 32>(src, wins, dy, dx, map, b, r, sw, st); break;
+    case 8: return static_cast<int>(
+        launch_tx<T, 8>(src, wins, dy, dx, map, b, r, sw, st));
+    case 16: return static_cast<int>(
+        launch_tx<T, 16>(src, wins, dy, dx, map, b, r, sw, st));
+    case 32: return static_cast<int>(
+        launch_tx<T, 32>(src, wins, dy, dx, map, b, r, sw, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -555,9 +638,11 @@ hier_search_kernel(const uint8_t* __restrict__ src,
 // on the device and of one element type: uint8 (elem_bytes 1) or int16
 // holding values in [0, 1020] (elem_bytes 2). out_dy, out_dx: (b,) int32;
 // out_map: (b, 2r+1, 2r+1) int32, or null to skip the map. n in
-// {8, 16, 32}, r >= 1 with 4 * (n^2 + w(w+1) + 16 + w d + d^2) <= 48 KB less
-// 512 bytes of shared memory (w = n + 2r, d = 2r + 1), b >= 1. Returns
-// cudaGetLastError() after the launch (0 on success).
+// {8, 16, 32}, r >= 1 with 4 * (n^2 + w(w+1) + 16 + w d + d^2) bytes of
+// shared memory (w = n + 2r, d = 2r + 1) at most the device's
+// sharedMemPerBlockOptin less 512, b >= 1. Returns the error of the
+// opt-in, if any, else cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int sse_map_search_launch(const void* src, const void* wins,
                                      void* out_dy, void* out_dx,
                                      void* out_map, int b, int n, int r,
@@ -588,4 +673,25 @@ extern "C" int hier_search_launch(const void* src, const void* wins,
       static_cast<int32_t*>(out5), static_cast<uint8_t*>(out_loc),
       static_cast<int32_t*>(out_map));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The one-level kernel of uint8 operands at block size n and reach r on
+// the current device: *ctas_per_sm the CTAs an SM holds at once,
+// *smem_bytes the dynamic shared memory each asks for, *threads its CTA's
+// threads (the instance and the opt-in as sse_map_search_launch picks
+// them). Returns the CUDA error of the query (0 if none).
+extern "C" int sse_search_occupancy(int n, int r, int* ctas_per_sm,
+                                    int* smem_bytes, int* threads) {
+  size_t limit = 0;
+  cudaError_t err = level_smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (r < 1 || n != 16 || level_smem(n, r) > limit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int d = 2 * r + 1;
+  const bool nine = (d + 8) / 9 * 9 - d <= (d + 7) / 8 * 8 - d;
+  err = nine ? level_occupancy<uint8_t, 16, 9>(r, ctas_per_sm, smem_bytes,
+                                               threads)
+             : level_occupancy<uint8_t, 16, 8>(r, ctas_per_sm, smem_bytes,
+                                               threads);
+  return static_cast<int>(err);
 }

@@ -4,7 +4,9 @@
 // recon and the eob.
 //
 // Replaces the XLA stage tpu_vp9/pipeline/tpu_encdec.py:transform_recon
-// (with _quantize:796 and _dequantize:807) for DCT_DCT blocks; its
+// (with _quantize:796 and _dequantize:807) for DCT_DCT blocks, and at n =
+// 16 for the ADST_DCT blocks of the keyframe's strip (its V and D63 luma
+// candidates: the ADST down the columns, the DCT along the rows); its
 // contract is the plain version beside the step,
 // tpu_vp9_torch/pipeline/tpu_encdec.py:transform_recon_ref, whose forward
 // half is float64 (txfm.fwd_txfm2d_f64, txfm.quantize_f64) and whose
@@ -46,6 +48,13 @@
 //      prediction's bytes;
 //   4. levels and recon out in 16-byte stores.
 // The kernel is launched with 128 threads and no other count.
+//
+// The ADST_DCT instance (TT = 1, n = 16) differs in three places: it
+// stages the DCT's F_col beside its own (the second product reads F_row^T
+// as the DCT's F_col^T / 2^6, which F_col^T of the ADST is not), its
+// column pass is the ADST (txfm::iadst16), and the wrapper uploads the
+// type's own inverse scan. The DCT_DCT instances read the one F_col
+// twice and keep their code.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -115,27 +124,40 @@ __device__ __forceinline__ uint4 load16(const uint8_t* src, bool vec) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// F_col into shared memory (txfm::fwd_mat_at), by the whole CTA, and a
-// barrier
-template <int N>
-__device__ __forceinline__ void stage_fcol(double* s_fc,
+// F_col into shared memory (txfm::fwd_mat_at), and with TT = 1 the DCT's
+// F_col beside it, by the whole CTA, and a barrier
+template <int N, int TT>
+__device__ __forceinline__ void stage_fcol(double* s_fc, double* s_fd,
                                            const double* __restrict__ f_col,
+                                           const double* __restrict__ f_dct,
                                            int tid) {
   for (int i = tid; i < N * N; i += kThreads) {
     s_fc[txfm::fwd_mat_at<N>(i / N, i % N)] = f_col[i];
+    if (TT == 1) s_fd[txfm::fwd_mat_at<N>(i / N, i % N)] = f_dct[i];
   }
   __syncthreads();
 }
 
-template <int N>
+// The dynamic shared memory of an instance: Shape's, and with TT = 1 the
+// DCT's F_col after it
+template <int N, int TT>
+constexpr int smem_bytes() {
+  return Shape<N>::kSmem + (TT == 1 ? Shape<N>::kFcol : 0);
+}
+
+// TT: the transform type, 0 DCT_DCT or (at n = 16 only) 1 ADST_DCT
+template <int N, int TT>
 __global__ void __launch_bounds__(kThreads, Shape<N>::kMinCtas)
 transform_recon_kernel(const uint8_t* __restrict__ src,
                        const uint8_t* __restrict__ pred,
                        const double* __restrict__ f_col,
+                       const double* __restrict__ f_dct,
                        const int* __restrict__ iscan,
                        int16_t* __restrict__ levels, int* __restrict__ eob,
                        uint8_t* __restrict__ recon, int nblk, int dc_q,
                        int ac_q, int vec) {
+  static_assert(TT == 0 || (TT == 1 && N == 16),
+                "transform_recon: ADST_DCT is built at n = 16 only");
   using S = Shape<N>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -149,6 +171,8 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
   // s_r + b kNN (its int32 plane at s_int(b)), its bytes at s_src + b
   // kBytes (the levels at s_lv + b kNN), its pred bytes at s_pred + b kNN
   double* s_fc = reinterpret_cast<double*>(smem);
+  // the matrix the second product reads transposed: the DCT's F_col
+  double* s_fd = TT == 1 ? reinterpret_cast<double*>(smem + S::kSmem) : s_fc;
   double* s_r = reinterpret_cast<double*>(smem + S::kFcol) +
                 warp * S::kBlocks * S::kNN;
   uint8_t* s_src = smem + S::kFcol + S::kPer * S::kRes +
@@ -168,7 +192,7 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
   // across the staging takes registers past the 128 that four CTAs an SM
   // leave, and ptxas spills).
   constexpr bool kStageFirst = N == 32;
-  if (kStageFirst) stage_fcol<N>(s_fc, f_col, tid);
+  if (kStageFirst) stage_fcol<N, TT>(s_fc, s_fd, f_col, f_dct, tid);
   const int ngroups = (nblk + S::kBlocks - 1) / S::kBlocks;
   const int stride = gridDim.x * kWarps;
   const int64_t total = static_cast<int64_t>(nblk) * S::kNN;
@@ -191,7 +215,9 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
         pv[v] = load16(pred + pix0 + i, vec);
       }
     }
-    if (!kStageFirst && pass == 0) stage_fcol<N>(s_fc, f_col, tid);
+    if (!kStageFirst && pass == 0) {
+      stage_fcol<N, TT>(s_fc, s_fd, f_col, f_dct, tid);
+    }
     if (grp >= ngroups) break;
 #pragma unroll
     for (int v = 0; v < S::kVecs; ++v) {
@@ -225,7 +251,7 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
 #pragma unroll
       for (int s = 0; s < S::kTiles; ++s) {
         double x[S::kTiles][2];
-        txfm::fwd_strip_mma<N>(s_fc, s_r + b * S::kNN, s, lane, x);
+        txfm::fwd_strip_mma<N>(s_fc, s_fd, s_r + b * S::kNN, s, lane, x);
         const int y = 8 * s + g;
 #pragma unroll
         for (int j = 0; j < S::kTiles; ++j) {
@@ -275,8 +301,8 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
     __syncwarp();
     {
       const int b = lane / N, x = lane % N;
-      txfm::idct_col_recon<N>(s_int(b) + x, N + 1, s_pred + b * S::kNN + x,
-                              N);
+      txfm::inv_col_recon<N, TT == 1>(s_int(b) + x, N + 1,
+                                      s_pred + b * S::kNN + x, N);
     }
     __syncwarp();
 
@@ -302,7 +328,7 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
 // The resident CTAs per SM at the kernel's dynamic shared memory, and
 // the largest grid worth launching, once per instance and device (the
 // attribute that lets a CTA have more than 48 KB is set there too)
-template <int N>
+template <int N, int TT>
 cudaError_t prepare(int* ctas_per_sm, int* max_grid) {
   constexpr int kMaxDevices = 64;
   static int ctas[kMaxDevices], grid[kMaxDevices];
@@ -311,13 +337,14 @@ cudaError_t prepare(int* ctas_per_sm, int* max_grid) {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (grid[dev] == 0) {
-    err = cudaFuncSetAttribute(transform_recon_kernel<N>,
+    err = cudaFuncSetAttribute(transform_recon_kernel<N, TT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Shape<N>::kSmem);
+                               smem_bytes<N, TT>());
     if (err != cudaSuccess) return err;
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, transform_recon_kernel<N>, kThreads, Shape<N>::kSmem);
+        &per_sm, transform_recon_kernel<N, TT>, kThreads,
+        smem_bytes<N, TT>());
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -330,73 +357,90 @@ cudaError_t prepare(int* ctas_per_sm, int* max_grid) {
   return cudaSuccess;
 }
 
-template <int N>
+template <int N, int TT>
 cudaError_t launch(const void* src, const void* pred, const void* f_col,
-                   const void* iscan, void* levels, void* eob, void* recon,
-                   int nblk, int dc_q, int ac_q, cudaStream_t stream) {
+                   const void* f_dct, const void* iscan, void* levels,
+                   void* eob, void* recon, int nblk, int dc_q, int ac_q,
+                   cudaStream_t stream) {
   int per_sm = 0, max_grid = 0;
-  const cudaError_t err = prepare<N>(&per_sm, &max_grid);
+  const cudaError_t err = prepare<N, TT>(&per_sm, &max_grid);
   if (err != cudaSuccess) return err;
   const int ctas = (nblk + Shape<N>::kPer - 1) / Shape<N>::kPer;
   const int grid = ctas < max_grid ? ctas : max_grid;
   const int vec = ((reinterpret_cast<uintptr_t>(src) |
                     reinterpret_cast<uintptr_t>(pred)) & 15) == 0;
-  transform_recon_kernel<N><<<grid, kThreads, Shape<N>::kSmem, stream>>>(
+  transform_recon_kernel<N, TT>
+      <<<grid, kThreads, smem_bytes<N, TT>(), stream>>>(
       static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(pred),
-      static_cast<const double*>(f_col), static_cast<const int*>(iscan),
+      static_cast<const double*>(f_col), static_cast<const double*>(f_dct),
+      static_cast<const int*>(iscan),
       static_cast<int16_t*>(levels), static_cast<int*>(eob),
       static_cast<uint8_t*>(recon), nblk, dc_q, ac_q, vec);
   return cudaGetLastError();
 }
 
-template <int N>
-int occupancy(int* ctas_per_sm, int* smem_bytes) {
+template <int N, int TT>
+int occupancy(int* ctas_per_sm, int* smem) {
   int max_grid = 0;
-  *smem_bytes = Shape<N>::kSmem;
-  return static_cast<int>(prepare<N>(ctas_per_sm, &max_grid));
+  *smem = smem_bytes<N, TT>();
+  return static_cast<int>(prepare<N, TT>(ctas_per_sm, &max_grid));
 }
 
 }  // namespace
 
-// nblk blocks of n x n (n = 8, 16 or 32): src, pred, levels (int16) and
-// recon are (nblk, n, n) contiguous (levels and recon 16-byte aligned),
-// eob (nblk,) int32; f_col the float64 forward column matrix of n, n x n
-// row-major (the row matrix is its transpose over 2^5 at n = 8, 2^6
-// above); iscan (n * n,) int32 each raster place's place in the DCT_DCT
-// scan. Returns cudaGetLastError() after the launch.
+// nblk blocks of n x n (n = 8, 16 or 32) of transform type tx_type (0
+// DCT_DCT, or at n = 16 1 ADST_DCT): src, pred, levels (int16) and recon
+// are (nblk, n, n) contiguous (levels and recon 16-byte aligned), eob
+// (nblk,) int32; f_col the float64 forward column matrix of the type and
+// f_dct the DCT's (the row matrix is its transpose over 2^5 at n = 8, 2^6
+// above), each n x n row-major; iscan (n * n,) int32 each raster place's
+// place in the type's scan. Returns the error of the launch's set-up, if
+// any, else cudaGetLastError() after the launch.
 extern "C" int transform_recon_launch(const void* src, const void* pred,
-                                      const void* f_col, const void* iscan,
-                                      void* levels, void* eob, void* recon,
+                                      const void* f_col, const void* f_dct,
+                                      const void* iscan, void* levels,
+                                      void* eob, void* recon, int tx_type,
                                       int nblk, int n, int dc_q, int ac_q,
                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n) {
+  const int key = n + 64 * tx_type;
+  switch (key) {
     case 32:
-      return static_cast<int>(launch<32>(src, pred, f_col, iscan, levels,
-                                         eob, recon, nblk, dc_q, ac_q, s));
+      return static_cast<int>(launch<32, 0>(src, pred, f_col, f_dct, iscan,
+                                            levels, eob, recon, nblk, dc_q,
+                                            ac_q, s));
     case 16:
-      return static_cast<int>(launch<16>(src, pred, f_col, iscan, levels,
-                                         eob, recon, nblk, dc_q, ac_q, s));
+      return static_cast<int>(launch<16, 0>(src, pred, f_col, f_dct, iscan,
+                                            levels, eob, recon, nblk, dc_q,
+                                            ac_q, s));
+    case 16 + 64:
+      return static_cast<int>(launch<16, 1>(src, pred, f_col, f_dct, iscan,
+                                            levels, eob, recon, nblk, dc_q,
+                                            ac_q, s));
     case 8:
-      return static_cast<int>(launch<8>(src, pred, f_col, iscan, levels,
-                                        eob, recon, nblk, dc_q, ac_q, s));
+      return static_cast<int>(launch<8, 0>(src, pred, f_col, f_dct, iscan,
+                                           levels, eob, recon, nblk, dc_q,
+                                           ac_q, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The kernel of block size n on the current device: *ctas_per_sm the CTAs
-// of 128 threads an SM holds at once, *smem_bytes the dynamic shared
-// memory each asks for. Returns the CUDA error of the query (0 if none).
-extern "C" int transform_recon_occupancy(int n, int* ctas_per_sm,
-                                         int* smem_bytes) {
-  switch (n) {
+// The kernel of block size n and transform type tx_type on the current
+// device: *ctas_per_sm the CTAs of 128 threads an SM holds at once,
+// *smem_bytes the dynamic shared memory each asks for. Returns the CUDA
+// error of the query (0 if none).
+extern "C" int transform_recon_occupancy(int n, int tx_type,
+                                         int* ctas_per_sm, int* smem_bytes) {
+  switch (n + 64 * tx_type) {
     case 32:
-      return occupancy<32>(ctas_per_sm, smem_bytes);
+      return occupancy<32, 0>(ctas_per_sm, smem_bytes);
     case 16:
-      return occupancy<16>(ctas_per_sm, smem_bytes);
+      return occupancy<16, 0>(ctas_per_sm, smem_bytes);
+    case 16 + 64:
+      return occupancy<16, 1>(ctas_per_sm, smem_bytes);
     case 8:
-      return occupancy<8>(ctas_per_sm, smem_bytes);
+      return occupancy<8, 0>(ctas_per_sm, smem_bytes);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

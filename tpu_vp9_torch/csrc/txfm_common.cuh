@@ -2,7 +2,8 @@
 // kernels that encode blocks (csrc/kframe_wave.cu, the keyframe's, and
 // csrc/transform_recon.cu, the P-frame step's). Each is what
 // tpu_vp9_torch/ops/txfm.py and pipeline/tpu_encdec.py:transform_recon_ref
-// compute, for the DCT_DCT blocks of the device steps:
+// compute, for the DCT_DCT blocks of the device steps and the ADST_DCT
+// blocks of the keyframe's strip:
 //   - the forward transform in float64, X = F_col @ R @ F_row^T, on the
 //     port's float32 matrices widened (txfm.fwd_matrices): a coefficient
 //     differs from the plain version's (torch's float64 matmul) only in the
@@ -17,9 +18,10 @@
 //     levels); so a level differs from the plain version's only where
 //     |c| / q + 0.38 lies within about 1e-12 of an integer;
 //   - the dequantizer of txfm.dequant_block and the exact integer inverse of
-//     txfm.inv_txfm2d (the idct8/idct16/idct32 butterflies of libvpx, rows
-//     then columns, no rounding between the passes, then (x + 16) >> 5 at
-//     n = 8 and (x + 32) >> 6 above), in int32 arithmetic that wraps as
+//     txfm.inv_txfm2d (the idct8/idct16/idct32 butterflies of libvpx, and
+//     its iadst16 for the columns of an ADST_DCT block, rows then columns,
+//     no rounding between the passes, then (x + 16) >> 5 at n = 8 and
+//     (x + 32) >> 6 above), in int32 arithmetic that wraps as
 //     torch's int32 tensors do: products and sums of int wrap on the card
 //     (mul.lo and add of 32 bits), and >> of a negative int is arithmetic.
 // Each function works on one row, column or coefficient, or (fwd_strip_mma)
@@ -133,6 +135,87 @@ __device__ __forceinline__ void idct16(const int* x, int* o) {
     o[k] = e[k] + odd[7 - k];
     o[15 - k] = e[k] - odd[7 - k];
   }
+}
+
+// libvpx's iadst16 (txfm.iadst16_1d): the 16-point inverse ADST as int32
+// butterflies, rounding (rs) where libvpx does.
+__device__ __forceinline__ void iadst16(const int* x, int* o) {
+  // stage 1: inputs in the order 15, 0, 13, 2, ..., 1, 14
+  const int x0 = x[15], x1 = x[0], x2 = x[13], x3 = x[2];
+  const int x4 = x[11], x5 = x[4], x6 = x[9], x7 = x[6];
+  const int x8 = x[7], x9 = x[8], x10 = x[5], x11 = x[10];
+  const int x12 = x[3], x13 = x[12], x14 = x[1], x15 = x[14];
+  int s0 = x0 * c1 + x1 * c31;
+  int s1 = x0 * c31 - x1 * c1;
+  int s2 = x2 * c5 + x3 * c27;
+  int s3 = x2 * c27 - x3 * c5;
+  int s4 = x4 * c9 + x5 * c23;
+  int s5 = x4 * c23 - x5 * c9;
+  int s6 = x6 * c13 + x7 * c19;
+  int s7 = x6 * c19 - x7 * c13;
+  int s8 = x8 * c17 + x9 * c15;
+  int s9 = x8 * c15 - x9 * c17;
+  int s10 = x10 * c21 + x11 * c11;
+  int s11 = x10 * c11 - x11 * c21;
+  int s12 = x12 * c25 + x13 * c7;
+  int s13 = x12 * c7 - x13 * c25;
+  int s14 = x14 * c29 + x15 * c3;
+  int s15 = x14 * c3 - x15 * c29;
+  int a0 = rs(s0 + s8), a8 = rs(s0 - s8);
+  int a1 = rs(s1 + s9), a9 = rs(s1 - s9);
+  int a2 = rs(s2 + s10), a10 = rs(s2 - s10);
+  int a3 = rs(s3 + s11), a11 = rs(s3 - s11);
+  int a4 = rs(s4 + s12), a12 = rs(s4 - s12);
+  int a5 = rs(s5 + s13), a13 = rs(s5 - s13);
+  int a6 = rs(s6 + s14), a14 = rs(s6 - s14);
+  int a7 = rs(s7 + s15), a15 = rs(s7 - s15);
+  // stage 2
+  s8 = a8 * c4 + a9 * c28;
+  s9 = a8 * c28 - a9 * c4;
+  s10 = a10 * c20 + a11 * c12;
+  s11 = a10 * c12 - a11 * c20;
+  s12 = -a12 * c28 + a13 * c4;
+  s13 = a12 * c4 + a13 * c28;
+  s14 = -a14 * c12 + a15 * c20;
+  s15 = a14 * c20 + a15 * c12;
+  const int b0 = a0 + a4, b4 = a0 - a4;
+  const int b1 = a1 + a5, b5 = a1 - a5;
+  const int b2 = a2 + a6, b6 = a2 - a6;
+  const int b3 = a3 + a7, b7 = a3 - a7;
+  const int b8 = rs(s8 + s12), b12 = rs(s8 - s12);
+  const int b9 = rs(s9 + s13), b13 = rs(s9 - s13);
+  const int b10 = rs(s10 + s14), b14 = rs(s10 - s14);
+  const int b11 = rs(s11 + s15), b15 = rs(s11 - s15);
+  // stage 3
+  s4 = b4 * c8 + b5 * c24;
+  s5 = b4 * c24 - b5 * c8;
+  s6 = -b6 * c24 + b7 * c8;
+  s7 = b6 * c8 + b7 * c24;
+  s12 = b12 * c8 + b13 * c24;
+  s13 = b12 * c24 - b13 * c8;
+  s14 = -b14 * c24 + b15 * c8;
+  s15 = b14 * c8 + b15 * c24;
+  const int d0 = b0 + b2, d2 = b0 - b2;
+  const int d1 = b1 + b3, d3 = b1 - b3;
+  const int d4 = rs(s4 + s6), d6 = rs(s4 - s6);
+  const int d5 = rs(s5 + s7), d7 = rs(s5 - s7);
+  const int d8 = b8 + b10, d10 = b8 - b10;
+  const int d9 = b9 + b11, d11 = b9 - b11;
+  const int d12 = rs(s12 + s14), d14 = rs(s12 - s14);
+  const int d13 = rs(s13 + s15), d15 = rs(s13 - s15);
+  // stage 4
+  const int e2 = rs(-c16 * (d2 + d3));
+  const int e3 = rs(c16 * (d2 - d3));
+  const int e6 = rs(c16 * (d6 + d7));
+  const int e7 = rs(c16 * (-d6 + d7));
+  const int e10 = rs(c16 * (d10 + d11));
+  const int e11 = rs(c16 * (-d10 + d11));
+  const int e14 = rs(-c16 * (d14 + d15));
+  const int e15 = rs(c16 * (d14 - d15));
+  const int out[16] = {d0, -d8, d12, -d4, e6, e14, e10, e2,
+                       e3, e11, e15, e7, d5, -d13, d9, -d1};
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = out[k];
 }
 
 // The odd half of idct32 from its odd inputs, x1[k] = x[2 k + 1]: the 16
@@ -367,12 +450,13 @@ __device__ __forceinline__ int fwd_mat_at(int row, int col) {
 }
 
 // Rows 8 s .. 8 s + 7 of X = F_col @ R @ F_row^T for one n x n block on
-// the tensor cores, by one warp; f_col (fwd_mat_at) and R (fwd_res_at) are
-// float64 planes in shared memory. F_row^T is F_col^T / 2^shift exactly
+// the tensor cores, by one warp; f_col, f_dct (fwd_mat_at) and R
+// (fwd_res_at) are float64 planes in shared memory. The rows of every type
+// here are DCT's, and F_row^T is then the DCT's F_col^T / 2^shift exactly
 // (shift 5 at n = 8, 6 above: both are the inverse's matrix inverted, one
-// scaled by the inverse's final shift), so the second product reads F_col
-// transposed and scales X by a power of two at the end, which changes no
-// bit. On return the lane holds x[J][e] = X[8 s + (lane >> 2)][8 J + 2
+// scaled by the inverse's final shift), so the second product reads f_dct,
+// the DCT's F_col (f_col itself for DCT_DCT), transposed and scales X by a
+// power of two at the end, which changes no bit. On return the lane holds x[J][e] = X[8 s + (lane >> 2)][8 J + 2
 // (lane & 3) + e]. T = F_col @ R is exact in any order (the products and
 // sums of the float32 matrices' values with 9-bit integers need at most 41
 // bits); only the second product's order differs from a plain matrix
@@ -381,6 +465,7 @@ __device__ __forceinline__ int fwd_mat_at(int row, int col) {
 // taken in the order k = 8 K + 2 (lane & 3) + h, the B fragments to match.
 template <int N>
 __device__ __forceinline__ void fwd_strip_mma(const double* f_col,
+                                              const double* f_dct,
                                               const double* r, int s,
                                               int lane, double (&x)[N / 8][2]) {
   constexpr int kTiles = N / 8;
@@ -407,7 +492,7 @@ __device__ __forceinline__ void fwd_strip_mma(const double* f_col,
 #pragma unroll
       for (int j = 0; j < kTiles; ++j) {
         mma_f64_8x8x4(x[j][0], x[j][1], t[k][h],
-                      f_col[fwd_mat_at<N>(8 * j + g, 8 * k + 2 * c + h)]);
+                      f_dct[fwd_mat_at<N>(8 * j + g, 8 * k + 2 * c + h)]);
       }
     }
   }
@@ -495,15 +580,21 @@ __device__ __forceinline__ uint8_t recon_pixel(int pred, int x, int n) {
 }
 
 // The column pass of the inverse and the recon in one: the 1-D inverse of
-// length N on x[0], x[stride], ..., then pixel k of the column, p[k *
-// pstride], from the prediction it holds to the recon (recon_pixel).
-template <int N>
-__device__ __forceinline__ void idct_col_recon(const int* x, int stride,
-                                               uint8_t* p, int pstride) {
+// length N (the DCT's, or with kAdst the ADST's, at N = 16 only) on x[0],
+// x[stride], ..., then pixel k of the column, p[k * pstride], from the
+// prediction it holds to the recon (recon_pixel).
+template <int N, bool kAdst = false>
+__device__ __forceinline__ void inv_col_recon(const int* x, int stride,
+                                              uint8_t* p, int pstride) {
+  static_assert(!kAdst || N == 16, "inv_col_recon: the ADST is at 16 only");
   int in[N], out[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) in[k] = x[k * stride];
-  idct_n<N>(in, out);
+  if constexpr (kAdst) {
+    iadst16(in, out);
+  } else {
+    idct_n<N>(in, out);
+  }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     p[k * pstride] = recon_pixel(p[k * pstride], out[k], N);

@@ -48,9 +48,11 @@ SAD_BLOCK_SIZES = (8, 16, 32, 64)
 SAD_MAX_RANGE = 32
 ENERGY_BLOCK_SIZES = (8, 16, 32, 64)
 SSE_BLOCK_SIZES = (8, 16, 32)
-# dynamic shared memory one search level may use: the 48 KB a kernel has
-# without asking, less the kernel's static words (csrc/sse_search.cu)
-SSE_SMEM_BYTES = 48 * 1024 - 512
+# dynamic shared memory one search level may use: an H100's
+# sharedMemPerBlockOptin (227 KB), less the kernel's static words
+# (csrc/sse_search.cu, which opts a level past 48 KB in and checks the
+# device's own limit)
+SSE_SMEM_BYTES = 227 * 1024 - 512
 TXQ_BLOCK_SIZES = (4, 8, 16, 32)
 TXQ_BIAS = 0.38  # the dead zone's rounding bias
 # the hierarchical search's reaches (pipeline/tpu_encdec.py has the same)
@@ -80,8 +82,8 @@ _LAUNCHERS = {
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
     "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 11),
     "kframe_wave": ("kframe_wave", "kframe_wave_launch", 15, 0, 8),
-    "transform_recon": ("transform_recon", "transform_recon_launch", 7, 0,
-                        4),
+    "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
+                        5),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
 }
 _fns: dict = {}
@@ -408,7 +410,10 @@ def sse_map_search(src_blocks, wins, n: int, r: int, want_map: bool = True):
     src_blocks: (B, n, n); wins: (B, n+2r+8, n+2r+8) with the search area
     at offset (4, 4), so displacement (0, 0) sits at (r+4, r+4). Both
     uint8, or both int16 holding values in [0, 1020] (2x2 sums of pixels).
-    n in {8, 16, 32}; the area must fit the kernel's shared memory.
+    n in {8, 16, 32}; the area must fit the kernel's shared memory
+    (``sse_level_smem(n, r)`` at most ``SSE_SMEM_BYTES``: the strip zone's
+    +-40 level of 16x16 blocks, 95,684 bytes, opts in to more than the 48
+    KB a kernel has without asking).
     Returns (dy, dx, rel_map): the winner int32 (B,) in [-r, r], the first
     minimum in dy-major order, and the (B, 2r+1, 2r+1) int32 relative-SSE
     map (true SSE minus sum(src^2)), or None when ``want_map`` is False.
@@ -436,6 +441,24 @@ def sse_map_search(src_blocks, wins, n: int, r: int, want_map: bool = True):
 
 
 sse_map_search.launches = 0
+
+
+def sse_map_search_occupancy(n: int, r: int, device=None):
+    """(resident CTAs per SM, dynamic shared memory in bytes, threads of
+    a CTA) of ``sse_map_search``'s uint8 level of block size n (16) and
+    reach r on ``device`` (the current CUDA device if None), its shared
+    memory opted in as a launch would (the CUDA runtime's occupancy
+    query)."""
+    fn = load_library("sse_search").sse_search_occupancy
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(n, r, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"sse_map_search: the occupancy query failed with "
+                           f"CUDA error {err}")
+    return tuple(v.value for v in out)
 
 
 def take_windows(wins, ys, xs, m: int):
@@ -721,9 +744,6 @@ KF_MAX_POLLS = 1 << 22
 # 64-bit words of a block's bottom recon rows in the kernel's edge buffer
 # (luma's 32 bytes, u's 16 and v's 16, four a word beside a tag)
 KF_EDGE_WORDS = 16
-KF_STRIP = ("strip geometries (mi_rows % 4 == 2: the bottom 16-pixel "
-            "strip's above-only modes, ADST at TX16) are not ported yet "
-            "(ROADMAP.md Queue A item 5)")
 
 
 def kf_diagonal(d: int, rows: int, cols: int):
@@ -802,8 +822,6 @@ def _kf_tables_on(device: torch.device):
 def check_kf_args(src_y, src_u, src_v, geom, dc_q: int, ac_q: int,
                    lam: int) -> None:
     g = geom
-    if g.strip:
-        raise NotImplementedError(f"kframe_wave: {KF_STRIP}")
     for name, t, shape in (("src_y", src_y, (g.pad_h, g.pad_w)),
                            ("src_u", src_u, (g.pad_h // 2, g.pad_w // 2)),
                            ("src_v", src_v, (g.pad_h // 2, g.pad_w // 2))):
@@ -857,8 +875,9 @@ def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int,
     """The keyframe's closed-loop intra encode of the 32 grid.
 
     src_y: (pad_h, pad_w), src_u and src_v: (pad_h/2, pad_w/2) uint8
-    padded source planes; geom: the step's geometry (no strip); dc_q, ac_q:
-    the quantizer steps; lam: the mode prior's lambda. Every 32x32 block
+    padded source planes; geom: the step's geometry (at a strip geometry
+    its 32 zone, above the strip); dc_q, ac_q: the quantizer steps; lam:
+    the mode prior's lambda. Every 32x32 block
     (r, c), after (r-1, c) and (r, c-1): the 10 intra predictions from
     their recon (127 above the frame, 129 left of it, above-right repeating
     above[31], the left column clamped to the last visible row), the mode
@@ -922,29 +941,41 @@ kframe_wave.launches = 0
 TXFM_BLOCK_SIZES = (8, 16, 32)
 # keeps |level| * q (levels clip at 8191) inside int32
 TXFM_MAX_Q = (1 << 16) - 1
+# the transform types (bitstream.tables.TxType values) the kernel has an
+# instance of, by block size: DCT_DCT (0) at every size, and ADST_DCT (1,
+# the keyframe strip's V and D63 luma) at 16
+TXFM_TYPES = {8: (0,), 16: (0, 1), 32: (0,)}
 
 
 @functools.lru_cache(maxsize=None)
-def _txfm_tables_on(n: int, device: torch.device):
-    """The kernel's constant tables of block size n on ``device``: the
-    float64 forward column matrix F_col (``txfm._fwd_matrices64``, the
-    float32 one widened; the kernel reads F_row^T as F_col^T / 2^5 at n=8
-    and / 2^6 above, which ``tests/test_torch_transform_recon.py`` holds
-    to the row matrix bit for bit) and the int32 inverse DCT_DCT scan, each
-    raster place's place in ``T.scan_order``."""
+def _txfm_tables_on(n: int, device: torch.device, tx_type: int = 0):
+    """The kernel's constant tables of block size n and transform type
+    ``tx_type`` on ``device``: the float64 forward column matrix F_col of
+    the type (``txfm._fwd_matrices64``, the float32 one widened), the
+    DCT's F_col, whose transpose over 2^5 at n=8 and 2^6 above the kernel
+    reads as F_row^T (every type here has DCT rows;
+    ``tests/test_torch_transform_recon.py``, and for ADST_DCT
+    ``tests/test_torch_strip.py``, hold that to the row matrix bit for
+    bit), and the int32 inverse scan of the type, each raster place's
+    place in ``T.scan_order``."""
     from tpu_vp9_torch.bitstream import tables as T
     from tpu_vp9_torch.ops import txfm
 
-    f_col = txfm._fwd_matrices64(n, device)[0]
-    scan = np.asarray(T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0])
+    tt = T.TxType(tx_type)
+    f_col = txfm._fwd_matrices64(n, device, tt)[0]
+    f_dct = txfm._fwd_matrices64(n, device)[0]
+    scan = np.asarray(T.scan_order(txfm.TX_SIZE[n], tt)[0])
     iscan = torch.from_numpy(np.argsort(scan).astype(np.int32)).to(device)
-    return f_col.contiguous(), iscan
+    return f_col.contiguous(), f_dct.contiguous(), iscan
 
 
 def _check_txfm_args(src_blocks, pred_blocks, dc_q: int, ac_q: int,
-                     n: int) -> None:
+                     n: int, tx_type: int = 0) -> None:
     if n not in TXFM_BLOCK_SIZES:
         raise ValueError(f"transform_recon: n={n} not in {TXFM_BLOCK_SIZES}")
+    if tx_type not in TXFM_TYPES[n]:
+        raise ValueError(f"transform_recon: tx_type={tx_type} at n={n} not "
+                         f"in {TXFM_TYPES[n]}")
     b = src_blocks.shape[0]
     _want_blocks("transform_recon: src_blocks", src_blocks, b, n, n)
     _want_blocks("transform_recon: pred_blocks", pred_blocks, b, n, n)
@@ -956,24 +987,27 @@ def _check_txfm_args(src_blocks, pred_blocks, dc_q: int, ac_q: int,
                          f"outside [1, {TXFM_MAX_Q}]")
 
 
-def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
-    """Forward DCT, quantizer, dequantizer, exact integer inverse, recon
-    and eob of B blocks at once, on the card.
+def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int,
+                    tx_type: int = 0):
+    """Forward transform, quantizer, dequantizer, exact integer inverse,
+    recon and eob of B blocks at once, on the card.
 
     src_blocks, pred_blocks: (B, n, n) uint8 contiguous CUDA tensors of
     one device, n in {8, 16, 32}; dc_q, ac_q: the quantizer steps (host
-    ints in [1, 65535]). Returns (levels int16 (B, n, n), eob int32 (B,),
-    recon uint8 (B, n, n)): the DCT_DCT levels of the float64 forward
+    ints in [1, 65535]); tx_type: a ``TxType`` of ``TXFM_TYPES[n]``
+    (DCT_DCT, or ADST_DCT at n=16). Returns (levels int16 (B, n, n), eob
+    int32 (B,), recon uint8 (B, n, n)): the levels of the float64 forward
     transform and the dead-zone quantizer, one past the last nonzero level
-    in scan order (0 if none), and the decoder's reconstruction. It runs
+    in the type's scan order (0 if none), and the decoder's
+    reconstruction. It runs
     the kernel of ``csrc/transform_recon.cu`` or raises: CPU tensors go to
     the plain version ``pipeline/tpu_encdec.py:transform_recon_ref``
     through the step's ``transform_recon``, not through here. The two
     agree bit for bit unless a coefficient's ``|c| / q + 0.38`` lies within
     about 1e-12 of an integer (the float64 products sum in another order).
     """
-    dc_q, ac_q = int(dc_q), int(ac_q)
-    _check_txfm_args(src_blocks, pred_blocks, dc_q, ac_q, n)
+    dc_q, ac_q, tx_type = int(dc_q), int(ac_q), int(tx_type)
+    _check_txfm_args(src_blocks, pred_blocks, dc_q, ac_q, n, tx_type)
     if _device_kind("transform_recon", src_blocks, pred_blocks) != "cuda":
         raise ValueError("transform_recon: the kernel takes CUDA tensors; "
                          "CPU tensors go through the step's transform_recon")
@@ -983,11 +1017,11 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
     eob = torch.empty((b,), dtype=torch.int32, device=dev)
     recon = torch.empty((b, n, n), dtype=torch.uint8, device=dev)
     if b > 0:
-        f_col, iscan = _txfm_tables_on(n, dev)
+        f_col, f_dct, iscan = _txfm_tables_on(n, dev, tx_type)
         _launch("transform_recon", dev, src_blocks.data_ptr(),
-                pred_blocks.data_ptr(), f_col.data_ptr(), iscan.data_ptr(),
-                levels.data_ptr(), eob.data_ptr(), recon.data_ptr(), b, n,
-                dc_q, ac_q)
+                pred_blocks.data_ptr(), f_col.data_ptr(), f_dct.data_ptr(),
+                iscan.data_ptr(), levels.data_ptr(), eob.data_ptr(),
+                recon.data_ptr(), tx_type, b, n, dc_q, ac_q)
         transform_recon.launches += 1
     return levels, eob, recon
 
@@ -995,20 +1029,22 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
 transform_recon.launches = 0
 
 
-def _occupancy(name: str, sizes, n, device):
+def _occupancy(name: str, sizes, n, device, *more):
     """(CTAs of kernel ``name``'s instance of block size n an SM holds at
     once, the dynamic shared memory each asks for in bytes) on ``device``
     (the current CUDA device if None), from the CUDA runtime's occupancy
-    query (the library's ``<name>_occupancy``); ``sizes`` None for a kernel
-    of one instance (n None)."""
+    query (the library's ``<name>_occupancy``, which takes n and then the
+    ints ``more``); ``sizes`` None for a kernel of one instance (n
+    None)."""
     fn = getattr(load_library(name), f"{name}_occupancy")
     ptrs = [ctypes.POINTER(ctypes.c_int)] * 2
     if sizes is None:
-        fn.argtypes, args = ptrs, ()
+        args = ()
     else:
         if n not in sizes:
             raise ValueError(f"{name}: n={n} not in {sizes}")
-        fn.argtypes, args = [ctypes.c_int, *ptrs], (n,)
+        args = (n, *more)
+    fn.argtypes = [ctypes.c_int] * len(args) + ptrs
     fn.restype = ctypes.c_int
     ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
@@ -1032,10 +1068,15 @@ def kframe_wave_occupancy(device=None):
     return _occupancy("kframe_wave", None, None, device)
 
 
-def transform_recon_occupancy(n: int, device=None):
+def transform_recon_occupancy(n: int, device=None, tx_type: int = 0):
     """transform_recon's (resident CTAs per SM, dynamic shared memory in
-    bytes) at block size n (``_occupancy``)."""
-    return _occupancy("transform_recon", TXFM_BLOCK_SIZES, n, device)
+    bytes) at block size n and transform type ``tx_type``
+    (``_occupancy``)."""
+    if tx_type not in TXFM_TYPES.get(n, ()):
+        raise ValueError(f"transform_recon: tx_type={tx_type} at n={n} not "
+                         f"in {TXFM_TYPES.get(n, ())}")
+    return _occupancy("transform_recon", TXFM_BLOCK_SIZES, n, device,
+                      tx_type)
 
 
 # ---------------------------------------------------------------------------

@@ -576,16 +576,19 @@ QBIAS = float(np.float32(0.38))
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_matrices64(n: int, device: torch.device):
+def _fwd_matrices64(n: int, device: torch.device,
+                    tx_type: TxType = TxType.DCT_DCT):
     """The float32 matrices of ``fwd_matrices``, widened, not recomputed."""
-    f_col, f_row_t = fwd_matrices(TX_SIZE[n], TxType.DCT_DCT)
+    f_col, f_row_t = fwd_matrices(TX_SIZE[n], tx_type)
     return (torch.from_numpy(f_col).to(device=device, dtype=torch.float64),
             torch.from_numpy(f_row_t).to(device=device, dtype=torch.float64))
 
 
-def fwd_txfm2d_f64(resid):
-    """(B, n, n) int32 torch residual -> float64 DCT_DCT coefficients."""
-    f_col, f_row_t = _fwd_matrices64(resid.shape[-1], resid.device)
+def fwd_txfm2d_f64(resid, tx_type: TxType = TxType.DCT_DCT):
+    """(B, n, n) int32 torch residual -> float64 coefficients of
+    ``tx_type`` (the ADST kinds below n = 32 only, as ``fwd_matrices``)."""
+    f_col, f_row_t = _fwd_matrices64(resid.shape[-1], resid.device,
+                                     TxType(tx_type))
     return torch.matmul(torch.matmul(f_col, resid.to(torch.float64)),
                         f_row_t)
 

@@ -28,8 +28,13 @@ that waits for frame N's step too; overlapping the two is later work.
 ``flush`` drains the pipeline and leaves the session usable; ``close``
 stops the worker.
 
+At a strip geometry (mi_rows % 4 == 2: 720p, 4K) the steps add the bottom
+strip's 16x16 blocks (the outputs' "m16" zone, serialized with the 32
+grid; the session keeps the strip's MVs as its temporal candidates,
+``_prev_mv16``), and the descent is off, as in the JAX session.
+
 Not ported yet, and refused with NotImplementedError: the adaptive lambda
-(``aq`` with GOLDEN, tune SQ), meshes, rate control, strip geometries.
+(``aq`` with GOLDEN, tune SQ), meshes, rate control.
 """
 
 from __future__ import annotations
@@ -68,13 +73,17 @@ _KEY_KEYS = ("mode", "skip", "eob_y", "eob_u", "eob_v", "lv_y", "lv_u",
              "lv_v")
 
 
-def _leaf_grid_index(geom: Geom, mi_row: int, mi_col: int, bsize):
+def _leaf_grid_index(geom: Geom, mi_row: int, mi_col: int, bsize,
+                     split_mode: bool = False):
     """(zone, flat block index) of a leaf in the device output: the 32
-    grid, or the full 16 grid of the split children."""
+    grid, the full 16 grid of the split children (``split_mode``), or the
+    bottom strip's row of 16x16 blocks."""
     if bsize == BlockSize.BLOCK_32X32:
         return "m32", (mi_row // 4) * geom.cols32 + (mi_col // 4)
     assert bsize == BlockSize.BLOCK_16X16
-    return "m16f", (mi_row // 2) * (geom.cols32 * 2) + (mi_col // 2)
+    if split_mode:
+        return "m16f", (mi_row // 2) * (geom.cols32 * 2) + (mi_col // 2)
+    return "m16", mi_col // 2
 
 
 def walk_partition_split(mi_rows: int, mi_cols: int, split32):
@@ -144,7 +153,8 @@ def classify_and_fill_state(frame, geom: Geom, host_out: dict,
             continue
         if ev != "leaf":
             continue
-        zone, bi = _leaf_grid_index(g, mi_row, mi_col, bsize)
+        zone, bi = _leaf_grid_index(g, mi_row, mi_col, bsize,
+                                    split_mode=split is not None)
         z = host_out[zone]
         mv = (int(z["mv"][bi, 0]), int(z["mv"][bi, 1]))
         ref_id = LAST
@@ -225,7 +235,11 @@ def serialize_device_frame(g: Geom, host, hdr, fc0, er: bool, prev_mvs,
     if split32 is not None:
         m16f = dict(host["m16f"])
         m16f.setdefault("ref", None)
-    zones = (g, split32, m32, m16f, None, prev_mvs)
+    strip = None
+    if g.strip:
+        strip = dict(host["m16"])
+        strip.setdefault("ref", None)
+    zones = (g, split32, m32, m16f, strip, prev_mvs)
     r1 = nat.native_rt_serialize(*zones, fc0, counts_on=not er,
                                  sign_bias=sign_bias)
     if r1 is None:
@@ -274,6 +288,8 @@ def _device_out_to_host(outs, geom: Geom, want_recon: bool):
     """Copy the per-frame device outputs the host needs (full planes) and
     scatter the children into the full 16 grid."""
     host = {"m32": {k: outs["m32"][k].cpu().numpy() for k in _ZONE_KEYS}}
+    if geom.strip:
+        host["m16"] = {k: outs["m16"][k].cpu().numpy() for k in _ZONE_KEYS}
     if "m16f" in outs:
         host["split32"] = outs["split32"].cpu().numpy()
         host["m16f"] = {k: outs["m16f"][k].cpu().numpy()
@@ -318,10 +334,6 @@ class RtSession:
                 "tpu_vp9_torch RtSession: the adaptive lambda (aq, tune "
                 "SQ) is not ported yet (ROADMAP.md Queue A item 6)")
         self.g = make_geom(width, height)
-        if self.g.strip:
-            raise NotImplementedError(
-                "tpu_vp9_torch RtSession: strip geometries (mi_rows % 4 "
-                "== 2) are not ported yet (ROADMAP.md Queue A item 5)")
         self.device = torch.device(device)
         self.w, self.h = width, height
         self.intra_period = intra_period
@@ -330,12 +342,13 @@ class RtSession:
         self.fpdm = error_resilient or frame_parallel_decoding
         self.want_recon = want_recon
         self.loop_filter = loop_filter
-        self.split16 = split16
+        # the 32-against-16 descent needs a strip-free geometry
+        self.split16 = split16 and not self.g.strip
         # long-term GOLDEN anchor on the device with per-block ref choice
         self.golden = golden
         self.golden_interval = golden_interval
-        self._step = make_pframe_step(self.g, self.device, split16=split16,
-                                      golden=golden)
+        self._step = make_pframe_step(self.g, self.device,
+                                      split16=self.split16, golden=golden)
         # the device keyframe, as the JAX session always takes it; None
         # selects the host encoder
         self._kstep = make_kframe_step(self.g, self.device)
@@ -348,6 +361,11 @@ class RtSession:
         self._rates_dev = None
         self._prev_mv32 = torch.zeros((self.g.n_blocks32, 2),
                                       dtype=torch.int32, device=self.device)
+        # the children carry no temporal candidate, so only the strip
+        # tracks a 16-grid motion field (a placeholder without one)
+        self._prev_mv16 = torch.zeros(
+            (self.g.cols16 if self.g.strip else 1, 2), dtype=torch.int32,
+            device=self.device)
         self._pending = None  # (frame, idx, hdr, device outs, qidx)
         self._prev_snap = None  # mv snapshot of the last serialized frame
         self._last_was_inter = False
@@ -508,10 +526,13 @@ class RtSession:
             self._gold = self._refs
             self._since_gold = 0
         self._prev_mv32 = torch.zeros_like(self._prev_mv32)
+        self._prev_mv16 = torch.zeros_like(self._prev_mv16)
         with span("kf_d2h_transfer"):
             # a wave that gave up waiting left its outputs incomplete
             kf_check_status(outs["kf_status"].cpu())
             host = {k: outs["m32"][k].cpu().numpy() for k in _KEY_KEYS}
+            host16 = ({k: outs["m16"][k].cpu().numpy() for k in _KEY_KEYS}
+                      if g.strip else None)
             recs = ([outs[k].cpu().numpy() for k in ("rec_y", "rec_u",
                                                      "rec_v")]
                     if self.want_recon else None)
@@ -522,17 +543,22 @@ class RtSession:
             for ev, mi_row, mi_col, bsize, _ in events:
                 if ev != "leaf":
                     continue
-                bi = (mi_row // 4) * g.cols32 + (mi_col // 4)
-                m = IntraMode(int(host["mode"][bi]))
+                if bsize == BlockSize.BLOCK_32X32:
+                    z, ts = host, TxSize.TX_32X32
+                    bi = (mi_row // 4) * g.cols32 + (mi_col // 4)
+                else:  # the bottom strip of a strip geometry
+                    assert bsize == BlockSize.BLOCK_16X16 and host16
+                    z, ts, bi = host16, TxSize.TX_16X16, mi_col // 2
+                m = IntraMode(int(z["mode"][bi]))
                 st.mig.set_block(mi_row, mi_col, bsize, MI.ModeInfo(
-                    bsize=bsize, y_mode=m, uv_mode=m, tx_size=TxSize.TX_32X32,
-                    skip=bool(host["skip"][bi]), is_inter=False))
+                    bsize=bsize, y_mode=m, uv_mode=m, tx_size=ts,
+                    skip=bool(z["skip"][bi]), is_inter=False))
                 for p, (r, c) in enumerate(((mi_row * 2, mi_col * 2),
                                             (mi_row, mi_col),
                                             (mi_row, mi_col))):
                     k = "yuv"[p]
-                    st.levels[(p, r, c)] = host[f"lv_{k}"][bi]
-                    st.eobs[(p, r, c)] = int(host[f"eob_{k}"][bi])
+                    st.levels[(p, r, c)] = z[f"lv_{k}"][bi]
+                    st.eobs[(p, r, c)] = int(z[f"eob_{k}"][bi])
             tile, updates, st.fc_final, st.counts = serialize_with_updates(
                 st, events, qidx, serialize_frame, None)
             hdr = FrameHeader(width=self.w, height=self.h, is_keyframe=True,
@@ -590,6 +616,7 @@ class RtSession:
             self._gold = self._refs
             self._since_gold = 0
         self._prev_mv32 = torch.zeros_like(self._prev_mv32)
+        self._prev_mv16 = torch.zeros_like(self._prev_mv16)
         return EncodedFrame(payload=payload, is_keyframe=True,
                             qindex=qidx, state=st, pts=idx)
 
@@ -608,7 +635,8 @@ class RtSession:
         """The step's arguments after the source and reference planes for
         a P-frame at ``qidx``, from the session's present state."""
         lf_lvl = pick_filter_level(qidx, False) if self.loop_filter else 0
-        args = (self._prev_mv32, T.dc_quant(qidx), T.ac_quant(qidx),
+        args = (self._prev_mv32, self._prev_mv16, T.dc_quant(qidx),
+                T.ac_quant(qidx),
                 max(1, (T.ac_quant(qidx) ** 2) >> 6), lf_lvl,
                 int(self._lim_tbl[lf_lvl]), int(self._mblim_tbl[lf_lvl]))
         if self.golden:
@@ -644,6 +672,8 @@ class RtSession:
             self._gold = self._refs
             self._since_gold = 0
         self._prev_mv32 = outs["m32"]["mv"].to(torch.int32)
+        if self.g.strip:
+            self._prev_mv16 = outs["m16"]["mv"].to(torch.int32)
         hdr = FrameHeader(
             width=self.w, height=self.h, is_keyframe=False,
             error_resilient=self.er, base_qindex=qidx,

@@ -1,12 +1,18 @@
 """The realtime device P-frame step on torch: the M9 and M8 configurations.
 
-The counterpart of ``tpu_vp9/pipeline/tpu_encdec.py`` for the 32x32 grid
-without a strip: for every 32x32 block of the frame at once,
+The counterpart of ``tpu_vp9/pipeline/tpu_encdec.py``: for every 32x32
+block of the frame at once,
 
     window extraction -> 2-level full-pel SSE search -> quarter-pel search
     -> ZERO/NEW/PREV/LEFT/ABOVE decision -> exact 8-tap MC (Y/U/V)
     -> float64 forward transform + quantizer -> exact integer recon
     -> eob/skip -> exact VP9 loop filter -> border extension.
+
+At a strip geometry (mi_rows % 4 == 2: 720p, 4K) the 16x16 blocks of the
+bottom 16-pixel strip are a second zone of the same encode (``encode_zone``
+at n=16: a flat +-WIN_R full-pel search, the quarter-pel search on its
+windows, the same decision, MC and transform), whose recon rows join the
+32 zone's before the loop filter.
 
 M9 runs that with the LAST reference and rate proxies. M8 adds, each
 behind its own argument of ``make_pframe_step``: candidate costs from the
@@ -16,8 +22,8 @@ frame's entropy tables (``make_rate_tabs``, ``rates=``), the GOLDEN anchor
 the parents with the largest distortion get their four 16x16 children
 searched +-8 inside the parent's window, encoded, and compared with the
 parent by cost; the loop filter then takes the per-parent split mask. The
-adaptive lambda (``aq``), the ALTREF reference and strip geometries are
-not ported.
+adaptive lambda (``aq``) and the ALTREF reference are not ported; the
+descent is off at a strip geometry, as in the JAX package.
 
 The new reference planes stay on the step's device; the host receives the
 levels, eobs, MVs (and the recon when asked) and serializes them with the
@@ -48,10 +54,12 @@ The keyframe has its own step, ``make_kframe_step``: the closed-loop
 intra encode of the 32 grid in wave order (``kframe_wave``, a CUDA kernel
 of one launch, a CTA per block row; its plain version ``kframe_wave_ref``
 here goes by anti-diagonals; all 10 intra modes predicted by
-``predict_intra_all``), then the same loop filter and border extension.
+``predict_intra_all``), at a strip geometry the strip's 16x16 blocks with
+the above-only modes V, D45 and D63 (ADST_DCT, DCT_DCT and ADST_DCT at
+TX16), then the same loop filter and border extension.
 
-Geometries: width % 32 == 0 and mi_rows % 4 in {0, 3} (the 16-pixel strip
-of mi_rows % 4 == 2 is not ported yet; ``make_geom`` still describes it).
+Geometries: width % 32 == 0 and mi_rows % 4 in {0, 2, 3}; ``make_geom``
+refuses the others, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -65,11 +73,12 @@ import torch
 import torch.nn.functional as F
 
 from tpu_vp9_torch.bitstream import tables as T
+from tpu_vp9_torch.codec.modeinfo import INTRA_MODE_TO_TX_TYPE
 from tpu_vp9_torch.utils.trace import span
 
 from tpu_vp9_torch.ops import cuda_kernels, intra, txfm
 from tpu_vp9_torch.ops.cuda_kernels import (
-    HALF_R, KF_MODE_BIAS, KF_STRIP, REFINE_R, WIN_R, check_kf_args,
+    HALF_R, KF_MODE_BIAS, REFINE_R, WIN_R, check_kf_args,
     block_energy, block_energy_at, hier_search_fused, kf_diagonal,
     kf_outputs, kframe_wave, loop_filter, sse_map_search,
     take_windows as _take_windows,
@@ -193,23 +202,39 @@ def _pad_edge(plane, h: int, w: int):
 # ---------------------------------------------------------------------------
 
 
-def _zone_positions(geom: Geom, device):
-    """(pos_y, pos_x) int32 plane-pixel positions of the 32-grid's blocks
-    in raster order, with the grid's (rows, cols)."""
-    rows, cols = geom.rows32, geom.cols32
-    ys = torch.arange(rows, dtype=torch.int32, device=device) * 32
-    xs = torch.arange(cols, dtype=torch.int32, device=device) * 32
+def _zone(geom: Geom, n: int):
+    """(first plane row, rows, cols) of the zone of n-blocks: the 32 grid,
+    or at n=16 the bottom strip, one row of ``cols16`` blocks from row
+    ``strip_y``."""
+    if n == 32:
+        return 0, geom.rows32, geom.cols32
+    if n != 16 or not geom.strip:
+        raise ValueError(f"no zone of {n}-blocks in a geometry with strip="
+                         f"{geom.strip}")
+    return geom.strip_y, 1, geom.cols16
+
+
+def _zone_positions(geom: Geom, device, n: int = 32):
+    """(pos_y, pos_x) int32 plane-pixel positions of the zone's blocks in
+    raster order (the 32 grid's, or at n=16 the strip's), with the zone's
+    (rows, cols)."""
+    y0, rows, cols = _zone(geom, n)
+    ys = torch.arange(rows, dtype=torch.int32, device=device) * n + y0
+    xs = torch.arange(cols, dtype=torch.int32, device=device) * n
     return (ys[:, None].expand(rows, cols).reshape(-1),
             xs[None, :].expand(rows, cols).reshape(-1), rows, cols)
 
 
 def _extract_blocks(plane, y0: int, rows: int, cols: int, n: int):
-    """(rows*n, cols*n) region at row y0 -> (rows*cols, n, n)."""
+    """(rows*n, cols*n) region at row y0 -> (rows*cols, n, n), contiguous
+    (the kernels take contiguous blocks; one row of blocks, the strip's,
+    would otherwise stay a strided view of the plane)."""
     reg = plane[y0:y0 + rows * n, :cols * n]
     if tuple(reg.shape) != (rows * n, cols * n):
         raise ValueError(f"_extract_blocks: {rows}x{cols} blocks of {n} at "
                          f"row {y0} leave the {tuple(plane.shape)} plane")
-    return reg.reshape(rows, n, cols, n).permute(0, 2, 1, 3).reshape(-1, n, n)
+    return reg.reshape(rows, n, cols, n).permute(0, 2, 1, 3) \
+        .reshape(-1, n, n).contiguous()
 
 
 def _scatter_blocks(blocks, rows: int, cols: int, n: int):
@@ -238,32 +263,37 @@ def _extract_search_windows(ref_padded, n: int, rows: int, cols: int,
                             y_base: int, r: int = WIN_R):
     """Static (B, SW, SW) uint8 search windows, SW = n + 2r + 8, whose
     origin is the block's top-left minus (r + 4): the +-r full-pel search
-    plus the 8-tap subpel halo. Blocks in raster order."""
+    plus the 8-tap subpel halo. Blocks in raster order, contiguous (one
+    row of blocks would otherwise stay an overlapping view)."""
     sw = n + 2 * r + 8
     y0, x0, hh, ww = window_bounds(ref_padded.shape, n, rows, cols, y_base,
                                    r)
     region = ref_padded[y0:y0 + hh, x0:x0 + ww]
     wins = region.unfold(0, sw, n).unfold(1, sw, n)  # (rows, cols, sw, sw)
-    return wins.reshape(rows * cols, sw, sw)
+    return wins.reshape(rows * cols, sw, sw).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_starts(rows: int, cols: int, n: int, device):
-    """(y0, x0) int32 (1, rows*cols): where the blocks of the n-grid at
-    the plane's origin start in a border-extended plane, raster order."""
-    ys = torch.arange(rows, dtype=torch.int32, device=device) * n + BORDER
+def _grid_starts(rows: int, cols: int, n: int, device, y_base: int = 0):
+    """(y0, x0) int32 (1, rows*cols): where the blocks of the n-grid whose
+    first row is plane row ``y_base`` start in a border-extended plane,
+    raster order."""
+    ys = torch.arange(rows, dtype=torch.int32, device=device) * n + BORDER \
+        + y_base
     xs = torch.arange(cols, dtype=torch.int32, device=device) * n + BORDER
     return (ys[:, None].expand(rows, cols).reshape(1, -1).contiguous(),
             xs[None, :].expand(rows, cols).reshape(1, -1).contiguous())
 
 
-def _zero_sse(ref_padded, src_blocks, rows: int, cols: int, n: int):
-    """SSE of the ZERO-MV candidate of the n-grid at the plane's origin.
+def _zero_sse(ref_padded, src_blocks, rows: int, cols: int, n: int,
+              y_base: int = 0):
+    """SSE of the ZERO-MV candidate of the n-grid whose first row is plane
+    row ``y_base``.
 
     Zero MV is never moved by the UMV clamp and its subpel phase is the
     identity tap, so the prediction is the co-located reference block,
     read in place."""
-    y0, x0 = _grid_starts(rows, cols, n, ref_padded.device)
+    y0, x0 = _grid_starts(rows, cols, n, ref_padded.device, y_base)
     return block_energy_at(src_blocks, ref_padded, y0, x0, n)[0][0]
 
 
@@ -616,15 +646,16 @@ def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
 
 
 def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
-                   cols: int, n: int, lam: int, rates):
-    """The GOLDEN reference's best candidate per block: ZERO (exact SSE)
-    or the block's previous-frame MV (SSE at its rounded full-pel
-    position), first minimum. Returns (mv_r, mv_c, cost) without the
-    reference's own signalling cost."""
+                   cols: int, n: int, lam: int, rates, y_base: int = 0):
+    """The GOLDEN reference's best candidate per block of the zone whose
+    first row is plane row ``y_base``: ZERO (exact SSE) or the block's
+    previous-frame MV (SSE at its rounded full-pel position), first
+    minimum. Returns (mv_r, mv_c, cost) without the reference's own
+    signalling cost."""
     zero = torch.zeros_like(prev_mv[:, 0])
     cand_r = torch.stack([zero, prev_mv[:, 0]])
     cand_c = torch.stack([zero, prev_mv[:, 1]])
-    zy, zx = _grid_starts(rows, cols, n, gold_y.device)
+    zy, zx = _grid_starts(rows, cols, n, gold_y.device, y_base)
     py, px = _fullpel_starts(gold_y.shape, pos_y, pos_x, prev_mv[:, 0],
                              prev_mv[:, 1], n)
     sses = block_energy_at(src_blocks, gold_y, torch.cat([zy, py[None]]),
@@ -659,48 +690,55 @@ def _ref_extra(lam: int, rates):
 _SCAN_CACHE: dict = {}
 
 
-def _scan(n: int, device):
-    key = (n, str(device))
+def _scan(n: int, device, tx_type=T.TxType.DCT_DCT):
+    key = (n, str(device), int(tx_type))
     if key not in _SCAN_CACHE:
-        order = T.scan_order(txfm.TX_SIZE[n], T.TxType.DCT_DCT)[0]
+        order = T.scan_order(txfm.TX_SIZE[n], T.TxType(tx_type))[0]
         _SCAN_CACHE[key] = torch.as_tensor(np.asarray(order, np.int64),
                                            device=device)
     return _SCAN_CACHE[key]
 
 
 def transform_recon_ref(src_blocks, pred_blocks, dc_q: int, ac_q: int,
-                        n: int):
-    """Forward DCT + quantize + dequant + exact integer inverse add for
-    (B, n, n) blocks (plain version of the kernel behind
-    ``ops/cuda_kernels.py:transform_recon``). Returns (levels int16, eob
-    int32, recon uint8); eob is one past the last nonzero level in scan
-    order (0 if none)."""
+                        n: int, tx_type=T.TxType.DCT_DCT):
+    """Forward transform + quantize + dequant + exact integer inverse add
+    for (B, n, n) blocks (plain version of the kernel behind
+    ``ops/cuda_kernels.py:transform_recon``), of ``tx_type``: DCT_DCT, or
+    at n=16 the keyframe strip's ADST_DCT (ADST down the columns, DCT
+    along the rows). Returns (levels int16, eob int32, recon uint8); eob
+    is one past the last nonzero level in the type's scan order (0 if
+    none)."""
     resid = src_blocks.to(torch.int32) - pred_blocks.to(torch.int32)
-    levels = txfm.quantize_f64(txfm.fwd_txfm2d_f64(resid), dc_q, ac_q, n)
-    eob, recon = recon_from_levels(levels, pred_blocks, dc_q, ac_q, n)
+    levels = txfm.quantize_f64(txfm.fwd_txfm2d_f64(resid, tx_type), dc_q,
+                               ac_q, n)
+    eob, recon = recon_from_levels(levels, pred_blocks, dc_q, ac_q, n,
+                                   tx_type)
     return levels.to(torch.int16), eob, recon
 
 
-def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int):
+def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int,
+                    tx_type=T.TxType.DCT_DCT):
     """The step's transform stage (contract: ``transform_recon_ref``).
     Blocks that both lie on the CPU take the plain version; anything else
     goes to the CUDA kernel's wrapper, which launches or raises (and
     refuses blocks on two devices)."""
     if all(t.device.type == "cpu" for t in (src_blocks, pred_blocks)):
-        return transform_recon_ref(src_blocks, pred_blocks, dc_q, ac_q, n)
+        return transform_recon_ref(src_blocks, pred_blocks, dc_q, ac_q, n,
+                                   tx_type)
     return cuda_kernels.transform_recon(src_blocks, pred_blocks, dc_q, ac_q,
-                                        n)
+                                        n, tx_type)
 
 
-def recon_from_levels(levels, pred_blocks, dc_q: int, ac_q: int, n: int):
-    """(eob int32, recon uint8) of int32 (B, n, n) quantized levels: the
-    integer half of ``transform_recon_ref``."""
+def recon_from_levels(levels, pred_blocks, dc_q: int, ac_q: int, n: int,
+                      tx_type=T.TxType.DCT_DCT):
+    """(eob int32, recon uint8) of int32 (B, n, n) quantized levels of
+    ``tx_type``: the integer half of ``transform_recon_ref``."""
     ts = txfm.TX_SIZE[n]
     recon = txfm.inv_txfm_add(
         txfm.dequant_block(levels, dc_q, ac_q, ts, xp=torch), pred_blocks,
-        ts, T.TxType.DCT_DCT, xp=torch)
+        ts, T.TxType(tx_type), xp=torch)
     b = levels.shape[0]
-    nz = levels.reshape(b, n * n)[:, _scan(n, levels.device)] != 0
+    nz = levels.reshape(b, n * n)[:, _scan(n, levels.device, tx_type)] != 0
     pos = torch.arange(1, n * n + 1, dtype=torch.int32,
                        device=levels.device)
     eob = torch.where(nz, pos, 0).amax(dim=1)
@@ -1133,47 +1171,65 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
 
 def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
                 geom: Geom, dc_q: int, ac_q: int, lam: int, filters,
-                new_bits, gold=None, rates=None, return_me: bool = False):
-    """MD + recon for the uniform 32-grid (the JAX package's
-    ``encode_zone`` at n=32 without ALTREF and without ``aq``).
+                new_bits, gold=None, rates=None, return_me: bool = False,
+                n: int = 32):
+    """MD + recon for one uniform zone (the JAX package's ``encode_zone``
+    without ALTREF and without ``aq``): at n=32 the 32 grid, at n=16 the
+    bottom strip of a strip geometry (one row of ``cols16`` blocks from
+    plane row ``strip_y``).
 
     src planes: padded device planes; ref planes: border-extended
-    previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the previous
-    frame (the temporal candidate). gold: optional (y, u, v)
+    previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the zone's
+    blocks in the previous frame (the temporal candidate). The 32 grid
+    searches in two levels (``hier_search``) and refines to quarter-pel in
+    the refine windows; the strip searches its +-WIN_R windows flat
+    (``sse_map_search``) and refines in them. gold: optional (y, u, v)
     border-extended GOLDEN planes: each block then chooses LAST or GOLDEN
     (strict '<' against LAST) and is compensated from that reference's
     windows. rates: ``upload_rate_tabs`` (entropy-table candidate costs)
-    or None (proxies). return_me: also return the search intermediates the
-    children refine ("wins", "dy", "dx", "wu", "wv").
+    or None (proxies). return_me (n=32): also return the search
+    intermediates the children refine ("wins", "dy", "dx", "wu", "wv").
     Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN),
     skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v (unfiltered zone
     planes), dist_b, rate_b, dist, rate.
     """
     g = geom
-    n, nc = 32, 16
-    pos_y, pos_x, rows, cols = _zone_positions(g, src_y.device)
+    nc = n // 2
+    y0 = _zone(g, n)[0]
+    pos_y, pos_x, rows, cols = _zone_positions(g, src_y.device, n)
     b = rows * cols
     with _stage("step_search"):
-        src_blocks = _extract_blocks(src_y, 0, rows, cols, n)
-        wins = _extract_search_windows(ref_y, n, rows, cols, 0)
-        sse_zero = _zero_sse(ref_y, src_blocks, rows, cols, n)
-        c_y, c_x, dyr, dxr, loc, ssem, src2m = hier_search(src_blocks,
-                                                           wins, n)
+        src_blocks = _extract_blocks(src_y, y0, rows, cols, n)
+        wins = _extract_search_windows(ref_y, n, rows, cols, y0)
+        sse_zero = _zero_sse(ref_y, src_blocks, rows, cols, n, y0)
+        if n == 32:
+            c_y, c_x, dyr, dxr, loc, ssem, src2m = hier_search(src_blocks,
+                                                               wins, n)
+        else:
+            dy, dx, ssem = sse_map_search(src_blocks, wins, n, WIN_R)
+            src2m = _block_sq_sum(src_blocks)
     with _stage("step_subpel"):
-        sub_r, sub_c, sse_new = subpel_search(loc, src_blocks, dyr, dxr, n,
-                                              REFINE_R)
+        if n == 32:
+            sub_r, sub_c, sse_new = subpel_search(loc, src_blocks, dyr, dxr,
+                                                  n, REFINE_R)
+            new_r, new_c = c_y * 8 + sub_r, c_x * 8 + sub_c
+            # the map is the half-res level's: +-HALF_R at 2x decimation
+            r_map, q3s, scale = HALF_R, 4, 4
+        else:
+            new_r, new_c, sse_new = subpel_search(wins, src_blocks, dy, dx,
+                                                  n, WIN_R)
+            r_map, q3s, scale = WIN_R, 3, 1
     with _stage("step_md"):
         mv_r, mv_c, cost_last = _candidate_decide(
-            ssem, src2m, sse_zero, sse_new, c_y * 8 + sub_r,
-            c_x * 8 + sub_c, prev_mv, rows, cols, HALF_R, 4, 4, lam,
-            new_bits, rates=rates)
+            ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows,
+            cols, r_map, q3s, scale, lam, new_bits, rates=rates)
     ref_sel = torch.zeros((b,), dtype=torch.int8, device=src_y.device)
     if gold is not None:
         with _stage("step_golden"):
             extra = _ref_extra(lam, rates)
             g_mv_r, g_mv_c, g_cost = _golden_decide(
                 gold[0], src_blocks, pos_y, pos_x, prev_mv, rows, cols, n,
-                lam, rates)
+                lam, rates, y0)
             use_gold = (g_cost + extra[1]) < (cost_last + extra[0])
             ref_sel = use_gold.to(torch.int8)
             mv_r = torch.where(use_gold, g_mv_r, mv_r)
@@ -1181,19 +1237,20 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     # window MC: every winner derives from the +-WIN_R search (or is ZERO
     # or PREV, equally bounded)
     with _stage("step_mc"):
-        wu = _extract_search_windows(ref_u, nc, rows, cols, 0,
+        y0c = y0 // 2
+        wu = _extract_search_windows(ref_u, nc, rows, cols, y0c,
                                      r=CHROMA_WIN_R)
-        wv = _extract_search_windows(ref_v, nc, rows, cols, 0,
+        wv = _extract_search_windows(ref_v, nc, rows, cols, y0c,
                                      r=CHROMA_WIN_R)
         wy_mc = wins
         if gold is not None:
             msel = use_gold[:, None, None]
             wy_mc = torch.where(msel, _extract_search_windows(
-                gold[0], n, rows, cols, 0), wins)
+                gold[0], n, rows, cols, y0), wins)
             wu = torch.where(msel, _extract_search_windows(
-                gold[1], nc, rows, cols, 0, r=CHROMA_WIN_R), wu)
+                gold[1], nc, rows, cols, y0c, r=CHROMA_WIN_R), wu)
             wv = torch.where(msel, _extract_search_windows(
-                gold[2], nc, rows, cols, 0, r=CHROMA_WIN_R), wv)
+                gold[2], nc, rows, cols, y0c, r=CHROMA_WIN_R), wv)
         mi = (g.mi_rows, g.mi_cols)
         pred_y = mc_predict_from_wins(wy_mc, pos_y, pos_x, mv_r, mv_c, n, 0,
                                       *mi, filters, WIN_R)
@@ -1206,8 +1263,8 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     with _stage("step_txfm"):
         lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, dc_q, ac_q,
                                              n)
-        src_ub = _extract_blocks(src_u, 0, rows, cols, nc)
-        src_vb = _extract_blocks(src_v, 0, rows, cols, nc)
+        src_ub = _extract_blocks(src_u, y0c, rows, cols, nc)
+        src_vb = _extract_blocks(src_v, y0c, rows, cols, nc)
         lv_u, eob_u, rec_u = transform_recon(src_ub, pred_u, dc_q, ac_q, nc)
         lv_v, eob_v, rec_v = transform_recon(src_vb, pred_v, dc_q, ac_q, nc)
         skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
@@ -1227,6 +1284,8 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         "dist": dist_b.sum(), "rate": rate_b.sum(),
     }
     if return_me:
+        if n != 32:
+            raise ValueError("encode_zone: only the 32 grid has children")
         # the search's windows (LAST's, even where GOLDEN won: GOLDEN
         # parents are never descended) and the MC windows of the chroma
         out.update(wins=wins, dy=c_y + dyr, dx=c_x + dxr, wu=wu, wv=wv)
@@ -1408,27 +1467,31 @@ def split_decide(out32, out16, lam: int, geom: Geom):
 
 
 def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
-                geom: Geom, dc_q: int, ac_q: int, lam: int, lf_lvl: int,
-                lf_lim: int, lf_mblim: int, filters, new_bits,
+                prev_mv16, geom: Geom, dc_q: int, ac_q: int, lam: int,
+                lf_lvl: int, lf_lim: int, lf_mblim: int, filters, new_bits,
                 split16: bool = False, gold=None, rates=None):
     """One device P-frame encode step (the JAX package's ``pframe_step``
-    without a strip, ALTREF or ``aq``).
+    without ALTREF or ``aq``).
 
     src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 device
     tensors; ref planes: the border-extended previous reconstruction.
-    split16: descend the B32 // DESCEND_FRAC parents of the largest
+    prev_mv32, prev_mv16: (B, 2) int32 q3 MVs of the previous frame, of
+    the 32 grid and of the strip's 16x16 blocks (read at a strip geometry
+    only). split16: descend the B32 // DESCEND_FRAC parents of the largest
     distortion (GOLDEN parents and the overhang row never) and decide 32
-    against 4x16 for each. gold: optional GOLDEN planes. rates: optional
+    against 4x16 for each; a ValueError with a strip geometry, as in the
+    JAX package. gold: optional GOLDEN planes. rates: optional
     ``upload_rate_tabs``.
     Returns (outputs dict, new border-extended (ref_y, ref_u, ref_v));
-    outputs hold the "m32" zone, with split16 the children "m16f" and
-    "split32", and the loop-filtered padded recon planes
-    "rec_y"/"rec_u"/"rec_v". The references are new tensors.
+    outputs hold the "m32" zone, at a strip geometry the strip's "m16",
+    with split16 the children "m16f" and "split32", and the loop-filtered
+    padded recon planes "rec_y"/"rec_u"/"rec_v". The references are new
+    tensors.
     """
     g = geom
-    if g.strip:
-        raise NotImplementedError("pframe_step: strip geometries are not "
-                                  "ported yet (ROADMAP.md Queue A item 5)")
+    if split16 and g.strip:
+        raise ValueError("pframe_step: split16 requires a strip-free "
+                         "geometry")
     out32 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         prev_mv32, g, dc_q, ac_q, lam, filters, new_bits,
                         gold=gold, rates=rates, return_me=split16)
@@ -1456,6 +1519,14 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                                                         g)
         outs["m16f"] = out16
         outs["split32"] = split32
+    if g.strip:
+        out16 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
+                            prev_mv16, g, dc_q, ac_q, lam, filters, new_bits,
+                            gold=gold, rates=rates, n=16)
+        outs["m16"] = out16
+        rec_y = torch.cat([rec_y, out16["rec_y"]])
+        rec_u = torch.cat([rec_u, out16["rec_u"]])
+        rec_v = torch.cat([rec_v, out16["rec_v"]])
     with _stage("step_loop_filter"):
         # pad recon to the full device plane (the coded region is g.width)
         rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
@@ -1480,17 +1551,19 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
 
         step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
              [gold_y, gold_u, gold_v,]          # golden
-             prev_mv32, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim
-             [, rates])                          # golden or with_rates
+             prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
+             lf_mblim [, rates])                 # golden or with_rates
 
     ``rates`` is ``upload_rate_tabs(make_rate_tabs(fc, qindex), device)``;
-    as in the JAX package a GOLDEN step always takes them. It runs
-    eagerly; there is nothing to compile."""
+    as in the JAX package a GOLDEN step always takes them. ``prev_mv16``
+    is the strip's previous MVs, (cols16, 2), read at a strip geometry
+    only (the JAX session passes a (1, 2) placeholder without a strip).
+    It runs eagerly; there is nothing to compile."""
     device = torch.device(device)
     filters = torch.as_tensor(np.asarray(FILTERS, np.int32), device=device)
     new_bits = new_bits_table(device)
     with_rates = with_rates or golden
-    n_fixed = 13 + (3 if golden else 0) + (1 if with_rates else 0)
+    n_fixed = 14 + (3 if golden else 0) + (1 if with_rates else 0)
 
     def step(src_y, src_u, src_v, ref_y, ref_u, ref_v, *rest):
         if len(rest) + 6 != n_fixed:
@@ -1498,11 +1571,12 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
                             f"{len(rest) + 6}")
         gold = tuple(rest[:3]) if golden else None
         rest = rest[3:] if golden else rest
-        rates = rest[7] if with_rates else None
-        prev_mv32, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim = rest[:7]
+        rates = rest[8] if with_rates else None
+        (prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
+         lf_mblim) = rest[:8]
         return pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
-                           prev_mv32, geom, dc_q, ac_q, lam, lf_lvl,
-                           lf_lim, lf_mblim, filters, new_bits,
+                           prev_mv32, prev_mv16, geom, dc_q, ac_q, lam,
+                           lf_lvl, lf_lim, lf_mblim, filters, new_bits,
                            split16=split16, gold=gold, rates=rates)
 
     return step
@@ -1615,8 +1689,8 @@ def kframe_wave_device(src_y, src_u, src_v, geom: Geom, dc_q: int,
     Planes that all lie on the CPU take the plain version; anything else
     goes to the CUDA kernel's wrapper, which launches or raises, and which
     appends its launch's error word to the list ``status`` if one is given
-    (``cuda_kernels.kframe_wave``; the plain version has none). Both refuse
-    a strip geometry."""
+    (``cuda_kernels.kframe_wave``; the plain version has none). At a strip
+    geometry both encode the 32 zone above the strip."""
     if all(t.device.type == "cpu" for t in (src_y, src_u, src_v)):
         dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
         check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
@@ -1624,21 +1698,97 @@ def kframe_wave_device(src_y, src_u, src_v, geom: Geom, dc_q: int,
     return kframe_wave(src_y, src_u, src_v, geom, dc_q, ac_q, lam, status)
 
 
+# the keyframe strip's candidate modes (above-only: each reads nothing
+# but the row above) and their mode prior in lambda units
+KF_STRIP_MODES = (T.IntraMode.V_PRED, T.IntraMode.D45_PRED,
+                  T.IntraMode.D63_PRED)
+KF_STRIP_BIAS = (1, 3, 3)
+
+
+def _strip_intra_preds(rec, y0: int, nb: int, bs: int, modes):
+    """The strip's (nb, len(modes), bs, bs) int32 intra predictions of its
+    nb blocks of bs at plane row y0 from the recon plane above them, as
+    the JAX package's keyframe strip forms them: above is the recon row
+    y0 - 1, above-right repeats above[bs - 1], the above-left is the left
+    neighbour's above[bs - 1] (129 for the first block), the left column
+    129 and there is no left block."""
+    above = rec[y0 - 1, :nb * bs].to(torch.int32).reshape(nb, bs)
+    has_left = torch.arange(nb, device=rec.device) >= 1
+    al = torch.where(has_left, torch.roll(above[:, -1], 1), 129)
+    ref = torch.cat([torch.full((nb, bs), 129, dtype=torch.int32,
+                                device=rec.device), al[:, None], above,
+                     above[:, -1:].expand(nb, bs)], dim=1)
+    preds = predict_intra_all(ref, torch.ones_like(has_left),
+                              torch.zeros_like(has_left), bs)
+    return preds[:, [int(m) for m in modes]]
+
+
+def kframe_strip(src_y, src_u, src_v, rec_y, rec_u, rec_v, geom: Geom,
+                 dc_q: int, ac_q: int, lam: int):
+    """The keyframe's bottom strip of a strip geometry (the JAX package's
+    ``kframe_step`` strip branch): every 16x16 block at once, its above
+    row the 32 zone's last (unfiltered) recon row. Luma tries V, D45 and
+    D63, each through ``transform_recon`` with its mode's transform type
+    (ADST_DCT, DCT_DCT, ADST_DCT), and keeps the one of least recon SSE
+    (``block_energy``) + KF_STRIP_BIAS * lam, the first on a tie; chroma
+    is 8x8 DCT in that mode. Returns ("m16" outputs, the strip's recon
+    rows of y, u, v)."""
+    g = geom
+    sb, y0, y0c = g.cols16, g.strip_y, g.strip_y >> 1
+    dev = src_y.device
+    src_s = _extract_blocks(src_y, y0, 1, sb, 16)
+    preds = _strip_intra_preds(rec_y, y0, sb, 16, KF_STRIP_MODES)
+    cands = [transform_recon(src_s, preds[:, i].to(torch.uint8).contiguous(),
+                             dc_q, ac_q, 16, INTRA_MODE_TO_TX_TYPE[m])
+             for i, m in enumerate(KF_STRIP_MODES)]
+    k = len(cands)
+    recs = torch.cat([c[2] for c in cands])  # candidate-major (k B, 16, 16)
+    sse = block_energy(src_s.repeat(k, 1, 1), recs, 16)[0].reshape(k, sb)
+    bias = torch.tensor(KF_STRIP_BIAS, dtype=torch.int32,
+                        device=dev)[:, None] * lam
+    best = torch.argmin(sse + bias, dim=0)  # the first minimum
+    ar = torch.arange(sb, device=dev)
+
+    def pick(i):
+        return torch.stack([c[i] for c in cands])[best, ar]
+
+    lv_y, eob_y, recs_y = pick(0), pick(1), pick(2)
+    mode = torch.tensor([int(m) for m in KF_STRIP_MODES], dtype=torch.int32,
+                        device=dev)[best]
+    chroma = []
+    for src_c, rec_c in ((src_u, rec_u), (src_v, rec_v)):
+        blocks = _extract_blocks(src_c, y0c, 1, sb, 8)
+        pc = _strip_intra_preds(rec_c, y0c, sb, 8, KF_STRIP_MODES)
+        pred = pc[ar, best].to(torch.uint8)
+        chroma.append(transform_recon(blocks, pred, dc_q, ac_q, 8))
+    (lv_u, eob_u, recs_u), (lv_v, eob_v, recs_v) = chroma
+    out = {"mode": mode,
+           "skip": (eob_y == 0) & (eob_u == 0) & (eob_v == 0),
+           "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
+           "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v}
+    return out, (_scatter_blocks(recs_y, 1, sb, 16),
+                 _scatter_blocks(recs_u, 1, sb, 8),
+                 _scatter_blocks(recs_v, 1, sb, 8))
+
+
 def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
                 lam: int, lf_lvl: int, lf_lim: int, lf_mblim: int):
     """The closed-loop intra keyframe encode on the device (the JAX
-    package's ``kframe_step`` without a strip).
+    package's ``kframe_step``).
 
     src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 tensors.
     The 32x32 blocks are encoded in wave order (``kframe_wave_device``: a
-    CUDA kernel for CUDA planes, its plain version for CPU planes), the
-    recon edge-padded to the device planes, loop filtered frame-wide at
-    ``lf_lvl`` and border-extended. Returns (outputs, new border-extended
-    (ref_y, ref_u, ref_v)); outputs hold "m32" (mode, skip, eob_y/u/v,
-    lv_y/u/v in raster block order), the filtered planes
-    "rec_y"/"rec_u"/"rec_v" and "kf_status", the kernel's error word (a
-    one-element int32 tensor, zero for the plain version), which whoever
-    fetches the outputs checks with ``cuda_kernels.kf_check_status``.
+    CUDA kernel for CUDA planes, its plain version for CPU planes); at a
+    strip geometry the strip's 16x16 blocks after them
+    (``kframe_strip``); the recon is edge-padded to the device planes,
+    loop filtered frame-wide at ``lf_lvl`` and border-extended. Returns
+    (outputs, new border-extended (ref_y, ref_u, ref_v)); outputs hold
+    "m32" (mode, skip, eob_y/u/v, lv_y/u/v in raster block order), at a
+    strip geometry "m16" (the same of the strip's blocks), the filtered
+    planes "rec_y"/"rec_u"/"rec_v" and "kf_status", the kernel's error
+    word (a one-element int32 tensor, zero for the plain version), which
+    whoever fetches the outputs checks with
+    ``cuda_kernels.kf_check_status``.
     """
     g = geom
     status = []
@@ -1651,6 +1801,11 @@ def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
         "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v},
         "kf_status": status[0] if status else torch.zeros(
             1, dtype=torch.int32, device=mode.device)}
+    if g.strip:
+        outs["m16"], strip = kframe_strip(src_y, src_u, src_v, rec_y, rec_u,
+                                          rec_v, g, dc_q, ac_q, lam)
+        rec_y, rec_u, rec_v = (torch.cat([a, b]) for a, b in
+                               zip((rec_y, rec_u, rec_v), strip))
     rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
     rec_u = _pad_edge(rec_u, g.pad_h // 2, g.pad_w // 2)
     rec_v = _pad_edge(rec_v, g.pad_h // 2, g.pad_w // 2)
@@ -1669,10 +1824,7 @@ def make_kframe_step(geom: Geom, device):
 
         step(src_y, src_u, src_v, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim)
 
-    Refuses a strip geometry here, before any frame, and planes that do
-    not lie on ``device``'s kind of device."""
-    if geom.strip:
-        raise NotImplementedError(f"make_kframe_step: {KF_STRIP}")
+    Refuses planes that do not lie on ``device``'s kind of device."""
     kind = torch.device(device).type
 
     def step(src_y, src_u, src_v, dc_q, ac_q, lam, lf_lvl, lf_lim,
