@@ -91,7 +91,28 @@ Phases, each of which raises on failure (nothing is caught):
      panning_frames(1280, 720, 10), each also on the CPU for the first
      CPU_FRAMES (identical packets), and 4K M8 on panning_frames(3840,
      2160, 6);
- 10. M7 (the host encode with the device full-pel search): end to end,
+ 10. random access, the encoder's default configuration (4 hierarchical
+     levels, mini-GOPs of 16, enc_mode 9, CQP qp 40, intra period -1)
+     through the public encoder, on the device RA session (ALTREF,
+     GOLDEN, at 1080p the descent over every parent): 1080p on
+     panning_frames(1920, 1080, 33, seed=1), a key and two mini-GOPs,
+     then 720p on 17 frames; packets in display order with DTS = decode
+     order - 15, every frame decoded by the port's decoder and every
+     reference the session keeps equal to the decoder's picture of that
+     poc, the launches of each step held to its (GOLDEN, ALTREF)
+     variant, the overhang row's split32 0 in every frame (the split
+     parents that took GOLDEN or ALTREF counted), Y PSNR, bytes per
+     frame, fps over the P-frames and their split by the spans rt_stage,
+     ra_rate_args, ra_device_step, ra_d2h_transfer, ra_serialize; at
+     1080p the kernels at the path's new shapes on a real step with
+     GOLDEN and ALTREF (the 8,160 children's sse_map_search,
+     subpel_search, transform_recon, block_energy_at and block_energy;
+     ALTREF's hier_search_fused, ZERO SSE and subpel_search) against
+     their plain versions and timed, and one mini-GOP under the
+     profiler; at both sizes the RA session on the CPU and the card on
+     the first RA_SAME_FRAMES frames with mini-GOPs of RA_SAME_GOP,
+     identical packets;
+ 11. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -103,6 +124,10 @@ blocked from being imported: the port stands alone.
 stops after phase 2 (a short first run of a changed kernel; one keyframe
 and one P-frame are encoded for loop_filter's real input) and prints
 neither JSON line.
+
+    python3 chip_smoke.py --ra
+
+runs phase 10 alone after the builds, and prints neither JSON line.
 """
 
 from __future__ import annotations
@@ -2535,6 +2560,445 @@ def same_bytes_phase(label, frames, cuda_pkts, enc_mode):
           "on cpu and cuda")
 
 
+# random access, the encoder's default configuration (4 hierarchical
+# levels: mini-GOPs of 16), through the public encoder: a key and two
+# mini-GOPs at 1080p, a key and one at 720p; the same-bytes run's frames
+# and mini-GOP (the CPU's plain versions take seconds a 720p P-frame)
+RA_FRAMES = {"1080p": 33, "720p": 17}
+RA_SAME_FRAMES, RA_SAME_GOP = 5, 4
+# the spans that divide an RA P-frame's encode (the send that completes a
+# mini-GOP encodes all of it) and a keyframe's
+RA_SPANS = ("rt_stage", "ra_rate_args", "ra_device_step", "ra_d2h_transfer",
+            "ra_serialize")
+# the wrappers recorded in one RA P-frame step with GOLDEN and ALTREF, for
+# the kernel checks at its shapes
+RA_RECORDED = ("hier_search", "subpel_search", "sse_map_search",
+               "transform_recon", "block_energy_at", "block_energy")
+
+
+def _ra_launches(geom, golden: bool, altref: bool):
+    """Launches of one random-access P-frame step by wrapper: each zone
+    (the 32 grid; at a strip geometry the strip too) searches LAST
+    (hier_search_fused, the strip sse_map_search), quarter-pel searches
+    it, transforms Y, U and V, takes its recon SSE and ZERO's SSE in place;
+    GOLDEN adds its two candidates' SSEs (one block_energy_at), ALTREF its
+    own search, quarter-pel search and ZERO SSE; without a strip the
+    descent adds the children's search, quarter-pel search, ZERO SSE,
+    three transforms and recon SSE; the loop filter is one launch."""
+    c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
+                      + ENTRY_WRAPPERS["block_energy"], 0)
+    c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
+              "subpel_search": 0, "transform_recon": 0, "loop_filter": 1})
+    for n in (32, 16) if geom.strip else (32,):
+        c["hier_search_fused" if n == 32 else "sse_map_search"] += \
+            1 + altref
+        c["subpel_search"] += 1 + altref
+        c["transform_recon"] += 3
+        c["block_energy"] += 1
+        c["block_energy_at"] += 1 + golden + altref
+    if not geom.strip:
+        for k, v in (("sse_map_search", 1), ("subpel_search", 1),
+                     ("block_energy_at", 1), ("transform_recon", 3),
+                     ("block_energy", 1)):
+            c[k] += v
+    return c
+
+
+def _make_ra_encoder(device, dims, intra_period=-2):
+    """The public encoder at the default configuration (random access,
+    enc_mode 9, 4 levels, CQP) at qp QP; ``intra_period`` -2 is the
+    default's own (about one second)."""
+    from tpu_vp9_torch.api import Vp9Encoder
+    from tpu_vp9_torch.config import EncoderConfig
+
+    enc = Vp9Encoder(device=device)
+    enc.set_parameter(EncoderConfig(source_width=dims[0],
+                                    source_height=dims[1], qp=QP,
+                                    intra_period=intra_period))
+    enc.init()
+    if enc._ra_dev is None or enc._ra_dev.gop_len != 16:
+        raise AssertionError("the default configuration did not take the "
+                             "random-access session with mini-GOPs of 16")
+    return enc
+
+
+@contextlib.contextmanager
+def _recording(names, calls, active):
+    """While ``active[0]``, the step's calls of the ``tpu_encdec`` functions
+    ``names`` append (name, arguments) to ``calls``."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    real = {k: getattr(P, k) for k in names}
+
+    def recorded(name, fn):
+        def call(*args):
+            if active[0]:
+                calls.append((name, args))
+            return fn(*args)
+        return call
+
+    for k in names:
+        setattr(P, k, recorded(k, real[k]))
+    try:
+        yield
+    finally:
+        for k in names:
+            setattr(P, k, real[k])
+
+
+def ra_end_to_end_phase(dev, frames, tag, record=False):
+    """Random access at the default configuration through the public
+    encoder, at the clip's size (intra period -1: a key and whole
+    mini-GOPs of 16): packets in display order with DTS = decode order -
+    15; every frame decoded by the port's decoder, every reference the
+    session keeps equal to the decoder's picture of that poc; launches
+    asserted for each step against its (GOLDEN, ALTREF) variant; the
+    overhang row's split32 0 in every frame; Y PSNR, bytes per frame, fps
+    over the P-frames and their spans. With ``record`` the first step
+    with GOLDEN and ALTREF records its kernel calls (``RA_RECORDED``).
+    Returns (the run's launches, the recorded calls)."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.utils import trace
+
+    width, height = _dims(frames)
+    geom = P.make_geom(width, height)
+    enc = _make_ra_encoder(dev, (width, height), intra_period=-1)
+    sess = enc._ra_dev
+    steps, kept, calls, active = [], {}, [], [False]
+    real_step_for, real_frame = sess._step_for, sess._encode_frame
+
+    def step_for(golden, altref):
+        step = real_step_for(golden, altref)
+
+        def call(*args):
+            active[0] = record and golden and altref and not calls
+            before = _read_counts()
+            out = step(*args)
+            active[0] = False
+            steps.append(((golden, altref), {
+                k: v - before[k] for k, v in _read_counts().items()}))
+            return out
+        return call
+
+    def encode_frame(gf, n_layers):
+        out = real_frame(gf, n_layers)
+        if gf.is_ref:  # the device planes, copied out after the run
+            kept[gf.poc] = sess.planes_of[gf.poc]
+        return out
+
+    sess._step_for, sess._encode_frame = step_for, encode_frame
+    got = []
+    emit = enc._emit
+    enc._emit = lambda pkt: (emit(pkt), got.append(pkt))
+    trace.enable(True)
+    trace.reset()
+    _reset_counts()
+    t_p = None
+    with _recording(RA_RECORDED if record else (), calls, active):
+        for idx, frame in enumerate(frames):
+            if idx == 2:  # the key is held one frame and coded at send 1
+                torch.cuda.synchronize()
+                t_p = time.perf_counter()
+            enc.send_picture(frame)
+            if idx == 1:  # the keyframe's planes, coded at this send
+                kept[0] = sess.planes_of[0]
+        enc.flush()
+        torch.cuda.synchronize()
+    p_seconds = time.perf_counter() - t_p
+    spans = {k: v["total_s"] for k, v in trace.summary().items()
+             if k != "notices"}
+    trace.enable(False)
+    counts = _read_counts()
+    enc.close()
+    n = len(frames)
+    n_p = n - 1
+    if [p.pts for p in got] != list(range(n)) or \
+            [p.dts for p in got] != [i - 15 for i in range(n)]:
+        raise AssertionError(f"{tag}: packets (pts, dts) "
+                             f"{[(p.pts, p.dts) for p in got]}")
+    if [p.is_keyframe for p in got] != [True] + [False] * n_p:
+        raise AssertionError(f"{tag}: keyframes at the wrong places")
+    # launches: each step against its variant, the keyframe, the total
+    per_key = KEY_STRIP_LAUNCHES if geom.strip else KEY_LAUNCHES
+    want = dict.fromkeys(counts, 0)
+    variants = {}
+    for variant, delta in steps:
+        expect = _ra_launches(geom, *variant)
+        if delta != expect:
+            raise AssertionError(f"{tag}: a step {variant} launched {delta}, "
+                                 f"not {expect}")
+        variants[variant] = variants.get(variant, 0) + 1
+        for k, v in expect.items():
+            want[k] += v
+    for k, v in per_key.items():
+        want[k] += v
+    if len(steps) != n_p or counts != want:
+        raise AssertionError(f"{tag}: {len(steps)} steps, launches {counts} "
+                             f"!= {want}")
+    print(f"{tag}: {n} frames (1 key, {n_p} P) at {width}x{height}, the "
+          f"default configuration (random access, 4 levels, enc_mode 9) "
+          f"CQP qp {QP}, intra period -1: launches {counts}")
+    for variant, k in sorted(variants.items()):
+        print(f"{tag}: {k} steps with (GOLDEN, ALTREF) = {variant}: "
+              f"launches each {_ra_launches(geom, *variant)}")
+    print(f"{tag}: per keyframe {per_key}")
+    tally = sess.tally
+    if tally["p_frames"] != n_p or tally["split_overhang"]:
+        raise AssertionError(f"{tag}: tally {tally}")
+    if geom.strip and tally["split32"]:
+        raise AssertionError(f"{tag}: a parent split at a strip geometry")
+    print(f"{tag}: over {n_p} P-frames of {geom.n_blocks32} 32x32 blocks: "
+          f"{tally['golden32']} chose GOLDEN, {tally['altref32']} ALTREF; "
+          f"{tally['split32']} parents split, {tally['split_not_last']} of "
+          f"them GOLDEN or ALTREF parents (their children LAST blocks, with "
+          f"LAST's chroma); the overhang row split in no frame")
+    # decode: every frame; every kept reference the decoder's picture
+    from tpu_vp9_torch.bitstream.ivf import write_ivf_frame, write_ivf_header
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+
+    buf = io.BytesIO()
+    write_ivf_header(buf, width, height, 30, 1, len(got))
+    for p in got:
+        write_ivf_frame(buf, p.data, p.pts)
+    buf.seek(0)
+    decoded = list(decode_ivf(buf))
+    if len(decoded) != n:
+        raise AssertionError(f"{tag}: decoded {len(decoded)} of {n} frames")
+    b = P.BORDER
+    for poc, planes in kept.items():
+        for k, plane in enumerate(planes):
+            hh, ww = (height, width) if k == 0 else ((height + 1) >> 1,
+                                                     (width + 1) >> 1)
+            want_p = plane[b:b + hh, b:b + ww].cpu().numpy()
+            if not np.array_equal(decoded[poc][k], want_p):
+                raise AssertionError(f"{tag}: the decoder's poc {poc} plane "
+                                     f"{k} differs from the session's "
+                                     "reference")
+    psnrs = [_psnr(y, f.y) for (y, _, _, _), f in zip(decoded, frames)]
+    if not all(np.isfinite(p) and p > 20 for p in psnrs):
+        raise AssertionError(f"{tag}: implausible Y PSNR {psnrs}")
+    total = sum(len(p.data) for p in got)
+    print(f"{tag}: decoded all {n} frames, the {len(kept)} kept references "
+          f"bit-exact; Y PSNR mean {statistics.mean(psnrs):.3f} dB "
+          f"(P-frames {statistics.mean(psnrs[1:]):.3f}); "
+          f"{total / n:.1f} B/frame ({(total - len(got[0].data)) / n_p:.1f} "
+          f"per P-frame)")
+    p_ms = 1000 * p_seconds / n_p
+    split = ", ".join(f"{k} {1000 * spans.get(k, 0.0) / n_p:.2f}"
+                      for k in RA_SPANS)
+    covered = 1000 * sum(spans.get(k, 0.0) for k in RA_SPANS) / n_p
+    print(f"{tag}: {n_p / p_seconds:.3f} fps over the {n_p} P-frames "
+          f"({p_seconds:.3f} s from the send after the keyframe's to the "
+          f"end of flush): {p_ms:.1f} ms a P-frame, split (host clock, "
+          f"mean over the P-frames) {split}; outside them "
+          f"{p_ms - covered:.1f} ms")
+    print(f"{tag}: keyframe spans (ms): " + ", ".join(
+        f"{k} {1000 * spans.get(k, 0.0):.1f}" for k in
+        ("kf_device_step", "kf_d2h_transfer", "kf_serialize")))
+    stages = sorted(((k, v) for k, v in spans.items()
+                     if k.startswith("step_")), key=lambda kv: -kv[1])
+    print(f"{tag}: step stages per P-frame (host clock): " + ", ".join(
+        f"{k} {1000 * v / n_p:.1f} ms" for k, v in stages))
+    return counts, calls
+
+
+def _ra_calls(calls):
+    """The recorded calls of a 1080p RA step with GOLDEN and ALTREF, by
+    role: hier_search (LAST's, ALTREF's), subpel_search (the zone's
+    LAST, ALTREF, the children's), sse_map_search (the children's),
+    block_energy_at (LAST's ZERO, GOLDEN's two in one call, ALTREF's
+    ZERO, the children's ZERO), transform_recon (the zone's Y, U, V, the children's
+    U, V, Y), block_energy (the zone's, the children's)."""
+    by = {}
+    for name, args in calls:
+        by.setdefault(name, []).append(args)
+    shape = {k: [(a[0].shape[0],) + tuple(
+        v for v in a[2:] if isinstance(v, int))
+        for a in by.get(k, [])] for k in RA_RECORDED}
+    want_counts = {"hier_search": 2, "subpel_search": 3,
+                   "sse_map_search": 1, "transform_recon": 6,
+                   "block_energy_at": 4, "block_energy": 2}
+    if {k: len(by.get(k, [])) for k in RA_RECORDED} != want_counts:
+        raise AssertionError(f"the recorded RA step made these calls: "
+                             f"{shape}")
+    return by
+
+
+def ra_kernel_phase(dev, calls, kernels):
+    """The kernels at the random-access path's new shapes, on a real 1080p
+    RA P-frame step with GOLDEN and ALTREF (recorded in the end-to-end
+    phase), against their plain versions on the card, bit for bit
+    (transform_recon's level flips bounded as in its own phase): the
+    descent over every parent, 8,160 children (sse_map_search n=16 r=8
+    with its map, subpel_search n=16 r=8, transform_recon at 16 and 8,
+    block_energy_at's ZERO and block_energy's recon SSE at n=16), and
+    ALTREF's own search (hier_search_fused, its ZERO SSE and
+    subpel_search at n=32 r=4). Each timed; the parts go to the kernels'
+    entries as "ra_parts"."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    by = _ra_calls(calls)
+    parts = {k: [] for k in ("sse_map_search", "subpel_search",
+                             "transform_recon", "block_energy")}
+    errs = dict.fromkeys(parts, 0)
+
+    def held(entry, name, label, kernel_fn, plain_fn, bound, key, reps=5):
+        errs[entry] = max(errs[entry], _check(name, label, kernel_fn(),
+                                              plain_fn()))
+        parts[entry].append(_timed(name, label, kernel_fn, plain_fn, reps,
+                                   bound, key, 1))
+
+    # ALTREF's search of the 32 grid: both levels fused, then quarter-pel
+    src, wins, n = by["hier_search"][1]
+    b = src.shape[0]
+    ops = 2 * b * (37 * 37 * 16 * 16
+                   + 9 * 9 * 32 * 32 * ALU_OPS_PER_S / INT8_OPS_PER_S)
+    held("sse_map_search", "hier_search_fused",
+         f"1080p RA ALTREF fused B={b} n=32",
+         lambda: K.hier_search_fused(src, wins, n),
+         lambda: K.hier_search_ref(src, wins, n),
+         _bound(b * (120 * 120 + 32 * 32 + 4 * 37 * 37 + 48 * 48 + 20), ops,
+                ALU_OPS_PER_S), "hier_search_kernel", 3)
+    for label, args in (("ALTREF zone", by["subpel_search"][1]),
+                        ("children", by["subpel_search"][2])):
+        b, n = args[1].shape[0], args[4]
+        held("subpel_search", "subpel_search",
+             f"1080p RA {label} B={b} n={n} r={args[5]}",
+             lambda a=args: K.subpel_search(*a),
+             lambda a=args: P.subpel_search_ref(*a), _sp_bound(b, n),
+             "subpel_search_kernel")
+    # the children's search, with its map
+    s, w, n, r = by["sse_map_search"][0]
+    b = s.shape[0]
+    d, sw = 2 * r + 1, n + 2 * r + 8
+    held("sse_map_search", "sse_map_search",
+         f"1080p RA children B={b} n={n} r={r} map",
+         lambda: K.sse_map_search(s, w, n, r),
+         lambda: K.sse_map_search_ref(s, w, n, r),
+         _bound(b * (n * n + sw * sw + 8 + 4 * d * d),
+                2 * b * d * d * n * n, INT8_OPS_PER_S), "sse_search_kernel")
+    # the children's transforms (U, V at 8, Y at 16), U standing for V
+    tr_err = 0
+    for i, (label, args) in enumerate(zip(("U", "V", "Y"),
+                                          by["transform_recon"][3:])):
+        src, pred, dq, aq, nn = args
+        tr_err = max(tr_err, _tr_case(f"1080p RA children {label}", src,
+                                      pred, dq, aq, nn)[0])
+        if label != "V":
+            b = src.shape[0]
+            parts["transform_recon"].append(_timed(
+                "transform_recon", f"1080p RA children {label} B={b} n={nn}",
+                lambda a=args: K.transform_recon(*a),
+                lambda a=args: P.transform_recon_ref(*a), 5,
+                _tr_bound(b, nn), "transform_recon_kernel",
+                2 if label == "U" else 1))
+    errs["transform_recon"] = tr_err
+    # ZERO's SSE read in place: ALTREF's at n=32, the children's at 16;
+    # the children's recon SSE
+    for label, (src, plane, y0, x0, nn) in (
+            ("ALTREF ZERO", by["block_energy_at"][2]),
+            ("children ZERO", by["block_energy_at"][3])):
+        c, b = y0.shape
+        held("block_energy", "block_energy_at",
+             f"1080p RA {label} B={b} n={nn} C={c}",
+             lambda a=(src, plane, y0, x0, nn): K.block_energy_at(*a),
+             lambda a=(src, plane, y0, x0, nn): K.block_energy_at_ref(*a),
+             _bound(b * nn * nn * (1 + c) + 16 * c * b, 5 * c * b * nn * nn,
+                    ALU_OPS_PER_S), "block_energy_at_kernel", 20)
+    src, rec, nn = by["block_energy"][1]
+    b = src.shape[0]
+    held("block_energy", "block_energy", f"1080p RA children recon B={b} "
+         f"n={nn}", lambda: K.block_energy(src, rec, nn),
+         lambda: K.block_energy_ref(src, rec, nn),
+         _bound(2 * b * nn * nn + 8 * b, 5 * b * nn * nn, ALU_OPS_PER_S),
+         "block_energy_kernel", 20)
+    if any(errs.values()):
+        raise AssertionError(f"an RA shape disagrees: {errs}")
+    for name, v in parts.items():
+        kernels[name]["ra_parts"] = [_part(p) for p in v]
+
+
+def ra_profile_phase(dev, frames, label):
+    """Random access at the default configuration: the key and the first
+    mini-GOP to warm up, then the second mini-GOP's 16 sends (the last
+    encodes all 16 P-frames) under the profiler; a second encoder does it
+    again if that profile lacks a hand kernel's record."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    geom = P.make_geom(*_dims(frames))
+    need = [w for w, n in _ra_launches(geom, True, True).items() if n]
+    for k in range(2):
+        enc = _make_ra_encoder(dev, _dims(frames), intra_period=-1)
+        for frame in frames[:17]:
+            enc.send_picture(frame)
+        torch.cuda.synchronize(dev)
+
+        def sends():
+            for frame in frames[17:33]:
+                enc.send_picture(frame)
+
+        ok = _profile(dev, sends, f"{label} RA one mini-GOP, 16 P-frames "
+                      f"(try {k + 1})", need)
+        enc.flush()
+        enc.close()
+        if ok:
+            return
+    raise AssertionError(f"{label} RA: two profiles, neither with a record "
+                         f"of every kernel of {need}")
+
+
+def ra_same_bytes_phase(dev, frames):
+    """The port's random-access session on the CPU (the plain versions)
+    and on the card: identical packets, on the first RA_SAME_FRAMES
+    frames with mini-GOPs of RA_SAME_GOP (a key and one mini-GOP with
+    GOLDEN and ALTREF steps)."""
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.pipeline.ra_device import DeviceRaSession
+
+    width, height = _dims(frames)
+    out = []
+    for device in (dev, "cpu"):
+        sess = DeviceRaSession(width, height, device=device,
+                               gop_len=RA_SAME_GOP,
+                               base_qindex=qp_to_qindex(QP))
+        pkts = []
+        t0 = time.perf_counter()
+        for frame in frames[:RA_SAME_FRAMES]:
+            pkts += sess.push(frame)
+        pkts += sess.flush()
+        sess.close()
+        out.append((pkts, time.perf_counter() - t0))
+    (a, ta), (b, tb) = out
+    if [(p.pts, p.data) for p in a] != [(p.pts, p.data) for p in b]:
+        raise AssertionError(f"{width}x{height} RA: CPU and CUDA packets "
+                             "differ")
+    print(f"{width}x{height} RA same bytes: the {len(a)} packets of the "
+          f"first {RA_SAME_FRAMES} frames with mini-GOPs of {RA_SAME_GOP} "
+          f"are identical on cpu ({tb:.1f} s) and cuda ({ta:.1f} s)")
+
+
+def ra_phases(dev, kernels, paths):
+    """Random access, the default configuration: 1080p (the overhang
+    geometry, every parent descended) with the kernel checks at its new
+    shapes and a profile, then 720p (a strip geometry, the descent off);
+    the same bytes on the CPU at both. Each path's counts are set to 0
+    just before it and read just after, into ``paths``."""
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    frames = list(panning_frames(WIDTH, HEIGHT, RA_FRAMES["1080p"], seed=1))
+    paths["1080p ra"], calls = ra_end_to_end_phase(dev, frames, "1080p ra",
+                                                   record=True)
+    ra_kernel_phase(dev, calls, kernels)
+    del calls
+    ra_profile_phase(dev, frames, "1080p")
+    ra_same_bytes_phase(dev, frames)
+    frames = list(panning_frames(*STRIP_GEOMS["720p"], RA_FRAMES["720p"],
+                                 seed=1))
+    paths["720p ra"] = ra_end_to_end_phase(dev, frames, "720p ra")[0]
+    ra_same_bytes_phase(dev, frames)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2564,6 +3028,12 @@ def main() -> int:
                            f"{native.build_error}")
     print(f"native host library built and loaded: "
           f"{time.perf_counter() - t0:.2f} s")
+
+    if "--ra" in sys.argv[1:]:
+        ra_phases(dev, {k: {} for k in ENTRY_WRAPPERS}, {})
+        print(f"chip_smoke: the random-access phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--ra: stopping)")
+        return 0
 
     real, real_frames, real_recons = _real_m8_inputs(dev)
     kernels = {k["name"]: k for k in (
@@ -2612,6 +3082,7 @@ def main() -> int:
             if label == "720p":
                 same_bytes_phase(tag, sframes, pkts, mode)
         del sframes, pkts
+    ra_phases(dev, kernels, paths)
     for name, k in kernels.items():
         k["launches_by_path"] = {
             path: sum(c[w] for w in ENTRY_WRAPPERS[name])

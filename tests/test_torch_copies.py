@@ -26,7 +26,7 @@ EXACT = [
     "ops/hme.py", "config.py",
     "pipeline/presets.py", "pipeline/rate_control.py",
     "pipeline/picture_decision.py", "pipeline/picture_analysis.py",
-    "pipeline/rc_curves.py", "utils/trace.py",
+    "pipeline/rc_curves.py", "pipeline/gop.py", "utils/trace.py",
 ]
 
 # module -> (why it differs, names of the source it drops on purpose)
@@ -51,8 +51,8 @@ CHANGED = {
     "utils/yuv.py": ("panning_frames appended (test content with global "
                      "motion)", ()),
     "api.py": (
-        "the port's own Vp9Encoder(device): the random-access engines, "
-        "speed control and meshes raise NotImplementedError",
+        "the port's own Vp9Encoder(device): the host random-access "
+        "engine, speed control and meshes raise NotImplementedError",
         ()),
     "app.py": (
         "the port's own CLI: -device added; -nch, -gop-parallel and "
@@ -101,7 +101,8 @@ def test_every_port_module_is_accounted_for():
     port's own: a new copy cannot slip in unguarded."""
     own = {"__init__.py", "ops/__init__.py", "ops/_build.py",
            "ops/cuda_kernels.py", "pipeline/__init__.py",
-           "pipeline/realtime.py", "pipeline/tpu_encdec.py",
+           "pipeline/ra_device.py", "pipeline/realtime.py",
+           "pipeline/tpu_encdec.py",
            "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py",
            "utils/kf_phases.py", "utils/lf_phases.py"}
     found = set()

@@ -630,17 +630,63 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
     dict(enc_mode=9, rate_control_mode=RateControlMode.VBR,
          target_bit_rate=200_000),
     dict(enc_mode=9, source_width=112),
-    dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS),
+    dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
+         tpu_realtime=0),
     dict(speed_control=True),
     dict(tpu_mesh_shape=(1, 2)),
 ], ids=["random_access", "m8", "m8_rt0", "m8_cbr", "m8_width_not_32",
-        "m8_mesh", "m9", "m9_vbr", "m9_width_not_32", "m9_random_access",
+        "m8_mesh", "m9", "m9_vbr", "m9_width_not_32", "m9_ra_rt0",
         "speed_control", "mesh"])
 def test_unported_routes_raise(kw):
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         enc.init()
+
+
+def test_random_access_at_m7_names_the_host_ra_engine_alone():
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(_slice_cfg(pred_structure=PredStructure.RANDOM_ACCESS))
+    with pytest.raises(NotImplementedError) as info:
+        enc.init()
+    msg = str(info.value)
+    assert "item 10" in msg and "item 9" not in msg
+
+
+@pytest.mark.parametrize("enc_mode", [8, 9], ids=["m8", "m9"])
+def test_ra_routes_are_taken(enc_mode):
+    """Random access with hierarchical levels at enc_mode 8 and 9, refused
+    until the device random-access session was ported, now takes it: one
+    session for both modes, mini-GOPs of 2^levels, no realtime session."""
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(_slice_cfg(enc_mode=enc_mode,
+                                 pred_structure=PredStructure.RANDOM_ACCESS))
+    enc.init()
+    assert enc._ra_dev is not None and enc._rt is None
+    assert enc._ra_dev.gop_len == 1 << enc._cfg.hierarchical_levels == 16
+    assert enc._dts_offset == -15
+    enc.close()
+
+
+def test_app_default_takes_the_ra_route(tmp_path):
+    """The CLI with no -pred-struct and no -enc-mode (random access, 4
+    levels, enc_mode 9) encodes and decodes back, every frame."""
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
+
+    clip = tmp_path / "clip.y4m"
+    out = tmp_path / "out.ivf"
+    with open(clip, "wb") as fh:
+        write_y4m(fh, synthetic_frames(128, 96, 6, motion=True))
+    res = subprocess.run(
+        [sys.executable, "-m", "tpu_vp9_torch.app", "-i", str(clip), "-b",
+         str(out), "-q", "40", "-device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "SUMMARY: 6 frames" in res.stdout
+    with open(out, "rb") as fh:
+        assert len(list(decode_ivf(fh))) == 6
 
 
 @pytest.mark.parametrize("enc_mode", [8, 9], ids=["m8_strip", "m9_strip"])
@@ -664,9 +710,10 @@ def test_strip_routes_are_taken(enc_mode):
     (["-enc-mode", "9", "-pred-struct", "0", "-rt", "0"], "tpu_realtime 0"),
     (["-enc-mode", "8", "-pred-struct", "0", "-tune", "0"], "tune SQ"),
     (["-enc-mode", "8", "-pred-struct", "0", "-rc", "1"], "rate control"),
-    ([], "random access"),
+    (["-enc-mode", "7"], "item 10"),
+    (["-rc", "1"], "item 10"),
 ], ids=["gop_parallel", "nch", "distributed", "m9", "m8", "m8_vbr",
-        "default_ra"])
+        "ra_m7", "ra_vbr"])
 def test_app_refuses_unported_options(tmp_path, flags, why):
     from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 

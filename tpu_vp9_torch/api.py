@@ -10,16 +10,21 @@ send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
     (``RtSession(split16=True, golden=True)``); at a strip geometry
     (mi_rows % 4 == 2: 720p, 4K) the steps add the bottom 16-pixel strip's
     16x16 blocks and the descent is off, as in the JAX package;
+  - random access with hierarchical levels (the configuration's
+    default) at enc_mode 8 and 9, CQP, tpu_realtime != 0, with no recon
+    file, speed control, mesh or qp override at ``init``, runs the
+    hierarchical ALTREF pyramids of ``pipeline/ra_device.py``
+    (``DeviceRaSession``), whose steps run on that device; packets come
+    out in decode order with DTS = decode order - 2^levels + 1;
   - enc_mode <= 7 runs the low-delay host encode with its full-pel
     motion search on that device.
 
 Routes not ported yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: random access with hierarchical levels (the host and
-the device RA engines), enc_mode 8 at tune SQ (the adaptive lambda),
-enc_mode 8/9 with ``-rt 0`` (the keyframe mode hints), with rate control,
-or at a geometry the realtime step does not take (width % 32 != 0,
-mi_rows % 4 == 1), speed control and multi-device meshes. No route falls
-back to another.
+``ROADMAP.md`` item: any other random-access configuration (the host RA
+engine), enc_mode 8 at tune SQ (the adaptive lambda), enc_mode 8/9 with
+``-rt 0`` (the keyframe mode hints), with rate control, or at a geometry
+the realtime step does not take (width % 32 != 0, mi_rows % 4 == 1),
+speed control and multi-device meshes. No route falls back to another.
 """
 
 from __future__ import annotations
@@ -42,11 +47,12 @@ from tpu_vp9_torch.config import (
 from tpu_vp9_torch.pipeline.encoder import _apply_loop_filter, _make_refs
 from tpu_vp9_torch.pipeline.picture_decision import SceneChangeDetector
 from tpu_vp9_torch.pipeline.presets import derive_signals, qp_to_qindex
+from tpu_vp9_torch.pipeline.ra_device import DeviceRaSession
 from tpu_vp9_torch.pipeline.rate_control import RateControlState
 from tpu_vp9_torch.pipeline.realtime import RtSession
 from tpu_vp9_torch.pipeline.tpu_encdec import make_geom
 from tpu_vp9_torch.utils.device import require_cuda
-from tpu_vp9_torch.utils.trace import span
+from tpu_vp9_torch.utils.trace import notice, span
 from tpu_vp9_torch.utils.yuv import Frame420
 
 
@@ -69,6 +75,7 @@ class Vp9Encoder:
         self._rc = None
         self._sig = None
         self._rt = None
+        self._ra_dev = None
         self._refs = None
         self._golden_refs = None
         self._since_golden = 0
@@ -82,6 +89,7 @@ class Vp9Encoder:
         self._ld_prev_y = None
         self._frame_idx = 0
         self._decode_order = 0  # packets emitted so far (decode order)
+        self._dts_offset = 0  # DTS = decode_order - 2^levels + 1 (RA)
         self._packets: list = []
         self._last_recon = None
         self._eos = False
@@ -98,14 +106,11 @@ class Vp9Encoder:
         if self._cfg is None:
             raise RuntimeError("set_parameter must be called before init")
         cfg = self._cfg
-        if (cfg.pred_structure == PredStructure.RANDOM_ACCESS
-                and cfg.hierarchical_levels >= 1):
-            raise NotImplementedError(
-                "tpu_vp9_torch: random access with hierarchical levels "
-                "(gop.RaEncoder with device ME, ROADMAP.md Queue A item "
-                "10; DeviceRaSession, item 9) is not ported yet; use "
-                "pred_structure=LOW_DELAY_P")
-        realtime = int(cfg.enc_mode) >= 8
+        ra = (cfg.pred_structure == PredStructure.RANDOM_ACCESS
+              and cfg.hierarchical_levels >= 1)
+        if ra:
+            self._check_device_ra(cfg)
+        realtime = int(cfg.enc_mode) >= 8 and not ra
         if realtime:
             self._check_realtime(cfg)
         if cfg.speed_control:
@@ -133,6 +138,23 @@ class Vp9Encoder:
         log2 = int(want - 1).bit_length() if want is not None and want > 1 \
             else 0
         self._log2_tile_cols = min(max(log2, lo), hi)
+        if ra:
+            try:
+                self._ra_dev = DeviceRaSession(
+                    cfg.source_width, cfg.source_height, device=self.device,
+                    gop_len=1 << cfg.hierarchical_levels,
+                    intra_period=cfg.intra_period,
+                    base_qindex=qp_to_qindex(cfg.qp), tune=int(cfg.tune))
+            except ValueError as exc:
+                raise NotImplementedError(
+                    f"tpu_vp9_torch: the device random-access session "
+                    f"rejects {cfg.source_width}x{cfg.source_height} "
+                    f"({exc}); the host RA engine for it is not ported "
+                    "(ROADMAP.md Queue A item 10)") from exc
+            notice("random-access pyramids on the device step "
+                   "(DeviceRaSession)")
+            # packetization latency: DTS = decode order - 2^levels + 1
+            self._dts_offset = -(1 << cfg.hierarchical_levels) + 1
         if realtime:
             m8 = int(cfg.enc_mode) == 8
             self._rt = RtSession(
@@ -144,6 +166,32 @@ class Vp9Encoder:
                 loop_filter=cfg.loop_filter, split16=m8, golden=m8,
                 aq=cfg.tune == Tune.SQ)
         self._initialized = True
+
+    def _check_device_ra(self, cfg) -> None:
+        """Raise for a random-access configuration that the JAX package
+        sends to its host RA engine, not to ``DeviceRaSession``."""
+        why = None
+        if int(cfg.enc_mode) < 8:
+            why = f"enc_mode {int(cfg.enc_mode)}"
+        elif cfg.tpu_realtime == 0:
+            why = "tpu_realtime 0 (-rt 0)"
+        elif cfg.rate_control_mode != RateControlMode.CQP:
+            why = "rate control (VBR/CBR)"
+        elif cfg.recon_file is not None:
+            why = "a recon file"
+        elif cfg.speed_control:
+            why = "speed control"
+        elif cfg.tpu_mesh_shape:
+            why = "a multi-device mesh"
+        elif self._qp_overrides:
+            why = "per-frame qp overrides"
+        if why is not None:
+            raise NotImplementedError(
+                f"tpu_vp9_torch: random access with hierarchical levels "
+                f"and {why} runs the host RA engine (gop.RaEncoder with "
+                "device ME), not ported yet (ROADMAP.md Queue A item 10); "
+                "the device random-access session takes enc_mode 8 and 9 "
+                "at CQP, or use pred_structure=LOW_DELAY_P")
 
     @staticmethod
     def _check_realtime(cfg) -> None:
@@ -175,6 +223,8 @@ class Vp9Encoder:
     def close(self) -> None:
         if self._rt is not None:
             self._rt.close()
+        if self._ra_dev is not None:
+            self._ra_dev.close()
         self._initialized = False
         self._refs = None
 
@@ -193,10 +243,13 @@ class Vp9Encoder:
     def send_picture(self, frame: Frame420, force_keyframe: bool = False):
         """Encode one picture; its packet is queued for ``get_packet``.
 
-        The realtime and the low-delay host branches of
-        ``tpu_vp9.api.Vp9Encoder.send_picture``: the port's ``RtSession``
-        (enc_mode 8 and 9, one frame of latency), or the host encode with
-        ``encode_pframe`` on ``self.device``.
+        The device random-access, realtime and low-delay host branches of
+        ``tpu_vp9.api.Vp9Encoder.send_picture``: the port's
+        ``DeviceRaSession`` (packets once a mini-GOP's future anchor has
+        arrived; no scene-cut detection, and a forced keyframe is
+        ignored, as there), its ``RtSession`` (enc_mode 8 and 9, one frame
+        of latency), or the host encode with ``encode_pframe`` on
+        ``self.device``.
         """
         if not self._initialized:
             raise RuntimeError("encoder not initialized")
@@ -205,6 +258,12 @@ class Vp9Encoder:
         cfg, sig, rc = self._cfg, self._sig, self._rc
         idx = self._frame_idx
         self._frame_idx += 1
+        if self._ra_dev is not None:
+            if force_keyframe and idx > 0:
+                notice("device RA session ignores mid-stream keyframe "
+                       "requests (scheduled intra period only)")
+            self._emit_ra(self._ra_dev.push(frame))
+            return
         is_key = force_keyframe or idx == 0 or (
             cfg.intra_period >= 0 and idx % (cfg.intra_period + 1) == 0)
         if self._scd is not None:
@@ -356,9 +415,14 @@ class Vp9Encoder:
 
     def _emit(self, pkt: Packet) -> None:
         """Stamp decode-order DTS and queue the packet."""
-        pkt.dts = self._decode_order
+        pkt.dts = self._decode_order + self._dts_offset
         self._decode_order += 1
         self._packets.append(pkt)
+
+    def _emit_ra(self, ra_packets) -> None:
+        for p in ra_packets:
+            self._emit(Packet(data=p.data, pts=p.pts, dts=0,
+                              is_keyframe=p.is_keyframe, qindex=p.qindex))
 
     def _emit_rt(self, ef) -> None:
         """Book-keep one realtime-path EncodedFrame into the packet queue."""
@@ -375,9 +439,12 @@ class Vp9Encoder:
                           is_keyframe=ef.is_keyframe, qindex=ef.qindex))
 
     def flush(self, next_frame_hint=None) -> None:
-        """Signal end of stream; the realtime session's pipelined frames
-        come out. ``next_frame_hint`` serves the random-access engine of
+        """Signal end of stream; the random-access session's held key and
+        buffered tail, and the realtime session's pipelined frames, come
+        out. ``next_frame_hint`` serves the host random-access engine of
         the JAX package and is unused here."""
+        if self._ra_dev is not None and not self._eos:
+            self._emit_ra(self._ra_dev.flush())
         if self._rt is not None and not self._eos:
             for ef in self._rt.flush():
                 self._emit_rt(ef)

@@ -9,9 +9,12 @@ file. Multi-channel (``-nch``), GOP-parallel and multi-host runs are not
 ported yet and exit with an error, as does any configuration the port's
 encoder refuses.
 
-Usage (M8: the realtime P-frame step with rate tables, the GOLDEN anchor
-and the 32-against-16 descent on the card; M9: the uniform 32 grid; M7:
-the host encode with the full-pel search on the card):
+Usage (the default, random access with 4 hierarchical levels at enc_mode
+9: the ALTREF pyramids of the device random-access session on the card;
+M8: the realtime P-frame step with rate tables, the GOLDEN anchor and the
+32-against-16 descent on the card; M9: the uniform 32 grid; M7: the host
+encode with the full-pel search on the card):
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
       -pred-struct 0 -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 9 \

@@ -18,12 +18,24 @@ M9 runs that with the LAST reference and rate proxies. M8 adds, each
 behind its own argument of ``make_pframe_step``: candidate costs from the
 frame's entropy tables (``make_rate_tabs``, ``rates=``), the GOLDEN anchor
 (two more candidates per block and a per-block choice of MC windows,
-``gold=``), and the 32-against-4x16 descent (``split16``): the quarter of
-the parents with the largest distortion get their four 16x16 children
-searched +-8 inside the parent's window, encoded, and compared with the
-parent by cost; the loop filter then takes the per-parent split mask. The
-adaptive lambda (``aq``) and the ALTREF reference are not ported; the
-descent is off at a strip geometry, as in the JAX package.
+``gold=``), and the 32-against-4x16 descent (``split16``): the
+``1/descend_frac`` of the parents with the largest distortion get their
+four 16x16 children searched +-8 inside the parent's LAST window,
+encoded as LAST blocks, and compared with the parent by cost; the loop
+filter then takes the per-parent split mask. The random-access session
+(``pipeline/ra_device.py``) adds the ALTREF reference (``alt=``, the
+pyramid's future anchor: its own search as LAST's, ZERO and NEW) and
+descends every parent (``descend_frac=1``). The adaptive lambda (``aq``)
+is not ported; the descent is off at a strip geometry, as in the JAX
+package.
+
+One place differs from the JAX package on purpose: its children take
+their chroma from the parent's merged MC windows, another reference's
+where the parent took GOLDEN or ALTREF, while they are coded as LAST
+blocks, so a decoder predicted them otherwise; here they take LAST's
+(``encode_zone``'s ``return_me``). And a parent of the overhang row keeps
+its 32 whatever the descent selects (``split_decide``). Neither changes a
+stream whose recon the JAX package's decode matches.
 
 The new reference planes stay on the step's device; the host receives the
 levels, eobs, MVs (and the recon when asked) and serializes them with the
@@ -90,7 +102,9 @@ CHILD_R = 8  # 16-block refinement radius around the 32-parent's winner
 # extra syntax cost (in rate_b units) a 32->16 split pays: partition
 # symbol + 3 extra mode/skip/mv sets
 SPLIT_RATE_EXTRA = 4.0
-DESCEND_FRAC = 4  # the descent takes the B32 // DESCEND_FRAC worst parents
+# the descent's default share: the B32 // DESCEND_FRAC worst parents (the
+# realtime session's; the random-access session passes 1, every parent)
+DESCEND_FRAC = 4
 # candidate rate proxies in lambda units (zero, new-base, new-per-log2mvd,
 # prev/temporal, spatial left/above), as the TPU package's
 CAND_RATE_PROXY = (2.0, 10.0, 2.0, 6.0, 4.0)
@@ -674,13 +688,46 @@ def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
 
 
 def _ref_extra(lam: int, rates):
-    """Signalling cost of choosing (LAST, GOLDEN) in cost units: two
-    float32 values, as host floats."""
+    """Signalling cost of choosing (LAST, GOLDEN, ALTREF) in cost units:
+    three float32 values, as host floats."""
     if rates is not None:
         lam_f = np.float32(rates["lam_bits"])
         return [float(np.float32(c) * lam_f / np.float32(256.0))
-                for c in rates["ref_cost"][:2]]
-    return [0.0, float(np.float32(2.0) * np.float32(lam))]
+                for c in rates["ref_cost"][:3]]
+    two = float(np.float32(2.0) * np.float32(lam))
+    return [0.0, two, two]
+
+
+def _altref_decide(alt_y, src_blocks, rows: int, cols: int, n: int,
+                   rates, y_base: int = 0):
+    """The ALTREF reference's best candidate per block of the zone whose
+    first row is plane row ``y_base`` (the JAX package's ALTREF block of
+    ``encode_zone``): its own full search, the 32 grid's in two levels
+    (``hier_search``) refined to quarter-pel in the refine windows, the
+    strip's flat at +-WIN_R (``sse_map_search``) refined in its windows;
+    candidates ZERO (exact SSE) and NEW, whose mvd is taken against zero,
+    costed with the frame's entropy tables, first minimum. Returns (mv_r,
+    mv_c, cost without the reference's own signalling cost, the ALTREF
+    luma windows)."""
+    wins = _extract_search_windows(alt_y, n, rows, cols, y_base)
+    sse0 = _zero_sse(alt_y, src_blocks, rows, cols, n, y_base)
+    if n == 32:
+        c_y, c_x, dyr, dxr, loc, _, _ = hier_search(src_blocks, wins, n)
+        sub_r, sub_c, sse1 = subpel_search(loc, src_blocks, dyr, dxr, n,
+                                           REFINE_R)
+        new_r, new_c = c_y * 8 + sub_r, c_x * 8 + sub_c
+    else:
+        dy, dx, _ = sse_map_search(src_blocks, wins, n, WIN_R)
+        new_r, new_c, sse1 = subpel_search(wins, src_blocks, dy, dx, n,
+                                           WIN_R)
+    mc = rates["mode_cost"]
+    ones = torch.ones_like(new_r)
+    rate = torch.stack([mc[2] * ones, mc[3] + _mvd_bits(rates, new_r, new_c)])
+    costs = _table_costs(torch.stack([sse0, sse1]), rate, rates["lam_bits"])
+    zero = torch.zeros_like(new_r)
+    (mv_r, mv_c), cost, _ = _first_min(
+        costs, (torch.stack([zero, new_r]), torch.stack([zero, new_c])))
+    return mv_r, mv_c, cost, wins
 
 
 # ---------------------------------------------------------------------------
@@ -1171,12 +1218,12 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
 
 def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
                 geom: Geom, dc_q: int, ac_q: int, lam: int, filters,
-                new_bits, gold=None, rates=None, return_me: bool = False,
-                n: int = 32):
+                new_bits, gold=None, alt=None, rates=None,
+                return_me: bool = False, n: int = 32):
     """MD + recon for one uniform zone (the JAX package's ``encode_zone``
-    without ALTREF and without ``aq``): at n=32 the 32 grid, at n=16 the
-    bottom strip of a strip geometry (one row of ``cols16`` blocks from
-    plane row ``strip_y``).
+    without ``aq``): at n=32 the 32 grid, at n=16 the bottom strip of a
+    strip geometry (one row of ``cols16`` blocks from plane row
+    ``strip_y``).
 
     src planes: padded device planes; ref planes: border-extended
     previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the zone's
@@ -1184,20 +1231,27 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     searches in two levels (``hier_search``) and refines to quarter-pel in
     the refine windows; the strip searches its +-WIN_R windows flat
     (``sse_map_search``) and refines in them. gold: optional (y, u, v)
-    border-extended GOLDEN planes: each block then chooses LAST or GOLDEN
-    (strict '<' against LAST) and is compensated from that reference's
-    windows. rates: ``upload_rate_tabs`` (entropy-table candidate costs)
-    or None (proxies). return_me (n=32): also return the search
-    intermediates the children refine ("wins", "dy", "dx", "wu", "wv").
-    Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN),
-    skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v (unfiltered zone
-    planes), dist_b, rate_b, dist, rate.
+    border-extended GOLDEN planes: each block may then take GOLDEN
+    (strict '<' against LAST). alt: optional (y, u, v) ALTREF planes (the
+    random-access pyramid's future anchor; needs ``rates``): searched as
+    LAST is, and taken on a strict '<' against the best after GOLDEN.
+    Each block is compensated from its reference's windows. rates:
+    ``upload_rate_tabs`` (entropy-table candidate costs) or None
+    (proxies). return_me (n=32): also return what the children refine in,
+    all of LAST, whatever reference a parent took ("wins", "dy", "dx" of
+    the search, the chroma MC windows "wu", "wv"): every child is a LAST
+    block.
+    Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN,
+    2 ALTREF), skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v
+    (unfiltered zone planes), dist_b, rate_b, dist, rate.
     """
     g = geom
     nc = n // 2
     y0 = _zone(g, n)[0]
     pos_y, pos_x, rows, cols = _zone_positions(g, src_y.device, n)
     b = rows * cols
+    if alt is not None and rates is None:
+        raise ValueError("encode_zone: ALTREF takes the frame's rate tables")
     with _stage("step_search"):
         src_blocks = _extract_blocks(src_y, y0, rows, cols, n)
         wins = _extract_search_windows(ref_y, n, rows, cols, y0)
@@ -1224,17 +1278,29 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
             ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows,
             cols, r_map, q3s, scale, lam, new_bits, rates=rates)
     ref_sel = torch.zeros((b,), dtype=torch.int8, device=src_y.device)
+    if gold is not None or alt is not None:
+        extra = _ref_extra(lam, rates)
+        best_cost = cost_last + extra[0]
     if gold is not None:
         with _stage("step_golden"):
-            extra = _ref_extra(lam, rates)
             g_mv_r, g_mv_c, g_cost = _golden_decide(
                 gold[0], src_blocks, pos_y, pos_x, prev_mv, rows, cols, n,
                 lam, rates, y0)
-            use_gold = (g_cost + extra[1]) < (cost_last + extra[0])
+            g_cost = g_cost + extra[1]
+            use_gold = g_cost < best_cost
+            best_cost = torch.where(use_gold, g_cost, best_cost)
             ref_sel = use_gold.to(torch.int8)
             mv_r = torch.where(use_gold, g_mv_r, mv_r)
             mv_c = torch.where(use_gold, g_mv_c, mv_c)
-    # window MC: every winner derives from the +-WIN_R search (or is ZERO
+    if alt is not None:
+        with _stage("step_altref"):
+            a_mv_r, a_mv_c, a_cost, wins_a = _altref_decide(
+                alt[0], src_blocks, rows, cols, n, rates, y0)
+            use_alt = (a_cost + extra[2]) < best_cost
+            ref_sel = torch.where(use_alt, 2, ref_sel).to(torch.int8)
+            mv_r = torch.where(use_alt, a_mv_r, mv_r)
+            mv_c = torch.where(use_alt, a_mv_c, mv_c)
+    # window MC: every winner derives from a +-WIN_R search (or is ZERO
     # or PREV, equally bounded)
     with _stage("step_mc"):
         y0c = y0 // 2
@@ -1242,22 +1308,26 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
                                      r=CHROMA_WIN_R)
         wv = _extract_search_windows(ref_v, nc, rows, cols, y0c,
                                      r=CHROMA_WIN_R)
-        wy_mc = wins
-        if gold is not None:
-            msel = use_gold[:, None, None]
-            wy_mc = torch.where(msel, _extract_search_windows(
-                gold[0], n, rows, cols, y0), wins)
-            wu = torch.where(msel, _extract_search_windows(
-                gold[1], nc, rows, cols, y0c, r=CHROMA_WIN_R), wu)
-            wv = torch.where(msel, _extract_search_windows(
-                gold[2], nc, rows, cols, y0c, r=CHROMA_WIN_R), wv)
+        wy_mc, wu_mc, wv_mc = wins, wu, wv
+        # GOLDEN's windows, then ALTREF's, where the block took them
+        for ref_id, planes in ((1, gold), (2, alt)):
+            if planes is None:
+                continue
+            msel = (ref_sel == ref_id)[:, None, None]
+            wy_ref = (wins_a if ref_id == 2 else
+                      _extract_search_windows(planes[0], n, rows, cols, y0))
+            wy_mc = torch.where(msel, wy_ref, wy_mc)
+            wu_mc = torch.where(msel, _extract_search_windows(
+                planes[1], nc, rows, cols, y0c, r=CHROMA_WIN_R), wu_mc)
+            wv_mc = torch.where(msel, _extract_search_windows(
+                planes[2], nc, rows, cols, y0c, r=CHROMA_WIN_R), wv_mc)
         mi = (g.mi_rows, g.mi_cols)
         pred_y = mc_predict_from_wins(wy_mc, pos_y, pos_x, mv_r, mv_c, n, 0,
                                       *mi, filters, WIN_R)
-        pred_u = mc_predict_from_wins(wu, pos_y // 2, pos_x // 2, mv_r,
+        pred_u = mc_predict_from_wins(wu_mc, pos_y // 2, pos_x // 2, mv_r,
                                       mv_c, nc, 1, *mi, filters,
                                       CHROMA_WIN_R)
-        pred_v = mc_predict_from_wins(wv, pos_y // 2, pos_x // 2, mv_r,
+        pred_v = mc_predict_from_wins(wv_mc, pos_y // 2, pos_x // 2, mv_r,
                                       mv_c, nc, 1, *mi, filters,
                                       CHROMA_WIN_R)
     with _stage("step_txfm"):
@@ -1286,8 +1356,11 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     if return_me:
         if n != 32:
             raise ValueError("encode_zone: only the 32 grid has children")
-        # the search's windows (LAST's, even where GOLDEN won: GOLDEN
-        # parents are never descended) and the MC windows of the chroma
+        # LAST's search and chroma windows, where a parent took GOLDEN or
+        # ALTREF too. The JAX package hands the children the merged chroma
+        # windows, so a descended GOLDEN or ALTREF parent's children,
+        # serialized as LAST blocks, were predicted from another
+        # reference's chroma than a decoder reads
         out.update(wins=wins, dy=c_y + dyr, dx=c_x + dxr, wu=wu, wv=wv)
     return out
 
@@ -1429,8 +1502,8 @@ def descent_parents(score, k: int):
     """Indices of the k largest entries of ``score``, the lower index
     first among equals (what ``lax.top_k`` returns; ``torch.topk``
     promises no order among ties, so this is a stable descending sort).
-    The -1 sentinels of GOLDEN parents and of the overhang row make ties
-    routine."""
+    The -1 sentinels of non-LAST parents (with GOLDEN) and of the overhang
+    row make ties routine."""
     return torch.sort(score, descending=True, stable=True)[1][:k]
 
 
@@ -1439,7 +1512,12 @@ def split_decide(out32, out16, lam: int, geom: Geom):
     recon merge (``tpu_vp9/pipeline/tpu_encdec.py:pframe_step``).
 
     Costs are dist + lam * rate in float32 (rate in nonzero-level counts,
-    the split paying SPLIT_RATE_EXTRA more), strict '<' for the split.
+    the split paying SPLIT_RATE_EXTRA more), strict '<' for the split. A
+    parent in the overhang row (mi_rows % 4 == 3) keeps its 32 whatever
+    the costs: its children would need the forced edge partition, which
+    ``walk_partition_split`` does not write. The JAX package keeps those
+    parents out through the descent's ranking alone, which selects them
+    once K passes the other parents (always at ``descend_frac=1``).
     Removes dist4, rate4 and the merged recon blocks from ``out16``.
     Returns (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v)."""
     g = geom
@@ -1452,6 +1530,8 @@ def split_decide(out32, out16, lam: int, geom: Geom):
                + lam_f * out32["rate_b"][sel].to(torch.float32))
     cost16k = d16 + lam_f * (rt16 + SPLIT_RATE_EXTRA)
     use16 = cost16k < cost32k  # (K,)
+    if g.mi_rows % 4 == 3:
+        use16 = use16 & (sel < (r32 - 1) * c32)
     split32 = torch.zeros((b32,), dtype=torch.int32, device=sel.device)
     split32[sel] = use16.to(torch.int32)
 
@@ -1469,24 +1549,26 @@ def split_decide(out32, out16, lam: int, geom: Geom):
 def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                 prev_mv16, geom: Geom, dc_q: int, ac_q: int, lam: int,
                 lf_lvl: int, lf_lim: int, lf_mblim: int, filters, new_bits,
-                split16: bool = False, gold=None, rates=None):
+                split16: bool = False, gold=None, alt=None, rates=None,
+                descend_frac: int = DESCEND_FRAC):
     """One device P-frame encode step (the JAX package's ``pframe_step``
-    without ALTREF or ``aq``).
+    without ``aq``).
 
     src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 device
     tensors; ref planes: the border-extended previous reconstruction.
     prev_mv32, prev_mv16: (B, 2) int32 q3 MVs of the previous frame, of
     the 32 grid and of the strip's 16x16 blocks (read at a strip geometry
-    only). split16: descend the B32 // DESCEND_FRAC parents of the largest
-    distortion (GOLDEN parents and the overhang row never) and decide 32
-    against 4x16 for each; a ValueError with a strip geometry, as in the
-    JAX package. gold: optional GOLDEN planes. rates: optional
-    ``upload_rate_tabs``.
+    only). split16: descend the B32 // descend_frac parents of the largest
+    distortion and decide 32 against 4x16 for each (with GOLDEN, the
+    parents that took another reference rank last, as does the overhang
+    row, which keeps its 32); a ValueError with a strip geometry, as in
+    the JAX package. gold: optional GOLDEN planes; alt: optional ALTREF
+    planes (needs ``rates``). rates: optional ``upload_rate_tabs``.
     Returns (outputs dict, new border-extended (ref_y, ref_u, ref_v));
     outputs hold the "m32" zone, at a strip geometry the strip's "m16",
     with split16 the children "m16f" and "split32", and the loop-filtered
     padded recon planes "rec_y"/"rec_u"/"rec_v". The references are new
-    tensors.
+    tensors: the inputs are never written.
     """
     g = geom
     if split16 and g.strip:
@@ -1494,7 +1576,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                          "geometry")
     out32 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         prev_mv32, g, dc_q, ac_q, lam, filters, new_bits,
-                        gold=gold, rates=rates, return_me=split16)
+                        gold=gold, alt=alt, rates=rates, return_me=split16)
     outs = {"m32": out32}
     rec_y, rec_u, rec_v = out32["rec_y"], out32["rec_u"], out32["rec_v"]
     split32 = None
@@ -1509,7 +1591,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                 score = score.clone()
                 score[-g.cols32:] = -1
             sel_idx = descent_parents(score,
-                                      max(1, g.n_blocks32 // DESCEND_FRAC))
+                                      max(1, g.n_blocks32 // descend_frac))
         out16 = encode_children_masked(
             src_y, src_u, src_v, ref_y, parent_me,
             out32["mv"].to(torch.int32), sel_idx, g, dc_q, ac_q, lam,
@@ -1522,7 +1604,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     if g.strip:
         out16 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                             prev_mv16, g, dc_q, ac_q, lam, filters, new_bits,
-                            gold=gold, rates=rates, n=16)
+                            gold=gold, alt=alt, rates=rates, n=16)
         outs["m16"] = out16
         rec_y = torch.cat([rec_y, out16["rec_y"]])
         rec_u = torch.cat([rec_u, out16["rec_u"]])
@@ -1545,39 +1627,50 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
 
 
 def make_pframe_step(geom: Geom, device, split16: bool = False,
-                     golden: bool = False, with_rates: bool = False):
+                     golden: bool = False, with_rates: bool = False,
+                     altref: bool = False,
+                     descend_frac: int = DESCEND_FRAC):
     """The step for one geometry on one device, with the filter taps and
     the NEWMV rate-proxy table uploaded once:
 
         step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
              [gold_y, gold_u, gold_v,]          # golden
+             [alt_y, alt_u, alt_v,]             # altref
              prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
-             lf_mblim [, rates])                 # golden or with_rates
+             lf_mblim [, rates])                 # golden, altref or
+                                                 # with_rates
 
     ``rates`` is ``upload_rate_tabs(make_rate_tabs(fc, qindex), device)``;
-    as in the JAX package a GOLDEN step always takes them. ``prev_mv16``
-    is the strip's previous MVs, (cols16, 2), read at a strip geometry
-    only (the JAX session passes a (1, 2) placeholder without a strip).
-    It runs eagerly; there is nothing to compile."""
+    as in the JAX package a GOLDEN or ALTREF step always takes them.
+    ``prev_mv16`` is the strip's previous MVs, (cols16, 2), read at a
+    strip geometry only (the JAX sessions pass a (1, 2) placeholder
+    without a strip). With split16 the descent takes the B32 //
+    ``descend_frac`` parents (1: every parent, the random-access
+    session's). It runs eagerly; there is nothing to compile."""
     device = torch.device(device)
     filters = torch.as_tensor(np.asarray(FILTERS, np.int32), device=device)
     new_bits = new_bits_table(device)
-    with_rates = with_rates or golden
-    n_fixed = 14 + (3 if golden else 0) + (1 if with_rates else 0)
+    with_rates = with_rates or golden or altref
+    n_refs = 3 * (1 + int(golden) + int(altref))
+    n_fixed = 11 + n_refs + (1 if with_rates else 0)
 
-    def step(src_y, src_u, src_v, ref_y, ref_u, ref_v, *rest):
-        if len(rest) + 6 != n_fixed:
+    def step(src_y, src_u, src_v, *rest):
+        if len(rest) + 3 != n_fixed:
             raise TypeError(f"step takes {n_fixed} arguments, got "
-                            f"{len(rest) + 6}")
-        gold = tuple(rest[:3]) if golden else None
-        rest = rest[3:] if golden else rest
+                            f"{len(rest) + 3}")
+        refs = [tuple(rest[i:i + 3]) for i in range(0, n_refs, 3)]
+        ref_y, ref_u, ref_v = refs.pop(0)
+        gold = refs.pop(0) if golden else None
+        alt = refs.pop(0) if altref else None
+        rest = rest[n_refs:]
         rates = rest[8] if with_rates else None
         (prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
          lf_mblim) = rest[:8]
         return pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                            prev_mv32, prev_mv16, geom, dc_q, ac_q, lam,
                            lf_lvl, lf_lim, lf_mblim, filters, new_bits,
-                           split16=split16, gold=gold, rates=rates)
+                           split16=split16, gold=gold, alt=alt, rates=rates,
+                           descend_frac=descend_frac)
 
     return step
 
