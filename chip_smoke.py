@@ -87,11 +87,29 @@ Phases, each of which raises on failure (nothing is caught):
      each with its launch counts per P-frame and per keyframe asserted
      (the strip zone's search, quarter-pel search, transforms and SSEs;
      the keyframe strip's five transforms and one block_energy), decode
-     bit-exact, fps, step time, send split, profile: 720p M8 and M9 on
+     bit-exact, fps, step time (by hand, and by
+     RtSession.measure_step_fps), send split, profile: 720p M8 and M9 on
      panning_frames(1280, 720, 10), each also on the CPU for the first
      CPU_FRAMES (identical packets), and 4K M8 on panning_frames(3840,
      2160, 6);
- 10. random access, the encoder's default configuration (4 hierarchical
+ 10. rate control, low delay: 1080p M8 at CBR (2,000,000 b/s) and M9 at
+     VBR (4,000,000 b/s), 30 fps, the default VBV and intra period, on 30
+     frames of panning_frames(1920, 1080, 30, seed=1) through the public
+     encoder, the session holding the controller and serializing inline:
+     launches per P-frame and keyframe as at CQP, decode bit-exact, the
+     qindex of every frame (it must move), the achieved bitrate against
+     the target and the VBV violations, bytes per frame, Y PSNR, fps over
+     the P-frames, the send split by the spans of phase 3 and
+     rt_serialize_native; the first RC_SAME_FRAMES again on the CPU
+     (identical packets and qindexes); the CBR one also under the profiler
+     (three P-frames); then bench.py's 4K field: RtSession(3840, 2160,
+     intra_period=-1, want_recon=False, golden=True) on
+     synthetic_frames(3840, 2160, 12, seed=0, motion=True) at qindex 160,
+     fed Frame420s, then the same session's P-frames staged on the card
+     (launches asserted, identical packets), the single-stream fps, and
+     two sessions interleaved on the staged frames (identical packets each),
+     their aggregate fps;
+ 11. random access, the encoder's default configuration (4 hierarchical
      levels, mini-GOPs of 16, enc_mode 9, CQP qp 40, intra period -1)
      through the public encoder, on the device RA session (ALTREF,
      GOLDEN, at 1080p the descent over every parent): 1080p on
@@ -112,7 +130,7 @@ Phases, each of which raises on failure (nothing is caught):
      profiler; at both sizes the RA session on the CPU and the card on
      the first RA_SAME_FRAMES frames with mini-GOPs of RA_SAME_GOP,
      identical packets;
- 11. M7 (the host encode with the device full-pel search): end to end,
+ 12. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -126,6 +144,10 @@ and one P-frame are encoded for loop_filter's real input) and prints
 neither JSON line.
 
     python3 chip_smoke.py --ra
+
+runs phase 11 alone after the builds, and prints neither JSON line.
+
+    python3 chip_smoke.py --rc
 
 runs phase 10 alone after the builds, and prints neither JSON line.
 """
@@ -305,6 +327,19 @@ KEY_STRIP_LAUNCHES = {"kframe_wave": 1, "transform_recon": 5,
                       "block_energy": 1, "loop_filter": 1}
 # a profile's warm-up before the work it reports (_profile)
 WARM_SPINS, WARM_WAIT_S = 32, 0.05
+# rate control in low delay (RateControlMode: VBR 1, CBR 2), every encode's
+# frame rate, and the rate-control phase: 1080p M8 at CBR and M9 at VBR, by
+# their target bits per second, on RC_FRAMES frames at the default intra
+# period (31 at 30 fps) and VBV (twice the target at CBR); the first
+# RC_SAME_FRAMES again on the CPU
+RC_VBR, RC_CBR, RC_FPS = 1, 2, 30
+RC_FRAMES, RC_SAME_FRAMES = 30, 5
+RC_CASES = (("1080p m8 cbr", 8, RC_CBR, 2_000_000),
+            ("1080p m9 vbr", 9, RC_VBR, 4_000_000))
+# bench.py's 4K single- and dual-stream field: RtSession(intra_period=-1,
+# want_recon=False, golden=True) on synthetic_frames(3840, 2160, 12, seed=0,
+# motion=True) at qindex 160, the P-frames' sources staged on the card
+STAGED_DIMS, STAGED_FRAMES, STAGED_QINDEX = (3840, 2160), 12, 160
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float):
@@ -2045,19 +2080,24 @@ def _dims(frames):
     return w, h
 
 
-def _make_encoder(device, enc_mode, dims=(WIDTH, HEIGHT)):
+def _make_encoder(device, enc_mode, dims=(WIDTH, HEIGHT), rc=None):
+    """The public encoder in low delay at the default intra period: CQP at
+    QP, or ``rc`` = (RC_VBR or RC_CBR, target bits per second), with the
+    default VBV (twice the target at CBR)."""
     from tpu_vp9_torch.api import Vp9Encoder
     from tpu_vp9_torch.config import (
         EncoderConfig, PredStructure, RateControlMode,
     )
 
+    mode, tbr = rc or (RateControlMode.CQP, None)
     enc = Vp9Encoder(device=device)
     # recon_file keeps get_recon on the realtime path; nothing is written
     enc.set_parameter(EncoderConfig(
         source_width=dims[0], source_height=dims[1], enc_mode=enc_mode,
         pred_structure=PredStructure.LOW_DELAY_P,
-        rate_control_mode=RateControlMode.CQP, qp=QP, frame_rate=30,
-        recon_file="unused.yuv"))
+        rate_control_mode=RateControlMode(mode), qp=QP, frame_rate=RC_FPS,
+        recon_file="unused.yuv",
+        **({} if tbr is None else {"target_bit_rate": tbr})))
     enc.init()
     return enc
 
@@ -2076,13 +2116,13 @@ def _capture(enc):
     return got
 
 
-def _encode(device, frames, enc_mode):
+def _encode(device, frames, enc_mode, rc=None):
     """Encode frames one by one. Returns (packets, recons, per-send rows
     (index, seconds, {stage: seconds} from the tracer's spans), the
     encoder, seconds from the first P-frame's send to the end of flush)."""
     from tpu_vp9_torch.utils import trace
 
-    enc = _make_encoder(device, enc_mode, _dims(frames))
+    enc = _make_encoder(device, enc_mode, _dims(frames), rc)
     got = _capture(enc)
     rows = []
     t_p = None
@@ -2170,14 +2210,17 @@ def _stage_means(rows):
 # serializer runs on the session's worker, beside them)
 SEND_SPANS = ("rt_device_step", "rt_stage", "rt_rate_args", "api_scene_cut",
               "api_frame_qindex", "rt_d2h_transfer")
+# with a rate controller the previous frame's native serialization runs
+# inline, inside the send
+RC_SPANS = SEND_SPANS + ("rt_serialize_native",)
 
 
-def _send_split(rows):
-    """A P-frame send's mean host time split by SEND_SPANS, and what none
+def _send_split(rows, spans=SEND_SPANS):
+    """A P-frame send's mean host time split by ``spans``, and what none
     of them covers."""
     send = 1000 * statistics.mean(r[1] for r in rows)
     means = {k: 1000 * statistics.mean(r[2].get(k, 0.0) for r in rows)
-             for k in SEND_SPANS}
+             for k in spans}
     return (f"send {send:.1f} ms split (mean, host clock): "
             + ", ".join(f"{k} {v:.2f}" for k, v in means.items())
             + f"; outside them {send - sum(means.values()):.1f} ms")
@@ -2286,6 +2329,12 @@ def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None):
     print(f"{tag}: device step alone {step_ms:.3f} ms per P-frame "
           f"({1000 / step_ms:.2f} steps/s; host clock over 10 steps, "
           "synchronized)")
+    fps = enc._rt.measure_step_fps(frames[-1], iters=10,
+                                   qindex=qp_to_qindex(QP))
+    print(f"{tag}: RtSession.measure_step_fps: {fps:.2f} steps/s "
+          f"({1000 / fps:.3f} ms a step; 10 steps on a copy of the "
+          "references, zero previous MVs, synchronized)")
+    enc.close()
     return pkts, recons, counts
 
 
@@ -2438,14 +2487,15 @@ def _profile_until_complete(dev, runs, label, need):
                          f"record of every kernel of {sorted(need)}")
 
 
-def realtime_profile_phase(dev, frames, enc_mode, per=3, label="1080p"):
+def realtime_profile_phase(dev, frames, enc_mode, per=3, label="1080p",
+                           rc=None):
     """Key and ``per`` - 1 P-frames to warm up, then ``per`` P-frame sends
-    (each issues its step and fetches and hands on the previous frame)
-    under the profiler, and ``per`` more if that profile lacks a hand
-    kernel's record."""
+    (each issues its step and fetches the previous frame, and serializes it
+    or hands it on) under the profiler, and ``per`` more if that profile
+    lacks a hand kernel's record."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    enc = _make_encoder(dev, enc_mode, _dims(frames))
+    enc = _make_encoder(dev, enc_mode, _dims(frames), rc)
     for frame in frames[:per]:
         enc.send_picture(frame)
     torch.cuda.synchronize(dev)
@@ -2558,6 +2608,179 @@ def same_bytes_phase(label, frames, cuda_pkts, enc_mode):
                                  "differ")
     print(f"{label} same bytes: the first {CPU_FRAMES} packets are identical "
           "on cpu and cuda")
+
+
+def _want_launches(geom, enc_mode, n_p, n_k, counts):
+    """Launches by wrapper for ``n_p`` P-frames and ``n_k`` keyframes of
+    the realtime session at ``geom`` (no txq_cost: no encode path calls
+    it)."""
+    per_p, per_key = _path_launches(geom, enc_mode)
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * n_p for k, v in per_p.items() if k != "txq_cost"}}
+    for k, v in per_key.items():
+        want[k] += v * n_k
+    return want
+
+
+def rc_phase(dev, frames, tag, enc_mode, rc_mode, tbr):
+    """Low delay at VBR or CBR through the public encoder: the session
+    holds the controller and serializes inline; launches per P-frame and
+    keyframe as at CQP; decode bit-exact; the qindex of every frame, the
+    achieved bitrate against the target, VBV violations, bytes, PSNR, fps
+    over the P-frames and the send split by RC_SPANS."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.utils import trace
+
+    geom = P.make_geom(*_dims(frames))
+    trace.enable(True)
+    _reset_counts()
+    pkts, recons, rows, enc, p_seconds = _encode(dev, frames, enc_mode,
+                                                 (rc_mode, tbr))
+    counts = _read_counts()
+    trace.enable(False)
+    rc = enc._rc
+    if enc._rt.rc is not rc or enc._rt._ser_async:
+        raise AssertionError(f"{tag}: the session does not hold the "
+                             "controller, or serializes on a worker")
+    n_p = sum(not p.is_keyframe for p in pkts)
+    n_k = len(pkts) - n_p
+    want = _want_launches(geom, enc_mode, n_p, n_k, counts)
+    print(f"{tag}: {len(pkts)} frames ({n_k} key, {n_p} P) at "
+          f"{geom.width}x{geom.height} M{enc_mode} low-delay "
+          f"{'CBR' if rc_mode == RC_CBR else 'VBR'} {tbr} b/s at {RC_FPS} "
+          f"fps: launches {counts}")
+    if n_p == 0 or n_k == 0 or counts != want:
+        raise AssertionError(f"launches {counts} != {want} for {n_k} "
+                             f"keyframes and {n_p} P-frames")
+    if rc.frames_coded != len(pkts):
+        raise AssertionError(f"{tag}: the controller was fed "
+                             f"{rc.frames_coded} times for {len(pkts)} frames")
+    qidx = [p.qindex for p in pkts]
+    if len(set(qidx)) < 3:
+        raise AssertionError(f"{tag}: the controller hardly moved the "
+                             f"qindex: {qidx}")
+    psnrs = _decode_check(pkts, recons, frames)
+    rate = rc.total_bits * RC_FPS / len(pkts)
+    print(f"{tag}: qindex per frame min {min(qidx)} max {max(qidx)}: {qidx}")
+    print(f"{tag}: {rate:.1f} b/s achieved against a target of {tbr} "
+          f"({100 * rate / tbr:.3f}%); VBV violations {rc.vbv_violations} "
+          f"(buffer {rc.buffer_size:.0f} bits, its level at the end "
+          f"{rc.buffer_level:.0f})")
+    print(_stream_line(f"{tag}: decode bit-exact to recon", pkts, psnrs))
+    print(f"{tag}: keyframe send {rows[0][1] * 1000:.1f} ms; "
+          f"{n_p / p_seconds:.3f} fps over the P-frames (first P send to "
+          f"end of flush, {p_seconds:.3f} s)")
+    print(f"{tag}: " + _send_split(rows[2:], RC_SPANS))
+    enc.close()
+    return pkts, counts
+
+
+def rc_same_bytes_phase(tag, frames, cuda_pkts, enc_mode, rc_mode, tbr):
+    """The first RC_SAME_FRAMES frames again with device="cpu": the same
+    packets and qindexes."""
+    t0 = time.perf_counter()
+    pkts = _encode("cpu", frames[:RC_SAME_FRAMES], enc_mode,
+                   (rc_mode, tbr))[0]
+    if len(pkts) != RC_SAME_FRAMES:
+        raise AssertionError(f"{tag}: {len(pkts)} CPU packets")
+    for idx, (a, b) in enumerate(zip(pkts, cuda_pkts)):
+        if (a.data, a.qindex) != (b.data, b.qindex):
+            raise AssertionError(f"{tag} frame {idx}: CPU and CUDA packets "
+                                 "or qindexes differ")
+    print(f"{tag} same bytes: the first {RC_SAME_FRAMES} packets and "
+          f"qindexes are identical on cpu ({time.perf_counter() - t0:.1f} s) "
+          "and cuda")
+
+
+def staged_4k_phase(dev):
+    """bench.py's 4K field: a session fed Frame420s, then the same session
+    fed the P-frames staged on the card (counted: launches per P-frame and
+    keyframe asserted; the same packets), single-stream fps over the last
+    STAGED_FRAMES - 3 sends and the flush; then two sessions interleaved on
+    the staged frames (the same packets each), their aggregate fps."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline.realtime import RtSession
+    from tpu_vp9_torch.utils.yuv import synthetic_frames
+
+    w, h = STAGED_DIMS
+    q = STAGED_QINDEX
+    frames = list(synthetic_frames(w, h, STAGED_FRAMES, seed=0, motion=True))
+
+    def session():
+        return RtSession(w, h, device=dev, intra_period=-1, want_recon=False,
+                         golden=True)
+
+    def payloads(efs):
+        return [e.payload for e in efs]
+
+    ref = session()
+    want_out = []
+    for frame in frames:
+        want_out += ref.send(frame, qindex=q)
+    want_out += ref.flush()
+    ref.close()
+    sess = session()
+    _reset_counts()
+    out = sess.send(frames[0], qindex=q)
+    staged = [sess.stage(f) for f in frames[1:]]
+    for src in staged[:2]:
+        out += sess.send(src, qindex=q)
+    t0 = time.perf_counter()
+    for src in staged[2:]:
+        out += sess.send(src, qindex=q)
+    out += sess.flush()
+    single = len(staged[2:]) / (time.perf_counter() - t0)
+    counts = _read_counts()
+    sess.close()
+    want = _want_launches(P.make_geom(w, h), 8, STAGED_FRAMES - 1, 1, counts)
+    print(f"4K staged: {STAGED_FRAMES} frames (1 key) at {w}x{h}, GOLDEN, "
+          f"qindex {q}, staged P-frames: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launches {counts} != {want}")
+    if payloads(out) != payloads(want_out):
+        raise AssertionError("4K staged: the packets of staged input differ "
+                             "from those of Frame420 input")
+    pair = (session(), session())
+    outs = ([], [])
+    for s, o in zip(pair, outs):
+        o += s.send(frames[0], qindex=q)
+        for src in staged[:2]:
+            o += s.send(src, qindex=q)
+    t0 = time.perf_counter()
+    for src in staged[2:]:
+        for s, o in zip(pair, outs):
+            o += s.send(src, qindex=q)
+    for s, o in zip(pair, outs):
+        o += s.flush()
+    dual = 2 * len(staged[2:]) / (time.perf_counter() - t0)
+    for s in pair:
+        s.close()
+    if any(payloads(o) != payloads(want_out) for o in outs):
+        raise AssertionError("4K dual: a session's packets differ")
+    total = sum(len(p) for p in payloads(out))
+    print(f"4K staged: packets identical to Frame420 input and in both "
+          f"interleaved sessions; {total / len(out):.1f} B/frame; "
+          f"single stream {single:.3f} fps, dual (two sessions "
+          f"interleaved) {dual:.3f} fps aggregate (host clock over "
+          f"{len(staged[2:])} sends each and the flush)")
+    return counts
+
+
+def rc_phases(dev, paths):
+    """Rate control in low delay (RC_CASES, the CBR one also profiled) and
+    the 4K staged field; each path's counts set to 0 just before it and
+    read just after, into ``paths``."""
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    frames = list(panning_frames(WIDTH, HEIGHT, RC_FRAMES, seed=1))
+    for tag, enc_mode, rc_mode, tbr in RC_CASES:
+        pkts, paths[tag] = rc_phase(dev, frames, tag, enc_mode, rc_mode, tbr)
+        rc_same_bytes_phase(tag, frames, pkts, enc_mode, rc_mode, tbr)
+        if rc_mode == RC_CBR:
+            realtime_profile_phase(dev, frames, enc_mode, 3, "1080p CBR",
+                                   (rc_mode, tbr))
+    del frames
+    paths["4K staged"] = staged_4k_phase(dev)
 
 
 # random access, the encoder's default configuration (4 hierarchical
@@ -3034,6 +3257,11 @@ def main() -> int:
         print(f"chip_smoke: the random-access phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--ra: stopping)")
         return 0
+    if "--rc" in sys.argv[1:]:
+        rc_phases(dev, {})
+        print(f"chip_smoke: the rate-control and staged phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--rc: stopping)")
+        return 0
 
     real, real_frames, real_recons = _real_m8_inputs(dev)
     kernels = {k["name"]: k for k in (
@@ -3082,6 +3310,7 @@ def main() -> int:
             if label == "720p":
                 same_bytes_phase(tag, sframes, pkts, mode)
         del sframes, pkts
+    rc_phases(dev, paths)
     ra_phases(dev, kernels, paths)
     for name, k in kernels.items():
         k["launches_by_path"] = {

@@ -26,7 +26,8 @@ EXACT = [
     "ops/hme.py", "config.py",
     "pipeline/presets.py", "pipeline/rate_control.py",
     "pipeline/picture_decision.py", "pipeline/picture_analysis.py",
-    "pipeline/rc_curves.py", "pipeline/gop.py", "utils/trace.py",
+    "pipeline/rc_curves.py", "pipeline/gop.py", "pipeline/speed_control.py",
+    "utils/trace.py",
 ]
 
 # module -> (why it differs, names of the source it drops on purpose)
@@ -52,7 +53,8 @@ CHANGED = {
                      "motion)", ()),
     "api.py": (
         "the port's own Vp9Encoder(device): the host random-access "
-        "engine, speed control and meshes raise NotImplementedError",
+        "engine, speed control on the host route and meshes raise "
+        "NotImplementedError",
         ()),
     "app.py": (
         "the port's own CLI: -device added; -nch, -gop-parallel and "

@@ -622,21 +622,21 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
     dict(enc_mode=8, tune=Tune.SQ),
     dict(enc_mode=8, tpu_realtime=0),
-    dict(enc_mode=8, rate_control_mode=RateControlMode.CBR,
-         target_bit_rate=200_000),
     dict(enc_mode=8, source_width=112),
     dict(enc_mode=8, tpu_mesh_shape=(1, 2)),
     dict(enc_mode=9, tpu_realtime=0),
-    dict(enc_mode=9, rate_control_mode=RateControlMode.VBR,
-         target_bit_rate=200_000),
     dict(enc_mode=9, source_width=112),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
          tpu_realtime=0),
     dict(speed_control=True),
+    dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
+         speed_control=True),
+    dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
+         rate_control_mode=RateControlMode.VBR, target_bit_rate=200_000),
     dict(tpu_mesh_shape=(1, 2)),
-], ids=["random_access", "m8", "m8_rt0", "m8_cbr", "m8_width_not_32",
-        "m8_mesh", "m9", "m9_vbr", "m9_width_not_32", "m9_ra_rt0",
-        "speed_control", "mesh"])
+], ids=["random_access", "m8", "m8_rt0", "m8_width_not_32", "m8_mesh", "m9",
+        "m9_width_not_32", "m9_ra_rt0", "speed_control",
+        "m9_ra_speed_control", "m9_ra_vbr", "mesh"])
 def test_unported_routes_raise(kw):
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(**kw))
@@ -689,6 +689,30 @@ def test_app_default_takes_the_ra_route(tmp_path):
         assert len(list(decode_ivf(fh))) == 6
 
 
+@pytest.mark.parametrize("enc_mode,kw", [
+    (8, dict(rate_control_mode=RateControlMode.CBR, target_bit_rate=200_000)),
+    (9, dict(rate_control_mode=RateControlMode.VBR, target_bit_rate=200_000)),
+    (8, dict(speed_control=True)),
+    (9, dict(speed_control=True)),
+], ids=["m8_cbr", "m9_vbr", "m8_speed_control", "m9_speed_control"])
+def test_rc_and_speed_control_routes_are_taken(enc_mode, kw):
+    """Low delay at enc_mode 8 and 9 with VBR/CBR or speed control, refused
+    until the rest of the realtime session was ported, now takes it: the
+    session holds the encoder's rate controller (VBR/CBR; none at CQP), and
+    the encoder a speed controller from the configured mode."""
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(_slice_cfg(enc_mode=enc_mode, **kw))
+    enc.init()
+    assert enc._rt is not None and enc._ra_dev is None
+    rc = "rate_control_mode" in kw
+    assert enc._rt.rc is (enc._rc if rc else None)
+    assert enc._rt._ser_async == (not rc)
+    assert (enc._sc is not None) == ("speed_control" in kw)
+    if enc._sc is not None:
+        assert enc._sc.base_mode == enc_mode
+    enc.close()
+
+
 @pytest.mark.parametrize("enc_mode", [8, 9], ids=["m8_strip", "m9_strip"])
 def test_strip_routes_are_taken(enc_mode):
     """A strip geometry (128x112: mi_rows 14, mi_rows % 4 == 2), refused
@@ -709,11 +733,12 @@ def test_strip_routes_are_taken(enc_mode):
     (["-distributed", "localhost:1234,2,0"], "-distributed"),
     (["-enc-mode", "9", "-pred-struct", "0", "-rt", "0"], "tpu_realtime 0"),
     (["-enc-mode", "8", "-pred-struct", "0", "-tune", "0"], "tune SQ"),
-    (["-enc-mode", "8", "-pred-struct", "0", "-rc", "1"], "rate control"),
+    (["-enc-mode", "7", "-pred-struct", "0", "-speed-ctrl", "1"],
+     "item 10a"),
     (["-enc-mode", "7"], "item 10"),
     (["-rc", "1"], "item 10"),
-], ids=["gop_parallel", "nch", "distributed", "m9", "m8", "m8_vbr",
-        "ra_m7", "ra_vbr"])
+], ids=["gop_parallel", "nch", "distributed", "m9", "m8",
+        "m7_speed_control", "ra_m7", "ra_vbr"])
 def test_app_refuses_unported_options(tmp_path, flags, why):
     from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
@@ -763,6 +788,33 @@ def test_app_encodes_m8_on_cpu_device(tmp_path):
         [sys.executable, "-m", "tpu_vp9_torch.app", "-i", str(clip), "-b",
          str(out), "-enc-mode", "8", "-pred-struct", "0", "-q", "40",
          "-device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "SUMMARY: 4 frames" in res.stdout
+    with open(out, "rb") as fh:
+        assert len(list(decode_ivf(fh))) == 4
+
+
+@pytest.mark.parametrize("flags", [
+    ["-enc-mode", "8", "-rc", "2", "-tbr", "150000"],
+    ["-enc-mode", "8", "-rc", "1", "-tbr", "150000"],
+    ["-enc-mode", "9", "-speed-ctrl", "1"],
+], ids=["m8_cbr", "m8_vbr", "m9_speed_control"])
+def test_app_encodes_rc_and_speed_control_on_cpu_device(tmp_path, flags):
+    """Low delay at VBR/CBR and with speed control through the CLI (the M8
+    VBR line was refused until the session's rate control was ported),
+    decoded back, every frame."""
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
+
+    clip = tmp_path / "clip.y4m"
+    out = tmp_path / "out.ivf"
+    with open(clip, "wb") as fh:
+        write_y4m(fh, synthetic_frames(128, 96, 4, motion=True))
+    res = subprocess.run(
+        [sys.executable, "-m", "tpu_vp9_torch.app", "-i", str(clip), "-b",
+         str(out), "-pred-struct", "0", *flags, "-device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-2000:]

@@ -239,10 +239,14 @@ def test_port_session_python_serializer_matches_native(monkeypatch, er):
 
 
 def test_port_session_refuses_unported_configurations():
-    for kw in (dict(golden=True, aq=True), dict(mesh_shape=(1, 2)),
-               dict(rc=object())):
+    for kw in (dict(golden=True, aq=True), dict(mesh_shape=(1, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PortSession(128, 96, device="cpu", **kw)
+    # a rate controller is taken, and the session serializes inline
+    rc = object()
+    sess = PortSession(128, 96, device="cpu", rc=rc)
+    assert sess.rc is rc and not sess._ser_async and sess._ser_pool is None
+    sess.close()
     # a strip geometry is taken (the descent off, as in the JAX session)
     strip = PortSession(128, 112, device="cpu", split16=True, golden=True)
     assert strip.g.strip and not strip.split16

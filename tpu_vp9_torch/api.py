@@ -2,14 +2,18 @@
 
 The counterpart of ``tpu_vp9/api.py`` (set_parameter -> init ->
 send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
-  - enc_mode 8 and 9 (LOW_DELAY_P or no hierarchical levels, CQP,
-    tpu_realtime != 0) run the realtime session of
+  - enc_mode 8 and 9 (LOW_DELAY_P or no hierarchical levels, CQP, VBR
+    or CBR, tpu_realtime != 0) run the realtime session of
     ``pipeline/realtime.py``, whose P-frame step runs on that device:
     enc_mode 9 on the uniform 32 grid with LAST only, enc_mode 8 with
     rate tables, the GOLDEN anchor and the 32-against-16 descent
     (``RtSession(split16=True, golden=True)``); at a strip geometry
     (mi_rows % 4 == 2: 720p, 4K) the steps add the bottom 16-pixel strip's
-    16x16 blocks and the descent is off, as in the JAX package;
+    16x16 blocks and the descent is off, as in the JAX package. At VBR
+    and CBR the session holds the rate controller (its qindex per frame,
+    its feedback after each serialization); speed control tracks the
+    achieved fps there, as in the JAX package, where the session reads
+    none of the preset it re-derives;
   - random access with hierarchical levels (the configuration's
     default) at enc_mode 8 and 9, CQP, tpu_realtime != 0, with no recon
     file, speed control, mesh or qp override at ``init``, runs the
@@ -22,13 +26,15 @@ send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
 Routes not ported yet raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: any other random-access configuration (the host RA
 engine), enc_mode 8 at tune SQ (the adaptive lambda), enc_mode 8/9 with
-``-rt 0`` (the keyframe mode hints), with rate control, or at a geometry
-the realtime step does not take (width % 32 != 0, mi_rows % 4 == 1),
-speed control and multi-device meshes. No route falls back to another.
+``-rt 0`` (the keyframe mode hints) or at a geometry the realtime step
+does not take (width % 32 != 0, mi_rows % 4 == 1), speed control on the
+host route (it may step to enc_mode 8 or 9, whose keyframes need the
+hints) and multi-device meshes. No route falls back to another.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -50,6 +56,7 @@ from tpu_vp9_torch.pipeline.presets import derive_signals, qp_to_qindex
 from tpu_vp9_torch.pipeline.ra_device import DeviceRaSession
 from tpu_vp9_torch.pipeline.rate_control import RateControlState
 from tpu_vp9_torch.pipeline.realtime import RtSession
+from tpu_vp9_torch.pipeline.speed_control import SpeedControl
 from tpu_vp9_torch.pipeline.tpu_encdec import make_geom
 from tpu_vp9_torch.utils.device import require_cuda
 from tpu_vp9_torch.utils.trace import notice, span
@@ -76,6 +83,7 @@ class Vp9Encoder:
         self._sig = None
         self._rt = None
         self._ra_dev = None
+        self._sc = None
         self._refs = None
         self._golden_refs = None
         self._since_golden = 0
@@ -113,10 +121,14 @@ class Vp9Encoder:
         realtime = int(cfg.enc_mode) >= 8 and not ra
         if realtime:
             self._check_realtime(cfg)
-        if cfg.speed_control:
+        if cfg.speed_control and not realtime and not ra:
             raise NotImplementedError(
-                "tpu_vp9_torch: speed control is not ported yet "
-                "(ROADMAP.md Queue A item 6)")
+                f"tpu_vp9_torch: speed control at enc_mode "
+                f"{int(cfg.enc_mode)} (the host route) may step to enc_mode "
+                "8 or 9, whose host keyframes need the open-loop mode hints "
+                "of tpu_intra, not ported yet (ROADMAP.md Queue A item "
+                "10a); speed control runs on the realtime route (enc_mode "
+                "8 and 9, LOW_DELAY_P)")
         if cfg.tpu_mesh_shape:
             raise NotImplementedError(
                 "tpu_vp9_torch: multi-device meshes are not ported yet "
@@ -157,14 +169,21 @@ class Vp9Encoder:
             self._dts_offset = -(1 << cfg.hierarchical_levels) + 1
         if realtime:
             m8 = int(cfg.enc_mode) == 8
+            # VBR/CBR: the session picks each frame's qindex and feeds the
+            # controller after each serialization
             self._rt = RtSession(
                 cfg.source_width, cfg.source_height, device=self.device,
                 intra_period=cfg.intra_period,
+                rc=(self._rc if cfg.rate_control_mode != RateControlMode.CQP
+                    else None),
                 error_resilient=cfg.error_resilient,
                 frame_parallel_decoding=cfg.frame_parallel_decoding,
                 want_recon=cfg.recon_file is not None,
                 loop_filter=cfg.loop_filter, split16=m8, golden=m8,
                 aq=cfg.tune == Tune.SQ)
+            if cfg.speed_control:
+                self._sc = SpeedControl(target_fps=max(cfg.fps, 1.0),
+                                        base_mode=cfg.enc_mode)
         self._initialized = True
 
     def _check_device_ra(self, cfg) -> None:
@@ -202,10 +221,6 @@ class Vp9Encoder:
                 f"tpu_vp9_torch: enc_mode {mode} with tpu_realtime 0 (-rt 0) "
                 "runs the host encode with the tpu_intra keyframe hints, "
                 "not ported yet (ROADMAP.md Queue A item 10)")
-        if cfg.rate_control_mode != RateControlMode.CQP:
-            raise NotImplementedError(
-                "tpu_vp9_torch: the realtime session's rate control "
-                "(VBR/CBR) is not ported yet (ROADMAP.md Queue A item 6)")
         if mode == 8 and cfg.tune == Tune.SQ:
             raise NotImplementedError(
                 "tpu_vp9_torch: enc_mode 8 at tune SQ runs the step with "
@@ -219,6 +234,18 @@ class Vp9Encoder:
                 f"{cfg.source_width}x{cfg.source_height} ({exc}); the host "
                 "route for it is not ported (ROADMAP.md Queue A item 10)"
             ) from exc
+
+    def _speed_report(self, n_frames: int, seconds: float) -> None:
+        """Feed the speed controller; re-derive the preset's signals when
+        it changes the mode (the realtime session reads none of them)."""
+        if self._sc is None:
+            return
+        new_mode = self._sc.report(n_frames, seconds)
+        if new_mode is None:
+            return
+        from dataclasses import replace
+
+        self._sig = derive_signals(replace(self._cfg, enc_mode=new_mode))
 
     def close(self) -> None:
         if self._rt is not None:
@@ -258,6 +285,7 @@ class Vp9Encoder:
         cfg, sig, rc = self._cfg, self._sig, self._rc
         idx = self._frame_idx
         self._frame_idx += 1
+        sc_t0 = time.perf_counter()
         if self._ra_dev is not None:
             if force_keyframe and idx > 0:
                 notice("device RA session ignores mid-stream keyframe "
@@ -284,6 +312,7 @@ class Vp9Encoder:
                                     force_keyframe=is_key):
                 self._emit_rt(ef)
             self._ld_prev_y = frame.y
+            self._speed_report(1, time.perf_counter() - sc_t0)
             return
         h, w = frame.y.shape
         er = cfg.error_resilient
@@ -426,7 +455,8 @@ class Vp9Encoder:
 
     def _emit_rt(self, ef) -> None:
         """Book-keep one realtime-path EncodedFrame into the packet queue."""
-        self._rc.update(len(ef.payload) * 8, ef.is_keyframe)
+        if self._rt.rc is None:  # a session's controller had its feedback
+            self._rc.update(len(ef.payload) * 8, ef.is_keyframe)
         if self._rt.want_recon:
             st = ef.state
             h, w = self._cfg.source_height, self._cfg.source_width

@@ -12,13 +12,17 @@ encoder refuses.
 Usage (the default, random access with 4 hierarchical levels at enc_mode
 9: the ALTREF pyramids of the device random-access session on the card;
 M8: the realtime P-frame step with rate tables, the GOLDEN anchor and the
-32-against-16 descent on the card; M9: the uniform 32 grid; M7: the host
-encode with the full-pel search on the card):
+32-against-16 descent on the card; M9: the uniform 32 grid; in low delay
+M8 and M9 also at VBR (``-rc 1``) or CBR (``-rc 2``, a VBV of twice
+``-tbr`` unless ``-vbv-bufsize``) and with speed control (``-speed-ctrl
+1``); M7: the host encode with the full-pel search on the card):
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
       -pred-struct 0 -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 9 \
       -pred-struct 0 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
+      -pred-struct 0 -rc 2 -tbr 2000000
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 7 \
       -pred-struct 0 -q 40
 """

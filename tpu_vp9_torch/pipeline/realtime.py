@@ -22,11 +22,21 @@ whatever the worker has reached, so a stream does not depend on thread
 timing or on the device.
 
 The step for frame N is issued before frame N-1 is fetched and
-serialized, and serialization runs on a worker thread (CQP), as in the
-JAX package. On CUDA the fetch of frame N-1's outputs is a blocking copy
-that waits for frame N's step too; overlapping the two is later work.
-``flush`` drains the pipeline and leaves the session usable; ``close``
-stops the worker.
+serialized, as in the JAX package. At CQP serialization runs on a worker
+thread. With a rate controller (``rc``, VBR or CBR) it runs inline, after
+frame N's step is issued and frame N-1 fetched: ``rc.frame_qindex`` picks
+frame N's qindex before frame N-1's bits reach ``rc.update``, so the
+feedback lags one frame, as the JAX session's does, and the tables read
+the current context. Keyframes feed the controller too. On CUDA the fetch
+of frame N-1's outputs is a blocking copy that waits for frame N's step
+too; overlapping the two is later work. ``flush`` drains the pipeline and
+leaves the session usable; ``close`` stops the worker.
+
+``send`` takes a ``Frame420`` or a ``(y, u, v)`` tuple of padded device
+planes from ``stage`` (not for a keyframe). ``TPU_VP9_DESCEND_FRAC``
+overrides the descent's share (``DESCEND_FRAC``, 4; 1 descends every
+parent). ``measure_step_fps`` times the step alone; ``encode_stream_rt``
+encodes a list of frames through one session.
 
 At a strip geometry (mi_rows % 4 == 2: 720p, 4K) the steps add the bottom
 strip's 16x16 blocks (the outputs' "m16" zone, serialized with the 32
@@ -34,7 +44,7 @@ grid; the session keeps the strip's MVs as its temporal candidates,
 ``_prev_mv16``), and the descent is off, as in the JAX session.
 
 Not ported yet, and refused with NotImplementedError: the adaptive lambda
-(``aq`` with GOLDEN, tune SQ), meshes, rate control.
+(``aq`` with GOLDEN, tune SQ), meshes.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import functools
+import os
+import time
 
 import numpy as np
 import torch
@@ -60,10 +72,11 @@ from tpu_vp9_torch.ops.cuda_kernels import kf_check_status
 from tpu_vp9_torch.ops.loopfilter import pick_filter_level, sharpness_limits
 from tpu_vp9_torch.pipeline.encoder import EncodedFrame, _apply_loop_filter
 from tpu_vp9_torch.pipeline.tpu_encdec import (
-    Geom, extend_borders_device, make_geom, make_kframe_step,
+    DESCEND_FRAC, Geom, extend_borders_device, make_geom, make_kframe_step,
     make_pframe_step, make_rate_tabs, pad_plane, upload_rate_tabs,
 )
 from tpu_vp9_torch.utils.trace import span
+from tpu_vp9_torch.utils.yuv import Frame420
 
 LAST = int(RefFrame.LAST)
 _ZONE_KEYS = ("mv", "ref", "skip", "eob_y", "eob_u", "eob_v", "lv_y",
@@ -324,10 +337,6 @@ class RtSession:
             raise NotImplementedError(
                 "tpu_vp9_torch RtSession: meshes are not ported yet "
                 "(ROADMAP.md Queue A item 11)")
-        if rc is not None:
-            raise NotImplementedError(
-                "tpu_vp9_torch RtSession: rate control is not ported yet "
-                "(ROADMAP.md Queue A item 6)")
         if aq and golden:
             # without GOLDEN the JAX session drops aq too (aq=aq and golden)
             raise NotImplementedError(
@@ -347,8 +356,13 @@ class RtSession:
         # long-term GOLDEN anchor on the device with per-block ref choice
         self.golden = golden
         self.golden_interval = golden_interval
+        # the descent's budget: the B32 // descend_frac parents of the
+        # largest distortion; 1 descends every parent
+        dfrac = int(os.environ.get("TPU_VP9_DESCEND_FRAC",
+                                   str(DESCEND_FRAC)))
         self._step = make_pframe_step(self.g, self.device,
-                                      split16=self.split16, golden=golden)
+                                      split16=self.split16, golden=golden,
+                                      descend_frac=dfrac)
         # the device keyframe, as the JAX session always takes it; None
         # selects the host encoder
         self._kstep = make_kframe_step(self.g, self.device)
@@ -367,14 +381,19 @@ class RtSession:
             (self.g.cols16 if self.g.strip else 1, 2), dtype=torch.int32,
             device=self.device)
         self._pending = None  # (frame, idx, hdr, device outs, qidx)
+        self._zero = None  # the stand-in Frame420 of staged input
         self._prev_snap = None  # mv snapshot of the last serialized frame
         self._last_was_inter = False
         self._idx = 0
-        # frame N-1's host serialization runs on a worker while frame N's
-        # step runs; device fetches stay on the calling thread. The rate
-        # tables always read the frame context captured at the last join
-        # (the state after frame N-2): the same whatever the thread timing
-        self._ser_pool = cf.ThreadPoolExecutor(max_workers=1)
+        # at CQP frame N-1's host serialization runs on a worker while
+        # frame N's step runs; device fetches stay on the calling thread.
+        # The rate tables then read the frame context captured at the last
+        # join (the state after frame N-2): the same whatever the thread
+        # timing. A rate controller needs rc.update before the next
+        # frame_qindex, so that session serializes inline
+        self._ser_async = rc is None
+        self._ser_pool = (cf.ThreadPoolExecutor(max_workers=1)
+                          if self._ser_async else None)
         self._futs = collections.deque()
         self._rates_fc = self._fc[0]
         # what the P-frames serialized so far decided, in 32x32 blocks
@@ -389,9 +408,10 @@ class RtSession:
 
     def _rate_args(self, qidx: int):
         """The step's rate tables on the device, made from the frame
-        context of the last join and cached by (its identity, qindex)."""
+        context of the last join (inline serialization: the current one)
+        and cached by (its identity, qindex)."""
         with span("rt_rate_args"):
-            fc = self._rates_fc
+            fc = self._rates_fc if self._ser_async else self._fc[0]
             key = (id(fc), qidx)
             if self._rates_key != key:
                 self._rates_dev = upload_rate_tabs(make_rate_tabs(fc, qidx),
@@ -451,6 +471,8 @@ class RtSession:
             self._prev_snap = mig.snapshot_mvs()
         else:
             self._last_was_inter = True
+        if self.rc is not None:
+            self.rc.update(len(payload) * 8, False)
         self._set_recon(st, host)
         return EncodedFrame(payload=payload, is_keyframe=False,
                             qindex=qidx, state=st, pts=idx)
@@ -489,6 +511,8 @@ class RtSession:
             self._prev_snap = st.mig.snapshot_mvs()
         else:
             self._last_was_inter = True
+        if self.rc is not None:
+            self.rc.update(len(payload) * 8, False)
         self._set_recon(st, host)
         return EncodedFrame(payload=payload, is_keyframe=False,
                             qindex=qidx, state=st, pts=idx)
@@ -516,10 +540,9 @@ class RtSession:
                 *self.stage(frame), T.dc_quant(qidx), T.ac_quant(qidx), lam,
                 lf_lvl, int(self._lim_tbl[lf_lvl]),
                 int(self._mblim_tbl[lf_lvl]))
-            if self.device.type == "cuda":
-                # the fetch waits for the step anyway; waiting here lets
-                # the two spans split the step from the copy
-                torch.cuda.synchronize(self.device)
+            # the fetch waits for the step anyway; waiting here lets the
+            # two spans split the step from the copy
+            self._sync()
         if self.golden:
             # a keyframe refreshes every DPB slot; the steps never write
             # into their inputs, so the anchor can share the planes
@@ -580,6 +603,8 @@ class RtSession:
                 ss = 0 if pidx == 0 else 1
                 st.planes[pidx].recon[: mi_h >> ss, : mi_w >> ss] = \
                     recs[pidx][: mi_h >> ss, : mi_w >> ss]
+        if self.rc is not None:
+            self.rc.update(len(payload) * 8, True)
         return EncodedFrame(payload=payload, is_keyframe=True,
                             qindex=qidx, state=st, pts=idx)
 
@@ -617,50 +642,92 @@ class RtSession:
             self._since_gold = 0
         self._prev_mv32 = torch.zeros_like(self._prev_mv32)
         self._prev_mv16 = torch.zeros_like(self._prev_mv16)
+        if self.rc is not None:
+            self.rc.update(len(payload) * 8, True)
         return EncodedFrame(payload=payload, is_keyframe=True,
                             qindex=qidx, state=st, pts=idx)
 
+    def _plane_shapes(self):
+        g = self.g
+        return ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
+                (g.pad_h // 2, g.pad_w // 2))
+
     def stage(self, frame):
         """Upload one picture as padded device planes."""
-        g = self.g
-        shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
-                  (g.pad_h // 2, g.pad_w // 2))
         with span("rt_stage"):
             return tuple(
                 torch.from_numpy(pad_plane(np.asarray(p), *shp))
                 .to(self.device)
-                for p, shp in zip((frame.y, frame.u, frame.v), shapes))
+                for p, shp in zip((frame.y, frame.u, frame.v),
+                                  self._plane_shapes()))
 
-    def step_args(self, qidx: int):
+    def _check_staged(self, src):
+        """Refuse a staged tuple that is not three padded uint8 planes on
+        the session's device, as ``stage`` makes them."""
+        ok = len(src) == 3 and all(
+            isinstance(p, torch.Tensor) and p.dtype == torch.uint8
+            and p.device.type == self.device.type
+            and tuple(p.shape) == shp and p.is_contiguous()
+            for p, shp in zip(src, self._plane_shapes()))
+        if not ok:
+            raise ValueError(
+                "a staged frame is the (y, u, v) tuple of contiguous uint8 "
+                f"planes of shapes {self._plane_shapes()} on "
+                f"{self.device} that stage() returns")
+
+    def step_args(self, qidx: int, prev_mvs=None):
         """The step's arguments after the source and reference planes for
-        a P-frame at ``qidx``, from the session's present state."""
+        a P-frame at ``qidx``, from the session's present state
+        (``prev_mvs``: other previous MVs, (32 grid, strip))."""
+        pm32, pm16 = prev_mvs or (self._prev_mv32, self._prev_mv16)
         lf_lvl = pick_filter_level(qidx, False) if self.loop_filter else 0
-        args = (self._prev_mv32, self._prev_mv16, T.dc_quant(qidx),
-                T.ac_quant(qidx),
+        args = (pm32, pm16, T.dc_quant(qidx), T.ac_quant(qidx),
                 max(1, (T.ac_quant(qidx) ** 2) >> 6), lf_lvl,
                 int(self._lim_tbl[lf_lvl]), int(self._mblim_tbl[lf_lvl]))
         if self.golden:
             return (*self._gold, *args, self._rate_args(qidx))
         return args
 
+    def _zero_frame(self):
+        """The host-state stand-in of a staged frame (its source is read
+        only by PSNR and recon consumers, which staged callers lack)."""
+        if self._zero is None:
+            ch, cw = (self.h + 1) // 2, (self.w + 1) // 2
+            self._zero = Frame420(y=np.zeros((self.h, self.w), np.uint8),
+                                  u=np.zeros((ch, cw), np.uint8),
+                                  v=np.zeros((ch, cw), np.uint8))
+        return self._zero
+
     def send(self, frame, qindex: int = 100, force_keyframe: bool = False):
         """Encode one picture; returns 0..2 EncodedFrames (frame N's step
-        is issued before frame N-1 is fetched and serialized)."""
+        is issued before frame N-1 is fetched and serialized).
+
+        frame: a Frame420, or a staged (y, u, v) tuple of device planes
+        from ``stage`` (not for a keyframe: the keyframe's host state is
+        made from the Frame420). With ``rc`` the controller's qindex
+        replaces ``qindex``."""
         idx = self._idx
         self._idx += 1
         is_key = force_keyframe or idx == 0 or (
             self.intra_period >= 0
             and idx % (self.intra_period + 1) == 0)
-        qidx = qindex
+        qidx = qindex if self.rc is None else self.rc.frame_qindex(is_key)
         out = []
+        staged = isinstance(frame, tuple)
         if is_key:
+            if staged:
+                raise ValueError("staged frames cannot be keyframes")
             self._drain_futs(out)
             if self._pending is not None:
                 out.append(self._finish(*self._pending))
                 self._pending = None
             out.append(self._encode_key(frame, idx, qidx))
             return out
-        src = self.stage(frame)
+        if staged:
+            self._check_staged(frame)
+            src, frame = frame, self._zero_frame()
+        else:
+            src = self.stage(frame)
         args = self.step_args(qidx)
         refresh_gold = False
         if self.golden:
@@ -691,18 +758,21 @@ class RtSession:
             # scale step, so they are switched off for device P-frames
             hdr.loop_filter.mode_ref_delta_enabled = False
         # fetch the previous frame (after this frame's step was issued)
-        # and hand its serialization to the worker
+        # and serialize it: on the worker, or inline with a controller
         if self._pending is not None:
             pf, pidx, phdr, pouts, pq = self._pending
             with span("rt_d2h_transfer"):
                 phost = _device_out_to_host(pouts, self.g, self.want_recon)
-            self._drain_futs(out)
+            if self._ser_async:
+                self._drain_futs(out)
 
-            def task(args=(pf, pidx, phdr, phost, pq)):
-                ef = self._finish_host(*args)
-                return ef, self._fc[0]
+                def task(args=(pf, pidx, phdr, phost, pq)):
+                    ef = self._finish_host(*args)
+                    return ef, self._fc[0]
 
-            self._futs.append(self._ser_pool.submit(task))
+                self._futs.append(self._ser_pool.submit(task))
+            else:
+                out.append(self._finish_host(pf, pidx, phdr, phost, pq))
         self._pending = (frame, idx, hdr, outs, qidx)
         return out
 
@@ -716,5 +786,55 @@ class RtSession:
         return out
 
     def close(self):
-        """Stop the serialization worker; call after the last ``flush``."""
-        self._ser_pool.shutdown()
+        """Stop the serialization worker, if any; call after the last
+        ``flush``."""
+        if self._ser_pool is not None:
+            self._ser_pool.shutdown()
+
+    def measure_step_fps(self, frame, iters: int = 20,
+                         qindex: int = 160) -> float:
+        """Steps per second of the P-frame step alone (no fetch, no
+        serialization): ``iters`` steps on a copy of the session's
+        references, each on the last one's output, with zero previous MVs
+        and the session's GOLDEN anchor and rate tables, after one warm-up
+        step, synchronized before and after. The session's references,
+        motion field and stream are left as they were. Needs a session
+        that has coded a keyframe."""
+        if self._refs is None:
+            raise RuntimeError("measure_step_fps: send a keyframe first")
+        src = self.stage(frame)
+        args = self.step_args(qindex, (torch.zeros_like(self._prev_mv32),
+                                       torch.zeros_like(self._prev_mv16)))
+        refs = tuple(p.clone() for p in self._refs)
+        outs, refs = self._step(*src, *refs, *args)  # warm-up
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            outs, refs = self._step(*src, *refs, *args)
+        self._sync()
+        return iters / (time.perf_counter() - t0)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def encode_stream_rt(frames, qindex: int = 100, intra_period: int = -1,
+                     want_recon: bool = True, rc=None,
+                     error_resilient: bool = False, split16: bool = False,
+                     golden: bool = False, golden_interval: int = 8,
+                     device="cuda"):
+    """Realtime encode of a list of Frame420 through one ``RtSession`` on
+    ``device``. Returns list[EncodedFrame]. rc: a RateControlState that
+    picks each frame's qindex (CQP at ``qindex`` when None)."""
+    h, w = frames[0].y.shape
+    sess = RtSession(w, h, device=device, intra_period=intra_period, rc=rc,
+                     error_resilient=error_resilient,
+                     want_recon=want_recon, split16=split16,
+                     golden=golden, golden_interval=golden_interval)
+    out = []
+    for frame in frames:
+        out.extend(sess.send(frame, qindex=qindex))
+    out.extend(sess.flush())
+    sess.close()
+    return out
