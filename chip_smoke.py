@@ -130,7 +130,24 @@ Phases, each of which raises on failure (nothing is caught):
      profiler; at both sizes the RA session on the CPU and the card on
      the first RA_SAME_FRAMES frames with mini-GOPs of RA_SAME_GOP,
      identical packets;
- 12. M7 (the host encode with the device full-pel search): end to end,
+ 12. the host route and tune SQ: openloop_modes against its plain version
+     (2560x1440 panning and made-up, 1024x768 panning and a plane whose
+     tied blocks must take DC, at qindex 0, 120, 255; its ptxas report,
+     CTAs per SM, timed), then encode_video at 2560x1440 M8, one keyframe,
+     its hints one launch of the kernel, decode bit-exact; the public
+     encoder at enc_mode 8 and 9 with tpu_realtime 0 on the clip's first 4
+     frames (no realtime session, one sad_full_search a P-frame, decode
+     bit-exact, fps, device_me, the keyframe's hint time); 640x360 M8 (the
+     realtime step rejects it: the notice, the host route, decode
+     bit-exact; at tpu_realtime 1 a RuntimeError); 720p M7 with speed
+     control at 30 fps, intra period 9, 12 frames (the mode steps above 7
+     at frame 8, the key at frame 10 takes hints, decode bit-exact); M8 at
+     tune SQ, the adaptive lambda, at 1080p (the M8 clip) and 720p (10
+     frames): one more block_energy a zone a P-frame, decode bit-exact,
+     B/frame and Y PSNR beside tune OQ's, fps, send split; at 1080p the
+     first 5 frames on the CPU too, packets and every scale vector
+     identical;
+ 13. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -150,6 +167,10 @@ runs phase 11 alone after the builds, and prints neither JSON line.
     python3 chip_smoke.py --rc
 
 runs phase 10 alone after the builds, and prints neither JSON line.
+
+    python3 chip_smoke.py --host
+
+runs phase 12 alone after the builds, and prints neither JSON line.
 """
 
 from __future__ import annotations
@@ -181,7 +202,8 @@ import torch  # noqa: E402
 WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
-        "loop_filter", "kframe_wave", "transform_recon", "subpel_search")
+        "loop_filter", "kframe_wave", "transform_recon", "subpel_search",
+        "openloop_modes")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -218,7 +240,8 @@ ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "loop_filter": ("loop_filter",),
                   "kframe_wave": ("kframe_wave",),
                   "transform_recon": ("transform_recon",),
-                  "subpel_search": ("subpel_search",)}
+                  "subpel_search": ("subpel_search",),
+                  "openloop_modes": ("openloop_modes",)}
 # each wrapper's kernel, by a part of its name in a profile
 WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "block_energy": "block_energy_kernel",
@@ -229,7 +252,8 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "loop_filter": "loop_filter_kernel",
                    "kframe_wave": "kframe_wave_kernel",
                    "transform_recon": "transform_recon_kernel",
-                   "subpel_search": "subpel_search_kernel"}
+                   "subpel_search": "subpel_search_kernel",
+                   "openloop_modes": "openloop_modes_kernel"}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
 # geometries of the CPU tests (the last no wider than 64: no band), and
 # integer operations per filtered edge lane (an upper estimate: 16 loads,
@@ -333,13 +357,34 @@ WARM_SPINS, WARM_WAIT_S = 32, 0.05
 # period (31 at 30 fps) and VBV (twice the target at CBR); the first
 # RC_SAME_FRAMES again on the CPU
 RC_VBR, RC_CBR, RC_FPS = 1, 2, 30
-RC_FRAMES, RC_SAME_FRAMES = 30, 5
+RC_FRAMES, RC_SAME_FRAMES = 30, 3
 RC_CASES = (("1080p m8 cbr", 8, RC_CBR, 2_000_000),
             ("1080p m9 vbr", 9, RC_VBR, 4_000_000))
 # bench.py's 4K single- and dual-stream field: RtSession(intra_period=-1,
 # want_recon=False, golden=True) on synthetic_frames(3840, 2160, 12, seed=0,
 # motion=True) at qindex 160, the P-frames' sources staged on the card
 STAGED_DIMS, STAGED_FRAMES, STAGED_QINDEX = (3840, 2160), 12, 160
+# the open-loop keyframe hints (openloop_modes): its phase's planes, 2560x1440
+# (3,600 blocks; the first 32-aligned size above 1080p) and 1024x768, at
+# three qindex values, and the tie plane's qindex (its lam 32 makes DC, V
+# and TM tie; ``_ol_tie_plane``); integer operations a 32x32 block (an
+# upper estimate: per pixel and mode a prediction, a difference, a square
+# and a sum, 7, 10 modes; the 768 distinct directional words filtered, 8
+# each)
+OL_DIMS = {"1440p": (2560, 1440), "768p": (1024, 768)}
+OL_QINDICES, OL_TIE_QINDEX = (0, 120, 255), 45
+OL_OPS_PER_BLOCK = 7 * 10 * 1024 + 8 * 768
+# the host route (enc_mode 8 and 9 at tpu_realtime 0): 1080p frames; the
+# fallback of a geometry the realtime step rejects (640x360: mi_rows 45)
+# and its frames; speed control on the host route: 720p M7 at 30 fps,
+# intra period 9, its frames and the frame of its first check
+HOST_FRAMES = 4
+FALLBACK_DIMS, FALLBACK_FRAMES = (640, 360), 6
+SC_DIMS, SC_FRAMES, SC_INTRA_PERIOD, SC_CHECK = (1280, 720), 12, 9, 8
+# tune SQ (the adaptive lambda, Tune.SQ = 0) at enc_mode 8: 1080p on the M8
+# phase's frames, 720p (the strip zone) on 10; CPU and CUDA on the first
+# AQ_SAME_FRAMES at 1080p, packets and every scale vector
+TUNE_SQ, AQ_720P_FRAMES, AQ_SAME_FRAMES = 0, 10, 5
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float):
@@ -2080,10 +2125,11 @@ def _dims(frames):
     return w, h
 
 
-def _make_encoder(device, enc_mode, dims=(WIDTH, HEIGHT), rc=None):
+def _make_encoder(device, enc_mode, dims=(WIDTH, HEIGHT), rc=None, **cfg):
     """The public encoder in low delay at the default intra period: CQP at
     QP, or ``rc`` = (RC_VBR or RC_CBR, target bits per second), with the
-    default VBV (twice the target at CBR)."""
+    default VBV (twice the target at CBR); ``cfg``: more EncoderConfig
+    fields (tune, tpu_realtime, speed_control, intra_period)."""
     from tpu_vp9_torch.api import Vp9Encoder
     from tpu_vp9_torch.config import (
         EncoderConfig, PredStructure, RateControlMode,
@@ -2097,7 +2143,7 @@ def _make_encoder(device, enc_mode, dims=(WIDTH, HEIGHT), rc=None):
         pred_structure=PredStructure.LOW_DELAY_P,
         rate_control_mode=RateControlMode(mode), qp=QP, frame_rate=RC_FPS,
         recon_file="unused.yuv",
-        **({} if tbr is None else {"target_bit_rate": tbr})))
+        **({} if tbr is None else {"target_bit_rate": tbr}), **cfg))
     enc.init()
     return enc
 
@@ -2116,13 +2162,14 @@ def _capture(enc):
     return got
 
 
-def _encode(device, frames, enc_mode, rc=None):
-    """Encode frames one by one. Returns (packets, recons, per-send rows
-    (index, seconds, {stage: seconds} from the tracer's spans), the
+def _encode(device, frames, enc_mode, rc=None, on_send=None, **cfg):
+    """Encode frames one by one (``cfg``: more EncoderConfig fields;
+    ``on_send(enc)`` after each send). Returns (packets, recons, per-send
+    rows (index, seconds, {stage: seconds} from the tracer's spans), the
     encoder, seconds from the first P-frame's send to the end of flush)."""
     from tpu_vp9_torch.utils import trace
 
-    enc = _make_encoder(device, enc_mode, _dims(frames), rc)
+    enc = _make_encoder(device, enc_mode, _dims(frames), rc, **cfg)
     got = _capture(enc)
     rows = []
     t_p = None
@@ -2137,6 +2184,8 @@ def _encode(device, frames, enc_mode, rc=None):
         stages = {k: v["total_s"] for k, v in trace.summary().items()
                   if k != "notices"}
         rows.append((idx, time.perf_counter() - tf, stages))
+        if on_send is not None:
+            on_send(enc)
     enc.flush()
     p_seconds = time.perf_counter() - t_p
     while enc.get_packet() is not None:
@@ -2185,7 +2234,8 @@ def _kernel_fns():
             "loop_filter": K.loop_filter,
             "kframe_wave": K.kframe_wave,
             "transform_recon": K.transform_recon,
-            "subpel_search": K.subpel_search}
+            "subpel_search": K.subpel_search,
+            "openloop_modes": K.openloop_modes}
 
 
 def _reset_counts():
@@ -2236,20 +2286,29 @@ def _stream_line(label, pkts, psnrs):
             f"over {len(pkts)} frames")
 
 
-def _path_launches(geom, enc_mode):
-    """Launches per P-frame and per keyframe by wrapper, at ``geom``."""
+def _path_launches(geom, enc_mode, aq=False):
+    """Launches per P-frame and per keyframe by wrapper, at ``geom``; with
+    ``aq`` (M8 at tune SQ) one more block_energy a zone (the exact sums of
+    its lambda scale), and no txq_cost (the tune OQ phase's own calls)."""
     if geom.strip:
-        return (M8_STRIP_LAUNCHES if enc_mode == 8 else M9_STRIP_LAUNCHES,
-                KEY_STRIP_LAUNCHES)
-    return M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES, KEY_LAUNCHES
+        per_p = M8_STRIP_LAUNCHES if enc_mode == 8 else M9_STRIP_LAUNCHES
+        per_key = KEY_STRIP_LAUNCHES
+    else:
+        per_p = M8_LAUNCHES if enc_mode == 8 else M9_LAUNCHES
+        per_key = KEY_LAUNCHES
+    if aq:
+        per_p = {**per_p, "txq_cost": 0,
+                 "block_energy": per_p["block_energy"] + 1 + geom.strip}
+    return per_p, per_key
 
 
-def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None):
+def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None, tune=None):
     """M8 or M9 end to end through the public Vp9Encoder at the clip's
-    size, with the launch counts of the run. For M8 at 1080p, txq_cost
-    also runs inside the counted window, at its own entry point, on every
-    P-frame's residual. At a strip geometry no parent may split (the
-    descent is off there)."""
+    size, with the launch counts of the run. For M8 at 1080p (tune OQ),
+    txq_cost also runs inside the counted window, at its own entry point,
+    on every P-frame's residual. At a strip geometry no parent may split
+    (the descent is off there). ``tune`` TUNE_SQ: M8 with the adaptive
+    lambda."""
     from tpu_vp9_torch.bitstream import tables as T
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
@@ -2259,11 +2318,15 @@ def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None):
     tag = tag or f"m{enc_mode}"
     width, height = _dims(frames)
     geom = P.make_geom(width, height)
+    aq = enc_mode == 8 and tune == TUNE_SQ
     trace.enable(True)
     _reset_counts()
-    pkts, recons, rows, enc, p_seconds = _encode(dev, frames, enc_mode)
+    pkts, recons, rows, enc, p_seconds = _encode(
+        dev, frames, enc_mode, **({} if tune is None else {"tune": tune}))
+    if enc._rt.aq != aq:
+        raise AssertionError(f"{tag}: the session's aq is {enc._rt.aq}")
     n_p = sum(not p.is_keyframe for p in pkts)
-    if enc_mode == 8 and not geom.strip:
+    if enc_mode == 8 and not geom.strip and not aq:
         qidx = qp_to_qindex(QP)
         dc_q, ac_q = float(T.dc_quant(qidx)), float(T.ac_quant(qidx))
         proxies = []
@@ -2287,9 +2350,9 @@ def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None):
     print(f"{tag}: {len(pkts)} frames ({n_k} key, {n_p} P) at "
           f"{width}x{height} M{enc_mode} low-delay CQP qp {QP}: launches "
           f"{counts}")
-    per_p, per_key = _path_launches(geom, enc_mode)
+    per_p, per_key = _path_launches(geom, enc_mode, aq)
     print(f"{tag}: launches per P-frame {per_p}, per keyframe {per_key}")
-    want = {"sad_full_search": 0, "kframe_wave": 0,
+    want = {"sad_full_search": 0, "kframe_wave": 0, "openloop_modes": 0,
             **{k: v * n_p for k, v in per_p.items()}}
     for k, v in per_key.items():
         want[k] += v * n_k
@@ -2308,9 +2371,9 @@ def realtime_end_to_end_phase(dev, frames, enc_mode, tag=None):
     if enc_mode == 8 and not geom.strip:
         interval = enc._rt.golden_interval
         if n_split == 0 or n_p <= interval:
-            raise AssertionError("m8: no parent split, or no GOLDEN refresh "
-                                 "inside the clip")
-        print(f"m8: GOLDEN refreshed {n_p // interval} times (every "
+            raise AssertionError(f"{tag}: no parent split, or no GOLDEN "
+                                 "refresh inside the clip")
+        print(f"{tag}: GOLDEN refreshed {n_p // interval} times (every "
               f"{interval} P-frames)")
     psnrs = _decode_check(pkts, recons, frames)
     print(_stream_line(f"{tag}: decode bit-exact to recon", pkts, psnrs))
@@ -2811,7 +2874,8 @@ def _ra_launches(geom, golden: bool, altref: bool):
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
-              "subpel_search": 0, "transform_recon": 0, "loop_filter": 1})
+              "subpel_search": 0, "transform_recon": 0, "loop_filter": 1,
+              "openloop_modes": 0})
     for n in (32, 16) if geom.strip else (32,):
         c["hier_search_fused" if n == 32 else "sse_map_search"] += \
             1 + altref
@@ -3222,6 +3286,356 @@ def ra_phases(dev, kernels, paths):
     ra_same_bytes_phase(dev, frames)
 
 
+# ---------------------------------------------------------------------------
+# The low-delay host route: the open-loop keyframe hints, enc_mode 8 and 9
+# at tpu_realtime 0, the fallback of a rejected geometry, speed control on
+# the host route, and the adaptive lambda (tune SQ) of the M8 step
+# ---------------------------------------------------------------------------
+
+
+def _ol_tie_plane(h, w):
+    """A plane of 100 where every block (r, c) with r and c odd has DC, V
+    and TM tie at the least cost at OL_TIE_QINDEX (lam 32): the column
+    c*32+31 is 101 from the row above the block to its last row, so the
+    block repeats its above row (V and TM exact: cost 32) and DC, 100,
+    misses 32 pixels by one (cost 32)."""
+    p = np.full((h, w), 100, np.uint8)
+    for r in range(1, h // 32, 2):
+        for c in range(1, w // 32, 2):
+            p[r * 32 - 1:r * 32 + 32, c * 32 + 31] = 101
+    return p
+
+
+def _ol_bound(h, w):
+    """openloop_modes' bound on an (h, w) plane: reads the plane and the
+    constant words (the 768 directional words, 8 index bytes a pixel),
+    writes 12 int32 a block; OL_OPS_PER_BLOCK integer operations a block
+    off the tensor cores."""
+    b = (h // 32) * (w // 32)
+    return _bound(h * w + 4 * 768 + 8 * 1024 + 48 * b, OL_OPS_PER_BLOCK * b,
+                  ALU_OPS_PER_S)
+
+
+def openloop_kernel_phase(dev):
+    """openloop_modes against its plain version on the card, modes, SSEs
+    and least costs bit for bit: 2560x1440 (a panning frame and made-up
+    content), 1024x768 (a panning frame and the tie plane, whose tied
+    blocks must take DC) at OL_QINDICES, the tie plane also at
+    OL_TIE_QINDEX; its ptxas report and resident CTAs per SM; timed at
+    2560x1440."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    rng = np.random.default_rng(17)
+    planes = []
+    for label, (w, h) in OL_DIMS.items():
+        planes.append((f"{label} panning",
+                       next(panning_frames(w, h, 1, seed=1)).y))
+    w, h = OL_DIMS["1440p"]
+    planes.append(("1440p made-up", rng.integers(0, 256, (h, w),
+                                                 dtype=np.uint8)))
+    w, h = OL_DIMS["768p"]
+    planes.append(("768p ties", _ol_tie_plane(h, w)))
+    max_err = 0
+    bias = torch.tensor(K.KF_MODE_BIAS, dtype=torch.int64, device=dev)
+    for label, plane in planes:
+        t = torch.from_numpy(np.ascontiguousarray(plane)).to(dev)
+        ties = "ties" in label
+        for q in OL_QINDICES + ((OL_TIE_QINDEX,) if ties else ()):
+            got = K.openloop_modes(t, q)
+            want = K.openloop_modes_ref(t, q)
+            max_err = max(max_err, _check(
+                "openloop_modes", f"{label} {t.shape[1]}x{t.shape[0]} "
+                f"qindex {q}", got, want))
+            won = torch.bincount(got[0].reshape(-1).long(), minlength=10)
+            print(f"openloop_modes [{label} qindex {q}]: blocks each mode "
+                  f"won (DC, V, H, D45, D135, D117, D153, D207, D63, TM): "
+                  f"{won.tolist()}")
+            if ties and q == OL_TIE_QINDEX:
+                cost = want[1][1::2, 1::2].long() + bias * K.openloop_lam(q)
+                tied = ((cost[..., 0] == cost[..., 1])
+                        & (cost[..., 0] == cost[..., 9])
+                        & (cost[..., 0] == cost.min(dim=-1).values))
+                if not bool(tied.all()) or bool((got[0][1::2, 1::2]).any()):
+                    raise AssertionError("openloop_modes: a tied block did "
+                                         "not go to DC")
+                print(f"openloop_modes [{label}]: {int(tied.sum())} blocks "
+                      "tie DC, V and TM at the least cost; every one took DC")
+    _kernel_resources(dev, "openloop_modes", None,
+                      lambda n, d: K.openloop_modes_occupancy(d),
+                      threads=256)
+    parts = []
+    for k, (label, (w, h)) in enumerate(OL_DIMS.items()):
+        t = torch.from_numpy(np.ascontiguousarray(planes[k][1])).to(dev)
+        # one launch a keyframe; the 1024x768 shape is printed, not summed
+        parts.append(_timed(
+            "openloop_modes", f"{w}x{h} B={(h // 32) * (w // 32)}",
+            lambda t=t: K.openloop_modes(t, 120),
+            lambda t=t: K.openloop_modes_ref(t, 120), 5, _ol_bound(h, w),
+            "openloop_modes_kernel", count=int(label == "1440p")))
+    return _entry("openloop_modes", "tpu_vp9_torch/csrc/openloop_modes.cu",
+                  "tpu_vp9/pipeline/tpu_intra.py:80", max_err, parts)
+
+
+def _encoded_frames_check(efs, frames):
+    """Decode ``pipeline/encoder``'s EncodedFrames; bit-exact to their
+    recon; Y PSNR per frame."""
+    from types import SimpleNamespace
+
+    w, h = _dims(frames)
+    cw, ch = (w + 1) >> 1, (h + 1) >> 1
+    recons = [(e.state.planes[0].recon[:h, :w],
+               e.state.planes[1].recon[:ch, :cw],
+               e.state.planes[2].recon[:ch, :cw]) for e in efs]
+    pkts = [SimpleNamespace(data=e.payload, pts=e.pts) for e in efs]
+    return _decode_check(pkts, recons, frames)
+
+
+def openloop_e2e_phase(dev, kernels, paths):
+    """encode_video at 2560x1440, enc_mode 8, one frame: its keyframe's
+    hints from openloop_modes (one launch), the stream decoded bit-exactly
+    to its recon; the encode's time."""
+    from tpu_vp9_torch.config import EncoderConfig
+    from tpu_vp9_torch.pipeline.encoder import encode_video
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    w, h = OL_DIMS["1440p"]
+    frames = list(panning_frames(w, h, 1, seed=1))
+    cfg = EncoderConfig(source_width=w, source_height=h, enc_mode=8, qp=QP)
+    _reset_counts()
+    t0 = time.perf_counter()
+    efs = encode_video(frames, cfg, device=dev)
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts != {**dict.fromkeys(counts, 0), "openloop_modes": 1}:
+        raise AssertionError(f"encode_video {w}x{h} M8: launches {counts}, "
+                             "want one openloop_modes")
+    psnrs = _encoded_frames_check(efs, frames)
+    print(f"encode_video {w}x{h} M8, one keyframe with the kernel's hints: "
+          f"{seconds:.3f} s; {len(efs[0].payload)} B; Y PSNR "
+          f"{psnrs[0]:.3f} dB; decode bit-exact to recon; launches {counts}")
+    kernels["openloop_modes"]["launches"] = counts["openloop_modes"]
+    paths["1440p m8 encode_video"] = counts
+
+
+def host_route_phase(dev, frames, enc_mode, paths):
+    """Vp9Encoder(enc_mode, LOW_DELAY_P, tpu_realtime=0) on the first
+    HOST_FRAMES of the 1080p clip: no realtime session, one
+    sad_full_search a P-frame and no other launch, decode bit-exact; bytes,
+    PSNR, fps, the P-frames' device_me span and the keyframe's hint time
+    (``openloop_mode_hints_np``, wrapped here)."""
+    from tpu_vp9_torch.codec import intra_frame
+    from tpu_vp9_torch.utils import trace
+
+    tag = f"1080p m{enc_mode} host"
+    hint_s = []
+    real = intra_frame.openloop_mode_hints_np
+
+    def timed_hints(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        hint_s.append(time.perf_counter() - t0)
+        return out
+
+    intra_frame.openloop_mode_hints_np = timed_hints
+    trace.enable(True)
+    _reset_counts()
+    try:
+        pkts, recons, rows, enc, p_seconds = _encode(
+            dev, frames[:HOST_FRAMES], enc_mode, tpu_realtime=0)
+    finally:
+        intra_frame.openloop_mode_hints_np = real
+    counts = _read_counts()
+    trace.enable(False)
+    n_p = sum(not p.is_keyframe for p in pkts)
+    if enc._rt is not None or enc._ra_dev is not None:
+        raise AssertionError(f"{tag}: a device session was made")
+    if n_p == 0 or counts != {**dict.fromkeys(counts, 0),
+                              "sad_full_search": n_p}:
+        raise AssertionError(f"{tag}: launches {counts} != one "
+                             f"sad_full_search for each of {n_p} P-frames")
+    if len(hint_s) != 1:
+        raise AssertionError(f"{tag}: {len(hint_s)} hint computations for "
+                             "one keyframe")
+    psnrs = _decode_check(pkts, recons, frames[:HOST_FRAMES])
+    me = statistics.mean(r[2].get("device_me", 0.0) for r in rows[1:])
+    print(f"{tag}: launches {counts}")
+    print(_stream_line(f"{tag}: decode bit-exact to recon", pkts, psnrs))
+    print(f"{tag}: {n_p / p_seconds:.3f} fps over the P-frames; keyframe "
+          f"send {1000 * rows[0][1]:.1f} ms, its hints "
+          f"(openloop_mode_hints_np) {1000 * hint_s[0]:.1f} ms; P-frame "
+          f"mean {1000 * statistics.mean(r[1] for r in rows[1:]):.1f} ms, "
+          f"device_me {1000 * me:.2f} ms; spans " + _stage_means(rows[1:]))
+    paths[tag] = counts
+    enc.close()
+
+
+def host_fallback_phase(dev, paths):
+    """640x360 (mi_rows 45: the realtime step rejects it) at enc_mode 8
+    and the default tpu_realtime: the JAX package's notice, the host
+    route, decode bit-exact, fps; at tpu_realtime 1 a RuntimeError."""
+    from tpu_vp9_torch import api
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    w, h = FALLBACK_DIMS
+    tag = f"{w}x{h} m8 fallback"
+    frames = list(panning_frames(w, h, FALLBACK_FRAMES, seed=1))
+    notices = []
+    real = api.notice
+    api.notice = notices.append
+    _reset_counts()
+    try:
+        pkts, recons, rows, enc, p_seconds = _encode(dev, frames, 8)
+    finally:
+        api.notice = real
+    counts = _read_counts()
+    if (len(notices) != 1 or "falling back to host encode" not in notices[0]
+            or enc._rt is not None):
+        raise AssertionError(f"{tag}: notices {notices}, session {enc._rt}")
+    psnrs = _decode_check(pkts, recons, frames)
+    print(f"{tag}: notice '{notices[0]}'; launches {counts}")
+    print(_stream_line(f"{tag}: decode bit-exact to recon", pkts, psnrs))
+    print(f"{tag}: {sum(not p.is_keyframe for p in pkts) / p_seconds:.3f} "
+          "fps over the P-frames")
+    try:
+        _make_encoder(dev, 8, FALLBACK_DIMS, tpu_realtime=1)
+    except RuntimeError as exc:
+        print(f"{tag}: tpu_realtime=1 raises RuntimeError: {exc}")
+    else:
+        raise AssertionError(f"{tag}: tpu_realtime=1 did not raise")
+    paths[tag] = counts
+
+
+def speed_control_phase(dev, paths):
+    """720p M7 with speed control at 30 fps, intra period 9: the host
+    route falls behind, so the controller steps above 7 at its first check
+    (after frame SC_CHECK - 1); the keyframe at SC_INTRA_PERIOD + 1 is the
+    first to take hints; one sad_full_search a P-frame; decode
+    bit-exact; the mode after every send."""
+    from tpu_vp9_torch.codec import intra_frame
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    tag = f"{SC_DIMS[1]}p m7 speed control"
+    frames = list(panning_frames(*SC_DIMS, SC_FRAMES, seed=1))
+    modes, hinted = [], []
+    real = intra_frame.openloop_mode_hints_np
+
+    def spy(*args):
+        hinted.append(len(modes))
+        return real(*args)
+
+    intra_frame.openloop_mode_hints_np = spy
+    _reset_counts()
+    try:
+        pkts, recons, rows, enc, p_seconds = _encode(
+            dev, frames, 7, on_send=lambda e: modes.append(e._sc.mode),
+            speed_control=True, intra_period=SC_INTRA_PERIOD)
+    finally:
+        intra_frame.openloop_mode_hints_np = real
+    counts = _read_counts()
+    n_p = sum(not p.is_keyframe for p in pkts)
+    print(f"{tag}: the mode after each send {modes}; keyframes at "
+          f"{[i for i, p in enumerate(pkts) if p.is_keyframe]} with hints "
+          f"at {hinted}; launches {counts}")
+    if modes[SC_CHECK - 2] != 7 or modes[SC_CHECK - 1] <= 7:
+        raise AssertionError(f"{tag}: the mode did not step at frame "
+                             f"{SC_CHECK}")
+    if hinted != [SC_INTRA_PERIOD + 1]:
+        raise AssertionError(f"{tag}: hints at {hinted}")
+    if counts != {**dict.fromkeys(counts, 0), "sad_full_search": n_p}:
+        raise AssertionError(f"{tag}: launches {counts}")
+    psnrs = _decode_check(pkts, recons, frames)
+    print(_stream_line(f"{tag}: decode bit-exact to recon", pkts, psnrs))
+    print(f"{tag}: {n_p / p_seconds:.3f} fps over the P-frames")
+    paths[tag] = counts
+
+
+def _recording_scales(scales):
+    """Install a wrapper of the step's ``_sb_lambda_scale`` that appends
+    each scale vector (numpy) to ``scales``; returns the original."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    real = P._sb_lambda_scale
+
+    def rec(src_sum, src2, n):
+        out = real(src_sum, src2, n)
+        scales.append(out.cpu().numpy())
+        return out
+
+    P._sb_lambda_scale = rec
+    return real
+
+
+def aq_phase(dev, frames, tag, paths, same=False):
+    """M8 at tune SQ through the public encoder: launches per P-frame
+    (``_path_launches`` with aq), decode bit-exact, fps and the send split
+    (``realtime_end_to_end_phase``), B/frame and Y PSNR beside tune OQ's on
+    the same frames; with ``same`` the first AQ_SAME_FRAMES again on the
+    CPU: identical packets and identical scale vectors."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    scales = []
+    real = _recording_scales(scales)
+    try:
+        pkts, recons, paths[tag] = realtime_end_to_end_phase(
+            dev, frames, 8, tag, tune=TUNE_SQ)
+    finally:
+        P._sb_lambda_scale = real
+    oq, oq_recons = _encode(dev, frames, 8)[:2]
+    psnr_sq = [_psnr(r[0], f.y) for r, f in zip(recons, frames)]
+    psnr_oq = [_psnr(r[0], f.y) for r, f in zip(oq_recons, frames)]
+    print(_stream_line(f"{tag}: tune SQ", pkts, psnr_sq))
+    print(_stream_line(f"{tag}: tune OQ, the same frames", oq, psnr_oq))
+    # the encode's vectors, one a zone of each P-frame (the step timings
+    # after it recorded theirs too)
+    zones = 1 + P.make_geom(*_dims(frames)).strip
+    scales = scales[:zones * sum(not p.is_keyframe for p in pkts)]
+    spread = np.concatenate(scales)
+    moved = sum(a.data != b.data for a, b in zip(pkts, oq))
+    print(f"{tag}: {len(scales)} scale vectors, scale min {spread.min():.4f} "
+          f"max {spread.max():.4f}; {moved} of {len(pkts)} packets differ "
+          "from tune OQ's")
+    if not same:
+        return
+    cpu_scales = []
+    real = _recording_scales(cpu_scales)
+    t0 = time.perf_counter()
+    try:
+        cpu = _encode("cpu", frames[:AQ_SAME_FRAMES], 8, tune=TUNE_SQ)[0]
+    finally:
+        P._sb_lambda_scale = real
+    cpu_s = time.perf_counter() - t0
+    for idx, (a, b) in enumerate(zip(cpu, pkts)):
+        if a.data != b.data:
+            raise AssertionError(f"{tag} frame {idx}: CPU and CUDA packets "
+                                 "differ")
+    want = scales[:len(cpu_scales)]
+    if len(cpu_scales) != AQ_SAME_FRAMES - 1 or any(
+            a.tobytes() != b.tobytes() for a, b in zip(cpu_scales, want)):
+        raise AssertionError(f"{tag}: CPU and CUDA scale vectors differ")
+    print(f"{tag} same bytes: the first {AQ_SAME_FRAMES} packets and the "
+          f"{len(cpu_scales)} scale vectors are identical on cpu "
+          f"({cpu_s:.1f} s) and cuda")
+
+
+def host_phases(dev, kernels, paths, frames):
+    """The host route's phases on the 1080p clip ``frames``: the open-loop
+    hints end to end, enc_mode 8 and 9 at tpu_realtime 0, the 640x360
+    fallback, speed control at 720p M7, and tune SQ at 1080p (CPU and
+    CUDA compared) and 720p; each path's counts set to 0 just before it
+    and read just after, into ``paths``."""
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    openloop_e2e_phase(dev, kernels, paths)
+    for enc_mode in (8, 9):
+        host_route_phase(dev, frames, enc_mode, paths)
+    host_fallback_phase(dev, paths)
+    speed_control_phase(dev, paths)
+    aq_phase(dev, frames, "1080p m8 sq", paths, same=True)
+    aq_phase(dev, list(panning_frames(*STRIP_GEOMS["720p"], AQ_720P_FRAMES,
+                                      seed=1)), "720p m8 sq", paths)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3262,13 +3676,20 @@ def main() -> int:
         print(f"chip_smoke: the rate-control and staged phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--rc: stopping)")
         return 0
+    if "--host" in sys.argv[1:]:
+        host_phases(dev, {"openloop_modes": openloop_kernel_phase(dev)}, {},
+                    list(panning_frames(WIDTH, HEIGHT, M8_FRAMES, seed=1)))
+        print(f"chip_smoke: the host-route phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--host: stopping)")
+        return 0
 
     real, real_frames, real_recons = _real_m8_inputs(dev)
     kernels = {k["name"]: k for k in (
         sad_kernel_phase(dev), energy_kernel_phase(dev), sse_kernel_phase(dev),
         subpel_kernel_phase(dev, real["sp"]),
         transform_kernel_phase(dev, real["tr"], real_frames, real_recons),
-        kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]))}
+        kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]),
+        openloop_kernel_phase(dev))}
     del real, real_frames, real_recons
     for name, parts in strip_kernel_phase(dev).items():
         kernels[name]["strip_parts"] = parts
@@ -3310,6 +3731,7 @@ def main() -> int:
             if label == "720p":
                 same_bytes_phase(tag, sframes, pkts, mode)
         del sframes, pkts
+    host_phases(dev, kernels, paths, frames)
     rc_phases(dev, paths)
     ra_phases(dev, kernels, paths)
     for name, k in kernels.items():

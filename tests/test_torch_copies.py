@@ -21,13 +21,14 @@ EXACT = [
     "bitstream/prob_update.py", "bitstream/ivf.py",
     "codec/__init__.py", "codec/modeinfo.py", "codec/mv.py",
     "codec/rd_cost.py", "codec/adapt.py", "codec/fwd_update.py",
+    "codec/intra_frame.py",
     "decoder/__init__.py", "decoder/decoder.py",
     "ops/intra.py", "ops/inter.py", "ops/loopfilter.py", "ops/me.py",
     "ops/hme.py", "config.py",
     "pipeline/presets.py", "pipeline/rate_control.py",
     "pipeline/picture_decision.py", "pipeline/picture_analysis.py",
     "pipeline/rc_curves.py", "pipeline/gop.py", "pipeline/speed_control.py",
-    "utils/trace.py",
+    "utils/trace.py", "utils/capi_bridge.py",
 ]
 
 # module -> (why it differs, names of the source it drops on purpose)
@@ -36,9 +37,6 @@ CHANGED = {
         "encode_pframe takes a device, calls the port's tpu_block_motion "
         "and lets its failure propagate (the JAX one falls back to the "
         "host search)", ()),
-    "codec/intra_frame.py": (
-        "openloop_mode_hints_np is built from tpu_intra (a jax module): "
-        "it raises NotImplementedError until tpu_intra is ported", ()),
     "ops/txfm.py": (
         "xp=jnp branches dropped, xp=torch added where the device step "
         "needs it, and the step's float64 forward transform and "
@@ -47,14 +45,18 @@ CHANGED = {
         "compiles native/vp9_native.cpp into tpu_vp9_torch/_build/ under "
         "a file lock, apart from the JAX package's build", ()),
     "pipeline/encoder.py": (
-        "the tpu_intra keyframe-hint branches raise NotImplementedError "
-        "and the accelerator probe is gone", ()),
+        "encode_stream and encode_video take a device, which the keyframe "
+        "hints (the port's tpu_intra, a CUDA kernel on a card) and "
+        "encode_pframe run on; a failure of the hints propagates and the "
+        "accelerator probe is gone", ()),
     "utils/yuv.py": ("panning_frames appended (test content with global "
                      "motion)", ()),
     "api.py": (
-        "the port's own Vp9Encoder(device): the host random-access "
-        "engine, speed control on the host route and meshes raise "
-        "NotImplementedError",
+        "the port's own Vp9Encoder(device): the realtime, device "
+        "random-access and low-delay host routes, with the JAX package's "
+        "host fallback for geometries the step rejects and speed control "
+        "on both low-delay routes; the host random-access engine and "
+        "meshes raise NotImplementedError",
         ()),
     "app.py": (
         "the port's own CLI: -device added; -nch, -gop-parallel and "
@@ -104,7 +106,7 @@ def test_every_port_module_is_accounted_for():
     own = {"__init__.py", "ops/__init__.py", "ops/_build.py",
            "ops/cuda_kernels.py", "pipeline/__init__.py",
            "pipeline/ra_device.py", "pipeline/realtime.py",
-           "pipeline/tpu_encdec.py",
+           "pipeline/tpu_encdec.py", "pipeline/tpu_intra.py",
            "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py",
            "utils/kf_phases.py", "utils/lf_phases.py"}
     found = set()

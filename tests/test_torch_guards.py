@@ -1,6 +1,7 @@
 """Guards of the port: it imports neither jax nor the JAX package
-``tpu_vp9``, it has no silent CPU fallback, and it refuses the routes it
-has not ported."""
+``tpu_vp9``, it has no silent CPU fallback, it refuses the routes it has
+not ported, and it takes the ones it has, by the route the JAX package
+takes."""
 
 import ast
 import glob
@@ -90,7 +91,8 @@ KERNELS_PY = os.path.join(REPO, "tpu_vp9_torch", "ops", "cuda_kernels.py")
 ENCDEC_PY = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_encdec.py")
 WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter",
-            "kframe_wave", "transform_recon", "subpel_search")
+            "kframe_wave", "transform_recon", "subpel_search",
+            "openloop_modes")
 
 
 def _functions(path):
@@ -134,7 +136,8 @@ def test_wrappers_cover_every_kernel_source():
         os.path.join(REPO, "tpu_vp9_torch", "csrc", "*.cu"))}
     assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
     assert {"loop_filter", "kframe_wave", "transform_recon",
-            "subpel_search"} <= sources and len(sources) == 8
+            "subpel_search", "openloop_modes"} <= sources
+    assert len(sources) == 9
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -247,7 +250,7 @@ def test_kernel_sources_include_nothing_of_another_package():
     csrc = os.path.join(REPO, "tpu_vp9_torch", "csrc")
     own = {f'"{os.path.basename(p)}"'
            for p in glob.glob(os.path.join(csrc, "*.cuh"))}
-    assert {'"txfm_common.cuh"', '"convolve8.cuh"'} <= own
+    assert {'"txfm_common.cuh"', '"convolve8.cuh"', '"intra_pred.cuh"'} <= own
     for path in glob.glob(os.path.join(csrc, "*.cu*")):
         with open(path) as fh:
             incs = {ln.split(None, 1)[1].strip() for ln in fh
@@ -620,28 +623,68 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
-    dict(enc_mode=8, tune=Tune.SQ),
-    dict(enc_mode=8, tpu_realtime=0),
-    dict(enc_mode=8, source_width=112),
     dict(enc_mode=8, tpu_mesh_shape=(1, 2)),
-    dict(enc_mode=9, tpu_realtime=0),
-    dict(enc_mode=9, source_width=112),
+    dict(enc_mode=8, pred_structure=PredStructure.RANDOM_ACCESS,
+         tpu_realtime=0),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
          tpu_realtime=0),
-    dict(speed_control=True),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
          speed_control=True),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
          rate_control_mode=RateControlMode.VBR, target_bit_rate=200_000),
     dict(tpu_mesh_shape=(1, 2)),
-], ids=["random_access", "m8", "m8_rt0", "m8_width_not_32", "m8_mesh", "m9",
-        "m9_width_not_32", "m9_ra_rt0", "speed_control",
+], ids=["random_access", "m8_mesh", "m8_ra_rt0", "m9_ra_rt0",
         "m9_ra_speed_control", "m9_ra_vbr", "mesh"])
 def test_unported_routes_raise(kw):
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         enc.init()
+
+
+@pytest.mark.parametrize("kw,notice", [
+    (dict(enc_mode=8, tpu_realtime=0), None),
+    (dict(enc_mode=9, tpu_realtime=0), None),
+    (dict(enc_mode=8, source_width=112), "width % 32"),
+    (dict(enc_mode=9, source_width=112), "width % 32"),
+    (dict(enc_mode=8, source_height=72), "mi_rows % 4 == 1"),
+    (dict(speed_control=True), None),
+], ids=["m8_rt0", "m9", "m8_width_not_32", "m9_width_not_32",
+        "m8_mi_rows_4k_plus_1", "speed_control"])
+def test_host_routes_are_taken(monkeypatch, kw, notice):
+    """Low delay at enc_mode 8 and 9 with tpu_realtime 0, at a geometry the
+    realtime step rejects (with the JAX package's notice), and speed
+    control at enc_mode 7, refused until the open-loop keyframe hints were
+    ported, now take the host route: no realtime or random-access session,
+    the preset's signals (the hints at enc_mode 8 and 9), and a speed
+    controller from the configured mode where asked."""
+    new = []
+    monkeypatch.setattr(port_api, "notice", new.append)
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(_slice_cfg(**kw))
+    enc.init()
+    assert enc._rt is None and enc._ra_dev is None
+    assert enc._sig.use_tpu_hints == (enc._cfg.enc_mode >= 8)
+    if notice is None:
+        assert not new
+    else:
+        assert len(new) == 1 and notice in new[0] and "host encode" in new[0]
+    assert (enc._sc is not None) == bool(kw.get("speed_control"))
+    if enc._sc is not None:
+        assert enc._sc.base_mode == 7
+    enc.close()
+
+
+def test_aq_routes_are_taken():
+    """enc_mode 8 at tune SQ, refused until the adaptive lambda was
+    ported, takes the realtime session with aq on (with GOLDEN, as in the
+    JAX package); enc_mode 9 has no GOLDEN and drops it."""
+    for mode, want in ((8, True), (9, False)):
+        enc = port_api.Vp9Encoder(device="cpu")
+        enc.set_parameter(_slice_cfg(enc_mode=mode, tune=Tune.SQ))
+        enc.init()
+        assert enc._rt is not None and enc._rt.aq == want
+        enc.close()
 
 
 def test_random_access_at_m7_names_the_host_ra_engine_alone():
@@ -731,14 +774,11 @@ def test_strip_routes_are_taken(enc_mode):
     (["-gop-parallel", "2"], "-gop-parallel"),
     (["-nch", "2"], "-nch"),
     (["-distributed", "localhost:1234,2,0"], "-distributed"),
-    (["-enc-mode", "9", "-pred-struct", "0", "-rt", "0"], "tpu_realtime 0"),
-    (["-enc-mode", "8", "-pred-struct", "0", "-tune", "0"], "tune SQ"),
-    (["-enc-mode", "7", "-pred-struct", "0", "-speed-ctrl", "1"],
-     "item 10a"),
-    (["-enc-mode", "7"], "item 10"),
-    (["-rc", "1"], "item 10"),
-], ids=["gop_parallel", "nch", "distributed", "m9", "m8",
-        "m7_speed_control", "ra_m7", "ra_vbr"])
+    (["-enc-mode", "7"], "item 10b"),
+    (["-rc", "1"], "item 10b"),
+    (["-enc-mode", "8", "-rt", "0"], "item 10b"),
+], ids=["gop_parallel", "nch", "distributed", "ra_m7", "ra_vbr",
+        "ra_m8_rt0"])
 def test_app_refuses_unported_options(tmp_path, flags, why):
     from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
@@ -752,6 +792,34 @@ def test_app_refuses_unported_options(tmp_path, flags, why):
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode != 0
     assert why in res.stderr
+
+
+@pytest.mark.parametrize("flags", [
+    ["-enc-mode", "9", "-rt", "0"],
+    ["-enc-mode", "8", "-tune", "0"],
+    ["-enc-mode", "7", "-speed-ctrl", "1", "-fps", "30"],
+], ids=["m9", "m8", "m7_speed_control"])
+def test_app_routes_are_taken(tmp_path, flags):
+    """The low-delay CLI lines refused until this slice: M9 at -rt 0 (the
+    host route with the keyframe hints), M8 at -tune 0 (the adaptive
+    lambda) and M7 with speed control, each decoded back, every frame."""
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+    from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
+
+    clip = tmp_path / "clip.y4m"
+    out = tmp_path / "out.ivf"
+    with open(clip, "wb") as fh:
+        write_y4m(fh, synthetic_frames(128, 96, 3, motion=True))
+    res = subprocess.run(
+        [sys.executable, "-m", "tpu_vp9_torch.app", "-i", str(clip), "-b",
+         str(out), "-pred-struct", "0", "-q", "40", *flags, "-device",
+         "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "SUMMARY: 3 frames" in res.stdout
+    with open(out, "rb") as fh:
+        assert len(list(decode_ivf(fh))) == 3
 
 
 def test_app_encodes_m9_on_cpu_device(tmp_path):

@@ -206,10 +206,14 @@ def test_speed_control_on_the_realtime_route(enc_mode):
 
 
 def test_speed_control_on_the_host_route_names_item_10():
+    """Refused until item 10a (the keyframe hints) was ported: speed
+    control at enc_mode 7 now runs on the host route, whose controller
+    starts at the configured mode (tests/test_torch_host_route.py holds
+    its stream to the JAX package's)."""
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(EncoderConfig(
         source_width=W, source_height=H, enc_mode=7, qp=40,
         pred_structure=PredStructure.LOW_DELAY_P, speed_control=True))
-    with pytest.raises(NotImplementedError) as info:
-        enc.init()
-    assert "item 10a" in str(info.value) and "hints" in str(info.value)
+    enc.init()
+    assert enc._rt is None and enc._sc.base_mode == 7 == enc._sc.mode
+    enc.close()

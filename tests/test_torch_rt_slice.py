@@ -239,9 +239,12 @@ def test_port_session_python_serializer_matches_native(monkeypatch, er):
 
 
 def test_port_session_refuses_unported_configurations():
-    for kw in (dict(golden=True, aq=True), dict(mesh_shape=(1, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PortSession(128, 96, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PortSession(128, 96, device="cpu", mesh_shape=(1, 2))
+    # the adaptive lambda (aq, with GOLDEN) is taken since it was ported
+    sess = PortSession(128, 96, device="cpu", golden=True, aq=True)
+    assert sess.aq
+    sess.close()
     # a rate controller is taken, and the session serializes inline
     rc = object()
     sess = PortSession(128, 96, device="cpu", rc=rc)

@@ -7,29 +7,36 @@ send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
     ``pipeline/realtime.py``, whose P-frame step runs on that device:
     enc_mode 9 on the uniform 32 grid with LAST only, enc_mode 8 with
     rate tables, the GOLDEN anchor and the 32-against-16 descent
-    (``RtSession(split16=True, golden=True)``); at a strip geometry
-    (mi_rows % 4 == 2: 720p, 4K) the steps add the bottom 16-pixel strip's
-    16x16 blocks and the descent is off, as in the JAX package. At VBR
-    and CBR the session holds the rate controller (its qindex per frame,
-    its feedback after each serialization); speed control tracks the
-    achieved fps there, as in the JAX package, where the session reads
-    none of the preset it re-derives;
+    (``RtSession(split16=True, golden=True)``), at tune SQ with the
+    adaptive lambda (``aq``); at a strip geometry (mi_rows % 4 == 2: 720p,
+    4K) the steps add the bottom 16-pixel strip's 16x16 blocks and the
+    descent is off, as in the JAX package. At VBR and CBR the session
+    holds the rate controller (its qindex per frame, its feedback after
+    each serialization). A geometry the step rejects (width % 32 != 0,
+    mi_rows % 4 == 1: 640x360, 854x480) takes the host route below with a
+    notice, and raises ``RuntimeError`` at tpu_realtime 1, as in the JAX
+    package;
   - random access with hierarchical levels (the configuration's
     default) at enc_mode 8 and 9, CQP, tpu_realtime != 0, with no recon
     file, speed control, mesh or qp override at ``init``, runs the
     hierarchical ALTREF pyramids of ``pipeline/ra_device.py``
     (``DeviceRaSession``), whose steps run on that device; packets come
     out in decode order with DTS = decode order - 2^levels + 1;
-  - enc_mode <= 7 runs the low-delay host encode with its full-pel
-    motion search on that device.
+  - enc_mode <= 7, and enc_mode 8 and 9 at tpu_realtime 0, run the
+    low-delay host encode, its full-pel motion search on that device from
+    1280x720 up; at enc_mode 8 and 9 its keyframes take the open-loop mode
+    hints (``codec/intra_frame.py:openloop_mode_hints_np``, built from
+    ``pipeline/tpu_intra.py``).
+
+Speed control tracks the achieved fps on the realtime and host routes and
+re-derives the preset's signals when it changes the mode: the host route
+reads them (a step to enc_mode 8 or 9 makes the next keyframe take the
+hints), the realtime session reads none, as in the JAX package.
 
 Routes not ported yet raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: any other random-access configuration (the host RA
-engine), enc_mode 8 at tune SQ (the adaptive lambda), enc_mode 8/9 with
-``-rt 0`` (the keyframe mode hints) or at a geometry the realtime step
-does not take (width % 32 != 0, mi_rows % 4 == 1), speed control on the
-host route (it may step to enc_mode 8 or 9, whose keyframes need the
-hints) and multi-device meshes. No route falls back to another.
+engine, item 10b) and multi-device meshes. No other route falls back to
+another.
 """
 
 from __future__ import annotations
@@ -118,17 +125,10 @@ class Vp9Encoder:
               and cfg.hierarchical_levels >= 1)
         if ra:
             self._check_device_ra(cfg)
-        realtime = int(cfg.enc_mode) >= 8 and not ra
+        realtime = (int(cfg.enc_mode) >= 8 and not ra
+                    and cfg.tpu_realtime != 0)
         if realtime:
-            self._check_realtime(cfg)
-        if cfg.speed_control and not realtime and not ra:
-            raise NotImplementedError(
-                f"tpu_vp9_torch: speed control at enc_mode "
-                f"{int(cfg.enc_mode)} (the host route) may step to enc_mode "
-                "8 or 9, whose host keyframes need the open-loop mode hints "
-                "of tpu_intra, not ported yet (ROADMAP.md Queue A item "
-                "10a); speed control runs on the realtime route (enc_mode "
-                "8 and 9, LOW_DELAY_P)")
+            realtime = self._realtime_geometry(cfg)
         if cfg.tpu_mesh_shape:
             raise NotImplementedError(
                 "tpu_vp9_torch: multi-device meshes are not ported yet "
@@ -162,7 +162,7 @@ class Vp9Encoder:
                     f"tpu_vp9_torch: the device random-access session "
                     f"rejects {cfg.source_width}x{cfg.source_height} "
                     f"({exc}); the host RA engine for it is not ported "
-                    "(ROADMAP.md Queue A item 10)") from exc
+                    "(ROADMAP.md Queue A item 10b)") from exc
             notice("random-access pyramids on the device step "
                    "(DeviceRaSession)")
             # packetization latency: DTS = decode order - 2^levels + 1
@@ -181,9 +181,9 @@ class Vp9Encoder:
                 want_recon=cfg.recon_file is not None,
                 loop_filter=cfg.loop_filter, split16=m8, golden=m8,
                 aq=cfg.tune == Tune.SQ)
-            if cfg.speed_control:
-                self._sc = SpeedControl(target_fps=max(cfg.fps, 1.0),
-                                        base_mode=cfg.enc_mode)
+        if cfg.speed_control:
+            self._sc = SpeedControl(target_fps=max(cfg.fps, 1.0),
+                                    base_mode=cfg.enc_mode)
         self._initialized = True
 
     def _check_device_ra(self, cfg) -> None:
@@ -208,36 +208,32 @@ class Vp9Encoder:
             raise NotImplementedError(
                 f"tpu_vp9_torch: random access with hierarchical levels "
                 f"and {why} runs the host RA engine (gop.RaEncoder with "
-                "device ME), not ported yet (ROADMAP.md Queue A item 10); "
+                "device ME), not ported yet (ROADMAP.md Queue A item 10b); "
                 "the device random-access session takes enc_mode 8 and 9 "
                 "at CQP, or use pred_structure=LOW_DELAY_P")
 
     @staticmethod
-    def _check_realtime(cfg) -> None:
-        """Raise for an enc_mode 8/9 configuration the port cannot run."""
-        mode = int(cfg.enc_mode)
-        if cfg.tpu_realtime == 0:
-            raise NotImplementedError(
-                f"tpu_vp9_torch: enc_mode {mode} with tpu_realtime 0 (-rt 0) "
-                "runs the host encode with the tpu_intra keyframe hints, "
-                "not ported yet (ROADMAP.md Queue A item 10)")
-        if mode == 8 and cfg.tune == Tune.SQ:
-            raise NotImplementedError(
-                "tpu_vp9_torch: enc_mode 8 at tune SQ runs the step with "
-                "the adaptive lambda (aq), not ported yet (ROADMAP.md "
-                "Queue A item 6); use tune OQ")
+    def _realtime_geometry(cfg) -> bool:
+        """True if the realtime step takes the configured geometry. If it
+        does not, the host route takes it, with a notice, as in the JAX
+        package; at tpu_realtime 1 that is a ``RuntimeError``."""
         try:
             make_geom(cfg.source_width, cfg.source_height)
         except ValueError as exc:
-            raise NotImplementedError(
-                f"tpu_vp9_torch: the realtime step rejects "
-                f"{cfg.source_width}x{cfg.source_height} ({exc}); the host "
-                "route for it is not ported (ROADMAP.md Queue A item 10)"
-            ) from exc
+            if cfg.tpu_realtime == 1:
+                raise RuntimeError(
+                    "tpu_realtime=1 requested but the realtime session "
+                    f"rejected {cfg.source_width}x{cfg.source_height}: "
+                    f"{exc}") from exc
+            notice(f"realtime device session unavailable ({exc}); "
+                   "falling back to host encode")
+            return False
+        return True
 
     def _speed_report(self, n_frames: int, seconds: float) -> None:
         """Feed the speed controller; re-derive the preset's signals when
-        it changes the mode (the realtime session reads none of them)."""
+        it changes the mode (the host route reads them, the realtime
+        session none)."""
         if self._sc is None:
             return
         new_mode = self._sc.report(n_frames, seconds)
@@ -429,6 +425,7 @@ class Vp9Encoder:
         )
         self._emit(Packet(data=payload, pts=idx, dts=0,
                           is_keyframe=is_key, qindex=qindex))
+        self._speed_report(1, time.perf_counter() - sc_t0)
 
     def _ld_kf_staticness(self, frame):
         """Keyframe staticness for the low-delay paths: at one frame of

@@ -12,10 +12,14 @@ encoder refuses.
 Usage (the default, random access with 4 hierarchical levels at enc_mode
 9: the ALTREF pyramids of the device random-access session on the card;
 M8: the realtime P-frame step with rate tables, the GOLDEN anchor and the
-32-against-16 descent on the card; M9: the uniform 32 grid; in low delay
-M8 and M9 also at VBR (``-rc 1``) or CBR (``-rc 2``, a VBV of twice
-``-tbr`` unless ``-vbv-bufsize``) and with speed control (``-speed-ctrl
-1``); M7: the host encode with the full-pel search on the card):
+32-against-16 descent on the card, at ``-tune 0`` (SQ) with the adaptive
+lambda; M9: the uniform 32 grid; in low delay M8 and M9 also at VBR
+(``-rc 1``) or CBR (``-rc 2``, a VBV of twice ``-tbr`` unless
+``-vbv-bufsize``) and with speed control (``-speed-ctrl 1``); M7: the host
+encode with the full-pel search on the card; M8 and M9 at ``-rt 0``, and
+at a size the realtime step does not take (a width not a multiple of 32,
+or 640x360), the same host encode with the open-loop keyframe mode hints;
+the host encode with ``-speed-ctrl 1``, which may step it to M8 and M9):
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
       -pred-struct 0 -q 40
@@ -23,8 +27,14 @@ M8 and M9 also at VBR (``-rc 1``) or CBR (``-rc 2``, a VBV of twice
       -pred-struct 0 -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
       -pred-struct 0 -rc 2 -tbr 2000000
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
+      -pred-struct 0 -tune 0 -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 7 \
       -pred-struct 0 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 9 \
+      -pred-struct 0 -rt 0 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 7 \
+      -pred-struct 0 -speed-ctrl 1 -fps 30 -q 40
 """
 
 from __future__ import annotations

@@ -74,13 +74,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "intra_pred.cuh"
 #include "txfm_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kModes = 10;
+using intra_pred::kModes;
+using intra_pred::dc_of;
+using intra_pred::filt;
+using intra_pred::mode_bias;
+using intra_pred::tm_pred;
+using intra_pred::warp_max;
+using intra_pred::warp_min;
+using intra_pred::warp_sum;
 // pixels of a block's three planes: luma 32x32, then u and v 16x16
 constexpr int kPix = 1024 + 2 * 256;
 // a block's bottom rows in the edge buffer: 16 words of 64 bits, four
@@ -187,48 +195,6 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
 }
 #endif
-
-// warp reductions of int32 on one redux.sync each (sm_80 and later)
-__device__ __forceinline__ int warp_sum(int v) {
-  return __reduce_add_sync(0xffffffffu, v);
-}
-__device__ __forceinline__ int warp_max(int v) {
-  return __reduce_max_sync(0xffffffffu, v);
-}
-__device__ __forceinline__ int warp_min(int v) {
-  return __reduce_min_sync(0xffffffffu, v);
-}
-
-// the keyframe's mode prior in lambda units (ops/cuda_kernels.py:
-// KF_MODE_BIAS): 0 for DC, 1 for V, H and TM, 3 for the diagonals
-__device__ __forceinline__ int mode_bias(int m) {
-  return m == 0 ? 0 : (m == 1 || m == 2 || m == kModes - 1 ? 1 : 3);
-}
-
-// DC of an n x n block (n = 1 << lg) from the sum of its available edges
-__device__ __forceinline__ int dc_of(int sum, bool ha, bool hl, int lg) {
-  const int n = 1 << lg;
-  if (ha && hl) return (sum + n) >> (lg + 1);
-  if (ha || hl) return (sum + (n >> 1)) >> lg;
-  return 128;
-}
-
-// A directional mode's prediction from its packed word w: the three taps'
-// indices into the reference vector in bits 0-6, 7-13, 14-20, their
-// weights in bits 21-23, 24-26, 27-29
-__device__ __forceinline__ int filt(unsigned w, const int* ref) {
-  const int sum = static_cast<int>((w >> 21) & 7) * ref[w & 127] +
-                  static_cast<int>((w >> 24) & 7) * ref[(w >> 7) & 127] +
-                  static_cast<int>((w >> 27) & 7) * ref[(w >> 14) & 127];
-  return (sum + 2) >> 2;
-}
-
-// TM's prediction of pixel (y, x) of an n x n block from its reference
-// vector
-__device__ __forceinline__ int tm_pred(const int* ref, int n, int y, int x) {
-  const int v = ref[y] + ref[n + 1 + x] - ref[n];
-  return v < 0 ? 0 : (v > 255 ? 255 : v);
-}
 
 // 16 bytes of block (r, c)'s source: unit u < 64 is half a luma row (row
 // u >> 1), 64..79 a u row, 80..95 a v row; in s_src the unit lies at 16 u

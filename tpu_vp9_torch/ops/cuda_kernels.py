@@ -18,6 +18,12 @@ the JAX package writes in jnp:
   loop_filter_device                   loop_filter (csrc/loop_filter.cu)
   kframe_step (the intra wavefront)    kframe_wave (csrc/kframe_wave.cu)
 
+and the device stage of the host route's keyframe hints:
+
+  tpu_vp9/pipeline/tpu_intra.py        here
+  decide_modes_openloop                openloop_modes
+                                       (csrc/openloop_modes.cu)
+
 ``block_energy_at`` is ``block_energy`` with the prediction read in place
 out of a plane at per-block starts, for several candidate sets at once.
 
@@ -85,6 +91,7 @@ _LAUNCHERS = {
     "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
                         5),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
+    "openloop_modes": ("openloop_modes", "openloop_modes_launch", 5, 0, 4),
 }
 _fns: dict = {}
 
@@ -935,6 +942,150 @@ kframe_wave.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The open-loop keyframe hints (csrc/openloop_modes.cu)
+# ---------------------------------------------------------------------------
+
+OPENLOOP_BLOCK_SIZES = (32,)  # the size the kernel is built for
+# blocks whose (chunk, 10, n, n) predictions the plain version holds at once
+OPENLOOP_CHUNK = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _intra_maps_on(bs: int, device):
+    from tpu_vp9_torch.ops.intra import stacked_dir_maps
+
+    idx, w = stacked_dir_maps(bs)
+    return (torch.as_tensor(idx.astype(np.int64), device=device),
+            torch.as_tensor(w, dtype=torch.int32, device=device))
+
+
+def predict_intra_all(ref, have_above, have_left, bs: int):
+    """All 10 intra predictions of a batch of blocks, exact, as
+    ``ops/intra.py:predict_all_modes`` computes them: ref (B, 3*bs+1) int32
+    in that module's layout [left, above-left, above and above-right],
+    have_above and have_left (B,) bool. Returns (B, 10, bs, bs) int32 in
+    IntraMode order; the six diagonals, V and H from the module's index and
+    weight maps."""
+    idx, w = _intra_maps_on(bs, ref.device)
+    dirs = ((ref[:, idx] * w).sum(dim=2) + 2) >> 2  # (B, 8, bs, bs)
+    left, al = ref[:, :bs], ref[:, bs]
+    above = ref[:, bs + 1:2 * bs + 1]
+    sum_a, sum_l = above.sum(dim=1), left.sum(dim=1)
+    lg = bs.bit_length() - 1
+    dc = torch.where(
+        have_above & have_left, (sum_a + sum_l + bs) >> (lg + 1),
+        torch.where(have_above, (sum_a + (bs >> 1)) >> lg,
+                    torch.where(have_left, (sum_l + (bs >> 1)) >> lg, 128)))
+    tm = (left[:, :, None] + above[:, None, :] - al[:, None, None]) \
+        .clamp(0, 255)
+    b = ref.shape[0]
+    return torch.cat([dc[:, None, None, None].expand(b, 1, bs, bs), dirs,
+                      tm[:, None]], dim=1).to(torch.int32)
+
+
+def openloop_lam(qindex: int) -> int:
+    """The hints' lambda, qindex^2 // 64 + 1 (the JAX function's)."""
+    return int(qindex) ** 2 // 64 + 1
+
+
+def _check_openloop_args(plane, qindex: int, n: int) -> None:
+    if n not in OPENLOOP_BLOCK_SIZES:
+        raise ValueError(f"openloop_modes: n={n} not in "
+                         f"{OPENLOOP_BLOCK_SIZES}")
+    if plane.dim() != 2 or plane.dtype != torch.uint8:
+        raise TypeError(f"openloop_modes: want an (H, W) uint8 plane, got "
+                        f"{plane.dtype} of shape {tuple(plane.shape)}")
+    h, w = plane.shape
+    if h < n or w < n or h % n or w % n:
+        raise ValueError(f"openloop_modes: a {h}x{w} plane is not a grid "
+                         f"of {n}x{n} blocks")
+    if not 0 <= qindex <= 255:
+        raise ValueError(f"openloop_modes: qindex {qindex} outside [0, 255]")
+
+
+def _openloop_ref_vectors(p, n: int):
+    """(ref (B, 3n+1) int32 in ``ops/intra.py``'s layout, have_above (B,),
+    have_left (B,)) of every n x n block of the int32 plane ``p``, in
+    raster order, from the plane itself: the row above (127 above the
+    frame), the column to the left (129 left of it), the corner (127
+    without a row above, else 129 without a column to the left), above-right
+    repeating above[n-1]."""
+    h, w = p.shape
+    rows, cols = h // n, w // n
+    dev = p.device
+    rr = torch.arange(rows, device=dev).repeat_interleave(cols)
+    cc = torch.arange(cols, device=dev).repeat(rows)
+    ha, hl = rr > 0, cc > 0
+    ar = torch.arange(n, device=dev)
+    ya, xl = (rr * n - 1).clamp(min=0), (cc * n - 1).clamp(min=0)
+    above = torch.where(ha[:, None], p[ya[:, None], (cc * n)[:, None] + ar],
+                        127)
+    left = torch.where(hl[:, None], p[(rr * n)[:, None] + ar, xl[:, None]],
+                       129)
+    al = torch.where(ha, torch.where(hl, p[ya, xl], 129), 127)
+    ref = torch.cat([left, al[:, None], above,
+                     above[:, -1:].expand(-1, n)], dim=1)
+    return ref.to(torch.int32), ha, hl
+
+
+def openloop_modes_ref(plane, qindex: int, n: int = 32):
+    """Plain PyTorch version of ``openloop_modes`` (same contract)."""
+    h, w = plane.shape
+    rows, cols = h // n, w // n
+    b = rows * cols
+    p = plane.to(torch.int32)
+    ref, ha, hl = _openloop_ref_vectors(p, n)
+    src = p.reshape(rows, n, cols, n).permute(0, 2, 1, 3).reshape(b, n, n)
+    sse = torch.empty((b, 10), dtype=torch.int32, device=plane.device)
+    for s in range(0, b, OPENLOOP_CHUNK):
+        e = min(b, s + OPENLOOP_CHUNK)
+        d = predict_intra_all(ref[s:e], ha[s:e], hl[s:e], n) - src[s:e, None]
+        sse[s:e] = (d * d).sum(dim=(2, 3), dtype=torch.int32)
+    bias = torch.tensor(KF_MODE_BIAS, dtype=torch.int32, device=plane.device)
+    cost = sse + bias * openloop_lam(qindex)
+    modes = torch.argmin(cost, dim=1)  # the first minimum
+    best = cost.gather(1, modes[:, None])[:, 0]
+    return (modes.to(torch.int32).reshape(rows, cols),
+            sse.reshape(rows, cols, 10), best.reshape(rows, cols))
+
+
+def openloop_modes(plane, qindex: int, n: int = 32):
+    """Open-loop intra mode decision of every n x n block of a plane: the
+    keyframe mode hints (``tpu_vp9/pipeline/tpu_intra.py:
+    decide_modes_openloop``).
+
+    plane: (H, W) uint8 source plane, H and W multiples of n (n = 32);
+    qindex in [0, 255]. For each block: the 10 intra predictions from the
+    *source* samples around it (127 above the frame, 129 left of it,
+    above-right repeating above[n-1]), their SSE in int32, the cost
+    ``sse + KF_MODE_BIAS[m] * lam`` with ``lam = openloop_lam(qindex)``,
+    and the first mode of least cost. Returns (modes (R, C) int32, sse (R,
+    C, 10) int32, best (R, C) int32, the least cost). CUDA inputs run the
+    kernel of ``csrc/openloop_modes.cu`` (one launch, a CTA per block);
+    CPU inputs run ``openloop_modes_ref``. The two agree bit for bit.
+    """
+    qindex = int(qindex)
+    _check_openloop_args(plane, qindex, n)
+    if _device_kind("openloop_modes", plane) == "cpu":
+        return openloop_modes_ref(plane, qindex, n)
+    h, w = plane.shape
+    rows, cols = h // n, w // n
+    b = rows * cols
+    dev = plane.device
+    out = torch.empty(12 * b, dtype=torch.int32, device=dev)
+    _, tabs = _kf_tables_on(dev)
+    ptr = out.data_ptr()
+    _launch("openloop_modes", dev, plane.data_ptr(), tabs.data_ptr(), ptr,
+            ptr + 8 * b, ptr + 4 * b, w, rows, cols, openloop_lam(qindex))
+    openloop_modes.launches += 1
+    return (out[:b].reshape(rows, cols), out[2 * b:].reshape(rows, cols, 10),
+            out[b:2 * b].reshape(rows, cols))
+
+
+openloop_modes.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The P-frame step's transform stage (csrc/transform_recon.cu)
 # ---------------------------------------------------------------------------
 
@@ -1066,6 +1217,13 @@ def kframe_wave_occupancy(device=None):
     """(CTAs of 256 threads an SM holds at once, the dynamic shared memory
     each asks for in bytes) of ``kframe_wave``'s kernel (``_occupancy``)."""
     return _occupancy("kframe_wave", None, None, device)
+
+
+def openloop_modes_occupancy(device=None):
+    """(CTAs of 256 threads an SM holds at once, the dynamic shared memory
+    each asks for in bytes) of ``openloop_modes``'s kernel
+    (``_occupancy``)."""
+    return _occupancy("openloop_modes", None, None, device)
 
 
 def transform_recon_occupancy(n: int, device=None, tx_type: int = 0):

@@ -5,26 +5,27 @@ picture decision (keyframe placement) -> per-frame encode (intra or
 inter pass A) -> serialization -> packetization (IVF payloads), with
 DPB management mirroring the decoder's.
 
-The JAX package's module asks ``tpu_intra`` for keyframe mode hints when
-``use_tpu_hints`` is set and drops the device stages when its accelerator
-does not answer; here the hint route raises ``NotImplementedError`` and
-there is no probe.
+The keyframe mode hints (``use_tpu_hints``, enc_mode 8 and 9 in
+``encode_video``) come from the port's ``tpu_intra.decide_modes_openloop``
+on ``device``: the kernel ``openloop_modes`` on a card, its plain version
+on the CPU. Where the JAX package drops its device stages when its
+accelerator does not answer, and encodes without hints when they fail,
+here there is no probe and a failure propagates.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+import torch
+
 from tpu_vp9_torch.bitstream.headers import FrameHeader, assemble_frame
 from tpu_vp9_torch.bitstream.tables import BlockSize, TxMode
 from tpu_vp9_torch.codec.intra_frame import encode_keyframe
 from tpu_vp9_torch.codec.inter_frame import encode_pframe
 from tpu_vp9_torch.ops.inter import extend_borders
-
-
-_NO_HINTS = ("tpu_vp9_torch: the device keyframe mode hints "
-             "(tpu_intra.decide_modes_openloop) are not ported yet "
-             "(ROADMAP.md Queue A item 10)")
+from tpu_vp9_torch.pipeline.tpu_intra import decide_modes_openloop
 
 
 @dataclass
@@ -52,11 +53,14 @@ def _make_refs(st, width: int, height: int):
 def encode_stream(frames, qindex: int = 100, intra_period: int = -1,
                   block_size=BlockSize.BLOCK_32X32, search_range: int = 16,
                   do_subpel: bool = True, use_tpu_hints: bool = False,
-                  log2_tile_cols: int = 0, part_depths=None):
+                  log2_tile_cols: int = 0, part_depths=None,
+                  device="cuda"):
     """Encode frames as IPPP... CQP. Returns list[EncodedFrame].
 
     intra_period: -1 = only first frame is key; else a keyframe every
-    `intra_period + 1` frames.
+    `intra_period + 1` frames. device: where the keyframe hints
+    (use_tpu_hints, 32-aligned frames) and any device stage of
+    ``encode_pframe`` run.
     """
     out = []
     refs = None
@@ -67,7 +71,7 @@ def encode_stream(frames, qindex: int = 100, intra_period: int = -1,
         hints = None
         if is_key:
             if use_tpu_hints and w % 32 == 0 and h % 32 == 0:
-                raise NotImplementedError(_NO_HINTS)
+                hints = _hints(frame, qindex, device)
             tile, st = encode_keyframe(frame, qindex, block_size,
                                        y_mode_hints=hints,
                                        log2_tile_cols=log2_tile_cols,
@@ -80,7 +84,7 @@ def encode_stream(frames, qindex: int = 100, intra_period: int = -1,
             tile, st = encode_pframe(frame, refs, qindex, block_size,
                                      search_range, do_subpel=do_subpel,
                                      log2_tile_cols=log2_tile_cols,
-                                     part_depths=part_depths)
+                                     part_depths=part_depths, device=device)
             hdr = FrameHeader(
                 width=w, height=h, is_keyframe=False, error_resilient=True,
                 base_qindex=qindex, tx_mode=TxMode.ALLOW_32X32,
@@ -121,11 +125,21 @@ def _apply_loop_filter_inner(st, hdr, qindex, is_key, enabled=True):
                           lf.mode_ref_delta_enabled)
 
 
-def encode_video(frames, cfg):
+def _hints(frame, qindex: int, device):
+    """The keyframe's 32x32 luma mode hints, (R, C) int32 numpy, from the
+    open-loop decision on ``device``."""
+    plane = torch.from_numpy(np.ascontiguousarray(frame.y)).to(device)
+    modes, _, _ = decide_modes_openloop(plane, qindex, 32)
+    return modes.cpu().numpy()
+
+
+def encode_video(frames, cfg, device="cuda"):
     """Config-driven encode: presets + rate control + GOP placement.
 
     frames: iterable of Frame420.  Returns list[EncodedFrame].
     This is the orchestration behind the public 7-step API and the CLI.
+    device: where the keyframe hints (enc_mode 8 and 9, 32-aligned
+    frames) and any device stage of ``encode_pframe`` run.
     """
     from tpu_vp9_torch.pipeline.presets import derive_signals
     from tpu_vp9_torch.pipeline.rate_control import RateControlState
@@ -147,7 +161,7 @@ def encode_video(frames, cfg):
         hints = None
         if is_key:
             if sig.use_tpu_hints and w % 32 == 0 and h % 32 == 0:
-                raise NotImplementedError(_NO_HINTS)
+                hints = _hints(frame, qindex, device)
             tile, st = encode_keyframe(frame, qindex, sig.block_size,
                                        qbias=sig.qbias, y_mode_hints=hints)
             hdr = FrameHeader(
@@ -159,7 +173,7 @@ def encode_video(frames, cfg):
                 qbias=sig.qbias, do_subpel=sig.do_subpel,
                 adaptive_partition=sig.adaptive_partition,
                 adp_budget=sig.adp_budget,
-                full_loop=getattr(sig, "full_loop", False))
+                full_loop=getattr(sig, "full_loop", False), device=device)
             hdr = FrameHeader(
                 width=w, height=h, is_keyframe=False, error_resilient=True,
                 base_qindex=qindex, tx_mode=TxMode.ALLOW_32X32,

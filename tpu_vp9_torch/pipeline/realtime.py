@@ -43,8 +43,11 @@ strip's 16x16 blocks (the outputs' "m16" zone, serialized with the 32
 grid; the session keeps the strip's MVs as its temporal candidates,
 ``_prev_mv16``), and the descent is off, as in the JAX session.
 
-Not ported yet, and refused with NotImplementedError: the adaptive lambda
-(``aq`` with GOLDEN, tune SQ), meshes.
+``aq`` (tune SQ) gives the M8 step the adaptive lambda: each block's rate
+lambda scaled by its variance (``tpu_encdec._sb_lambda_scale``); as in the
+JAX session it takes effect with GOLDEN only (the step's rate tables).
+
+Not ported yet, and refused with NotImplementedError: meshes.
 """
 
 from __future__ import annotations
@@ -337,11 +340,6 @@ class RtSession:
             raise NotImplementedError(
                 "tpu_vp9_torch RtSession: meshes are not ported yet "
                 "(ROADMAP.md Queue A item 11)")
-        if aq and golden:
-            # without GOLDEN the JAX session drops aq too (aq=aq and golden)
-            raise NotImplementedError(
-                "tpu_vp9_torch RtSession: the adaptive lambda (aq, tune "
-                "SQ) is not ported yet (ROADMAP.md Queue A item 6)")
         self.g = make_geom(width, height)
         self.device = torch.device(device)
         self.w, self.h = width, height
@@ -360,9 +358,12 @@ class RtSession:
         # largest distortion; 1 descends every parent
         dfrac = int(os.environ.get("TPU_VP9_DESCEND_FRAC",
                                    str(DESCEND_FRAC)))
+        # without GOLDEN the step takes no rate tables, and aq nothing to
+        # scale (the JAX session passes aq and golden too)
+        self.aq = aq and golden
         self._step = make_pframe_step(self.g, self.device,
                                       split16=self.split16, golden=golden,
-                                      descend_frac=dfrac)
+                                      descend_frac=dfrac, aq=self.aq)
         # the device keyframe, as the JAX session always takes it; None
         # selects the host encoder
         self._kstep = make_kframe_step(self.g, self.device)

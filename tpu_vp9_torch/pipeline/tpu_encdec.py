@@ -25,9 +25,12 @@ encoded as LAST blocks, and compared with the parent by cost; the loop
 filter then takes the per-parent split mask. The random-access session
 (``pipeline/ra_device.py``) adds the ALTREF reference (``alt=``, the
 pyramid's future anchor: its own search as LAST's, ZERO and NEW) and
-descends every parent (``descend_frac=1``). The adaptive lambda (``aq``)
-is not ported; the descent is off at a strip geometry, as in the JAX
-package.
+descends every parent (``descend_frac=1``). At tune SQ the M8 session
+adds the adaptive lambda (``aq``): a zone's rate lambda becomes a float32
+vector, one value a block, scaled by the block's variance against the
+frame's (``_sb_lambda_scale``); the descent's children and its split
+decision keep the frame's value. The descent is off at a strip geometry,
+as in the JAX package.
 
 One place differs from the JAX package on purpose: its children take
 their chroma from the parent's merged MC windows, another reference's
@@ -88,12 +91,12 @@ from tpu_vp9_torch.bitstream import tables as T
 from tpu_vp9_torch.codec.modeinfo import INTRA_MODE_TO_TX_TYPE
 from tpu_vp9_torch.utils.trace import span
 
-from tpu_vp9_torch.ops import cuda_kernels, intra, txfm
+from tpu_vp9_torch.ops import cuda_kernels, txfm
 from tpu_vp9_torch.ops.cuda_kernels import (
     HALF_R, KF_MODE_BIAS, REFINE_R, WIN_R, check_kf_args,
     block_energy, block_energy_at, hier_search_fused, kf_diagonal,
-    kf_outputs, kframe_wave, loop_filter, sse_map_search,
-    take_windows as _take_windows,
+    kf_outputs, kframe_wave, loop_filter, predict_intra_all,
+    sse_map_search, take_windows as _take_windows,
 )
 
 BORDER = 96  # matches tpu_vp9/ops/inter.py (host refs interop)
@@ -315,6 +318,61 @@ def _block_sq_sum(src_blocks):
     """Per-block sum(src^2), int32."""
     s = src_blocks.to(torch.int32)
     return (s * s).sum(dim=(1, 2), dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _zero_blocks(b: int, n: int, device):
+    return torch.zeros((b, n, n), dtype=torch.uint8, device=device)
+
+
+def _aq_var(src_sum, src2, n: int):
+    """Per-block variance of a zone's n x n blocks from their exact int32
+    sums (tensors on any device), as the JAX package's ``_sb_lambda_scale``
+    takes it, in float32 op for op on the host: float32(src2) (rounded
+    above 2^24) / n^2 - mean * mean, clipped at 0. The cancellation is
+    float32's, as there. Returns (B,) float32 numpy (the read waits for
+    the device)."""
+    f32 = np.float32
+    sums = torch.stack([src_sum, src2]).cpu().numpy()
+    mean = sums[0].astype(f32) / f32(n * n)
+    return np.maximum(sums[1].astype(f32) / f32(n * n) - mean * mean, f32(0))
+
+
+def _sb_lambda_scale(src_sum, src2, n: int):
+    """Per-block variance-adaptive rate-lambda scale (tune SQ), as the JAX
+    package's ``_sb_lambda_scale`` computes it from a zone's n x n source
+    blocks: flat blocks get a lower rate lambda, busy ones a higher, the
+    frame's geometric mean normalised to 1, clipped to [0.5, 2].
+
+    src_sum, src2: (B,) int32 exact per-block sums of the pixels and of
+    their squares, on any device. After ``_aq_var`` the chain stays float32
+    on the host: + 16, log, minus the mean of the logs, * 0.25, exp, the
+    clip. log and exp are taken in float64 and rounded to float32, the mean
+    of the logs summed in float64 and rounded, so the scale is the same
+    bits on the CPU and the card. XLA's float32 log and exp are not always
+    correctly rounded and its sum takes another order, so a scale may
+    differ from the JAX package's by a few ulps (``tests/
+    test_torch_rt_aq.py`` bounds it). Returns (B,) float32 on
+    ``src_sum``'s device."""
+    f32 = np.float32
+    var = _aq_var(src_sum, src2, n)
+    logv = np.log((var + f32(16)).astype(np.float64)).astype(f32)
+    mean_log = f32(np.sum(logv, dtype=np.float64)) / f32(logv.size)
+    scale = np.exp(((logv - mean_log) * f32(0.25)).astype(np.float64))
+    scale = np.clip(scale.astype(f32), f32(0.5), f32(2.0))
+    return torch.from_numpy(scale).to(src_sum.device)
+
+
+def _aq_rates(rates, src_blocks, n: int):
+    """``rates`` with the zone's per-block rate lambda: the frame's
+    float32 ``lam_bits`` times ``_sb_lambda_scale`` of the blocks, whose
+    exact sums come from one ``block_energy`` launch against zero blocks
+    (its SSE the sum of squares, its SAD the sum)."""
+    zeros = _zero_blocks(src_blocks.shape[0], n, src_blocks.device)
+    src2, src_sum = block_energy(src_blocks, zeros, n)
+    scale = _sb_lambda_scale(src_sum, src2, n)
+    # the product in float32: the frame's value is one, as a host float
+    return dict(rates, lam_bits=scale * float(np.float32(rates["lam_bits"])))
 
 
 def _fullpel_starts(plane_shape, pos_y, pos_x, mv_r_q3, mv_c_q3, n: int):
@@ -564,10 +622,12 @@ def _mvd_bits(rates, dr, dc):
             + rates["nmv_col"][(dc.clamp(-m, m) + m).long()])
 
 
-def _table_costs(sads, rate, lam_bits: float):
+def _table_costs(sads, rate, lam_bits):
     """SSE + lam_bits * rate / 256 in float32. The multiply, the divide
     and the add are separate operations in the JAX package's order (a
-    fused multiply-add would round differently)."""
+    fused multiply-add would round differently). lam_bits: the frame's
+    float32 value as a host float, or (aq) a float32 (B,) tensor, one a
+    block (the columns of ``sads`` and ``rate``)."""
     return sads.to(torch.float32) + lam_bits * rate.to(torch.float32) / 256.0
 
 
@@ -689,7 +749,11 @@ def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
 
 def _ref_extra(lam: int, rates):
     """Signalling cost of choosing (LAST, GOLDEN, ALTREF) in cost units:
-    three float32 values, as host floats."""
+    three float32 values, as host floats, or (aq: a per-block lam_bits)
+    three float32 (B,) tensors."""
+    if rates is not None and isinstance(rates["lam_bits"], torch.Tensor):
+        return [float(c) * rates["lam_bits"] / 256.0
+                for c in rates["ref_cost"][:3]]
     if rates is not None:
         lam_f = np.float32(rates["lam_bits"])
         return [float(np.float32(c) * lam_f / np.float32(256.0))
@@ -1219,11 +1283,10 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
 def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
                 geom: Geom, dc_q: int, ac_q: int, lam: int, filters,
                 new_bits, gold=None, alt=None, rates=None,
-                return_me: bool = False, n: int = 32):
-    """MD + recon for one uniform zone (the JAX package's ``encode_zone``
-    without ``aq``): at n=32 the 32 grid, at n=16 the bottom strip of a
-    strip geometry (one row of ``cols16`` blocks from plane row
-    ``strip_y``).
+                return_me: bool = False, n: int = 32, aq: bool = False):
+    """MD + recon for one uniform zone (the JAX package's ``encode_zone``):
+    at n=32 the 32 grid, at n=16 the bottom strip of a strip geometry (one
+    row of ``cols16`` blocks from plane row ``strip_y``).
 
     src planes: padded device planes; ref planes: border-extended
     previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the zone's
@@ -1240,7 +1303,8 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     (proxies). return_me (n=32): also return what the children refine in,
     all of LAST, whatever reference a parent took ("wins", "dy", "dx" of
     the search, the chroma MC windows "wu", "wv"): every child is a LAST
-    block.
+    block. aq (with ``rates``): the zone's candidate and reference costs
+    take a per-block rate lambda (``_aq_rates``; tune SQ).
     Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN,
     2 ALTREF), skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v
     (unfiltered zone planes), dist_b, rate_b, dist, rate.
@@ -1273,6 +1337,9 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
             new_r, new_c, sse_new = subpel_search(wins, src_blocks, dy, dx,
                                                   n, WIN_R)
             r_map, q3s, scale = WIN_R, 3, 1
+    if aq and rates is not None:
+        with _stage("step_aq"):
+            rates = _aq_rates(rates, src_blocks, n)
     with _stage("step_md"):
         mv_r, mv_c, cost_last = _candidate_decide(
             ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows,
@@ -1550,9 +1617,8 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                 prev_mv16, geom: Geom, dc_q: int, ac_q: int, lam: int,
                 lf_lvl: int, lf_lim: int, lf_mblim: int, filters, new_bits,
                 split16: bool = False, gold=None, alt=None, rates=None,
-                descend_frac: int = DESCEND_FRAC):
-    """One device P-frame encode step (the JAX package's ``pframe_step``
-    without ``aq``).
+                descend_frac: int = DESCEND_FRAC, aq: bool = False):
+    """One device P-frame encode step (the JAX package's ``pframe_step``).
 
     src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 device
     tensors; ref planes: the border-extended previous reconstruction.
@@ -1563,7 +1629,10 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     parents that took another reference rank last, as does the overhang
     row, which keeps its 32); a ValueError with a strip geometry, as in
     the JAX package. gold: optional GOLDEN planes; alt: optional ALTREF
-    planes (needs ``rates``). rates: optional ``upload_rate_tabs``.
+    planes (needs ``rates``). rates: optional ``upload_rate_tabs``. aq
+    (with ``rates``): the 32 zone and the strip take a per-block rate
+    lambda (tune SQ); the children and the split decision keep the
+    frame's.
     Returns (outputs dict, new border-extended (ref_y, ref_u, ref_v));
     outputs hold the "m32" zone, at a strip geometry the strip's "m16",
     with split16 the children "m16f" and "split32", and the loop-filtered
@@ -1576,7 +1645,8 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                          "geometry")
     out32 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         prev_mv32, g, dc_q, ac_q, lam, filters, new_bits,
-                        gold=gold, alt=alt, rates=rates, return_me=split16)
+                        gold=gold, alt=alt, rates=rates, return_me=split16,
+                        aq=aq)
     outs = {"m32": out32}
     rec_y, rec_u, rec_v = out32["rec_y"], out32["rec_u"], out32["rec_v"]
     split32 = None
@@ -1604,7 +1674,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     if g.strip:
         out16 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                             prev_mv16, g, dc_q, ac_q, lam, filters, new_bits,
-                            gold=gold, alt=alt, rates=rates, n=16)
+                            gold=gold, alt=alt, rates=rates, n=16, aq=aq)
         outs["m16"] = out16
         rec_y = torch.cat([rec_y, out16["rec_y"]])
         rec_u = torch.cat([rec_u, out16["rec_u"]])
@@ -1629,7 +1699,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
 def make_pframe_step(geom: Geom, device, split16: bool = False,
                      golden: bool = False, with_rates: bool = False,
                      altref: bool = False,
-                     descend_frac: int = DESCEND_FRAC):
+                     descend_frac: int = DESCEND_FRAC, aq: bool = False):
     """The step for one geometry on one device, with the filter taps and
     the NEWMV rate-proxy table uploaded once:
 
@@ -1646,7 +1716,8 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
     strip geometry only (the JAX sessions pass a (1, 2) placeholder
     without a strip). With split16 the descent takes the B32 //
     ``descend_frac`` parents (1: every parent, the random-access
-    session's). It runs eagerly; there is nothing to compile."""
+    session's). aq: the adaptive lambda of tune SQ (it takes the rate
+    tables). It runs eagerly; there is nothing to compile."""
     device = torch.device(device)
     filters = torch.as_tensor(np.asarray(FILTERS, np.int32), device=device)
     new_bits = new_bits_table(device)
@@ -1670,7 +1741,7 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
                            prev_mv32, prev_mv16, geom, dc_q, ac_q, lam,
                            lf_lvl, lf_lim, lf_mblim, filters, new_bits,
                            split16=split16, gold=gold, alt=alt, rates=rates,
-                           descend_frac=descend_frac)
+                           descend_frac=descend_frac, aq=aq)
 
     return step
 
@@ -1678,37 +1749,6 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
 # ---------------------------------------------------------------------------
 # The device keyframe: the intra wavefront, the loop filter, the borders
 # ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _intra_maps_on(bs: int, device):
-    idx, w = intra.stacked_dir_maps(bs)
-    return (torch.as_tensor(idx.astype(np.int64), device=device),
-            torch.as_tensor(w, dtype=torch.int32, device=device))
-
-
-def predict_intra_all(ref, have_above, have_left, bs: int):
-    """All 10 intra predictions of a batch of blocks, exact, as
-    ``ops/intra.py:predict_all_modes`` computes them: ref (B, 3*bs+1) int32
-    in that module's layout [left, above-left, above and above-right],
-    have_above and have_left (B,) bool. Returns (B, 10, bs, bs) int32 in
-    IntraMode order; the six diagonals, V and H from the module's index and
-    weight maps."""
-    idx, w = _intra_maps_on(bs, ref.device)
-    dirs = ((ref[:, idx] * w).sum(dim=2) + 2) >> 2  # (B, 8, bs, bs)
-    left, al = ref[:, :bs], ref[:, bs]
-    above = ref[:, bs + 1:2 * bs + 1]
-    sum_a, sum_l = above.sum(dim=1), left.sum(dim=1)
-    lg = bs.bit_length() - 1
-    dc = torch.where(
-        have_above & have_left, (sum_a + sum_l + bs) >> (lg + 1),
-        torch.where(have_above, (sum_a + (bs >> 1)) >> lg,
-                    torch.where(have_left, (sum_l + (bs >> 1)) >> lg, 128)))
-    tm = (left[:, :, None] + above[:, None, :] - al[:, None, None]) \
-        .clamp(0, 255)
-    b = ref.shape[0]
-    return torch.cat([dc[:, None, None, None].expand(b, 1, bs, bs), dirs,
-                      tm[:, None]], dim=1).to(torch.int32)
 
 
 def _kf_refs(rec, rr, cc, n: int, visible_h: int):
