@@ -147,7 +147,25 @@ Phases, each of which raises on failure (nothing is caught):
      B/frame and Y PSNR beside tune OQ's, fps, send split; at 1080p the
      first 5 frames on the CPU too, packets and every scale vector
      identical;
- 13. M7 (the host encode with the device full-pel search): end to end,
+ 13. the host random-access engine and the multi-process routes: 1080p
+     random access at M7 (tpu_realtime 0, a key and one 16-frame pyramid):
+     exactly one sad_full_search an inter frame, hidden ALTREFs included,
+     and no other launch, decode bit-exact, fps over the inter frames,
+     B/frame, Y PSNR, the span split (device_me, mode_decision,
+     batch_txfm, serialize); 1280x720 M7 on 5 frames with 2 levels on the
+     CPU and the card, identical packets; bench.py's CIF fields, M8 random
+     access at tpu_realtime 0 and M0, 17 frames each: fps, B/frame, Y
+     PSNR, decode bit-exact; 640x360 at the default configuration (the
+     device session rejects it: the notice, the host engine, fps, decode
+     bit-exact); GOP-parallel, 1080p M8 random access on the device
+     session at intra period 16, 4 chunks of a key and one pyramid (68
+     frames): the sequential encode, then 1 (in this process), 2 and 4
+     spawned workers on the one card, identical packets, fps, each
+     worker's peak device memory and its own launches; -nch 2 through the
+     CLI at 720p, 9 frames (both streams decode); -distributed with 2
+     local processes at 720p, intra period 8, 18 frames (each writes the
+     sequential encode's packets);
+ 14. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -171,6 +189,10 @@ runs phase 10 alone after the builds, and prints neither JSON line.
     python3 chip_smoke.py --host
 
 runs phase 12 alone after the builds, and prints neither JSON line.
+
+    python3 chip_smoke.py --ra-host
+
+runs phase 13 alone after the builds, and prints neither JSON line.
 """
 
 from __future__ import annotations
@@ -3636,6 +3658,386 @@ def host_phases(dev, kernels, paths, frames):
                                       seed=1)), "720p m8 sq", paths)
 
 
+# ---------------------------------------------------------------------------
+# The host random-access engine (gop.RaEncoder through the public encoder)
+# and the multi-process routes: GOP-parallel workers, -nch, -distributed
+# ---------------------------------------------------------------------------
+
+RA_HOST_FRAMES = 17  # a key and one 16-frame pyramid
+RA_HOST_SAME_DIMS, RA_HOST_SAME_FRAMES, RA_HOST_SAME_LEVELS = (1280, 720), 5, 2
+CIF_DIMS, CIF_FRAMES = (352, 288), 17  # bench.py's CIF fields
+RA_FALLBACK_FRAMES = 17
+# the host engine's spans of an inter frame (device_me: the full-pel
+# search on the card, from 1280x720 up)
+RA_HOST_SPANS = ("device_me", "mode_decision", "batch_txfm", "serialize")
+# GOP-parallel: 1080p RA at M8, a key and one full pyramid a chunk
+GOP_INTRA_PERIOD, GOP_CHUNKS, GOP_WORKERS = 16, 4, (1, 2, 4)
+NCH_DIMS, NCH_FRAMES = (1280, 720), 9
+DIST_DIMS, DIST_FRAMES, DIST_INTRA_PERIOD = (1280, 720), 18, 8
+PROC_TIMEOUT = 300  # seconds for a CLI or rank process
+
+
+def _launched(counts):
+    """The wrappers of ``counts`` that launched, with their counts."""
+    return {k: v for k, v in counts.items() if v} or "none"
+
+
+def _ra_host_encode(device, frames, enc_mode, levels=4, **cfg):
+    """The public encoder in random access on its host engine (``cfg``:
+    more EncoderConfig fields, tpu_realtime 0 unless given), every frame
+    sent, flushed and drained. Returns (packets, the engine's recon of
+    each packet's poc, the encoder, seconds of the sends up to the key's
+    packet, seconds of the rest and the flush)."""
+    from tpu_vp9_torch.api import Vp9Encoder
+    from tpu_vp9_torch.config import EncoderConfig
+
+    enc = Vp9Encoder(device=device)
+    enc.set_parameter(EncoderConfig(**{
+        "source_width": _dims(frames)[0], "source_height": _dims(frames)[1],
+        "enc_mode": enc_mode, "qp": QP, "frame_rate": 30,
+        "intra_period": -1, "hierarchical_levels": levels,
+        "tpu_realtime": 0, **cfg}))
+    enc.init()
+    if enc._ra is None or enc._ra_dev is not None or enc._rt is not None:
+        raise AssertionError("the host random-access engine was not taken")
+    enc._ra.keep_recon = True
+    pkts = []
+    t0 = time.perf_counter()
+    key_s = None
+    for fr in frames:
+        enc.send_picture(fr)
+        while (p := enc.get_packet()) is not None:
+            pkts.append(p)
+        if key_s is None and pkts:
+            torch.cuda.synchronize()
+            key_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+    enc.flush()
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    torch.cuda.synchronize()
+    rest_s = time.perf_counter() - t1
+    if [p.pts for p in pkts] != list(range(len(frames))):
+        raise AssertionError(f"packets out of display order: "
+                             f"{[p.pts for p in pkts]}")
+    recons = [enc._ra.recon_log[p.pts] for p in pkts]
+    return pkts, recons, enc, key_s, rest_s
+
+
+def _ra_host_line(tag, pkts, psnrs, n_inter, rest_s):
+    total = sum(len(p.data) for p in pkts)
+    return (f"{tag}: {n_inter / rest_s:.3f} fps over the {n_inter} inter "
+            f"frames ({rest_s:.2f} s); {total / len(pkts):.1f} B/frame; Y "
+            f"PSNR mean {statistics.mean(psnrs):.3f} dB over "
+            f"{len(pkts)} frames; decode bit-exact to recon")
+
+
+def ra_host_m7_phase(dev, paths):
+    """1080p random access at M7 on the host engine, a key and one
+    16-frame pyramid: exactly one sad_full_search an inter frame (the
+    hidden ALTREFs included) and no other launch; decode bit-exact; fps
+    over the inter frames, B/frame, Y PSNR, the inter frames' span split.
+    Then 1280x720 on RA_HOST_SAME_FRAMES with RA_HOST_SAME_LEVELS levels on
+    the CPU and the card: identical packets."""
+    from tpu_vp9_torch.utils import trace
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    tag = "1080p m7 ra host"
+    frames = list(panning_frames(WIDTH, HEIGHT, RA_HOST_FRAMES, seed=1))
+    trace.enable(True)
+    trace.reset()
+    _reset_counts()
+    pkts, recons, enc, key_s, rest_s = _ra_host_encode(dev, frames, 7)
+    counts = _read_counts()
+    spans = {k: v["total_s"] for k, v in trace.summary().items()
+             if k != "notices"}
+    trace.enable(False)
+    n_inter = len(frames) - 1
+    if counts != {**dict.fromkeys(counts, 0), "sad_full_search": n_inter}:
+        raise AssertionError(f"{tag}: launches {counts}, want one "
+                             f"sad_full_search for each of {n_inter} "
+                             "inter frames")
+    psnrs = _decode_check(pkts, recons, frames)
+    print(f"{tag}: launches {counts}")
+    print(_ra_host_line(tag, pkts, psnrs, n_inter, rest_s)
+          + f"; key {1000 * key_s:.1f} ms (held one frame)")
+    print(f"{tag}: inter-frame spans (mean of {n_inter}, host clock): "
+          + ", ".join(f"{k} {1000 * spans.get(k, 0.0) / n_inter:.1f} ms"
+                      for k in RA_HOST_SPANS)
+          + f"; per inter frame {1000 * rest_s / n_inter:.1f} ms")
+    paths[tag] = counts
+    enc.close()
+    same = list(panning_frames(*RA_HOST_SAME_DIMS, RA_HOST_SAME_FRAMES,
+                               seed=1))
+    cuda = _ra_host_encode(dev, same, 7, RA_HOST_SAME_LEVELS)[0]
+    t0 = time.perf_counter()
+    cpu = _ra_host_encode("cpu", same, 7, RA_HOST_SAME_LEVELS)[0]
+    cpu_s = time.perf_counter() - t0
+    if [p.data for p in cpu] != [p.data for p in cuda]:
+        raise AssertionError(f"{RA_HOST_SAME_DIMS} m7 ra host: CPU and CUDA "
+                             "packets differ")
+    print(f"{RA_HOST_SAME_DIMS[1]}p m7 ra host same bytes: "
+          f"{len(cuda)} packets ({RA_HOST_SAME_LEVELS} levels) identical on "
+          f"cpu ({cpu_s:.1f} s) and cuda")
+
+
+def ra_host_cif_phase(dev, paths):
+    """bench.py's CIF fields through the port: random access at M8 with
+    tpu_realtime 0 (its host engine) and at M0 (full RDO), each on the
+    same 17 synthetic frames, a key and one pyramid: fps, B/frame, Y PSNR,
+    decode bit-exact."""
+    from tpu_vp9_torch.utils.yuv import synthetic_frames
+
+    frames = list(synthetic_frames(*CIF_DIMS, CIF_FRAMES, seed=0,
+                                   motion=True))
+    for mode in (8, 0):
+        tag = f"cif m{mode} ra host"
+        _reset_counts()
+        pkts, recons, enc, key_s, rest_s = _ra_host_encode(dev, frames, mode)
+        paths[tag] = _read_counts()
+        psnrs = _decode_check(pkts, recons, frames)
+        print(_ra_host_line(tag, pkts, psnrs, len(frames) - 1, rest_s)
+              + f"; key {1000 * key_s:.1f} ms; all {len(frames)} frames "
+              f"{len(frames) / (key_s + rest_s):.3f} fps; launches "
+              f"{paths[tag]}")
+        enc.close()
+
+
+def ra_host_fallback_phase(dev, paths):
+    """640x360 at the default configuration (random access, enc_mode 9,
+    4 levels, tpu_realtime auto): the device session rejects mi_rows 45,
+    so the host engine takes it with the JAX package's notice; fps,
+    B/frame, decode bit-exact."""
+    from tpu_vp9_torch import api
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    w, h = FALLBACK_DIMS
+    tag = f"{w}x{h} ra fallback"
+    frames = list(panning_frames(w, h, RA_FALLBACK_FRAMES, seed=1))
+    notices = []
+    real = api.notice
+    api.notice = notices.append
+    _reset_counts()
+    try:
+        pkts, recons, enc, key_s, rest_s = _ra_host_encode(
+            dev, frames, 9, tpu_realtime=-1)
+    finally:
+        api.notice = real
+    paths[tag] = _read_counts()
+    if (len(notices) != 1
+            or not notices[0].startswith("device RA session unavailable")
+            or not notices[0].endswith("; host RA engine")):
+        raise AssertionError(f"{tag}: notices {notices}")
+    psnrs = _decode_check(pkts, recons, frames)
+    print(f"{tag}: notice '{notices[0]}'; launches {paths[tag]}")
+    print(_ra_host_line(tag, pkts, psnrs, len(frames) - 1, rest_s))
+    enc.close()
+
+
+def gop_parallel_phase(dev, paths):
+    """1080p random access at M8 (the device session) with intra period
+    GOP_INTRA_PERIOD, GOP_CHUNKS chunks of a key and one full pyramid:
+    the sequential encode, then encode_gop_parallel with each of
+    GOP_WORKERS (1 runs the chunks in this process; more spawn workers on
+    the one card): identical packets; fps of each; each spawned worker's
+    peak device memory and its own launch counts, from its reports."""
+    from tpu_vp9_torch.api import Vp9Encoder
+    from tpu_vp9_torch.config import EncoderConfig
+    from tpu_vp9_torch.pipeline.gop_parallel import encode_gop_parallel
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    n = GOP_CHUNKS * (GOP_INTRA_PERIOD + 1)
+    frames = list(panning_frames(WIDTH, HEIGHT, n, seed=1))
+    cfg = EncoderConfig(source_width=WIDTH, source_height=HEIGHT,
+                        enc_mode=8, qp=QP,
+                        intra_period=GOP_INTRA_PERIOD).derive()
+    _reset_counts()
+    t0 = time.perf_counter()
+    enc = Vp9Encoder(device=dev)
+    enc.set_parameter(cfg)
+    enc.init()
+    if enc._ra_dev is None:
+        raise AssertionError("1080p m8 ra: the device session was not taken")
+    seq = []
+    for fr in frames:
+        enc.send_picture(fr)
+    enc.flush()
+    while (p := enc.get_packet()) is not None:
+        seq.append((p.data, p.pts, p.dts, p.is_keyframe, p.qindex))
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    enc.close()
+    paths["1080p m8 ra sequential"] = _read_counts()
+    print(f"1080p m8 ra gop-parallel: sequential {n} frames "
+          f"{n / seq_s:.3f} fps ({seq_s:.2f} s, init included); "
+          f"{sum(p[3] for p in seq)} keys; launches "
+          f"{_launched(paths['1080p m8 ra sequential'])}")
+    for workers in GOP_WORKERS:
+        tag = f"1080p m8 ra gop-parallel x{workers}"
+        reports = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        par = encode_gop_parallel(frames, cfg, workers=workers, device=dev,
+                                  reports=reports)
+        par_s = time.perf_counter() - t0
+        paths[tag] = _read_counts()
+        if par != seq:
+            raise AssertionError(f"{tag}: packets differ from the "
+                                 "sequential encode's")
+        # the chunks' kernels ran where the chunks ran: in this process
+        # for one worker, else in the spawned workers and never here
+        mine = sum(paths[tag].values())
+        if [r["start"] for r in reports] != list(range(0, n, n // GOP_CHUNKS)) \
+                or not all(sum(r["launches"].values()) for r in reports) \
+                or (mine == 0) != (workers > 1):
+            raise AssertionError(f"{tag}: reports {reports}, this process's "
+                                 f"launches {paths[tag]}")
+        peak, busy = {}, {}
+        for r in reports:
+            peak[r["pid"]] = max(peak.get(r["pid"], 0), r["peak_bytes"] or 0)
+            busy[r["pid"]] = busy.get(r["pid"], 0.0) + r["seconds"]
+            print(f"{tag}: worker {r['pid']} chunk at frame {r['start']}: "
+                  f"{r['seconds']:.2f} s, its launches "
+                  f"{_launched(r['launches'])}")
+        print(f"{tag}: {n / par_s:.3f} fps ({par_s:.2f} s, worker start "
+              f"included); inside the workers {n / max(busy.values()):.3f} "
+              f"fps (the busiest worker's chunks {max(busy.values()):.2f} s); "
+              "packets identical to the sequential encode; peak device "
+              "memory by worker (GiB): "
+              + ", ".join(f"{pid} {b / 2 ** 30:.3f}"
+                          for pid, b in peak.items())
+              + f"; this process's launches {_launched(paths[tag])}")
+
+
+def _clip(tmp, dims, n):
+    from tpu_vp9_torch.utils.yuv import panning_frames, write_y4m
+
+    frames = list(panning_frames(*dims, n, seed=1))
+    path = f"{tmp}/clip_{dims[0]}x{dims[1]}.y4m"
+    with open(path, "wb") as fh:
+        write_y4m(fh, frames)
+    return frames, path
+
+
+def _run_procs(cmds):
+    """Start every command at once; wait for each (PROC_TIMEOUT s at most,
+    then kill them all and fail); return their stdout texts."""
+    import subprocess
+
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PROC_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{' '.join(c)} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+    return [out for out, _ in outs]
+
+
+def _ivf_payloads(path):
+    from tpu_vp9_torch.bitstream.ivf import read_ivf
+
+    with open(path, "rb") as fh:
+        return [f.payload for f in read_ivf(fh)]
+
+
+def nch_phase(tmp, device):
+    """``-nch 2`` through the CLI at 720p, the default configuration: two
+    channel processes, each on ``device``; both outputs decode, every
+    frame."""
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
+
+    _, clip = _clip(tmp, NCH_DIMS, NCH_FRAMES)
+    t0 = time.perf_counter()
+    out = _run_procs([[sys.executable, "-m", "tpu_vp9_torch.app", "-i", clip,
+                       "-b", f"{tmp}/nch.ivf", "-q", str(QP), "-nch", "2",
+                       "-device", str(device)]])[0]
+    seconds = time.perf_counter() - t0
+    for ch in (0, 1):
+        with open(f"{tmp}/nch.ch{ch}.ivf", "rb") as fh:
+            got = len(list(decode_ivf(fh)))
+        if got != NCH_FRAMES:
+            raise AssertionError(f"-nch 2: channel {ch} decoded {got} of "
+                                 f"{NCH_FRAMES} frames")
+    lines = [ln for ln in out.splitlines() if ln.startswith("SUMMARY")]
+    print(f"720p -nch 2: both channels decode, {NCH_FRAMES} frames each, "
+          f"{seconds:.1f} s with the processes' start; " + " | ".join(lines))
+
+
+def distributed_phase(tmp, device):
+    """``-distributed`` with 2 local processes through the CLI at 720p,
+    intra period DIST_INTRA_PERIOD, DIST_FRAMES frames (a chunk each), on
+    ``device``: each process writes the sequential encode's packets."""
+    import socket
+
+    from tpu_vp9_torch.api import Vp9Encoder
+    from tpu_vp9_torch.config import EncoderConfig
+
+    frames, clip = _clip(tmp, DIST_DIMS, DIST_FRAMES)
+    enc = Vp9Encoder(device=device)
+    enc.set_parameter(EncoderConfig(
+        source_width=DIST_DIMS[0], source_height=DIST_DIMS[1], qp=QP,
+        intra_period=DIST_INTRA_PERIOD))
+    enc.init()
+    for fr in frames:
+        enc.send_picture(fr)
+    enc.flush()
+    seq = []
+    while (p := enc.get_packet()) is not None:
+        seq.append(p.data)
+    enc.close()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    outs = _run_procs([
+        [sys.executable, "-m", "tpu_vp9_torch.app", "-i", clip, "-b",
+         f"{tmp}/dist{r}.ivf", "-q", str(QP), "-intra-period",
+         str(DIST_INTRA_PERIOD), "-distributed", f"127.0.0.1:{port},2,{r}",
+         "-device", str(device)]
+        for r in (0, 1)])
+    seconds = time.perf_counter() - t0
+    for r in (0, 1):
+        if _ivf_payloads(f"{tmp}/dist{r}.ivf") != seq:
+            raise AssertionError(f"-distributed: rank {r}'s packets differ "
+                                 "from the sequential encode's")
+    lines = [ln for o in outs for ln in o.splitlines()
+             if ln.startswith("SUMMARY")]
+    print(f"720p -distributed 2 processes (gloo on 127.0.0.1): each wrote "
+          f"the sequential encode's {len(seq)} packets, {seconds:.1f} s with "
+          "the processes' start; " + " | ".join(lines))
+
+
+def ra_host_phases(dev, paths):
+    """The host random-access engine (1080p M7 with the CPU and CUDA
+    comparison at 720p, bench.py's CIF M8 and M0 fields, the 640x360
+    fallback), then GOP-parallel at 1080p with 1, 2 and 4 workers,
+    ``-nch 2`` and ``-distributed`` with 2 processes at 720p. Each
+    in-process path's counts are set to 0 just before it and read just
+    after, into ``paths``."""
+    import tempfile
+
+    from tpu_vp9_torch.ops import _build
+
+    ra_host_m7_phase(dev, paths)
+    ra_host_cif_phase(dev, paths)
+    ra_host_fallback_phase(dev, paths)
+    gop_parallel_phase(dev, paths)
+    # the clips and streams of the CLI runs, in the checkout's build dir
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        nch_phase(tmp, dev)
+        distributed_phase(tmp, dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3675,6 +4077,13 @@ def main() -> int:
         rc_phases(dev, {})
         print(f"chip_smoke: the rate-control and staged phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--rc: stopping)")
+        return 0
+    if "--ra-host" in sys.argv[1:]:
+        ra_host_phases(dev, {})
+        print(f"chip_smoke: the host random-access and multi-process phases "
+              f"passed in {time.perf_counter() - t_start:.1f} s (--ra-host: "
+              "stopping)")
+        print(card)
         return 0
     if "--host" in sys.argv[1:]:
         host_phases(dev, {"openloop_modes": openloop_kernel_phase(dev)}, {},
@@ -3734,6 +4143,7 @@ def main() -> int:
     host_phases(dev, kernels, paths, frames)
     rc_phases(dev, paths)
     ra_phases(dev, kernels, paths)
+    ra_host_phases(dev, paths)
     for name, k in kernels.items():
         k["launches_by_path"] = {
             path: sum(c[w] for w in ENTRY_WRAPPERS[name])

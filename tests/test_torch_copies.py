@@ -27,7 +27,8 @@ EXACT = [
     "ops/hme.py", "config.py",
     "pipeline/presets.py", "pipeline/rate_control.py",
     "pipeline/picture_decision.py", "pipeline/picture_analysis.py",
-    "pipeline/rc_curves.py", "pipeline/gop.py", "pipeline/speed_control.py",
+    "pipeline/rc_curves.py", "pipeline/lookahead.py",
+    "pipeline/speed_control.py",
     "utils/trace.py", "utils/capi_bridge.py",
 ]
 
@@ -53,15 +54,27 @@ CHANGED = {
                      "motion)", ()),
     "api.py": (
         "the port's own Vp9Encoder(device): the realtime, device "
-        "random-access and low-delay host routes, with the JAX package's "
-        "host fallback for geometries the step rejects and speed control "
-        "on both low-delay routes; the host random-access engine and "
-        "meshes raise NotImplementedError",
+        "random-access, host random-access and low-delay host routes, "
+        "with the JAX package's host fallbacks for geometries the device "
+        "steps reject and speed control on the host routes; the card "
+        "stands in for the accelerator probe; meshes raise "
+        "NotImplementedError",
         ()),
     "app.py": (
-        "the port's own CLI: -device added; -nch, -gop-parallel and "
-        "-distributed are refused",
-        ("run_channels",)),
+        "the port's own CLI: -device added and passed to -nch's channels, "
+        "-gop-parallel's workers and -distributed's chunks",
+        ()),
+    "pipeline/gop.py": (
+        "RaEncoder takes the encoder's device and passes it to "
+        "encode_pframe, whose full-pel search would otherwise run on "
+        "CUDA for an encoder built with device='cpu'", ()),
+    "pipeline/gop_parallel.py": (
+        "workers are spawned, not forked (CUDA does not survive a fork); "
+        "no accelerator probe; the device rides in each chunk's payload "
+        "for Vp9Encoder(device=...); each chunk closes its encoder and "
+        "returns a report beside its packets (launches by wrapper, peak "
+        "device memory), which encode_gop_parallel hands to ``reports``",
+        ()),
 }
 
 
@@ -105,7 +118,8 @@ def test_every_port_module_is_accounted_for():
     port's own: a new copy cannot slip in unguarded."""
     own = {"__init__.py", "ops/__init__.py", "ops/_build.py",
            "ops/cuda_kernels.py", "pipeline/__init__.py",
-           "pipeline/ra_device.py", "pipeline/realtime.py",
+           "pipeline/distributed.py", "pipeline/ra_device.py",
+           "pipeline/realtime.py",
            "pipeline/tpu_encdec.py", "pipeline/tpu_intra.py",
            "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py",
            "utils/kf_phases.py", "utils/lf_phases.py"}

@@ -156,6 +156,56 @@ def test_kernel_module_catches_nothing():
                     if isinstance(n, ast.Try)], path
 
 
+PROCESS_PY = [os.path.join(REPO, "tpu_vp9_torch", "pipeline", name)
+              for name in ("gop_parallel.py", "distributed.py",
+                           "lookahead.py", "gop.py")]
+API_PY = os.path.join(REPO, "tpu_vp9_torch", "api.py")
+
+
+def _handlers(path):
+    with open(path) as fh:
+        return [n for n in ast.walk(ast.parse(fh.read()))
+                if isinstance(n, ast.ExceptHandler)]
+
+
+def test_no_fork_anywhere_in_the_port():
+    """Worker processes are spawned: CUDA does not survive a fork once a
+    process has touched the card. No file of the port, nor chip_smoke.py,
+    asks for a fork context or forks."""
+    for path in PORT_FILES:
+        with open(path) as fh:
+            text = fh.read()
+        for bad in ('get_context("fork")', "get_context('fork')",
+                    "os.fork(", "set_start_method"):
+            assert bad not in text, (path, bad)
+    with open(PROCESS_PY[0]) as fh:
+        assert 'mp.get_context("spawn")' in fh.read()
+
+
+@pytest.mark.parametrize("path", PROCESS_PY,
+                         ids=[os.path.basename(p) for p in PROCESS_PY])
+def test_multi_process_and_ra_modules_catch_nothing(path):
+    """The random-access engine, the lookahead and the multi-process
+    routes have no exception handler: a failed chunk, a failed exchange or
+    a failed launch propagates (``distributed``'s ``try`` only tears its
+    group down)."""
+    assert not _handlers(path)
+
+
+def test_api_falls_back_only_where_the_jax_package_does():
+    """The public encoder's handlers catch ValueError alone, the device
+    steps' refusal of a geometry, and send that stream to a host route
+    with the JAX package's notice (or raise at tpu_realtime 1); none
+    reaches a plain version or the CPU."""
+    handlers = _handlers(API_PY)
+    assert len(handlers) == 2
+    for h in handlers:
+        assert ast.unparse(h.type) == "ValueError"
+        body = ast.unparse(h)
+        assert "notice(" in body
+        assert "cpu" not in body.lower() and "_ref" not in body
+
+
 # wrapper -> (the step's dispatch, the steps that must call the dispatch,
 # the other plain versions that call this plain version)
 STEP_DISPATCH = {
@@ -622,8 +672,20 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pred_structure=PredStructure.RANDOM_ACCESS),
     dict(enc_mode=8, tpu_mesh_shape=(1, 2)),
+    dict(tpu_mesh_shape=(1, 2)),
+    dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
+         tpu_mesh_shape=(1, 2)),
+], ids=["m8_mesh", "mesh", "ra_mesh"])
+def test_unported_routes_raise(kw):
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(_slice_cfg(**kw))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        enc.init()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pred_structure=PredStructure.RANDOM_ACCESS),
     dict(enc_mode=8, pred_structure=PredStructure.RANDOM_ACCESS,
          tpu_realtime=0),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
@@ -632,14 +694,22 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
          speed_control=True),
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
          rate_control_mode=RateControlMode.VBR, target_bit_rate=200_000),
-    dict(tpu_mesh_shape=(1, 2)),
-], ids=["random_access", "m8_mesh", "m8_ra_rt0", "m9_ra_rt0",
-        "m9_ra_speed_control", "m9_ra_vbr", "mesh"])
-def test_unported_routes_raise(kw):
+], ids=["random_access", "m8_ra_rt0", "m9_ra_rt0", "m9_ra_speed_control",
+        "m9_ra_vbr"])
+def test_host_ra_routes_are_taken(kw):
+    """The random-access configurations that the JAX package sends to its
+    host engine, refused until it was ported, take it: ``RaEncoder`` on the
+    encoder's device, the lookahead window, no device session, with the
+    controllers the configuration asks for."""
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc.init()
+    enc.init()
+    assert enc._ra is not None and enc._ra.device == enc.device
+    assert enc._ra_dev is None and enc._rt is None
+    assert enc._la.distance >= (2 << enc._cfg.hierarchical_levels) + 1
+    assert (enc._sc is not None) == bool(kw.get("speed_control"))
+    assert enc._ra.rc is enc._rc and enc._ra.sig is enc._sig
+    enc.close()
 
 
 @pytest.mark.parametrize("kw,notice", [
@@ -688,12 +758,17 @@ def test_aq_routes_are_taken():
 
 
 def test_random_access_at_m7_names_the_host_ra_engine_alone():
+    """Random access at enc_mode 7 runs the host engine alone: no device
+    session is built, and no notice is given (it is not a fallback)."""
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(pred_structure=PredStructure.RANDOM_ACCESS))
-    with pytest.raises(NotImplementedError) as info:
-        enc.init()
-    msg = str(info.value)
-    assert "item 10" in msg and "item 9" not in msg
+    from tpu_vp9_torch.utils import trace
+
+    before = trace.notices()
+    enc.init()
+    assert trace.notices() == before
+    assert enc._ra is not None and enc._ra_dev is None and enc._rt is None
+    assert enc._dts_offset == 1 - (1 << enc._cfg.hierarchical_levels)
 
 
 @pytest.mark.parametrize("enc_mode", [8, 9], ids=["m8", "m9"])
@@ -770,28 +845,44 @@ def test_strip_routes_are_taken(enc_mode):
     enc.close()
 
 
-@pytest.mark.parametrize("flags,why", [
-    (["-gop-parallel", "2"], "-gop-parallel"),
-    (["-nch", "2"], "-nch"),
-    (["-distributed", "localhost:1234,2,0"], "-distributed"),
-    (["-enc-mode", "7"], "item 10b"),
-    (["-rc", "1"], "item 10b"),
-    (["-enc-mode", "8", "-rt", "0"], "item 10b"),
+@pytest.mark.parametrize("flags,want", [
+    (["-gop-parallel", "2"], "gop-parallel x2"),
+    (["-nch", "2"], "SUMMARY: 3 frames"),
+    (["-distributed", "127.0.0.1:PORT,1,0"], "distributed 1/1"),
+    (["-enc-mode", "7"], "SUMMARY: 3 frames"),
+    (["-rc", "1", "-tbr", "150000"], "SUMMARY: 3 frames"),
+    (["-enc-mode", "8", "-rt", "0"], "SUMMARY: 3 frames"),
 ], ids=["gop_parallel", "nch", "distributed", "ra_m7", "ra_vbr",
         "ra_m8_rt0"])
-def test_app_refuses_unported_options(tmp_path, flags, why):
+def test_app_takes_the_options_refused_before(tmp_path, flags, want):
+    """The CLI lines refused until the host random-access engine and the
+    multi-process routes were ported run (at intra period 1, so that the
+    chunked ones have two chunks), and every stream decodes."""
+    import socket
+
+    from tpu_vp9_torch.decoder.decoder import decode_ivf
     from tpu_vp9_torch.utils.yuv import synthetic_frames, write_y4m
 
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    flags = [f.replace("PORT", str(port)) for f in flags]
     clip = tmp_path / "clip.y4m"
     with open(clip, "wb") as fh:
-        write_y4m(fh, synthetic_frames(128, 96, 1))
+        write_y4m(fh, synthetic_frames(128, 96, 3, motion=True))
     res = subprocess.run(
         [sys.executable, "-m", "tpu_vp9_torch.app", "-i", str(clip),
+         "-b", str(tmp_path / "out.ivf"), "-q", "40", "-intra-period", "1",
          "-device", "cpu", *flags],
         cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": REPO})
-    assert res.returncode != 0
-    assert why in res.stderr
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert want in res.stdout
+    outs = ([tmp_path / f"out.ch{k}.ivf" for k in (0, 1)]
+            if "-nch" in flags else [tmp_path / "out.ivf"])
+    for out in outs:
+        with open(out, "rb") as fh:
+            assert len(list(decode_ivf(fh))) == 3
 
 
 @pytest.mark.parametrize("flags", [

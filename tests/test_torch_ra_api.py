@@ -10,7 +10,8 @@ enc_mode 9, CQP) routes to ``DeviceRaSession`` in both packages:
     frames first and every frame comes out; the JAX session leaves one
     behind and fails at ``flush``;
   - the random-access configurations that the JAX package sends to its
-    host RA engine stay refused, naming ROADMAP.md Queue A item 10.
+    host RA engine take the port's (``tests/test_torch_ra_host.py`` holds
+    its packets against JAX's); a mesh stays refused (Queue A item 11).
 The strip geometry's sessions are in ``tests/test_torch_ra_strip.py`` (a
 file of their own, so that ``--dist loadfile`` runs their JAX compiles
 beside this file's).
@@ -126,22 +127,37 @@ def test_scheduled_keyframe_inside_a_minigop():
          target_bit_rate=200_000),
     dict(recon_file="recon.yuv"),
     dict(speed_control=True),
-    dict(tpu_mesh_shape=(1, 2)),
     dict(source_width=112),
-], ids=["m7", "rt0", "vbr", "recon_file", "speed_control", "mesh",
-        "width_not_32"])
-def test_host_ra_routes_stay_refused(kw):
+], ids=["m7", "rt0", "vbr", "recon_file", "speed_control", "width_not_32"])
+def test_host_ra_routes_are_taken(kw):
+    """Refused until the host random-access engine was ported: each takes
+    it (a width the device session rejects after its notice), with no
+    device session."""
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(port_config.EncoderConfig(
         **{**dict(source_width=W, source_height=H, qp=40), **kw}))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    enc.init()
+    assert enc._ra is not None and enc._ra_dev is None and enc._rt is None
+    enc.close()
+
+
+def test_host_ra_routes_stay_refused():
+    """A mesh stays refused, naming its item."""
+    enc = port_api.Vp9Encoder(device="cpu")
+    enc.set_parameter(port_config.EncoderConfig(
+        source_width=W, source_height=H, qp=40, tpu_mesh_shape=(1, 2)))
+    with pytest.raises(NotImplementedError, match="item 11"):
         enc.init()
 
 
 def test_qp_overrides_at_init_stay_refused():
+    """qp overrides set before ``init`` keep the stream off the device
+    session, as in the JAX package: the host engine takes it and reads
+    them."""
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(port_config.EncoderConfig(source_width=W,
                                                 source_height=H))
     enc.set_frame_qp(3, 30)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        enc.init()
+    enc.init()
+    assert enc._ra_dev is None and enc._ra is not None
+    assert enc._qp_overridden(3) == port_api.qp_to_qindex(30)

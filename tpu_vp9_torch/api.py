@@ -22,21 +22,29 @@ send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
     hierarchical ALTREF pyramids of ``pipeline/ra_device.py``
     (``DeviceRaSession``), whose steps run on that device; packets come
     out in decode order with DTS = decode order - 2^levels + 1;
-  - enc_mode <= 7, and enc_mode 8 and 9 at tpu_realtime 0, run the
-    low-delay host encode, its full-pel motion search on that device from
-    1280x720 up; at enc_mode 8 and 9 its keyframes take the open-loop mode
-    hints (``codec/intra_frame.py:openloop_mode_hints_np``, built from
-    ``pipeline/tpu_intra.py``).
+  - every other random-access configuration (enc_mode 0-7, tpu_realtime
+    0, VBR or CBR, a recon file, speed control, qp overrides set before
+    ``init``) runs the host random-access engine (``pipeline/gop.py``,
+    ``RaEncoder``): the same pyramids, mini-GOPs cut by forced and
+    scene-cut keys, a keyframe held one frame for its zz-staticness, the
+    lookahead window's complexities (``pipeline/lookahead.py``) handed to
+    the rate controller, its full-pel motion search on that device from
+    1280x720 up. A geometry the device session rejects takes it too,
+    with the JAX package's notice, at any tpu_realtime;
+  - low delay at enc_mode <= 7, and at enc_mode 8 and 9 with tpu_realtime
+    0, runs the host encode, its full-pel motion search on that device
+    from 1280x720 up; at enc_mode 8 and 9 its keyframes take the open-loop
+    mode hints (``codec/intra_frame.py:openloop_mode_hints_np``, built
+    from ``pipeline/tpu_intra.py``).
 
 Speed control tracks the achieved fps on the realtime and host routes and
-re-derives the preset's signals when it changes the mode: the host route
-reads them (a step to enc_mode 8 or 9 makes the next keyframe take the
+re-derives the preset's signals when it changes the mode: the host routes
+read them (a step to enc_mode 8 or 9 makes the next keyframe take the
 hints), the realtime session reads none, as in the JAX package.
 
-Routes not ported yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: any other random-access configuration (the host RA
-engine, item 10b) and multi-device meshes. No other route falls back to
-another.
+Multi-device meshes are not ported yet and raise ``NotImplementedError``
+naming ``ROADMAP.md`` Queue A item 11. The geometry fallbacks above are
+the JAX package's own; no other route falls back to another.
 """
 
 from __future__ import annotations
@@ -58,10 +66,13 @@ from tpu_vp9_torch.config import (
     EncoderConfig, PredStructure, RateControlMode, Tune,
 )
 from tpu_vp9_torch.pipeline.encoder import _apply_loop_filter, _make_refs
+from tpu_vp9_torch.pipeline.gop import RaEncoder
+from tpu_vp9_torch.pipeline.lookahead import LookaheadWindow
 from tpu_vp9_torch.pipeline.picture_decision import SceneChangeDetector
 from tpu_vp9_torch.pipeline.presets import derive_signals, qp_to_qindex
 from tpu_vp9_torch.pipeline.ra_device import DeviceRaSession
 from tpu_vp9_torch.pipeline.rate_control import RateControlState
+from tpu_vp9_torch.pipeline.rc_curves import zz_staticness
 from tpu_vp9_torch.pipeline.realtime import RtSession
 from tpu_vp9_torch.pipeline.speed_control import SpeedControl
 from tpu_vp9_torch.pipeline.tpu_encdec import make_geom
@@ -89,7 +100,12 @@ class Vp9Encoder:
         self._rc = None
         self._sig = None
         self._rt = None
+        self._ra = None
         self._ra_dev = None
+        self._ra_buf: dict = {}  # poc -> Frame420 waiting for its mini-GOP
+        self._ra_keys: set = set()  # forced and scene-cut keyframes
+        self._ra_next_hint = None
+        self._la = None
         self._sc = None
         self._refs = None
         self._golden_refs = None
@@ -121,18 +137,16 @@ class Vp9Encoder:
         if self._cfg is None:
             raise RuntimeError("set_parameter must be called before init")
         cfg = self._cfg
-        ra = (cfg.pred_structure == PredStructure.RANDOM_ACCESS
-              and cfg.hierarchical_levels >= 1)
-        if ra:
-            self._check_device_ra(cfg)
-        realtime = (int(cfg.enc_mode) >= 8 and not ra
-                    and cfg.tpu_realtime != 0)
-        if realtime:
-            realtime = self._realtime_geometry(cfg)
         if cfg.tpu_mesh_shape:
             raise NotImplementedError(
                 "tpu_vp9_torch: multi-device meshes are not ported yet "
                 "(ROADMAP.md Queue A item 11, tpu_shard)")
+        ra = (cfg.pred_structure == PredStructure.RANDOM_ACCESS
+              and cfg.hierarchical_levels >= 1)
+        realtime = (int(cfg.enc_mode) >= 8 and not ra
+                    and cfg.tpu_realtime != 0)
+        if realtime:
+            realtime = self._realtime_geometry(cfg)
         if self.device.type == "cuda":
             require_cuda()
         # warm the per-block-size intra predictor tables before streaming
@@ -151,6 +165,26 @@ class Vp9Encoder:
             else 0
         self._log2_tile_cols = min(max(log2, lo), hi)
         if ra:
+            # the host random-access engine; the device session below takes
+            # its place where it can
+            self._ra = RaEncoder(cfg, self._sig, self._rc, device=self.device)
+            self._ra.log2_tile_cols = self._log2_tile_cols
+            # packetization latency: DTS = decode order - 2^levels + 1
+            self._dts_offset = -(1 << cfg.hierarchical_levels) + 1
+            # the initial-RC lookahead window: (2 << levels) + 1 frames at
+            # CQP, else up to one intra period (64 at most)
+            dist = (2 << cfg.hierarchical_levels) + 1
+            if (cfg.rate_control_mode != RateControlMode.CQP
+                    and cfg.intra_period > 0):
+                dist = max(dist, min(cfg.intra_period, 64))
+            self._la = LookaheadWindow(dist)
+        if cfg.speed_control:
+            self._sc = SpeedControl(target_fps=max(cfg.fps, 1.0),
+                                    base_mode=cfg.enc_mode)
+        if (ra and cfg.tpu_realtime != 0 and int(cfg.enc_mode) >= 8
+                and cfg.recon_file is None and self._sc is None
+                and not self._qp_overrides
+                and cfg.rate_control_mode == RateControlMode.CQP):
             try:
                 self._ra_dev = DeviceRaSession(
                     cfg.source_width, cfg.source_height, device=self.device,
@@ -158,15 +192,13 @@ class Vp9Encoder:
                     intra_period=cfg.intra_period,
                     base_qindex=qp_to_qindex(cfg.qp), tune=int(cfg.tune))
             except ValueError as exc:
-                raise NotImplementedError(
-                    f"tpu_vp9_torch: the device random-access session "
-                    f"rejects {cfg.source_width}x{cfg.source_height} "
-                    f"({exc}); the host RA engine for it is not ported "
-                    "(ROADMAP.md Queue A item 10b)") from exc
-            notice("random-access pyramids on the device step "
-                   "(DeviceRaSession)")
-            # packetization latency: DTS = decode order - 2^levels + 1
-            self._dts_offset = -(1 << cfg.hierarchical_levels) + 1
+                # a geometry the device step rejects: the host engine
+                # above encodes it, on the same device
+                notice(f"device RA session unavailable ({exc}); "
+                       "host RA engine")
+            else:
+                notice("random-access pyramids on the device step "
+                       "(DeviceRaSession)")
         if realtime:
             m8 = int(cfg.enc_mode) == 8
             # VBR/CBR: the session picks each frame's qindex and feeds the
@@ -181,36 +213,7 @@ class Vp9Encoder:
                 want_recon=cfg.recon_file is not None,
                 loop_filter=cfg.loop_filter, split16=m8, golden=m8,
                 aq=cfg.tune == Tune.SQ)
-        if cfg.speed_control:
-            self._sc = SpeedControl(target_fps=max(cfg.fps, 1.0),
-                                    base_mode=cfg.enc_mode)
         self._initialized = True
-
-    def _check_device_ra(self, cfg) -> None:
-        """Raise for a random-access configuration that the JAX package
-        sends to its host RA engine, not to ``DeviceRaSession``."""
-        why = None
-        if int(cfg.enc_mode) < 8:
-            why = f"enc_mode {int(cfg.enc_mode)}"
-        elif cfg.tpu_realtime == 0:
-            why = "tpu_realtime 0 (-rt 0)"
-        elif cfg.rate_control_mode != RateControlMode.CQP:
-            why = "rate control (VBR/CBR)"
-        elif cfg.recon_file is not None:
-            why = "a recon file"
-        elif cfg.speed_control:
-            why = "speed control"
-        elif cfg.tpu_mesh_shape:
-            why = "a multi-device mesh"
-        elif self._qp_overrides:
-            why = "per-frame qp overrides"
-        if why is not None:
-            raise NotImplementedError(
-                f"tpu_vp9_torch: random access with hierarchical levels "
-                f"and {why} runs the host RA engine (gop.RaEncoder with "
-                "device ME), not ported yet (ROADMAP.md Queue A item 10b); "
-                "the device random-access session takes enc_mode 8 and 9 "
-                "at CQP, or use pred_structure=LOW_DELAY_P")
 
     @staticmethod
     def _realtime_geometry(cfg) -> bool:
@@ -232,7 +235,7 @@ class Vp9Encoder:
 
     def _speed_report(self, n_frames: int, seconds: float) -> None:
         """Feed the speed controller; re-derive the preset's signals when
-        it changes the mode (the host route reads them, the realtime
+        it changes the mode (the host routes read them, the realtime
         session none)."""
         if self._sc is None:
             return
@@ -242,6 +245,8 @@ class Vp9Encoder:
         from dataclasses import replace
 
         self._sig = derive_signals(replace(self._cfg, enc_mode=new_mode))
+        if self._ra is not None:
+            self._ra.sig = self._sig
 
     def close(self) -> None:
         if self._rt is not None:
@@ -266,13 +271,13 @@ class Vp9Encoder:
     def send_picture(self, frame: Frame420, force_keyframe: bool = False):
         """Encode one picture; its packet is queued for ``get_packet``.
 
-        The device random-access, realtime and low-delay host branches of
-        ``tpu_vp9.api.Vp9Encoder.send_picture``: the port's
-        ``DeviceRaSession`` (packets once a mini-GOP's future anchor has
-        arrived; no scene-cut detection, and a forced keyframe is
-        ignored, as there), its ``RtSession`` (enc_mode 8 and 9, one frame
-        of latency), or the host encode with ``encode_pframe`` on
-        ``self.device``.
+        The branches of ``tpu_vp9.api.Vp9Encoder.send_picture``: the
+        port's ``DeviceRaSession`` (packets once a mini-GOP's future anchor
+        has arrived; no scene-cut detection, and a forced keyframe is
+        ignored, as there), the host random-access engine (``RaEncoder``:
+        forced and scene-cut keys, mini-GOPs encoded as they complete), its
+        ``RtSession`` (enc_mode 8 and 9, one frame of latency), or the
+        low-delay host encode with ``encode_pframe`` on ``self.device``.
         """
         if not self._initialized:
             raise RuntimeError("encoder not initialized")
@@ -281,13 +286,31 @@ class Vp9Encoder:
         cfg, sig, rc = self._cfg, self._sig, self._rc
         idx = self._frame_idx
         self._frame_idx += 1
-        sc_t0 = time.perf_counter()
         if self._ra_dev is not None:
             if force_keyframe and idx > 0:
                 notice("device RA session ignores mid-stream keyframe "
                        "requests (scheduled intra period only)")
             self._emit_ra(self._ra_dev.push(frame))
             return
+        if self._ra is not None:
+            if force_keyframe:
+                self._ra_keys.add(idx)
+            elif idx > 0 and cfg.intra_period != -1:
+                with span("api_scene_cut"):
+                    cut = self._scd.is_scene_change(frame.y)
+                if cut:
+                    self._ra_keys.add(idx)
+            self._ra_buf[idx] = frame
+            self._la.push(idx, frame.y)
+            if self._sc is not None:
+                n0, t0 = len(self._packets), time.perf_counter()
+                self._ra_drain(flush=False)
+                self._speed_report(len(self._packets) - n0,
+                                   time.perf_counter() - t0)
+            else:
+                self._ra_drain(flush=False)
+            return
+        sc_t0 = time.perf_counter()
         is_key = force_keyframe or idx == 0 or (
             cfg.intra_period >= 0 and idx % (cfg.intra_period + 1) == 0)
         if self._scd is not None:
@@ -434,8 +457,6 @@ class Vp9Encoder:
         prev = self._ld_prev_y
         if prev is None or prev.shape != frame.y.shape:
             return (10, 50)
-        from tpu_vp9_torch.pipeline.rc_curves import zz_staticness
-
         return zz_staticness(frame.y, prev, self._cfg.source_width,
                              self._cfg.source_height)
 
@@ -449,6 +470,82 @@ class Vp9Encoder:
         for p in ra_packets:
             self._emit(Packet(data=p.data, pts=p.pts, dts=0,
                               is_keyframe=p.is_keyframe, qindex=p.qindex))
+
+    def _ra_drain(self, flush: bool) -> None:
+        """Encode every complete (or, at ``flush``, truncated) mini-GOP in
+        the buffer: mini-GOP assembly and split driven by the keyframe
+        schedule, forced and scene-cut keys, and the input available."""
+        cfg, ra = self._cfg, self._ra
+        max_gop = 1 << cfg.hierarchical_levels
+        while True:
+            next_poc = ra.base_poc + 1 if ra.base_poc >= 0 else 0
+            # the next scheduled or requested keyframe at or after next_poc
+            key_req = [k for k in self._ra_keys if k >= next_poc]
+            next_key = min(key_req) if key_req else None
+            if cfg.intra_period >= 0:
+                period = cfg.intra_period + 1
+                sched = ((next_poc + period - 1) // period) * period
+                next_key = sched if next_key is None else min(next_key, sched)
+            elif next_poc == 0:
+                next_key = 0
+            if next_key == next_poc:
+                if next_poc not in self._ra_buf:
+                    break
+                # the adaptive keyframe qindex reads the next picture's
+                # zz-staticness: hold the key one frame unless flushing
+                nxt = self._ra_buf.get(next_poc + 1)
+                if (nxt is None and not flush
+                        and cfg.pred_structure == PredStructure.RANDOM_ACCESS):
+                    break
+                if nxt is None:
+                    nxt = self._ra_next_hint
+                staticness = None
+                if nxt is not None:
+                    cur = self._ra_buf[next_poc]
+                    staticness = zz_staticness(cur.y, nxt.y, cfg.source_width,
+                                               cfg.source_height)
+                qov = self._qp_overridden(next_poc)
+                qindex = qov if qov is not None else \
+                    self._rc.frame_qindex(True, staticness=staticness)
+                pkt = ra.encode_key(self._ra_buf.pop(next_poc), next_poc,
+                                    qindex)
+                self._la.drop([next_poc])  # retire its complexity entry
+                self._ra_keys.discard(next_poc)
+                self._emit_ra([pkt])
+                continue
+            # the mini-GOP's span ends before the next keyframe
+            span_len = (max_gop if next_key is None
+                        else next_key - 1 - ra.base_poc)
+            if span_len <= 0:
+                break  # a key is due but its frame has not arrived
+            gop = 1
+            while gop * 2 <= min(span_len, max_gop):
+                gop *= 2
+            avail = 0
+            while ra.base_poc + 1 + avail in self._ra_buf:
+                avail += 1
+            if avail < gop:
+                if not flush or avail == 0:
+                    break
+                gop = 1
+                while gop * 2 <= avail:
+                    gop *= 2
+            frames = {ra.base_poc + 1 + i: self._ra_buf[ra.base_poc + 1 + i]
+                      for i in range(gop)}
+            qov = self._qp_overridden(ra.base_poc + 1)
+            # the window's relative complexities, before qindexes are set
+            self._rc.set_lookahead_scales(self._la.scales(frames))
+            pkts = ra.encode_minigop(frames, ra.base_poc, gop,
+                                     qindex_override=qov)
+            self._la.drop(frames)
+            for p in frames:
+                del self._ra_buf[p]
+            self._emit_ra(pkts)
+
+    def _qp_overridden(self, poc: int):
+        if poc in self._qp_overrides:
+            return qp_to_qindex(self._qp_overrides[poc])
+        return None
 
     def _emit_rt(self, ef) -> None:
         """Book-keep one realtime-path EncodedFrame into the packet queue."""
@@ -466,12 +563,17 @@ class Vp9Encoder:
                           is_keyframe=ef.is_keyframe, qindex=ef.qindex))
 
     def flush(self, next_frame_hint=None) -> None:
-        """Signal end of stream; the random-access session's held key and
+        """Signal end of stream; the random-access routes' held key and
         buffered tail, and the realtime session's pipelined frames, come
-        out. ``next_frame_hint`` serves the host random-access engine of
-        the JAX package and is unused here."""
+        out. ``next_frame_hint``: the picture that would follow this
+        stream (a GOP-parallel chunk's boundary), which the host
+        random-access engine reads for a trailing keyframe's adaptive
+        qindex, so that chunked encodes equal sequential ones."""
         if self._ra_dev is not None and not self._eos:
             self._emit_ra(self._ra_dev.flush())
+        elif self._ra is not None and not self._eos:
+            self._ra_next_hint = next_frame_hint
+            self._ra_drain(flush=True)
         if self._rt is not None and not self._eos:
             for ef in self._rt.flush():
                 self._emit_rt(ef)

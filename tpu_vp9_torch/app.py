@@ -5,12 +5,19 @@ SvtVp9EncApp-compatible surface: ``-i -b -o -w -h -n -q -fps -enc-mode
 -tune -intra-period -pred-struct -rc -tbr ...``) driving
 ``tpu_vp9_torch.api.Vp9Encoder``, plus ``-device`` (default ``cuda``).
 Reads raw YUV or Y4M (incl. stdin pipes), writes IVF and an optional recon
-file. Multi-channel (``-nch``), GOP-parallel and multi-host runs are not
-ported yet and exit with an error, as does any configuration the port's
-encoder refuses.
+file. ``-nch N`` runs N independent channels as processes of this CLI
+(outputs ``name.chK.ext``), ``-gop-parallel K`` encodes the file's GOPs in
+K spawned workers and ``-distributed coordinator:port,n,i`` as process i
+of a gloo group of n (CQP and a fixed intra period; both write the
+sequential encode's bytes). A configuration the port's encoder refuses
+(a multi-device mesh) exits with an error.
 
 Usage (the default, random access with 4 hierarchical levels at enc_mode
 9: the ALTREF pyramids of the device random-access session on the card;
+random access at enc_mode 0-7, at ``-rt 0``, VBR or CBR, with a recon file,
+speed control or a qp file, and at a size the device session does not
+take (640x360): the host random-access engine, its full-pel search on the
+card from 1280x720 up;
 M8: the realtime P-frame step with rate tables, the GOLDEN anchor and the
 32-against-16 descent on the card, at ``-tune 0`` (SQ) with the adaptive
 lambda; M9: the uniform 32 grid; in low delay M8 and M9 also at VBR
@@ -35,6 +42,12 @@ the host encode with ``-speed-ctrl 1``, which may step it to M8 and M9):
       -pred-struct 0 -rt 0 -q 40
   python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 7 \
       -pred-struct 0 -speed-ctrl 1 -fps 30 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 7 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -nch 2 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
+      -intra-period 15 -gop-parallel 4 -q 40
+  python -m tpu_vp9_torch.app -i clip.y4m -b out.ivf -enc-mode 8 \
+      -intra-period 15 -distributed host0:29500,2,0 -q 40
 """
 
 from __future__ import annotations
@@ -217,14 +230,92 @@ def _read_qp_file(args):
     return overrides
 
 
-def _refused(args) -> str | None:
-    if args.channels > 1:
-        return "-nch > 1 (multi-channel) is not ported yet"
-    if args.gop_parallel > 1:
-        return "-gop-parallel > 1 is not ported yet"
-    if args.distributed:
-        return "-distributed is not ported yet"
-    return None
+def run_channels(argv, n: int) -> int:
+    """-nch N: run N independent encoder channels as parallel processes
+    of this CLI (outputs get .chK suffixes); ``-device`` passes through."""
+    import subprocess as sp
+
+    base = list(argv)
+    i = base.index("-nch")
+    del base[i : i + 2]
+    procs = []
+    for ch in range(n):
+        args = list(base)
+        for flag in ("-b", "-o", "-errlog"):
+            if flag in args:
+                j = args.index(flag) + 1
+                root, dot, ext = args[j].rpartition(".")
+                args[j] = (f"{root}.ch{ch}.{ext}" if dot
+                           else f"{args[j]}.ch{ch}")
+        procs.append(sp.Popen([sys.executable, "-m", "tpu_vp9_torch.app"]
+                              + args))
+    rc = 0
+    for p in procs:
+        rc |= p.wait()
+    return rc
+
+
+def _write_chunked(args, pkts, n_frames, width, height, fps_num, fps_den,
+                   elapsed, what) -> None:
+    """The IVF of a chunked encode's packets and its SUMMARY line."""
+    total_bytes = sum(len(p[0]) for p in pkts)
+    if args.bitstream:
+        with open(args.bitstream, "wb") as out_fh:
+            write_ivf_header(out_fh, width, height, fps_num, fps_den)
+            for data, pts, _dts, _k, _q in pkts:
+                write_ivf_frame(out_fh, data, pts)
+            patch_ivf_frame_count(out_fh, len(pkts))
+    n = max(n_frames, 1)
+    kbps = total_bytes * 8 * (fps_num / max(fps_den, 1)) / n / 1000
+    print(f"SUMMARY: {n_frames} frames, {n_frames / elapsed:.2f} fps, "
+          f"{kbps:.1f} kbps, avg {total_bytes // n} B/frame, {what}")
+
+
+def _run_gop_parallel(args, cfg, frames, width, height, fps_num,
+                      fps_den) -> int:
+    """Whole-file GOP-parallel encode (CQP; bit-identical to sequential)."""
+    from tpu_vp9_torch.pipeline.gop_parallel import encode_gop_parallel
+
+    frames = list(frames)
+    if args.frames:
+        frames = frames[: args.frames]
+    overrides = _read_qp_file(args) or {}
+    t0 = time.time()
+    pkts = encode_gop_parallel(frames, cfg, workers=args.gop_parallel,
+                               qp_overrides=overrides, device=args.device)
+    _write_chunked(args, pkts, len(frames), width, height, fps_num, fps_den,
+                   max(time.time() - t0, 1e-9),
+                   f"gop-parallel x{args.gop_parallel}")
+    return 0
+
+
+def _run_distributed(args, cfg, frames, width, height, fps_num,
+                     fps_den) -> int:
+    """-distributed coordinator:port,n,i: GOP-parallel across the n
+    processes of a gloo group (see pipeline/distributed.py); every process
+    writes the full presentation-order stream (byte-identical to the
+    sequential encode)."""
+    from tpu_vp9_torch.pipeline.distributed import encode_gop_distributed
+
+    try:
+        coord, n_s, i_s = args.distributed.rsplit(",", 2)
+        n_proc, pid = int(n_s), int(i_s)
+    except ValueError:
+        print("error: -distributed wants coordinator:port,n,i",
+              file=sys.stderr)
+        return 1
+    frames = list(frames)
+    if args.frames:
+        frames = frames[: args.frames]
+    overrides = _read_qp_file(args) or {}
+    t0 = time.time()
+    pkts = encode_gop_distributed(frames, cfg, coordinator=coord,
+                                  num_processes=n_proc, process_id=pid,
+                                  qp_overrides=overrides, device=args.device)
+    _write_chunked(args, pkts, len(frames), width, height, fps_num, fps_den,
+                   max(time.time() - t0, 1e-9),
+                   f"distributed {pid + 1}/{n_proc}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -235,11 +326,11 @@ def main(argv=None) -> int:
     except OSError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if "-nch" in argv:
+        n = int(argv[argv.index("-nch") + 1])
+        if n > 1:
+            return run_channels(argv, n)
     args = build_parser().parse_args(argv)
-    why = _refused(args)
-    if why:
-        print(f"error: tpu_vp9_torch: {why}", file=sys.stderr)
-        return 2
     try:
         width, height, (fps_num, fps_den), frames = open_input(args)
     except (OSError, ValueError) as e:
@@ -256,6 +347,29 @@ def main(argv=None) -> int:
         from tpu_vp9_torch.utils.trace import enable as _trace_enable
 
         _trace_enable(True)
+
+    if args.distributed:
+        dcfg = cfg.derive()
+        if (dcfg.rate_control_mode != RateControlMode.CQP
+                or dcfg.intra_period < 0):
+            print("error: -distributed requires CQP + fixed intra period",
+                  file=sys.stderr)
+            return 1
+        return _run_distributed(args, dcfg, frames, width, height,
+                                fps_num, fps_den)
+    if args.gop_parallel > 1:
+        dcfg = cfg.derive()  # resolve the auto (-2) intra period
+        if (dcfg.rate_control_mode != RateControlMode.CQP
+                or dcfg.intra_period < 0 or dcfg.speed_control):
+            print("warning: -gop-parallel requires CQP + intra period "
+                  "(and no speed control); falling back to sequential",
+                  file=sys.stderr)
+        else:
+            if args.trace:
+                print("warning: -trace is per-process; no trace summary "
+                      "in -gop-parallel mode", file=sys.stderr)
+            return _run_gop_parallel(args, dcfg, frames, width, height,
+                                     fps_num, fps_den)
 
     enc = Vp9Encoder(device=args.device)
     try:

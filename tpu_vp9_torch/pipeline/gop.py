@@ -150,8 +150,9 @@ class RaEncoder:
     order exactly as a conformant decoder would.
     """
 
-    def __init__(self, cfg, sig, rc):
+    def __init__(self, cfg, sig, rc, device="cuda"):
         self.cfg = cfg
+        self.device = device  # where encode_pframe's full-pel search runs
         self.sig = sig
         self.rc = rc
         self.dpb = DpbAllocator()
@@ -378,7 +379,7 @@ class RaEncoder:
             fc_base=fc_base, restrict_mv_modes=False, prev_mvs=prev_mvs,
             part_depths=sig.part_depths, sign_bias=sign_bias,
             lambda_map=lmap, log2_tile_cols=self.log2_tile_cols,
-            full_loop=getattr(sig, "full_loop", False))
+            full_loop=getattr(sig, "full_loop", False), device=self.device)
         # DPB wiring: LAST/GOLDEN/ALTREF -> slots; refresh for references
         last_slot = self.dpb.slot(gf.last_poc)
         golden_slot = (self.dpb.slot(gf.golden_poc)
