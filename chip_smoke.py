@@ -165,7 +165,25 @@ Phases, each of which raises on failure (nothing is caught):
      CLI at 720p, 9 frames (both streams decode); -distributed with 2
      local processes at 720p, intra period 8, 18 frames (each writes the
      sequential encode's packets);
- 14. M7 (the host encode with the device full-pel search): end to end,
+ 14. tile-column sharding (``pipeline/tpu_shard.py``) on the one card:
+     make_pframe_step_sharded with GOLDEN and the rate tables on meshes
+     that repeat the card, (1, 2), (1, 4) and two frames over (2, 2) at
+     1080p, (1, 2) and (1, 4) at 720p (the strip zone sharded too), on the
+     real inputs of panning_frames(seed=1) (a device keyframe and two
+     P-frames), every per-block array, the gathered recon, the filtered
+     references, distortion and rate bit-equal to the single-device
+     step's, the launches of each mesh asserted (each shard's zones at
+     its shard-local batch, one loop filter a frame); the step time with
+     1, 2 and 4 shards beside the single-device step's, and the 2- and
+     4-shard steps under the profiler (the kernels' device time at the
+     shards' shapes); the public encoder at 1080p M8 with
+     tpu_mesh_shape=(1, 1) on 10 frames: the sharded session (no GOLDEN,
+     no descent), launches asserted, packets equal to
+     RtSession(split16=False, golden=False)'s, decode bit-exact, fps; a
+     mesh one wider than the machine at tpu_realtime 1 raises
+     RuntimeError; with two cards or more a (1, count) mesh across them
+     gives the one card's packets (a line says when it did not run);
+ 15. M7 (the host encode with the device full-pel search): end to end,
      profile and same bytes, as before.
 Before the last line it prints one JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -193,11 +211,16 @@ runs phase 12 alone after the builds, and prints neither JSON line.
     python3 chip_smoke.py --ra-host
 
 runs phase 13 alone after the builds, and prints neither JSON line.
+
+    python3 chip_smoke.py --mesh
+
+runs phase 14 alone after the builds, and prints neither JSON line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import statistics
@@ -4038,6 +4061,309 @@ def ra_host_phases(dev, paths):
         distributed_phase(tmp, dev)
 
 
+# the tile-column sharded step: the meshes its phase runs on one card
+# (rows of devices; (2, 2) is two frames over two tiles each), the clip of
+# the API phase, and the shard counts whose step time it prints
+MESH_STEP_SHAPES = {"1080p": ((1, 2), (1, 4), (2, 2)), "720p": ((1, 2),
+                                                                 (1, 4))}
+MESH_FRAMES = 10
+MESH_TIMED = (1, 2, 4)
+# launches of one shard's zone with GOLDEN (the 32 grid: the fused search,
+# the quarter-pel search, ZERO and GOLDEN's candidates, the recon
+# distortion, three transforms); a strip geometry adds the strip zone's
+# (its flat search in place of the fused one); one loop filter a frame
+MESH_ZONE_LAUNCHES = {"hier_search_fused": 1, "subpel_search": 1,
+                      "block_energy_at": 2, "block_energy": 1,
+                      "transform_recon": 3}
+MESH_STRIP_LAUNCHES = {"sse_map_search": 1, "subpel_search": 1,
+                       "block_energy_at": 2, "block_energy": 1,
+                       "transform_recon": 3}
+
+
+def _mesh_cases(dev, dims):
+    """Real inputs of the step at ``dims``: the first three frames of
+    panning_frames(seed=1), the first a device keyframe, the second a
+    P-frame of the single-device step with GOLDEN (LAST and GOLDEN the
+    key), the third its P-frame with LAST the key and GOLDEN the second's
+    recon (so that GOLDEN, the nearer picture, wins blocks) and the
+    second's MVs as the previous MVs. Returns (geom, the scalars, the
+    rate tables, [((src, last, gold, prev_mv32, prev_mv16), the
+    single-device step's outputs, its references)] for the second and
+    third frames)."""
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops.loopfilter import (
+        pick_filter_level, sharpness_limits,
+    )
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline.presets import qp_to_qindex
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    g = P.make_geom(*dims)
+    q = qp_to_qindex(QP)
+    shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
+              (g.pad_h // 2, g.pad_w // 2))
+
+    def stage(fr):
+        return tuple(torch.from_numpy(P.pad_plane(np.asarray(p), *shp))
+                     .to(dev) for p, shp in zip((fr.y, fr.u, fr.v), shapes))
+
+    lim, mblim = sharpness_limits(0)
+    lam = max(1, (T.ac_quant(q) ** 2) >> 6)
+    kf = pick_filter_level(q, True)
+    lf = pick_filter_level(q, False)
+    frames = list(panning_frames(*dims, 3, seed=1))
+    _, key = P.make_kframe_step(g, dev)(
+        *stage(frames[0]), T.dc_quant(q), T.ac_quant(q), lam, kf,
+        int(lim[kf]), int(mblim[kf]))
+    scal = (T.dc_quant(q), T.ac_quant(q), lam, lf, int(lim[lf]),
+            int(mblim[lf]))
+    rates = P.upload_rate_tabs(
+        P.make_rate_tabs(T.default_frame_context(), q), dev)
+    step = P.make_pframe_step(g, dev, golden=True)
+    zero16 = torch.zeros((g.cols16 if g.strip else 1, 2), dtype=torch.int32,
+                         device=dev)
+    case1 = (stage(frames[1]), key, key,
+             torch.zeros((g.n_blocks32, 2), dtype=torch.int32, device=dev),
+             zero16)
+    out1, refs1 = step(*case1[0], *case1[1], *case1[2], *case1[3:], *scal,
+                       rates)
+    case2 = (stage(frames[2]), key, refs1, out1["m32"]["mv"].to(torch.int32),
+             out1["m16"]["mv"].to(torch.int32) if g.strip else zero16)
+    out2, refs2 = step(*case2[0], *case2[1], *case2[2], *case2[3:], *scal,
+                       rates)
+    torch.cuda.synchronize()
+    return g, scal, rates, [(case1, out1, refs1), (case2, out2, refs2)]
+
+
+def _shard_major(arr, g, n_tiles):
+    """Raster 32-grid order -> the shards' raster orders, left to right."""
+    lead = tuple(arr.shape[1:])
+    return arr.reshape(g.rows32, n_tiles, g.cols32 // n_tiles, *lead) \
+        .transpose(0, 1).reshape(-1, *lead)
+
+
+def _sharded_args(g, cases, scal, rates, n_tiles):
+    """The sharded step's arguments for the frames of ``cases``."""
+    from tpu_vp9_torch.pipeline.tpu_encdec import BORDER as B
+
+    def planes(j, i, unbordered):
+        return torch.stack([c[0][j][i][B:-B, B:-B] if unbordered
+                            else c[0][j][i] for c in cases])
+
+    return ([planes(0, i, False) for i in range(3)]
+            + [planes(1, i, True) for i in range(3)]
+            + [torch.stack([_shard_major(c[0][3], g, n_tiles)
+                            for c in cases]),
+               torch.stack([c[0][4] for c in cases]), *scal]
+            + [planes(2, i, True) for i in range(3)] + [rates])
+
+
+def mesh_step_phase(dev, dims, label, paths):
+    """The sharded step (``make_pframe_step_sharded``) on meshes that
+    repeat the one card, held bit for bit against the single-device step
+    with GOLDEN and the rate tables on the same real inputs: every
+    per-block array, the gathered recon, the filtered references,
+    distortion and rate; the launches of each mesh asserted (each shard's
+    zones at their shard-local batch, one loop filter a frame). Each
+    mesh's counts go to ``paths``."""
+    from tpu_vp9_torch.pipeline import tpu_shard as S
+    from tpu_vp9_torch.pipeline.tpu_encdec import ZONE_KEYS
+
+    g, scal, rates, cases = _mesh_cases(dev, dims)
+    for shape in MESH_STEP_SHAPES[label]:
+        n_frame, n_tiles = shape
+        mesh = [[dev] * n_tiles for _ in range(n_frame)]
+        use = cases[-n_frame:]
+        step = S.make_pframe_step_sharded(g, mesh, n_tiles, golden=True)
+        args = _sharded_args(g, use, scal, rates, n_tiles)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        outs, refs = step(*args)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        counts = _read_counts()
+        for f, (_, want, want_refs) in enumerate(use):
+            for k in ZONE_KEYS:
+                if not torch.equal(outs[k][f], _shard_major(want["m32"][k],
+                                                            g, n_tiles)):
+                    raise AssertionError(f"{label} mesh {shape}: {k} differs "
+                                         "from the single-device step's")
+                if g.strip and not torch.equal(outs[f"m16_{k}"][f],
+                                               want["m16"][k]):
+                    raise AssertionError(f"{label} mesh {shape}: the strip's "
+                                         f"{k} differs")
+            zones = [want["m32"]] + ([want["m16"]] if g.strip else [])
+            for k in ("rec_y", "rec_u", "rec_v"):
+                if not torch.equal(outs[k][f],
+                                   torch.cat([z[k] for z in zones])):
+                    raise AssertionError(f"{label} mesh {shape}: the gathered "
+                                         f"{k} differs")
+            for i, k in enumerate(("rec_y", "rec_u", "rec_v")):
+                if not torch.equal(refs[i][f], want[k]):
+                    raise AssertionError(f"{label} mesh {shape}: the filtered "
+                                         f"{k} differs")
+            for k in ("dist", "rate"):
+                if int(outs[k][f]) != sum(int(z[k]) for z in zones):
+                    raise AssertionError(f"{label} mesh {shape}: {k} differs")
+        want_counts = dict.fromkeys(counts, 0)
+        for table in (MESH_ZONE_LAUNCHES,) + ((MESH_STRIP_LAUNCHES,)
+                                              if g.strip else ()):
+            for k, v in table.items():
+                want_counts[k] += v * n_tiles * n_frame
+        want_counts["loop_filter"] = n_frame
+        if counts != want_counts:
+            raise AssertionError(f"{label} mesh {shape}: launches {counts}, "
+                                 f"want {want_counts}")
+        paths[f"{label} mesh step {shape[0]}x{shape[1]}"] = counts
+        golden = sum(int((want["m32"]["ref"] == 1).sum())
+                     for _, want, _ in use)
+        if golden == 0:
+            raise AssertionError(f"{label} mesh {shape}: no block took "
+                                 "GOLDEN; the check would not reach it")
+        print(f"mesh step {label} {shape} on one card: bit-equal to the "
+              f"single-device step in every output ({n_frame} frame(s), "
+              f"GOLDEN in {golden} blocks); launches "
+              f"{ {k: v for k, v in counts.items() if v} }; first call "
+              f"{ms:.1f} ms (host clock, synchronized)")
+    return g, scal, rates, cases
+
+
+def mesh_step_times(dev, label, g, scal, rates, cases):
+    """Host-clock time of one P-frame step (10 after a warm-up,
+    synchronized) with 1, 2 and 4 shards on the one card, beside the
+    single-device step's (GOLDEN and the rate tables, no descent); and
+    one 2- and one 4-shard step under the profiler, for the kernels'
+    device time at the shards' shapes."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline import tpu_shard as S
+
+    case = cases[-1][0]
+    single = P.make_pframe_step(g, dev, golden=True)
+
+    def timed(run):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+        return 100 * (time.perf_counter() - t0)
+
+    times = {"single": timed(lambda: single(*case[0], *case[1], *case[2],
+                                            *case[3:], *scal, rates))}
+    runs = {}
+    for n in MESH_TIMED:
+        step = S.make_pframe_step_sharded(g, [[dev] * n], n, golden=True)
+        args = _sharded_args(g, cases[-1:], scal, rates, n)
+        runs[n] = functools.partial(step, *args)
+        times[f"{n} shard(s)"] = timed(runs[n])
+    print(f"mesh step time {label}, one card (host clock, mean of 10, "
+          "synchronized): " + ", ".join(f"{k} {v:.2f} ms"
+                                       for k, v in times.items()))
+    need = ("hier_search_fused", "subpel_search", "block_energy",
+            "block_energy_at", "transform_recon", "loop_filter") + \
+        (("sse_map_search",) if g.strip else ())
+    for n in MESH_TIMED[1:]:
+        _profile_until_complete(dev, [runs[n]] * 3,
+                                f"mesh step {label} {n} shards", need)
+    return times
+
+
+def mesh_api_phase(dev, paths):
+    """The public encoder at 1080p M8 low delay with tpu_mesh_shape=(1, 1):
+    the sharded session (no GOLDEN, no descent, as in the JAX package),
+    its packets equal to RtSession(split16=False, golden=False)'s on the
+    card, decoded bit-exact, its launches asserted (counts to ``paths``);
+    fps over the P-frames. Then a mesh wider than the machine at
+    tpu_realtime 1 must raise RuntimeError, and where the machine has two
+    cards or more a (1, count) mesh across them must give the one card's
+    packets."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline.realtime import RtSession
+    from tpu_vp9_torch.utils import trace
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    frames = list(panning_frames(WIDTH, HEIGHT, MESH_FRAMES, seed=1))
+    # the qindex and key of every send, which the reference session replays
+    sends = []
+    real_send = RtSession.send
+
+    def recording(sess, frame, qindex=100, force_keyframe=False):
+        sends.append((qindex, force_keyframe))
+        return real_send(sess, frame, qindex, force_keyframe)
+
+    RtSession.send = recording
+    trace.enable(True)
+    _reset_counts()
+    try:
+        pkts, recons, rows, enc, p_s = _encode(dev, frames, 8,
+                                               tpu_mesh_shape=(1, 1))
+    finally:
+        RtSession.send = real_send
+        trace.enable(False)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    rt = enc._rt
+    if rt is None or rt.mesh_shape != (1, 1) or rt.golden or rt.split16:
+        raise AssertionError("tpu_mesh_shape=(1, 1) did not take the sharded "
+                             "session without GOLDEN and the descent")
+    n_k = sum(p.is_keyframe for p in pkts)
+    want = _want_launches(P.make_geom(WIDTH, HEIGHT), 9,
+                          len(pkts) - n_k, n_k, counts)
+    if counts != want:
+        raise AssertionError(f"mesh (1, 1): launches {counts}, want {want}")
+    paths["1080p m8 mesh 1x1"] = counts
+    sess = RtSession(WIDTH, HEIGHT, device=dev,
+                     intra_period=enc._cfg.intra_period, want_recon=False,
+                     split16=False, golden=False)
+    ref = []
+    for fr, (qindex, key) in zip(frames, sends):
+        ref.extend(sess.send(fr, qindex=qindex, force_keyframe=key))
+    ref.extend(sess.flush())
+    sess.close()
+    if [p.data for p in pkts] != [ef.payload for ef in ref]:
+        raise AssertionError("mesh (1, 1) packets differ from the "
+                             "single-device session's")
+    psnrs = _decode_check(pkts, recons, frames)
+    print(_stream_line("1080p m8 mesh (1, 1)", pkts, psnrs))
+    print(f"1080p m8 mesh (1, 1): {(len(frames) - 1) / p_s:.3f} fps over "
+          f"the {len(frames) - 1} P-frames (host clock); the packets equal "
+          "RtSession(split16=False, golden=False)'s; "
+          + _send_split(rows[2:]))
+    count = torch.cuda.device_count()
+    try:
+        _make_encoder(dev, 8, tpu_mesh_shape=(1, count + 1), tpu_realtime=1)
+    except RuntimeError as exc:
+        if "mesh requests" not in str(exc):
+            raise
+        print(f"mesh (1, {count + 1}) at tpu_realtime 1 raised: {exc}")
+    else:
+        raise AssertionError(f"a mesh of {count + 1} on {count} card(s) did "
+                             "not raise at tpu_realtime 1")
+    if count < 2:
+        print(f"mesh across cards: not run ({count} card on this machine; "
+              "a (1, count) mesh needs two or more)")
+        return
+    wide, _, _, _, _ = _encode(dev, frames, 8, tpu_mesh_shape=(1, count))
+    if [p.data for p in wide] != [p.data for p in pkts]:
+        raise AssertionError(f"mesh (1, {count}) across the cards differs "
+                             "from the one card's packets")
+    print(f"mesh (1, {count}) across {count} cards: packets equal the one "
+          "card's")
+
+
+def mesh_phases(dev, paths):
+    """The tile-column sharding phases: the step at 1080p and at the 720p
+    strip geometry, the step times, the public encoder's mesh routes."""
+    for label, dims in (("1080p", (WIDTH, HEIGHT)),
+                        ("720p", STRIP_GEOMS["720p"])):
+        found = mesh_step_phase(dev, dims, label, paths)
+        mesh_step_times(dev, label, *found)
+        del found
+    mesh_api_phase(dev, paths)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4083,6 +4409,12 @@ def main() -> int:
         print(f"chip_smoke: the host random-access and multi-process phases "
               f"passed in {time.perf_counter() - t_start:.1f} s (--ra-host: "
               "stopping)")
+        print(card)
+        return 0
+    if "--mesh" in sys.argv[1:]:
+        mesh_phases(dev, {})
+        print(f"chip_smoke: the mesh phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--mesh: stopping)")
         print(card)
         return 0
     if "--host" in sys.argv[1:]:
@@ -4144,6 +4476,7 @@ def main() -> int:
     rc_phases(dev, paths)
     ra_phases(dev, kernels, paths)
     ra_host_phases(dev, paths)
+    mesh_phases(dev, paths)
     for name, k in kernels.items():
         k["launches_by_path"] = {
             path: sum(c[w] for w in ENTRY_WRAPPERS[name])

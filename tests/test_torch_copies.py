@@ -57,8 +57,9 @@ CHANGED = {
         "random-access, host random-access and low-delay host routes, "
         "with the JAX package's host fallbacks for geometries the device "
         "steps reject and speed control on the host routes; the card "
-        "stands in for the accelerator probe; meshes raise "
-        "NotImplementedError",
+        "stands in for the accelerator probe; a mesh shards the realtime "
+        "step over the machine's cards (the CPU repeated with "
+        "device='cpu')",
         ()),
     "app.py": (
         "the port's own CLI: -device added and passed to -nch's channels, "
@@ -121,7 +122,8 @@ def test_every_port_module_is_accounted_for():
            "pipeline/distributed.py", "pipeline/ra_device.py",
            "pipeline/realtime.py",
            "pipeline/tpu_encdec.py", "pipeline/tpu_intra.py",
-           "pipeline/tpu_me.py", "utils/__init__.py", "utils/device.py",
+           "pipeline/tpu_me.py", "pipeline/tpu_shard.py",
+           "utils/__init__.py", "utils/device.py",
            "utils/kf_phases.py", "utils/lf_phases.py"}
     found = set()
     root = os.path.join(REPO, "tpu_vp9_torch")

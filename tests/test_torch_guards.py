@@ -19,6 +19,7 @@ from tpu_vp9_torch import api as port_api
 from tpu_vp9_torch.config import (
     EncoderConfig, PredStructure, RateControlMode, Tune,
 )
+from tpu_vp9_torch.pipeline import realtime as port_realtime
 
 torch.set_num_threads(1)
 
@@ -158,7 +159,7 @@ def test_kernel_module_catches_nothing():
 
 PROCESS_PY = [os.path.join(REPO, "tpu_vp9_torch", "pipeline", name)
               for name in ("gop_parallel.py", "distributed.py",
-                           "lookahead.py", "gop.py")]
+                           "lookahead.py", "gop.py", "tpu_shard.py")]
 API_PY = os.path.join(REPO, "tpu_vp9_torch", "api.py")
 
 
@@ -212,10 +213,10 @@ STEP_DISPATCH = {
     "loop_filter": ("loop_filter_device", ("pframe_step", "kframe_step"), ()),
     "kframe_wave": ("kframe_wave_device", ("kframe_step",), ()),
     "transform_recon": ("transform_recon",
-                        ("encode_zone", "encode_children_masked"),
+                        ("zone_code", "encode_children_masked"),
                         ("kframe_wave_ref",)),
     "subpel_search": ("subpel_search",
-                      ("encode_zone", "encode_children_masked"), ()),
+                      ("zone_search", "encode_children_masked"), ()),
 }
 
 
@@ -677,11 +678,29 @@ def test_m9_without_cuda_fails_loudly(monkeypatch):
     dict(enc_mode=9, pred_structure=PredStructure.RANDOM_ACCESS,
          tpu_mesh_shape=(1, 2)),
 ], ids=["m8_mesh", "mesh", "ra_mesh"])
-def test_unported_routes_raise(kw):
+def test_unported_routes_raise(kw, monkeypatch):
+    """Meshes were refused until the sharded step was ported; now each
+    takes the JAX package's route: M8 low delay the sharded realtime
+    session (no GOLDEN, the descent off with the JAX session's notice),
+    M7 low delay the host encode, random access the host engine."""
+    notices = []
+    monkeypatch.setattr(port_api, "notice", notices.append)
+    monkeypatch.setattr(port_realtime, "notice", notices.append)
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(_slice_cfg(**kw))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        enc.init()
+    enc.init()
+    if kw.get("enc_mode") == 8:
+        assert enc._rt.mesh_shape == (1, 2)
+        assert not enc._rt.golden and not enc._rt.split16
+        assert enc._rt._step.devices == [torch.device("cpu")] * 2
+        assert notices == ["mesh-sharded realtime session: split16 descent "
+                           "disabled (uniform 32 grid + GOLDEN)"]
+    elif "pred_structure" in kw:
+        assert enc._ra is not None and enc._ra_dev is None
+        assert enc._rt is None and not notices
+    else:
+        assert enc._rt is None and enc._ra is None and not notices
+    enc.close()
 
 
 @pytest.mark.parametrize("kw", [

@@ -11,7 +11,7 @@ enc_mode 9, CQP) routes to ``DeviceRaSession`` in both packages:
     behind and fails at ``flush``;
   - the random-access configurations that the JAX package sends to its
     host RA engine take the port's (``tests/test_torch_ra_host.py`` holds
-    its packets against JAX's); a mesh stays refused (Queue A item 11).
+    its packets against JAX's), a mesh among them.
 The strip geometry's sessions are in ``tests/test_torch_ra_strip.py`` (a
 file of their own, so that ``--dist loadfile`` runs their JAX compiles
 beside this file's).
@@ -142,12 +142,16 @@ def test_host_ra_routes_are_taken(kw):
 
 
 def test_host_ra_routes_stay_refused():
-    """A mesh stays refused, naming its item."""
+    """A mesh, refused until the sharded step was ported, takes the host
+    RA engine: there is no device RA session over a mesh, in either
+    package (``tests/test_torch_shard_session.py`` holds its packets
+    against JAX's)."""
     enc = port_api.Vp9Encoder(device="cpu")
     enc.set_parameter(port_config.EncoderConfig(
         source_width=W, source_height=H, qp=40, tpu_mesh_shape=(1, 2)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        enc.init()
+    enc.init()
+    assert enc._ra is not None and enc._ra_dev is None and enc._rt is None
+    enc.close()
 
 
 def test_qp_overrides_at_init_stay_refused():

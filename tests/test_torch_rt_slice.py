@@ -239,8 +239,10 @@ def test_port_session_python_serializer_matches_native(monkeypatch, er):
 
 
 def test_port_session_refuses_unported_configurations():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortSession(128, 96, device="cpu", mesh_shape=(1, 2))
+    # a mesh is taken since the sharded step was ported: the CPU repeated
+    sess = PortSession(128, 96, device="cpu", mesh_shape=(1, 2))
+    assert sess._step.devices == [torch.device("cpu")] * 2
+    sess.close()
     # the adaptive lambda (aq, with GOLDEN) is taken since it was ported
     sess = PortSession(128, 96, device="cpu", golden=True, aq=True)
     assert sess.aq

@@ -24,12 +24,12 @@ send_picture -> get_packet -> get_recon -> flush/close), with a ``device``:
     out in decode order with DTS = decode order - 2^levels + 1;
   - every other random-access configuration (enc_mode 0-7, tpu_realtime
     0, VBR or CBR, a recon file, speed control, qp overrides set before
-    ``init``) runs the host random-access engine (``pipeline/gop.py``,
-    ``RaEncoder``): the same pyramids, mini-GOPs cut by forced and
-    scene-cut keys, a keyframe held one frame for its zz-staticness, the
-    lookahead window's complexities (``pipeline/lookahead.py``) handed to
-    the rate controller, its full-pel motion search on that device from
-    1280x720 up. A geometry the device session rejects takes it too,
+    ``init``, a mesh) runs the host random-access engine
+    (``pipeline/gop.py``, ``RaEncoder``): the same pyramids, mini-GOPs
+    cut by forced and scene-cut keys, a keyframe held one frame for its
+    zz-staticness, the lookahead window's complexities
+    (``pipeline/lookahead.py``) handed to the rate controller, its
+    full-pel motion search on that device from 1280x720 up. A geometry the device session rejects takes it too,
     with the JAX package's notice, at any tpu_realtime;
   - low delay at enc_mode <= 7, and at enc_mode 8 and 9 with tpu_realtime
     0, runs the host encode, its full-pel motion search on that device
@@ -42,9 +42,14 @@ re-derives the preset's signals when it changes the mode: the host routes
 read them (a step to enc_mode 8 or 9 makes the next keyframe take the
 hints), the realtime session reads none, as in the JAX package.
 
-Multi-device meshes are not ported yet and raise ``NotImplementedError``
-naming ``ROADMAP.md`` Queue A item 11. The geometry fallbacks above are
-the JAX package's own; no other route falls back to another.
+A mesh (``tpu_mesh_shape``) shards the realtime step's tile columns over
+the first prod(mesh_shape) cards (``pipeline/tpu_shard.py``; with
+device="cpu" the CPU repeated), without GOLDEN and the descent, as in the
+JAX package; a mesh wider than the machine's card count, width % 64 != 0
+or a column count the tiles do not divide takes the host route with a
+notice (``RuntimeError`` at tpu_realtime 1). Random access with a mesh
+runs the host engine. The geometry fallbacks above are the JAX package's
+own; no other route falls back to another.
 """
 
 from __future__ import annotations
@@ -75,7 +80,6 @@ from tpu_vp9_torch.pipeline.rate_control import RateControlState
 from tpu_vp9_torch.pipeline.rc_curves import zz_staticness
 from tpu_vp9_torch.pipeline.realtime import RtSession
 from tpu_vp9_torch.pipeline.speed_control import SpeedControl
-from tpu_vp9_torch.pipeline.tpu_encdec import make_geom
 from tpu_vp9_torch.utils.device import require_cuda
 from tpu_vp9_torch.utils.trace import notice, span
 from tpu_vp9_torch.utils.yuv import Frame420
@@ -137,16 +141,8 @@ class Vp9Encoder:
         if self._cfg is None:
             raise RuntimeError("set_parameter must be called before init")
         cfg = self._cfg
-        if cfg.tpu_mesh_shape:
-            raise NotImplementedError(
-                "tpu_vp9_torch: multi-device meshes are not ported yet "
-                "(ROADMAP.md Queue A item 11, tpu_shard)")
         ra = (cfg.pred_structure == PredStructure.RANDOM_ACCESS
               and cfg.hierarchical_levels >= 1)
-        realtime = (int(cfg.enc_mode) >= 8 and not ra
-                    and cfg.tpu_realtime != 0)
-        if realtime:
-            realtime = self._realtime_geometry(cfg)
         if self.device.type == "cuda":
             require_cuda()
         # warm the per-block-size intra predictor tables before streaming
@@ -182,6 +178,7 @@ class Vp9Encoder:
             self._sc = SpeedControl(target_fps=max(cfg.fps, 1.0),
                                     base_mode=cfg.enc_mode)
         if (ra and cfg.tpu_realtime != 0 and int(cfg.enc_mode) >= 8
+                and not cfg.tpu_mesh_shape
                 and cfg.recon_file is None and self._sc is None
                 and not self._qp_overrides
                 and cfg.rate_control_mode == RateControlMode.CQP):
@@ -199,11 +196,23 @@ class Vp9Encoder:
             else:
                 notice("random-access pyramids on the device step "
                        "(DeviceRaSession)")
-        if realtime:
-            m8 = int(cfg.enc_mode) == 8
+        if int(cfg.enc_mode) >= 8 and not ra and cfg.tpu_realtime != 0:
+            self._rt = self._realtime_session(cfg)
+        self._initialized = True
+
+    def _realtime_session(self, cfg):
+        """The realtime session of enc_mode 8 and 9, or None where its
+        step refuses the configuration with a ValueError (a geometry
+        ``make_geom`` rejects; with a mesh too few cards, width % 64 or
+        cols32 % tiles): the host route then takes the stream, with a
+        notice, as in the JAX package; at tpu_realtime 1 that is a
+        ``RuntimeError``."""
+        m8 = int(cfg.enc_mode) == 8
+        try:
             # VBR/CBR: the session picks each frame's qindex and feeds the
-            # controller after each serialization
-            self._rt = RtSession(
+            # controller after each serialization. A mesh drops GOLDEN here,
+            # as the JAX package's API does (its session would keep it)
+            return RtSession(
                 cfg.source_width, cfg.source_height, device=self.device,
                 intra_period=cfg.intra_period,
                 rc=(self._rc if cfg.rate_control_mode != RateControlMode.CQP
@@ -211,17 +220,11 @@ class Vp9Encoder:
                 error_resilient=cfg.error_resilient,
                 frame_parallel_decoding=cfg.frame_parallel_decoding,
                 want_recon=cfg.recon_file is not None,
-                loop_filter=cfg.loop_filter, split16=m8, golden=m8,
+                loop_filter=cfg.loop_filter, split16=m8,
+                golden=m8 and not cfg.tpu_mesh_shape,
+                mesh_shape=(tuple(cfg.tpu_mesh_shape)
+                            if cfg.tpu_mesh_shape else None),
                 aq=cfg.tune == Tune.SQ)
-        self._initialized = True
-
-    @staticmethod
-    def _realtime_geometry(cfg) -> bool:
-        """True if the realtime step takes the configured geometry. If it
-        does not, the host route takes it, with a notice, as in the JAX
-        package; at tpu_realtime 1 that is a ``RuntimeError``."""
-        try:
-            make_geom(cfg.source_width, cfg.source_height)
         except ValueError as exc:
             if cfg.tpu_realtime == 1:
                 raise RuntimeError(
@@ -230,8 +233,7 @@ class Vp9Encoder:
                     f"{exc}") from exc
             notice(f"realtime device session unavailable ({exc}); "
                    "falling back to host encode")
-            return False
-        return True
+            return None
 
     def _speed_report(self, n_frames: int, seconds: float) -> None:
         """Feed the speed controller; re-derive the preset's signals when

@@ -10,7 +10,7 @@ file. ``-nch N`` runs N independent channels as processes of this CLI
 K spawned workers and ``-distributed coordinator:port,n,i`` as process i
 of a gloo group of n (CQP and a fixed intra period; both write the
 sequential encode's bytes). A configuration the port's encoder refuses
-(a multi-device mesh) exits with an error.
+(``-rt 1`` where the realtime step cannot run) exits with an error.
 
 Usage (the default, random access with 4 hierarchical levels at enc_mode
 9: the ALTREF pyramids of the device random-access session on the card;

@@ -47,7 +47,12 @@ grid; the session keeps the strip's MVs as its temporal candidates,
 lambda scaled by its variance (``tpu_encdec._sb_lambda_scale``); as in the
 JAX session it takes effect with GOLDEN only (the step's rate tables).
 
-Not ported yet, and refused with NotImplementedError: meshes.
+``mesh_shape`` shards the P-frame step's tile columns over a mesh of
+devices (``pipeline/tpu_shard.make_rt_step_sharded``: the first
+prod(mesh_shape) cards, or ``device`` repeated off CUDA), with GOLDEN,
+without the descent (a notice where it was asked for) and without aq, as
+in the JAX session; the keyframe stays on ``device``. The streams equal
+the single-device session's.
 """
 
 from __future__ import annotations
@@ -75,16 +80,16 @@ from tpu_vp9_torch.ops.cuda_kernels import kf_check_status
 from tpu_vp9_torch.ops.loopfilter import pick_filter_level, sharpness_limits
 from tpu_vp9_torch.pipeline.encoder import EncodedFrame, _apply_loop_filter
 from tpu_vp9_torch.pipeline.tpu_encdec import (
-    DESCEND_FRAC, Geom, extend_borders_device, make_geom, make_kframe_step,
-    make_pframe_step, make_rate_tabs, pad_plane, upload_rate_tabs,
+    DESCEND_FRAC, ZONE_KEYS, Geom, extend_borders_device, make_geom,
+    make_kframe_step, make_pframe_step, make_rate_tabs, pad_plane,
+    upload_rate_tabs,
 )
-from tpu_vp9_torch.utils.trace import span
+from tpu_vp9_torch.pipeline.tpu_shard import make_rt_step_sharded
+from tpu_vp9_torch.utils.trace import notice, span
 from tpu_vp9_torch.utils.yuv import Frame420
 
 LAST = int(RefFrame.LAST)
-_ZONE_KEYS = ("mv", "ref", "skip", "eob_y", "eob_u", "eob_v", "lv_y",
-              "lv_u", "lv_v")
-_CHILD_KEYS = tuple(k for k in _ZONE_KEYS if k != "ref") + ("sel_idx",)
+_CHILD_KEYS = tuple(k for k in ZONE_KEYS if k != "ref") + ("sel_idx",)
 _KEY_KEYS = ("mode", "skip", "eob_y", "eob_u", "eob_v", "lv_y", "lv_u",
              "lv_v")
 
@@ -303,9 +308,9 @@ def upload_refs(recon_planes, geom: Geom, device):
 def _device_out_to_host(outs, geom: Geom, want_recon: bool):
     """Copy the per-frame device outputs the host needs (full planes) and
     scatter the children into the full 16 grid."""
-    host = {"m32": {k: outs["m32"][k].cpu().numpy() for k in _ZONE_KEYS}}
+    host = {"m32": {k: outs["m32"][k].cpu().numpy() for k in ZONE_KEYS}}
     if geom.strip:
-        host["m16"] = {k: outs["m16"][k].cpu().numpy() for k in _ZONE_KEYS}
+        host["m16"] = {k: outs["m16"][k].cpu().numpy() for k in ZONE_KEYS}
     if "m16f" in outs:
         host["split32"] = outs["split32"].cpu().numpy()
         host["m16f"] = {k: outs["m16f"][k].cpu().numpy()
@@ -336,10 +341,6 @@ class RtSession:
                  split16: bool = False, golden: bool = False,
                  golden_interval: int = 8, mesh_shape=None,
                  aq: bool = False):
-        if mesh_shape is not None:
-            raise NotImplementedError(
-                "tpu_vp9_torch RtSession: meshes are not ported yet "
-                "(ROADMAP.md Queue A item 11)")
         self.g = make_geom(width, height)
         self.device = torch.device(device)
         self.w, self.h = width, height
@@ -361,9 +362,24 @@ class RtSession:
         # without GOLDEN the step takes no rate tables, and aq nothing to
         # scale (the JAX session passes aq and golden too)
         self.aq = aq and golden
-        self._step = make_pframe_step(self.g, self.device,
-                                      split16=self.split16, golden=golden,
-                                      descend_frac=dfrac, aq=self.aq)
+        self.mesh_shape = mesh_shape
+        if mesh_shape is not None:
+            # tile columns over a device mesh (``pipeline/tpu_shard.py``),
+            # GOLDEN kept; as in the JAX session the descent stays off (its
+            # frame-wide choice of parents has no per-shard form) and aq is
+            # not taken
+            if self.split16:
+                notice("mesh-sharded realtime session: split16 descent "
+                       "disabled (uniform 32 grid + GOLDEN)")
+            self.split16 = False
+            self.aq = False
+            self._step = make_rt_step_sharded(self.g, mesh_shape,
+                                              self.device, golden=golden)
+        else:
+            self._step = make_pframe_step(self.g, self.device,
+                                          split16=self.split16,
+                                          golden=golden, descend_frac=dfrac,
+                                          aq=self.aq)
         # the device keyframe, as the JAX session always takes it; None
         # selects the host encoder
         self._kstep = make_kframe_step(self.g, self.device)
@@ -817,7 +833,8 @@ class RtSession:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for dev in getattr(self._step, "devices", (self.device,)):
+                torch.cuda.synchronize(dev)
 
 
 def encode_stream_rt(frames, qindex: int = 100, intra_period: int = -1,

@@ -116,6 +116,9 @@ _Q3_OFFS = tuple(range(-6, 7, 2))  # quarter-pel reach, q3 units
 # +-(8 * (WIN_R - REFINE_R) + 8 * REFINE_R + 6) and LEFT is one of them
 MVD_MAX = 4 * (8 * WIN_R + 6)
 FILTERS = T.subpel_filters(T.InterpFilter.EIGHTTAP)  # (16, 8) int
+# a zone's per-block outputs that the host serializes
+ZONE_KEYS = ("mv", "ref", "skip", "eob_y", "eob_u", "eob_v", "lv_y", "lv_u",
+             "lv_v")
 
 
 @contextlib.contextmanager
@@ -375,9 +378,12 @@ def _aq_rates(rates, src_blocks, n: int):
     return dict(rates, lam_bits=scale * float(np.float32(rates["lam_bits"])))
 
 
-def _fullpel_starts(plane_shape, pos_y, pos_x, mv_r_q3, mv_c_q3, n: int):
+def _fullpel_starts(plane_shape, pos_y, pos_x, mv_r_q3, mv_c_q3, n: int,
+                    x_base: int = 0):
     """(y0, x0) int32 (B,): where the n x n block at the rounded full-pel
-    position of a q3 MV starts in a border-extended plane.
+    position of a q3 MV starts in a border-extended plane. ``x_base``: the
+    global column of the plane's first column past its border (a column
+    shard's plane, whose positions stay global; 0 for a whole frame).
 
     The MV gets no UMV clamp here, as in the JAX package, which relies
     on ``lax.dynamic_slice``: a negative start wraps once (the dimension
@@ -390,15 +396,16 @@ def _fullpel_starts(plane_shape, pos_y, pos_x, mv_r_q3, mv_c_q3, n: int):
         return torch.where(idx < 0, idx + size, idx).clamp(0, size - n)
 
     return (start(BORDER + pos_y + ((mv_r_q3 + 4) >> 3), hh),
-            start(BORDER + pos_x + ((mv_c_q3 + 4) >> 3), ww))
+            start(BORDER + pos_x + ((mv_c_q3 + 4) >> 3) - x_base, ww))
 
 
 def _fullpel_sse(ref_padded, src_blocks, pos_y, pos_x, mv_r_q3, mv_c_q3,
-                 n: int):
+                 n: int, x_base: int = 0):
     """SSE at the rounded full-pel position (no interpolation): the score
-    of a candidate that has no search-map entry (GOLDEN's previous MV)."""
+    of a candidate that has no search-map entry (GOLDEN's previous MV).
+    ``x_base`` as in ``_fullpel_starts``."""
     y0, x0 = _fullpel_starts(ref_padded.shape, pos_y, pos_x, mv_r_q3,
-                             mv_c_q3, n)
+                             mv_c_q3, n, x_base)
     return block_energy_at(src_blocks, ref_padded, y0[None], x0[None],
                            n)[0][0]
 
@@ -668,7 +675,7 @@ def _ssem_gather(ssem, mv_r_q3, mv_c_q3, r: int, q3_shift: int):
 def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
                       prev_mv, rows: int, cols: int, r_map: int,
                       q3_shift: int, sse_scale: int, lam: int, new_bits,
-                      rates=None):
+                      rates=None, left_edge=None):
     """Pick the best MV among {ZERO, NEW, PREV, LEFT-new, ABOVE-new}.
 
     ZERO and NEW carry exact SSEs; PREV/LEFT/ABOVE score at their rounded
@@ -680,14 +687,21 @@ def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
     float32, the multiply and the add as separate operations; NEW's rate
     is looked up in ``new_bits`` (``new_bits_table``) by its mvd against
     the left NEW MV. ``torch.argmin`` returns the first minimum, as
-    ``jnp.argmin`` does.
+    ``jnp.argmin`` does. left_edge: (rows, 2) NEW MVs of the column left
+    of the zone (the previous column shard's last); None at the frame's
+    left edge, whose LEFT candidate is zero.
     Returns (mv_r, mv_c, best_cost).
     """
     b = new_r.shape[0]
     nr2 = new_r.reshape(rows, cols)
     nc2 = new_c.reshape(rows, cols)
-    left_r = F.pad(nr2[:, :-1], (1, 0)).reshape(-1)
-    left_c = F.pad(nc2[:, :-1], (1, 0)).reshape(-1)
+    if left_edge is None:
+        left_r = F.pad(nr2[:, :-1], (1, 0)).reshape(-1)
+        left_c = F.pad(nc2[:, :-1], (1, 0)).reshape(-1)
+    else:
+        edge = left_edge.to(new_r.dtype)
+        left_r = torch.cat([edge[:, 0:1], nr2[:, :-1]], dim=1).reshape(-1)
+        left_c = torch.cat([edge[:, 1:2], nc2[:, :-1]], dim=1).reshape(-1)
     above_r = F.pad(nr2[:-1, :], (0, 0, 1, 0)).reshape(-1)
     above_c = F.pad(nc2[:-1, :], (0, 0, 1, 0)).reshape(-1)
     prev_r, prev_c = prev_mv[:, 0], prev_mv[:, 1]
@@ -720,18 +734,20 @@ def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
 
 
 def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
-                   cols: int, n: int, lam: int, rates, y_base: int = 0):
+                   cols: int, n: int, lam: int, rates, y_base: int = 0,
+                   x_base: int = 0):
     """The GOLDEN reference's best candidate per block of the zone whose
     first row is plane row ``y_base``: ZERO (exact SSE) or the block's
     previous-frame MV (SSE at its rounded full-pel position), first
-    minimum. Returns (mv_r, mv_c, cost) without the reference's own
-    signalling cost."""
+    minimum. ``x_base`` as in ``_fullpel_starts`` (the ZERO candidate
+    reads the zone's columns of ``gold_y`` whatever it is). Returns
+    (mv_r, mv_c, cost) without the reference's own signalling cost."""
     zero = torch.zeros_like(prev_mv[:, 0])
     cand_r = torch.stack([zero, prev_mv[:, 0]])
     cand_c = torch.stack([zero, prev_mv[:, 1]])
     zy, zx = _grid_starts(rows, cols, n, gold_y.device, y_base)
     py, px = _fullpel_starts(gold_y.shape, pos_y, pos_x, prev_mv[:, 0],
-                             prev_mv[:, 1], n)
+                             prev_mv[:, 1], n, x_base)
     sses = block_energy_at(src_blocks, gold_y, torch.cat([zy, py[None]]),
                            torch.cat([zx, px[None]]), n)[0]  # both: (2, B)
     if rates is not None:
@@ -1308,14 +1324,31 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN,
     2 ALTREF), skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v
     (unfiltered zone planes), dist_b, rate_b, dist, rate.
+
+    It runs in two halves, ``zone_search`` and ``zone_code``: a column
+    shard of the frame (``pipeline/tpu_shard.py``) runs them on its own
+    columns and hands its last column's NEW MVs to the next shard between
+    the two.
     """
-    g = geom
-    nc = n // 2
-    y0 = _zone(g, n)[0]
-    pos_y, pos_x, rows, cols = _zone_positions(g, src_y.device, n)
-    b = rows * cols
     if alt is not None and rates is None:
         raise ValueError("encode_zone: ALTREF takes the frame's rate tables")
+    me = zone_search(src_y, ref_y, _zone_positions(geom, src_y.device, n),
+                     _zone(geom, n)[0], n, rates=rates, aq=aq)
+    return zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom, dc_q,
+                     ac_q, lam, filters, new_bits, gold=gold, alt=alt,
+                     return_me=return_me)
+
+
+def zone_search(src_y, ref_y, positions, y0: int, n: int, rates=None,
+                aq: bool = False):
+    """The first half of ``encode_zone`` for the n-blocks at ``positions``
+    = (pos_y, pos_x, rows, cols), whose first row is plane row ``y0``:
+    the source blocks, LAST's search windows, the ZERO SSE, the full-pel
+    search and the quarter-pel refinement (with ``aq`` the per-block
+    rates). ``src_y`` and the border-extended ``ref_y`` start at the
+    blocks' first column (a column shard's planes, or the frame's); the
+    positions are global. Returns the state that ``zone_code`` takes."""
+    pos_y, pos_x, rows, cols = positions
     with _stage("step_search"):
         src_blocks = _extract_blocks(src_y, y0, rows, cols, n)
         wins = _extract_search_windows(ref_y, n, rows, cols, y0)
@@ -1331,6 +1364,7 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
             sub_r, sub_c, sse_new = subpel_search(loc, src_blocks, dyr, dxr,
                                                   n, REFINE_R)
             new_r, new_c = c_y * 8 + sub_r, c_x * 8 + sub_c
+            dy, dx = c_y + dyr, c_x + dxr
             # the map is the half-res level's: +-HALF_R at 2x decimation
             r_map, q3s, scale = HALF_R, 4, 4
         else:
@@ -1340,11 +1374,38 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     if aq and rates is not None:
         with _stage("step_aq"):
             rates = _aq_rates(rates, src_blocks, n)
+    return {"pos_y": pos_y, "pos_x": pos_x, "rows": rows, "cols": cols,
+            "y0": y0, "n": n, "src_blocks": src_blocks, "wins": wins,
+            "sse_zero": sse_zero, "ssem": ssem, "src2m": src2m,
+            "sse_new": sse_new, "new_r": new_r, "new_c": new_c, "dy": dy,
+            "dx": dx, "r_map": r_map, "q3s": q3s, "scale": scale,
+            "rates": rates}
+
+
+def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
+              dc_q: int, ac_q: int, lam: int, filters, new_bits, gold=None,
+              alt=None, return_me: bool = False, left_edge=None,
+              x_base: int = 0):
+    """The second half of ``encode_zone``, on ``zone_search``'s state
+    ``me``: the candidate decision (``left_edge``: the NEW MVs of the
+    column left of the blocks, as ``_candidate_decide`` takes them),
+    GOLDEN and ALTREF, MC from the windows, the transforms and the recon.
+    The planes start at the blocks' first column as ``zone_search``'s do;
+    ``x_base`` is the global column of that column (``_fullpel_starts``).
+    Returns ``encode_zone``'s dict."""
+    g = geom
+    n, rows, cols, y0 = me["n"], me["rows"], me["cols"], me["y0"]
+    pos_y, pos_x = me["pos_y"], me["pos_x"]
+    src_blocks, wins, rates = me["src_blocks"], me["wins"], me["rates"]
+    nc = n // 2
+    b = rows * cols
     with _stage("step_md"):
         mv_r, mv_c, cost_last = _candidate_decide(
-            ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows,
-            cols, r_map, q3s, scale, lam, new_bits, rates=rates)
-    ref_sel = torch.zeros((b,), dtype=torch.int8, device=src_y.device)
+            me["ssem"], me["src2m"], me["sse_zero"], me["sse_new"],
+            me["new_r"], me["new_c"], prev_mv, rows, cols, me["r_map"],
+            me["q3s"], me["scale"], lam, new_bits, rates=rates,
+            left_edge=left_edge)
+    ref_sel = torch.zeros((b,), dtype=torch.int8, device=src_blocks.device)
     if gold is not None or alt is not None:
         extra = _ref_extra(lam, rates)
         best_cost = cost_last + extra[0]
@@ -1352,7 +1413,7 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         with _stage("step_golden"):
             g_mv_r, g_mv_c, g_cost = _golden_decide(
                 gold[0], src_blocks, pos_y, pos_x, prev_mv, rows, cols, n,
-                lam, rates, y0)
+                lam, rates, y0, x_base)
             g_cost = g_cost + extra[1]
             use_gold = g_cost < best_cost
             best_cost = torch.where(use_gold, g_cost, best_cost)
@@ -1428,7 +1489,7 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         # windows, so a descended GOLDEN or ALTREF parent's children,
         # serialized as LAST blocks, were predicted from another
         # reference's chroma than a decoder reads
-        out.update(wins=wins, dy=c_y + dyr, dx=c_x + dxr, wu=wu, wv=wv)
+        out.update(wins=wins, dy=me["dy"], dx=me["dx"], wu=wu, wv=wv)
     return out
 
 
