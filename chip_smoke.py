@@ -412,13 +412,28 @@ STAGED_DIMS, STAGED_FRAMES, STAGED_QINDEX = (3840, 2160), 12, 160
 # the open-loop keyframe hints (openloop_modes): its phase's planes, 2560x1440
 # (3,600 blocks; the first 32-aligned size above 1080p) and 1024x768, at
 # three qindex values, and the tie plane's qindex (its lam 32 makes DC, V
-# and TM tie; ``_ol_tie_plane``); integer operations a 32x32 block (an
-# upper estimate: per pixel and mode a prediction, a difference, a square
-# and a sum, 7, 10 modes; the 768 distinct directional words filtered, 8
-# each)
+# and TM tie; ``_ol_tie_plane``); integer operations a 32x32 block, the
+# function's work as the first kernel did it and the yardstick of every
+# form of the kernel (per pixel and mode a prediction, a difference, a
+# square and a sum, 7, 10 modes; the 768 distinct directional words
+# filtered, 8 each); beside it, not a bound, the present kernel's own count
+# a block by kind (the SSE by expansion, csrc/openloop_modes.cu): per lane,
+# integer operations (32 columns of a byte extract and 6 adds, a shift for
+# each of the sweeps' 154 moves, 16 folds of 10, the column sums' 65,
+# about 40 more), shuffles and warp reductions (the sweeps' 154 moves, the
+# column sums' 16, 16 reductions) and dp4a (16 row sums, 16 folds; four
+# products each), times the 32 lanes; that count's time, also not a bound,
+# at the SM's integer and shuffle rates: 64 32-bit integer results (dp4a
+# counted with them) and 32 shuffle results a clock an SM (the CUDA C
+# Programming Guide's throughput table, compute capability 9.0), 132 SMs
+# at 1.98 GHz (the clock the data sheet's float32 rate implies)
 OL_DIMS = {"1440p": (2560, 1440), "768p": (1024, 768)}
 OL_QINDICES, OL_TIE_QINDEX = (0, 120, 255), 45
 OL_OPS_PER_BLOCK = 7 * 10 * 1024 + 8 * 768
+OL_DESIGN_OPS = {"integer": 32 * (32 * 7 + 154 + 16 * 10 + 65 + 40),
+                 "shuffle and reduction": 32 * (154 + 16 + 16),
+                 "dp4a": 32 * (16 + 16)}
+INT32_OPS_PER_S, SHFL_OPS_PER_S = 132 * 64 * 1.98e9, 132 * 32 * 1.98e9
 # the host route (enc_mode 8 and 9 at tpu_realtime 0): 1080p frames; the
 # fallback of a geometry the realtime step rejects (640x360: mi_rows 45)
 # and its frames; speed control on the host route: 720p M7 at 30 fps,
@@ -489,26 +504,9 @@ def _check(name, label, got, want):
 
 
 def _device_ms(fn, kernel_key: str, reps: int = 20):
-    """Device time per launch of the kernels whose name contains
-    ``kernel_key`` over ``reps`` calls of ``fn``, from torch.profiler; None
-    if the profiler recorded none in three tries."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from tpu_vp9_torch.utils.device import device_ms
 
-    for _ in range(3):  # a profile now and then records no device event
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and kernel_key in e.key
-                  and e.self_device_time_total > 0]
-        if events:
-            return (sum(e.self_device_time_total for e in events) / 1e3
-                    / sum(e.count for e in events))
-    return None
+    return device_ms(fn, kernel_key, reps)
 
 
 def _host_ms(fn, reps: int = 1000) -> float:
@@ -3351,6 +3349,22 @@ def _ol_tie_plane(h, w):
     return p
 
 
+def _ol_extreme_planes(h, w):
+    """Made-up planes of the largest SSEs and of TM clamping: a 0/255
+    checkerboard; and blocks of full-range noise (TM clamps there and in
+    the next block column, which takes the noise as its left edge) in
+    every fourth block column, a gentle gradient around 116 elsewhere (TM
+    in closed form from the fourth column on)."""
+    y, x = np.mgrid[0:h, 0:w]
+    checker = (255 * ((x + y) & 1)).astype(np.uint8)
+    rng = np.random.default_rng(23)
+    mixed = (100 + (x % 64 + y % 64) // 4 + rng.integers(0, 3, (h, w))
+             ).astype(np.uint8)
+    noise = (x // 32) % 4 == 0
+    mixed[noise] = rng.integers(0, 256, int(noise.sum()), dtype=np.uint8)
+    return [("checkerboard", checker), ("TM both ways", mixed)]
+
+
 def _ol_bound(h, w):
     """openloop_modes' bound on an (h, w) plane: reads the plane and the
     constant words (the 768 directional words, 8 index bytes a pixel),
@@ -3361,13 +3375,52 @@ def _ol_bound(h, w):
                   ALU_OPS_PER_S)
 
 
+def _ol_view_check(plane, dev):
+    """openloop_modes on two views of ``plane``: a contiguous plane one
+    byte into its storage (not 16-byte aligned), which the wrapper copies
+    before the launch, bit for bit against the plain version at
+    OL_QINDICES; and its columns sliced out of a plane 64 columns wider
+    (not contiguous), which the wrapper refuses, as every wrapper does."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    h, w = plane.shape
+    t = torch.from_numpy(np.ascontiguousarray(plane)).to(dev)
+    flat = torch.zeros(h * w + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = t.reshape(-1)
+    view = flat[1:].view(h, w)
+    if not view.is_contiguous() or view.data_ptr() % 16 == 0:
+        raise AssertionError("openloop_modes: the unaligned view is not "
+                             "contiguous or is aligned")
+    max_err = 0
+    for q in OL_QINDICES:
+        max_err = max(max_err, _check(
+            "openloop_modes", f"{w}x{h} one byte into its storage qindex {q}",
+            K.openloop_modes(view, q), K.openloop_modes_ref(t, q)))
+    wide = torch.zeros((h, w + 64), dtype=torch.uint8, device=dev)
+    wide[:, 32:32 + w] = t
+    launches = K.openloop_modes.launches
+    try:
+        K.openloop_modes(wide[:, 32:32 + w], 120)
+    except ValueError as err:
+        print(f"openloop_modes [{w}x{h} column slice of a wider plane]: "
+              f"refused ({err})")
+    else:
+        raise AssertionError("openloop_modes took a plane not contiguous")
+    if K.openloop_modes.launches != launches:
+        raise AssertionError("openloop_modes launched on a refused plane")
+    return max_err
+
+
 def openloop_kernel_phase(dev):
     """openloop_modes against its plain version on the card, modes, SSEs
-    and least costs bit for bit: 2560x1440 (a panning frame and made-up
-    content), 1024x768 (a panning frame and the tie plane, whose tied
-    blocks must take DC) at OL_QINDICES, the tie plane also at
-    OL_TIE_QINDEX; its ptxas report and resident CTAs per SM; timed at
-    2560x1440."""
+    and least costs bit for bit: 2560x1440 (a panning frame, made-up
+    content, a 0/255 checkerboard and a plane whose blocks take TM both
+    ways), 1024x768 (a panning frame and the tie plane, whose tied blocks
+    must take DC) at OL_QINDICES, the tie plane also at OL_TIE_QINDEX; an
+    unaligned view it copies and a column slice it refuses
+    (``_ol_view_check``); the blocks that take each TM branch; its ptxas
+    report and resident CTAs per SM; timed at 2560x1440 and 1024x768, the
+    design's own operation count printed beside the bound."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.utils.yuv import panning_frames
 
@@ -3379,6 +3432,7 @@ def openloop_kernel_phase(dev):
     w, h = OL_DIMS["1440p"]
     planes.append(("1440p made-up", rng.integers(0, 256, (h, w),
                                                  dtype=np.uint8)))
+    planes += [(f"1440p {label}", p) for label, p in _ol_extreme_planes(h, w)]
     w, h = OL_DIMS["768p"]
     planes.append(("768p ties", _ol_tie_plane(h, w)))
     max_err = 0
@@ -3386,6 +3440,13 @@ def openloop_kernel_phase(dev):
     for label, plane in planes:
         t = torch.from_numpy(np.ascontiguousarray(plane)).to(dev)
         ties = "ties" in label
+        exact = K.openloop_tm_exact(t)
+        print(f"openloop_modes [{label}]: TM in closed form in "
+              f"{int(exact.sum())} blocks, pixel by pixel in "
+              f"{int((~exact).sum())}")
+        if label == "1440p TM both ways" and (exact.all() or not exact.any()):
+            raise AssertionError("openloop_modes: the plane meant to take TM "
+                                 "both ways takes one")
         for q in OL_QINDICES + ((OL_TIE_QINDEX,) if ties else ()):
             got = K.openloop_modes(t, q)
             want = K.openloop_modes_ref(t, q)
@@ -3406,18 +3467,30 @@ def openloop_kernel_phase(dev):
                                          "not go to DC")
                 print(f"openloop_modes [{label}]: {int(tied.sum())} blocks "
                       "tie DC, V and TM at the least cost; every one took DC")
+    max_err = max(max_err, _ol_view_check(planes[0][1], dev))
     _kernel_resources(dev, "openloop_modes", None,
                       lambda n, d: K.openloop_modes_occupancy(d),
-                      threads=256)
+                      threads=128)
     parts = []
     for k, (label, (w, h)) in enumerate(OL_DIMS.items()):
         t = torch.from_numpy(np.ascontiguousarray(planes[k][1])).to(dev)
+        b = (h // 32) * (w // 32)
         # one launch a keyframe; the 1024x768 shape is printed, not summed
         parts.append(_timed(
-            "openloop_modes", f"{w}x{h} B={(h // 32) * (w // 32)}",
+            "openloop_modes", f"{w}x{h} B={b}",
             lambda t=t: K.openloop_modes(t, 120),
             lambda t=t: K.openloop_modes_ref(t, 120), 5, _ol_bound(h, w),
             "openloop_modes_kernel", count=int(label == "1440p")))
+        ops = OL_DESIGN_OPS
+        int_ms = 1e3 * (ops["integer"] + ops["dp4a"]) * b / INT32_OPS_PER_S
+        shfl_ms = 1e3 * ops["shuffle and reduction"] * b / SHFL_OPS_PER_S
+        print(f"openloop_modes {w}x{h}: the bound counts the function's work "
+              f"as the first kernel did it, {OL_OPS_PER_BLOCK * b:.3g} "
+              "integer operations; the present kernel's own count (not a "
+              "bound): " + ", ".join(f"{n * b:.3g} {kind}" for kind, n in
+                                     ops.items())
+              + f"; at the SM's rates (not a bound): integer and dp4a "
+              f"{int_ms:.5f} ms, shuffles and reductions {shfl_ms:.5f} ms")
     return _entry("openloop_modes", "tpu_vp9_torch/csrc/openloop_modes.cu",
                   "tpu_vp9/pipeline/tpu_intra.py:80", max_err, parts)
 

@@ -4,11 +4,12 @@
 // __syncwarp one of the warp, and a warp's shuffles and float64 mma
 // (txfm::mma_f64_8x8x4, in the PTX fragment layout of m8n8k4) go through an
 // exchange area and a barrier of the warp. The byte intrinsics
-// (__byte_perm, __funnelshift_r, __vabsdiffu4) and dp4a (conv8::dp4a_us,
-// conv8::dp4a_uu) are written out from their definitions in the PTX and
-// CUDA manuals. standin_launch runs the CTAs of a grid one after another;
-// standin_launch_all runs them all at once (each with its own shared
-// buffer and exchange area), for a kernel whose CTAs wait on each other:
+// (__byte_perm, __funnelshift_r, __vabsdiffu4) and dp4a (__dp4a,
+// conv8::dp4a_us, conv8::dp4a_uu) are written out from their definitions
+// in the PTX and CUDA manuals. standin_launch runs the CTAs of a grid one
+// after another; standin_launch_all runs them all at once (each with its
+// own shared buffer and exchange area), for a kernel whose CTAs wait on
+// each other:
 // the relaxed loads and stores at the card's scope (KF_SYNC_STANDIN) and
 // atomicAdd are C++ atomics, __nanosleep a yield, bar_sync (bar.sync with
 // a barrier number) a barrier of that many threads of the CTA, and the
@@ -267,6 +268,14 @@ inline unsigned __vabsdiffu4(unsigned a, unsigned b) {
     r |= static_cast<unsigned>(d < 0 ? -d : d) << (8 * n);
   }
   return r;
+}
+
+// dp4a on unsigned bytes: c + the products of the four bytes of a and b
+inline unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
+  for (int n = 0; n < 4; ++n) {
+    c += ((a >> (8 * n)) & 255) * ((b >> (8 * n)) & 255);
+  }
+  return c;
 }
 
 namespace conv8 {

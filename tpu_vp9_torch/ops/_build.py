@@ -7,7 +7,8 @@ header ``csrc/*.cuh``, is newer than the library. ``build_all`` compiles
 several sources at once, one nvcc process each. The directory is listed
 in ``.gitignore``. The compiler's output (ptxas register and
 shared-memory report included) is kept beside the library as
-``lib<name>.log``.
+``lib<name>.log``. ``build_source`` compiles a source given as text (a
+profiling copy of a kernel) the same way.
 """
 
 from __future__ import annotations
@@ -111,3 +112,22 @@ def build_log(name: str) -> str:
         return ""
     with open(path) as fh:
         return fh.read()
+
+
+def build_source(src: str, name: str):
+    """Write ``src`` to ``_build/<name>.cu``, compile it with the port's
+    flags (``csrc/`` on the include path) into ``lib<name>.so`` and load
+    it; returns the library and ptxas's register and spill lines. Raises
+    if nvcc fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = os.path.join(BUILD_DIR, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    with open(cu, "w") as fh:
+        fh.write(src)
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", so, cu],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {cu}:\n{res.stderr}")
+    report = [ln.strip() for ln in res.stderr.splitlines()
+              if "registers" in ln or "spill" in ln]
+    return ctypes.CDLL(so), report

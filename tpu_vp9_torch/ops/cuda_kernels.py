@@ -948,6 +948,138 @@ kframe_wave.launches = 0
 OPENLOOP_BLOCK_SIZES = (32,)  # the size the kernel is built for
 # blocks whose (chunk, 10, n, n) predictions the plain version holds at once
 OPENLOOP_CHUNK = 256
+# the kernel's 16 folds a lane (csrc/openloop_modes.cu), in its order: the
+# classes a lane holds there, by mode
+OL_SLOTS = ("D117 done by column 15", "D63 done by column 15", "D45 lower",
+            "D45 upper", "D135 lower", "D135 upper", "D117 lower",
+            "D117 upper", "D63 lower", "D63 upper and held pixels",
+            "D153 even lower", "D153 odd lower", "D207 even lower",
+            "D207 odd lower", "D153 (lanes 0-15) or D207 even upper",
+            "D153 (lanes 0-15) or D207 odd upper")
+
+
+def _ol_sweep(n: int = 32):
+    """The classes of the kernel's sweeps, as it forms them: for each slot
+    of ``OL_SLOTS`` and lane (row), (mode in IntraMode order, the pixels
+    (y, x) whose source sum the lane holds there, none where it holds no
+    class). A lane adds its
+    pixel of column k to each accumulator; D45, D135, D117 and D63 then
+    move by -1, +1, +2, -2 lanes (lane r takes lane r - shift's) but after
+    the last column, D153 and D207 one register per column parity by +1
+    and -1 but after that parity's last column; a class coming in at the
+    edge goes to the upper half. D117 and D63's upper halves are folded
+    after column 15. D63's pixels (0, 31) and (1, 31), whose words differ
+    from their lines', go to lanes 0 and 1's empty upper halves; D153's
+    upper halves (lanes 0-15) and D207's (lanes 16-31) share a fold."""
+    def ring():
+        return [[[] for _ in range(n)], [[] for _ in range(n)]]
+
+    def move(acc, shift):
+        lo = [acc[0][(r - shift) % n] for r in range(n)]
+        hi = [acc[1][(r - shift) % n] for r in range(n)]
+        for r in (range(shift) if shift > 0 else range(n + shift, n)):
+            if hi[r]:
+                raise AssertionError("a completed class meets another")
+            hi[r], lo[r] = lo[r], []
+        acc[0], acc[1] = lo, hi
+
+    shifts = {3: -1, 4: 1, 5: 2, 8: -2}
+    accs = {m: ring() for m in shifts}
+    par = {6: [ring(), ring()], 7: [ring(), ring()]}
+    held = [[] for _ in range(n)]
+    mid = {}
+    for k in range(n):
+        for m, shift in shifts.items():
+            for r in range(n):
+                if m == 8 and k == n - 1 and r < 2:
+                    held[r].append((r, k))
+                else:
+                    accs[m][0][r].append((r, k))
+            if k < n - 1:
+                move(accs[m], shift)
+            if m in (5, 8) and k == 15:
+                mid[m], accs[m][1] = accs[m][1], [[] for _ in range(n)]
+        for m, shift in ((6, 1), (7, -1)):
+            for r in range(n):
+                par[m][k & 1][0][r].append((r, k))
+            if k + 2 < n:
+                move(par[m][k & 1], shift)
+    for r in range(2):
+        if accs[8][1][r]:
+            raise AssertionError("D63's upper half is taken where the held "
+                                 "pixel goes")
+        accs[8][1][r] = held[r]
+    uppers = []
+    for q in (0, 1):
+        if any(par[6][q][1][16:]) or any(par[7][q][1][:16]):
+            raise AssertionError("D153's and D207's upper halves overlap")
+        uppers.append([(6, par[6][q][1][r]) if r < 16 else
+                       (7, par[7][q][1][r]) for r in range(n)])
+
+    def tag(m, lanes):
+        return [(m, px) for px in lanes]
+
+    return [tag(5, mid[5]), tag(8, mid[8]), tag(3, accs[3][0]),
+            tag(3, accs[3][1]), tag(4, accs[4][0]), tag(4, accs[4][1]),
+            tag(5, accs[5][0]), tag(5, accs[5][1]), tag(8, accs[8][0]),
+            tag(8, accs[8][1]), tag(6, par[6][0][0]), tag(6, par[6][1][0]),
+            tag(7, par[7][0][0]), tag(7, par[7][1][0]), *uppers]
+
+
+def _ol_ref_index(k: int, n: int = 32) -> int:
+    """Where the kernel keeps entry k of the reference vector
+    [left n, above-left, above 2n]: the left column reversed (so that
+    every directional filter's taps lie within four neighbouring bytes),
+    the rest in place."""
+    return n - 1 - k if k < n else k
+
+
+@functools.lru_cache(maxsize=None)
+def _ol_slot_tables():
+    """(weights, places, words, modes), each (len(OL_SLOTS), 32) int32,
+    of the kernel's folds: for slot k and lane l, the mode and packed word
+    (``_kf_dir_words``) that predict every pixel of the class the lane
+    holds there; the word's filter as the four weights (bytes) of four
+    neighbouring bytes of the kernel's reference (``_ol_ref_index``), from
+    the first one's index o, and ``places = o | count << 8`` with the
+    class's pixel count. The value is (sum of weights times bytes + 2) >>
+    2. An empty slot has weights, count, word and mode 0."""
+    n = 32
+    words = _kf_dir_words(n).reshape(8, n, n)
+    classes = _ol_sweep(n)
+    if len(classes) != len(OL_SLOTS):
+        raise AssertionError("the sweep and OL_SLOTS disagree")
+    shape = (len(OL_SLOTS), n)
+    wts, places, wd, modes = (np.zeros(shape, np.int64) for _ in range(4))
+    for k, lanes in enumerate(classes):
+        for lane, (mode, pixels) in enumerate(lanes):
+            if not pixels:
+                continue
+            found = {int(words[mode - 1, y, x]) for y, x in pixels}
+            if len(found) != 1:
+                raise AssertionError(f"slot {k} lane {lane}: the class has "
+                                     f"{len(found)} words")
+            word = found.pop()
+            taps = [(_ol_ref_index(word >> (7 * t) & 127),
+                     word >> (21 + 3 * t) & 7) for t in range(3)]
+            taps = [(i, c) for i, c in taps if c]
+            o = min(i for i, _ in taps)
+            if max(i for i, _ in taps) > o + 3 or sum(c for _, c in taps) != 4:
+                raise AssertionError(f"word {word:#x} is not four weights "
+                                     "of four neighbouring bytes")
+            wts[k, lane] = sum(c << (8 * (i - o)) for i, c in taps)
+            places[k, lane] = o | len(pixels) << 8
+            wd[k, lane], modes[k, lane] = word, mode
+    return tuple(a.astype(np.int32) for a in (wts, places, wd, modes))
+
+
+@functools.lru_cache(maxsize=None)
+def _ol_tables_on(device: torch.device):
+    """The open-loop kernel's table on ``device``: int32 (len(OL_SLOTS),
+    32, 2), each lane's weights and places (``_ol_slot_tables``)."""
+    wts, places, _, _ = _ol_slot_tables()
+    return torch.from_numpy(np.stack([wts, places], axis=-1).copy()).to(
+        device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1049,6 +1181,19 @@ def openloop_modes_ref(plane, qindex: int, n: int = 32):
             sse.reshape(rows, cols, 10), best.reshape(rows, cols))
 
 
+def openloop_tm_exact(plane, n: int = 32):
+    """(R, C) bool: the blocks whose TM prediction never clamps (min L +
+    min A - al >= 0 and max L + max A - al <= 255 over the block's
+    reference vector), where ``openloop_modes``' kernel takes TM's SSE in
+    closed form; elsewhere it predicts TM pixel by pixel."""
+    h, w = plane.shape
+    ref, _, _ = _openloop_ref_vectors(plane.to(torch.int32), n)
+    left, al, above = ref[:, :n], ref[:, n], ref[:, n + 1:2 * n + 1]
+    lo = left.min(dim=1).values + above.min(dim=1).values - al
+    hi = left.max(dim=1).values + above.max(dim=1).values - al
+    return ((lo >= 0) & (hi <= 255)).reshape(h // n, w // n)
+
+
 def openloop_modes(plane, qindex: int, n: int = 32):
     """Open-loop intra mode decision of every n x n block of a plane: the
     keyframe mode hints (``tpu_vp9/pipeline/tpu_intra.py:
@@ -1061,19 +1206,24 @@ def openloop_modes(plane, qindex: int, n: int = 32):
     ``sse + KF_MODE_BIAS[m] * lam`` with ``lam = openloop_lam(qindex)``,
     and the first mode of least cost. Returns (modes (R, C) int32, sse (R,
     C, 10) int32, best (R, C) int32, the least cost). CUDA inputs run the
-    kernel of ``csrc/openloop_modes.cu`` (one launch, a CTA per block);
-    CPU inputs run ``openloop_modes_ref``. The two agree bit for bit.
+    kernel of ``csrc/openloop_modes.cu`` (one launch, a warp per block,
+    four blocks a CTA; a plane that does not start on 16 bytes is copied
+    first, one not contiguous refused as by every wrapper); CPU inputs run
+    ``openloop_modes_ref``. The two agree bit for bit.
     """
     qindex = int(qindex)
     _check_openloop_args(plane, qindex, n)
     if _device_kind("openloop_modes", plane) == "cpu":
         return openloop_modes_ref(plane, qindex, n)
+    if plane.data_ptr() % 16:
+        # the kernel reads rows as 16-byte vectors
+        plane = plane.clone()
     h, w = plane.shape
     rows, cols = h // n, w // n
     b = rows * cols
     dev = plane.device
     out = torch.empty(12 * b, dtype=torch.int32, device=dev)
-    _, tabs = _kf_tables_on(dev)
+    tabs = _ol_tables_on(dev)
     ptr = out.data_ptr()
     _launch("openloop_modes", dev, plane.data_ptr(), tabs.data_ptr(), ptr,
             ptr + 8 * b, ptr + 4 * b, w, rows, cols, openloop_lam(qindex))
@@ -1220,7 +1370,7 @@ def kframe_wave_occupancy(device=None):
 
 
 def openloop_modes_occupancy(device=None):
-    """(CTAs of 256 threads an SM holds at once, the dynamic shared memory
+    """(CTAs of 128 threads an SM holds at once, the dynamic shared memory
     each asks for in bytes) of ``openloop_modes``'s kernel
     (``_occupancy``)."""
     return _occupancy("openloop_modes", None, None, device)

@@ -29,3 +29,26 @@ def card_info() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return res.stdout.strip()
+
+
+def device_ms(fn, kernel_key: str, reps: int = 20):
+    """Device time per launch of the kernels whose name contains
+    ``kernel_key`` over ``reps`` calls of ``fn``, from torch.profiler; None
+    if the profiler recorded none in three tries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a profile now and then records no device event
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel_key in e.key
+                  and e.self_device_time_total > 0]
+        if events:
+            return (sum(e.self_device_time_total for e in events) / 1e3
+                    / sum(e.count for e in events))
+    return None

@@ -18,7 +18,6 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -72,19 +71,8 @@ def main(argv) -> int:
     path = argv[0] if argv else os.path.join(_build.CSRC, "kframe_wave.cu")
     with open(path) as fh:
         src = _stamped_source(fh.read())
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(_build.BUILD_DIR, "kf_phases.cu")
-    so = os.path.join(_build.BUILD_DIR, "libkf_phases.so")
-    with open(cu, "w") as fh:
-        fh.write(src)
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                          _build.CSRC, "-o", so, cu], capture_output=True,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the stamped copy:\n{res.stderr}")
-    print("\n".join(ln for ln in res.stderr.splitlines()
-                    if "registers" in ln or "spill" in ln))
-    lib = ctypes.CDLL(so)
+    lib, report = _build.build_source(src, "kf_phases")
+    print("\n".join(report))
     fn = lib.kframe_wave_launch
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]

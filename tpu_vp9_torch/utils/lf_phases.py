@@ -21,7 +21,6 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -71,18 +70,7 @@ def _stamped_source(src: str) -> str:
 def _build_stamped(path: str):
     with open(path) as fh:
         src = _stamped_source(fh.read())
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(_build.BUILD_DIR, "lf_phases.cu")
-    so = os.path.join(_build.BUILD_DIR, "liblf_phases.so")
-    with open(cu, "w") as fh:
-        fh.write(src)
-    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                           _build.CSRC, "-o", so, cu], capture_output=True,
-                          text=True)
-    if done.returncode != 0:
-        raise RuntimeError("nvcc failed on the stamped copy:\n"
-                           + done.stderr)
-    lib = ctypes.CDLL(so)
+    lib, _ = _build.build_source(src, "lf_phases")
     lib.loop_filter_launch.argtypes = ([ctypes.c_void_p] * 7
                                        + [ctypes.c_int] * 11
                                        + [ctypes.c_void_p])
