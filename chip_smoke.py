@@ -6,67 +6,67 @@ Phases, each of which raises on failure (nothing is caught):
   1. the card, the software, and the build of every kernel (one nvcc per
      source, all started together) and of the native host library;
   2. kernels: first a keyframe and an M8 P-frame of the clip through the
-     public encoder, the real inputs of the step's loop filter, transform
-     and quarter-pel calls recorded; then sad_full_search, block_energy
-     (on blocks and positioned, block_energy_at), sse_map_search (one
-     level, and both levels fused, hier_search_fused), subpel_search,
+     public encoder, the real inputs of the step's loop filter, transform,
+     quarter-pel and MC calls recorded; then sad_full_search, block_energy
+     (on blocks and positioned, block_energy_at), sse_map_search (one level,
+     and both levels fused, hier_search_fused), subpel_search, mc_predict,
      transform_recon, kframe_wave and loop_filter against their plain
      PyTorch versions on the card, bit for bit, at the shapes the 1080p
-     paths give them (the M8 children's included), ties, negative minima
-     and the largest operands included; subpel_search on the zone's and
-     the children's real windows, on windows where all 49 offsets tie, at
-     the largest SSE, on 0/255 checkerboards and with winners at +-r;
-     transform_recon at its four path shapes on the step's real blocks,
-     on source against the previous recon, on +-255 and zero residuals
-     and on one nonzero level at each scan place, at four qindex values
-     (the 8191 level clip reached), its level flips counted, after the
-     ptxas report of each of its template instances (registers, spills,
-     which fail the run, static shared memory) and its resident CTAs per
-     SM from the CUDA runtime's occupancy query; kframe_wave
-     on the first
-     panning frame at four qindex values, on patches that make every intra
-     mode win (the blocks each mode won printed), on a constant frame whose
-     tied modes must all go to the first, on 0/255 blocks at qindex 0 (the
-     8191 level clip) and at small geometries (a 1x1, a 1-row and a
-     1-column grid among them), after its ptxas report (registers, spills,
-     which fail the run) and its resident CTAs per SM, with its one-block
-     latency and the chain of 93 of them beside its device time per
-     keyframe;
-     loop_filter on made-up planes that reach every class of the edge
-     filter (the lanes of each class counted by the plain version and
-     printed), without a split mask, with a random one and with all ones,
-     at three levels, at small geometries, at geometries with the bottom
-     16-pixel strip (720p, 4K and three small ones, no mask; the lanes
-     of each class of the strip's own edges printed), and on the
-     unfiltered recon, mask and level of the real keyframe and M8
-     P-frame, timed at 1080p, 720p and 4K and by kind of CTA, after its
-     ptxas report and resident CTAs per SM; the strip geometries' shapes
-     (a 720p keyframe and M8 P-frame through the public encoder first,
-     their strip calls recorded): sse_map_search at n=16 r=40 with its map
-     (its level opting in to more shared memory) for B=80 and B=240 and on
-     the real 720p strip, subpel_search at n=16 r=40 likewise,
+     paths give them (the M8 children's included), ties, negative minima and
+     the largest operands included; subpel_search on the zone's and the
+     children's real windows, on windows where all 49 offsets tie, at the
+     largest SSE, on 0/255 checkerboards and with winners at +-r; mc_predict
+     on the zone's and the children's real calls, on the zone's windows with
+     an ALTREF set at every chroma q4 phase pair, at +-(WIN_R + 0.75) pel at
+     every edge, past the windows' reach and with ALTREF but no GOLDEN, at
+     the RA children's shape (8,160) and the strips' (n=16, B=80 and 240),
+     its ptxas report and CTAs per SM; transform_recon at its four path
+     shapes on the step's real blocks, on source against the previous recon,
+     on +-255 and zero residuals and on one nonzero level at each scan
+     place, at four qindex values (the 8191 level clip reached), its level
+     flips counted, after the ptxas report of each of its template instances
+     (registers, spills, which fail the run, static shared memory) and its
+     resident CTAs per SM from the CUDA runtime's occupancy query;
+     kframe_wave on the first panning frame at four qindex values, on
+     patches that make every intra mode win (the blocks each mode won
+     printed), on a constant frame whose tied modes must all go to the
+     first, on 0/255 blocks at qindex 0 (the 8191 level clip) and at small
+     geometries (a 1x1, a 1-row and a 1-column grid among them), after its
+     ptxas report (registers, spills, which fail the run) and its resident
+     CTAs per SM, with its one-block latency and the chain of 93 of them
+     beside its device time per keyframe; loop_filter on made-up planes that
+     reach every class of the edge filter (the lanes of each class counted
+     by the plain version and printed), without a split mask, with a random
+     one and with all ones, at three levels, at small geometries, at
+     geometries with the bottom 16-pixel strip (720p, 4K and three small
+     ones, no mask; the lanes of each class of the strip's own edges
+     printed), and on the unfiltered recon, mask and level of the real
+     keyframe and M8 P-frame, timed at 1080p, 720p and 4K and by kind of
+     CTA, after its ptxas report and resident CTAs per SM; the strip
+     geometries' shapes (a 720p keyframe and M8 P-frame through the public
+     encoder first, their strip calls recorded): sse_map_search at n=16 r=40
+     with its map (its level opting in to more shared memory) for B=80 and
+     B=240 and on the real 720p strip, subpel_search at n=16 r=40 likewise,
      transform_recon's ADST_DCT instance on the real keyframe strip's V and
-     D63 candidates and on 4K strip blocks at four qindex values, the
-     strip zone's transforms and SSEs on the real 720p P-frame, and
-     kframe_wave on the 720p and 4K 32 zones (every error word 0);
-     txq_cost on made-up residuals within its tolerance; each timed per
-     call with CUDA events and on the host clock, and per launch with the
-     profiler;
+     D63 candidates and on 4K strip blocks at four qindex values, the strip
+     zone's transforms and SSEs on the real 720p P-frame, and kframe_wave on
+     the 720p and 4K 32 zones (every error word 0); txq_cost on made-up
+     residuals within its tolerance; each timed per call with CUDA events
+     and on the host clock, and per launch with the profiler;
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
      keyframe, rate tables, the GOLDEN anchor, the 32-against-16 descent)
      through the public Vp9Encoder; the keyframe must launch kframe_wave
-     once (a CTA per block row) and loop_filter once; per P-frame the
-     search entry points must launch twice (hier_search_fused, then
-     sse_map_search for the children), subpel_search twice,
-     transform_recon 6 times, the block_energy ones 5 times and
+     once (a CTA per block row) and loop_filter once; per P-frame the search
+     entry points must launch twice (hier_search_fused, then sse_map_search
+     for the children), subpel_search twice, mc_predict twice (the zone, the
+     children), transform_recon 6 times, the block_energy ones 5 times and
      loop_filter once; some parents must split; the stream must decode with
      the port's decoder to the encoder's own recon across two GOLDEN
      refreshes; fps, step time, the host-clock stage split and the send
      split by the spans rt_device_step, rt_stage, rt_rate_args,
-     api_scene_cut, api_frame_qindex and rt_d2h_transfer. Inside the
-     same counted window txq_cost runs at its own entry point on every
-     P-frame's residual (source minus the previous frame's recon), at
-     n=32 and n=16;
+     api_scene_cut, api_frame_qindex and rt_d2h_transfer. Inside the same
+     counted window txq_cost runs at its own entry point on every P-frame's
+     residual (source minus the previous frame's recon), at n=32 and n=16;
   4. txq_cost against its plain version on those residuals (B=2040 n=32,
      B=8160 n=16), within the stated tolerance, flipped blocks counted;
   5. M8 profile: three steady P-frames under torch.profiler, for the share
@@ -248,7 +248,7 @@ WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
         "loop_filter", "kframe_wave", "transform_recon", "subpel_search",
-        "openloop_modes")
+        "openloop_modes", "mc_predict")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -262,15 +262,19 @@ M9_B = 34 * 60
 # SSE (block_energy_at): 2 search and 5 energy launches; the quarter-pel
 # search of the zone and of the children; the transform of the zone's Y32,
 # U16 and V16 and of the children's Y16, U8 and V8; the loop filter of all
-# three planes, split mask included, is one launch. M9: the fused search,
-# ZERO SSE, quarter-pel, the zone's three transforms, recon distortion and
-# the loop filter (no mask).
+# three planes, split mask included, is one launch; MC of the zone's Y, U
+# and V (LAST's and GOLDEN's windows by ref_sel) is one launch, and of the
+# children's (their parents' windows by index) one. M9: the fused search,
+# ZERO SSE, quarter-pel, the zone's MC, its three transforms, recon
+# distortion and the loop filter (no mask).
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
-               "loop_filter": 1, "transform_recon": 6, "subpel_search": 2}
+               "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
+               "mc_predict": 2}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
-               "loop_filter": 1, "transform_recon": 3, "subpel_search": 1}
+               "loop_filter": 1, "transform_recon": 3, "subpel_search": 1,
+               "mc_predict": 1}
 # launches per keyframe (M8 and M9 alike): one kframe_wave for the whole
 # 34 x 60 grid (its 93 anti-diagonals are its chain), and the loop filter
 # of the three planes
@@ -286,7 +290,8 @@ ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "kframe_wave": ("kframe_wave",),
                   "transform_recon": ("transform_recon",),
                   "subpel_search": ("subpel_search",),
-                  "openloop_modes": ("openloop_modes",)}
+                  "openloop_modes": ("openloop_modes",),
+                  "mc_predict": ("mc_predict",)}
 # each wrapper's kernel, by a part of its name in a profile
 WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "block_energy": "block_energy_kernel",
@@ -298,7 +303,8 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "kframe_wave": "kframe_wave_kernel",
                    "transform_recon": "transform_recon_kernel",
                    "subpel_search": "subpel_search_kernel",
-                   "openloop_modes": "openloop_modes_kernel"}
+                   "openloop_modes": "openloop_modes_kernel",
+                   "mc_predict": "mc_predict_kernel"}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
 # geometries of the CPU tests (the last no wider than 64: no band), and
 # integer operations per filtered edge lane (an upper estimate: 16 loads,
@@ -367,6 +373,9 @@ TR_INT_OPS = {32: 500 * 64 + 16 * 1024, 16: 200 * 32 + 16 * 256,
               8: 60 * 16 + 16 * 64}
 # subpel_search's path calls per M8 P-frame: the zone's, then the children's
 SP_CALLS = ("zone n=32 r=4", "children n=16 r=8")
+# mc_predict's path calls per M8 P-frame: the zone's (LAST and GOLDEN by
+# ref_sel), then the children's (their parents' LAST windows by index)
+MC_CALLS = ("zone n=32", "children n=16")
 # the strip geometries (mi_rows % 4 == 2) run end to end, their frames,
 # and the blocks of their bottom strip (cols16): 720p has a 22 x 40 grid of
 # 32-blocks and a strip of 80 16x16 blocks at y = 704, 4K 67 x 120 and 240
@@ -379,15 +388,15 @@ STRIP_R = 40
 # launches per P-frame at a strip geometry, where the descent is off: the
 # 32 zone as at 1080p (M8: ZERO, then GOLDEN's two sets, in block_energy_at)
 # and the strip zone's search (sse_map_search), quarter-pel search, ZERO
-# (and GOLDEN) SSE, three transforms and recon distortion
+# (and GOLDEN) SSE, MC, three transforms and recon distortion
 M8_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 4, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2}
+                     "subpel_search": 2, "mc_predict": 2}
 M9_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 2, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2}
+                     "subpel_search": 2, "mc_predict": 2}
 # per keyframe at a strip geometry: the wave of the 32 zone, the strip's
 # three luma candidates (V and D63 ADST_DCT, D45 DCT_DCT) and two chroma
 # transforms, the candidates' recon SSE in one block_energy launch, and
@@ -1343,19 +1352,20 @@ def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
 
 
 def _real_m8_inputs(dev):
-    """The real inputs of three stages of the steps: the first two frames
+    """The real inputs of four stages of the steps: the first two frames
     of the clip (a keyframe and an M8 P-frame) through the public encoder,
     the steps' calls of ``loop_filter_device`` (keyframe and P-frame),
-    ``transform_recon`` and ``subpel_search`` (P-frame) recorded. Returns
-    ({"lf": [(y, u, v, geom, lvl, lim, mblim, split32)], "tr": [(src,
-    pred, dc_q, ac_q, n)], "sp": [(wins, src, dy, dx, n, r)]}, the two
-    frames, their recon)."""
+    ``transform_recon``, ``subpel_search`` and ``mc_predict`` (P-frame)
+    recorded. Returns ({"lf": [(y, u, v, geom, lvl, lim, mblim, split32)],
+    "tr": [(src, pred, dc_q, ac_q, n)], "sp": [(wins, src, dy, dx, n, r)],
+    "mc": [(args, keyword args)]}, the two frames, their recon)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
 
-    calls = {"lf": [], "tr": [], "sp": []}
-    real_lf, real_tr, real_sp = (P.loop_filter_device, P.transform_recon,
-                                 P.subpel_search)
+    calls = {"lf": [], "tr": [], "sp": [], "mc": []}
+    real_lf, real_tr, real_sp, real_mc = (
+        P.loop_filter_device, P.transform_recon, P.subpel_search,
+        P.mc_predict)
 
     def record_lf(y, u, v, geom, lvl, lim, mblim, split32=None):
         calls["lf"].append((y, u, v, geom, lvl, lim, mblim, split32))
@@ -1369,8 +1379,13 @@ def _real_m8_inputs(dev):
         calls["sp"].append(args)
         return real_sp(*args)
 
+    def record_mc(*args, **kw):
+        calls["mc"].append((args, kw))
+        return real_mc(*args, **kw)
+
     P.loop_filter_device = record_lf
     P.transform_recon, P.subpel_search = record_tr, record_sp
+    P.mc_predict = record_mc
     enc = _make_encoder(dev, 8)
     got = _capture(enc)
     frames = list(panning_frames(WIDTH, HEIGHT, 2, seed=1))
@@ -1379,18 +1394,22 @@ def _real_m8_inputs(dev):
     enc.flush()
     P.loop_filter_device = real_lf
     P.transform_recon, P.subpel_search = real_tr, real_sp
+    P.mc_predict = real_mc
     torch.cuda.synchronize()
     lf = calls["lf"]
     if len(lf) != 2 or lf[0][7] is not None or lf[1][7] is None:
         raise AssertionError(f"the keyframe and the M8 P-frame called the "
                              f"loop filter {len(lf)} times, or the "
                              "keyframe with a mask or the P-frame without")
+    mc = [(a[5], sorted(kw)) for a, kw in calls["mc"]]
     if ([c[4] for c in calls["tr"]] != [32, 16, 16, 8, 8, 16]
-            or [c[4:] for c in calls["sp"]] != [(32, 4), (16, 8)]):
+            or [c[4:] for c in calls["sp"]] != [(32, 4), (16, 8)]
+            or mc != [(32, ["ref_sel"]),
+                      (16, ["org_off_x", "org_off_y", "win_idx"])]):
         raise AssertionError(
-            "the M8 P-frame's transform and quarter-pel calls were "
-            f"{[c[4] for c in calls['tr']]} and "
-            f"{[c[4:] for c in calls['sp']]}")
+            "the M8 P-frame's transform, quarter-pel and MC calls were "
+            f"{[c[4] for c in calls['tr']]}, "
+            f"{[c[4:] for c in calls['sp']]} and {mc}")
     return calls, frames, [r for _, r in got]
 
 
@@ -1803,6 +1822,151 @@ def subpel_kernel_phase(dev, real):
             "subpel_search_kernel", 1))
     return _entry("subpel_search", "tpu_vp9_torch/csrc/subpel_search.cu",
                   "tpu_vp9/pipeline/tpu_encdec.py:510", max_err, parts)
+
+
+def _mc_bound(args, kw):
+    """mc_predict's bound for one call (``args``, ``kw``: the dispatch's):
+    reads each block's three (n+7)^2 regions (Y at n, U and V at n / 2)
+    and its per-block words (positions and MVs, 16 bytes; ref_sel 1, the
+    window index 4 and the offsets 8 where given), writes its three
+    predictions; 8-tap sums (a multiply and an add a tap) of the H pass,
+    (n+7) x n outputs, and of the V pass, n x n, of each plane where the
+    block's phase in that axis is not 0 (phase 0 is a copy), counted from
+    this call's clamped MVs, at ALU_OPS_PER_S."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    wins, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols = args[:8]
+    b = pos_y.shape[0]
+    nbytes = b * (16 + 1 * (kw.get("ref_sel") is not None)
+                  + 4 * (kw.get("win_idx") is not None)
+                  + 8 * (kw.get("org_off_y") is not None))
+    ops = 0
+    for ss in (0, 1, 1):
+        m = n >> ss
+        py, px = pos_y >> ss, pos_x >> ss
+        row, col = P._clamp_mv_umv(mv_r, mv_c, (py << ss) // 8,
+                                   (px << ss) // 8, m, m, ss, mi_rows,
+                                   mi_cols)
+        h = int(((((px << 4) + col) & 15) != 0).sum())
+        v = int(((((py << 4) + row) & 15) != 0).sum())
+        nbytes += b * ((m + 7) ** 2 + m * m)
+        ops += 2 * 8 * (h * (m + 7) * m + v * m * m)
+    return _bound(nbytes, ops, ALU_OPS_PER_S)
+
+
+def mc_kernel_phase(dev, real):
+    """mc_predict (CUDA) against mc_predict_ref on the card, bit for bit:
+    the M8 P-frame's two real calls at 1080p (``_real_m8_inputs``: the
+    zone's LAST and GOLDEN windows by ref_sel, the children's parent
+    windows by index); on the zone's real windows with an ALTREF set
+    added (the RA zone's shape, B=2040), MVs that take every chroma q4
+    phase pair (the luma even ones, phase 0 in either axis, both and
+    neither), +-(WIN_R + 0.75) pel at every edge and the overhang row,
+    MVs past the windows' reach (the window clamp) and ALTREF without
+    GOLDEN (GOLDEN's blocks read LAST); the RA children's shape, 8,160
+    children of every parent in the zone's windows; the strip zones'
+    shapes (n=16, B=80 at 720p and 240 at 4K, made-up windows, LAST and
+    GOLDEN). Each instance's registers, spills and resident CTAs per SM
+    printed. Timed on the real calls, the RA shapes and the strips."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    _kernel_resources(dev, "mc_predict", K.MC_BLOCK_SIZES,
+                      K.mc_predict_occupancy, threads=64)
+    rng = np.random.default_rng(41)
+    max_err = 0
+    edge = P.WIN_R * 8 + 6  # q3
+
+    def kernel(args, kw):
+        return lambda: K.mc_predict(*args[:8], **kw)
+
+    def plain(args, kw):
+        return lambda: P.mc_predict_ref(*args, **kw)
+
+    def held(label, args, kw):
+        nonlocal max_err
+        max_err = max(max_err, _check("mc_predict", label,
+                                      kernel(args, kw)(), plain(args, kw)()))
+
+    def on(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    for label, (args, kw) in zip(MC_CALLS, real):
+        held(f"M8 P-frame's {label}", args, kw)
+    (zargs, zkw), (cargs, ckw) = real
+    wins, pos_y, pos_x, _, _, n, mi_rows, mi_cols, filters = zargs
+    last, gold = wins[0], wins[1]
+    # a third reference: each block's LAST windows of the block mirrored
+    # across the batch
+    alt = tuple(torch.flip(w, (0,)).contiguous() for w in last)
+    b = pos_y.shape[0]
+    i = np.arange(b)
+    combos = np.array([(r, c) for r in (-edge, 0, edge)
+                       for c in (-edge, 0, edge)])
+    sel3 = on(rng.integers(0, 3, b), torch.int8)
+    made_up = (
+        ("every q4 phase pair", [last, gold, alt],
+         np.stack([i % 16, i // 16 % 16])
+         + 16 * rng.integers(-19, 20, (2, b))),
+        ("+-(WIN_R + 0.75) pel at every edge", [last, gold, alt],
+         combos[i % 9].T),
+        ("past the windows' reach", [last, gold, alt],
+         rng.choice([-1, 1], (2, b)) * rng.integers(edge + 8, edge + 400,
+                                                    (2, b))),
+        ("ALTREF without GOLDEN", [last, None, alt],
+         rng.integers(-edge, edge + 1, (2, b))))
+    for label, w, mv in made_up:
+        args = (w, pos_y, pos_x, on(mv[0]), on(mv[1]), n, mi_rows, mi_cols,
+                filters)
+        held(f"{label} B={b} n={n}", args, {"ref_sel": sel3})
+        if label == "every q4 phase pair":
+            ra_zone = args  # the RA zone's shape: three references
+    # the RA children: four of every parent, in the parents' windows
+    ii, jj = torch.tensor([0, 0, 1, 1], device=dev), \
+        torch.tensor([0, 1, 0, 1], device=dev)
+    c_kw = {"win_idx": torch.arange(b, dtype=torch.int32,
+                                    device=dev).repeat_interleave(4),
+            "org_off_y": (ii * 16).repeat(b).to(torch.int32),
+            "org_off_x": (jj * 16).repeat(b).to(torch.int32)}
+    c_pos = [(p.repeat_interleave(4) + off).contiguous()
+             for p, off in ((pos_y, c_kw["org_off_y"]),
+                            (pos_x, c_kw["org_off_x"]))]
+    bc = 4 * b
+    mv = rng.integers(-edge + 128, edge - 127, (2, bc))
+    ra_children = (cargs[0], *c_pos, on(mv[0]), on(mv[1]), 16, mi_rows,
+                   mi_cols, filters)
+    held(f"RA children B={bc} n=16", ra_children, c_kw)
+    # the strip zones: n=16, LAST and GOLDEN
+    strips = []
+    for tag, dims in STRIP_GEOMS.items():
+        g = P.make_geom(*dims)
+        bs = STRIP_B[tag]
+        sides = (16 + 2 * P.WIN_R + 8, 8 + 2 * P.CHROMA_WIN_R + 8,
+                 8 + 2 * P.CHROMA_WIN_R + 8)
+        ref_wins = [tuple(on(rng.integers(0, 256, (bs, sd, sd)),
+                             torch.uint8) for sd in sides) for _ in range(2)]
+        mv = rng.integers(-edge, edge + 1, (2, bs))
+        args = (ref_wins, on(np.full(bs, g.strip_y)), on(np.arange(bs) * 16),
+                on(mv[0]), on(mv[1]), 16, g.mi_rows, g.mi_cols, filters)
+        kw = {"ref_sel": on(rng.integers(0, 2, bs), torch.int8)}
+        held(f"{tag} strip B={bs} n=16", args, kw)
+        strips.append((tag, args, kw))
+
+    def timed(label, args, kw, count):
+        return _timed("mc_predict", f"{label} B={args[1].shape[0]}",
+                      kernel(args, kw), plain(args, kw), 5,
+                      _mc_bound(args, kw), "mc_predict_kernel", count)
+
+    parts = [timed(label, args, kw, 1)
+             for label, (args, kw) in zip(MC_CALLS, real)]
+    entry = _entry("mc_predict", "tpu_vp9_torch/csrc/mc_predict.cu",
+                   "tpu_vp9/pipeline/tpu_encdec.py:359", max_err, parts)
+    entry["ra_parts"] = [_part(timed(
+        "RA zone LAST GOLDEN ALTREF n=32", ra_zone, {"ref_sel": sel3}, 1)),
+        _part(timed("RA children n=16", ra_children, c_kw, 1))]
+    entry["strip_parts"] = [_part(timed(f"{tag} strip n=16", args, kw, 1))
+                            for tag, args, kw in strips]
+    return entry
 
 
 def _part(p):
@@ -2278,7 +2442,8 @@ def _kernel_fns():
             "kframe_wave": K.kframe_wave,
             "transform_recon": K.transform_recon,
             "subpel_search": K.subpel_search,
-            "openloop_modes": K.openloop_modes}
+            "openloop_modes": K.openloop_modes,
+            "mc_predict": K.mc_predict}
 
 
 def _reset_counts():
@@ -2909,27 +3074,29 @@ def _ra_launches(geom, golden: bool, altref: bool):
     """Launches of one random-access P-frame step by wrapper: each zone
     (the 32 grid; at a strip geometry the strip too) searches LAST
     (hier_search_fused, the strip sse_map_search), quarter-pel searches
-    it, transforms Y, U and V, takes its recon SSE and ZERO's SSE in place;
-    GOLDEN adds its two candidates' SSEs (one block_energy_at), ALTREF its
-    own search, quarter-pel search and ZERO SSE; without a strip the
-    descent adds the children's search, quarter-pel search, ZERO SSE,
-    three transforms and recon SSE; the loop filter is one launch."""
+    it, compensates Y, U and V in one MC launch (every reference's windows
+    by ref_sel), transforms Y, U and V, takes its recon SSE and ZERO's SSE
+    in place; GOLDEN adds its two candidates' SSEs (one block_energy_at),
+    ALTREF its own search, quarter-pel search and ZERO SSE; without a strip
+    the descent adds the children's search, quarter-pel search, ZERO SSE,
+    MC, three transforms and recon SSE; the loop filter is one launch."""
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
               "subpel_search": 0, "transform_recon": 0, "loop_filter": 1,
-              "openloop_modes": 0})
+              "openloop_modes": 0, "mc_predict": 0})
     for n in (32, 16) if geom.strip else (32,):
         c["hier_search_fused" if n == 32 else "sse_map_search"] += \
             1 + altref
         c["subpel_search"] += 1 + altref
+        c["mc_predict"] += 1
         c["transform_recon"] += 3
         c["block_energy"] += 1
         c["block_energy_at"] += 1 + golden + altref
     if not geom.strip:
         for k, v in (("sse_map_search", 1), ("subpel_search", 1),
-                     ("block_energy_at", 1), ("transform_recon", 3),
-                     ("block_energy", 1)):
+                     ("block_energy_at", 1), ("mc_predict", 1),
+                     ("transform_recon", 3), ("block_energy", 1)):
             c[k] += v
     return c
 
@@ -4142,15 +4309,15 @@ MESH_STEP_SHAPES = {"1080p": ((1, 2), (1, 4), (2, 2)), "720p": ((1, 2),
 MESH_FRAMES = 10
 MESH_TIMED = (1, 2, 4)
 # launches of one shard's zone with GOLDEN (the 32 grid: the fused search,
-# the quarter-pel search, ZERO and GOLDEN's candidates, the recon
+# the quarter-pel search, ZERO and GOLDEN's candidates, MC, the recon
 # distortion, three transforms); a strip geometry adds the strip zone's
 # (its flat search in place of the fused one); one loop filter a frame
 MESH_ZONE_LAUNCHES = {"hier_search_fused": 1, "subpel_search": 1,
                       "block_energy_at": 2, "block_energy": 1,
-                      "transform_recon": 3}
+                      "transform_recon": 3, "mc_predict": 1}
 MESH_STRIP_LAUNCHES = {"sse_map_search": 1, "subpel_search": 1,
                        "block_energy_at": 2, "block_energy": 1,
-                       "transform_recon": 3}
+                       "transform_recon": 3, "mc_predict": 1}
 
 
 def _mesh_cases(dev, dims):
@@ -4335,7 +4502,8 @@ def mesh_step_times(dev, label, g, scal, rates, cases):
           "synchronized): " + ", ".join(f"{k} {v:.2f} ms"
                                        for k, v in times.items()))
     need = ("hier_search_fused", "subpel_search", "block_energy",
-            "block_energy_at", "transform_recon", "loop_filter") + \
+            "block_energy_at", "transform_recon", "mc_predict",
+            "loop_filter") + \
         (("sse_map_search",) if g.strip else ())
     for n in MESH_TIMED[1:]:
         _profile_until_complete(dev, [runs[n]] * 3,
@@ -4501,6 +4669,7 @@ def main() -> int:
     kernels = {k["name"]: k for k in (
         sad_kernel_phase(dev), energy_kernel_phase(dev), sse_kernel_phase(dev),
         subpel_kernel_phase(dev, real["sp"]),
+        mc_kernel_phase(dev, real["mc"]),
         transform_kernel_phase(dev, real["tr"], real_frames, real_recons),
         kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]),
         openloop_kernel_phase(dev))}
@@ -4520,7 +4689,8 @@ def main() -> int:
     # txq_cost: its count is this script's own calls, two for each P-frame,
     # made inside the counted window after the encode
     for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter",
-                 "kframe_wave", "transform_recon", "subpel_search"):
+                 "kframe_wave", "transform_recon", "subpel_search",
+                 "mc_predict"):
         kernels[name]["launches"] = sum(m8_counts[w]
                                         for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)

@@ -93,7 +93,7 @@ ENCDEC_PY = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_encdec.py")
 WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter",
             "kframe_wave", "transform_recon", "subpel_search",
-            "openloop_modes")
+            "openloop_modes", "mc_predict")
 
 
 def _functions(path):
@@ -137,8 +137,8 @@ def test_wrappers_cover_every_kernel_source():
         os.path.join(REPO, "tpu_vp9_torch", "csrc", "*.cu"))}
     assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
     assert {"loop_filter", "kframe_wave", "transform_recon",
-            "subpel_search", "openloop_modes"} <= sources
-    assert len(sources) == 9
+            "subpel_search", "openloop_modes", "mc_predict"} <= sources
+    assert len(sources) == 10
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -217,6 +217,8 @@ STEP_DISPATCH = {
                         ("kframe_wave_ref",)),
     "subpel_search": ("subpel_search",
                       ("zone_search", "encode_children_masked"), ()),
+    "mc_predict": ("mc_predict", ("zone_code", "encode_children_masked"),
+                   ()),
 }
 
 
@@ -273,6 +275,10 @@ def test_transform_recon_dispatch_has_no_route_from_cuda_to_the_plain_version():
 
 def test_subpel_search_dispatch_has_no_route_from_cuda_to_the_plain_version():
     _check_step_dispatch("subpel_search")
+
+
+def test_mc_predict_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    _check_step_dispatch("mc_predict")
 
 
 def test_kframe_wave_ref_transforms_with_the_plain_version():
@@ -421,6 +427,14 @@ def _meta_stage_inputs(name):
     if name == "transform_recon":
         return (meta((6, 32, 32), torch.uint8), meta((6, 32, 32), torch.uint8),
                 T.dc_quant(120), T.ac_quant(120), 32)
+    if name == "mc_predict":
+        # LAST's windows of the zone (Y 120, U and V 66), the filters
+        # the plain version would take
+        wins = [(meta((6, 120, 120), torch.uint8),
+                 meta((6, 66, 66), torch.uint8),
+                 meta((6, 66, 66), torch.uint8))]
+        return (wins, *(meta((6,), torch.int32) for _ in range(4)), 32, 34,
+                240, meta((16, 8), torch.int32))
     return (meta((6, 48, 48), torch.uint8), meta((6, 32, 32), torch.uint8),
             meta((6,), torch.int32), meta((6,), torch.int32), 32, 4)
 
@@ -441,7 +455,8 @@ def _fake_cuda_stage(monkeypatch, name, launch):
     return K, getattr(P, name)
 
 
-@pytest.mark.parametrize("name", ["transform_recon", "subpel_search"])
+@pytest.mark.parametrize("name", ["transform_recon", "subpel_search",
+                                  "mc_predict"])
 def test_stage_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
                                                            name):
     calls = []
@@ -453,9 +468,11 @@ def test_stage_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
     assert [c[0] for c in calls] == [name]
     assert getattr(K, name).launches - before == 1
     assert len(out) == 3 and all(t.device.type == "meta" for t in out)
-    # the launcher's ints: blocks, then n and the quantizers, or n and r
-    want = ((6, 32, args[2], args[3]) if name == "transform_recon"
-            else (6, 32, 4))
+    # the launcher's ints: blocks, then n and the quantizers, n and r, or
+    # n, the windows' sides and reaches and the frame's mode-info size
+    want = {"transform_recon": (6, 32, args[2], args[3]),
+            "subpel_search": (6, 32, 4),
+            "mc_predict": (6, 32, 120, 66, 40, 21, 34, 240)}[name]
     assert calls[0][1][-len(want):] == want
 
 
@@ -463,7 +480,7 @@ def test_stage_dispatch_raises_when_the_launch_fails(monkeypatch):
     def refused(nm, dev, *args):
         raise RuntimeError(f"{nm}: CUDA launch failed with error 9")
 
-    for name in ("transform_recon", "subpel_search"):
+    for name in ("transform_recon", "subpel_search", "mc_predict"):
         _, dispatch = _fake_cuda_stage(monkeypatch, name, refused)
         with pytest.raises(RuntimeError, match="launch failed"):
             dispatch(*_meta_stage_inputs(name))

@@ -1,7 +1,7 @@
 // The 8-tap subpel filter of VP9's inter prediction as __device__
-// functions, shared by the kernels that interpolate reference pixels
-// (csrc/subpel_search.cu's phase planes; the step's motion compensation,
-// pipeline/tpu_encdec.py:mc_predict_from_wins, is to include it too).
+// functions, shared by the kernels that interpolate reference pixels:
+// csrc/subpel_search.cu's phase planes (the phases 0, 4, 8 and 12) and
+// csrc/mc_predict.cu's motion compensation (every phase, 0 to 15).
 // One output is libvpx's convolve: the eight taps of a phase of
 // bitstream/tables.py:subpel_filters (they sum to 128) against eight
 // neighbours along a row or a column, then clamp((acc + 64) >> 7, 0, 255),
@@ -9,11 +9,12 @@
 // as tpu_vp9_torch/pipeline/tpu_encdec.py:_conv8 computes it.
 //
 // A phase's taps are held in two registers of signed bytes (every tap of
-// the 8-tap kinds but phase 0's 128 lies in [-24, 127]), and eight pixels
-// as two words of four bytes, so that one output is two dp4a (four byte
-// products summed into an int32, exact) with no load of a tap. Phase 0 is
-// [0, 0, 0, 128, 0, 0, 0, 0], whose output is the pixel under tap 3: a
-// caller reads it, it does not filter.
+// the 8-tap kinds but phase 0's 128 lies in [-24, 127]; each kernel's
+// wrapper checks the phases it filters, ops/cuda_kernels.py:
+// _eighttap_taps), and eight pixels as two words of four bytes, so that
+// one output is two dp4a (four byte products summed into an int32, exact)
+// with no load of a tap. Phase 0 is [0, 0, 0, 128, 0, 0, 0, 0], whose
+// output is the pixel under tap 3: a caller reads it, it does not filter.
 #pragma once
 
 #include <cstdint>

@@ -17,6 +17,8 @@ the JAX package writes in jnp:
                                        (csrc/transform_recon.cu)
   loop_filter_device                   loop_filter (csrc/loop_filter.cu)
   kframe_step (the intra wavefront)    kframe_wave (csrc/kframe_wave.cu)
+  mc_predict_from_wins (and            mc_predict (csrc/mc_predict.cu)
+    _clamp_mv_umv)
 
 and the device stage of the host route's keyframe hints:
 
@@ -31,13 +33,13 @@ Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
-``subpel_search``, ``transform_recon``, ``loop_filter`` and ``kframe_wave``
-take CUDA tensors only: their plain versions are the steps' own
-(``pipeline/tpu_encdec.py``: ``subpel_search_ref``, ``transform_recon_ref``,
-``loop_filter_ref``, ``kframe_wave_ref``), and the steps' dispatches
-(``subpel_search``, ``transform_recon``, ``loop_filter_device``,
-``kframe_wave_device``) send CPU tensors there and CUDA tensors here. This
-module imports nothing of ``pipeline``.
+``subpel_search``, ``mc_predict``, ``transform_recon``, ``loop_filter`` and
+``kframe_wave`` take CUDA tensors only: their plain versions are the steps'
+own (``pipeline/tpu_encdec.py``: ``subpel_search_ref``, ``mc_predict_ref``,
+``transform_recon_ref``, ``loop_filter_ref``, ``kframe_wave_ref``), and the
+steps' dispatches (``subpel_search``, ``mc_predict``, ``transform_recon``,
+``loop_filter_device``, ``kframe_wave_device``) send CPU tensors there and
+CUDA tensors here. This module imports nothing of ``pipeline``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ TXQ_BLOCK_SIZES = (4, 8, 16, 32)
 TXQ_BIAS = 0.38  # the dead zone's rounding bias
 # the hierarchical search's reaches (pipeline/tpu_encdec.py has the same)
 WIN_R, HALF_R, REFINE_R = 40, 18, 4
+# the chroma MC windows' reach: 40.75 / 2 pel rounded up (the step imports
+# it from here)
+CHROMA_WIN_R = 21
 HIER_BLOCK_SIZES = (32,)  # the sizes hier_search_fused is built for
 # the kinds of CTA of loop_filter, as bits of its ``parts`` argument: a
 # luma tile (one superblock column and row of the luma plane), a chroma
@@ -91,6 +96,7 @@ _LAUNCHERS = {
     "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
                         5),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
+    "mc_predict": ("mc_predict", "mc_predict_launch", 21, 0, 8),
     "openloop_modes": ("openloop_modes", "openloop_modes_launch", 5, 0, 4),
 }
 _fns: dict = {}
@@ -1395,22 +1401,29 @@ SUBPEL_BLOCK_SIZES = (16, 32)  # the children's and the zone's
 SUBPEL_MAX_R = 64  # keeps a window's offsets well inside int32
 
 
-def _subpel_taps():
-    """The (16, 8) int32 EIGHTTAP filter table, checked for what the
-    kernel takes as given: phase 0 is the identity (it reads the pixel
-    under tap 3 and filters nothing) and the taps of the phases 4, 8 and 12
-    are signed bytes (it packs them four to a word for dp4a)."""
+def _eighttap_taps(kernel: str, phases):
+    """The (16, 8) int32 EIGHTTAP filter table, checked for what ``kernel``
+    takes as given: phase 0 is the identity (it reads the pixel under tap 3
+    and filters nothing) and every tap of ``phases`` is a signed byte (it
+    packs a phase's taps four to a word for dp4a)."""
     from tpu_vp9_torch.bitstream import tables as T
 
     taps = np.asarray(T.subpel_filters(T.InterpFilter.EIGHTTAP), np.int32)
     if taps.shape != (16, 8) or taps[0].tolist() != [0, 0, 0, 128, 0, 0,
                                                      0, 0]:
-        raise ValueError("subpel_search: the EIGHTTAP table's phase 0 is "
-                         "not the identity")
-    if not np.all((taps[4::4] >= -128) & (taps[4::4] <= 127)):
-        raise ValueError("subpel_search: a tap of the phases 4, 8, 12 is "
-                         "no signed byte")
+        raise ValueError(f"{kernel}: the EIGHTTAP table's phase 0 is not "
+                         "the identity")
+    rows = taps[list(phases)]
+    if not np.all((rows >= -128) & (rows <= 127)):
+        raise ValueError(f"{kernel}: a tap of the phases "
+                         f"{', '.join(map(str, phases))} is no signed byte")
     return np.ascontiguousarray(taps)
+
+
+def _subpel_taps():
+    """The table of ``subpel_search``, which filters at the phases 4, 8
+    and 12 only (``_eighttap_taps``)."""
+    return _eighttap_taps("subpel_search", (4, 8, 12))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1480,3 +1493,140 @@ def subpel_search_occupancy(n: int, device=None):
     """subpel_search's (resident CTAs per SM, dynamic shared memory in
     bytes) at block size n (``_occupancy``)."""
     return _occupancy("subpel_search", SUBPEL_BLOCK_SIZES, n, device)
+
+
+# ---------------------------------------------------------------------------
+# The P-frame step's motion compensation (csrc/mc_predict.cu)
+# ---------------------------------------------------------------------------
+
+MC_BLOCK_SIZES = (16, 32)  # luma: the children's and the strip's, the zone's
+
+
+def _mc_taps():
+    """The table of ``mc_predict``, whose blocks take every phase
+    (``_eighttap_taps``): chroma MVs reach all sixteen."""
+    return _eighttap_taps("mc_predict", range(1, 16))
+
+
+@functools.lru_cache(maxsize=None)
+def _mc_taps_on(device: torch.device):
+    """``mc_predict``'s checked (16, 8) int32 EIGHTTAP table on
+    ``device``."""
+    return torch.from_numpy(_mc_taps()).to(device)
+
+
+def _check_mc_args(wins, pos_y, pos_x, mv_r, mv_c, n: int, ref_sel,
+                   win_idx, org_off_y, org_off_x):
+    """Raise unless the arguments are what ``mc_predict`` takes; returns
+    the tensors it reads, LAST's windows first."""
+    if n not in MC_BLOCK_SIZES:
+        raise ValueError(f"mc_predict: n={n} not in {MC_BLOCK_SIZES}")
+    if not 1 <= len(wins) <= 3 or wins[0] is None:
+        raise ValueError("mc_predict: wins holds LAST's (y, u, v) windows "
+                         "and optionally GOLDEN's and ALTREF's")
+    b = pos_y.shape[0]
+    n_win = wins[0][0].shape[0]
+    given = []
+    for ref in wins:
+        if ref is None:
+            continue
+        if len(ref) != 3:
+            raise ValueError("mc_predict: a reference's windows are a "
+                             "(y, u, v) triple")
+        for p, w in enumerate(ref):
+            side = wins[0][min(p, 1)].shape[-1]  # U's side is V's too
+            ln = (n if p == 0 else n // 2) + 7
+            _want_blocks(f"mc_predict: windows of plane {p}", w, n_win, side,
+                         side)
+            if side < ln:
+                raise ValueError(f"mc_predict: windows of side {side} hold "
+                                 f"no {ln}x{ln} region")
+            if w.dtype != torch.uint8:
+                raise TypeError(f"mc_predict: windows must be uint8, got "
+                                f"{w.dtype}")
+            given.append(w)
+    for name, t in (("pos_y", pos_y), ("pos_x", pos_x), ("mv_r", mv_r),
+                    ("mv_c", mv_c), ("win_idx", win_idx),
+                    ("org_off_y", org_off_y), ("org_off_x", org_off_x)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (b,) or t.dtype != torch.int32:
+            raise TypeError(f"mc_predict: {name} must be ({b},) int32, got "
+                            f"{tuple(t.shape)} {t.dtype}")
+        given.append(t)
+    if ref_sel is not None:
+        if tuple(ref_sel.shape) != (b,) or ref_sel.dtype != torch.int8:
+            raise TypeError(f"mc_predict: ref_sel must be ({b},) int8, got "
+                            f"{tuple(ref_sel.shape)} {ref_sel.dtype}")
+        given.append(ref_sel)
+    if (org_off_y is None) != (org_off_x is None):
+        raise ValueError("mc_predict: org_off_y and org_off_x come together")
+    if win_idx is None and n_win != b:
+        raise ValueError(f"mc_predict: {n_win} windows for {b} blocks "
+                         "without a window index")
+    if not all(t.is_contiguous() for t in given):
+        raise ValueError("mc_predict: inputs must be contiguous")
+    return given
+
+
+def mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
+               mi_cols: int, ref_sel=None, win_idx=None, org_off_y=None,
+               org_off_x=None):
+    """Motion compensation of B blocks' Y, U and V from per-block
+    reference windows, on the card, in one launch.
+
+    wins: LAST's (y, u, v) windows, then optionally GOLDEN's and ALTREF's
+    (None where absent): (W, SW, SW) uint8 per plane, whose origin is the
+    block minus (r + 4) (minus ``org_off``), r = WIN_R for Y and
+    CHROMA_WIN_R for U and V (``_extract_search_windows``' layout), SW at
+    least n + 7 (n / 2 + 7 for chroma). pos_y, pos_x: (B,) int32 luma
+    positions; mv_r, mv_c: (B,) int32 q3 MVs; ref_sel: (B,) int8
+    reference per block (0 LAST, 1 GOLDEN, 2 ALTREF; one without windows
+    reads LAST) or None (LAST); win_idx: (B,) int32 window per block (a
+    child reading its parent's) or None (window b; then W = B); org_off_y,
+    org_off_x: (B,) int32 luma offsets inside the window or None; all
+    contiguous CUDA tensors of one device; n in {16, 32}, the chroma
+    planes at n / 2. Returns (pred_y (B, n, n), pred_u, pred_v (B, n/2,
+    n/2)) uint8, bit for bit what ``pipeline/tpu_encdec.py:
+    mc_predict_ref`` returns with the EIGHTTAP table. It runs the kernel
+    of ``csrc/mc_predict.cu`` or raises: CPU tensors go to that plain
+    version through the step's ``mc_predict``, not through here.
+    """
+    given = _check_mc_args(wins, pos_y, pos_x, mv_r, mv_c, n, ref_sel,
+                           win_idx, org_off_y, org_off_x)
+    dev = wins[0][0].device
+    taps = _mc_taps_on(dev)
+    if _device_kind("mc_predict", *given) != "cuda":
+        raise ValueError("mc_predict: the kernel takes CUDA tensors; CPU "
+                         "tensors go through the step's mc_predict")
+    b = pos_y.shape[0]
+    nc = n // 2
+    pred_y = torch.empty((b, n, n), dtype=torch.uint8, device=dev)
+    pred_u = torch.empty((b, nc, nc), dtype=torch.uint8, device=dev)
+    pred_v = torch.empty((b, nc, nc), dtype=torch.uint8, device=dev)
+    if b > 0:
+        refs = list(wins) + [None] * (3 - len(wins))
+        ptrs = [None if ref is None else ref[p].data_ptr()
+                for p in range(3) for ref in refs]
+        _launch("mc_predict", dev, *ptrs,
+                *[None if t is None else t.data_ptr()
+                  for t in (ref_sel, win_idx)],
+                pos_y.data_ptr(), pos_x.data_ptr(), mv_r.data_ptr(),
+                mv_c.data_ptr(),
+                *[None if t is None else t.data_ptr()
+                  for t in (org_off_y, org_off_x)],
+                taps.data_ptr(), pred_y.data_ptr(), pred_u.data_ptr(),
+                pred_v.data_ptr(), b, n, wins[0][0].shape[-1],
+                wins[0][1].shape[-1], WIN_R, CHROMA_WIN_R, int(mi_rows),
+                int(mi_cols))
+        mc_predict.launches += 1
+    return pred_y, pred_u, pred_v
+
+
+mc_predict.launches = 0
+
+
+def mc_predict_occupancy(n: int, device=None):
+    """mc_predict's (resident CTAs of 64 threads per SM, dynamic shared
+    memory in bytes) at luma block size n (``_occupancy``)."""
+    return _occupancy("mc_predict", MC_BLOCK_SIZES, n, device)

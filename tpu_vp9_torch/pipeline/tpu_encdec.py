@@ -48,14 +48,17 @@ Every stage computes what the JAX package's stage computes, as plain
 functions on tensors of the caller's device, with CUDA kernels in
 ``ops/cuda_kernels.py``: the full-pel search (``hier_search_fused`` for
 both levels of the 32 zone in one launch, ``sse_map_search`` for the
-children), the quarter-pel search (``subpel_search``), the distortion
-(``block_energy`` on blocks, ``block_energy_at`` on candidates read in
-place out of a reference plane), the transform stage (``transform_recon``:
-forward DCT, quantizer, inverse, recon and eob) and the loop filter
-(``loop_filter``, all three planes in one launch). The plain versions of
-the last three kernels and of the quarter-pel search live here
-(``subpel_search_ref``, ``transform_recon_ref``, ``loop_filter_ref``), each
-reached through its dispatch (``subpel_search``, ``transform_recon``,
+children), the quarter-pel search (``subpel_search``), motion
+compensation (``mc_predict``: Y, U and V of a zone or of the children in
+one launch, every block's window read in place by its reference and window
+index), the distortion (``block_energy`` on blocks, ``block_energy_at`` on
+candidates read in place out of a reference plane), the transform stage
+(``transform_recon``: forward DCT, quantizer, inverse, recon and eob) and
+the loop filter (``loop_filter``, all three planes in one launch). The
+plain versions of the last three kernels, of the quarter-pel search and of
+MC live here (``subpel_search_ref``, ``mc_predict_ref``,
+``transform_recon_ref``, ``loop_filter_ref``), each reached through its
+dispatch (``subpel_search``, ``mc_predict``, ``transform_recon``,
 ``loop_filter_device``): CPU tensors take the plain version, CUDA tensors
 the kernel's wrapper, which launches or raises. Formulations that
 exist only to suit the TPU are not carried over: one-hot matmul gathers
@@ -93,14 +96,13 @@ from tpu_vp9_torch.utils.trace import span
 
 from tpu_vp9_torch.ops import cuda_kernels, txfm
 from tpu_vp9_torch.ops.cuda_kernels import (
-    HALF_R, KF_MODE_BIAS, REFINE_R, WIN_R, check_kf_args,
+    CHROMA_WIN_R, HALF_R, KF_MODE_BIAS, REFINE_R, WIN_R, check_kf_args,
     block_energy, block_energy_at, hier_search_fused, kf_diagonal,
     kf_outputs, kframe_wave, loop_filter, predict_intra_all,
     sse_map_search, take_windows as _take_windows,
 )
 
 BORDER = 96  # matches tpu_vp9/ops/inter.py (host refs interop)
-CHROMA_WIN_R = 21  # chroma MC window reach: 40.75/2 pel rounded up
 CHILD_R = 8  # 16-block refinement radius around the 32-parent's winner
 # extra syntax cost (in rate_b units) a 32->16 split pays: partition
 # symbol + 3 extra mode/skip/mv sets
@@ -236,13 +238,15 @@ def _zone(geom: Geom, n: int):
 
 def _zone_positions(geom: Geom, device, n: int = 32):
     """(pos_y, pos_x) int32 plane-pixel positions of the zone's blocks in
-    raster order (the 32 grid's, or at n=16 the strip's), with the zone's
-    (rows, cols)."""
+    raster order (the 32 grid's, or at n=16 the strip's), contiguous (one
+    row of blocks would otherwise leave pos_y a stride-0 view), with the
+    zone's (rows, cols)."""
     y0, rows, cols = _zone(geom, n)
     ys = torch.arange(rows, dtype=torch.int32, device=device) * n + y0
     xs = torch.arange(cols, dtype=torch.int32, device=device) * n
-    return (ys[:, None].expand(rows, cols).reshape(-1),
-            xs[None, :].expand(rows, cols).reshape(-1), rows, cols)
+    return (ys[:, None].expand(rows, cols).reshape(-1).contiguous(),
+            xs[None, :].expand(rows, cols).reshape(-1).contiguous(), rows,
+            cols)
 
 
 def _extract_blocks(plane, y0: int, rows: int, cols: int, n: int):
@@ -554,6 +558,55 @@ def mc_predict_from_wins(wins, pos_y, pos_x, mv_r_q3, mv_c_q3, n_out: int,
     for k in range(1, 8):
         acc = acc + inter[:, k:k + n_out, :] * fy[:, k, None, None]
     return ((acc + 64) >> 7).clamp(0, 255).to(torch.uint8)
+
+
+def mc_predict_ref(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
+                   mi_cols: int, filters, ref_sel=None, win_idx=None,
+                   org_off_y=None, org_off_x=None):
+    """MC of B blocks' Y, U and V from per-block reference windows (plain
+    version of the kernel behind ``ops/cuda_kernels.py:mc_predict``, same
+    arguments): each plane's windows are picked per block, by the window
+    index ``win_idx`` (window b without one) and by ``ref_sel`` among
+    ``wins``' references (LAST, GOLDEN, ALTREF; LAST where the block's has
+    none), and ``mc_predict_from_wins`` predicts from them, Y at n and
+    WIN_R, U and V at n / 2 and CHROMA_WIN_R, positions and offsets
+    halved. Returns (pred_y, pred_u, pred_v)."""
+    idx = None if win_idx is None else win_idx.long()
+    preds = []
+    for p in range(3):
+        w = wins[0][p] if idx is None else wins[0][p][idx]
+        for ref_id, ref in enumerate(wins):
+            if ref_id == 0 or ref is None or ref_sel is None:
+                continue
+            w_ref = ref[p] if idx is None else ref[p][idx]
+            w = torch.where((ref_sel == ref_id)[:, None, None], w_ref, w)
+        ss = min(p, 1)
+        preds.append(mc_predict_from_wins(
+            w, pos_y >> ss, pos_x >> ss, mv_r, mv_c, n >> ss, ss, mi_rows,
+            mi_cols, filters, (WIN_R, CHROMA_WIN_R)[ss],
+            org_off_y=0 if org_off_y is None else org_off_y >> ss,
+            org_off_x=0 if org_off_x is None else org_off_x >> ss))
+    return tuple(preds)
+
+
+def mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
+               mi_cols: int, filters, ref_sel=None, win_idx=None,
+               org_off_y=None, org_off_x=None):
+    """The step's MC (contract: ``mc_predict_ref``; ``filters`` the
+    EIGHTTAP table, which the kernel holds its own checked copy of).
+    Tensors that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises."""
+    tensors = [t for t in (*(w for ref in wins if ref is not None
+                             for w in ref), pos_y, pos_x, mv_r, mv_c,
+                           ref_sel, win_idx, org_off_y, org_off_x)
+               if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return mc_predict_ref(wins, pos_y, pos_x, mv_r, mv_c, n, mi_rows,
+                              mi_cols, filters, ref_sel, win_idx, org_off_y,
+                              org_off_x)
+    return cuda_kernels.mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n,
+                                   mi_rows, mi_cols, ref_sel, win_idx,
+                                   org_off_y, org_off_x)
 
 
 # ---------------------------------------------------------------------------
@@ -1429,35 +1482,25 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
             mv_r = torch.where(use_alt, a_mv_r, mv_r)
             mv_c = torch.where(use_alt, a_mv_c, mv_c)
     # window MC: every winner derives from a +-WIN_R search (or is ZERO
-    # or PREV, equally bounded)
+    # or PREV, equally bounded); each block reads its reference's windows
     with _stage("step_mc"):
         y0c = y0 // 2
         wu = _extract_search_windows(ref_u, nc, rows, cols, y0c,
                                      r=CHROMA_WIN_R)
         wv = _extract_search_windows(ref_v, nc, rows, cols, y0c,
                                      r=CHROMA_WIN_R)
-        wy_mc, wu_mc, wv_mc = wins, wu, wv
-        # GOLDEN's windows, then ALTREF's, where the block took them
+        mc_wins = [(wins, wu, wv), None, None]
         for ref_id, planes in ((1, gold), (2, alt)):
-            if planes is None:
-                continue
-            msel = (ref_sel == ref_id)[:, None, None]
-            wy_ref = (wins_a if ref_id == 2 else
-                      _extract_search_windows(planes[0], n, rows, cols, y0))
-            wy_mc = torch.where(msel, wy_ref, wy_mc)
-            wu_mc = torch.where(msel, _extract_search_windows(
-                planes[1], nc, rows, cols, y0c, r=CHROMA_WIN_R), wu_mc)
-            wv_mc = torch.where(msel, _extract_search_windows(
-                planes[2], nc, rows, cols, y0c, r=CHROMA_WIN_R), wv_mc)
-        mi = (g.mi_rows, g.mi_cols)
-        pred_y = mc_predict_from_wins(wy_mc, pos_y, pos_x, mv_r, mv_c, n, 0,
-                                      *mi, filters, WIN_R)
-        pred_u = mc_predict_from_wins(wu_mc, pos_y // 2, pos_x // 2, mv_r,
-                                      mv_c, nc, 1, *mi, filters,
-                                      CHROMA_WIN_R)
-        pred_v = mc_predict_from_wins(wv_mc, pos_y // 2, pos_x // 2, mv_r,
-                                      mv_c, nc, 1, *mi, filters,
-                                      CHROMA_WIN_R)
+            if planes is not None:
+                mc_wins[ref_id] = (
+                    wins_a if ref_id == 2 else
+                    _extract_search_windows(planes[0], n, rows, cols, y0),
+                    *(_extract_search_windows(pl, nc, rows, cols, y0c,
+                                              r=CHROMA_WIN_R)
+                      for pl in planes[1:]))
+        pred_y, pred_u, pred_v = mc_predict(
+            mc_wins, pos_y, pos_x, mv_r, mv_c, n, g.mi_rows, g.mi_cols,
+            filters, ref_sel=ref_sel)
     with _stage("step_txfm"):
         lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, dc_q, ac_q,
                                              n)
@@ -1594,16 +1637,13 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
         pos_x = (c_col * 16).reshape(-1).to(torch.int32)
         off_y = (ii * 16).repeat(k).to(torch.int32)
         off_x = (jj * 16).repeat(k).to(torch.int32)
-        mi = (g.mi_rows, g.mi_cols)
-        pred_y = mc_predict_from_wins(
-            wk.repeat_interleave(4, dim=0), pos_y, pos_x, mv_r, mv_c, 16, 0,
-            *mi, filters, WIN_R, org_off_y=off_y, org_off_x=off_x)
+        pred_y, pred_u, pred_v = mc_predict(
+            [(parent_me["wins"], parent_me["wu"], parent_me["wv"])], pos_y,
+            pos_x, mv_r, mv_c, 16, g.mi_rows, g.mi_cols, filters,
+            win_idx=sel.to(torch.int32).repeat_interleave(4),
+            org_off_y=off_y, org_off_x=off_x)
         chroma = []
-        for key, plane in (("wu", src_u), ("wv", src_v)):
-            pred = mc_predict_from_wins(
-                parent_me[key][sel].repeat_interleave(4, dim=0), pos_y // 2,
-                pos_x // 2, mv_r, mv_c, 8, 1, *mi, filters, CHROMA_WIN_R,
-                org_off_y=off_y // 2, org_off_x=off_x // 2)
+        for plane, pred in ((src_u, pred_u), (src_v, pred_v)):
             csrc_c = _extract_blocks(plane, 0, rows32 * 2, cols16, 8)[cidx]
             chroma.append(transform_recon(csrc_c, pred, dc_q, ac_q, 8))
         lv_y, eob_y, rec_y = transform_recon(csrc, pred_y, dc_q, ac_q, 16)

@@ -52,15 +52,18 @@ from tpu_vp9_torch.pipeline.tpu_encdec import (
 def _shard_positions(geom: Geom, n_tiles: int, tile_idx: int, device,
                      n: int = 32):
     """Global (pos_y, pos_x) int32 of one column shard's n-blocks (the 32
-    grid's, or at n=16 the strip's), raster order within the shard, with
-    the shard's (rows, cols) and its first global column x0."""
+    grid's, or at n=16 the strip's), raster order within the shard,
+    contiguous (the strip's one row would otherwise leave pos_y a stride-0
+    view, which the MC kernel refuses), with the shard's (rows, cols) and
+    its first global column x0."""
     y0, rows, n_cols = _zone(geom, n)
     cols = n_cols // n_tiles
     x0 = tile_idx * cols * n
     ys = torch.arange(rows, dtype=torch.int32, device=device) * n + y0
     xs = torch.arange(cols, dtype=torch.int32, device=device) * n + x0
-    return (ys[:, None].expand(rows, cols).reshape(-1),
-            xs[None, :].expand(rows, cols).reshape(-1), rows, cols, x0)
+    return (ys[:, None].expand(rows, cols).reshape(-1).contiguous(),
+            xs[None, :].expand(rows, cols).reshape(-1).contiguous(), rows,
+            cols, x0)
 
 
 def _halo_exchange(ref_locs, halo: int):

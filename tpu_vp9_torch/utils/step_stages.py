@@ -1,0 +1,165 @@
+"""Host and device time of each stage of the 1080p M8 P-frame step, on the
+card.
+
+    python3 -m tpu_vp9_torch.utils.step_stages [--frames N]
+
+and, from the root of another tree of the port (an older checkout), the
+same script timing that tree's package:
+
+    python3 -c "import runpy, sys; sys.argv[1:] = ['--frames', 'N']; \
+        runpy.run_path('<this file>', run_name='__main__')"
+
+Encodes panning_frames(1920, 1080, 1 + 3N, seed=1) at enc_mode 8, low
+delay, CQP qp 40 through the public encoder (the device keyframe, GOLDEN,
+the 32-against-16 descent): the keyframe and N P-frames to warm up, then N
+P-frames with ``utils.trace`` on (each ``step_*`` span's host-clock time,
+mean per P-frame: the time the host spends enqueueing the stage), then N
+more under torch.profiler: each ``step_*`` range's device time in PyTorch
+ops, plus that of the hand kernels it launched (each wrapper's launches
+counted inside the range, times its kernel's mean device time per launch
+in the same profile), per P-frame. Prints one line per stage, the P-frame
+send's mean host time, the card's name and power limit, and which tree's
+package ran.
+
+It reads only the public encoder, ``pipeline/tpu_encdec.py:_stage`` and
+the wrappers' ``launches`` counts, so the second form times an older tree
+of the port (its kernels built into that tree's ``_build/``): run both
+trees in turns in one call to compare them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import glob
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+WIDTH, HEIGHT, QP = 1920, 1080, 40
+# the wrappers whose kernel is named otherwise than <wrapper>_kernel
+KERNEL_NAMES = {"hier_search_fused": "hier_search_kernel",
+                "sse_map_search": "sse_search_kernel",
+                "sad_full_search": "sad_search_kernel"}
+
+
+def _wrappers():
+    """Every kernel wrapper of the tree's ``ops/cuda_kernels.py`` (a
+    function with a ``launches`` count), by name."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    return {k: v for k, v in vars(K).items()
+            if callable(v) and isinstance(getattr(v, "launches", None), int)}
+
+
+@contextlib.contextmanager
+def _stage_launches(acc):
+    """While active, each ``step_*`` stage adds the launches its wrappers
+    counted to ``acc[stage][wrapper]``."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    real, fns = P._stage, _wrappers()
+
+    @contextlib.contextmanager
+    def counting(name):
+        before = {k: f.launches for k, f in fns.items()}
+        with real(name):
+            yield
+        mine = acc.setdefault(name, {})
+        for k, f in fns.items():
+            if f.launches != before[k]:
+                mine[k] = mine.get(k, 0) + f.launches - before[k]
+
+    P._stage = counting
+    try:
+        yield
+    finally:
+        P._stage = real
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("step_stages: no CUDA device available", file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpu_vp9_torch
+    from tpu_vp9_torch.api import Vp9Encoder
+    from tpu_vp9_torch.config import EncoderConfig, PredStructure
+    from tpu_vp9_torch.ops import _build
+    from tpu_vp9_torch.utils import trace
+    from tpu_vp9_torch.utils.device import card_info
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    n = int(sys.argv[sys.argv.index("--frames") + 1]) \
+        if "--frames" in sys.argv else 4
+    libs = sorted(os.path.basename(p)[:-3]
+                  for p in glob.glob(os.path.join(_build.CSRC, "*.cu")))
+    t0 = time.perf_counter()
+    _build.build_all(libs)
+    print(f"tree {os.path.dirname(tpu_vp9_torch.__file__)}: {len(libs)} "
+          f"kernel sources built in {time.perf_counter() - t0:.1f} s")
+    frames = list(panning_frames(WIDTH, HEIGHT, 1 + 3 * n, seed=1))
+    enc = Vp9Encoder(device="cuda")
+    enc.set_parameter(EncoderConfig(
+        source_width=WIDTH, source_height=HEIGHT, enc_mode=8,
+        pred_structure=PredStructure.LOW_DELAY_P, qp=QP))
+    enc.init()
+    for frame in frames[:1 + n]:
+        enc.send_picture(frame)
+    torch.cuda.synchronize()
+
+    # host clock: the step's spans, per P-frame
+    trace.enable(True)
+    trace.reset()
+    sends = []
+    for frame in frames[1 + n:1 + 2 * n]:
+        t0 = time.perf_counter()
+        enc.send_picture(frame)
+        torch.cuda.synchronize()
+        sends.append(time.perf_counter() - t0)
+    host = {k: 1000 * v["total_s"] / n for k, v in trace.summary().items()
+            if k.startswith("step_")}
+    trace.enable(False)
+
+    # device: the stages' ranges and their hand kernels, per P-frame
+    launches = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            _stage_launches(launches):
+        for frame in frames[1 + 2 * n:]:
+            enc.send_picture(frame)
+        torch.cuda.synchronize()
+    enc.flush()
+    enc.close()
+    averages = prof.key_averages()
+    per_launch = {}
+    for name in _wrappers():
+        mine = [e for e in averages if e.device_type == DeviceType.CUDA
+                and KERNEL_NAMES.get(name, f"{name}_kernel") in e.key
+                and e.self_device_time_total > 0]
+        if mine:
+            per_launch[name] = (sum(e.self_device_time_total for e in mine)
+                                / 1e3 / sum(e.count for e in mine))
+    device = {e.key: e.device_time_total / 1e3 / n for e in averages
+              if e.key.startswith("step_")
+              and e.device_type == DeviceType.CPU}
+    print(f"1080p M8 P-frame send: {1000 * statistics.mean(sends):.2f} ms "
+          f"host clock, mean of {n} (synchronized)")
+    for stage in sorted(set(host) | set(device)):
+        hand = {k: v / n for k, v in launches.get(stage, {}).items()}
+        hand_ms = sum(v * per_launch.get(k, 0.0) for k, v in hand.items())
+        dev_ms = (f"{device.get(stage, 0.0) + hand_ms:.3f}"
+                  if all(k in per_launch for k in hand) else "not measured")
+        print(f"stage {stage}: host {host.get(stage, 0.0):.3f} ms, device "
+              f"{dev_ms} ms ({device.get(stage, 0.0):.3f} in PyTorch ops, "
+              f"hand kernels {hand}) per P-frame")
+    print(card_info())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
