@@ -10,7 +10,11 @@ Phases, each of which raises on failure (nothing is caught):
      quarter-pel and MC calls recorded; then sad_full_search, block_energy
      (on blocks and positioned, block_energy_at), sse_map_search (one level,
      and both levels fused, hier_search_fused), subpel_search, mc_predict,
-     transform_recon, kframe_wave and loop_filter against their plain
+     transform_recon, kframe_wave, loop_filter and the descent's four
+     kernels (descent_gather, descent_decide, descent_pack, descent_split:
+     the M8 P-frame's real calls at K = 510 parents, the RA shape of every
+     parent's children, K = 2,040, the frame's edges, all-tie costs, the
+     overhang row) against their plain
      PyTorch versions on the card, bit for bit, at the shapes the 1080p
      paths give them (the M8 children's included), ties, negative minima and
      the largest operands included; subpel_search on the zone's and the
@@ -59,10 +63,11 @@ Phases, each of which raises on failure (nothing is caught):
      once (a CTA per block row) and loop_filter once; per P-frame the search
      entry points must launch twice (hier_search_fused, then sse_map_search
      for the children), subpel_search twice, mc_predict twice (the zone, the
-     children), transform_recon 6 times, the block_energy ones 5 times and
-     loop_filter once; some parents must split; the stream must decode with
-     the port's decoder to the encoder's own recon across two GOLDEN
-     refreshes; fps, step time, the host-clock stage split and the send
+     children), transform_recon 6 times, the block_energy ones 5 times,
+     descent_gather, descent_decide, descent_pack and descent_split once
+     each and loop_filter once; some parents must split; the stream must
+     decode with the port's decoder to the encoder's own recon across two
+     GOLDEN refreshes; fps, step time, the host-clock stage split and the send
      split by the spans rt_device_step, rt_stage, rt_rate_args,
      api_scene_cut, api_frame_qindex and rt_d2h_transfer. Inside the same
      counted window txq_cost runs at its own entry point on every P-frame's
@@ -248,7 +253,7 @@ WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
         "loop_filter", "kframe_wave", "transform_recon", "subpel_search",
-        "openloop_modes", "mc_predict")
+        "openloop_modes", "mc_predict", "descent")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -264,17 +269,21 @@ M9_B = 34 * 60
 # U16 and V16 and of the children's Y16, U8 and V8; the loop filter of all
 # three planes, split mask included, is one launch; MC of the zone's Y, U
 # and V (LAST's and GOLDEN's windows by ref_sel) is one launch, and of the
-# children's (their parents' windows by index) one. M9: the fused search,
-# ZERO SSE, quarter-pel, the zone's MC, its three transforms, recon
-# distortion and the loop filter (no mask).
+# children's (their parents' windows by index) one; the descent's gathers,
+# candidate decision, pack and split merge are one launch each. M9: the
+# fused search, ZERO SSE, quarter-pel, the zone's MC, its three transforms,
+# recon distortion and the loop filter (no mask).
+DESCENT_WRAPPERS = ("descent_gather", "descent_decide", "descent_pack",
+                    "descent_split")
+NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
                "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
-               "mc_predict": 2}
+               "mc_predict": 2, **dict.fromkeys(DESCENT_WRAPPERS, 1)}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
                "loop_filter": 1, "transform_recon": 3, "subpel_search": 1,
-               "mc_predict": 1}
+               "mc_predict": 1, **NO_DESCENT}
 # launches per keyframe (M8 and M9 alike): one kframe_wave for the whole
 # 34 x 60 grid (its 93 anti-diagonals are its chain), and the loop filter
 # of the three planes
@@ -291,7 +300,8 @@ ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "transform_recon": ("transform_recon",),
                   "subpel_search": ("subpel_search",),
                   "openloop_modes": ("openloop_modes",),
-                  "mc_predict": ("mc_predict",)}
+                  "mc_predict": ("mc_predict",),
+                  **{w: (w,) for w in DESCENT_WRAPPERS}}
 # each wrapper's kernel, by a part of its name in a profile
 WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "block_energy": "block_energy_kernel",
@@ -304,7 +314,8 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "transform_recon": "transform_recon_kernel",
                    "subpel_search": "subpel_search_kernel",
                    "openloop_modes": "openloop_modes_kernel",
-                   "mc_predict": "mc_predict_kernel"}
+                   "mc_predict": "mc_predict_kernel",
+                   **{w: f"{w}_kernel" for w in DESCENT_WRAPPERS}}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
 # geometries of the CPU tests (the last no wider than 64: no band), and
 # integer operations per filtered edge lane (an upper estimate: 16 loads,
@@ -392,11 +403,11 @@ STRIP_R = 40
 M8_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 4, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2, "mc_predict": 2}
+                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT}
 M9_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 2, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2, "mc_predict": 2}
+                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT}
 # per keyframe at a strip geometry: the wave of the 32 zone, the strip's
 # three luma candidates (V and D63 ADST_DCT, D45 DCT_DCT) and two chroma
 # transforms, the candidates' recon SSE in one block_energy launch, and
@@ -1356,13 +1367,21 @@ def _real_m8_inputs(dev):
     of the clip (a keyframe and an M8 P-frame) through the public encoder,
     the steps' calls of ``loop_filter_device`` (keyframe and P-frame),
     ``transform_recon``, ``subpel_search`` and ``mc_predict`` (P-frame)
-    recorded. Returns ({"lf": [(y, u, v, geom, lvl, lim, mblim, split32)],
-    "tr": [(src, pred, dc_q, ac_q, n)], "sp": [(wins, src, dy, dx, n, r)],
-    "mc": [(args, keyword args)]}, the two frames, their recon)."""
+    recorded, with the descent's four dispatches and its
+    ``encode_children_masked`` call. Returns ({"lf": [(y, u, v, geom, lvl,
+    lim, mblim, split32)], "tr": [(src, pred, dc_q, ac_q, n)], "sp":
+    [(wins, src, dy, dx, n, r)], "mc": [(args, keyword args)], "desc":
+    [(dispatch name, args)], "ecm": [(args, keyword args)]}, the two
+    frames, their recon)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
 
-    calls = {"lf": [], "tr": [], "sp": [], "mc": []}
+    calls = {"lf": [], "tr": [], "sp": [], "mc": [], "desc": [], "ecm": []}
+    real_ecm = P.encode_children_masked
+
+    def record_ecm(*args, **kw):
+        calls["ecm"].append((args, kw))
+        return real_ecm(*args, **kw)
     real_lf, real_tr, real_sp, real_mc = (
         P.loop_filter_device, P.transform_recon, P.subpel_search,
         P.mc_predict)
@@ -1385,16 +1404,19 @@ def _real_m8_inputs(dev):
 
     P.loop_filter_device = record_lf
     P.transform_recon, P.subpel_search = record_tr, record_sp
-    P.mc_predict = record_mc
+    P.mc_predict, P.encode_children_masked = record_mc, record_ecm
     enc = _make_encoder(dev, 8)
     got = _capture(enc)
     frames = list(panning_frames(WIDTH, HEIGHT, 2, seed=1))
-    for frame in frames:
-        enc.send_picture(frame)
-    enc.flush()
+    desc = []
+    with _recording(DESCENT_WRAPPERS, desc, [True]):
+        for frame in frames:
+            enc.send_picture(frame)
+        enc.flush()
+    calls["desc"] = desc
     P.loop_filter_device = real_lf
     P.transform_recon, P.subpel_search = real_tr, real_sp
-    P.mc_predict = real_mc
+    P.mc_predict, P.encode_children_masked = real_mc, real_ecm
     torch.cuda.synchronize()
     lf = calls["lf"]
     if len(lf) != 2 or lf[0][7] is not None or lf[1][7] is None:
@@ -1405,11 +1427,15 @@ def _real_m8_inputs(dev):
     if ([c[4] for c in calls["tr"]] != [32, 16, 16, 8, 8, 16]
             or [c[4:] for c in calls["sp"]] != [(32, 4), (16, 8)]
             or mc != [(32, ["ref_sel"]),
-                      (16, ["org_off_x", "org_off_y", "win_idx"])]):
+                      (16, ["org_off_x", "org_off_y", "win_idx"])]
+            or [c[0] for c in calls["desc"]] != list(DESCENT_WRAPPERS)
+            or len(calls["ecm"]) != 1):
         raise AssertionError(
-            "the M8 P-frame's transform, quarter-pel and MC calls were "
-            f"{[c[4] for c in calls['tr']]}, "
-            f"{[c[4:] for c in calls['sp']]} and {mc}")
+            "the M8 P-frame's transform, quarter-pel, MC and descent calls "
+            f"were {[c[4] for c in calls['tr']]}, "
+            f"{[c[4:] for c in calls['sp']]}, {mc}, "
+            f"{[c[0] for c in calls['desc']]} and {len(calls['ecm'])} "
+            "encode_children_masked")
     return calls, frames, [r for _, r in got]
 
 
@@ -1529,9 +1555,10 @@ def loop_filter_kernel_phase(dev, lf_calls):
                   "tpu_vp9/pipeline/tpu_encdec.py:1115", max_err, parts)
 
 
-def _ptxas_instances(name):
+def _ptxas_instances(name, lib=None):
     """The template instances of kernel ``name`` in the ptxas report of
-    its build (``_build/lib<name>.log``): {key: (registers, spill stores,
+    its build (``_build/lib<lib>.log``, lib = name unless given, for a
+    source of several kernels): {key: (registers, spill stores,
     spill loads, static shared memory)}, the key an instance's integer
     template arguments (one: that int; none: 0; several: their tuple),
     led by its element type's letter where it has one (h uint8, s
@@ -1544,7 +1571,7 @@ def _ptxas_instances(name):
     for m in re.finditer(
             r"Compiling entry function '[^']*" + name + r"_kernel([^']*)'"
             r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
-            r".*?Used (\d+) registers([^\n]*)", _build.build_log(name),
+            r".*?Used (\d+) registers([^\n]*)", _build.build_log(lib or name),
             re.S):
         args = m.group(1)
         kind = re.match(r"I([hs])", args)
@@ -1567,15 +1594,16 @@ def _print_resources(label, found_entry, ctas, dyn, threads):
         raise AssertionError(f"{label} spills registers")
 
 
-def _kernel_resources(dev, name, sizes, occupancy, threads=128):
+def _kernel_resources(dev, name, sizes, occupancy, threads=128, lib=None):
     """Each template instance of kernel ``name`` (keyed as
     ``_ptxas_instances`` keys them: block size n, or (n, transform type)),
     or with ``sizes`` None its one kernel (key 0): its registers, spill
     bytes and static shared memory from the ptxas report of its build, and
     its resident CTAs of ``threads`` threads per SM and dynamic shared
     memory from the CUDA runtime's occupancy query (``occupancy(key,
-    dev)``); printed, and raised on if an instance spills."""
-    found = _ptxas_instances(name)
+    dev)``); printed, and raised on if an instance spills. ``lib``: the
+    build the kernel is in, where that is not ``name``'s."""
+    found = _ptxas_instances(name, lib)
     want = [0] if sizes is None else sorted(sizes)
     if sorted(found) != want:
         raise AssertionError(f"{name}: the ptxas report has the instances "
@@ -1967,6 +1995,259 @@ def mc_kernel_phase(dev, real):
     entry["strip_parts"] = [_part(timed(f"{tag} strip n=16", args, kw, 1))
                             for tag, args, kw in strips]
     return entry
+
+
+# the descent's kernels: the JAX lines each replaces (tpu_encdec.py:
+# encode_children_masked's gathers, candidate decision and pack, and
+# pframe_step's split decision and merge), and their threads a CTA
+DESCENT_REPLACES = {"descent_gather": "tpu_vp9/pipeline/tpu_encdec.py:1933",
+                    "descent_decide": "tpu_vp9/pipeline/tpu_encdec.py:1973",
+                    "descent_pack": "tpu_vp9/pipeline/tpu_encdec.py:2052",
+                    "descent_split": "tpu_vp9/pipeline/tpu_encdec.py:2134"}
+DESCENT_THREADS = {"descent_gather": 64, "descent_decide": 128,
+                   "descent_pack": 128, "descent_split": 128}
+
+
+def _descent_fns(name, args):
+    """(kernel call, plain call) of the descent's ``name`` on its
+    dispatch's positional arguments ``args``."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    if name == "descent_decide":
+        proxy = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
+        return (lambda: K.descent_decide(*args, proxy),
+                lambda: P.descent_decide_ref(*args))
+    # the wrappers take the constants that the dispatches hand them
+    extra = {"descent_gather": (P.BORDER,),
+             "descent_split": (P.SPLIT_RATE_EXTRA,)}.get(name, ())
+    return (lambda: getattr(K, name)(*args, *extra),
+            lambda: getattr(P, f"{name}_ref")(*args))
+
+
+def _descent_tensors(out):
+    return list(out.values()) if isinstance(out, dict) else list(out)
+
+
+def _descent_bound(name, args):
+    """The least time of one call of the descent's ``name`` (its
+    dispatch's ``args``) by bytes, each input
+    read once and each output written once, at HBM speed (its arithmetic
+    is a few integer and float32 operations a byte: far below the bytes'
+    time). The gather reads the 56x56 of each parent's union slice that
+    its four children's 40x40 windows cover (rows and columns 16i .. 16i +
+    39 of child (i, j)), its winner and MV and each child's source blocks,
+    and writes the children's windows, blocks and twelve int32 words; the
+    decide reads a child's map entry, nine words and a rate entry, and
+    writes its MVs (12 bytes); the pack reads a child's eobs, levels
+    (int16), recon and distortion, and writes skip, the merged recon and a
+    parent's two int64 sums; the split reads sel, the zone's costs of the
+    K selected parents and their children's and, for each block of the
+    zone, the recon it keeps (the zone's or the children's), and writes
+    the new planes and split32."""
+    if name == "descent_gather":
+        k = args[0].shape[0]
+        covered = (16 + 2 * 16 + 8) ** 2  # 56x56 of the 64x64 slice
+        nbytes = 4 * k + k * (covered + 16) + 4 * k * (256 + 128) \
+            + 4 * k * (1600 + 256 + 128 + 48)
+    elif name == "descent_decide":
+        nbytes = args[1].shape[0] * (4 + 9 * 4 + 4 + 12)
+    elif name == "descent_pack":
+        nch = args[0].shape[0]
+        nbytes = nch * (12 + 2 * 384 + 384 + 4) + nch * (1 + 384) \
+            + 16 * nch // 4
+    else:
+        k, b32 = args[0].shape[0], args[1].shape[0]
+        nbytes = 4 * k + 12 * k + 16 * k + b32 * 1536 + b32 * (1536 + 4)
+    return _bound(nbytes, 0, ALU_OPS_PER_S)
+
+
+def _descent_made_up(dev, real, rng):
+    """The made-up cases (label, dispatch name, args) on the real 1080p
+    calls: the gather at every frame-edge parent out of raster order with
+    winners at -WIN_R and WIN_R (the union clamped at 0 and at SW - 64);
+    the decide without rate tables, and with all three costs tied (with
+    and without the tables: ZERO must win) on 8,160 made-up children whose
+    PARENT MVs lie anywhere in the parents' reach; the split with every
+    parent of the overhang row selected and its children far better (none
+    may split), and at lam 0 and 10^6 (the rate terms gone, and ruling)."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    args = dict(real)
+    g = args["descent_gather"][8]
+    cases = []
+    # the gather at the frame's edges
+    idx = torch.arange(g.n_blocks32, device=dev).reshape(g.rows32, g.cols32)
+    edges = torch.unique(torch.cat([idx[0], idx[-1], idx[:, 0], idx[:, -1]]))
+    sel = edges[torch.from_numpy(rng.permutation(edges.numel())).to(dev)]
+    ga = list(args["descent_gather"])
+    ar = torch.arange(g.n_blocks32, device=dev, dtype=torch.int32)
+    ga[0] = sel.to(torch.int32).contiguous()
+    ga[2] = torch.where(ar % 2 == 0, -P.WIN_R, P.WIN_R).to(torch.int32)
+    ga[3] = torch.where(ar % 3 == 0, P.WIN_R, -P.WIN_R).to(torch.int32)
+    cases.append(("every edge parent, winners at +-WIN_R",
+                  "descent_gather", tuple(ga)))
+    # the decide without the rate tables, on the real children
+    da = list(args["descent_decide"])
+    cases.append(("real children without rate tables", "descent_decide",
+                  (*da[:12], None)))
+    # all ties on made-up children
+    n = 8160
+    d = 2 * P.CHILD_R + 1
+    edge = 8 * P.WIN_R + 6
+
+    def on(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    src2 = rng.integers(0, 4_000_000, n)
+    sub = rng.integers(-70, 71, (2, n))
+    base = rng.integers(-32, 25, (2, n))
+    rates = dict(da[12], lam_bits=256.0)  # cost = sse + rate
+    m = rates["mv_cost_max"]
+    jc, nr, nc = (rates[k].cpu().numpy() for k in ("joint_cost", "nmv_row",
+                                                   "nmv_col"))
+    for tables in (rates, None):
+        par = base * 8 + sub  # mvd 0: NEW's rate is known
+        if tables is None:
+            rate = (2, 10, 4)  # lam 1: the proxies, NEW's at mvd 0
+        else:
+            mc = tables["mode_cost"]
+            rate = (mc[2], mc[3] + int(jc[0] + nr[m] + nc[m]), mc[0])
+        top = 3_000_000
+        fy = np.clip(((par[0] + 4) >> 3) - base[0], -8, 8) + 8
+        fx = np.clip(((par[1] + 4) >> 3) - base[1], -8, 8) + 8
+        ssem = rng.integers(-2_000_000, 2_000_000, (n, d, d))
+        ssem[np.arange(n), fy, fx] = top - rate[2] - src2
+        cases.append((f"all ties {'with' if tables else 'without'} rate "
+                      f"tables B={n}", "descent_decide",
+                      (on(ssem), on(np.full(n, top - rate[0])),
+                       on(np.full(n, top - rate[1])), on(sub[0]), on(sub[1]),
+                       on(src2), on(base[0]), on(base[1]), on(par[0]),
+                       on(par[1]), 1, da[11], tables)))
+    # PARENT anywhere in the parents' reach, costs far apart
+    par = rng.integers(-edge, edge + 1, (2, n))
+    cases.append((f"PARENT beyond the map B={n}", "descent_decide",
+                  (on(rng.integers(-2_000_000, 2_000_000, (n, d, d))),
+                   on(rng.integers(0, 4_000_000, n)),
+                   on(rng.integers(0, 4_000_000, n)), on(sub[0]), on(sub[1]),
+                   on(src2), on(base[0]), on(base[1]), on(par[0]),
+                   on(par[1]), 300, da[11], da[12])))
+    # the split: the overhang row selected with children far better
+    sa = list(args["descent_split"])
+    b32, c32 = g.n_blocks32, g.cols32
+    last = torch.arange(b32 - c32, b32, device=dev)
+    sel = torch.cat([last, torch.arange(min(200, b32 - c32),
+                                        device=dev)]).to(torch.int32)
+    k = sel.numel()
+    dist_b, rate_b = sa[1], sa[2]
+    u8 = torch.uint8
+    over = (sel.contiguous(), dist_b, rate_b,
+            (dist_b[sel.long()] // 10).to(torch.int64),
+            torch.zeros(k, dtype=torch.int64, device=dev), *sa[5:8],
+            on(rng.integers(0, 256, (k, 32, 32)), u8),
+            on(rng.integers(0, 256, (k, 16, 16)), u8),
+            on(rng.integers(0, 256, (k, 16, 16)), u8), sa[11], g)
+    cases.append(("the overhang row selected, its children far better",
+                  "descent_split", over))
+    for lam in (0, 10 ** 6):
+        cases.append((f"lam {lam}", "descent_split", (*sa[:11], lam, g)))
+    return cases
+
+
+def descent_kernel_phase(dev, real, ecm):
+    """descent_gather, descent_decide, descent_pack and descent_split
+    (CUDA) against their plain versions on the card, bit for bit (values,
+    dtypes, shapes): on the 1080p M8 P-frame's real calls (K = 510 parents,
+    2,040 children; ``_real_m8_inputs``); at the random-access shape, the
+    same frame's children of every parent (K = 2,040, 8,160 children, in
+    descent_parents' order, the overhang row last; encode_children_masked
+    run again on the recorded inputs, its dispatches recorded); and on the
+    made-up cases of ``_descent_made_up``, ties going to ZERO and the
+    overhang row kept whole. Each kernel's
+    registers, spills and resident CTAs per SM printed; call, device, plain
+    and bound times on the real and the RA calls."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    for name, short in zip(DESCENT_WRAPPERS, K.DESCENT_KERNELS):
+        _kernel_resources(dev, name, None,
+                          lambda key, d, s=short: K.descent_occupancy(s, d),
+                          threads=DESCENT_THREADS[name], lib="descent")
+    errs = dict.fromkeys(DESCENT_WRAPPERS, 0)
+
+    def held(label, name, args):
+        kernel, plain = _descent_fns(name, args)
+        got, want = kernel(), plain()
+        if isinstance(got, dict) and list(got) != list(want):
+            raise AssertionError(f"{name} [{label}]: keys {list(got)}, "
+                                 f"plain {list(want)}")
+        g_t, w_t = _descent_tensors(got), _descent_tensors(want)
+        for a, b in zip(g_t, w_t):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{name} [{label}]: {a.dtype} "
+                                     f"{tuple(a.shape)} against the plain "
+                                     f"version's {b.dtype} {tuple(b.shape)}")
+        errs[name] = max(errs[name], _check(name, label, g_t, w_t))
+        return got
+
+    m8 = dict(real)
+    for name in DESCENT_WRAPPERS:
+        held("1080p M8 P-frame, real", name, m8[name])
+    # the RA shape: every parent's children, again through the dispatches
+    (args, kw), = ecm
+    g = args[7]
+    score = m8["descent_split"][1].clone()
+    score[-g.cols32:] = -1
+    sel_all = P.descent_parents(score, g.n_blocks32)
+    calls = []
+    with _recording(DESCENT_WRAPPERS[:3], calls, [True]):
+        out16 = P.encode_children_masked(*args[:6], sel_all, *args[7:], **kw)
+    ra = dict(calls)
+    sa = m8["descent_split"]
+    ra["descent_split"] = (out16["sel_idx"], sa[1], sa[2], out16["dist4"],
+                           out16["rate4"], *sa[5:8], out16["rec_y32"],
+                           out16["rec_u16"], out16["rec_v16"], sa[11], g)
+    split = None
+    for name in DESCENT_WRAPPERS:
+        got = held(f"1080p RA shape, K={g.n_blocks32}", name, ra[name])
+        if name == "descent_split":
+            split = got[0]
+    if split[-1].any():
+        raise AssertionError("descent_split: an overhang parent split at "
+                             "the RA shape")
+    print(f"kernel descent_split [1080p RA shape]: {int(split.sum())} of "
+          f"{g.n_blocks32} parents split, none of the overhang row")
+    rng = np.random.default_rng(43)
+    for label, name, args in _descent_made_up(dev, m8, rng):
+        got = held(label, name, args)
+        if label.startswith("all ties") and (got[0].any() or got[1].any()):
+            raise AssertionError(f"descent_decide [{label}]: a tie did not "
+                                 "go to ZERO")
+        if label.startswith("the overhang row"):
+            if got[0][-1].any() or not got[0][:-1].any():
+                raise AssertionError(f"descent_split [{label}]: split32 "
+                                     "row sums "
+                                     f"{got[0].sum(dim=1).tolist()}")
+        if label.startswith("lam"):
+            print(f"kernel descent_split [{label}]: {int(got[0].sum())} "
+                  "parents split")
+
+    def timed(name, label, args):
+        kernel, plain = _descent_fns(name, args)
+        return _timed(name, label, kernel, plain, 5,
+                      _descent_bound(name, args),
+                      WRAPPER_KERNELS[name], 1)
+
+    entries = {}
+    for name in DESCENT_WRAPPERS:
+        k = m8["descent_split"][0].shape[0]
+        entry = _entry(name, "tpu_vp9_torch/csrc/descent.cu",
+                       DESCENT_REPLACES[name], errs[name],
+                       [timed(name, f"1080p M8 real K={k}", m8[name])])
+        entry["ra_parts"] = [_part(timed(
+            name, f"1080p RA shape K={g.n_blocks32}", ra[name]))]
+        entries[name] = entry
+    return entries
 
 
 def _part(p):
@@ -2443,7 +2724,8 @@ def _kernel_fns():
             "transform_recon": K.transform_recon,
             "subpel_search": K.subpel_search,
             "openloop_modes": K.openloop_modes,
-            "mc_predict": K.mc_predict}
+            "mc_predict": K.mc_predict,
+            **{w: getattr(K, w) for w in DESCENT_WRAPPERS}}
 
 
 def _reset_counts():
@@ -3079,12 +3361,13 @@ def _ra_launches(geom, golden: bool, altref: bool):
     in place; GOLDEN adds its two candidates' SSEs (one block_energy_at),
     ALTREF its own search, quarter-pel search and ZERO SSE; without a strip
     the descent adds the children's search, quarter-pel search, ZERO SSE,
-    MC, three transforms and recon SSE; the loop filter is one launch."""
+    MC, three transforms and recon SSE, and its gathers, decision, pack and
+    split merge (one launch each); the loop filter is one launch."""
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
               "subpel_search": 0, "transform_recon": 0, "loop_filter": 1,
-              "openloop_modes": 0, "mc_predict": 0})
+              "openloop_modes": 0, "mc_predict": 0, **NO_DESCENT})
     for n in (32, 16) if geom.strip else (32,):
         c["hier_search_fused" if n == 32 else "sse_map_search"] += \
             1 + altref
@@ -3096,7 +3379,8 @@ def _ra_launches(geom, golden: bool, altref: bool):
     if not geom.strip:
         for k, v in (("sse_map_search", 1), ("subpel_search", 1),
                      ("block_energy_at", 1), ("mc_predict", 1),
-                     ("transform_recon", 3), ("block_energy", 1)):
+                     ("transform_recon", 3), ("block_energy", 1),
+                     *((w, 1) for w in DESCENT_WRAPPERS)):
             c[k] += v
     return c
 
@@ -4671,6 +4955,7 @@ def main() -> int:
         subpel_kernel_phase(dev, real["sp"]),
         mc_kernel_phase(dev, real["mc"]),
         transform_kernel_phase(dev, real["tr"], real_frames, real_recons),
+        *descent_kernel_phase(dev, real["desc"], real["ecm"]).values(),
         kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]),
         openloop_kernel_phase(dev))}
     del real, real_frames, real_recons
@@ -4690,7 +4975,7 @@ def main() -> int:
     # made inside the counted window after the encode
     for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter",
                  "kframe_wave", "transform_recon", "subpel_search",
-                 "mc_predict"):
+                 "mc_predict", *DESCENT_WRAPPERS):
         kernels[name]["launches"] = sum(m8_counts[w]
                                         for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)

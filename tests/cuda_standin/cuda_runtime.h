@@ -6,8 +6,10 @@
 // exchange area and a barrier of the warp. The byte intrinsics
 // (__byte_perm, __funnelshift_r, __vabsdiffu4) and dp4a (__dp4a,
 // conv8::dp4a_us, conv8::dp4a_uu) are written out from their definitions
-// in the PTX and CUDA manuals. standin_launch runs the CTAs of a grid one
-// after another; standin_launch_all runs them all at once (each with its
+// in the PTX and CUDA manuals; the float32 intrinsics that round once
+// (__fadd_rn, __fmul_rn, __fdiv_rn, the integer conversions) as single
+// IEEE operations, and __trap as a recorded failure. standin_launch runs
+// the CTAs of a grid one after another; standin_launch_all runs them all at once (each with its
 // own shared buffer and exchange area), for a kernel whose CTAs wait on
 // each other:
 // the relaxed loads and stores at the card's scope (KF_SYNC_STANDIN) and
@@ -82,6 +84,21 @@ inline double __dadd_rn(double a, double b) {
   volatile double r = a + b;
   return r;
 }
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fdiv_rn(float a, float b) {
+  volatile float r = a / b;
+  return r;
+}
+// integer to float32, rounded to nearest even (the default mode)
+inline float __int2float_rn(int v) { return static_cast<float>(v); }
+inline float __ll2float_rn(long long v) { return static_cast<float>(v); }
 // a + b rounded toward minus infinity
 inline double __dadd_rd(double a, double b) {
   std::fesetround(FE_DOWNWARD);
@@ -347,7 +364,18 @@ enum : int {
   cudaErrorInvalidValue = 1,
   cudaErrorInvalidConfiguration = 9,
   cudaErrorInvalidDevice = 101,
+  cudaErrorLaunchFailure = 719,
 };
+
+// __trap: on the card the launch fails (the next synchronisation reports
+// it); here the call is recorded for standin_take_trap and the kernel
+// returns after it, as the sources' do
+inline std::atomic<int> standin_trapped{0};
+inline void __trap() { standin_trapped.store(1); }
+// cudaErrorLaunchFailure if a kernel trapped since the last call, else 0
+inline cudaError_t standin_take_trap() {
+  return standin_trapped.exchange(0) ? cudaErrorLaunchFailure : cudaSuccess;
+}
 enum cudaDeviceAttr {
   cudaDevAttrMultiProcessorCount = 16,
   cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,

@@ -93,7 +93,8 @@ ENCDEC_PY = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_encdec.py")
 WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter",
             "kframe_wave", "transform_recon", "subpel_search",
-            "openloop_modes", "mc_predict")
+            "openloop_modes", "mc_predict", "descent_gather",
+            "descent_decide", "descent_pack", "descent_split")
 
 
 def _functions(path):
@@ -137,8 +138,9 @@ def test_wrappers_cover_every_kernel_source():
         os.path.join(REPO, "tpu_vp9_torch", "csrc", "*.cu"))}
     assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
     assert {"loop_filter", "kframe_wave", "transform_recon",
-            "subpel_search", "openloop_modes", "mc_predict"} <= sources
-    assert len(sources) == 10
+            "subpel_search", "openloop_modes", "mc_predict",
+            "descent"} <= sources
+    assert len(sources) == 11
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -219,7 +221,13 @@ STEP_DISPATCH = {
                       ("zone_search", "encode_children_masked"), ()),
     "mc_predict": ("mc_predict", ("zone_code", "encode_children_masked"),
                    ()),
+    "descent_gather": ("descent_gather", ("encode_children_masked",), ()),
+    "descent_decide": ("descent_decide", ("encode_children_masked",), ()),
+    "descent_pack": ("descent_pack", ("encode_children_masked",), ()),
+    "descent_split": ("descent_split", ("pframe_step",), ()),
 }
+DESCENT = ("descent_gather", "descent_decide", "descent_pack",
+           "descent_split")
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -279,6 +287,11 @@ def test_subpel_search_dispatch_has_no_route_from_cuda_to_the_plain_version():
 
 def test_mc_predict_dispatch_has_no_route_from_cuda_to_the_plain_version():
     _check_step_dispatch("mc_predict")
+
+
+@pytest.mark.parametrize("name", DESCENT)
+def test_descent_dispatch_has_no_route_from_cuda_to_the_plain_version(name):
+    _check_step_dispatch(name)
 
 
 def test_kframe_wave_ref_transforms_with_the_plain_version():
@@ -474,6 +487,66 @@ def test_stage_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
             "subpel_search": (6, 32, 4),
             "mc_predict": (6, 32, 120, 66, 40, 21, 34, 240)}[name]
     assert calls[0][1][-len(want):] == want
+
+
+def _meta_descent_inputs(name):
+    """Arguments of the descent's dispatch ``name`` as meta tensors at
+    128x96 (12 parents, 3 descended), and the launcher's trailing ints (and
+    floats) the wrapper must pass."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    g = P.make_geom(128, 96)
+    u8 = torch.uint8
+    if name == "descent_gather":
+        return ((meta((3,)), meta((12, 120, 120), u8), meta((12,)),
+                 meta((12,)), meta((12, 2)), meta((128, 128), u8),
+                 meta((64, 64), u8), meta((64, 64), u8), g),
+                (12, 12, 120, 4, 128, 64, P.BORDER))
+    if name == "descent_decide":
+        return ((meta((12, 17, 17)), *(meta((12,)) for _ in range(9)), 300,
+                 meta((P.MVD_MAX + 1,), torch.float32), None),
+                (0.0, 2.0, 4.0, 12, 0, 300, 0, 0, 0, 0, P.MVD_MAX + 1))
+    if name == "descent_pack":
+        return ((*(meta((12,)) for _ in range(3)),
+                 meta((12, 16, 16), torch.int16),
+                 meta((12, 8, 8), torch.int16), meta((12, 8, 8), torch.int16),
+                 meta((12, 16, 16), u8), meta((12, 8, 8), u8),
+                 meta((12, 8, 8), u8), meta((12,))), (3,))
+    return ((meta((3,)), meta((12,)), meta((12,), torch.int64),
+             meta((3,), torch.int64), meta((3,), torch.int64),
+             meta((96, 128), u8), meta((48, 64), u8), meta((48, 64), u8),
+             meta((3, 32, 32), u8), meta((3, 16, 16), u8),
+             meta((3, 16, 16), u8), 300, g),
+            (P.SPLIT_RATE_EXTRA, 3, 12, 4, 300, 12))
+
+
+@pytest.mark.parametrize("name", DESCENT)
+def test_descent_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
+                                                             name):
+    """Tensors off the CPU reach the wrapper, which launches once with the
+    launcher's arguments and returns tensors on their device; a launch that
+    fails raises."""
+    calls = []
+    K, dispatch = _fake_cuda_stage(
+        monkeypatch, name, lambda nm, dev, *args: calls.append((nm, args)))
+    args, want = _meta_descent_inputs(name)
+    before = getattr(K, name).launches
+    out = dispatch(*args)
+    assert [c[0] for c in calls] == [name]
+    assert getattr(K, name).launches - before == 1
+    tensors = list(out.values()) if isinstance(out, dict) else list(out)
+    assert tensors and all(t.device.type == "meta" for t in tensors)
+    assert calls[0][1][-len(want):] == want
+
+    def refused(nm, dev, *a):
+        raise RuntimeError(f"{nm}: CUDA launch failed with error 9")
+
+    monkeypatch.setattr(K, "_launch", refused)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dispatch(*args)
 
 
 def test_stage_dispatch_raises_when_the_launch_fails(monkeypatch):

@@ -19,6 +19,10 @@ the JAX package writes in jnp:
   kframe_step (the intra wavefront)    kframe_wave (csrc/kframe_wave.cu)
   mc_predict_from_wins (and            mc_predict (csrc/mc_predict.cu)
     _clamp_mv_umv)
+  encode_children_masked, pframe_step  descent_gather, descent_decide,
+    (the split16 descent's gathers,    descent_pack, descent_split
+    candidate decision, pack and       (csrc/descent.cu)
+    split merge)
 
 and the device stage of the host route's keyframe hints:
 
@@ -33,13 +37,15 @@ Every kernel has a plain PyTorch version beside it (``*_ref``). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
-``subpel_search``, ``mc_predict``, ``transform_recon``, ``loop_filter`` and
-``kframe_wave`` take CUDA tensors only: their plain versions are the steps'
-own (``pipeline/tpu_encdec.py``: ``subpel_search_ref``, ``mc_predict_ref``,
-``transform_recon_ref``, ``loop_filter_ref``, ``kframe_wave_ref``), and the
+``subpel_search``, ``mc_predict``, ``transform_recon``, ``loop_filter``,
+``kframe_wave`` and the four ``descent_*`` take CUDA tensors only: their
+plain versions are the steps' own (``pipeline/tpu_encdec.py``:
+``subpel_search_ref``, ``mc_predict_ref``, ``transform_recon_ref``,
+``loop_filter_ref``, ``kframe_wave_ref``, ``descent_*_ref``), and the
 steps' dispatches (``subpel_search``, ``mc_predict``, ``transform_recon``,
-``loop_filter_device``, ``kframe_wave_device``) send CPU tensors there and
-CUDA tensors here. This module imports nothing of ``pipeline``.
+``loop_filter_device``, ``kframe_wave_device``, ``descent_*``) send CPU
+tensors there and CUDA tensors here. This module imports nothing of
+``pipeline``.
 """
 
 from __future__ import annotations
@@ -98,6 +104,10 @@ _LAUNCHERS = {
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
     "mc_predict": ("mc_predict", "mc_predict_launch", 21, 0, 8),
     "openloop_modes": ("openloop_modes", "openloop_modes_launch", 5, 0, 4),
+    "descent_gather": ("descent", "descent_gather_launch", 13, 0, 7),
+    "descent_decide": ("descent", "descent_decide_launch", 16, 3, 8),
+    "descent_pack": ("descent", "descent_pack_launch", 16, 0, 1),
+    "descent_split": ("descent", "descent_split_launch", 15, 1, 5),
 }
 _fns: dict = {}
 
@@ -1630,3 +1640,293 @@ def mc_predict_occupancy(n: int, device=None):
     """mc_predict's (resident CTAs of 64 threads per SM, dynamic shared
     memory in bytes) at luma block size n (``_occupancy``)."""
     return _occupancy("mc_predict", MC_BLOCK_SIZES, n, device)
+
+
+# ---------------------------------------------------------------------------
+# The P-frame step's split16 descent (csrc/descent.cu)
+# ---------------------------------------------------------------------------
+
+# the kernels' compiled shapes: the children's full-pel reach (the step's
+# CHILD_R) and the side of a parent's union slice
+DESCENT_R = 8
+DESCENT_UNION = 64
+# descent_gather's int32 rows, each (4K,): sum(src^2), the map centre's
+# displacement, the child's position, its bordered start (block_energy_at's
+# (1, 4K) starts), its offset in the parent's window, the parent's window
+# index and final MV
+GATHER_INTS = ("src2", "base_y", "base_x", "pos_y", "pos_x", "start_y",
+               "start_x", "off_y", "off_x", "win_idx", "par_r", "par_c")
+# descent_occupancy's kernels, by their index in the source
+DESCENT_KERNELS = ("gather", "decide", "pack", "split")
+
+
+def _want(name: str, what: str, t, shape, dtype) -> None:
+    """Raise unless ``t`` has ``shape`` and ``dtype`` and is contiguous."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {tuple(shape)} {dtype}, "
+                        f"got {tuple(t.shape)} {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _want_plane(name: str, what: str, t, rows: int, cols: int) -> None:
+    """Raise unless ``t`` is a contiguous uint8 plane of at least ``rows``
+    x ``cols``."""
+    if t.dim() != 2 or t.dtype != torch.uint8:
+        raise TypeError(f"{name}: {what} must be a uint8 plane, got "
+                        f"{tuple(t.shape)} {t.dtype}")
+    if t.shape[0] < rows or t.shape[1] < cols:
+        raise ValueError(f"{name}: {what} of {tuple(t.shape)} holds no "
+                         f"{rows}x{cols} grid")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _cuda_only(name: str, *tensors) -> torch.device:
+    """The one CUDA device of ``tensors``; raise for CPU tensors (they take
+    the plain version through the step's dispatch)."""
+    if _device_kind(name, *tensors) != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
+                         f"tensors go through the step's {name}")
+    return tensors[0].device
+
+
+def descent_gather(sel, wins, dy, dx, parent_mv, src_y, src_u, src_v, geom,
+                   border: int):
+    """The descent's gathers for the 4K children of the K parents ``sel``,
+    on the card, in one launch.
+
+    sel: (K,) int32 parent indices in [0, B32) (raster order of the 32
+    grid; outside it the kernel traps); wins: (B32, SW, SW) uint8, the
+    parents' LAST search windows, read in place; dy, dx: (B32,) int32 the
+    parents' full-pel winners; parent_mv: (B32, 2) int32 their final q3
+    MVs; src_y, src_u, src_v: the padded source planes (uint8, holding the
+    rows32 x cols32 grid at 32 and 16); all contiguous CUDA tensors of one
+    device; ``geom`` the step's Geom; ``border`` the reference planes'
+    border, added to the positions for "start_y" and "start_x". Returns a
+    dict: "cw" (4K, 40, 40) the children's search windows, "csrc" (4K, 16,
+    16), "csrc_u", "csrc_v" (4K, 8, 8) their source blocks (uint8), and
+    the int32 rows of ``GATHER_INTS``, (4K,) each but "start_y" and
+    "start_x", (1, 4K): bit for bit what ``pipeline/tpu_encdec.py:
+    descent_gather_ref`` returns. It runs the kernel of ``csrc/descent.cu``
+    or raises."""
+    name = "descent_gather"
+    k = sel.shape[0]
+    b32 = geom.rows32 * geom.cols32
+    _want(name, "sel", sel, (k,), torch.int32)
+    if wins.dim() != 3 or wins.shape[0] != b32 or wins.shape[1] != \
+            wins.shape[2] or wins.shape[1] < DESCENT_UNION:
+        raise ValueError(f"{name}: wins of {tuple(wins.shape)}, want ({b32}, "
+                         f"SW, SW) with SW >= {DESCENT_UNION}")
+    _want(name, "wins", wins, wins.shape, torch.uint8)
+    _want(name, "dy", dy, (b32,), torch.int32)
+    _want(name, "dx", dx, (b32,), torch.int32)
+    _want(name, "parent_mv", parent_mv, (b32, 2), torch.int32)
+    _want_plane(name, "src_y", src_y, geom.rows32 * 32, geom.cols32 * 32)
+    _want_plane(name, "src_u", src_u, geom.rows32 * 16, geom.cols32 * 16)
+    _want_plane(name, "src_v", src_v, geom.rows32 * 16, geom.cols32 * 16)
+    if src_u.shape != src_v.shape:
+        raise ValueError(f"{name}: src_u {tuple(src_u.shape)} and src_v "
+                         f"{tuple(src_v.shape)} differ")
+    dev = _cuda_only(name, sel, wins, dy, dx, parent_mv, src_y, src_u, src_v)
+    nch = 4 * k
+    cw_side = 16 + 2 * DESCENT_R + 8
+    # one allocation for the blocks: csrc, cw, csrc_u, csrc_v, each part
+    # starting on a 64-byte boundary (the kernels after take them aligned)
+    parts = (nch * 256, nch * cw_side * cw_side, nch * 64, nch * 64)
+    buf = torch.empty(sum(parts), dtype=torch.uint8, device=dev)
+    csrc, cw, csrc_u, csrc_v = buf.split(parts)
+    ints = torch.empty((len(GATHER_INTS), nch), dtype=torch.int32,
+                       device=dev)
+    if k > 0:
+        _launch(name, dev, sel.data_ptr(), wins.data_ptr(), dy.data_ptr(),
+                dx.data_ptr(), parent_mv.data_ptr(), src_y.data_ptr(),
+                src_u.data_ptr(), src_v.data_ptr(), cw.data_ptr(),
+                csrc.data_ptr(), csrc_u.data_ptr(), csrc_v.data_ptr(),
+                ints.data_ptr(), nch, b32, wins.shape[-1], geom.cols32,
+                src_y.shape[1], src_u.shape[1], int(border))
+        descent_gather.launches += 1
+    out = {"cw": cw.view(nch, cw_side, cw_side),
+           "csrc": csrc.view(nch, 16, 16),
+           "csrc_u": csrc_u.view(nch, 8, 8), "csrc_v": csrc_v.view(nch, 8, 8)}
+    for i, key in enumerate(GATHER_INTS):
+        out[key] = ints[i:i + 1] if key.startswith("start") else ints[i]
+    return out
+
+
+descent_gather.launches = 0
+
+
+def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
+                   base_x, par_r, par_c, lam: int, new_bits, rates,
+                   proxy):
+    """The children's candidate decision, {ZERO, NEW, PARENT}, on the
+    card: a thread per child, one launch.
+
+    ssem: (4K, 17, 17) int32 the children's relative-SSE maps; sse_zero,
+    sse_new, sub_r, sub_c (the quarter-pel winner in the window, q3),
+    src2, base_y, base_x (the map centre's displacement), par_r, par_c
+    (the parent's final MV): (4K,) int32; all contiguous CUDA tensors of
+    one device. rates: ``upload_rate_tabs``' dict (the frame's float32
+    ``lam_bits`` as a host number; the three LUTs on the device) or None;
+    then ``lam`` and ``proxy`` = (ZERO's, PARENT's rate) weigh the costs
+    and NEW's rate is ``new_bits`` (float32, indexed by the mvd, which must
+    stay inside it: past it the kernel traps). Returns (mv_r, mv_c (4K,)
+    int32, mv (4K, 2) int16), bit for bit what ``pipeline/tpu_encdec.py:
+    descent_decide_ref`` returns. It runs the kernel of
+    ``csrc/descent.cu`` or raises."""
+    name = "descent_decide"
+    nch = sse_zero.shape[0]
+    d = 2 * DESCENT_R + 1
+    _want(name, "ssem", ssem, (nch, d, d), torch.int32)
+    vecs = (sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r,
+            par_c)
+    for what, t in zip(("sse_zero", "sse_new", "sub_r", "sub_c", "src2",
+                        "base_y", "base_x", "par_r", "par_c"), vecs):
+        _want(name, what, t, (nch,), torch.int32)
+    if new_bits.dim() != 1:
+        raise TypeError(f"{name}: new_bits must be 1-D, got "
+                        f"{tuple(new_bits.shape)}")
+    _want(name, "new_bits", new_bits, new_bits.shape, torch.float32)
+    tabs = ()
+    if rates is not None:
+        m = int(rates["mv_cost_max"])
+        tabs = (rates["joint_cost"], rates["nmv_row"], rates["nmv_col"])
+        for what, t, size in zip(("joint_cost", "nmv_row", "nmv_col"), tabs,
+                                 (4, 2 * m + 1, 2 * m + 1)):
+            _want(name, what, t, (size,), torch.int32)
+        if isinstance(rates["lam_bits"], torch.Tensor):
+            raise TypeError(f"{name}: the children take the frame's "
+                            "lam_bits, a host number")
+        mode = [int(v) for v in rates["mode_cost"]]
+    dev = _cuda_only(name, ssem, *vecs, new_bits, *tabs)
+    mv = torch.empty((2, nch), dtype=torch.int32, device=dev)
+    mv16 = torch.empty((nch, 2), dtype=torch.int16, device=dev)
+    if nch > 0:
+        if rates is None:
+            flt = (0.0, float(proxy[0]), float(proxy[1]))
+            ints = (nch, 0, int(lam), 0, 0, 0, 0, new_bits.shape[0])
+            ptrs = (None, None, None)
+        else:
+            flt = (float(rates["lam_bits"]), 0.0, 0.0)
+            ints = (nch, 1, int(lam), mode[2], mode[3], mode[0], m,
+                    new_bits.shape[0])
+            ptrs = tuple(t.data_ptr() for t in tabs)
+        _launch(name, dev, *(t.data_ptr() for t in (ssem, *vecs, new_bits)),
+                *ptrs, mv.data_ptr(), mv16.data_ptr(), *flt, *ints)
+        descent_decide.launches += 1
+    mv_r, mv_c = mv.unbind(0)
+    return mv_r, mv_c, mv16
+
+
+descent_decide.launches = 0
+
+
+def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
+                 dist_c):
+    """The children's pack, on the card: a CTA per parent, one launch.
+
+    eob_y, eob_u, eob_v, dist_c (the recon SSE): (4K,) int32; lv_y (4K,
+    16, 16), lv_u, lv_v (4K, 8, 8) int16; rec_y (4K, 16, 16), rec_u, rec_v
+    (4K, 8, 8) uint8; all contiguous CUDA tensors of one device. Returns a
+    dict: "skip" (4K,) bool, "dist4", "rate4" (K,) int64 (the parent's
+    sums of its children's distortion and nonzero levels), "rec_y32" (K,
+    32, 32), "rec_u16", "rec_v16" (K, 16, 16) uint8 (the children's recon
+    merged), bit for bit what ``pipeline/tpu_encdec.py:descent_pack_ref``
+    returns. It runs the kernel of ``csrc/descent.cu`` or raises."""
+    name = "descent_pack"
+    nch = eob_y.shape[0]
+    if nch % 4:
+        raise ValueError(f"{name}: {nch} children, not four a parent")
+    for what, t in (("eob_y", eob_y), ("eob_u", eob_u), ("eob_v", eob_v),
+                    ("dist_c", dist_c)):
+        _want(name, what, t, (nch,), torch.int32)
+    for what, t, n in (("lv_y", lv_y, 16), ("lv_u", lv_u, 8),
+                       ("lv_v", lv_v, 8)):
+        _want(name, what, t, (nch, n, n), torch.int16)
+    for what, t, n in (("rec_y", rec_y, 16), ("rec_u", rec_u, 8),
+                       ("rec_v", rec_v, 8)):
+        _want(name, what, t, (nch, n, n), torch.uint8)
+    ins = (eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
+           dist_c)
+    dev = _cuda_only(name, *ins)
+    k = nch // 4
+    # one allocation for the bytes: rec_y32, rec_u16, rec_v16, skip
+    parts = (k * 1024, k * 256, k * 256, nch)
+    buf = torch.empty(sum(parts), dtype=torch.uint8, device=dev)
+    rec_y32, rec_u16, rec_v16, skip = buf.split(parts)
+    sums = torch.empty((2, k), dtype=torch.int64, device=dev)
+    if k > 0:
+        _launch(name, dev, *(t.data_ptr() for t in ins), skip.data_ptr(),
+                sums[0].data_ptr(), sums[1].data_ptr(), rec_y32.data_ptr(),
+                rec_u16.data_ptr(), rec_v16.data_ptr(), k)
+        descent_pack.launches += 1
+    return {"skip": skip.view(torch.bool), "dist4": sums[0],
+            "rate4": sums[1], "rec_y32": rec_y32.view(k, 32, 32),
+            "rec_u16": rec_u16.view(k, 16, 16),
+            "rec_v16": rec_v16.view(k, 16, 16)}
+
+
+descent_pack.launches = 0
+
+
+def descent_split(sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v,
+                  rec_y32, rec_u16, rec_v16, lam: int, geom, extra: float):
+    """The 32-against-4x16 decision and the recon merge, on the card: a CTA
+    per block of the 32 zone, one launch that writes every output.
+
+    sel: (K,) int32 distinct parent indices in [0, B32) (outside it the
+    kernel traps); dist_b (B32,) int32 and rate_b (B32,) int64 the zone's
+    distortion and nonzero levels; dist4, rate4 (K,) int64 the children's;
+    rec_y (rows32 * 32, cols32 * 32), rec_u, rec_v (rows32 * 16, cols32 *
+    16) uint8 the zone's recon planes, only read; rec_y32 (K, 32, 32),
+    rec_u16, rec_v16 (K, 16, 16) uint8 the children's merged recon; all
+    contiguous CUDA tensors of one device. ``extra``: the split's extra
+    rate; at mi_rows % 4 == 3 the overhang row never splits. Returns
+    (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v: new planes), bit
+    for bit what ``pipeline/tpu_encdec.py:descent_split_ref`` returns. It
+    runs the kernel of ``csrc/descent.cu`` or raises."""
+    name = "descent_split"
+    r32, c32 = geom.rows32, geom.cols32
+    b32 = r32 * c32
+    k = sel.shape[0]
+    _want(name, "sel", sel, (k,), torch.int32)
+    _want(name, "dist_b", dist_b, (b32,), torch.int32)
+    _want(name, "rate_b", rate_b, (b32,), torch.int64)
+    _want(name, "dist4", dist4, (k,), torch.int64)
+    _want(name, "rate4", rate4, (k,), torch.int64)
+    for what, t, n in (("rec_y", rec_y, 32), ("rec_u", rec_u, 16),
+                       ("rec_v", rec_v, 16)):
+        _want(name, what, t, (r32 * n, c32 * n), torch.uint8)
+    for what, t, n in (("rec_y32", rec_y32, 32), ("rec_u16", rec_u16, 16),
+                       ("rec_v16", rec_v16, 16)):
+        _want(name, what, t, (k, n, n), torch.uint8)
+    ins = (sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v, rec_y32,
+           rec_u16, rec_v16)
+    dev = _cuda_only(name, *ins)
+    split32 = torch.empty((r32, c32), dtype=torch.int32, device=dev)
+    parts = (b32 * 1024, b32 * 256, b32 * 256)
+    out_y, out_u, out_v = torch.empty(sum(parts), dtype=torch.uint8,
+                                      device=dev).split(parts)
+    limit = (r32 - 1) * c32 if geom.mi_rows % 4 == 3 else b32
+    if b32 > 0:
+        _launch(name, dev, *(t.data_ptr() for t in ins), split32.data_ptr(),
+                out_y.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
+                float(extra), k, b32, c32, int(lam), limit)
+        descent_split.launches += 1
+    return (split32, out_y.view(r32 * 32, c32 * 32),
+            out_u.view(r32 * 16, c32 * 16), out_v.view(r32 * 16, c32 * 16))
+
+
+descent_split.launches = 0
+
+
+def descent_occupancy(kernel: str, device=None):
+    """(resident CTAs per SM, dynamic shared memory in bytes) of the
+    descent's kernel ``kernel`` (one of ``DESCENT_KERNELS``;
+    ``_occupancy``)."""
+    if kernel not in DESCENT_KERNELS:
+        raise ValueError(f"descent: no kernel {kernel!r} in "
+                         f"{DESCENT_KERNELS}")
+    return _occupancy("descent", range(len(DESCENT_KERNELS)),
+                      DESCENT_KERNELS.index(kernel), device)

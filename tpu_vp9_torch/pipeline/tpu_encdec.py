@@ -37,7 +37,7 @@ their chroma from the parent's merged MC windows, another reference's
 where the parent took GOLDEN or ALTREF, while they are coded as LAST
 blocks, so a decoder predicted them otherwise; here they take LAST's
 (``encode_zone``'s ``return_me``). And a parent of the overhang row keeps
-its 32 whatever the descent selects (``split_decide``). Neither changes a
+its 32 whatever the descent selects (``descent_split``). Neither changes a
 stream whose recon the JAX package's decode matches.
 
 The new reference planes stay on the step's device; the host receives the
@@ -1542,6 +1542,172 @@ def _merge4(blocks, k: int, n: int):
         .reshape(k, 2 * n, 2 * n)
 
 
+def descent_gather_ref(sel_idx, wins, dy, dx, parent_mv, src_y, src_u,
+                       src_v, geom: Geom):
+    """The descent's gathers for the 4K children of the K parents
+    ``sel_idx`` (plain version of the kernel behind ``ops/cuda_kernels.py:
+    descent_gather``, same arguments): each child's 40x40 search window,
+    a 16-block of its parent's (SW, SW) LAST window (one 64x64 union slice
+    per parent around its full-pel winner (dy, dx), clipped into the
+    window, and four 40x40 sub-slices of it), its luma and chroma source
+    blocks, sum(src^2), and the int32 vectors the descent reads (the map
+    centre's displacement, the child's position and bordered start, its
+    offset in the parent's window, the window index, the parent's final
+    MV). Child order: k*4 + 2*i + j for parent sel_idx[k], child row i,
+    column j. Returns a dict ``cw``, ``csrc``, ``csrc_u``, ``csrc_v`` and
+    the keys of ``cuda_kernels.GATHER_INTS``."""
+    g = geom
+    dev = src_y.device
+    sel = sel_idx.long()
+    k = sel.shape[0]
+    cols32, rows32 = g.cols32, g.rows32
+    cols16 = cols32 * 2
+    pr = sel // cols32
+    pc = sel % cols32
+    wk = wins[sel]                              # (K, SW, SW)
+    sw = wk.shape[-1]
+    s_y = (dy[sel] + 36).clamp(0, sw - 64)
+    s_x = (dx[sel] + 36).clamp(0, sw - 64)
+    union = _take_windows(wk, s_y, s_x, 64)     # (K, 64, 64)
+    base_y = (s_y - 32).repeat_interleave(4)    # map-centre displ.
+    base_x = (s_x - 32).repeat_interleave(4)
+    cw = torch.stack([union[:, 16 * i:16 * i + 40, 16 * j:16 * j + 40]
+                      for i in (0, 1) for j in (0, 1)], dim=1) \
+        .reshape(k * 4, 40, 40)
+
+    ii = torch.tensor([0, 0, 1, 1], device=dev)
+    jj = torch.tensor([0, 1, 0, 1], device=dev)
+    c_row = (2 * pr)[:, None] + ii[None]        # (K, 4)
+    c_col = (2 * pc)[:, None] + jj[None]
+    cidx = (c_row * cols16 + c_col).reshape(-1)  # (4K,)
+    csrc = _extract_blocks(src_y, 0, rows32 * 2, cols16, 16)[cidx]
+    csrc_u, csrc_v = (_extract_blocks(plane, 0, rows32 * 2, cols16, 8)[cidx]
+                      for plane in (src_u, src_v))
+    return {
+        "cw": cw, "csrc": csrc, "csrc_u": csrc_u, "csrc_v": csrc_v,
+        "src2": _block_sq_sum(csrc), "base_y": base_y, "base_x": base_x,
+        "pos_y": (c_row * 16).reshape(-1).to(torch.int32),
+        "pos_x": (c_col * 16).reshape(-1).to(torch.int32),
+        "start_y": (c_row * 16 + BORDER).reshape(1, -1).to(torch.int32),
+        "start_x": (c_col * 16 + BORDER).reshape(1, -1).to(torch.int32),
+        "off_y": (ii * 16).repeat(k).to(torch.int32),
+        "off_x": (jj * 16).repeat(k).to(torch.int32),
+        "win_idx": sel.to(torch.int32).repeat_interleave(4),
+        "par_r": parent_mv[sel, 0].repeat_interleave(4),
+        "par_c": parent_mv[sel, 1].repeat_interleave(4),
+    }
+
+
+def descent_gather(sel_idx, wins, dy, dx, parent_mv, src_y, src_u, src_v,
+                   geom: Geom):
+    """The descent's gathers (contract: ``descent_gather_ref``). Tensors
+    that all lie on the CPU take the plain version; anything else goes to
+    the CUDA kernel's wrapper, which launches or raises."""
+    if all(t.device.type == "cpu" for t in (sel_idx, wins, dy, dx,
+                                            parent_mv, src_y, src_u, src_v)):
+        return descent_gather_ref(sel_idx, wins, dy, dx, parent_mv, src_y,
+                                  src_u, src_v, geom)
+    return cuda_kernels.descent_gather(sel_idx, wins, dy, dx, parent_mv,
+                                       src_y, src_u, src_v, geom, BORDER)
+
+
+def descent_decide_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2,
+                       base_y, base_x, par_r, par_c, lam: int, new_bits,
+                       rates=None):
+    """The children's candidate decision (plain version of the kernel
+    behind ``ops/cuda_kernels.py:descent_decide``, its arguments but
+    ``proxy``, which is ``CAND_RATE_PROXY``'s here): {ZERO, NEW, PARENT},
+    NEW at (base * 8 + sub), PARENT (the parent's final MV) scored at its
+    entry of the child's SSE map plus src2; with ``rates`` the entropy
+    tables' costs (NEW's mvd against PARENT), else SSE + lam * rate with
+    NEW's rate ``new_bits[mvd]``; first minimum. Returns (mv_r, mv_c,
+    (4K, 2) int16 mv)."""
+    dev = sse_zero.device
+    nch = sse_zero.shape[0]
+    mv_new_r = base_y * 8 + sub_r
+    mv_new_c = base_x * 8 + sub_c
+    rch = CHILD_R
+    dch = 2 * rch + 1
+    fy = (((par_r + 4) >> 3) - base_y).clamp(-rch, rch) + rch
+    fx = (((par_c + 4) >> 3) - base_x).clamp(-rch, rch) + rch
+    sse_par = ssem_c.reshape(nch, dch * dch).gather(
+        1, (fy * dch + fx).long()[:, None])[:, 0] + src2
+
+    zero = torch.zeros_like(mv_new_r)
+    cand_r = torch.stack([zero, mv_new_r, par_r])
+    cand_c = torch.stack([zero, mv_new_c, par_c])
+    sads = torch.stack([sse_zero, sse_new, sse_par])
+    if rates is not None:
+        mc = rates["mode_cost"]
+        ones = torch.ones_like(mv_new_r)
+        mvd_bits = _mvd_bits(rates, mv_new_r - par_r, mv_new_c - par_c)
+        rate = torch.stack([mc[2] * ones, mc[3] + mvd_bits, mc[0] * ones])
+        costs = _table_costs(sads, rate, rates["lam_bits"])
+    else:
+        rz, _, _, _, rs = CAND_RATE_PROXY
+        mvd = (mv_new_r - par_r).abs() + (mv_new_c - par_c).abs()
+        ones = torch.ones((nch,), dtype=torch.float32, device=dev)
+        rate = torch.stack([rz * ones, new_bits[mvd.long()], rs * ones])
+        costs = sads.to(torch.float32) + float(lam) * rate
+    (mv_r, mv_c), _, _ = _first_min(costs, (cand_r, cand_c))
+    return mv_r, mv_c, torch.stack([mv_r, mv_c], dim=-1).to(torch.int16)
+
+
+def descent_decide(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
+                   base_x, par_r, par_c, lam: int, new_bits, rates=None):
+    """The children's candidate decision (contract: ``descent_decide_ref``).
+    Tensors that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises."""
+    tabs = () if rates is None else (rates["joint_cost"], rates["nmv_row"],
+                                     rates["nmv_col"])
+    if all(t.device.type == "cpu" for t in (ssem_c, sse_zero, sse_new,
+                                            sub_r, sub_c, src2, base_y,
+                                            base_x, par_r, par_c, new_bits,
+                                            *tabs)):
+        return descent_decide_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c,
+                                  src2, base_y, base_x, par_r, par_c, lam,
+                                  new_bits, rates)
+    return cuda_kernels.descent_decide(
+        ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x,
+        par_r, par_c, lam, new_bits, rates,
+        (CAND_RATE_PROXY[0], CAND_RATE_PROXY[4]))
+
+
+def descent_pack_ref(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u,
+                     rec_v, dist_c):
+    """The children's pack (plain version of the kernel behind
+    ``ops/cuda_kernels.py:descent_pack``, same arguments): skip, the
+    parents' sums of their children's distortion and nonzero levels, and
+    the children's recon merged into the parents' blocks. Returns a dict
+    skip, dist4, rate4, rec_y32, rec_u16, rec_v16."""
+    k = eob_y.shape[0] // 4
+    skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
+    rate_c = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
+              + (lv_v != 0).sum(dim=(1, 2)))
+    return {
+        "skip": skip,
+        "dist4": dist_c.reshape(k, 4).sum(dim=1),
+        "rate4": rate_c.reshape(k, 4).sum(dim=1),
+        "rec_y32": _merge4(rec_y, k, 16),
+        "rec_u16": _merge4(rec_u, k, 8),
+        "rec_v16": _merge4(rec_v, k, 8),
+    }
+
+
+def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
+                 dist_c):
+    """The children's pack (contract: ``descent_pack_ref``). Tensors that
+    all lie on the CPU take the plain version; anything else goes to the
+    CUDA kernel's wrapper, which launches or raises."""
+    if all(t.device.type == "cpu" for t in (eob_y, eob_u, eob_v, lv_y, lv_u,
+                                            lv_v, rec_y, rec_u, rec_v,
+                                            dist_c)):
+        return descent_pack_ref(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y,
+                                rec_u, rec_v, dist_c)
+    return cuda_kernels.descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v,
+                                     rec_y, rec_u, rec_v, dist_c)
+
+
 def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
                            parent_mv, sel_idx, geom: Geom, dc_q: int,
                            ac_q: int, lam: int, filters, new_bits,
@@ -1551,118 +1717,60 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
     encode_children_masked``).
 
     parent_me: {"wins", "dy", "dx", "wu", "wv"} from the 32 zone: the
-    children search +-CHILD_R inside their parent's window (one 64x64
-    union slice per parent around its full-pel winner, clipped into the
-    window, and four 40x40 sub-slices of it) and are compensated straight
-    out of the parent's luma and chroma windows through per-child origin
-    offsets. parent_mv: (B32, 2) int32 final q3 MVs of the parents (the
-    PARENT candidate, scored at its entry of the child's SSE map).
-    sel_idx: (K,) raster parent indices. Candidates {ZERO, NEW, PARENT},
-    first minimum. Child order: k*4 + 2*i + j for parent sel_idx[k], child
-    row i, column j.
+    children search +-CHILD_R inside their parent's window
+    (``descent_gather``) and are compensated straight out of the parent's
+    luma and chroma windows through per-child origin offsets. parent_mv:
+    (B32, 2) int32 final q3 MVs of the parents (the PARENT candidate,
+    scored at its entry of the child's SSE map). sel_idx: (K,) raster
+    parent indices. Candidates {ZERO, NEW, PARENT}, first minimum
+    (``descent_decide``). Child order: k*4 + 2*i + j for parent
+    sel_idx[k], child row i, column j.
     Returns per-child arrays (4K: mv, skip, eob_*, lv_*), sel_idx, and
     per-parent dist4, rate4 and the merged recon blocks rec_y32, rec_u16,
-    rec_v16.
+    rec_v16 (``descent_pack``).
     """
     g = geom
-    dev = src_y.device
-    sel = sel_idx.long()
-    k = sel.shape[0]
-    cols32, rows32 = g.cols32, g.rows32
-    cols16 = cols32 * 2
-    pr = sel // cols32
-    pc = sel % cols32
+    sel = sel_idx.to(torch.int32)
     with _stage("step_children"):
-        wk = parent_me["wins"][sel]                 # (K, SW, SW)
-        sw = wk.shape[-1]
-        s_y = (parent_me["dy"][sel] + 36).clamp(0, sw - 64)
-        s_x = (parent_me["dx"][sel] + 36).clamp(0, sw - 64)
-        union = _take_windows(wk, s_y, s_x, 64)     # (K, 64, 64)
-        base_y = (s_y - 32).repeat_interleave(4)    # map-centre displ.
-        base_x = (s_x - 32).repeat_interleave(4)
-        cw = torch.stack([union[:, 16 * i:16 * i + 40, 16 * j:16 * j + 40]
-                          for i in (0, 1) for j in (0, 1)], dim=1) \
-            .reshape(k * 4, 40, 40)
-
-        ii = torch.tensor([0, 0, 1, 1], device=dev)
-        jj = torch.tensor([0, 1, 0, 1], device=dev)
-        c_row = (2 * pr)[:, None] + ii[None]        # (K, 4)
-        c_col = (2 * pc)[:, None] + jj[None]
-        cidx = (c_row * cols16 + c_col).reshape(-1)  # (4K,)
-        csrc = _extract_blocks(src_y, 0, rows32 * 2, cols16, 16)[cidx]
-
+        ga = descent_gather(sel, parent_me["wins"], parent_me["dy"],
+                            parent_me["dx"], parent_mv, src_y, src_u, src_v,
+                            g)
+        csrc, cw = ga["csrc"], ga["cw"]
         ddy, ddx, ssem_c = sse_map_search(csrc, cw, 16, CHILD_R)
         sub_r, sub_c, sse_new = subpel_search(cw, csrc, ddy, ddx, 16,
                                               CHILD_R)
-        mv_new_r = base_y * 8 + sub_r
-        mv_new_c = base_x * 8 + sub_c
         # exact ZERO SSE: the co-located reference block, read in place
-        sse_zero = block_energy_at(
-            csrc, ref_y,
-            (c_row * 16 + BORDER).reshape(1, -1).to(torch.int32),
-            (c_col * 16 + BORDER).reshape(1, -1).to(torch.int32), 16)[0][0]
-        # PARENT candidate: the parent's final MV at its child-map entry
-        par_r = parent_mv[sel, 0].repeat_interleave(4)
-        par_c = parent_mv[sel, 1].repeat_interleave(4)
-        rch = CHILD_R
-        dch = 2 * rch + 1
-        fy = (((par_r + 4) >> 3) - base_y).clamp(-rch, rch) + rch
-        fx = (((par_c + 4) >> 3) - base_x).clamp(-rch, rch) + rch
-        sse_par = ssem_c.reshape(k * 4, dch * dch).gather(
-            1, (fy * dch + fx).long()[:, None])[:, 0] + _block_sq_sum(csrc)
-
-        zero = torch.zeros_like(mv_new_r)
-        cand_r = torch.stack([zero, mv_new_r, par_r])
-        cand_c = torch.stack([zero, mv_new_c, par_c])
-        sads = torch.stack([sse_zero, sse_new, sse_par])
-        if rates is not None:
-            mc = rates["mode_cost"]
-            ones = torch.ones_like(mv_new_r)
-            mvd_bits = _mvd_bits(rates, mv_new_r - par_r, mv_new_c - par_c)
-            rate = torch.stack([mc[2] * ones, mc[3] + mvd_bits,
-                                mc[0] * ones])
-            costs = _table_costs(sads, rate, rates["lam_bits"])
-        else:
-            rz, _, _, _, rs = CAND_RATE_PROXY
-            mvd = (mv_new_r - par_r).abs() + (mv_new_c - par_c).abs()
-            ones = torch.ones((k * 4,), dtype=torch.float32, device=dev)
-            rate = torch.stack([rz * ones, new_bits[mvd.long()],
-                                rs * ones])
-            costs = sads.to(torch.float32) + float(lam) * rate
-        (mv_r, mv_c), _, _ = _first_min(costs, (cand_r, cand_c))
+        sse_zero = block_energy_at(csrc, ref_y, ga["start_y"],
+                                   ga["start_x"], 16)[0][0]
+        mv_r, mv_c, mv = descent_decide(
+            ssem_c, sse_zero, sse_new, sub_r, sub_c, ga["src2"],
+            ga["base_y"], ga["base_x"], ga["par_r"], ga["par_c"], lam,
+            new_bits, rates)
 
         # MC straight out of the parent windows (every child candidate is
         # reachable there; org_off = the child's offset inside the parent)
-        pos_y = (c_row * 16).reshape(-1).to(torch.int32)
-        pos_x = (c_col * 16).reshape(-1).to(torch.int32)
-        off_y = (ii * 16).repeat(k).to(torch.int32)
-        off_x = (jj * 16).repeat(k).to(torch.int32)
         pred_y, pred_u, pred_v = mc_predict(
-            [(parent_me["wins"], parent_me["wu"], parent_me["wv"])], pos_y,
-            pos_x, mv_r, mv_c, 16, g.mi_rows, g.mi_cols, filters,
-            win_idx=sel.to(torch.int32).repeat_interleave(4),
-            org_off_y=off_y, org_off_x=off_x)
-        chroma = []
-        for plane, pred in ((src_u, pred_u), (src_v, pred_v)):
-            csrc_c = _extract_blocks(plane, 0, rows32 * 2, cols16, 8)[cidx]
-            chroma.append(transform_recon(csrc_c, pred, dc_q, ac_q, 8))
+            [(parent_me["wins"], parent_me["wu"], parent_me["wv"])],
+            ga["pos_y"], ga["pos_x"], mv_r, mv_c, 16, g.mi_rows, g.mi_cols,
+            filters, win_idx=ga["win_idx"], org_off_y=ga["off_y"],
+            org_off_x=ga["off_x"])
+        lv_u, eob_u, rec_u = transform_recon(ga["csrc_u"], pred_u, dc_q,
+                                             ac_q, 8)
+        lv_v, eob_v, rec_v = transform_recon(ga["csrc_v"], pred_v, dc_q,
+                                             ac_q, 8)
         lv_y, eob_y, rec_y = transform_recon(csrc, pred_y, dc_q, ac_q, 16)
-        (lv_u, eob_u, rec_u), (lv_v, eob_v, rec_v) = chroma
-        skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
         dist_c = block_energy(csrc, rec_y, 16)[0]
-        rate_c = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
-                  + (lv_v != 0).sum(dim=(1, 2)))
+        packed = descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y,
+                              rec_u, rec_v, dist_c)
     return {
-        "mv": torch.stack([mv_r, mv_c], dim=-1).to(torch.int16),
-        "skip": skip,
+        "mv": mv,
+        "skip": packed["skip"],
         "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
         "lv_y": lv_y, "lv_u": lv_u, "lv_v": lv_v,
-        "sel_idx": sel_idx.to(torch.int32),
-        "dist4": dist_c.reshape(k, 4).sum(dim=1),
-        "rate4": rate_c.reshape(k, 4).sum(dim=1),
-        "rec_y32": _merge4(rec_y, k, 16),
-        "rec_u16": _merge4(rec_u, k, 8),
-        "rec_v16": _merge4(rec_v, k, 8),
+        "sel_idx": sel,
+        "dist4": packed["dist4"], "rate4": packed["rate4"],
+        "rec_y32": packed["rec_y32"], "rec_u16": packed["rec_u16"],
+        "rec_v16": packed["rec_v16"],
     }
 
 
@@ -1675,27 +1783,24 @@ def descent_parents(score, k: int):
     return torch.sort(score, descending=True, stable=True)[1][:k]
 
 
-def split_decide(out32, out16, lam: int, geom: Geom):
-    """The 32-against-4x16 decision for the descended parents and the
-    recon merge (``tpu_vp9/pipeline/tpu_encdec.py:pframe_step``).
-
-    Costs are dist + lam * rate in float32 (rate in nonzero-level counts,
-    the split paying SPLIT_RATE_EXTRA more), strict '<' for the split. A
-    parent in the overhang row (mi_rows % 4 == 3) keeps its 32 whatever
-    the costs: its children would need the forced edge partition, which
-    ``walk_partition_split`` does not write. The JAX package keeps those
-    parents out through the descent's ranking alone, which selects them
-    once K passes the other parents (always at ``descend_frac=1``).
-    Removes dist4, rate4 and the merged recon blocks from ``out16``.
-    Returns (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v)."""
+def descent_split_ref(sel_idx, dist_b, rate_b, dist4, rate4, rec_y, rec_u,
+                      rec_v, rec_y32, rec_u16, rec_v16, lam: int,
+                      geom: Geom):
+    """The 32-against-4x16 decision and the recon merge (plain version of
+    the kernel behind ``ops/cuda_kernels.py:descent_split``, its arguments
+    but the split's extra rate): costs dist + lam * rate in float32 (the
+    split paying SPLIT_RATE_EXTRA more rate), strict '<' for the split,
+    never in the overhang row (mi_rows % 4 == 3); where a parent splits
+    its recon blocks become its children's merged ones. Returns (split32
+    (rows32, cols32) int32, rec_y, rec_u, rec_v: new planes)."""
     g = geom
     r32, c32, b32 = g.rows32, g.cols32, g.n_blocks32
-    sel = out16["sel_idx"].long()
-    d16 = out16.pop("dist4").to(torch.float32)
-    rt16 = out16.pop("rate4").to(torch.float32)
+    sel = sel_idx.long()
+    d16 = dist4.to(torch.float32)
+    rt16 = rate4.to(torch.float32)
     lam_f = float(lam)
-    cost32k = (out32["dist_b"][sel].to(torch.float32)
-               + lam_f * out32["rate_b"][sel].to(torch.float32))
+    cost32k = (dist_b[sel].to(torch.float32)
+               + lam_f * rate_b[sel].to(torch.float32))
     cost16k = d16 + lam_f * (rt16 + SPLIT_RATE_EXTRA)
     use16 = cost16k < cost32k  # (K,)
     if g.mi_rows % 4 == 3:
@@ -1708,10 +1813,24 @@ def split_decide(out32, out16, lam: int, geom: Geom):
         blocks[sel] = torch.where(use16[:, None, None], rep, blocks[sel])
         return _scatter_blocks(blocks, r32, c32, nb)
 
-    return (split32.reshape(r32, c32),
-            merge(out32["rec_y"], out16.pop("rec_y32"), 32),
-            merge(out32["rec_u"], out16.pop("rec_u16"), 16),
-            merge(out32["rec_v"], out16.pop("rec_v16"), 16))
+    return (split32.reshape(r32, c32), merge(rec_y, rec_y32, 32),
+            merge(rec_u, rec_u16, 16), merge(rec_v, rec_v16, 16))
+
+
+def descent_split(sel_idx, dist_b, rate_b, dist4, rate4, rec_y, rec_u,
+                  rec_v, rec_y32, rec_u16, rec_v16, lam: int, geom: Geom):
+    """The split decision and merge (contract: ``descent_split_ref``).
+    Tensors that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises."""
+    if all(t.device.type == "cpu" for t in (sel_idx, dist_b, rate_b, dist4,
+                                            rate4, rec_y, rec_u, rec_v,
+                                            rec_y32, rec_u16, rec_v16)):
+        return descent_split_ref(sel_idx, dist_b, rate_b, dist4, rate4,
+                                 rec_y, rec_u, rec_v, rec_y32, rec_u16,
+                                 rec_v16, lam, geom)
+    return cuda_kernels.descent_split(sel_idx, dist_b, rate_b, dist4, rate4,
+                                      rec_y, rec_u, rec_v, rec_y32, rec_u16,
+                                      rec_v16, lam, geom, SPLIT_RATE_EXTRA)
 
 
 def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
@@ -1768,8 +1887,17 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
             out32["mv"].to(torch.int32), sel_idx, g, dc_q, ac_q, lam,
             filters, new_bits, rates=rates)
         with _stage("step_children"):
-            split32, rec_y, rec_u, rec_v = split_decide(out32, out16, lam,
-                                                        g)
+            # A parent in the overhang row keeps its 32: its children
+            # would need the forced edge partition, which
+            # walk_partition_split does not write. The JAX package keeps
+            # those parents out through the ranking alone, which selects
+            # them once K passes the other parents (always at
+            # descend_frac=1).
+            split32, rec_y, rec_u, rec_v = descent_split(
+                out16["sel_idx"], out32["dist_b"], out32["rate_b"],
+                out16.pop("dist4"), out16.pop("rate4"), rec_y, rec_u,
+                rec_v, out16.pop("rec_y32"), out16.pop("rec_u16"),
+                out16.pop("rec_v16"), lam, g)
         outs["m16f"] = out16
         outs["split32"] = split32
     if g.strip:
