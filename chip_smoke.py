@@ -10,11 +10,18 @@ Phases, each of which raises on failure (nothing is caught):
      quarter-pel and MC calls recorded; then sad_full_search, block_energy
      (on blocks and positioned, block_energy_at), sse_map_search (one level,
      and both levels fused, hier_search_fused), subpel_search, mc_predict,
-     transform_recon, kframe_wave, loop_filter and the descent's four
+     transform_recon, kframe_wave, loop_filter, the descent's four
      kernels (descent_gather, descent_decide, descent_pack, descent_split:
      the M8 P-frame's real calls at K = 510 parents, the RA shape of every
      parent's children, K = 2,040, the frame's edges, all-tie costs, the
-     overhang row) against their plain
+     overhang row), the mode decision (mode_decide: the M8 P-frame's real
+     32 zone with GOLDEN and the rate tables, M9's proxies, tune SQ's
+     per-block lam_bits, a shard's LEFT edge, ALTREF, SSEs above 2^24,
+     all-tie inputs that must go to LAST's ZERO, the real 720p 32 zone and
+     strip), the windows and borders (extract_windows on the real 1080p
+     search and MC sites, the real 720p ones, 4K's made-up; extend_borders
+     on the real 1080p keyframe and P-frame, 1080p planes at odd crops,
+     the real 720p P-frame, a made-up 4K recon) against their plain
      PyTorch versions on the card, bit for bit, at the shapes the 1080p
      paths give them (the M8 children's included), ties, negative minima and
      the largest operands included; subpel_search on the zone's and the
@@ -65,7 +72,10 @@ Phases, each of which raises on failure (nothing is caught):
      for the children), subpel_search twice, mc_predict twice (the zone, the
      children), transform_recon 6 times, the block_energy ones 5 times,
      descent_gather, descent_decide, descent_pack and descent_split once
-     each and loop_filter once; some parents must split; the stream must
+     each, mode_decide once, extract_windows twice (the search's windows,
+     the MC site's sets), loop_filter once and extend_borders once (the
+     keyframe: kframe_wave, loop_filter and extend_borders once each); some
+     parents must split; the stream must
      decode with the port's decoder to the encoder's own recon across two
      GOLDEN refreshes; fps, step time, the host-clock stage split and the send
      split by the spans rt_device_step, rt_stage, rt_rate_args,
@@ -130,7 +140,9 @@ Phases, each of which raises on failure (nothing is caught):
      1080p the kernels at the path's new shapes on a real step with
      GOLDEN and ALTREF (the 8,160 children's sse_map_search,
      subpel_search, transform_recon, block_energy_at and block_energy;
-     ALTREF's hier_search_fused, ZERO SSE and subpel_search) against
+     ALTREF's hier_search_fused, ZERO SSE and subpel_search; mode_decide
+     with all three references, ALTREF's search windows, the MC site's
+     seven window sets, the borders) against
      their plain versions and timed, and one mini-GOP under the
      profiler; at both sizes the RA session on the CPU and the card on
      the first RA_SAME_FRAMES frames with mini-GOPs of RA_SAME_GOP,
@@ -253,7 +265,7 @@ WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
         "loop_filter", "kframe_wave", "transform_recon", "subpel_search",
-        "openloop_modes", "mc_predict", "descent")
+        "openloop_modes", "mc_predict", "descent", "mode_decide", "windows")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -270,25 +282,35 @@ M9_B = 34 * 60
 # three planes, split mask included, is one launch; MC of the zone's Y, U
 # and V (LAST's and GOLDEN's windows by ref_sel) is one launch, and of the
 # children's (their parents' windows by index) one; the descent's gathers,
-# candidate decision, pack and split merge are one launch each. M9: the
-# fused search, ZERO SSE, quarter-pel, the zone's MC, its three transforms,
-# recon distortion and the loop filter (no mask).
+# candidate decision, pack and split merge are one launch each; each zone's
+# mode decision (LAST, GOLDEN, ALTREF and the reference choice) is one
+# launch, and its windows two (the search's luma windows; the MC site's
+# chroma and GOLDEN's sets together); the new references' border extension
+# of three planes is one. M9: the fused search, ZERO SSE, quarter-pel, the
+# decision, the two window launches, the zone's MC, its three transforms,
+# recon distortion, the loop filter (no mask) and the borders.
 DESCENT_WRAPPERS = ("descent_gather", "descent_decide", "descent_pack",
                     "descent_split")
 NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
+MD_WINDOW_WRAPPERS = ("mode_decide", "extract_windows", "extend_borders")
+# a zone's mode decision and window launches (without ALTREF), and the
+# border extension of a step or keyframe
+ZONE_MD_WINDOWS = {"mode_decide": 1, "extract_windows": 2}
+BORDERS = {"extend_borders": 1}
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
                "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
-               "mc_predict": 2, **dict.fromkeys(DESCENT_WRAPPERS, 1)}
+               "mc_predict": 2, **dict.fromkeys(DESCENT_WRAPPERS, 1),
+               **ZONE_MD_WINDOWS, **BORDERS}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
                "loop_filter": 1, "transform_recon": 3, "subpel_search": 1,
-               "mc_predict": 1, **NO_DESCENT}
+               "mc_predict": 1, **NO_DESCENT, **ZONE_MD_WINDOWS, **BORDERS}
 # launches per keyframe (M8 and M9 alike): one kframe_wave for the whole
-# 34 x 60 grid (its 93 anti-diagonals are its chain), and the loop filter
-# of the three planes
+# 34 x 60 grid (its 93 anti-diagonals are its chain), the loop filter of
+# the three planes and their border extension
 KF_DIAGONALS = 34 + 60 - 1
-KEY_LAUNCHES = {"kframe_wave": 1, "loop_filter": 1}
+KEY_LAUNCHES = {"kframe_wave": 1, "loop_filter": 1, **BORDERS}
 # the wrappers that launch kernels of one source, by the kernel's name in
 # the JSON line
 ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
@@ -301,7 +323,8 @@ ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "subpel_search": ("subpel_search",),
                   "openloop_modes": ("openloop_modes",),
                   "mc_predict": ("mc_predict",),
-                  **{w: (w,) for w in DESCENT_WRAPPERS}}
+                  **{w: (w,) for w in DESCENT_WRAPPERS},
+                  **{w: (w,) for w in MD_WINDOW_WRAPPERS}}
 # each wrapper's kernel, by a part of its name in a profile
 WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "block_energy": "block_energy_kernel",
@@ -315,7 +338,8 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "subpel_search": "subpel_search_kernel",
                    "openloop_modes": "openloop_modes_kernel",
                    "mc_predict": "mc_predict_kernel",
-                   **{w: f"{w}_kernel" for w in DESCENT_WRAPPERS}}
+                   **{w: f"{w}_kernel" for w in DESCENT_WRAPPERS},
+                   **{w: f"{w}_kernel" for w in MD_WINDOW_WRAPPERS}}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
 # geometries of the CPU tests (the last no wider than 64: no band), and
 # integer operations per filtered edge lane (an upper estimate: 16 loads,
@@ -399,21 +423,25 @@ STRIP_R = 40
 # launches per P-frame at a strip geometry, where the descent is off: the
 # 32 zone as at 1080p (M8: ZERO, then GOLDEN's two sets, in block_energy_at)
 # and the strip zone's search (sse_map_search), quarter-pel search, ZERO
-# (and GOLDEN) SSE, MC, three transforms and recon distortion
+# (and GOLDEN) SSE, decision, two window launches, MC, three transforms and
+# recon distortion; one border extension
+STRIP_MD_WINDOWS = {k: 2 * v for k, v in ZONE_MD_WINDOWS.items()}
 M8_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 4, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT}
+                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT,
+                     **STRIP_MD_WINDOWS, **BORDERS}
 M9_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 2, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT}
+                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT,
+                     **STRIP_MD_WINDOWS, **BORDERS}
 # per keyframe at a strip geometry: the wave of the 32 zone, the strip's
 # three luma candidates (V and D63 ADST_DCT, D45 DCT_DCT) and two chroma
-# transforms, the candidates' recon SSE in one block_energy launch, and
-# the loop filter
+# transforms, the candidates' recon SSE in one block_energy launch, the
+# loop filter and the borders
 KEY_STRIP_LAUNCHES = {"kframe_wave": 1, "transform_recon": 5,
-                      "block_energy": 1, "loop_filter": 1}
+                      "block_energy": 1, "loop_filter": 1, **BORDERS}
 # a profile's warm-up before the work it reports (_profile)
 WARM_SPINS, WARM_WAIT_S = 32, 0.05
 # rate control in low delay (RateControlMode: VBR 1, CBR 2), every encode's
@@ -1368,11 +1396,13 @@ def _real_m8_inputs(dev):
     the steps' calls of ``loop_filter_device`` (keyframe and P-frame),
     ``transform_recon``, ``subpel_search`` and ``mc_predict`` (P-frame)
     recorded, with the descent's four dispatches and its
-    ``encode_children_masked`` call. Returns ({"lf": [(y, u, v, geom, lvl,
-    lim, mblim, split32)], "tr": [(src, pred, dc_q, ac_q, n)], "sp":
-    [(wins, src, dy, dx, n, r)], "mc": [(args, keyword args)], "desc":
-    [(dispatch name, args)], "ecm": [(args, keyword args)]}, the two
-    frames, their recon)."""
+    ``encode_children_masked`` call, and the dispatches ``mode_decide``
+    (P-frame), ``extract_windows`` (its search and MC sites) and
+    ``extend_borders`` (keyframe and P-frame). Returns ({"lf": [(y, u, v,
+    geom, lvl, lim, mblim, split32)], "tr": [(src, pred, dc_q, ac_q, n)],
+    "sp": [(wins, src, dy, dx, n, r)], "mc": [(args, keyword args)],
+    "desc": [(dispatch name, args)], "ecm": [(args, keyword args)], "md":
+    [(dispatch name, args)]}, the two frames, their recon)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
 
@@ -1408,12 +1438,13 @@ def _real_m8_inputs(dev):
     enc = _make_encoder(dev, 8)
     got = _capture(enc)
     frames = list(panning_frames(WIDTH, HEIGHT, 2, seed=1))
-    desc = []
-    with _recording(DESCENT_WRAPPERS, desc, [True]):
+    desc, md = [], []
+    with _recording(DESCENT_WRAPPERS, desc, [True]), \
+            _recording(MD_WINDOW_WRAPPERS, md, [True]):
         for frame in frames:
             enc.send_picture(frame)
         enc.flush()
-    calls["desc"] = desc
+    calls["desc"], calls["md"] = desc, md
     P.loop_filter_device = real_lf
     P.transform_recon, P.subpel_search = real_tr, real_sp
     P.mc_predict, P.encode_children_masked = real_mc, real_ecm
@@ -1429,13 +1460,17 @@ def _real_m8_inputs(dev):
             or mc != [(32, ["ref_sel"]),
                       (16, ["org_off_x", "org_off_y", "win_idx"])]
             or [c[0] for c in calls["desc"]] != list(DESCENT_WRAPPERS)
-            or len(calls["ecm"]) != 1):
+            or len(calls["ecm"]) != 1
+            or [c[0] for c in calls["md"]] != [
+                "extend_borders", "extract_windows", "mode_decide",
+                "extract_windows", "extend_borders"]):
         raise AssertionError(
             "the M8 P-frame's transform, quarter-pel, MC and descent calls "
             f"were {[c[4] for c in calls['tr']]}, "
             f"{[c[4:] for c in calls['sp']]}, {mc}, "
-            f"{[c[0] for c in calls['desc']]} and {len(calls['ecm'])} "
-            "encode_children_masked")
+            f"{[c[0] for c in calls['desc']]}, {len(calls['ecm'])} "
+            "encode_children_masked and "
+            f"{[c[0] for c in calls['md']]}")
     return calls, frames, [r for _, r in got]
 
 
@@ -2250,6 +2285,335 @@ def descent_kernel_phase(dev, real, ecm):
     return entries
 
 
+# the mode decision's and the windows' kernels: the JAX functions each
+# replaces (tpu_encdec.py: _candidate_decide, with _ssem_gather and
+# encode_zone's GOLDEN and ALTREF blocks; _extract_search_windows;
+# extend_borders_device) and their sources
+MD_WINDOW_REPLACES = {
+    "mode_decide": "tpu_vp9/pipeline/tpu_encdec.py:1407",
+    "extract_windows": "tpu_vp9/pipeline/tpu_encdec.py:296",
+    "extend_borders": "tpu_vp9/pipeline/tpu_encdec.py:112"}
+MD_WINDOW_SOURCES = {"mode_decide": "tpu_vp9_torch/csrc/mode_decide.cu",
+                     "extract_windows": "tpu_vp9_torch/csrc/windows.cu",
+                     "extend_borders": "tpu_vp9_torch/csrc/windows.cu"}
+MD_WINDOW_THREADS = {"mode_decide": 128, "extract_windows": 256,
+                     "extend_borders": 256}
+
+
+def _md_bound(args):
+    """The least time of one ``mode_decide`` call (the dispatch's
+    ``args``), by bytes: per block the five int32 words of LAST, its
+    previous MV, the three map entries PREV, LEFT and ABOVE read, GOLDEN's
+    two SSEs, ALTREF's four words and the block's lam_bits where given,
+    and the MVs and ref_sel written; the rate tables' entries and the
+    left edge besides. Its float32 arithmetic, about 60 operations a
+    block, is far below that."""
+    b = args[4].shape[0]
+    rates, left, gold, alt = args[14:18]
+    per = 20 + 8 + 12 + 9 + (8 if gold is not None else 0) \
+        + (16 if alt is not None else 0)
+    nbytes = b * per + (0 if left is None else left.numel() * 4)
+    if rates is not None:
+        nbytes += 9 * 4 + 3 * 4 * b  # the scalars, three LUT entries
+        if isinstance(rates["lam_bits"], torch.Tensor):
+            nbytes += 4 * b
+    return _bound(nbytes, 60 * b, ALU_OPS_PER_S)
+
+
+def _win_bound(jobs, rows, cols):
+    """The least time of one ``extract_windows`` call, by bytes: each
+    set's windows written and the plane region they cover read once."""
+    nbytes = 0
+    for _, n, _, r in jobs:
+        sw = n + 2 * r + 8
+        nbytes += rows * cols * sw * sw \
+            + ((rows - 1) * n + sw) * ((cols - 1) * n + sw)
+    return _bound(nbytes, 0, ALU_OPS_PER_S)
+
+
+def _eb_bound(planes, crops):
+    """The least time of one ``extend_borders`` call, by bytes: each
+    bordered plane written and its visible crop read once."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    bd = 2 * P.BORDER
+    nbytes = sum((p.shape[0] + bd) * (p.shape[1] + bd) + cw * ch
+                 for p, (cw, ch) in zip(planes, crops))
+    return _bound(nbytes, 0, ALU_OPS_PER_S)
+
+
+def _md_window_fns(name, args):
+    """(kernel call, plain call, library call or None) of ``name`` on its
+    dispatch's positional arguments. The library calls compute the same
+    function with one PyTorch call a set or plane: unfold(...).contiguous()
+    of each set's region, two index_selects of each plane."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    if name == "mode_decide":
+        return (lambda: K.mode_decide(*args, P.CAND_RATE_PROXY),
+                lambda: P.mode_decide_ref(*args), None)
+    if name == "extract_windows":
+        jobs, rows, cols = args
+        specs = P.window_specs(jobs, rows, cols)
+        regions = [(p[y0:y0 + (rows - 1) * n + sw,
+                      x0:x0 + (cols - 1) * n + sw], n, sw)
+                   for p, n, sw, y0, x0 in specs]
+        return (lambda: K.extract_windows(specs, rows, cols),
+                lambda: [P._extract_search_windows(p, n, rows, cols, y, r)
+                         for p, n, y, r in jobs],
+                lambda: [reg.unfold(0, sw, n).unfold(1, sw, n).contiguous()
+                         for reg, n, sw in regions])
+    planes, crops = args[:2]
+    idx = []
+    for p, (cw, ch) in zip(planes, crops):
+        idx.append((
+            torch.arange(-P.BORDER, p.shape[0] + P.BORDER,
+                         device=p.device).clamp(0, ch - 1),
+            torch.arange(-P.BORDER, p.shape[1] + P.BORDER,
+                         device=p.device).clamp(0, cw - 1)))
+    return (lambda: K.extend_borders(planes, crops, P.BORDER),
+            lambda: [P.extend_borders_device(p, *c)
+                     for p, c in zip(planes, crops)],
+            lambda: [p.index_select(0, r).index_select(1, c)
+                     for p, (r, c) in zip(planes, idx)])
+
+
+def _md_window_bound(name, args):
+    if name == "mode_decide":
+        return _md_bound(args)
+    if name == "extract_windows":
+        return _win_bound(*args)
+    return _eb_bound(*args[:2])
+
+
+def _md_made_up(dev, md_args, rng):
+    """The mode decision's made-up cases on the real 1080p M8 call
+    ``md_args`` (LAST and GOLDEN with the rate tables; GOLDEN's SSEs moved
+    down, as its planes are LAST's in the first P-frame): M9's proxies
+    with and without GOLDEN, tune SQ's per-block lam_bits, a column
+    shard's LEFT edge, ALTREF (its ZERO, NEW and MVs the real LAST's,
+    rolled), SSEs above 2^24 a few apart, and all-tie inputs at B = 2,040
+    (every
+    candidate and reference of equal cost, with the tables, with lam_bits
+    0 and with the proxies at lam 0: LAST's ZERO must win). Returns
+    [(label, args)]."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    a = list(md_args)
+    rows, cols = a[7], a[8]
+    rates = a[14]
+    b = rows * cols
+    # the first P-frame's GOLDEN is its LAST (the keyframe): its SSEs moved
+    # down by up to a few rates, so that GOLDEN wins where they cross
+    shift = torch.from_numpy(rng.integers(-3000, 20_000, (2, b))).to(dev)
+    gold = (a[16] - shift).clamp(min=0).to(torch.int32).contiguous()
+    a[16] = gold
+    cases = [("M9 proxies", (*a[:14], None, None, None, None)),
+             ("proxies with GOLDEN, its SSEs moved", (*a[:14], None, None,
+                                                      gold, None)),
+             ("GOLDEN's SSEs moved", tuple(a))]
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, b).astype(np.float32))
+    lam_vec = (scale * np.float32(rates["lam_bits"])).to(dev).contiguous()
+    cases.append(("tune SQ per-block lam_bits",
+                  (*a[:14], dict(rates, lam_bits=lam_vec), *a[15:])))
+    edge = torch.stack([a[4], a[5]], dim=-1).reshape(rows, cols, 2)[:, -1]
+    cases.append(("a shard's left_edge",
+                  (*a[:15], edge.flip(0).contiguous(), *a[16:])))
+    alt = tuple(t.roll(k).contiguous() for t, k in zip(a[2:6], (7, 3, 11, 5)))
+    cases.append(("ALTREF with GOLDEN", (*a[:17], alt)))
+    big = torch.from_numpy(rng.integers(1 << 24, 66_300_000, b)).to(dev)
+    sses = [(big + k).to(torch.int32).contiguous() for k in range(6)]
+    cases.append(("SSEs above 2^24", (
+        *a[:2], sses[0], sses[1], *a[4:16],
+        torch.stack([sses[2], sses[3]]).contiguous(),
+        (sses[4], sses[5], *alt[2:]))))
+    # all ties: equal map scores and SSEs, equal rates, equal signalling
+    d = a[0].shape[1]
+    x = 4 * 1_000_003
+    src2m = torch.full((b,), 300_000, dtype=torch.int32, device=dev)
+    ssem = torch.full((b, d, d), x // 4 - 300_000, dtype=torch.int32,
+                      device=dev)
+    full = torch.full((b,), x, dtype=torch.int32, device=dev)
+    m = 60
+    tie = {"mode_cost": np.full(4, 300, np.int32),
+           "joint_cost": np.zeros(4, np.int32),
+           "nmv_row": np.zeros(2 * m + 1, np.int32),
+           "nmv_col": np.zeros(2 * m + 1, np.int32),
+           "ref_cost": np.full(3, 150, np.int32), "mv_cost_max": m}
+    tie_args = (ssem, src2m, full, full, *a[4:7], *a[7:13], a[13])
+    tie_alt = (full, full, a[5], a[4])
+    tie_gold = torch.stack([full, full]).contiguous()
+    for lam_bits in (1234.5, 0.0):
+        up = P.upload_rate_tabs(dict(tie, lam_bits=np.float32(lam_bits)),
+                                dev)
+        cases.append((f"all ties, rate tables, lam_bits {lam_bits}",
+                      (*tie_args, up, None, tie_gold, tie_alt)))
+    cases.append(("all ties, proxies at lam 0",
+                  (*tie_args[:12], 0, a[13], None, None, tie_gold, None)))
+    return cases
+
+
+def md_window_kernel_phase(dev, real):
+    """mode_decide, extract_windows and extend_borders (CUDA) against
+    their plain versions on the card, bit for bit (values, dtypes,
+    shapes): the 1080p M8 P-frame's real calls (``_real_m8_inputs``: the
+    32 zone's decision with GOLDEN and the rate tables, its search and MC
+    window sites, the keyframe's and the P-frame's borders); the made-up
+    decisions of ``_md_made_up`` (ties must go to LAST's ZERO); the 720p
+    strip geometry's real calls (a keyframe and an M8 P-frame through the
+    public encoder, the 32 zone's and the strip's decisions and window
+    sites recorded); 4K made-up planes (the 32 zone's and the strip's
+    window sites, the borders) and 1080p planes at odd crops. Each
+    kernel's registers, spills and resident CTAs per SM printed; call,
+    device, plain, library and bound times at the 1080p M8 shapes (the
+    entries), 720p and 4K (their "strip_parts"). Returns {name: entry}."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    occupancy = {"mode_decide": lambda key, d: K.mode_decide_occupancy(d),
+                 "extract_windows": lambda key, d: K.windows_occupancy(
+                     "extract_windows", d),
+                 "extend_borders": lambda key, d: K.windows_occupancy(
+                     "extend_borders", d)}
+    for name in MD_WINDOW_WRAPPERS:
+        _kernel_resources(dev, name, None, occupancy[name],
+                          threads=MD_WINDOW_THREADS[name],
+                          lib=MD_WINDOW_SOURCES[name].split("/")[-1][:-3])
+    errs = dict.fromkeys(MD_WINDOW_WRAPPERS, 0)
+
+    def held(label, name, args):
+        kernel, plain, _ = _md_window_fns(name, args)
+        got, want = list(kernel()), list(plain())
+        for x, y in zip(got, want, strict=True):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"{name} [{label}]: {x.dtype} "
+                                     f"{tuple(x.shape)} against the plain "
+                                     f"version's {y.dtype} {tuple(y.shape)}")
+        errs[name] = max(errs[name], _check(name, label, got, want))
+        return got
+
+    def timed(name, label, args, count=1):
+        kernel, plain, library = _md_window_fns(name, args)
+        part = _timed(name, label, kernel, plain, 5,
+                      _md_window_bound(name, args), WRAPPER_KERNELS[name],
+                      count)
+        lib_ms = None if library is None else _cuda_time_ms(library, 20)
+        if lib_ms is not None:
+            print(f"kernel {name} {label}: the PyTorch calls' time "
+                  f"{lib_ms:.4f} ms (CUDA events, median)")
+        return part, lib_ms
+
+    m8 = {}
+    for name, args in real:
+        m8.setdefault(name, []).append(args)
+    md_args = m8["mode_decide"][0]
+    held("1080p M8 P-frame, real, GOLDEN and rate tables", "mode_decide",
+         md_args)
+    for label, args in zip(("search site", "MC site"),
+                           m8["extract_windows"]):
+        held(f"1080p M8 P-frame {label}, real ({len(args[0])} sets)",
+             "extract_windows", args)
+    for label, args in zip(("keyframe", "P-frame"), m8["extend_borders"]):
+        held(f"1080p {label}, real", "extend_borders", args)
+    rng = np.random.default_rng(47)
+    for label, args in _md_made_up(dev, md_args, rng):
+        got = held(label, "mode_decide", args)
+        if label.startswith("all ties") and any(t.any() for t in got):
+            raise AssertionError(f"mode_decide [{label}]: a tie did not go "
+                                 "to LAST's ZERO")
+        print(f"kernel mode_decide [{label}]: blocks by reference "
+              f"{[int((got[2] == i).sum()) for i in range(3)]}")
+    planes = m8["extend_borders"][1][0]
+    held("1080p planes at odd crops", "extend_borders",
+         (planes, ((1917, 1079), (959, 539), (1, 1))))
+
+    # 720p (the strip) real; 4K made-up
+    strip_calls = []
+    w, h = STRIP_GEOMS["720p"]
+    with _recording(MD_WINDOW_WRAPPERS, strip_calls, [True]):
+        enc = _make_encoder(dev, 8, (w, h))
+        for frame in panning_frames(w, h, 2, seed=1):
+            enc.send_picture(frame)
+        enc.flush()
+        enc.close()
+    s720 = {}
+    for name, args in strip_calls:
+        s720.setdefault(name, []).append(args)
+    if {k: len(v) for k, v in s720.items()} != {
+            "extend_borders": 2, "extract_windows": 4, "mode_decide": 2}:
+        raise AssertionError(f"the 720p keyframe and P-frame made these "
+                             f"calls: { {k: len(v) for k, v in s720.items()} }")
+    strip_parts = {k: [] for k in MD_WINDOW_WRAPPERS}
+    for label, args in zip(("32 zone", "strip"), s720["mode_decide"]):
+        held(f"720p M8 {label}, real", "mode_decide", args)
+        strip_parts["mode_decide"].append(timed(
+            "mode_decide", f"720p M8 {label} B={args[4].shape[0]}", args)[0])
+    for label, args in zip(("32 zone search", "32 zone MC", "strip search",
+                            "strip MC"), s720["extract_windows"]):
+        held(f"720p M8 {label}, real", "extract_windows", args)
+        strip_parts["extract_windows"].append(timed(
+            "extract_windows", f"720p M8 {label} ({len(args[0])} sets, "
+            f"B={args[1] * args[2]})", args)[0])
+    held("720p P-frame, real", "extend_borders", s720["extend_borders"][1])
+    strip_parts["extend_borders"].append(timed(
+        "extend_borders", "720p P-frame", s720["extend_borders"][1])[0])
+    g4 = P.make_geom(*STRIP_GEOMS["4K"])
+    shapes = ((g4.pad_h, g4.pad_w), (g4.pad_h // 2, g4.pad_w // 2),
+              (g4.pad_h // 2, g4.pad_w // 2))
+    raw = [torch.from_numpy(rng.integers(0, 256, shp, dtype=np.uint8)).to(dev)
+           for shp in shapes]
+    eb4 = (tuple(raw), P.recon_crops(g4))
+    held("4K recon, made-up", "extend_borders", eb4)
+    strip_parts["extend_borders"].append(timed(
+        "extend_borders", "4K recon, made-up", eb4)[0])
+    last = K.extend_borders(raw, P.recon_crops(g4), P.BORDER)
+    gold = [p.flip(1).contiguous() for p in last]
+    for label, (y0, rows, cols, n) in (
+            ("32 zone", (0, g4.rows32, g4.cols32, 32)),
+            ("strip", (g4.strip_y, 1, g4.cols16, 16))):
+        nc = n // 2
+        search = ([(last[0], n, y0, P.WIN_R)], rows, cols)
+        mc = ([(last[1], nc, y0 // 2, P.CHROMA_WIN_R),
+               (last[2], nc, y0 // 2, P.CHROMA_WIN_R),
+               (gold[0], n, y0, P.WIN_R),
+               (gold[1], nc, y0 // 2, P.CHROMA_WIN_R),
+               (gold[2], nc, y0 // 2, P.CHROMA_WIN_R)], rows, cols)
+        for site, args in (("search", search), ("MC", mc)):
+            held(f"4K {label} {site}, made-up", "extract_windows", args)
+            strip_parts["extract_windows"].append(timed(
+                "extract_windows", f"4K {label} {site} ({len(args[0])} sets, "
+                f"B={rows * cols}), made-up", args)[0])
+        del search, mc
+    del raw, last, gold
+    if any(errs.values()):
+        raise AssertionError(f"a decision or window call disagrees: {errs}")
+
+    entries = {}
+    timings = {
+        "mode_decide": [("1080p M8 zone, real, GOLDEN", md_args)],
+        "extract_windows": [
+            (f"1080p M8 {site}, real ({len(args[0])} sets)", args)
+            for site, args in zip(("search site", "MC site"),
+                                  m8["extract_windows"])],
+        "extend_borders": [("1080p P-frame, real",
+                            m8["extend_borders"][1])]}
+    for name in MD_WINDOW_WRAPPERS:
+        parts, lib = [], []
+        for label, args in timings[name]:
+            part, lib_ms = timed(name, label, args)
+            parts.append(part)
+            lib.append(lib_ms)
+        entry = _entry(name, MD_WINDOW_SOURCES[name],
+                       MD_WINDOW_REPLACES[name], errs[name], parts)
+        if name != "mode_decide":
+            entry["library_ms"] = sum(lib)
+        entry["strip_parts"] = [_part(p) for p in strip_parts[name]]
+        entries[name] = entry
+    return entries
+
+
 def _part(p):
     """A ``_timed`` part as the JSON line has it."""
     count, label, ms, plain_ms, bound, device_ms, host_ms = p
@@ -2725,7 +3089,8 @@ def _kernel_fns():
             "subpel_search": K.subpel_search,
             "openloop_modes": K.openloop_modes,
             "mc_predict": K.mc_predict,
-            **{w: getattr(K, w) for w in DESCENT_WRAPPERS}}
+            **{w: getattr(K, w) for w in DESCENT_WRAPPERS},
+            **{w: getattr(K, w) for w in MD_WINDOW_WRAPPERS}}
 
 
 def _reset_counts():
@@ -3349,7 +3714,8 @@ RA_SPANS = ("rt_stage", "ra_rate_args", "ra_device_step", "ra_d2h_transfer",
 # the wrappers recorded in one RA P-frame step with GOLDEN and ALTREF, for
 # the kernel checks at its shapes
 RA_RECORDED = ("hier_search", "subpel_search", "sse_map_search",
-               "transform_recon", "block_energy_at", "block_energy")
+               "transform_recon", "block_energy_at", "block_energy",
+               *MD_WINDOW_WRAPPERS)
 
 
 def _ra_launches(geom, golden: bool, altref: bool):
@@ -3358,21 +3724,26 @@ def _ra_launches(geom, golden: bool, altref: bool):
     (hier_search_fused, the strip sse_map_search), quarter-pel searches
     it, compensates Y, U and V in one MC launch (every reference's windows
     by ref_sel), transforms Y, U and V, takes its recon SSE and ZERO's SSE
-    in place; GOLDEN adds its two candidates' SSEs (one block_energy_at),
-    ALTREF its own search, quarter-pel search and ZERO SSE; without a strip
-    the descent adds the children's search, quarter-pel search, ZERO SSE,
-    MC, three transforms and recon SSE, and its gathers, decision, pack and
-    split merge (one launch each); the loop filter is one launch."""
+    in place, decides its modes in one launch and cuts its windows in two
+    (LAST's search windows; every MC set); GOLDEN adds its two candidates'
+    SSEs (one block_energy_at), ALTREF its own search windows, search,
+    quarter-pel search and ZERO SSE; without a strip the descent adds the
+    children's search, quarter-pel search, ZERO SSE, MC, three transforms
+    and recon SSE, and its gathers, decision, pack and split merge (one
+    launch each); the loop filter and the borders are one launch each."""
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
               "subpel_search": 0, "transform_recon": 0, "loop_filter": 1,
-              "openloop_modes": 0, "mc_predict": 0, **NO_DESCENT})
+              "openloop_modes": 0, "mc_predict": 0, **NO_DESCENT,
+              "mode_decide": 0, "extract_windows": 0, **BORDERS})
     for n in (32, 16) if geom.strip else (32,):
         c["hier_search_fused" if n == 32 else "sse_map_search"] += \
             1 + altref
         c["subpel_search"] += 1 + altref
         c["mc_predict"] += 1
+        c["mode_decide"] += 1
+        c["extract_windows"] += 2 + altref
         c["transform_recon"] += 3
         c["block_energy"] += 1
         c["block_energy_at"] += 1 + golden + altref
@@ -3589,16 +3960,20 @@ def _ra_calls(calls):
     LAST, ALTREF, the children's), sse_map_search (the children's),
     block_energy_at (LAST's ZERO, GOLDEN's two in one call, ALTREF's
     ZERO, the children's ZERO), transform_recon (the zone's Y, U, V, the children's
-    U, V, Y), block_energy (the zone's, the children's)."""
+    U, V, Y), block_energy (the zone's, the children's), mode_decide (the
+    zone's), extract_windows (LAST's search site, ALTREF's, the MC site),
+    extend_borders (the recon's)."""
     by = {}
     for name, args in calls:
         by.setdefault(name, []).append(args)
-    shape = {k: [(a[0].shape[0],) + tuple(
-        v for v in a[2:] if isinstance(v, int))
-        for a in by.get(k, [])] for k in RA_RECORDED}
+    shape = {k: [tuple(v.shape if isinstance(v, torch.Tensor) else v
+                       for v in a if isinstance(v, (torch.Tensor, int)))
+                 for a in by.get(k, [])] for k in RA_RECORDED}
     want_counts = {"hier_search": 2, "subpel_search": 3,
                    "sse_map_search": 1, "transform_recon": 6,
-                   "block_energy_at": 4, "block_energy": 2}
+                   "block_energy_at": 4, "block_energy": 2,
+                   "mode_decide": 1, "extract_windows": 3,
+                   "extend_borders": 1}
     if {k: len(by.get(k, [])) for k in RA_RECORDED} != want_counts:
         raise AssertionError(f"the recorded RA step made these calls: "
                              f"{shape}")
@@ -3694,6 +4069,26 @@ def ra_kernel_phase(dev, calls, kernels):
          lambda: K.block_energy_ref(src, rec, nn),
          _bound(2 * b * nn * nn + 8 * b, 5 * b * nn * nn, ALU_OPS_PER_S),
          "block_energy_kernel", 20)
+    # the decision with GOLDEN and ALTREF, ALTREF's search windows, the MC
+    # site's seven sets (LAST's chroma, GOLDEN's three, ALTREF's chroma)
+    # and the borders
+    for name, label, args in (
+            ("mode_decide", "1080p RA zone, LAST, GOLDEN and ALTREF",
+             by["mode_decide"][0]),
+            ("extract_windows", "1080p RA ALTREF search site (1 set)",
+             by["extract_windows"][1]),
+            ("extract_windows", "1080p RA MC site (7 sets)",
+             by["extract_windows"][2]),
+            ("extend_borders", "1080p RA recon", by["extend_borders"][0])):
+        kernel, plain, _ = _md_window_fns(name, args)
+        errs[name] = max(errs.get(name, 0),
+                         _check(name, label, list(kernel()), list(plain())))
+        parts.setdefault(name, []).append(_timed(
+            name, label, kernel, plain, 5, _md_window_bound(name, args),
+            WRAPPER_KERNELS[name], 1))
+    if len(by["extract_windows"][2][0]) != 7:
+        raise AssertionError("the RA MC site cut "
+                             f"{len(by['extract_windows'][2][0])} sets")
     if any(errs.values()):
         raise AssertionError(f"an RA shape disagrees: {errs}")
     for name, v in parts.items():
@@ -4593,15 +4988,19 @@ MESH_STEP_SHAPES = {"1080p": ((1, 2), (1, 4), (2, 2)), "720p": ((1, 2),
 MESH_FRAMES = 10
 MESH_TIMED = (1, 2, 4)
 # launches of one shard's zone with GOLDEN (the 32 grid: the fused search,
-# the quarter-pel search, ZERO and GOLDEN's candidates, MC, the recon
-# distortion, three transforms); a strip geometry adds the strip zone's
-# (its flat search in place of the fused one); one loop filter a frame
+# the quarter-pel search, ZERO and GOLDEN's candidates, the decision, two
+# window launches, MC, the recon distortion, three transforms); a strip
+# geometry adds the strip zone's (its flat search in place of the fused
+# one); one loop filter a frame (the sharded step's references come back
+# without borders)
 MESH_ZONE_LAUNCHES = {"hier_search_fused": 1, "subpel_search": 1,
                       "block_energy_at": 2, "block_energy": 1,
-                      "transform_recon": 3, "mc_predict": 1}
+                      "transform_recon": 3, "mc_predict": 1,
+                      **ZONE_MD_WINDOWS}
 MESH_STRIP_LAUNCHES = {"sse_map_search": 1, "subpel_search": 1,
                        "block_energy_at": 2, "block_energy": 1,
-                       "transform_recon": 3, "mc_predict": 1}
+                       "transform_recon": 3, "mc_predict": 1,
+                       **ZONE_MD_WINDOWS}
 
 
 def _mesh_cases(dev, dims):
@@ -4956,6 +5355,7 @@ def main() -> int:
         mc_kernel_phase(dev, real["mc"]),
         transform_kernel_phase(dev, real["tr"], real_frames, real_recons),
         *descent_kernel_phase(dev, real["desc"], real["ecm"]).values(),
+        *md_window_kernel_phase(dev, real["md"]).values(),
         kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]),
         openloop_kernel_phase(dev))}
     del real, real_frames, real_recons
@@ -4975,7 +5375,7 @@ def main() -> int:
     # made inside the counted window after the encode
     for name in ("block_energy", "sse_map_search", "txq_cost", "loop_filter",
                  "kframe_wave", "transform_recon", "subpel_search",
-                 "mc_predict", *DESCENT_WRAPPERS):
+                 "mc_predict", *DESCENT_WRAPPERS, *MD_WINDOW_WRAPPERS):
         kernels[name]["launches"] = sum(m8_counts[w]
                                         for w in ENTRY_WRAPPERS[name])
     realtime_profile_phase(dev, frames, 8)

@@ -131,6 +131,11 @@ inline unsigned __float_as_uint(float f) {
   std::memcpy(&v, &f, 4);
   return v;
 }
+inline float __int_as_float(int v) {
+  float f;
+  std::memcpy(&f, &v, 4);
+  return f;
+}
 
 constexpr int kStandinSmemBytes = 1 << 17;
 

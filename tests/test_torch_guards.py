@@ -94,7 +94,8 @@ WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "sse_map_search", "hier_search_fused", "txq_cost", "loop_filter",
             "kframe_wave", "transform_recon", "subpel_search",
             "openloop_modes", "mc_predict", "descent_gather",
-            "descent_decide", "descent_pack", "descent_split")
+            "descent_decide", "descent_pack", "descent_split",
+            "mode_decide", "extract_windows", "extend_borders")
 
 
 def _functions(path):
@@ -115,9 +116,10 @@ def _called(node):
     return names
 
 
-def _ref_calls_outside_cpu_branches(fn):
-    """Calls of a plain version (``*_ref``) in ``fn`` that do not sit in
-    the body of an ``if`` whose test mentions "cpu"."""
+def _ref_calls_outside_cpu_branches(fn, plain=None):
+    """Calls of a plain version (``*_ref``, or the one named ``plain``) in
+    ``fn`` that do not sit in the body of an ``if`` whose test mentions
+    "cpu"."""
     guarded = set()
     for sub in ast.walk(fn):
         if isinstance(sub, ast.If) and "cpu" in ast.unparse(sub.test):
@@ -125,7 +127,8 @@ def _ref_calls_outside_cpu_branches(fn):
                 guarded.update(id(n) for n in ast.walk(stmt))
     return [ast.unparse(n) for n in ast.walk(fn)
             if isinstance(n, ast.Call) and id(n) not in guarded
-            and ast.unparse(n.func).endswith("_ref")]
+            and (ast.unparse(n.func) == plain if plain
+                 else ast.unparse(n.func).endswith("_ref"))]
 
 
 def test_wrappers_cover_every_kernel_source():
@@ -139,8 +142,8 @@ def test_wrappers_cover_every_kernel_source():
     assert sources == {lib for lib, *_ in K._LAUNCHERS.values()}
     assert {"loop_filter", "kframe_wave", "transform_recon",
             "subpel_search", "openloop_modes", "mc_predict",
-            "descent"} <= sources
-    assert len(sources) == 11
+            "descent", "mode_decide", "windows"} <= sources
+    assert len(sources) == 13
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -225,7 +228,14 @@ STEP_DISPATCH = {
     "descent_decide": ("descent_decide", ("encode_children_masked",), ()),
     "descent_pack": ("descent_pack", ("encode_children_masked",), ()),
     "descent_split": ("descent_split", ("pframe_step",), ()),
+    "mode_decide": ("mode_decide", ("zone_code",), ()),
+    "extract_windows": ("extract_windows",
+                        ("zone_search", "zone_code", "_altref_search"), ()),
+    "extend_borders": ("extend_borders", ("pframe_step", "kframe_step"), ()),
 }
+# the plain versions not named ``<kernel>_ref``
+PLAIN = {"extract_windows": "_extract_search_windows",
+         "extend_borders": "extend_borders_device"}
 DESCENT = ("descent_gather", "descent_decide", "descent_pack",
            "descent_split")
 
@@ -250,11 +260,12 @@ def _check_step_dispatch(name):
     to the kernel's wrapper, and the steps call the dispatch, not the
     plain version."""
     disp_name, steps, plain_callers = STEP_DISPATCH[name]
+    plain = PLAIN.get(name, f"{name}_ref")
     fns = _functions(ENCDEC_PY)
-    callers = [n for n, f in fns.items() if f"{name}_ref" in _called(f)]
+    callers = [n for n, f in fns.items() if plain in _called(f)]
     assert sorted(callers) == sorted([disp_name, *plain_callers])
     disp = fns[disp_name]
-    assert not _ref_calls_outside_cpu_branches(disp)
+    assert not _ref_calls_outside_cpu_branches(disp, plain)
     branches = [n for n in ast.walk(disp) if isinstance(n, ast.If)
                 and "cpu" in ast.unparse(n.test)]
     assert len(branches) == 1
@@ -266,7 +277,7 @@ def _check_step_dispatch(name):
     assert ast.unparse(last.value.func) in (name, f"cuda_kernels.{name}")
     for step in steps:
         assert disp_name in _called(fns[step]), step
-        assert f"{name}_ref" not in _called(fns[step]), step
+        assert plain not in _called(fns[step]), step
 
 
 def test_loop_filter_dispatch_has_no_route_from_cuda_to_the_plain_version():
@@ -292,6 +303,24 @@ def test_mc_predict_dispatch_has_no_route_from_cuda_to_the_plain_version():
 @pytest.mark.parametrize("name", DESCENT)
 def test_descent_dispatch_has_no_route_from_cuda_to_the_plain_version(name):
     _check_step_dispatch(name)
+
+
+@pytest.mark.parametrize("name", ("mode_decide", "extract_windows",
+                                  "extend_borders"))
+def test_md_and_window_dispatches_have_no_route_from_cuda_to_the_plain_version(
+        name):
+    _check_step_dispatch(name)
+
+
+def test_the_other_step_modules_call_the_border_dispatch():
+    """The session's reference upload and the sharded step extend borders
+    through the dispatch, never the plain version."""
+    for mod in ("realtime.py", "tpu_shard.py"):
+        path = os.path.join(REPO, "tpu_vp9_torch", "pipeline", mod)
+        with open(path) as fh:
+            called = _called(ast.parse(fh.read()))
+        assert "extend_borders" in called, mod
+        assert "extend_borders_device" not in called, mod
 
 
 def test_kframe_wave_ref_transforms_with_the_plain_version():

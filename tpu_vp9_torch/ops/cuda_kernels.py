@@ -23,6 +23,11 @@ the JAX package writes in jnp:
     (the split16 descent's gathers,    descent_pack, descent_split
     candidate decision, pack and       (csrc/descent.cu)
     split merge)
+  _ssem_gather, _candidate_decide,     mode_decide (csrc/mode_decide.cu)
+    encode_zone's GOLDEN and ALTREF
+    decisions
+  _extract_search_windows              extract_windows (csrc/windows.cu)
+  extend_borders_device                extend_borders (the same source)
 
 and the device stage of the host route's keyframe hints:
 
@@ -38,13 +43,17 @@ takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
 ``subpel_search``, ``mc_predict``, ``transform_recon``, ``loop_filter``,
-``kframe_wave`` and the four ``descent_*`` take CUDA tensors only: their
+``kframe_wave``, the four ``descent_*``, ``mode_decide``,
+``extract_windows`` and ``extend_borders`` take CUDA tensors only: their
 plain versions are the steps' own (``pipeline/tpu_encdec.py``:
 ``subpel_search_ref``, ``mc_predict_ref``, ``transform_recon_ref``,
-``loop_filter_ref``, ``kframe_wave_ref``, ``descent_*_ref``), and the
-steps' dispatches (``subpel_search``, ``mc_predict``, ``transform_recon``,
-``loop_filter_device``, ``kframe_wave_device``, ``descent_*``) send CPU
-tensors there and CUDA tensors here. This module imports nothing of
+``loop_filter_ref``, ``kframe_wave_ref``, ``descent_*_ref``,
+``mode_decide_ref``, ``_extract_search_windows``,
+``extend_borders_device``), and the steps' dispatches (``subpel_search``,
+``mc_predict``, ``transform_recon``, ``loop_filter_device``,
+``kframe_wave_device``, ``descent_*``, ``mode_decide``,
+``extract_windows``, ``extend_borders``) send CPU tensors there and CUDA
+tensors here. This module imports nothing of
 ``pipeline``.
 """
 
@@ -108,6 +117,9 @@ _LAUNCHERS = {
     "descent_decide": ("descent", "descent_decide_launch", 16, 3, 8),
     "descent_pack": ("descent", "descent_pack_launch", 16, 0, 1),
     "descent_split": ("descent", "descent_split_launch", 15, 1, 5),
+    "mode_decide": ("mode_decide", "mode_decide_launch", 21, 3, 9),
+    "extract_windows": ("windows", "extract_windows_launch", 7, 0, 3),
+    "extend_borders": ("windows", "extend_borders_launch", 6, 0, 2),
 }
 _fns: dict = {}
 
@@ -1930,3 +1942,254 @@ def descent_occupancy(kernel: str, device=None):
                          f"{DESCENT_KERNELS}")
     return _occupancy("descent", range(len(DESCENT_KERNELS)),
                       DESCENT_KERNELS.index(kernel), device)
+
+
+# ---------------------------------------------------------------------------
+# The P-frame step's mode decision (csrc/mode_decide.cu)
+# ---------------------------------------------------------------------------
+
+# the rate tables' scalars as the kernel reads them from the device (the
+# row ``pipeline/tpu_encdec.py:upload_rate_tabs`` uploads): the four
+# mode-tree costs, the three references' signalling costs, mv_cost_max,
+# lam_bits' float32 bits
+RATE_SCALARS = ("mode_cost0", "mode_cost1", "mode_cost2", "mode_cost3",
+                "ref_last", "ref_golden", "ref_altref", "mv_cost_max",
+                "lam_bits")
+
+
+def rate_scalars(tabs) -> np.ndarray:
+    """The rate tables' scalars (``make_rate_tabs``' dict) as one int32
+    row in the order of ``RATE_SCALARS``, lam_bits as its float32 bits."""
+    lam = np.asarray(np.float32(tabs["lam_bits"])).reshape(1)
+    return np.concatenate([np.asarray(tabs["mode_cost"], np.int32)[:4],
+                           np.asarray(tabs["ref_cost"], np.int32)[:3],
+                           np.asarray([tabs["mv_cost_max"]], np.int32),
+                           lam.view(np.int32)]).astype(np.int32)
+
+
+def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+                rows: int, cols: int, r_map: int, q3_shift: int,
+                sse_scale: int, lam: int, new_bits, rates, left_edge,
+                gold_sse, alt, proxy):
+    """The zone's mode decision, LAST's five candidates, GOLDEN's two,
+    ALTREF's two and the reference choice, on the card: a thread per
+    block, one launch.
+
+    ssem: (B, 2 r_map + 1, 2 r_map + 1) int32 the search's relative-SSE
+    maps; src2m, sse_zero, sse_new, new_r, new_c: (B,) int32; prev_mv:
+    (B, 2) int32; B = rows x cols in raster order; left_edge: (rows, 2)
+    int32 LEFT at column 0 or None (zeros); gold_sse: (2, B) int32
+    GOLDEN's ZERO and previous-MV SSEs or None; alt: ALTREF's (sse_zero,
+    sse_new, new_r, new_c), (B,) int32 each, or None (with ``rates``
+    only); rates: ``upload_rate_tabs``' dict, whose device row "scalars"
+    (``RATE_SCALARS``) and three LUTs the kernel reads (its host numbers
+    are not read: the same upload made both), its "lam_bits" the frame's
+    host number or (tune SQ) a (B,) float32 tensor the kernel reads
+    instead; or None: then ``lam`` and ``proxy`` (``CAND_RATE_PROXY``)
+    weigh the costs and NEW's rate is ``new_bits`` (float32, indexed by
+    the mvd, which must stay inside it: past it the kernel traps); all
+    contiguous CUDA tensors of one device. Returns (mv_r, mv_c (B,) int32,
+    ref_sel (B,) int8), bit for bit what ``pipeline/tpu_encdec.py:
+    mode_decide_ref`` returns. It runs the kernel of
+    ``csrc/mode_decide.cu`` or raises."""
+    name = "mode_decide"
+    b = new_r.shape[0]
+    if rows * cols != b:
+        raise ValueError(f"{name}: {b} blocks in a {rows}x{cols} zone")
+    d = 2 * r_map + 1
+    _want(name, "ssem", ssem, (b, d, d), torch.int32)
+    vecs = (src2m, sse_zero, sse_new, new_r, new_c)
+    for what, t in zip(("src2m", "sse_zero", "sse_new", "new_r", "new_c"),
+                       vecs):
+        _want(name, what, t, (b,), torch.int32)
+    _want(name, "prev_mv", prev_mv, (b, 2), torch.int32)
+    if left_edge is not None:
+        _want(name, "left_edge", left_edge, (rows, 2), torch.int32)
+    if gold_sse is not None:
+        _want(name, "gold_sse", gold_sse, (2, b), torch.int32)
+    if alt is not None:
+        if rates is None:
+            raise ValueError(f"{name}: ALTREF takes the frame's rate tables")
+        if len(alt) != 4:
+            raise ValueError(f"{name}: alt is ALTREF's (sse_zero, sse_new, "
+                             "new_r, new_c)")
+        for what, t in zip(("sse_zero", "sse_new", "new_r", "new_c"), alt):
+            _want(name, f"ALTREF's {what}", t, (b,), torch.int32)
+    if new_bits.dim() != 1:
+        raise TypeError(f"{name}: new_bits must be 1-D, got "
+                        f"{tuple(new_bits.shape)}")
+    _want(name, "new_bits", new_bits, new_bits.shape, torch.float32)
+    tabs = ()
+    lam_vec = None
+    if rates is not None:
+        m = int(rates["mv_cost_max"])
+        tabs = (rates["scalars"], rates["joint_cost"], rates["nmv_row"],
+                rates["nmv_col"])
+        for what, t, size in zip(("scalars", "joint_cost", "nmv_row",
+                                  "nmv_col"), tabs,
+                                 (len(RATE_SCALARS), 4, 2 * m + 1,
+                                  2 * m + 1)):
+            _want(name, what, t, (size,), torch.int32)
+        if isinstance(rates["lam_bits"], torch.Tensor):
+            lam_vec = rates["lam_bits"]
+            _want(name, "lam_bits", lam_vec, (b,), torch.float32)
+    opt = [t for t in (left_edge, gold_sse, *(alt or ()), lam_vec)
+           if t is not None]
+    dev = _cuda_only(name, ssem, *vecs, prev_mv, new_bits, *tabs, *opt)
+    mv = torch.empty((2, b), dtype=torch.int32, device=dev)
+    ref_sel = torch.empty((b,), dtype=torch.int8, device=dev)
+    if b > 0:
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        alt_ptrs = [None] * 4 if alt is None else [t.data_ptr() for t in alt]
+        tab_ptrs = [None] * 4 if rates is None else [t.data_ptr()
+                                                    for t in tabs]
+        rz, _, _, rp, rs = (float(v) for v in proxy)
+        _launch(name, dev, *(t.data_ptr() for t in (ssem, *vecs, prev_mv)),
+                ptr(left_edge), ptr(gold_sse), *alt_ptrs, *tab_ptrs,
+                ptr(lam_vec), new_bits.data_ptr(), mv.data_ptr(),
+                ref_sel.data_ptr(), rz, rp, rs, b, rows, cols, r_map,
+                q3_shift, sse_scale, int(lam), int(rates is not None),
+                new_bits.shape[0])
+        mode_decide.launches += 1
+    mv_r, mv_c = mv.unbind(0)
+    return mv_r, mv_c, ref_sel
+
+
+mode_decide.launches = 0
+
+
+def mode_decide_occupancy(device=None):
+    """(resident CTAs of 128 threads per SM, dynamic shared memory in
+    bytes) of ``mode_decide``'s kernel (``_occupancy``)."""
+    return _occupancy("mode_decide", None, None, device)
+
+
+# ---------------------------------------------------------------------------
+# The P-frame step's windows and borders (csrc/windows.cu)
+# ---------------------------------------------------------------------------
+
+# the window sets or planes one launch takes
+WINDOW_JOBS = 8
+
+
+def _host_ints(values):
+    """A ctypes int32 array of ``values`` (kept alive by the caller)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _host_ptrs(values):
+    """A ctypes array of device pointers (kept alive by the caller)."""
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+def _aligned_outputs(sizes, device):
+    """Uninitialised uint8 buffers of ``sizes`` bytes out of one
+    allocation, each starting on a 16-byte boundary (the kernels store
+    whole 16-byte words)."""
+    starts, total = [], 0
+    for size in sizes:
+        starts.append(total)
+        total += (size + 15) // 16 * 16
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    return [buf[s:s + size] for s, size in zip(starts, sizes)]
+
+
+def extract_windows(specs, rows: int, cols: int):
+    """Search windows of one zone of rows x cols blocks out of up to
+    ``WINDOW_JOBS`` planes, on the card, in one launch.
+
+    specs: (plane, n, sw, y0, x0) each: a contiguous uint8 border-extended
+    plane, the block size, the window side and where the zone's first
+    window starts in the plane (``pipeline/tpu_encdec.py:window_bounds``);
+    every window must lie inside its plane. Returns a list of (B, sw, sw)
+    uint8 tensors, B = rows x cols, window (row, col) at (y0 + n row, x0 +
+    n col), bit for bit what ``_extract_search_windows`` returns. It runs
+    the kernel of ``csrc/windows.cu`` or raises."""
+    name = "extract_windows"
+    if not 1 <= len(specs) <= WINDOW_JOBS:
+        raise ValueError(f"{name}: 1 to {WINDOW_JOBS} window sets, got "
+                         f"{len(specs)}")
+    if rows < 0 or cols < 1:
+        raise ValueError(f"{name}: a zone of {rows}x{cols} blocks")
+    planes = [sp[0] for sp in specs]
+    for plane, n, sw, y0, x0 in specs:
+        _want_plane(name, "a plane", plane, 1, 1)
+        if n < 1 or sw < 1:
+            raise ValueError(f"{name}: n={n}, sw={sw}")
+        if rows and (y0 < 0 or x0 < 0
+                     or y0 + (rows - 1) * n + sw > plane.shape[0]
+                     or x0 + (cols - 1) * n + sw > plane.shape[1]):
+            raise ValueError(f"{name}: the windows of {rows}x{cols} blocks "
+                             f"of {n} at ({y0}, {x0}) leave the "
+                             f"{tuple(plane.shape)} plane")
+    dev = _cuda_only(name, *planes)
+    b = rows * cols
+    outs = _aligned_outputs([b * sp[2] * sp[2] for sp in specs], dev)
+    if b > 0:
+        srcs = _host_ptrs([p.data_ptr() for p in planes])
+        dsts = _host_ptrs([o.data_ptr() for o in outs])
+        # per set: the plane's row length, n, sw, y0, x0
+        ints = [_host_ints([p.shape[1] for p in planes]),
+                *(_host_ints([int(sp[k]) for sp in specs])
+                  for k in (1, 2, 3, 4))]
+        _launch(name, dev, ctypes.addressof(srcs), ctypes.addressof(dsts),
+                *(ctypes.addressof(a) for a in ints), len(specs), rows, cols)
+        extract_windows.launches += 1
+    return [o.view(b, sp[2], sp[2]) for o, sp in zip(outs, specs)]
+
+
+extract_windows.launches = 0
+
+
+def extend_borders(planes, crops, border: int):
+    """The border extension of up to ``WINDOW_JOBS`` planes, on the card,
+    in one launch: plane (H, W) into (H + 2 border, W + 2 border), its
+    visible crop (crop_w, crop_h) of ``crops`` (1 <= crop <= the plane's
+    side) replicated outward. planes: contiguous uint8 CUDA tensors of one
+    device. Returns a tuple of new planes, bit for bit what
+    ``pipeline/tpu_encdec.py:extend_borders_device`` returns for each. It
+    runs the kernel of ``csrc/windows.cu`` or raises."""
+    name = "extend_borders"
+    if not 1 <= len(planes) <= WINDOW_JOBS or len(crops) != len(planes):
+        raise ValueError(f"{name}: 1 to {WINDOW_JOBS} planes, each with its "
+                         f"crop, got {len(planes)} and {len(crops)}")
+    if border < 0:
+        raise ValueError(f"{name}: border {border}")
+    for plane, (cw, ch) in zip(planes, crops):
+        _want_plane(name, "a plane", plane, 1, 1)
+        if not (1 <= cw <= plane.shape[1] and 1 <= ch <= plane.shape[0]):
+            raise ValueError(f"{name}: crop {cw}x{ch} of a "
+                             f"{tuple(plane.shape)} plane")
+    dev = _cuda_only(name, *planes)
+    shapes = [(p.shape[0] + 2 * border, p.shape[1] + 2 * border)
+              for p in planes]
+    outs = _aligned_outputs([h * w for h, w in shapes], dev)
+    srcs = _host_ptrs([p.data_ptr() for p in planes])
+    dsts = _host_ptrs([o.data_ptr() for o in outs])
+    ints = [_host_ints(v) for v in ([p.shape[0] for p in planes],
+                                    [p.shape[1] for p in planes],
+                                    [int(c[0]) for c in crops],
+                                    [int(c[1]) for c in crops])]
+    _launch(name, dev, ctypes.addressof(srcs), ctypes.addressof(dsts),
+            *(ctypes.addressof(a) for a in ints), len(planes), int(border))
+    extend_borders.launches += 1
+    return tuple(o.view(h, w) for o, (h, w) in zip(outs, shapes))
+
+
+extend_borders.launches = 0
+
+# windows_occupancy's kernels, by their index in the source
+WINDOW_KERNELS = ("extract_windows", "extend_borders")
+
+
+def windows_occupancy(kernel: str, device=None):
+    """(resident CTAs of 256 threads per SM, dynamic shared memory in
+    bytes) of ``csrc/windows.cu``'s kernel ``kernel`` (one of
+    ``WINDOW_KERNELS``; ``_occupancy``)."""
+    if kernel not in WINDOW_KERNELS:
+        raise ValueError(f"windows: no kernel {kernel!r} in "
+                         f"{WINDOW_KERNELS}")
+    return _occupancy("windows", range(len(WINDOW_KERNELS)),
+                      WINDOW_KERNELS.index(kernel), device)

@@ -80,9 +80,9 @@ from tpu_vp9_torch.ops.cuda_kernels import kf_check_status
 from tpu_vp9_torch.ops.loopfilter import pick_filter_level, sharpness_limits
 from tpu_vp9_torch.pipeline.encoder import EncodedFrame, _apply_loop_filter
 from tpu_vp9_torch.pipeline.tpu_encdec import (
-    DESCEND_FRAC, ZONE_KEYS, Geom, extend_borders_device, make_geom,
+    DESCEND_FRAC, ZONE_KEYS, Geom, extend_borders, make_geom,
     make_kframe_step, make_pframe_step, make_rate_tabs, pad_plane,
-    upload_rate_tabs,
+    recon_crops, upload_rate_tabs,
 )
 from tpu_vp9_torch.pipeline.tpu_shard import make_rt_step_sharded
 from tpu_vp9_torch.utils.trace import notice, span
@@ -297,12 +297,9 @@ def upload_refs(recon_planes, geom: Geom, device):
     g = geom
     shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
               (g.pad_h // 2, g.pad_w // 2))
-    cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
-    crops = ((g.width, g.height), (cw, ch), (cw, ch))
-    return tuple(
-        extend_borders_device(
-            torch.from_numpy(pad_plane(np.asarray(p), *shp)).to(device), *cr)
-        for p, shp, cr in zip(recon_planes, shapes, crops))
+    return extend_borders(
+        tuple(torch.from_numpy(pad_plane(np.asarray(p), *shp)).to(device)
+              for p, shp in zip(recon_planes, shapes)), recon_crops(g))
 
 
 def _device_out_to_host(outs, geom: Geom, want_recon: bool):

@@ -46,21 +46,27 @@ native serializer.
 
 Every stage computes what the JAX package's stage computes, as plain
 functions on tensors of the caller's device, with CUDA kernels in
-``ops/cuda_kernels.py``: the full-pel search (``hier_search_fused`` for
-both levels of the 32 zone in one launch, ``sse_map_search`` for the
-children), the quarter-pel search (``subpel_search``), motion
+``ops/cuda_kernels.py``: the windows (``extract_windows``: every window
+set of a call site in one launch), the full-pel search
+(``hier_search_fused`` for both levels of the 32 zone in one launch,
+``sse_map_search`` for the children), the quarter-pel search
+(``subpel_search``), the mode decision (``mode_decide``: LAST, GOLDEN,
+ALTREF and the reference choice of a zone in one launch), motion
 compensation (``mc_predict``: Y, U and V of a zone or of the children in
 one launch, every block's window read in place by its reference and window
 index), the distortion (``block_energy`` on blocks, ``block_energy_at`` on
 candidates read in place out of a reference plane), the transform stage
-(``transform_recon``: forward DCT, quantizer, inverse, recon and eob) and
-the loop filter (``loop_filter``, all three planes in one launch). The
-plain versions of the last three kernels, of the quarter-pel search and of
-MC live here (``subpel_search_ref``, ``mc_predict_ref``,
-``transform_recon_ref``, ``loop_filter_ref``), each reached through its
-dispatch (``subpel_search``, ``mc_predict``, ``transform_recon``,
-``loop_filter_device``): CPU tensors take the plain version, CUDA tensors
-the kernel's wrapper, which launches or raises. Formulations that
+(``transform_recon``: forward DCT, quantizer, inverse, recon and eob), the
+loop filter (``loop_filter``, all three planes in one launch) and the
+border extension (``extend_borders``, the three planes in one launch).
+The plain versions of these kernels but the search's and the distortion's
+live here (``_extract_search_windows``, ``subpel_search_ref``,
+``mode_decide_ref``, ``mc_predict_ref``, ``transform_recon_ref``,
+``loop_filter_ref``, ``extend_borders_device``), each reached through its
+dispatch (``extract_windows``, ``subpel_search``, ``mode_decide``,
+``mc_predict``, ``transform_recon``, ``loop_filter_device``,
+``extend_borders``): CPU tensors take the plain version, CUDA tensors the
+kernel's wrapper, which launches or raises. Formulations that
 exist only to suit the TPU are not carried over: one-hot matmul gathers
 (``_oh_take_rows/_cols``) are plain indexing, float32 stand-ins for
 integer arithmetic are int32, and the scan-prefix level transfer is not
@@ -209,6 +215,25 @@ def extend_borders_device(plane, crop_w: int, crop_h: int,
     return plane.index_select(0, rows).index_select(1, cols)
 
 
+def extend_borders(planes, crops, border: int = BORDER):
+    """The border extension of a recon's planes (contract:
+    ``extend_borders_device`` on each plane with its (crop_w, crop_h) of
+    ``crops``). Planes that all lie on the CPU take the plain version;
+    anything else goes to the CUDA kernel's wrapper, which extends all of
+    them in one launch or raises. Returns a tuple of new planes."""
+    if all(p.device.type == "cpu" for p in planes):
+        return tuple(extend_borders_device(p, cw, ch, border)
+                     for p, (cw, ch) in zip(planes, crops, strict=True))
+    return cuda_kernels.extend_borders(planes, crops, border)
+
+
+def recon_crops(geom: Geom):
+    """(crop_w, crop_h) of the luma and the two chroma planes of a
+    recon: the visible picture, chroma rounded up."""
+    cw, ch = (geom.width + 1) >> 1, (geom.height + 1) >> 1
+    return ((geom.width, geom.height), (cw, ch), (cw, ch))
+
+
 def _pad_edge(plane, h: int, w: int):
     """Edge-replicate a device plane on the bottom and right to (h, w)."""
     ph, pw = plane.shape
@@ -295,6 +320,32 @@ def _extract_search_windows(ref_padded, n: int, rows: int, cols: int,
     region = ref_padded[y0:y0 + hh, x0:x0 + ww]
     wins = region.unfold(0, sw, n).unfold(1, sw, n)  # (rows, cols, sw, sw)
     return wins.reshape(rows * cols, sw, sw).contiguous()
+
+
+def extract_windows(jobs, rows: int, cols: int):
+    """Search windows of one zone of rows x cols blocks out of several
+    border-extended planes (contract: ``_extract_search_windows`` for each
+    job): jobs are (plane, n, y_base, r). ``window_bounds`` refuses a
+    region that leaves its plane first. Planes that all lie on the CPU
+    take the plain version; anything else goes to the CUDA kernel's
+    wrapper, which cuts every set in one launch or raises. Returns a list
+    of contiguous (B, SW, SW) uint8 tensors, one a job."""
+    if all(job[0].device.type == "cpu" for job in jobs):
+        return [_extract_search_windows(plane, n, rows, cols, y_base, r)
+                for plane, n, y_base, r in jobs]
+    return cuda_kernels.extract_windows(window_specs(jobs, rows, cols), rows,
+                                        cols)
+
+
+def window_specs(jobs, rows: int, cols: int):
+    """``extract_windows``' jobs as its kernel takes them: (plane, n, SW,
+    y0, x0), the first window's origin from ``window_bounds``, which
+    raises for a region that leaves its plane."""
+    specs = []
+    for plane, n, y_base, r in jobs:
+        y0, x0, _, _ = window_bounds(plane.shape, n, rows, cols, y_base, r)
+        specs.append((plane, n, n + 2 * r + 8, y0, x0))
+    return specs
 
 
 @functools.lru_cache(maxsize=None)
@@ -655,8 +706,12 @@ def make_rate_tabs(fc, qindex: int):
 
 def upload_rate_tabs(tabs, device):
     """The step's ``rates`` argument from ``make_rate_tabs``: the three
-    LUTs the step gathers from go to ``device``; the scalars it only
-    broadcasts stay host numbers (``lam_bits`` the float32 value)."""
+    LUTs the step gathers from go to ``device``, and so do the scalars, as
+    one int32 row (``cuda_kernels.rate_scalars``, key "scalars"), which
+    the mode decision's kernel reads; beside it the scalars stay host
+    numbers (``lam_bits`` the float32 value) for the plain versions and
+    the descent. Both come from ``tabs``: a caller that changes a host
+    scalar uploads again."""
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
@@ -668,6 +723,7 @@ def upload_rate_tabs(tabs, device):
         "joint_cost": dev(tabs["joint_cost"]),
         "nmv_row": dev(tabs["nmv_row"]),
         "nmv_col": dev(tabs["nmv_col"]),
+        "scalars": dev(cuda_kernels.rate_scalars(tabs)),
     }
 
 
@@ -786,23 +842,28 @@ def _candidate_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c,
     return mv_r, mv_c, cost
 
 
-def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
-                   cols: int, n: int, lam: int, rates, y_base: int = 0,
-                   x_base: int = 0):
-    """The GOLDEN reference's best candidate per block of the zone whose
-    first row is plane row ``y_base``: ZERO (exact SSE) or the block's
-    previous-frame MV (SSE at its rounded full-pel position), first
-    minimum. ``x_base`` as in ``_fullpel_starts`` (the ZERO candidate
-    reads the zone's columns of ``gold_y`` whatever it is). Returns
-    (mv_r, mv_c, cost) without the reference's own signalling cost."""
-    zero = torch.zeros_like(prev_mv[:, 0])
-    cand_r = torch.stack([zero, prev_mv[:, 0]])
-    cand_c = torch.stack([zero, prev_mv[:, 1]])
+def _golden_sses(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
+                 cols: int, n: int, y_base: int = 0, x_base: int = 0):
+    """The SSEs of GOLDEN's two candidates per block of the zone whose
+    first row is plane row ``y_base``, (2, B) int32 from one
+    ``block_energy_at`` launch: ZERO (the co-located block) and the
+    block's previous-frame MV at its rounded full-pel position.
+    ``x_base`` as in ``_fullpel_starts`` (the ZERO candidate reads the
+    zone's columns of ``gold_y`` whatever it is)."""
     zy, zx = _grid_starts(rows, cols, n, gold_y.device, y_base)
     py, px = _fullpel_starts(gold_y.shape, pos_y, pos_x, prev_mv[:, 0],
                              prev_mv[:, 1], n, x_base)
-    sses = block_energy_at(src_blocks, gold_y, torch.cat([zy, py[None]]),
-                           torch.cat([zx, px[None]]), n)[0]  # both: (2, B)
+    return block_energy_at(src_blocks, gold_y, torch.cat([zy, py[None]]),
+                           torch.cat([zx, px[None]]), n)[0]
+
+
+def _golden_costs(sses, prev_mv, lam: int, rates):
+    """GOLDEN's first minimum of ZERO and the previous MV on their (2, B)
+    SSEs (``_golden_sses``). Returns (mv_r, mv_c, cost) without the
+    reference's own signalling cost."""
+    zero = torch.zeros_like(prev_mv[:, 0])
+    cand_r = torch.stack([zero, prev_mv[:, 0]])
+    cand_c = torch.stack([zero, prev_mv[:, 1]])
     if rates is not None:
         mc = rates["mode_cost"]
         g_rate = torch.tensor([[mc[2]], [mc[0]]], dtype=torch.int32,
@@ -814,6 +875,19 @@ def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
             [[rz], [rp]], dtype=torch.float32, device=sses.device)
     (mv_r, mv_c), cost, _ = _first_min(costs, (cand_r, cand_c))
     return mv_r, mv_c, cost
+
+
+def _golden_decide(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows: int,
+                   cols: int, n: int, lam: int, rates, y_base: int = 0,
+                   x_base: int = 0):
+    """The GOLDEN reference's best candidate per block of the zone whose
+    first row is plane row ``y_base``: ZERO (exact SSE) or the block's
+    previous-frame MV (SSE at its rounded full-pel position), first
+    minimum (``_golden_sses``, then ``_golden_costs``). Returns (mv_r,
+    mv_c, cost) without the reference's own signalling cost."""
+    sses = _golden_sses(gold_y, src_blocks, pos_y, pos_x, prev_mv, rows,
+                        cols, n, y_base, x_base)
+    return _golden_costs(sses, prev_mv, lam, rates)
 
 
 def _ref_extra(lam: int, rates):
@@ -831,18 +905,16 @@ def _ref_extra(lam: int, rates):
     return [0.0, two, two]
 
 
-def _altref_decide(alt_y, src_blocks, rows: int, cols: int, n: int,
-                   rates, y_base: int = 0):
-    """The ALTREF reference's best candidate per block of the zone whose
-    first row is plane row ``y_base`` (the JAX package's ALTREF block of
-    ``encode_zone``): its own full search, the 32 grid's in two levels
-    (``hier_search``) refined to quarter-pel in the refine windows, the
-    strip's flat at +-WIN_R (``sse_map_search``) refined in its windows;
-    candidates ZERO (exact SSE) and NEW, whose mvd is taken against zero,
-    costed with the frame's entropy tables, first minimum. Returns (mv_r,
-    mv_c, cost without the reference's own signalling cost, the ALTREF
-    luma windows)."""
-    wins = _extract_search_windows(alt_y, n, rows, cols, y_base)
+def _altref_search(alt_y, src_blocks, rows: int, cols: int, n: int,
+                   y_base: int = 0):
+    """The ALTREF reference's own search for the blocks of the zone whose
+    first row is plane row ``y_base`` (the search half of the JAX
+    package's ALTREF block of ``encode_zone``): its windows, the ZERO SSE,
+    the 32 grid's two-level full search (``hier_search``) refined to
+    quarter-pel in the refine windows, or the strip's flat one at +-WIN_R
+    (``sse_map_search``) refined in its windows. Returns (sse_zero,
+    sse_new, new_r, new_c, the ALTREF luma windows)."""
+    wins, = extract_windows([(alt_y, n, y_base, WIN_R)], rows, cols)
     sse0 = _zero_sse(alt_y, src_blocks, rows, cols, n, y_base)
     if n == 32:
         c_y, c_x, dyr, dxr, loc, _, _ = hier_search(src_blocks, wins, n)
@@ -853,6 +925,13 @@ def _altref_decide(alt_y, src_blocks, rows: int, cols: int, n: int,
         dy, dx, _ = sse_map_search(src_blocks, wins, n, WIN_R)
         new_r, new_c, sse1 = subpel_search(wins, src_blocks, dy, dx, n,
                                            WIN_R)
+    return sse0, sse1, new_r, new_c, wins
+
+
+def _altref_costs(sse0, sse1, new_r, new_c, rates):
+    """ALTREF's first minimum of ZERO and NEW (its mvd taken against
+    zero), costed with the frame's entropy tables. Returns (mv_r, mv_c,
+    cost) without the reference's own signalling cost."""
     mc = rates["mode_cost"]
     ones = torch.ones_like(new_r)
     rate = torch.stack([mc[2] * ones, mc[3] + _mvd_bits(rates, new_r, new_c)])
@@ -860,7 +939,90 @@ def _altref_decide(alt_y, src_blocks, rows: int, cols: int, n: int,
     zero = torch.zeros_like(new_r)
     (mv_r, mv_c), cost, _ = _first_min(
         costs, (torch.stack([zero, new_r]), torch.stack([zero, new_c])))
-    return mv_r, mv_c, cost, wins
+    return mv_r, mv_c, cost
+
+
+def _altref_decide(alt_y, src_blocks, rows: int, cols: int, n: int,
+                   rates, y_base: int = 0):
+    """The ALTREF reference's best candidate per block of the zone whose
+    first row is plane row ``y_base`` (the JAX package's ALTREF block of
+    ``encode_zone``): ``_altref_search``, then ``_altref_costs``. Returns
+    (mv_r, mv_c, cost without the reference's own signalling cost, the
+    ALTREF luma windows)."""
+    sse0, sse1, new_r, new_c, wins = _altref_search(alt_y, src_blocks, rows,
+                                                    cols, n, y_base)
+    return (*_altref_costs(sse0, sse1, new_r, new_c, rates), wins)
+
+
+def mode_decide_ref(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+                    rows: int, cols: int, r_map: int, q3_shift: int,
+                    sse_scale: int, lam: int, new_bits, rates=None,
+                    left_edge=None, gold_sse=None, alt=None):
+    """The zone's mode decision (plain version of the kernel behind
+    ``ops/cuda_kernels.py:mode_decide``, its arguments but ``proxy``,
+    which is ``CAND_RATE_PROXY``'s here): LAST's five candidates
+    (``_candidate_decide``); with ``gold_sse`` ((2, B) int32,
+    ``_golden_sses``) GOLDEN's ZERO and previous MV (``_golden_costs``),
+    taken on a strict '<' against LAST's best; with ``alt`` = (sse_zero,
+    sse_new, new_r, new_c) of ALTREF's search (``_altref_search``; needs
+    ``rates``) ALTREF's ZERO and NEW (``_altref_costs``), taken on a
+    strict '<' against the best after GOLDEN; each reference's cost with
+    its signalling cost (``_ref_extra``). rates: ``upload_rate_tabs``, its
+    ``lam_bits`` a host number or (aq) a (B,) float32 tensor, or None
+    (the proxies). Returns (mv_r, mv_c int32, ref_sel int8: 0 LAST, 1
+    GOLDEN, 2 ALTREF)."""
+    mv_r, mv_c, cost_last = _candidate_decide(
+        ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows, cols,
+        r_map, q3_shift, sse_scale, lam, new_bits, rates=rates,
+        left_edge=left_edge)
+    ref_sel = torch.zeros((new_r.shape[0],), dtype=torch.int8,
+                          device=new_r.device)
+    if gold_sse is None and alt is None:
+        return mv_r, mv_c, ref_sel
+    extra = _ref_extra(lam, rates)
+    best_cost = cost_last + extra[0]
+    if gold_sse is not None:
+        g_mv_r, g_mv_c, g_cost = _golden_costs(gold_sse, prev_mv, lam, rates)
+        g_cost = g_cost + extra[1]
+        use_gold = g_cost < best_cost
+        best_cost = torch.where(use_gold, g_cost, best_cost)
+        ref_sel = use_gold.to(torch.int8)
+        mv_r = torch.where(use_gold, g_mv_r, mv_r)
+        mv_c = torch.where(use_gold, g_mv_c, mv_c)
+    if alt is not None:
+        a_mv_r, a_mv_c, a_cost = _altref_costs(*alt, rates)
+        use_alt = (a_cost + extra[2]) < best_cost
+        ref_sel = torch.where(use_alt, 2, ref_sel).to(torch.int8)
+        mv_r = torch.where(use_alt, a_mv_r, mv_r)
+        mv_c = torch.where(use_alt, a_mv_c, mv_c)
+    return mv_r, mv_c, ref_sel
+
+
+def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+                rows: int, cols: int, r_map: int, q3_shift: int,
+                sse_scale: int, lam: int, new_bits, rates=None,
+                left_edge=None, gold_sse=None, alt=None):
+    """The zone's mode decision (contract: ``mode_decide_ref``). Tensors
+    that all lie on the CPU take the plain version; anything else goes to
+    the CUDA kernel's wrapper, which launches or raises."""
+    if alt is not None and rates is None:
+        raise ValueError("mode_decide: ALTREF takes the frame's rate tables")
+    tensors = [ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+               new_bits, left_edge, gold_sse, *(alt or ())]
+    if rates is not None:
+        tensors += [rates["joint_cost"], rates["nmv_row"], rates["nmv_col"],
+                    rates["scalars"]]
+        if isinstance(rates["lam_bits"], torch.Tensor):
+            tensors.append(rates["lam_bits"])
+    if all(t.device.type == "cpu" for t in tensors if t is not None):
+        return mode_decide_ref(ssem, src2m, sse_zero, sse_new, new_r, new_c,
+                               prev_mv, rows, cols, r_map, q3_shift,
+                               sse_scale, lam, new_bits, rates, left_edge,
+                               gold_sse, alt)
+    return cuda_kernels.mode_decide(
+        ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows, cols,
+        r_map, q3_shift, sse_scale, lam, new_bits, rates, left_edge,
+        gold_sse, alt, CAND_RATE_PROXY)
 
 
 # ---------------------------------------------------------------------------
@@ -1404,7 +1566,7 @@ def zone_search(src_y, ref_y, positions, y0: int, n: int, rates=None,
     pos_y, pos_x, rows, cols = positions
     with _stage("step_search"):
         src_blocks = _extract_blocks(src_y, y0, rows, cols, n)
-        wins = _extract_search_windows(ref_y, n, rows, cols, y0)
+        wins, = extract_windows([(ref_y, n, y0, WIN_R)], rows, cols)
         sse_zero = _zero_sse(ref_y, src_blocks, rows, cols, n, y0)
         if n == 32:
             c_y, c_x, dyr, dxr, loc, ssem, src2m = hier_search(src_blocks,
@@ -1451,53 +1613,38 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
     pos_y, pos_x = me["pos_y"], me["pos_x"]
     src_blocks, wins, rates = me["src_blocks"], me["wins"], me["rates"]
     nc = n // 2
-    b = rows * cols
-    with _stage("step_md"):
-        mv_r, mv_c, cost_last = _candidate_decide(
-            me["ssem"], me["src2m"], me["sse_zero"], me["sse_new"],
-            me["new_r"], me["new_c"], prev_mv, rows, cols, me["r_map"],
-            me["q3s"], me["scale"], lam, new_bits, rates=rates,
-            left_edge=left_edge)
-    ref_sel = torch.zeros((b,), dtype=torch.int8, device=src_blocks.device)
-    if gold is not None or alt is not None:
-        extra = _ref_extra(lam, rates)
-        best_cost = cost_last + extra[0]
+    gold_sse = alt_me = None
     if gold is not None:
         with _stage("step_golden"):
-            g_mv_r, g_mv_c, g_cost = _golden_decide(
-                gold[0], src_blocks, pos_y, pos_x, prev_mv, rows, cols, n,
-                lam, rates, y0, x_base)
-            g_cost = g_cost + extra[1]
-            use_gold = g_cost < best_cost
-            best_cost = torch.where(use_gold, g_cost, best_cost)
-            ref_sel = use_gold.to(torch.int8)
-            mv_r = torch.where(use_gold, g_mv_r, mv_r)
-            mv_c = torch.where(use_gold, g_mv_c, mv_c)
+            gold_sse = _golden_sses(gold[0], src_blocks, pos_y, pos_x,
+                                    prev_mv, rows, cols, n, y0, x_base)
     if alt is not None:
         with _stage("step_altref"):
-            a_mv_r, a_mv_c, a_cost, wins_a = _altref_decide(
-                alt[0], src_blocks, rows, cols, n, rates, y0)
-            use_alt = (a_cost + extra[2]) < best_cost
-            ref_sel = torch.where(use_alt, 2, ref_sel).to(torch.int8)
-            mv_r = torch.where(use_alt, a_mv_r, mv_r)
-            mv_c = torch.where(use_alt, a_mv_c, mv_c)
+            alt_me = _altref_search(alt[0], src_blocks, rows, cols, n, y0)
+    with _stage("step_md"):
+        mv_r, mv_c, ref_sel = mode_decide(
+            me["ssem"], me["src2m"], me["sse_zero"], me["sse_new"],
+            me["new_r"], me["new_c"], prev_mv, rows, cols, me["r_map"],
+            me["q3s"], me["scale"], lam, new_bits, rates, left_edge,
+            gold_sse, None if alt_me is None else alt_me[:4])
     # window MC: every winner derives from a +-WIN_R search (or is ZERO
-    # or PREV, equally bounded); each block reads its reference's windows
+    # or PREV, equally bounded); each block reads its reference's windows,
+    # every set but the search's own luma ones cut in one launch
     with _stage("step_mc"):
         y0c = y0 // 2
-        wu = _extract_search_windows(ref_u, nc, rows, cols, y0c,
-                                     r=CHROMA_WIN_R)
-        wv = _extract_search_windows(ref_v, nc, rows, cols, y0c,
-                                     r=CHROMA_WIN_R)
+        jobs = [(pl, nc, y0c, CHROMA_WIN_R) for pl in (ref_u, ref_v)]
+        if gold is not None:
+            jobs += [(gold[0], n, y0, WIN_R),
+                     *((pl, nc, y0c, CHROMA_WIN_R) for pl in gold[1:])]
+        if alt is not None:
+            jobs += [(pl, nc, y0c, CHROMA_WIN_R) for pl in alt[1:]]
+        cut = extract_windows(jobs, rows, cols)
+        wu, wv = cut[:2]
         mc_wins = [(wins, wu, wv), None, None]
-        for ref_id, planes in ((1, gold), (2, alt)):
-            if planes is not None:
-                mc_wins[ref_id] = (
-                    wins_a if ref_id == 2 else
-                    _extract_search_windows(planes[0], n, rows, cols, y0),
-                    *(_extract_search_windows(pl, nc, rows, cols, y0c,
-                                              r=CHROMA_WIN_R)
-                      for pl in planes[1:]))
+        if gold is not None:
+            mc_wins[1] = tuple(cut[2:5])
+        if alt is not None:
+            mc_wins[2] = (alt_me[4], *cut[-2:])
         pred_y, pred_u, pred_v = mc_predict(
             mc_wins, pos_y, pos_x, mv_r, mv_c, n, g.mi_rows, g.mi_cols,
             filters, ref_sel=ref_sel)
@@ -1917,11 +2064,8 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                                                  lf_lvl, lf_lim, lf_mblim,
                                                  split32=split32)
     outs.update(rec_y=rec_y, rec_u=rec_u, rec_v=rec_v)
-    cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
     with _stage("step_borders"):
-        refs = (extend_borders_device(rec_y, g.width, g.height),
-                extend_borders_device(rec_u, cw, ch),
-                extend_borders_device(rec_v, cw, ch))
+        refs = extend_borders((rec_y, rec_u, rec_v), recon_crops(g))
     return outs, refs
 
 
@@ -2174,10 +2318,7 @@ def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
     rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g, lf_lvl,
                                              lf_lim, lf_mblim)
     outs.update(rec_y=rec_y, rec_u=rec_u, rec_v=rec_v)
-    cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
-    refs = (extend_borders_device(rec_y, g.width, g.height),
-            extend_borders_device(rec_u, cw, ch),
-            extend_borders_device(rec_v, cw, ch))
+    refs = extend_borders((rec_y, rec_u, rec_v), recon_crops(g))
     return outs, refs
 
 

@@ -44,8 +44,8 @@ import numpy as np
 import torch
 
 from tpu_vp9_torch.pipeline.tpu_encdec import (
-    BORDER, FILTERS, ZONE_KEYS, Geom, _pad_edge, _zone, extend_borders_device,
-    loop_filter_device, new_bits_table, zone_code, zone_search,
+    BORDER, FILTERS, ZONE_KEYS, Geom, _pad_edge, _zone, extend_borders,
+    loop_filter_device, new_bits_table, recon_crops, zone_code, zone_search,
 )
 
 
@@ -139,7 +139,8 @@ def _encode_zone_shard(src, ref_h, prev_mv, geom: Geom, consts, n: int = 32,
         if t > 0:
             left = mes[t - 1]
             edge = torch.stack([left["new_r"], left["new_c"]], dim=-1) \
-                .reshape(left["rows"], left["cols"], 2)[:, -1].to(dev)
+                .reshape(left["rows"], left["cols"], 2)[:, -1].to(dev) \
+                .contiguous()
         outs.append(zone_code(
             me, src[t][1], src[t][2], ref_h[t][1], ref_h[t][2], prev_mv[t],
             geom, dc_q, ac_q, lam, filters[dev], new_bits[dev],
@@ -354,10 +355,7 @@ def make_rt_step_sharded(geom: Geom, mesh_shape, device,
             # one row of blocks: shard-major is raster
             out["m16"] = {k: outs[f"m16_{k}"][0].to(out_dev)
                           for k in ZONE_KEYS}
-        cw, ch = (g.width + 1) >> 1, (g.height + 1) >> 1
-        return out, (extend_borders_device(rec_y, g.width, g.height),
-                     extend_borders_device(rec_u, cw, ch),
-                     extend_borders_device(rec_v, cw, ch))
+        return out, extend_borders((rec_y, rec_u, rec_v), recon_crops(g))
 
     step.devices = devs
     return step
