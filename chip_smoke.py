@@ -19,7 +19,8 @@ Phases, each of which raises on failure (nothing is caught):
      per-block lam_bits, a shard's LEFT edge, ALTREF, SSEs above 2^24,
      all-tie inputs that must go to LAST's ZERO, the real 720p 32 zone and
      strip), the windows and borders (extract_windows on the real 1080p
-     search and MC sites, the real 720p ones, 4K's made-up; extend_borders
+     search site, the real 720p ones, 4K's made-up, each beside
+     unfold(...).contiguous(); extend_borders
      on the real 1080p keyframe and P-frame, 1080p planes at odd crops,
      the real 720p P-frame, a made-up 4K recon) against their plain
      PyTorch versions on the card, bit for bit, at the shapes the 1080p
@@ -27,11 +28,13 @@ Phases, each of which raises on failure (nothing is caught):
      the largest operands included; subpel_search on the zone's and the
      children's real windows, on windows where all 49 offsets tie, at the
      largest SSE, on 0/255 checkerboards and with winners at +-r; mc_predict
-     on the zone's and the children's real calls, on the zone's windows with
-     an ALTREF set at every chroma q4 phase pair, at +-(WIN_R + 0.75) pel at
-     every edge, past the windows' reach and with ALTREF but no GOLDEN, at
-     the RA children's shape (8,160) and the strips' (n=16, B=80 and 240),
-     its ptxas report and CTAs per SM; transform_recon at its four path
+     (which reads the reference planes in place) on the zone's and the
+     children's real calls, on the zone's planes with ALTREF planes added
+     at every chroma q4 phase pair, at +-(WIN_R + 0.75) pel at every edge,
+     past the windows' reach and with ALTREF but no GOLDEN, on planes one
+     byte into their storage with odd pitches, at the RA children's shape
+     (8,160) and the strips' (n=16, B=80 and 240, their y_base), its
+     ptxas report and CTAs per SM; transform_recon at its four path
      shapes on the step's real blocks, on source against the previous recon,
      on +-255 and zero residuals and on one nonzero level at each scan
      place, at four qindex values (the 8191 level clip reached), its level
@@ -72,8 +75,9 @@ Phases, each of which raises on failure (nothing is caught):
      for the children), subpel_search twice, mc_predict twice (the zone, the
      children), transform_recon 6 times, the block_energy ones 5 times,
      descent_gather, descent_decide, descent_pack and descent_split once
-     each, mode_decide once, extract_windows twice (the search's windows,
-     the MC site's sets), loop_filter once and extend_borders once (the
+     each, mode_decide once, extract_windows once (the search's windows;
+     MC reads the planes in place), loop_filter once and extend_borders
+     once (the
      keyframe: kframe_wave, loop_filter and extend_borders once each); some
      parents must split; the stream must
      decode with the port's decoder to the encoder's own recon across two
@@ -141,8 +145,8 @@ Phases, each of which raises on failure (nothing is caught):
      GOLDEN and ALTREF (the 8,160 children's sse_map_search,
      subpel_search, transform_recon, block_energy_at and block_energy;
      ALTREF's hier_search_fused, ZERO SSE and subpel_search; mode_decide
-     with all three references, ALTREF's search windows, the MC site's
-     seven window sets, the borders) against
+     with all three references, ALTREF's search windows, the borders)
+     against
      their plain versions and timed, and one mini-GOP under the
      profiler; at both sizes the RA session on the CPU and the card on
      the first RA_SAME_FRAMES frames with mini-GOPs of RA_SAME_GOP,
@@ -284,18 +288,18 @@ M9_B = 34 * 60
 # children's (their parents' windows by index) one; the descent's gathers,
 # candidate decision, pack and split merge are one launch each; each zone's
 # mode decision (LAST, GOLDEN, ALTREF and the reference choice) is one
-# launch, and its windows two (the search's luma windows; the MC site's
-# chroma and GOLDEN's sets together); the new references' border extension
-# of three planes is one. M9: the fused search, ZERO SSE, quarter-pel, the
-# decision, the two window launches, the zone's MC, its three transforms,
-# recon distortion, the loop filter (no mask) and the borders.
+# launch, and its windows one (the search's luma windows; MC reads the
+# reference planes in place); the new references' border extension of
+# three planes is one. M9: the fused search, ZERO SSE, quarter-pel, the
+# decision, the window launch, the zone's MC, its three transforms, recon
+# distortion, the loop filter (no mask) and the borders.
 DESCENT_WRAPPERS = ("descent_gather", "descent_decide", "descent_pack",
                     "descent_split")
 NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
 MD_WINDOW_WRAPPERS = ("mode_decide", "extract_windows", "extend_borders")
 # a zone's mode decision and window launches (without ALTREF), and the
 # border extension of a step or keyframe
-ZONE_MD_WINDOWS = {"mode_decide": 1, "extract_windows": 2}
+ZONE_MD_WINDOWS = {"mode_decide": 1, "extract_windows": 1}
 BORDERS = {"extend_borders": 1}
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
@@ -408,8 +412,9 @@ TR_INT_OPS = {32: 500 * 64 + 16 * 1024, 16: 200 * 32 + 16 * 256,
               8: 60 * 16 + 16 * 64}
 # subpel_search's path calls per M8 P-frame: the zone's, then the children's
 SP_CALLS = ("zone n=32 r=4", "children n=16 r=8")
-# mc_predict's path calls per M8 P-frame: the zone's (LAST and GOLDEN by
-# ref_sel), then the children's (their parents' LAST windows by index)
+# mc_predict's path calls per M8 P-frame: the zone's (LAST's and GOLDEN's
+# planes by ref_sel), then the children's (their parents' windows by index
+# in LAST's planes)
 MC_CALLS = ("zone n=32", "children n=16")
 # the strip geometries (mi_rows % 4 == 2) run end to end, their frames,
 # and the blocks of their bottom strip (cols16): 720p has a 22 x 40 grid of
@@ -423,7 +428,7 @@ STRIP_R = 40
 # launches per P-frame at a strip geometry, where the descent is off: the
 # 32 zone as at 1080p (M8: ZERO, then GOLDEN's two sets, in block_energy_at)
 # and the strip zone's search (sse_map_search), quarter-pel search, ZERO
-# (and GOLDEN) SSE, decision, two window launches, MC, three transforms and
+# (and GOLDEN) SSE, decision, window launch, MC, three transforms and
 # recon distortion; one border extension
 STRIP_MD_WINDOWS = {k: 2 * v for k, v in ZONE_MD_WINDOWS.items()}
 M8_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
@@ -528,6 +533,26 @@ def _cuda_time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _calls_in_turns(fn_a, fn_b, reps: int):
+    """Medians of per-call times from CUDA events of two functions of the
+    same work, called in turns (a, b, b, a, ...) after a warm-up of
+    each, so that the host's state favours neither."""
+    times = ([], [])
+    for fn in (fn_a, fn_b):
+        fn()
+    torch.cuda.synchronize()
+    for i in range(2 * reps):
+        k = (i + i // 2) % 2  # a b b a a b b a ...
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        (fn_a, fn_b)[k]()
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def _max_err(got, want) -> int:
@@ -1397,7 +1422,7 @@ def _real_m8_inputs(dev):
     ``transform_recon``, ``subpel_search`` and ``mc_predict`` (P-frame)
     recorded, with the descent's four dispatches and its
     ``encode_children_masked`` call, and the dispatches ``mode_decide``
-    (P-frame), ``extract_windows`` (its search and MC sites) and
+    (P-frame), ``extract_windows`` (its search site; none at MC) and
     ``extend_borders`` (keyframe and P-frame). Returns ({"lf": [(y, u, v,
     geom, lvl, lim, mblim, split32)], "tr": [(src, pred, dc_q, ac_q, n)],
     "sp": [(wins, src, dy, dx, n, r)], "mc": [(args, keyword args)],
@@ -1463,7 +1488,7 @@ def _real_m8_inputs(dev):
             or len(calls["ecm"]) != 1
             or [c[0] for c in calls["md"]] != [
                 "extend_borders", "extract_windows", "mode_decide",
-                "extract_windows", "extend_borders"]):
+                "extend_borders"]):
         raise AssertionError(
             "the M8 P-frame's transform, quarter-pel, MC and descent calls "
             f"were {[c[4] for c in calls['tr']]}, "
@@ -1898,7 +1923,7 @@ def _mc_bound(args, kw):
     this call's clamped MVs, at ALU_OPS_PER_S."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    wins, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols = args[:8]
+    _, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols = args[:8]
     b = pos_y.shape[0]
     nbytes = b * (16 + 1 * (kw.get("ref_sel") is not None)
                   + 4 * (kw.get("win_idx") is not None)
@@ -1918,33 +1943,40 @@ def _mc_bound(args, kw):
 
 
 def mc_kernel_phase(dev, real):
-    """mc_predict (CUDA) against mc_predict_ref on the card, bit for bit:
-    the M8 P-frame's two real calls at 1080p (``_real_m8_inputs``: the
-    zone's LAST and GOLDEN windows by ref_sel, the children's parent
-    windows by index); on the zone's real windows with an ALTREF set
-    added (the RA zone's shape, B=2040), MVs that take every chroma q4
-    phase pair (the luma even ones, phase 0 in either axis, both and
-    neither), +-(WIN_R + 0.75) pel at every edge and the overhang row,
-    MVs past the windows' reach (the window clamp) and ALTREF without
-    GOLDEN (GOLDEN's blocks read LAST); the RA children's shape, 8,160
-    children of every parent in the zone's windows; the strip zones'
-    shapes (n=16, B=80 at 720p and 240 at 4K, made-up windows, LAST and
-    GOLDEN). Each instance's registers, spills and resident CTAs per SM
-    printed. Timed on the real calls, the RA shapes and the strips."""
+    """mc_predict (CUDA; it reads the border-extended planes in place)
+    against mc_predict_planes_ref (the windows cut, then mc_predict_ref) on
+    the card, bit for bit: the M8 P-frame's two real calls at 1080p
+    (``_real_m8_inputs``: the zone's LAST and GOLDEN planes by ref_sel,
+    the children's parent windows by index in LAST's planes); on the
+    zone's real planes with ALTREF planes added (the RA zone's shape,
+    B=2040), MVs that take every chroma q4 phase pair (the luma even ones,
+    phase 0 in either axis, both and neither), +-(WIN_R + 0.75) pel at
+    every edge and the overhang row, MVs past the windows' reach (the
+    window clamp), ALTREF without GOLDEN (GOLDEN's blocks read LAST), and
+    the planes one byte into their storage with an odd pitch; the RA
+    children's shape, 8,160 children of every parent in LAST's planes;
+    the strip zones' shapes (n=16 at their y_base, B=80 at 720p and 240 at
+    4K, made-up planes, LAST and GOLDEN). Each instance's registers,
+    spills and resident CTAs per SM printed. Timed on the real calls, the
+    RA shapes and the strips."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     _kernel_resources(dev, "mc_predict", K.MC_BLOCK_SIZES,
-                      K.mc_predict_occupancy, threads=64)
+                      K.mc_predict_occupancy, threads=128)
     rng = np.random.default_rng(41)
     max_err = 0
     edge = P.WIN_R * 8 + 6  # q3
 
     def kernel(args, kw):
-        return lambda: K.mc_predict(*args[:8], **kw)
+        # the dispatch's path to the wrapper: the kernel's window grid
+        # (cached a shape), then the launch
+        shapes = tuple(tuple(t.shape) for t in args[0][0])
+        return lambda: K.mc_predict(
+            *args[:8], P.mc_window_grid(shapes, tuple(args[9])), **kw)
 
     def plain(args, kw):
-        return lambda: P.mc_predict_ref(*args, **kw)
+        return lambda: P.mc_predict_planes_ref(*args, **kw)
 
     def held(label, args, kw):
         nonlocal max_err
@@ -1954,14 +1986,21 @@ def mc_kernel_phase(dev, real):
     def on(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
+    def shifted(t):
+        """``t`` with a column more on its right (an odd pitch), one byte
+        into its storage."""
+        wide = torch.cat([t, t[:, :1]], dim=1)
+        buf = torch.empty(wide.numel() + 1, dtype=torch.uint8, device=dev)
+        buf[1:] = wide.reshape(-1)
+        return buf[1:].view(wide.shape)
+
     for label, (args, kw) in zip(MC_CALLS, real):
         held(f"M8 P-frame's {label}", args, kw)
     (zargs, zkw), (cargs, ckw) = real
-    wins, pos_y, pos_x, _, _, n, mi_rows, mi_cols, filters = zargs
-    last, gold = wins[0], wins[1]
-    # a third reference: each block's LAST windows of the block mirrored
-    # across the batch
-    alt = tuple(torch.flip(w, (0,)).contiguous() for w in last)
+    planes, pos_y, pos_x, _, _, n, mi_rows, mi_cols, filters, grid = zargs
+    last, gold = planes[0], planes[1]
+    # a third reference: LAST's planes turned upside down and mirrored
+    alt = tuple(torch.flip(p, (0, 1)).contiguous() for p in last)
     b = pos_y.shape[0]
     i = np.arange(b)
     combos = np.array([(r, c) for r in (-edge, 0, edge)
@@ -1977,13 +2016,17 @@ def mc_kernel_phase(dev, real):
          rng.choice([-1, 1], (2, b)) * rng.integers(edge + 8, edge + 400,
                                                     (2, b))),
         ("ALTREF without GOLDEN", [last, None, alt],
+         rng.integers(-edge, edge + 1, (2, b))),
+        ("planes one byte into their storage, odd pitches",
+         [tuple(shifted(p) for p in ref) for ref in (last, gold, alt)],
          rng.integers(-edge, edge + 1, (2, b))))
     for label, w, mv in made_up:
         args = (w, pos_y, pos_x, on(mv[0]), on(mv[1]), n, mi_rows, mi_cols,
-                filters)
+                filters, grid)
         held(f"{label} B={b} n={n}", args, {"ref_sel": sel3})
         if label == "every q4 phase pair":
             ra_zone = args  # the RA zone's shape: three references
+    del made_up
     # the RA children: four of every parent, in the parents' windows
     ii, jj = torch.tensor([0, 0, 1, 1], device=dev), \
         torch.tensor([0, 1, 0, 1], device=dev)
@@ -1997,20 +2040,23 @@ def mc_kernel_phase(dev, real):
     bc = 4 * b
     mv = rng.integers(-edge + 128, edge - 127, (2, bc))
     ra_children = (cargs[0], *c_pos, on(mv[0]), on(mv[1]), 16, mi_rows,
-                   mi_cols, filters)
+                   mi_cols, filters, cargs[9])
     held(f"RA children B={bc} n=16", ra_children, c_kw)
-    # the strip zones: n=16, LAST and GOLDEN
+    # the strip zones: n=16 at the strip's row, LAST and GOLDEN
     strips = []
     for tag, dims in STRIP_GEOMS.items():
         g = P.make_geom(*dims)
         bs = STRIP_B[tag]
-        sides = (16 + 2 * P.WIN_R + 8, 8 + 2 * P.CHROMA_WIN_R + 8,
-                 8 + 2 * P.CHROMA_WIN_R + 8)
-        ref_wins = [tuple(on(rng.integers(0, 256, (bs, sd, sd)),
-                             torch.uint8) for sd in sides) for _ in range(2)]
+        shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
+                  (g.pad_h // 2, g.pad_w // 2))
+        ref_planes = [tuple(on(rng.integers(0, 256, (h + 2 * P.BORDER,
+                                                     w + 2 * P.BORDER)),
+                               torch.uint8) for h, w in shapes)
+                      for _ in range(2)]
         mv = rng.integers(-edge, edge + 1, (2, bs))
-        args = (ref_wins, on(np.full(bs, g.strip_y)), on(np.arange(bs) * 16),
-                on(mv[0]), on(mv[1]), 16, g.mi_rows, g.mi_cols, filters)
+        args = (ref_planes, on(np.full(bs, g.strip_y)),
+                on(np.arange(bs) * 16), on(mv[0]), on(mv[1]), 16, g.mi_rows,
+                g.mi_cols, filters, (16, g.strip_y, 1, g.cols16))
         kw = {"ref_sel": on(rng.integers(0, 2, bs), torch.int8)}
         held(f"{tag} strip B={bs} n=16", args, kw)
         strips.append((tag, args, kw))
@@ -2458,16 +2504,18 @@ def md_window_kernel_phase(dev, real):
     """mode_decide, extract_windows and extend_borders (CUDA) against
     their plain versions on the card, bit for bit (values, dtypes,
     shapes): the 1080p M8 P-frame's real calls (``_real_m8_inputs``: the
-    32 zone's decision with GOLDEN and the rate tables, its search and MC
-    window sites, the keyframe's and the P-frame's borders); the made-up
-    decisions of ``_md_made_up`` (ties must go to LAST's ZERO); the 720p
-    strip geometry's real calls (a keyframe and an M8 P-frame through the
-    public encoder, the 32 zone's and the strip's decisions and window
-    sites recorded); 4K made-up planes (the 32 zone's and the strip's
-    window sites, the borders) and 1080p planes at odd crops. Each
+    32 zone's decision with GOLDEN and the rate tables, its search window
+    site (MC cuts none), the keyframe's and the P-frame's borders); the
+    made-up decisions of ``_md_made_up`` (ties must go to LAST's ZERO);
+    the 720p strip geometry's real calls (a keyframe and an M8 P-frame
+    through the public encoder, the 32 zone's and the strip's decisions
+    and search windows recorded); 4K made-up planes (the 32 zone's and the
+    strip's search sites, the borders) and 1080p planes at odd crops. Each
     kernel's registers, spills and resident CTAs per SM printed; call,
     device, plain, library and bound times at the 1080p M8 shapes (the
-    entries), 720p and 4K (their "strip_parts"). Returns {name: entry}."""
+    entries), 720p and 4K (their "strip_parts"); extract_windows' call
+    beside unfold(...).contiguous()'s at every shape ("call_vs_library").
+    Returns {name: entry}."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
@@ -2494,6 +2542,8 @@ def md_window_kernel_phase(dev, real):
         errs[name] = max(errs[name], _check(name, label, got, want))
         return got
 
+    against_library = []
+
     def timed(name, label, args, count=1):
         kernel, plain, library = _md_window_fns(name, args)
         part = _timed(name, label, kernel, plain, 5,
@@ -2503,6 +2553,14 @@ def md_window_kernel_phase(dev, real):
         if lib_ms is not None:
             print(f"kernel {name} {label}: the PyTorch calls' time "
                   f"{lib_ms:.4f} ms (CUDA events, median)")
+        if name == "extract_windows":
+            k_ms, l_ms = _calls_in_turns(kernel, library, 100)
+            print(f"kernel {name} {label}: in turns, the kernel's call "
+                  f"{k_ms:.4f} ms, unfold(...).contiguous() {l_ms:.4f} ms "
+                  f"(CUDA events, medians of 100 each): "
+                  f"{'no slower' if k_ms <= l_ms else 'slower'}")
+            against_library.append({"shape": label, "ms": k_ms,
+                                    "library_ms": l_ms})
         return part, lib_ms
 
     m8 = {}
@@ -2511,10 +2569,11 @@ def md_window_kernel_phase(dev, real):
     md_args = m8["mode_decide"][0]
     held("1080p M8 P-frame, real, GOLDEN and rate tables", "mode_decide",
          md_args)
-    for label, args in zip(("search site", "MC site"),
-                           m8["extract_windows"]):
-        held(f"1080p M8 P-frame {label}, real ({len(args[0])} sets)",
-             "extract_windows", args)
+    if len(m8["extract_windows"]) != 1:
+        raise AssertionError(f"the 1080p M8 P-frame cut "
+                             f"{len(m8['extract_windows'])} window sets")
+    held("1080p M8 P-frame search site, real (1 set)", "extract_windows",
+         m8["extract_windows"][0])
     for label, args in zip(("keyframe", "P-frame"), m8["extend_borders"]):
         held(f"1080p {label}, real", "extend_borders", args)
     rng = np.random.default_rng(47)
@@ -2542,7 +2601,7 @@ def md_window_kernel_phase(dev, real):
     for name, args in strip_calls:
         s720.setdefault(name, []).append(args)
     if {k: len(v) for k, v in s720.items()} != {
-            "extend_borders": 2, "extract_windows": 4, "mode_decide": 2}:
+            "extend_borders": 2, "extract_windows": 2, "mode_decide": 2}:
         raise AssertionError(f"the 720p keyframe and P-frame made these "
                              f"calls: { {k: len(v) for k, v in s720.items()} }")
     strip_parts = {k: [] for k in MD_WINDOW_WRAPPERS}
@@ -2550,8 +2609,8 @@ def md_window_kernel_phase(dev, real):
         held(f"720p M8 {label}, real", "mode_decide", args)
         strip_parts["mode_decide"].append(timed(
             "mode_decide", f"720p M8 {label} B={args[4].shape[0]}", args)[0])
-    for label, args in zip(("32 zone search", "32 zone MC", "strip search",
-                            "strip MC"), s720["extract_windows"]):
+    for label, args in zip(("32 zone search", "strip search"),
+                           s720["extract_windows"]):
         held(f"720p M8 {label}, real", "extract_windows", args)
         strip_parts["extract_windows"].append(timed(
             "extract_windows", f"720p M8 {label} ({len(args[0])} sets, "
@@ -2569,34 +2628,35 @@ def md_window_kernel_phase(dev, real):
     strip_parts["extend_borders"].append(timed(
         "extend_borders", "4K recon, made-up", eb4)[0])
     last = K.extend_borders(raw, P.recon_crops(g4), P.BORDER)
-    gold = [p.flip(1).contiguous() for p in last]
     for label, (y0, rows, cols, n) in (
             ("32 zone", (0, g4.rows32, g4.cols32, 32)),
             ("strip", (g4.strip_y, 1, g4.cols16, 16))):
-        nc = n // 2
         search = ([(last[0], n, y0, P.WIN_R)], rows, cols)
-        mc = ([(last[1], nc, y0 // 2, P.CHROMA_WIN_R),
-               (last[2], nc, y0 // 2, P.CHROMA_WIN_R),
-               (gold[0], n, y0, P.WIN_R),
-               (gold[1], nc, y0 // 2, P.CHROMA_WIN_R),
-               (gold[2], nc, y0 // 2, P.CHROMA_WIN_R)], rows, cols)
-        for site, args in (("search", search), ("MC", mc)):
-            held(f"4K {label} {site}, made-up", "extract_windows", args)
-            strip_parts["extract_windows"].append(timed(
-                "extract_windows", f"4K {label} {site} ({len(args[0])} sets, "
-                f"B={rows * cols}), made-up", args)[0])
-        del search, mc
-    del raw, last, gold
+        held(f"4K {label} search, made-up", "extract_windows", search)
+        strip_parts["extract_windows"].append(timed(
+            "extract_windows", f"4K {label} search (1 set, B={rows * cols}),"
+            " made-up", search)[0])
+        del search
+    # several sets of mixed sides in one launch (the contract takes up to
+    # WINDOW_JOBS): 1080p chroma sets of 66 x 66 (a byte a lane), a luma
+    # set, and sets read one byte into their plane's storage
+    y8, u8, v8 = K.extend_borders(*m8["extend_borders"][1][:2], P.BORDER)
+    moved = torch.empty(y8.numel() + 1, dtype=torch.uint8, device=dev)
+    moved[1:] = y8.reshape(-1)
+    moved = moved[1:].view(y8.shape)
+    mixed = ([(u8, 16, 0, P.CHROMA_WIN_R), (v8, 16, 0, P.CHROMA_WIN_R),
+              (y8, 32, 0, P.WIN_R), (moved, 32, 0, P.WIN_R),
+              (moved, 32, 0, 39)], 34, 60)
+    held("1080p mixed sets, unaligned rows", "extract_windows", mixed)
+    del raw, last, moved, mixed, y8, u8, v8
     if any(errs.values()):
         raise AssertionError(f"a decision or window call disagrees: {errs}")
 
     entries = {}
     timings = {
         "mode_decide": [("1080p M8 zone, real, GOLDEN", md_args)],
-        "extract_windows": [
-            (f"1080p M8 {site}, real ({len(args[0])} sets)", args)
-            for site, args in zip(("search site", "MC site"),
-                                  m8["extract_windows"])],
+        "extract_windows": [("1080p M8 search site, real (1 set)",
+                             m8["extract_windows"][0])],
         "extend_borders": [("1080p P-frame, real",
                             m8["extend_borders"][1])]}
     for name in MD_WINDOW_WRAPPERS:
@@ -2611,6 +2671,12 @@ def md_window_kernel_phase(dev, real):
             entry["library_ms"] = sum(lib)
         entry["strip_parts"] = [_part(p) for p in strip_parts[name]]
         entries[name] = entry
+    entries["extract_windows"]["call_vs_library"] = against_library
+    slower = [c["shape"] for c in against_library
+              if c["ms"] > c["library_ms"]]
+    print(f"kernel extract_windows: the call no slower than "
+          f"unfold(...).contiguous() at {len(against_library) - len(slower)} "
+          f"of {len(against_library)} shapes; slower at {slower}")
     return entries
 
 
@@ -3722,10 +3788,10 @@ def _ra_launches(geom, golden: bool, altref: bool):
     """Launches of one random-access P-frame step by wrapper: each zone
     (the 32 grid; at a strip geometry the strip too) searches LAST
     (hier_search_fused, the strip sse_map_search), quarter-pel searches
-    it, compensates Y, U and V in one MC launch (every reference's windows
-    by ref_sel), transforms Y, U and V, takes its recon SSE and ZERO's SSE
-    in place, decides its modes in one launch and cuts its windows in two
-    (LAST's search windows; every MC set); GOLDEN adds its two candidates'
+    it, compensates Y, U and V in one MC launch (every reference's planes
+    read in place by ref_sel), transforms Y, U and V, takes its recon SSE
+    and ZERO's SSE in place, decides its modes in one launch and cuts its
+    search windows in one (LAST's); GOLDEN adds its two candidates'
     SSEs (one block_energy_at), ALTREF its own search windows, search,
     quarter-pel search and ZERO SSE; without a strip the descent adds the
     children's search, quarter-pel search, ZERO SSE, MC, three transforms
@@ -3743,7 +3809,7 @@ def _ra_launches(geom, golden: bool, altref: bool):
         c["subpel_search"] += 1 + altref
         c["mc_predict"] += 1
         c["mode_decide"] += 1
-        c["extract_windows"] += 2 + altref
+        c["extract_windows"] += 1 + altref
         c["transform_recon"] += 3
         c["block_energy"] += 1
         c["block_energy_at"] += 1 + golden + altref
@@ -3961,8 +4027,8 @@ def _ra_calls(calls):
     block_energy_at (LAST's ZERO, GOLDEN's two in one call, ALTREF's
     ZERO, the children's ZERO), transform_recon (the zone's Y, U, V, the children's
     U, V, Y), block_energy (the zone's, the children's), mode_decide (the
-    zone's), extract_windows (LAST's search site, ALTREF's, the MC site),
-    extend_borders (the recon's)."""
+    zone's), extract_windows (LAST's search site, ALTREF's), extend_borders
+    (the recon's)."""
     by = {}
     for name, args in calls:
         by.setdefault(name, []).append(args)
@@ -3972,7 +4038,7 @@ def _ra_calls(calls):
     want_counts = {"hier_search": 2, "subpel_search": 3,
                    "sse_map_search": 1, "transform_recon": 6,
                    "block_energy_at": 4, "block_energy": 2,
-                   "mode_decide": 1, "extract_windows": 3,
+                   "mode_decide": 1, "extract_windows": 2,
                    "extend_borders": 1}
     if {k: len(by.get(k, [])) for k in RA_RECORDED} != want_counts:
         raise AssertionError(f"the recorded RA step made these calls: "
@@ -4069,16 +4135,13 @@ def ra_kernel_phase(dev, calls, kernels):
          lambda: K.block_energy_ref(src, rec, nn),
          _bound(2 * b * nn * nn + 8 * b, 5 * b * nn * nn, ALU_OPS_PER_S),
          "block_energy_kernel", 20)
-    # the decision with GOLDEN and ALTREF, ALTREF's search windows, the MC
-    # site's seven sets (LAST's chroma, GOLDEN's three, ALTREF's chroma)
-    # and the borders
+    # the decision with GOLDEN and ALTREF, ALTREF's search windows and the
+    # borders
     for name, label, args in (
             ("mode_decide", "1080p RA zone, LAST, GOLDEN and ALTREF",
              by["mode_decide"][0]),
             ("extract_windows", "1080p RA ALTREF search site (1 set)",
              by["extract_windows"][1]),
-            ("extract_windows", "1080p RA MC site (7 sets)",
-             by["extract_windows"][2]),
             ("extend_borders", "1080p RA recon", by["extend_borders"][0])):
         kernel, plain, _ = _md_window_fns(name, args)
         errs[name] = max(errs.get(name, 0),
@@ -4086,9 +4149,6 @@ def ra_kernel_phase(dev, calls, kernels):
         parts.setdefault(name, []).append(_timed(
             name, label, kernel, plain, 5, _md_window_bound(name, args),
             WRAPPER_KERNELS[name], 1))
-    if len(by["extract_windows"][2][0]) != 7:
-        raise AssertionError("the RA MC site cut "
-                             f"{len(by['extract_windows'][2][0])} sets")
     if any(errs.values()):
         raise AssertionError(f"an RA shape disagrees: {errs}")
     for name, v in parts.items():
@@ -4988,8 +5048,8 @@ MESH_STEP_SHAPES = {"1080p": ((1, 2), (1, 4), (2, 2)), "720p": ((1, 2),
 MESH_FRAMES = 10
 MESH_TIMED = (1, 2, 4)
 # launches of one shard's zone with GOLDEN (the 32 grid: the fused search,
-# the quarter-pel search, ZERO and GOLDEN's candidates, the decision, two
-# window launches, MC, the recon distortion, three transforms); a strip
+# the quarter-pel search, ZERO and GOLDEN's candidates, the decision, the
+# window launch, MC, the recon distortion, three transforms); a strip
 # geometry adds the strip zone's (its flat search in place of the fused
 # one); one loop filter a frame (the sharded step's references come back
 # without borders)
@@ -5288,10 +5348,35 @@ def mesh_phases(dev, paths):
     mesh_api_phase(dev, paths)
 
 
+def _clock_phases():
+    """Make every ``*_phase`` function of this script print its wall time
+    when it returns (its callers find it by its global name), and return
+    the {name: seconds} they add to."""
+    spent = {}
+
+    def clocked(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                spent[name] = spent.get(name, 0.0) + dt
+                print(f"chip_smoke: {name} took {dt:.1f} s")
+        return call
+
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.endswith("_phase") and callable(fn):
+            g[name] = clocked(name, fn)
+    return spent
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    spent = _clock_phases()
     from tpu_vp9_torch import native
     from tpu_vp9_torch.ops import _build
     from tpu_vp9_torch.utils.device import card_info
@@ -5418,7 +5503,9 @@ def main() -> int:
         raise AssertionError("a kernel was not launched on its main path")
 
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"{time.perf_counter() - t_start:.1f} s; the slowest: " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in sorted(
+                  spent.items(), key=lambda kv: -kv[1])[:12]))
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

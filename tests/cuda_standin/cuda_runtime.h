@@ -68,6 +68,7 @@ struct alignas(16) float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 struct uchar4 { unsigned char x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }

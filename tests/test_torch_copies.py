@@ -125,7 +125,8 @@ def test_every_port_module_is_accounted_for():
            "pipeline/tpu_me.py", "pipeline/tpu_shard.py",
            "utils/__init__.py", "utils/device.py",
            "utils/kf_phases.py", "utils/lf_phases.py",
-           "utils/ol_phases.py", "utils/step_stages.py"}
+           "utils/mc_phases.py", "utils/ol_phases.py",
+           "utils/step_stages.py"}
     found = set()
     root = os.path.join(REPO, "tpu_vp9_torch")
     for dirpath, _, files in os.walk(root):

@@ -229,13 +229,14 @@ STEP_DISPATCH = {
     "descent_pack": ("descent_pack", ("encode_children_masked",), ()),
     "descent_split": ("descent_split", ("pframe_step",), ()),
     "mode_decide": ("mode_decide", ("zone_code",), ()),
-    "extract_windows": ("extract_windows",
-                        ("zone_search", "zone_code", "_altref_search"), ()),
+    "extract_windows": ("extract_windows", ("zone_search", "_altref_search"),
+                        ("mc_predict_planes_ref",)),
     "extend_borders": ("extend_borders", ("pframe_step", "kframe_step"), ()),
 }
 # the plain versions not named ``<kernel>_ref``
 PLAIN = {"extract_windows": "_extract_search_windows",
-         "extend_borders": "extend_borders_device"}
+         "extend_borders": "extend_borders_device",
+         "mc_predict": "mc_predict_planes_ref"}
 DESCENT = ("descent_gather", "descent_decide", "descent_pack",
            "descent_split")
 
@@ -298,6 +299,26 @@ def test_subpel_search_dispatch_has_no_route_from_cuda_to_the_plain_version():
 
 def test_mc_predict_dispatch_has_no_route_from_cuda_to_the_plain_version():
     _check_step_dispatch("mc_predict")
+    # the plain version's building block on windows is its alone
+    fns = _functions(ENCDEC_PY)
+    assert [n for n, f in fns.items() if "mc_predict_ref" in _called(f)] \
+        == ["mc_predict_planes_ref"]
+
+
+def test_zone_code_cuts_no_mc_windows():
+    """MC reads the reference planes in place: ``zone_code`` (the MC site
+    of every zone, strip and shard) calls no window extraction, neither
+    the dispatch nor its wrapper nor its plain version, and hands
+    ``mc_predict`` planes; only the searches cut windows."""
+    fns = _functions(ENCDEC_PY)
+    called = _called(fns["zone_code"])
+    assert "mc_predict" in called
+    assert not called & {"extract_windows", "_extract_search_windows",
+                         "window_specs"}, called
+    cutters = sorted(n for n, f in fns.items()
+                     if "extract_windows" in _called(f)
+                     and n != "extract_windows")  # the dispatch's wrapper
+    assert cutters == ["_altref_search", "zone_search"], cutters
 
 
 @pytest.mark.parametrize("name", DESCENT)
@@ -470,13 +491,15 @@ def _meta_stage_inputs(name):
         return (meta((6, 32, 32), torch.uint8), meta((6, 32, 32), torch.uint8),
                 T.dc_quant(120), T.ac_quant(120), 32)
     if name == "mc_predict":
-        # LAST's windows of the zone (Y 120, U and V 66), the filters
-        # the plain version would take
-        wins = [(meta((6, 120, 120), torch.uint8),
-                 meta((6, 66, 66), torch.uint8),
-                 meta((6, 66, 66), torch.uint8))]
-        return (wins, *(meta((6,), torch.int32) for _ in range(4)), 32, 34,
-                240, meta((16, 8), torch.int32))
+        # LAST's bordered planes of a 128x96 frame, the filters the plain
+        # version would take, the 32 zone's grid of 3 x 4 windows, no
+        # ref_sel, a window index
+        planes = [(meta((320, 320), torch.uint8),
+                   meta((256, 256), torch.uint8),
+                   meta((256, 256), torch.uint8))]
+        return (planes, *(meta((6,), torch.int32) for _ in range(4)), 32, 12,
+                16, meta((16, 8), torch.int32), (32, 0, 3, 4), None,
+                meta((6,), torch.int32))
     return (meta((6, 48, 48), torch.uint8), meta((6, 32, 32), torch.uint8),
             meta((6,), torch.int32), meta((6,), torch.int32), 32, 4)
 
@@ -494,6 +517,8 @@ def _fake_cuda_stage(monkeypatch, name, launch):
     monkeypatch.setattr(K, "_device_kind", lambda nm, *t: "cuda")
     monkeypatch.setattr(K, "_launch", launch)
     monkeypatch.setattr(P, f"{name}_ref", no_plain)
+    if name == "mc_predict":
+        monkeypatch.setattr(P, "mc_predict_planes_ref", no_plain)
     return K, getattr(P, name)
 
 
@@ -511,10 +536,13 @@ def test_stage_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
     assert getattr(K, name).launches - before == 1
     assert len(out) == 3 and all(t.device.type == "meta" for t in out)
     # the launcher's ints: blocks, then n and the quantizers, n and r, or
-    # n, the windows' sides and reaches and the frame's mode-info size
+    # n, the window grid (rows, cols, each plane's step, SW, y0 and x0 as
+    # _extract_search_windows cuts them), the reaches, the planes' pitches
+    # and the frame's mode-info size
     want = {"transform_recon": (6, 32, args[2], args[3]),
             "subpel_search": (6, 32, 4),
-            "mc_predict": (6, 32, 120, 66, 40, 21, 34, 240)}[name]
+            "mc_predict": (6, 32, 3, 4, 32, 120, 52, 52, 16, 66, 71, 71, 16,
+                           66, 71, 71, 40, 21, 320, 256, 256, 12, 16)}[name]
     assert calls[0][1][-len(want):] == want
 
 

@@ -255,7 +255,14 @@ def test_m8_children_match_jax_children():
     tlast = [torch.from_numpy(a) for a in last]
     z = P.encode_zone(*tsrc, *tlast, torch.from_numpy(prev), g, dc_q, ac_q,
                       lam, filt, nb, rates=rates, return_me=True)
-    me = {k: z[k] for k in ("wins", "dy", "dx", "wu", "wv")}
+    me = {k: z[k] for k in ("wins", "dy", "dx", "planes", "grid")}
+    # the JAX children read LAST's chroma MC windows, which the port's
+    # MC reads in place in LAST's planes at the zone's grid
+    jme = {k: z[k] for k in ("wins", "dy", "dx")}
+    jme["wu"], jme["wv"] = (P._extract_search_windows(
+        pl, 16, g.rows32, g.cols32, 0, P.CHROMA_WIN_R) for pl in tlast[1:])
+    assert me["grid"] == (32, 0, g.rows32, g.cols32)
+    assert all(a is b for a, b in zip(me["planes"], tlast))
     sel = np.array([5, 0, 10], np.int32)  # out of raster order on purpose
     got = P.encode_children_masked(
         *tsrc, tlast[0], me, z["mv"].to(torch.int32), torch.from_numpy(sel),
@@ -267,7 +274,7 @@ def test_m8_children_match_jax_children():
         jnp.asarray(dc_q, jnp.int32), jnp.asarray(ac_q, jnp.int32),
         jnp.asarray(lam, jnp.int32), P.FILTERS, rates=jrates))
     want = fn(*(jnp.asarray(a) for a in src), jnp.asarray(last[0]),
-              {k: jnp.asarray(v.numpy()) for k, v in me.items()},
+              {k: jnp.asarray(v.numpy()) for k, v in jme.items()},
               jnp.asarray(z["mv"].numpy().astype(np.int32)),
               jnp.asarray(sel))
     assert set(got) <= set(want)

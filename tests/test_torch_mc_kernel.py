@@ -5,17 +5,20 @@ and the byte intrinsics written out from their definitions), and the
 wrapper ``ops/cuda_kernels.py:mc_predict`` launches it there: its device
 check answers "cuda" and its launch calls the stand-in build with the
 launcher's own arguments (the source's ``mc_predict_launch`` up to its
-launch). Every call is held against the plain version
-``pipeline/tpu_encdec.py:mc_predict_ref``, bit for bit.
+launch; every CTA of a plane at once, sixteen at a time, each CTA's four
+warps on their own blocks). Every call is held against the plain version
+``pipeline/tpu_encdec.py:mc_predict_planes_ref`` (the windows cut from the
+planes, then ``mc_predict_ref``), bit for bit.
 
 The cases: the 32 zone (LAST, GOLDEN and ALTREF per block, a reference
-without windows), the strip zone (n = 16 at a strip geometry), the
-children (their parents' windows by a window index, origin offsets), every
-q4 phase pair of the chroma planes (the luma planes' even ones) with MVs
-of either sign, MVs of +-(WIN_R + 0.75) pel at every edge of a geometry
-with the overhang row, MVs past the windows' reach (the window clamp),
-ragged batches, windows that start 1 and 3 bytes into their storage, and
-the wrapper's refusals.
+without planes), the strip zone (n = 16 at a strip geometry, its y_base),
+the children (their parents' windows by a window index, origin offsets),
+every q4 phase pair of the chroma planes (the luma even ones) with MVs of
+either sign, MVs of +-(WIN_R + 0.75) pel at every edge of a geometry with
+the overhang row, MVs past the windows' reach (the window clamp), a column
+shard's planes, ragged batches, planes that start 1 and 3 bytes into their
+storage with odd pitches, a window index past the grid (a trap), and the
+wrapper's refusals.
 
 What this cannot show: that nvcc accepts the source, timing, and bank
 conflicts. ``chip_smoke.py`` checks the kernel on the card.
@@ -42,30 +45,38 @@ STANDIN = os.path.join(REPO, "tests", "cuda_standin")
 FILTERS = torch.as_tensor(np.asarray(P.FILTERS, np.int32))
 EDGE = P.WIN_R * 8 + 6  # +-(WIN_R + 0.75) pel in q3
 
-# the stand-in's launch: each plane's CTAs one after another
+# the stand-in's launch: each plane's CTAs, sixteen at once (a CTA's warps
+# run side by side); a trapped kernel fails its launch
 _STANDIN_LAUNCH = """
+    const int ctas = (nblk + kWarps - 1) / kWarps;
     for (int p = 0; p < kPlanes; ++p) {
-      switch (n) {
-        case 32:
-          standin_launch(nblk, kThreads, [&] {
-            blockIdx.y = p;
-            mc_predict_kernel<32>(a);
-          });
-          break;
-        case 16:
-          standin_launch(nblk, kThreads, [&] {
-            blockIdx.y = p;
-            mc_predict_kernel<16>(a);
-          });
-          break;
-        default:
-          return 1;
+      for (int c0 = 0; c0 < ctas; c0 += 16) {
+        const int m = ctas - c0 < 16 ? ctas - c0 : 16;
+        switch (n) {
+          case 32:
+            standin_launch_all(m, kThreads, [&] {
+              blockIdx.x += c0;
+              blockIdx.y = p;
+              mc_predict_kernel<32>(a);
+            });
+            break;
+          case 16:
+            standin_launch_all(m, kThreads, [&] {
+              blockIdx.x += c0;
+              blockIdx.y = p;
+              mc_predict_kernel<16>(a);
+            });
+            break;
+          default:
+            return 1;
+        }
       }
     }
     (void)s;
-    return 0;
+    return standin_take_trap();
 }
 """
+N_INTS = 23
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +107,7 @@ def standin(tmp_path_factory):
         check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
     fn = dll.standin_mc_predict_launch
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * N_INTS + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -107,7 +118,9 @@ def on_standin(standin, monkeypatch):
     """``K.mc_predict`` on CPU tensors launching the stand-in build."""
     def launch(name, dev, *args):
         assert name == "mc_predict"
-        assert standin(*args, None) == 0
+        err = standin(*args, None)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
     monkeypatch.setattr(K, "_device_kind", lambda name, *t: "cuda")
     monkeypatch.setattr(K, "_launch", launch)
@@ -118,50 +131,48 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _windows(plane, pos_y, pos_x, sw, r):
-    """(B, sw, sw) windows of a (bordered) plane whose origin is each
-    position minus (r + 4), as ``_extract_search_windows`` cuts them."""
-    return np.stack([plane[P.BORDER + y - r - 4:P.BORDER + y - r - 4 + sw,
-                           P.BORDER + x - r - 4:P.BORDER + x - r - 4 + sw]
-                     for y, x in zip(pos_y, pos_x)])
-
-
 def _case(kind, seed):
-    """Keyword arguments of ``mc_predict`` / ``mc_predict_ref`` (CPU
-    tensors) for one kind of call."""
+    """Keyword arguments of the step's ``mc_predict`` /
+    ``mc_predict_planes_ref`` (CPU tensors, the zone's grid as (step,
+    y_base, rows, cols)) for one kind of call: random bordered planes of
+    each reference, the zone's window grid, and its blocks."""
     rng = np.random.default_rng(seed)
-    w, h = {"strip": (128, 112), "edges": (128, 88),
-            "clamp": (512, 288)}.get(kind, (128, 96))
+    w, h = {"strip": (128, 112), "edges": (128, 88), "clamp": (512, 288),
+            "phases": (512, 192), "shard": (256, 96)}.get(kind, (128, 96))
     g = P.make_geom(w, h)
     n = 16 if kind == "strip" else 32
-    nc = n // 2
+    grid = (32, 0, g.rows32, g.cols32)
+    extra = {}
     if kind == "strip":
+        grid = (16, g.strip_y, 1, g.cols16)
         pos_y = np.full(g.cols16, g.strip_y)
         pos_x = np.arange(g.cols16) * 16
     elif kind == "phases":
-        # 256 blocks inside a wider frame, where no MV of the case clamps
-        g = P.make_geom(512, 192)
+        # 256 blocks inside a wider frame, where no MV of the case clamps,
+        # each reading its own window of the grid
         pos_y = np.tile([64, 96], 128)
         pos_x = np.repeat(64 + np.arange(8) * 32, 32)
+        extra["win_idx"] = _t((pos_y // 32 * g.cols32 + pos_x // 32)
+                              .astype(np.int32))
+    elif kind == "shard":
+        # columns 4-7: the shard's planes hold its columns and a border
+        # either side, its positions stay global
+        grid = (32, 0, g.rows32, 4)
+        pos_y = np.repeat(np.arange(g.rows32) * 32, 4)
+        pos_x = np.tile((4 + np.arange(4)) * 32, g.rows32)
     else:
         pos_y = np.repeat(np.arange(g.rows32) * 32, g.cols32)
         pos_x = np.tile(np.arange(g.cols32) * 32, g.rows32)
     b = pos_y.size
     n_refs = 1 if kind in ("children", "edges") else 3
-    planes = [(rng.integers(0, 256, (g.pad_h + 2 * P.BORDER,
-                                     g.pad_w + 2 * P.BORDER), np.uint8),
-               rng.integers(0, 256, (g.pad_h // 2 + 2 * P.BORDER,
-                                     g.pad_w // 2 + 2 * P.BORDER), np.uint8),
-               rng.integers(0, 256, (g.pad_h // 2 + 2 * P.BORDER,
-                                     g.pad_w // 2 + 2 * P.BORDER), np.uint8))
+    pw = {"shard": 4 * 32}.get(kind, g.pad_w)
+    planes = [tuple(_t(rng.integers(0, 256, (hh + 2 * P.BORDER,
+                                             ww + 2 * P.BORDER), np.uint8))
+                    for hh, ww in ((g.pad_h, pw), (g.pad_h // 2, pw // 2),
+                                   (g.pad_h // 2, pw // 2)))
               for _ in range(n_refs)]
-    sw_y, sw_c = n + 2 * P.WIN_R + 8, nc + 2 * P.CHROMA_WIN_R + 8
     if kind == "children":
-        # every parent's windows; K = 3 parents descend, 4 children each
-        wins = [tuple(_t(_windows(pl, pos_y >> s, pos_x >> s, sw, r))
-                      for pl, s, sw, r in zip(
-                          planes[0], (0, 1, 1), (sw_y, sw_c, sw_c),
-                          (P.WIN_R, P.CHROMA_WIN_R, P.CHROMA_WIN_R)))]
+        # K = 3 parents descend, 4 children each, in their windows
         sel = np.sort(rng.choice(b, 3, replace=False)).astype(np.int32)
         ii, jj = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
         pos_y = (pos_y[sel][:, None] + 16 * ii).reshape(-1)
@@ -171,41 +182,45 @@ def _case(kind, seed):
         extra = {"win_idx": _t(np.repeat(sel, 4)),
                  "org_off_y": _t(np.tile(16 * ii, 3).astype(np.int32)),
                  "org_off_x": _t(np.tile(16 * jj, 3).astype(np.int32))}
+    elif kind == "phases":
+        # chroma phase pairs (pr, pc) = (mv_r & 15, mv_c & 15), all 256
+        pr, pc = np.repeat(np.arange(16), 16), np.tile(np.arange(16), 16)
+        sign = rng.choice([-1, 1], (2, b))
+        mv = np.stack([pr, pc]) + 16 * rng.integers(0, 13, (2, b)) * sign
+    elif kind in ("edges", "shard"):
+        # +-(WIN_R + 0.75) pel and 0 in each axis, every block of the
+        # geometry (its edges and overhang row among them)
+        combos = np.array([(r, c) for r in (-EDGE, 0, EDGE)
+                           for c in (-EDGE, 0, EDGE)])
+        mv = combos[np.arange(b) % 9].T
+    elif kind == "clamp":
+        # past the windows' reach: the read start clamps into them
+        mv = rng.choice([-1, 1], (2, b)) * rng.integers(
+            EDGE + 8, EDGE + 400, (2, b))
     else:
-        wins = [tuple(_t(_windows(pl, pos_y >> s, pos_x >> s, sw, r))
-                      for pl, s, sw, r in zip(
-                          ref, (0, 1, 1), (sw_y, sw_c, sw_c),
-                          (P.WIN_R, P.CHROMA_WIN_R, P.CHROMA_WIN_R)))
-                for ref in planes]
-        extra = {}
-        if n_refs == 3:
-            extra["ref_sel"] = _t(rng.integers(0, 3, b).astype(np.int8))
-        if kind == "phases":
-            # chroma phase pairs (pr, pc) = (mv_r & 15, mv_c & 15), all 256
-            pr, pc = np.repeat(np.arange(16), 16), np.tile(np.arange(16), 16)
-            sign = rng.choice([-1, 1], (2, b))
-            mv = np.stack([pr, pc]) + 16 * rng.integers(0, 13, (2, b)) * sign
-        elif kind == "edges":
-            # +-(WIN_R + 0.75) pel and 0 in each axis, every block of the
-            # geometry (its edges and overhang row among them)
-            combos = np.array([(r, c) for r in (-EDGE, 0, EDGE)
-                               for c in (-EDGE, 0, EDGE)])
-            mv = combos[np.arange(b) % 9].T
-        elif kind == "clamp":
-            # past the windows' reach: the read start clamps into them
-            mv = rng.choice([-1, 1], (2, b)) * rng.integers(
-                EDGE + 8, EDGE + 400, (2, b))
-        else:
-            mv = rng.integers(-EDGE, EDGE + 1, (2, b))
-    return dict(wins=wins, pos_y=_t(pos_y.astype(np.int32)),
+        mv = rng.integers(-EDGE, EDGE + 1, (2, b))
+    if n_refs == 3:
+        extra["ref_sel"] = _t(rng.integers(0, 3, b).astype(np.int8))
+    return dict(planes=planes, pos_y=_t(pos_y.astype(np.int32)),
                 pos_x=_t(pos_x.astype(np.int32)),
                 mv_r=_t(mv[0].astype(np.int32)),
                 mv_c=_t(mv[1].astype(np.int32)), n=n, mi_rows=g.mi_rows,
-                mi_cols=g.mi_cols, **extra)
+                mi_cols=g.mi_cols, grid=grid, **extra)
 
 
 def _ref(case):
-    return P.mc_predict_ref(filters=FILTERS, **case)
+    return P.mc_predict_planes_ref(filters=FILTERS, **case)
+
+
+def _kernel_grid(case):
+    """The case's window grid as the wrapper takes it (the dispatch's
+    ``mc_window_grid``)."""
+    return P.mc_window_grid(tuple(tuple(t.shape) for t in case["planes"][0]),
+                            case["grid"])
+
+
+def _kernel(fn, case):
+    return fn(**dict(case, grid=_kernel_grid(case)))
 
 
 def _assert_equal(got, want):
@@ -214,20 +229,22 @@ def _assert_equal(got, want):
         assert torch.equal(gp, wp)
 
 
-KINDS = ("zone", "strip", "children", "phases", "edges", "clamp")
+KINDS = ("zone", "strip", "children", "phases", "edges", "clamp", "shard")
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_standin_matches_plain_version(on_standin, kind):
     case = _case(kind, seed=KINDS.index(kind))
-    _assert_equal(on_standin(**case), _ref(case))
+    before = K.mc_predict.launches
+    _assert_equal(_kernel(on_standin, case), _ref(case))
+    assert K.mc_predict.launches == before + 1
 
 
 def test_standin_takes_every_phase_pair_and_both_phase0_paths(on_standin):
     """The phases case reaches all 256 chroma phase pairs and, in luma, the
     even ones: phase 0 in neither axis, in one and in both."""
     case = _case("phases", seed=11)
-    got = on_standin(**case)
+    got = _kernel(on_standin, case)
     _assert_equal(got, _ref(case))
     ph = {(int(r) & 15, int(c) & 15) for r, c in zip(case["mv_r"],
                                                      case["mv_c"])}
@@ -242,9 +259,9 @@ def test_clamp_case_reaches_past_the_windows():
     at +-(WIN_R + 0.75) pel."""
     for kind, outside in (("clamp", True), ("edges", False)):
         case = _case(kind, seed=KINDS.index(kind))
-        for ss, r, sw in ((0, P.WIN_R, case["wins"][0][0].shape[-1]),
-                          (1, P.CHROMA_WIN_R,
-                           case["wins"][0][1].shape[-1])):
+        step = case["grid"][0]
+        for ss, r in ((0, P.WIN_R), (1, P.CHROMA_WIN_R)):
+            sw = (step >> ss) + 2 * r + 8
             m = case["n"] >> ss
             py, px = case["pos_y"] >> ss, case["pos_x"] >> ss
             row, col = P._clamp_mv_umv(
@@ -266,15 +283,15 @@ def test_clamp_case_reaches_past_the_windows():
                          ids=["no_altref", "no_golden"])
 def test_standin_reads_last_where_the_reference_has_no_windows(on_standin,
                                                                present):
-    """A ref_sel naming a reference without windows reads LAST's, in both
+    """A ref_sel naming a reference without planes reads LAST's, in both
     versions."""
     case = _case("zone", seed=21)
-    last, gold, alt = case["wins"]
-    case["wins"] = [last, gold if present[0] else None,
-                    alt if present[1] else None]
-    got = on_standin(**case)
+    last, gold, alt = case["planes"]
+    case["planes"] = [last, gold if present[0] else None,
+                      alt if present[1] else None]
+    got = _kernel(on_standin, case)
     _assert_equal(got, _ref(case))
-    only_last = dict(case, wins=[last], ref_sel=None)
+    only_last = dict(case, planes=[last], ref_sel=None)
     absent = 2 if present[0] else 1
     rows = case["ref_sel"] == absent
     assert bool(rows.any())
@@ -284,68 +301,113 @@ def test_standin_reads_last_where_the_reference_has_no_windows(on_standin,
 
 @pytest.mark.parametrize("b", [1, 5, 7])
 def test_standin_ragged_batch_writes_only_its_blocks(standin, b):
-    """B blocks write their B predictions and nothing past them."""
+    """B blocks (no multiple of a CTA's four warps) write their B
+    predictions and nothing past them."""
     case = _case("zone", seed=30 + b)
     for key in ("pos_y", "pos_x", "mv_r", "mv_c", "ref_sel"):
         case[key] = case[key][:b].contiguous()
-    case["wins"] = [tuple(w[:b].contiguous() for w in ref)
-                    for ref in case["wins"]]
+    case["win_idx"] = torch.arange(b, dtype=torch.int32)
     outs = [torch.full((b + 2, m, m), 77, dtype=torch.uint8)
             for m in (32, 16, 16)]
-    ptrs = [w.data_ptr() for p in range(3) for w in
-            (case["wins"][0][p], case["wins"][1][p], case["wins"][2][p])]
-    args = (*ptrs, case["ref_sel"].data_ptr(), None,
+    planes = case["planes"]
+    rows, cols, *specs = _kernel_grid(case)
+    args = (*(planes[r][p].data_ptr() for p in range(3) for r in range(3)),
+            case["ref_sel"].data_ptr(), case["win_idx"].data_ptr(),
             *(case[k].data_ptr() for k in ("pos_y", "pos_x", "mv_r",
                                            "mv_c")),
             None, None, torch.from_numpy(K._mc_taps()).data_ptr(),
-            *(o.data_ptr() for o in outs), b, 32,
-            case["wins"][0][0].shape[-1], case["wins"][0][1].shape[-1],
-            P.WIN_R, P.CHROMA_WIN_R, case["mi_rows"], case["mi_cols"], None)
+            *(o.data_ptr() for o in outs), b, 32, rows, cols,
+            *(v for spec in specs for v in spec), P.WIN_R, P.CHROMA_WIN_R,
+            *(planes[0][p].shape[1] for p in range(3)), case["mi_rows"],
+            case["mi_cols"], None)
     assert standin(*args) == 0
     for o, w in zip(outs, _ref(case)):
         assert torch.equal(o[:b], w)
         assert bool((o[b:] == 77).all())
 
 
-def test_standin_reads_unaligned_views(on_standin):
-    """Windows that start 1 and 3 bytes into their storage: the kernel
-    reads them a byte at a time."""
-    case = _case("children", seed=41)
+@pytest.mark.parametrize("kind", ["children", "shard"])
+def test_standin_reads_unaligned_views(on_standin, kind):
+    """Planes that start 1 and 3 bytes into their storage and have odd
+    pitches (a column added on their right): the kernel reads each row
+    from the aligned words that hold it."""
+    case = _case(kind, seed=41)
 
     def shifted(t, k):
-        buf = torch.zeros(t.numel() + k, dtype=torch.uint8)
-        buf[k:] = t.reshape(-1)
-        return buf[k:].view(t.shape)
+        wide = torch.cat([t, t[:, :1]], dim=1)  # an odd pitch
+        buf = torch.zeros(wide.numel() + k, dtype=torch.uint8)
+        buf[k:] = wide.reshape(-1)
+        return buf[k:].view(wide.shape)
 
-    case["wins"] = [tuple(shifted(w, 1 + 2 * (p % 2))
-                          for p, w in enumerate(case["wins"][0]))]
-    assert case["wins"][0][0].data_ptr() % 4 == 1
-    assert case["wins"][0][1].data_ptr() % 4 == 3
-    _assert_equal(on_standin(**case), _ref(case))
+    case["planes"] = [tuple(shifted(pl, 1 + 2 * ((p + r) % 2))
+                            for p, pl in enumerate(ref))
+                      for r, ref in enumerate(case["planes"])]
+    y, u = case["planes"][0][:2]
+    assert y.data_ptr() % 4 == 1 and u.data_ptr() % 4 == 3
+    assert y.shape[1] % 2 == 1 and u.shape[1] % 2 == 1
+    _assert_equal(_kernel(on_standin, case), _ref(case))
+
+
+def test_standin_traps_a_window_index_past_the_grid(on_standin):
+    """A child's window index past the grid traps the kernel (the plain
+    version's indexing raises), and the launch fails."""
+    case = _case("children", seed=43)
+    nwin = case["grid"][2] * case["grid"][3]
+    case["win_idx"] = case["win_idx"].clone()
+    case["win_idx"][5] = nwin
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _kernel(on_standin, case)
+    with pytest.raises(IndexError):
+        _ref(case)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     """Wrong dtypes, a non-contiguous input, mixed devices, a missing
-    window index, and a tap table outside signed bytes at a phase the
-    kernel filters."""
+    window index, references of other shapes, a grid whose windows leave
+    the planes or hold no region of the block size (the dispatch's grid
+    refuses windows past the planes too), and a tap table outside signed
+    bytes at a phase the kernel filters."""
     case = _case("zone", seed=51)
+    step, y_base, rows, cols = case["grid"]
+    case["grid"] = _kernel_grid(case)
     with pytest.raises(TypeError, match="int32"):
         K.mc_predict(**dict(case, mv_r=case["mv_r"].long()))
     with pytest.raises(TypeError, match="uint8"):
-        K.mc_predict(**dict(case, wins=[tuple(w.to(torch.int16) for w in
-                                              case["wins"][0])]))
+        K.mc_predict(**dict(case, planes=[tuple(p.to(torch.int16) for p in
+                                                case["planes"][0])]))
     with pytest.raises(TypeError, match="int8"):
         K.mc_predict(**dict(case, ref_sel=case["ref_sel"].to(torch.int32)))
     wide = case["mv_c"].repeat_interleave(2)[::2]
     assert not wide.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         K.mc_predict(**dict(case, mv_c=wide))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.mc_predict(**dict(case, planes=[tuple(
+            p[:, :-1] for p in case["planes"][0])]))
     with pytest.raises(ValueError, match="different devices"):
         K.mc_predict(**dict(case, pos_x=case["pos_x"].to("meta")))
     with pytest.raises(ValueError, match="window index"):
         K.mc_predict(**dict(case, pos_y=case["pos_y"][:3], pos_x=case[
             "pos_x"][:3], mv_r=case["mv_r"][:3], mv_c=case["mv_c"][:3],
             ref_sel=case["ref_sel"][:3]))
+    last, gold, alt = case["planes"]
+    with pytest.raises(ValueError, match="every reference"):
+        K.mc_predict(**dict(case, planes=[last, tuple(
+            p[1:].contiguous() for p in gold), alt]))
+    spec_y, spec_u, spec_v = case["grid"][2:]
+    with pytest.raises(ValueError, match="leave"):
+        K.mc_predict(**dict(case, grid=(rows, cols + 2, *case["grid"][2:])))
+    for far in ((step, 120, 200, 52), (step, 120, 52, -1)):
+        with pytest.raises(ValueError, match="leave"):
+            K.mc_predict(**dict(case, grid=(rows, cols, far, spec_u,
+                                            spec_v)))
+    with pytest.raises(ValueError, match="no region"):
+        K.mc_predict(**dict(case, grid=(rows, cols, spec_y, spec_u,
+                                        (16, 22, *spec_v[2:]))))
+    shapes = tuple(tuple(t.shape) for t in last)
+    for grid in ((step, 0, rows, cols + 2), (step, 128, rows, cols)):
+        with pytest.raises(ValueError, match="leave"):
+            P.mc_window_grid(shapes, grid)
     with pytest.raises(ValueError, match="n=8"):
         K.mc_predict(**dict(case, n=8))
     with pytest.raises(ValueError, match="CUDA tensors"):

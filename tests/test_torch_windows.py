@@ -1,7 +1,8 @@
 """The step's window extraction and border extension: the dispatches
 against the JAX package, ``tpu_vp9_torch/csrc/windows.cu`` on the CPU
-against its plain versions, and the P-frame step with its three new
-kernels on the CPU against the plain step.
+against its plain versions, and the P-frame step with its mode decision,
+windows, borders and motion compensation kernels on the CPU against the
+plain step.
 
 1. ``pipeline/tpu_encdec.py:extract_windows`` (several window sets of a
    zone, as a call site cuts them) and ``extend_borders`` (a recon's
@@ -9,19 +10,24 @@ kernels on the CPU against the plain step.
    and ``extend_borders_device``, byte for byte: the 32 zone, the strip
    (n=16 and 8 at ``strip_y``), odd crops.
 2. The two kernels built by g++ behind ``tests/cuda_standin/
-   cuda_runtime.h`` (a host thread per CUDA thread, every CTA of the grid
-   at once through ``standin_launch_all``) and launched by the wrappers
-   ``ops/cuda_kernels.py:extract_windows`` and ``extend_borders`` on CPU
-   tensors (their device check answers "cuda"), byte for byte against
-   the plain versions: up to eight window sets in one launch, windows
-   whose size is no multiple of 16 (a word spans two windows, the last
-   word stored byte by byte), planes of odd widths and crops, every
-   window at the plane's edge; and their refusals.
+   cuda_runtime.h`` (a host thread per CUDA thread; ``extend_borders``
+   every CTA of the grid at once through ``standin_launch_all``,
+   ``extract_windows`` a CTA per window and set) and launched by the
+   wrappers ``ops/cuda_kernels.py:extract_windows`` and ``extend_borders``
+   on CPU tensors (their device check answers "cuda"), byte for byte
+   against the plain versions: up to eight window sets in one launch,
+   the aligned path (rows of 8-byte stores from whole source words), rows
+   that start inside a word (odd x0, an odd pitch, a plane one byte into
+   its storage: the words realigned), sides that are no multiple of 8 (a
+   byte a lane), planes of odd widths and crops, every window at the
+   plane's edge; and their refusals.
 3. ``make_pframe_step`` with the dispatches ``mode_decide``,
-   ``extract_windows`` and ``extend_borders`` on the stand-ins (both
-   sources built) against the plain step: M8 with GOLDEN and the descent,
-   RA's ALTREF with GOLDEN, a strip geometry at tune SQ; every output and
-   the new references equal, the launches counted.
+   ``extract_windows``, ``extend_borders`` and ``mc_predict`` on the
+   stand-ins (the three sources built) against the plain step: M8 with
+   GOLDEN and the descent, RA's ALTREF with GOLDEN, a strip geometry at
+   tune SQ; every output and the new references equal, the launches
+   counted (one window launch a zone and one more with ALTREF: MC reads
+   the planes in place).
 
 What this cannot show: that nvcc accepts the source, or its speed;
 ``chip_smoke.py`` checks the kernels on the card.
@@ -50,16 +56,21 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "tpu_vp9_torch", "csrc")
 STANDIN = os.path.join(REPO, "tests", "cuda_standin")
-NAMES = ("extract_windows", "extend_borders", "mode_decide")
+NAMES = ("extract_windows", "extend_borders", "mode_decide", "mc_predict")
 
 # each source's launch helpers as the stand-in runs them: every CTA of the
-# grid at once; a trapped kernel fails its launch
+# grid at once (extract_windows: a CTA per window, one after another;
+# mc_predict: sixteen CTAs at once); a trapped kernel fails its launch
 _STANDIN_LAUNCH = {
     "windows": """
-cudaError_t launch_extract(const Jobs& js, cudaStream_t) {
-  if (js.words == 0) return cudaSuccess;
-  standin_launch_all(static_cast<int>((js.words + kThreads - 1) / kThreads),
-                     kThreads, [&] { extract_windows_kernel(js); });
+cudaError_t launch_extract(const WinJobs& js, int n_win, int n_jobs,
+                           cudaStream_t) {
+  for (int j = 0; j < n_jobs; ++j) {
+    standin_launch(n_win, kThreads, [&] {
+      blockIdx.y = j;
+      extract_windows_kernel(js);
+    });
+  }
   return cudaSuccess;
 }
 
@@ -78,9 +89,34 @@ cudaError_t launch_md(const MdArgs& a, cudaStream_t) {
   return standin_take_trap();
 }
 
+""",
+    "mc_predict": """
+template <int N>
+cudaError_t launch(const McArgs& a, cudaStream_t) {
+  const int ctas = (a.nblk + kWarps - 1) / kWarps;
+  for (int p = 0; p < kPlanes; ++p) {
+    for (int c0 = 0; c0 < ctas; c0 += 16) {
+      standin_launch_all(ctas - c0 < 16 ? ctas - c0 : 16, kThreads, [&] {
+        blockIdx.x += c0;
+        blockIdx.y = p;
+        mc_predict_kernel<N>(a);
+      });
+    }
+  }
+  return standin_take_trap();
+}
+
+template <int N>
+int occupancy(int* ctas_per_sm, int* smem_bytes) {
+  *ctas_per_sm = 1;
+  *smem_bytes = kSmem<N>;
+  return 0;
+}
+
 """}
 _FIRST_HELPER = {"windows": "cudaError_t launch_extract(",
-                 "mode_decide": "cudaError_t launch_md("}
+                 "mode_decide": "cudaError_t launch_md(",
+                 "mc_predict": "template <int N>\ncudaError_t launch("}
 
 
 def _t(a):
@@ -170,14 +206,18 @@ def test_window_specs_refuse_a_region_past_the_plane():
 
 
 def _build(tmp, name):
-    """``csrc/<name>.cu`` up to its launch helpers, the stand-in's
-    helpers, then the source's launchers, built with g++."""
+    """``csrc/<name>.cu`` up to its launch helpers (its dynamic shared
+    memory the stand-in's buffer), the stand-in's helpers, then the
+    source's launchers, built with g++."""
     with open(os.path.join(CSRC, f"{name}.cu")) as fh:
         src = fh.read()
     cut = src.index(_FIRST_HELPER[name])
     tail = src[src.index("}  // namespace"):]
+    body = src[:cut].replace(
+        "extern __shared__ __align__(16) unsigned char smem[];",
+        "unsigned char* smem = standin_smem;")
     cpp, lib = tmp / f"{name}_standin.cpp", tmp / f"lib{name}.so"
-    cpp.write_text(src[:cut] + _STANDIN_LAUNCH[name] + tail)
+    cpp.write_text(body + _STANDIN_LAUNCH[name] + tail)
     subprocess.run(
         [shutil.which("g++"), "-std=c++20", "-O1", "-fwrapv",
          "-ffp-contract=off", "-shared", "-fPIC", "-I", STANDIN, "-I", CSRC,
@@ -193,7 +233,8 @@ def standin(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the stand-in of the CUDA sources")
     tmp = tmp_path_factory.mktemp("standin")
-    libs = {name: _build(tmp, name) for name in ("windows", "mode_decide")}
+    libs = {name: _build(tmp, name)
+            for name in ("windows", "mode_decide", "mc_predict")}
     fns = {}
     for name in NAMES:
         lib, sym, n_ptr, n_float, n_int = K._LAUNCHERS[name]
@@ -207,7 +248,7 @@ def standin(tmp_path_factory):
 
 @pytest.fixture
 def on_standin(standin, monkeypatch):
-    """The three wrappers on CPU tensors launching the stand-in builds (the
+    """The four wrappers on CPU tensors launching the stand-in builds (the
     other wrappers keep their CPU path)."""
     real_kind = K._device_kind
 
@@ -224,14 +265,36 @@ def on_standin(standin, monkeypatch):
     return K
 
 
-@pytest.mark.parametrize("case", ["mc-site", "search", "strip", "small"])
+@pytest.mark.parametrize("case", ["mc-site", "search", "strip", "small",
+                                  "unaligned"])
 def test_extract_windows_on_standin_matches_plain(on_standin, case):
-    """One launch of several sets: the MC site's seven (LAST's chroma,
-    GOLDEN's three, ALTREF's chroma; 66 x 66 windows, 4,356 bytes, no
-    multiple of 16), LAST's luma search windows, the strip's sets, and
-    small odd windows on an odd-width plane (sw 13 and 21), every window
+    """One launch of several sets: seven sets of mixed sides (LAST's
+    chroma, GOLDEN's three planes, ALTREF's chroma; 66 x 66 windows, a
+    byte a lane, beside 120 x 120 ones, 8 bytes a lane), LAST's luma
+    search windows (the aligned path: x0, the pitch and sw as at every
+    search site), the strip's sets, small odd windows on an odd-width
+    plane (sw 13 and 21), and 8-byte rows that start inside a word (x0 1
+    and 3, an odd pitch, a plane one byte into its storage), every window
     from the plane's edge on."""
     rng = np.random.default_rng(len(case))
+    if case == "unaligned":
+        rows, cols = 3, 4
+        plane = _t(rng.integers(0, 256, (3 * 8 + 24 + 5, 4 * 8 + 24 + 9),
+                                dtype=np.uint8))
+        buf = torch.zeros(plane.numel() + 1, dtype=torch.uint8)
+        buf[1:] = plane.reshape(-1)
+        moved = buf[1:].view(plane.shape)
+        assert moved.data_ptr() % 4 == 1 and plane.shape[1] % 2 == 1
+        specs = [(plane, 8, 24, 0, 1), (plane, 8, 16, 2, 3),
+                 (moved, 8, 24, 5, 0), (moved, 4, 32, 1, 2),
+                 (plane, 8, 24, 5, 9)]
+        got = on_standin.extract_windows(specs, rows, cols)
+        for (p, n, sw, y0, x0), out in zip(specs, got, strict=True):
+            want = p[y0:y0 + (rows - 1) * n + sw,
+                     x0:x0 + (cols - 1) * n + sw].unfold(0, sw, n) \
+                .unfold(1, sw, n).reshape(rows * cols, sw, sw)
+            assert torch.equal(out, want), (n, sw, y0, x0)
+        return
     if case == "small":
         rows, cols = 3, 5
         plane = _t(rng.integers(0, 256, (3 * 4 + 13 + 3, 5 * 4 + 13 + 1),
@@ -270,6 +333,10 @@ def test_extract_windows_on_standin_matches_plain(on_standin, case):
     for i, (a, b) in enumerate(zip(got, want, strict=True)):
         assert a.is_contiguous() and a.data_ptr() % 16 == 0
         assert torch.equal(a, b), f"set {i}"
+    if case == "search":
+        # the aligned path's premises, as at every luma search site
+        (plane, n, sw, y0, x0), = P.window_specs(jobs, rows, cols)
+        assert (x0 % 4, plane.shape[1] % 4, n % 4, sw % 8) == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("case", ["recon", "odd"])
@@ -296,9 +363,14 @@ def test_extend_borders_on_standin_matches_plain(on_standin, case):
 
 
 def test_wrappers_refuse(on_standin):
+    """The wrappers' refusals; extract_windows' launcher refuses a set whose
+    windows leave their plane (right, bottom, before its start), after
+    the sets it took."""
     plane = torch.zeros((64, 64), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="leave"):
-        on_standin.extract_windows([(plane, 8, 20, 0, 50)], 2, 2)
+    for spec in ((8, 20, 0, 50), (8, 20, 40, 0), (8, 20, -1, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            on_standin.extract_windows([(plane, 8, 20, 0, 0),
+                                        (plane, *spec)], 2, 2)
     with pytest.raises(ValueError, match="1 to 8"):
         on_standin.extract_windows([(plane, 8, 20, 0, 0)] * 9, 1, 1)
     with pytest.raises(TypeError, match="uint8"):
@@ -366,10 +438,11 @@ STEPS = {"m8-golden-descent": ((96, 64), True, False, True, 4, False),
 def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
                                                      case):
     """The step once on the plain versions and once with its dispatches
-    ``mode_decide``, ``extract_windows`` and ``extend_borders`` taking the
-    stand-in kernels: every output and the new references equal; per zone
-    one decision and two window launches (three with ALTREF), one border
-    launch."""
+    ``mode_decide``, ``extract_windows``, ``extend_borders`` and
+    ``mc_predict`` taking the stand-in kernels: every output and the new
+    references equal; per zone one decision, one window launch (two with
+    ALTREF) and one MC launch (MC reads the planes in place), one more MC
+    launch for the children, one border launch."""
     dims, golden, altref, split16, frac, aq = STEPS[case]
     g, src, refs = _step_args(*dims, seed=len(case),
                               n_refs=1 + golden + altref)
@@ -398,12 +471,20 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
         P, "extend_borders",
         lambda planes, crops, border=P.BORDER: K.extend_borders(
             planes, crops, border))
+    monkeypatch.setattr(
+        P, "mc_predict",
+        lambda planes, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols,
+        filters, grid, **kw: K.mc_predict(
+            planes, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols,
+            P.mc_window_grid(tuple(tuple(t.shape) for t in planes[0]),
+                             tuple(grid)), **kw))
     got_outs, got_refs = step(*args)
     zones = 1 + g.strip
     assert {name: getattr(K, name).launches - before[name]
             for name in NAMES} == {"mode_decide": zones,
-                                   "extract_windows": zones * (2 + altref),
-                                   "extend_borders": 1}
+                                   "extract_windows": zones * (1 + altref),
+                                   "extend_borders": 1,
+                                   "mc_predict": zones + split16}
     got, want = dict(_flat(got_outs)), dict(_flat(want_outs))
     assert set(got) == set(want)
     for key in want:

@@ -1,24 +1,33 @@
 // The realtime P-frame step's motion compensation: for every block, its
-// Y, U and V predictions out of per-block reference windows, with libvpx's
-// UMV clamp of the motion vector and its 8-tap convolve.
+// Y, U and V predictions read in place out of the border-extended
+// reference planes, with libvpx's UMV clamp of the motion vector, the
+// window clamp of the reference step and its 8-tap convolve.
 //
 // Replaces the XLA stage tpu_vp9/pipeline/tpu_encdec.py:
-// mc_predict_from_wins (:359), with its clamp _clamp_mv_umv (:126); its
-// contract is the plain version beside the step, tpu_vp9_torch/pipeline/
-// tpu_encdec.py:mc_predict_ref. Per block b and plane p (Y at n, U and V
-// at n / 2; ss = 0 for Y, 1 for U and V):
+// mc_predict_from_wins (:359), with its clamp _clamp_mv_umv (:126), and
+// the MC windows the JAX step cuts for it (:1768-1797); its contract is
+// the plain version beside the step, tpu_vp9_torch/pipeline/tpu_encdec.py:
+// mc_predict_planes_ref: the windows cut by _extract_search_windows, then
+// mc_predict_ref. Per block b and plane p (Y at n, U and V at n / 2;
+// ss = 0 for Y, 1 for U and V):
 //   - the plane position (pos_y[b] >> ss, pos_x[b] >> ss), the window
 //     offset (off_y[b] >> ss, off_x[b] >> ss) (0 without offsets);
 //   - the q3 MV clamped to the UMV border (vp9_reconinter.c:68) and scaled
 //     to the plane's q4 units, added to the position's q4: y_q4, x_q4;
 //   - the read start s = clamp((q4 >> 4) - pos + win_r + 1 + off, 0,
-//     SW - (n + 7)) in the block's window (SW the window tensor's own
-//     side), and the phase q4 & 15 (both floor and two's complement on
-//     int32, as in the plain version);
-//   - the window: reference ref_sel[b] (0 LAST, 1 GOLDEN, 2 ALTREF; LAST
-//     where there is no ref_sel or that reference has no windows), window
-//     win_idx[b] of it (b without win_idx): a child reads its parent's
-//     window in place, and no merged or repeated window tensor is built;
+//     SW - (n + 7)) in the block's window, and the phase q4 & 15 (both
+//     floor and two's complement on int32, as in the plain version);
+//   - the window: window w = win_idx[b] (b without win_idx; a child reads
+//     its parent's) of the zone's grid in reference ref_sel[b] (0 LAST, 1
+//     GOLDEN, 2 ALTREF; LAST where there is no ref_sel or that reference
+//     has no planes). Window w = (row, col) of the grid covers the SW x SW
+//     square at (y0 + step row, x0 + step col) of its plane, each plane's
+//     (step, SW, y0, x0) as the step's _window_spec gives them (the
+//     grid's step is the zone's block size, 32 for the children, so it is
+//     kept apart from n; the wrapper checks that every window lies inside
+//     its plane). The region is read at the window's origin + s, so the
+//     kernel reads the bytes the window would have held, whatever the MV,
+//     and no window is cut;
 //   - libvpx's convolve over its (n + 7)^2 region: the H pass into 8-bit
 //     intermediates, then the V pass, each output clamp((acc + 64) >> 7,
 //     0, 255) (convolve8.cuh). Phase 0 is [0, 0, 0, 128, 0, 0, 0, 0]: its
@@ -26,24 +35,24 @@
 // All of it is integer arithmetic, so the kernel equals the plain version
 // bit for bit.
 //
-// What bounds it on an H100: bytes, and before them the launch. A block
-// reads its three (n + 7)^2 regions and writes its three predictions
-// (about 4.1 KB a 32 block), against about 2.8e4 multiply-adds; the 1080p
-// zone's 2040 blocks move 8.4 MB, about 2.5 us at HBM speed. Written as
-// PyTorch ops it is about forty small launches a call and whole window
-// tensors merged and repeated before it. This design is the plain one: one
-// launch a call site for the three planes and every reference, a CTA of 64
-// threads per block and plane (gridDim.y the plane), which
-//   - stages the region in shared memory a byte at a time (any start, any
-//     alignment; a row's pitch n + 8 bytes, the last byte zero);
-//   - runs the H pass four outputs a thread from three aligned words of a
-//     row (conv8::bytes8, two dp4a an output), and stores the
-//     intermediates transposed, a column's n + 7 rows contiguous;
-//   - runs the V pass the same way down the columns and writes the
-//     prediction a byte a thread, neighbouring threads on neighbouring
-//     columns.
-// Making it fast (several blocks a CTA, word loads, the three planes of a
-// block in one CTA) is later work.
+// What bounds it on an H100: bytes. A block reads its three (n + 7)^2
+// regions and writes its three predictions (about 4.1 KB a 32 block),
+// against about 2.8e4 multiply-adds; the 1080p zone's 2040 blocks move
+// 8.4 MB, about 2.5 us at HBM speed. So the design keeps the card's
+// memory busy with few instructions a byte and no CTA-wide barrier: a
+// warp per block and plane, four warps a CTA (gridDim.y the plane, each
+// warp its own block and its own shared memory), and
+//   - each region row read as the aligned 16-byte chunks that hold it
+//     (any start, any pitch; a chunk is read only where it holds a byte of
+//     the row), a lane a chunk, into the warp's shared memory (16-byte
+//     loads: a quarter of the load instructions of 32-bit words, whose
+//     staging was half of a warp's cycles, utils/mc_phases.py);
+//   - the H pass four outputs a lane from the row's words, realigned with
+//     __funnelshift_r (conv8::bytes8, two dp4a an output), the
+//     intermediates stored transposed, a column's n + 7 rows contiguous;
+//   - the V pass the same way down the columns, the prediction written a
+//     byte a lane, neighbouring lanes on neighbouring columns;
+//   - __syncwarp between the phases.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,14 +61,15 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kPlanes = 3;  // Y, U, V
 constexpr int kRefs = 3;    // LAST, GOLDEN, ALTREF
 
-// What a launch reads and writes; win[p][r] is null where reference r has
-// no windows (ref 0, LAST, always has them).
+// What a launch reads and writes; plane[p][r] is null where reference r
+// has no planes (ref 0, LAST, always has them).
 struct McArgs {
-  const uint8_t* win[kPlanes][kRefs];
+  const uint8_t* plane[kPlanes][kRefs];
   uint8_t* out[kPlanes];
   const int8_t* ref_sel;  // (B,) or null: every block LAST
   const int* win_idx;     // (B,) or null: block b reads window b
@@ -71,35 +81,45 @@ struct McArgs {
   const int* off_x;
   const int* filters;     // (16, 8) EIGHTTAP
   int nblk;
-  int sw[kPlanes];        // each plane's window side
-  int win_r[kPlanes];     // each plane's window reach
+  int pitch[kPlanes];     // each plane's row length (its references' too)
+  // each plane's window grid: first window's origin, step, side, reach
+  int y0[kPlanes], x0[kPlanes], step[kPlanes], sw[kPlanes], win_r[kPlanes];
+  int cols;               // the grid's columns
+  int nwin;               // its windows
   int mi_rows, mi_cols;
 };
 
-// A plane of block size NP: the region's and the transposed
-// intermediates' pitch in bytes (a row's or a column's last byte is
-// padding, read by the passes at the last output and not used), and the
-// region's bytes, after which the intermediates start.
+// A plane of block size NP: the region's side; the 16-byte chunks a row
+// of the region spans from the aligned chunk that holds its first byte
+// (which may start up to 15 bytes before it), and their words; the
+// transposed intermediates' pitch in bytes (a column's last byte is
+// padding, read by the V pass at the last output and not used); a warp's
+// shared bytes: the region's chunks, then the intermediates.
 template <int NP>
 struct Plane {
-  static constexpr int kL = NP + 7;       // the region's side
-  static constexpr int kP = NP + 8;       // pitch, a multiple of 4
-  static constexpr int kPw = kP / 4;      // pitch in words
-  static constexpr int kRegBytes = kL * kP;
-  static_assert(NP % 4 == 0 && kRegBytes % 4 == 0, "layout");
+  static constexpr int kL = NP + 7;
+  static constexpr int kRc = (kL + 14) / 16 + 1;  // 16-byte chunks a row
+  static constexpr int kRw = 4 * kRc;
+  static constexpr int kP = NP + 8;
+  static constexpr int kPw = kP / 4;
+  static constexpr int kRawBytes = kL * kRw * 4;
+  static constexpr int kBytes = kRawBytes + NP * kP;
+  static_assert(NP % 4 == 0 && kP % 4 == 0, "layout");
 };
 
-// The dynamic shared memory of a launch of luma size N: its luma plane's
-// region and intermediates (the chroma planes' are smaller).
+// A warp's shared memory at luma size N (the chroma planes' is smaller),
+// 16-byte aligned, and a CTA's.
 template <int N>
-constexpr int kSmem = Plane<N>::kRegBytes + N * Plane<N>::kP;
+constexpr int kWarpSmem = (Plane<N>::kBytes + 15) / 16 * 16;
+template <int N>
+constexpr int kSmem = kWarps * kWarpSmem<N>;
 
-// The block's prediction in plane p (of block size NP) into a.out[p].
+// The block's prediction in plane p (of block size NP) into a.out[p], by
+// one warp (lane its lane), in the warp's shared memory smem.
 template <int NP>
 __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
-                                        unsigned char* smem) {
+                                        int lane, unsigned char* smem) {
   using S = Plane<NP>;
-  const int tid = threadIdx.x;
   const int ss = p > 0 ? 1 : 0;
   const int pos_y = a.pos_y[b] >> ss;
   const int pos_x = a.pos_x[b] >> ss;
@@ -132,24 +152,39 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
   const int ph_y = y_q4 & 15;
   const int ph_x = x_q4 & 15;
 
-  // the block's window, read in place
+  // the block's window in its reference's plane
   const int ref = a.ref_sel != nullptr ? a.ref_sel[b] : 0;
-  const uint8_t* win = a.win[p][0];
-  if (ref == 1 && a.win[p][1] != nullptr) win = a.win[p][1];
-  if (ref == 2 && a.win[p][2] != nullptr) win = a.win[p][2];
+  const uint8_t* pl = a.plane[p][0];
+  if (ref == 1 && a.plane[p][1] != nullptr) pl = a.plane[p][1];
+  if (ref == 2 && a.plane[p][2] != nullptr) pl = a.plane[p][2];
   const int w_idx = a.win_idx != nullptr ? a.win_idx[b] : b;
-  const uint8_t* src = win + static_cast<int64_t>(w_idx) * sw * sw +
-                       static_cast<int64_t>(s_y) * sw + s_x;
-
-  // 1. the (n+7)^2 region, a row's padding byte zero
-  uint8_t* reg = smem;
-  uint8_t* inter = smem + S::kRegBytes;  // transposed: column c at c * kP
-  for (int i = tid; i < S::kL * S::kL; i += kThreads) {
-    const int r = i / S::kL, c = i % S::kL;
-    reg[r * S::kP + c] = src[static_cast<int64_t>(r) * sw + c];
+  if (w_idx < 0 || w_idx >= a.nwin) {
+    __trap();  // a window past the grid: the wrapper cannot see it
+    return;
   }
-  for (int r = tid; r < S::kL; r += kThreads) reg[r * S::kP + S::kL] = 0;
-  for (int c = tid; c < NP; c += kThreads) inter[c * S::kP + S::kL] = 0;
+  const int w_row = w_idx / a.cols;
+  const int w_col = w_idx - w_row * a.cols;
+  const int64_t pitch = a.pitch[p];
+  const uint8_t* src =
+      pl + (a.y0[p] + a.step[p] * w_row + s_y) * pitch + a.x0[p] +
+      a.step[p] * w_col + s_x;
+  const uintptr_t src_at = reinterpret_cast<uintptr_t>(src);
+  const int pitch_sh = static_cast<int>(pitch & 15);
+
+  // 1. the region's rows as aligned 16-byte chunks: chunk j of row r
+  // holds the row's bytes 16j - sh .. 16j - sh + 15 (sh: the row's first
+  // byte's place in its chunk); one without a byte of the row is not read
+  uint4* raw4 = reinterpret_cast<uint4*>(smem);
+  for (int i = lane; i < S::kL * S::kRc; i += 32) {
+    const int r = i / S::kRc, j = i - r * S::kRc;
+    const uintptr_t at = src_at + r * pitch;
+    const int sh = static_cast<int>(at & 15);
+    raw4[i] = 16 * j - sh < S::kL
+                  ? *reinterpret_cast<const uint4*>((at & ~uintptr_t{15}) +
+                                                    16 * j)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const uint32_t* raw = reinterpret_cast<const uint32_t*>(smem);
   uint32_t t_lo = 0, t_hi = 0, v_lo = 0, v_hi = 0;
   if (ph_x != 0) {
     conv8::pack_taps(a.filters + ph_x * conv8::kTaps, t_lo, t_hi);
@@ -157,15 +192,21 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
   if (ph_y != 0) {
     conv8::pack_taps(a.filters + ph_y * conv8::kTaps, v_lo, v_hi);
   }
-  __syncthreads();
+  __syncwarp();
 
-  // 2. the H pass: row r, columns 4cw..4cw+3, from the row's words
-  // cw..cw+2; stored transposed
-  const uint32_t* reg_w = reinterpret_cast<const uint32_t*>(reg);
-  for (int i = tid; i < S::kL * (NP / 4); i += kThreads) {
-    const int r = i / (NP / 4), cw = i % (NP / 4);
-    const uint32_t* w = reg_w + r * S::kPw + cw;
-    const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+  // 2. the H pass: row r, columns 4cw..4cw+3, from the row's region words
+  // cw..cw+2 (realigned from its raw words q+cw..q+cw+3, q the word of
+  // the row's first byte in its chunk); stored transposed
+  uint8_t* inter = smem + S::kRawBytes;  // column c at c * kP
+  const int sh0 = static_cast<int>(src_at & 15);
+  for (int i = lane; i < S::kL * (NP / 4); i += 32) {
+    const int r = i / (NP / 4), cw = i - r * (NP / 4);
+    const int shr = (sh0 + r * pitch_sh) & 15;
+    const unsigned sh = 8u * (shr & 3);
+    const uint32_t* w = raw + r * S::kRw + (shr >> 2) + cw;
+    const uint32_t w0 = __funnelshift_r(w[0], w[1], sh);
+    const uint32_t w1 = __funnelshift_r(w[1], w[2], sh);
+    const uint32_t w2 = __funnelshift_r(w[2], w[3], sh);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       uint32_t lo, hi;
@@ -176,13 +217,13 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
       inter[(4 * cw + k) * S::kP + r] = static_cast<uint8_t>(v);
     }
   }
-  __syncthreads();
+  __syncwarp();
 
   // 3. the V pass: column c, rows 4rw..4rw+3, from the column's words
   // rw..rw+2
   const uint32_t* inter_w = reinterpret_cast<const uint32_t*>(inter);
   uint8_t* out = a.out[p] + static_cast<int64_t>(b) * NP * NP;
-  for (int i = tid; i < NP * (NP / 4); i += kThreads) {
+  for (int i = lane; i < NP * (NP / 4); i += 32) {
     const int c = i % NP, rw = i / NP;
     const uint32_t* w = inter_w + c * S::kPw + rw;
     const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
@@ -197,24 +238,27 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
   }
 }
 
-// N: the luma block size (the chroma planes' is N / 2). blockIdx.x the
-// block, blockIdx.y the plane.
+// N: the luma block size (the chroma planes' is N / 2). Warp w of CTA x
+// predicts block kWarps x + w in plane blockIdx.y.
 template <int N>
 __global__ void __launch_bounds__(kThreads) mc_predict_kernel(McArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x * kWarps + warp;
   const int p = blockIdx.y;
   if (b >= a.nblk) return;
+  unsigned char* mine = smem + warp * kWarpSmem<N>;
   if (p == 0) {
-    predict<N>(a, b, p, smem);
+    predict<N>(a, b, p, lane, mine);
   } else {
-    predict<N / 2>(a, b, p, smem);
+    predict<N / 2>(a, b, p, lane, mine);
   }
 }
 
 template <int N>
 cudaError_t launch(const McArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.nblk, kPlanes);
+  const dim3 grid((a.nblk + kWarps - 1) / kWarps, kPlanes);
   mc_predict_kernel<N><<<grid, kThreads, kSmem<N>, stream>>>(a);
   return cudaGetLastError();
 }
@@ -228,30 +272,36 @@ int occupancy(int* ctas_per_sm, int* smem_bytes) {
 
 }  // namespace
 
-// nblk blocks of luma size n (16 or 32; chroma n / 2): the windows wy*,
-// wu*, wv* of LAST, GOLDEN and ALTREF ((W, sw, sw) uint8 per plane, sw_y
-// for Y and sw_c for U and V; GOLDEN's and ALTREF's may be null), ref_sel
-// (nblk,) int8 or null, win_idx (nblk,) int32 or null (then W = nblk),
-// pos_y, pos_x, mv_r, mv_c (nblk,) int32, off_y, off_x (nblk,) int32 or
-// both null, filters the (16, 8) int32 EIGHTTAP table (row 0 the
-// identity, every tap of the rows 1-15 a signed byte); out_y (nblk, n, n)
-// and out_u, out_v (nblk, n/2, n/2) uint8 out. win_r_y and win_r_c: the
-// windows' reach (their origin is the block minus win_r + 4). Returns
+// nblk blocks of luma size n (16 or 32; chroma n / 2) predicted out of
+// the border-extended planes y*, u*, v* of LAST, GOLDEN and ALTREF (uint8,
+// rows of pitch_y, pitch_u, pitch_v bytes, any start; GOLDEN's and
+// ALTREF's may be null), whose windows form the zone's grid of rows x
+// cols windows: plane p's (step, sw, y0, x0) in geom[4 p .. 4 p + 3]
+// (every window inside its plane: the wrapper checks), reach win_r_y (Y)
+// and win_r_c (U, V); ref_sel (nblk,) int8 or null, win_idx (nblk,) int32
+// or null (then the grid has nblk windows), pos_y, pos_x, mv_r, mv_c
+// (nblk,) int32, off_y, off_x (nblk,) int32 or both null, filters the
+// (16, 8) int32 EIGHTTAP table (row 0 the identity, every tap of the rows
+// 1-15 a signed byte); out_y (nblk, n, n) and out_u, out_v (nblk, n/2,
+// n/2) uint8 out. A window index past the grid traps. Returns
 // cudaGetLastError() after the launch.
 extern "C" int mc_predict_launch(
-    const void* wy0, const void* wy1, const void* wy2, const void* wu0,
-    const void* wu1, const void* wu2, const void* wv0, const void* wv1,
-    const void* wv2, const void* ref_sel, const void* win_idx,
+    const void* y0, const void* y1, const void* y2, const void* u0,
+    const void* u1, const void* u2, const void* v0, const void* v1,
+    const void* v2, const void* ref_sel, const void* win_idx,
     const void* pos_y, const void* pos_x, const void* mv_r, const void* mv_c,
     const void* off_y, const void* off_x, const void* filters, void* out_y,
-    void* out_u, void* out_v, int nblk, int n, int sw_y, int sw_c,
-    int win_r_y, int win_r_c, int mi_rows, int mi_cols, void* stream) {
+    void* out_u, void* out_v, int nblk, int n, int rows, int cols,
+    int step_y, int sw_y, int y0_y, int x0_y, int step_u, int sw_u, int y0_u,
+    int x0_u, int step_v, int sw_v, int y0_v, int x0_v, int win_r_y,
+    int win_r_c, int pitch_y, int pitch_u, int pitch_v, int mi_rows,
+    int mi_cols, void* stream) {
   McArgs a;
-  const void* wins[kPlanes][kRefs] = {
-      {wy0, wy1, wy2}, {wu0, wu1, wu2}, {wv0, wv1, wv2}};
+  const void* planes[kPlanes][kRefs] = {
+      {y0, y1, y2}, {u0, u1, u2}, {v0, v1, v2}};
   for (int p = 0; p < kPlanes; ++p) {
     for (int r = 0; r < kRefs; ++r) {
-      a.win[p][r] = static_cast<const uint8_t*>(wins[p][r]);
+      a.plane[p][r] = static_cast<const uint8_t*>(planes[p][r]);
     }
   }
   a.out[0] = static_cast<uint8_t*>(out_y);
@@ -267,12 +317,30 @@ extern "C" int mc_predict_launch(
   a.off_x = static_cast<const int*>(off_x);
   a.filters = static_cast<const int*>(filters);
   a.nblk = nblk;
-  a.sw[0] = sw_y;
-  a.sw[1] = a.sw[2] = sw_c;
-  a.win_r[0] = win_r_y;
-  a.win_r[1] = a.win_r[2] = win_r_c;
+  a.cols = cols;
+  a.nwin = rows * cols;
   a.mi_rows = mi_rows;
   a.mi_cols = mi_cols;
+  const int pitches[kPlanes] = {pitch_y, pitch_u, pitch_v};
+  const int geom[kPlanes][4] = {{step_y, sw_y, y0_y, x0_y},
+                                {step_u, sw_u, y0_u, x0_u},
+                                {step_v, sw_v, y0_v, x0_v}};
+  for (int p = 0; p < kPlanes; ++p) {
+    a.pitch[p] = pitches[p];
+    a.step[p] = geom[p][0];
+    a.sw[p] = geom[p][1];
+    a.y0[p] = geom[p][2];
+    a.x0[p] = geom[p][3];
+    a.win_r[p] = p > 0 ? win_r_c : win_r_y;
+    if (a.step[p] < 1 || a.sw[p] < (n >> (p > 0 ? 1 : 0)) + 7 ||
+        a.y0[p] < 0 || a.x0[p] < 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (nblk < 0 || rows < 1 || cols < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nblk == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 32:
@@ -285,7 +353,7 @@ extern "C" int mc_predict_launch(
 }
 
 // The kernel of luma block size n on the current device: *ctas_per_sm the
-// CTAs of 64 threads an SM holds at once, *smem_bytes the dynamic shared
+// CTAs of 128 threads an SM holds at once, *smem_bytes the dynamic shared
 // memory each asks for. Returns the CUDA error of the query (0 if none).
 extern "C" int mc_predict_occupancy(int n, int* ctas_per_sm,
                                     int* smem_bytes) {

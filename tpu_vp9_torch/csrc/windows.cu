@@ -1,5 +1,5 @@
-// Byte gathers of the realtime P-frame step: the search and MC windows of
-// a zone, and the border extension of a recon, each one launch.
+// Byte gathers of the realtime P-frame step: the search windows of a
+// zone, and the border extension of a recon, each one launch.
 //
 // Replaces the XLA stages of tpu_vp9/pipeline/tpu_encdec.py:
 // _extract_search_windows (:296) and extend_borders_device (:112); the
@@ -11,28 +11,31 @@
 //     cols blocks, each out of its own border-extended plane: window b =
 //     (row, col) of a set is the (sw, sw) region at (y0 + n row, x0 + n
 //     col), sw = n + 2r + 8, stored contiguously, window after window.
-//     The call sites cut LAST's luma windows (the search), ALTREF's (its
-//     search), and LAST's chroma with GOLDEN's three planes and ALTREF's
-//     chroma (MC) in one launch each.
+//     The call sites cut LAST's luma windows (the search) and ALTREF's
+//     (its search); motion compensation reads the planes in place
+//     (csrc/mc_predict.cu). A CTA of 256 threads per window (blockIdx.x)
+//     and set (blockIdx.y), 16 rows at a time and 16 lanes a row: where
+//     sw is a multiple of 8 (every window row 8-byte aligned) a lane
+//     stores 8 bytes of a row at once, read as the aligned 32-bit words
+//     that hold them (two where the row starts on a word, as every luma
+//     window does: x0 + n col = 52 + n col, pitch W + 192; three realigned
+//     with __funnelshift_r where it does not); any other sw a byte a lane.
 //  2. extend_borders: up to kMaxJobs planes, each (H, W) into (H + 2
 //     border, W + 2 border): out[i][j] = plane[clamp(i - border, 0,
 //     crop_h - 1)][clamp(j - border, 0, crop_w - 1)], the visible crop
 //     replicated outward (libvpx's extend_frame). A recon's three planes
-//     are one launch.
-// Both treat each output as a flat array of bytes cut into 16-byte words,
-// a thread a word: the thread gathers the word's 16 bytes (which may span
-// two rows of a window, or two windows) with byte loads and stores them
-// with one 16-byte store; only the last word of an output whose size is
-// no multiple of 16 is stored byte by byte. The jobs' words follow each
-// other in one grid; a CTA finds its job among the prefix sums (a CTA's
-// words may span two jobs).
+//     are one launch. It treats each output as a flat array of bytes cut
+//     into 16-byte words, a thread a word: the thread gathers the word's 16
+//     bytes (which may span two rows) with byte loads and stores them with
+//     one 16-byte store; only the last word of an output whose size is no
+//     multiple of 16 is stored byte by byte. The jobs' words follow each
+//     other in one grid; a CTA finds its job among the prefix sums (a
+//     CTA's words may span two jobs).
 //
-// What bounds them on an H100: bytes. A 1080p M8 P-frame's MC site writes
-// 2040 windows of 120 x 120 (GOLDEN's luma) and four sets of 66 x 66
-// (chroma), 65 MB, and reads about 5 MB of planes (the windows overlap,
-// so the reads hit in L2): 0.021 ms at 3.35 TB/s. The source bytes of a
-// warp's 32 words are 512 neighbouring bytes of a plane row (or two), so
-// the loads coalesce; the stores are whole 16-byte words.
+// What bounds them on an H100: bytes. A 1080p M8 P-frame's search site
+// writes 2040 windows of 120 x 120, 29.4 MB, and reads about 4 MB of its
+// plane (the windows overlap, so the reads hit in L2): 0.0095 ms at 3.35
+// TB/s. A warp's stores are two window rows of 120 contiguous bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,21 +45,34 @@ namespace {
 constexpr int kMaxJobs = 8;
 constexpr int kThreads = 256;
 
+// extract_windows: a window set
+struct WinJob {
+  const uint8_t* src;  // the plane
+  uint8_t* out;        // (B, sw, sw), 16-byte aligned
+  int pitch;           // the plane's row length
+  int n, sw;           // the grid's step, the window's side
+  int y0, x0;          // the zone's first window's origin in the plane
+};
+
+struct WinJobs {
+  WinJob job[kMaxJobs];
+  int cols;  // the zone's block columns
+};
+
+// extend_borders: a plane
 struct Job {
   const uint8_t* src;  // the plane
   uint8_t* out;        // contiguous output
   int64_t bytes;       // output bytes
   int64_t word0;       // the job's first word in the grid
   int pitch;           // the plane's row length
-  // windows: n, sw, the zone's (y0, x0) in the plane; borders: the output
-  // row length (W + 2 border), border, crop_w, crop_h
+  // the output row length (W + 2 border), border, crop_w, crop_h
   int a, b, c, d;
 };
 
 struct Jobs {
   Job job[kMaxJobs];
   int n_jobs;
-  int cols;      // windows: the zone's block columns
   int64_t words;  // all jobs' words
 };
 
@@ -104,38 +120,43 @@ __device__ __forceinline__ bool my_word(const Jobs& js, const Job*& jb,
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads) extract_windows_kernel(Jobs js) {
-  const Job* jb;
-  int64_t e0;
-  int len;
-  if (!my_word(js, jb, e0, len)) return;
-  const int n = jb->a, sw = jb->b, y0 = jb->c, x0 = jb->d;
-  const int pitch = jb->pitch;
-  const uint8_t* src = jb->src;
-  const int cols = js.cols;
-  // the first byte's window, row and column; then along the window
-  const int64_t win = static_cast<int64_t>(sw) * sw;
-  int64_t b = e0 / win;
-  const int rem = static_cast<int>(e0 - b * win);
-  int r = rem / sw, c = rem - r * sw;
-  auto origin = [&](int64_t blk) {
-    const int row = static_cast<int>(blk / cols);
-    const int col = static_cast<int>(blk - static_cast<int64_t>(row) * cols);
-    return src + static_cast<int64_t>(y0 + n * row) * pitch + x0 + n * col;
-  };
-  const uint8_t* at = origin(b) + static_cast<int64_t>(r) * pitch;
-  store_word(jb->out, e0, len, [&]() -> uint8_t {
-    const uint8_t v = at[c];
-    if (++c == sw) {
-      c = 0;
-      at += pitch;
-      if (++r == sw) {
-        r = 0;
-        at = origin(++b);
+// Window blockIdx.x of set blockIdx.y: thread t stores rows t / 16 + 16 k
+// of it, lane t % 16 of a row.
+__global__ void __launch_bounds__(kThreads)
+    extract_windows_kernel(WinJobs js) {
+  const WinJob& jb = js.job[blockIdx.y];
+  const int w = blockIdx.x;
+  const int row = w / js.cols;
+  const int col = w - row * js.cols;
+  const int64_t pitch = jb.pitch;
+  const int sw = jb.sw;
+  const uint8_t* src = jb.src + (jb.y0 + jb.n * row) * pitch + jb.x0 +
+                       jb.n * col;
+  uint8_t* out = jb.out + static_cast<int64_t>(w) * sw * sw;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  if (sw % 8 == 0) {
+    // 8 bytes a store: the row's bytes 8q..8q+7 out of the aligned words
+    // that hold them (the third only where the row starts inside a word)
+    for (int r = ty; r < sw; r += 16) {
+      const uintptr_t at = reinterpret_cast<uintptr_t>(src + r * pitch);
+      const unsigned sh = 8u * static_cast<unsigned>(at & 3);
+      const uint32_t* s =
+          reinterpret_cast<const uint32_t*>(at & ~uintptr_t{3});
+      uint2* o = reinterpret_cast<uint2*>(out + r * sw);
+      for (int q = tx; q < sw / 8; q += 16) {
+        const uint32_t w0 = s[2 * q], w1 = s[2 * q + 1];
+        const uint32_t w2 = sh != 0 ? s[2 * q + 2] : 0u;
+        o[q] = make_uint2(__funnelshift_r(w0, w1, sh),
+                          __funnelshift_r(w1, w2, sh));
       }
     }
-    return v;
-  });
+  } else {
+    for (int r = ty; r < sw; r += 16) {
+      const uint8_t* s = src + r * pitch;
+      uint8_t* o = out + r * sw;
+      for (int c = tx; c < sw; c += 16) o[c] = s[c];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) extend_borders_kernel(Jobs js) {
@@ -185,10 +206,10 @@ bool plan(Jobs& js, int n_jobs) {
 // host side
 // ---------------------------------------------------------------------------
 
-cudaError_t launch_extract(const Jobs& js, cudaStream_t s) {
-  if (js.words == 0) return cudaSuccess;
-  const int grid = static_cast<int>((js.words + kThreads - 1) / kThreads);
-  extract_windows_kernel<<<grid, kThreads, 0, s>>>(js);
+cudaError_t launch_extract(const WinJobs& js, int n_win, int n_jobs,
+                           cudaStream_t s) {
+  if (n_win == 0) return cudaSuccess;
+  extract_windows_kernel<<<dim3(n_win, n_jobs), kThreads, 0, s>>>(js);
   return cudaGetLastError();
 }
 
@@ -201,40 +222,42 @@ cudaError_t launch_borders(const Jobs& js, cudaStream_t s) {
 
 }  // namespace
 
-// n_jobs window sets of one zone of b = rows x cols blocks: for set j the
-// plane srcs[j] (rows of pitches[j] bytes), the block size ns[j], the
-// window side sws[j] and the zone's first window's origin (y0s[j],
-// x0s[j]) in the plane (every window inside it: the wrapper checks),
-// the output outs[j] (b, sws[j], sws[j]) uint8, 16-byte aligned. Returns
-// cudaGetLastError() after the launch.
-extern "C" int extract_windows_launch(const void* const* srcs,
-                                      void* const* outs, const int* pitches,
-                                      const int* ns, const int* sws,
-                                      const int* y0s, const int* x0s,
-                                      int n_jobs, int rows, int cols,
-                                      void* stream) {
-  Jobs js;
-  if (n_jobs < 1 || n_jobs > kMaxJobs || rows < 0 || cols < 1) {
+// n_jobs window sets of one zone of rows x cols blocks: jobs holds eight
+// int64 a set: the plane (rows of `pitch` bytes, any start), the output
+// (b, sw, sw) uint8 (16-byte aligned), the pitch, the plane's height, the
+// block size n, the window side sw and the zone's first window's origin
+// (y0, x0) in the plane. A set whose windows leave their plane is refused
+// (cudaErrorInvalidValue, nothing launched). Returns cudaGetLastError()
+// after the launch.
+extern "C" int extract_windows_launch(const int64_t* jobs, int n_jobs,
+                                      int rows, int cols, void* stream) {
+  WinJobs js;
+  if (n_jobs < 1 || n_jobs > kMaxJobs || rows < 0 || cols < 1 ||
+      static_cast<int64_t>(rows) * cols > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int j = 0; j < n_jobs; ++j) {
-    Job& jb = js.job[j];
-    jb.src = static_cast<const uint8_t*>(srcs[j]);
-    jb.out = static_cast<uint8_t*>(outs[j]);
-    jb.pitch = pitches[j];
-    jb.a = ns[j];
-    jb.b = sws[j];
-    jb.c = y0s[j];
-    jb.d = x0s[j];
-    jb.bytes = static_cast<int64_t>(rows) * cols * sws[j] * sws[j];
-    if (sws[j] < 1 || ns[j] < 1) {
+    const int64_t* v = jobs + 8 * j;
+    const int64_t pitch = v[2], height = v[3], n = v[4], sw = v[5];
+    const int64_t y0 = v[6], x0 = v[7];
+    if (v[0] == 0 || v[1] == 0 || v[1] % 16 != 0 || n < 1 || sw < 1 ||
+        y0 < 0 || x0 < 0 || pitch > 0x7fffffff ||
+        (rows > 0 && (y0 + (rows - 1) * n + sw > height ||
+                      x0 + (cols - 1) * n + sw > pitch))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    WinJob& jb = js.job[j];
+    jb.src = reinterpret_cast<const uint8_t*>(v[0]);
+    jb.out = reinterpret_cast<uint8_t*>(v[1]);
+    jb.pitch = static_cast<int>(pitch);
+    jb.n = static_cast<int>(n);
+    jb.sw = static_cast<int>(sw);
+    jb.y0 = static_cast<int>(y0);
+    jb.x0 = static_cast<int>(x0);
   }
   js.cols = cols;
-  if (!plan(js, n_jobs)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      launch_extract(js, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_extract(js, rows * cols, n_jobs,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // n_jobs planes: plane j srcs[j] (hs[j], ws[j]) uint8, contiguous, its
@@ -265,7 +288,6 @@ extern "C" int extend_borders_launch(const void* const* srcs,
     jb.d = crop_hs[j];
     jb.bytes = static_cast<int64_t>(hs[j] + 2 * border) * jb.a;
   }
-  js.cols = 1;
   if (!plan(js, n_jobs)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       launch_borders(js, static_cast<cudaStream_t>(stream)));

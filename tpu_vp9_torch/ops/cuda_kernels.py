@@ -111,14 +111,14 @@ _LAUNCHERS = {
     "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
                         5),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
-    "mc_predict": ("mc_predict", "mc_predict_launch", 21, 0, 8),
+    "mc_predict": ("mc_predict", "mc_predict_launch", 21, 0, 23),
     "openloop_modes": ("openloop_modes", "openloop_modes_launch", 5, 0, 4),
     "descent_gather": ("descent", "descent_gather_launch", 13, 0, 7),
     "descent_decide": ("descent", "descent_decide_launch", 16, 3, 8),
     "descent_pack": ("descent", "descent_pack_launch", 16, 0, 1),
     "descent_split": ("descent", "descent_split_launch", 15, 1, 5),
     "mode_decide": ("mode_decide", "mode_decide_launch", 21, 3, 9),
-    "extract_windows": ("windows", "extract_windows_launch", 7, 0, 3),
+    "extract_windows": ("windows", "extract_windows_launch", 1, 0, 3),
     "extend_borders": ("windows", "extend_borders_launch", 6, 0, 2),
 }
 _fns: dict = {}
@@ -135,9 +135,11 @@ def _kernel(name: str):
     return fn
 
 
-# the current stream's handle without building a Stream object, where
-# this torch has the call (a few microseconds a launch)
+# the current stream's handle without building a Stream object, and the
+# current device without torch.cuda's lazy-init check, where this torch
+# has the calls (a few microseconds a launch)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def _launch(name: str, device, *args) -> None:
@@ -146,7 +148,7 @@ def _launch(name: str, device, *args) -> None:
     switched to only where it is not the current one."""
     fn = _fns.get(name) or _kernel(name)
     idx = device.index
-    if idx is None or idx == torch.cuda.current_device():
+    if idx is None or idx == (_get_device or torch.cuda.current_device)():
         if _raw_stream is not None and idx is not None:
             err = fn(*args, _raw_stream(idx))
         else:
@@ -1537,36 +1539,56 @@ def _mc_taps_on(device: torch.device):
     return torch.from_numpy(_mc_taps()).to(device)
 
 
-def _check_mc_args(wins, pos_y, pos_x, mv_r, mv_c, n: int, ref_sel,
-                   win_idx, org_off_y, org_off_x):
+@functools.lru_cache(maxsize=64)
+def _mc_grid_check(shapes, grid, n: int) -> None:
+    """Raise unless every window of ``mc_predict``'s grid (rows, cols, then
+    each plane's (step, SW, y0, x0)) lies inside its plane of ``shapes``
+    (Y, U, V) and holds a region of the plane's block size (checked once a
+    shape)."""
+    rows, cols, *specs = grid
+    if rows < 1 or cols < 1 or len(specs) != 3:
+        raise ValueError(f"mc_predict: a grid of {rows}x{cols} windows and "
+                         f"{len(specs)} planes' windows")
+    for p, ((h, w), (step, sw, y0, x0)) in enumerate(zip(shapes, specs)):
+        if step < 1 or sw < (n >> min(p, 1)) + 7:
+            raise ValueError(f"mc_predict: windows of side {sw} hold no "
+                             f"region of block size {n >> min(p, 1)}")
+        if (y0 < 0 or x0 < 0 or y0 + (rows - 1) * step + sw > h
+                or x0 + (cols - 1) * step + sw > w):
+            raise ValueError(f"mc_predict: the windows of {rows}x{cols} "
+                             f"blocks of {step} at ({y0}, {x0}) leave the "
+                             f"{(h, w)} plane {p}")
+
+
+def _check_mc_args(planes, pos_y, pos_x, mv_r, mv_c, n: int, grid,
+                   ref_sel, win_idx, org_off_y, org_off_x):
     """Raise unless the arguments are what ``mc_predict`` takes; returns
-    the tensors it reads, LAST's windows first."""
+    the tensors it reads, LAST's planes first."""
     if n not in MC_BLOCK_SIZES:
         raise ValueError(f"mc_predict: n={n} not in {MC_BLOCK_SIZES}")
-    if not 1 <= len(wins) <= 3 or wins[0] is None:
-        raise ValueError("mc_predict: wins holds LAST's (y, u, v) windows "
+    if not 1 <= len(planes) <= 3 or planes[0] is None:
+        raise ValueError("mc_predict: planes holds LAST's (y, u, v) planes "
                          "and optionally GOLDEN's and ALTREF's")
     b = pos_y.shape[0]
-    n_win = wins[0][0].shape[0]
+    shapes = tuple(tuple(t.shape) for t in planes[0])
     given = []
-    for ref in wins:
+    for ref in planes:
         if ref is None:
             continue
         if len(ref) != 3:
-            raise ValueError("mc_predict: a reference's windows are a "
+            raise ValueError("mc_predict: a reference's planes are a "
                              "(y, u, v) triple")
-        for p, w in enumerate(ref):
-            side = wins[0][min(p, 1)].shape[-1]  # U's side is V's too
-            ln = (n if p == 0 else n // 2) + 7
-            _want_blocks(f"mc_predict: windows of plane {p}", w, n_win, side,
-                         side)
-            if side < ln:
-                raise ValueError(f"mc_predict: windows of side {side} hold "
-                                 f"no {ln}x{ln} region")
-            if w.dtype != torch.uint8:
-                raise TypeError(f"mc_predict: windows must be uint8, got "
-                                f"{w.dtype}")
-            given.append(w)
+        for p, t in enumerate(ref):
+            if t.dtype != torch.uint8 or t.dim() != 2:
+                raise TypeError(f"mc_predict: plane {p} must be a uint8 "
+                                f"plane, got {tuple(t.shape)} {t.dtype}")
+            if t.shape != shapes[p]:
+                raise ValueError(f"mc_predict: plane {p} of every reference "
+                                 f"must be {shapes[p]}, got "
+                                 f"{tuple(t.shape)}")
+            given.append(t)
+    _mc_grid_check(shapes, tuple(grid), n)
+    rows, cols = grid[:2]
     for name, t in (("pos_y", pos_y), ("pos_x", pos_x), ("mv_r", mv_r),
                     ("mv_c", mv_c), ("win_idx", win_idx),
                     ("org_off_y", org_off_y), ("org_off_x", org_off_x)):
@@ -1583,40 +1605,46 @@ def _check_mc_args(wins, pos_y, pos_x, mv_r, mv_c, n: int, ref_sel,
         given.append(ref_sel)
     if (org_off_y is None) != (org_off_x is None):
         raise ValueError("mc_predict: org_off_y and org_off_x come together")
-    if win_idx is None and n_win != b:
-        raise ValueError(f"mc_predict: {n_win} windows for {b} blocks "
+    if win_idx is None and rows * cols != b:
+        raise ValueError(f"mc_predict: {rows * cols} windows for {b} blocks "
                          "without a window index")
     if not all(t.is_contiguous() for t in given):
         raise ValueError("mc_predict: inputs must be contiguous")
     return given
 
 
-def mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
-               mi_cols: int, ref_sel=None, win_idx=None, org_off_y=None,
-               org_off_x=None):
-    """Motion compensation of B blocks' Y, U and V from per-block
-    reference windows, on the card, in one launch.
+def mc_predict(planes, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
+               mi_cols: int, grid, ref_sel=None, win_idx=None,
+               org_off_y=None, org_off_x=None):
+    """Motion compensation of B blocks' Y, U and V read in place out of
+    the border-extended reference planes, on the card, in one launch.
 
-    wins: LAST's (y, u, v) windows, then optionally GOLDEN's and ALTREF's
-    (None where absent): (W, SW, SW) uint8 per plane, whose origin is the
-    block minus (r + 4) (minus ``org_off``), r = WIN_R for Y and
-    CHROMA_WIN_R for U and V (``_extract_search_windows``' layout), SW at
-    least n + 7 (n / 2 + 7 for chroma). pos_y, pos_x: (B,) int32 luma
-    positions; mv_r, mv_c: (B,) int32 q3 MVs; ref_sel: (B,) int8
-    reference per block (0 LAST, 1 GOLDEN, 2 ALTREF; one without windows
-    reads LAST) or None (LAST); win_idx: (B,) int32 window per block (a
-    child reading its parent's) or None (window b; then W = B); org_off_y,
-    org_off_x: (B,) int32 luma offsets inside the window or None; all
-    contiguous CUDA tensors of one device; n in {16, 32}, the chroma
-    planes at n / 2. Returns (pred_y (B, n, n), pred_u, pred_v (B, n/2,
-    n/2)) uint8, bit for bit what ``pipeline/tpu_encdec.py:
-    mc_predict_ref`` returns with the EIGHTTAP table. It runs the kernel
-    of ``csrc/mc_predict.cu`` or raises: CPU tensors go to that plain
-    version through the step's ``mc_predict``, not through here.
+    planes: LAST's (y, u, v) planes, then optionally GOLDEN's and
+    ALTREF's (None where absent): uint8, every reference's plane p of
+    LAST's shape, border-extended. grid: (rows, cols, then Y's, U's and
+    V's (step, SW, y0, x0)), the zone's grid of windows as ``pipeline/
+    tpu_encdec.py:mc_window_grid`` gives it: window (row, col) of plane p
+    is the SW x SW square at (y0 + step row, x0 + step col), which
+    ``_extract_search_windows`` cuts at reach r = WIN_R for Y and
+    CHROMA_WIN_R for U and V; a window that leaves its plane is refused
+    (checked once a shape). pos_y, pos_x: (B,)
+    int32 luma positions; mv_r, mv_c: (B,) int32 q3 MVs; ref_sel: (B,)
+    int8 reference per block (0 LAST, 1 GOLDEN, 2 ALTREF; one without
+    planes reads LAST) or None (LAST); win_idx: (B,) int32 window per
+    block (a child reading its parent's) or None (window b; then the grid
+    has B windows; an index past the grid traps); org_off_y, org_off_x:
+    (B,) int32 luma offsets inside the window or None; all contiguous
+    CUDA tensors of one device, planes of any start and pitch; n in {16,
+    32}, the chroma planes at n / 2. Returns (pred_y (B, n, n), pred_u,
+    pred_v (B, n/2, n/2)) uint8, bit for bit what ``pipeline/
+    tpu_encdec.py:mc_predict_planes_ref`` returns with the EIGHTTAP
+    table. It runs the kernel of ``csrc/mc_predict.cu`` or raises: CPU
+    tensors go to that plain version through the step's ``mc_predict``,
+    not through here.
     """
-    given = _check_mc_args(wins, pos_y, pos_x, mv_r, mv_c, n, ref_sel,
-                           win_idx, org_off_y, org_off_x)
-    dev = wins[0][0].device
+    given = _check_mc_args(planes, pos_y, pos_x, mv_r, mv_c, n, grid,
+                           ref_sel, win_idx, org_off_y, org_off_x)
+    dev = planes[0][0].device
     taps = _mc_taps_on(dev)
     if _device_kind("mc_predict", *given) != "cuda":
         raise ValueError("mc_predict: the kernel takes CUDA tensors; CPU "
@@ -1627,9 +1655,10 @@ def mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
     pred_u = torch.empty((b, nc, nc), dtype=torch.uint8, device=dev)
     pred_v = torch.empty((b, nc, nc), dtype=torch.uint8, device=dev)
     if b > 0:
-        refs = list(wins) + [None] * (3 - len(wins))
+        refs = list(planes) + [None] * (3 - len(planes))
         ptrs = [None if ref is None else ref[p].data_ptr()
                 for p in range(3) for ref in refs]
+        rows, cols, *specs = grid
         _launch("mc_predict", dev, *ptrs,
                 *[None if t is None else t.data_ptr()
                   for t in (ref_sel, win_idx)],
@@ -1638,8 +1667,9 @@ def mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
                 *[None if t is None else t.data_ptr()
                   for t in (org_off_y, org_off_x)],
                 taps.data_ptr(), pred_y.data_ptr(), pred_u.data_ptr(),
-                pred_v.data_ptr(), b, n, wins[0][0].shape[-1],
-                wins[0][1].shape[-1], WIN_R, CHROMA_WIN_R, int(mi_rows),
+                pred_v.data_ptr(), b, n, rows, cols,
+                *(v for spec in specs for v in spec), WIN_R, CHROMA_WIN_R,
+                *(planes[0][p].shape[1] for p in range(3)), int(mi_rows),
                 int(mi_cols))
         mc_predict.launches += 1
     return pred_y, pred_u, pred_v
@@ -1649,7 +1679,7 @@ mc_predict.launches = 0
 
 
 def mc_predict_occupancy(n: int, device=None):
-    """mc_predict's (resident CTAs of 64 threads per SM, dynamic shared
+    """mc_predict's (resident CTAs of 128 threads per SM, dynamic shared
     memory in bytes) at luma block size n (``_occupancy``)."""
     return _occupancy("mc_predict", MC_BLOCK_SIZES, n, device)
 
@@ -2072,6 +2102,8 @@ def mode_decide_occupancy(device=None):
 
 # the window sets or planes one launch takes
 WINDOW_JOBS = 8
+# extract_windows' job words for k sets: eight int64 a set
+_JOB_WORDS = [ctypes.c_int64 * (8 * k) for k in range(WINDOW_JOBS + 1)]
 
 
 def _host_ints(values):
@@ -2101,43 +2133,40 @@ def extract_windows(specs, rows: int, cols: int):
     ``WINDOW_JOBS`` planes, on the card, in one launch.
 
     specs: (plane, n, sw, y0, x0) each: a contiguous uint8 border-extended
-    plane, the block size, the window side and where the zone's first
-    window starts in the plane (``pipeline/tpu_encdec.py:window_bounds``);
-    every window must lie inside its plane. Returns a list of (B, sw, sw)
-    uint8 tensors, B = rows x cols, window (row, col) at (y0 + n row, x0 +
-    n col), bit for bit what ``_extract_search_windows`` returns. It runs
-    the kernel of ``csrc/windows.cu`` or raises."""
+    plane (any start, any width), the block size, the window side and
+    where the zone's first window starts in the plane (``pipeline/
+    tpu_encdec.py:window_specs``). Returns a list of (B, sw, sw) uint8
+    tensors, B = rows x cols, window (row, col) at (y0 + n row, x0 + n
+    col), bit for bit what ``_extract_search_windows`` returns. It runs
+    the kernel of ``csrc/windows.cu`` or raises; the launcher refuses a
+    set whose windows leave their plane. The host path is one output
+    allocation a set and one ctypes array of eight int64 a set (the
+    kernel's jobs)."""
     name = "extract_windows"
     if not 1 <= len(specs) <= WINDOW_JOBS:
         raise ValueError(f"{name}: 1 to {WINDOW_JOBS} window sets, got "
                          f"{len(specs)}")
-    if rows < 0 or cols < 1:
-        raise ValueError(f"{name}: a zone of {rows}x{cols} blocks")
-    planes = [sp[0] for sp in specs]
-    for plane, n, sw, y0, x0 in specs:
-        _want_plane(name, "a plane", plane, 1, 1)
-        if n < 1 or sw < 1:
-            raise ValueError(f"{name}: n={n}, sw={sw}")
-        if rows and (y0 < 0 or x0 < 0
-                     or y0 + (rows - 1) * n + sw > plane.shape[0]
-                     or x0 + (cols - 1) * n + sw > plane.shape[1]):
-            raise ValueError(f"{name}: the windows of {rows}x{cols} blocks "
-                             f"of {n} at ({y0}, {x0}) leave the "
-                             f"{tuple(plane.shape)} plane")
-    dev = _cuda_only(name, *planes)
     b = rows * cols
-    outs = _aligned_outputs([b * sp[2] * sp[2] for sp in specs], dev)
+    words = []  # per set: plane, output, pitch, height, n, sw, y0, x0
+    dev = specs[0][0].device
+    for plane, n, sw, y0, x0 in specs:
+        if plane.dtype != torch.uint8 or plane.dim() != 2:
+            raise TypeError(f"{name}: a plane must be a uint8 plane, got "
+                            f"{tuple(plane.shape)} {plane.dtype}")
+        if not plane.is_contiguous():
+            raise ValueError(f"{name}: a plane must be contiguous")
+        if plane.device != dev or dev.type != "cuda":
+            dev = _cuda_only(name, *(sp[0] for sp in specs))
+        h, w = plane.shape
+        words += (plane.data_ptr(), 0, w, h, n, sw, y0, x0)
+    outs = [torch.empty((b, sp[2], sp[2]), dtype=torch.uint8, device=dev)
+            for sp in specs]
+    words[1::8] = [out.data_ptr() for out in outs]
     if b > 0:
-        srcs = _host_ptrs([p.data_ptr() for p in planes])
-        dsts = _host_ptrs([o.data_ptr() for o in outs])
-        # per set: the plane's row length, n, sw, y0, x0
-        ints = [_host_ints([p.shape[1] for p in planes]),
-                *(_host_ints([int(sp[k]) for sp in specs])
-                  for k in (1, 2, 3, 4))]
-        _launch(name, dev, ctypes.addressof(srcs), ctypes.addressof(dsts),
-                *(ctypes.addressof(a) for a in ints), len(specs), rows, cols)
+        jobs = _JOB_WORDS[len(specs)](*words)
+        _launch(name, dev, ctypes.addressof(jobs), len(specs), rows, cols)
         extract_windows.launches += 1
-    return [o.view(b, sp[2], sp[2]) for o, sp in zip(outs, specs)]
+    return outs
 
 
 extract_windows.launches = 0

@@ -17,7 +17,7 @@ windows, the same decision, MC and transform), whose recon rows join the
 M9 runs that with the LAST reference and rate proxies. M8 adds, each
 behind its own argument of ``make_pframe_step``: candidate costs from the
 frame's entropy tables (``make_rate_tabs``, ``rates=``), the GOLDEN anchor
-(two more candidates per block and a per-block choice of MC windows,
+(two more candidates per block and a per-block choice of MC reference,
 ``gold=``), and the 32-against-4x16 descent (``split16``): the
 ``1/descend_frac`` of the parents with the largest distortion get their
 four 16x16 children searched +-8 inside the parent's LAST window,
@@ -46,22 +46,23 @@ native serializer.
 
 Every stage computes what the JAX package's stage computes, as plain
 functions on tensors of the caller's device, with CUDA kernels in
-``ops/cuda_kernels.py``: the windows (``extract_windows``: every window
-set of a call site in one launch), the full-pel search
+``ops/cuda_kernels.py``: the search windows (``extract_windows``: every
+window set of a call site in one launch), the full-pel search
 (``hier_search_fused`` for both levels of the 32 zone in one launch,
 ``sse_map_search`` for the children), the quarter-pel search
 (``subpel_search``), the mode decision (``mode_decide``: LAST, GOLDEN,
 ALTREF and the reference choice of a zone in one launch), motion
 compensation (``mc_predict``: Y, U and V of a zone or of the children in
-one launch, every block's window read in place by its reference and window
-index), the distortion (``block_energy`` on blocks, ``block_energy_at`` on
-candidates read in place out of a reference plane), the transform stage
+one launch, every block's window read in place out of its reference's
+planes by its window index), the distortion (``block_energy`` on blocks,
+``block_energy_at`` on candidates read in place out of a reference
+plane), the transform stage
 (``transform_recon``: forward DCT, quantizer, inverse, recon and eob), the
 loop filter (``loop_filter``, all three planes in one launch) and the
 border extension (``extend_borders``, the three planes in one launch).
 The plain versions of these kernels but the search's and the distortion's
 live here (``_extract_search_windows``, ``subpel_search_ref``,
-``mode_decide_ref``, ``mc_predict_ref``, ``transform_recon_ref``,
+``mode_decide_ref``, ``mc_predict_planes_ref``, ``transform_recon_ref``,
 ``loop_filter_ref``, ``extend_borders_device``), each reached through its
 dispatch (``extract_windows``, ``subpel_search``, ``mode_decide``,
 ``mc_predict``, ``transform_recon``, ``loop_filter_device``,
@@ -340,12 +341,17 @@ def extract_windows(jobs, rows: int, cols: int):
 def window_specs(jobs, rows: int, cols: int):
     """``extract_windows``' jobs as its kernel takes them: (plane, n, SW,
     y0, x0), the first window's origin from ``window_bounds``, which
-    raises for a region that leaves its plane."""
-    specs = []
-    for plane, n, y_base, r in jobs:
-        y0, x0, _, _ = window_bounds(plane.shape, n, rows, cols, y_base, r)
-        specs.append((plane, n, n + 2 * r + 8, y0, x0))
-    return specs
+    raises for a region that leaves its plane (checked once a shape)."""
+    return [(plane, *_window_spec(tuple(plane.shape), n, rows, cols, y_base,
+                                  r))
+            for plane, n, y_base, r in jobs]
+
+
+@functools.lru_cache(maxsize=256)
+def _window_spec(shape, n: int, rows: int, cols: int, y_base: int, r: int):
+    """(n, SW, y0, x0) of a window set (``window_specs``)."""
+    y0, x0, _, _ = window_bounds(shape, n, rows, cols, y_base, r)
+    return n, n + 2 * r + 8, y0, x0
 
 
 @functools.lru_cache(maxsize=None)
@@ -614,10 +620,11 @@ def mc_predict_from_wins(wins, pos_y, pos_x, mv_r_q3, mv_c_q3, n_out: int,
 def mc_predict_ref(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
                    mi_cols: int, filters, ref_sel=None, win_idx=None,
                    org_off_y=None, org_off_x=None):
-    """MC of B blocks' Y, U and V from per-block reference windows (plain
-    version of the kernel behind ``ops/cuda_kernels.py:mc_predict``, same
-    arguments): each plane's windows are picked per block, by the window
-    index ``win_idx`` (window b without one) and by ``ref_sel`` among
+    """MC of B blocks' Y, U and V from per-block reference windows (the
+    building block of ``mc_predict_planes_ref``, the plain version of the
+    kernel behind ``ops/cuda_kernels.py:mc_predict``, which cuts the
+    windows it takes): each plane's windows are picked per block, by the
+    window index ``win_idx`` (window b without one) and by ``ref_sel`` among
     ``wins``' references (LAST, GOLDEN, ALTREF; LAST where the block's has
     none), and ``mc_predict_from_wins`` predicts from them, Y at n and
     WIN_R, U and V at n / 2 and CHROMA_WIN_R, positions and offsets
@@ -640,24 +647,65 @@ def mc_predict_ref(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
     return tuple(preds)
 
 
-def mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
-               mi_cols: int, filters, ref_sel=None, win_idx=None,
+def mc_predict_planes_ref(planes, pos_y, pos_x, mv_r, mv_c, n: int,
+                          mi_rows: int, mi_cols: int, filters, grid,
+                          ref_sel=None, win_idx=None, org_off_y=None,
+                          org_off_x=None):
+    """MC of B blocks' Y, U and V out of the border-extended reference
+    planes (plain version of the kernel behind ``ops/cuda_kernels.py:
+    mc_predict``, which reads the windows in place): each reference's
+    windows of the zone's grid (step, y_base, rows, cols) cut by
+    ``_extract_search_windows`` (Y at step, y_base and WIN_R, U and V at
+    half of both and CHROMA_WIN_R), then ``mc_predict_ref`` on them.
+    planes: LAST's (y, u, v), then optionally GOLDEN's and ALTREF's (None
+    where absent). Returns (pred_y, pred_u, pred_v)."""
+    step, y_base, rows, cols = grid
+    wins = [None if ref is None else tuple(
+        _extract_search_windows(pl, step >> ss, rows, cols, y_base >> ss, r)
+        for pl, ss, r in zip(ref, (0, 1, 1),
+                             (WIN_R, CHROMA_WIN_R, CHROMA_WIN_R)))
+            for ref in planes]
+    return mc_predict_ref(wins, pos_y, pos_x, mv_r, mv_c, n, mi_rows,
+                          mi_cols, filters, ref_sel, win_idx, org_off_y,
+                          org_off_x)
+
+
+def mc_predict(planes, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
+               mi_cols: int, filters, grid, ref_sel=None, win_idx=None,
                org_off_y=None, org_off_x=None):
-    """The step's MC (contract: ``mc_predict_ref``; ``filters`` the
+    """The step's MC (contract: ``mc_predict_planes_ref``; ``filters`` the
     EIGHTTAP table, which the kernel holds its own checked copy of).
     Tensors that all lie on the CPU take the plain version; anything else
-    goes to the CUDA kernel's wrapper, which launches or raises."""
-    tensors = [t for t in (*(w for ref in wins if ref is not None
-                             for w in ref), pos_y, pos_x, mv_r, mv_c,
+    goes to the CUDA kernel's wrapper with the grid's windows as
+    ``mc_window_grid`` places them, which reads the planes in place and
+    launches or raises."""
+    tensors = [t for t in (*(pl for ref in planes if ref is not None
+                             for pl in ref), pos_y, pos_x, mv_r, mv_c,
                            ref_sel, win_idx, org_off_y, org_off_x)
                if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
-        return mc_predict_ref(wins, pos_y, pos_x, mv_r, mv_c, n, mi_rows,
-                              mi_cols, filters, ref_sel, win_idx, org_off_y,
-                              org_off_x)
-    return cuda_kernels.mc_predict(wins, pos_y, pos_x, mv_r, mv_c, n,
-                                   mi_rows, mi_cols, ref_sel, win_idx,
-                                   org_off_y, org_off_x)
+        return mc_predict_planes_ref(planes, pos_y, pos_x, mv_r, mv_c, n,
+                                     mi_rows, mi_cols, filters, grid,
+                                     ref_sel, win_idx, org_off_y, org_off_x)
+    shapes = tuple(tuple(t.shape) for t in planes[0])
+    return cuda_kernels.mc_predict(planes, pos_y, pos_x, mv_r, mv_c, n,
+                                   mi_rows, mi_cols,
+                                   mc_window_grid(shapes, tuple(grid)),
+                                   ref_sel, win_idx, org_off_y, org_off_x)
+
+
+@functools.lru_cache(maxsize=64)
+def mc_window_grid(shapes, grid):
+    """``mc_predict``'s window grid as its kernel takes it: (rows, cols,
+    then Y's, U's and V's (step, SW, y0, x0)) for the zone's grid (step,
+    y_base, rows, cols) in planes of ``shapes``, each plane's windows
+    those ``_extract_search_windows`` cuts (``_window_spec``, which refuses
+    windows that leave the plane; checked once a shape)."""
+    step, y_base, rows, cols = grid
+    return (rows, cols, *(
+        _window_spec(shp, step >> ss, rows, cols, y_base >> ss, r)
+        for shp, ss, r in zip(shapes, (0, 1, 1),
+                              (WIN_R, CHROMA_WIN_R, CHROMA_WIN_R))))
 
 
 # ---------------------------------------------------------------------------
@@ -1529,12 +1577,13 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
     (strict '<' against LAST). alt: optional (y, u, v) ALTREF planes (the
     random-access pyramid's future anchor; needs ``rates``): searched as
     LAST is, and taken on a strict '<' against the best after GOLDEN.
-    Each block is compensated from its reference's windows. rates:
+    Each block is compensated from its reference's windows, read in place
+    in its planes. rates:
     ``upload_rate_tabs`` (entropy-table candidate costs) or None
     (proxies). return_me (n=32): also return what the children refine in,
     all of LAST, whatever reference a parent took ("wins", "dy", "dx" of
-    the search, the chroma MC windows "wu", "wv"): every child is a LAST
-    block. aq (with ``rates``): the zone's candidate and reference costs
+    the search, LAST's "planes" and the windows' "grid" (step, y_base,
+    rows, cols) that MC reads them at): every child is a LAST block. aq (with ``rates``): the zone's candidate and reference costs
     take a per-block rate lambda (``_aq_rates``; tune SQ).
     Returns a dict with mv (B, 2 int16), ref (B int8: 0 LAST, 1 GOLDEN,
     2 ALTREF), skip, eob_y/u/v, lv_y/u/v (int16 blocks), rec_y/u/v
@@ -1590,7 +1639,8 @@ def zone_search(src_y, ref_y, positions, y0: int, n: int, rates=None,
         with _stage("step_aq"):
             rates = _aq_rates(rates, src_blocks, n)
     return {"pos_y": pos_y, "pos_x": pos_x, "rows": rows, "cols": cols,
-            "y0": y0, "n": n, "src_blocks": src_blocks, "wins": wins,
+            "y0": y0, "n": n, "src_blocks": src_blocks, "ref_y": ref_y,
+            "wins": wins,
             "sse_zero": sse_zero, "ssem": ssem, "src2m": src2m,
             "sse_new": sse_new, "new_r": new_r, "new_c": new_c, "dy": dy,
             "dx": dx, "r_map": r_map, "q3s": q3s, "scale": scale,
@@ -1604,7 +1654,8 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
     """The second half of ``encode_zone``, on ``zone_search``'s state
     ``me``: the candidate decision (``left_edge``: the NEW MVs of the
     column left of the blocks, as ``_candidate_decide`` takes them),
-    GOLDEN and ALTREF, MC from the windows, the transforms and the recon.
+    GOLDEN and ALTREF, MC read in place out of the reference planes, the
+    transforms and the recon.
     The planes start at the blocks' first column as ``zone_search``'s do;
     ``x_base`` is the global column of that column (``_fullpel_starts``).
     Returns ``encode_zone``'s dict."""
@@ -1627,32 +1678,19 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
             me["new_r"], me["new_c"], prev_mv, rows, cols, me["r_map"],
             me["q3s"], me["scale"], lam, new_bits, rates, left_edge,
             gold_sse, None if alt_me is None else alt_me[:4])
-    # window MC: every winner derives from a +-WIN_R search (or is ZERO
-    # or PREV, equally bounded); each block reads its reference's windows,
-    # every set but the search's own luma ones cut in one launch
+    # MC read in place out of the reference planes, at the windows' grid:
+    # every winner derives from a +-WIN_R search (or is ZERO or PREV,
+    # equally bounded), and a read past a window clamps into it
+    grid = (n, y0, rows, cols)
     with _stage("step_mc"):
-        y0c = y0 // 2
-        jobs = [(pl, nc, y0c, CHROMA_WIN_R) for pl in (ref_u, ref_v)]
-        if gold is not None:
-            jobs += [(gold[0], n, y0, WIN_R),
-                     *((pl, nc, y0c, CHROMA_WIN_R) for pl in gold[1:])]
-        if alt is not None:
-            jobs += [(pl, nc, y0c, CHROMA_WIN_R) for pl in alt[1:]]
-        cut = extract_windows(jobs, rows, cols)
-        wu, wv = cut[:2]
-        mc_wins = [(wins, wu, wv), None, None]
-        if gold is not None:
-            mc_wins[1] = tuple(cut[2:5])
-        if alt is not None:
-            mc_wins[2] = (alt_me[4], *cut[-2:])
         pred_y, pred_u, pred_v = mc_predict(
-            mc_wins, pos_y, pos_x, mv_r, mv_c, n, g.mi_rows, g.mi_cols,
-            filters, ref_sel=ref_sel)
+            [(me["ref_y"], ref_u, ref_v), gold, alt], pos_y, pos_x, mv_r,
+            mv_c, n, g.mi_rows, g.mi_cols, filters, grid, ref_sel=ref_sel)
     with _stage("step_txfm"):
         lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, dc_q, ac_q,
                                              n)
-        src_ub = _extract_blocks(src_u, y0c, rows, cols, nc)
-        src_vb = _extract_blocks(src_v, y0c, rows, cols, nc)
+        src_ub = _extract_blocks(src_u, y0 // 2, rows, cols, nc)
+        src_vb = _extract_blocks(src_v, y0 // 2, rows, cols, nc)
         lv_u, eob_u, rec_u = transform_recon(src_ub, pred_u, dc_q, ac_q, nc)
         lv_v, eob_v, rec_v = transform_recon(src_vb, pred_v, dc_q, ac_q, nc)
         skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
@@ -1674,12 +1712,13 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
     if return_me:
         if n != 32:
             raise ValueError("encode_zone: only the 32 grid has children")
-        # LAST's search and chroma windows, where a parent took GOLDEN or
+        # LAST's search windows and planes, where a parent took GOLDEN or
         # ALTREF too. The JAX package hands the children the merged chroma
         # windows, so a descended GOLDEN or ALTREF parent's children,
         # serialized as LAST blocks, were predicted from another
         # reference's chroma than a decoder reads
-        out.update(wins=wins, dy=me["dy"], dx=me["dx"], wu=wu, wv=wv)
+        out.update(wins=wins, dy=me["dy"], dx=me["dx"],
+                   planes=(me["ref_y"], ref_u, ref_v), grid=grid)
     return out
 
 
@@ -1863,10 +1902,11 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
     selected parents only (``tpu_vp9/pipeline/tpu_encdec.py:
     encode_children_masked``).
 
-    parent_me: {"wins", "dy", "dx", "wu", "wv"} from the 32 zone: the
-    children search +-CHILD_R inside their parent's window
-    (``descent_gather``) and are compensated straight out of the parent's
-    luma and chroma windows through per-child origin offsets. parent_mv:
+    parent_me: {"wins", "dy", "dx", "planes", "grid"} from the 32 zone: the
+    children search +-CHILD_R inside their parent's LAST window
+    (``descent_gather``) and are compensated out of the parent's luma and
+    chroma windows, read in place in LAST's planes at the zone's window
+    grid, through per-child origin offsets. parent_mv:
     (B32, 2) int32 final q3 MVs of the parents (the PARENT candidate,
     scored at its entry of the child's SSE map). sel_idx: (K,) raster
     parent indices. Candidates {ZERO, NEW, PARENT}, first minimum
@@ -1894,12 +1934,13 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
             ga["base_y"], ga["base_x"], ga["par_r"], ga["par_c"], lam,
             new_bits, rates)
 
-        # MC straight out of the parent windows (every child candidate is
-        # reachable there; org_off = the child's offset inside the parent)
+        # MC out of the parent windows, read in place (every child
+        # candidate is reachable there; org_off = the child's offset
+        # inside the parent)
         pred_y, pred_u, pred_v = mc_predict(
-            [(parent_me["wins"], parent_me["wu"], parent_me["wv"])],
-            ga["pos_y"], ga["pos_x"], mv_r, mv_c, 16, g.mi_rows, g.mi_cols,
-            filters, win_idx=ga["win_idx"], org_off_y=ga["off_y"],
+            [parent_me["planes"]], ga["pos_y"], ga["pos_x"], mv_r, mv_c, 16,
+            g.mi_rows, g.mi_cols, filters, parent_me["grid"],
+            win_idx=ga["win_idx"], org_off_y=ga["off_y"],
             org_off_x=ga["off_x"])
         lv_u, eob_u, rec_u = transform_recon(ga["csrc_u"], pred_u, dc_q,
                                              ac_q, 8)
@@ -2019,7 +2060,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     split32 = None
     if split16:
         parent_me = {kk: out32.pop(kk)
-                     for kk in ("wins", "dy", "dx", "wu", "wv")}
+                     for kk in ("wins", "dy", "dx", "planes", "grid")}
         with _stage("step_children"):
             score = out32["dist_b"]
             if gold is not None:
