@@ -11,10 +11,13 @@ Phases, each of which raises on failure (nothing is caught):
      (on blocks and positioned, block_energy_at), sse_map_search (one level,
      and both levels fused, hier_search_fused), subpel_search, mc_predict,
      transform_recon, kframe_wave, loop_filter, the descent's four
-     kernels (descent_gather, descent_decide, descent_pack, descent_split:
-     the M8 P-frame's real calls at K = 510 parents, the RA shape of every
-     parent's children, K = 2,040, the frame's edges, all-tie costs, the
-     overhang row), the mode decision (mode_decide: the M8 P-frame's real
+     kernels (descent_gather with the children's ZERO SSE, descent_decide,
+     descent_pack, descent_split, in place: the M8 P-frame's real calls at
+     K = 510 parents, the RA shape of every parent's children, K = 2,040,
+     the frame's edges, unions clamped at both ends and starting at every
+     byte of a word, all-tie costs, a lam that flips the split, the
+     overhang row, every block the split keeps byte-identical), the mode
+     decision (mode_decide: the M8 P-frame's real
      32 zone with GOLDEN and the rate tables, M9's proxies, tune SQ's
      per-block lam_bits, a shard's LEFT edge, ALTREF, SSEs above 2^24,
      all-tie inputs that must go to LAST's ZERO, the real 720p 32 zone and
@@ -73,7 +76,7 @@ Phases, each of which raises on failure (nothing is caught):
      once (a CTA per block row) and loop_filter once; per P-frame the search
      entry points must launch twice (hier_search_fused, then sse_map_search
      for the children), subpel_search twice, mc_predict twice (the zone, the
-     children), transform_recon 6 times, the block_energy ones 5 times,
+     children), transform_recon 6 times, the block_energy ones 4 times,
      descent_gather, descent_decide, descent_pack and descent_split once
      each, mode_decide once, extract_windows once (the search's windows;
      MC reads the planes in place), loop_filter once and extend_borders
@@ -143,7 +146,7 @@ Phases, each of which raises on failure (nothing is caught):
      ra_rate_args, ra_device_step, ra_d2h_transfer, ra_serialize; at
      1080p the kernels at the path's new shapes on a real step with
      GOLDEN and ALTREF (the 8,160 children's sse_map_search,
-     subpel_search, transform_recon, block_energy_at and block_energy;
+     subpel_search, transform_recon and block_energy;
      ALTREF's hier_search_fused, ZERO SSE and subpel_search; mode_decide
      with all three references, ALTREF's search windows, the borders)
      against
@@ -277,22 +280,22 @@ LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
 SAD_B, SAD_N, SAD_R = 33 * 60, 32, 16
 M9_B = 34 * 60
 # launches per P-frame of the step, by wrapper. M8: the fused two-level
-# search of the 32 zone and the children's search; the recon distortion of
-# the 32 zone and of the children (block_energy); the 32 zone's ZERO SSE,
-# GOLDEN's ZERO and previous-MV SSE in one launch, and the children's ZERO
-# SSE (block_energy_at): 2 search and 5 energy launches; the quarter-pel
-# search of the zone and of the children; the transform of the zone's Y32,
-# U16 and V16 and of the children's Y16, U8 and V8; the loop filter of all
-# three planes, split mask included, is one launch; MC of the zone's Y, U
-# and V (LAST's and GOLDEN's windows by ref_sel) is one launch, and of the
-# children's (their parents' windows by index) one; the descent's gathers,
-# candidate decision, pack and split merge are one launch each; each zone's
-# mode decision (LAST, GOLDEN, ALTREF and the reference choice) is one
+# search of the 32 zone and the children's search; the recon distortion of the
+# 32 zone and of the children (block_energy); the 32 zone's ZERO SSE and
+# GOLDEN's ZERO and previous-MV SSE in one launch (block_energy_at; the
+# children's ZERO SSE is descent_gather's): 2 search and 4 energy launches;
+# the quarter-pel search of the zone and of the children; the transform of the
+# zone's Y32, U16 and V16 and of the children's Y16, U8 and V8; the loop
+# filter of all three planes, split mask included, is one launch; MC of the
+# zone's Y, U and V (LAST's and GOLDEN's windows by ref_sel) is one launch,
+# and of the children's (their parents' windows by index) one; the descent's
+# gathers, candidate decision, pack and split merge are one launch each; each
+# zone's mode decision (LAST, GOLDEN, ALTREF and the reference choice) is one
 # launch, and its windows one (the search's luma windows; MC reads the
-# reference planes in place); the new references' border extension of
-# three planes is one. M9: the fused search, ZERO SSE, quarter-pel, the
-# decision, the window launch, the zone's MC, its three transforms, recon
-# distortion, the loop filter (no mask) and the borders.
+# reference planes in place); the new references' border extension of three
+# planes is one. M9: the fused search, ZERO SSE, quarter-pel, the decision,
+# the window launch, the zone's MC, its three transforms, recon distortion,
+# the loop filter (no mask) and the borders.
 DESCENT_WRAPPERS = ("descent_gather", "descent_decide", "descent_pack",
                     "descent_split")
 NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
@@ -302,7 +305,7 @@ MD_WINDOW_WRAPPERS = ("mode_decide", "extract_windows", "extend_borders")
 ZONE_MD_WINDOWS = {"mode_decide": 1, "extract_windows": 1}
 BORDERS = {"extend_borders": 1}
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
-               "block_energy": 2, "block_energy_at": 3, "txq_cost": 2,
+               "block_energy": 2, "block_energy_at": 2, "txq_cost": 2,
                "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
                "mc_predict": 2, **dict.fromkeys(DESCENT_WRAPPERS, 1),
                **ZONE_MD_WINDOWS, **BORDERS}
@@ -751,9 +754,10 @@ def energy_kernel_phase(dev):
                 lambda: K.block_energy_ref(s, p, n), 20, bound,
                 "block_energy_kernel", per_frame))
     # positioned: the 32 zone's ZERO (C=1), GOLDEN's ZERO and previous MV
-    # (C=2), the children's ZERO (n=16, C=1); other sizes checked only
+    # (C=2); other sizes checked only (the children's ZERO, n=16 C=1, is
+    # descent_gather's)
     K.CHECK_STARTS = True  # the checks below also run the starts' check
-    for n, c, per_frame in ((32, 1, 1), (32, 2, 1), (16, 1, 1), (16, 3, 0),
+    for n, c, per_frame in ((32, 1, 1), (32, 2, 1), (16, 1, 0), (16, 3, 0),
                             (8, 2, 0), (64, 2, 0)):
         plane_np, src_np, y0_np, x0_np = _energy_at_inputs(n, max(c, 2),
                                                            seed=n + c)
@@ -2085,13 +2089,18 @@ DESCENT_REPLACES = {"descent_gather": "tpu_vp9/pipeline/tpu_encdec.py:1933",
                     "descent_decide": "tpu_vp9/pipeline/tpu_encdec.py:1973",
                     "descent_pack": "tpu_vp9/pipeline/tpu_encdec.py:2052",
                     "descent_split": "tpu_vp9/pipeline/tpu_encdec.py:2134"}
-DESCENT_THREADS = {"descent_gather": 64, "descent_decide": 128,
+DESCENT_THREADS = {"descent_gather": 128, "descent_decide": 128,
                    "descent_pack": 128, "descent_split": 128}
+# the dispatch arguments a call writes in place on the card: the split's
+# zone planes
+IN_PLACE_ARGS = {"descent_split": (5, 6, 7)}
 
 
 def _descent_fns(name, args):
     """(kernel call, plain call) of the descent's ``name`` on its
-    dispatch's positional arguments ``args``."""
+    dispatch's positional arguments ``args``. The split's kernel call
+    writes copies of the zone's planes, taken once here (the call is the
+    same each time), so that ``args`` keep the zone's recon."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
@@ -2099,9 +2108,13 @@ def _descent_fns(name, args):
         proxy = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
         return (lambda: K.descent_decide(*args, proxy),
                 lambda: P.descent_decide_ref(*args))
+    if name == "descent_split":
+        planes = [t.clone() for t in args[5:8]]
+        return (lambda: K.descent_split(*args[:5], *planes, *args[8:],
+                                        P.SPLIT_RATE_EXTRA),
+                lambda: P.descent_split_ref(*args))
     # the wrappers take the constants that the dispatches hand them
-    extra = {"descent_gather": (P.BORDER,),
-             "descent_split": (P.SPLIT_RATE_EXTRA,)}.get(name, ())
+    extra = {"descent_gather": (P.BORDER,)}.get(name, ())
     return (lambda: getattr(K, name)(*args, *extra),
             lambda: getattr(P, f"{name}_ref")(*args))
 
@@ -2110,27 +2123,44 @@ def _descent_tensors(out):
     return list(out.values()) if isinstance(out, dict) else list(out)
 
 
+def _split_kept(label, args, got):
+    """Raise unless every block of the zone that did not split (not
+    selected, or selected and kept whole) is byte-identical in the planes
+    the in-place split returned to the zone's recon before the call
+    (``args``' planes)."""
+    kept = ~got[0].bool()
+    for plane, before, n in zip(got[1:], args[5:8], (32, 16, 16)):
+        mask = kept.repeat_interleave(n, 0).repeat_interleave(n, 1)
+        if not torch.equal(plane[mask], before[mask]):
+            raise AssertionError(f"descent_split [{label}]: a block that "
+                                 "did not split changed")
+
+
 def _descent_bound(name, args):
     """The least time of one call of the descent's ``name`` (its
-    dispatch's ``args``) by bytes, each input
-    read once and each output written once, at HBM speed (its arithmetic
-    is a few integer and float32 operations a byte: far below the bytes'
-    time). The gather reads the 56x56 of each parent's union slice that
-    its four children's 40x40 windows cover (rows and columns 16i .. 16i +
-    39 of child (i, j)), its winner and MV and each child's source blocks,
-    and writes the children's windows, blocks and twelve int32 words; the
-    decide reads a child's map entry, nine words and a rate entry, and
-    writes its MVs (12 bytes); the pack reads a child's eobs, levels
-    (int16), recon and distortion, and writes skip, the merged recon and a
-    parent's two int64 sums; the split reads sel, the zone's costs of the
-    K selected parents and their children's and, for each block of the
-    zone, the recon it keeps (the zone's or the children's), and writes
-    the new planes and split32."""
+    dispatch's ``args``) by bytes, each input read once and each output
+    written once, at HBM speed, against its operations (the gather's
+    dp4a sums, five a byte of its source; the others' few a word are far
+    below their bytes). Per parent the gather reads the 56x56 region of
+    its union slice that its four children's 40x40 windows cover (rows and
+    columns 16i .. 16i + 39 of child (i, j)), 3,136 bytes, its sel entry,
+    winner and MV (20), and each child's source blocks (384) and
+    co-located LAST luma block (256), and writes each child's window and
+    blocks (1,984) and eleven int32 words (44): 13,828 bytes; the decide
+    reads a child's map entry, nine words and a rate entry, and writes its
+    MVs (12 bytes); the pack reads a child's eobs, levels (int16), recon
+    and distortion, and writes skip, the merged recon and a parent's two
+    int64 sums; the split reads each selected parent's sel entry and the
+    zone's and children's costs (32 bytes), zeroes split32 and writes each
+    selected parent's, and for each parent that splits in this run reads
+    its children's blocks and writes them into the planes (3,072 bytes)."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    ops = 0
     if name == "descent_gather":
         k = args[0].shape[0]
-        covered = (16 + 2 * 16 + 8) ** 2  # 56x56 of the 64x64 slice
-        nbytes = 4 * k + k * (covered + 16) + 4 * k * (256 + 128) \
-            + 4 * k * (1600 + 256 + 128 + 48)
+        nbytes = k * (3136 + 20 + 4 * (384 + 256) + 4 * (1984 + 44))
+        ops = 5 * 256 * 4 * k
     elif name == "descent_decide":
         nbytes = args[1].shape[0] * (4 + 9 * 4 + 4 + 12)
     elif name == "descent_pack":
@@ -2139,23 +2169,29 @@ def _descent_bound(name, args):
             + 16 * nch // 4
     else:
         k, b32 = args[0].shape[0], args[1].shape[0]
-        nbytes = 4 * k + 12 * k + 16 * k + b32 * 1536 + b32 * (1536 + 4)
-    return _bound(nbytes, 0, ALU_OPS_PER_S)
+        n_split = int(P.descent_split_ref(*args)[0].sum())
+        nbytes = 32 * k + 4 * b32 + 4 * k + 3072 * n_split
+    return _bound(nbytes, ops, ALU_OPS_PER_S)
 
 
 def _descent_made_up(dev, real, rng):
     """The made-up cases (label, dispatch name, args) on the real 1080p
     calls: the gather at every frame-edge parent out of raster order with
-    winners at -WIN_R and WIN_R (the union clamped at 0 and at SW - 64);
+    winners at -WIN_R and WIN_R (the union clamped at 0 and at SW - 64),
+    and on every parent with the union starting at every byte of a word
+    (rows and columns 0-56 in steps of 7 and 5);
     the decide without rate tables, and with all three costs tied (with
     and without the tables: ZERO must win) on 8,160 made-up children whose
     PARENT MVs lie anywhere in the parents' reach; the split with every
     parent of the overhang row selected and its children far better (none
-    may split), and at lam 0 and 10^6 (the rate terms gone, and ruling)."""
+    may split), at lam 0 and 10^6 (the rate terms gone, and ruling), and
+    at lam 0 with the children's distortion equal to their parent's in
+    every real parent (all ties: none may split) and one less (all but the
+    overhang row split)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     args = dict(real)
-    g = args["descent_gather"][8]
+    g = args["descent_gather"][9]
     cases = []
     # the gather at the frame's edges
     idx = torch.arange(g.n_blocks32, device=dev).reshape(g.rows32, g.cols32)
@@ -2167,6 +2203,12 @@ def _descent_made_up(dev, real, rng):
     ga[2] = torch.where(ar % 2 == 0, -P.WIN_R, P.WIN_R).to(torch.int32)
     ga[3] = torch.where(ar % 3 == 0, P.WIN_R, -P.WIN_R).to(torch.int32)
     cases.append(("every edge parent, winners at +-WIN_R",
+                  "descent_gather", tuple(ga)))
+    ga = list(args["descent_gather"])
+    ga[2] = ((ar * 5) % 57 - 36).to(torch.int32)
+    ga[3] = ((ar * 7) % 57 - 36).to(torch.int32)
+    ga[0] = ar[torch.from_numpy(rng.permutation(g.n_blocks32)).to(dev)]
+    cases.append(("every parent, the union at every byte of a word",
                   "descent_gather", tuple(ga)))
     # the decide without the rate tables, on the real children
     da = list(args["descent_decide"])
@@ -2232,6 +2274,11 @@ def _descent_made_up(dev, real, rng):
                   "descent_split", over))
     for lam in (0, 10 ** 6):
         cases.append((f"lam {lam}", "descent_split", (*sa[:11], lam, g)))
+    for gap, tag in ((0, "all ties"), (1, "children one better")):
+        tie = list(sa)
+        tie[3] = (dist_b[sa[0].long()] - gap).to(torch.int64)
+        cases.append((f"{tag} at lam 0", "descent_split",
+                      (*tie[:11], 0, g)))
     return cases
 
 
@@ -2244,9 +2291,11 @@ def descent_kernel_phase(dev, real, ecm):
     descent_parents' order, the overhang row last; encode_children_masked
     run again on the recorded inputs, its dispatches recorded); and on the
     made-up cases of ``_descent_made_up``, ties going to ZERO and the
-    overhang row kept whole. Each kernel's
-    registers, spills and resident CTAs per SM printed; call, device, plain
-    and bound times on the real and the RA calls."""
+    overhang row kept whole. The split writes copies of the zone's planes
+    in place; every block it did not split must stay byte-identical to
+    the zone's recon before the call. Each kernel's registers, spills and
+    resident CTAs per SM printed; call, device, plain and bound times on
+    the real and the RA calls."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
@@ -2269,6 +2318,8 @@ def descent_kernel_phase(dev, real, ecm):
                                      f"{tuple(a.shape)} against the plain "
                                      f"version's {b.dtype} {tuple(b.shape)}")
         errs[name] = max(errs[name], _check(name, label, g_t, w_t))
+        if name == "descent_split":
+            _split_kept(label, args, got)
         return got
 
     m8 = dict(real)
@@ -2301,17 +2352,31 @@ def descent_kernel_phase(dev, real, ecm):
     rng = np.random.default_rng(43)
     for label, name, args in _descent_made_up(dev, m8, rng):
         got = held(label, name, args)
-        if label.startswith("all ties") and (got[0].any() or got[1].any()):
+        if name == "descent_decide" and label.startswith("all ties") and \
+                (got[0].any() or got[1].any()):
             raise AssertionError(f"descent_decide [{label}]: a tie did not "
                                  "go to ZERO")
-        if label.startswith("the overhang row"):
-            if got[0][-1].any() or not got[0][:-1].any():
-                raise AssertionError(f"descent_split [{label}]: split32 "
-                                     "row sums "
-                                     f"{got[0].sum(dim=1).tolist()}")
-        if label.startswith("lam"):
-            print(f"kernel descent_split [{label}]: {int(got[0].sum())} "
-                  "parents split")
+        if name != "descent_split":
+            continue
+        sel = args[0].long()
+        over = sel >= g.n_blocks32 - g.cols32
+        taken = got[0].reshape(-1)[sel].bool()
+        if taken[over].any():
+            raise AssertionError(f"descent_split [{label}]: an overhang "
+                                 "parent split")
+        want_all = {"all ties": False, "children one better": True}
+        for tag, every in want_all.items():
+            if label.startswith(tag) and \
+                    not torch.equal(taken[~over], torch.full_like(
+                        taken[~over], every)):
+                raise AssertionError(f"descent_split [{label}]: "
+                                     f"{int(taken.sum())} of {sel.numel()} "
+                                     "parents split")
+        if label.startswith("the overhang row") and not taken.any():
+            raise AssertionError(f"descent_split [{label}]: no parent "
+                                 "split")
+        print(f"kernel descent_split [{label}]: {int(got[0].sum())} of "
+              f"{sel.numel()} parents split")
 
     def timed(name, label, args):
         kernel, plain = _descent_fns(name, args)
@@ -2328,6 +2393,13 @@ def descent_kernel_phase(dev, real, ecm):
         entry["ra_parts"] = [_part(timed(
             name, f"1080p RA shape K={g.n_blocks32}", ra[name]))]
         entries[name] = entry
+    # the split's zeroing of split32: a memset on the stream, no launch
+    memset = _device_ms(_descent_fns("descent_split", m8["descent_split"])[0],
+                        "Memset")
+    print("kernel descent_split: its split32 memset "
+          + ("not measured" if memset is None else f"{memset:.4f} ms")
+          + " of device time per call (profiler), not a kernel launch")
+    entries["descent_split"]["memset_ms"] = memset
     return entries
 
 
@@ -3794,9 +3866,10 @@ def _ra_launches(geom, golden: bool, altref: bool):
     search windows in one (LAST's); GOLDEN adds its two candidates'
     SSEs (one block_energy_at), ALTREF its own search windows, search,
     quarter-pel search and ZERO SSE; without a strip the descent adds the
-    children's search, quarter-pel search, ZERO SSE, MC, three transforms
-    and recon SSE, and its gathers, decision, pack and split merge (one
-    launch each); the loop filter and the borders are one launch each."""
+    children's search, quarter-pel search, MC, three transforms and recon
+    SSE, and its gathers (the children's ZERO SSE with them), decision,
+    pack and split merge (one launch each); the loop filter and the
+    borders are one launch each."""
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
@@ -3815,7 +3888,7 @@ def _ra_launches(geom, golden: bool, altref: bool):
         c["block_energy_at"] += 1 + golden + altref
     if not geom.strip:
         for k, v in (("sse_map_search", 1), ("subpel_search", 1),
-                     ("block_energy_at", 1), ("mc_predict", 1),
+                     ("mc_predict", 1),
                      ("transform_recon", 3), ("block_energy", 1),
                      *((w, 1) for w in DESCENT_WRAPPERS)):
             c[k] += v
@@ -3843,7 +3916,9 @@ def _make_ra_encoder(device, dims, intra_period=-2):
 @contextlib.contextmanager
 def _recording(names, calls, active):
     """While ``active[0]``, the step's calls of the ``tpu_encdec`` functions
-    ``names`` append (name, arguments) to ``calls``."""
+    ``names`` append (name, arguments) to ``calls``; the arguments a call
+    writes in place (``IN_PLACE_ARGS``) are recorded as copies taken before
+    it."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     real = {k: getattr(P, k) for k in names}
@@ -3851,7 +3926,9 @@ def _recording(names, calls, active):
     def recorded(name, fn):
         def call(*args):
             if active[0]:
-                calls.append((name, args))
+                at = IN_PLACE_ARGS.get(name, ())
+                calls.append((name, tuple(a.clone() if i in at else a
+                                          for i, a in enumerate(args))))
             return fn(*args)
         return call
 
@@ -4021,14 +4098,14 @@ def ra_end_to_end_phase(dev, frames, tag, record=False):
 
 
 def _ra_calls(calls):
-    """The recorded calls of a 1080p RA step with GOLDEN and ALTREF, by
-    role: hier_search (LAST's, ALTREF's), subpel_search (the zone's
-    LAST, ALTREF, the children's), sse_map_search (the children's),
-    block_energy_at (LAST's ZERO, GOLDEN's two in one call, ALTREF's
-    ZERO, the children's ZERO), transform_recon (the zone's Y, U, V, the children's
-    U, V, Y), block_energy (the zone's, the children's), mode_decide (the
-    zone's), extract_windows (LAST's search site, ALTREF's), extend_borders
-    (the recon's)."""
+    """The recorded calls of a 1080p RA step with GOLDEN and ALTREF, by role:
+    hier_search (LAST's, ALTREF's), subpel_search (the zone's LAST,
+    ALTREF, the children's), sse_map_search (the children's),
+    block_energy_at (LAST's ZERO, GOLDEN's two in one call, ALTREF's ZERO;
+    the children's is descent_gather's), transform_recon (the zone's Y, U,
+    V, the children's U, V, Y), block_energy (the zone's, the children's),
+    mode_decide (the zone's), extract_windows (LAST's search site,
+    ALTREF's), extend_borders (the recon's)."""
     by = {}
     for name, args in calls:
         by.setdefault(name, []).append(args)
@@ -4037,7 +4114,7 @@ def _ra_calls(calls):
                  for a in by.get(k, [])] for k in RA_RECORDED}
     want_counts = {"hier_search": 2, "subpel_search": 3,
                    "sse_map_search": 1, "transform_recon": 6,
-                   "block_energy_at": 4, "block_energy": 2,
+                   "block_energy_at": 3, "block_energy": 2,
                    "mode_decide": 1, "extract_windows": 2,
                    "extend_borders": 1}
     if {k: len(by.get(k, [])) for k in RA_RECORDED} != want_counts:
@@ -4053,8 +4130,8 @@ def ra_kernel_phase(dev, calls, kernels):
     (transform_recon's level flips bounded as in its own phase): the
     descent over every parent, 8,160 children (sse_map_search n=16 r=8
     with its map, subpel_search n=16 r=8, transform_recon at 16 and 8,
-    block_energy_at's ZERO and block_energy's recon SSE at n=16), and
-    ALTREF's own search (hier_search_fused, its ZERO SSE and
+    block_energy's recon SSE at n=16; their ZERO SSE is descent_gather's),
+    and ALTREF's own search (hier_search_fused, its ZERO SSE and
     subpel_search at n=32 r=4). Each timed; the parts go to the kernels'
     entries as "ra_parts"."""
     from tpu_vp9_torch.ops import cuda_kernels as K
@@ -4116,11 +4193,10 @@ def ra_kernel_phase(dev, calls, kernels):
                 _tr_bound(b, nn), "transform_recon_kernel",
                 2 if label == "U" else 1))
     errs["transform_recon"] = tr_err
-    # ZERO's SSE read in place: ALTREF's at n=32, the children's at 16;
-    # the children's recon SSE
+    # ZERO's SSE read in place: ALTREF's at n=32 (the children's is
+    # descent_gather's); the children's recon SSE
     for label, (src, plane, y0, x0, nn) in (
-            ("ALTREF ZERO", by["block_energy_at"][2]),
-            ("children ZERO", by["block_energy_at"][3])):
+            ("ALTREF ZERO", by["block_energy_at"][2]),):
         c, b = y0.shape
         held("block_energy", "block_energy_at",
              f"1080p RA {label} B={b} n={nn} C={c}",

@@ -20,7 +20,8 @@
 // the running thread's CTA's buffer) is filled with 0xA5 before each CTA,
 // so that a read of a place the CTA did not write shows.
 // The runtime calls a launcher makes (cudaGetDevice, cudaDeviceGetAttribute,
-// cudaFuncSetAttribute, the occupancy query) answer from a few settable
+// cudaFuncSetAttribute, the occupancy query; cudaMemsetAsync sets the
+// bytes at once) answer from a few settable
 // globals (standin_device, standin_smem_optin, standin_set_attribute_error),
 // and standin_kernel_launch stands for a <<<grid, threads, smem>>> launch:
 // it refuses, as the runtime does, dynamic shared memory past 48 KB that
@@ -403,6 +404,12 @@ inline cudaError_t cudaGetLastError() {
   const cudaError_t e = standin_last_error;
   standin_last_error = 0;
   return e;
+}
+// the stream's memset, done at once (the stand-in's launches are
+// synchronous, so it is ordered before the next one as on the stream)
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = standin_device;

@@ -8,7 +8,8 @@ inputs; then ``encode_children_masked`` and ``pframe_step`` on the new
 dispatches against the JAX functions, jitted.
 
 The lines: the union and ``cw`` (``encode_children_masked:1933-1941``),
-``csrc`` and ``src2_c`` (``:1946-1952``), the chroma blocks
+``csrc`` and ``src2_c`` (``:1946-1952``), the children's ZERO SSE out of
+one whole-frame difference (``:1960-1968``), the chroma blocks
 (``:2040-2043``), the PARENT lookup (``:1973-1980``), the costs and the
 argmin (``:1982-2009``), ``skip``, ``rate_c``, the sums and the merged
 blocks (``:2052-2064``), and ``pframe_step``'s split decision and merge
@@ -41,6 +42,7 @@ import torch
 from tpu_vp9.pipeline import tpu_encdec as J
 
 from tpu_vp9_torch.bitstream import tables as T
+from tpu_vp9_torch.ops import cuda_kernels as K
 from tpu_vp9_torch.pipeline import realtime as port_realtime
 from tpu_vp9_torch.pipeline import tpu_encdec as P
 from tpu_vp9_torch.utils.yuv import panning_frames
@@ -92,14 +94,16 @@ def gather_case(w, h, seed):
         parent_mv=rng.integers(-EDGE, EDGE + 1, (b32, 2)).astype(np.int32),
         src_y=rng.integers(0, 256, (g.pad_h, g.pad_w), np.uint8),
         src_u=rng.integers(0, 256, (g.pad_h // 2, g.pad_w // 2), np.uint8),
-        src_v=rng.integers(0, 256, (g.pad_h // 2, g.pad_w // 2), np.uint8))
+        src_v=rng.integers(0, 256, (g.pad_h // 2, g.pad_w // 2), np.uint8),
+        ref_y=rng.integers(0, 256, (g.pad_h + 2 * P.BORDER,
+                                    g.pad_w + 2 * P.BORDER), np.uint8))
 
 
 def jax_gather(a, w, h):
     """The JAX lines of the gathers (``encode_children_masked:1919-1952,
-    2040-2043``, the positions and offsets of ``:2016-2019``), on jnp
-    arrays; the window index is the parent index each child's window was
-    repeated from, the bordered start the position plus BORDER."""
+    2040-2043``, the positions and offsets of ``:2016-2019``) and of the
+    children's ZERO SSE (``:1960-1968``), on jnp arrays; the window index
+    is the parent index each child's window was repeated from."""
     g = J.make_geom(w, h)
     sel_idx = jnp.asarray(a["sel"])
     k = sel_idx.shape[0]
@@ -136,11 +140,18 @@ def jax_gather(a, w, h):
     pmv = jnp.asarray(a["parent_mv"])
     pos_y = (c_row * 16).reshape(-1)
     pos_x = (c_col * 16).reshape(-1)
+    # exact ZERO SSE for every 16-block from one whole-frame diff
+    core = jax.lax.slice(
+        jnp.asarray(a["ref_y"]), (J.BORDER, J.BORDER),
+        (J.BORDER + rows32 * 32, J.BORDER + cols32 * 32))
+    df = jnp.asarray(a["src_y"])[: rows32 * 32, : cols32 * 32] \
+        .astype(jnp.float32) - core.astype(jnp.float32)
+    d2 = (df * df).reshape(rows32 * 2, 16, cols16, 16) \
+        .sum(axis=3).astype(jnp.int32).sum(axis=1).reshape(-1)
     out = {"cw": cw, "csrc": csrc, "src2": J._block_sq_sum(csrc),
+           "sse_zero": jnp.take(d2, cidx, axis=0),
            "base_y": rep4(base_y), "base_x": rep4(base_x),
            "pos_y": pos_y, "pos_x": pos_x,
-           "start_y": (pos_y + J.BORDER)[None], "start_x":
-           (pos_x + J.BORDER)[None],
            "off_y": jnp.tile(ii * 16, k), "off_x": jnp.tile(jj * 16, k),
            "win_idx": rep4(sel_idx),
            "par_r": rep4(jnp.take(pmv[:, 0], sel_idx, axis=0)),
@@ -154,7 +165,7 @@ def jax_gather(a, w, h):
 def port_gather(g, a, fn=None):
     fn = fn or P.descent_gather_ref
     return fn(*(_t(a[k]) for k in ("sel", "wins", "dy", "dx", "parent_mv",
-                                   "src_y", "src_u", "src_v")), g)
+                                   "src_y", "src_u", "src_v", "ref_y")), g)
 
 
 @pytest.mark.parametrize("geom", GEOMS)
@@ -176,6 +187,27 @@ def test_gather_ref_matches_jax(geom):
     assert base.min() == -32 and base.max() == SW - 64 - 32
     rows = got["pos_y"].numpy() // 16
     assert rows.min() == 0 and rows.max() == 2 * g.rows32 - 1
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_gather_ref_zero_sse_matches_block_energy_at(geom):
+    """The children's ZERO SSE that the gather now takes is what the step
+    took before with one ``block_energy_at`` call at the bordered starts
+    (position + BORDER); on a reference equal to the source around a
+    child it is 0, at 255 against 0 everywhere 256 * 255^2."""
+    g, a = gather_case(*GEOMS[geom], seed=2)
+    got = port_gather(g, a)
+    starts = (got["pos_y"] + P.BORDER, got["pos_x"] + P.BORDER)
+    sse, _ = K.block_energy_at_ref(
+        got["csrc"], _t(a["ref_y"]), starts[0][None], starts[1][None], 16)
+    _eq(got["sse_zero"], sse[0])
+    y, x = int(got["pos_y"][0]), int(got["pos_x"][0])
+    a["src_y"][:] = 255
+    a["ref_y"][:P.BORDER + g.rows32 * 32] = 0
+    a["ref_y"][P.BORDER + y:P.BORDER + y + 16,
+               P.BORDER + x:P.BORDER + x + 16] = 255
+    got = port_gather(g, a)["sse_zero"].numpy()
+    assert got[0] == 0 and np.all(got[1:] == 256 * 255 ** 2)
 
 
 def decide_case(n, seed, kind="random"):

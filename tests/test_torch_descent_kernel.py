@@ -51,11 +51,12 @@ SW = 32 + 2 * P.WIN_R + 8  # the parents' windows
 EDGE = 8 * P.WIN_R + 6  # the largest parent MV, q3
 PROXY = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
 
-# the stand-in's launch helpers: every CTA of the grid, one after another;
+# the stand-in's launch helpers: every CTA of the grid (the gather's a CTA
+# per parent, the split's a warp per selected parent), one after another;
 # a trapped kernel fails its launch
 _STANDIN_LAUNCH = """
 cudaError_t launch_gather(const GatherArgs& a, cudaStream_t) {
-  standin_launch(a.nch, kGatherThreads, [&] { descent_gather_kernel(a); });
+  standin_launch(a.k, kGatherThreads, [&] { descent_gather_kernel(a); });
   return standin_take_trap();
 }
 
@@ -71,7 +72,8 @@ cudaError_t launch_pack(const PackArgs& a, cudaStream_t) {
 }
 
 cudaError_t launch_split(const SplitArgs& a, cudaStream_t) {
-  standin_launch(a.nb32, kSplitThreads, [&] { descent_split_kernel(a); });
+  standin_launch((a.k + kSplitWarps - 1) / kSplitWarps, kSplitThreads,
+                 [&] { descent_split_kernel(a); });
   return standin_take_trap();
 }
 
@@ -92,7 +94,7 @@ def standin(tmp_path_factory):
         src = fh.read()
     cut = src.index("cudaError_t launch_gather(")
     shared = "extern __shared__ __align__(16) int smem[];"
-    assert src.count(shared) == 3
+    assert src.count(shared) == 2
     body = src[:cut].replace(
         shared, "int* smem = reinterpret_cast<int*>(standin_smem);")
     tail = src[src.index("}  // namespace"):]
@@ -171,9 +173,12 @@ def _edge_sel(g, rng):
     return sel.astype(np.int32)
 
 
-def gather_args(w, h, seed):
+def gather_args(w, h, seed, winners="random"):
     """descent_gather's arguments (CPU tensors) and the geometry: random
-    windows and planes, winners at -WIN_R and WIN_R and inside."""
+    windows and planes (LAST's bordered luma with them), winners at
+    -WIN_R and WIN_R and inside; ``winners="every shift"`` puts the union's
+    start at every column of an 8-byte word (0-7), at SW - 64 and inside,
+    in rows and columns."""
     rng = np.random.default_rng(seed)
     g = P.make_geom(w, h)
     b32 = g.n_blocks32
@@ -181,6 +186,12 @@ def gather_args(w, h, seed):
     dx = rng.integers(-P.WIN_R, P.WIN_R + 1, b32).astype(np.int32)
     dy[::3], dx[1::3] = -P.WIN_R, P.WIN_R
     dx[::4], dy[2::4] = -P.WIN_R, P.WIN_R
+    if winners == "every shift":
+        starts = np.resize([0, 1, 2, 3, 4, 5, 6, 7, SW - 64, 41, 19, 30],
+                           b32)
+        dx = (starts - 36).astype(np.int32)
+        dy = (np.roll(starts, 5) - 36).astype(np.int32)
+    border = 2 * P.BORDER
     return g, [
         _t(_edge_sel(g, rng)), _t(rng.integers(0, 256, (b32, SW, SW),
                                                np.uint8)),
@@ -188,7 +199,9 @@ def gather_args(w, h, seed):
         _t(rng.integers(-EDGE, EDGE + 1, (b32, 2)).astype(np.int32)),
         _t(rng.integers(0, 256, (g.pad_h, g.pad_w), np.uint8)),
         _t(rng.integers(0, 256, (g.pad_h // 2, g.pad_w // 2), np.uint8)),
-        _t(rng.integers(0, 256, (g.pad_h // 2, g.pad_w // 2), np.uint8))]
+        _t(rng.integers(0, 256, (g.pad_h // 2, g.pad_w // 2), np.uint8)),
+        _t(rng.integers(0, 256, (g.pad_h + border, g.pad_w + border),
+                        np.uint8))]
 
 
 def decide_args(n, seed, kind="random"):
@@ -287,13 +300,23 @@ def test_kernel_constants_are_the_steps():
     assert keys == {"cw", "csrc", "csrc_u", "csrc_v", *K.GATHER_INTS}
 
 
+@pytest.mark.parametrize("winners", ["random", "every shift"])
 @pytest.mark.parametrize("geom", GEOMS)
-def test_gather_on_standin_matches_plain(on_standin, geom):
-    g, args = gather_args(*GEOMS[geom], seed=1)
+def test_gather_on_standin_matches_plain(on_standin, geom, winners):
+    """A CTA per parent, the parents in a shuffled order and at every edge
+    of the frame: the union clamped at 0 and at SW - 64, or its start at
+    every byte of a word; the ZERO SSE read against LAST's bordered luma
+    as block_energy_at's plain version reads it."""
+    g, args = gather_args(*GEOMS[geom], seed=1, winners=winners)
     got = on_standin.descent_gather(*args, g, P.BORDER)
     _same(got, P.descent_gather_ref(*args, g), geom)
-    base = got["base_y"]
+    base = got["base_x"]
     assert int(base.min()) == -32 and int(base.max()) == SW - 96
+    if winners == "every shift":
+        assert set(((base + 32) % 8).tolist()) == set(range(8))
+    pos = (got["pos_y"] + P.BORDER, got["pos_x"] + P.BORDER)
+    _same(got["sse_zero"], K.block_energy_at_ref(
+        got["csrc"], args[8], pos[0][None], pos[1][None], 16)[0][0])
 
 
 @pytest.mark.parametrize("kind", ["random", "parent_new"])
@@ -353,22 +376,53 @@ def test_pack_on_standin_matches_plain(on_standin):
     assert got["skip"].any() and not got["skip"].all()
 
 
+def _split_in_place(k_mod, args, lam, g):
+    """descent_split on the stand-in on copies of the zone's planes: the
+    result, the plain version's on the planes as they were, and the
+    blocks of the 32 grid (Y, U, V) that must have stayed as they were
+    (not selected, or selected and not split) held byte for byte."""
+    planes = [t.clone() for t in args[5:8]]
+    got = k_mod.descent_split(*args[:5], *planes, *args[8:], lam, g,
+                              P.SPLIT_RATE_EXTRA)
+    assert all(a is b for a, b in zip(got[1:], planes))  # in place
+    want = P.descent_split_ref(*args, lam, g)
+    kept = ~got[0].bool()
+    for plane, before, n in zip(got[1:], args[5:8], (32, 16, 16)):
+        mask = kept.repeat_interleave(n, 0).repeat_interleave(n, 1)
+        assert torch.equal(plane[mask], before[mask])
+    return got, want
+
+
 @pytest.mark.parametrize("geom", GEOMS)
 def test_split_on_standin_matches_plain(on_standin, geom):
     g, args = split_args(*GEOMS[geom], seed=13)
     counts = []
     for lam in (1, 500, 100_000):
-        got = on_standin.descent_split(*args, lam, g, P.SPLIT_RATE_EXTRA)
-        _same(got, P.descent_split_ref(*args, lam, g), f"lam {lam}")
+        got, want = _split_in_place(on_standin, args, lam, g)
+        _same(got, want, f"lam {lam}")
         counts.append(int(got[0].sum()))
     assert counts[0] > counts[1] > 0 == counts[2]
 
 
 def test_split_on_standin_keeps_the_overhang_row(on_standin):
     g, args = split_args(*GEOMS["128x88"], seed=17, overhang_wins=True)
-    got = on_standin.descent_split(*args, 5, g, P.SPLIT_RATE_EXTRA)
-    _same(got, P.descent_split_ref(*args, 5, g))
+    got, want = _split_in_place(on_standin, args, 5, g)
+    _same(got, want)
     assert not got[0][-1].any() and got[0][:-1].any()
+
+
+@pytest.mark.parametrize("gap", [0, 1], ids=["all-ties", "one-better"])
+def test_split_on_standin_ties_keep_the_32(on_standin, gap):
+    """lam 0: the costs are the distortions alone. The children's equal to
+    their parent's in every selected parent: none splits (a strict <);
+    one less: every one splits but the overhang row's (128x88)."""
+    g, args = split_args(*GEOMS["128x88"], seed=18, overhang_wins=True)
+    args[3] = (args[1][args[0].long()] - gap).to(torch.int64)
+    got, want = _split_in_place(on_standin, args, 0, g)
+    _same(got, want)
+    split = got[0].reshape(-1)[args[0].long()].bool()
+    over = args[0] >= g.n_blocks32 - g.cols32
+    assert torch.equal(split, ~over if gap else torch.zeros_like(over))
 
 
 # ---------------------------------------------------------------------------
@@ -422,26 +476,44 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
                                                      geom, golden, frac):
     """The P-frame step with the descent, once on the plain versions and
     once with the four dispatches reaching the stand-in kernels: every
-    output and the new references equal; each kernel launched once. At
-    128x88 every parent descends, the overhang row's included."""
+    output and the new references equal, but the zone's recon planes,
+    into which the split writes in place (they held the plain step's
+    before it and hold the plain split's result after); each kernel
+    launched once. At 128x88 every parent descends, the overhang row's
+    included."""
     g, args = _step_args(*GEOMS[geom], seed=19, golden=golden)
     step = P.make_pframe_step(g, "cpu", split16=True, golden=golden,
                               with_rates=True, descend_frac=frac)
     want_outs, want_refs = step(*args)
     before = {name: getattr(K, name).launches for name in NAMES}
-    # the wrappers take the constants that the dispatches hand them
+    # the wrappers take the constants that the dispatches hand them; the
+    # split's zone planes are recorded as they were before its call
     extra = {"descent_gather": (P.BORDER,), "descent_decide": (PROXY,),
              "descent_split": (P.SPLIT_RATE_EXTRA,)}
+    split_ref, split_in = P.descent_split_ref, []
     for name in NAMES:
         monkeypatch.setattr(P, f"{name}_ref",
                             lambda *a, w=getattr(K, name),
                             e=extra.get(name, ()): w(*a, *e))
+
+    def split(*a):
+        split_in.append((*a[:5], *(t.clone() for t in a[5:8]), *a[8:]))
+        return K.descent_split(*a, P.SPLIT_RATE_EXTRA)
+
+    monkeypatch.setattr(P, "descent_split_ref", split)
     got_outs, got_refs = step(*args)
     assert {name: getattr(K, name).launches - before[name]
             for name in NAMES} == dict.fromkeys(NAMES, 1)
     got, want = dict(_flat(got_outs)), dict(_flat(want_outs))
     assert set(got) == set(want)
-    for key in want:
+    # the zone's recon planes: the plain step's before the split; the
+    # split wrote its blocks into them in place
+    zone = ("m32 rec_y", "m32 rec_u", "m32 rec_v")
+    split_in, = split_in
+    _same(list(split_in[5:8]), [want[key] for key in zone], "zone recon")
+    _same([got[key] for key in zone], list(split_ref(*split_in)[1:]),
+          "zone recon, split in place")
+    for key in set(want) - set(zone):
         _same(got[key], want[key], key)
     _same(got_refs, want_refs, "references")
     assert int(got_outs["split32"].sum()) > 0
@@ -498,6 +570,64 @@ def test_wrappers_refuse_a_strided_plane_and_wrong_dtypes(on_standin):
     with pytest.raises(ValueError, match="contiguous"):
         on_standin.descent_split(*s[:5], s[5].t().contiguous().t(), *s[6:],
                                  9, g, P.SPLIT_RATE_EXTRA)
+
+
+def _shifted(t, by):
+    """A contiguous copy of ``t`` that starts ``by`` bytes into its
+    storage."""
+    flat = torch.zeros(t.numel() + 64, dtype=t.dtype)
+    start = (-flat.data_ptr()) % 64 + by
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 64 == by
+    return out
+
+
+def test_wrappers_refuse_unaligned_words(on_standin):
+    """The word loads and stores need aligned rows: the gather refuses a
+    plane, a window set or LAST's luma that starts off its word (or a
+    window side that is not a multiple of 8), the split a plane or a
+    merged block off its 16 bytes; an aligned copy of each runs."""
+    g, args = gather_args(128, 96, 32)
+    for i, by in ((1, 4), (5, 8), (6, 4), (7, 2), (8, 8)):
+        bad = list(args)
+        bad[i] = _shifted(args[i], by)
+        with pytest.raises(ValueError, match="byte boundary"):
+            on_standin.descent_gather(*bad, g, P.BORDER)
+    wide = args[1][:, :116, :116].contiguous()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        on_standin.descent_gather(args[0], wide, *args[2:], g, P.BORDER)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        on_standin.descent_gather(*args, g, P.BORDER + 8)
+    ok = [_shifted(a, 16) if a.dtype == torch.uint8 else a for a in args]
+    _same(on_standin.descent_gather(*ok, g, P.BORDER),
+          P.descent_gather_ref(*args, g))
+    g, s = split_args(128, 96, seed=33)
+    for i in (5, 6, 7, 8, 9, 10):
+        bad = list(s)
+        bad[i] = _shifted(s[i], 8)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            on_standin.descent_split(*bad, 9, g, P.SPLIT_RATE_EXTRA)
+
+
+def test_no_parent_selected_on_standin(on_standin):
+    """K = 0: the gather launches nothing and returns empty outputs; the
+    split launches no kernel, zeroes split32 and leaves the planes."""
+    g, args = gather_args(128, 96, 34)
+    args[0] = args[0][:0]
+    before = on_standin.descent_gather.launches
+    got = on_standin.descent_gather(*args, g, P.BORDER)
+    assert on_standin.descent_gather.launches == before
+    assert all(t.shape[0] == 0 for t in got.values())
+    assert set(got) == set(P.descent_gather_ref(*args, g))
+    g, s = split_args(128, 96, seed=35)
+    s[0], s[3], s[4] = s[0][:0], s[3][:0], s[4][:0]
+    s[8], s[9], s[10] = s[8][:0], s[9][:0], s[10][:0]
+    before = on_standin.descent_split.launches
+    got, want = _split_in_place(on_standin, s, 9, g)
+    assert on_standin.descent_split.launches == before
+    _same(got, want)
+    assert not got[0].any()
 
 
 def test_mvd_past_the_table_fails_the_launch(on_standin):

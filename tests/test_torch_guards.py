@@ -560,8 +560,9 @@ def _meta_descent_inputs(name):
     if name == "descent_gather":
         return ((meta((3,)), meta((12, 120, 120), u8), meta((12,)),
                  meta((12,)), meta((12, 2)), meta((128, 128), u8),
-                 meta((64, 64), u8), meta((64, 64), u8), g),
-                (12, 12, 120, 4, 128, 64, P.BORDER))
+                 meta((64, 64), u8), meta((64, 64), u8),
+                 meta((96 + 2 * P.BORDER, 128 + 2 * P.BORDER), u8), g),
+                (3, 12, 120, 4, 128, 64, 128 + 2 * P.BORDER, P.BORDER))
     if name == "descent_decide":
         return ((meta((12, 17, 17)), *(meta((12,)) for _ in range(9)), 300,
                  meta((P.MVD_MAX + 1,), torch.float32), None),

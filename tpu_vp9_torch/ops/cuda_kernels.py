@@ -113,10 +113,10 @@ _LAUNCHERS = {
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
     "mc_predict": ("mc_predict", "mc_predict_launch", 21, 0, 23),
     "openloop_modes": ("openloop_modes", "openloop_modes_launch", 5, 0, 4),
-    "descent_gather": ("descent", "descent_gather_launch", 13, 0, 7),
+    "descent_gather": ("descent", "descent_gather_launch", 14, 0, 8),
     "descent_decide": ("descent", "descent_decide_launch", 16, 3, 8),
     "descent_pack": ("descent", "descent_pack_launch", 16, 0, 1),
-    "descent_split": ("descent", "descent_split_launch", 15, 1, 5),
+    "descent_split": ("descent", "descent_split_launch", 12, 1, 5),
     "mode_decide": ("mode_decide", "mode_decide_launch", 21, 3, 9),
     "extract_windows": ("windows", "extract_windows_launch", 1, 0, 3),
     "extend_borders": ("windows", "extend_borders_launch", 6, 0, 2),
@@ -1692,12 +1692,12 @@ def mc_predict_occupancy(n: int, device=None):
 # CHILD_R) and the side of a parent's union slice
 DESCENT_R = 8
 DESCENT_UNION = 64
-# descent_gather's int32 rows, each (4K,): sum(src^2), the map centre's
-# displacement, the child's position, its bordered start (block_energy_at's
-# (1, 4K) starts), its offset in the parent's window, the parent's window
-# index and final MV
-GATHER_INTS = ("src2", "base_y", "base_x", "pos_y", "pos_x", "start_y",
-               "start_x", "off_y", "off_x", "win_idx", "par_r", "par_c")
+# descent_gather's int32 rows, each (4K,): sum(src^2), the ZERO SSE (the
+# co-located block of LAST's bordered luma), the map centre's
+# displacement, the child's position, its offset in the parent's window,
+# the parent's window index and final MV
+GATHER_INTS = ("src2", "sse_zero", "base_y", "base_x", "pos_y", "pos_x",
+               "off_y", "off_x", "win_idx", "par_r", "par_c")
 # descent_occupancy's kernels, by their index in the source
 DESCENT_KERNELS = ("gather", "decide", "pack", "split")
 
@@ -1733,66 +1733,132 @@ def _cuda_only(name: str, *tensors) -> torch.device:
     return tensors[0].device
 
 
-def descent_gather(sel, wins, dy, dx, parent_mv, src_y, src_u, src_v, geom,
-                   border: int):
-    """The descent's gathers for the 4K children of the K parents ``sel``,
-    on the card, in one launch.
+def _contiguous(name: str, tensors) -> None:
+    """Raise unless every tensor is contiguous."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _aligned(name: str, what: str, t, to: int) -> None:
+    """Raise unless ``t``'s first byte lies on a ``to``-byte boundary (the
+    kernel's word loads and stores need it)."""
+    if t.data_ptr() % to:
+        raise ValueError(f"{name}: {what} must start on a {to}-byte "
+                         f"boundary (the kernel reads and writes it in "
+                         f"{to}-byte words)")
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_spec(k: int, shapes, dtypes, rows32: int, cols32: int,
+                 border: int):
+    """descent_gather's checks of its arguments' shapes and dtypes (sel,
+    wins, dy, dx, parent_mv, src_y, src_u, src_v, ref_y), once per
+    shape: raise where one is refused, else return the launcher's ints
+    after K (B32, SW, cols32, the three pitches, the border) and the
+    output's byte offsets (cw, csrc_u, csrc_v, ints; csrc at 0)."""
+    name = "descent_gather"
+    b32 = rows32 * cols32
+    sel, wins, dy, dx, pmv, sy, su, sv, ry = shapes
+    want = (((k,), torch.int32, "sel"), ((b32,), torch.int32, "dy"),
+            ((b32,), torch.int32, "dx"), ((b32, 2), torch.int32,
+                                           "parent_mv"))
+    for (shape, dtype, what), got, gdt in zip(
+            want, (sel, dy, dx, pmv), (dtypes[0], *dtypes[2:5])):
+        if got != shape or gdt != dtype:
+            raise TypeError(f"{name}: {what} must be {shape} {dtype}, got "
+                            f"{got} {gdt}")
+    if dtypes[1] != torch.uint8:
+        raise TypeError(f"{name}: wins must be uint8, got {dtypes[1]}")
+    if len(wins) != 3 or wins[0] != b32 or wins[1] != wins[2] or \
+            wins[1] < DESCENT_UNION:
+        raise ValueError(f"{name}: wins of {wins}, want ({b32}, SW, SW) "
+                         f"with SW >= {DESCENT_UNION}")
+    if wins[1] % 8:
+        raise ValueError(f"{name}: wins' side {wins[1]} is not a multiple "
+                         "of 8 (each row must start on an 8-byte boundary)")
+    for what, shp, dtype, n in (("src_y", sy, dtypes[5], 32),
+                                ("src_u", su, dtypes[6], 16),
+                                ("src_v", sv, dtypes[7], 16)):
+        if len(shp) != 2 or dtype != torch.uint8:
+            raise TypeError(f"{name}: {what} must be a uint8 plane, got "
+                            f"{shp} {dtype}")
+        if shp[0] < rows32 * n or shp[1] < cols32 * n:
+            raise ValueError(f"{name}: {what} of {shp} holds no "
+                             f"{rows32 * n}x{cols32 * n} grid")
+    if su != sv:
+        raise ValueError(f"{name}: src_u {su} and src_v {sv} differ")
+    if len(ry) != 2 or dtypes[8] != torch.uint8:
+        raise TypeError(f"{name}: ref_y must be a uint8 plane, got {ry} "
+                        f"{dtypes[8]}")
+    if ry[0] < rows32 * 32 + border or ry[1] < cols32 * 32 + border:
+        raise ValueError(f"{name}: ref_y of {ry} holds no "
+                         f"{rows32 * 32}x{cols32 * 32} grid at border "
+                         f"{border}")
+    for what, pitch, to in (("src_y", sy[1], 16), ("src_u", su[1], 8),
+                            ("ref_y", ry[1], 16), ("the border", border,
+                                                   16)):
+        if pitch % to:
+            raise ValueError(f"{name}: {what} of {pitch} bytes is not a "
+                             f"multiple of {to} (each row must start on a "
+                             f"{to}-byte boundary)")
+    nch = 4 * k
+    cw_side = 16 + 2 * DESCENT_R + 8
+    offs = (nch * 256, nch * (256 + cw_side * cw_side),
+            nch * (320 + cw_side * cw_side),
+            nch * (384 + cw_side * cw_side))
+    return (b32, wins[1], cols32, sy[1], su[1], ry[1], border), offs
+
+
+def descent_gather(sel, wins, dy, dx, parent_mv, src_y, src_u, src_v, ref_y,
+                   geom, border: int):
+    """The descent's gathers and the children's ZERO SSE for the 4K
+    children of the K parents ``sel``, on the card, in one launch: a CTA
+    of four warps per parent.
 
     sel: (K,) int32 parent indices in [0, B32) (raster order of the 32
     grid; outside it the kernel traps); wins: (B32, SW, SW) uint8, the
-    parents' LAST search windows, read in place; dy, dx: (B32,) int32 the
-    parents' full-pel winners; parent_mv: (B32, 2) int32 their final q3
-    MVs; src_y, src_u, src_v: the padded source planes (uint8, holding the
-    rows32 x cols32 grid at 32 and 16); all contiguous CUDA tensors of one
-    device; ``geom`` the step's Geom; ``border`` the reference planes'
-    border, added to the positions for "start_y" and "start_x". Returns a
+    parents' LAST search windows, read in place (8-byte aligned, SW a
+    multiple of 8); dy, dx: (B32,) int32 the parents' full-pel winners;
+    parent_mv: (B32, 2) int32 their final q3 MVs; src_y, src_u, src_v: the
+    padded source planes (uint8, holding the rows32 x cols32 grid at 32
+    and 16; rows 16-byte aligned for Y, 8 for U and V); ref_y: LAST's
+    luma bordered by ``border`` (rows 16-byte aligned, the border a
+    multiple of 16); all contiguous CUDA tensors of one device; ``geom``
+    the step's Geom. A refused alignment raises ValueError. Returns a
     dict: "cw" (4K, 40, 40) the children's search windows, "csrc" (4K, 16,
     16), "csrc_u", "csrc_v" (4K, 8, 8) their source blocks (uint8), and
-    the int32 rows of ``GATHER_INTS``, (4K,) each but "start_y" and
-    "start_x", (1, 4K): bit for bit what ``pipeline/tpu_encdec.py:
-    descent_gather_ref`` returns. It runs the kernel of ``csrc/descent.cu``
-    or raises."""
+    the (4K,) int32 rows of ``GATHER_INTS``, views of one allocation: bit
+    for bit what ``pipeline/tpu_encdec.py:descent_gather_ref`` returns. It
+    runs the kernel of ``csrc/descent.cu`` or raises."""
     name = "descent_gather"
+    ins = (sel, wins, dy, dx, parent_mv, src_y, src_u, src_v, ref_y)
     k = sel.shape[0]
-    b32 = geom.rows32 * geom.cols32
-    _want(name, "sel", sel, (k,), torch.int32)
-    if wins.dim() != 3 or wins.shape[0] != b32 or wins.shape[1] != \
-            wins.shape[2] or wins.shape[1] < DESCENT_UNION:
-        raise ValueError(f"{name}: wins of {tuple(wins.shape)}, want ({b32}, "
-                         f"SW, SW) with SW >= {DESCENT_UNION}")
-    _want(name, "wins", wins, wins.shape, torch.uint8)
-    _want(name, "dy", dy, (b32,), torch.int32)
-    _want(name, "dx", dx, (b32,), torch.int32)
-    _want(name, "parent_mv", parent_mv, (b32, 2), torch.int32)
-    _want_plane(name, "src_y", src_y, geom.rows32 * 32, geom.cols32 * 32)
-    _want_plane(name, "src_u", src_u, geom.rows32 * 16, geom.cols32 * 16)
-    _want_plane(name, "src_v", src_v, geom.rows32 * 16, geom.cols32 * 16)
-    if src_u.shape != src_v.shape:
-        raise ValueError(f"{name}: src_u {tuple(src_u.shape)} and src_v "
-                         f"{tuple(src_v.shape)} differ")
-    dev = _cuda_only(name, sel, wins, dy, dx, parent_mv, src_y, src_u, src_v)
+    ints, (o_cw, o_u, o_v, o_i) = _gather_spec(
+        k, tuple(tuple(t.shape) for t in ins), tuple(t.dtype for t in ins),
+        geom.rows32, geom.cols32, int(border))
+    dev = _cuda_only(name, *ins)
+    _contiguous(name, ins)
+    for what, t, to in (("wins", wins, 8), ("src_y", src_y, 16),
+                        ("src_u", src_u, 8), ("src_v", src_v, 8),
+                        ("ref_y", ref_y, 16)):
+        _aligned(name, what, t, to)
     nch = 4 * k
-    cw_side = 16 + 2 * DESCENT_R + 8
-    # one allocation for the blocks: csrc, cw, csrc_u, csrc_v, each part
-    # starting on a 64-byte boundary (the kernels after take them aligned)
-    parts = (nch * 256, nch * cw_side * cw_side, nch * 64, nch * 64)
-    buf = torch.empty(sum(parts), dtype=torch.uint8, device=dev)
-    csrc, cw, csrc_u, csrc_v = buf.split(parts)
-    ints = torch.empty((len(GATHER_INTS), nch), dtype=torch.int32,
-                       device=dev)
+    buf = torch.empty(o_i + 4 * len(GATHER_INTS) * nch, dtype=torch.uint8,
+                      device=dev)
     if k > 0:
-        _launch(name, dev, sel.data_ptr(), wins.data_ptr(), dy.data_ptr(),
-                dx.data_ptr(), parent_mv.data_ptr(), src_y.data_ptr(),
-                src_u.data_ptr(), src_v.data_ptr(), cw.data_ptr(),
-                csrc.data_ptr(), csrc_u.data_ptr(), csrc_v.data_ptr(),
-                ints.data_ptr(), nch, b32, wins.shape[-1], geom.cols32,
-                src_y.shape[1], src_u.shape[1], int(border))
+        at = buf.data_ptr()
+        _launch(name, dev, *(t.data_ptr() for t in ins), at + o_cw, at,
+                at + o_u, at + o_v, at + o_i, k, *ints)
         descent_gather.launches += 1
-    out = {"cw": cw.view(nch, cw_side, cw_side),
-           "csrc": csrc.view(nch, 16, 16),
-           "csrc_u": csrc_u.view(nch, 8, 8), "csrc_v": csrc_v.view(nch, 8, 8)}
-    for i, key in enumerate(GATHER_INTS):
-        out[key] = ints[i:i + 1] if key.startswith("start") else ints[i]
+    side = 16 + 2 * DESCENT_R + 8
+    out = {"cw": buf[o_cw:o_u].view(nch, side, side),
+           "csrc": buf[:o_cw].view(nch, 16, 16),
+           "csrc_u": buf[o_u:o_v].view(nch, 8, 8),
+           "csrc_v": buf[o_v:o_i].view(nch, 8, 8)}
+    out.update(zip(GATHER_INTS,
+                   buf[o_i:].view(torch.int32).view(len(GATHER_INTS), nch)
+                   .unbind(0)))
     return out
 
 
@@ -1912,52 +1978,73 @@ def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
 descent_pack.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _split_spec(k: int, shapes, dtypes, rows32: int, cols32: int):
+    """descent_split's checks of its arguments' shapes and dtypes (sel,
+    dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v, rec_y32, rec_u16,
+    rec_v16), once per shape: raise where one is refused."""
+    name = "descent_split"
+    b32 = rows32 * cols32
+    want = (((k,), torch.int32), ((b32,), torch.int32),
+            ((b32,), torch.int64), ((k,), torch.int64),
+            ((k,), torch.int64), ((rows32 * 32, cols32 * 32), torch.uint8),
+            ((rows32 * 16, cols32 * 16), torch.uint8),
+            ((rows32 * 16, cols32 * 16), torch.uint8),
+            ((k, 32, 32), torch.uint8), ((k, 16, 16), torch.uint8),
+            ((k, 16, 16), torch.uint8))
+    for what, (shape, dtype), got, gdt in zip(_SPLIT_ARGS, want, shapes,
+                                              dtypes):
+        if got != shape or gdt != dtype:
+            raise TypeError(f"{name}: {what} must be {shape} {dtype}, got "
+                            f"{got} {gdt}")
+
+
+_SPLIT_ARGS = ("sel", "dist_b", "rate_b", "dist4", "rate4", "rec_y", "rec_u",
+               "rec_v", "rec_y32", "rec_u16", "rec_v16")
+
+
 def descent_split(sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v,
                   rec_y32, rec_u16, rec_v16, lam: int, geom, extra: float):
-    """The 32-against-4x16 decision and the recon merge, on the card: a CTA
-    per block of the 32 zone, one launch that writes every output.
+    """The 32-against-4x16 decision and the recon merge, on the card, in
+    one launch: a warp per selected parent, split32 zeroed by a memset on
+    the stream first.
 
     sel: (K,) int32 distinct parent indices in [0, B32) (outside it the
     kernel traps); dist_b (B32,) int32 and rate_b (B32,) int64 the zone's
     distortion and nonzero levels; dist4, rate4 (K,) int64 the children's;
     rec_y (rows32 * 32, cols32 * 32), rec_u, rec_v (rows32 * 16, cols32 *
-    16) uint8 the zone's recon planes, only read; rec_y32 (K, 32, 32),
-    rec_u16, rec_v16 (K, 16, 16) uint8 the children's merged recon; all
-    contiguous CUDA tensors of one device. ``extra``: the split's extra
+    16) uint8 the zone's recon planes, written in place: a parent that
+    splits takes its children's merged blocks rec_y32 (K, 32, 32), rec_u16,
+    rec_v16 (K, 16, 16) uint8, every other block stays as it was; the six
+    byte tensors 16-byte aligned (a refused alignment raises ValueError);
+    all contiguous CUDA tensors of one device. ``extra``: the split's extra
     rate; at mi_rows % 4 == 3 the overhang row never splits. Returns
-    (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v: new planes), bit
-    for bit what ``pipeline/tpu_encdec.py:descent_split_ref`` returns. It
-    runs the kernel of ``csrc/descent.cu`` or raises."""
+    (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v: the planes
+    given), the values ``pipeline/tpu_encdec.py:descent_split_ref``
+    returns bit for bit. It runs the kernel of ``csrc/descent.cu`` or
+    raises."""
     name = "descent_split"
     r32, c32 = geom.rows32, geom.cols32
-    b32 = r32 * c32
-    k = sel.shape[0]
-    _want(name, "sel", sel, (k,), torch.int32)
-    _want(name, "dist_b", dist_b, (b32,), torch.int32)
-    _want(name, "rate_b", rate_b, (b32,), torch.int64)
-    _want(name, "dist4", dist4, (k,), torch.int64)
-    _want(name, "rate4", rate4, (k,), torch.int64)
-    for what, t, n in (("rec_y", rec_y, 32), ("rec_u", rec_u, 16),
-                       ("rec_v", rec_v, 16)):
-        _want(name, what, t, (r32 * n, c32 * n), torch.uint8)
-    for what, t, n in (("rec_y32", rec_y32, 32), ("rec_u16", rec_u16, 16),
-                       ("rec_v16", rec_v16, 16)):
-        _want(name, what, t, (k, n, n), torch.uint8)
     ins = (sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v, rec_y32,
            rec_u16, rec_v16)
+    k = sel.shape[0]
+    _split_spec(k, tuple(tuple(t.shape) for t in ins),
+                tuple(t.dtype for t in ins), r32, c32)
     dev = _cuda_only(name, *ins)
+    _contiguous(name, ins)
+    for what, t in zip(_SPLIT_ARGS[5:], ins[5:]):
+        _aligned(name, what, t, 16)
+    b32 = r32 * c32
     split32 = torch.empty((r32, c32), dtype=torch.int32, device=dev)
-    parts = (b32 * 1024, b32 * 256, b32 * 256)
-    out_y, out_u, out_v = torch.empty(sum(parts), dtype=torch.uint8,
-                                      device=dev).split(parts)
     limit = (r32 - 1) * c32 if geom.mi_rows % 4 == 3 else b32
     if b32 > 0:
-        _launch(name, dev, *(t.data_ptr() for t in ins), split32.data_ptr(),
-                out_y.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
-                float(extra), k, b32, c32, int(lam), limit)
-        descent_split.launches += 1
-    return (split32, out_y.view(r32 * 32, c32 * 32),
-            out_u.view(r32 * 16, c32 * 16), out_v.view(r32 * 16, c32 * 16))
+        _launch(name, dev, *(t.data_ptr() for t in ins[:5]),
+                rec_y32.data_ptr(), rec_u16.data_ptr(), rec_v16.data_ptr(),
+                split32.data_ptr(), rec_y.data_ptr(), rec_u.data_ptr(),
+                rec_v.data_ptr(), float(extra), k, b32, c32, int(lam), limit)
+        if k > 0:
+            descent_split.launches += 1
+    return split32, rec_y, rec_u, rec_v
 
 
 descent_split.launches = 0

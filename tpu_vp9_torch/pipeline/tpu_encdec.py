@@ -1729,19 +1729,21 @@ def _merge4(blocks, k: int, n: int):
 
 
 def descent_gather_ref(sel_idx, wins, dy, dx, parent_mv, src_y, src_u,
-                       src_v, geom: Geom):
+                       src_v, ref_y, geom: Geom):
     """The descent's gathers for the 4K children of the K parents
     ``sel_idx`` (plain version of the kernel behind ``ops/cuda_kernels.py:
     descent_gather``, same arguments): each child's 40x40 search window,
     a 16-block of its parent's (SW, SW) LAST window (one 64x64 union slice
     per parent around its full-pel winner (dy, dx), clipped into the
     window, and four 40x40 sub-slices of it), its luma and chroma source
-    blocks, sum(src^2), and the int32 vectors the descent reads (the map
-    centre's displacement, the child's position and bordered start, its
-    offset in the parent's window, the window index, the parent's final
-    MV). Child order: k*4 + 2*i + j for parent sel_idx[k], child row i,
-    column j. Returns a dict ``cw``, ``csrc``, ``csrc_u``, ``csrc_v`` and
-    the keys of ``cuda_kernels.GATHER_INTS``."""
+    blocks, sum(src^2), its exact ZERO SSE against the co-located block of
+    ``ref_y`` (LAST's border-extended luma, at the child's position plus
+    BORDER), and the int32 vectors the descent reads (the map centre's
+    displacement, the child's position, its offset in the parent's window,
+    the window index, the parent's final MV). Child order: k*4 + 2*i + j
+    for parent sel_idx[k], child row i, column j. Returns a dict ``cw``,
+    ``csrc``, ``csrc_u``, ``csrc_v`` and the keys of
+    ``cuda_kernels.GATHER_INTS``."""
     g = geom
     dev = src_y.device
     sel = sel_idx.long()
@@ -1769,13 +1771,16 @@ def descent_gather_ref(sel_idx, wins, dy, dx, parent_mv, src_y, src_u,
     csrc = _extract_blocks(src_y, 0, rows32 * 2, cols16, 16)[cidx]
     csrc_u, csrc_v = (_extract_blocks(plane, 0, rows32 * 2, cols16, 8)[cidx]
                       for plane in (src_u, src_v))
+    cref = _extract_blocks(ref_y[:, BORDER:], BORDER, rows32 * 2, cols16,
+                           16)[cidx]
+    diff = csrc.to(torch.int32) - cref.to(torch.int32)
     return {
         "cw": cw, "csrc": csrc, "csrc_u": csrc_u, "csrc_v": csrc_v,
-        "src2": _block_sq_sum(csrc), "base_y": base_y, "base_x": base_x,
+        "src2": _block_sq_sum(csrc),
+        "sse_zero": (diff * diff).sum(dim=(1, 2), dtype=torch.int32),
+        "base_y": base_y, "base_x": base_x,
         "pos_y": (c_row * 16).reshape(-1).to(torch.int32),
         "pos_x": (c_col * 16).reshape(-1).to(torch.int32),
-        "start_y": (c_row * 16 + BORDER).reshape(1, -1).to(torch.int32),
-        "start_x": (c_col * 16 + BORDER).reshape(1, -1).to(torch.int32),
         "off_y": (ii * 16).repeat(k).to(torch.int32),
         "off_x": (jj * 16).repeat(k).to(torch.int32),
         "win_idx": sel.to(torch.int32).repeat_interleave(4),
@@ -1785,16 +1790,19 @@ def descent_gather_ref(sel_idx, wins, dy, dx, parent_mv, src_y, src_u,
 
 
 def descent_gather(sel_idx, wins, dy, dx, parent_mv, src_y, src_u, src_v,
-                   geom: Geom):
-    """The descent's gathers (contract: ``descent_gather_ref``). Tensors
-    that all lie on the CPU take the plain version; anything else goes to
-    the CUDA kernel's wrapper, which launches or raises."""
+                   ref_y, geom: Geom):
+    """The descent's gathers and the children's ZERO SSE (contract:
+    ``descent_gather_ref``). Tensors that all lie on the CPU take the
+    plain version; anything else goes to the CUDA kernel's wrapper, which
+    launches or raises."""
     if all(t.device.type == "cpu" for t in (sel_idx, wins, dy, dx,
-                                            parent_mv, src_y, src_u, src_v)):
+                                            parent_mv, src_y, src_u, src_v,
+                                            ref_y)):
         return descent_gather_ref(sel_idx, wins, dy, dx, parent_mv, src_y,
-                                  src_u, src_v, geom)
+                                  src_u, src_v, ref_y, geom)
     return cuda_kernels.descent_gather(sel_idx, wins, dy, dx, parent_mv,
-                                       src_y, src_u, src_v, geom, BORDER)
+                                       src_y, src_u, src_v, ref_y, geom,
+                                       BORDER)
 
 
 def descent_decide_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2,
@@ -1904,9 +1912,10 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
 
     parent_me: {"wins", "dy", "dx", "planes", "grid"} from the 32 zone: the
     children search +-CHILD_R inside their parent's LAST window
-    (``descent_gather``) and are compensated out of the parent's luma and
-    chroma windows, read in place in LAST's planes at the zone's window
-    grid, through per-child origin offsets. parent_mv:
+    (``descent_gather``, which takes their ZERO SSE against ``ref_y``, the
+    co-located block of LAST's bordered luma) and are compensated out of
+    the parent's luma and chroma windows, read in place in LAST's planes
+    at the zone's window grid, through per-child origin offsets. parent_mv:
     (B32, 2) int32 final q3 MVs of the parents (the PARENT candidate,
     scored at its entry of the child's SSE map). sel_idx: (K,) raster
     parent indices. Candidates {ZERO, NEW, PARENT}, first minimum
@@ -1921,16 +1930,13 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
     with _stage("step_children"):
         ga = descent_gather(sel, parent_me["wins"], parent_me["dy"],
                             parent_me["dx"], parent_mv, src_y, src_u, src_v,
-                            g)
+                            ref_y, g)
         csrc, cw = ga["csrc"], ga["cw"]
         ddy, ddx, ssem_c = sse_map_search(csrc, cw, 16, CHILD_R)
         sub_r, sub_c, sse_new = subpel_search(cw, csrc, ddy, ddx, 16,
                                               CHILD_R)
-        # exact ZERO SSE: the co-located reference block, read in place
-        sse_zero = block_energy_at(csrc, ref_y, ga["start_y"],
-                                   ga["start_x"], 16)[0][0]
         mv_r, mv_c, mv = descent_decide(
-            ssem_c, sse_zero, sse_new, sub_r, sub_c, ga["src2"],
+            ssem_c, ga["sse_zero"], sse_new, sub_r, sub_c, ga["src2"],
             ga["base_y"], ga["base_x"], ga["par_r"], ga["par_c"], lam,
             new_bits, rates)
 
@@ -2008,8 +2014,11 @@ def descent_split_ref(sel_idx, dist_b, rate_b, dist4, rate4, rec_y, rec_u,
 def descent_split(sel_idx, dist_b, rate_b, dist4, rate4, rec_y, rec_u,
                   rec_v, rec_y32, rec_u16, rec_v16, lam: int, geom: Geom):
     """The split decision and merge (contract: ``descent_split_ref``).
-    Tensors that all lie on the CPU take the plain version; anything else
-    goes to the CUDA kernel's wrapper, which launches or raises."""
+    Tensors that all lie on the CPU take the plain version, which returns
+    new planes; anything else goes to the CUDA kernel's wrapper, which
+    launches or raises, and which writes the split parents' blocks into
+    ``rec_y``, ``rec_u`` and ``rec_v`` in place and returns those planes:
+    a caller that still needs the zone's recon clones it first."""
     if all(t.device.type == "cpu" for t in (sel_idx, dist_b, rate_b, dist4,
                                             rate4, rec_y, rec_u, rec_v,
                                             rec_y32, rec_u16, rec_v16)):
@@ -2042,7 +2051,9 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     lambda (tune SQ); the children and the split decision keep the
     frame's.
     Returns (outputs dict, new border-extended (ref_y, ref_u, ref_v));
-    outputs hold the "m32" zone, at a strip geometry the strip's "m16",
+    outputs hold the "m32" zone (with split16 on the card its recon
+    planes are the split's, written in place), at a strip geometry the
+    strip's "m16",
     with split16 the children "m16f" and "split32", and the loop-filtered
     padded recon planes "rec_y"/"rec_u"/"rec_v". The references are new
     tensors: the inputs are never written.

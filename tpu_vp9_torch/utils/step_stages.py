@@ -1,7 +1,7 @@
 """Host and device time of each stage of the 1080p M8 P-frame step, on the
 card.
 
-    python3 -m tpu_vp9_torch.utils.step_stages [--frames N]
+    python3 -m tpu_vp9_torch.utils.step_stages [--frames N] [--calls R]
 
 and, from the root of another tree of the port (an older checkout), the
 same script timing that tree's package:
@@ -9,7 +9,7 @@ same script timing that tree's package:
     python3 -c "import runpy, sys; sys.argv[1:] = ['--frames', 'N']; \
         runpy.run_path('<this file>', run_name='__main__')"
 
-Encodes panning_frames(1920, 1080, 1 + 3N, seed=1) at enc_mode 8, low
+Encodes panning_frames(1920, 1080, 2 + 3N, seed=1) at enc_mode 8, low
 delay, CQP qp 40 through the public encoder (the device keyframe, GOLDEN,
 the 32-against-16 descent): the keyframe and N P-frames to warm up, then N
 P-frames with ``utils.trace`` on (each ``step_*`` span's host-clock time,
@@ -19,7 +19,11 @@ ops, plus that of the hand kernels it launched (each wrapper's launches
 counted inside the range, times its kernel's mean device time per launch
 in the same profile), per P-frame. Prints one line per stage, the P-frame
 send's mean host time, the card's name and power limit, and which tree's
-package ran.
+package ran. With ``--calls R`` it then times the descent's gather and
+split dispatches on the inputs of one more P-frame's calls, R calls each
+(CUDA events around a call, median; the host's time a call over R calls
+back to back): where the tree's gather does not return the children's ZERO
+SSE, the children's ``block_energy_at`` call too, and the two together.
 
 It reads only the public encoder, ``pipeline/tpu_encdec.py:_stage`` and
 the wrappers' ``launches`` counts, so the second form times an older tree
@@ -52,6 +56,85 @@ def _wrappers():
 
     return {k: v for k, v in vars(K).items()
             if callable(v) and isinstance(getattr(v, "launches", None), int)}
+
+
+def _median_call_ms(fn, reps: int) -> float:
+    """Median of CUDA-event times around one call of ``fn``."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _host_call_ms(fn, reps: int) -> float:
+    """The host's time a call, ``reps`` calls back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1000 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def _descent_calls(enc, frame, reps: int) -> None:
+    """Send ``frame`` with the descent's gather and split dispatches (and
+    the children's ``block_energy_at`` calls) recorded, then time each on
+    its recorded inputs; the split's zone planes are copied when recorded
+    (a tree whose split writes them in place changes them in the step)."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    calls, inside = {}, [False]
+    real = {k: getattr(P, k) for k in ("descent_gather", "descent_split",
+                                       "block_energy_at",
+                                       "encode_children_masked")}
+
+    def gather(*args):
+        calls["descent_gather"] = args
+        return real["descent_gather"](*args)
+
+    def split(*args):
+        calls["descent_split"] = (*args[:5], *(t.clone() for t in args[5:8]),
+                                  *args[8:])
+        return real["descent_split"](*args)
+
+    def energy_at(*args):
+        if inside[0]:
+            calls["children block_energy_at"] = args
+        return real["block_energy_at"](*args)
+
+    def children(*args, **kw):
+        inside[0] = True
+        try:
+            return real["encode_children_masked"](*args, **kw)
+        finally:
+            inside[0] = False
+
+    P.descent_gather, P.descent_split = gather, split
+    P.block_energy_at, P.encode_children_masked = energy_at, children
+    try:
+        enc.send_picture(frame)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in real.items():
+            setattr(P, k, v)
+    fns = {k: (lambda f=real[k.split()[-1]], a=a: f(*a))
+           for k, a in calls.items()}
+    if "children block_energy_at" in fns:
+        pair = (fns["descent_gather"], fns["children block_energy_at"])
+        fns["descent_gather + children block_energy_at"] = \
+            lambda: [f() for f in pair]
+    for name, fn in fns.items():
+        print(f"call {name}: {_median_call_ms(fn, reps):.4f} ms (CUDA "
+              f"events, median of {reps}), host {_host_call_ms(fn, reps):.4f}"
+              f" ms a call ({reps} back to back)")
 
 
 @contextlib.contextmanager
@@ -96,13 +179,15 @@ def main() -> int:
 
     n = int(sys.argv[sys.argv.index("--frames") + 1]) \
         if "--frames" in sys.argv else 4
+    reps = int(sys.argv[sys.argv.index("--calls") + 1]) \
+        if "--calls" in sys.argv else 0
     libs = sorted(os.path.basename(p)[:-3]
                   for p in glob.glob(os.path.join(_build.CSRC, "*.cu")))
     t0 = time.perf_counter()
     _build.build_all(libs)
     print(f"tree {os.path.dirname(tpu_vp9_torch.__file__)}: {len(libs)} "
           f"kernel sources built in {time.perf_counter() - t0:.1f} s")
-    frames = list(panning_frames(WIDTH, HEIGHT, 1 + 3 * n, seed=1))
+    frames = list(panning_frames(WIDTH, HEIGHT, 2 + 3 * n, seed=1))
     enc = Vp9Encoder(device="cuda")
     enc.set_parameter(EncoderConfig(
         source_width=WIDTH, source_height=HEIGHT, enc_mode=8,
@@ -130,9 +215,11 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
             _stage_launches(launches):
-        for frame in frames[1 + 2 * n:]:
+        for frame in frames[1 + 2 * n:1 + 3 * n]:
             enc.send_picture(frame)
         torch.cuda.synchronize()
+    if reps:
+        _descent_calls(enc, frames[-1], reps)
     enc.flush()
     enc.close()
     averages = prof.key_averages()
