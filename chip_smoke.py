@@ -12,11 +12,13 @@ Phases, each of which raises on failure (nothing is caught):
      and both levels fused, hier_search_fused), subpel_search, mc_predict,
      transform_recon, kframe_wave, loop_filter, the descent's four
      kernels (descent_gather with the children's ZERO SSE, descent_decide,
-     descent_pack, descent_split, in place: the M8 P-frame's real calls at
-     K = 510 parents, the RA shape of every parent's children, K = 2,040,
+     descent_pack with their recon SSE, descent_split, in place: the M8
+     P-frame's real calls at K = 510 parents, the RA shape of every
+     parent's children, K = 2,040,
      the frame's edges, unions clamped at both ends and starting at every
      byte of a word, all-tie costs, a lam that flips the split, the
-     overhang row, every block the split keeps byte-identical), the mode
+     overhang row, every block the split keeps byte-identical, the pack's
+     SSE at its most and every level zero and nonzero), the mode
      decision (mode_decide: the M8 P-frame's real
      32 zone with GOLDEN and the rate tables, M9's proxies, tune SQ's
      per-block lam_bits, a shard's LEFT edge, ALTREF, SSEs above 2^24,
@@ -76,7 +78,7 @@ Phases, each of which raises on failure (nothing is caught):
      once (a CTA per block row) and loop_filter once; per P-frame the search
      entry points must launch twice (hier_search_fused, then sse_map_search
      for the children), subpel_search twice, mc_predict twice (the zone, the
-     children), transform_recon 6 times, the block_energy ones 4 times,
+     children), transform_recon 6 times, the block_energy ones 3 times,
      descent_gather, descent_decide, descent_pack and descent_split once
      each, mode_decide once, extract_windows once (the search's windows;
      MC reads the planes in place), loop_filter once and extend_borders
@@ -281,9 +283,10 @@ SAD_B, SAD_N, SAD_R = 33 * 60, 32, 16
 M9_B = 34 * 60
 # launches per P-frame of the step, by wrapper. M8: the fused two-level
 # search of the 32 zone and the children's search; the recon distortion of the
-# 32 zone and of the children (block_energy); the 32 zone's ZERO SSE and
-# GOLDEN's ZERO and previous-MV SSE in one launch (block_energy_at; the
-# children's ZERO SSE is descent_gather's): 2 search and 4 energy launches;
+# 32 zone (block_energy; the children's is descent_pack's); the 32 zone's
+# ZERO SSE and GOLDEN's ZERO and previous-MV SSE in one launch
+# (block_energy_at; the children's ZERO SSE is descent_gather's): 2 search
+# and 3 energy launches;
 # the quarter-pel search of the zone and of the children; the transform of the
 # zone's Y32, U16 and V16 and of the children's Y16, U8 and V8; the loop
 # filter of all three planes, split mask included, is one launch; MC of the
@@ -305,7 +308,7 @@ MD_WINDOW_WRAPPERS = ("mode_decide", "extract_windows", "extend_borders")
 ZONE_MD_WINDOWS = {"mode_decide": 1, "extract_windows": 1}
 BORDERS = {"extend_borders": 1}
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
-               "block_energy": 2, "block_energy_at": 2, "txq_cost": 2,
+               "block_energy": 1, "block_energy_at": 2, "txq_cost": 2,
                "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
                "mc_predict": 2, **dict.fromkeys(DESCENT_WRAPPERS, 1),
                **ZONE_MD_WINDOWS, **BORDERS}
@@ -724,13 +727,15 @@ def _energy_at_inputs(n, c, seed):
 
 def energy_kernel_phase(dev):
     """block_energy and block_energy_at (CUDA) against their plain
-    versions at B=2040, n=32 (the 32 zone) and n=16 (the M8 children)."""
+    versions at B=2040, n=32 (the 32 zone's recon SSE; n=16, the M8
+    children's until descent_pack took it, checked at B=256 with n=8 and
+    64: the strips time it at their shapes)."""
     from tpu_vp9_torch.ops import cuda_kernels as K
 
     rng = np.random.default_rng(3)
     max_err = 0
     parts = []
-    for n, per_frame in ((32, 1), (16, 1), (8, 0), (64, 0)):
+    for n, per_frame in ((32, 1), (16, 0), (8, 0), (64, 0)):
         b = M9_B if per_frame else 256
         src = rng.integers(0, 256, (b, n, n), dtype=np.uint8)
         pred = np.clip(src.astype(np.int32) + rng.integers(-40, 41, src.shape),
@@ -2087,7 +2092,7 @@ def mc_kernel_phase(dev, real):
 # pframe_step's split decision and merge), and their threads a CTA
 DESCENT_REPLACES = {"descent_gather": "tpu_vp9/pipeline/tpu_encdec.py:1933",
                     "descent_decide": "tpu_vp9/pipeline/tpu_encdec.py:1973",
-                    "descent_pack": "tpu_vp9/pipeline/tpu_encdec.py:2052",
+                    "descent_pack": "tpu_vp9/pipeline/tpu_encdec.py:2044",
                     "descent_split": "tpu_vp9/pipeline/tpu_encdec.py:2134"}
 DESCENT_THREADS = {"descent_gather": 128, "descent_decide": 128,
                    "descent_pack": 128, "descent_split": 128}
@@ -2149,11 +2154,13 @@ def _descent_bound(name, args):
     blocks (1,984) and eleven int32 words (44): 13,828 bytes; the decide
     reads a child's map entry, nine words and a rate entry, and writes its
     MVs (12 bytes); the pack reads a child's eobs, levels (int16), recon
-    and distortion, and writes skip, the merged recon and a parent's two
-    int64 sums; the split reads each selected parent's sel entry and the
-    zone's and children's costs (32 bytes), zeroes split32 and writes each
-    selected parent's, and for each parent that splits in this run reads
-    its children's blocks and writes them into the planes (3,072 bytes)."""
+    and luma source, and writes skip, the merged recon and a parent's two
+    int64 sums (7,236 bytes a parent), against its operations (the SSE's
+    five a luma byte); the split reads each selected parent's sel entry
+    and the zone's and children's costs (32 bytes), zeroes split32 and
+    writes each selected parent's, and for each parent that splits in this
+    run reads its children's blocks and writes them into the planes (3,072
+    bytes)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     ops = 0
@@ -2165,8 +2172,9 @@ def _descent_bound(name, args):
         nbytes = args[1].shape[0] * (4 + 9 * 4 + 4 + 12)
     elif name == "descent_pack":
         nch = args[0].shape[0]
-        nbytes = nch * (12 + 2 * 384 + 384 + 4) + nch * (1 + 384) \
+        nbytes = nch * (12 + 2 * 384 + 384 + 256) + nch * (1 + 384) \
             + 16 * nch // 4
+        ops = 5 * 256 * nch
     else:
         k, b32 = args[0].shape[0], args[1].shape[0]
         n_split = int(P.descent_split_ref(*args)[0].sum())
@@ -2182,7 +2190,9 @@ def _descent_made_up(dev, real, rng):
     (rows and columns 0-56 in steps of 7 and 5);
     the decide without rate tables, and with all three costs tied (with
     and without the tables: ZERO must win) on 8,160 made-up children whose
-    PARENT MVs lie anywhere in the parents' reach; the split with every
+    PARENT MVs lie anywhere in the parents' reach; the pack with its SSE at
+    256 * 255^2 a child and every level nonzero, and at 0 with every level
+    zero; the split with every
     parent of the overhang row selected and its children far better (none
     may split), at lam 0 and 10^6 (the rate terms gone, and ruling), and
     at lam 0 with the children's distortion equal to their parent's in
@@ -2255,6 +2265,19 @@ def _descent_made_up(dev, real, rng):
                    on(rng.integers(0, 4_000_000, n)), on(sub[0]), on(sub[1]),
                    on(src2), on(base[0]), on(base[1]), on(par[0]),
                    on(par[1]), 300, da[11], da[12])))
+    # the pack on the real call's shapes: its SSE at its most (recon 255
+    # against a source of 0) with every level nonzero, and 0 with every
+    # level zero
+    pa = args["descent_pack"]
+    lv = [torch.full_like(t, -3) for t in pa[3:6]]
+    cases.append(("pack: recon 255 against a source of 0, every level "
+                  "nonzero", "descent_pack",
+                  (*pa[:3], *lv, torch.full_like(pa[6], 255), *pa[7:9],
+                   torch.zeros_like(pa[9]))))
+    cases.append(("pack: every level zero, recon equal to its source",
+                  "descent_pack",
+                  (*pa[:3], *(torch.zeros_like(t) for t in pa[3:6]),
+                   pa[6], *pa[7:9], pa[6].clone())))
     # the split: the overhang row selected with children far better
     sa = list(args["descent_split"])
     b32, c32 = g.n_blocks32, g.cols32
@@ -2356,6 +2379,14 @@ def descent_kernel_phase(dev, real, ecm):
                 (got[0].any() or got[1].any()):
             raise AssertionError(f"descent_decide [{label}]: a tie did not "
                                  "go to ZERO")
+        if name == "descent_pack":
+            most = label.startswith("pack: recon 255")
+            want = ((4 * 256 * 255 ** 2, 4 * (256 + 128)) if most
+                    else (0, 0))
+            if not (torch.all(got["dist4"] == want[0])
+                    and torch.all(got["rate4"] == want[1])):
+                raise AssertionError(f"descent_pack [{label}]: dist4, rate4 "
+                                     f"not {want}")
         if name != "descent_split":
             continue
         sel = args[0].long()
@@ -2586,7 +2617,8 @@ def md_window_kernel_phase(dev, real):
     kernel's registers, spills and resident CTAs per SM printed; call,
     device, plain, library and bound times at the 1080p M8 shapes (the
     entries), 720p and 4K (their "strip_parts"); extract_windows' call
-    beside unfold(...).contiguous()'s at every shape ("call_vs_library").
+    beside unfold(...).contiguous()'s and extend_borders' beside two
+    index_selects a plane at every shape, in turns ("call_vs_library").
     Returns {name: entry}."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
@@ -2614,7 +2646,9 @@ def md_window_kernel_phase(dev, real):
         errs[name] = max(errs[name], _check(name, label, got, want))
         return got
 
-    against_library = []
+    against_library = {"extract_windows": [], "extend_borders": []}
+    library_name = {"extract_windows": "unfold(...).contiguous()",
+                    "extend_borders": "two index_selects a plane"}
 
     def timed(name, label, args, count=1):
         kernel, plain, library = _md_window_fns(name, args)
@@ -2625,14 +2659,14 @@ def md_window_kernel_phase(dev, real):
         if lib_ms is not None:
             print(f"kernel {name} {label}: the PyTorch calls' time "
                   f"{lib_ms:.4f} ms (CUDA events, median)")
-        if name == "extract_windows":
+        if name in against_library:
             k_ms, l_ms = _calls_in_turns(kernel, library, 100)
             print(f"kernel {name} {label}: in turns, the kernel's call "
-                  f"{k_ms:.4f} ms, unfold(...).contiguous() {l_ms:.4f} ms "
+                  f"{k_ms:.4f} ms, {library_name[name]} {l_ms:.4f} ms "
                   f"(CUDA events, medians of 100 each): "
                   f"{'no slower' if k_ms <= l_ms else 'slower'}")
-            against_library.append({"shape": label, "ms": k_ms,
-                                    "library_ms": l_ms})
+            against_library[name].append({"shape": label, "ms": k_ms,
+                                          "library_ms": l_ms})
         return part, lib_ms
 
     m8 = {}
@@ -2743,12 +2777,12 @@ def md_window_kernel_phase(dev, real):
             entry["library_ms"] = sum(lib)
         entry["strip_parts"] = [_part(p) for p in strip_parts[name]]
         entries[name] = entry
-    entries["extract_windows"]["call_vs_library"] = against_library
-    slower = [c["shape"] for c in against_library
-              if c["ms"] > c["library_ms"]]
-    print(f"kernel extract_windows: the call no slower than "
-          f"unfold(...).contiguous() at {len(against_library) - len(slower)} "
-          f"of {len(against_library)} shapes; slower at {slower}")
+    for name, calls in against_library.items():
+        entries[name]["call_vs_library"] = calls
+        slower = [c["shape"] for c in calls if c["ms"] > c["library_ms"]]
+        print(f"kernel {name}: the call no slower than {library_name[name]} "
+              f"at {len(calls) - len(slower)} of {len(calls)} shapes; slower "
+              f"at {slower}")
     return entries
 
 
@@ -3866,10 +3900,10 @@ def _ra_launches(geom, golden: bool, altref: bool):
     search windows in one (LAST's); GOLDEN adds its two candidates'
     SSEs (one block_energy_at), ALTREF its own search windows, search,
     quarter-pel search and ZERO SSE; without a strip the descent adds the
-    children's search, quarter-pel search, MC, three transforms and recon
-    SSE, and its gathers (the children's ZERO SSE with them), decision,
-    pack and split merge (one launch each); the loop filter and the
-    borders are one launch each."""
+    children's search, quarter-pel search, MC and three transforms, and its
+    gathers (the children's ZERO SSE with them), decision, pack (their
+    recon SSE with it) and split merge (one launch each); the loop filter
+    and the borders are one launch each."""
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
@@ -3888,8 +3922,7 @@ def _ra_launches(geom, golden: bool, altref: bool):
         c["block_energy_at"] += 1 + golden + altref
     if not geom.strip:
         for k, v in (("sse_map_search", 1), ("subpel_search", 1),
-                     ("mc_predict", 1),
-                     ("transform_recon", 3), ("block_energy", 1),
+                     ("mc_predict", 1), ("transform_recon", 3),
                      *((w, 1) for w in DESCENT_WRAPPERS)):
             c[k] += v
     return c
@@ -4103,7 +4136,8 @@ def _ra_calls(calls):
     ALTREF, the children's), sse_map_search (the children's),
     block_energy_at (LAST's ZERO, GOLDEN's two in one call, ALTREF's ZERO;
     the children's is descent_gather's), transform_recon (the zone's Y, U,
-    V, the children's U, V, Y), block_energy (the zone's, the children's),
+    V, the children's U, V, Y), block_energy (the zone's; the children's
+    is descent_pack's),
     mode_decide (the zone's), extract_windows (LAST's search site,
     ALTREF's), extend_borders (the recon's)."""
     by = {}
@@ -4114,7 +4148,7 @@ def _ra_calls(calls):
                  for a in by.get(k, [])] for k in RA_RECORDED}
     want_counts = {"hier_search": 2, "subpel_search": 3,
                    "sse_map_search": 1, "transform_recon": 6,
-                   "block_energy_at": 3, "block_energy": 2,
+                   "block_energy_at": 3, "block_energy": 1,
                    "mode_decide": 1, "extract_windows": 2,
                    "extend_borders": 1}
     if {k: len(by.get(k, [])) for k in RA_RECORDED} != want_counts:
@@ -4129,8 +4163,8 @@ def ra_kernel_phase(dev, calls, kernels):
     phase), against their plain versions on the card, bit for bit
     (transform_recon's level flips bounded as in its own phase): the
     descent over every parent, 8,160 children (sse_map_search n=16 r=8
-    with its map, subpel_search n=16 r=8, transform_recon at 16 and 8,
-    block_energy's recon SSE at n=16; their ZERO SSE is descent_gather's),
+    with its map, subpel_search n=16 r=8, transform_recon at 16 and 8;
+    their ZERO SSE is descent_gather's, their recon SSE descent_pack's),
     and ALTREF's own search (hier_search_fused, its ZERO SSE and
     subpel_search at n=32 r=4). Each timed; the parts go to the kernels'
     entries as "ra_parts"."""
@@ -4194,7 +4228,7 @@ def ra_kernel_phase(dev, calls, kernels):
                 2 if label == "U" else 1))
     errs["transform_recon"] = tr_err
     # ZERO's SSE read in place: ALTREF's at n=32 (the children's is
-    # descent_gather's); the children's recon SSE
+    # descent_gather's)
     for label, (src, plane, y0, x0, nn) in (
             ("ALTREF ZERO", by["block_energy_at"][2]),):
         c, b = y0.shape
@@ -4204,13 +4238,6 @@ def ra_kernel_phase(dev, calls, kernels):
              lambda a=(src, plane, y0, x0, nn): K.block_energy_at_ref(*a),
              _bound(b * nn * nn * (1 + c) + 16 * c * b, 5 * c * b * nn * nn,
                     ALU_OPS_PER_S), "block_energy_at_kernel", 20)
-    src, rec, nn = by["block_energy"][1]
-    b = src.shape[0]
-    held("block_energy", "block_energy", f"1080p RA children recon B={b} "
-         f"n={nn}", lambda: K.block_energy(src, rec, nn),
-         lambda: K.block_energy_ref(src, rec, nn),
-         _bound(2 * b * nn * nn + 8 * b, 5 * b * nn * nn, ALU_OPS_PER_S),
-         "block_energy_kernel", 20)
     # the decision with GOLDEN and ALTREF, ALTREF's search windows and the
     # borders
     for name, label, args in (

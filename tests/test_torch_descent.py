@@ -398,7 +398,11 @@ def test_decide_ref_raises_past_mvd_max():
     port_decide(a, 100)
 
 
-def pack_case(k, seed):
+def pack_case(k, seed, case="random"):
+    """descent_pack's arguments as numpy; ``case`` "extremes": the first
+    parents' children every level zero, then every level nonzero, recon
+    all 255 against a source of 0 and 0 against 255 (the SSE at its
+    most), then equal."""
     rng = np.random.default_rng(seed)
     n = 4 * k
 
@@ -406,36 +410,44 @@ def pack_case(k, seed):
         lv = rng.integers(-40, 41, (n, m, m))
         lv[rng.random((n, m, m)) < 0.8] = 0
         lv[::3] = 0
+        if case == "extremes":
+            lv[:4] = 0
+            lv[4:8] = rng.choice([-1, 1, 7, -300], (4, m, m))
         return lv.astype(np.int16)
 
     eob = [rng.integers(0, 3, n).astype(np.int32) for _ in range(3)]
     for e in eob:
         e[::2] = 0
+    rec = rng.integers(0, 256, (n, 16, 16), np.uint8)
+    src = rng.integers(0, 256, (n, 16, 16), np.uint8)
+    if case == "extremes":
+        rec[:4], src[:4] = 255, 0
+        rec[4:8], src[4:8] = 0, 255
+        src[8:12] = rec[8:12]
     return dict(eob_y=eob[0], eob_u=eob[1], eob_v=eob[2],
                 lv_y=levels(16), lv_u=levels(8), lv_v=levels(8),
-                rec_y=rng.integers(0, 256, (n, 16, 16), np.uint8),
-                rec_u=rng.integers(0, 256, (n, 8, 8), np.uint8),
-                rec_v=rng.integers(0, 256, (n, 8, 8), np.uint8),
-                dist_c=rng.integers(0, 16_646_400, n).astype(np.int32))
+                rec_y=rec, rec_u=rng.integers(0, 256, (n, 8, 8), np.uint8),
+                rec_v=rng.integers(0, 256, (n, 8, 8), np.uint8), csrc=src)
 
 
 PACK_KEYS = ("eob_y", "eob_u", "eob_v", "lv_y", "lv_u", "lv_v", "rec_y",
-             "rec_u", "rec_v", "dist_c")
+             "rec_u", "rec_v", "csrc")
 
 
 def jax_pack(a):
-    """The JAX lines of ``skip``, ``rate_c``, the sums and the merged
-    blocks (``encode_children_masked:2052-2064``), on the same
-    distortion."""
+    """The JAX lines of ``skip``, ``dist_c``, ``rate_c``, the sums and the
+    merged blocks (``encode_children_masked:2044-2064``)."""
     j = {key: jnp.asarray(a[key]) for key in PACK_KEYS}
     k = j["eob_y"].shape[0] // 4
     skip = (j["eob_y"] == 0) & (j["eob_u"] == 0) & (j["eob_v"] == 0)
+    dist_c = ((j["rec_y"].astype(jnp.int32)
+               - j["csrc"].astype(jnp.int32)) ** 2).sum(axis=(1, 2))
     rate_c = ((j["lv_y"] != 0).sum(axis=(1, 2))
               + (j["lv_u"] != 0).sum(axis=(1, 2))
               + (j["lv_v"] != 0).sum(axis=(1, 2)))
     return {
         "skip": skip,
-        "dist4": j["dist_c"].reshape(k, 4).sum(axis=1),
+        "dist4": dist_c.reshape(k, 4).sum(axis=1),
         "rate4": rate_c.reshape(k, 4).sum(axis=1),
         "rec_y32": j["rec_y"].reshape(k, 2, 2, 16, 16)
         .transpose(0, 1, 3, 2, 4).reshape(k, 32, 32),
@@ -450,8 +462,12 @@ def port_pack(a, fn=None):
     return (fn or P.descent_pack_ref)(*(_t(a[key]) for key in PACK_KEYS))
 
 
-def test_pack_ref_matches_jax():
-    a = pack_case(9, seed=11)
+@pytest.mark.parametrize("case", ["random", "extremes"])
+def test_pack_ref_matches_jax(case):
+    """The pack's plain version, its children's recon SSE included, against
+    the JAX lines; the extremes reach the SSE's most, 256 * 255^2 a
+    child."""
+    a = pack_case(9, seed=11, case=case)
     got, want = port_pack(a), jax_pack(a)
     assert set(got) == set(want)
     for key, v in want.items():
@@ -459,6 +475,8 @@ def test_pack_ref_matches_jax():
     assert got["skip"].dtype == torch.bool
     assert got["dist4"].dtype == got["rate4"].dtype == torch.int64
     assert got["skip"].any() and not got["skip"].all()
+    if case == "extremes":
+        assert got["dist4"][:3].tolist() == [4 * 256 * 255 ** 2] * 2 + [0]
 
 
 def split_case(w, h, seed, overhang_wins=False):

@@ -52,9 +52,12 @@ EDGE = 8 * P.WIN_R + 6  # the largest parent MV, q3
 PROXY = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
 
 # the stand-in's launch helpers: every CTA of the grid (the gather's a CTA
-# per parent, the split's a warp per selected parent), one after another;
-# a trapped kernel fails its launch
+# per parent, the split's a warp per selected parent), one after another,
+# but the pack's, kPackAtOnce CTAs at once (each with its own shared
+# words); a trapped kernel fails its launch
 _STANDIN_LAUNCH = """
+constexpr int kPackAtOnce = 64;
+
 cudaError_t launch_gather(const GatherArgs& a, cudaStream_t) {
   standin_launch(a.k, kGatherThreads, [&] { descent_gather_kernel(a); });
   return standin_take_trap();
@@ -67,7 +70,13 @@ cudaError_t launch_decide(const DecideArgs& a, cudaStream_t) {
 }
 
 cudaError_t launch_pack(const PackArgs& a, cudaStream_t) {
-  standin_launch(a.k, kPackThreads, [&] { descent_pack_kernel(a); });
+  for (int c0 = 0; c0 < a.k; c0 += kPackAtOnce) {
+    standin_launch_all(a.k - c0 < kPackAtOnce ? a.k - c0 : kPackAtOnce,
+                       kPackThreads, [&] {
+                         blockIdx.x += c0;
+                         descent_pack_kernel(a);
+                       });
+  }
   return standin_take_trap();
 }
 
@@ -235,7 +244,13 @@ def rate_tabs(seed):
     return P.make_rate_tabs(fc, 120)
 
 
-def pack_args(k, seed):
+def pack_args(k, seed, case="random"):
+    """descent_pack's tensors for K parents: levels mostly zero (every
+    third child's all zero), eobs half zero, random recon and luma source;
+    ``case`` "extremes": the first parents' children every level zero,
+    then every level nonzero, and recon against source all 255 against 0
+    and 0 against 255 (the SSE at its most, 256 * 255^2 a child) and
+    equal."""
     rng = np.random.default_rng(seed)
     n = 4 * k
 
@@ -243,18 +258,25 @@ def pack_args(k, seed):
         lv = rng.integers(-40, 41, (n, m, m))
         lv[rng.random((n, m, m)) < 0.8] = 0
         lv[::3] = 0
-        return _t(lv.astype(np.int16))
+        if case == "extremes":
+            lv[:4] = 0
+            lv[4:8] = rng.choice([-1, 1, 7, -300], (4, m, m))
+        return lv.astype(np.int16)
 
     eobs = []
     for _ in range(3):
         e = rng.integers(0, 3, n).astype(np.int32)
         e[::2] = 0
         eobs.append(_t(e))
-    return [*eobs, levels(16), levels(8), levels(8),
-            _t(rng.integers(0, 256, (n, 16, 16), np.uint8)),
+    rec = rng.integers(0, 256, (n, 16, 16), np.uint8)
+    src = rng.integers(0, 256, (n, 16, 16), np.uint8)
+    if case == "extremes":
+        rec[:4], src[:4] = 255, 0
+        rec[4:8], src[4:8] = 0, 255
+        src[8:12] = rec[8:12]
+    return [*eobs, _t(levels(16)), _t(levels(8)), _t(levels(8)), _t(rec),
             _t(rng.integers(0, 256, (n, 8, 8), np.uint8)),
-            _t(rng.integers(0, 256, (n, 8, 8), np.uint8)),
-            _t(rng.integers(0, 16_646_400, n).astype(np.int32))]
+            _t(rng.integers(0, 256, (n, 8, 8), np.uint8)), _t(src)]
 
 
 def split_args(w, h, seed, overhang_wins=False):
@@ -369,11 +391,24 @@ def test_decide_on_standin_ties_take_the_first(on_standin, with_rates):
     assert torch.equal(got[0], base_y * 8 + sub_r)
 
 
-def test_pack_on_standin_matches_plain(on_standin):
-    args = pack_args(9, seed=11)
+@pytest.mark.parametrize("k,case", [(9, "random"), (9, "extremes"),
+                                    (510, "random"), (2040, "random")],
+                         ids=["k9", "extremes", "1080p-m8-k510",
+                              "ra-k2040"])
+def test_pack_on_standin_matches_plain(on_standin, k, case):
+    """The pack with the children's recon SSE at a few parents, at the
+    1080p M8 call's K = 510 and the RA shape's K = 2,040; the extremes:
+    the SSE at 256 * 255^2 a child, both ways, and 0; every level zero and
+    every level nonzero."""
+    args = pack_args(k, seed=11, case=case)
     got = on_standin.descent_pack(*args)
     _same(got, P.descent_pack_ref(*args))
     assert got["skip"].any() and not got["skip"].all()
+    if case == "extremes":
+        assert got["dist4"][:2].tolist() == [4 * 256 * 255 ** 2] * 2
+        assert int(got["dist4"][2]) == 0
+        assert int(got["rate4"][0]) == 0
+        assert int(got["rate4"][1]) == 4 * (256 + 2 * 64)
 
 
 def _split_in_place(k_mod, args, lam, g):
@@ -573,10 +608,10 @@ def test_wrappers_refuse_a_strided_plane_and_wrong_dtypes(on_standin):
 
 
 def _shifted(t, by):
-    """A contiguous copy of ``t`` that starts ``by`` bytes into its
-    storage."""
+    """A contiguous copy of ``t`` that starts ``by`` bytes (a multiple of
+    its element's size) past a 64-byte boundary of its storage."""
     flat = torch.zeros(t.numel() + 64, dtype=t.dtype)
-    start = (-flat.data_ptr()) % 64 + by
+    start = ((-flat.data_ptr()) % 64 + by) // t.element_size()
     out = flat[start:start + t.numel()].view(t.shape)
     out.copy_(t)
     assert out.is_contiguous() and out.data_ptr() % 64 == by
@@ -587,7 +622,9 @@ def test_wrappers_refuse_unaligned_words(on_standin):
     """The word loads and stores need aligned rows: the gather refuses a
     plane, a window set or LAST's luma that starts off its word (or a
     window side that is not a multiple of 8), the split a plane or a
-    merged block off its 16 bytes; an aligned copy of each runs."""
+    merged block off its 16 bytes, the pack a level, luma recon or source
+    tensor off its 16 bytes and a chroma recon off its 8; an aligned copy
+    of each runs."""
     g, args = gather_args(128, 96, 32)
     for i, by in ((1, 4), (5, 8), (6, 4), (7, 2), (8, 8)):
         bad = list(args)
@@ -608,6 +645,16 @@ def test_wrappers_refuse_unaligned_words(on_standin):
         bad[i] = _shifted(s[i], 8)
         with pytest.raises(ValueError, match="16-byte boundary"):
             on_standin.descent_split(*bad, 9, g, P.SPLIT_RATE_EXTRA)
+    # the pack: the levels, rec_y and csrc on 16 bytes, rec_u and rec_v on 8
+    p = pack_args(3, seed=36)
+    for i, by, to in ((3, 8, 16), (4, 2, 16), (5, 8, 16), (6, 8, 16),
+                      (7, 4, 8), (8, 1, 8), (9, 8, 16)):
+        bad = list(p)
+        bad[i] = _shifted(p[i], by)
+        with pytest.raises(ValueError, match=f"{to}-byte boundary"):
+            on_standin.descent_pack(*bad)
+    ok = [_shifted(a, 16) if a.dim() > 1 else a for a in p]
+    _same(on_standin.descent_pack(*ok), P.descent_pack_ref(*p))
 
 
 def test_no_parent_selected_on_standin(on_standin):

@@ -572,7 +572,7 @@ def _meta_descent_inputs(name):
                  meta((12, 16, 16), torch.int16),
                  meta((12, 8, 8), torch.int16), meta((12, 8, 8), torch.int16),
                  meta((12, 16, 16), u8), meta((12, 8, 8), u8),
-                 meta((12, 8, 8), u8), meta((12,))), (3,))
+                 meta((12, 8, 8), u8), meta((12, 16, 16), u8)), (3,))
     return ((meta((3,)), meta((12,)), meta((12,), torch.int64),
              meta((3,), torch.int64), meta((3,), torch.int64),
              meta((96, 128), u8), meta((48, 64), u8), meta((48, 64), u8),

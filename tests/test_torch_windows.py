@@ -11,7 +11,7 @@ plain step.
    (n=16 and 8 at ``strip_y``), odd crops.
 2. The two kernels built by g++ behind ``tests/cuda_standin/
    cuda_runtime.h`` (a host thread per CUDA thread; ``extend_borders``
-   every CTA of the grid at once through ``standin_launch_all``,
+   64 CTAs of the grid at once through ``standin_launch_all``,
    ``extract_windows`` a CTA per window and set) and launched by the
    wrappers ``ops/cuda_kernels.py:extract_windows`` and ``extend_borders``
    on CPU tensors (their device check answers "cuda"), byte for byte
@@ -19,8 +19,12 @@ plain step.
    the aligned path (rows of 8-byte stores from whole source words), rows
    that start inside a word (odd x0, an odd pitch, a plane one byte into
    its storage: the words realigned), sides that are no multiple of 8 (a
-   byte a lane), planes of odd widths and crops, every window at the
-   plane's edge; and their refusals.
+   byte a lane), every window at the plane's edge; the borders' aligned
+   rows (16-byte interior words, broadcast border words) at the real
+   row lengths of 1080p, 720p and 4K, the 1080p recon whole (1080 of 1088
+   rows), a crop width no multiple of 16, border 0 and 96, a 1 x 1 crop,
+   and their other rows (odd widths and crops, a plane one byte into its
+   storage) in the same launch; and their refusals.
 3. ``make_pframe_step`` with the dispatches ``mode_decide``,
    ``extract_windows``, ``extend_borders`` and ``mc_predict`` on the
    stand-ins (the three sources built) against the plain step: M8 with
@@ -60,7 +64,8 @@ NAMES = ("extract_windows", "extend_borders", "mode_decide", "mc_predict")
 
 # each source's launch helpers as the stand-in runs them: every CTA of the
 # grid at once (extract_windows: a CTA per window, one after another;
-# mc_predict: sixteen CTAs at once); a trapped kernel fails its launch
+# extend_borders: 64 CTAs at once; mc_predict: sixteen CTAs at once); a
+# trapped kernel fails its launch
 _STANDIN_LAUNCH = {
     "windows": """
 cudaError_t launch_extract(const WinJobs& js, int n_win, int n_jobs,
@@ -75,9 +80,13 @@ cudaError_t launch_extract(const WinJobs& js, int n_win, int n_jobs,
 }
 
 cudaError_t launch_borders(const Jobs& js, cudaStream_t) {
-  if (js.words == 0) return cudaSuccess;
-  standin_launch_all(static_cast<int>((js.words + kThreads - 1) / kThreads),
-                     kThreads, [&] { extend_borders_kernel(js); });
+  const int ctas = (js.rows + kRowWarps - 1) / kRowWarps;
+  for (int c0 = 0; c0 < ctas; c0 += 64) {
+    standin_launch_all(ctas - c0 < 64 ? ctas - c0 : 64, kThreads, [&] {
+      blockIdx.x += c0;
+      extend_borders_kernel(js);
+    });
+  }
   return cudaSuccess;
 }
 
@@ -339,27 +348,65 @@ def test_extract_windows_on_standin_matches_plain(on_standin, case):
         assert (x0 % 4, plane.shape[1] % 4, n % 4, sw % 8) == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("case", ["recon", "odd"])
+def _shapes(h, w):
+    """A recon's three plane shapes at luma (h, w)."""
+    return ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+
+
+# (plane shapes, crops, border) of each case; None: the geometry's recon
+BORDER_CASES = {
+    "recon": None,
+    "odd": (((21, 37), (11, 19), (9, 7)), ((35, 21), (18, 9), (1, 1)), 9),
+    "1080p": (_shapes(1088, 1920), ((1920, 1080), (960, 540), (960, 540)),
+              96),
+    "720p-rows": (_shapes(8, 1280), ((1280, 8), (640, 4), (640, 4)), 96),
+    "4k-rows": (_shapes(6, 3840), ((3840, 5), (1920, 3), (1920, 2)), 96),
+    "crop-w-odd": (_shapes(8, 1920), ((1917, 7), (959, 3), (1, 1)), 96),
+    "border-0": (((16, 64), (8, 32), (7, 48)), ((50, 13), (32, 8), (1, 1)),
+                 0),
+    "border-8": (((6, 32), (3, 16), (3, 16)), ((32, 6), (16, 3), (13, 2)),
+                 8),
+    "mixed": (((6, 64), (5, 37), (4, 32)), ((64, 6), (30, 5), (17, 4)), 16)}
+
+
+@pytest.mark.parametrize("case", BORDER_CASES)
 def test_extend_borders_on_standin_matches_plain(on_standin, case):
-    """A recon's three planes in one launch (rows of 16-byte words), and
-    planes of odd widths and crops whose rows span words (the last word
-    byte by byte), a 1 x 1 crop among them."""
-    rng = np.random.default_rng(5)
-    if case == "recon":
+    """A recon's three planes in one launch: the stand-in geometry's, the
+    1080p recon (1080 of its 1088 rows visible) and rows of the real 720p
+    and 4K row lengths, whose rows are whole 16-byte words (interior words
+    loaded, border words broadcast), a crop width no multiple of 16 (its
+    edge word byte by byte) and a 1 x 1 crop among them, border 0 (no
+    border word); planes of odd widths and crops whose rows span words
+    (each word byte by byte, the last one's tail too); and the two paths
+    in one launch, a plane one byte into its storage on the byte path; rows
+    of whole words at a border of 8 (no word of a row wholly border) on the
+    byte path."""
+    rng = np.random.default_rng(len(case))
+    if BORDER_CASES[case] is None:
         g = P.make_geom(96, 80)
         planes = [_t(p) for p in _planes(g, 5)]
         crops, border = P.recon_crops(g), P.BORDER
     else:
+        shapes, crops, border = BORDER_CASES[case]
         planes = [_t(rng.integers(0, 256, shp, dtype=np.uint8))
-                  for shp in ((21, 37), (11, 19), (9, 7))]
-        crops, border = ((35, 21), (18, 9), (1, 1)), 9
+                  for shp in shapes]
+    if case == "mixed":
+        buf = torch.zeros(planes[2].numel() + 1, dtype=torch.uint8)
+        buf[1:] = planes[2].reshape(-1)
+        planes[2] = buf[1:].view(planes[2].shape)
+        assert planes[2].data_ptr() % 16 != 0
     before = K.extend_borders.launches
     got = on_standin.extend_borders(planes, crops, border)
     assert K.extend_borders.launches == before + 1
     for p, c, out in zip(planes, crops, got, strict=True):
         want = P.extend_borders_device(p, *c, border)
-        assert torch.equal(out, want)
+        assert torch.equal(out, want), (tuple(p.shape), c)
         assert out.data_ptr() % 16 == 0
+    # the aligned rows' premises at the real sizes and the stand-in's
+    # geometry: every output row and the border whole 16-byte words
+    if case not in ("odd", "border-8", "mixed"):
+        assert border % 16 == 0
+        assert all(p.shape[1] % 16 == 0 for p in planes)
 
 
 def test_wrappers_refuse(on_standin):

@@ -39,9 +39,13 @@
 //     of the plain version fails there.
 //  3. descent_pack (a CTA of 128 threads per parent, a warp per child):
 //     skip (every plane's eob 0), the nonzero levels of the child's three
-//     planes, the parent's sums of its children's distortion and nonzero
+//     planes counted on the int16 pairs of 16-byte words (lv_y a word a
+//     lane, lv_u and lv_v 8 lanes each), the child's recon SSE against its
+//     luma source (a 16-byte row of each a lane, __vabsdiffu4 and dp4a,
+//     exact int32), the parent's sums of its children's SSE and nonzero
 //     levels (int64, as torch's sums), and the four children's recon
-//     merged into the parent's 32 x 32 luma and 16 x 16 chroma blocks.
+//     merged into the parent's 32 x 32 luma and 16 x 16 chroma blocks by
+//     the lanes that loaded it: 16-byte luma rows, 8-byte chroma rows.
 //  4. descent_split (a warp per selected parent, four a CTA): the
 //     32-against-4x16 decision of parent sel[k], read directly (sel is
 //     distinct, descent_parents' sort): cost32 = f32(dist) + f32(lam) *
@@ -62,13 +66,16 @@
 // four children's source, 4 x 384, and reference blocks, 4 x 256; the
 // windows, blocks and eleven int32 words written, 4 x 2,028; 20 bytes of
 // sel, winner and MV: 13,828 bytes), about 2.1 us at HBM speed; the decide
-// 0.8 MB of maps and words, the pack 1.3 MB, and the split at most 1.6 MB
-// (the selected parents' scalars, 3,072 bytes read and written for each
-// that splits), each 0.3-2 us, about a launch. Written as PyTorch ops they
-// were about eighty small launches and whole-window copies (the parents'
-// 120 x 120 windows taken by index before a 64 x 64 slice of each). The
-// decide and the pack are the plain design: a thread per child, a CTA per
-// parent, bytes a thread.
+// 0.8 MB of maps and words, the pack 3.7 MB (7,236 bytes a parent: the
+// children's eobs, levels, recon and luma source read, skip, the merged
+// recon and two sums written), and the split at most 1.6 MB (the selected
+// parents' scalars, 3,072 bytes read and written for each that splits),
+// each 0.3-2 us, about a launch. Written as PyTorch ops they were about
+// eighty small launches and whole-window copies (the parents' 120 x 120
+// windows taken by index before a 64 x 64 slice of each). The decide is
+// the plain design, a thread per child; the pack moves words, not bytes,
+// and takes the children's recon SSE from the registers that merge their
+// recon (the block_energy launch it replaces read rec_y again).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -94,7 +101,7 @@ constexpr int kDecideThreads = 128;
 constexpr int kPackThreads = 128;  // a warp per child
 constexpr int kSplitThreads = 128;  // a warp per selected parent
 constexpr int kSplitWarps = kSplitThreads / 32;
-constexpr int kSmemBytes = 64;  // the pack's reduction words
+constexpr int kSmemBytes = 32;  // the pack's eight reduction words
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -318,21 +325,31 @@ struct PackArgs {
   const int* eob_y;      // (nch,) each
   const int* eob_u;
   const int* eob_v;
-  const int16_t* lv_y;   // (nch, 16, 16)
-  const int16_t* lv_u;   // (nch, 8, 8)
+  const int16_t* lv_y;   // (nch, 16, 16), 16-byte aligned
+  const int16_t* lv_u;   // (nch, 8, 8), 16-byte aligned
   const int16_t* lv_v;
-  const uint8_t* rec_y;  // (nch, 16, 16)
-  const uint8_t* rec_u;  // (nch, 8, 8)
+  const uint8_t* rec_y;  // (nch, 16, 16), 16-byte aligned
+  const uint8_t* rec_u;  // (nch, 8, 8), 8-byte aligned
   const uint8_t* rec_v;
-  const int* dist;       // (nch,) the children's recon SSE
+  const uint8_t* csrc;   // (nch, 16, 16) the children's luma source, 16
   uint8_t* skip;         // (nch,) bool
   int64_t* dist4;        // (K,)
   int64_t* rate4;
-  uint8_t* rec_y32;      // (K, 32, 32)
-  uint8_t* rec_u16;      // (K, 16, 16)
+  uint8_t* rec_y32;      // (K, 32, 32), 16-byte aligned
+  uint8_t* rec_u16;      // (K, 16, 16), 8-byte aligned
   uint8_t* rec_v16;
   int k;
 };
+
+// the nonzero int16 halves of a 32-bit word
+__device__ __forceinline__ int nonzero2(unsigned w) {
+  return ((w & 0xffffu) != 0u) + ((w >> 16) != 0u);
+}
+
+// the nonzero int16 levels of a 16-byte word
+__device__ __forceinline__ int nonzero8(uint4 v) {
+  return nonzero2(v.x) + nonzero2(v.y) + nonzero2(v.z) + nonzero2(v.w);
+}
 
 __global__ void __launch_bounds__(kPackThreads)
     descent_pack_kernel(PackArgs a) {
@@ -340,35 +357,51 @@ __global__ void __launch_bounds__(kPackThreads)
   const int k = blockIdx.x;
   if (k >= a.k) return;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int c = 4 * k + w;  // warp w's child
-  int nz = 0;
-  for (int e = lane; e < 256; e += 32) nz += a.lv_y[c * 256 + e] != 0;
-  for (int e = lane; e < 64; e += 32) {
-    nz += (a.lv_u[c * 64 + e] != 0) + (a.lv_v[c * 64 + e] != 0);
+  const int c = 4 * k + w;  // warp w's child (i, j)
+  const int i = w >> 1, j = w & 1;
+  // the levels: lv_y's 512 bytes a word a lane, lv_u's and lv_v's 128
+  // bytes on lanes 0-7 and 8-15
+  int nz = nonzero8(reinterpret_cast<const uint4*>(a.lv_y)[
+      static_cast<int64_t>(c) * 32 + lane]);
+  if (lane < 16) {
+    nz += nonzero8(reinterpret_cast<const uint4*>(lane < 8 ? a.lv_u : a.lv_v)[
+        static_cast<int64_t>(c) * 8 + (lane & 7)]);
   }
-  for (int o = 16; o > 0; o >>= 1) nz += __shfl_xor_sync(0xffffffffu, nz, o);
+  // the recon: lanes 0-15 a luma row, its SSE against the source row (exact:
+  // at most 256 * 255^2 < 2^24 a child) and its 16-byte store into row 16i
+  // + lane, column 16j of the parent's block; lanes 16-23 the U rows, 24-31
+  // the V rows, 8 bytes each, into row 8i + r, column 8j
+  unsigned sse = 0;
+  if (lane < 16) {
+    const int64_t at = static_cast<int64_t>(c) * 256 + 16 * lane;
+    const uint4 r = *reinterpret_cast<const uint4*>(a.rec_y + at);
+    const uint4 s = *reinterpret_cast<const uint4*>(a.csrc + at);
+    sse = sq_diff4(r.w, s.w, sq_diff4(r.z, s.z, sq_diff4(
+        r.y, s.y, sq_diff4(r.x, s.x, 0u))));
+    *reinterpret_cast<uint4*>(a.rec_y32 + static_cast<int64_t>(k) * 1024 +
+                              (16 * i + lane) * 32 + 16 * j) = r;
+  } else {
+    const int rr = lane & 7;
+    const bool v = lane >= 24;
+    *reinterpret_cast<uint2*>((v ? a.rec_v16 : a.rec_u16) +
+                              static_cast<int64_t>(k) * 256 +
+                              (8 * i + rr) * 16 + 8 * j) =
+        *reinterpret_cast<const uint2*>((v ? a.rec_v : a.rec_u) +
+                                        static_cast<int64_t>(c) * 64 + 8 * rr);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    nz += __shfl_xor_sync(0xffffffffu, nz, o);
+    sse += __shfl_xor_sync(0xffffffffu, sse, o);
+  }
   if (lane == 0) {
     smem[w] = nz;
+    smem[4 + w] = static_cast<int>(sse);
     a.skip[c] = a.eob_y[c] == 0 && a.eob_u[c] == 0 && a.eob_v[c] == 0;
-  }
-  // child (i, j) fills rows 16i.., columns 16j.. of the parent's block
-  for (int e = tid; e < 1024; e += kPackThreads) {
-    const int r = e >> 5, q = e & 31;
-    const int child = 4 * k + 2 * (r >> 4) + (q >> 4);
-    a.rec_y32[k * 1024 + e] = a.rec_y[child * 256 + (r & 15) * 16 + (q & 15)];
-  }
-  for (int e = tid; e < 256; e += kPackThreads) {
-    const int r = e >> 4, q = e & 15;
-    const int at = (4 * k + 2 * (r >> 3) + (q >> 3)) * 64 + (r & 7) * 8 +
-                   (q & 7);
-    a.rec_u16[k * 256 + e] = a.rec_u[at];
-    a.rec_v16[k * 256 + e] = a.rec_v[at];
   }
   __syncthreads();
   if (tid == 0) {
     a.rate4[k] = static_cast<int64_t>(smem[0]) + smem[1] + smem[2] + smem[3];
-    a.dist4[k] = static_cast<int64_t>(a.dist[4 * k]) + a.dist[4 * k + 1] +
-                 a.dist[4 * k + 2] + a.dist[4 * k + 3];
+    a.dist4[k] = static_cast<int64_t>(smem[4]) + smem[5] + smem[6] + smem[7];
   }
 }
 
@@ -563,13 +596,16 @@ extern "C" int descent_decide_launch(
 
 // K parents of four children each: eob_y, eob_u, eob_v (4K,) int32, lv_y
 // (4K, 16, 16) and lv_u, lv_v (4K, 8, 8) int16, rec_y (4K, 16, 16) and
-// rec_u, rec_v (4K, 8, 8) uint8, dist (4K,) int32; out skip (4K,) bool,
-// dist4, rate4 (K,) int64, rec_y32 (K, 32, 32) and rec_u16, rec_v16 (K,
-// 16, 16) uint8. Returns cudaGetLastError() after the launch.
+// rec_u, rec_v (4K, 8, 8) uint8, csrc (4K, 16, 16) uint8 the children's
+// luma source; out skip (4K,) bool, dist4, rate4 (K,) int64, rec_y32 (K,
+// 32, 32) and rec_u16, rec_v16 (K, 16, 16) uint8. The levels, rec_y, csrc
+// and rec_y32 16-byte aligned, rec_u, rec_v, rec_u16 and rec_v16 8-byte
+// aligned (else cudaErrorInvalidValue, nothing launched). Returns
+// cudaGetLastError() after the launch.
 extern "C" int descent_pack_launch(
     const void* eob_y, const void* eob_u, const void* eob_v,
     const void* lv_y, const void* lv_u, const void* lv_v, const void* rec_y,
-    const void* rec_u, const void* rec_v, const void* dist, void* skip,
+    const void* rec_u, const void* rec_v, const void* csrc, void* skip,
     void* dist4, void* rate4, void* rec_y32, void* rec_u16, void* rec_v16,
     int k, void* stream) {
   PackArgs a;
@@ -582,7 +618,7 @@ extern "C" int descent_pack_launch(
   a.rec_y = static_cast<const uint8_t*>(rec_y);
   a.rec_u = static_cast<const uint8_t*>(rec_u);
   a.rec_v = static_cast<const uint8_t*>(rec_v);
-  a.dist = static_cast<const int*>(dist);
+  a.csrc = static_cast<const uint8_t*>(csrc);
   a.skip = static_cast<uint8_t*>(skip);
   a.dist4 = static_cast<int64_t*>(dist4);
   a.rate4 = static_cast<int64_t*>(rate4);
@@ -590,6 +626,17 @@ extern "C" int descent_pack_launch(
   a.rec_u16 = static_cast<uint8_t*>(rec_u16);
   a.rec_v16 = static_cast<uint8_t*>(rec_v16);
   a.k = k;
+  const uintptr_t words16 =
+      reinterpret_cast<uintptr_t>(lv_y) | reinterpret_cast<uintptr_t>(lv_u) |
+      reinterpret_cast<uintptr_t>(lv_v) | reinterpret_cast<uintptr_t>(rec_y) |
+      reinterpret_cast<uintptr_t>(csrc) | reinterpret_cast<uintptr_t>(rec_y32);
+  const uintptr_t words8 =
+      reinterpret_cast<uintptr_t>(rec_u) | reinterpret_cast<uintptr_t>(rec_v) |
+      reinterpret_cast<uintptr_t>(rec_u16) |
+      reinterpret_cast<uintptr_t>(rec_v16);
+  if (k <= 0 || words16 % 16 != 0 || words8 % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(launch_pack(a, static_cast<cudaStream_t>(stream)));
 }
 

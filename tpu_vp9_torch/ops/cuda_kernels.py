@@ -21,8 +21,8 @@ the JAX package writes in jnp:
     _clamp_mv_umv)
   encode_children_masked, pframe_step  descent_gather, descent_decide,
     (the split16 descent's gathers,    descent_pack, descent_split
-    candidate decision, pack and       (csrc/descent.cu)
-    split merge)
+    candidate decision, pack and its   (csrc/descent.cu)
+    recon SSE, split merge)
   _ssem_gather, _candidate_decide,     mode_decide (csrc/mode_decide.cu)
     encode_zone's GOLDEN and ALTREF
     decisions
@@ -1930,49 +1930,74 @@ def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
 descent_decide.launches = 0
 
 
-def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
-                 dist_c):
-    """The children's pack, on the card: a CTA per parent, one launch.
-
-    eob_y, eob_u, eob_v, dist_c (the recon SSE): (4K,) int32; lv_y (4K,
-    16, 16), lv_u, lv_v (4K, 8, 8) int16; rec_y (4K, 16, 16), rec_u, rec_v
-    (4K, 8, 8) uint8; all contiguous CUDA tensors of one device. Returns a
-    dict: "skip" (4K,) bool, "dist4", "rate4" (K,) int64 (the parent's
-    sums of its children's distortion and nonzero levels), "rec_y32" (K,
-    32, 32), "rec_u16", "rec_v16" (K, 16, 16) uint8 (the children's recon
-    merged), bit for bit what ``pipeline/tpu_encdec.py:descent_pack_ref``
-    returns. It runs the kernel of ``csrc/descent.cu`` or raises."""
+@functools.lru_cache(maxsize=None)
+def _pack_spec(shapes, dtypes):
+    """descent_pack's checks of its arguments' shapes and dtypes (``_PACK_
+    ARGS``), once per shape: raise where one is refused, else return K."""
     name = "descent_pack"
-    nch = eob_y.shape[0]
+    nch = shapes[0][0] if shapes[0] else 0
     if nch % 4:
         raise ValueError(f"{name}: {nch} children, not four a parent")
-    for what, t in (("eob_y", eob_y), ("eob_u", eob_u), ("eob_v", eob_v),
-                    ("dist_c", dist_c)):
-        _want(name, what, t, (nch,), torch.int32)
-    for what, t, n in (("lv_y", lv_y, 16), ("lv_u", lv_u, 8),
-                       ("lv_v", lv_v, 8)):
-        _want(name, what, t, (nch, n, n), torch.int16)
-    for what, t, n in (("rec_y", rec_y, 16), ("rec_u", rec_u, 8),
-                       ("rec_v", rec_v, 8)):
-        _want(name, what, t, (nch, n, n), torch.uint8)
-    ins = (eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
-           dist_c)
+    want = ((nch,), torch.int32), ((nch, 16, 16), torch.int16), \
+        ((nch, 8, 8), torch.int16), ((nch, 16, 16), torch.uint8), \
+        ((nch, 8, 8), torch.uint8)
+    kinds = (0, 0, 0, 1, 2, 2, 3, 4, 4, 3)
+    for what, kind, got, gdt in zip(_PACK_ARGS, kinds, shapes, dtypes):
+        shape, dtype = want[kind]
+        if got != shape or gdt != dtype:
+            raise TypeError(f"{name}: {what} must be {shape} {dtype}, got "
+                            f"{got} {gdt}")
+    return nch // 4
+
+
+_PACK_ARGS = ("eob_y", "eob_u", "eob_v", "lv_y", "lv_u", "lv_v", "rec_y",
+              "rec_u", "rec_v", "csrc")
+
+
+def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
+                 csrc):
+    """The children's pack and recon SSE, on the card: a CTA per parent,
+    one launch.
+
+    eob_y, eob_u, eob_v: (4K,) int32; lv_y (4K, 16, 16), lv_u, lv_v (4K, 8,
+    8) int16; rec_y (4K, 16, 16), rec_u, rec_v (4K, 8, 8) uint8; csrc (4K,
+    16, 16) uint8, the children's luma source; all contiguous CUDA tensors
+    of one device, the levels, rec_y and csrc 16-byte aligned, rec_u and
+    rec_v 8-byte aligned (a refused alignment raises ValueError). Returns a
+    dict: "skip" (4K,) bool, "dist4", "rate4" (K,) int64 (the parent's sums
+    of its children's recon SSE and nonzero levels), "rec_y32" (K, 32, 32),
+    "rec_u16", "rec_v16" (K, 16, 16) uint8 (the children's recon merged),
+    views of one allocation, bit for bit what ``pipeline/tpu_encdec.py:
+    descent_pack_ref`` returns. It runs the kernel of ``csrc/descent.cu``
+    or raises."""
+    name = "descent_pack"
+    ins = (eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v, csrc)
+    k = _pack_spec(tuple(tuple(t.shape) for t in ins),
+                   tuple(t.dtype for t in ins))
     dev = _cuda_only(name, *ins)
-    k = nch // 4
-    # one allocation for the bytes: rec_y32, rec_u16, rec_v16, skip
-    parts = (k * 1024, k * 256, k * 256, nch)
-    buf = torch.empty(sum(parts), dtype=torch.uint8, device=dev)
-    rec_y32, rec_u16, rec_v16, skip = buf.split(parts)
-    sums = torch.empty((2, k), dtype=torch.int64, device=dev)
+    if (lv_y.data_ptr() | lv_u.data_ptr() | lv_v.data_ptr()
+            | rec_y.data_ptr() | csrc.data_ptr()) % 16 \
+            or (rec_u.data_ptr() | rec_v.data_ptr()) % 8:
+        for what, t, to in (("lv_y", lv_y, 16), ("lv_u", lv_u, 16),
+                            ("lv_v", lv_v, 16), ("rec_y", rec_y, 16),
+                            ("csrc", csrc, 16), ("rec_u", rec_u, 8),
+                            ("rec_v", rec_v, 8)):
+            _aligned(name, what, t, to)
+    # one allocation, per parent: dist4 and rate4 (16 bytes), rec_y32
+    # (1,024), rec_u16 and rec_v16 (256 each), skip (4); each part starts
+    # on a 16-byte boundary
+    o_y, o_u, o_v, o_s = 16 * k, 1040 * k, 1296 * k, 1552 * k
+    buf = torch.empty(o_s + 4 * k, dtype=torch.uint8, device=dev)
+    at = buf.data_ptr()
     if k > 0:
-        _launch(name, dev, *(t.data_ptr() for t in ins), skip.data_ptr(),
-                sums[0].data_ptr(), sums[1].data_ptr(), rec_y32.data_ptr(),
-                rec_u16.data_ptr(), rec_v16.data_ptr(), k)
+        _launch(name, dev, *(t.data_ptr() for t in ins), at + o_s, at,
+                at + 8 * k, at + o_y, at + o_u, at + o_v, k)
         descent_pack.launches += 1
-    return {"skip": skip.view(torch.bool), "dist4": sums[0],
-            "rate4": sums[1], "rec_y32": rec_y32.view(k, 32, 32),
-            "rec_u16": rec_u16.view(k, 16, 16),
-            "rec_v16": rec_v16.view(k, 16, 16)}
+    sums = buf[:o_y].view(torch.int64)
+    return {"skip": buf[o_s:].view(torch.bool), "dist4": sums[:k],
+            "rate4": sums[k:], "rec_y32": buf[o_y:o_u].view(k, 32, 32),
+            "rec_u16": buf[o_u:o_v].view(k, 16, 16),
+            "rec_v16": buf[o_v:o_s].view(k, 16, 16)}
 
 
 descent_pack.launches = 0

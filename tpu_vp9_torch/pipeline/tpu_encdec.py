@@ -1868,14 +1868,17 @@ def descent_decide(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
 
 
 def descent_pack_ref(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u,
-                     rec_v, dist_c):
+                     rec_v, csrc):
     """The children's pack (plain version of the kernel behind
     ``ops/cuda_kernels.py:descent_pack``, same arguments): skip, the
-    parents' sums of their children's distortion and nonzero levels, and
-    the children's recon merged into the parents' blocks. Returns a dict
-    skip, dist4, rate4, rec_y32, rec_u16, rec_v16."""
+    parents' sums of their children's recon SSE (``rec_y`` against the
+    luma source ``csrc``) and nonzero levels, and the children's recon
+    merged into the parents' blocks. Returns a dict skip, dist4, rate4,
+    rec_y32, rec_u16, rec_v16."""
     k = eob_y.shape[0] // 4
     skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
+    d = rec_y.to(torch.int32) - csrc.to(torch.int32)
+    dist_c = (d * d).sum(dim=(1, 2))
     rate_c = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
               + (lv_v != 0).sum(dim=(1, 2)))
     return {
@@ -1889,17 +1892,17 @@ def descent_pack_ref(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u,
 
 
 def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
-                 dist_c):
+                 csrc):
     """The children's pack (contract: ``descent_pack_ref``). Tensors that
     all lie on the CPU take the plain version; anything else goes to the
     CUDA kernel's wrapper, which launches or raises."""
     if all(t.device.type == "cpu" for t in (eob_y, eob_u, eob_v, lv_y, lv_u,
                                             lv_v, rec_y, rec_u, rec_v,
-                                            dist_c)):
+                                            csrc)):
         return descent_pack_ref(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y,
-                                rec_u, rec_v, dist_c)
+                                rec_u, rec_v, csrc)
     return cuda_kernels.descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v,
-                                     rec_y, rec_u, rec_v, dist_c)
+                                     rec_y, rec_u, rec_v, csrc)
 
 
 def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
@@ -1953,9 +1956,8 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
         lv_v, eob_v, rec_v = transform_recon(ga["csrc_v"], pred_v, dc_q,
                                              ac_q, 8)
         lv_y, eob_y, rec_y = transform_recon(csrc, pred_y, dc_q, ac_q, 16)
-        dist_c = block_energy(csrc, rec_y, 16)[0]
         packed = descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y,
-                              rec_u, rec_v, dist_c)
+                              rec_u, rec_v, csrc)
     return {
         "mv": mv,
         "skip": packed["skip"],

@@ -19,11 +19,13 @@ ops, plus that of the hand kernels it launched (each wrapper's launches
 counted inside the range, times its kernel's mean device time per launch
 in the same profile), per P-frame. Prints one line per stage, the P-frame
 send's mean host time, the card's name and power limit, and which tree's
-package ran. With ``--calls R`` it then times the descent's gather and
-split dispatches on the inputs of one more P-frame's calls, R calls each
-(CUDA events around a call, median; the host's time a call over R calls
-back to back): where the tree's gather does not return the children's ZERO
-SSE, the children's ``block_energy_at`` call too, and the two together.
+package ran. With ``--calls R`` it then times the descent's gather, pack
+and split dispatches and the borders' (``extend_borders``) on the inputs
+of one more P-frame's calls, R calls each (CUDA events around a call,
+median; the host's time a call over R calls back to back): where the
+tree's gather does not return the children's ZERO SSE, the children's
+``block_energy_at`` call too, and where its pack does not take their
+recon SSE, their ``block_energy`` call, each also with its partner.
 
 It reads only the public encoder, ``pipeline/tpu_encdec.py:_stage`` and
 the wrappers' ``launches`` counts, so the second form times an older tree
@@ -84,31 +86,34 @@ def _host_call_ms(fn, reps: int) -> float:
     return ms
 
 
+# the dispatches --calls records; a children's call recorded inside
+# encode_children_masked, and the dispatch it went into in a later tree
+RECORDED = ("descent_gather", "descent_pack", "descent_split",
+            "extend_borders")
+FOLDED = {"block_energy_at": "descent_gather", "block_energy": "descent_pack"}
+
+
 def _descent_calls(enc, frame, reps: int) -> None:
-    """Send ``frame`` with the descent's gather and split dispatches (and
-    the children's ``block_energy_at`` calls) recorded, then time each on
-    its recorded inputs; the split's zone planes are copied when recorded
-    (a tree whose split writes them in place changes them in the step)."""
+    """Send ``frame`` with the dispatches of ``RECORDED`` (and the
+    children's calls of ``FOLDED``) recorded, then time each on its
+    recorded inputs; the split's zone planes are copied when recorded (a
+    tree whose split writes them in place changes them in the step)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     calls, inside = {}, [False]
-    real = {k: getattr(P, k) for k in ("descent_gather", "descent_split",
-                                       "block_energy_at",
-                                       "encode_children_masked")}
+    real = {k: getattr(P, k)
+            for k in (*RECORDED, *FOLDED, "encode_children_masked")}
 
-    def gather(*args):
-        calls["descent_gather"] = args
-        return real["descent_gather"](*args)
-
-    def split(*args):
-        calls["descent_split"] = (*args[:5], *(t.clone() for t in args[5:8]),
-                                  *args[8:])
-        return real["descent_split"](*args)
-
-    def energy_at(*args):
-        if inside[0]:
-            calls["children block_energy_at"] = args
-        return real["block_energy_at"](*args)
+    def recorder(name):
+        def record(*args):
+            if name == "descent_split":
+                calls[name] = (*args[:5], *(t.clone() for t in args[5:8]),
+                               *args[8:])
+            elif name in RECORDED or inside[0]:
+                calls[name if name in RECORDED else f"children {name}"] = \
+                    args
+            return real[name](*args)
+        return record
 
     def children(*args, **kw):
         inside[0] = True
@@ -117,8 +122,9 @@ def _descent_calls(enc, frame, reps: int) -> None:
         finally:
             inside[0] = False
 
-    P.descent_gather, P.descent_split = gather, split
-    P.block_energy_at, P.encode_children_masked = energy_at, children
+    for name in (*RECORDED, *FOLDED):
+        setattr(P, name, recorder(name))
+    P.encode_children_masked = children
     try:
         enc.send_picture(frame)
         torch.cuda.synchronize()
@@ -127,10 +133,11 @@ def _descent_calls(enc, frame, reps: int) -> None:
             setattr(P, k, v)
     fns = {k: (lambda f=real[k.split()[-1]], a=a: f(*a))
            for k, a in calls.items()}
-    if "children block_energy_at" in fns:
-        pair = (fns["descent_gather"], fns["children block_energy_at"])
-        fns["descent_gather + children block_energy_at"] = \
-            lambda: [f() for f in pair]
+    for name, into in FOLDED.items():
+        if f"children {name}" in fns:
+            pair = (fns[into], fns[f"children {name}"])
+            fns[f"{into} + children {name}"] = \
+                lambda pair=pair: [f() for f in pair]
     for name, fn in fns.items():
         print(f"call {name}: {_median_call_ms(fn, reps):.4f} ms (CUDA "
               f"events, median of {reps}), host {_host_call_ms(fn, reps):.4f}"
