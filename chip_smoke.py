@@ -23,8 +23,16 @@ Phases, each of which raises on failure (nothing is caught):
      32 zone with GOLDEN and the rate tables, M9's proxies, tune SQ's
      per-block lam_bits, a shard's LEFT edge, ALTREF, SSEs above 2^24,
      all-tie inputs that must go to LAST's ZERO, the real 720p 32 zone and
-     strip), the windows and borders (extract_windows on the real 1080p
-     search site, the real 720p ones, 4K's made-up, each beside
+     strip), the decisions folded into MC (mode_decide_mc and
+     descent_decide_mc, mc_predict.cu's decided instances, against their
+     plain compositions and against the two launches each replaces: the
+     real 1080p M8 zone and children, the zone's made-up decisions, a 1x4
+     shard's 510 blocks with and without a LEFT edge, the children without
+     the rate tables and all ties at 8,160, the real RA shape's children,
+     the real 720p 32 zone and strip; timed beside the two launches and
+     the plain instance, in turns), the windows and borders
+     (extract_windows on the real 1080p search site, the real 720p ones,
+     4K's made-up, each beside
      unfold(...).contiguous(); extend_borders
      on the real 1080p keyframe and P-frame, 1080p planes at odd crops,
      the real 720p P-frame, a made-up 4K recon) against their plain
@@ -77,12 +85,14 @@ Phases, each of which raises on failure (nothing is caught):
      through the public Vp9Encoder; the keyframe must launch kframe_wave
      once (a CTA per block row) and loop_filter once; per P-frame the search
      entry points must launch twice (hier_search_fused, then sse_map_search
-     for the children), subpel_search twice, mc_predict twice (the zone, the
-     children), transform_recon 6 times, the block_energy ones 3 times,
-     descent_gather, descent_decide, descent_pack and descent_split once
-     each, mode_decide once, extract_windows once (the search's windows;
-     MC reads the planes in place), loop_filter once and extend_borders
-     once (the
+     for the children), subpel_search twice, mc_predict twice (the zone
+     with its mode decision at the launch's head, the children with
+     theirs), transform_recon 6 times, the block_energy ones 3 times,
+     descent_gather, descent_pack and descent_split once each,
+     mode_decide and descent_decide never (their decisions run in the MC
+     launches), extract_windows once (the search's windows; MC reads the
+     planes in place), loop_filter once and extend_borders once: 21
+     launches (the
      keyframe: kframe_wave, loop_filter and extend_borders once each); some
      parents must split; the stream must
      decode with the port's decoder to the encoder's own recon across two
@@ -281,7 +291,8 @@ LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
 # quarter of them, so it has as many 16x16 children as 32x32 parents
 SAD_B, SAD_N, SAD_R = 33 * 60, 32, 16
 M9_B = 34 * 60
-# launches per P-frame of the step, by wrapper. M8: the fused two-level
+# launches per P-frame of the step, by wrapper (a decision folded into MC
+# counts as an mc_predict launch). M8: the fused two-level
 # search of the 32 zone and the children's search; the recon distortion of the
 # 32 zone (block_energy; the children's is descent_pack's); the 32 zone's
 # ZERO SSE and GOLDEN's ZERO and previous-MV SSE in one launch
@@ -290,27 +301,40 @@ M9_B = 34 * 60
 # the quarter-pel search of the zone and of the children; the transform of the
 # zone's Y32, U16 and V16 and of the children's Y16, U8 and V8; the loop
 # filter of all three planes, split mask included, is one launch; MC of the
-# zone's Y, U and V (LAST's and GOLDEN's windows by ref_sel) is one launch,
-# and of the children's (their parents' windows by index) one; the descent's
-# gathers, candidate decision, pack and split merge are one launch each; each
-# zone's mode decision (LAST, GOLDEN, ALTREF and the reference choice) is one
-# launch, and its windows one (the search's luma windows; MC reads the
-# reference planes in place); the new references' border extension of three
-# planes is one. M9: the fused search, ZERO SSE, quarter-pel, the decision,
-# the window launch, the zone's MC, its three transforms, recon distortion,
-# the loop filter (no mask) and the borders.
+# zone's Y, U and V (LAST's and GOLDEN's windows by ref_sel), with the
+# zone's mode decision (LAST, GOLDEN, ALTREF and the reference choice) at
+# its head, is one launch, and of the children's (their parents' windows by
+# index), with their candidate decision at its head, one; the descent's
+# gathers, pack and split merge are one launch each; each zone's windows are
+# one launch (the search's luma windows; MC reads the reference planes in
+# place); the new references' border extension of three planes is one: 21
+# launches. M9: the fused search, ZERO SSE, quarter-pel, the window launch,
+# the zone's decision and MC, its three transforms, recon distortion, the
+# loop filter (no mask) and the borders.
 DESCENT_WRAPPERS = ("descent_gather", "descent_decide", "descent_pack",
                     "descent_split")
-NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
 MD_WINDOW_WRAPPERS = ("mode_decide", "extract_windows", "extend_borders")
-# a zone's mode decision and window launches (without ALTREF), and the
-# border extension of a step or keyframe
-ZONE_MD_WINDOWS = {"mode_decide": 1, "extract_windows": 1}
+# the decisions folded into MC: the step's zone decision and the children's
+# run at the head of their MC launch (mc_predict.cu's decided instances,
+# through the dispatches mode_decide_mc and descent_decide_mc, counted as
+# mc_predict's launches); their own kernels stay for the checks below and
+# are launched 0 times on every path. FOLDED_INTO: the merged dispatch and
+# how many of its first arguments are the decision's
+FOLDED = ("mode_decide", "descent_decide")
+FOLDED_INTO = {"mode_decide": ("mode_decide_mc", 18),
+               "descent_decide": ("descent_decide_mc", 13)}
+DECIDED_MC = ("mode_decide_mc", "descent_decide_mc")
+NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
+# the descent's launches per descending step
+DESCENT_LAUNCHES = {w: int(w not in FOLDED) for w in DESCENT_WRAPPERS}
+# a zone's window launch (without ALTREF; its decision runs in its MC
+# launch), and the border extension of a step or keyframe
+ZONE_MD_WINDOWS = {"mode_decide": 0, "extract_windows": 1}
 BORDERS = {"extend_borders": 1}
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 1, "block_energy_at": 2, "txq_cost": 2,
                "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
-               "mc_predict": 2, **dict.fromkeys(DESCENT_WRAPPERS, 1),
+               "mc_predict": 2, **DESCENT_LAUNCHES,
                **ZONE_MD_WINDOWS, **BORDERS}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
@@ -422,6 +446,11 @@ SP_CALLS = ("zone n=32 r=4", "children n=16 r=8")
 # planes by ref_sel), then the children's (their parents' windows by index
 # in LAST's planes)
 MC_CALLS = ("zone n=32", "children n=16")
+# mc_predict.cu's template instances (luma block size n, what it decides
+# first: 0 nothing, 1 the zone's decision, 2 the children's) and the names
+# of the second (ops/cuda_kernels.py: MC_DECIDED)
+MC_INSTANCES = ((16, 0), (16, 1), (16, 2), (32, 0), (32, 1))
+MC_DECIDED_BY_KEY = {0: "plain", 1: "zone", 2: "children"}
 # the strip geometries (mi_rows % 4 == 2) run end to end, their frames,
 # and the blocks of their bottom strip (cols16): 720p has a 22 x 40 grid of
 # 32-blocks and a strip of 80 16x16 blocks at y = 704, 4K 67 x 120 and 240
@@ -1424,31 +1453,51 @@ def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
           f"of CTA alone: {', '.join(shown)}")
 
 
+def _mc_args_of(name, args, out):
+    """The plain MC call (``mc_predict``'s dispatch's (args, keyword
+    args)) that a decided call ``name`` (``DECIDED_MC``) made at its head,
+    with the MVs (and ref_sel) it decided (``out``, its result)."""
+    if name == "mode_decide_mc":
+        planes, pos_y, pos_x, n, mi_rows, mi_cols, filters, grid = args[18:]
+        return ((planes, pos_y, pos_x, out[0], out[1], n, mi_rows, mi_cols,
+                 filters, grid), {"ref_sel": out[2]})
+    (planes, pos_y, pos_x, n, mi_rows, mi_cols, filters, grid, win_idx,
+     off_y, off_x) = args[13:]
+    return ((planes, pos_y, pos_x, out[0], out[1], n, mi_rows, mi_cols,
+             filters, grid), {"org_off_x": off_x, "org_off_y": off_y,
+                              "win_idx": win_idx})
+
+
 def _real_m8_inputs(dev):
     """The real inputs of four stages of the steps: the first two frames
     of the clip (a keyframe and an M8 P-frame) through the public encoder,
     the steps' calls of ``loop_filter_device`` (keyframe and P-frame),
-    ``transform_recon``, ``subpel_search`` and ``mc_predict`` (P-frame)
-    recorded, with the descent's four dispatches and its
-    ``encode_children_masked`` call, and the dispatches ``mode_decide``
-    (P-frame), ``extract_windows`` (its search site; none at MC) and
-    ``extend_borders`` (keyframe and P-frame). Returns ({"lf": [(y, u, v,
-    geom, lvl, lim, mblim, split32)], "tr": [(src, pred, dc_q, ac_q, n)],
-    "sp": [(wins, src, dy, dx, n, r)], "mc": [(args, keyword args)],
-    "desc": [(dispatch name, args)], "ecm": [(args, keyword args)], "md":
-    [(dispatch name, args)]}, the two frames, their recon)."""
+    ``transform_recon``, ``subpel_search`` and the decided MC
+    (``mode_decide_mc``, ``descent_decide_mc``: P-frame) recorded, with
+    the descent's four dispatches (its decision from its MC's call) and
+    its ``encode_children_masked`` call, and the dispatches ``mode_decide``
+    (from the zone's MC call), ``extract_windows`` (its search site; none
+    at MC) and ``extend_borders`` (keyframe and P-frame). Returns ({"lf":
+    [(y, u, v, geom, lvl, lim, mblim, split32)], "tr": [(src, pred, dc_q,
+    ac_q, n)], "sp": [(wins, src, dy, dx, n, r)], "mc": [(args, keyword
+    args)] (the plain MC calls with the MVs the decided ones made, the
+    zone's, then the children's), "dmc": [(name, args)] (the decided
+    calls), "desc": [(dispatch name, args)], "ecm": [(args, keyword
+    args)], "md": [(dispatch name, args)]}, the two frames, their
+    recon)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
     from tpu_vp9_torch.utils.yuv import panning_frames
 
-    calls = {"lf": [], "tr": [], "sp": [], "mc": [], "desc": [], "ecm": []}
+    calls = {"lf": [], "tr": [], "sp": [], "mc": [], "dmc": [], "desc": [],
+             "ecm": []}
     real_ecm = P.encode_children_masked
 
     def record_ecm(*args, **kw):
         calls["ecm"].append((args, kw))
         return real_ecm(*args, **kw)
-    real_lf, real_tr, real_sp, real_mc = (
-        P.loop_filter_device, P.transform_recon, P.subpel_search,
-        P.mc_predict)
+    real_lf, real_tr, real_sp = (P.loop_filter_device, P.transform_recon,
+                                 P.subpel_search)
+    real_dmc = {name: getattr(P, name) for name in DECIDED_MC}
 
     def record_lf(y, u, v, geom, lvl, lim, mblim, split32=None):
         calls["lf"].append((y, u, v, geom, lvl, lim, mblim, split32))
@@ -1462,13 +1511,19 @@ def _real_m8_inputs(dev):
         calls["sp"].append(args)
         return real_sp(*args)
 
-    def record_mc(*args, **kw):
-        calls["mc"].append((args, kw))
-        return real_mc(*args, **kw)
+    def record_dmc(name):
+        def call(*args):
+            out = real_dmc[name](*args)
+            calls["dmc"].append((name, args))
+            calls["mc"].append(_mc_args_of(name, args, out))
+            return out
+        return call
 
     P.loop_filter_device = record_lf
     P.transform_recon, P.subpel_search = record_tr, record_sp
-    P.mc_predict, P.encode_children_masked = record_mc, record_ecm
+    P.encode_children_masked = record_ecm
+    for name in DECIDED_MC:
+        setattr(P, name, record_dmc(name))
     enc = _make_encoder(dev, 8)
     got = _capture(enc)
     frames = list(panning_frames(WIDTH, HEIGHT, 2, seed=1))
@@ -1481,7 +1536,9 @@ def _real_m8_inputs(dev):
     calls["desc"], calls["md"] = desc, md
     P.loop_filter_device = real_lf
     P.transform_recon, P.subpel_search = real_tr, real_sp
-    P.mc_predict, P.encode_children_masked = real_mc, real_ecm
+    P.encode_children_masked = real_ecm
+    for name in DECIDED_MC:
+        setattr(P, name, real_dmc[name])
     torch.cuda.synchronize()
     lf = calls["lf"]
     if len(lf) != 2 or lf[0][7] is not None or lf[1][7] is None:
@@ -1493,6 +1550,7 @@ def _real_m8_inputs(dev):
             or [c[4:] for c in calls["sp"]] != [(32, 4), (16, 8)]
             or mc != [(32, ["ref_sel"]),
                       (16, ["org_off_x", "org_off_y", "win_idx"])]
+            or [c[0] for c in calls["dmc"]] != list(DECIDED_MC)
             or [c[0] for c in calls["desc"]] != list(DESCENT_WRAPPERS)
             or len(calls["ecm"]) != 1
             or [c[0] for c in calls["md"]] != [
@@ -1502,6 +1560,7 @@ def _real_m8_inputs(dev):
             "the M8 P-frame's transform, quarter-pel, MC and descent calls "
             f"were {[c[4] for c in calls['tr']]}, "
             f"{[c[4:] for c in calls['sp']]}, {mc}, "
+            f"{[c[0] for c in calls['dmc']]}, "
             f"{[c[0] for c in calls['desc']]}, {len(calls['ecm'])} "
             "encode_children_masked and "
             f"{[c[0] for c in calls['md']]}")
@@ -1663,7 +1722,8 @@ def _print_resources(label, found_entry, ctas, dyn, threads):
         raise AssertionError(f"{label} spills registers")
 
 
-def _kernel_resources(dev, name, sizes, occupancy, threads=128, lib=None):
+def _kernel_resources(dev, name, sizes, occupancy, threads=128, lib=None,
+                      key_names="(n, type)"):
     """Each template instance of kernel ``name`` (keyed as
     ``_ptxas_instances`` keys them: block size n, or (n, transform type)),
     or with ``sizes`` None its one kernel (key 0): its registers, spill
@@ -1671,7 +1731,8 @@ def _kernel_resources(dev, name, sizes, occupancy, threads=128, lib=None):
     its resident CTAs of ``threads`` threads per SM and dynamic shared
     memory from the CUDA runtime's occupancy query (``occupancy(key,
     dev)``); printed, and raised on if an instance spills. ``lib``: the
-    build the kernel is in, where that is not ``name``'s."""
+    build the kernel is in, where that is not ``name``'s; ``key_names``
+    what a key of several template arguments holds, for the labels."""
     found = _ptxas_instances(name, lib)
     want = [0] if sizes is None else sorted(sizes)
     if sorted(found) != want:
@@ -1680,7 +1741,7 @@ def _kernel_resources(dev, name, sizes, occupancy, threads=128, lib=None):
     for key in sorted(want, reverse=True):
         ctas, dyn = occupancy(key, dev)
         label = (name if sizes is None else f"{name} n={key}"
-                 if isinstance(key, int) else f"{name} (n, type) {key}")
+                 if isinstance(key, int) else f"{name} {key_names} {key}")
         _print_resources(label, found[key], ctas, dyn, threads)
 
 
@@ -1921,15 +1982,15 @@ def subpel_kernel_phase(dev, real):
                   "tpu_vp9/pipeline/tpu_encdec.py:510", max_err, parts)
 
 
-def _mc_bound(args, kw):
-    """mc_predict's bound for one call (``args``, ``kw``: the dispatch's):
-    reads each block's three (n+7)^2 regions (Y at n, U and V at n / 2)
-    and its per-block words (positions and MVs, 16 bytes; ref_sel 1, the
-    window index 4 and the offsets 8 where given), writes its three
-    predictions; 8-tap sums (a multiply and an add a tap) of the H pass,
-    (n+7) x n outputs, and of the V pass, n x n, of each plane where the
-    block's phase in that axis is not 0 (phase 0 is a copy), counted from
-    this call's clamped MVs, at ALU_OPS_PER_S."""
+def _mc_work(args, kw):
+    """mc_predict's work in one call (``args``, ``kw``: the dispatch's):
+    (bytes, operations). It reads each block's three (n+7)^2 regions (Y
+    at n, U and V at n / 2) and its per-block words (positions and MVs,
+    16 bytes; ref_sel 1, the window index 4 and the offsets 8 where
+    given), writes its three predictions; 8-tap sums (a multiply and an
+    add a tap) of the H pass, (n+7) x n outputs, and of the V pass, n x n,
+    of each plane where the block's phase in that axis is not 0 (phase 0
+    is a copy), counted from this call's clamped MVs."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     _, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols = args[:8]
@@ -1948,7 +2009,12 @@ def _mc_bound(args, kw):
         v = int(((((py << 4) + row) & 15) != 0).sum())
         nbytes += b * ((m + 7) ** 2 + m * m)
         ops += 2 * 8 * (h * (m + 7) * m + v * m * m)
-    return _bound(nbytes, ops, ALU_OPS_PER_S)
+    return nbytes, ops
+
+
+def _mc_bound(args, kw):
+    """mc_predict's bound for one call (``_mc_work``) at ALU_OPS_PER_S."""
+    return _bound(*_mc_work(args, kw), ALU_OPS_PER_S)
 
 
 def mc_kernel_phase(dev, real):
@@ -1971,8 +2037,10 @@ def mc_kernel_phase(dev, real):
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    _kernel_resources(dev, "mc_predict", K.MC_BLOCK_SIZES,
-                      K.mc_predict_occupancy, threads=128)
+    _kernel_resources(dev, "mc_predict", MC_INSTANCES,
+                      lambda key, d: K.mc_predict_occupancy(
+                          key[0], d, MC_DECIDED_BY_KEY[key[1]]),
+                      threads=128, key_names="(n, decided)")
     rng = np.random.default_rng(41)
     max_err = 0
     edge = P.WIN_R * 8 + 6  # q3
@@ -2084,6 +2152,311 @@ def mc_kernel_phase(dev, real):
         _part(timed("RA children n=16", ra_children, c_kw, 1))]
     entry["strip_parts"] = [_part(timed(f"{tag} strip n=16", args, kw, 1))
                             for tag, args, kw in strips]
+    return entry
+
+
+def _host_rates(rates):
+    """``rates`` with its device row "scalars" made from its host numbers
+    (a made-up case that changes a host scalar uploads again, as the
+    session does), unless its lam_bits is a per-block tensor."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    if rates is None or isinstance(rates["lam_bits"], torch.Tensor):
+        return rates
+    row = torch.from_numpy(K.rate_scalars(rates)).to(
+        rates["joint_cost"].device)
+    return dict(rates, scalars=row)
+
+
+def _dmc_fns(name, args):
+    """(the decided call, its plain composition, the two launches it
+    replaces: the standalone decision, then mc_predict with its MVs) of
+    the merged dispatch ``name`` (``DECIDED_MC``) on its arguments. The
+    calls go to the wrappers as the dispatches hand them over."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    if name == "mode_decide_mc":
+        d, (planes, pos_y, pos_x, n, mi_rows, mi_cols, _, grid) = \
+            args[:18], args[18:]
+        proxy, tail, kw = P.CAND_RATE_PROXY, (), {}
+    else:
+        d, (planes, pos_y, pos_x, n, mi_rows, mi_cols, _, grid) = \
+            args[:13], args[13:21]
+        proxy = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
+        tail = args[21:]
+        kw = dict(zip(("win_idx", "org_off_y", "org_off_x"), tail))
+    kgrid = P.mc_window_grid(tuple(tuple(t.shape) for t in planes[0]),
+                             tuple(grid))
+    merged = getattr(K, name)
+    decide = getattr(K, name[:-3])
+
+    def kernel():
+        return merged(*d, proxy, planes, pos_y, pos_x, n, mi_rows, mi_cols,
+                      kgrid, *tail)
+
+    def two():
+        dec = decide(*d, proxy)
+        if name == "mode_decide_mc":
+            mv_r, mv_c, ref = dec
+            mv = torch.stack([mv_r, mv_c], dim=-1).to(torch.int16)
+            kw["ref_sel"] = ref
+            head = (mv_r, mv_c, ref, mv)
+        else:
+            mv_r, mv_c, mv = head = dec
+        return (*head, *K.mc_predict(planes, pos_y, pos_x, mv_r, mv_c, n,
+                                     mi_rows, mi_cols, kgrid, **kw))
+
+    return kernel, lambda: getattr(P, f"{name}_ref")(*args), two
+
+
+def _dmc_bound(name, args, got):
+    """The least time of one decided call: its MC's bytes and operations
+    (``_mc_work`` at the MVs it decided, ``got``), less the MVs and
+    ref_sel it does not read, and its decision's: the zone's as
+    ``_md_bound`` counts its reads, a child's nine words, one map entry
+    and one rate entry (48 bytes); the MVs written as int32 and int16 (12
+    bytes a block) and the zone's ref_sel (1); the decision's float32
+    operations, about 60 a block."""
+    mc_args, kw = _mc_args_of(name, args, got)
+    nbytes, ops = _mc_work(mc_args, {k: v for k, v in kw.items()
+                                     if k != "ref_sel"})
+    b = mc_args[1].shape[0]
+    nbytes -= 8 * b
+    if name == "mode_decide_mc":
+        rates, left, gold, alt = args[14:18]
+        nbytes += b * (20 + 8 + 12 + 13 + (8 if gold is not None else 0)
+                       + (16 if alt is not None else 0))
+        nbytes += 0 if left is None else left.numel() * 4
+        if rates is not None:
+            nbytes += 9 * 4 + 3 * 4 * b
+            if isinstance(rates["lam_bits"], torch.Tensor):
+                nbytes += 4 * b
+    else:
+        nbytes += b * (48 + 12)
+    return _bound(nbytes, ops + 60 * b, ALU_OPS_PER_S)
+
+
+def _children_mc_tail(dev, zone_args, children_args, nch):
+    """The MC arguments (``descent_decide_mc``'s after the decision's) of
+    ``nch`` children, four of every parent in raster order (the RA
+    shape's; past the zone's parents, again from its first), at the
+    zone's window grid in LAST's planes of the real children's call."""
+    pos_y, pos_x = zone_args[19], zone_args[20]
+    b = nch // 4
+    ii = torch.tensor([0, 0, 1, 1], device=dev).repeat(b)
+    jj = torch.tensor([0, 1, 0, 1], device=dev).repeat(b)
+    off_y, off_x = (ii * 16).to(torch.int32), (jj * 16).to(torch.int32)
+    par = (torch.arange(b, device=dev) % pos_y.shape[0]).repeat_interleave(4)
+    return (children_args[13], (pos_y[par] + off_y).contiguous(),
+            (pos_x[par] + off_x).contiguous(), *children_args[16:21],
+            par.to(torch.int32), off_y, off_x)
+
+
+def _zone_columns(args, c0, c1):
+    """The zone's decided call ``args`` cut to its columns c0..c1 - 1 (a
+    column shard's batch; LEFT at its column 0 from the NEW MVs of column
+    c0 - 1, none at c0 = 0), in its planes from the shard's first column
+    on, at the grid of those columns."""
+    rows, cols = args[7], args[8]
+
+    def cut(t, per=()):
+        return t.reshape(rows, cols, *per)[:, c0:c1].reshape(
+            -1, *per).contiguous()
+
+    d = args[0].shape[1]
+    left = None if c0 == 0 else torch.stack(
+        [args[4].reshape(rows, cols)[:, c0 - 1],
+         args[5].reshape(rows, cols)[:, c0 - 1]], dim=-1).contiguous()
+    gold = None if args[16] is None else torch.stack(
+        [cut(args[16][0]), cut(args[16][1])]).contiguous()
+    alt = None if args[17] is None else tuple(cut(t) for t in args[17])
+    step, y_base = args[25][:2]
+    # the shard's planes start at its first column (copies, as a shard's
+    # are); the positions stay the frame's
+    planes = [None if ref is None else tuple(
+        p[:, (c0 * step) >> ss:].contiguous() for p, ss in zip(ref, (0, 1, 1)))
+        for ref in args[18]]
+    return (cut(args[0], (d, d)), *(cut(t) for t in args[1:6]),
+            cut(args[6], (2,)), rows, c1 - c0, *args[9:15], left, gold, alt,
+            planes, cut(args[19]), cut(args[20]), *args[21:25],
+            (step, y_base, rows, c1 - c0))
+
+
+def decided_kernel_phase(dev, real, mc_entry):
+    """The decisions folded into MC (mc_predict.cu's decided instances,
+    through mode_decide_mc and descent_decide_mc) against their plain
+    compositions (mode_decide_ref or descent_decide_ref, then
+    mc_predict_planes_ref) and against the two launches they replace
+    (mode_decide or descent_decide, then mc_predict), on the card, bit for
+    bit (values, dtypes, shapes): the 1080p M8 P-frame's real zone (GOLDEN,
+    the rate tables) and children calls (``_real_m8_inputs``); the zone's
+    made-up decisions of ``_md_made_up`` (M9's proxies, tune SQ's
+    per-block lam_bits, a shard's LEFT edge, ALTREF with its planes,
+    SSEs past 2^24, all ties, which must go to LAST's ZERO) on the real
+    MC arguments; the zone's first 15 columns, a 1x4 shard's 510 blocks
+    (no multiple of four warps), and its next 15 with their LEFT edge;
+    the children without the rate tables, and ``_descent_made_up``'s
+    children (all ties with and without the tables, which must go to
+    ZERO; PARENT beyond the map) at the RA shape's 8,160; the real RA
+    shape (every parent's children, ``encode_children_masked`` run again
+    on the recorded inputs); the 720p M8 P-frame's real 32 zone and strip
+    zone (n=16). Each instance's registers, spills and CTAs per SM are
+    ``mc_kernel_phase``'s. Timed at the 1080p M8 and 720p shapes: call,
+    device, host, plain and bound, the two replaced launches' call, device
+    and host beside, and in turns the decided call against the two
+    launches and against the plain instance's call on the same MVs.
+    Returns ``mc_entry`` rebuilt on the decided parts (the main path's
+    calls), its plain instance's parts kept under "plain_instance_*"."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    max_err = 0
+
+    def held(label, name, args):
+        nonlocal max_err
+        kernel, plain, two = _dmc_fns(name, args)
+        got, want, pair = list(kernel()), list(plain()), list(two())
+        for x, y, z in zip(got, want, pair, strict=True):
+            if not x.dtype == y.dtype == z.dtype or \
+                    not x.shape == y.shape == z.shape:
+                raise AssertionError(
+                    f"{name} [{label}]: {x.dtype} {tuple(x.shape)} against "
+                    f"the plain version's {y.dtype} {tuple(y.shape)} and "
+                    f"the two launches' {z.dtype} {tuple(z.shape)}")
+        max_err = max(max_err, _check(name, label, got, want),
+                      _check(name, f"{label}, against the two launches",
+                             got, pair))
+        return got
+
+    zargs, cargs = (dict(real["dmc"])[k] for k in DECIDED_MC)
+    held("1080p M8 P-frame zone, real, GOLDEN and rate tables",
+         "mode_decide_mc", zargs)
+    held("1080p M8 P-frame children, real, rate tables",
+         "descent_decide_mc", cargs)
+    # the zone's made-up decisions on the real MC arguments; ALTREF's
+    # planes LAST's turned upside down and mirrored
+    rng = np.random.default_rng(53)
+    last, gold = zargs[18][0], zargs[18][1]
+    alt_planes = tuple(torch.flip(p, (0, 1)).contiguous() for p in last)
+    for label, d in _md_made_up(dev, zargs[:18], rng):
+        d = (*d[:14], _host_rates(d[14]), *d[15:])
+        planes = [last, gold, None if d[17] is None else alt_planes]
+        got = held(label, "mode_decide_mc", (*d, planes, *zargs[19:]))
+        if label.startswith("all ties") and any(t.any() for t in got[:4]):
+            raise AssertionError(f"mode_decide_mc [{label}]: a tie did not "
+                                 "go to LAST's ZERO")
+        print(f"kernel mode_decide_mc [{label}]: blocks by reference "
+              f"{[int((got[2] == i).sum()) for i in range(3)]}")
+    q = max(1, zargs[8] // 4)  # a 1x4 mesh's shard: 15 of 1080p's 60
+    for c0, c1 in ((0, q), (q, 2 * q)):
+        cut = _zone_columns(zargs, c0, c1)
+        held(f"columns {c0}-{c1 - 1}, B={cut[1].shape[0]}"
+             + (", LEFT edge" if c0 else ""), "mode_decide_mc", cut)
+    # the children: without the rate tables, the made-up ones at 8,160
+    held("1080p M8 children, real, without rate tables",
+         "descent_decide_mc", (*cargs[:12], None, *cargs[13:]))
+    desc = dict(real["desc"])
+    for label, name, d in _descent_made_up(dev, desc, rng):
+        if name != "descent_decide" or label.startswith("real"):
+            continue
+        d = (*d[:12], _host_rates(d[12]))
+        tail = _children_mc_tail(dev, zargs, cargs, d[1].shape[0])
+        got = held(label, "descent_decide_mc", (*d, *tail))
+        if label.startswith("all ties") and (got[0].any() or got[1].any()):
+            raise AssertionError(f"descent_decide_mc [{label}]: a tie did "
+                                 "not go to ZERO")
+    # the real RA shape: every parent's children
+    (eargs, ekw), = real["ecm"]
+    g = eargs[7]
+    score = desc["descent_split"][1].clone()
+    score[-g.cols32:] = -1
+    ra_calls = []
+    with _recording(("descent_decide_mc",), ra_calls, [True]):
+        P.encode_children_masked(*eargs[:6], P.descent_parents(
+            score, g.n_blocks32), *eargs[7:], **ekw)
+    (_, ra_children), = ra_calls
+    held(f"1080p RA shape children, real, B={ra_children[1].shape[0]}",
+         "descent_decide_mc", ra_children)
+    # the 720p strip geometry's two zones, real
+    strip_calls = []
+    w, h = STRIP_GEOMS["720p"]
+    with _recording(("mode_decide_mc",), strip_calls, [True]):
+        enc = _make_encoder(dev, 8, (w, h))
+        for frame in panning_frames(w, h, 2, seed=1):
+            enc.send_picture(frame)
+        enc.flush()
+        enc.close()
+    if [a[21] for _, a in strip_calls] != [32, 16]:
+        raise AssertionError(f"the 720p P-frame's decided MC calls were at "
+                             f"n={[a[21] for _, a in strip_calls]}")
+    strip = list(zip(("32 zone", "strip"), (a for _, a in strip_calls)))
+    for label, args in strip:
+        held(f"720p M8 {label}, real, B={args[1].shape[0]}",
+             "mode_decide_mc", args)
+    if max_err:
+        raise AssertionError(f"a decided MC call disagrees: {max_err}")
+
+    def timed(label, name, args):
+        kernel, plain, two = _dmc_fns(name, args)
+        got = kernel()
+        part = _timed("mc_predict", f"{label} B={args[1].shape[0]}", kernel,
+                      plain, 5, _dmc_bound(name, args, got),
+                      "mc_predict_kernel", 1)
+        mc_args, kw = _mc_args_of(name, args, got)
+        kgrid = P.mc_window_grid(tuple(tuple(t.shape)
+                                       for t in mc_args[0][0]),
+                                 tuple(mc_args[9]))
+
+        def plain_mc():
+            return K.mc_predict(*mc_args[:8], kgrid, **kw)
+
+        two_ms = _cuda_time_ms(two, 50)
+        two_dev = [_device_ms(two, key) for key in
+                   (f"{name[:-3]}_kernel", "mc_predict_kernel")]
+        two_host = _host_ms(two)
+        k_ms, t_ms = _calls_in_turns(kernel, two, 100)
+        k2_ms, p_ms = _calls_in_turns(kernel, plain_mc, 100)
+        shown = ("not measured" if None in two_dev else
+                 f"{two_dev[0]:.4f} + {two_dev[1]:.4f} ms")
+        print(f"kernel mc_predict {label}: the two launches it replaces "
+              f"({name[:-3]}, then mc_predict): call {two_ms:.4f} ms (CUDA "
+              f"events, median), device {shown} (profiler), host "
+              f"{two_host:.4f} ms a call; in turns (medians of 100 each) "
+              f"the decided call {k_ms:.4f} ms against the two "
+              f"{t_ms:.4f} ms, and {k2_ms:.4f} ms against the plain "
+              f"instance's call on the same MVs {p_ms:.4f} ms")
+        return part, {"shape": part[1], "ms": k_ms, "two_launches_ms": t_ms,
+                      "two_launches_device_ms": two_dev,
+                      "two_launches_host_ms": two_host,
+                      "decided_ms_vs_plain": k2_ms, "plain_mc_ms": p_ms}
+
+    parts, turns = [], []
+    for label, name, args in (
+            ("1080p M8 zone n=32, decided", "mode_decide_mc", zargs),
+            ("1080p M8 children n=16, decided", "descent_decide_mc",
+             cargs)):
+        part, turn = timed(label, name, args)
+        parts.append(part)
+        turns.append(turn)
+    strip_parts = []
+    for label, args in strip:
+        part, turn = timed(f"720p M8 {label}, decided", "mode_decide_mc",
+                           args)
+        strip_parts.append(part)
+        turns.append(turn)
+    entry = _entry("mc_predict", mc_entry["source"], mc_entry["replaces"],
+                   max(max_err, mc_entry["max_abs_err"]), parts)
+    entry["strip_parts"] = [_part(p) for p in strip_parts]
+    entry["ra_parts"] = []  # the real RA step's, from ra_kernel_phase
+    entry["decided_vs_replaced"] = turns
+    entry["decides"] = {"mode_decide_mc": "tpu_vp9/pipeline/"
+                        "tpu_encdec.py:1407",
+                        "descent_decide_mc": "tpu_vp9/pipeline/"
+                        "tpu_encdec.py:1902"}
+    for key in ("parts", "strip_parts", "ra_parts"):
+        entry[f"plain_instance_{key}"] = mc_entry.get(key, [])
     return entry
 
 
@@ -3887,23 +4260,23 @@ RA_SPANS = ("rt_stage", "ra_rate_args", "ra_device_step", "ra_d2h_transfer",
 # the kernel checks at its shapes
 RA_RECORDED = ("hier_search", "subpel_search", "sse_map_search",
                "transform_recon", "block_energy_at", "block_energy",
-               *MD_WINDOW_WRAPPERS)
+               *MD_WINDOW_WRAPPERS, *DECIDED_MC)
 
 
 def _ra_launches(geom, golden: bool, altref: bool):
     """Launches of one random-access P-frame step by wrapper: each zone
     (the 32 grid; at a strip geometry the strip too) searches LAST
     (hier_search_fused, the strip sse_map_search), quarter-pel searches
-    it, compensates Y, U and V in one MC launch (every reference's planes
-    read in place by ref_sel), transforms Y, U and V, takes its recon SSE
-    and ZERO's SSE in place, decides its modes in one launch and cuts its
-    search windows in one (LAST's); GOLDEN adds its two candidates'
-    SSEs (one block_energy_at), ALTREF its own search windows, search,
+    it, decides its modes and compensates Y, U and V in one MC launch
+    (every reference's planes read in place by ref_sel), transforms Y, U
+    and V, takes its recon SSE and ZERO's SSE in place and cuts its search
+    windows in one launch (LAST's); GOLDEN adds its two candidates' SSEs
+    (one block_energy_at), ALTREF its own search windows, search,
     quarter-pel search and ZERO SSE; without a strip the descent adds the
-    children's search, quarter-pel search, MC and three transforms, and its
-    gathers (the children's ZERO SSE with them), decision, pack (their
-    recon SSE with it) and split merge (one launch each); the loop filter
-    and the borders are one launch each."""
+    children's search, quarter-pel search, decision and MC (one launch)
+    and three transforms, and its gathers (the children's ZERO SSE with
+    them), pack (their recon SSE with it) and split merge (one launch
+    each); the loop filter and the borders are one launch each."""
     c = dict.fromkeys(ENTRY_WRAPPERS["sse_map_search"]
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
@@ -3914,8 +4287,7 @@ def _ra_launches(geom, golden: bool, altref: bool):
         c["hier_search_fused" if n == 32 else "sse_map_search"] += \
             1 + altref
         c["subpel_search"] += 1 + altref
-        c["mc_predict"] += 1
-        c["mode_decide"] += 1
+        c["mc_predict"] += 1  # with the zone's decision at its head
         c["extract_windows"] += 1 + altref
         c["transform_recon"] += 3
         c["block_energy"] += 1
@@ -3923,7 +4295,7 @@ def _ra_launches(geom, golden: bool, altref: bool):
     if not geom.strip:
         for k, v in (("sse_map_search", 1), ("subpel_search", 1),
                      ("mc_predict", 1), ("transform_recon", 3),
-                     *((w, 1) for w in DESCENT_WRAPPERS)):
+                     *DESCENT_LAUNCHES.items()):
             c[k] += v
     return c
 
@@ -3951,27 +4323,35 @@ def _recording(names, calls, active):
     """While ``active[0]``, the step's calls of the ``tpu_encdec`` functions
     ``names`` append (name, arguments) to ``calls``; the arguments a call
     writes in place (``IN_PLACE_ARGS``) are recorded as copies taken before
-    it."""
+    it. A decision folded into MC (``FOLDED``), which the step no longer
+    calls, is recorded from its merged dispatch's call: its first
+    arguments, the decision's own (``FOLDED_INTO``)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    real = {k: getattr(P, k) for k in names}
+    targets = {}
+    for k in names:
+        target, cut = FOLDED_INTO.get(k, (k, None))
+        targets.setdefault(target, []).append((k, cut))
+    real = {t: getattr(P, t) for t in targets}
 
-    def recorded(name, fn):
+    def recorded(target, fn):
         def call(*args):
             if active[0]:
-                at = IN_PLACE_ARGS.get(name, ())
-                calls.append((name, tuple(a.clone() if i in at else a
-                                          for i, a in enumerate(args))))
+                for name, cut in targets[target]:
+                    at = IN_PLACE_ARGS.get(name, ())
+                    calls.append((name, tuple(
+                        a.clone() if i in at else a
+                        for i, a in enumerate(args[:cut]))))
             return fn(*args)
         return call
 
-    for k in names:
-        setattr(P, k, recorded(k, real[k]))
+    for t in targets:
+        setattr(P, t, recorded(t, real[t]))
     try:
         yield
     finally:
-        for k in names:
-            setattr(P, k, real[k])
+        for t in targets:
+            setattr(P, t, real[t])
 
 
 def ra_end_to_end_phase(dev, frames, tag, record=False):
@@ -4138,8 +4518,10 @@ def _ra_calls(calls):
     the children's is descent_gather's), transform_recon (the zone's Y, U,
     V, the children's U, V, Y), block_energy (the zone's; the children's
     is descent_pack's),
-    mode_decide (the zone's), extract_windows (LAST's search site,
-    ALTREF's), extend_borders (the recon's)."""
+    mode_decide (the zone's, from its decided MC call), extract_windows
+    (LAST's search site, ALTREF's), extend_borders (the recon's), the
+    decided MC calls mode_decide_mc (the zone's) and descent_decide_mc
+    (the children's)."""
     by = {}
     for name, args in calls:
         by.setdefault(name, []).append(args)
@@ -4150,7 +4532,8 @@ def _ra_calls(calls):
                    "sse_map_search": 1, "transform_recon": 6,
                    "block_energy_at": 3, "block_energy": 1,
                    "mode_decide": 1, "extract_windows": 2,
-                   "extend_borders": 1}
+                   "extend_borders": 1, "mode_decide_mc": 1,
+                   "descent_decide_mc": 1}
     if {k: len(by.get(k, [])) for k in RA_RECORDED} != want_counts:
         raise AssertionError(f"the recorded RA step made these calls: "
                              f"{shape}")
@@ -4165,9 +4548,11 @@ def ra_kernel_phase(dev, calls, kernels):
     descent over every parent, 8,160 children (sse_map_search n=16 r=8
     with its map, subpel_search n=16 r=8, transform_recon at 16 and 8;
     their ZERO SSE is descent_gather's, their recon SSE descent_pack's),
-    and ALTREF's own search (hier_search_fused, its ZERO SSE and
-    subpel_search at n=32 r=4). Each timed; the parts go to the kernels'
-    entries as "ra_parts"."""
+    ALTREF's own search (hier_search_fused, its ZERO SSE and
+    subpel_search at n=32 r=4), and the decided MC calls (the zone's with
+    GOLDEN and ALTREF, the 8,160 children's) against their plain
+    compositions and the two launches each replaces. Each timed; the parts
+    go to the kernels' entries as "ra_parts"."""
     from tpu_vp9_torch.ops import cuda_kernels as K
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
@@ -4252,6 +4637,22 @@ def ra_kernel_phase(dev, calls, kernels):
         parts.setdefault(name, []).append(_timed(
             name, label, kernel, plain, 5, _md_window_bound(name, args),
             WRAPPER_KERNELS[name], 1))
+    # the decisions in their MC launches: the zone with all three
+    # references, the children of every parent
+    for name, label in (("mode_decide_mc", "1080p RA zone n=32, decided, "
+                         "LAST, GOLDEN and ALTREF"),
+                        ("descent_decide_mc", "1080p RA children n=16, "
+                         "decided")):
+        args = by[name][0]
+        kernel, plain, two = _dmc_fns(name, args)
+        got = kernel()
+        errs["mc_predict"] = max(errs.get("mc_predict", 0),
+                                 _check(name, label, got, plain()),
+                                 _check(name, f"{label}, against the two "
+                                        "launches", got, two()))
+        parts.setdefault("mc_predict", []).append(_timed(
+            "mc_predict", f"{label} B={args[1].shape[0]}", kernel, plain, 3,
+            _dmc_bound(name, args, got), "mc_predict_kernel", 1))
     if any(errs.values()):
         raise AssertionError(f"an RA shape disagrees: {errs}")
     for name, v in parts.items():
@@ -5151,8 +5552,9 @@ MESH_STEP_SHAPES = {"1080p": ((1, 2), (1, 4), (2, 2)), "720p": ((1, 2),
 MESH_FRAMES = 10
 MESH_TIMED = (1, 2, 4)
 # launches of one shard's zone with GOLDEN (the 32 grid: the fused search,
-# the quarter-pel search, ZERO and GOLDEN's candidates, the decision, the
-# window launch, MC, the recon distortion, three transforms); a strip
+# the quarter-pel search, ZERO and GOLDEN's candidates, the window launch,
+# the decision and MC in one launch, the recon distortion, three
+# transforms); a strip
 # geometry adds the strip zone's (its flat search in place of the fused
 # one); one loop filter a frame (the sharded step's references come back
 # without borders)
@@ -5546,6 +5948,10 @@ def main() -> int:
         *md_window_kernel_phase(dev, real["md"]).values(),
         kframe_kernel_phase(dev), loop_filter_kernel_phase(dev, real["lf"]),
         openloop_kernel_phase(dev))}
+    kernels["mc_predict"] = decided_kernel_phase(dev, real,
+                                                 kernels["mc_predict"])
+    for name in FOLDED:
+        kernels[name]["folded_into"] = "mc_predict"
     del real, real_frames, real_recons
     for name, parts in strip_kernel_phase(dev).items():
         kernels[name]["strip_parts"] = parts
@@ -5602,8 +6008,14 @@ def main() -> int:
     kernels["sad_full_search"]["launches"] = m7_counts["sad_full_search"]
     m7_profile_phase(dev, m7_frames)
     same_bytes_phase("m7", m7_frames, m7_pkts, 7)
-    if any(k["launches"] <= 0 for k in kernels.values()):
+    if any(k["launches"] <= 0 for name, k in kernels.items()
+           if name not in FOLDED):
         raise AssertionError("a kernel was not launched on its main path")
+    alone = {name: kernels[name]["launches_by_path"] for name in FOLDED}
+    if any(kernels[name]["launches"] or any(alone[name].values())
+           for name in FOLDED):
+        raise AssertionError(f"a decision folded into MC was launched on "
+                             f"its own: {alone}")
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s; the slowest: " + ", ".join(

@@ -95,7 +95,8 @@ WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "kframe_wave", "transform_recon", "subpel_search",
             "openloop_modes", "mc_predict", "descent_gather",
             "descent_decide", "descent_pack", "descent_split",
-            "mode_decide", "extract_windows", "extend_borders")
+            "mode_decide", "extract_windows", "extend_borders",
+            "mode_decide_mc", "descent_decide_mc")
 
 
 def _functions(path):
@@ -148,8 +149,13 @@ def test_wrappers_cover_every_kernel_source():
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
         assert name in fns
-        assert isinstance(getattr(K, name).launches, int)
+        # the decisions folded into MC count their launches as mc_predict's
+        counter = K.LAUNCH_COUNTERS.get(name, name)
+        assert isinstance(getattr(K, counter).launches, int)
         assert "_launch" in _called(fns[name]), name
+        if counter != name:
+            assert not hasattr(getattr(K, name), "launches"), name
+            assert f"{counter}.launches += 1" in ast.unparse(fns[name])
 
 
 def test_kernel_module_catches_nothing():
@@ -222,13 +228,16 @@ STEP_DISPATCH = {
                         ("kframe_wave_ref",)),
     "subpel_search": ("subpel_search",
                       ("zone_search", "encode_children_masked"), ()),
-    "mc_predict": ("mc_predict", ("zone_code", "encode_children_masked"),
-                   ()),
+    "mc_predict": ("mc_predict", (), ("mode_decide_mc_ref",
+                                       "descent_decide_mc_ref")),
     "descent_gather": ("descent_gather", ("encode_children_masked",), ()),
-    "descent_decide": ("descent_decide", ("encode_children_masked",), ()),
+    "descent_decide": ("descent_decide", (), ("descent_decide_mc_ref",)),
     "descent_pack": ("descent_pack", ("encode_children_masked",), ()),
     "descent_split": ("descent_split", ("pframe_step",), ()),
-    "mode_decide": ("mode_decide", ("zone_code",), ()),
+    "mode_decide": ("mode_decide", (), ("mode_decide_mc_ref",)),
+    "mode_decide_mc": ("mode_decide_mc", ("zone_code",), ()),
+    "descent_decide_mc": ("descent_decide_mc", ("encode_children_masked",),
+                          ()),
     "extract_windows": ("extract_windows", ("zone_search", "_altref_search"),
                         ("mc_predict_planes_ref",)),
     "extend_borders": ("extend_borders", ("pframe_step", "kframe_step"), ()),
@@ -309,10 +318,11 @@ def test_zone_code_cuts_no_mc_windows():
     """MC reads the reference planes in place: ``zone_code`` (the MC site
     of every zone, strip and shard) calls no window extraction, neither
     the dispatch nor its wrapper nor its plain version, and hands
-    ``mc_predict`` planes; only the searches cut windows."""
+    ``mode_decide_mc`` (its decision and MC) planes; only the searches cut
+    windows."""
     fns = _functions(ENCDEC_PY)
     called = _called(fns["zone_code"])
-    assert "mc_predict" in called
+    assert "mode_decide_mc" in called
     assert not called & {"extract_windows", "_extract_search_windows",
                          "window_specs"}, called
     cutters = sorted(n for n, f in fns.items()
@@ -331,6 +341,29 @@ def test_descent_dispatch_has_no_route_from_cuda_to_the_plain_version(name):
 def test_md_and_window_dispatches_have_no_route_from_cuda_to_the_plain_version(
         name):
     _check_step_dispatch(name)
+
+
+@pytest.mark.parametrize("name", ("mode_decide_mc", "descent_decide_mc"))
+def test_decided_mc_dispatches_have_no_route_from_cuda_to_the_plain_version(
+        name):
+    _check_step_dispatch(name)
+
+
+def test_steps_make_no_standalone_decision():
+    """The decisions run inside their MC launches: no step calls the
+    standalone decisions or the MC without one, neither the dispatch nor
+    its wrapper nor its plain version, in the step's module or the
+    sharded step's."""
+    fns = _functions(ENCDEC_PY)
+    standalone = {"mode_decide", "descent_decide", "mc_predict",
+                  "mode_decide_ref", "descent_decide_ref",
+                  "mc_predict_planes_ref"}
+    for step in ("zone_search", "zone_code", "encode_zone",
+                 "encode_children_masked", "pframe_step", "make_pframe_step"):
+        assert not _called(fns[step]) & standalone, step
+    path = os.path.join(REPO, "tpu_vp9_torch", "pipeline", "tpu_shard.py")
+    with open(path) as fh:
+        assert not _called(ast.parse(fh.read())) & standalone
 
 
 def test_the_other_step_modules_call_the_border_dispatch():

@@ -364,17 +364,18 @@ def _zone_inputs(seed, w=128, h=96, last_noise=3):
 
 
 def _recording(monkeypatch):
-    """The step's MC dispatch, recording each call's arguments and
-    result."""
+    """The step's MC on the CPU (``mc_predict_planes_ref``, which the
+    dispatches of the decision and MC reach there after the decision),
+    recording each call's arguments and result."""
     calls = []
-    real = P.mc_predict
+    real = P.mc_predict_planes_ref
 
     def record(*args, **kw):
         out = real(*args, **kw)
         calls.append((args, kw, out))
         return out
 
-    monkeypatch.setattr(P, "mc_predict", record)
+    monkeypatch.setattr(P, "mc_predict_planes_ref", record)
     return calls
 
 

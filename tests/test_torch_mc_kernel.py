@@ -57,14 +57,14 @@ _STANDIN_LAUNCH = """
             standin_launch_all(m, kThreads, [&] {
               blockIdx.x += c0;
               blockIdx.y = p;
-              mc_predict_kernel<32>(a);
+              mc_predict_kernel<32, kPlain>(a);
             });
             break;
           case 16:
             standin_launch_all(m, kThreads, [&] {
               blockIdx.x += c0;
               blockIdx.y = p;
-              mc_predict_kernel<16>(a);
+              mc_predict_kernel<16, kPlain>(a);
             });
             break;
           default:
@@ -91,7 +91,7 @@ def standin(tmp_path_factory):
         pytest.skip("no g++ to build the stand-in of the CUDA source")
     with open(os.path.join(CSRC, "mc_predict.cu")) as fh:
         src = fh.read()
-    cut = src.index("template <int N>\ncudaError_t launch(")
+    cut = src.index("template <int N, int D>\ncudaError_t launch(")
     shared = "extern __shared__ __align__(16) unsigned char smem[];"
     assert src.count(shared) == 1
     body = src[:cut].replace(shared, "unsigned char* smem = standin_smem;")

@@ -59,7 +59,7 @@ LAM = 90
 
 _STANDIN_LAUNCH = """
 cudaError_t launch_md(const MdArgs& a, cudaStream_t) {
-  standin_launch_all((a.b + kThreads - 1) / kThreads, kThreads,
+  standin_launch_all((a.b + kWarps - 1) / kWarps, kThreads,
                      [&] { mode_decide_kernel(a); });
   return standin_take_trap();
 }

@@ -25,13 +25,13 @@ plain step.
    rows), a crop width no multiple of 16, border 0 and 96, a 1 x 1 crop,
    and their other rows (odd widths and crops, a plane one byte into its
    storage) in the same launch; and their refusals.
-3. ``make_pframe_step`` with the dispatches ``mode_decide``,
-   ``extract_windows``, ``extend_borders`` and ``mc_predict`` on the
-   stand-ins (the three sources built) against the plain step: M8 with
-   GOLDEN and the descent, RA's ALTREF with GOLDEN, a strip geometry at
-   tune SQ; every output and the new references equal, the launches
+3. ``make_pframe_step`` with the dispatches ``mode_decide_mc``,
+   ``descent_decide_mc``, ``extract_windows`` and ``extend_borders`` on
+   the stand-ins (the three sources built) against the plain step: M8
+   with GOLDEN and the descent, RA's ALTREF with GOLDEN, a strip geometry
+   at tune SQ; every output and the new references equal, the launches
    counted (one window launch a zone and one more with ALTREF: MC reads
-   the planes in place).
+   the planes in place; the decisions run inside the MC launches).
 
 What this cannot show: that nvcc accepts the source, or its speed;
 ``chip_smoke.py`` checks the kernels on the card.
@@ -61,6 +61,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "tpu_vp9_torch", "csrc")
 STANDIN = os.path.join(REPO, "tests", "cuda_standin")
 NAMES = ("extract_windows", "extend_borders", "mode_decide", "mc_predict")
+# the decisions folded into MC: mc_predict.cu's decided launches, counted
+# as mc_predict's
+DECIDED = ("mode_decide_mc", "descent_decide_mc")
 
 # each source's launch helpers as the stand-in runs them: every CTA of the
 # grid at once (extract_windows: a CTA per window, one after another;
@@ -93,14 +96,14 @@ cudaError_t launch_borders(const Jobs& js, cudaStream_t) {
 """,
     "mode_decide": """
 cudaError_t launch_md(const MdArgs& a, cudaStream_t) {
-  standin_launch_all((a.b + kThreads - 1) / kThreads, kThreads,
+  standin_launch_all((a.b + kWarps - 1) / kWarps, kThreads,
                      [&] { mode_decide_kernel(a); });
   return standin_take_trap();
 }
 
 """,
     "mc_predict": """
-template <int N>
+template <int N, int D>
 cudaError_t launch(const McArgs& a, cudaStream_t) {
   const int ctas = (a.nblk + kWarps - 1) / kWarps;
   for (int p = 0; p < kPlanes; ++p) {
@@ -108,14 +111,14 @@ cudaError_t launch(const McArgs& a, cudaStream_t) {
       standin_launch_all(ctas - c0 < 16 ? ctas - c0 : 16, kThreads, [&] {
         blockIdx.x += c0;
         blockIdx.y = p;
-        mc_predict_kernel<N>(a);
+        mc_predict_kernel<N, D>(a);
       });
     }
   }
   return standin_take_trap();
 }
 
-template <int N>
+template <int N, int D>
 int occupancy(int* ctas_per_sm, int* smem_bytes) {
   *ctas_per_sm = 1;
   *smem_bytes = kSmem<N>;
@@ -125,7 +128,7 @@ int occupancy(int* ctas_per_sm, int* smem_bytes) {
 """}
 _FIRST_HELPER = {"windows": "cudaError_t launch_extract(",
                  "mode_decide": "cudaError_t launch_md(",
-                 "mc_predict": "template <int N>\ncudaError_t launch("}
+                 "mc_predict": "template <int N, int D>\ncudaError_t launch("}
 
 
 def _t(a):
@@ -245,7 +248,7 @@ def standin(tmp_path_factory):
     libs = {name: _build(tmp, name)
             for name in ("windows", "mode_decide", "mc_predict")}
     fns = {}
-    for name in NAMES:
+    for name in NAMES + DECIDED:
         lib, sym, n_ptr, n_float, n_int = K._LAUNCHERS[name]
         fn = getattr(libs[lib], sym)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float] * n_float
@@ -262,7 +265,8 @@ def on_standin(standin, monkeypatch):
     real_kind = K._device_kind
 
     def kind(name, *tensors):
-        return "cuda" if name in NAMES else real_kind(name, *tensors)
+        return "cuda" if name in NAMES + DECIDED else real_kind(name,
+                                                                 *tensors)
 
     def launch(name, dev, *args):
         err = standin[name](*args, None)
@@ -485,11 +489,12 @@ STEPS = {"m8-golden-descent": ((96, 64), True, False, True, 4, False),
 def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
                                                      case):
     """The step once on the plain versions and once with its dispatches
-    ``mode_decide``, ``extract_windows``, ``extend_borders`` and
-    ``mc_predict`` taking the stand-in kernels: every output and the new
-    references equal; per zone one decision, one window launch (two with
-    ALTREF) and one MC launch (MC reads the planes in place), one more MC
-    launch for the children, one border launch."""
+    ``mode_decide_mc``, ``descent_decide_mc``, ``extract_windows`` and
+    ``extend_borders`` taking the stand-in kernels: every output and the
+    new references equal; per zone one window launch (two with ALTREF)
+    and one MC launch that makes the zone's decision first (MC reads the
+    planes in place), one more for the children's decision and MC, one
+    border launch, and no launch of the standalone decision."""
     dims, golden, altref, split16, frac, aq = STEPS[case]
     g, src, refs = _step_args(*dims, seed=len(case),
                               n_refs=1 + golden + altref)
@@ -507,9 +512,22 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
                               descend_frac=frac, aq=aq)
     want_outs, want_refs = step(*args)
     before = {name: getattr(K, name).launches for name in NAMES}
+
+    def kernel_grid(planes, grid):
+        return P.mc_window_grid(tuple(tuple(t.shape) for t in planes[0]),
+                                tuple(grid))
+
+    # the dispatches' plain versions taking the wrappers, with the
+    # constants and the window grid the dispatches hand them
     monkeypatch.setattr(
-        P, "mode_decide_ref",
-        lambda *a: K.mode_decide(*a, P.CAND_RATE_PROXY))
+        P, "mode_decide_mc_ref",
+        lambda *a: K.mode_decide_mc(*a[:18], P.CAND_RATE_PROXY, *a[18:24],
+                                    kernel_grid(a[18], a[25])))
+    monkeypatch.setattr(
+        P, "descent_decide_mc_ref",
+        lambda *a: K.descent_decide_mc(
+            *a[:13], (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4]),
+            *a[13:19], kernel_grid(a[13], a[20]), *a[21:]))
     monkeypatch.setattr(
         P, "extract_windows",
         lambda jobs, rows, cols: K.extract_windows(
@@ -518,17 +536,10 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
         P, "extend_borders",
         lambda planes, crops, border=P.BORDER: K.extend_borders(
             planes, crops, border))
-    monkeypatch.setattr(
-        P, "mc_predict",
-        lambda planes, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols,
-        filters, grid, **kw: K.mc_predict(
-            planes, pos_y, pos_x, mv_r, mv_c, n, mi_rows, mi_cols,
-            P.mc_window_grid(tuple(tuple(t.shape) for t in planes[0]),
-                             tuple(grid)), **kw))
     got_outs, got_refs = step(*args)
     zones = 1 + g.strip
     assert {name: getattr(K, name).launches - before[name]
-            for name in NAMES} == {"mode_decide": zones,
+            for name in NAMES} == {"mode_decide": 0,
                                    "extract_windows": zones * (1 + altref),
                                    "extend_borders": 1,
                                    "mc_predict": zones + split16}

@@ -24,19 +24,10 @@
 //     descent reads: the map centre's displacement s - 32, the child's
 //     position, its offset inside the parent's window, the parent's window
 //     index sel[k] and the parent's final MV.
-//  2. descent_decide (a thread per child): ZERO, NEW and PARENT. PARENT's
-//     SSE is its rounded full-pel entry of the child's 17 x 17 map
-//     (clamped to the map) plus sum(src^2); NEW's MV is (s - 32) * 8 plus
-//     the quarter-pel winner. With the frame's rate tables the cost is
-//     f32(sse) + (lam_bits * f32(rate)) / 256, NEW's rate the mode's plus
-//     its mvd bits against PARENT (the joint's and the two component
-//     LUTs', clipped to their reach); without, f32(sse) + f32(lam) * rate,
-//     NEW's rate new_bits[|dr| + |dc|] out of the host's float32 table.
-//     Each product, quotient and sum rounds on its own (__fmul_rn,
-//     __fdiv_rn, __fadd_rn: nvcc would contract a*b + c into an FMA) in
-//     the JAX package's order; the first minimum wins (a strict < in
-//     candidate order). An mvd past the table traps, as torch's indexing
-//     of the plain version fails there.
+//  2. descent_decide (a thread per child): ZERO, NEW and PARENT, the
+//     decision of decide.cuh (decide::child, which mc_predict.cu's
+//     children's instance runs at the head of their motion compensation;
+//     the step launches that one), its rate scalars host numbers here.
 //  3. descent_pack (a CTA of 128 threads per parent, a warp per child):
 //     skip (every plane's eob 0), the nonzero levels of the child's three
 //     planes counted on the int16 pairs of 16-byte words (lv_y a word a
@@ -80,11 +71,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decide.cuh"
+
 namespace {
 
-constexpr int kReach = 8;                       // the children's reach
-constexpr int kMapSide = 2 * kReach + 1;        // 17
-constexpr int kMap = kMapSide * kMapSide;       // 289 entries a child
+constexpr int kReach = decide::kChildReach;     // the children's reach
 constexpr int kChildWin = 16 + 2 * kReach + 8;  // 40
 constexpr int kUnion = 64;     // a parent's union slice
 constexpr int kUnionOff = 36;  // the union starts at the winner + 36
@@ -233,88 +224,25 @@ __global__ void __launch_bounds__(kGatherThreads)
 // 2. descent_decide
 // ---------------------------------------------------------------------------
 
-struct DecideArgs {
-  const int* ssem;      // (nch, 17, 17) the children's relative-SSE maps
-  const int* sse_zero;  // (nch,) each
-  const int* sse_new;
-  const int* sub_r;     // the quarter-pel winner in the window, q3
-  const int* sub_c;
-  const int* src2;
-  const int* base_y;    // the map centre's displacement
-  const int* base_x;
-  const int* par_r;     // the parent's MV, q3
-  const int* par_c;
-  const float* new_bits;    // (n_new_bits,) NEW's rate proxy by mvd
-  const int* joint_cost;    // (4,) with rates
-  const int* nmv_row;       // (2 * mv_cost_max + 1,) with rates
-  const int* nmv_col;
-  int* mv;                  // (2, nch): rows, then columns
-  int16_t* mv16;            // (nch, 2)
-  float lam_bits, rate_zero, rate_parent;
-  int nch, with_rates, lam, mode_zero, mode_new, mode_parent, mv_cost_max,
-      n_new_bits;
+// The decision's inputs (decide.cuh), its rate scalars from the host and
+// the launch's outputs.
+struct DecideArgs : decide::Children {
+  decide::ChildRates rates;  // read with rates only
+  int* mv;                   // (2, nch): rows, then columns
+  int16_t* mv16;             // (nch, 2)
+  int nch;
 };
-
-// f32(sse) + (lam_bits * f32(rate)) / 256, each step rounded on its own
-__device__ __forceinline__ float table_cost(int sse, int rate,
-                                            float lam_bits) {
-  return __fadd_rn(
-      __int2float_rn(sse),
-      __fdiv_rn(__fmul_rn(lam_bits, __int2float_rn(rate)), 256.0f));
-}
 
 __global__ void __launch_bounds__(kDecideThreads)
     descent_decide_kernel(DecideArgs a) {
   const int c = blockIdx.x * kDecideThreads + threadIdx.x;
   if (c >= a.nch) return;
-  const int base_y = a.base_y[c], base_x = a.base_x[c];
-  const int par_r = a.par_r[c], par_c = a.par_c[c];
-  const int new_r = base_y * 8 + a.sub_r[c];
-  const int new_c = base_x * 8 + a.sub_c[c];
-  // PARENT at its rounded full-pel entry of the map (>> is arithmetic)
-  const int fy = clampi(((par_r + 4) >> 3) - base_y, -kReach, kReach) +
-                 kReach;
-  const int fx = clampi(((par_c + 4) >> 3) - base_x, -kReach, kReach) +
-                 kReach;
-  const int sse0 = a.sse_zero[c], sse1 = a.sse_new[c];
-  const int sse2 = a.ssem[c * kMap + fy * kMapSide + fx] + a.src2[c];
-  const int dr = new_r - par_r, dc = new_c - par_c;
-  float c0, c1, c2;
-  if (a.with_rates) {
-    const int m = a.mv_cost_max;
-    const int bits = a.joint_cost[2 * (dr != 0) + (dc != 0)] +
-                     a.nmv_row[clampi(dr, -m, m) + m] +
-                     a.nmv_col[clampi(dc, -m, m) + m];
-    c0 = table_cost(sse0, a.mode_zero, a.lam_bits);
-    c1 = table_cost(sse1, a.mode_new + bits, a.lam_bits);
-    c2 = table_cost(sse2, a.mode_parent, a.lam_bits);
-  } else {
-    const int mvd = (dr < 0 ? -dr : dr) + (dc < 0 ? -dc : dc);
-    if (mvd >= a.n_new_bits) {  // past the table: the launch fails
-      __trap();
-      return;
-    }
-    const float lam = __int2float_rn(a.lam);
-    c0 = __fadd_rn(__int2float_rn(sse0), __fmul_rn(lam, a.rate_zero));
-    c1 = __fadd_rn(__int2float_rn(sse1), __fmul_rn(lam, a.new_bits[mvd]));
-    c2 = __fadd_rn(__int2float_rn(sse2), __fmul_rn(lam, a.rate_parent));
-  }
-  // the first minimum: a strict < in candidate order
-  int mv_r = 0, mv_c = 0;
-  float best = c0;
-  if (c1 < best) {
-    best = c1;
-    mv_r = new_r;
-    mv_c = new_c;
-  }
-  if (c2 < best) {
-    mv_r = par_r;
-    mv_c = par_c;
-  }
-  a.mv[c] = mv_r;
-  a.mv[a.nch + c] = mv_c;
-  a.mv16[2 * c] = static_cast<int16_t>(mv_r);
-  a.mv16[2 * c + 1] = static_cast<int16_t>(mv_c);
+  const decide::Choice ch = decide::child(a, a.rates, c);
+  if (!ch.ok) return;
+  a.mv[c] = ch.r;
+  a.mv[a.nch + c] = ch.c;
+  a.mv16[2 * c] = static_cast<int16_t>(ch.r);
+  a.mv16[2 * c + 1] = static_cast<int16_t>(ch.c);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,35 +488,14 @@ extern "C" int descent_decide_launch(
     int with_rates, int lam, int mode_zero, int mode_new, int mode_parent,
     int mv_cost_max, int n_new_bits, void* stream) {
   DecideArgs a;
-  a.ssem = static_cast<const int*>(ssem);
-  a.sse_zero = static_cast<const int*>(sse_zero);
-  a.sse_new = static_cast<const int*>(sse_new);
-  a.sub_r = static_cast<const int*>(sub_r);
-  a.sub_c = static_cast<const int*>(sub_c);
-  a.src2 = static_cast<const int*>(src2);
-  a.base_y = static_cast<const int*>(base_y);
-  a.base_x = static_cast<const int*>(base_x);
-  a.par_r = static_cast<const int*>(par_r);
-  a.par_c = static_cast<const int*>(par_c);
-  a.new_bits = static_cast<const float*>(new_bits);
-  a.joint_cost = static_cast<const int*>(joint_cost);
-  a.nmv_row = static_cast<const int*>(nmv_row);
-  a.nmv_col = static_cast<const int*>(nmv_col);
+  a.rates = {lam_bits, mode_zero, mode_new, mode_parent, mv_cost_max};
   a.mv = static_cast<int*>(mv);
   a.mv16 = static_cast<int16_t*>(mv16);
-  a.lam_bits = lam_bits;
-  a.rate_zero = rate_zero;
-  a.rate_parent = rate_parent;
   a.nch = nch;
-  a.with_rates = with_rates;
-  a.lam = lam;
-  a.mode_zero = mode_zero;
-  a.mode_new = mode_new;
-  a.mode_parent = mode_parent;
-  a.mv_cost_max = mv_cost_max;
-  a.n_new_bits = n_new_bits;
-  if (with_rates && (joint_cost == nullptr || nmv_row == nullptr ||
-                     nmv_col == nullptr)) {
+  if (!decide::children_args(a, ssem, sse_zero, sse_new, sub_r, sub_c, src2,
+                             base_y, base_x, par_r, par_c, new_bits,
+                             joint_cost, nmv_row, nmv_col, rate_zero,
+                             rate_parent, with_rates, lam, n_new_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch_decide(a, static_cast<cudaStream_t>(stream)));

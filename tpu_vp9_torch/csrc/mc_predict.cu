@@ -53,11 +53,31 @@
 //   - the V pass the same way down the columns, the prediction written a
 //     byte a lane, neighbouring lanes on neighbouring columns;
 //   - __syncwarp between the phases.
+//
+// The decided instances. The step's two MC sites each consume a decision
+// that nothing else reads first: the zone's (decide.cuh: decide::zone,
+// LAST, GOLDEN, ALTREF and the reference choice, the JAX package's
+// _candidate_decide and encode_zone's GOLDEN and ALTREF blocks) and the
+// children's (decide::child, encode_children_masked's). Their launches,
+// mc_predict_zone_launch and mc_predict_children_launch, make the decision
+// at the head of every warp, on the warp's own block: each of the block's
+// Y, U and V warps (in three CTAs) decides it from the same inputs, about
+// 50 bytes and three map entries a block, the second and third reads from
+// L2; the warp then compensates with the decided (mv, ref) where the plain
+// instance reads mv_r, mv_c and ref_sel. Only the plane-0 warp writes the
+// decision out: mv (2, B) int32, mv16 (B, 2) int16 and, for the zone,
+// ref_sel (B,) int8. Their contracts are the plain compositions beside the
+// step, tpu_vp9_torch/pipeline/tpu_encdec.py: mode_decide_mc_ref and
+// descent_decide_mc_ref (the decision's plain version, then
+// mc_predict_planes_ref); the standalone launches of the decisions
+// (mode_decide.cu, descent.cu) stay for their checks, and the step no
+// longer makes them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "convolve8.cuh"
+#include "decide.cuh"
 
 namespace {
 
@@ -87,7 +107,21 @@ struct McArgs {
   int cols;               // the grid's columns
   int nwin;               // its windows
   int mi_rows, mi_cols;
+  // the decided instances: the decision's inputs, and its outputs, which
+  // the plane-0 warp of a block writes
+  decide::Zone zone;        // kZone
+  decide::Children child;   // kChildren
+  const int* scalars;       // kChildren with rates: the device row
+  int* mv_out;              // (2, B) int32
+  int16_t* mv16_out;        // (B, 2) int16
+  int8_t* ref_out;          // (B,) int8, kZone
 };
+
+// What a launch decides before its MC: nothing (the MVs and ref_sel are
+// given), the zone's decision or the children's.
+constexpr int kPlain = 0;
+constexpr int kZone = 1;
+constexpr int kChildren = 2;
 
 // A plane of block size NP: the region's side; the 16-byte chunks a row
 // of the region spans from the aligned chunk that holds its first byte
@@ -114,11 +148,13 @@ constexpr int kWarpSmem = (Plane<N>::kBytes + 15) / 16 * 16;
 template <int N>
 constexpr int kSmem = kWarps * kWarpSmem<N>;
 
-// The block's prediction in plane p (of block size NP) into a.out[p], by
-// one warp (lane its lane), in the warp's shared memory smem.
+// Block b's prediction in plane p (of block size NP) at the q3 MV (mv_r,
+// mv_c) out of reference ref into a.out[p], by one warp (lane its lane), in
+// the warp's shared memory smem.
 template <int NP>
 __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
-                                        int lane, unsigned char* smem) {
+                                        int lane, unsigned char* smem,
+                                        int mv_r, int mv_c, int ref) {
   using S = Plane<NP>;
   const int ss = p > 0 ? 1 : 0;
   const int pos_y = a.pos_y[b] >> ss;
@@ -138,9 +174,9 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
   const int mb_r = ((a.mi_cols - (NP << ss) / 8) - mi_c) * 64;
   const int mb_t = -(mi_r * 8) * 8;
   const int mb_b = ((a.mi_rows - (NP << ss) / 8) - mi_r) * 64;
-  const int row = min(max(a.mv_r[b] * scale, mb_t * scale - spel_top),
+  const int row = min(max(mv_r * scale, mb_t * scale - spel_top),
                       mb_b * scale + spel_bottom);
-  const int col = min(max(a.mv_c[b] * scale, mb_l * scale - spel_left),
+  const int col = min(max(mv_c * scale, mb_l * scale - spel_left),
                       mb_r * scale + spel_right);
   const int y_q4 = (pos_y << 4) + row;
   const int x_q4 = (pos_x << 4) + col;
@@ -153,7 +189,6 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
   const int ph_x = x_q4 & 15;
 
   // the block's window in its reference's plane
-  const int ref = a.ref_sel != nullptr ? a.ref_sel[b] : 0;
   const uint8_t* pl = a.plane[p][0];
   if (ref == 1 && a.plane[p][1] != nullptr) pl = a.plane[p][1];
   if (ref == 2 && a.plane[p][2] != nullptr) pl = a.plane[p][2];
@@ -238,9 +273,10 @@ __device__ __forceinline__ void predict(const McArgs& a, int b, int p,
   }
 }
 
-// N: the luma block size (the chroma planes' is N / 2). Warp w of CTA x
-// predicts block kWarps x + w in plane blockIdx.y.
-template <int N>
+// N: the luma block size (the chroma planes' is N / 2); D: what it
+// decides first (kPlain, kZone, kChildren). Warp w of CTA x predicts block
+// kWarps x + w in plane blockIdx.y.
+template <int N, int D>
 __global__ void __launch_bounds__(kThreads) mc_predict_kernel(McArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32;
@@ -248,26 +284,91 @@ __global__ void __launch_bounds__(kThreads) mc_predict_kernel(McArgs a) {
   const int b = blockIdx.x * kWarps + warp;
   const int p = blockIdx.y;
   if (b >= a.nblk) return;
+  int mv_r, mv_c, ref;
+  if constexpr (D == kPlain) {
+    mv_r = a.mv_r[b];
+    mv_c = a.mv_c[b];
+    ref = a.ref_sel != nullptr ? a.ref_sel[b] : 0;
+  } else {
+    decide::Choice ch;
+    if constexpr (D == kZone) {
+      ch = decide::zone(a.zone, b, lane);
+    } else {
+      decide::ChildRates r = {0.0f, 0, 0, 0, 0};
+      if (a.child.with_rates) r = decide::child_rates(a.scalars);
+      ch = decide::child(a.child, r, b);
+    }
+    if (!ch.ok) return;  // a trap: the whole warp leaves
+    mv_r = ch.r;
+    mv_c = ch.c;
+    ref = ch.ref;
+    if (p == 0 && lane == 0) {  // the decision out, once a block
+      a.mv_out[b] = mv_r;
+      a.mv_out[a.nblk + b] = mv_c;
+      a.mv16_out[2 * b] = static_cast<int16_t>(mv_r);
+      a.mv16_out[2 * b + 1] = static_cast<int16_t>(mv_c);
+      if constexpr (D == kZone) a.ref_out[b] = static_cast<int8_t>(ref);
+    }
+  }
   unsigned char* mine = smem + warp * kWarpSmem<N>;
   if (p == 0) {
-    predict<N>(a, b, p, lane, mine);
+    predict<N>(a, b, p, lane, mine, mv_r, mv_c, ref);
   } else {
-    predict<N / 2>(a, b, p, lane, mine);
+    predict<N / 2>(a, b, p, lane, mine, mv_r, mv_c, ref);
   }
 }
 
-template <int N>
+// The MC part of a launch's arguments (mc_predict_launch documents them);
+// false where they are refused.
+bool mc_args(McArgs& a, const void* const planes[kPlanes][kRefs],
+             const void* pos_y, const void* pos_x, const void* filters,
+             void* out_y, void* out_u, void* out_v, int nblk, int n,
+             int rows, int cols, const int geom[kPlanes][4], int win_r_y,
+             int win_r_c, const int pitches[kPlanes], int mi_rows,
+             int mi_cols) {
+  for (int p = 0; p < kPlanes; ++p) {
+    for (int r = 0; r < kRefs; ++r) {
+      a.plane[p][r] = static_cast<const uint8_t*>(planes[p][r]);
+    }
+  }
+  a.out[0] = static_cast<uint8_t*>(out_y);
+  a.out[1] = static_cast<uint8_t*>(out_u);
+  a.out[2] = static_cast<uint8_t*>(out_v);
+  a.pos_y = static_cast<const int*>(pos_y);
+  a.pos_x = static_cast<const int*>(pos_x);
+  a.filters = static_cast<const int*>(filters);
+  a.nblk = nblk;
+  a.cols = cols;
+  a.nwin = rows * cols;
+  a.mi_rows = mi_rows;
+  a.mi_cols = mi_cols;
+  for (int p = 0; p < kPlanes; ++p) {
+    a.pitch[p] = pitches[p];
+    a.step[p] = geom[p][0];
+    a.sw[p] = geom[p][1];
+    a.y0[p] = geom[p][2];
+    a.x0[p] = geom[p][3];
+    a.win_r[p] = p > 0 ? win_r_c : win_r_y;
+    if (a.step[p] < 1 || a.sw[p] < (n >> (p > 0 ? 1 : 0)) + 7 ||
+        a.y0[p] < 0 || a.x0[p] < 0) {
+      return false;
+    }
+  }
+  return nblk >= 0 && rows >= 1 && cols >= 1;
+}
+
+template <int N, int D>
 cudaError_t launch(const McArgs& a, cudaStream_t stream) {
   const dim3 grid((a.nblk + kWarps - 1) / kWarps, kPlanes);
-  mc_predict_kernel<N><<<grid, kThreads, kSmem<N>, stream>>>(a);
+  mc_predict_kernel<N, D><<<grid, kThreads, kSmem<N>, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int N>
+template <int N, int D>
 int occupancy(int* ctas_per_sm, int* smem_bytes) {
   *smem_bytes = kSmem<N>;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, mc_predict_kernel<N>, kThreads, kSmem<N>));
+      ctas_per_sm, mc_predict_kernel<N, D>, kThreads, kSmem<N>));
 }
 
 }  // namespace
@@ -299,69 +400,206 @@ extern "C" int mc_predict_launch(
   McArgs a;
   const void* planes[kPlanes][kRefs] = {
       {y0, y1, y2}, {u0, u1, u2}, {v0, v1, v2}};
-  for (int p = 0; p < kPlanes; ++p) {
-    for (int r = 0; r < kRefs; ++r) {
-      a.plane[p][r] = static_cast<const uint8_t*>(planes[p][r]);
-    }
-  }
-  a.out[0] = static_cast<uint8_t*>(out_y);
-  a.out[1] = static_cast<uint8_t*>(out_u);
-  a.out[2] = static_cast<uint8_t*>(out_v);
-  a.ref_sel = static_cast<const int8_t*>(ref_sel);
-  a.win_idx = static_cast<const int*>(win_idx);
-  a.pos_y = static_cast<const int*>(pos_y);
-  a.pos_x = static_cast<const int*>(pos_x);
-  a.mv_r = static_cast<const int*>(mv_r);
-  a.mv_c = static_cast<const int*>(mv_c);
-  a.off_y = static_cast<const int*>(off_y);
-  a.off_x = static_cast<const int*>(off_x);
-  a.filters = static_cast<const int*>(filters);
-  a.nblk = nblk;
-  a.cols = cols;
-  a.nwin = rows * cols;
-  a.mi_rows = mi_rows;
-  a.mi_cols = mi_cols;
   const int pitches[kPlanes] = {pitch_y, pitch_u, pitch_v};
   const int geom[kPlanes][4] = {{step_y, sw_y, y0_y, x0_y},
                                 {step_u, sw_u, y0_u, x0_u},
                                 {step_v, sw_v, y0_v, x0_v}};
-  for (int p = 0; p < kPlanes; ++p) {
-    a.pitch[p] = pitches[p];
-    a.step[p] = geom[p][0];
-    a.sw[p] = geom[p][1];
-    a.y0[p] = geom[p][2];
-    a.x0[p] = geom[p][3];
-    a.win_r[p] = p > 0 ? win_r_c : win_r_y;
-    if (a.step[p] < 1 || a.sw[p] < (n >> (p > 0 ? 1 : 0)) + 7 ||
-        a.y0[p] < 0 || a.x0[p] < 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (nblk < 0 || rows < 1 || cols < 1) {
+  if (!mc_args(a, planes, pos_y, pos_x, filters, out_y, out_u, out_v, nblk,
+               n, rows, cols, geom, win_r_y, win_r_c, pitches, mi_rows,
+               mi_cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  a.ref_sel = static_cast<const int8_t*>(ref_sel);
+  a.win_idx = static_cast<const int*>(win_idx);
+  a.mv_r = static_cast<const int*>(mv_r);
+  a.mv_c = static_cast<const int*>(mv_c);
+  a.off_y = static_cast<const int*>(off_y);
+  a.off_x = static_cast<const int*>(off_x);
   if (nblk == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 32:
-      return static_cast<int>(launch<32>(a, s));
+      return static_cast<int>(launch<32, kPlain>(a, s));
     case 16:
-      return static_cast<int>(launch<16>(a, s));
+      return static_cast<int>(launch<16, kPlain>(a, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The kernel of luma block size n on the current device: *ctas_per_sm the
-// CTAs of 128 threads an SM holds at once, *smem_bytes the dynamic shared
-// memory each asks for. Returns the CUDA error of the query (0 if none).
-extern "C" int mc_predict_occupancy(int n, int* ctas_per_sm,
-                                    int* smem_bytes) {
+// A decided launcher's words, read in order (one ctypes array: sixty-odd
+// arguments cost the host more a call than the array).
+struct Words {
+  const int64_t* w;
+  int at;
+  const void* ptr() { return reinterpret_cast<const void*>(w[at++]); }
+  void* out() { return reinterpret_cast<void*>(w[at++]); }
+  int i() { return static_cast<int>(w[at++]); }
+};
+
+// MC's ints in a decided launcher's words (nblk, n, rows, cols, each
+// plane's step, sw, y0 and x0, win_r_y, win_r_c, pitch_y, pitch_u,
+// pitch_v, mi_rows, mi_cols) into ``a`` with the pointers read before
+// them: false where they are refused, as mc_predict_launch refuses them.
+static bool mc_ints(McArgs& a, Words& w,
+                    const void* const planes[kPlanes][kRefs],
+                    const void* pos_y, const void* pos_x,
+                    const void* filters, void* out_y, void* out_u,
+                    void* out_v, int& nblk, int& n, int& rows, int& cols) {
+  nblk = w.i();
+  n = w.i();
+  rows = w.i();
+  cols = w.i();
+  int geom[kPlanes][4];
+  for (int p = 0; p < kPlanes; ++p) {
+    for (int k = 0; k < 4; ++k) geom[p][k] = w.i();
+  }
+  const int win_r_y = w.i();
+  const int win_r_c = w.i();
+  int pitches[kPlanes];
+  for (int p = 0; p < kPlanes; ++p) pitches[p] = w.i();
+  const int mi_rows = w.i();
+  const int mi_cols = w.i();
+  return mc_args(a, planes, pos_y, pos_x, filters, out_y, out_u, out_v,
+                 nblk, n, rows, cols, geom, win_r_y, win_r_c, pitches,
+                 mi_rows, mi_cols);
+}
+
+// The zone's decision and its MC in one launch: nblk = rows x cols blocks
+// in raster order, block b reading window b. ``words`` (int64): the
+// pointers y0, y1, y2, u0, u1, u2, v0, v1, v2 (LAST's, GOLDEN's and
+// ALTREF's planes as mc_predict_launch takes them), pos_y, pos_x, filters,
+// out_y, out_u, out_v; ssem, src2m, sse_zero, sse_new, new_r, new_c,
+// prev_mv, left_edge, gold_sse, alt_sse0, alt_sse1, alt_new_r, alt_new_c,
+// scalars, joint_cost, nmv_row, nmv_col, lam_vec, new_bits (as
+// mode_decide_launch, mode_decide.cu, takes them; 0 for null); out mv (2,
+// nblk) int32, ref_sel (nblk,) int8, mv16 (nblk, 2) int16; then the ints
+// nblk, n, rows, cols, each plane's step, sw, y0, x0, win_r_y, win_r_c,
+// pitch_y, pitch_u, pitch_v, mi_rows, mi_cols, r_map, q3_shift, sse_scale,
+// lam, with_rates, n_new_bits; the proxies rz, rp, rs apart. An mvd past
+// new_bits and a window index past the grid trap. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mc_predict_zone_launch(const int64_t* words, float rz,
+                                      float rp, float rs, void* stream) {
+  Words w = {words, 0};
+  McArgs a = {};
+  const void* planes[kPlanes][kRefs];
+  for (int p = 0; p < kPlanes; ++p) {
+    for (int r = 0; r < kRefs; ++r) planes[p][r] = w.ptr();
+  }
+  const void* pos_y = w.ptr();
+  const void* pos_x = w.ptr();
+  const void* filters = w.ptr();
+  void* out_y = w.out();
+  void* out_u = w.out();
+  void* out_v = w.out();
+  const void* d[19];  // ssem .. new_bits
+  for (int k = 0; k < 19; ++k) d[k] = w.ptr();
+  a.mv_out = static_cast<int*>(w.out());
+  a.ref_out = static_cast<int8_t*>(w.out());
+  a.mv16_out = static_cast<int16_t*>(w.out());
+  int nblk, n, rows, cols;
+  if (!mc_ints(a, w, planes, pos_y, pos_x, filters, out_y, out_u, out_v,
+               nblk, n, rows, cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int r_map = w.i();
+  const int q3_shift = w.i();
+  const int sse_scale = w.i();
+  const int lam = w.i();
+  const int with_rates = w.i();
+  const int n_new_bits = w.i();
+  if (!decide::zone_args(a.zone, d[0], d[1], d[2], d[3], d[4], d[5], d[6],
+                         d[7], d[8], d[9], d[10], d[11], d[12], d[13], d[14],
+                         d[15], d[16], d[17], d[18], rz, rp, rs, nblk, rows,
+                         cols, r_map, q3_shift, sse_scale, lam, with_rates,
+                         n_new_bits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 32:
-      return occupancy<32>(ctas_per_sm, smem_bytes);
+      return static_cast<int>(launch<32, kZone>(a, s));
     case 16:
-      return occupancy<16>(ctas_per_sm, smem_bytes);
+      return static_cast<int>(launch<16, kZone>(a, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The children's decision and their MC in one launch: nblk = 4K children
+// of luma size n = 16 in LAST's planes, the grid's windows their parents'
+// by win_idx. ``words`` (int64): the pointers y, u, v (LAST's planes),
+// win_idx, pos_y, pos_x, off_y, off_x, filters, out_y, out_u, out_v; ssem,
+// sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r, par_c,
+// new_bits, scalars, joint_cost, nmv_row, nmv_col (as
+// descent_decide_launch, descent.cu, takes them, but with rates lam_bits
+// and the mode costs come from the device row scalars (9,) int32 that
+// upload_rate_tabs writes, RATE_SCALARS); out mv (2, nblk) int32, mv16
+// (nblk, 2) int16; then the ints nblk, n, rows, cols, each plane's step,
+// sw, y0, x0, win_r_y, win_r_c, pitch_y, pitch_u, pitch_v, mi_rows,
+// mi_cols, with_rates, lam, n_new_bits; the proxies of ZERO and PARENT
+// apart. An mvd past new_bits and a window index past the grid trap.
+// Returns cudaGetLastError() after the launch.
+extern "C" int mc_predict_children_launch(const int64_t* words,
+                                          float rate_zero, float rate_parent,
+                                          void* stream) {
+  Words w = {words, 0};
+  McArgs a = {};
+  const void* planes[kPlanes][kRefs] = {};
+  for (int p = 0; p < kPlanes; ++p) planes[p][0] = w.ptr();
+  a.win_idx = static_cast<const int*>(w.ptr());
+  const void* pos_y = w.ptr();
+  const void* pos_x = w.ptr();
+  a.off_y = static_cast<const int*>(w.ptr());
+  a.off_x = static_cast<const int*>(w.ptr());
+  const void* filters = w.ptr();
+  void* out_y = w.out();
+  void* out_u = w.out();
+  void* out_v = w.out();
+  const void* d[15];  // ssem .. nmv_col
+  for (int k = 0; k < 15; ++k) d[k] = w.ptr();
+  a.scalars = static_cast<const int*>(d[11]);
+  a.mv_out = static_cast<int*>(w.out());
+  a.mv16_out = static_cast<int16_t*>(w.out());
+  int nblk, n, rows, cols;
+  if (!mc_ints(a, w, planes, pos_y, pos_x, filters, out_y, out_u, out_v,
+               nblk, n, rows, cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int with_rates = w.i();
+  const int lam = w.i();
+  const int n_new_bits = w.i();
+  if (n != 16 || (with_rates && d[11] == nullptr) ||
+      !decide::children_args(a.child, d[0], d[1], d[2], d[3], d[4], d[5],
+                             d[6], d[7], d[8], d[9], d[10], d[12], d[13],
+                             d[14], rate_zero, rate_parent, with_rates, lam,
+                             n_new_bits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nblk == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(
+      launch<16, kChildren>(a, static_cast<cudaStream_t>(stream)));
+}
+
+// The kernel of luma block size n deciding `decided` first (0 nothing, 1
+// the zone's decision, 2 the children's, at n = 16 only) on the current
+// device: *ctas_per_sm the CTAs of 128 threads an SM holds at once,
+// *smem_bytes the dynamic shared memory each asks for. Returns the CUDA
+// error of the query (0 if none).
+extern "C" int mc_predict_occupancy(int n, int decided, int* ctas_per_sm,
+                                    int* smem_bytes) {
+  switch (4 * n + decided) {
+    case 4 * 32 + kPlain:
+      return occupancy<32, kPlain>(ctas_per_sm, smem_bytes);
+    case 4 * 16 + kPlain:
+      return occupancy<16, kPlain>(ctas_per_sm, smem_bytes);
+    case 4 * 32 + kZone:
+      return occupancy<32, kZone>(ctas_per_sm, smem_bytes);
+    case 4 * 16 + kZone:
+      return occupancy<16, kZone>(ctas_per_sm, smem_bytes);
+    case 4 * 16 + kChildren:
+      return occupancy<16, kChildren>(ctas_per_sm, smem_bytes);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,6 +26,10 @@ the JAX package writes in jnp:
   _ssem_gather, _candidate_decide,     mode_decide (csrc/mode_decide.cu)
     encode_zone's GOLDEN and ALTREF
     decisions
+  the decisions, then MC              mode_decide_mc, descent_decide_mc
+                                       (csrc/mc_predict.cu's decided
+                                       instances; both decisions' device
+                                       code is csrc/decide.cuh)
   _extract_search_windows              extract_windows (csrc/windows.cu)
   extend_borders_device                extend_borders (the same source)
 
@@ -44,21 +48,23 @@ launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
 ``subpel_search``, ``mc_predict``, ``transform_recon``, ``loop_filter``,
 ``kframe_wave``, the four ``descent_*``, ``mode_decide``,
-``extract_windows`` and ``extend_borders`` take CUDA tensors only: their
-plain versions are the steps' own (``pipeline/tpu_encdec.py``:
-``subpel_search_ref``, ``mc_predict_ref``, ``transform_recon_ref``,
-``loop_filter_ref``, ``kframe_wave_ref``, ``descent_*_ref``,
-``mode_decide_ref``, ``_extract_search_windows``,
-``extend_borders_device``), and the steps' dispatches (``subpel_search``,
-``mc_predict``, ``transform_recon``, ``loop_filter_device``,
-``kframe_wave_device``, ``descent_*``, ``mode_decide``,
-``extract_windows``, ``extend_borders``) send CPU tensors there and CUDA
-tensors here. This module imports nothing of
+``mode_decide_mc``, ``descent_decide_mc``, ``extract_windows`` and
+``extend_borders`` take CUDA tensors only: their plain versions are the
+steps' own (``pipeline/tpu_encdec.py``: ``subpel_search_ref``,
+``mc_predict_ref``, ``transform_recon_ref``, ``loop_filter_ref``,
+``kframe_wave_ref``, ``descent_*_ref``, ``mode_decide_ref``,
+``mode_decide_mc_ref``, ``descent_decide_mc_ref``,
+``_extract_search_windows``, ``extend_borders_device``), and the steps'
+dispatches of the same names (``loop_filter_device``,
+``kframe_wave_device`` for those two) send CPU tensors there and CUDA
+tensors here. The decided MC launches count as ``mc_predict``'s
+(``LAUNCH_COUNTERS``). This module imports nothing of
 ``pipeline``.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -118,10 +124,17 @@ _LAUNCHERS = {
     "descent_pack": ("descent", "descent_pack_launch", 16, 0, 1),
     "descent_split": ("descent", "descent_split_launch", 12, 1, 5),
     "mode_decide": ("mode_decide", "mode_decide_launch", 21, 3, 9),
+    "mode_decide_mc": ("mc_predict", "mc_predict_zone_launch", 1, 3, 0),
+    "descent_decide_mc": ("mc_predict", "mc_predict_children_launch", 1, 2,
+                          0),
     "extract_windows": ("windows", "extract_windows_launch", 1, 0, 3),
     "extend_borders": ("windows", "extend_borders_launch", 6, 0, 2),
 }
 _fns: dict = {}
+# the launchers whose wrapper counts its launches in another wrapper's
+# count: the decisions folded into MC are instances of mc_predict's kernel
+LAUNCH_COUNTERS = {"mode_decide_mc": "mc_predict",
+                   "descent_decide_mc": "mc_predict"}
 
 
 def _kernel(name: str):
@@ -1560,34 +1573,50 @@ def _mc_grid_check(shapes, grid, n: int) -> None:
                              f"{(h, w)} plane {p}")
 
 
+def _mc_sigs(name: str, plane_sigs, n: int, grid) -> None:
+    """MC's checks of its block size n, its planes and its grid:
+    ``plane_sigs`` the (shape, dtype, ...) of three references' three
+    planes each (None where a reference is absent), LAST's first."""
+    if n not in MC_BLOCK_SIZES:
+        raise ValueError(f"{name}: n={n} not in {MC_BLOCK_SIZES}")
+    last = plane_sigs[:3]
+    for i, sig in enumerate(plane_sigs):
+        if sig is None:
+            continue
+        p = i % 3
+        if sig[1] != torch.uint8 or len(sig[0]) != 2:
+            raise TypeError(f"{name}: plane {p} must be a uint8 plane, got "
+                            f"{tuple(sig[0])} {sig[1]}")
+        if sig[0] != last[p][0]:
+            raise ValueError(f"{name}: plane {p} of every reference must be "
+                             f"{tuple(last[p][0])}, got {tuple(sig[0])}")
+    _mc_grid_check(tuple(tuple(sig[0]) for sig in last), grid, n)
+
+
+def _planes_flat(name: str, planes, refs: int):
+    """The (y, u, v) planes of up to ``refs`` references, LAST's first, as
+    nine entries (None where a reference is absent)."""
+    if not 1 <= len(planes) <= refs or planes[0] is None:
+        raise ValueError(f"{name}: planes holds LAST's (y, u, v) planes "
+                         f"and at most {refs - 1} more references")
+    flat = []
+    for ref in list(planes) + [None] * (3 - len(planes)):
+        if ref is not None and len(ref) != 3:
+            raise ValueError(f"{name}: a reference's planes are a (y, u, "
+                             "v) triple")
+        flat.extend((None, None, None) if ref is None else ref)
+    return flat
+
+
 def _check_mc_args(planes, pos_y, pos_x, mv_r, mv_c, n: int, grid,
                    ref_sel, win_idx, org_off_y, org_off_x):
     """Raise unless the arguments are what ``mc_predict`` takes; returns
     the tensors it reads, LAST's planes first."""
-    if n not in MC_BLOCK_SIZES:
-        raise ValueError(f"mc_predict: n={n} not in {MC_BLOCK_SIZES}")
-    if not 1 <= len(planes) <= 3 or planes[0] is None:
-        raise ValueError("mc_predict: planes holds LAST's (y, u, v) planes "
-                         "and optionally GOLDEN's and ALTREF's")
+    flat = _planes_flat("mc_predict", planes, 3)
+    _mc_sigs("mc_predict", [None if t is None else (t.shape, t.dtype)
+                            for t in flat], n, tuple(grid))
+    given = [t for t in flat if t is not None]
     b = pos_y.shape[0]
-    shapes = tuple(tuple(t.shape) for t in planes[0])
-    given = []
-    for ref in planes:
-        if ref is None:
-            continue
-        if len(ref) != 3:
-            raise ValueError("mc_predict: a reference's planes are a "
-                             "(y, u, v) triple")
-        for p, t in enumerate(ref):
-            if t.dtype != torch.uint8 or t.dim() != 2:
-                raise TypeError(f"mc_predict: plane {p} must be a uint8 "
-                                f"plane, got {tuple(t.shape)} {t.dtype}")
-            if t.shape != shapes[p]:
-                raise ValueError(f"mc_predict: plane {p} of every reference "
-                                 f"must be {shapes[p]}, got "
-                                 f"{tuple(t.shape)}")
-            given.append(t)
-    _mc_grid_check(shapes, tuple(grid), n)
     rows, cols = grid[:2]
     for name, t in (("pos_y", pos_y), ("pos_x", pos_x), ("mv_r", mv_r),
                     ("mv_c", mv_c), ("win_idx", win_idx),
@@ -1678,10 +1707,160 @@ def mc_predict(planes, pos_y, pos_x, mv_r, mv_c, n: int, mi_rows: int,
 mc_predict.launches = 0
 
 
-def mc_predict_occupancy(n: int, device=None):
+# what an instance of mc_predict's kernel decides before its MC: nothing
+# (mc_predict), the zone's decision (mode_decide_mc) or the children's
+# (descent_decide_mc, n = 16 only)
+MC_DECIDED = {"plain": 0, "zone": 1, "children": 2}
+
+
+def mc_predict_occupancy(n: int, device=None, decided: str = "plain"):
     """mc_predict's (resident CTAs of 128 threads per SM, dynamic shared
-    memory in bytes) at luma block size n (``_occupancy``)."""
-    return _occupancy("mc_predict", MC_BLOCK_SIZES, n, device)
+    memory in bytes) at luma block size n, for the instance that decides
+    ``decided`` first (``MC_DECIDED``; ``_occupancy``)."""
+    return _occupancy("mc_predict", MC_BLOCK_SIZES, n, device,
+                      MC_DECIDED[decided])
+
+
+# ---------------------------------------------------------------------------
+# The decisions' argument checks, made once a shape (the descent's decision,
+# the zone's, and both folded into MC)
+# ---------------------------------------------------------------------------
+
+
+def _sig_words(tensors):
+    """A launch's tensors (None where absent) in one pass each: their key
+    for the checks made once a key, each one's (shape, dtype, device,
+    contiguity), and the launcher's words, each one's address (0 where
+    absent)."""
+    sig = tuple([None if t is None else
+                 (t.shape, t.dtype, t.device, t.is_contiguous())
+                 for t in tensors])
+    return sig, [0 if t is None else t.data_ptr() for t in tensors]
+
+
+def _one_device(name: str, sigs) -> None:
+    """Raise unless the tensors of ``sigs`` (``_sig_words``) lie on one
+    device and are contiguous."""
+    given = [sig for sig in sigs if sig is not None]
+    if any(sig[2] != given[0][2] for sig in given):
+        raise ValueError(f"{name}: inputs on different devices "
+                         f"{sorted({str(sig[2]) for sig in given})}")
+    if not all(sig[3] for sig in given):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _want_sig(name: str, what: str, sig, shape, dtype) -> None:
+    """Raise unless ``sig`` is (``shape``, ``dtype``)."""
+    if tuple(sig[0]) != tuple(shape) or sig[1] != dtype:
+        raise TypeError(f"{name}: {what} must be {tuple(shape)} {dtype}, "
+                        f"got {tuple(sig[0])} {sig[1]}")
+
+
+def _rate_tables(rates, with_scalars: bool = True):
+    """A decision's rate tables as its launcher takes them: (the device row
+    "scalars" (None unless ``with_scalars``), the three LUTs, the
+    per-block lam_bits or None), and the LUTs' reach; all None without
+    tables."""
+    if rates is None:
+        return (None,) * 5, None
+    lam = rates["lam_bits"]
+    return ((rates["scalars"] if with_scalars else None,
+             rates["joint_cost"], rates["nmv_row"], rates["nmv_col"],
+             lam if isinstance(lam, torch.Tensor) else None),
+            int(rates["mv_cost_max"]))
+
+
+def _rates_sigs(name: str, sigs, m, b: int, per_block: bool) -> None:
+    """The rate tables' checks: ``sigs`` the scalars row's (skipped where
+    None: a launcher that does not read it), the three LUTs' and a
+    per-block lam_bits' (None where it is a host number; refused unless
+    ``per_block``)."""
+    for what, sig, size in zip(("scalars", "joint_cost", "nmv_row",
+                                "nmv_col"), sigs[:4],
+                               (len(RATE_SCALARS), 4, 2 * m + 1, 2 * m + 1)):
+        if sig is not None or what != "scalars":
+            _want_sig(name, what, sig, (size,), torch.int32)
+    if sigs[4] is not None:
+        if not per_block:
+            raise TypeError(f"{name}: the children take the frame's "
+                            "lam_bits, a host number")
+        _want_sig(name, "lam_bits", sigs[4], (b,), torch.float32)
+
+
+def _new_bits_sig(name: str, sig) -> None:
+    if len(sig[0]) != 1 or sig[1] != torch.float32:
+        raise TypeError(f"{name}: new_bits must be 1-D float32, got "
+                        f"{tuple(sig[0])} {sig[1]}")
+
+
+def _zone_sigs(name: str, sigs, rows: int, cols: int, r_map: int,
+               m) -> None:
+    """The zone's decision's checks on ``sigs`` (``_sig_words``) of ssem,
+    src2m, sse_zero, sse_new, new_r, new_c, prev_mv, left_edge, gold_sse,
+    ALTREF's four, the rate tables (``_rate_tables``) and new_bits; ``m``
+    the LUTs' reach (None without rate tables)."""
+    b = rows * cols
+    if sigs[4] is None or tuple(sigs[4][0]) != (b,):
+        got = None if sigs[4] is None else tuple(sigs[4][0])
+        raise ValueError(f"{name}: {got} blocks in a {rows}x{cols} zone")
+    d = 2 * r_map + 1
+    _want_sig(name, "ssem", sigs[0], (b, d, d), torch.int32)
+    for what, sig in zip(("src2m", "sse_zero", "sse_new", "new_r", "new_c"),
+                         sigs[1:6]):
+        _want_sig(name, what, sig, (b,), torch.int32)
+    _want_sig(name, "prev_mv", sigs[6], (b, 2), torch.int32)
+    if sigs[7] is not None:
+        _want_sig(name, "left_edge", sigs[7], (rows, 2), torch.int32)
+    if sigs[8] is not None:
+        _want_sig(name, "gold_sse", sigs[8], (2, b), torch.int32)
+    alt = sigs[9:13]
+    if any(sig is not None for sig in alt):
+        if m is None:
+            raise ValueError(f"{name}: ALTREF takes the frame's rate tables")
+        for what, sig in zip(("sse_zero", "sse_new", "new_r", "new_c"), alt):
+            if sig is None:
+                raise ValueError(f"{name}: alt is ALTREF's (sse_zero, "
+                                 "sse_new, new_r, new_c)")
+            _want_sig(name, f"ALTREF's {what}", sig, (b,), torch.int32)
+    if m is not None:
+        _rates_sigs(name, sigs[13:18], m, b, True)
+    _new_bits_sig(name, sigs[18])
+
+
+def _children_sigs(name: str, sigs, m, with_scalars: bool) -> int:
+    """The children's decision's checks on ``sigs`` (``_sig_words``) of
+    ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r,
+    par_c, new_bits and the rate tables (``_rate_tables``; the scalars row
+    read where ``with_scalars``, a per-block lam_bits refused); ``m`` the
+    LUTs' reach (None without rate tables). Returns the children's
+    count."""
+    nch = sigs[1][0][0] if len(sigs[1][0]) else 0
+    d = 2 * DESCENT_R + 1
+    _want_sig(name, "ssem", sigs[0], (nch, d, d), torch.int32)
+    for what, sig in zip(("sse_zero", "sse_new", "sub_r", "sub_c", "src2",
+                          "base_y", "base_x", "par_r", "par_c"), sigs[1:10]):
+        _want_sig(name, what, sig, (nch,), torch.int32)
+    _new_bits_sig(name, sigs[10])
+    if m is not None:
+        if with_scalars and sigs[11] is None:
+            raise TypeError(f"{name}: scalars must be given")
+        _rates_sigs(name, sigs[11:16], m, nch, False)
+    return nch
+
+
+@functools.lru_cache(maxsize=64)
+def _zone_spec(key, rows: int, cols: int, r_map: int, m):
+    """mode_decide's checks, once per key (``_sig_words``)."""
+    _one_device("mode_decide", key)
+    _zone_sigs("mode_decide", key, rows, cols, r_map, m)
+
+
+@functools.lru_cache(maxsize=64)
+def _children_spec(key, m):
+    """descent_decide's checks, once per key (``_sig_words``); returns the
+    children's count."""
+    _one_device("descent_decide", key)
+    return _children_sigs("descent_decide", key, m, False)
 
 
 # ---------------------------------------------------------------------------
@@ -1869,7 +2048,8 @@ def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
                    base_x, par_r, par_c, lam: int, new_bits, rates,
                    proxy):
     """The children's candidate decision, {ZERO, NEW, PARENT}, on the
-    card: a thread per child, one launch.
+    card: a thread per child, one launch (the step makes this decision
+    inside the children's MC launch, ``descent_decide_mc``).
 
     ssem: (4K, 17, 17) int32 the children's relative-SSE maps; sse_zero,
     sse_new, sub_r, sub_c (the quarter-pel winner in the window, q3),
@@ -1884,44 +2064,28 @@ def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
     descent_decide_ref`` returns. It runs the kernel of
     ``csrc/descent.cu`` or raises."""
     name = "descent_decide"
-    nch = sse_zero.shape[0]
-    d = 2 * DESCENT_R + 1
-    _want(name, "ssem", ssem, (nch, d, d), torch.int32)
-    vecs = (sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r,
-            par_c)
-    for what, t in zip(("sse_zero", "sse_new", "sub_r", "sub_c", "src2",
-                        "base_y", "base_x", "par_r", "par_c"), vecs):
-        _want(name, what, t, (nch,), torch.int32)
-    if new_bits.dim() != 1:
-        raise TypeError(f"{name}: new_bits must be 1-D, got "
-                        f"{tuple(new_bits.shape)}")
-    _want(name, "new_bits", new_bits, new_bits.shape, torch.float32)
-    tabs = ()
-    if rates is not None:
-        m = int(rates["mv_cost_max"])
-        tabs = (rates["joint_cost"], rates["nmv_row"], rates["nmv_col"])
-        for what, t, size in zip(("joint_cost", "nmv_row", "nmv_col"), tabs,
-                                 (4, 2 * m + 1, 2 * m + 1)):
-            _want(name, what, t, (size,), torch.int32)
-        if isinstance(rates["lam_bits"], torch.Tensor):
-            raise TypeError(f"{name}: the children take the frame's "
-                            "lam_bits, a host number")
-        mode = [int(v) for v in rates["mode_cost"]]
-    dev = _cuda_only(name, ssem, *vecs, new_bits, *tabs)
+    tabs, m = _rate_tables(rates, with_scalars=False)
+    key, ptrs = _sig_words((ssem, sse_zero, sse_new, sub_r, sub_c, src2,
+                            base_y, base_x, par_r, par_c, new_bits, *tabs))
+    nch = _children_spec(key, m)
+    dev = ssem.device
+    if _device_kind(name, ssem) != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
+                         f"tensors go through the step's {name}")
     mv = torch.empty((2, nch), dtype=torch.int32, device=dev)
     mv16 = torch.empty((nch, 2), dtype=torch.int16, device=dev)
     if nch > 0:
         if rates is None:
             flt = (0.0, float(proxy[0]), float(proxy[1]))
             ints = (nch, 0, int(lam), 0, 0, 0, 0, new_bits.shape[0])
-            ptrs = (None, None, None)
         else:
+            mode = [int(v) for v in rates["mode_cost"]]
             flt = (float(rates["lam_bits"]), 0.0, 0.0)
             ints = (nch, 1, int(lam), mode[2], mode[3], mode[0], m,
                     new_bits.shape[0])
-            ptrs = tuple(t.data_ptr() for t in tabs)
-        _launch(name, dev, *(t.data_ptr() for t in (ssem, *vecs, new_bits)),
-                *ptrs, mv.data_ptr(), mv16.data_ptr(), *flt, *ints)
+        # ssem .. new_bits, then the three LUTs (no scalars row)
+        _launch(name, dev, *ptrs[:11], *ptrs[12:15], mv.data_ptr(),
+                mv16.data_ptr(), *flt, *ints)
         descent_decide.launches += 1
     mv_r, mv_c = mv.unbind(0)
     return mv_r, mv_c, mv16
@@ -2114,8 +2278,9 @@ def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                 sse_scale: int, lam: int, new_bits, rates, left_edge,
                 gold_sse, alt, proxy):
     """The zone's mode decision, LAST's five candidates, GOLDEN's two,
-    ALTREF's two and the reference choice, on the card: a thread per
-    block, one launch.
+    ALTREF's two and the reference choice, on the card: a warp per
+    block, its candidates spread over the lanes, one launch (the step
+    makes this decision inside its MC launch, ``mode_decide_mc``).
 
     ssem: (B, 2 r_map + 1, 2 r_map + 1) int32 the search's relative-SSE
     maps; src2m, sse_zero, sse_new, new_r, new_c: (B,) int32; prev_mv:
@@ -2135,65 +2300,26 @@ def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     mode_decide_ref`` returns. It runs the kernel of
     ``csrc/mode_decide.cu`` or raises."""
     name = "mode_decide"
-    b = new_r.shape[0]
-    if rows * cols != b:
-        raise ValueError(f"{name}: {b} blocks in a {rows}x{cols} zone")
-    d = 2 * r_map + 1
-    _want(name, "ssem", ssem, (b, d, d), torch.int32)
-    vecs = (src2m, sse_zero, sse_new, new_r, new_c)
-    for what, t in zip(("src2m", "sse_zero", "sse_new", "new_r", "new_c"),
-                       vecs):
-        _want(name, what, t, (b,), torch.int32)
-    _want(name, "prev_mv", prev_mv, (b, 2), torch.int32)
-    if left_edge is not None:
-        _want(name, "left_edge", left_edge, (rows, 2), torch.int32)
-    if gold_sse is not None:
-        _want(name, "gold_sse", gold_sse, (2, b), torch.int32)
-    if alt is not None:
-        if rates is None:
-            raise ValueError(f"{name}: ALTREF takes the frame's rate tables")
-        if len(alt) != 4:
-            raise ValueError(f"{name}: alt is ALTREF's (sse_zero, sse_new, "
-                             "new_r, new_c)")
-        for what, t in zip(("sse_zero", "sse_new", "new_r", "new_c"), alt):
-            _want(name, f"ALTREF's {what}", t, (b,), torch.int32)
-    if new_bits.dim() != 1:
-        raise TypeError(f"{name}: new_bits must be 1-D, got "
-                        f"{tuple(new_bits.shape)}")
-    _want(name, "new_bits", new_bits, new_bits.shape, torch.float32)
-    tabs = ()
-    lam_vec = None
-    if rates is not None:
-        m = int(rates["mv_cost_max"])
-        tabs = (rates["scalars"], rates["joint_cost"], rates["nmv_row"],
-                rates["nmv_col"])
-        for what, t, size in zip(("scalars", "joint_cost", "nmv_row",
-                                  "nmv_col"), tabs,
-                                 (len(RATE_SCALARS), 4, 2 * m + 1,
-                                  2 * m + 1)):
-            _want(name, what, t, (size,), torch.int32)
-        if isinstance(rates["lam_bits"], torch.Tensor):
-            lam_vec = rates["lam_bits"]
-            _want(name, "lam_bits", lam_vec, (b,), torch.float32)
-    opt = [t for t in (left_edge, gold_sse, *(alt or ()), lam_vec)
-           if t is not None]
-    dev = _cuda_only(name, ssem, *vecs, prev_mv, new_bits, *tabs, *opt)
+    if alt is not None and len(alt) != 4:
+        raise ValueError(f"{name}: alt is ALTREF's (sse_zero, sse_new, "
+                         "new_r, new_c)")
+    tabs, m = _rate_tables(rates)
+    key, ptrs = _sig_words((ssem, src2m, sse_zero, sse_new, new_r, new_c,
+                            prev_mv, left_edge, gold_sse,
+                            *(alt or (None,) * 4), *tabs, new_bits))
+    _zone_spec(key, rows, cols, r_map, m)
+    dev = ssem.device
+    if _device_kind(name, ssem) != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
+                         f"tensors go through the step's {name}")
+    b = rows * cols
     mv = torch.empty((2, b), dtype=torch.int32, device=dev)
     ref_sel = torch.empty((b,), dtype=torch.int8, device=dev)
     if b > 0:
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        alt_ptrs = [None] * 4 if alt is None else [t.data_ptr() for t in alt]
-        tab_ptrs = [None] * 4 if rates is None else [t.data_ptr()
-                                                    for t in tabs]
         rz, _, _, rp, rs = (float(v) for v in proxy)
-        _launch(name, dev, *(t.data_ptr() for t in (ssem, *vecs, prev_mv)),
-                ptr(left_edge), ptr(gold_sse), *alt_ptrs, *tab_ptrs,
-                ptr(lam_vec), new_bits.data_ptr(), mv.data_ptr(),
-                ref_sel.data_ptr(), rz, rp, rs, b, rows, cols, r_map,
-                q3_shift, sse_scale, int(lam), int(rates is not None),
-                new_bits.shape[0])
+        _launch(name, dev, *ptrs, mv.data_ptr(), ref_sel.data_ptr(), rz, rp,
+                rs, b, rows, cols, r_map, q3_shift, sse_scale, int(lam),
+                int(rates is not None), new_bits.shape[0])
         mode_decide.launches += 1
     mv_r, mv_c = mv.unbind(0)
     return mv_r, mv_c, ref_sel
@@ -2206,6 +2332,178 @@ def mode_decide_occupancy(device=None):
     """(resident CTAs of 128 threads per SM, dynamic shared memory in
     bytes) of ``mode_decide``'s kernel (``_occupancy``)."""
     return _occupancy("mode_decide", None, None, device)
+
+
+# ---------------------------------------------------------------------------
+# The decisions folded into MC (csrc/mc_predict.cu's decided instances)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _zone_mc_spec(key, rows: int, cols: int, r_map: int, n: int, grid,
+                  m):
+    """mode_decide_mc's checks of its arguments' shapes, dtypes, device
+    and contiguity, once per key: ``key`` (``_sig_words``) of the nine
+    planes plane by plane, pos_y, pos_x, ssem, src2m, sse_zero, sse_new,
+    new_r, new_c, prev_mv, left_edge, gold_sse, ALTREF's four, the rate
+    tables' scalars, three LUTs and per-block lam_bits, new_bits; ``m``
+    the LUTs' reach (None without rate tables). The refusals of
+    mode_decide and of mc_predict."""
+    name = "mode_decide_mc"
+    _one_device(name, key)
+    _zone_sigs(name, key[11:30], rows, cols, r_map, m)
+    # the planes reference by reference
+    _mc_sigs(name, [key[3 * p + r] for r in range(3) for p in range(3)], n,
+             grid)
+    if tuple(grid[:2]) != (rows, cols):
+        raise ValueError(f"{name}: the grid's {grid[0]}x{grid[1]} windows "
+                         f"are not the zone's {rows}x{cols} blocks")
+    for what, sig in zip(("pos_y", "pos_x"), key[9:11]):
+        _want_sig(name, what, sig, (rows * cols,), torch.int32)
+
+
+def _decided_outputs(b: int, n: int, dev, with_ref: bool):
+    """A decided launch's outputs: mv (2, B) int32, ref_sel (B,) int8
+    (``with_ref``; else None), mv16 (B, 2) int16, pred_y (B, n, n), pred_u,
+    pred_v (B, n/2, n/2) uint8."""
+    nc = n // 2
+    return (torch.empty((2, b), dtype=torch.int32, device=dev),
+            torch.empty((b,), dtype=torch.int8, device=dev) if with_ref
+            else None,
+            torch.empty((b, 2), dtype=torch.int16, device=dev),
+            torch.empty((b, n, n), dtype=torch.uint8, device=dev),
+            torch.empty((b, nc, nc), dtype=torch.uint8, device=dev),
+            torch.empty((b, nc, nc), dtype=torch.uint8, device=dev))
+
+
+def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+                   rows: int, cols: int, r_map: int, q3_shift: int,
+                   sse_scale: int, lam: int, new_bits, rates, left_edge,
+                   gold_sse, alt, proxy, planes, pos_y, pos_x, n: int,
+                   mi_rows: int, mi_cols: int, grid):
+    """The zone's mode decision and its motion compensation in one launch
+    of mc_predict's kernel (its zone instance: every warp decides its own
+    block, then predicts its plane of it).
+
+    The decision's arguments are ``mode_decide``'s (the rate tables'
+    scalars read from their device row, tune SQ's per-block lam_bits, an
+    mvd past ``new_bits`` without tables traps); MC's are
+    ``mc_predict``'s (planes: LAST's (y, u, v), then optionally GOLDEN's
+    and ALTREF's; ``grid`` as ``pipeline/tpu_encdec.py:mc_window_grid``
+    gives it), less the MVs and ref_sel, which the decision gives, and the
+    window index and offsets: block b reads window b. Every refusal of the
+    two wrappers holds; the shapes are checked once a shape, and the
+    launcher takes one int64 array of words. Returns (mv_r, mv_c (B,)
+    int32, ref_sel (B,) int8, mv16 (B, 2) int16, pred_y (B, n, n), pred_u,
+    pred_v (B, n/2, n/2) uint8), bit for bit what ``pipeline/tpu_encdec.py:
+    mode_decide_mc_ref`` returns. It runs the kernel of
+    ``csrc/mc_predict.cu`` or raises; its launch counts as mc_predict's."""
+    name = "mode_decide_mc"
+    flat = _planes_flat(name, planes, 3)
+    tabs, m = _rate_tables(rates)
+    if alt is not None and len(alt) != 4:
+        raise ValueError(f"{name}: alt is ALTREF's (sse_zero, sse_new, "
+                         "new_r, new_c)")
+    # the planes plane by plane (LAST's, GOLDEN's and ALTREF's Y, then
+    # their U, then their V), as the launcher takes them
+    ins = (*(flat[p + 3 * r] for p in range(3) for r in range(3)), pos_y,
+           pos_x, ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+           left_edge, gold_sse, *(alt or (None,) * 4), *tabs, new_bits)
+    sigs, ptrs = _sig_words(ins)
+    _zone_mc_spec(sigs, rows, cols, r_map, n, tuple(grid), m)
+    dev = pos_y.device
+    if _device_kind(name, pos_y) != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
+                         f"tensors go through the step's {name}")
+    b = rows * cols
+    mv, ref_sel, mv16, pred_y, pred_u, pred_v = _decided_outputs(b, n, dev,
+                                                                 True)
+    # the launcher's words (int64; the array lives through the call)
+    words = array.array("q", (
+        *ptrs[:11], _mc_taps_on(dev).data_ptr(), pred_y.data_ptr(),
+        pred_u.data_ptr(), pred_v.data_ptr(), *ptrs[11:], mv.data_ptr(),
+        ref_sel.data_ptr(), mv16.data_ptr(), b, n, rows, cols,
+        *(v for spec in grid[2:] for v in spec), WIN_R, CHROMA_WIN_R,
+        *(t.shape[1] for t in flat[:3]), int(mi_rows), int(mi_cols), r_map,
+        q3_shift, sse_scale, int(lam), int(rates is not None),
+        new_bits.shape[0]))
+    _launch(name, dev, words.buffer_info()[0], float(proxy[0]),
+            float(proxy[3]), float(proxy[4]))
+    mc_predict.launches += 1
+    mv_r, mv_c = mv.unbind(0)
+    return mv_r, mv_c, ref_sel, mv16, pred_y, pred_u, pred_v
+
+
+@functools.lru_cache(maxsize=64)
+def _children_mc_spec(key, n: int, grid, m):
+    """descent_decide_mc's checks of its arguments' shapes, dtypes, device
+    and contiguity, once per key: ``key`` (``_sig_words``) of LAST's three
+    planes, win_idx, pos_y, pos_x, off_y, off_x, ssem, sse_zero, sse_new,
+    sub_r, sub_c, src2, base_y, base_x, par_r, par_c, new_bits, the rate
+    tables' scalars, three LUTs and lam_bits (None unless a tensor); ``m``
+    the LUTs' reach (None without rate tables). The refusals of
+    descent_decide and of mc_predict."""
+    name = "descent_decide_mc"
+    _one_device(name, key)
+    nch = _children_sigs(name, key[8:24], m, True)
+    if n != 16:
+        raise ValueError(f"{name}: the children are n=16 blocks, not n={n}")
+    _mc_sigs(name, (*key[0:3], *(None,) * 6), n, grid)
+    for what, sig in zip(("win_idx", "pos_y", "pos_x", "org_off_y",
+                          "org_off_x"), key[3:8]):
+        _want_sig(name, what, sig, (nch,), torch.int32)
+
+
+def descent_decide_mc(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
+                      base_x, par_r, par_c, lam: int, new_bits, rates,
+                      proxy, planes, pos_y, pos_x, n: int, mi_rows: int,
+                      mi_cols: int, grid, win_idx, org_off_y, org_off_x):
+    """The children's candidate decision and their motion compensation in
+    one launch of mc_predict's kernel (its children's instance: every warp
+    decides its own child, then predicts its plane of it).
+
+    The decision's arguments are ``descent_decide``'s, but with ``rates``
+    the kernel reads the mode costs and the frame's lam_bits from the
+    tables' device row "scalars" (a per-block lam_bits is refused); MC's
+    are ``mc_predict``'s for the children (planes: LAST's (y, u, v) alone;
+    the parents' windows by ``win_idx``, the children's offsets inside
+    them), less the MVs, which the decision gives. Every refusal of the two
+    wrappers holds; the shapes are checked once a shape, and the launcher
+    takes one int64 array of words. Returns (mv_r, mv_c (4K,) int32, mv16
+    (4K, 2) int16, pred_y (4K, 16, 16), pred_u, pred_v (4K, 8, 8) uint8),
+    bit for bit what ``pipeline/tpu_encdec.py:descent_decide_mc_ref``
+    returns. It runs the
+    kernel of ``csrc/mc_predict.cu`` or raises; its launch counts as
+    mc_predict's."""
+    name = "descent_decide_mc"
+    flat = _planes_flat(name, planes, 1)[:3]
+    tabs, m = _rate_tables(rates)
+    ins = (*flat, win_idx, pos_y, pos_x, org_off_y, org_off_x, ssem,
+           sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r,
+           par_c, new_bits, *tabs)
+    sigs, ptrs = _sig_words(ins)
+    _children_mc_spec(sigs, n, tuple(grid), m)
+    dev = pos_y.device
+    if _device_kind(name, pos_y) != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
+                         f"tensors go through the step's {name}")
+    nch = sse_zero.shape[0]
+    mv, _, mv16, pred_y, pred_u, pred_v = _decided_outputs(nch, n, dev,
+                                                           False)
+    if nch > 0:
+        rows, cols = grid[:2]
+        words = array.array("q", (
+            *ptrs[:8], _mc_taps_on(dev).data_ptr(), pred_y.data_ptr(),
+            pred_u.data_ptr(), pred_v.data_ptr(), *ptrs[8:23],
+            mv.data_ptr(), mv16.data_ptr(), nch, n, rows, cols,
+            *(v for spec in grid[2:] for v in spec), WIN_R, CHROMA_WIN_R,
+            *(t.shape[1] for t in flat), int(mi_rows), int(mi_cols),
+            int(rates is not None), int(lam), new_bits.shape[0]))
+        _launch(name, dev, words.buffer_info()[0], float(proxy[0]),
+                float(proxy[1]))
+        mc_predict.launches += 1
+    mv_r, mv_c = mv.unbind(0)
+    return mv_r, mv_c, mv16, pred_y, pred_u, pred_v
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,8 @@ _SCD_WARMUP = 17
 def _launch_counts() -> dict:
     from tpu_vp9_torch.ops import cuda_kernels as K
 
-    return {name: getattr(K, name).launches for name in K._LAUNCHERS}
+    return {name: getattr(K, name).launches for name in K._LAUNCHERS
+            if name not in K.LAUNCH_COUNTERS}
 
 
 def _encode_chunk(payload):

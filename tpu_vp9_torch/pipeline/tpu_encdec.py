@@ -50,11 +50,12 @@ functions on tensors of the caller's device, with CUDA kernels in
 window set of a call site in one launch), the full-pel search
 (``hier_search_fused`` for both levels of the 32 zone in one launch,
 ``sse_map_search`` for the children), the quarter-pel search
-(``subpel_search``), the mode decision (``mode_decide``: LAST, GOLDEN,
-ALTREF and the reference choice of a zone in one launch), motion
-compensation (``mc_predict``: Y, U and V of a zone or of the children in
-one launch, every block's window read in place out of its reference's
-planes by its window index), the distortion (``block_energy`` on blocks,
+(``subpel_search``), the mode decision and motion compensation in one
+launch a call site (``mode_decide_mc``: LAST, GOLDEN, ALTREF and the
+reference choice of a zone, then Y, U and V of its blocks, every block's
+window read in place out of its reference's planes;
+``descent_decide_mc``: the children's decision, then their MC in their
+parents' windows by index), the distortion (``block_energy`` on blocks,
 ``block_energy_at`` on candidates read in place out of a reference
 plane), the transform stage
 (``transform_recon``: forward DCT, quantizer, inverse, recon and eob), the
@@ -62,12 +63,17 @@ loop filter (``loop_filter``, all three planes in one launch) and the
 border extension (``extend_borders``, the three planes in one launch).
 The plain versions of these kernels but the search's and the distortion's
 live here (``_extract_search_windows``, ``subpel_search_ref``,
-``mode_decide_ref``, ``mc_predict_planes_ref``, ``transform_recon_ref``,
-``loop_filter_ref``, ``extend_borders_device``), each reached through its
-dispatch (``extract_windows``, ``subpel_search``, ``mode_decide``,
-``mc_predict``, ``transform_recon``, ``loop_filter_device``,
+``mode_decide_mc_ref`` and ``descent_decide_mc_ref`` (the decisions'
+``mode_decide_ref`` and ``descent_decide_ref``, then
+``mc_predict_planes_ref``), ``transform_recon_ref``, ``loop_filter_ref``,
+``extend_borders_device``), each reached through its dispatch
+(``extract_windows``, ``subpel_search``, ``mode_decide_mc``,
+``descent_decide_mc``, ``transform_recon``, ``loop_filter_device``,
 ``extend_borders``): CPU tensors take the plain version, CUDA tensors the
-kernel's wrapper, which launches or raises. Formulations that
+kernel's wrapper, which launches or raises. The dispatches of the
+decisions alone and of MC alone (``mode_decide``, ``descent_decide``,
+``mc_predict``) stay for the checks that hold the decided launches against
+the two they replace; no step calls them. Formulations that
 exist only to suit the TPU are not carried over: one-hot matmul gathers
 (``_oh_take_rows/_cols``) are plain indexing, float32 stand-ins for
 integer arithmetic are int32, and the scan-prefix level transfer is not
@@ -1073,6 +1079,64 @@ def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
         gold_sse, alt, CAND_RATE_PROXY)
 
 
+def mode_decide_mc_ref(ssem, src2m, sse_zero, sse_new, new_r, new_c,
+                       prev_mv, rows: int, cols: int, r_map: int,
+                       q3_shift: int, sse_scale: int, lam: int, new_bits,
+                       rates, left_edge, gold_sse, alt, planes, pos_y, pos_x,
+                       n: int, mi_rows: int, mi_cols: int, filters, grid):
+    """The zone's decision and its MC (plain version of the kernel behind
+    ``ops/cuda_kernels.py:mode_decide_mc``, its arguments but ``proxy``,
+    which is ``CAND_RATE_PROXY``'s here): ``mode_decide_ref``, then
+    ``mc_predict_planes_ref`` with its MVs and ref_sel at the zone's grid
+    (step, y_base, rows, cols). Returns (mv_r, mv_c, ref_sel, mv (B, 2)
+    int16, pred_y, pred_u, pred_v)."""
+    mv_r, mv_c, ref_sel = mode_decide_ref(
+        ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows, cols,
+        r_map, q3_shift, sse_scale, lam, new_bits, rates, left_edge,
+        gold_sse, alt)
+    preds = mc_predict_planes_ref(planes, pos_y, pos_x, mv_r, mv_c, n,
+                                  mi_rows, mi_cols, filters, grid,
+                                  ref_sel=ref_sel)
+    return (mv_r, mv_c, ref_sel,
+            torch.stack([mv_r, mv_c], dim=-1).to(torch.int16), *preds)
+
+
+def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+                   rows: int, cols: int, r_map: int, q3_shift: int,
+                   sse_scale: int, lam: int, new_bits, rates, left_edge,
+                   gold_sse, alt, planes, pos_y, pos_x, n: int, mi_rows: int,
+                   mi_cols: int, filters, grid):
+    """The zone's decision and its MC in one launch (contract:
+    ``mode_decide_mc_ref``; the first eighteen arguments are
+    ``mode_decide``'s, the rest ``mc_predict``'s but the MVs and ref_sel).
+    Tensors that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper with the grid's windows as
+    ``mc_window_grid`` places them, which launches or raises."""
+    if alt is not None and rates is None:
+        raise ValueError("mode_decide_mc: ALTREF takes the frame's rate "
+                         "tables")
+    tensors = [ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
+               new_bits, left_edge, gold_sse, *(alt or ()), pos_y, pos_x,
+               *(pl for ref in planes if ref is not None for pl in ref)]
+    if rates is not None:
+        tensors += [rates["joint_cost"], rates["nmv_row"], rates["nmv_col"],
+                    rates["scalars"]]
+        if isinstance(rates["lam_bits"], torch.Tensor):
+            tensors.append(rates["lam_bits"])
+    if all(t.device.type == "cpu" for t in tensors if t is not None):
+        return mode_decide_mc_ref(ssem, src2m, sse_zero, sse_new, new_r,
+                                  new_c, prev_mv, rows, cols, r_map,
+                                  q3_shift, sse_scale, lam, new_bits, rates,
+                                  left_edge, gold_sse, alt, planes, pos_y,
+                                  pos_x, n, mi_rows, mi_cols, filters, grid)
+    shapes = tuple(tuple(t.shape) for t in planes[0])
+    return cuda_kernels.mode_decide_mc(
+        ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows, cols,
+        r_map, q3_shift, sse_scale, lam, new_bits, rates, left_edge,
+        gold_sse, alt, CAND_RATE_PROXY, planes, pos_y, pos_x, n, mi_rows,
+        mi_cols, mc_window_grid(shapes, tuple(grid)))
+
+
 # ---------------------------------------------------------------------------
 # Transform / quant / recon (normative inverse path)
 # ---------------------------------------------------------------------------
@@ -1654,8 +1718,8 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
     """The second half of ``encode_zone``, on ``zone_search``'s state
     ``me``: the candidate decision (``left_edge``: the NEW MVs of the
     column left of the blocks, as ``_candidate_decide`` takes them),
-    GOLDEN and ALTREF, MC read in place out of the reference planes, the
-    transforms and the recon.
+    GOLDEN and ALTREF, and MC read in place out of the reference planes,
+    in one launch (``mode_decide_mc``), the transforms and the recon.
     The planes start at the blocks' first column as ``zone_search``'s do;
     ``x_base`` is the global column of that column (``_fullpel_starts``).
     Returns ``encode_zone``'s dict."""
@@ -1672,20 +1736,19 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
     if alt is not None:
         with _stage("step_altref"):
             alt_me = _altref_search(alt[0], src_blocks, rows, cols, n, y0)
-    with _stage("step_md"):
-        mv_r, mv_c, ref_sel = mode_decide(
+    # the decision and MC in one launch, MC read in place out of the
+    # reference planes at the windows' grid: every winner derives from a
+    # +-WIN_R search (or is ZERO or PREV, equally bounded), and a read past
+    # a window clamps into it
+    grid = (n, y0, rows, cols)
+    with _stage("step_mc"):
+        _, _, ref_sel, mv, pred_y, pred_u, pred_v = mode_decide_mc(
             me["ssem"], me["src2m"], me["sse_zero"], me["sse_new"],
             me["new_r"], me["new_c"], prev_mv, rows, cols, me["r_map"],
             me["q3s"], me["scale"], lam, new_bits, rates, left_edge,
-            gold_sse, None if alt_me is None else alt_me[:4])
-    # MC read in place out of the reference planes, at the windows' grid:
-    # every winner derives from a +-WIN_R search (or is ZERO or PREV,
-    # equally bounded), and a read past a window clamps into it
-    grid = (n, y0, rows, cols)
-    with _stage("step_mc"):
-        pred_y, pred_u, pred_v = mc_predict(
-            [(me["ref_y"], ref_u, ref_v), gold, alt], pos_y, pos_x, mv_r,
-            mv_c, n, g.mi_rows, g.mi_cols, filters, grid, ref_sel=ref_sel)
+            gold_sse, None if alt_me is None else alt_me[:4],
+            [(me["ref_y"], ref_u, ref_v), gold, alt], pos_y, pos_x, n,
+            g.mi_rows, g.mi_cols, filters, grid)
     with _stage("step_txfm"):
         lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, dc_q, ac_q,
                                              n)
@@ -1698,7 +1761,7 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
         rate_b = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
                   + (lv_v != 0).sum(dim=(1, 2)))
     out = {
-        "mv": torch.stack([mv_r, mv_c], dim=-1).to(torch.int16),
+        "mv": mv,
         "ref": ref_sel,
         "skip": skip,
         "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
@@ -1867,6 +1930,59 @@ def descent_decide(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
         (CAND_RATE_PROXY[0], CAND_RATE_PROXY[4]))
 
 
+def descent_decide_mc_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2,
+                          base_y, base_x, par_r, par_c, lam: int, new_bits,
+                          rates, planes, pos_y, pos_x, n: int, mi_rows: int,
+                          mi_cols: int, filters, grid, win_idx, org_off_y,
+                          org_off_x):
+    """The children's decision and their MC (plain version of the kernel
+    behind ``ops/cuda_kernels.py:descent_decide_mc``, its arguments but
+    ``proxy``, which is ``CAND_RATE_PROXY``'s here): ``descent_decide_ref``,
+    then ``mc_predict_planes_ref`` with its MVs in LAST's ``planes`` at
+    the zone's grid, by the window index and the offsets. Returns (mv_r,
+    mv_c, mv (4K, 2) int16, pred_y, pred_u, pred_v)."""
+    mv_r, mv_c, mv = descent_decide_ref(ssem_c, sse_zero, sse_new, sub_r,
+                                        sub_c, src2, base_y, base_x, par_r,
+                                        par_c, lam, new_bits, rates)
+    preds = mc_predict_planes_ref(planes, pos_y, pos_x, mv_r, mv_c, n,
+                                  mi_rows, mi_cols, filters, grid,
+                                  win_idx=win_idx, org_off_y=org_off_y,
+                                  org_off_x=org_off_x)
+    return (mv_r, mv_c, mv, *preds)
+
+
+def descent_decide_mc(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
+                      base_x, par_r, par_c, lam: int, new_bits, rates,
+                      planes, pos_y, pos_x, n: int, mi_rows: int,
+                      mi_cols: int, filters, grid, win_idx, org_off_y,
+                      org_off_x):
+    """The children's decision and their MC in one launch (contract:
+    ``descent_decide_mc_ref``; the first thirteen arguments are
+    ``descent_decide``'s, the rest ``mc_predict``'s but the MVs). Tensors
+    that all lie on the CPU take the plain version; anything else goes to
+    the CUDA kernel's wrapper with the grid's windows as
+    ``mc_window_grid`` places them, which launches or raises (with rates,
+    it reads the mode costs and lam_bits from their device row)."""
+    tabs = () if rates is None else (rates["joint_cost"], rates["nmv_row"],
+                                     rates["nmv_col"], rates["scalars"])
+    if all(t.device.type == "cpu" for t in (
+            ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x,
+            par_r, par_c, new_bits, *tabs, *planes[0], pos_y, pos_x,
+            win_idx, org_off_y, org_off_x)):
+        return descent_decide_mc_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c,
+                                     src2, base_y, base_x, par_r, par_c, lam,
+                                     new_bits, rates, planes, pos_y, pos_x,
+                                     n, mi_rows, mi_cols, filters, grid,
+                                     win_idx, org_off_y, org_off_x)
+    shapes = tuple(tuple(t.shape) for t in planes[0])
+    return cuda_kernels.descent_decide_mc(
+        ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x,
+        par_r, par_c, lam, new_bits, rates,
+        (CAND_RATE_PROXY[0], CAND_RATE_PROXY[4]), planes, pos_y, pos_x, n,
+        mi_rows, mi_cols, mc_window_grid(shapes, tuple(grid)), win_idx,
+        org_off_y, org_off_x)
+
+
 def descent_pack_ref(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u,
                      rec_v, csrc):
     """The children's pack (plain version of the kernel behind
@@ -1921,8 +2037,9 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
     at the zone's window grid, through per-child origin offsets. parent_mv:
     (B32, 2) int32 final q3 MVs of the parents (the PARENT candidate,
     scored at its entry of the child's SSE map). sel_idx: (K,) raster
-    parent indices. Candidates {ZERO, NEW, PARENT}, first minimum
-    (``descent_decide``). Child order: k*4 + 2*i + j for parent
+    parent indices. Candidates {ZERO, NEW, PARENT}, first minimum, decided
+    in the children's MC launch (``descent_decide_mc``). Child order: k*4 +
+    2*i + j for parent
     sel_idx[k], child row i, column j.
     Returns per-child arrays (4K: mv, skip, eob_*, lv_*), sel_idx, and
     per-parent dist4, rate4 and the merged recon blocks rec_y32, rec_u16,
@@ -1938,19 +2055,15 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
         ddy, ddx, ssem_c = sse_map_search(csrc, cw, 16, CHILD_R)
         sub_r, sub_c, sse_new = subpel_search(cw, csrc, ddy, ddx, 16,
                                               CHILD_R)
-        mv_r, mv_c, mv = descent_decide(
+        # the decision and MC out of the parent windows, read in place,
+        # in one launch (every child candidate is reachable there; org_off
+        # = the child's offset inside the parent)
+        _, _, mv, pred_y, pred_u, pred_v = descent_decide_mc(
             ssem_c, ga["sse_zero"], sse_new, sub_r, sub_c, ga["src2"],
             ga["base_y"], ga["base_x"], ga["par_r"], ga["par_c"], lam,
-            new_bits, rates)
-
-        # MC out of the parent windows, read in place (every child
-        # candidate is reachable there; org_off = the child's offset
-        # inside the parent)
-        pred_y, pred_u, pred_v = mc_predict(
-            [parent_me["planes"]], ga["pos_y"], ga["pos_x"], mv_r, mv_c, 16,
-            g.mi_rows, g.mi_cols, filters, parent_me["grid"],
-            win_idx=ga["win_idx"], org_off_y=ga["off_y"],
-            org_off_x=ga["off_x"])
+            new_bits, rates, [parent_me["planes"]], ga["pos_y"],
+            ga["pos_x"], 16, g.mi_rows, g.mi_cols, filters,
+            parent_me["grid"], ga["win_idx"], ga["off_y"], ga["off_x"])
         lv_u, eob_u, rec_u = transform_recon(ga["csrc_u"], pred_u, dc_q,
                                              ac_q, 8)
         lv_v, eob_v, rec_v = transform_recon(ga["csrc_v"], pred_v, dc_q,

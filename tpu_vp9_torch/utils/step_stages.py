@@ -20,12 +20,16 @@ counted inside the range, times its kernel's mean device time per launch
 in the same profile), per P-frame. Prints one line per stage, the P-frame
 send's mean host time, the card's name and power limit, and which tree's
 package ran. With ``--calls R`` it then times the descent's gather, pack
-and split dispatches and the borders' (``extend_borders``) on the inputs
-of one more P-frame's calls, R calls each (CUDA events around a call,
-median; the host's time a call over R calls back to back): where the
-tree's gather does not return the children's ZERO SSE, the children's
-``block_energy_at`` call too, and where its pack does not take their
-recon SSE, their ``block_energy`` call, each also with its partner.
+and split dispatches, the borders' (``extend_borders``) and the MC sites'
+on the inputs of one more P-frame's calls, R calls each (CUDA events
+around a call, median; the host's time a call over R calls back to
+back), each dispatch of ``RECORDED`` the tree calls: where its gather does
+not return the children's ZERO SSE, the children's ``block_energy_at``
+call too, where its pack does not take their recon SSE, their
+``block_energy`` call, and where its MC launches do not make their
+decisions (``mode_decide_mc``, ``descent_decide_mc``), the decisions'
+``mode_decide`` and ``descent_decide`` calls and the two ``mc_predict``
+calls; each of these also with its partner (``PAIRS``).
 
 It reads only the public encoder, ``pipeline/tpu_encdec.py:_stage`` and
 the wrappers' ``launches`` counts, so the second form times an older tree
@@ -86,33 +90,39 @@ def _host_call_ms(fn, reps: int) -> float:
     return ms
 
 
-# the dispatches --calls records; a children's call recorded inside
-# encode_children_masked, and the dispatch it went into in a later tree
+# the dispatches --calls records where the tree has them (a call made
+# inside encode_children_masked is the children's); and the calls each
+# pair stands beside: a tree's merged call, or the calls it replaced in an
+# older tree, timed one after the other
 RECORDED = ("descent_gather", "descent_pack", "descent_split",
-            "extend_borders")
-FOLDED = {"block_energy_at": "descent_gather", "block_energy": "descent_pack"}
+            "extend_borders", "block_energy_at", "block_energy",
+            "mode_decide", "mc_predict", "descent_decide", "mode_decide_mc",
+            "descent_decide_mc")
+PAIRS = (("descent_gather", "children block_energy_at"),
+         ("descent_pack", "children block_energy"),
+         ("mode_decide", "mc_predict"),
+         ("children descent_decide", "children mc_predict"))
 
 
 def _descent_calls(enc, frame, reps: int) -> None:
-    """Send ``frame`` with the dispatches of ``RECORDED`` (and the
-    children's calls of ``FOLDED``) recorded, then time each on its
-    recorded inputs; the split's zone planes are copied when recorded (a
-    tree whose split writes them in place changes them in the step)."""
+    """Send ``frame`` with the dispatches of ``RECORDED`` that the tree has
+    recorded, then time each on its recorded inputs, and each pair of
+    ``PAIRS`` recorded; the split's zone planes are copied when recorded
+    (a tree whose split writes them in place changes them in the step)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     calls, inside = {}, [False]
-    real = {k: getattr(P, k)
-            for k in (*RECORDED, *FOLDED, "encode_children_masked")}
+    names = [k for k in RECORDED if hasattr(P, k)]
+    real = {k: getattr(P, k) for k in (*names, "encode_children_masked")}
 
     def recorder(name):
-        def record(*args):
+        def record(*args, **kw):
+            key = f"children {name}" if inside[0] else name
             if name == "descent_split":
-                calls[name] = (*args[:5], *(t.clone() for t in args[5:8]),
-                               *args[8:])
-            elif name in RECORDED or inside[0]:
-                calls[name if name in RECORDED else f"children {name}"] = \
-                    args
-            return real[name](*args)
+                args = (*args[:5], *(t.clone() for t in args[5:8]),
+                        *args[8:])
+            calls[key] = (name, args, kw)
+            return real[name](*args, **kw)
         return record
 
     def children(*args, **kw):
@@ -122,7 +132,7 @@ def _descent_calls(enc, frame, reps: int) -> None:
         finally:
             inside[0] = False
 
-    for name in (*RECORDED, *FOLDED):
+    for name in names:
         setattr(P, name, recorder(name))
     P.encode_children_masked = children
     try:
@@ -131,13 +141,12 @@ def _descent_calls(enc, frame, reps: int) -> None:
     finally:
         for k, v in real.items():
             setattr(P, k, v)
-    fns = {k: (lambda f=real[k.split()[-1]], a=a: f(*a))
-           for k, a in calls.items()}
-    for name, into in FOLDED.items():
-        if f"children {name}" in fns:
-            pair = (fns[into], fns[f"children {name}"])
-            fns[f"{into} + children {name}"] = \
-                lambda pair=pair: [f() for f in pair]
+    fns = {k: (lambda f=real[name], a=a, kw=kw: f(*a, **kw))
+           for k, (name, a, kw) in calls.items()}
+    for pair in PAIRS:
+        if all(k in fns for k in pair):
+            fns[" + ".join(pair)] = \
+                lambda fs=[fns[k] for k in pair]: [f() for f in fs]
     for name, fn in fns.items():
         print(f"call {name}: {_median_call_ms(fn, reps):.4f} ms (CUDA "
               f"events, median of {reps}), host {_host_call_ms(fn, reps):.4f}"
