@@ -79,7 +79,16 @@ Phases, each of which raises on failure (nothing is caught):
      zone's transforms and SSEs on the real 720p P-frame, and kframe_wave on
      the 720p and 4K 32 zones (every error word 0); txq_cost on made-up
      residuals within its tolerance; each timed per call with CUDA events
-     and on the host clock, and per launch with the profiler;
+     and on the host clock, and per launch with the profiler; then the
+     steps' per-frame scalars as device values (step_scalars_phase): the
+     1080p M8 step, the same at tune SQ, a 1080p RA step, the 720p strip
+     step and the 1080p keyframe step, each at two qindex values with
+     torch.cuda.set_sync_debug_mode("error") around the step call alone,
+     every launch's non-pointer words identical at both (cuda_kernels.
+     LAUNCH_RECORDER), the launches asserted, a new row giving the held
+     row's outputs; aq_scale against its plain version bit for bit on the
+     tune SQ zone's real sums, timed; tpu_vp9_torch.graft_entry's entry()
+     on the card against the CPU bit for bit and dryrun_multichip(4);
   3. M8 end to end: a 1920x1080 M8 low-delay CQP encode (the device
      keyframe, rate tables, the GOLDEN anchor, the 32-against-16 descent)
      through the public Vp9Encoder; the keyframe must launch kframe_wave
@@ -284,7 +293,8 @@ WIDTH, HEIGHT, QP = 1920, 1080, 40
 M8_FRAMES, M9_FRAMES, M7_FRAMES, CPU_FRAMES = 20, 10, 4, 3
 LIBS = ("sad_search", "block_energy", "sse_search", "txq_cost",
         "loop_filter", "kframe_wave", "transform_recon", "subpel_search",
-        "openloop_modes", "mc_predict", "descent", "mode_decide", "windows")
+        "openloop_modes", "mc_predict", "descent", "mode_decide", "windows",
+        "aq_scale")
 # main-path shapes at 1080p. M7 searches 32x32 blocks at range 16 over
 # the 33 whole block rows; the realtime step's 32-grid has 34 rows (the
 # last overhangs the picture by 8 pixels) of 60 blocks; M8 descends a
@@ -325,6 +335,12 @@ FOLDED_INTO = {"mode_decide": ("mode_decide_mc", 18),
                "descent_decide": ("descent_decide_mc", 13)}
 DECIDED_MC = ("mode_decide_mc", "descent_decide_mc")
 NO_DESCENT = dict.fromkeys(DESCENT_WRAPPERS, 0)
+# the position of the step's row of scalars (tpu_encdec.step_scalars) in
+# the arguments of the dispatches that take one; their plain versions take
+# its values as ints (_plain_args)
+ROW_ARG = {"mode_decide": 12, "mode_decide_mc": 12, "descent_decide": 10,
+           "descent_decide_mc": 10, "descent_split": 11,
+           "transform_recon": 2, "encode_children_masked": 8}
 # the descent's launches per descending step
 DESCENT_LAUNCHES = {w: int(w not in FOLDED) for w in DESCENT_WRAPPERS}
 # a zone's window launch (without ALTREF; its decision runs in its MC
@@ -334,12 +350,13 @@ BORDERS = {"extend_borders": 1}
 M8_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                "block_energy": 1, "block_energy_at": 2, "txq_cost": 2,
                "loop_filter": 1, "transform_recon": 6, "subpel_search": 2,
-               "mc_predict": 2, **DESCENT_LAUNCHES,
+               "mc_predict": 2, "aq_scale": 0, **DESCENT_LAUNCHES,
                **ZONE_MD_WINDOWS, **BORDERS}
 M9_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 0,
                "block_energy": 1, "block_energy_at": 1, "txq_cost": 0,
                "loop_filter": 1, "transform_recon": 3, "subpel_search": 1,
-               "mc_predict": 1, **NO_DESCENT, **ZONE_MD_WINDOWS, **BORDERS}
+               "mc_predict": 1, "aq_scale": 0, **NO_DESCENT,
+               **ZONE_MD_WINDOWS, **BORDERS}
 # launches per keyframe (M8 and M9 alike): one kframe_wave for the whole
 # 34 x 60 grid (its 93 anti-diagonals are its chain), the loop filter of
 # the three planes and their border extension
@@ -357,6 +374,7 @@ ENTRY_WRAPPERS = {"sad_full_search": ("sad_full_search",),
                   "subpel_search": ("subpel_search",),
                   "openloop_modes": ("openloop_modes",),
                   "mc_predict": ("mc_predict",),
+                  "aq_scale": ("aq_scale",),
                   **{w: (w,) for w in DESCENT_WRAPPERS},
                   **{w: (w,) for w in MD_WINDOW_WRAPPERS}}
 # each wrapper's kernel, by a part of its name in a profile
@@ -372,6 +390,7 @@ WRAPPER_KERNELS = {"sad_full_search": "sad_search_kernel",
                    "subpel_search": "subpel_search_kernel",
                    "openloop_modes": "openloop_modes_kernel",
                    "mc_predict": "mc_predict_kernel",
+                   "aq_scale": "aq_scale_kernel",
                    **{w: f"{w}_kernel" for w in DESCENT_WRAPPERS},
                    **{w: f"{w}_kernel" for w in MD_WINDOW_WRAPPERS}}
 # loop_filter: levels with thresh 0 and 3 (and 0: copies), the small
@@ -469,13 +488,13 @@ STRIP_MD_WINDOWS = {k: 2 * v for k, v in ZONE_MD_WINDOWS.items()}
 M8_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 4, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT,
-                     **STRIP_MD_WINDOWS, **BORDERS}
+                     "subpel_search": 2, "mc_predict": 2, "aq_scale": 0,
+                     **NO_DESCENT, **STRIP_MD_WINDOWS, **BORDERS}
 M9_STRIP_LAUNCHES = {"hier_search_fused": 1, "sse_map_search": 1,
                      "block_energy": 2, "block_energy_at": 2, "txq_cost": 0,
                      "loop_filter": 1, "transform_recon": 6,
-                     "subpel_search": 2, "mc_predict": 2, **NO_DESCENT,
-                     **STRIP_MD_WINDOWS, **BORDERS}
+                     "subpel_search": 2, "mc_predict": 2, "aq_scale": 0,
+                     **NO_DESCENT, **STRIP_MD_WINDOWS, **BORDERS}
 # per keyframe at a strip geometry: the wave of the 32 zone, the strip's
 # three luma candidates (V and D63 ADST_DCT, D45 DCT_DCT) and two chroma
 # transforms, the candidates' recon SSE in one block_energy launch, the
@@ -609,6 +628,52 @@ def _check(name, label, got, want):
         raise AssertionError(f"{name} disagrees with its plain version on "
                              f"{label}")
     return err
+
+
+def _row(dev, dc_q=40, ac_q=48, lam=0, lvl=0, lim=0, mblim=0):
+    """A step's row of scalars on ``dev`` (``tpu_encdec.step_scalars``):
+    the form in which the step's kernels take the quantizers, the lambda
+    and the loop filter's level and limits."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    return P.step_scalars(dc_q, ac_q, lam, lvl, lim, mblim, dev)
+
+
+def _held(name, args):
+    """A dispatch's recorded arguments as they were at its call: the
+    step's row of scalars (``ROW_ARG``) and the rate tables' dicts, which a
+    session refills in place before its next frame, as copies (no wait);
+    the rest as they are."""
+    at = ROW_ARG.get(name)
+    return tuple(a.clone() if i == at else
+                 {k: v.clone() if isinstance(v, torch.Tensor) else v
+                  for k, v in a.items()} if isinstance(a, dict) else a
+                 for i, a in enumerate(args))
+
+
+def _plain_args(name, args):
+    """A dispatch's arguments as its plain version takes them: the step's
+    row of scalars (``ROW_ARG``) replaced by its lam (a read of the
+    row)."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    at = ROW_ARG[name]
+    return (*args[:at], int(args[at][P.SC_LAM]), *args[at + 1:])
+
+
+def _tr_ints(args):
+    """A recorded transform call (src, pred, row, n[, tx_type]) with the
+    row's quantizers as ints: (src, pred, dc_q, ac_q, n[, tx_type])."""
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    row = args[2].tolist()
+    return (*args[:2], row[P.SC_DC_Q], row[P.SC_AC_Q], *args[3:])
+
+
+def _tr_row(args):
+    """(src, pred, dc_q, ac_q, n[, tx_type]) as the transform's wrapper
+    takes it: the quantizers in a step's row on the blocks' device."""
+    return (*args[:2], _row(args[0].device, args[2], args[3]), *args[4:])
 
 
 def _device_ms(fn, kernel_key: str, reps: int = 20):
@@ -1091,6 +1156,213 @@ def _txq_report(label, n, q, flipped, total, max_err):
                              "blocks flipped")
 
 
+# the step-scalars phase: qindex values the steps run at twice (a third
+# warms the caches first), and aq_scale's float64 operations a block (two
+# logs and an exp, about 20 each, beside its float32 steps)
+SC_QINDICES, SC_WARM_QINDEX = (60, 200), 120
+AQ_FP64_OPS = 60
+
+
+def _step_call(step, args, words):
+    """One call of a step with ``torch.cuda.set_sync_debug_mode("error")``
+    around it alone (any operation that waits for the card raises), every
+    launch's non-pointer words appended to ``words`` (``cuda_kernels.
+    LAUNCH_RECORDER``) and the launches counted (``_read_counts``)."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+
+    _reset_counts()
+    K.LAUNCH_RECORDER = lambda name, w: words.append((name, tuple(w)))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        K.LAUNCH_RECORDER = None
+    return out, _read_counts()
+
+
+def _same_outputs(label, a, b):
+    """Raise unless two step results (dicts, tuples and tensors) are equal
+    tensor by tensor."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{label}: outputs {sorted(a)} and "
+                                 f"{sorted(b)}")
+        for k in a:
+            _same_outputs(f"{label} {k}", a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            _same_outputs(f"{label} [{i}]", x, y)
+    elif isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{label}: the outputs differ")
+
+
+def step_scalars_phase(dev, frames, recons):
+    """The steps' per-frame scalars as device values (the step's row of
+    scalars, ``tpu_encdec.step_scalars``, and the rate tables, refilled in
+    place in tensors held for the phase, as the sessions hold them): the
+    1080p M8 step (GOLDEN, the rate tables, the descent), the same at tune
+    SQ, a 1080p RA step (GOLDEN and ALTREF, every parent descending), the
+    720p M8 strip step and the 1080p keyframe step, each at two qindex
+    values after one at a third that fills the caches, the step call alone
+    under ``torch.cuda.set_sync_debug_mode("error")`` (nothing in a step
+    waits for the card). Every launch's non-pointer words (``cuda_kernels.
+    LAUNCH_RECORDER``) must be identical at the two qindex values, the
+    outputs must differ, and each step's launches are asserted; a step run
+    again on a new row of the second qindex must give the held row's
+    outputs (no stale scalar). Then aq_scale against aq_scale_ref bit for
+    bit on the tune SQ zone's real sums (its launch timed for the kernels'
+    line), and ``tpu_vp9_torch.graft_entry`` on the card: ``entry()``'s
+    function against its run on the CPU bit for bit, and
+    ``dryrun_multichip(4)`` on a mesh of the card repeated. ``frames``,
+    ``recons``: the 1080p clip's first two frames and their recon (the
+    keyframe's is LAST, GOLDEN and ALTREF). Returns aq_scale's entry of
+    the kernels' line."""
+    from tpu_vp9_torch import graft_entry
+    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.ops.loopfilter import (
+        pick_filter_level, sharpness_limits,
+    )
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+    from tpu_vp9_torch.pipeline.realtime import upload_refs
+    from tpu_vp9_torch.utils.yuv import panning_frames
+
+    lim_t, mblim_t = sharpness_limits(0)
+    fc = T.default_frame_context()
+
+    def stage(g, fr):
+        shapes = ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
+                  (g.pad_h // 2, g.pad_w // 2))
+        return tuple(torch.from_numpy(P.pad_plane(np.asarray(p), *shp))
+                     .to(dev) for p, shp in zip((fr.y, fr.u, fr.v), shapes))
+
+    def refill(row, rates, q, key):
+        lvl = pick_filter_level(q, key)
+        ac_q = T.ac_quant(q)
+        P.step_scalars(T.dc_quant(q), ac_q, max(1, (ac_q ** 2) >> 6), lvl,
+                       int(lim_t[lvl]), int(mblim_t[lvl]), out=row)
+        if rates is not None:
+            P.upload_rate_tabs(P.make_rate_tabs(fc, q), dev, out=rates)
+
+    g = P.make_geom(WIDTH, HEIGHT)
+    src = stage(g, frames[1])
+    last = upload_refs(recons[0], g, dev)
+    zero32 = torch.zeros((g.n_blocks32, 2), dtype=torch.int32, device=dev)
+    zero16 = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    g7 = P.make_geom(*STRIP_GEOMS["720p"])
+    f7 = list(panning_frames(*STRIP_GEOMS["720p"], 2, seed=1))
+    last7 = upload_refs([np.asarray(p) for p in (f7[0].y, f7[0].u,
+                                                 f7[0].v)], g7, dev)
+    m8 = _path_launches(g, 8)[0]
+    cases = (
+        ("1080p M8 step (GOLDEN, rate tables, descent)",
+         P.make_pframe_step(g, dev, split16=True, golden=True),
+         (*src, *last, *last), (zero32, zero16), True, False,
+         {**m8, "txq_cost": 0}),
+        ("1080p M8 step at tune SQ",
+         P.make_pframe_step(g, dev, split16=True, golden=True, aq=True),
+         (*src, *last, *last), (zero32, zero16), True, False,
+         _path_launches(g, 8, aq=True)[0]),
+        ("1080p RA step (GOLDEN, ALTREF, every parent)",
+         P.make_pframe_step(g, dev, split16=True, golden=True, altref=True,
+                            with_rates=True, descend_frac=1),
+         (*src, *last, *last, *last), (zero32, zero16), True, False,
+         _ra_launches(g, True, True)),
+        ("720p M8 strip step",
+         P.make_pframe_step(g7, dev, golden=True),
+         (*stage(g7, f7[1]), *last7, *last7),
+         (torch.zeros((g7.n_blocks32, 2), dtype=torch.int32, device=dev),
+          torch.zeros((g7.cols16, 2), dtype=torch.int32, device=dev)),
+         True, False, {**_path_launches(g7, 8)[0], "txq_cost": 0}),
+        ("1080p keyframe step", P.make_kframe_step(g, dev),
+         src, (), False, True, KEY_LAUNCHES))
+    aq_calls = []
+    for label, step, planes, prev, with_rates, key, launches in cases:
+        row = torch.zeros(len(K.STEP_SCALARS), dtype=torch.int32, device=dev)
+        rates = None
+        if with_rates:
+            rates = P.upload_rate_tabs(P.make_rate_tabs(fc, SC_WARM_QINDEX),
+                                       dev)
+        args = (*planes, *prev, row, *(() if rates is None else (rates,)))
+        refill(row, rates, SC_WARM_QINDEX, key)
+        step(*args)
+        torch.cuda.synchronize()
+        words, outs = [], []
+        for q in SC_QINDICES:
+            refill(row, rates, q, key)
+            w = []
+            real = _recording_scales(aq_calls) if "tune SQ" in label \
+                else None
+            try:
+                (out, _), counts = _step_call(step, args, w)
+            finally:
+                if real is not None:
+                    P.aq_scale = real
+            torch.cuda.synchronize()
+            want = {**dict.fromkeys(counts, 0), **launches}
+            if counts != want:
+                raise AssertionError(f"{label} at qindex {q}: launches "
+                                     f"{counts} != {want}")
+            words.append(w)
+            outs.append(out)
+        if words[0] != words[1]:
+            diff = [(a, b) for a, b in zip(*words) if a != b][:3]
+            raise AssertionError(f"{label}: launch words differ between "
+                                 f"qindex {SC_QINDICES}: {diff}, "
+                                 f"{len(words[0])} and {len(words[1])} "
+                                 "launches")
+        zone = outs[0]["m32"]
+        if torch.equal(zone["lv_y"], outs[1]["m32"]["lv_y"]):
+            raise AssertionError(f"{label}: the same levels at qindex "
+                                 f"{SC_QINDICES}")
+        # a new row (and tables) of the second qindex: the held ones were
+        # refilled before the step read them
+        fresh = torch.zeros_like(row)
+        fresh_rates = None if rates is None else P.upload_rate_tabs(
+            P.make_rate_tabs(fc, SC_QINDICES[1]), dev)
+        refill(fresh, None, SC_QINDICES[1], key)
+        again = step(*planes, *prev, fresh,
+                     *(() if fresh_rates is None else (fresh_rates,)))[0]
+        _same_outputs(f"{label}: a new row against the held one", again,
+                      outs[1])
+        n = sum(launches.values())
+        print(f"step scalars [{label}]: {n} launches a step, "
+              f"{len(words[0])} recorded, their non-pointer words identical "
+              f"at qindex {SC_QINDICES[0]} and {SC_QINDICES[1]}; no wait for "
+              "the card inside the step (sync debug mode 'error'); a new "
+              "row gives the held row's outputs")
+    # aq_scale on the tune SQ steps' real zone sums
+    vectors, _ = _aq_vectors(aq_calls, "1080p M8 tune SQ step, real sums")
+    src_sum, src2, n, scalars, _ = aq_calls[-1]
+    b = src_sum.shape[0]
+    bound = _bound(12 * b + 4, AQ_FP64_OPS * b, FP64_CORE_OPS_PER_S)
+    parts = [_timed("aq_scale", f"1080p M8 tune SQ zone B={b} n={n}",
+                    lambda: K.aq_scale(src_sum, src2, n, scalars),
+                    lambda: P.aq_scale_ref(src_sum, src2, n, scalars), 5,
+                    bound, "aq_scale_kernel", 1)]
+    _kernel_resources(dev, "aq_scale", None,
+                      lambda k, dv: K.aq_scale_occupancy(dv), threads=1024)
+    print(f"kernel aq_scale: {len(vectors)} zones, lambda "
+          f"{min(v.min() for v in vectors):.2f} to "
+          f"{max(v.max() for v in vectors):.2f}")
+    # the port's graft entry on the card
+    fn, ex = graft_entry.entry()
+    cfn, cex = graft_entry.entry("cpu")
+    got, want = fn(*ex), cfn(*cex)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("mv", "lv_y", "ref_y"), got, want, strict=True):
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), c):
+            raise AssertionError(f"graft_entry.entry(): {name} on the card "
+                                 "differs from the CPU's")
+    print(f"graft_entry.entry() on {torch.cuda.get_device_name(0)}: "
+          f"{[tuple(t.shape) for t in got]}, bit for bit the CPU's")
+    graft_entry.dryrun_multichip(4)
+    return _entry("aq_scale", "tpu_vp9_torch/csrc/aq_scale.cu",
+                  "tpu_vp9/pipeline/tpu_encdec.py:226", 0, parts)
+
+
 def txq_synthetic_phase(dev):
     """txq_cost (CUDA) against txq_cost_ref on made-up residuals (a smooth
     field plus noise, as a prediction error looks) at every block size,
@@ -1194,7 +1466,7 @@ def _kf_case(dev, label, geom, planes, qidx, lam=None):
     dc_q, ac_q = T.dc_quant(qidx), T.ac_quant(qidx)
     lam = max(1, (ac_q ** 2) >> 6) if lam is None else lam
     ts = [torch.from_numpy(p).to(dev) for p in planes]
-    got = K.kframe_wave(*ts, geom, dc_q, ac_q, lam)
+    got = K.kframe_wave(*ts, geom, _row(dev, dc_q, ac_q, lam))
     want = P.kframe_wave_ref(*ts, geom, dc_q, ac_q, lam)
     torch.cuda.synchronize()
     b = got[0].numel()
@@ -1286,9 +1558,10 @@ def kframe_kernel_phase(dev):
     # as the step calls it: the error word handed back, not read (a read
     # would wait for the device); checked once after the timing
     status = []
+    sc = _row(dev, dc_q, ac_q, lam)
 
     def call():
-        return K.kframe_wave(*ts, g, dc_q, ac_q, lam, status)
+        return K.kframe_wave(*ts, g, sc, status)
 
     ms = _cuda_time_ms(call, 20)
     plain_ms = _cuda_time_ms(lambda: P.kframe_wave_ref(*ts, g, dc_q, ac_q,
@@ -1299,7 +1572,7 @@ def kframe_kernel_phase(dev):
     one = [torch.from_numpy(p).to(dev) for p in _kf_planes(
         rng.integers(0, 256, (g1.pad_h, g1.pad_w), dtype=np.uint8))]
     block_ms = _device_ms(
-        lambda: K.kframe_wave(*one, g1, dc_q, ac_q, lam, status),
+        lambda: K.kframe_wave(*one, g1, sc, status),
         "kframe_wave_kernel", reps=50)
     torch.cuda.synchronize()
     for word in status:
@@ -1390,7 +1663,8 @@ def _lf_case(label, planes, geom, lvl, lim, mblim, split):
 
     before = [p.clone() for p in planes]
     mask_before = None if split is None else split.clone()
-    got = K.loop_filter(*planes, geom, lvl, lim, mblim, split)
+    got = K.loop_filter(*planes, geom, _row(planes[0].device, lvl=lvl,
+                                            lim=lim, mblim=mblim), split)
     P.LF_CLASS_COUNTS = {}
     want = P.loop_filter_ref(*planes, geom, lvl, lim, mblim, split)
     counts, P.LF_CLASS_COUNTS = P.LF_CLASS_COUNTS, None
@@ -1443,9 +1717,10 @@ def _lf_kinds_alone(label, planes, geom, lvl, lim, mblim, split):
     from tpu_vp9_torch.ops import cuda_kernels as K
 
     shown = []
+    sc = _row(planes[0].device, lvl=lvl, lim=lim, mblim=mblim)
     for name, bits in (("all", K.LF_ALL_PARTS), *K.LF_PARTS.items()):
-        ms = _device_ms(lambda: K.loop_filter(*planes, geom, lvl, lim, mblim,
-                                              split, parts=bits),
+        ms = _device_ms(lambda: K.loop_filter(*planes, geom, sc, split,
+                                              parts=bits),
                         "loop_filter_kernel")
         shown.append(f"{name} " + ("not measured" if ms is None
                                    else f"{ms:.4f} ms"))
@@ -1493,18 +1768,19 @@ def _real_m8_inputs(dev):
     real_ecm = P.encode_children_masked
 
     def record_ecm(*args, **kw):
-        calls["ecm"].append((args, kw))
+        calls["ecm"].append((_held("encode_children_masked", args),
+                             {k: _held("", (v,))[0] for k, v in kw.items()}))
         return real_ecm(*args, **kw)
     real_lf, real_tr, real_sp = (P.loop_filter_device, P.transform_recon,
                                  P.subpel_search)
     real_dmc = {name: getattr(P, name) for name in DECIDED_MC}
 
-    def record_lf(y, u, v, geom, lvl, lim, mblim, split32=None):
-        calls["lf"].append((y, u, v, geom, lvl, lim, mblim, split32))
-        return real_lf(y, u, v, geom, lvl, lim, mblim, split32=split32)
+    def record_lf(y, u, v, geom, sc, split32=None):
+        calls["lf"].append((y, u, v, geom, sc.clone(), split32))
+        return real_lf(y, u, v, geom, sc, split32=split32)
 
     def record_tr(*args):
-        calls["tr"].append(args)
+        calls["tr"].append(_held("transform_recon", args))
         return real_tr(*args)
 
     def record_sp(*args):
@@ -1514,6 +1790,7 @@ def _real_m8_inputs(dev):
     def record_dmc(name):
         def call(*args):
             out = real_dmc[name](*args)
+            args = _held(name, args)
             calls["dmc"].append((name, args))
             calls["mc"].append(_mc_args_of(name, args, out))
             return out
@@ -1540,6 +1817,12 @@ def _real_m8_inputs(dev):
     for name in DECIDED_MC:
         setattr(P, name, real_dmc[name])
     torch.cuda.synchronize()
+    # the loop filter's level and limits, and the transforms' quantizers,
+    # as ints (the phases hold the kernels against the plain versions, which
+    # take them so)
+    calls["lf"] = [(*c[:4], *c[4].tolist()[P.SC_LF_LVL:], c[5])
+                   for c in calls["lf"]]
+    calls["tr"] = [_tr_ints(c) for c in calls["tr"]]
     lf = calls["lf"]
     if len(lf) != 2 or lf[0][7] is not None or lf[1][7] is None:
         raise AssertionError(f"the keyframe and the M8 P-frame called the "
@@ -1640,6 +1923,7 @@ def loop_filter_kernel_phase(dev, lf_calls):
     max_err = max(max_err, err)
     parts = []
     nbytes = 2 * sum(t.numel() for t in (y, u, v))
+    sc = _row(dev, lvl=lvl, lim=lim, mblim=mblim)
     for label, mask, cnt, per_frame in (
             ("1080p split mask (M8)", split, counts, 1),
             ("1080p no mask (M9)", None, counts9, 0)):
@@ -1650,7 +1934,7 @@ def loop_filter_kernel_phase(dev, lf_calls):
                        LF_OPS_PER_LANE * lanes, ALU_OPS_PER_S)
         parts.append(_timed(
             "loop_filter", f"{label}, {lanes} edge lanes",
-            lambda: K.loop_filter(y, u, v, g, lvl, lim, mblim, mask),
+            lambda: K.loop_filter(y, u, v, g, sc, mask),
             lambda: P.loop_filter_ref(y, u, v, g, lvl, lim, mblim, mask), 2,
             bound, "loop_filter_kernel", per_frame))
     # 720p and 4K (the strip, no mask), at the real P-frame's level
@@ -1663,7 +1947,7 @@ def loop_filter_kernel_phase(dev, lf_calls):
                        LF_OPS_PER_LANE * lanes, ALU_OPS_PER_S)
         _timed("loop_filter", f"made-up {dims[0]}x{dims[1]} (strip), no "
                f"mask, lvl={lvl}, {lanes} edge lanes",
-               lambda: K.loop_filter(*planes, gs, lvl, lim, mblim),
+               lambda: K.loop_filter(*planes, gs, sc),
                lambda: P.loop_filter_ref(*planes, gs, lvl, lim, mblim), 2,
                bound, "loop_filter_kernel", 0)
         _lf_kinds_alone(f"made-up {dims[0]}x{dims[1]} (strip)", planes, gs,
@@ -1767,7 +2051,8 @@ def _tr_case(label, src, pred, dc_q, ac_q, n, tx_type=0):
     from tpu_vp9_torch.ops import txfm
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    got = K.transform_recon(src, pred, dc_q, ac_q, n, tx_type)
+    got = K.transform_recon(src, pred, _row(src.device, dc_q, ac_q), n,
+                            tx_type)
     want = P.transform_recon_ref(src, pred, dc_q, ac_q, n, tx_type)
     torch.cuda.synchronize()
     b = src.shape[0]
@@ -1880,9 +2165,10 @@ def transform_kernel_phase(dev, real, frames, recons):
     for label, i, per_frame in TR_TIMED:
         src, pred, dc_q, ac_q, n = real[i]
         b = src.shape[0]
+        sc = _row(dev, dc_q, ac_q)
         parts.append(_timed(
             "transform_recon", f"{label} B={b} n={n}",
-            lambda: K.transform_recon(src, pred, dc_q, ac_q, n),
+            lambda: K.transform_recon(src, pred, sc, n),
             lambda: P.transform_recon_ref(src, pred, dc_q, ac_q, n), 5,
             _tr_bound(b, n), "transform_recon_kernel", per_frame))
         print(f"kernel transform_recon {label} B={b} n={n}: bound with the "
@@ -2207,7 +2493,8 @@ def _dmc_fns(name, args):
         return (*head, *K.mc_predict(planes, pos_y, pos_x, mv_r, mv_c, n,
                                      mi_rows, mi_cols, kgrid, **kw))
 
-    return kernel, lambda: getattr(P, f"{name}_ref")(*args), two
+    plain = _plain_args(name, args)
+    return kernel, lambda: getattr(P, f"{name}_ref")(*plain), two
 
 
 def _dmc_bound(name, args, got):
@@ -2484,13 +2771,15 @@ def _descent_fns(name, args):
 
     if name == "descent_decide":
         proxy = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
+        plain = _plain_args(name, args)
         return (lambda: K.descent_decide(*args, proxy),
-                lambda: P.descent_decide_ref(*args))
+                lambda: P.descent_decide_ref(*plain))
     if name == "descent_split":
         planes = [t.clone() for t in args[5:8]]
+        plain = _plain_args(name, args)
         return (lambda: K.descent_split(*args[:5], *planes, *args[8:],
                                         P.SPLIT_RATE_EXTRA),
-                lambda: P.descent_split_ref(*args))
+                lambda: P.descent_split_ref(*plain))
     # the wrappers take the constants that the dispatches hand them
     extra = {"descent_gather": (P.BORDER,)}.get(name, ())
     return (lambda: getattr(K, name)(*args, *extra),
@@ -2550,7 +2839,8 @@ def _descent_bound(name, args):
         ops = 5 * 256 * nch
     else:
         k, b32 = args[0].shape[0], args[1].shape[0]
-        n_split = int(P.descent_split_ref(*args)[0].sum())
+        n_split = int(P.descent_split_ref(
+            *_plain_args("descent_split", args))[0].sum())
         nbytes = 32 * k + 4 * b32 + 4 * k + 3072 * n_split
     return _bound(nbytes, ops, ALU_OPS_PER_S)
 
@@ -2608,7 +2898,8 @@ def _descent_made_up(dev, real, rng):
     src2 = rng.integers(0, 4_000_000, n)
     sub = rng.integers(-70, 71, (2, n))
     base = rng.integers(-32, 25, (2, n))
-    rates = dict(da[12], lam_bits=256.0)  # cost = sse + rate
+    # cost = sse + rate (its device row too, which the kernel reads)
+    rates = _host_rates(dict(da[12], lam_bits=256.0))
     m = rates["mv_cost_max"]
     jc, nr, nc = (rates[k].cpu().numpy() for k in ("joint_cost", "nmv_row",
                                                    "nmv_col"))
@@ -2629,7 +2920,7 @@ def _descent_made_up(dev, real, rng):
                       (on(ssem), on(np.full(n, top - rate[0])),
                        on(np.full(n, top - rate[1])), on(sub[0]), on(sub[1]),
                        on(src2), on(base[0]), on(base[1]), on(par[0]),
-                       on(par[1]), 1, da[11], tables)))
+                       on(par[1]), _row(dev, lam=1), da[11], tables)))
     # PARENT anywhere in the parents' reach, costs far apart
     par = rng.integers(-edge, edge + 1, (2, n))
     cases.append((f"PARENT beyond the map B={n}", "descent_decide",
@@ -2637,7 +2928,7 @@ def _descent_made_up(dev, real, rng):
                    on(rng.integers(0, 4_000_000, n)),
                    on(rng.integers(0, 4_000_000, n)), on(sub[0]), on(sub[1]),
                    on(src2), on(base[0]), on(base[1]), on(par[0]),
-                   on(par[1]), 300, da[11], da[12])))
+                   on(par[1]), _row(dev, lam=300), da[11], da[12])))
     # the pack on the real call's shapes: its SSE at its most (recon 255
     # against a source of 0) with every level nonzero, and 0 with every
     # level zero
@@ -2669,12 +2960,13 @@ def _descent_made_up(dev, real, rng):
     cases.append(("the overhang row selected, its children far better",
                   "descent_split", over))
     for lam in (0, 10 ** 6):
-        cases.append((f"lam {lam}", "descent_split", (*sa[:11], lam, g)))
+        cases.append((f"lam {lam}", "descent_split",
+                      (*sa[:11], _row(dev, lam=lam), g)))
     for gap, tag in ((0, "all ties"), (1, "children one better")):
         tie = list(sa)
         tie[3] = (dist_b[sa[0].long()] - gap).to(torch.int64)
         cases.append((f"{tag} at lam 0", "descent_split",
-                      (*tie[:11], 0, g)))
+                      (*tie[:11], _row(dev, lam=0), g)))
     return cases
 
 
@@ -2873,8 +3165,9 @@ def _md_window_fns(name, args):
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     if name == "mode_decide":
+        plain = _plain_args(name, args)
         return (lambda: K.mode_decide(*args, P.CAND_RATE_PROXY),
-                lambda: P.mode_decide_ref(*args), None)
+                lambda: P.mode_decide_ref(*plain), None)
     if name == "extract_windows":
         jobs, rows, cols = args
         specs = P.window_specs(jobs, rows, cols)
@@ -2972,7 +3265,8 @@ def _md_made_up(dev, md_args, rng):
         cases.append((f"all ties, rate tables, lam_bits {lam_bits}",
                       (*tie_args, up, None, tie_gold, tie_alt)))
     cases.append(("all ties, proxies at lam 0",
-                  (*tie_args[:12], 0, a[13], None, None, tie_gold, None)))
+                  (*tie_args[:12], _row(dev, lam=0), a[13], None, None,
+                   tie_gold, None)))
     return cases
 
 
@@ -3202,7 +3496,7 @@ def _real_strip_inputs(dev):
 
     def recorded(key, fn):
         def call(*args):
-            calls[key].append(args)
+            calls[key].append(_held(names[key], args))
             return fn(*args)
         return call
 
@@ -3216,6 +3510,7 @@ def _real_strip_inputs(dev):
     for k, name in names.items():
         setattr(P, name, real[k])
     torch.cuda.synchronize()
+    calls["tr"] = [_tr_ints(c) for c in calls["tr"]]
     b = STRIP_B["720p"]
     adst = int(T.TxType.ADST_DCT)
     # the strip's calls are those of its 80 blocks (the 32 zone has 880)
@@ -3286,9 +3581,10 @@ def strip_kernel_phase(dev):
         errs["transform_recon"] = max(errs["transform_recon"], err)
         if i < 2:  # Y, and U standing for both chroma planes
             b = src.shape[0]
+            sc = _row(dev, dq, aq)
             parts["transform_recon"].append(_timed(
                 "transform_recon", f"720p strip {'YU'[i]} B={b} n={nn}",
-                lambda: K.transform_recon(src, pred, dq, aq, nn),
+                lambda: K.transform_recon(src, pred, sc, nn),
                 lambda: P.transform_recon_ref(src, pred, dq, aq, nn), 5,
                 _tr_bound(b, nn), "transform_recon_kernel", 1 + i))
     (src, rec, nn), = real["be"]
@@ -3455,9 +3751,10 @@ def strip_kernel_phase(dev):
             ("720p real keyframe strip, V", tr_real[0][:4]),
             ("4K strip against V", (src4, pred4, dc_q, ac_q))):
         b = src.shape[0]
+        sc = _row(dev, dq, aq)
         parts["transform_recon"].append(_timed(
             "transform_recon", f"{label} B={b} n={n} ADST_DCT",
-            lambda: K.transform_recon(src, pred, dq, aq, n, adst),
+            lambda: K.transform_recon(src, pred, sc, n, adst),
             lambda: P.transform_recon_ref(src, pred, dq, aq, n, adst), 5,
             _tr_bound(b, n), "transform_recon_kernel", 2))
 
@@ -3480,9 +3777,10 @@ def strip_kernel_phase(dev):
                                           pan, q)[0])
         ts = [torch.from_numpy(p).to(dev) for p in pan]
         status = []
+        sc = _row(dev, dc_q, ac_q, lam)
 
         def call():
-            return K.kframe_wave(*ts, g, dc_q, ac_q, lam, status)
+            return K.kframe_wave(*ts, g, sc, status)
 
         ms = _cuda_time_ms(call, 10)
         plain_ms = _cuda_time_once(lambda: P.kframe_wave_ref(
@@ -3634,6 +3932,7 @@ def _kernel_fns():
             "subpel_search": K.subpel_search,
             "openloop_modes": K.openloop_modes,
             "mc_predict": K.mc_predict,
+            "aq_scale": K.aq_scale,
             **{w: getattr(K, w) for w in DESCENT_WRAPPERS},
             **{w: getattr(K, w) for w in MD_WINDOW_WRAPPERS}}
 
@@ -3689,7 +3988,8 @@ def _stream_line(label, pkts, psnrs):
 def _path_launches(geom, enc_mode, aq=False):
     """Launches per P-frame and per keyframe by wrapper, at ``geom``; with
     ``aq`` (M8 at tune SQ) one more block_energy a zone (the exact sums of
-    its lambda scale), and no txq_cost (the tune OQ phase's own calls)."""
+    its lambda scale) and one aq_scale (the scale), and no txq_cost (the
+    tune OQ phase's own calls)."""
     if geom.strip:
         per_p = M8_STRIP_LAUNCHES if enc_mode == 8 else M9_STRIP_LAUNCHES
         per_key = KEY_STRIP_LAUNCHES
@@ -3698,7 +3998,8 @@ def _path_launches(geom, enc_mode, aq=False):
         per_key = KEY_LAUNCHES
     if aq:
         per_p = {**per_p, "txq_cost": 0,
-                 "block_energy": per_p["block_energy"] + 1 + geom.strip}
+                 "block_energy": per_p["block_energy"] + 1 + geom.strip,
+                 "aq_scale": 1 + geom.strip}
     return per_p, per_key
 
 
@@ -4281,8 +4582,9 @@ def _ra_launches(geom, golden: bool, altref: bool):
                       + ENTRY_WRAPPERS["block_energy"], 0)
     c.update({"sad_full_search": 0, "txq_cost": 0, "kframe_wave": 0,
               "subpel_search": 0, "transform_recon": 0, "loop_filter": 1,
-              "openloop_modes": 0, "mc_predict": 0, **NO_DESCENT,
-              "mode_decide": 0, "extract_windows": 0, **BORDERS})
+              "openloop_modes": 0, "mc_predict": 0, "aq_scale": 0,
+              **NO_DESCENT, "mode_decide": 0, "extract_windows": 0,
+              **BORDERS})
     for n in (32, 16) if geom.strip else (32,):
         c["hier_search_fused" if n == 32 else "sse_map_search"] += \
             1 + altref
@@ -4323,9 +4625,10 @@ def _recording(names, calls, active):
     """While ``active[0]``, the step's calls of the ``tpu_encdec`` functions
     ``names`` append (name, arguments) to ``calls``; the arguments a call
     writes in place (``IN_PLACE_ARGS``) are recorded as copies taken before
-    it. A decision folded into MC (``FOLDED``), which the step no longer
-    calls, is recorded from its merged dispatch's call: its first
-    arguments, the decision's own (``FOLDED_INTO``)."""
+    it, and so are the row of scalars and the rate tables (``_held``). A
+    decision folded into MC (``FOLDED``), which the step no longer calls,
+    is recorded from its merged dispatch's call: its first arguments, the
+    decision's own (``FOLDED_INTO``)."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
     targets = {}
@@ -4339,9 +4642,9 @@ def _recording(names, calls, active):
             if active[0]:
                 for name, cut in targets[target]:
                     at = IN_PLACE_ARGS.get(name, ())
-                    calls.append((name, tuple(
+                    calls.append((name, _held(name, tuple(
                         a.clone() if i in at else a
-                        for i, a in enumerate(args[:cut]))))
+                        for i, a in enumerate(args[:cut])))))
             return fn(*args)
         return call
 
@@ -4524,7 +4827,8 @@ def _ra_calls(calls):
     (the children's)."""
     by = {}
     for name, args in calls:
-        by.setdefault(name, []).append(args)
+        by.setdefault(name, []).append(
+            _tr_ints(args) if name == "transform_recon" else args)
     shape = {k: [tuple(v.shape if isinstance(v, torch.Tensor) else v
                        for v in a if isinstance(v, (torch.Tensor, int)))
                  for a in by.get(k, [])] for k in RA_RECORDED}
@@ -4607,7 +4911,7 @@ def ra_kernel_phase(dev, calls, kernels):
             b = src.shape[0]
             parts["transform_recon"].append(_timed(
                 "transform_recon", f"1080p RA children {label} B={b} n={nn}",
-                lambda a=args: K.transform_recon(*a),
+                lambda a=_tr_row(args): K.transform_recon(*a),
                 lambda a=args: P.transform_recon_ref(*a), 5,
                 _tr_bound(b, nn), "transform_recon_kernel",
                 2 if label == "U" else 1))
@@ -5078,37 +5382,67 @@ def speed_control_phase(dev, paths):
     paths[tag] = counts
 
 
-def _recording_scales(scales):
-    """Install a wrapper of the step's ``_sb_lambda_scale`` that appends
-    each scale vector (numpy) to ``scales``; returns the original."""
+def _recording_scales(calls):
+    """Install a wrapper of the step's ``aq_scale`` dispatch that appends
+    each call's inputs and per-block lambda vector, as copies (no wait),
+    to ``calls``; returns the original."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    real = P._sb_lambda_scale
+    real = P.aq_scale
 
-    def rec(src_sum, src2, n):
-        out = real(src_sum, src2, n)
-        scales.append(out.cpu().numpy())
+    def rec(src_sum, src2, n, scalars):
+        out = real(src_sum, src2, n, scalars)
+        calls.append((src_sum.clone(), src2.clone(), n, scalars.clone(),
+                      out.clone()))
         return out
 
-    P._sb_lambda_scale = rec
+    P.aq_scale = rec
     return real
+
+
+def _aq_vectors(calls, label):
+    """The recorded aq_scale calls' lambda vectors (numpy) and their
+    scales (each over its frame's lam_bits), every vector held against
+    the plain version on its own inputs bit for bit (on the card: the
+    kernel's float64 log and exp against the host's; a difference raises
+    with its count)."""
+    from tpu_vp9_torch.ops import cuda_kernels as K
+    from tpu_vp9_torch.pipeline import tpu_encdec as P
+
+    k = K.RATE_SCALARS.index("lam_bits")
+    vectors, scales, differ = [], [], 0
+    for src_sum, src2, n, scalars, out in calls:
+        want = P.aq_scale_ref(src_sum, src2, n, scalars)
+        differ += int((out != want).sum())
+        lam = float(scalars[k:k + 1].view(torch.float32).item())
+        vectors.append(out.cpu().numpy())
+        scales.append(vectors[-1] / lam)
+    print(f"kernel aq_scale [{label}]: {len(calls)} zones' lambda vectors "
+          f"against aq_scale_ref: {differ} values differ")
+    if differ:
+        raise AssertionError(f"aq_scale [{label}]: {differ} values differ "
+                             "from the plain version's")
+    return vectors, scales
 
 
 def aq_phase(dev, frames, tag, paths, same=False):
     """M8 at tune SQ through the public encoder: launches per P-frame
     (``_path_launches`` with aq), decode bit-exact, fps and the send split
     (``realtime_end_to_end_phase``), B/frame and Y PSNR beside tune OQ's on
-    the same frames; with ``same`` the first AQ_SAME_FRAMES again on the
-    CPU: identical packets and identical scale vectors."""
+    the same frames, every zone's lambda vector against the plain version
+    on its inputs (``_aq_vectors``); with ``same`` the first
+    AQ_SAME_FRAMES again on the CPU: identical packets and identical
+    lambda vectors."""
     from tpu_vp9_torch.pipeline import tpu_encdec as P
 
-    scales = []
-    real = _recording_scales(scales)
+    calls = []
+    real = _recording_scales(calls)
     try:
         pkts, recons, paths[tag] = realtime_end_to_end_phase(
             dev, frames, 8, tag, tune=TUNE_SQ)
     finally:
-        P._sb_lambda_scale = real
+        P.aq_scale = real
+    vectors, scales = _aq_vectors(calls, f"{tag}, every zone of the run")
     oq, oq_recons = _encode(dev, frames, 8)[:2]
     psnr_sq = [_psnr(r[0], f.y) for r, f in zip(recons, frames)]
     psnr_oq = [_psnr(r[0], f.y) for r, f in zip(oq_recons, frames)]
@@ -5117,7 +5451,8 @@ def aq_phase(dev, frames, tag, paths, same=False):
     # the encode's vectors, one a zone of each P-frame (the step timings
     # after it recorded theirs too)
     zones = 1 + P.make_geom(*_dims(frames)).strip
-    scales = scales[:zones * sum(not p.is_keyframe for p in pkts)]
+    n_zones = zones * sum(not p.is_keyframe for p in pkts)
+    vectors, scales = vectors[:n_zones], scales[:n_zones]
     spread = np.concatenate(scales)
     moved = sum(a.data != b.data for a, b in zip(pkts, oq))
     print(f"{tag}: {len(scales)} scale vectors, scale min {spread.min():.4f} "
@@ -5125,24 +5460,25 @@ def aq_phase(dev, frames, tag, paths, same=False):
           "from tune OQ's")
     if not same:
         return
-    cpu_scales = []
-    real = _recording_scales(cpu_scales)
+    cpu_calls = []
+    real = _recording_scales(cpu_calls)
     t0 = time.perf_counter()
     try:
         cpu = _encode("cpu", frames[:AQ_SAME_FRAMES], 8, tune=TUNE_SQ)[0]
     finally:
-        P._sb_lambda_scale = real
+        P.aq_scale = real
     cpu_s = time.perf_counter() - t0
+    cpu_scales = [c[4].numpy() for c in cpu_calls]
     for idx, (a, b) in enumerate(zip(cpu, pkts)):
         if a.data != b.data:
             raise AssertionError(f"{tag} frame {idx}: CPU and CUDA packets "
                                  "differ")
-    want = scales[:len(cpu_scales)]
+    want = vectors[:len(cpu_scales)]
     if len(cpu_scales) != AQ_SAME_FRAMES - 1 or any(
             a.tobytes() != b.tobytes() for a, b in zip(cpu_scales, want)):
-        raise AssertionError(f"{tag}: CPU and CUDA scale vectors differ")
+        raise AssertionError(f"{tag}: CPU and CUDA lambda vectors differ")
     print(f"{tag} same bytes: the first {AQ_SAME_FRAMES} packets and the "
-          f"{len(cpu_scales)} scale vectors are identical on cpu "
+          f"{len(cpu_scales)} lambda vectors are identical on cpu "
           f"({cpu_s:.1f} s) and cuda")
 
 
@@ -5601,10 +5937,11 @@ def _mesh_cases(dev, dims):
     lf = pick_filter_level(q, False)
     frames = list(panning_frames(*dims, 3, seed=1))
     _, key = P.make_kframe_step(g, dev)(
-        *stage(frames[0]), T.dc_quant(q), T.ac_quant(q), lam, kf,
-        int(lim[kf]), int(mblim[kf]))
-    scal = (T.dc_quant(q), T.ac_quant(q), lam, lf, int(lim[lf]),
-            int(mblim[lf]))
+        *stage(frames[0]), _row(dev, T.dc_quant(q), T.ac_quant(q), lam, kf,
+                                int(lim[kf]), int(mblim[kf])))
+    # the steps' argument: one row of scalars
+    scal = (_row(dev, T.dc_quant(q), T.ac_quant(q), lam, lf, int(lim[lf]),
+                 int(mblim[lf])),)
     rates = P.upload_rate_tabs(
         P.make_rate_tabs(T.default_frame_context(), q), dev)
     step = P.make_pframe_step(g, dev, golden=True)
@@ -5952,6 +6289,7 @@ def main() -> int:
                                                  kernels["mc_predict"])
     for name in FOLDED:
         kernels[name]["folded_into"] = "mc_predict"
+    kernels["aq_scale"] = step_scalars_phase(dev, real_frames, real_recons)
     del real, real_frames, real_recons
     for name, parts in strip_kernel_phase(dev).items():
         kernels[name]["strip_parts"] = parts
@@ -5995,6 +6333,8 @@ def main() -> int:
                 same_bytes_phase(tag, sframes, pkts, mode)
         del sframes, pkts
     host_phases(dev, kernels, paths, frames)
+    # aq_scale's main path: tune SQ (the M8 run above takes no scale)
+    kernels["aq_scale"]["launches"] = paths["1080p m8 sq"]["aq_scale"]
     rc_phases(dev, paths)
     ra_phases(dev, kernels, paths)
     ra_host_phases(dev, paths)

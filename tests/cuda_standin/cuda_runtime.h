@@ -7,8 +7,8 @@
 // (__byte_perm, __funnelshift_r, __vabsdiffu4) and dp4a (__dp4a,
 // conv8::dp4a_us, conv8::dp4a_uu) are written out from their definitions
 // in the PTX and CUDA manuals; the float32 intrinsics that round once
-// (__fadd_rn, __fmul_rn, __fdiv_rn, the integer conversions) as single
-// IEEE operations, and __trap as a recorded failure. standin_launch runs
+// (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn, the integer and float64
+// conversions) as single IEEE operations, and __trap as a recorded failure. standin_launch runs
 // the CTAs of a grid one after another; standin_launch_all runs them all at once (each with its
 // own shared buffer and exchange area), for a kernel whose CTAs wait on
 // each other:
@@ -90,6 +90,10 @@ inline float __fadd_rn(float a, float b) {
   volatile float r = a + b;
   return r;
 }
+inline float __fsub_rn(float a, float b) {
+  volatile float r = a - b;
+  return r;
+}
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;
   return r;
@@ -100,6 +104,8 @@ inline float __fdiv_rn(float a, float b) {
 }
 // integer to float32, rounded to nearest even (the default mode)
 inline float __int2float_rn(int v) { return static_cast<float>(v); }
+// float64 to float32, rounded to nearest even
+inline float __double2float_rn(double v) { return static_cast<float>(v); }
 inline float __ll2float_rn(long long v) { return static_cast<float>(v); }
 // a + b rounded toward minus infinity
 inline double __dadd_rd(double a, double b) {

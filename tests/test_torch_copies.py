@@ -117,7 +117,8 @@ def test_changed_copy_keeps_the_source_s_public_names(rel):
 def test_every_port_module_is_accounted_for():
     """A module of the port is a copy (exact or changed), or one of the
     port's own: a new copy cannot slip in unguarded."""
-    own = {"__init__.py", "ops/__init__.py", "ops/_build.py",
+    own = {"__init__.py", "graft_entry.py", "ops/__init__.py",
+           "ops/_build.py",
            "ops/cuda_kernels.py", "pipeline/__init__.py",
            "pipeline/distributed.py", "pipeline/ra_device.py",
            "pipeline/realtime.py",

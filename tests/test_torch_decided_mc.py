@@ -145,7 +145,7 @@ def on_standin(standin, monkeypatch):
     def kind(name, *tensors):
         return "cuda" if name in DECIDED else real_kind(name, *tensors)
 
-    def launch(name, dev, *args):
+    def launch(name, dev, *args, words=None):
         err = standin[name](*args, None)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
@@ -223,10 +223,19 @@ def jax_zone_mc(args, mv_r, mv_c, ref_sel):
     return out
 
 
-def zone_kernel(args):
-    """The wrapper's call on the dispatch's arguments."""
-    return K.mode_decide_mc(*args[:18], P.CAND_RATE_PROXY, *args[18:24],
-                            _kernel_grid(args[18], args[25]))
+def _row(args, i, sc=None):
+    """``args`` with the plain version's lam at ``i`` replaced by the
+    step's row of scalars the wrappers take (``sc``, or a new one)."""
+    if sc is None:
+        sc = P.step_scalars(40, 48, args[i], 0, 0, 0)
+    return (*args[:i], sc, *args[i + 1:])
+
+
+def zone_kernel(args, sc=None):
+    """The wrapper's call on the dispatch's arguments (the lam as the
+    step's row ``sc``)."""
+    return K.mode_decide_mc(*_row(args[:18], 12, sc), P.CAND_RATE_PROXY,
+                            *args[18:24], _kernel_grid(args[18], args[25]))
 
 
 def _same(got, want, msg=""):
@@ -289,10 +298,12 @@ def jax_children_mc(args, sel, mv_r, mv_c):
     return out
 
 
-def children_kernel(args):
-    """The wrapper's call on the dispatch's arguments."""
-    return K.descent_decide_mc(*args[:13], CHILD_PROXY, *args[13:19],
-                               _kernel_grid(args[13], args[20]), *args[21:])
+def children_kernel(args, sc=None):
+    """The wrapper's call on the dispatch's arguments (the lam as the
+    step's row ``sc``)."""
+    return K.descent_decide_mc(*_row(args[:13], 10, sc), CHILD_PROXY,
+                               *args[13:19], _kernel_grid(args[13], args[20]),
+                               *args[21:])
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +344,13 @@ def test_descent_decide_mc_ref_matches_jax(with_rates):
 
 
 def test_dispatches_take_the_plain_compositions_on_the_cpu():
+    """The dispatches (the step's row of scalars for the plain versions'
+    lam) on CPU tensors give the plain compositions."""
     args, _ = zone_args("n32-tables-golden-altref", seed=3)
-    _same(P.mode_decide_mc(*args), P.mode_decide_mc_ref(*args))
+    _same(P.mode_decide_mc(*_row(args, 12)), P.mode_decide_mc_ref(*args))
     cargs, _, _ = children_args(4, True)
-    _same(P.descent_decide_mc(*cargs), P.descent_decide_mc_ref(*cargs))
+    _same(P.descent_decide_mc(*_row(cargs, 10)),
+          P.descent_decide_mc_ref(*cargs))
 
 
 # ---------------------------------------------------------------------------
@@ -398,10 +412,10 @@ def _raw_zone_outputs(standin, monkeypatch, args, b_buf):
             torch.full((b_buf, nc, nc), 0x5A, dtype=torch.uint8)]
     sent = []
 
-    def launch(name, dev, address, *floats):
+    def launch(name, dev, address, *floats, words=None):
         words = list((ctypes.c_int64 * 66).from_address(address))
         # the predictions' words, then mv, ref_sel and mv16's
-        for at, t in zip((12, 13, 14, 34, 35, 36),
+        for at, t in zip((12, 13, 14, 35, 36, 37),
                          (*outs[3:], *outs[:3])):
             words[at] = t.data_ptr()
         sent.append(standin[name]((ctypes.c_int64 * 66)(*words), *floats,
@@ -573,7 +587,7 @@ def test_decided_launch_arguments_and_counter(monkeypatch):
     each counted as mc_predict's; a launch that fails raises."""
     calls = []
 
-    def launch(name, dev, address, *floats):
+    def launch(name, dev, address, *floats, words=None):
         size = {"mode_decide_mc": 66, "descent_decide_mc": 55}[name]
         calls.append((name, list((ctypes.c_int64 * size).from_address(
             address)), floats))
@@ -583,8 +597,9 @@ def test_decided_launch_arguments_and_counter(monkeypatch):
     args, _ = zone_args("n32-tables-golden-altref", seed=150)
     cargs, _, _ = children_args(151, True)
     before = K.mc_predict.launches
-    zone_kernel(args)
-    children_kernel(cargs)
+    sc = P.step_scalars(40, 48, 300, 0, 0, 0)
+    zone_kernel(args, sc)
+    children_kernel(cargs, sc)
     assert [c[0] for c in calls] == list(DECIDED)
     assert K.mc_predict.launches == before + 2
     grid = _kernel_grid(args[18], args[25])
@@ -603,8 +618,10 @@ def test_decided_launch_arguments_and_counter(monkeypatch):
         *(t.data_ptr() for t in args[17]), rates["scalars"].data_ptr(),
         rates["joint_cost"].data_ptr(), rates["nmv_row"].data_ptr(),
         rates["nmv_col"].data_ptr(), 0, args[13].data_ptr()]
-    assert zone_w[37:] == mc_ints + [args[9], args[10], args[11], args[12],
-                                     1, P.MVD_MAX + 1]
+    # the step's row after the decision's inputs; no lam among the ints
+    assert zone_w[34] == sc.data_ptr()
+    assert zone_w[38:] == mc_ints + [args[9], args[10], args[11], 1,
+                                     P.MVD_MAX + 1]
     assert zone_f == tuple(float(P.CAND_RATE_PROXY[i]) for i in (0, 3, 4))
     cgrid = _kernel_grid(cargs[13], cargs[20])
     _, child_w, child_f = calls[1]
@@ -616,14 +633,15 @@ def test_decided_launch_arguments_and_counter(monkeypatch):
     assert child_w[12:27] == [t.data_ptr() for t in (
         *cargs[:10], cargs[11], crates["scalars"], crates["joint_cost"],
         crates["nmv_row"], crates["nmv_col"])]
-    assert child_w[29:] == [nch, 16, *cgrid[:2],
+    assert child_w[27] == sc.data_ptr()
+    assert child_w[30:] == [nch, 16, *cgrid[:2],
                             *(v for spec in cgrid[2:] for v in spec),
                             P.WIN_R, P.CHROMA_WIN_R,
                             *(t.shape[1] for t in cargs[13][0]),
-                            cargs[17], cargs[18], 1, 300, P.MVD_MAX + 1]
+                            cargs[17], cargs[18], 1, P.MVD_MAX + 1]
     assert child_f == CHILD_PROXY
 
-    def refused(name, dev, *a):
+    def refused(name, dev, *a, words=None):
         raise RuntimeError(f"{name}: CUDA launch failed with error 9")
 
     monkeypatch.setattr(K, "_launch", refused)
@@ -662,11 +680,11 @@ def test_wrapper_refusals(on_standin):
         zone_kernel((*a[:18], [planes[0], tuple(
             p[1:].contiguous() for p in planes[1]), planes[2]], *a[19:]))
     with pytest.raises(ValueError, match="leave"):
-        K.mode_decide_mc(*a[:18], P.CAND_RATE_PROXY, *a[18:24],
+        K.mode_decide_mc(*_row(a[:18], 12), P.CAND_RATE_PROXY, *a[18:24],
                          (4, 6, (32, 120, 200, 52), *_kernel_grid(
                              planes, a[25])[3:]))
     with pytest.raises(ValueError, match="n=8"):
-        K.mode_decide_mc(*a[:18], P.CAND_RATE_PROXY, *a[18:21], 8,
+        K.mode_decide_mc(*_row(a[:18], 12), P.CAND_RATE_PROXY, *a[18:21], 8,
                          *a[22:24], _kernel_grid(planes, a[25]))
     cargs, _, _ = children_args(161, True)
     c = list(cargs)

@@ -628,8 +628,9 @@ def test_encode_children_masked_matches_jax(geom, with_rates):
     rates = P.upload_rate_tabs(tabs, "cpu") if with_rates else None
     tsrc = [_t(a) for a in src]
     tlast = [_t(a) for a in last]
-    z = P.encode_zone(*tsrc, *tlast, _t(prev), g, dc_q, ac_q, lam, filt, nb,
-                      rates=rates, return_me=True)
+    sc = P.step_scalars(dc_q, ac_q, lam, 0, 0, 0)
+    z = P.encode_zone(*tsrc, *tlast, _t(prev), g, sc, filt, nb, rates=rates,
+                      return_me=True)
     me = {k: z[k] for k in ("wins", "dy", "dx", "planes", "grid")}
     # the JAX children read LAST's chroma MC windows, which the port's
     # MC reads in place in LAST's planes at the zone's grid
@@ -640,8 +641,8 @@ def test_encode_children_masked_matches_jax(geom, with_rates):
     assert all(a is b for a, b in zip(me["planes"], tlast))
     sel = _edge_sel(g, np.random.default_rng(23))
     got = P.encode_children_masked(
-        *tsrc, tlast[0], me, z["mv"].to(torch.int32), _t(sel), g, dc_q,
-        ac_q, lam, filt, nb, rates=rates)
+        *tsrc, tlast[0], me, z["mv"].to(torch.int32), _t(sel), g, sc, filt,
+        nb, rates=rates)
     jrates = None if tabs is None or not with_rates else {
         k: (jnp.asarray(v) if k != "mv_cost_max" else v)
         for k, v in tabs.items()}
@@ -687,7 +688,8 @@ def test_pframe_step_matches_jax_at_the_overhang_geometry():
     pstep = P.make_pframe_step(g, "cpu", split16=True, with_rates=True,
                                descend_frac=2)
     pouts, prefs = pstep(*(_t(a) for a in src + last), _t(prev),
-                         torch.zeros((1, 2), dtype=torch.int32), *scalars,
+                         torch.zeros((1, 2), dtype=torch.int32),
+                         P.step_scalars(*scalars),
                          P.upload_rate_tabs(tabs, "cpu"))
     for k in ("sel_idx", "mv", "skip", "eob_y", "eob_u", "eob_v", "lv_y",
               "lv_u", "lv_v"):

@@ -51,6 +51,12 @@ SW = 32 + 2 * P.WIN_R + 8  # the parents' windows
 EDGE = 8 * P.WIN_R + 6  # the largest parent MV, q3
 PROXY = (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4])
 
+
+def _sc(lam):
+    """The step's row of scalars with ``lam``, as the wrappers take it
+    (the plain versions take ``lam`` itself)."""
+    return P.step_scalars(40, 48, lam, 0, 0, 0)
+
 # the stand-in's launch helpers: every CTA of the grid (the gather's a CTA
 # per parent, the split's a warp per selected parent), one after another,
 # but the pack's, kPackAtOnce CTAs at once (each with its own shared
@@ -349,7 +355,7 @@ def test_decide_on_standin_matches_plain(on_standin, kind, with_rates):
     rates = P.upload_rate_tabs(rate_tabs(4), "cpu") if with_rates else None
     nb = P.new_bits_table("cpu")
     for lam in (300, 40_000):
-        got = on_standin.descent_decide(*args, lam, nb, rates, PROXY)
+        got = on_standin.descent_decide(*args, _sc(lam), nb, rates, PROXY)
         want = P.descent_decide_ref(*args, lam, nb, rates)
         _same(got, want, f"lam {lam}")
     if kind == "random":  # PARENT won from beyond the map's reach
@@ -382,11 +388,11 @@ def test_decide_on_standin_ties_take_the_first(on_standin, with_rates):
     fx = (((par_c + 4) >> 3) - base_x).clamp(-8, 8) + 8
     ssem[torch.arange(n), fy, fx] = top - rate[2] - src2
     nb = P.new_bits_table("cpu")
-    got = on_standin.descent_decide(*args, 1, nb, rates, PROXY)
+    got = on_standin.descent_decide(*args, _sc(1), nb, rates, PROXY)
     _same(got, P.descent_decide_ref(*args, 1, nb, rates))
     assert not got[0].any() and not got[1].any()
     zero += 1
-    got = on_standin.descent_decide(*args, 1, nb, rates, PROXY)
+    got = on_standin.descent_decide(*args, _sc(1), nb, rates, PROXY)
     _same(got, P.descent_decide_ref(*args, 1, nb, rates))
     assert torch.equal(got[0], base_y * 8 + sub_r)
 
@@ -417,7 +423,7 @@ def _split_in_place(k_mod, args, lam, g):
     blocks of the 32 grid (Y, U, V) that must have stayed as they were
     (not selected, or selected and not split) held byte for byte."""
     planes = [t.clone() for t in args[5:8]]
-    got = k_mod.descent_split(*args[:5], *planes, *args[8:], lam, g,
+    got = k_mod.descent_split(*args[:5], *planes, *args[8:], _sc(lam), g,
                               P.SPLIT_RATE_EXTRA)
     assert all(a is b for a, b in zip(got[1:], planes))  # in place
     want = P.descent_split_ref(*args, lam, g)
@@ -489,8 +495,9 @@ def _step_args(w, h, seed, golden):
     ac_q = T.ac_quant(qidx)
     return g, [*src, *refs,
                _t(rng.integers(-64, 65, (g.n_blocks32, 2)).astype(np.int32)),
-               torch.zeros((1, 2), dtype=torch.int32), T.dc_quant(qidx),
-               ac_q, max(1, (ac_q ** 2) >> 6), 20, 3, 40,
+               torch.zeros((1, 2), dtype=torch.int32),
+               P.step_scalars(T.dc_quant(qidx), ac_q,
+                              max(1, (ac_q ** 2) >> 6), 20, 3, 40),
                P.upload_rate_tabs(rate_tabs(seed), "cpu")]
 
 
@@ -526,14 +533,22 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
     extra = {"descent_gather": (P.BORDER,), "descent_decide": (PROXY,),
              "descent_split": (P.SPLIT_RATE_EXTRA,)}
     split_ref, split_in = P.descent_split_ref, []
+    # the plain versions take lam where the wrappers take the step's row
+    lam_at = {"descent_decide": 10, "descent_split": 11}
+
+    def as_row(name, a):
+        i = lam_at.get(name)
+        return a if i is None else (*a[:i], _sc(a[i]), *a[i + 1:])
+
     for name in NAMES:
         monkeypatch.setattr(P, f"{name}_ref",
-                            lambda *a, w=getattr(K, name),
-                            e=extra.get(name, ()): w(*a, *e))
+                            lambda *a, w=getattr(K, name), nm=name,
+                            e=extra.get(name, ()): w(*as_row(nm, a), *e))
 
     def split(*a):
         split_in.append((*a[:5], *(t.clone() for t in a[5:8]), *a[8:]))
-        return K.descent_split(*a, P.SPLIT_RATE_EXTRA)
+        return K.descent_split(*as_row("descent_split", a),
+                               P.SPLIT_RATE_EXTRA)
 
     monkeypatch.setattr(P, "descent_split_ref", split)
     got_outs, got_refs = step(*args)
@@ -582,16 +597,16 @@ def test_wrappers_refuse_a_strided_plane_and_wrong_dtypes(on_standin):
     d = decide_args(16, seed=22)
     nb = P.new_bits_table("cpu")
     with pytest.raises(TypeError, match="int32"):
-        on_standin.descent_decide(d[0], d[1].long(), *d[2:], 9, nb, None,
+        on_standin.descent_decide(d[0], d[1].long(), *d[2:], _sc(9), nb, None,
                                   PROXY)
     with pytest.raises(TypeError, match="float32"):
-        on_standin.descent_decide(*d, 9, nb.double(), None, PROXY)
+        on_standin.descent_decide(*d, _sc(9), nb.double(), None, PROXY)
     rates = P.upload_rate_tabs(rate_tabs(1), "cpu")
     with pytest.raises(TypeError, match="nmv_row"):
-        on_standin.descent_decide(*d, 9, nb, dict(
+        on_standin.descent_decide(*d, _sc(9), nb, dict(
             rates, nmv_row=rates["nmv_row"][:-1]), PROXY)
     with pytest.raises(TypeError, match="lam_bits"):
-        on_standin.descent_decide(*d, 9, nb, dict(
+        on_standin.descent_decide(*d, _sc(9), nb, dict(
             rates, lam_bits=torch.ones(16)), PROXY)
     p = pack_args(2, seed=23)
     with pytest.raises(TypeError, match="int16"):
@@ -600,11 +615,11 @@ def test_wrappers_refuse_a_strided_plane_and_wrong_dtypes(on_standin):
         on_standin.descent_pack(*(t[:7] for t in p))
     g, s = split_args(128, 96, seed=24)
     with pytest.raises(TypeError, match="int64"):
-        on_standin.descent_split(*s[:2], s[2].to(torch.int32), *s[3:], 9, g,
+        on_standin.descent_split(*s[:2], s[2].to(torch.int32), *s[3:], _sc(9), g,
                                  P.SPLIT_RATE_EXTRA)
     with pytest.raises(ValueError, match="contiguous"):
         on_standin.descent_split(*s[:5], s[5].t().contiguous().t(), *s[6:],
-                                 9, g, P.SPLIT_RATE_EXTRA)
+                                 _sc(9), g, P.SPLIT_RATE_EXTRA)
 
 
 def _shifted(t, by):
@@ -644,7 +659,7 @@ def test_wrappers_refuse_unaligned_words(on_standin):
         bad = list(s)
         bad[i] = _shifted(s[i], 8)
         with pytest.raises(ValueError, match="16-byte boundary"):
-            on_standin.descent_split(*bad, 9, g, P.SPLIT_RATE_EXTRA)
+            on_standin.descent_split(*bad, _sc(9), g, P.SPLIT_RATE_EXTRA)
     # the pack: the levels, rec_y and csrc on 16 bytes, rec_u and rec_v on 8
     p = pack_args(3, seed=36)
     for i, by, to in ((3, 8, 16), (4, 2, 16), (5, 8, 16), (6, 8, 16),
@@ -689,9 +704,9 @@ def test_mvd_past_the_table_fails_the_launch(on_standin):
     with pytest.raises(IndexError):
         P.descent_decide_ref(*d, 100, nb)
     with pytest.raises(RuntimeError, match="launch failed"):
-        on_standin.descent_decide(*d, 100, nb, None, PROXY)
+        on_standin.descent_decide(*d, _sc(100), nb, None, PROXY)
     par_r[3] += 1
-    _same(on_standin.descent_decide(*d, 100, nb, None, PROXY),
+    _same(on_standin.descent_decide(*d, _sc(100), nb, None, PROXY),
           P.descent_decide_ref(*d, 100, nb))
 
 
@@ -709,7 +724,7 @@ def test_parent_index_past_the_zone_fails_the_launch(on_standin):
     with pytest.raises(IndexError):
         P.descent_split_ref(*s, 9, g)
     with pytest.raises(RuntimeError, match="launch failed"):
-        on_standin.descent_split(*s, 9, g, P.SPLIT_RATE_EXTRA)
+        on_standin.descent_split(*s, _sc(9), g, P.SPLIT_RATE_EXTRA)
 
 
 def test_wrappers_take_cuda_tensors_only():
@@ -720,7 +735,7 @@ def test_wrappers_take_cuda_tensors_only():
         K.descent_pack(*pack_args(2, seed=29))
     d = decide_args(8, seed=30)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        K.descent_decide(*d, 9, P.new_bits_table("cpu"), None, PROXY)
+        K.descent_decide(*d, _sc(9), P.new_bits_table("cpu"), None, PROXY)
     g, s = split_args(128, 96, seed=31)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        K.descent_split(*s, 9, g, P.SPLIT_RATE_EXTRA)
+        K.descent_split(*s, _sc(9), g, P.SPLIT_RATE_EXTRA)

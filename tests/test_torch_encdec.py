@@ -319,8 +319,8 @@ def test_transform_recon_matches_jax_but_for_boundary_flips(qindex):
         lv_j, eob_j, rec_j = J.transform_recon(
             jnp.asarray(src), jnp.asarray(pred), jnp.int32(dc_q),
             jnp.int32(ac_q), n)
-        lv_p, eob_p, rec_p = P.transform_recon(_t(src), _t(pred), dc_q,
-                                               ac_q, n)
+        lv_p, eob_p, rec_p = P.transform_recon(
+            _t(src), _t(pred), P.step_scalars(dc_q, ac_q, 0, 0, 0, 0), n)
         lv_j = np.asarray(lv_j)
         flips = np.argwhere(lv_p.numpy() != lv_j)
         # JAX's own float32 quantizer input at every flip
@@ -463,8 +463,10 @@ def test_loop_filter_matches_jax_and_host_oracle(dims):
         want = fn(*[jnp.asarray(p) for p in dev], jnp.int32(lvl),
                   jnp.int32(int(lim_t[lvl])), jnp.int32(int(mblim_t[lvl])))
         ins = [_t(p) for p in dev]
-        got = P.loop_filter_device(*ins, P.make_geom(*dims), lvl,
-                                   int(lim_t[lvl]), int(mblim_t[lvl]))
+        got = P.loop_filter_device(
+            *ins, P.make_geom(*dims),
+            P.step_scalars(40, 48, 100, lvl, int(lim_t[lvl]),
+                           int(mblim_t[lvl])))
         for gp, w, i, d, h in zip(got, want, ins, dev, host):
             _eq(gp, w)
             _eq(i, d)  # the inputs are left as they were
@@ -484,20 +486,23 @@ def test_loop_filter_refuses_strip_geometry():
     c = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)
     mask = torch.ones((g.rows32, g.cols32), dtype=torch.int32)
     with pytest.raises(ValueError, match="strip"):
-        P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
-    assert len(P.loop_filter_device(y, c, c, g, 10, 5, 20)) == 3
+        P.loop_filter_device(y, c, c, g, P.step_scalars(40, 50, 39, 10, 5,
+                                                        20), split32=mask)
+    assert len(P.loop_filter_device(
+        y, c, c, g, P.step_scalars(40, 50, 39, 10, 5, 20))) == 3
     prev = torch.zeros((g.n_blocks32, 2), dtype=torch.int32)
     prev16 = torch.zeros((g.cols16, 2), dtype=torch.int32)
     refs = [P.extend_borders_device(p, g.width >> k, g.height >> k)
             for k, p in ((0, y), (1, c), (1, c))]
-    outs, new = P.make_pframe_step(g, "cpu")(y, c, c, *refs, prev, prev16,
-                                             40, 50, 39, 10, 5, 20)
+    outs, new = P.make_pframe_step(g, "cpu")(
+        y, c, c, *refs, prev, prev16, P.step_scalars(40, 50, 39, 10, 5, 20))
     assert tuple(outs["m16"]["mv"].shape) == (g.cols16, 2)
     assert tuple(outs["rec_y"].shape) == (g.pad_h, g.pad_w)
     assert [tuple(t.shape) for t in new] == [tuple(t.shape) for t in refs]
     with pytest.raises(ValueError, match="strip"):
         P.make_pframe_step(g, "cpu", split16=True)(
-            y, c, c, *refs, prev, prev16, 40, 50, 39, 10, 5, 20)
+            y, c, c, *refs, prev, prev16,
+            P.step_scalars(40, 50, 39, 10, 5, 20))
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +538,7 @@ def test_pframe_step_matches_jax_step():
                            *[jnp.int32(v) for v in q])
     outs_p, new_p = P.make_pframe_step(gp, "cpu")(
         *[_t(p) for p in src], *refs_p, _t(prev),
-        torch.zeros((1, 2), dtype=torch.int32), *q)
+        torch.zeros((1, 2), dtype=torch.int32), P.step_scalars(*q))
     zj, zp = outs_j["m32"], outs_p["m32"]
     for k in ("mv", "skip", "eob_y", "eob_u", "eob_v", "lv_y", "lv_u",
               "lv_v", "dist_b", "rate_b"):

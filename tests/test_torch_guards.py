@@ -96,7 +96,7 @@ WRAPPERS = ("sad_full_search", "block_energy", "block_energy_at",
             "openloop_modes", "mc_predict", "descent_gather",
             "descent_decide", "descent_pack", "descent_split",
             "mode_decide", "extract_windows", "extend_borders",
-            "mode_decide_mc", "descent_decide_mc")
+            "mode_decide_mc", "descent_decide_mc", "aq_scale")
 
 
 def _functions(path):
@@ -144,7 +144,7 @@ def test_wrappers_cover_every_kernel_source():
     assert {"loop_filter", "kframe_wave", "transform_recon",
             "subpel_search", "openloop_modes", "mc_predict",
             "descent", "mode_decide", "windows"} <= sources
-    assert len(sources) == 13
+    assert len(sources) == 14
     assert set(K._LAUNCHERS) == set(WRAPPERS)
     fns = _functions(KERNELS_PY)
     for name in WRAPPERS:
@@ -241,6 +241,7 @@ STEP_DISPATCH = {
     "extract_windows": ("extract_windows", ("zone_search", "_altref_search"),
                         ("mc_predict_planes_ref",)),
     "extend_borders": ("extend_borders", ("pframe_step", "kframe_step"), ()),
+    "aq_scale": ("aq_scale", ("_aq_rates",), ()),
 }
 # the plain versions not named ``<kernel>_ref``
 PLAIN = {"extract_windows": "_extract_search_windows",
@@ -349,6 +350,55 @@ def test_decided_mc_dispatches_have_no_route_from_cuda_to_the_plain_version(
     _check_step_dispatch(name)
 
 
+def test_aq_scale_dispatch_has_no_route_from_cuda_to_the_plain_version():
+    _check_step_dispatch("aq_scale")
+    # the zone's rates read no sums back: the scale is the dispatch's
+    called = _called(_functions(ENCDEC_PY)["_aq_rates"])
+    assert "_sb_lambda_scale" not in called and "cpu" not in called
+
+
+# the wrappers of the step's kernels that once took per-frame host numbers
+ROW_WRAPPERS = ("loop_filter", "kframe_wave", "transform_recon",
+                "descent_decide", "descent_split", "mode_decide",
+                "mode_decide_mc", "descent_decide_mc")
+
+
+@pytest.mark.parametrize("name", ROW_WRAPPERS)
+def test_step_kernels_take_the_row_of_scalars(name):
+    """No per-frame value is a launch argument: each wrapper checks the
+    step's row (``_want_row``) and hands its kernel the row's pointer; it
+    reads no value of the row and takes no lam, quantizer or filter
+    level."""
+    fn = _functions(KERNELS_PY)[name]
+    src = ast.unparse(fn)
+    assert "_want_row" in _called(fn), name
+    assert "sc.data_ptr()" in src, name
+    params = {a.arg for a in fn.args.args}
+    assert "sc" in params
+    assert not params & {"lam", "dc_q", "ac_q", "lvl", "lim", "mblim"}
+    assert not [n for n in ("sc.tolist", "sc.item", "int(sc", "sc.cpu")
+                if n in src]
+
+
+@pytest.mark.parametrize("dispatch", (
+    "transform_recon", "loop_filter_device", "kframe_wave_device",
+    "mode_decide", "mode_decide_mc", "descent_decide", "descent_decide_mc",
+    "descent_split"))
+def test_step_dispatches_read_the_row_on_the_cpu_only(dispatch):
+    """The dispatches take the row and read its values (``_row_ints``)
+    only inside the branch where every tensor lies on the CPU."""
+    fn = _functions(ENCDEC_PY)[dispatch]
+    assert "sc" in {a.arg for a in fn.args.args}
+    guarded = set()
+    for sub in ast.walk(fn):
+        if isinstance(sub, ast.If) and "cpu" in ast.unparse(sub.test):
+            for stmt in sub.body:
+                guarded.update(id(n) for n in ast.walk(stmt))
+    reads = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and ast.unparse(n.func) == "_row_ints"]
+    assert reads and all(id(n) in guarded for n in reads)
+
+
 def test_steps_make_no_standalone_decision():
     """The decisions run inside their MC launches: no step calls the
     standalone decisions or the MC without one, neither the dispatch nor
@@ -431,12 +481,17 @@ def _fake_cuda_kframe_wave(monkeypatch, launch):
     return K, g, planes
 
 
+# a step's row of scalars (quantizers 93 and 112, lambda 196)
+SC = torch.tensor([93, 112, 196, 10, 5, 20], dtype=torch.int32)
+
+
 def test_kframe_wave_on_cuda_launches_once_per_diagonal(monkeypatch):
     """Every anti-diagonal of the grid in one launch: a keyframe is one
     launch of a CTA per block row (the kernel walks the diagonals itself),
-    with its geometry, quantizers, lambda and poll limit, and with zeroed
-    scratch: the sync words (ticket, error word), then the edge words; the
-    status word it hands back is the scratch's error word."""
+    with its geometry and poll limit, the step's row of scalars (its
+    quantizers and lambda, read on the card) and zeroed scratch: the sync
+    words (ticket, error word), then the edge words; the status word it
+    hands back is the scratch's error word."""
     import ctypes
 
     calls = []
@@ -444,14 +499,15 @@ def test_kframe_wave_on_cuda_launches_once_per_diagonal(monkeypatch):
         monkeypatch, lambda name, dev, *args: calls.append((name, args)))
     before = K.kframe_wave.launches
     status = []
-    out = K.kframe_wave(*planes, g, 93, 112, 196, status)
+    out = K.kframe_wave(*planes, g, SC, status)
     assert [c[0] for c in calls] == ["kframe_wave"]
     assert K.kframe_wave.launches - before == 1
     args = calls[0][1]
-    assert len(args) == 15 + 8
-    assert args[15:] == (g.pad_w, g.height, g.rows32, g.cols32, 93, 112,
-                         196, K.KF_MAX_POLLS)
-    ptrs = args[:15]
+    assert len(args) == 16 + 5
+    assert args[16:] == (g.pad_w, g.height, g.rows32, g.cols32,
+                         K.KF_MAX_POLLS)
+    ptrs = args[:16]
+    assert ptrs[15] == SC.data_ptr()
     assert ptrs[:3] == tuple(p.data_ptr() for p in planes)
     assert ptrs[3:6] == tuple(t.data_ptr() for t in out[7:10])
     assert ptrs[6] == out[0].data_ptr()
@@ -480,9 +536,9 @@ def test_kframe_wave_raises_when_the_error_word_is_set(monkeypatch):
 
     K, g, planes = _fake_cuda_kframe_wave(monkeypatch, timed_out)
     with pytest.raises(RuntimeError, match="block row 2 gave up"):
-        K.kframe_wave(*planes, g, 93, 112, 196)
+        K.kframe_wave(*planes, g, SC)
     status = []
-    K.kframe_wave(*planes, g, 93, 112, 196, status)
+    K.kframe_wave(*planes, g, SC, status)
     with pytest.raises(RuntimeError, match="incomplete"):
         K.kf_check_status(status[0])
     K.kf_check_status(torch.zeros(1, dtype=torch.int32))
@@ -494,7 +550,7 @@ def test_kframe_wave_on_cuda_raises_when_the_launch_fails(monkeypatch):
 
     K, g, planes = _fake_cuda_kframe_wave(monkeypatch, refused)
     with pytest.raises(RuntimeError, match="launch failed"):
-        K.kframe_wave(*planes, g, 93, 112, 196)
+        K.kframe_wave(*planes, g, SC)
 
 
 def test_keyframe_fetch_checks_the_wave_error_word_first():
@@ -515,14 +571,14 @@ def _meta_stage_inputs(name):
     """Arguments of the step's dispatch ``name`` as tensors that do not lie
     on the CPU (meta tensors: shapes and dtypes, no data), at the M8
     zone's shape."""
-    from tpu_vp9_torch.bitstream import tables as T
+    from tpu_vp9_torch.ops.cuda_kernels import STEP_SCALARS
 
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
 
     if name == "transform_recon":
         return (meta((6, 32, 32), torch.uint8), meta((6, 32, 32), torch.uint8),
-                T.dc_quant(120), T.ac_quant(120), 32)
+                meta((len(STEP_SCALARS),), torch.int32), 32)
     if name == "mc_predict":
         # LAST's bordered planes of a 128x96 frame, the filters the plain
         # version would take, the 32 zone's grid of 3 x 4 windows, no
@@ -568,11 +624,12 @@ def test_stage_dispatch_sends_non_cpu_tensors_to_one_launch(monkeypatch,
     assert [c[0] for c in calls] == [name]
     assert getattr(K, name).launches - before == 1
     assert len(out) == 3 and all(t.device.type == "meta" for t in out)
-    # the launcher's ints: blocks, then n and the quantizers, n and r, or
-    # n, the window grid (rows, cols, each plane's step, SW, y0 and x0 as
+    # the launcher's ints: the transform type, blocks and n (the
+    # quantizers are the step's row's), blocks, n and r, or blocks, n, the
+    # window grid (rows, cols, each plane's step, SW, y0 and x0 as
     # _extract_search_windows cuts them), the reaches, the planes' pitches
     # and the frame's mode-info size
-    want = {"transform_recon": (6, 32, args[2], args[3]),
+    want = {"transform_recon": (0, 6, 32),
             "subpel_search": (6, 32, 4),
             "mc_predict": (6, 32, 3, 4, 32, 120, 52, 52, 16, 66, 71, 71, 16,
                            66, 71, 71, 40, 21, 320, 256, 256, 12, 16)}[name]
@@ -590,6 +647,7 @@ def _meta_descent_inputs(name):
 
     g = P.make_geom(128, 96)
     u8 = torch.uint8
+    row = meta((len(P.cuda_kernels.STEP_SCALARS),))  # the step's scalars
     if name == "descent_gather":
         return ((meta((3,)), meta((12, 120, 120), u8), meta((12,)),
                  meta((12,)), meta((12, 2)), meta((128, 128), u8),
@@ -597,9 +655,9 @@ def _meta_descent_inputs(name):
                  meta((96 + 2 * P.BORDER, 128 + 2 * P.BORDER), u8), g),
                 (3, 12, 120, 4, 128, 64, 128 + 2 * P.BORDER, P.BORDER))
     if name == "descent_decide":
-        return ((meta((12, 17, 17)), *(meta((12,)) for _ in range(9)), 300,
+        return ((meta((12, 17, 17)), *(meta((12,)) for _ in range(9)), row,
                  meta((P.MVD_MAX + 1,), torch.float32), None),
-                (0.0, 2.0, 4.0, 12, 0, 300, 0, 0, 0, 0, P.MVD_MAX + 1))
+                (2.0, 4.0, 12, 0, P.MVD_MAX + 1))
     if name == "descent_pack":
         return ((*(meta((12,)) for _ in range(3)),
                  meta((12, 16, 16), torch.int16),
@@ -610,8 +668,8 @@ def _meta_descent_inputs(name):
              meta((3,), torch.int64), meta((3,), torch.int64),
              meta((96, 128), u8), meta((48, 64), u8), meta((48, 64), u8),
              meta((3, 32, 32), u8), meta((3, 16, 16), u8),
-             meta((3, 16, 16), u8), 300, g),
-            (P.SPLIT_RATE_EXTRA, 3, 12, 4, 300, 12))
+             meta((3, 16, 16), u8), row, g),
+            (P.SPLIT_RATE_EXTRA, 3, 12, 4, 12))
 
 
 @pytest.mark.parametrize("name", DESCENT)
@@ -681,7 +739,7 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("ops.cuda_kernels", "ops.txfm", "pipeline.tpu_encdec",
               "pipeline.realtime", "app", "native", "decoder.decoder",
-              "bitstream.tables", "codec.inter_frame"):
+              "bitstream.tables", "codec.inter_frame", "graft_entry"):
         assert f"tpu_vp9_torch.{m}" in mods
     code = _BLOCK_JAX + textwrap.dedent(f"""
         import importlib

@@ -155,7 +155,7 @@ def test_kframe_step_matches_jax(w, h, qidx):
     sc = _scalars(qidx)
     jouts, jrefs = _jax_step(w, h, planes, sc)
     pouts, prefs = P.make_kframe_step(g, "cpu")(
-        *(torch.from_numpy(p) for p in planes), *sc)
+        *(torch.from_numpy(p) for p in planes), P.step_scalars(*sc))
     jm, pm = jouts["m32"], pouts["m32"]
     assert set(pm) == set(jm)
     for k in ("lv_y", "lv_u", "lv_v"):
@@ -201,13 +201,14 @@ def test_kframe_wave_on_cpu_is_the_plain_version():
     g, planes = _planes(96, 64, seed=5)
     ts = [torch.from_numpy(p) for p in planes]
     before = K.kframe_wave.launches
-    got = P.kframe_wave_device(*ts, g, 93, 112, 196)
+    sc = P.step_scalars(93, 112, 196, 10, 5, 20)
+    got = P.kframe_wave_device(*ts, g, sc)
     want = P.kframe_wave_ref(*ts, g, 93, 112, 196)
     assert K.kframe_wave.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        K.kframe_wave(*ts, g, 93, 112, 196)
+        K.kframe_wave(*ts, g, sc)
     assert K.kframe_wave.launches == before
 
 
@@ -222,12 +223,12 @@ def test_kframe_strip_geometry_is_refused():
     planes = [torch.zeros((g.pad_h, g.pad_w), dtype=torch.uint8),
               torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8),
               torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)]
-    outs, refs = step(*planes, 93, 112, 196, 10, 5, 20)
+    outs, refs = step(*planes, P.step_scalars(93, 112, 196, 10, 5, 20))
     assert tuple(outs["m16"]["mode"].shape) == (g.cols16,)
     assert tuple(outs["m16"]["lv_y"].shape) == (g.cols16, 16, 16)
     assert tuple(outs["rec_y"].shape) == (g.pad_h, g.pad_w)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        K.kframe_wave(*planes, g, 93, 112, 196)
+        K.kframe_wave(*planes, g, P.step_scalars(93, 112, 196, 10, 5, 20))
     # 176x144 has a strip too, but its width is no multiple of 32: the
     # geometry itself is refused first, in both packages
     for make in (P.make_geom, J.make_geom):

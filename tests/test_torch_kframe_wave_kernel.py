@@ -49,6 +49,7 @@ NO_TIMEOUT = 1 << 30
 # did not finish (its threads are then left behind)
 _DRIVER = """
 }  // namespace
+#include <array>
 #include <chrono>
 #include <future>
 extern "C" int standin_run(
@@ -57,13 +58,18 @@ extern "C" int standin_run(
     void* lv_v, void* eob, const void* mats, const void* tabs, void* edge,
     void* sync, int src_pitch, int height, int rows, int cols, int dc_q,
     int ac_q, int lam, int max_polls, int grid, int timeout_ms) {
+  // the step's row, kept alive for threads a timed-out launch leaves
+  auto sc = std::make_shared<std::array<int, step_row::kWords>>();
+  (*sc)[step_row::kDcQ] = dc_q;
+  (*sc)[step_row::kAcQ] = ac_q;
+  (*sc)[step_row::kLam] = lam;
   const Params P = make_params(src_y, src_u, src_v, rec_y, rec_u, rec_v,
                                mode, lv_y, lv_u, lv_v, eob, mats, tabs, edge,
-                               sync, src_pitch, height, rows, cols, dc_q,
-                               ac_q, lam, max_polls);
+                               sync, sc->data(), src_pitch, height, rows,
+                               cols, max_polls);
   auto done = std::make_shared<std::promise<void>>();
   std::future<void> finished = done->get_future();
-  std::thread runner([P, grid, done] {
+  std::thread runner([P, grid, done, sc] {
     standin_launch_all(grid, %(threads)d, [P] { kframe_wave_kernel(P); });
     done->set_value();
   });

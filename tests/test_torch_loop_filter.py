@@ -28,6 +28,12 @@ from tpu_vp9_torch.pipeline import tpu_encdec as P
 
 torch.set_num_threads(1)
 
+
+def _sc(lvl, lim, mblim):
+    """The step's row of scalars with the loop filter's level and limits,
+    as the dispatch and the wrapper take them."""
+    return P.step_scalars(40, 48, 100, lvl, lim, mblim)
+
 # the last is no wider than 64: one superblock column, no band
 DIMS = [(128, 128), (192, 120), (160, 96), (96, 64), (64, 64)]
 # geometries with the strip (mi_rows % 4 == 2), the third one tile column
@@ -205,7 +211,7 @@ def test_a_strip_geometry_with_a_mask_is_refused(device):
     mask = torch.zeros((g.rows32, g.cols32), dtype=torch.int32,
                        device=device)
     with pytest.raises(ValueError, match="strip"):
-        P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
+        P.loop_filter_device(y, c, c, g, _sc(10, 5, 20), split32=mask)
     if device == "cpu":
         with pytest.raises(ValueError, match="strip"):
             P.loop_filter_ref(y, c, c, g, 10, 5, 20, split32=mask)
@@ -281,7 +287,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch, with_mask):
 
     monkeypatch.setattr(P, "loop_filter", no_kernel)
     before = K.loop_filter.launches
-    got = P.loop_filter_device(*planes, g, 20, 7, 50, split32=mask)
+    got = P.loop_filter_device(*planes, g, _sc(20, 7, 50), split32=mask)
     want = P.loop_filter_ref(*planes, g, 20, 7, 50, split32=mask)
     assert K.loop_filter.launches == before
     for a, b in zip(got, want):
@@ -305,7 +311,7 @@ def test_other_devices_never_take_the_plain_version(monkeypatch, where):
             for n, t in zip(names, planes + [mask])]
     before = K.loop_filter.launches
     with pytest.raises(ValueError, match="device"):
-        P.loop_filter_device(*args[:3], g, 20, 7, 50, split32=args[3])
+        P.loop_filter_device(*args[:3], g, _sc(20, 7, 50), split32=args[3])
     assert K.loop_filter.launches == before
 
 
@@ -324,21 +330,22 @@ def test_the_step_calls_the_dispatch_once(monkeypatch):
     calls = []
     real = P.loop_filter_device
 
-    def record(y, u, v, geom, lvl, lim, mblim, split32=None):
-        calls.append((lvl, lim, mblim, split32))
-        return real(y, u, v, geom, lvl, lim, mblim, split32=split32)
+    def record(y, u, v, geom, sc, split32=None):
+        calls.append((*sc.tolist()[P.SC_LF_LVL:], split32))
+        return real(y, u, v, geom, sc, split32=split32)
 
     monkeypatch.setattr(P, "loop_filter_device", record)
     prev16 = torch.zeros((1, 2), dtype=torch.int32)
-    P.make_pframe_step(g, "cpu")(*src, *refs, prev, prev16, 40, 50, 39, 10,
-                                 5, 20)
+    P.make_pframe_step(g, "cpu")(*src, *refs, prev, prev16,
+                                 P.step_scalars(40, 50, 39, 10, 5, 20))
     assert len(calls) == 1 and calls[0][:3] == (10, 5, 20)
     assert calls[0][3] is None
     from tpu_vp9_torch.bitstream import tables as T
     rates = P.upload_rate_tabs(
         P.make_rate_tabs(T.default_frame_context(), 100), "cpu")
     P.make_pframe_step(g, "cpu", split16=True, golden=True)(
-        *src, *refs, *refs, prev, prev16, 40, 50, 39, 10, 5, 20, rates)
+        *src, *refs, *refs, prev, prev16,
+        P.step_scalars(40, 50, 39, 10, 5, 20), rates)
     assert len(calls) == 2
     assert tuple(calls[1][3].shape) == (g.rows32, g.cols32)
 
@@ -410,7 +417,7 @@ def test_wrapper_refuses(case):
     args, exc, match = _bad_call(case)
     before = K.loop_filter.launches
     with pytest.raises(exc, match=match):
-        K.loop_filter(*args[:7], split32=args[7])
+        K.loop_filter(*args[:4], _sc(*args[4:7]), split32=args[7])
     assert K.loop_filter.launches == before
 
 
@@ -426,19 +433,20 @@ def test_dispatch_refuses_strip_geometry_on_any_device():
         mask = torch.ones((g.rows32, g.cols32), dtype=torch.int32,
                           device=dev)
         with pytest.raises(ValueError, match="strip"):
-            P.loop_filter_device(y, c, c, g, 10, 5, 20, split32=mask)
+            P.loop_filter_device(y, c, c, g, _sc(10, 5, 20), split32=mask)
         if dev == "cpu":
-            out = P.loop_filter_device(y, c, c, g, 10, 5, 20)
+            out = P.loop_filter_device(y, c, c, g, _sc(10, 5, 20))
             assert all(torch.equal(a, b) for a, b in zip(out, (y, c, c)))
         else:
             with pytest.raises(ValueError, match="device"):
-                P.loop_filter_device(y, c, c, g, 10, 5, 20)
+                P.loop_filter_device(y, c, c, g, _sc(10, 5, 20))
 
 
 def test_launcher_table_names_the_loop_filter():
     lib, sym, n_ptr, n_float, n_int = K._LAUNCHERS["loop_filter"]
     assert (lib, sym) == ("loop_filter", "loop_filter_launch")
-    # y, u, v, three outputs and the mask; the geometry (the strip's top
-    # among it), the three filter parameters and the parts mask
-    assert (n_ptr, n_float, n_int) == (7, 0, 11)
+    # y, u, v, three outputs, the mask and the step's row of scalars (the
+    # level and limits); the geometry (the strip's top among it) and the
+    # parts mask
+    assert (n_ptr, n_float, n_int) == (8, 0, 8)
     assert K.LF_ALL_PARTS == sum(K.LF_PARTS.values())

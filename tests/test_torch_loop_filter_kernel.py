@@ -63,9 +63,13 @@ extern "C" int standin_run(const void* y, const void* u, const void* v,
                            const void* split, int pad_h, int pad_w, int h_mi,
                            int w_mi, int strip_y, int rows32, int cols32,
                            int lvl, int lim, int blim) {
-  const Params P = make_params(y, u, v, out_y, out_u, out_v, split, pad_h,
-                               pad_w, h_mi, w_mi, strip_y, rows32, cols32,
-                               lvl, lim, blim, 3);
+  int sc[step_row::kWords] = {};
+  sc[step_row::kLfLvl] = lvl;
+  sc[step_row::kLfLim] = lim;
+  sc[step_row::kLfMblim] = blim;
+  const Params P = make_params(y, u, v, out_y, out_u, out_v, split, sc,
+                               pad_h, pad_w, h_mi, w_mi, strip_y, rows32,
+                               cols32, 3);
   if (split != nullptr)
     standin_launch_all(2 * P.ncol * P.nrow, %(threads)d,
                        [P] { loop_filter_kernel<1>(P); });
@@ -190,4 +194,5 @@ def test_a_strip_geometry_with_a_mask_is_refused_before_the_kernel():
     c = torch.zeros((g.pad_h // 2, g.pad_w // 2), dtype=torch.uint8)
     mask = torch.zeros((g.rows32, g.cols32), dtype=torch.int32)
     with pytest.raises(ValueError, match="strip"):
-        K.loop_filter(y, c, c, g, 10, 5, 20, mask)
+        K.loop_filter(y, c, c, g, P.step_scalars(40, 48, 100, 10, 5, 20),
+                      mask)

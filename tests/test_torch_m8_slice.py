@@ -212,7 +212,7 @@ def test_m8_step_matches_jax_step(w, h, seed):
     pouts, prefs = pstep(
         *(torch.from_numpy(a) for a in src + last + gold),
         torch.from_numpy(prev), torch.zeros((1, 2), dtype=torch.int32),
-        *scalars, P.upload_rate_tabs(tabs, "cpu"))
+        P.step_scalars(*scalars), P.upload_rate_tabs(tabs, "cpu"))
 
     def eq(got, want, msg):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want),
@@ -253,8 +253,9 @@ def test_m8_children_match_jax_children():
     rates = P.upload_rate_tabs(tabs, "cpu")
     tsrc = [torch.from_numpy(a) for a in src]
     tlast = [torch.from_numpy(a) for a in last]
-    z = P.encode_zone(*tsrc, *tlast, torch.from_numpy(prev), g, dc_q, ac_q,
-                      lam, filt, nb, rates=rates, return_me=True)
+    sc = P.step_scalars(dc_q, ac_q, lam, 0, 0, 0)
+    z = P.encode_zone(*tsrc, *tlast, torch.from_numpy(prev), g, sc, filt, nb,
+                      rates=rates, return_me=True)
     me = {k: z[k] for k in ("wins", "dy", "dx", "planes", "grid")}
     # the JAX children read LAST's chroma MC windows, which the port's
     # MC reads in place in LAST's planes at the zone's grid
@@ -266,7 +267,7 @@ def test_m8_children_match_jax_children():
     sel = np.array([5, 0, 10], np.int32)  # out of raster order on purpose
     got = P.encode_children_masked(
         *tsrc, tlast[0], me, z["mv"].to(torch.int32), torch.from_numpy(sel),
-        g, dc_q, ac_q, lam, filt, nb, rates=rates)
+        g, sc, filt, nb, rates=rates)
     jrates = {k: (jnp.asarray(v) if k != "mv_cost_max" else v)
               for k, v in tabs.items()}
     fn = jax.jit(lambda sy, su, sv, ry, pme, pmv, si: J.encode_children_masked(

@@ -290,8 +290,9 @@ def test_device_lf_split_matches_host_oracle(dims):
                               True)
         dev = [_t(P.pad_plane(p, *shp)) for p, shp in zip(planes, shapes)]
         before = [d.clone() for d in dev]
-        out = P.loop_filter_device(*dev, g, lvl, int(lim_t[lvl]),
-                                   int(mblim_t[lvl]), split32=_t(split))
+        out = P.loop_filter_device(
+            *dev, g, P.step_scalars(40, 48, 100, lvl, int(lim_t[lvl]),
+                                    int(mblim_t[lvl])), split32=_t(split))
         for d, b in zip(dev, before):  # the inputs are not modified
             assert torch.equal(d, b)
         for k, (o, hst) in enumerate(zip(out, host)):
@@ -306,8 +307,9 @@ def test_device_lf_all_zero_split_equals_no_split():
            ((g.pad_h, g.pad_w), (g.pad_h // 2, g.pad_w // 2),
             (g.pad_h // 2, g.pad_w // 2))]
     zero = torch.zeros((g.rows32, g.cols32), dtype=torch.int32)
-    a = P.loop_filter_device(*dev, g, 20, 5, 30)
-    b = P.loop_filter_device(*dev, g, 20, 5, 30, split32=zero)
+    sc = P.step_scalars(40, 48, 100, 20, 5, 30)
+    a = P.loop_filter_device(*dev, g, sc)
+    b = P.loop_filter_device(*dev, g, sc, split32=zero)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert not torch.equal(a[0], dev[0])  # the filter did something
@@ -334,22 +336,22 @@ def test_step_argument_forms():
     # a strip)
     prev = (torch.zeros((g.n_blocks32, 2), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32))
-    scalars = (40, 50, 39, 10, 5, 20)
+    scalars = (P.step_scalars(40, 50, 39, 10, 5, 20),)
     rates = P.upload_rate_tabs(
         P.make_rate_tabs(T.default_frame_context(), 100), "cpu")
     plain = P.make_pframe_step(g, "cpu")
     outs, new_refs = plain(*src, *refs, *prev, *scalars)
     assert set(outs) == {"m32", "rec_y", "rec_u", "rec_v"}
     assert tuple(new_refs[0].shape) == tuple(refs[0].shape)
-    with pytest.raises(TypeError, match="14 arguments"):
+    with pytest.raises(TypeError, match="9 arguments"):
         plain(*src, *refs, *prev, *scalars, rates)
     tabled = P.make_pframe_step(g, "cpu", with_rates=True)
     outs_t, _ = tabled(*src, *refs, *prev, *scalars, rates)
     assert outs_t["m32"]["mv"].shape == outs["m32"]["mv"].shape
-    with pytest.raises(TypeError, match="15 arguments"):
+    with pytest.raises(TypeError, match="10 arguments"):
         tabled(*src, *refs, *prev, *scalars)
     golden = P.make_pframe_step(g, "cpu", split16=True, golden=True)
-    with pytest.raises(TypeError, match="18 arguments"):
+    with pytest.raises(TypeError, match="13 arguments"):
         golden(*src, *refs, *prev, *scalars, rates)
     outs_g, _ = golden(*src, *refs, *refs, *prev, *scalars, rates)
     assert {"m16f", "split32"} <= set(outs_g)

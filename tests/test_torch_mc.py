@@ -432,7 +432,8 @@ def test_zone_code_mc_is_todays(monkeypatch, n, with_gold):
     monkeypatch.setattr(P, "extract_windows", record_cut)
     b = g.n_blocks32 if n == 32 else g.cols16
     out = P.encode_zone(*src, *last, torch.zeros((b, 2), dtype=torch.int32),
-                        g, T.dc_quant(QINDEX), T.ac_quant(QINDEX), 300,
+                        g, P.step_scalars(T.dc_quant(QINDEX),
+                                          T.ac_quant(QINDEX), 300, 0, 0, 0),
                         FILTERS_T, P.new_bits_table("cpu"),
                         gold=gold if with_gold else None, alt=alt,
                         rates=rates, n=n)
@@ -467,8 +468,8 @@ def test_children_mc_reads_parent_windows_by_index(monkeypatch):
     outs, _ = step(*src, *last, torch.zeros((g.n_blocks32, 2),
                                             dtype=torch.int32),
                    torch.zeros((1, 2), dtype=torch.int32),
-                   T.dc_quant(QINDEX), T.ac_quant(QINDEX), 300, 20, 3, 40,
-                   rates)
+                   P.step_scalars(T.dc_quant(QINDEX), T.ac_quant(QINDEX), 300,
+                                  20, 3, 40), rates)
     assert len(calls) == 2  # the zone's, then the children's
     zone_args, _, _ = calls[0]
     args, kw, got = calls[1]

@@ -369,12 +369,12 @@ def test_altref_decide_matches_jax(dims, n):
 
 def test_mode_decide_dispatch_takes_the_plain_version_on_the_cpu():
     args, kw, _ = case_inputs("n32-tables-golden-altref", seed=3)
-    got = P.mode_decide(*args, **kw)
+    got = P.mode_decide(*_row(args), **kw)
     want = P.mode_decide_ref(*args, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="rate tables"):
-        P.mode_decide(*args, **dict(kw, rates=None))
+        P.mode_decide(*_row(args), **dict(kw, rates=None))
 
 
 def test_rate_scalars_row_holds_the_host_numbers():
@@ -429,7 +429,7 @@ def on_standin(standin, monkeypatch):
     def kind(name, *tensors):
         return "cuda" if name == "mode_decide" else real_kind(name, *tensors)
 
-    def launch(name, dev, *args):
+    def launch(name, dev, *args, words=None):
         err = standin(*args, None)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
@@ -439,10 +439,17 @@ def on_standin(standin, monkeypatch):
     return K
 
 
+def _row(args):
+    """The plain version's arguments with its lam (at 12) as the step's
+    row of scalars, which the dispatch and the wrapper take."""
+    return (*args[:12], P.step_scalars(40, 48, args[12], 0, 0, 0),
+            *args[13:])
+
+
 def kernel(args, kw):
     """The wrapper's call on the dispatch's arguments."""
-    return K.mode_decide(*args, kw["rates"], kw["left_edge"], kw["gold_sse"],
-                         kw["alt"], P.CAND_RATE_PROXY)
+    return K.mode_decide(*_row(args), kw["rates"], kw["left_edge"],
+                         kw["gold_sse"], kw["alt"], P.CAND_RATE_PROXY)
 
 
 def _same(got, want, msg=""):

@@ -72,6 +72,18 @@ def _decode(pkts, w, h):
     return list(decode_ivf(buf))
 
 
+def _snapshot(args):
+    """Step arguments with copies of their tensors and of the rate tables'
+    dict."""
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if isinstance(a, dict):
+            return {k: copy(v) for k, v in a.items()}
+        return a
+    return tuple(copy(a) for a in args)
+
+
 def _run(sess, frames, w, h, on_step=None):
     """Encode ``frames``; returns (packets, {poc: coded frame}, {poc: kept
     reference picture}, decode order of the coded P-frames). ``on_step``
@@ -99,7 +111,9 @@ def _run(sess, frames, w, h, on_step=None):
 
         def call(*args):
             outs, refs = step(*args)
-            on_step(order[-1], (golden, altref), args, outs)
+            # the session refills its row of scalars and its rate tables
+            # in place for the next frame: the step's own are kept
+            on_step(order[-1], (golden, altref), _snapshot(args), outs)
             return outs, refs
         return call
 
@@ -200,7 +214,7 @@ def _jax_args(args, n_refs):
     prev_mv, prev16 = (jnp.asarray(a.numpy()) for a in
                        args[3 + n_refs:5 + n_refs])
     scalars = [jnp.asarray(int(v), jnp.int32)
-               for v in args[5 + n_refs:11 + n_refs]]
+               for v in args[5 + n_refs].tolist()]
     r = args[-1]
     rates = [jnp.asarray(np.asarray(r["mode_cost"], np.int32)),
              jnp.asarray(r["joint_cost"].numpy()),
@@ -338,7 +352,8 @@ def test_encode_zone_with_altref_matches_jax(w, h, n, with_gold):
         return tuple(torch.from_numpy(p) for p in pl)
 
     got = P.encode_zone(
-        *t(src), *t(last), torch.from_numpy(prev), g, dc_q, ac_q, lam,
+        *t(src), *t(last), torch.from_numpy(prev), g,
+        P.step_scalars(dc_q, ac_q, lam, 0, 0, 0),
         torch.as_tensor(np.asarray(P.FILTERS, np.int32)),
         P.new_bits_table("cpu"), gold=t(gold) if with_gold else None,
         alt=t(alt), rates=P.upload_rate_tabs(tabs, "cpu"), n=n)
@@ -364,7 +379,7 @@ def test_encode_zone_altref_needs_rate_tables():
     t = [torch.from_numpy(p) for p in src + last]
     with pytest.raises(ValueError, match="rate tables"):
         P.encode_zone(*t, torch.zeros((g.n_blocks32, 2), dtype=torch.int32),
-                      g, 40, 50, 25, torch.as_tensor(
+                      g, P.step_scalars(40, 50, 25, 0, 0, 0), torch.as_tensor(
                           np.asarray(P.FILTERS, np.int32)),
                       P.new_bits_table("cpu"),
                       alt=tuple(torch.from_numpy(p) for p in alt))

@@ -196,7 +196,7 @@ def test_aq_step_matches_jax_step():
                                          "lam_bits")))
     args = (*(torch.from_numpy(a) for a in src + last + gold),
             torch.from_numpy(prev), torch.zeros((1, 2), dtype=torch.int32),
-            *scalars, P.upload_rate_tabs(tabs, "cpu"))
+            P.step_scalars(*scalars), P.upload_rate_tabs(tabs, "cpu"))
     pouts, prefs = P.make_pframe_step(g, "cpu", split16=True, golden=True,
                                       aq=True)(*args)
 

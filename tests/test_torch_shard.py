@@ -136,7 +136,8 @@ def _run_port(w, h, n_frame, n_tile, golden, inputs):
 
     args = [planes(src, i) for i in range(3)] + \
         [planes(ref, i) for i in range(3)] + \
-        [torch.from_numpy(pm), torch.from_numpy(pm16), *_scalars()]
+        [torch.from_numpy(pm), torch.from_numpy(pm16),
+         P.step_scalars(*_scalars())]
     if golden:
         args += [planes(gold, i) for i in range(3)]
         args.append(P.upload_rate_tabs(
@@ -198,7 +199,7 @@ def test_sharded_step_equals_the_single_device_step():
     single = P.make_pframe_step(g, "cpu", golden=True)
     sharded = S.make_rt_step_sharded(g, (1, 4), "cpu", golden=True)
     args = (*ext(ref[0]), *ext(gold[0]), torch.from_numpy(pm[0]),
-            torch.from_numpy(pm16[0]), *_scalars(), rates)
+            torch.from_numpy(pm16[0]), P.step_scalars(*_scalars()), rates)
     src_t = tuple(torch.from_numpy(p) for p in src[0])
     want, want_refs = single(*src_t, *args)
     got, got_refs = sharded(*src_t, *args)

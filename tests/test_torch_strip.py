@@ -147,6 +147,7 @@ def test_strip_zone_matches_jax_zone(with_gold):
     frame's rate tables."""
     w, h = STRIP_DIMS[0]
     g, src, last, gold, _, prev16, tabs = _step_inputs(w, h, seed=w + h)
+    sc = P.step_scalars(*_scalars(120))
     dc_q, ac_q, lam = _scalars(120)[:3]
     filt = torch.as_tensor(np.asarray(P.FILTERS, np.int32))
     kw = {}
@@ -157,8 +158,8 @@ def test_strip_zone_matches_jax_zone(with_gold):
         jkw = dict(gold=tuple(jnp.asarray(p) for p in gold),
                    rates=_jax_rates(tabs))
     got = P.encode_zone(*(_t(p) for p in src), *(_t(p) for p in last),
-                        _t(prev16), g, dc_q, ac_q, lam, filt,
-                        P.new_bits_table("cpu"), n=16, **kw)
+                        _t(prev16), g, sc, filt, P.new_bits_table("cpu"),
+                        n=16, **kw)
     fn = jax.jit(lambda s, l, pm: J.encode_zone(
         *s, *l, pm, J.make_geom(w, h), 16, jnp.int32(dc_q), jnp.int32(ac_q),
         jnp.int32(lam), P.FILTERS, **jkw))
@@ -196,13 +197,14 @@ def test_pframe_step_matches_jax_step(m8, dims):
                                              "ref_cost", "lam_bits")))
         pouts, prefs = P.make_pframe_step(g, "cpu", golden=True)(
             *(_t(a) for a in src + last + gold), _t(prev32), _t(prev16),
-            *scalars, P.upload_rate_tabs(tabs, "cpu"))
+            P.step_scalars(*scalars), P.upload_rate_tabs(tabs, "cpu"))
     else:
         jouts, jrefs = jstep(
             *jsrc, jnp.asarray(prev32), jnp.asarray(prev16),
             *(jnp.asarray(v, jnp.int32) for v in scalars))
         pouts, prefs = P.make_pframe_step(g, "cpu")(
-            *(_t(a) for a in src + last), _t(prev32), _t(prev16), *scalars)
+            *(_t(a) for a in src + last), _t(prev32), _t(prev16),
+            P.step_scalars(*scalars))
     assert set(pouts) == {"m32", "m16", "rec_y", "rec_u", "rec_v"}
     for zone in ("m32", "m16"):
         for k in ZONE_KEYS:
@@ -234,8 +236,8 @@ def test_kframe_step_matches_jax_step(dims, qindex):
     jouts, jrefs = J.make_kframe_step(J.make_geom(w, h))(
         *(jnp.asarray(p) for p in src),
         *(jnp.int32(v) for v in (dc_q, ac_q, lam, *lf)))
-    pouts, prefs = P.make_kframe_step(g, "cpu")(*(_t(p) for p in src), dc_q,
-                                                ac_q, lam, *lf)
+    pouts, prefs = P.make_kframe_step(g, "cpu")(
+        *(_t(p) for p in src), P.step_scalars(dc_q, ac_q, lam, *lf))
     for zone in ("m32", "m16"):
         for k in KEY_KEYS:
             _eq(pouts[zone][k], jouts[zone][k], f"{zone} {k}")
@@ -367,7 +369,8 @@ def test_kernel_wrapper_refuses_a_type_it_has_no_instance_of(n, tx_type):
     wrapper refuses any other type before it looks at the device."""
     src = torch.zeros((2, n, n), dtype=torch.uint8)
     with pytest.raises(ValueError, match="tx_type"):
-        K.transform_recon(src, src, 40, 48, n, tx_type)
+        K.transform_recon(src, src, P.step_scalars(40, 48, 0, 0, 0, 0), n,
+                          tx_type)
 
 
 # ---------------------------------------------------------------------------

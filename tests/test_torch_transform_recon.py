@@ -137,7 +137,8 @@ def test_dispatch_takes_the_plain_version_for_cpu_blocks(monkeypatch):
     monkeypatch.setattr(P, "transform_recon_ref",
                         lambda *a: calls.append(1) or real(*a))
     monkeypatch.setattr(K, "_launch", lambda *a: pytest.fail("launched"))
-    got = P.transform_recon(_t(src), _t(pred), 40, 48, 16)
+    got = P.transform_recon(_t(src), _t(pred),
+                            P.step_scalars(40, 48, 0, 0, 0, 0), 16)
     assert calls == [1]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -146,7 +147,8 @@ def test_dispatch_takes_the_plain_version_for_cpu_blocks(monkeypatch):
 def test_dispatch_refuses_blocks_on_two_devices():
     src = torch.zeros((2, 8, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="different devices"):
-        P.transform_recon(src, src.to("meta"), 40, 48, 8)
+        P.transform_recon(src, src.to("meta"),
+                          P.step_scalars(40, 48, 0, 0, 0, 0), 8)
 
 
 def test_kframe_wave_ref_runs_the_plain_transform(monkeypatch):
@@ -182,8 +184,8 @@ def test_kernel_wrapper_refuses_bad_arguments(bad, err):
     src = torch.zeros((2, n, n), dtype=bad.get("dtype", torch.uint8))
     pred = torch.zeros(bad.get("pred_shape", (2, n, n)), dtype=src.dtype)
     with pytest.raises((ValueError, TypeError), match=err):
-        K.transform_recon(src, pred, bad.get("dc_q", 40),
-                          bad.get("ac_q", 48), n)
+        K.transform_recon(src, pred, P.step_scalars(
+            bad.get("dc_q", 40), bad.get("ac_q", 48), 0, 0, 0, 0), n)
 
 
 # ---------------------------------------------------------------------------

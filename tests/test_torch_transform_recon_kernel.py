@@ -44,6 +44,9 @@ extern "C" int standin_run(const uint8_t* src, const uint8_t* pred,
                            const int* iscan, int16_t* levels, int* eob,
                            uint8_t* recon, int nblk, int n, int tt,
                            int dc_q, int ac_q, int vec, int grid) {
+  int sc[step_row::kWords] = {};
+  sc[step_row::kDcQ] = dc_q;
+  sc[step_row::kAcQ] = ac_q;
   switch (n + 64 * tt) {
 %s
     default:
@@ -55,8 +58,8 @@ extern "C" int standin_run(const uint8_t* src, const uint8_t* pred,
 _CASE = """    case %(n)d + 64 * %(tt)d:
       standin_launch(grid, %(threads)d, [&] {
         transform_recon_kernel<%(n)d, %(tt)d>(src, pred, f_col, f_dct, iscan,
-                                            levels, eob, recon, nblk, dc_q,
-                                            ac_q, vec);
+                                            levels, eob, recon, sc, nblk,
+                                            vec);
       });
       break;"""
 

@@ -268,7 +268,7 @@ def on_standin(standin, monkeypatch):
         return "cuda" if name in NAMES + DECIDED else real_kind(name,
                                                                  *tensors)
 
-    def launch(name, dev, *args):
+    def launch(name, dev, *args, words=None):
         err = standin[name](*args, None)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
@@ -505,8 +505,9 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
     prev32 = torch.zeros((g.n_blocks32, 2), dtype=torch.int32)
     prev16 = torch.zeros((max(1, g.cols16 if g.strip else 1), 2),
                          dtype=torch.int32)
-    args = [*src, *refs, prev32, prev16, T.dc_quant(qidx), ac_q,
-            max(1, (ac_q ** 2) >> 6), 20, 3, 40, rates]
+    args = [*src, *refs, prev32, prev16,
+            P.step_scalars(T.dc_quant(qidx), ac_q, max(1, (ac_q ** 2) >> 6),
+                           20, 3, 40), rates]
     step = P.make_pframe_step(g, "cpu", split16=split16, golden=golden,
                               with_rates=True, altref=altref,
                               descend_frac=frac, aq=aq)
@@ -518,15 +519,20 @@ def test_step_with_the_standin_kernels_matches_plain(on_standin, monkeypatch,
                                 tuple(grid))
 
     # the dispatches' plain versions taking the wrappers, with the
-    # constants and the window grid the dispatches hand them
+    # constants and the window grid the dispatches hand them, and the
+    # step's row in place of the lam the plain versions take
+    sc = args[len(src) + len(refs) + 2]
+
     monkeypatch.setattr(
         P, "mode_decide_mc_ref",
-        lambda *a: K.mode_decide_mc(*a[:18], P.CAND_RATE_PROXY, *a[18:24],
+        lambda *a: K.mode_decide_mc(*a[:12], sc, *a[13:18],
+                                    P.CAND_RATE_PROXY, *a[18:24],
                                     kernel_grid(a[18], a[25])))
     monkeypatch.setattr(
         P, "descent_decide_mc_ref",
         lambda *a: K.descent_decide_mc(
-            *a[:13], (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4]),
+            *a[:10], sc, *a[11:13],
+            (P.CAND_RATE_PROXY[0], P.CAND_RATE_PROXY[4]),
             *a[13:19], kernel_grid(a[13], a[20]), *a[21:]))
     monkeypatch.setattr(
         P, "extract_windows",

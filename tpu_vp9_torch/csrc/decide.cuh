@@ -35,14 +35,16 @@
 //     signalling cost replaces the best so far on a strict <.
 //  The signalling costs: f32(ref_cost) * lam_bits / 256 with the tables,
 //  0, 2 lam, 2 lam without. lam_bits is the frame's (the word of the
-//  scalars row) or, at tune SQ, the block's own (lam_vec).
+//  scalars row) or, at tune SQ, the block's own (lam_vec); lam is the
+//  step's row's (step_scalars.cuh), read without the tables.
 // The children's child c: ZERO, NEW and PARENT. PARENT's SSE is its
 // rounded full-pel entry of the child's 17 x 17 map (clamped to the map)
 // plus sum(src^2); NEW's MV is (s - 32) * 8 plus the quarter-pel winner.
 // With the rate tables the cost is f32(sse) + (lam_bits * f32(rate)) /
 // 256, NEW's rate the mode's plus its mvd bits against PARENT; without,
 // f32(sse) + f32(lam) * rate, NEW's rate new_bits[|dr| + |dc|]. The first
-// minimum wins.
+// minimum wins. lam_bits and the mode costs come from the scalars row,
+// lam from the step's row: no per-frame value is a launch argument.
 // Every product, quotient and sum rounds on its own (__fmul_rn, __fdiv_rn,
 // __fadd_rn: nvcc would contract a*b + c into an FMA), int32 to float32 by
 // round-to-nearest (__int2float_rn: a 32x32 SSE passes 2^24), in the plain
@@ -56,6 +58,7 @@
 
 #pragma once
 
+#include "step_scalars.cuh"
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -99,12 +102,13 @@ struct Zone {
   const int* nmv_col;
   const float* lam_vec;   // (B,) at tune SQ, else null
   const float* new_bits;  // (n_new_bits,) the NEW proxy by mvd
+  const int* step;        // the step's row (its lam read without rates)
   float rz, rp, rs;       // the proxies of ZERO, PREV, LEFT and ABOVE
-  int b, rows, cols, r_map, q3_shift, sse_scale, lam, with_rates,
-      n_new_bits;
+  int b, rows, cols, r_map, q3_shift, sse_scale, with_rates, n_new_bits;
 };
 
-// What the children's decision reads, but its rate scalars (ChildRates).
+// What the children's decision reads (its rate scalars through
+// child_rates).
 struct Children {
   const int* ssem;      // (nch, 17, 17) the children's relative-SSE maps
   const int* sse_zero;  // (nch,) each
@@ -117,11 +121,13 @@ struct Children {
   const int* par_r;     // the parent's MV, q3
   const int* par_c;
   const float* new_bits;    // (n_new_bits,) NEW's rate proxy by mvd
+  const int* scalars;       // (9,) with rates: the scalars row
   const int* joint_cost;    // (4,) with rates
   const int* nmv_row;       // (2 * mv_cost_max + 1,) with rates
   const int* nmv_col;
+  const int* step;          // the step's row (its lam read without rates)
   float rate_zero, rate_parent;  // the proxies, without rates
-  int with_rates, lam, n_new_bits;
+  int with_rates, n_new_bits;
 };
 
 // The children's rate scalars: lam_bits and the mode costs of ZERO, NEW
@@ -275,7 +281,7 @@ __device__ __forceinline__ Choice zone(const Zone& a, int i, int lane) {
       __trap();
       return {0, 0, 0, false};
     }
-    lam = __int2float_rn(a.lam);
+    lam = __int2float_rn(__ldg(a.step + step_row::kLam));
     // the proxies: rz, new_bits[mvd], rp, rs, rs; GOLDEN's rz, rp
     const float rate = k == 0   ? a.rz
                        : k == 1 ? (grp == 0 ? __ldg(a.new_bits + mvd) : a.rp)
@@ -360,7 +366,7 @@ __device__ __forceinline__ Choice child(const Children& a,
       __trap();
       return {0, 0, 0, false};
     }
-    const float lam = __int2float_rn(a.lam);
+    const float lam = __int2float_rn(__ldg(a.step + step_row::kLam));
     c0 = proxy_cost(sse0, lam, a.rate_zero);
     c1 = proxy_cost(sse1, lam, __ldg(a.new_bits + mvd));
     c2 = proxy_cost(sse2, lam, a.rate_parent);
@@ -392,10 +398,10 @@ inline bool zone_args(Zone& d, const void* ssem, const void* src2m,
                       const void* alt_new_c, const void* scalars,
                       const void* joint_cost, const void* nmv_row,
                       const void* nmv_col, const void* lam_vec,
-                      const void* new_bits, float rz, float rp, float rs,
-                      int b, int rows, int cols, int r_map, int q3_shift,
-                      int sse_scale, int lam, int with_rates,
-                      int n_new_bits) {
+                      const void* new_bits, const void* step, float rz,
+                      float rp, float rs, int b, int rows, int cols,
+                      int r_map, int q3_shift, int sse_scale,
+                      int with_rates, int n_new_bits) {
   d.ssem = static_cast<const int*>(ssem);
   d.src2m = static_cast<const int*>(src2m);
   d.sse_zero = static_cast<const int*>(sse_zero);
@@ -415,6 +421,7 @@ inline bool zone_args(Zone& d, const void* ssem, const void* src2m,
   d.nmv_col = static_cast<const int*>(nmv_col);
   d.lam_vec = static_cast<const float*>(lam_vec);
   d.new_bits = static_cast<const float*>(new_bits);
+  d.step = static_cast<const int*>(step);
   d.rz = rz;
   d.rp = rp;
   d.rs = rs;
@@ -424,7 +431,6 @@ inline bool zone_args(Zone& d, const void* ssem, const void* src2m,
   d.r_map = r_map;
   d.q3_shift = q3_shift;
   d.sse_scale = sse_scale;
-  d.lam = lam;
   d.with_rates = with_rates;
   d.n_new_bits = n_new_bits;
   const bool alt = alt_sse0 != nullptr;
@@ -434,7 +440,7 @@ inline bool zone_args(Zone& d, const void* ssem, const void* src2m,
                     alt_new_c == nullptr || !with_rates)) ||
            (with_rates && (scalars == nullptr || joint_cost == nullptr ||
                            nmv_row == nullptr || nmv_col == nullptr)) ||
-           (!with_rates && new_bits == nullptr));
+           (!with_rates && (new_bits == nullptr || step == nullptr)));
 }
 
 // The children's decision arguments as a launcher takes them (descent.cu:
@@ -445,9 +451,10 @@ inline bool children_args(Children& d, const void* ssem,
                           const void* src2, const void* base_y,
                           const void* base_x, const void* par_r,
                           const void* par_c, const void* new_bits,
-                          const void* joint_cost, const void* nmv_row,
-                          const void* nmv_col, float rate_zero,
-                          float rate_parent, int with_rates, int lam,
+                          const void* scalars, const void* joint_cost,
+                          const void* nmv_row, const void* nmv_col,
+                          const void* step, float rate_zero,
+                          float rate_parent, int with_rates,
                           int n_new_bits) {
   d.ssem = static_cast<const int*>(ssem);
   d.sse_zero = static_cast<const int*>(sse_zero);
@@ -460,16 +467,18 @@ inline bool children_args(Children& d, const void* ssem,
   d.par_r = static_cast<const int*>(par_r);
   d.par_c = static_cast<const int*>(par_c);
   d.new_bits = static_cast<const float*>(new_bits);
+  d.scalars = static_cast<const int*>(scalars);
   d.joint_cost = static_cast<const int*>(joint_cost);
   d.nmv_row = static_cast<const int*>(nmv_row);
   d.nmv_col = static_cast<const int*>(nmv_col);
+  d.step = static_cast<const int*>(step);
   d.rate_zero = rate_zero;
   d.rate_parent = rate_parent;
   d.with_rates = with_rates;
-  d.lam = lam;
   d.n_new_bits = n_new_bits;
-  return !(with_rates && (joint_cost == nullptr || nmv_row == nullptr ||
-                          nmv_col == nullptr));
+  return !(with_rates ? (scalars == nullptr || joint_cost == nullptr ||
+                         nmv_row == nullptr || nmv_col == nullptr)
+                      : (new_bits == nullptr || step == nullptr));
 }
 
 }  // namespace decide

@@ -227,7 +227,6 @@ __global__ void __launch_bounds__(kGatherThreads)
 // The decision's inputs (decide.cuh), its rate scalars from the host and
 // the launch's outputs.
 struct DecideArgs : decide::Children {
-  decide::ChildRates rates;  // read with rates only
   int* mv;                   // (2, nch): rows, then columns
   int16_t* mv16;             // (nch, 2)
   int nch;
@@ -237,7 +236,9 @@ __global__ void __launch_bounds__(kDecideThreads)
     descent_decide_kernel(DecideArgs a) {
   const int c = blockIdx.x * kDecideThreads + threadIdx.x;
   if (c >= a.nch) return;
-  const decide::Choice ch = decide::child(a, a.rates, c);
+  decide::ChildRates r = {0.0f, 0, 0, 0, 0};
+  if (a.with_rates) r = decide::child_rates(a.scalars);
+  const decide::Choice ch = decide::child(a, r, c);
   if (!ch.ok) return;
   a.mv[c] = ch.r;
   a.mv[a.nch + c] = ch.c;
@@ -350,8 +351,9 @@ struct SplitArgs {
   uint8_t* rec_y;          // the zone's recon planes (rows32 * 32,
   uint8_t* rec_u;          // cols32 * 32) and (rows32 * 16, cols32 * 16),
   uint8_t* rec_v;          // written in place
+  const int* step;         // the step's row: lam (step_scalars.cuh)
   float extra;             // the split's extra rate
-  int k, nb32, cols32, lam, limit;  // limit: blocks from it never split
+  int k, nb32, cols32, limit;  // limit: blocks from it never split
 };
 
 __global__ void __launch_bounds__(kSplitThreads)
@@ -364,7 +366,7 @@ __global__ void __launch_bounds__(kSplitThreads)
     __trap();
     return;
   }
-  const float lam = __int2float_rn(a.lam);
+  const float lam = __int2float_rn(__ldg(a.step + step_row::kLam));
   const float c32 = __fadd_rn(__int2float_rn(a.dist_b[b]),
                               __fmul_rn(lam, __ll2float_rn(a.rate_b[b])));
   const float c16 = __fadd_rn(
@@ -473,29 +475,30 @@ extern "C" int descent_gather_launch(
 
 // nch children: ssem (nch, 17, 17), sse_zero, sse_new, sub_r, sub_c, src2,
 // base_y, base_x, par_r, par_c (nch,) int32; new_bits (n_new_bits,) float32
-// (read without rates); joint_cost (4,), nmv_row and nmv_col (2 *
-// mv_cost_max + 1,) int32 (read with rates, may be null without); out mv
-// (2, nch) int32 and mv16 (nch, 2) int16. with_rates 1: lam_bits and the
-// mode costs of ZERO, NEW and PARENT; 0: lam and the rate proxies of ZERO
-// and PARENT. Returns cudaGetLastError() after the launch.
+// (read without rates); scalars (9,), joint_cost (4,), nmv_row and nmv_col
+// (2 * mv_cost_max + 1,) int32 (read with rates, may be null without: the
+// scalars row gives lam_bits, the mode costs of ZERO, NEW and PARENT and
+// mv_cost_max); step the step's row (step_scalars.cuh: its lam read
+// without rates, with the rate proxies of ZERO and PARENT); out mv (2,
+// nch) int32 and mv16 (nch, 2) int16. Returns cudaGetLastError() after
+// the launch.
 extern "C" int descent_decide_launch(
     const void* ssem, const void* sse_zero, const void* sse_new,
     const void* sub_r, const void* sub_c, const void* src2,
     const void* base_y, const void* base_x, const void* par_r,
-    const void* par_c, const void* new_bits, const void* joint_cost,
-    const void* nmv_row, const void* nmv_col, void* mv, void* mv16,
-    float lam_bits, float rate_zero, float rate_parent, int nch,
-    int with_rates, int lam, int mode_zero, int mode_new, int mode_parent,
-    int mv_cost_max, int n_new_bits, void* stream) {
+    const void* par_c, const void* new_bits, const void* scalars,
+    const void* joint_cost, const void* nmv_row, const void* nmv_col,
+    const void* step, void* mv, void* mv16, float rate_zero,
+    float rate_parent, int nch, int with_rates, int n_new_bits,
+    void* stream) {
   DecideArgs a;
-  a.rates = {lam_bits, mode_zero, mode_new, mode_parent, mv_cost_max};
   a.mv = static_cast<int*>(mv);
   a.mv16 = static_cast<int16_t*>(mv16);
   a.nch = nch;
   if (!decide::children_args(a, ssem, sse_zero, sse_new, sub_r, sub_c, src2,
-                             base_y, base_x, par_r, par_c, new_bits,
-                             joint_cost, nmv_row, nmv_col, rate_zero,
-                             rate_parent, with_rates, lam, n_new_bits)) {
+                             base_y, base_x, par_r, par_c, new_bits, scalars,
+                             joint_cost, nmv_row, nmv_col, step, rate_zero,
+                             rate_parent, with_rates, n_new_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch_decide(a, static_cast<cudaStream_t>(stream)));
@@ -554,15 +557,16 @@ extern "C" int descent_pack_launch(
 // (zeroed here, on the stream, then each selected parent's) and, in place,
 // the zone's recon planes rec_y (rows32 * 32, cols32 * 32) and rec_u,
 // rec_v (rows32 * 16, cols32 * 16) uint8: a parent that splits takes its
-// children's blocks. The byte tensors 16-byte aligned. extra: the split's
+// children's blocks. The byte tensors 16-byte aligned. step: the step's
+// row (step_scalars.cuh), whose lam the kernel reads; extra: the split's
 // extra rate; limit: no block from it on splits. Returns the memset's
 // error or cudaGetLastError() after the launch (none at K = 0).
 extern "C" int descent_split_launch(
     const void* sel, const void* dist_b, const void* rate_b,
     const void* dist4, const void* rate4, const void* rec_y32,
     const void* rec_u16, const void* rec_v16, void* split32, void* rec_y,
-    void* rec_u, void* rec_v, float extra, int k, int nb32, int cols32,
-    int lam, int limit, void* stream) {
+    void* rec_u, void* rec_v, const void* step, float extra, int k,
+    int nb32, int cols32, int limit, void* stream) {
   SplitArgs a;
   a.sel = static_cast<const int*>(sel);
   a.dist_b = static_cast<const int*>(dist_b);
@@ -576,11 +580,11 @@ extern "C" int descent_split_launch(
   a.rec_y = static_cast<uint8_t*>(rec_y);
   a.rec_u = static_cast<uint8_t*>(rec_u);
   a.rec_v = static_cast<uint8_t*>(rec_v);
+  a.step = static_cast<const int*>(step);
   a.extra = extra;
   a.k = k;
   a.nb32 = nb32;
   a.cols32 = cols32;
-  a.lam = lam;
   a.limit = limit;
   if (cols32 <= 0 || nb32 % cols32 != 0 || k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);

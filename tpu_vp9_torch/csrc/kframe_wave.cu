@@ -75,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "intra_pred.cuh"
+#include "step_scalars.cuh"
 #include "txfm_common.cuh"
 
 namespace {
@@ -156,7 +157,7 @@ struct Params {
   int src_pitch;          // luma; chroma is half
   int height;             // visible luma height
   int rows, cols;
-  int dc_q, ac_q, lam;
+  const int* sc;          // the step's row: dc_q, ac_q, lam
   int max_polls;          // polls of a wait before it gives up
   int vec;                // src planes 16-byte aligned: vector loads
 };
@@ -526,8 +527,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (r >= P.rows) return;
   const int cols = P.cols, nblk = P.rows * cols;
   const bool ha = r >= 1;
-  const Quant q32 = make_quant(P.dc_q, P.ac_q, 32);
-  const Quant q16 = make_quant(P.dc_q, P.ac_q, 16);
+  // the quantizers and the lambda from the step's row (step_scalars.cuh)
+  const int dc_q = __ldg(P.sc + step_row::kDcQ);
+  const int ac_q = __ldg(P.sc + step_row::kAcQ);
+  const int lam = __ldg(P.sc + step_row::kLam);
+  const Quant q32 = make_quant(dc_q, ac_q, 32);
+  const Quant q16 = make_quant(dc_q, ac_q, 16);
   // the last visible row of this block row, luma and chroma (the left
   // column that the next block reads is clamped to it)
   const int last_y = max(P.height - 1 - 32 * r, 0);
@@ -676,7 +681,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int w = 0; w < kWarps; ++w) sse += s_sse[w * kModes + lane];
         // a cost below 2^27 (KF_MAX_LAM): the key keeps the order of
         // costs, then of modes
-        key = ((sse + mode_bias(lane) * P.lam) << 4) | lane;
+        key = ((sse + mode_bias(lane) * lam) << 4) | lane;
       }
       mode = warp_min(key) & 15;
     }
@@ -897,8 +902,8 @@ Params make_params(const void* src_y, const void* src_u, const void* src_v,
                    void* rec_y, void* rec_u, void* rec_v, void* mode,
                    void* lv_y, void* lv_u, void* lv_v, void* eob,
                    const void* mats, const void* tabs, void* edge,
-                   void* sync, int src_pitch, int height, int rows, int cols,
-                   int dc_q, int ac_q, int lam, int max_polls) {
+                   void* sync, const void* sc, int src_pitch, int height,
+                   int rows, int cols, int max_polls) {
   Params P;
   P.src[0] = static_cast<const uint8_t*>(src_y);
   P.src[1] = static_cast<const uint8_t*>(src_u);
@@ -919,9 +924,7 @@ Params make_params(const void* src_y, const void* src_u, const void* src_v,
   P.height = height;
   P.rows = rows;
   P.cols = cols;
-  P.dc_q = dc_q;
-  P.ac_q = ac_q;
-  P.lam = lam;
+  P.sc = static_cast<const int*>(sc);
   P.max_polls = max_polls;
   P.vec = ((reinterpret_cast<uintptr_t>(src_y) |
             reinterpret_cast<uintptr_t>(src_u) |
@@ -962,13 +965,15 @@ cudaError_t prepare(int* ctas_per_sm) {
 // edge is (rows * cols, 16) 64-bit words and sync two int32, all zeroed
 // before the launch: after it, sync[1] is 0, or the block row + 1 of a
 // wait that gave up after max_polls polls (the outputs are then
-// incomplete). Returns cudaGetLastError() after the launch.
+// incomplete). sc: the step's row (step_scalars.cuh), whose dc_q, ac_q
+// (in [1, 65535]) and lam (in [0, 2^24)) words the kernel reads (checked
+// on the host). Returns cudaGetLastError() after the launch.
 extern "C" int kframe_wave_launch(
     const void* src_y, const void* src_u, const void* src_v, void* rec_y,
     void* rec_u, void* rec_v, void* mode, void* lv_y, void* lv_u,
     void* lv_v, void* eob, const void* mats, const void* tabs, void* edge,
-    void* sync, int src_pitch, int height, int rows, int cols, int dc_q,
-    int ac_q, int lam, int max_polls, void* stream) {
+    void* sync, const void* sc, int src_pitch, int height, int rows,
+    int cols, int max_polls, void* stream) {
   if (rows < 1 || cols < 1 || max_polls < 1 ||
       ((reinterpret_cast<uintptr_t>(rec_y) |
         reinterpret_cast<uintptr_t>(rec_u) |
@@ -982,8 +987,8 @@ extern "C" int kframe_wave_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params P = make_params(src_y, src_u, src_v, rec_y, rec_u, rec_v,
                                mode, lv_y, lv_u, lv_v, eob, mats, tabs, edge,
-                               sync, src_pitch, height, rows, cols, dc_q,
-                               ac_q, lam, max_polls);
+                               sync, sc, src_pitch, height, rows, cols,
+                               max_polls);
   kframe_wave_kernel<<<rows, kThreads, kSmem,
                        static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());

@@ -98,12 +98,16 @@
 // for 16; a lane of a vertical edge reads and writes its row's bytes one
 // by one (a form with 32-bit words and the masks' differences four bytes
 // at once was slower on an H100). Widths come from the mask's bytes. Rows
-// >= h_mi and columns >= w_mi pass through; lvl 0 copies. Shared-memory
+// >= h_mi and columns >= w_mi pass through; level 0 copies (the level,
+// lim and mblim come from the step's row, step_scalars.cuh, so a level of
+// 0 is the kernel's own branch and the launch is the same). Shared-memory
 // pitches are an odd number of words, so a warp whose lanes take
 // consecutive rows of one vertical edge hits 32 banks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "step_scalars.cuh"
 
 namespace {
 
@@ -139,11 +143,16 @@ struct Params {
   int h_mi, w_mi;    // the coded luma size: nothing is filtered beyond it
   int strip_y;       // luma row of the strip's top; pad_h without a strip
   int rows32, cols32;
-  int on;            // lvl > 0
-  int thresh, lim, blim;
+  const int* sc;     // the step's row: lvl, lim, mblim (step_scalars.cuh)
   int ncol, nrow;    // superblock columns and rows: tiles of a plane
   int parts;         // which kinds of CTA work (bits: luma tiles, chroma
                      // tiles); 3 but when a measurement times one alone
+};
+
+// The filter's thresholds at the frame's level: the high edge variance
+// threshold (lvl >> 4), the interior limit and the edge limit.
+struct Filt {
+  int thresh, lim, blim;
 };
 
 __device__ __forceinline__ int c8(int x) { return min(127, max(-128, x)); }
@@ -164,7 +173,7 @@ __device__ __forceinline__ int absdiff(int a, int b) { return abs(a - b); }
 // site it was slower, most of all with a mix of tiles with and without a
 // split block, whose levels run different code).
 __device__ __noinline__ void edge_lane(uint8_t* q0, int stride, int width,
-                                       const Params& P) {
+                                       const Filt F) {
   constexpr int TAPS = 8;
   if (width == 0) return;
   int p[TAPS], q[TAPS];
@@ -177,8 +186,8 @@ __device__ __noinline__ void edge_lane(uint8_t* q0, int stride, int width,
   const int m = max(max(max(dp0, absdiff(p[2], p[1])),
                         max(dq0, absdiff(q[2], q[1]))),
                     max(absdiff(p[3], p[2]), absdiff(q[3], q[2])));
-  if (m > P.lim ||
-      absdiff(p[0], q[0]) * 2 + (absdiff(p[1], q[1]) >> 1) > P.blim)
+  if (m > F.lim ||
+      absdiff(p[0], q[0]) * 2 + (absdiff(p[1], q[1]) >> 1) > F.blim)
     return;
   const int flat = max(max(max(dp0, absdiff(p[2], p[0])),
                            max(dq0, absdiff(q[2], q[0]))),
@@ -231,7 +240,7 @@ __device__ __noinline__ void edge_lane(uint8_t* q0, int stride, int width,
     return;
   }
   // filter4
-  const bool hev = max(dp0, dq0) > P.thresh;
+  const bool hev = max(dp0, dq0) > F.thresh;
   const int ps1 = p[1] - 128, ps0 = p[0] - 128;
   const int qs0 = q[0] - 128, qs1 = q[1] - 128;
   const int f = c8((hev ? c8(ps1 - qs1) : 0) + 3 * (qs0 - ps0));
@@ -347,27 +356,27 @@ struct Split {
 
 // Widths of the edges, the plain version's rules (a block decides the
 // edges at its position). Luma: verticals at x % 16 == 0, horizontals at
-// y % 16 == 0; chroma: both every 8.
+// y % 16 == 0; chroma: both every 8. Only a CTA of a level above 0 asks.
 __device__ __forceinline__ int luma_v_width(const Params& P, const Split& S,
                                             int x, int y) {
   if (x <= 0 || x >= P.w_mi || y >= P.h_mi) return 0;
   if ((x & 31) == 0 || y >= P.strip_y || S.at(y >> 5, x >> 5))
-    return 16 * P.on;
+    return 16;
   return 0;
 }
 
 __device__ __forceinline__ int luma_h_width(const Params& P, const Split& S,
                                             int y, int x) {
   if (y <= 0 || y >= P.h_mi || x >= P.w_mi) return 0;
-  return ((y & 31) == 0 || S.at(y >> 5, x >> 5)) ? 16 * P.on : 0;
+  return ((y & 31) == 0 || S.at(y >> 5, x >> 5)) ? 16 : 0;
 }
 
 __device__ __forceinline__ int chroma_v_width(const Params& P,
                                               const Split& S, int x, int y) {
   if (x <= 0 || x >= (P.w_mi >> 1) || y >= (P.h_mi >> 1)) return 0;
   const bool narrow = y >= (P.strip_y >> 1) || S.at(y >> 4, x >> 4);
-  if ((x & 15) == 0) return P.on * (narrow ? 8 : 16);
-  return narrow ? 8 * P.on : 0;
+  if ((x & 15) == 0) return narrow ? 8 : 16;
+  return narrow ? 8 : 0;
 }
 
 __device__ __forceinline__ int chroma_h_width(const Params& P,
@@ -375,8 +384,8 @@ __device__ __forceinline__ int chroma_h_width(const Params& P,
   if (y <= 0 || y >= (P.h_mi >> 1) || x >= (P.w_mi >> 1)) return 0;
   const bool split = S.at(y >> 4, x >> 4);
   if ((y & 15) == 0)
-    return P.on * ((split || y >= (P.strip_y >> 1)) ? 8 : 16);
-  return split ? 8 * P.on : 0;
+    return (split || y >= (P.strip_y >> 1)) ? 8 : 16;
+  return split ? 8 : 0;
 }
 
 // Lanes of a level are numbered across its groups, so that the groups
@@ -394,9 +403,10 @@ __device__ __forceinline__ int first_lane(int& base, int n) {
 // An edge whose read window [y - taps, y + taps) leaves the loaded rows is
 // not filtered.
 template <int PLANES, int NE, int STEP, int COLS, bool CHROMA, class TileT>
-__device__ __forceinline__ void h_group(const Params& P, const Split& Sp,
-                                        const TileT& T, int& base, int y0,
-                                        int x0, int cols) {
+__device__ __forceinline__ void h_group(const Params& P, const Filt& F,
+                                        const Split& Sp, const TileT& T,
+                                        int& base, int y0, int x0,
+                                        int cols) {
   constexpr int N = PLANES * NE * COLS;
   for (int i = first_lane(base, N); i < N; i += THREADS) {
     const int e = i / COLS % NE, pl = i / (COLS * NE);
@@ -406,7 +416,7 @@ __device__ __forceinline__ void h_group(const Params& P, const Split& Sp,
                            : luma_h_width(P, Sp, y, x);
       const int taps = w > 8 ? 8 : 4;
       if (w == 0 || y - taps < T.r0 || y + taps > T.r1) continue;
-      edge_lane(T.at(pl, y, x), T.pitch, w, P);
+      edge_lane(T.at(pl, y, x), T.pitch, w, F);
     }
   }
 }
@@ -414,9 +424,9 @@ __device__ __forceinline__ void h_group(const Params& P, const Split& Sp,
 // The boundary vertical edge at column x on the loaded rows y = S (sb0 +
 // q) + A + r, q < NSB, r < B - A, of each of PLANES planes.
 template <int PLANES, int S, int A, int B, int NSB, bool CHROMA, class TileT>
-__device__ __forceinline__ void v_group(const Params& P, const Split& Sp,
-                                        const TileT& T, int& base, int x,
-                                        int sb0) {
+__device__ __forceinline__ void v_group(const Params& P, const Filt& F,
+                                        const Split& Sp, const TileT& T,
+                                        int& base, int x, int sb0) {
   constexpr int R = B - A, N = PLANES * NSB * R;
   for (int i = first_lane(base, N); i < N; i += THREADS) {
     const int r = i % R, q = i / R % NSB, pl = i / (R * NSB);
@@ -424,7 +434,7 @@ __device__ __forceinline__ void v_group(const Params& P, const Split& Sp,
     if (y < T.r0 || y >= T.r1) continue;
     const int w =
         CHROMA ? chroma_v_width(P, Sp, x, y) : luma_v_width(P, Sp, x, y);
-    edge_lane(T.at(pl, y, x), 1, w, P);
+    edge_lane(T.at(pl, y, x), 1, w, F);
   }
 }
 
@@ -452,7 +462,8 @@ __device__ __forceinline__ bool any_split(const Split& Sp, int rows) {
 // ALL16: the tile's 16-offset edges may exist (a split block or the strip's
 // rows); without, only the 32 grid's lanes are started.
 template <bool ALL16>
-__device__ __forceinline__ void luma_levels(const Params& P, const Split& Sp,
+__device__ __forceinline__ void luma_levels(const Params& P, const Filt& F,
+                                            const Split& Sp,
                                             const LumaTile& T,
                                             const Place& L) {
   constexpr int NV = ALL16 ? 3 : 1, STEP = ALL16 ? 16 : 32;
@@ -463,31 +474,40 @@ __device__ __forceinline__ void luma_levels(const Params& P, const Split& Sp,
     const int e = ALL16 ? i / LUMA_ROWS : 1, y = T.r0 + i % LUMA_ROWS;
     const int x = L.xb + 16 * (e + 1);
     if (y < T.r1)
-      edge_lane(T.at(0, y, x), 1, luma_v_width(P, Sp, x, y), P);
+      edge_lane(T.at(0, y, x), 1, luma_v_width(P, Sp, x, y), F);
   }
   if (L.k > 0) {
-    h_group<1, NV, STEP, 8, false>(P, Sp, T, base,
+    h_group<1, NV, STEP, 8, false>(P, F, Sp, T, base,
                                    64 * L.t + (ALL16 ? 16 : 32), L.xb - 8, 8);
-    v_group<1, 64, 56, 64, 2, false>(P, Sp, T, base, L.xb, L.t - 1);
+    v_group<1, 64, 56, 64, 2, false>(P, F, Sp, T, base, L.xb, L.t - 1);
   }
   __syncthreads();
   // 2. HT left, V rows [8, 56), the strip's horizontals
   base = 0;
   if (L.k > 0) {
-    h_group<1, 1, 16, 8, false>(P, Sp, T, base, 64 * L.t, L.xb - 8, 8);
-    v_group<1, 64, 8, 56, 1, false>(P, Sp, T, base, L.xb, L.t);
+    h_group<1, 1, 16, 8, false>(P, F, Sp, T, base, 64 * L.t, L.xb - 8, 8);
+    v_group<1, 64, 8, 56, 1, false>(P, F, Sp, T, base, L.xb, L.t);
   }
-  h_group<1, 64 / STEP, STEP, 48, false>(P, Sp, T, base, 64 * L.t, L.s_lo,
+  h_group<1, 64 / STEP, STEP, 48, false>(P, F, Sp, T, base, 64 * L.t, L.s_lo,
                                          L.c_hi - L.s_lo);
   __syncthreads();
   if (L.k > 0) {
     base = 0;  // 3. V rows [0, 8)
-    v_group<1, 64, 0, 8, 1, false>(P, Sp, T, base, L.xb, L.t);
+    v_group<1, 64, 0, 8, 1, false>(P, F, Sp, T, base, L.xb, L.t);
     __syncthreads();
     base = 0;  // 4. the right half's edges
-    h_group<1, 64 / STEP, STEP, 8, false>(P, Sp, T, base, 64 * L.t, L.xb, 8);
+    h_group<1, 64 / STEP, STEP, 8, false>(P, F, Sp, T, base, 64 * L.t,
+                                          L.xb, 8);
     __syncthreads();
   }
+}
+
+// The thresholds of the frame's level, read from the step's row; a level
+// of 0 (the filter off) gives thresh -1, and the CTA then only copies.
+__device__ __forceinline__ Filt filt(const Params& P) {
+  const int lvl = __ldg(P.sc + step_row::kLfLvl);
+  return {lvl > 0 ? lvl >> 4 : -1, __ldg(P.sc + step_row::kLfLim),
+          __ldg(P.sc + step_row::kLfMblim)};
 }
 
 __device__ __forceinline__ void luma_cta(const Params& P, uint8_t* smem,
@@ -501,11 +521,12 @@ __device__ __forceinline__ void luma_cta(const Params& P, uint8_t* smem,
   load_split(smem, P, Sp.row0, Sp.col0);
   load_tile<1, LUMA_CHUNKS, LUMA_ROWS>(T, P.in, P.pad_w);
   __syncthreads();
-  if (P.on) {
+  const Filt F = filt(P);
+  if (F.thresh >= 0) {
     if (T.r1 > P.strip_y || any_split(Sp, 3))
-      luma_levels<true>(P, Sp, T, L);
+      luma_levels<true>(P, F, Sp, T, L);
     else
-      luma_levels<false>(P, Sp, T, L);
+      luma_levels<false>(P, F, Sp, T, L);
   }
   store_tile<1, LUMA_CHUNKS, LUMA_ROWS>(T, P.out, P.pad_w, T.r0, T.r1,
                                         L.c_lo, L.c_hi);
@@ -516,6 +537,7 @@ __device__ __forceinline__ void luma_cta(const Params& P, uint8_t* smem,
 // filtered, the chroma edges at 16j + 8 exist).
 template <int SPLIT>
 __device__ __forceinline__ void chroma_levels(const Params& P,
+                                              const Filt& F,
                                               const Split& Sp,
                                               const ChromaTile& T,
                                               const Place& C) {
@@ -532,10 +554,10 @@ __device__ __forceinline__ void chroma_levels(const Params& P,
       const int pl = i / (3 * CHROMA_ROWS), e = i / CHROMA_ROWS % 3;
       const int y = T.r0 + i % CHROMA_ROWS, x = xb - 8 + 16 * e;
       if (y >= T.r1) continue;
-      edge_lane(T.at(pl, y, x), 1, chroma_v_width(P, Sp, x, y), P);
+      edge_lane(T.at(pl, y, x), 1, chroma_v_width(P, Sp, x, y), F);
       if (e == 1)
         edge_lane(T.at(pl, y, x + 8), 1, chroma_v_width(P, Sp, x + 8, y),
-                     P);
+                  F);
     }
   } else {
     constexpr int N = 2 * CHROMA_OWN_ROWS;
@@ -545,44 +567,44 @@ __device__ __forceinline__ void chroma_levels(const Params& P,
       if (y >= P.strip_y >> 1) {
 #pragma unroll
         for (int x = xb - 8; x <= xb + 24; x += 16)
-          edge_lane(T.at(pl, y, x), 1, chroma_v_width(P, Sp, x, y), P);
+          edge_lane(T.at(pl, y, x), 1, chroma_v_width(P, Sp, x, y), F);
       }
       edge_lane(T.at(pl, y, xb + 16), 1,
-                   chroma_v_width(P, Sp, xb + 16, y), P);
+                chroma_v_width(P, Sp, xb + 16, y), F);
     }
   }
   __syncthreads();
   if (SPLIT) {
     base = 0;  // 1. HA left, the strip's HA
     if (k > 0)
-      h_group<2, 4, 16, 8, true>(P, Sp, T, base, 32 * t - 24, xb - 8, 8);
-    h_group<2, 4, 16, 16, true>(P, Sp, T, base, 32 * t - 24, C.s_lo,
+      h_group<2, 4, 16, 8, true>(P, F, Sp, T, base, 32 * t - 24, xb - 8, 8);
+    h_group<2, 4, 16, 16, true>(P, F, Sp, T, base, 32 * t - 24, C.s_lo,
                                 C.c_hi - C.s_lo);
     __syncthreads();
   }
   base = 0;  // 2. HM left, V rows [24, 32), the strip's edges at 16j
   if (k > 0) {
-    h_group<2, 2, 32, 8, true>(P, Sp, T, base, 32 * t - 16, xb - 8, 8);
-    v_group<2, 32, 24, 32, 2, true>(P, Sp, T, base, xb, t - 1);
+    h_group<2, 2, 32, 8, true>(P, F, Sp, T, base, 32 * t - 16, xb - 8, 8);
+    v_group<2, 32, 24, 32, 2, true>(P, F, Sp, T, base, xb, t - 1);
   }
-  h_group<2, 3, 16, 16, true>(P, Sp, T, base, 32 * t - 16, C.s_lo,
+  h_group<2, 3, 16, 16, true>(P, F, Sp, T, base, 32 * t - 16, C.s_lo,
                               C.c_hi - C.s_lo);
   __syncthreads();
   if (k > 0) {
     base = 0;  // 3. HT left, V rows [8, 24)
-    h_group<2, 1, 32, 8, true>(P, Sp, T, base, 32 * t, xb - 8, 8);
-    v_group<2, 32, 8, 24, 2, true>(P, Sp, T, base, xb, t - 1);
+    h_group<2, 1, 32, 8, true>(P, F, Sp, T, base, 32 * t, xb - 8, 8);
+    v_group<2, 32, 8, 24, 2, true>(P, F, Sp, T, base, xb, t - 1);
     __syncthreads();
     base = 0;  // 4. V rows [0, 8)
-    v_group<2, 32, 0, 8, 2, true>(P, Sp, T, base, xb, t - 1);
+    v_group<2, 32, 0, 8, 2, true>(P, F, Sp, T, base, xb, t - 1);
     __syncthreads();
     if (SPLIT) {
       base = 0;  // 5. HA right
-      h_group<2, 4, 16, 8, true>(P, Sp, T, base, 32 * t - 24, xb, 8);
+      h_group<2, 4, 16, 8, true>(P, F, Sp, T, base, 32 * t - 24, xb, 8);
       __syncthreads();
     }
     base = 0;  // 6. HM and HT right
-    h_group<2, 3, 16, 8, true>(P, Sp, T, base, 32 * t - 16, xb, 8);
+    h_group<2, 3, 16, 8, true>(P, F, Sp, T, base, 32 * t - 16, xb, 8);
     __syncthreads();
   }
 }
@@ -603,13 +625,14 @@ __device__ __forceinline__ void chroma_cta(const Params& P, uint8_t* smem,
   load_split(smem, P, Sp.row0, Sp.col0);
   load_tile<2, CHROMA_CHUNKS, CHROMA_ROWS>(T, P.in + 1, W);
   __syncthreads();
-  if (P.on) {
+  const Filt F = filt(P);
+  if (F.thresh >= 0) {
     // with no split block around the tile (block rows 2t - 2 .. 2t + 1),
     // its own rows are filtered as without a mask: no halo is needed
     if (SPLIT && any_split(Sp, 4))
-      chroma_levels<1>(P, Sp, T, C);
+      chroma_levels<1>(P, F, Sp, T, C);
     else
-      chroma_levels<0>(P, Sp, T.rows(own_lo, own_hi), C);
+      chroma_levels<0>(P, F, Sp, T.rows(own_lo, own_hi), C);
   }
   store_tile<2, CHROMA_CHUNKS, CHROMA_OWN_ROWS>(T, P.out + 1, W, own_lo,
                                                 own_hi, C.c_lo, C.c_hi);
@@ -636,9 +659,9 @@ loop_filter_kernel(const __grid_constant__ Params P) {
 }
 
 Params make_params(const void* y, const void* u, const void* v, void* out_y,
-                   void* out_u, void* out_v, const void* split, int pad_h,
-                   int pad_w, int h_mi, int w_mi, int strip_y, int rows32,
-                   int cols32, int lvl, int lim, int blim, int parts) {
+                   void* out_u, void* out_v, const void* split,
+                   const void* sc, int pad_h, int pad_w, int h_mi, int w_mi,
+                   int strip_y, int rows32, int cols32, int parts) {
   Params P;
   P.in[0] = static_cast<const uint8_t*>(y);
   P.in[1] = static_cast<const uint8_t*>(u);
@@ -654,10 +677,7 @@ Params make_params(const void* y, const void* u, const void* v, void* out_y,
   P.strip_y = strip_y;
   P.rows32 = rows32;
   P.cols32 = cols32;
-  P.on = lvl > 0 ? 1 : 0;
-  P.thresh = lvl >> 4;
-  P.lim = lim;
-  P.blim = blim;
+  P.sc = static_cast<const int*>(sc);
   P.ncol = pad_w / 64;
   P.nrow = pad_h / 64;
   P.parts = parts;
@@ -669,22 +689,25 @@ Params make_params(const void* y, const void* u, const void* v, void* out_y,
 // y, u, v: uint8 planes of (pad_h, pad_w) and twice (pad_h / 2, pad_w / 2),
 // contiguous, on the device, starting on 16-byte boundaries; out_*: planes
 // of the same shapes and alignment that do not overlap them; split:
-// (rows32, cols32) int32 0/1 or null. The caller has checked pad_w % 64 ==
-// 0, pad_h % 64 == 0, h_mi <= min(pad_h, strip_y + 16), w_mi <= pad_w with
-// pad_w - w_mi < 64, strip_y == pad_h or (no mask) the strip's top,
-// 0 <= lvl <= 63. parts is 3; a measurement passes 1 (luma tiles) or 2
-// (chroma tiles) to time one kind of CTA alone (the others return at once
-// and their planes of the output stay unwritten). Returns
+// (rows32, cols32) int32 0/1 or null; sc: the step's row (step_scalars.cuh)
+// whose lvl (0 <= lvl <= 63, checked on the host), lim and mblim words the
+// kernel reads. The caller has checked pad_w % 64 == 0, pad_h % 64 == 0,
+// h_mi <= min(pad_h, strip_y + 16), w_mi <= pad_w with pad_w - w_mi < 64,
+// strip_y == pad_h or (no mask) the strip's top. parts is 3; a
+// measurement passes 1 (luma tiles) or 2 (chroma tiles) to time one kind
+// of CTA alone (the others return at once and their planes of the output
+// stay unwritten). Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int loop_filter_launch(const void* y, const void* u,
                                   const void* v, void* out_y, void* out_u,
-                                  void* out_v, const void* split, int pad_h,
-                                  int pad_w, int h_mi, int w_mi, int strip_y,
-                                  int rows32, int cols32, int lvl, int lim,
-                                  int blim, int parts, void* stream) {
-  const Params P = make_params(y, u, v, out_y, out_u, out_v, split, pad_h,
-                               pad_w, h_mi, w_mi, strip_y, rows32, cols32,
-                               lvl, lim, blim, parts);
+                                  void* out_v, const void* split,
+                                  const void* sc, int pad_h, int pad_w,
+                                  int h_mi, int w_mi, int strip_y,
+                                  int rows32, int cols32, int parts,
+                                  void* stream) {
+  const Params P = make_params(y, u, v, out_y, out_u, out_v, split, sc,
+                               pad_h, pad_w, h_mi, w_mi, strip_y, rows32,
+                               cols32, parts);
   const int grid = 2 * P.ncol * P.nrow;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (split != nullptr)

@@ -111,7 +111,6 @@ struct McArgs {
   // the plane-0 warp of a block writes
   decide::Zone zone;        // kZone
   decide::Children child;   // kChildren
-  const int* scalars;       // kChildren with rates: the device row
   int* mv_out;              // (2, B) int32
   int16_t* mv16_out;        // (B, 2) int16
   int8_t* ref_out;          // (B,) int8, kZone
@@ -295,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) mc_predict_kernel(McArgs a) {
       ch = decide::zone(a.zone, b, lane);
     } else {
       decide::ChildRates r = {0.0f, 0, 0, 0, 0};
-      if (a.child.with_rates) r = decide::child_rates(a.scalars);
+      if (a.child.with_rates) r = decide::child_rates(a.child.scalars);
       ch = decide::child(a.child, r, b);
     }
     if (!ch.ok) return;  // a trap: the whole warp leaves
@@ -471,12 +470,13 @@ static bool mc_ints(McArgs& a, Words& w,
 // ALTREF's planes as mc_predict_launch takes them), pos_y, pos_x, filters,
 // out_y, out_u, out_v; ssem, src2m, sse_zero, sse_new, new_r, new_c,
 // prev_mv, left_edge, gold_sse, alt_sse0, alt_sse1, alt_new_r, alt_new_c,
-// scalars, joint_cost, nmv_row, nmv_col, lam_vec, new_bits (as
+// scalars, joint_cost, nmv_row, nmv_col, lam_vec, new_bits, step (as
 // mode_decide_launch, mode_decide.cu, takes them; 0 for null); out mv (2,
 // nblk) int32, ref_sel (nblk,) int8, mv16 (nblk, 2) int16; then the ints
 // nblk, n, rows, cols, each plane's step, sw, y0, x0, win_r_y, win_r_c,
 // pitch_y, pitch_u, pitch_v, mi_rows, mi_cols, r_map, q3_shift, sse_scale,
-// lam, with_rates, n_new_bits; the proxies rz, rp, rs apart. An mvd past
+// with_rates, n_new_bits; the proxies rz, rp, rs apart. The ints are the
+// same from frame to frame: lam is read from the step's row. An mvd past
 // new_bits and a window index past the grid trap. Returns
 // cudaGetLastError() after the launch.
 extern "C" int mc_predict_zone_launch(const int64_t* words, float rz,
@@ -493,8 +493,8 @@ extern "C" int mc_predict_zone_launch(const int64_t* words, float rz,
   void* out_y = w.out();
   void* out_u = w.out();
   void* out_v = w.out();
-  const void* d[19];  // ssem .. new_bits
-  for (int k = 0; k < 19; ++k) d[k] = w.ptr();
+  const void* d[20];  // ssem .. new_bits, step
+  for (int k = 0; k < 20; ++k) d[k] = w.ptr();
   a.mv_out = static_cast<int*>(w.out());
   a.ref_out = static_cast<int8_t*>(w.out());
   a.mv16_out = static_cast<int16_t*>(w.out());
@@ -506,13 +506,12 @@ extern "C" int mc_predict_zone_launch(const int64_t* words, float rz,
   const int r_map = w.i();
   const int q3_shift = w.i();
   const int sse_scale = w.i();
-  const int lam = w.i();
   const int with_rates = w.i();
   const int n_new_bits = w.i();
   if (!decide::zone_args(a.zone, d[0], d[1], d[2], d[3], d[4], d[5], d[6],
                          d[7], d[8], d[9], d[10], d[11], d[12], d[13], d[14],
-                         d[15], d[16], d[17], d[18], rz, rp, rs, nblk, rows,
-                         cols, r_map, q3_shift, sse_scale, lam, with_rates,
+                         d[15], d[16], d[17], d[18], d[19], rz, rp, rs, nblk,
+                         rows, cols, r_map, q3_shift, sse_scale, with_rates,
                          n_new_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -532,14 +531,14 @@ extern "C" int mc_predict_zone_launch(const int64_t* words, float rz,
 // by win_idx. ``words`` (int64): the pointers y, u, v (LAST's planes),
 // win_idx, pos_y, pos_x, off_y, off_x, filters, out_y, out_u, out_v; ssem,
 // sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r, par_c,
-// new_bits, scalars, joint_cost, nmv_row, nmv_col (as
-// descent_decide_launch, descent.cu, takes them, but with rates lam_bits
-// and the mode costs come from the device row scalars (9,) int32 that
-// upload_rate_tabs writes, RATE_SCALARS); out mv (2, nblk) int32, mv16
-// (nblk, 2) int16; then the ints nblk, n, rows, cols, each plane's step,
-// sw, y0, x0, win_r_y, win_r_c, pitch_y, pitch_u, pitch_v, mi_rows,
-// mi_cols, with_rates, lam, n_new_bits; the proxies of ZERO and PARENT
-// apart. An mvd past new_bits and a window index past the grid trap.
+// new_bits, scalars, joint_cost, nmv_row, nmv_col, step (as
+// descent_decide_launch, descent.cu, takes them: with rates lam_bits and
+// the mode costs come from the device row scalars (9,) int32 that
+// upload_rate_tabs writes, RATE_SCALARS, without lam from the step's row);
+// out mv (2, nblk) int32, mv16 (nblk, 2) int16; then the ints nblk, n,
+// rows, cols, each plane's step, sw, y0, x0, win_r_y, win_r_c, pitch_y,
+// pitch_u, pitch_v, mi_rows, mi_cols, with_rates, n_new_bits; the proxies
+// of ZERO and PARENT apart. An mvd past new_bits and a window index past the grid trap.
 // Returns cudaGetLastError() after the launch.
 extern "C" int mc_predict_children_launch(const int64_t* words,
                                           float rate_zero, float rate_parent,
@@ -557,9 +556,8 @@ extern "C" int mc_predict_children_launch(const int64_t* words,
   void* out_y = w.out();
   void* out_u = w.out();
   void* out_v = w.out();
-  const void* d[15];  // ssem .. nmv_col
-  for (int k = 0; k < 15; ++k) d[k] = w.ptr();
-  a.scalars = static_cast<const int*>(d[11]);
+  const void* d[16];  // ssem .. nmv_col, step
+  for (int k = 0; k < 16; ++k) d[k] = w.ptr();
   a.mv_out = static_cast<int*>(w.out());
   a.mv16_out = static_cast<int16_t*>(w.out());
   int nblk, n, rows, cols;
@@ -568,13 +566,12 @@ extern "C" int mc_predict_children_launch(const int64_t* words,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int with_rates = w.i();
-  const int lam = w.i();
   const int n_new_bits = w.i();
-  if (n != 16 || (with_rates && d[11] == nullptr) ||
+  if (n != 16 ||
       !decide::children_args(a.child, d[0], d[1], d[2], d[3], d[4], d[5],
-                             d[6], d[7], d[8], d[9], d[10], d[12], d[13],
-                             d[14], rate_zero, rate_parent, with_rates, lam,
-                             n_new_bits)) {
+                             d[6], d[7], d[8], d[9], d[10], d[11], d[12],
+                             d[13], d[14], d[15], rate_zero, rate_parent,
+                             with_rates, n_new_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nblk == 0) return static_cast<int>(cudaSuccess);

@@ -56,8 +56,8 @@ cudaError_t launch_md(const MdArgs& a, cudaStream_t s) {
 // alt_sse0, alt_sse1, alt_new_r, alt_new_c (b,) int32, all four or none
 // (with rates only); with_rates 1: scalars (9,), joint_cost (4,), nmv_row
 // and nmv_col (2 mv_cost_max + 1,) int32 and lam_vec (b,) float32 or null;
-// with_rates 0: lam and the proxies rz, rp, rs, new_bits (n_new_bits,)
-// float32. Out mv (2, b) int32 and ref_sel (b,) int8. Returns
+// with_rates 0: the proxies rz, rp, rs, new_bits (n_new_bits,) float32
+// and lam, the word of the step's row step (step_scalars.cuh). Out mv (2, b) int32 and ref_sel (b,) int8. Returns
 // cudaGetLastError() after the launch.
 extern "C" int mode_decide_launch(
     const void* ssem, const void* src2m, const void* sse_zero,
@@ -66,17 +66,18 @@ extern "C" int mode_decide_launch(
     const void* alt_sse0, const void* alt_sse1, const void* alt_new_r,
     const void* alt_new_c, const void* scalars, const void* joint_cost,
     const void* nmv_row, const void* nmv_col, const void* lam_vec,
-    const void* new_bits, void* mv, void* ref_sel, float rz, float rp,
-    float rs, int b, int rows, int cols, int r_map, int q3_shift,
-    int sse_scale, int lam, int with_rates, int n_new_bits, void* stream) {
+    const void* new_bits, const void* step, void* mv, void* ref_sel,
+    float rz, float rp, float rs, int b, int rows, int cols, int r_map,
+    int q3_shift, int sse_scale, int with_rates, int n_new_bits,
+    void* stream) {
   MdArgs a;
   a.mv = static_cast<int*>(mv);
   a.ref_sel = static_cast<int8_t*>(ref_sel);
   if (!decide::zone_args(a, ssem, src2m, sse_zero, sse_new, new_r, new_c,
                          prev_mv, left_edge, gold_sse, alt_sse0, alt_sse1,
                          alt_new_r, alt_new_c, scalars, joint_cost, nmv_row,
-                         nmv_col, lam_vec, new_bits, rz, rp, rs, b, rows,
-                         cols, r_map, q3_shift, sse_scale, lam, with_rates,
+                         nmv_col, lam_vec, new_bits, step, rz, rp, rs, b,
+                         rows, cols, r_map, q3_shift, sse_scale, with_rates,
                          n_new_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

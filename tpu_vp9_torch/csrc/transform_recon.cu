@@ -59,6 +59,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "step_scalars.cuh"
 #include "txfm_common.cuh"
 
 namespace {
@@ -154,8 +155,8 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
                        const double* __restrict__ f_dct,
                        const int* __restrict__ iscan,
                        int16_t* __restrict__ levels, int* __restrict__ eob,
-                       uint8_t* __restrict__ recon, int nblk, int dc_q,
-                       int ac_q, int vec) {
+                       uint8_t* __restrict__ recon,
+                       const int* __restrict__ sc, int nblk, int vec) {
   static_assert(TT == 0 || (TT == 1 && N == 16),
                 "transform_recon: ADST_DCT is built at n = 16 only");
   using S = Shape<N>;
@@ -163,6 +164,9 @@ transform_recon_kernel(const uint8_t* __restrict__ src,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
+  // the quantizers from the step's row (step_scalars.cuh)
+  const int dc_q = __ldg(sc + step_row::kDcQ);
+  const int ac_q = __ldg(sc + step_row::kAcQ);
   const double qe_dc = N == 32 ? 0.5 * dc_q : dc_q;
   const double qe_ac = N == 32 ? 0.5 * ac_q : ac_q;
   const double r_dc = 1.0 / qe_dc, r_ac = 1.0 / qe_ac;
@@ -360,7 +364,7 @@ cudaError_t prepare(int* ctas_per_sm, int* max_grid) {
 template <int N, int TT>
 cudaError_t launch(const void* src, const void* pred, const void* f_col,
                    const void* f_dct, const void* iscan, void* levels,
-                   void* eob, void* recon, int nblk, int dc_q, int ac_q,
+                   void* eob, void* recon, const void* sc, int nblk,
                    cudaStream_t stream) {
   int per_sm = 0, max_grid = 0;
   const cudaError_t err = prepare<N, TT>(&per_sm, &max_grid);
@@ -375,7 +379,7 @@ cudaError_t launch(const void* src, const void* pred, const void* f_col,
       static_cast<const double*>(f_col), static_cast<const double*>(f_dct),
       static_cast<const int*>(iscan),
       static_cast<int16_t*>(levels), static_cast<int*>(eob),
-      static_cast<uint8_t*>(recon), nblk, dc_q, ac_q, vec);
+      static_cast<uint8_t*>(recon), static_cast<const int*>(sc), nblk, vec);
   return cudaGetLastError();
 }
 
@@ -394,33 +398,31 @@ int occupancy(int* ctas_per_sm, int* smem) {
 // (nblk,) int32; f_col the float64 forward column matrix of the type and
 // f_dct the DCT's (the row matrix is its transpose over 2^5 at n = 8, 2^6
 // above), each n x n row-major; iscan (n * n,) int32 each raster place's
-// place in the type's scan. Returns the error of the launch's set-up, if
+// place in the type's scan; sc the step's row of scalars
+// (step_scalars.cuh), whose dc_q and ac_q words (in [1, 65535], checked
+// on the host) the kernel reads. Returns the error of the launch's set-up, if
 // any, else cudaGetLastError() after the launch.
 extern "C" int transform_recon_launch(const void* src, const void* pred,
                                       const void* f_col, const void* f_dct,
                                       const void* iscan, void* levels,
-                                      void* eob, void* recon, int tx_type,
-                                      int nblk, int n, int dc_q, int ac_q,
+                                      void* eob, void* recon, const void* sc,
+                                      int tx_type, int nblk, int n,
                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int key = n + 64 * tx_type;
   switch (key) {
     case 32:
       return static_cast<int>(launch<32, 0>(src, pred, f_col, f_dct, iscan,
-                                            levels, eob, recon, nblk, dc_q,
-                                            ac_q, s));
+                                            levels, eob, recon, sc, nblk, s));
     case 16:
       return static_cast<int>(launch<16, 0>(src, pred, f_col, f_dct, iscan,
-                                            levels, eob, recon, nblk, dc_q,
-                                            ac_q, s));
+                                            levels, eob, recon, sc, nblk, s));
     case 16 + 64:
       return static_cast<int>(launch<16, 1>(src, pred, f_col, f_dct, iscan,
-                                            levels, eob, recon, nblk, dc_q,
-                                            ac_q, s));
+                                            levels, eob, recon, sc, nblk, s));
     case 8:
       return static_cast<int>(launch<8, 0>(src, pred, f_col, f_dct, iscan,
-                                           levels, eob, recon, nblk, dc_q,
-                                           ac_q, s));
+                                           levels, eob, recon, sc, nblk, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

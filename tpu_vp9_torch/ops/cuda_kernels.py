@@ -32,6 +32,7 @@ the JAX package writes in jnp:
                                        code is csrc/decide.cuh)
   _extract_search_windows              extract_windows (csrc/windows.cu)
   extend_borders_device                extend_borders (the same source)
+  _sb_lambda_scale (tune SQ)           aq_scale (csrc/aq_scale.cu)
 
 and the device stage of the host route's keyframe hints:
 
@@ -48,18 +49,26 @@ launches the kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show that it went through the kernel.
 ``subpel_search``, ``mc_predict``, ``transform_recon``, ``loop_filter``,
 ``kframe_wave``, the four ``descent_*``, ``mode_decide``,
-``mode_decide_mc``, ``descent_decide_mc``, ``extract_windows`` and
-``extend_borders`` take CUDA tensors only: their plain versions are the
-steps' own (``pipeline/tpu_encdec.py``: ``subpel_search_ref``,
-``mc_predict_ref``, ``transform_recon_ref``, ``loop_filter_ref``,
-``kframe_wave_ref``, ``descent_*_ref``, ``mode_decide_ref``,
-``mode_decide_mc_ref``, ``descent_decide_mc_ref``,
-``_extract_search_windows``, ``extend_borders_device``), and the steps'
-dispatches of the same names (``loop_filter_device``,
+``mode_decide_mc``, ``descent_decide_mc``, ``extract_windows``,
+``extend_borders`` and ``aq_scale`` take CUDA tensors only: their plain
+versions are the steps' own (``pipeline/tpu_encdec.py``:
+``subpel_search_ref``, ``mc_predict_ref``, ``transform_recon_ref``,
+``loop_filter_ref``, ``kframe_wave_ref``, ``descent_*_ref``,
+``mode_decide_ref``, ``mode_decide_mc_ref``, ``descent_decide_mc_ref``,
+``_extract_search_windows``, ``extend_borders_device``, ``aq_scale_ref``),
+and the steps' dispatches of the same names (``loop_filter_device``,
 ``kframe_wave_device`` for those two) send CPU tensors there and CUDA
 tensors here. The decided MC launches count as ``mc_predict``'s
 (``LAUNCH_COUNTERS``). This module imports nothing of
 ``pipeline``.
+
+The step's per-frame scalars (the quantizers, the lambda, the loop
+filter's level and limits) reach the kernels as one int32 device row
+(``STEP_SCALARS``), the rate tables' as another (``RATE_SCALARS``): the
+wrappers of the step's kernels take the row where they took host numbers,
+and pass its pointer, so that a step's launch words are the same from
+frame to frame (``LAUNCH_RECORDER`` shows it). The plain versions take
+the row's values as ints.
 """
 
 from __future__ import annotations
@@ -101,6 +110,11 @@ VP9_MAX_SIDE = 1 << 16
 # check block_energy_at's starts on the card as well (a device-to-host
 # sync per call; the CPU path always checks)
 CHECK_STARTS = False
+# the step's per-frame scalars: one int32 row on the device, in this order
+# (csrc/step_scalars.cuh has the same; ``pipeline/tpu_encdec.py:
+# step_scalars`` makes and checks it). The kernels of the step read their
+# words from it, so that no per-frame value is a launch argument.
+STEP_SCALARS = ("dc_q", "ac_q", "lam", "lf_lvl", "lf_lim", "lf_mblim")
 
 # (library, C function, number of pointer args, of float args, of int
 # args), in the C function's argument order; every launcher ends with the
@@ -112,29 +126,36 @@ _LAUNCHERS = {
     "sse_map_search": ("sse_search", "sse_map_search_launch", 5, 0, 5),
     "hier_search_fused": ("sse_search", "hier_search_launch", 5, 0, 2),
     "txq_cost": ("txq_cost", "txq_cost_launch", 4, 2, 2),
-    "loop_filter": ("loop_filter", "loop_filter_launch", 7, 0, 11),
-    "kframe_wave": ("kframe_wave", "kframe_wave_launch", 15, 0, 8),
-    "transform_recon": ("transform_recon", "transform_recon_launch", 8, 0,
-                        5),
+    "loop_filter": ("loop_filter", "loop_filter_launch", 8, 0, 8),
+    "kframe_wave": ("kframe_wave", "kframe_wave_launch", 16, 0, 5),
+    "transform_recon": ("transform_recon", "transform_recon_launch", 9, 0,
+                        3),
     "subpel_search": ("subpel_search", "subpel_search_launch", 8, 0, 3),
     "mc_predict": ("mc_predict", "mc_predict_launch", 21, 0, 23),
     "openloop_modes": ("openloop_modes", "openloop_modes_launch", 5, 0, 4),
     "descent_gather": ("descent", "descent_gather_launch", 14, 0, 8),
-    "descent_decide": ("descent", "descent_decide_launch", 16, 3, 8),
+    "descent_decide": ("descent", "descent_decide_launch", 18, 2, 3),
     "descent_pack": ("descent", "descent_pack_launch", 16, 0, 1),
-    "descent_split": ("descent", "descent_split_launch", 12, 1, 5),
-    "mode_decide": ("mode_decide", "mode_decide_launch", 21, 3, 9),
+    "descent_split": ("descent", "descent_split_launch", 13, 1, 4),
+    "mode_decide": ("mode_decide", "mode_decide_launch", 22, 3, 8),
     "mode_decide_mc": ("mc_predict", "mc_predict_zone_launch", 1, 3, 0),
     "descent_decide_mc": ("mc_predict", "mc_predict_children_launch", 1, 2,
                           0),
     "extract_windows": ("windows", "extract_windows_launch", 1, 0, 3),
     "extend_borders": ("windows", "extend_borders_launch", 6, 0, 2),
+    "aq_scale": ("aq_scale", "aq_scale_launch", 4, 0, 2),
 }
 _fns: dict = {}
 # the launchers whose wrapper counts its launches in another wrapper's
 # count: the decisions folded into MC are instances of mc_predict's kernel
 LAUNCH_COUNTERS = {"mode_decide_mc": "mc_predict",
                    "descent_decide_mc": "mc_predict"}
+# None, or a callable (name, words) that ``_launch`` hands every launch's
+# non-pointer words: its float and int arguments, then the ints a launcher
+# reads out of host arrays (the decided MC's and the windows' words). A
+# measurement sets it to show that a step's launches do not change from
+# frame to frame; it costs nothing when None.
+LAUNCH_RECORDER = None
 
 
 def _kernel(name: str):
@@ -155,10 +176,15 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 _get_device = getattr(torch._C, "_cuda_getDevice", None)
 
 
-def _launch(name: str, device, *args) -> None:
+def _launch(name: str, device, *args, words=None) -> None:
     """Launch a kernel on the current stream of ``device``; raise if the
     launch was refused. The launcher is resolved once; the device is
-    switched to only where it is not the current one."""
+    switched to only where it is not the current one. ``words``: a
+    callable giving the non-pointer ints of the launcher's host arrays,
+    called for ``LAUNCH_RECORDER`` only."""
+    if LAUNCH_RECORDER is not None:
+        LAUNCH_RECORDER(name, (*args[_LAUNCHERS[name][2]:],
+                               *(words() if words is not None else ())))
     fn = _fns.get(name) or _kernel(name)
     idx = device.index
     if idx is None or idx == (_get_device or torch.cuda.current_device)():
@@ -188,6 +214,21 @@ def _device_kind(name: str, *tensors) -> str:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return "cuda"
+
+
+def _want_row(name: str, sc, device) -> None:
+    """Raise unless ``sc`` is a step's row of scalars: a contiguous
+    (len(STEP_SCALARS),) int32 tensor on ``device`` (its values were
+    checked where it was filled; reading them here would wait for the
+    card)."""
+    if (not isinstance(sc, torch.Tensor) or sc.dtype != torch.int32
+            or sc.shape != (len(STEP_SCALARS),) or not sc.is_contiguous()
+            or sc.device != device):
+        got = (f"{tuple(sc.shape)} {sc.dtype} on {sc.device}"
+               if isinstance(sc, torch.Tensor) else type(sc).__name__)
+        raise TypeError(f"{name}: the step's scalars are a contiguous "
+                        f"({len(STEP_SCALARS)},) int32 row on {device} "
+                        f"(step_scalars), got {got}")
 
 
 def _want_blocks(what: str, t, b: int, h: int, w: int) -> None:
@@ -688,16 +729,11 @@ def txq_cost(resid_blocks, dc_q: float, ac_q: float, n: int):
 txq_cost.launches = 0
 
 
-def _check_lf_args(y, u, v, geom, lvl: int, lim: int, mblim: int,
-                   split32) -> None:
+def _check_lf_args(y, u, v, geom, split32) -> None:
     g = geom
     if split32 is not None and g.strip:
         raise ValueError("loop_filter: a split mask with a strip geometry "
                          "(its blocks are 16x16 already)")
-    if not 0 <= lvl <= 63:
-        raise ValueError(f"loop_filter: lvl={lvl} outside [0, 63]")
-    if lim < 0 or mblim < 0:
-        raise ValueError(f"loop_filter: negative limits ({lim}, {mblim})")
     if g.height > VP9_MAX_SIDE or g.width > VP9_MAX_SIDE:
         raise ValueError(f"loop_filter: a {g.width}x{g.height} picture is "
                          f"larger than VP9 codes ({VP9_MAX_SIDE} a side)")
@@ -729,16 +765,17 @@ def _check_lf_args(y, u, v, geom, lvl: int, lim: int, mblim: int,
                             f"bool 0/1 mask, got {split32.dtype}")
 
 
-def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
-                split32=None, parts: int = LF_ALL_PARTS):
+def loop_filter(y, u, v, geom, sc, split32=None, parts: int = LF_ALL_PARTS):
     """The exact VP9 loop filter of the 32 grid and its bottom strip, on
     the card, all three planes in one launch.
 
     y: (pad_h, pad_w) uint8, u and v: (pad_h/2, pad_w/2) uint8, contiguous
     CUDA tensors of one device, each starting on a 16-byte boundary; geom:
     the step's geometry (``strip``, ``strip_y``, ``pad_h``, ``pad_w``,
-    ``h_mi``, ``w_mi``, ``rows32``, ``cols32``); lvl in [0, 63] (0
-    copies), lim and mblim: host ints; split32: optional (rows32, cols32)
+    ``h_mi``, ``w_mi``, ``rows32``, ``cols32``); sc: the step's row
+    (``STEP_SCALARS``) on the planes' device, whose lf_lvl (in [0, 63], 0
+    copies), lf_lim and lf_mblim the kernel reads; split32: optional
+    (rows32, cols32)
     0/1 mask (integer or bool, contiguous, on the planes' device) of the
     32-blocks coded as four 16x16 blocks, refused with a strip geometry.
     Returns new (y, u, v) planes, bit for bit what
@@ -751,13 +788,13 @@ def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
     that work; with fewer than all, the other kinds' planes of the outputs
     are left unwritten.
     """
-    lvl, lim, mblim = int(lvl), int(lim), int(mblim)
-    _check_lf_args(y, u, v, geom, lvl, lim, mblim, split32)
+    _check_lf_args(y, u, v, geom, split32)
     tensors = (y, u, v) if split32 is None else (y, u, v, split32)
     if _device_kind("loop_filter", *tensors) != "cuda":
         raise ValueError("loop_filter: the kernel takes CUDA tensors; CPU "
                          "tensors go through loop_filter_device")
     dev = y.device
+    _want_row("loop_filter", sc, dev)
     if split32 is not None and split32.dtype != torch.int32:
         split32 = split32.to(torch.int32)
     g = geom
@@ -767,9 +804,10 @@ def loop_filter(y, u, v, geom, lvl: int, lim: int, mblim: int,
                          "boundary")
     _launch("loop_filter", dev, y.data_ptr(), u.data_ptr(), v.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            None if split32 is None else split32.data_ptr(), g.pad_h,
-            g.pad_w, g.h_mi, g.w_mi, g.strip_y if g.strip else g.pad_h,
-            g.rows32, g.cols32, lvl, lim, mblim, int(parts))
+            None if split32 is None else split32.data_ptr(), sc.data_ptr(),
+            g.pad_h, g.pad_w, g.h_mi, g.w_mi,
+            g.strip_y if g.strip else g.pad_h, g.rows32, g.cols32,
+            int(parts))
     loop_filter.launches += 1
     return out
 
@@ -869,8 +907,7 @@ def _kf_tables_on(device: torch.device):
             torch.from_numpy(np.concatenate(tabs)).to(device))
 
 
-def check_kf_args(src_y, src_u, src_v, geom, dc_q: int, ac_q: int,
-                   lam: int) -> None:
+def check_kf_args(src_y, src_u, src_v, geom) -> None:
     g = geom
     for name, t, shape in (("src_y", src_y, (g.pad_h, g.pad_w)),
                            ("src_u", src_u, (g.pad_h // 2, g.pad_w // 2)),
@@ -885,11 +922,6 @@ def check_kf_args(src_y, src_u, src_v, geom, dc_q: int, ac_q: int,
         raise ValueError(f"kframe_wave: a {g.rows32}x{g.cols32} grid of "
                          f"32-blocks does not fit a {g.pad_h}x{g.pad_w} "
                          "plane")
-    if not (0 < dc_q < 1 << 16 and 0 < ac_q < 1 << 16):
-        raise ValueError(f"kframe_wave: quantizers ({dc_q}, {ac_q}) outside "
-                         "[1, 65535]")
-    if not 0 <= lam < KF_MAX_LAM:
-        raise ValueError(f"kframe_wave: lam={lam} outside [0, {KF_MAX_LAM})")
 
 
 def kf_outputs(geom, device):
@@ -920,14 +952,14 @@ def kf_check_status(word) -> None:
                            "incomplete")
 
 
-def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int,
-                status=None):
+def kframe_wave(src_y, src_u, src_v, geom, sc, status=None):
     """The keyframe's closed-loop intra encode of the 32 grid.
 
     src_y: (pad_h, pad_w), src_u and src_v: (pad_h/2, pad_w/2) uint8
     padded source planes; geom: the step's geometry (at a strip geometry
-    its 32 zone, above the strip); dc_q, ac_q: the quantizer steps; lam:
-    the mode prior's lambda. Every 32x32 block
+    its 32 zone, above the strip); sc: the step's row (``STEP_SCALARS``)
+    on the planes' device, whose dc_q, ac_q (the quantizer steps) and lam
+    (the mode prior's lambda) the kernel reads. Every 32x32 block
     (r, c), after (r-1, c) and (r, c-1): the 10 intra predictions from
     their recon (127 above the frame, 129 left of it, above-right repeating
     above[31], the left column clamped to the last visible row), the mode
@@ -953,14 +985,14 @@ def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int,
     int32 CUDA tensor, to the list ``status`` and the caller checks it
     with ``kf_check_status`` when it fetches the outputs.
     """
-    dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
-    check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
+    check_kf_args(src_y, src_u, src_v, geom)
     if _device_kind("kframe_wave", src_y, src_u, src_v) != "cuda":
         raise ValueError("kframe_wave: the kernel takes CUDA tensors; CPU "
                          "tensors go through kframe_wave_device")
     g = geom
     rows, cols = g.rows32, g.cols32
     dev = src_y.device
+    _want_row("kframe_wave", sc, dev)
     mode, lvs, eob, recs = kf_outputs(g, dev)
     mats, tabs = _kf_tables_on(dev)
     # scratch, zeroed for every keyframe: the ticket and the error word
@@ -970,8 +1002,8 @@ def kframe_wave(src_y, src_u, src_v, geom, dc_q: int, ac_q: int, lam: int,
     ptrs = [t.data_ptr() for t in (src_y, src_u, src_v, *recs, mode, *lvs,
                                    eob, mats, tabs)]
     _launch("kframe_wave", dev, *ptrs, scratch.data_ptr() + 8,
-            scratch.data_ptr(), g.pad_w, g.height, rows, cols, dc_q, ac_q,
-            lam, KF_MAX_POLLS)
+            scratch.data_ptr(), sc.data_ptr(), g.pad_w, g.height, rows, cols,
+            KF_MAX_POLLS)
     kframe_wave.launches += 1
     word = scratch.view(torch.int32)[1:2]
     if status is None:
@@ -1313,8 +1345,29 @@ def _txfm_tables_on(n: int, device: torch.device, tx_type: int = 0):
     return f_col.contiguous(), f_dct.contiguous(), iscan
 
 
-def _check_txfm_args(src_blocks, pred_blocks, dc_q: int, ac_q: int,
-                     n: int, tx_type: int = 0) -> None:
+def check_step_scalars(dc_q: int, ac_q: int, lam: int, lvl: int, lim: int,
+                       mblim: int) -> None:
+    """The step's scalars (``STEP_SCALARS``) as the kernels that read them
+    take them: the quantizers in [1, TXFM_MAX_Q] (the transform's and the
+    keyframe's), lam in [0, KF_MAX_LAM) (the keyframe's costs stay inside
+    int32), the loop filter's level in [0, 63] and its limits not
+    negative."""
+    if not (0 < dc_q <= TXFM_MAX_Q and 0 < ac_q <= TXFM_MAX_Q):
+        raise ValueError(f"step scalars: quantizers ({dc_q}, {ac_q}) "
+                         f"outside [1, {TXFM_MAX_Q}]")
+    if not 0 <= lam < KF_MAX_LAM:
+        raise ValueError(f"step scalars: lam={lam} outside [0, "
+                         f"{KF_MAX_LAM})")
+    if not 0 <= lvl <= 63:
+        raise ValueError(f"step scalars: loop filter lvl={lvl} outside "
+                         "[0, 63]")
+    if lim < 0 or mblim < 0:
+        raise ValueError(f"step scalars: the loop filter's negative limits "
+                         f"({lim}, {mblim})")
+
+
+def _check_txfm_args(src_blocks, pred_blocks, n: int,
+                     tx_type: int = 0) -> None:
     if n not in TXFM_BLOCK_SIZES:
         raise ValueError(f"transform_recon: n={n} not in {TXFM_BLOCK_SIZES}")
     if tx_type not in TXFM_TYPES[n]:
@@ -1326,19 +1379,16 @@ def _check_txfm_args(src_blocks, pred_blocks, dc_q: int, ac_q: int,
     if src_blocks.dtype != torch.uint8 or pred_blocks.dtype != torch.uint8:
         raise TypeError("transform_recon: blocks must be uint8, got "
                         f"{src_blocks.dtype} and {pred_blocks.dtype}")
-    if not (0 < dc_q <= TXFM_MAX_Q and 0 < ac_q <= TXFM_MAX_Q):
-        raise ValueError(f"transform_recon: quantizers ({dc_q}, {ac_q}) "
-                         f"outside [1, {TXFM_MAX_Q}]")
 
 
-def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int,
-                    tx_type: int = 0):
+def transform_recon(src_blocks, pred_blocks, sc, n: int, tx_type: int = 0):
     """Forward transform, quantizer, dequantizer, exact integer inverse,
     recon and eob of B blocks at once, on the card.
 
     src_blocks, pred_blocks: (B, n, n) uint8 contiguous CUDA tensors of
-    one device, n in {8, 16, 32}; dc_q, ac_q: the quantizer steps (host
-    ints in [1, 65535]); tx_type: a ``TxType`` of ``TXFM_TYPES[n]``
+    one device, n in {8, 16, 32}; sc: the step's row (``STEP_SCALARS``)
+    on their device, whose dc_q and ac_q (the quantizer steps, in [1,
+    65535]) the kernel reads; tx_type: a ``TxType`` of ``TXFM_TYPES[n]``
     (DCT_DCT, or ADST_DCT at n=16). Returns (levels int16 (B, n, n), eob
     int32 (B,), recon uint8 (B, n, n)): the levels of the float64 forward
     transform and the dead-zone quantizer, one past the last nonzero level
@@ -1350,13 +1400,14 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int,
     agree bit for bit unless a coefficient's ``|c| / q + 0.38`` lies within
     about 1e-12 of an integer (the float64 products sum in another order).
     """
-    dc_q, ac_q, tx_type = int(dc_q), int(ac_q), int(tx_type)
-    _check_txfm_args(src_blocks, pred_blocks, dc_q, ac_q, n, tx_type)
+    tx_type = int(tx_type)
+    _check_txfm_args(src_blocks, pred_blocks, n, tx_type)
     if _device_kind("transform_recon", src_blocks, pred_blocks) != "cuda":
         raise ValueError("transform_recon: the kernel takes CUDA tensors; "
                          "CPU tensors go through the step's transform_recon")
     b = src_blocks.shape[0]
     dev = src_blocks.device
+    _want_row("transform_recon", sc, dev)
     levels = torch.empty((b, n, n), dtype=torch.int16, device=dev)
     eob = torch.empty((b,), dtype=torch.int32, device=dev)
     recon = torch.empty((b, n, n), dtype=torch.uint8, device=dev)
@@ -1365,7 +1416,7 @@ def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int,
         _launch("transform_recon", dev, src_blocks.data_ptr(),
                 pred_blocks.data_ptr(), f_col.data_ptr(), f_dct.data_ptr(),
                 iscan.data_ptr(), levels.data_ptr(), eob.data_ptr(),
-                recon.data_ptr(), tx_type, b, n, dc_q, ac_q)
+                recon.data_ptr(), sc.data_ptr(), tx_type, b, n)
         transform_recon.launches += 1
     return levels, eob, recon
 
@@ -1756,16 +1807,15 @@ def _want_sig(name: str, what: str, sig, shape, dtype) -> None:
                         f"got {tuple(sig[0])} {sig[1]}")
 
 
-def _rate_tables(rates, with_scalars: bool = True):
+def _rate_tables(rates):
     """A decision's rate tables as its launcher takes them: (the device row
-    "scalars" (None unless ``with_scalars``), the three LUTs, the
-    per-block lam_bits or None), and the LUTs' reach; all None without
-    tables."""
+    "scalars", the three LUTs, the per-block lam_bits or None), and the
+    LUTs' reach; all None without tables."""
     if rates is None:
         return (None,) * 5, None
     lam = rates["lam_bits"]
-    return ((rates["scalars"] if with_scalars else None,
-             rates["joint_cost"], rates["nmv_row"], rates["nmv_col"],
+    return ((rates["scalars"], rates["joint_cost"], rates["nmv_row"],
+             rates["nmv_col"],
              lam if isinstance(lam, torch.Tensor) else None),
             int(rates["mv_cost_max"]))
 
@@ -1827,13 +1877,12 @@ def _zone_sigs(name: str, sigs, rows: int, cols: int, r_map: int,
     _new_bits_sig(name, sigs[18])
 
 
-def _children_sigs(name: str, sigs, m, with_scalars: bool) -> int:
+def _children_sigs(name: str, sigs, m) -> int:
     """The children's decision's checks on ``sigs`` (``_sig_words``) of
     ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x, par_r,
     par_c, new_bits and the rate tables (``_rate_tables``; the scalars row
-    read where ``with_scalars``, a per-block lam_bits refused); ``m`` the
-    LUTs' reach (None without rate tables). Returns the children's
-    count."""
+    read, a per-block lam_bits refused); ``m`` the LUTs' reach (None
+    without rate tables). Returns the children's count."""
     nch = sigs[1][0][0] if len(sigs[1][0]) else 0
     d = 2 * DESCENT_R + 1
     _want_sig(name, "ssem", sigs[0], (nch, d, d), torch.int32)
@@ -1842,7 +1891,7 @@ def _children_sigs(name: str, sigs, m, with_scalars: bool) -> int:
         _want_sig(name, what, sig, (nch,), torch.int32)
     _new_bits_sig(name, sigs[10])
     if m is not None:
-        if with_scalars and sigs[11] is None:
+        if sigs[11] is None:
             raise TypeError(f"{name}: scalars must be given")
         _rates_sigs(name, sigs[11:16], m, nch, False)
     return nch
@@ -1860,7 +1909,7 @@ def _children_spec(key, m):
     """descent_decide's checks, once per key (``_sig_words``); returns the
     children's count."""
     _one_device("descent_decide", key)
-    return _children_sigs("descent_decide", key, m, False)
+    return _children_sigs("descent_decide", key, m)
 
 
 # ---------------------------------------------------------------------------
@@ -2045,8 +2094,7 @@ descent_gather.launches = 0
 
 
 def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
-                   base_x, par_r, par_c, lam: int, new_bits, rates,
-                   proxy):
+                   base_x, par_r, par_c, sc, new_bits, rates, proxy):
     """The children's candidate decision, {ZERO, NEW, PARENT}, on the
     card: a thread per child, one launch (the step makes this decision
     inside the children's MC launch, ``descent_decide_mc``).
@@ -2055,16 +2103,17 @@ def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
     sse_new, sub_r, sub_c (the quarter-pel winner in the window, q3),
     src2, base_y, base_x (the map centre's displacement), par_r, par_c
     (the parent's final MV): (4K,) int32; all contiguous CUDA tensors of
-    one device. rates: ``upload_rate_tabs``' dict (the frame's float32
-    ``lam_bits`` as a host number; the three LUTs on the device) or None;
-    then ``lam`` and ``proxy`` = (ZERO's, PARENT's rate) weigh the costs
-    and NEW's rate is ``new_bits`` (float32, indexed by the mvd, which must
-    stay inside it: past it the kernel traps). Returns (mv_r, mv_c (4K,)
-    int32, mv (4K, 2) int16), bit for bit what ``pipeline/tpu_encdec.py:
-    descent_decide_ref`` returns. It runs the kernel of
-    ``csrc/descent.cu`` or raises."""
+    one device. rates: ``upload_rate_tabs``' dict, whose device row
+    "scalars" (the frame's lam_bits, the mode costs) and three LUTs the
+    kernel reads, or None; then the lam of ``sc`` (the step's row,
+    ``STEP_SCALARS``, read on the card) and ``proxy`` = (ZERO's, PARENT's
+    rate) weigh the costs and NEW's rate is ``new_bits`` (float32, indexed
+    by the mvd, which must stay inside it: past it the kernel traps).
+    Returns (mv_r, mv_c (4K,) int32, mv (4K, 2) int16), bit for bit what
+    ``pipeline/tpu_encdec.py:descent_decide_ref`` returns. It runs the
+    kernel of ``csrc/descent.cu`` or raises."""
     name = "descent_decide"
-    tabs, m = _rate_tables(rates, with_scalars=False)
+    tabs, m = _rate_tables(rates)
     key, ptrs = _sig_words((ssem, sse_zero, sse_new, sub_r, sub_c, src2,
                             base_y, base_x, par_r, par_c, new_bits, *tabs))
     nch = _children_spec(key, m)
@@ -2072,20 +2121,15 @@ def descent_decide(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
     if _device_kind(name, ssem) != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
                          f"tensors go through the step's {name}")
+    _want_row(name, sc, dev)
     mv = torch.empty((2, nch), dtype=torch.int32, device=dev)
     mv16 = torch.empty((nch, 2), dtype=torch.int16, device=dev)
     if nch > 0:
-        if rates is None:
-            flt = (0.0, float(proxy[0]), float(proxy[1]))
-            ints = (nch, 0, int(lam), 0, 0, 0, 0, new_bits.shape[0])
-        else:
-            mode = [int(v) for v in rates["mode_cost"]]
-            flt = (float(rates["lam_bits"]), 0.0, 0.0)
-            ints = (nch, 1, int(lam), mode[2], mode[3], mode[0], m,
-                    new_bits.shape[0])
-        # ssem .. new_bits, then the three LUTs (no scalars row)
-        _launch(name, dev, *ptrs[:11], *ptrs[12:15], mv.data_ptr(),
-                mv16.data_ptr(), *flt, *ints)
+        # ssem .. new_bits, the scalars row and the three LUTs, the step's
+        # row
+        _launch(name, dev, *ptrs[:15], sc.data_ptr(), mv.data_ptr(),
+                mv16.data_ptr(), float(proxy[0]), float(proxy[1]), nch,
+                int(rates is not None), new_bits.shape[0])
         descent_decide.launches += 1
     mv_r, mv_c = mv.unbind(0)
     return mv_r, mv_c, mv16
@@ -2193,7 +2237,7 @@ _SPLIT_ARGS = ("sel", "dist_b", "rate_b", "dist4", "rate4", "rec_y", "rec_u",
 
 
 def descent_split(sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v,
-                  rec_y32, rec_u16, rec_v16, lam: int, geom, extra: float):
+                  rec_y32, rec_u16, rec_v16, sc, geom, extra: float):
     """The 32-against-4x16 decision and the recon merge, on the card, in
     one launch: a warp per selected parent, split32 zeroed by a memset on
     the stream first.
@@ -2206,8 +2250,9 @@ def descent_split(sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v,
     splits takes its children's merged blocks rec_y32 (K, 32, 32), rec_u16,
     rec_v16 (K, 16, 16) uint8, every other block stays as it was; the six
     byte tensors 16-byte aligned (a refused alignment raises ValueError);
-    all contiguous CUDA tensors of one device. ``extra``: the split's extra
-    rate; at mi_rows % 4 == 3 the overhang row never splits. Returns
+    all contiguous CUDA tensors of one device. sc: the step's row
+    (``STEP_SCALARS``), whose lam the kernel reads; ``extra``: the split's
+    extra rate; at mi_rows % 4 == 3 the overhang row never splits. Returns
     (split32 (rows32, cols32) int32, rec_y, rec_u, rec_v: the planes
     given), the values ``pipeline/tpu_encdec.py:descent_split_ref``
     returns bit for bit. It runs the kernel of ``csrc/descent.cu`` or
@@ -2223,6 +2268,7 @@ def descent_split(sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v,
     _contiguous(name, ins)
     for what, t in zip(_SPLIT_ARGS[5:], ins[5:]):
         _aligned(name, what, t, 16)
+    _want_row(name, sc, dev)
     b32 = r32 * c32
     split32 = torch.empty((r32, c32), dtype=torch.int32, device=dev)
     limit = (r32 - 1) * c32 if geom.mi_rows % 4 == 3 else b32
@@ -2230,7 +2276,8 @@ def descent_split(sel, dist_b, rate_b, dist4, rate4, rec_y, rec_u, rec_v,
         _launch(name, dev, *(t.data_ptr() for t in ins[:5]),
                 rec_y32.data_ptr(), rec_u16.data_ptr(), rec_v16.data_ptr(),
                 split32.data_ptr(), rec_y.data_ptr(), rec_u.data_ptr(),
-                rec_v.data_ptr(), float(extra), k, b32, c32, int(lam), limit)
+                rec_v.data_ptr(), sc.data_ptr(), float(extra), k, b32, c32,
+                limit)
         if k > 0:
             descent_split.launches += 1
     return split32, rec_y, rec_u, rec_v
@@ -2275,8 +2322,8 @@ def rate_scalars(tabs) -> np.ndarray:
 
 def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                 rows: int, cols: int, r_map: int, q3_shift: int,
-                sse_scale: int, lam: int, new_bits, rates, left_edge,
-                gold_sse, alt, proxy):
+                sse_scale: int, sc, new_bits, rates, left_edge, gold_sse,
+                alt, proxy):
     """The zone's mode decision, LAST's five candidates, GOLDEN's two,
     ALTREF's two and the reference choice, on the card: a warp per
     block, its candidates spread over the lanes, one launch (the step
@@ -2292,7 +2339,8 @@ def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     (``RATE_SCALARS``) and three LUTs the kernel reads (its host numbers
     are not read: the same upload made both), its "lam_bits" the frame's
     host number or (tune SQ) a (B,) float32 tensor the kernel reads
-    instead; or None: then ``lam`` and ``proxy`` (``CAND_RATE_PROXY``)
+    instead; or None: then the lam of ``sc`` (the step's row,
+    ``STEP_SCALARS``, read on the card) and ``proxy`` (``CAND_RATE_PROXY``)
     weigh the costs and NEW's rate is ``new_bits`` (float32, indexed by
     the mvd, which must stay inside it: past it the kernel traps); all
     contiguous CUDA tensors of one device. Returns (mv_r, mv_c (B,) int32,
@@ -2312,14 +2360,16 @@ def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     if _device_kind(name, ssem) != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
                          f"tensors go through the step's {name}")
+    _want_row(name, sc, dev)
     b = rows * cols
     mv = torch.empty((2, b), dtype=torch.int32, device=dev)
     ref_sel = torch.empty((b,), dtype=torch.int8, device=dev)
     if b > 0:
         rz, _, _, rp, rs = (float(v) for v in proxy)
-        _launch(name, dev, *ptrs, mv.data_ptr(), ref_sel.data_ptr(), rz, rp,
-                rs, b, rows, cols, r_map, q3_shift, sse_scale, int(lam),
-                int(rates is not None), new_bits.shape[0])
+        _launch(name, dev, *ptrs, sc.data_ptr(), mv.data_ptr(),
+                ref_sel.data_ptr(), rz, rp, rs, b, rows, cols, r_map,
+                q3_shift, sse_scale, int(rates is not None),
+                new_bits.shape[0])
         mode_decide.launches += 1
     mv_r, mv_c = mv.unbind(0)
     return mv_r, mv_c, ref_sel
@@ -2362,6 +2412,15 @@ def _zone_mc_spec(key, rows: int, cols: int, r_map: int, n: int, grid,
         _want_sig(name, what, sig, (rows * cols,), torch.int32)
 
 
+# the pointer words that start the decided launchers' word arrays: the
+# zone's nine planes, pos_y, pos_x, the taps, three predictions, the
+# decision's nineteen inputs, the step's row and three outputs; the
+# children's three planes, five index rows, the taps, three predictions,
+# fifteen inputs, the step's row and two outputs
+MC_ZONE_PTR_WORDS = 38
+MC_CHILDREN_PTR_WORDS = 30
+
+
 def _decided_outputs(b: int, n: int, dev, with_ref: bool):
     """A decided launch's outputs: mv (2, B) int32, ref_sel (B,) int8
     (``with_ref``; else None), mv16 (B, 2) int16, pred_y (B, n, n), pred_u,
@@ -2378,7 +2437,7 @@ def _decided_outputs(b: int, n: int, dev, with_ref: bool):
 
 def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                    rows: int, cols: int, r_map: int, q3_shift: int,
-                   sse_scale: int, lam: int, new_bits, rates, left_edge,
+                   sse_scale: int, sc, new_bits, rates, left_edge,
                    gold_sse, alt, proxy, planes, pos_y, pos_x, n: int,
                    mi_rows: int, mi_cols: int, grid):
     """The zone's mode decision and its motion compensation in one launch
@@ -2393,7 +2452,9 @@ def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     gives it), less the MVs and ref_sel, which the decision gives, and the
     window index and offsets: block b reads window b. Every refusal of the
     two wrappers holds; the shapes are checked once a shape, and the
-    launcher takes one int64 array of words. Returns (mv_r, mv_c (B,)
+    launcher takes one int64 array of words, whose ints (after its
+    ``MC_ZONE_PTR_WORDS`` pointers) are the same from frame to frame: the
+    lam of ``sc`` is read on the card. Returns (mv_r, mv_c (B,)
     int32, ref_sel (B,) int8, mv16 (B, 2) int16, pred_y (B, n, n), pred_u,
     pred_v (B, n/2, n/2) uint8), bit for bit what ``pipeline/tpu_encdec.py:
     mode_decide_mc_ref`` returns. It runs the kernel of
@@ -2415,20 +2476,21 @@ def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     if _device_kind(name, pos_y) != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
                          f"tensors go through the step's {name}")
+    _want_row(name, sc, dev)
     b = rows * cols
     mv, ref_sel, mv16, pred_y, pred_u, pred_v = _decided_outputs(b, n, dev,
                                                                  True)
     # the launcher's words (int64; the array lives through the call)
     words = array.array("q", (
         *ptrs[:11], _mc_taps_on(dev).data_ptr(), pred_y.data_ptr(),
-        pred_u.data_ptr(), pred_v.data_ptr(), *ptrs[11:], mv.data_ptr(),
-        ref_sel.data_ptr(), mv16.data_ptr(), b, n, rows, cols,
-        *(v for spec in grid[2:] for v in spec), WIN_R, CHROMA_WIN_R,
+        pred_u.data_ptr(), pred_v.data_ptr(), *ptrs[11:], sc.data_ptr(),
+        mv.data_ptr(), ref_sel.data_ptr(), mv16.data_ptr(), b, n, rows,
+        cols, *(v for spec in grid[2:] for v in spec), WIN_R, CHROMA_WIN_R,
         *(t.shape[1] for t in flat[:3]), int(mi_rows), int(mi_cols), r_map,
-        q3_shift, sse_scale, int(lam), int(rates is not None),
-        new_bits.shape[0]))
+        q3_shift, sse_scale, int(rates is not None), new_bits.shape[0]))
     _launch(name, dev, words.buffer_info()[0], float(proxy[0]),
-            float(proxy[3]), float(proxy[4]))
+            float(proxy[3]), float(proxy[4]),
+            words=lambda: words[MC_ZONE_PTR_WORDS:])
     mc_predict.launches += 1
     mv_r, mv_c = mv.unbind(0)
     return mv_r, mv_c, ref_sel, mv16, pred_y, pred_u, pred_v
@@ -2445,7 +2507,7 @@ def _children_mc_spec(key, n: int, grid, m):
     descent_decide and of mc_predict."""
     name = "descent_decide_mc"
     _one_device(name, key)
-    nch = _children_sigs(name, key[8:24], m, True)
+    nch = _children_sigs(name, key[8:24], m)
     if n != 16:
         raise ValueError(f"{name}: the children are n=16 blocks, not n={n}")
     _mc_sigs(name, (*key[0:3], *(None,) * 6), n, grid)
@@ -2455,8 +2517,8 @@ def _children_mc_spec(key, n: int, grid, m):
 
 
 def descent_decide_mc(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
-                      base_x, par_r, par_c, lam: int, new_bits, rates,
-                      proxy, planes, pos_y, pos_x, n: int, mi_rows: int,
+                      base_x, par_r, par_c, sc, new_bits, rates, proxy,
+                      planes, pos_y, pos_x, n: int, mi_rows: int,
                       mi_cols: int, grid, win_idx, org_off_y, org_off_x):
     """The children's candidate decision and their motion compensation in
     one launch of mc_predict's kernel (its children's instance: every warp
@@ -2469,7 +2531,9 @@ def descent_decide_mc(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
     the parents' windows by ``win_idx``, the children's offsets inside
     them), less the MVs, which the decision gives. Every refusal of the two
     wrappers holds; the shapes are checked once a shape, and the launcher
-    takes one int64 array of words. Returns (mv_r, mv_c (4K,) int32, mv16
+    takes one int64 array of words, whose ints (after its
+    ``MC_CHILDREN_PTR_WORDS`` pointers) are the same from frame to frame.
+    Returns (mv_r, mv_c (4K,) int32, mv16
     (4K, 2) int16, pred_y (4K, 16, 16), pred_u, pred_v (4K, 8, 8) uint8),
     bit for bit what ``pipeline/tpu_encdec.py:descent_decide_mc_ref``
     returns. It runs the
@@ -2487,6 +2551,7 @@ def descent_decide_mc(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
     if _device_kind(name, pos_y) != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors; CPU "
                          f"tensors go through the step's {name}")
+    _want_row(name, sc, dev)
     nch = sse_zero.shape[0]
     mv, _, mv16, pred_y, pred_u, pred_v = _decided_outputs(nch, n, dev,
                                                            False)
@@ -2495,15 +2560,60 @@ def descent_decide_mc(ssem, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
         words = array.array("q", (
             *ptrs[:8], _mc_taps_on(dev).data_ptr(), pred_y.data_ptr(),
             pred_u.data_ptr(), pred_v.data_ptr(), *ptrs[8:23],
-            mv.data_ptr(), mv16.data_ptr(), nch, n, rows, cols,
-            *(v for spec in grid[2:] for v in spec), WIN_R, CHROMA_WIN_R,
-            *(t.shape[1] for t in flat), int(mi_rows), int(mi_cols),
-            int(rates is not None), int(lam), new_bits.shape[0]))
+            sc.data_ptr(), mv.data_ptr(), mv16.data_ptr(), nch, n, rows,
+            cols, *(v for spec in grid[2:] for v in spec), WIN_R,
+            CHROMA_WIN_R, *(t.shape[1] for t in flat), int(mi_rows),
+            int(mi_cols), int(rates is not None), new_bits.shape[0]))
         _launch(name, dev, words.buffer_info()[0], float(proxy[0]),
-                float(proxy[1]))
+                float(proxy[1]),
+                words=lambda: words[MC_CHILDREN_PTR_WORDS:])
         mc_predict.launches += 1
     mv_r, mv_c = mv.unbind(0)
     return mv_r, mv_c, mv16, pred_y, pred_u, pred_v
+
+
+# ---------------------------------------------------------------------------
+# Tune SQ's adaptive lambda (csrc/aq_scale.cu)
+# ---------------------------------------------------------------------------
+
+
+def aq_scale(src_sum, src2, n: int, scalars):
+    """A zone's per-block rate lambda at tune SQ, on the card, one launch
+    of one CTA: the frame's lam_bits times each block's variance-adaptive
+    scale (``pipeline/tpu_encdec.py:_sb_lambda_scale``'s float32 chain).
+
+    src_sum, src2: (B,) int32 the exact sums of the pixels and of their
+    squares of the zone's n x n blocks (``block_energy`` against zero
+    blocks), contiguous CUDA tensors of one device; scalars: the rate
+    tables' device row (``RATE_SCALARS``), whose lam_bits word the kernel
+    reads. Returns (B,) float32, bit for bit what ``pipeline/tpu_encdec.py:
+    aq_scale_ref`` returns but where a float64 log or exp of the card and
+    of the host straddle a float32 rounding boundary. It runs the kernel
+    of ``csrc/aq_scale.cu`` or raises."""
+    name = "aq_scale"
+    b = src_sum.shape[0]
+    for what, t, shape in (("src_sum", src_sum, (b,)), ("src2", src2, (b,)),
+                           ("scalars", scalars, (len(RATE_SCALARS),))):
+        _want(name, what, t, shape, torch.int32)
+    if n < 1:
+        raise ValueError(f"{name}: n={n}")
+    dev = _cuda_only(name, src_sum, src2, scalars)
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    if b > 0:
+        _launch(name, dev, src_sum.data_ptr(), src2.data_ptr(),
+                scalars.data_ptr() + 4 * RATE_SCALARS.index("lam_bits"),
+                out.data_ptr(), b, n)
+        aq_scale.launches += 1
+    return out
+
+
+aq_scale.launches = 0
+
+
+def aq_scale_occupancy(device=None):
+    """(resident CTAs of 1024 threads per SM, dynamic shared memory in
+    bytes) of ``aq_scale``'s kernel (``_occupancy``)."""
+    return _occupancy("aq_scale", None, None, device)
 
 
 # ---------------------------------------------------------------------------
@@ -2574,7 +2684,8 @@ def extract_windows(specs, rows: int, cols: int):
     words[1::8] = [out.data_ptr() for out in outs]
     if b > 0:
         jobs = _JOB_WORDS[len(specs)](*words)
-        _launch(name, dev, ctypes.addressof(jobs), len(specs), rows, cols)
+        _launch(name, dev, ctypes.addressof(jobs), len(specs), rows, cols,
+                words=lambda: [v for i, v in enumerate(words) if i % 8 > 1])
         extract_windows.launches += 1
     return outs
 
@@ -2612,7 +2723,8 @@ def extend_borders(planes, crops, border: int):
                                     [int(c[0]) for c in crops],
                                     [int(c[1]) for c in crops])]
     _launch(name, dev, ctypes.addressof(srcs), ctypes.addressof(dsts),
-            *(ctypes.addressof(a) for a in ints), len(planes), int(border))
+            *(ctypes.addressof(a) for a in ints), len(planes), int(border),
+            words=lambda: [v for a in ints for v in a])
     extend_borders.launches += 1
     return tuple(o.view(h, w) for o, (h, w) in zip(outs, shapes))
 

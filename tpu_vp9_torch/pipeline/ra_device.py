@@ -17,7 +17,10 @@ in decode order, as a decoder's does.
 
 CQP per-layer quantizers follow the qp-scaling ladder of
 ``gop.layer_qindex``. Per frame the rate tables are made from the frame
-context of that moment (serialization is synchronous).
+context of that moment (serialization is synchronous); they and the row of
+scalars (``tpu_encdec.step_scalars``, the private session's) are device
+tensors held for the life of the session and refilled in place before
+each step, so that the step's launches are the same at every layer.
 
 One behaviour differs from the JAX session on purpose: when a scheduled
 keyframe comes while frames of an unfinished mini-GOP wait (or while the
@@ -79,8 +82,6 @@ class DeviceRaSession:
         self._rt = RtSession(width, height, device=self.device,
                              want_recon=want_recon)
         self.g = self._rt.g
-        self._lim_tbl = self._rt._lim_tbl
-        self._mblim_tbl = self._rt._mblim_tbl
         self.dpb = DpbAllocator()
         self.planes_of = {}   # poc -> (y, u, v) border-extended, on device
         self.mv_of = {}       # poc -> (B32, 2) int32 MVs (search seeds)
@@ -93,6 +94,9 @@ class DeviceRaSession:
         self._next_poc = 0
         self._since_key = 0
         self._steps = {}
+        # the rate tables, held for the life of the session and refilled
+        # before each P-frame (the row of scalars is the private session's)
+        self._rates = None
         # what the P-frames decided, in 32x32 blocks (children excluded)
         self.tally = {"p_frames": 0, "split32": 0, "golden32": 0,
                       "altref32": 0, "split_not_last": 0,
@@ -278,11 +282,10 @@ class DeviceRaSession:
                      else (0, 0, 0, 0))
         step = self._step_for(golden is not None, alt is not None)
         src = self._rt.stage(frame)
-        ac_q = T.ac_quant(qidx)
         lf_lvl = pick_filter_level(qidx, False)
         with span("ra_rate_args"):
-            rates = upload_rate_tabs(make_rate_tabs(self.fc[0], qidx),
-                                     self.device)
+            self._rates = upload_rate_tabs(make_rate_tabs(self.fc[0], qidx),
+                                           self.device, out=self._rates)
         prev_mv = self.mv_of.get(gf.last_poc)
         if prev_mv is None:
             prev_mv = torch.zeros((g.n_blocks32, 2), dtype=torch.int32,
@@ -294,10 +297,8 @@ class DeviceRaSession:
             args += list(golden)
         if alt is not None:
             args += list(alt)
-        args += [prev_mv, prev16, T.dc_quant(qidx), ac_q,
-                 max(1, (ac_q ** 2) >> 6), lf_lvl,
-                 int(self._lim_tbl[lf_lvl]), int(self._mblim_tbl[lf_lvl]),
-                 rates]
+        args += [prev_mv, prev16, self._rt._scalars(qidx, False),
+                 self._rates]
         with span("ra_device_step"):
             outs, new_refs = step(*args)
         with span("ra_d2h_transfer"):

@@ -44,12 +44,19 @@ grid; the session keeps the strip's MVs as its temporal candidates,
 ``_prev_mv16``), and the descent is off, as in the JAX session.
 
 ``aq`` (tune SQ) gives the M8 step the adaptive lambda: each block's rate
-lambda scaled by its variance (``tpu_encdec._sb_lambda_scale``); as in the
+lambda scaled by its variance (``tpu_encdec.aq_scale``); as in the
 JAX session it takes effect with GOLDEN only (the step's rate tables).
+
+Each frame's scalars (quantizers, lambda, loop filter level and limits)
+reach the steps as one int32 row on the device (``tpu_encdec.
+step_scalars``), which the session holds for its life and refills in
+place before each step, keyframes included; the rate tables likewise. So
+the steps' launches are the same from frame to frame.
 
 ``mesh_shape`` shards the P-frame step's tile columns over a mesh of
 devices (``pipeline/tpu_shard.make_rt_step_sharded``: the first
-prod(mesh_shape) cards, or ``device`` repeated off CUDA), with GOLDEN,
+prod(mesh_shape) cards, or ``device`` repeated off CUDA; ``mesh_devices``
+names them instead, a device may repeat), with GOLDEN,
 without the descent (a notice where it was asked for) and without aq, as
 in the JAX session; the keyframe stays on ``device``. The streams equal
 the single-device session's.
@@ -76,13 +83,13 @@ from tpu_vp9_torch.codec import mv as MV
 from tpu_vp9_torch.codec.intra_frame import (
     make_frame_state, walk_partition_fixed,
 )
-from tpu_vp9_torch.ops.cuda_kernels import kf_check_status
+from tpu_vp9_torch.ops.cuda_kernels import STEP_SCALARS, kf_check_status
 from tpu_vp9_torch.ops.loopfilter import pick_filter_level, sharpness_limits
 from tpu_vp9_torch.pipeline.encoder import EncodedFrame, _apply_loop_filter
 from tpu_vp9_torch.pipeline.tpu_encdec import (
     DESCEND_FRAC, ZONE_KEYS, Geom, extend_borders, make_geom,
     make_kframe_step, make_pframe_step, make_rate_tabs, pad_plane,
-    recon_crops, upload_rate_tabs,
+    recon_crops, step_scalars, upload_rate_tabs,
 )
 from tpu_vp9_torch.pipeline.tpu_shard import make_rt_step_sharded
 from tpu_vp9_torch.utils.trace import notice, span
@@ -337,7 +344,7 @@ class RtSession:
                  want_recon: bool = True, loop_filter: bool = True,
                  split16: bool = False, golden: bool = False,
                  golden_interval: int = 8, mesh_shape=None,
-                 aq: bool = False):
+                 aq: bool = False, mesh_devices=None):
         self.g = make_geom(width, height)
         self.device = torch.device(device)
         self.w, self.h = width, height
@@ -371,7 +378,8 @@ class RtSession:
             self.split16 = False
             self.aq = False
             self._step = make_rt_step_sharded(self.g, mesh_shape,
-                                              self.device, golden=golden)
+                                              self.device, golden=golden,
+                                              devices=mesh_devices)
         else:
             self._step = make_pframe_step(self.g, self.device,
                                           split16=self.split16,
@@ -387,6 +395,10 @@ class RtSession:
         self._since_gold = 0
         self._rates_key = None
         self._rates_dev = None
+        # the frame's row of scalars (step_scalars), held for the life of
+        # the session and refilled before each step, keyframes' too
+        self._sc = torch.zeros(len(STEP_SCALARS), dtype=torch.int32,
+                               device=self.device)
         self._prev_mv32 = torch.zeros((self.g.n_blocks32, 2),
                                       dtype=torch.int32, device=self.device)
         # the children carry no temporal candidate, so only the strip
@@ -423,13 +435,15 @@ class RtSession:
     def _rate_args(self, qidx: int):
         """The step's rate tables on the device, made from the frame
         context of the last join (inline serialization: the current one)
-        and cached by (its identity, qindex)."""
+        and cached by (its identity, qindex); the session's tables are
+        refilled in place, so that their tensors stay the same."""
         with span("rt_rate_args"):
             fc = self._rates_fc if self._ser_async else self._fc[0]
             key = (id(fc), qidx)
             if self._rates_key != key:
                 self._rates_dev = upload_rate_tabs(make_rate_tabs(fc, qidx),
-                                                   self.device)
+                                                   self.device,
+                                                   out=self._rates_dev)
                 self._rates_key = key
                 self._rates_held = fc  # keeps the id from being reused
             return self._rates_dev
@@ -451,6 +465,16 @@ class RtSession:
                     tx_select=hdr.tx_mode == TxMode.TX_MODE_SELECT,
                     final_fc=getattr(st, "fc_final", None))
         self._last_was_inter = not is_key
+
+    def _scalars(self, qidx: int, is_key: bool):
+        """The session's row of scalars (``step_scalars``) refilled for a
+        frame at ``qidx``: its quantizers, lambda and loop filter level and
+        limits (the level 0 with the filter off)."""
+        lf_lvl = pick_filter_level(qidx, is_key) if self.loop_filter else 0
+        ac_q = T.ac_quant(qidx)
+        return step_scalars(T.dc_quant(qidx), ac_q, max(1, (ac_q ** 2) >> 6),
+                            lf_lvl, int(self._lim_tbl[lf_lvl]),
+                            int(self._mblim_tbl[lf_lvl]), out=self._sc)
 
     def _set_recon(self, st, host):
         if self.want_recon:
@@ -548,12 +572,9 @@ class RtSession:
         # keyframes reset every context (setup_past_independence)
         self._fc = [T.default_frame_context() for _ in range(4)]
         lf_lvl = pick_filter_level(qidx, True) if self.loop_filter else 0
-        lam = max(1, (T.ac_quant(qidx) ** 2) >> 6)
         with span("kf_device_step"):
-            outs, self._refs = self._kstep(
-                *self.stage(frame), T.dc_quant(qidx), T.ac_quant(qidx), lam,
-                lf_lvl, int(self._lim_tbl[lf_lvl]),
-                int(self._mblim_tbl[lf_lvl]))
+            outs, self._refs = self._kstep(*self.stage(frame),
+                                           self._scalars(qidx, True))
             # the fetch waits for the step anyway; waiting here lets the
             # two spans split the step from the copy
             self._sync()
@@ -694,10 +715,7 @@ class RtSession:
         a P-frame at ``qidx``, from the session's present state
         (``prev_mvs``: other previous MVs, (32 grid, strip))."""
         pm32, pm16 = prev_mvs or (self._prev_mv32, self._prev_mv16)
-        lf_lvl = pick_filter_level(qidx, False) if self.loop_filter else 0
-        args = (pm32, pm16, T.dc_quant(qidx), T.ac_quant(qidx),
-                max(1, (T.ac_quant(qidx) ** 2) >> 6), lf_lvl,
-                int(self._lim_tbl[lf_lvl]), int(self._mblim_tbl[lf_lvl]))
+        args = (pm32, pm16, self._scalars(qidx, False))
         if self.golden:
             return (*self._gold, *args, self._rate_args(qidx))
         return args

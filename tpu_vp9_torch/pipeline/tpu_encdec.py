@@ -28,9 +28,9 @@ pyramid's future anchor: its own search as LAST's, ZERO and NEW) and
 descends every parent (``descend_frac=1``). At tune SQ the M8 session
 adds the adaptive lambda (``aq``): a zone's rate lambda becomes a float32
 vector, one value a block, scaled by the block's variance against the
-frame's (``_sb_lambda_scale``); the descent's children and its split
-decision keep the frame's value. The descent is off at a strip geometry,
-as in the JAX package.
+frame's (``aq_scale``, a kernel on the card); the descent's children and
+its split decision keep the frame's value. The descent is off at a strip
+geometry, as in the JAX package.
 
 One place differs from the JAX package on purpose: its children take
 their chroma from the parent's merged MC windows, another reference's
@@ -88,6 +88,14 @@ here goes by anti-diagonals; all 10 intra modes predicted by
 ``predict_intra_all``), at a strip geometry the strip's 16x16 blocks with
 the above-only modes V, D45 and D63 (ADST_DCT, DCT_DCT and ADST_DCT at
 TX16), then the same loop filter and border extension.
+
+The per-frame scalars (the quantizers, the lambda, the loop filter's
+level and limits) reach both steps as one int32 device row
+(``step_scalars``), as the JAX package passes each as a device value, and
+the rate tables' scalars as another (``upload_rate_tabs``' "scalars");
+every kernel reads its words there, a session refills both rows in place
+before each frame, and nothing in a step reads a value back to the host:
+a step's launches are the same from frame to frame, whatever the qindex.
 
 Geometries: width % 32 == 0 and mi_rows % 4 in {0, 2, 3}; ``make_geom``
 refuses the others, as the JAX package's does.
@@ -249,6 +257,56 @@ def _pad_edge(plane, h: int, w: int):
     if ph < h:
         plane = torch.cat([plane, plane[-1:].expand(h - ph, w)], dim=0)
     return plane
+
+
+# ---------------------------------------------------------------------------
+# The step's per-frame scalars: one int32 device row
+# ---------------------------------------------------------------------------
+
+# the row's words (``cuda_kernels.STEP_SCALARS``, csrc/step_scalars.cuh)
+SC_DC_Q, SC_AC_Q, SC_LAM, SC_LF_LVL, SC_LF_LIM, SC_LF_MBLIM = range(
+    len(cuda_kernels.STEP_SCALARS))
+
+
+def step_scalars(dc_q: int, ac_q: int, lam: int, lf_lvl: int, lf_lim: int,
+                 lf_mblim: int, device="cpu", out=None):
+    """The step's per-frame scalars as one int32 row (``cuda_kernels.
+    STEP_SCALARS``), the form in which the steps, their dispatches and
+    kernels take them (the JAX package passes each as a device value).
+
+    The values are checked here, while they are host ints, as the kernels
+    that read them take them: the quantizers in [1, TXFM_MAX_Q] (the
+    transform's and the keyframe's), lam in [0, KF_MAX_LAM), the filter
+    level in [0, 63] and its limits not negative; nothing downstream reads
+    them back. ``out``: a row held for the life of a session, refilled in
+    place (``refill``: on its device's current stream, so behind the
+    previous step's readers), so that its pointer, and with it every
+    launch of the step, stays the same from frame to frame; else a new row
+    on ``device``. Returns the row."""
+    vals = [int(v) for v in (dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim)]
+    cuda_kernels.check_step_scalars(*vals)
+    host = torch.tensor(vals, dtype=torch.int32)
+    if out is None:
+        return host.to(device)
+    return refill(out, host)
+
+
+def refill(dst, host):
+    """Copy the CPU tensor ``host`` into ``dst`` in place, on the current
+    stream of ``dst``'s device: where ``dst`` lies on a card, from pinned
+    memory and without a wait (PyTorch's pinned allocator keeps the block
+    until the copy has run). Returns ``dst``."""
+    if dst.device.type == "cuda":
+        with torch.cuda.device(dst.device):
+            dst.copy_(host.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(host)
+    return dst
+
+
+def _row_ints(sc):
+    """A CPU row's values as host ints (reading it does not wait)."""
+    return sc.tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -433,16 +491,35 @@ def _sb_lambda_scale(src_sum, src2, n: int):
     return torch.from_numpy(scale).to(src_sum.device)
 
 
+def aq_scale_ref(src_sum, src2, n: int, scalars):
+    """The zone's per-block rate lambda (plain version of the kernel
+    behind ``ops/cuda_kernels.py:aq_scale``, same arguments): the frame's
+    float32 lam_bits, the word of the rate tables' device row ``scalars``
+    (``RATE_SCALARS``), times ``_sb_lambda_scale`` of the blocks' exact
+    sums, the product in float32. Returns (B,) float32 on ``src_sum``'s
+    device."""
+    k = cuda_kernels.RATE_SCALARS.index("lam_bits")
+    lam_bits = float(scalars[k:k + 1].view(torch.float32).item())
+    return _sb_lambda_scale(src_sum, src2, n) * lam_bits
+
+
+def aq_scale(src_sum, src2, n: int, scalars):
+    """The zone's per-block rate lambda (contract: ``aq_scale_ref``).
+    Tensors that all lie on the CPU take the plain version; anything else
+    goes to the CUDA kernel's wrapper, which launches or raises."""
+    if all(t.device.type == "cpu" for t in (src_sum, src2, scalars)):
+        return aq_scale_ref(src_sum, src2, n, scalars)
+    return cuda_kernels.aq_scale(src_sum, src2, n, scalars)
+
+
 def _aq_rates(rates, src_blocks, n: int):
-    """``rates`` with the zone's per-block rate lambda: the frame's
-    float32 ``lam_bits`` times ``_sb_lambda_scale`` of the blocks, whose
-    exact sums come from one ``block_energy`` launch against zero blocks
-    (its SSE the sum of squares, its SAD the sum)."""
+    """``rates`` with the zone's per-block rate lambda (``aq_scale``) of
+    the blocks, whose exact sums come from one ``block_energy`` launch
+    against zero blocks (its SSE the sum of squares, its SAD the sum)."""
     zeros = _zero_blocks(src_blocks.shape[0], n, src_blocks.device)
     src2, src_sum = block_energy(src_blocks, zeros, n)
-    scale = _sb_lambda_scale(src_sum, src2, n)
-    # the product in float32: the frame's value is one, as a host float
-    return dict(rates, lam_bits=scale * float(np.float32(rates["lam_bits"])))
+    return dict(rates, lam_bits=aq_scale(src_sum, src2, n,
+                                         rates["scalars"]))
 
 
 def _fullpel_starts(plane_shape, pos_y, pos_x, mv_r_q3, mv_c_q3, n: int,
@@ -758,27 +835,39 @@ def make_rate_tabs(fc, qindex: int):
     }
 
 
-def upload_rate_tabs(tabs, device):
+# the rate tables' device tensors (``upload_rate_tabs``)
+RATE_TENSORS = ("joint_cost", "nmv_row", "nmv_col", "scalars")
+
+
+def upload_rate_tabs(tabs, device, out=None):
     """The step's ``rates`` argument from ``make_rate_tabs``: the three
     LUTs the step gathers from go to ``device``, and so do the scalars, as
     one int32 row (``cuda_kernels.rate_scalars``, key "scalars"), which
-    the mode decision's kernel reads; beside it the scalars stay host
-    numbers (``lam_bits`` the float32 value) for the plain versions and
-    the descent. Both come from ``tabs``: a caller that changes a host
-    scalar uploads again."""
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    return {
+    the kernels read; beside it the scalars stay host numbers
+    (``lam_bits`` the float32 value) for the plain versions. Both come
+    from ``tabs``: a caller that changes a host scalar uploads again.
+    ``out``: a dict this function returned before, held for the life of a
+    session, whose device tensors are refilled in place (``refill``) and
+    whose host numbers are replaced; else a new dict."""
+    host = {
+        "joint_cost": tabs["joint_cost"], "nmv_row": tabs["nmv_row"],
+        "nmv_col": tabs["nmv_col"],
+        "scalars": cuda_kernels.rate_scalars(tabs)}
+    host = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32))
+            for k, v in host.items()}
+    rates = {
         "mode_cost": [int(v) for v in tabs["mode_cost"]],
         "ref_cost": [int(v) for v in tabs["ref_cost"]],
         "lam_bits": float(np.float32(tabs["lam_bits"])),
         "mv_cost_max": int(tabs["mv_cost_max"]),
-        "joint_cost": dev(tabs["joint_cost"]),
-        "nmv_row": dev(tabs["nmv_row"]),
-        "nmv_col": dev(tabs["nmv_col"]),
-        "scalars": dev(cuda_kernels.rate_scalars(tabs)),
     }
+    if out is None:
+        rates.update((k, v.to(device)) for k, v in host.items())
+        return rates
+    for k in RATE_TENSORS:
+        refill(out[k], host[k])
+    out.update(rates)
+    return out
 
 
 def _mvd_bits(rates, dr, dc):
@@ -919,9 +1008,10 @@ def _golden_costs(sses, prev_mv, lam: int, rates):
     cand_r = torch.stack([zero, prev_mv[:, 0]])
     cand_c = torch.stack([zero, prev_mv[:, 1]])
     if rates is not None:
-        mc = rates["mode_cost"]
-        g_rate = torch.tensor([[mc[2]], [mc[0]]], dtype=torch.int32,
-                              device=sses.device)
+        # the mode costs of ZERO and PREV out of the device row (words 2
+        # and 0 of RATE_SCALARS)
+        row = rates["scalars"]
+        g_rate = torch.stack([row[2:3], row[0:1]])
         costs = _table_costs(sses, g_rate, rates["lam_bits"])
     else:
         rz, _, _, rp, _ = CAND_RATE_PROXY
@@ -1054,15 +1144,16 @@ def mode_decide_ref(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
 
 def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                 rows: int, cols: int, r_map: int, q3_shift: int,
-                sse_scale: int, lam: int, new_bits, rates=None,
+                sse_scale: int, sc, new_bits, rates=None,
                 left_edge=None, gold_sse=None, alt=None):
-    """The zone's mode decision (contract: ``mode_decide_ref``). Tensors
-    that all lie on the CPU take the plain version; anything else goes to
-    the CUDA kernel's wrapper, which launches or raises."""
+    """The zone's mode decision (contract: ``mode_decide_ref``, its lam
+    the word of the step's row ``sc``). Tensors that all lie on the CPU
+    take the plain version; anything else goes to the CUDA kernel's
+    wrapper, which launches or raises."""
     if alt is not None and rates is None:
         raise ValueError("mode_decide: ALTREF takes the frame's rate tables")
     tensors = [ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
-               new_bits, left_edge, gold_sse, *(alt or ())]
+               new_bits, left_edge, gold_sse, *(alt or ()), sc]
     if rates is not None:
         tensors += [rates["joint_cost"], rates["nmv_row"], rates["nmv_col"],
                     rates["scalars"]]
@@ -1071,11 +1162,11 @@ def mode_decide(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     if all(t.device.type == "cpu" for t in tensors if t is not None):
         return mode_decide_ref(ssem, src2m, sse_zero, sse_new, new_r, new_c,
                                prev_mv, rows, cols, r_map, q3_shift,
-                               sse_scale, lam, new_bits, rates, left_edge,
-                               gold_sse, alt)
+                               sse_scale, _row_ints(sc)[SC_LAM], new_bits,
+                               rates, left_edge, gold_sse, alt)
     return cuda_kernels.mode_decide(
         ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows, cols,
-        r_map, q3_shift, sse_scale, lam, new_bits, rates, left_edge,
+        r_map, q3_shift, sse_scale, sc, new_bits, rates, left_edge,
         gold_sse, alt, CAND_RATE_PROXY)
 
 
@@ -1103,12 +1194,13 @@ def mode_decide_mc_ref(ssem, src2m, sse_zero, sse_new, new_r, new_c,
 
 def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                    rows: int, cols: int, r_map: int, q3_shift: int,
-                   sse_scale: int, lam: int, new_bits, rates, left_edge,
+                   sse_scale: int, sc, new_bits, rates, left_edge,
                    gold_sse, alt, planes, pos_y, pos_x, n: int, mi_rows: int,
                    mi_cols: int, filters, grid):
     """The zone's decision and its MC in one launch (contract:
-    ``mode_decide_mc_ref``; the first eighteen arguments are
-    ``mode_decide``'s, the rest ``mc_predict``'s but the MVs and ref_sel).
+    ``mode_decide_mc_ref``, its lam the word of the step's row ``sc``; the
+    first eighteen arguments are ``mode_decide``'s, the rest
+    ``mc_predict``'s but the MVs and ref_sel).
     Tensors that all lie on the CPU take the plain version; anything else
     goes to the CUDA kernel's wrapper with the grid's windows as
     ``mc_window_grid`` places them, which launches or raises."""
@@ -1117,7 +1209,7 @@ def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                          "tables")
     tensors = [ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
                new_bits, left_edge, gold_sse, *(alt or ()), pos_y, pos_x,
-               *(pl for ref in planes if ref is not None for pl in ref)]
+               *(pl for ref in planes if ref is not None for pl in ref), sc]
     if rates is not None:
         tensors += [rates["joint_cost"], rates["nmv_row"], rates["nmv_col"],
                     rates["scalars"]]
@@ -1126,13 +1218,14 @@ def mode_decide_mc(ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv,
     if all(t.device.type == "cpu" for t in tensors if t is not None):
         return mode_decide_mc_ref(ssem, src2m, sse_zero, sse_new, new_r,
                                   new_c, prev_mv, rows, cols, r_map,
-                                  q3_shift, sse_scale, lam, new_bits, rates,
-                                  left_edge, gold_sse, alt, planes, pos_y,
-                                  pos_x, n, mi_rows, mi_cols, filters, grid)
+                                  q3_shift, sse_scale, _row_ints(sc)[SC_LAM],
+                                  new_bits, rates, left_edge, gold_sse, alt,
+                                  planes, pos_y, pos_x, n, mi_rows, mi_cols,
+                                  filters, grid)
     shapes = tuple(tuple(t.shape) for t in planes[0])
     return cuda_kernels.mode_decide_mc(
         ssem, src2m, sse_zero, sse_new, new_r, new_c, prev_mv, rows, cols,
-        r_map, q3_shift, sse_scale, lam, new_bits, rates, left_edge,
+        r_map, q3_shift, sse_scale, sc, new_bits, rates, left_edge,
         gold_sse, alt, CAND_RATE_PROXY, planes, pos_y, pos_x, n, mi_rows,
         mi_cols, mc_window_grid(shapes, tuple(grid)))
 
@@ -1170,17 +1263,19 @@ def transform_recon_ref(src_blocks, pred_blocks, dc_q: int, ac_q: int,
     return levels.to(torch.int16), eob, recon
 
 
-def transform_recon(src_blocks, pred_blocks, dc_q: int, ac_q: int, n: int,
+def transform_recon(src_blocks, pred_blocks, sc, n: int,
                     tx_type=T.TxType.DCT_DCT):
-    """The step's transform stage (contract: ``transform_recon_ref``).
-    Blocks that both lie on the CPU take the plain version; anything else
-    goes to the CUDA kernel's wrapper, which launches or raises (and
-    refuses blocks on two devices)."""
-    if all(t.device.type == "cpu" for t in (src_blocks, pred_blocks)):
-        return transform_recon_ref(src_blocks, pred_blocks, dc_q, ac_q, n,
-                                   tx_type)
-    return cuda_kernels.transform_recon(src_blocks, pred_blocks, dc_q, ac_q,
-                                        n, tx_type)
+    """The step's transform stage (contract: ``transform_recon_ref``, its
+    quantizers the words of the step's row ``sc``). Blocks and row that
+    all lie on the CPU take the plain version; anything else goes to the
+    CUDA kernel's wrapper, which launches or raises (and refuses blocks on
+    two devices)."""
+    if all(t.device.type == "cpu" for t in (src_blocks, pred_blocks, sc)):
+        row = _row_ints(sc)
+        return transform_recon_ref(src_blocks, pred_blocks, row[SC_DC_Q],
+                                   row[SC_AC_Q], n, tx_type)
+    return cuda_kernels.transform_recon(src_blocks, pred_blocks, sc, n,
+                                        tx_type)
 
 
 def recon_from_levels(levels, pred_blocks, dc_q: int, ac_q: int, n: int,
@@ -1606,16 +1701,19 @@ def loop_filter_ref(y, u, v, geom: Geom, lvl: int, lim: int,
     return y, u, v
 
 
-def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
-                       mblim: int, split32=None):
-    """The step's loop filter (contract: ``loop_filter_ref``). Planes (and
-    mask) that all lie on the CPU take the plain version; anything else
-    goes to the CUDA kernel's wrapper, which launches or raises. Both
-    refuse a split mask with a strip geometry."""
-    tensors = (y, u, v) if split32 is None else (y, u, v, split32)
+def loop_filter_device(y, u, v, geom: Geom, sc, split32=None):
+    """The step's loop filter (contract: ``loop_filter_ref``, its level
+    and limits the words of the step's row ``sc``). Planes, row (and mask)
+    that all lie on the CPU take the plain version; anything else goes to
+    the CUDA kernel's wrapper, which launches or raises, at every level (a
+    level of 0 is the kernel's own branch). Both refuse a split mask with
+    a strip geometry."""
+    tensors = (y, u, v, sc) if split32 is None else (y, u, v, sc, split32)
     if all(t.device.type == "cpu" for t in tensors):
-        return loop_filter_ref(y, u, v, geom, lvl, lim, mblim, split32)
-    return loop_filter(y, u, v, geom, lvl, lim, mblim, split32)
+        row = _row_ints(sc)
+        return loop_filter_ref(y, u, v, geom, row[SC_LF_LVL],
+                               row[SC_LF_LIM], row[SC_LF_MBLIM], split32)
+    return loop_filter(y, u, v, geom, sc, split32)
 
 
 # ---------------------------------------------------------------------------
@@ -1624,16 +1722,17 @@ def loop_filter_device(y, u, v, geom: Geom, lvl: int, lim: int,
 
 
 def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
-                geom: Geom, dc_q: int, ac_q: int, lam: int, filters,
-                new_bits, gold=None, alt=None, rates=None,
-                return_me: bool = False, n: int = 32, aq: bool = False):
+                geom: Geom, sc, filters, new_bits, gold=None, alt=None,
+                rates=None, return_me: bool = False, n: int = 32,
+                aq: bool = False):
     """MD + recon for one uniform zone (the JAX package's ``encode_zone``):
     at n=32 the 32 grid, at n=16 the bottom strip of a strip geometry (one
     row of ``cols16`` blocks from plane row ``strip_y``).
 
     src planes: padded device planes; ref planes: border-extended
     previous reconstruction; prev_mv: (B, 2) int32 q3 MVs of the zone's
-    blocks in the previous frame (the temporal candidate). The 32 grid
+    blocks in the previous frame (the temporal candidate); sc: the step's
+    row of scalars (``step_scalars``) on their device. The 32 grid
     searches in two levels (``hier_search``) and refines to quarter-pel in
     the refine windows; the strip searches its +-WIN_R windows flat
     (``sse_map_search``) and refines in them. gold: optional (y, u, v)
@@ -1662,8 +1761,8 @@ def encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv,
         raise ValueError("encode_zone: ALTREF takes the frame's rate tables")
     me = zone_search(src_y, ref_y, _zone_positions(geom, src_y.device, n),
                      _zone(geom, n)[0], n, rates=rates, aq=aq)
-    return zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom, dc_q,
-                     ac_q, lam, filters, new_bits, gold=gold, alt=alt,
+    return zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom, sc,
+                     filters, new_bits, gold=gold, alt=alt,
                      return_me=return_me)
 
 
@@ -1711,10 +1810,9 @@ def zone_search(src_y, ref_y, positions, y0: int, n: int, rates=None,
             "rates": rates}
 
 
-def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
-              dc_q: int, ac_q: int, lam: int, filters, new_bits, gold=None,
-              alt=None, return_me: bool = False, left_edge=None,
-              x_base: int = 0):
+def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom, sc,
+              filters, new_bits, gold=None, alt=None,
+              return_me: bool = False, left_edge=None, x_base: int = 0):
     """The second half of ``encode_zone``, on ``zone_search``'s state
     ``me``: the candidate decision (``left_edge``: the NEW MVs of the
     column left of the blocks, as ``_candidate_decide`` takes them),
@@ -1745,17 +1843,16 @@ def zone_code(me, src_u, src_v, ref_u, ref_v, prev_mv, geom: Geom,
         _, _, ref_sel, mv, pred_y, pred_u, pred_v = mode_decide_mc(
             me["ssem"], me["src2m"], me["sse_zero"], me["sse_new"],
             me["new_r"], me["new_c"], prev_mv, rows, cols, me["r_map"],
-            me["q3s"], me["scale"], lam, new_bits, rates, left_edge,
+            me["q3s"], me["scale"], sc, new_bits, rates, left_edge,
             gold_sse, None if alt_me is None else alt_me[:4],
             [(me["ref_y"], ref_u, ref_v), gold, alt], pos_y, pos_x, n,
             g.mi_rows, g.mi_cols, filters, grid)
     with _stage("step_txfm"):
-        lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, dc_q, ac_q,
-                                             n)
+        lv_y, eob_y, rec_y = transform_recon(src_blocks, pred_y, sc, n)
         src_ub = _extract_blocks(src_u, y0 // 2, rows, cols, nc)
         src_vb = _extract_blocks(src_v, y0 // 2, rows, cols, nc)
-        lv_u, eob_u, rec_u = transform_recon(src_ub, pred_u, dc_q, ac_q, nc)
-        lv_v, eob_v, rec_v = transform_recon(src_vb, pred_v, dc_q, ac_q, nc)
+        lv_u, eob_u, rec_u = transform_recon(src_ub, pred_u, sc, nc)
+        lv_v, eob_v, rec_v = transform_recon(src_vb, pred_v, sc, nc)
         skip = (eob_y == 0) & (eob_u == 0) & (eob_v == 0)
         dist_b = block_energy(src_blocks, rec_y, n)[0]
         rate_b = ((lv_y != 0).sum(dim=(1, 2)) + (lv_u != 0).sum(dim=(1, 2))
@@ -1911,22 +2008,22 @@ def descent_decide_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2,
 
 
 def descent_decide(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
-                   base_x, par_r, par_c, lam: int, new_bits, rates=None):
-    """The children's candidate decision (contract: ``descent_decide_ref``).
-    Tensors that all lie on the CPU take the plain version; anything else
-    goes to the CUDA kernel's wrapper, which launches or raises."""
-    tabs = () if rates is None else (rates["joint_cost"], rates["nmv_row"],
-                                     rates["nmv_col"])
+                   base_x, par_r, par_c, sc, new_bits, rates=None):
+    """The children's candidate decision (contract: ``descent_decide_ref``,
+    its lam the word of the step's row ``sc``). Tensors that all lie on
+    the CPU take the plain version; anything else goes to the CUDA
+    kernel's wrapper, which launches or raises."""
+    tabs = () if rates is None else tuple(rates[k] for k in RATE_TENSORS)
     if all(t.device.type == "cpu" for t in (ssem_c, sse_zero, sse_new,
                                             sub_r, sub_c, src2, base_y,
                                             base_x, par_r, par_c, new_bits,
-                                            *tabs)):
+                                            *tabs, sc)):
         return descent_decide_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c,
-                                  src2, base_y, base_x, par_r, par_c, lam,
-                                  new_bits, rates)
+                                  src2, base_y, base_x, par_r, par_c,
+                                  _row_ints(sc)[SC_LAM], new_bits, rates)
     return cuda_kernels.descent_decide(
         ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x,
-        par_r, par_c, lam, new_bits, rates,
+        par_r, par_c, sc, new_bits, rates,
         (CAND_RATE_PROXY[0], CAND_RATE_PROXY[4]))
 
 
@@ -1952,32 +2049,32 @@ def descent_decide_mc_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2,
 
 
 def descent_decide_mc(ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y,
-                      base_x, par_r, par_c, lam: int, new_bits, rates,
-                      planes, pos_y, pos_x, n: int, mi_rows: int,
-                      mi_cols: int, filters, grid, win_idx, org_off_y,
-                      org_off_x):
+                      base_x, par_r, par_c, sc, new_bits, rates, planes,
+                      pos_y, pos_x, n: int, mi_rows: int, mi_cols: int,
+                      filters, grid, win_idx, org_off_y, org_off_x):
     """The children's decision and their MC in one launch (contract:
-    ``descent_decide_mc_ref``; the first thirteen arguments are
+    ``descent_decide_mc_ref``, its lam the word of the step's row ``sc``;
+    the first thirteen arguments are
     ``descent_decide``'s, the rest ``mc_predict``'s but the MVs). Tensors
     that all lie on the CPU take the plain version; anything else goes to
     the CUDA kernel's wrapper with the grid's windows as
     ``mc_window_grid`` places them, which launches or raises (with rates,
     it reads the mode costs and lam_bits from their device row)."""
-    tabs = () if rates is None else (rates["joint_cost"], rates["nmv_row"],
-                                     rates["nmv_col"], rates["scalars"])
+    tabs = () if rates is None else tuple(rates[k] for k in RATE_TENSORS)
     if all(t.device.type == "cpu" for t in (
             ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x,
             par_r, par_c, new_bits, *tabs, *planes[0], pos_y, pos_x,
-            win_idx, org_off_y, org_off_x)):
+            win_idx, org_off_y, org_off_x, sc)):
         return descent_decide_mc_ref(ssem_c, sse_zero, sse_new, sub_r, sub_c,
-                                     src2, base_y, base_x, par_r, par_c, lam,
-                                     new_bits, rates, planes, pos_y, pos_x,
-                                     n, mi_rows, mi_cols, filters, grid,
-                                     win_idx, org_off_y, org_off_x)
+                                     src2, base_y, base_x, par_r, par_c,
+                                     _row_ints(sc)[SC_LAM], new_bits, rates,
+                                     planes, pos_y, pos_x, n, mi_rows,
+                                     mi_cols, filters, grid, win_idx,
+                                     org_off_y, org_off_x)
     shapes = tuple(tuple(t.shape) for t in planes[0])
     return cuda_kernels.descent_decide_mc(
         ssem_c, sse_zero, sse_new, sub_r, sub_c, src2, base_y, base_x,
-        par_r, par_c, lam, new_bits, rates,
+        par_r, par_c, sc, new_bits, rates,
         (CAND_RATE_PROXY[0], CAND_RATE_PROXY[4]), planes, pos_y, pos_x, n,
         mi_rows, mi_cols, mc_window_grid(shapes, tuple(grid)), win_idx,
         org_off_y, org_off_x)
@@ -2022,9 +2119,8 @@ def descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v,
 
 
 def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
-                           parent_mv, sel_idx, geom: Geom, dc_q: int,
-                           ac_q: int, lam: int, filters, new_bits,
-                           rates=None):
+                           parent_mv, sel_idx, geom: Geom, sc, filters,
+                           new_bits, rates=None):
     """Masked 32->16 descent: encode the four 16x16 children of the K
     selected parents only (``tpu_vp9/pipeline/tpu_encdec.py:
     encode_children_masked``).
@@ -2037,8 +2133,9 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
     at the zone's window grid, through per-child origin offsets. parent_mv:
     (B32, 2) int32 final q3 MVs of the parents (the PARENT candidate,
     scored at its entry of the child's SSE map). sel_idx: (K,) raster
-    parent indices. Candidates {ZERO, NEW, PARENT}, first minimum, decided
-    in the children's MC launch (``descent_decide_mc``). Child order: k*4 +
+    parent indices; sc: the step's row of scalars (``step_scalars``).
+    Candidates {ZERO, NEW, PARENT}, first minimum, decided in the
+    children's MC launch (``descent_decide_mc``). Child order: k*4 +
     2*i + j for parent
     sel_idx[k], child row i, column j.
     Returns per-child arrays (4K: mv, skip, eob_*, lv_*), sel_idx, and
@@ -2060,15 +2157,13 @@ def encode_children_masked(src_y, src_u, src_v, ref_y, parent_me,
         # = the child's offset inside the parent)
         _, _, mv, pred_y, pred_u, pred_v = descent_decide_mc(
             ssem_c, ga["sse_zero"], sse_new, sub_r, sub_c, ga["src2"],
-            ga["base_y"], ga["base_x"], ga["par_r"], ga["par_c"], lam,
+            ga["base_y"], ga["base_x"], ga["par_r"], ga["par_c"], sc,
             new_bits, rates, [parent_me["planes"]], ga["pos_y"],
             ga["pos_x"], 16, g.mi_rows, g.mi_cols, filters,
             parent_me["grid"], ga["win_idx"], ga["off_y"], ga["off_x"])
-        lv_u, eob_u, rec_u = transform_recon(ga["csrc_u"], pred_u, dc_q,
-                                             ac_q, 8)
-        lv_v, eob_v, rec_v = transform_recon(ga["csrc_v"], pred_v, dc_q,
-                                             ac_q, 8)
-        lv_y, eob_y, rec_y = transform_recon(csrc, pred_y, dc_q, ac_q, 16)
+        lv_u, eob_u, rec_u = transform_recon(ga["csrc_u"], pred_u, sc, 8)
+        lv_v, eob_v, rec_v = transform_recon(ga["csrc_v"], pred_v, sc, 8)
+        lv_y, eob_y, rec_y = transform_recon(csrc, pred_y, sc, 16)
         packed = descent_pack(eob_y, eob_u, eob_v, lv_y, lv_u, lv_v, rec_y,
                               rec_u, rec_v, csrc)
     return {
@@ -2127,27 +2222,27 @@ def descent_split_ref(sel_idx, dist_b, rate_b, dist4, rate4, rec_y, rec_u,
 
 
 def descent_split(sel_idx, dist_b, rate_b, dist4, rate4, rec_y, rec_u,
-                  rec_v, rec_y32, rec_u16, rec_v16, lam: int, geom: Geom):
-    """The split decision and merge (contract: ``descent_split_ref``).
-    Tensors that all lie on the CPU take the plain version, which returns
+                  rec_v, rec_y32, rec_u16, rec_v16, sc, geom: Geom):
+    """The split decision and merge (contract: ``descent_split_ref``, its
+    lam the word of the step's row ``sc``). Tensors that all lie on the
+    CPU take the plain version, which returns
     new planes; anything else goes to the CUDA kernel's wrapper, which
     launches or raises, and which writes the split parents' blocks into
     ``rec_y``, ``rec_u`` and ``rec_v`` in place and returns those planes:
     a caller that still needs the zone's recon clones it first."""
     if all(t.device.type == "cpu" for t in (sel_idx, dist_b, rate_b, dist4,
                                             rate4, rec_y, rec_u, rec_v,
-                                            rec_y32, rec_u16, rec_v16)):
+                                            rec_y32, rec_u16, rec_v16, sc)):
         return descent_split_ref(sel_idx, dist_b, rate_b, dist4, rate4,
                                  rec_y, rec_u, rec_v, rec_y32, rec_u16,
-                                 rec_v16, lam, geom)
+                                 rec_v16, _row_ints(sc)[SC_LAM], geom)
     return cuda_kernels.descent_split(sel_idx, dist_b, rate_b, dist4, rate4,
                                       rec_y, rec_u, rec_v, rec_y32, rec_u16,
-                                      rec_v16, lam, geom, SPLIT_RATE_EXTRA)
+                                      rec_v16, sc, geom, SPLIT_RATE_EXTRA)
 
 
 def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
-                prev_mv16, geom: Geom, dc_q: int, ac_q: int, lam: int,
-                lf_lvl: int, lf_lim: int, lf_mblim: int, filters, new_bits,
+                prev_mv16, geom: Geom, sc, filters, new_bits,
                 split16: bool = False, gold=None, alt=None, rates=None,
                 descend_frac: int = DESCEND_FRAC, aq: bool = False):
     """One device P-frame encode step (the JAX package's ``pframe_step``).
@@ -2156,7 +2251,10 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
     tensors; ref planes: the border-extended previous reconstruction.
     prev_mv32, prev_mv16: (B, 2) int32 q3 MVs of the previous frame, of
     the 32 grid and of the strip's 16x16 blocks (read at a strip geometry
-    only). split16: descend the B32 // descend_frac parents of the largest
+    only). sc: the step's per-frame scalars, the int32 row of
+    ``step_scalars`` on the planes' device (dc_q, ac_q, lam, lf_lvl,
+    lf_lim, lf_mblim), which every kernel of the step reads on the card.
+    split16: descend the B32 // descend_frac parents of the largest
     distortion and decide 32 against 4x16 for each (with GOLDEN, the
     parents that took another reference rank last, as does the overhang
     row, which keeps its 32); a ValueError with a strip geometry, as in
@@ -2178,9 +2276,8 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
         raise ValueError("pframe_step: split16 requires a strip-free "
                          "geometry")
     out32 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
-                        prev_mv32, g, dc_q, ac_q, lam, filters, new_bits,
-                        gold=gold, alt=alt, rates=rates, return_me=split16,
-                        aq=aq)
+                        prev_mv32, g, sc, filters, new_bits, gold=gold,
+                        alt=alt, rates=rates, return_me=split16, aq=aq)
     outs = {"m32": out32}
     rec_y, rec_u, rec_v = out32["rec_y"], out32["rec_u"], out32["rec_v"]
     split32 = None
@@ -2198,8 +2295,8 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                                       max(1, g.n_blocks32 // descend_frac))
         out16 = encode_children_masked(
             src_y, src_u, src_v, ref_y, parent_me,
-            out32["mv"].to(torch.int32), sel_idx, g, dc_q, ac_q, lam,
-            filters, new_bits, rates=rates)
+            out32["mv"].to(torch.int32), sel_idx, g, sc, filters, new_bits,
+            rates=rates)
         with _stage("step_children"):
             # A parent in the overhang row keeps its 32: its children
             # would need the forced edge partition, which
@@ -2211,13 +2308,13 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
                 out16["sel_idx"], out32["dist_b"], out32["rate_b"],
                 out16.pop("dist4"), out16.pop("rate4"), rec_y, rec_u,
                 rec_v, out16.pop("rec_y32"), out16.pop("rec_u16"),
-                out16.pop("rec_v16"), lam, g)
+                out16.pop("rec_v16"), sc, g)
         outs["m16f"] = out16
         outs["split32"] = split32
     if g.strip:
         out16 = encode_zone(src_y, src_u, src_v, ref_y, ref_u, ref_v,
-                            prev_mv16, g, dc_q, ac_q, lam, filters, new_bits,
-                            gold=gold, alt=alt, rates=rates, n=16, aq=aq)
+                            prev_mv16, g, sc, filters, new_bits, gold=gold,
+                            alt=alt, rates=rates, n=16, aq=aq)
         outs["m16"] = out16
         rec_y = torch.cat([rec_y, out16["rec_y"]])
         rec_u = torch.cat([rec_u, out16["rec_u"]])
@@ -2227,8 +2324,7 @@ def pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv32,
         rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
         rec_u = _pad_edge(rec_u, g.pad_h // 2, g.pad_w // 2)
         rec_v = _pad_edge(rec_v, g.pad_h // 2, g.pad_w // 2)
-        rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g,
-                                                 lf_lvl, lf_lim, lf_mblim,
+        rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g, sc,
                                                  split32=split32)
     outs.update(rec_y=rec_y, rec_u=rec_u, rec_v=rec_v)
     with _stage("step_borders"):
@@ -2246,11 +2342,15 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
         step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
              [gold_y, gold_u, gold_v,]          # golden
              [alt_y, alt_u, alt_v,]             # altref
-             prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
-             lf_mblim [, rates])                 # golden, altref or
-                                                 # with_rates
+             prev_mv32, prev_mv16, sc [, rates])  # golden, altref or
+                                                  # with_rates
 
-    ``rates`` is ``upload_rate_tabs(make_rate_tabs(fc, qindex), device)``;
+    ``sc`` is the frame's row of scalars, ``step_scalars(dc_q, ac_q, lam,
+    lf_lvl, lf_lim, lf_mblim, out=row)``: a caller holds one row on the
+    device and refills it before each step, so that no per-frame value is
+    a launch argument and every launch of the step is the same from frame
+    to frame. ``rates`` is ``upload_rate_tabs(make_rate_tabs(fc, qindex),
+    device)``, likewise refilled in place (its ``out``);
     as in the JAX package a GOLDEN or ALTREF step always takes them.
     ``prev_mv16`` is the strip's previous MVs, (cols16, 2), read at a
     strip geometry only (the JAX sessions pass a (1, 2) placeholder
@@ -2263,7 +2363,7 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
     new_bits = new_bits_table(device)
     with_rates = with_rates or golden or altref
     n_refs = 3 * (1 + int(golden) + int(altref))
-    n_fixed = 11 + n_refs + (1 if with_rates else 0)
+    n_fixed = 6 + n_refs + (1 if with_rates else 0)
 
     def step(src_y, src_u, src_v, *rest):
         if len(rest) + 3 != n_fixed:
@@ -2274,12 +2374,10 @@ def make_pframe_step(geom: Geom, device, split16: bool = False,
         gold = refs.pop(0) if golden else None
         alt = refs.pop(0) if altref else None
         rest = rest[n_refs:]
-        rates = rest[8] if with_rates else None
-        (prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
-         lf_mblim) = rest[:8]
+        rates = rest[3] if with_rates else None
+        prev_mv32, prev_mv16, sc = rest[:3]
         return pframe_step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
-                           prev_mv32, prev_mv16, geom, dc_q, ac_q, lam,
-                           lf_lvl, lf_lim, lf_mblim, filters, new_bits,
+                           prev_mv32, prev_mv16, geom, sc, filters, new_bits,
                            split16=split16, gold=gold, alt=alt, rates=rates,
                            descend_frac=descend_frac, aq=aq)
 
@@ -2356,19 +2454,20 @@ def kframe_wave_ref(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
     return (mode, *lvs, *eob.unbind(0), *recs)
 
 
-def kframe_wave_device(src_y, src_u, src_v, geom: Geom, dc_q: int,
-                       ac_q: int, lam: int, status=None):
-    """The keyframe's intra wavefront (contract: ``kframe_wave_ref``).
-    Planes that all lie on the CPU take the plain version; anything else
+def kframe_wave_device(src_y, src_u, src_v, geom: Geom, sc, status=None):
+    """The keyframe's intra wavefront (contract: ``kframe_wave_ref``, its
+    quantizers and lambda the words of the step's row ``sc``). Planes and
+    row that all lie on the CPU take the plain version; anything else
     goes to the CUDA kernel's wrapper, which launches or raises, and which
     appends its launch's error word to the list ``status`` if one is given
     (``cuda_kernels.kframe_wave``; the plain version has none). At a strip
     geometry both encode the 32 zone above the strip."""
-    if all(t.device.type == "cpu" for t in (src_y, src_u, src_v)):
-        dc_q, ac_q, lam = int(dc_q), int(ac_q), int(lam)
-        check_kf_args(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
-        return kframe_wave_ref(src_y, src_u, src_v, geom, dc_q, ac_q, lam)
-    return kframe_wave(src_y, src_u, src_v, geom, dc_q, ac_q, lam, status)
+    if all(t.device.type == "cpu" for t in (src_y, src_u, src_v, sc)):
+        check_kf_args(src_y, src_u, src_v, geom)
+        row = _row_ints(sc)
+        return kframe_wave_ref(src_y, src_u, src_v, geom, row[SC_DC_Q],
+                               row[SC_AC_Q], row[SC_LAM])
+    return kframe_wave(src_y, src_u, src_v, geom, sc, status)
 
 
 # the keyframe strip's candidate modes (above-only: each reads nothing
@@ -2396,44 +2495,53 @@ def _strip_intra_preds(rec, y0: int, nb: int, bs: int, modes):
     return preds[:, [int(m) for m in modes]]
 
 
-def kframe_strip(src_y, src_u, src_v, rec_y, rec_u, rec_v, geom: Geom,
-                 dc_q: int, ac_q: int, lam: int):
+@functools.lru_cache(maxsize=None)
+def _kf_strip_consts(device):
+    """The strip's mode prior (KF_STRIP_BIAS, (3, 1) int32) and its modes'
+    IntraMode values (int32) on ``device``, made once (a per-frame host
+    tensor would be a copy that waits)."""
+    return (torch.tensor(KF_STRIP_BIAS, dtype=torch.int32,
+                         device=device)[:, None],
+            torch.tensor([int(m) for m in KF_STRIP_MODES], dtype=torch.int32,
+                         device=device))
+
+
+def kframe_strip(src_y, src_u, src_v, rec_y, rec_u, rec_v, geom: Geom, sc):
     """The keyframe's bottom strip of a strip geometry (the JAX package's
     ``kframe_step`` strip branch): every 16x16 block at once, its above
     row the 32 zone's last (unfiltered) recon row. Luma tries V, D45 and
     D63, each through ``transform_recon`` with its mode's transform type
     (ADST_DCT, DCT_DCT, ADST_DCT), and keeps the one of least recon SSE
     (``block_energy``) + KF_STRIP_BIAS * lam, the first on a tie; chroma
-    is 8x8 DCT in that mode. Returns ("m16" outputs, the strip's recon
-    rows of y, u, v)."""
+    is 8x8 DCT in that mode; the quantizers and lam are the words of the
+    step's row ``sc``. Returns ("m16" outputs, the strip's recon rows of
+    y, u, v)."""
     g = geom
     sb, y0, y0c = g.cols16, g.strip_y, g.strip_y >> 1
     dev = src_y.device
     src_s = _extract_blocks(src_y, y0, 1, sb, 16)
     preds = _strip_intra_preds(rec_y, y0, sb, 16, KF_STRIP_MODES)
     cands = [transform_recon(src_s, preds[:, i].to(torch.uint8).contiguous(),
-                             dc_q, ac_q, 16, INTRA_MODE_TO_TX_TYPE[m])
+                             sc, 16, INTRA_MODE_TO_TX_TYPE[m])
              for i, m in enumerate(KF_STRIP_MODES)]
     k = len(cands)
     recs = torch.cat([c[2] for c in cands])  # candidate-major (k B, 16, 16)
     sse = block_energy(src_s.repeat(k, 1, 1), recs, 16)[0].reshape(k, sb)
-    bias = torch.tensor(KF_STRIP_BIAS, dtype=torch.int32,
-                        device=dev)[:, None] * lam
-    best = torch.argmin(sse + bias, dim=0)  # the first minimum
+    bias, modes = _kf_strip_consts(dev)
+    best = torch.argmin(sse + bias * sc[SC_LAM], dim=0)  # the first minimum
     ar = torch.arange(sb, device=dev)
 
     def pick(i):
         return torch.stack([c[i] for c in cands])[best, ar]
 
     lv_y, eob_y, recs_y = pick(0), pick(1), pick(2)
-    mode = torch.tensor([int(m) for m in KF_STRIP_MODES], dtype=torch.int32,
-                        device=dev)[best]
+    mode = modes[best]
     chroma = []
     for src_c, rec_c in ((src_u, rec_u), (src_v, rec_v)):
         blocks = _extract_blocks(src_c, y0c, 1, sb, 8)
         pc = _strip_intra_preds(rec_c, y0c, sb, 8, KF_STRIP_MODES)
         pred = pc[ar, best].to(torch.uint8)
-        chroma.append(transform_recon(blocks, pred, dc_q, ac_q, 8))
+        chroma.append(transform_recon(blocks, pred, sc, 8))
     (lv_u, eob_u, recs_u), (lv_v, eob_v, recs_v) = chroma
     out = {"mode": mode,
            "skip": (eob_y == 0) & (eob_u == 0) & (eob_v == 0),
@@ -2444,13 +2552,14 @@ def kframe_strip(src_y, src_u, src_v, rec_y, rec_u, rec_v, geom: Geom,
                  _scatter_blocks(recs_v, 1, sb, 8))
 
 
-def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
-                lam: int, lf_lvl: int, lf_lim: int, lf_mblim: int):
+def kframe_step(src_y, src_u, src_v, geom: Geom, sc):
     """The closed-loop intra keyframe encode on the device (the JAX
     package's ``kframe_step``).
 
-    src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 tensors.
-    The 32x32 blocks are encoded in wave order (``kframe_wave_device``: a
+    src planes: padded (pad_h, pad_w) / (pad_h/2, pad_w/2) uint8 tensors;
+    sc: the frame's row of scalars (``step_scalars``, the keyframe's
+    lambda and filter level) on their device. The 32x32 blocks are encoded
+    in wave order (``kframe_wave_device``: a
     CUDA kernel for CUDA planes, its plain version for CPU planes); at a
     strip geometry the strip's 16x16 blocks after them
     (``kframe_strip``); the recon is edge-padded to the device planes,
@@ -2466,8 +2575,7 @@ def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
     g = geom
     status = []
     (mode, lv_y, lv_u, lv_v, eob_y, eob_u, eob_v, rec_y, rec_u,
-     rec_v) = kframe_wave_device(src_y, src_u, src_v, g, dc_q, ac_q, lam,
-                                 status)
+     rec_v) = kframe_wave_device(src_y, src_u, src_v, g, sc, status)
     outs = {"m32": {
         "mode": mode, "skip": (eob_y == 0) & (eob_u == 0) & (eob_v == 0),
         "eob_y": eob_y, "eob_u": eob_u, "eob_v": eob_v,
@@ -2476,14 +2584,13 @@ def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
             1, dtype=torch.int32, device=mode.device)}
     if g.strip:
         outs["m16"], strip = kframe_strip(src_y, src_u, src_v, rec_y, rec_u,
-                                          rec_v, g, dc_q, ac_q, lam)
+                                          rec_v, g, sc)
         rec_y, rec_u, rec_v = (torch.cat([a, b]) for a, b in
                                zip((rec_y, rec_u, rec_v), strip))
     rec_y = _pad_edge(rec_y, g.pad_h, g.pad_w)
     rec_u = _pad_edge(rec_u, g.pad_h // 2, g.pad_w // 2)
     rec_v = _pad_edge(rec_v, g.pad_h // 2, g.pad_w // 2)
-    rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g, lf_lvl,
-                                             lf_lim, lf_mblim)
+    rec_y, rec_u, rec_v = loop_filter_device(rec_y, rec_u, rec_v, g, sc)
     outs.update(rec_y=rec_y, rec_u=rec_u, rec_v=rec_v)
     refs = extend_borders((rec_y, rec_u, rec_v), recon_crops(g))
     return outs, refs
@@ -2492,17 +2599,19 @@ def kframe_step(src_y, src_u, src_v, geom: Geom, dc_q: int, ac_q: int,
 def make_kframe_step(geom: Geom, device):
     """The keyframe step for one geometry on one device:
 
-        step(src_y, src_u, src_v, dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim)
+        step(src_y, src_u, src_v, sc)
 
-    Refuses planes that do not lie on ``device``'s kind of device."""
+    ``sc``: the frame's row of scalars, ``step_scalars(dc_q, ac_q, lam,
+    lf_lvl, lf_lim, lf_mblim, out=row)`` refilled in a row the caller
+    holds, as the P-frame step takes it (its lambda and filter level the
+    keyframe's). Refuses planes that do not lie on ``device``'s kind of
+    device."""
     kind = torch.device(device).type
 
-    def step(src_y, src_u, src_v, dc_q, ac_q, lam, lf_lvl, lf_lim,
-             lf_mblim):
+    def step(src_y, src_u, src_v, sc):
         if any(t.device.type != kind for t in (src_y, src_u, src_v)):
             raise ValueError(f"the keyframe step for {kind} was given "
                              "planes on another device")
-        return kframe_step(src_y, src_u, src_v, geom, dc_q, ac_q, lam,
-                           lf_lvl, lf_lim, lf_mblim)
+        return kframe_step(src_y, src_u, src_v, geom, sc)
 
     return step

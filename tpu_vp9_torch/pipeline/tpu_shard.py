@@ -27,9 +27,14 @@ are the new references, and the next step hands each shard its columns
 again. The distortion and rate sums are added up there too (the JAX
 package's ``psum``).
 
-Every copy between devices is ``Tensor.to(device)``, which PyTorch orders
-against the current streams of both devices; nothing here makes a stream
-of its own, and nothing reads a result on the host.
+Every copy between devices is ``Tensor.to(device)`` or ``Tensor.copy_``,
+which PyTorch orders against the current streams of both devices;
+nothing here makes a stream of its own, and nothing reads a result on the
+host. The step's row of scalars (``tpu_encdec.step_scalars``) and the rate
+tables reach every device of the mesh: where one lies on another device
+than the caller's, in tensors the step holds for its life and refills in
+place (``_held_on``), so that a shard's launches are the same from frame
+to frame.
 
 Levels, MVs, eobs, recon, distortion and rate equal the single-device
 step's for any shard count (``tests/test_torch_shard.py`` against the JAX
@@ -108,6 +113,18 @@ def _halo_planes(planes_by_shard):
           for col in zip(*planes_by_shard)))]
 
 
+def _held_on(held: dict, key, t, device):
+    """``t`` on ``device``: ``t`` itself where it lies there, else the
+    tensor ``held[key, device]``, made at first use and held for the life
+    of the step, refilled in place from ``t``."""
+    if t.device == device:
+        return t
+    buf = held.get((key, device))
+    if buf is None:
+        buf = held[key, device] = torch.empty_like(t, device=device)
+    return buf.copy_(t)
+
+
 def _encode_zone_shard(src, ref_h, prev_mv, geom: Geom, consts, n: int = 32,
                        gold_h=None, rates=None):
     """The zone of n-blocks on every column shard of one frame row.
@@ -115,12 +132,13 @@ def _encode_zone_shard(src, ref_h, prev_mv, geom: Geom, consts, n: int = 32,
     src: per shard the (y, u, v) source planes of its columns; ref_h,
     gold_h: per shard the border-extended reference planes of
     ``_halo_planes``; prev_mv: per shard its blocks' previous MVs;
-    consts: (dc_q, ac_q, lam, filters by device, new_bits by device);
+    consts: (the step's row of scalars, filters, new_bits; each by
+    device);
     rates: per shard ``upload_rate_tabs`` on its device, or None. Every
     shard searches first; then each takes the previous shard's last column
     of NEW MVs (the first shard: the frame's edge, zeros) and codes its
     blocks. Returns per shard ``zone_code``'s dict."""
-    dc_q, ac_q, lam, filters, new_bits = consts
+    sc, filters, new_bits = consts
     n_tiles = len(src)
     y0 = _zone(geom, n)[0]
     mes, x0s = [], []
@@ -143,16 +161,17 @@ def _encode_zone_shard(src, ref_h, prev_mv, geom: Geom, consts, n: int = 32,
                 .contiguous()
         outs.append(zone_code(
             me, src[t][1], src[t][2], ref_h[t][1], ref_h[t][2], prev_mv[t],
-            geom, dc_q, ac_q, lam, filters[dev], new_bits[dev],
+            geom, sc[dev], filters[dev], new_bits[dev],
             gold=None if gold_h is None else gold_h[t], left_edge=edge,
             x_base=x0s[t]))
     return outs
 
 
-def _rates_on(rates, device):
-    """``upload_rate_tabs``' dict with its lookup tables on ``device``."""
-    return {k: v.to(device) if isinstance(v, torch.Tensor) else v
-            for k, v in rates.items()}
+def _rates_on(rates, device, held: dict):
+    """``upload_rate_tabs``' dict with its device tensors on ``device``
+    (``_held_on``)."""
+    return {k: _held_on(held, k, v, device) if isinstance(v, torch.Tensor)
+            else v for k, v in rates.items()}
 
 
 def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
@@ -160,8 +179,7 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
     """The P-frame step over a mesh with axes ('frame', 'tile'):
 
         step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv, prev_mv16,
-             dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim
-             [, gold_y, gold_u, gold_v, rates])            # golden
+             sc [, gold_y, gold_u, gold_v, rates])            # golden
 
     mesh: rows of ``n_tiles`` devices (a device may repeat). The planes
     are (F, H, W) tensors on any device, F a multiple of the rows: frame
@@ -170,9 +188,11 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
     step derives them). prev_mv: (F, n_blocks32, 2) in shard-major order
     (each shard's blocks in raster order, the shards left to right);
     prev_mv16: (F, cols16, 2), the strip's (read at a strip geometry
-    only). The scalars are host ints; ``rates`` is
-    ``upload_rate_tabs(...)``, which a GOLDEN step takes, as in the JAX
-    package.
+    only). ``sc`` is the frame's row of scalars (``tpu_encdec.
+    step_scalars``) on any device of the mesh, as the single-device step
+    takes it; ``rates`` is ``upload_rate_tabs(...)``, which a GOLDEN step
+    takes, as in the JAX package. Both reach the other devices in tensors
+    the step holds (``_held_on``).
 
     Returns (outs, (ref_y, ref_u, ref_v)) on the mesh's first device:
     outs' per-block arrays (F, n_blocks32, ...) in shard-major order (a
@@ -195,7 +215,8 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
     filters = {d: torch.as_tensor(np.asarray(FILTERS, np.int32), device=d)
                for d in devices}
     new_bits = {d: new_bits_table(d) for d in devices}
-    n_fixed = 14 + (4 if golden else 0)
+    n_fixed = 9 + (4 if golden else 0)
+    held = {}
     wl = g.pad_w // n_tiles
     b_loc = g.n_blocks32 // n_tiles
     s_loc = g.cols16 // n_tiles
@@ -206,9 +227,9 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
                       for p, ss in zip(planes, (0, 1, 1)))
                 for t, dev in enumerate(devs)]
 
-    def one_frame(devs, src, ref, gold, prev_mv, prev_mv16, scal, rates):
-        dc_q, ac_q, lam, lf_lvl, lf_lim, lf_mblim = scal
-        consts = (dc_q, ac_q, lam, filters, new_bits)
+    def one_frame(devs, src, ref, gold, prev_mv, prev_mv16, sc, rates):
+        sc_on = {d: _held_on(held, "sc", sc, d) for d in devs}
+        consts = (sc_on, filters, new_bits)
         shards = range(n_tiles)
         src_s = split(src, devs)
         ref_h = _halo_planes(split(ref, devs))
@@ -216,7 +237,7 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
         rates_s = None
         if golden:
             gold_h = _halo_planes(split(gold, devs))
-            rates_s = [_rates_on(rates, devs[t]) for t in shards]
+            rates_s = [_rates_on(rates, devs[t], held) for t in shards]
         pm = [prev_mv[t * b_loc:(t + 1) * b_loc].to(devs[t]) for t in shards]
         zones = [_encode_zone_shard(src_s, ref_h, pm, g, consts,
                                     gold_h=gold_h, rates=rates_s)]
@@ -242,17 +263,16 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
         rec_y = _pad_edge(recs[0], g.pad_h, g.pad_w)
         rec_u = _pad_edge(recs[1], g.pad_h // 2, g.pad_w // 2)
         rec_v = _pad_edge(recs[2], g.pad_h // 2, g.pad_w // 2)
-        return out, loop_filter_device(rec_y, rec_u, rec_v, g, lf_lvl,
-                                       lf_lim, lf_mblim)
+        return out, loop_filter_device(rec_y, rec_u, rec_v, g, sc_on[dev0])
 
     def step(src_y, src_u, src_v, ref_y, ref_u, ref_v, prev_mv, prev_mv16,
              *rest):
         if len(rest) + 8 != n_fixed:
             raise TypeError(f"step takes {n_fixed} arguments, got "
                             f"{len(rest) + 8}")
-        scal = rest[:6]
-        gold = rest[6:9]
-        rates = rest[9] if golden else None
+        sc = rest[0]
+        gold = rest[1:4]
+        rates = rest[4] if golden else None
         n_frames = src_y.shape[0]
         if n_frames % len(mesh):
             raise ValueError(f"{n_frames} frames over {len(mesh)} frame "
@@ -265,7 +285,7 @@ def make_pframe_step_sharded(geom: Geom, mesh, n_tiles: int,
                     devs, (src_y[f], src_u[f], src_v[f]),
                     (ref_y[f], ref_u[f], ref_v[f]),
                     tuple(p[f] for p in gold), prev_mv[f], prev_mv16[f],
-                    scal, rates))
+                    sc, rates))
         dev00 = mesh[0][0]
         outs = {k: torch.stack([o[k].to(dev00) for o, _ in frames])
                 for k in frames[0][0]}
@@ -292,7 +312,8 @@ def mesh_devices(n_tiles: int, device):
 
 
 def make_rt_step_sharded(geom: Geom, mesh_shape, device,
-                         split16: bool = False, golden: bool = False):
+                         split16: bool = False, golden: bool = False,
+                         devices=None):
     """The sharded step behind ``RtSession(mesh_shape=)``, with
     ``make_pframe_step``'s call and outputs (one frame, border-extended
     references in and out, block arrays in raster order, "m32" and at a
@@ -300,25 +321,29 @@ def make_rt_step_sharded(geom: Geom, mesh_shape, device,
     serializer do not know about shards:
 
         step(src_y, src_u, src_v, ref_y, ref_u, ref_v,
-             [gold_y, gold_u, gold_v,] prev_mv32, prev_mv16, dc_q, ac_q,
-             lam, lf_lvl, lf_lim, lf_mblim [, rates])       # golden
+             [gold_y, gold_u, gold_v,] prev_mv32, prev_mv16, sc
+             [, rates])                                      # golden
 
-    The mesh is (1, prod(mesh_shape)) over ``mesh_devices``; the outputs
-    and references land on ``device``. Raises ValueError as the JAX
-    package's does: split16 (not sharded), too few cards, and the
-    geometries ``make_pframe_step_sharded`` refuses. The step carries
+    The mesh is (1, prod(mesh_shape)) over ``mesh_devices``, or over
+    ``devices`` where given (a device may repeat: a dry run of a mesh on
+    one card); the outputs and references land on ``device``. Raises
+    ValueError as the JAX package's does: split16 (not sharded), too few
+    cards, and the geometries ``make_pframe_step_sharded`` refuses. The step carries
     ``devices``, its mesh's devices."""
     if split16:
         raise ValueError("split16 is not supported on the sharded step")
     n_tiles = math.prod(int(d) for d in mesh_shape)
-    devs = mesh_devices(n_tiles, device)
+    devs = (mesh_devices(n_tiles, device) if devices is None
+            else [torch.device(d) for d in devices])
+    if len(devs) != n_tiles:
+        raise ValueError(f"a (1, {n_tiles}) mesh over {len(devs)} devices")
     base = make_pframe_step_sharded(geom, [devs], n_tiles, golden=golden)
     out_dev = torch.device(device)
     g = geom
     B = BORDER
     rows, cols_loc = g.rows32, g.cols32 // n_tiles
     n_refs = 6 if golden else 3
-    n_fixed = 3 + n_refs + 8 + (1 if golden else 0)
+    n_fixed = 3 + n_refs + 3 + (1 if golden else 0)
 
     def to_shard_major(pm):
         return pm.reshape(rows, n_tiles, cols_loc, 2).permute(1, 0, 2, 3) \
@@ -338,14 +363,12 @@ def make_rt_step_sharded(geom: Geom, mesh_shape, device,
             raise TypeError(f"step takes {n_fixed} arguments, got "
                             f"{len(rest) + 3}")
         refs = rest[:n_refs]
-        (prev_mv32, prev_mv16, dc_q, ac_q, lam, lf_lvl, lf_lim,
-         lf_mblim) = rest[n_refs:n_refs + 8]
-        extra = tuple(unbordered(p) for p in refs[3:]) + rest[n_refs + 8:]
+        prev_mv32, prev_mv16, sc = rest[n_refs:n_refs + 3]
+        extra = tuple(unbordered(p) for p in refs[3:]) + rest[n_refs + 3:]
         outs, (nry, nru, nrv) = base(
             src_y[None], src_u[None], src_v[None],
             *(unbordered(p) for p in refs[:3]),
-            to_shard_major(prev_mv32)[None], prev_mv16[None], dc_q, ac_q,
-            lam, lf_lvl, lf_lim, lf_mblim, *extra)
+            to_shard_major(prev_mv32)[None], prev_mv16[None], sc, *extra)
         m32 = {k: to_raster(outs[k][0]) for k in ZONE_KEYS}
         m32["dist"] = outs["dist"][0].to(out_dev)
         m32["rate"] = outs["rate"][0].to(out_dev)

@@ -74,7 +74,7 @@ def main(argv) -> int:
     lib, report = _build.build_source(src, "kf_phases")
     print("\n".join(report))
     fn = lib.kframe_wave_launch
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -90,14 +90,15 @@ def main(argv) -> int:
     q = qp_to_qindex(40)
     dc_q, ac_q = T.dc_quant(q), T.ac_quant(q)
     lam = max(1, (ac_q * ac_q) >> 6)
+    sc = P.step_scalars(dc_q, ac_q, lam, 0, 0, 0, dev)
     rows, cols = g.rows32, g.cols32
     mode, lvs, eob, recs = K.kf_outputs(g, dev)
     mats, tabs = K._kf_tables_on(dev)
     scratch = torch.zeros(1 + rows * cols * K.KF_EDGE_WORDS,
                           dtype=torch.int64, device=dev)
     ptrs = [t.data_ptr() for t in (*ts, *recs, mode, *lvs, eob, mats, tabs)]
-    err = fn(*ptrs, scratch.data_ptr() + 8, scratch.data_ptr(), g.pad_w,
-             g.height, rows, cols, dc_q, ac_q, lam, K.KF_MAX_POLLS,
+    err = fn(*ptrs, scratch.data_ptr() + 8, scratch.data_ptr(),
+             sc.data_ptr(), g.pad_w, g.height, rows, cols, K.KF_MAX_POLLS,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed with CUDA error {err}")

@@ -71,8 +71,8 @@ def _build_stamped(path: str):
     with open(path) as fh:
         src = _stamped_source(fh.read())
     lib, _ = _build.build_source(src, "lf_phases")
-    lib.loop_filter_launch.argtypes = ([ctypes.c_void_p] * 7
-                                       + [ctypes.c_int] * 11
+    lib.loop_filter_launch.argtypes = ([ctypes.c_void_p] * 8
+                                       + [ctypes.c_int] * 8
                                        + [ctypes.c_void_p])
     lib.lf_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
@@ -101,6 +101,7 @@ def main(argv) -> int:
     lvl = LVL
     lim_t, mblim_t = sharpness_limits(0)
     lim, mblim = int(lim_t[lvl]), int(mblim_t[lvl])
+    sc = P.step_scalars(40, 48, 100, lvl, lim, mblim, dev)
     rng = np.random.default_rng(1)
     mask = torch.from_numpy(rng.integers(0, 2, (g.rows32, g.cols32))
                             .astype(np.int32)).to(dev)
@@ -112,9 +113,9 @@ def main(argv) -> int:
             lib.lf_clear_stamps()
             err = lib.loop_filter_launch(
                 *(t.data_ptr() for t in planes + outs),
-                None if split is None else split.data_ptr(), g.pad_h,
-                g.pad_w, g.h_mi, g.w_mi, g.pad_h, g.rows32, g.cols32, lvl,
-                lim, mblim, K.LF_ALL_PARTS,
+                None if split is None else split.data_ptr(), sc.data_ptr(),
+                g.pad_h, g.pad_w, g.h_mi, g.w_mi, g.pad_h, g.rows32,
+                g.cols32, K.LF_ALL_PARTS,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")

@@ -2,6 +2,7 @@
 card.
 
     python3 -m tpu_vp9_torch.utils.step_stages [--frames N] [--calls R]
+        [--tune-sq]
 
 and, from the root of another tree of the port (an older checkout), the
 same script timing that tree's package:
@@ -11,7 +12,8 @@ same script timing that tree's package:
 
 Encodes panning_frames(1920, 1080, 2 + 3N, seed=1) at enc_mode 8, low
 delay, CQP qp 40 through the public encoder (the device keyframe, GOLDEN,
-the 32-against-16 descent): the keyframe and N P-frames to warm up, then N
+the 32-against-16 descent; with ``--tune-sq`` tune SQ, the adaptive
+lambda): the keyframe and N P-frames to warm up, then N
 P-frames with ``utils.trace`` on (each ``step_*`` span's host-clock time,
 mean per P-frame: the time the host spends enqueueing the stage), then N
 more under torch.profiler: each ``step_*`` range's device time in PyTorch
@@ -187,7 +189,7 @@ def main() -> int:
 
     import tpu_vp9_torch
     from tpu_vp9_torch.api import Vp9Encoder
-    from tpu_vp9_torch.config import EncoderConfig, PredStructure
+    from tpu_vp9_torch.config import EncoderConfig, PredStructure, Tune
     from tpu_vp9_torch.ops import _build
     from tpu_vp9_torch.utils import trace
     from tpu_vp9_torch.utils.device import card_info
@@ -197,6 +199,7 @@ def main() -> int:
         if "--frames" in sys.argv else 4
     reps = int(sys.argv[sys.argv.index("--calls") + 1]) \
         if "--calls" in sys.argv else 0
+    tune = {"tune": Tune.SQ} if "--tune-sq" in sys.argv else {}
     libs = sorted(os.path.basename(p)[:-3]
                   for p in glob.glob(os.path.join(_build.CSRC, "*.cu")))
     t0 = time.perf_counter()
@@ -207,7 +210,7 @@ def main() -> int:
     enc = Vp9Encoder(device="cuda")
     enc.set_parameter(EncoderConfig(
         source_width=WIDTH, source_height=HEIGHT, enc_mode=8,
-        pred_structure=PredStructure.LOW_DELAY_P, qp=QP))
+        pred_structure=PredStructure.LOW_DELAY_P, qp=QP, **tune))
     enc.init()
     for frame in frames[:1 + n]:
         enc.send_picture(frame)
@@ -250,8 +253,9 @@ def main() -> int:
     device = {e.key: e.device_time_total / 1e3 / n for e in averages
               if e.key.startswith("step_")
               and e.device_type == DeviceType.CPU}
-    print(f"1080p M8 P-frame send: {1000 * statistics.mean(sends):.2f} ms "
-          f"host clock, mean of {n} (synchronized)")
+    print(f"1080p M8{' tune SQ' if tune else ''} P-frame send: "
+          f"{1000 * statistics.mean(sends):.2f} ms host clock, mean of {n} "
+          "(synchronized)")
     for stage in sorted(set(host) | set(device)):
         hand = {k: v / n for k, v in launches.get(stage, {}).items()}
         hand_ms = sum(v * per_launch.get(k, 0.0) for k, v in hand.items())
